@@ -1,0 +1,16 @@
+"""dlrover_tpu_torch: the PyTorch/CUDA port of ``dlrover_tpu`` for
+NVIDIA Hopper (H100).
+
+The JAX package ``dlrover_tpu`` stays beside it as the reference every
+ported module is tested against. This package imports ``torch`` and
+never ``jax`` or anything of ``dlrover_tpu``: it keeps its own copies
+of the pieces it needs. Module names follow the JAX package so a reader
+finds the counterpart of each file.
+
+Ported so far: the serving path (``serving.server.GenerationServer`` →
+``serving.scheduler`` → ``serving.engine.ServingEngine`` →
+``models.decoder.Decoder`` paged decode/prefill →
+``ops.paged_attention``, a hand-written CUDA kernel for ``sm_90a``).
+Entry points run on ``device="cuda"`` unless the caller asks for the
+CPU; without a card they raise instead of falling back.
+"""

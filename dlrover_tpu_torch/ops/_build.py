@@ -1,0 +1,106 @@
+"""Build the port's CUDA sources at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds), cached under ``build/dlrover_tpu_torch/`` at the root of
+the checkout by a hash of the sources and flags. Only sources in the
+repository are used. ``build(name)`` compiles one source if it is not
+built yet; ``load(name)`` builds it if needed and returns the
+``ctypes.CDLL``. A failed build raises with the compiler's output:
+nothing falls back to a plain version.
+
+Nothing here runs at import: the CPU tests import every module, on
+machines that may have no ``nvcc``.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dlrover_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def sources() -> Dict[str, Path]:
+    """Kernel sources by name (``csrc/<name>.cu``)."""
+    return {p.stem: p for p in sorted(CSRC.glob("*.cu"))}
+
+
+def nvcc() -> str:
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")):
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").exists():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the port's CUDA kernels are "
+        "built from csrc/ at first use"
+    )
+
+
+def library_path(name: str) -> Path:
+    """Where ``name``'s library lives: keyed by the bytes of its source,
+    of every header in ``csrc/`` and of the flags."""
+    h = hashlib.sha256()
+    h.update(sources()[name].read_bytes())
+    for hdr in sorted(CSRC.glob("*.cuh")):
+        h.update(hdr.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(name: str) -> float:
+    """Compile ``csrc/<name>.cu`` unless it is built already. Returns the
+    wall seconds of the compile (0.0 for a library already built).
+    Raises on failure, with the compiler's output."""
+    out = library_path(name)
+    if out.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])]
+    t0 = time.monotonic()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    seconds = time.monotonic() - t0
+    out.with_suffix(".log").write_text(proc.stdout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"CUDA build of {name} failed: nvcc exit "
+                           f"{proc.returncode}\n{proc.stdout}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return seconds
+
+
+def build_log(name: str) -> str:
+    """The compiler's output of ``name``'s last build (``-Xptxas=-v``
+    lists each kernel's registers, shared memory and spills)."""
+    log = library_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build(name)
+            lib = ctypes.CDLL(str(library_path(name)))
+            _libs[name] = lib
+        return lib
