@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``dlrover_tpu_torch``) on one card.
 
-Drives the port's serving path — ``GenerationServer`` → ``Scheduler`` →
-``ServingEngine`` → ``Decoder`` paged prefill/decode →
-``ops.paged_attention`` (the hand-written CUDA kernel built from
-``dlrover_tpu_torch/csrc/``) — with llama3-8b at full width and depth
-and random weights drawn on the card from ``--seed``. Phases, one JSON
-line each; any failure exits nonzero and prints no result:
+Drives the port's two main paths with random weights drawn on the card
+from ``--seed``, through the hand-written CUDA kernels built from
+``dlrover_tpu_torch/csrc/``:
+
+- serving: ``GenerationServer`` → ``Scheduler`` → ``ServingEngine`` →
+  ``Decoder`` paged prefill/decode → ``ops.paged_attention``, with
+  llama3-8b at full width and depth;
+- training: ``TrainStepBuilder.build()`` → ``loss_fn`` → ``forward`` →
+  24 layers (``ops.norm`` fused norms, ``ops.flash_attention``) →
+  ``fused_linear_ce`` → backward (the flash and norm backward kernels)
+  → AdamW, with llama-1.4b at full width and depth, batch 8 × seq 1024.
+
+Phases, one JSON line each; any failure exits nonzero and prints no
+result:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the
-   kernel build from source;
+   kernel builds from source (one ``nvcc`` per source, all at once);
 2. kernel: every paged-attention case against its plain PyTorch
    version at llama3-8b's attention shapes (H 32, Hkv 8, D 128, page
    16): decode at B=8 and chunk at C=256, bf16 and int8 pools, window 0
@@ -31,19 +39,38 @@ line each; any failure exits nonzero and prints no result:
    and the kernel's launch counts on that path must be above zero;
 5. profile: the decode step and a prefill chunk at the serve shapes,
    timed (CUDA events and wall) and traced (``torch.profiler``): kernel
-   time by class, launches per step, the device's busy share.
+   time by class, launches per step, the device's busy share;
+6. train_kernel: the flash kernels (forward, dq, dkv) and the norm
+   kernels (forward, backward) against their plain versions run in f32
+   on the same bf16 values, at llama-1.4b's shapes (flash B 8, S 1024,
+   H 16, D 128, causal; norm rows [8192, 2048], with and without the
+   residual) and in extra cases (GQA, a window, D 64, a ragged S), each
+   under an element-wise bound and each with a planted fault the bound
+   must catch; with each kernel's time, its bound, the plain version's
+   time and the library call's (``F.scaled_dot_product_attention``,
+   ``F.rms_norm``, timed only);
+7. train_model: ``loss_fn`` and every gradient of an f32 llama-1.4b cut
+   to 4 layers, through the kernels against the plain paths
+   (``mha_reference``, the plain norm); a layer whose attention sees one
+   future key must exceed the bound;
+8. train: llama-1.4b, full depth, 6 steps of ``TrainStepBuilder`` on one
+   fixed batch: finite, falling loss and the expected launches of every
+   training kernel; step time, tokens/s, model-FLOPs share, peak memory;
+9. train_profile: one step under ``torch.profiler``: kernel time by
+   class, launches per step, the device's busy share.
 
 The lines before the last are the card's name and power limit and a
 ``{"kernels": [...]}`` summary; the last line is
-``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``
-(``--skip-serve`` stops after phase 3).
+``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``.
 """
 
 import argparse
+import concurrent.futures
 import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import re
 import subprocess
 import sys
@@ -54,8 +81,19 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_OPS_PER_S = 989e12    # dense bf16 tensor-core peak
+H100_F32_OPS_PER_S = 67e12      # f32 on the CUDA cores
 PAGED_SRC = "dlrover_tpu_torch/csrc/paged_attention.cu"
 PAGED_REPLACES = "dlrover_tpu/ops/pallas_paged.py:300"
+FLASH_SRC = "dlrover_tpu_torch/csrc/flash_attention.cu"
+NORM_SRC = "dlrover_tpu_torch/csrc/fused_norm.cu"
+# the training kernels: (name, source, the TPU kernel it replaces)
+TRAIN_KERNELS = (
+    ("flash_fwd", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:213"),
+    ("flash_bwd_dq", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:369"),
+    ("flash_bwd_dkv", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:423"),
+    ("norm_fwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:95"),
+    ("norm_bwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:126"),
+)
 # Kernel vs plain version, per element of the attention output. The
 # plain version runs in f32 on the very values the kernel reads (bf16 q
 # and pools upcast exactly; int8 pages dequantized through the codec to
@@ -78,6 +116,37 @@ KERNEL_RTOL = 2.0 ** -8
 # a dropped page's.
 MODEL_REL_TOL = 1e-3
 F32_CHECK_LAYERS = 4
+# Training kernels vs their plain versions run in f32 on the same bf16
+# values, per element. bf16 keeps 8 significant bits, so one rounding is
+# at most 2^-8 relative. A bf16 kernel rounds (a) its output once, and
+# (b) the probabilities p (forward, dV) or ds (dQ, dK) before the
+# products that consume them, at most 2^-8 · M in all, where M is the
+# same product on magnitudes (sum_j p_j·|v_j| for the forward, P^T·|dO|
+# for dV, |dS|·|K| for dQ, |dS|^T·|Q| for dK), which the check computes
+# in f32. The f32 sums of the two sides differ in order only: 2^-12 · M
+# more covers that with room to spare. One difference is not relative to
+# M: ds = p·(dp − delta)·scale subtracts two f32 dot products of D terms
+# computed in another order on each side, which cancel where a query
+# sees few keys; each is off by at most D·2^-24 ≤ 2^-16 of its terms'
+# magnitudes, so dQ and dK take 2^-16 · C more, with C the product of
+# p·scale·(|dO|·|V|^T + rowsum(|dO|·|O|)) with |K| (dQ) or |Q| (dK).
+# Bound: 2^-8·|plain| + (2^-8 + 2^-12)·M (+ 2^-16·C for dQ, dK).
+FLASH_ROUND = 2.0 ** -8
+FLASH_SLACK = 2.0 ** -12
+FLASH_DOT = 2.0 ** -16
+# Norms: the kernel rounds its output once (2^-8 relative); its f32 row
+# sums differ from the plain version's in order only, far below 2^-16 of
+# the terms' magnitudes (M = |x·r·s| forward; |r·g·s| + |r³·dot·h| for
+# dx). Bound: 2^-8·|plain| + 2^-16·M + 1e-6. dscale (f32 column sums of
+# 8192 rows): 1e-5 of the sum of magnitudes.
+NORM_ROUND = 2.0 ** -8
+NORM_SLACK = 2.0 ** -16
+# The f32 train_model check: max |Δ| over max |value| of the loss and of
+# every gradient leaf, kernels (f32 instantiations) against the plain
+# paths, TF32 off; the two differ in summation order only.
+TRAIN_MODEL_REL_TOL = 1e-3
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 
 _failures = []
 
@@ -610,13 +679,607 @@ def profile_steps(model, cfg, seed, dev, steps=8):
 
 
 # ---------------------------------------------------------------------------
+# phase 1: build every kernel source, one nvcc each, all at once
+# ---------------------------------------------------------------------------
+
+
+def build_all():
+    from dlrover_tpu_torch.ops import _build
+
+    names = list(_build.sources())
+    t0 = time.monotonic()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as ex:
+        secs = dict(zip(names, ex.map(_build.build, names)))
+    per = {}
+    for name in names:
+        log = _build.build_log(name)
+        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+        spill = sum(int(a) + int(b) for a, b in re.findall(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+        per[name] = {"compile_s": secs[name], "kernels": len(regs),
+                     "max_registers": max(regs, default=0),
+                     "spill_bytes": spill}
+    emit({"phase": "build", "seconds": time.monotonic() - t0,
+          "sources": per})
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the training kernels
+# ---------------------------------------------------------------------------
+
+
+def _over(out, ref, bound):
+    """(max |out − ref|, elements over ``bound``, max |out − ref| / bound)."""
+    diff = (out.float() - ref.float()).abs()
+    return (float(diff.max()), int((diff > bound).sum()),
+            float((diff / bound).max()))
+
+
+def _flash_magnitudes(q, k, v, out, lse, g, causal, scale, window):
+    """The magnitude products of the flash bounds, in f32, one batch
+    element at a time: sum_j p_j·|v_j| (forward), P^T·|dO| (dV),
+    |dS|·|K| (dQ) and |dS|^T·|Q| (dK), and the cancellation terms C of
+    dQ and dK; dK/dV magnitudes summed over each KV head's query-head
+    group. Returns (fwd, dq, dk, dv, dq_c, dk_c)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
+    mask = fa._allowed(sq, sk, causal, window, None, None, q.device)
+    fwd_m = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dq_m = torch.empty_like(fwd_m)
+    dk_m = torch.empty(k.shape, dtype=torch.float32, device=q.device)
+    dv_m = torch.empty_like(dk_m)
+    dq_c, dk_c = torch.empty_like(dq_m), torch.empty_like(dk_m)
+
+    def kv_sum(x):  # [H, Sk, D] → [Sk, Hkv, D], summed over each group
+        return x.reshape(hkv, rep, sk, d).sum(1).transpose(0, 1)
+
+    for i in range(b):
+        qi = q[i].float().transpose(0, 1)
+        ki = k[i].float().transpose(0, 1).repeat_interleave(rep, 0)
+        vi = v[i].float().transpose(0, 1).repeat_interleave(rep, 0)
+        gi = g[i].float().transpose(0, 1)
+        oi = out[i].float().transpose(0, 1)
+        s = torch.einsum("hqd,hkd->hqk", qi, ki) * scale
+        if mask is not None:
+            s = torch.where(mask, s, -1e30)
+        p = torch.exp(s - lse[i].float()[..., None])
+        fwd_m[i] = torch.einsum("hqk,hkd->hqd", p, vi.abs()).transpose(0, 1)
+        dp = torch.einsum("hqd,hkd->hqk", gi, vi)
+        ds = (p * (dp - (gi * oi).sum(-1)[..., None]) * scale).abs()
+        dq_m[i] = torch.einsum("hqk,hkd->hqd", ds, ki.abs()).transpose(0, 1)
+        dk_m[i] = kv_sum(torch.einsum("hqk,hqd->hkd", ds, qi.abs()))
+        dv_m[i] = kv_sum(torch.einsum("hqk,hqd->hkd", p, gi.abs()))
+        c = p * scale * (torch.einsum("hqd,hkd->hqk", gi.abs(), vi.abs())
+                         + (gi.abs() * oi.abs()).sum(-1)[..., None])
+        dq_c[i] = torch.einsum("hqk,hkd->hqd", c, ki.abs()).transpose(0, 1)
+        dk_c[i] = kv_sum(torch.einsum("hqk,hqd->hkd", c, qi.abs()))
+        del s, p, dp, ds, c
+    return fwd_m, dq_m, dk_m, dv_m, dq_c, dk_c
+
+
+def _visible_pairs(s, causal, window):
+    """(query, key) pairs one head of one sequence attends over."""
+    if not causal:
+        return s * s
+    if not window:
+        return s * (s + 1) // 2
+    return sum(min(i + 1, window) for i in range(s))
+
+
+def _flash_bound(kernel, b, s, h, hkv, d, causal, window):
+    """(bound ms, by what) of one flash kernel's share of the work for
+    this call: bf16 tensors read and written once (lse/delta f32), and
+    2·D FLOP per visible pair for each product (forward: QK^T, PV). The
+    backward's least work is five products (10·D per pair, the FA2
+    minimum) and one read of q, k, v, dO, lse, delta; the work the two
+    backward kernels share (the reads, QK^T and dO·V^T) is counted once,
+    in dkv (QK^T, dO·V^T, P^T·dO, dS^T·Q, every read, the dk/dv writes),
+    so dq holds only dS·K and its dq write, and the two bounds add up to
+    the backward's. The split kernels execute 14·D per pair: both
+    recompute QK^T and dO·V^T."""
+    q_bytes, kv_bytes, row = b * s * h * d * 2, b * s * hkv * d * 2, b * h * s * 4
+    pairs = b * h * _visible_pairs(s, causal, window)
+    if kernel == "flash_fwd":
+        moved, ops = 2 * q_bytes + 2 * kv_bytes + row, 4 * d * pairs
+    elif kernel == "flash_bwd_dq":
+        moved, ops = q_bytes, 2 * d * pairs
+    else:
+        moved, ops = 2 * q_bytes + 4 * kv_bytes + 2 * row, 8 * d * pairs
+    return _bound(moved, ops)
+
+
+def _bwd_kernel_fn(which, q, k, v, g, lse, delta, *, causal, scale,
+                   window):
+    """One backward kernel alone (1: dq, 2: dkv), launched through the C
+    entry, to time it: its outputs are thrown away and its launch count
+    is not touched."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    outs = [torch.empty_like(x) for x in (q, k, v)]
+    args = ([x.data_ptr() for x in (q, k, v, g, lse, delta, *outs)]
+            + [b, sq, sk, h, hkv, d, float(scale), int(causal), int(window),
+               fa._DTYPE_CODE[q.dtype],
+               torch.cuda.current_stream(q.device).cuda_stream])
+
+    def run():
+        err = fa._lib()["bwd"](which, *args)
+        if err:
+            raise RuntimeError(f"flash bwd kernel {which}: cudaError {err}")
+        return outs
+
+    return run
+
+
+def _sdpa_train_ms(q, k, v, g, causal, scale):
+    """``F.scaled_dot_product_attention`` forward, and its backward
+    through autograd, on the same bf16 tensors: the yardsticks."""
+    import torch.nn.functional as F
+
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    gqa = q.shape[2] != k.shape[2]
+
+    def fwd(a, b_, c):
+        return F.scaled_dot_product_attention(a, b_, c, is_causal=causal,
+                                              scale=scale, enable_gqa=gqa)
+
+    fwd_ms = cuda_ms(lambda: fwd(qt, kt, vt), 20)
+    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+    o = fwd(*leaves)
+    bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, gt,
+                                                 retain_graph=True), 10)
+    return fwd_ms, bwd_ms
+
+
+def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    scale = d ** -0.5
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, g = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
+        rnd(b, s, h, d)
+    kw = dict(causal=causal, scale=scale, window=window)
+    out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq, dk, dv = fa.flash_bwd_cuda(q, k, v, g, lse, delta, **kw)
+    torch.cuda.synchronize()
+    f32 = [x.float() for x in (q, k, v)]
+    ref_out, ref_lse = fa.flash_fwd_reference(*f32, **kw)
+    rdq, rdk, rdv = fa.flash_bwd_reference(*f32, out.float(), lse,
+                                           g.float(), **kw)
+    fm, dqm, dkm, dvm, dqc, dkc = _flash_magnitudes(
+        q, k, v, out, lse, g, causal, scale, window)
+
+    def bound(ref, m, c=0.0):
+        return (FLASH_ROUND * ref.abs() + (FLASH_ROUND + FLASH_SLACK) * m
+                + FLASH_DOT * c)
+
+    bounds = {"out": bound(ref_out, fm), "dq": bound(rdq, dqm, dqc),
+              "dk": bound(rdk, dkm, dkc), "dv": bound(rdv, dvm)}
+    refs = {"out": ref_out, "dq": rdq, "dk": rdk, "dv": rdv}
+    got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
+    checks = {n: _over(got[n], refs[n], bounds[n]) for n in refs}
+    checks["lse"] = _over(lse, ref_lse, 1e-5 * (1 + ref_lse.abs()))
+    # planted fault: key row S/2 of every KV head replaced
+    kb = k.clone()
+    kb[:, s // 2] = rnd(b, hkv, d)
+    out_b, _ = fa.flash_fwd_cuda(q, kb, v, **kw)
+    bad = dict(zip(("dq", "dk", "dv"),
+                   fa.flash_bwd_cuda(q, kb, v, g, lse, delta, **kw)))
+    bad["out"] = out_b
+    torch.cuda.synchronize()
+    faults = {n: _over(bad[n], refs[n], bounds[n])[1] for n in refs}
+    rec = {"phase": "train_kernel", "case": name, "op": "flash",
+           "B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "causal": causal,
+           "window": window,
+           "max_abs_err": {n: c[0] for n, c in checks.items()},
+           "over_bound": {n: c[1] for n, c in checks.items()},
+           "max_err_over_bound": {n: c[2] for n, c in checks.items()},
+           "fault": "key row S/2 replaced", "fault_over_bound": faults,
+           "finite": bool(all(torch.isfinite(t.float()).all()
+                              for t in (out, lse, dq, dk, dv)))}
+    rec["ok"] = (rec["finite"] and all(c[1] == 0 for c in checks.values())
+                 and all(n > 0 for n in faults.values()))
+    if timed:
+        fwd_plain = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, **kw), 3)
+        bwd_plain = cuda_ms(lambda: fa.flash_bwd_reference(
+            q, k, v, out, lse, g, **kw), 3)
+        lib_fwd, lib_bwd = ((None, None) if window else
+                            _sdpa_train_ms(q, k, v, g, causal, scale))
+        rec["timing"] = {}
+        for kernel, fn, plain, lib in (
+                ("flash_fwd", lambda: fa.flash_fwd_cuda(q, k, v, **kw),
+                 fwd_plain, lib_fwd),
+                ("flash_bwd_dq", _bwd_kernel_fn(1, q, k, v, g, lse, delta,
+                                                **kw), bwd_plain, lib_bwd),
+                ("flash_bwd_dkv", _bwd_kernel_fn(2, q, k, v, g, lse, delta,
+                                                 **kw), bwd_plain, lib_bwd)):
+            bound_ms, by = _flash_bound(kernel, b, s, h, hkv, d, causal,
+                                        window)
+            rec["timing"][kernel] = {
+                "ms": cuda_ms(fn, 20), "plain_ms": plain, "library_ms": lib,
+                "bound_ms": bound_ms, "bound_by": by}
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"train_kernel {name}: {rec}")
+    return rec
+
+
+def _norm_bound(kernel, n, d, residual):
+    """(bound ms, by what): bf16 rows read and written once (f32 scale
+    and dscale once); the f32 arithmetic per element over the CUDA
+    cores' f32 rate (forward 4 + the add; backward 10)."""
+    rows = 2 * n * d
+    if kernel == "norm_fwd":
+        moved = rows * (2 + 2 * residual) + 4 * d
+        ops = (4 + residual) * n * d
+    else:
+        moved = rows * (3 + residual) + 8 * d
+        ops = 10 * n * d
+    t_bytes = moved / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def norm_case(name, n, d, residual, gen, dev, timed):
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import norm as nm
+
+    eps = nm.RMS_EPS
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    x, g = rnd(n, d), rnd(n, d)
+    r = rnd(n, d) if residual else None
+    gh = rnd(n, d) if residual else None
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
+    out, h = nm.norm_fwd_cuda(x, scale, None, r, "rmsnorm", eps)
+    dx, ds, _ = nm.norm_bwd_cuda(g, h, scale, gh, "rmsnorm", eps, False)
+    torch.cuda.synchronize()
+    h_ref = x + r if residual else x  # bf16 add: the f32 sum rounded once
+    h32, g32 = h_ref.float(), g.float()
+    ref = nm._reference(h32, scale, None, "rmsnorm", eps, None)
+    rr = torch.rsqrt((h32 * h32).mean(-1, keepdim=True) + eps)
+    fwd_bound = (NORM_ROUND * ref.abs() + NORM_SLACK * (h32 * rr * scale).abs()
+                 + 1e-6)
+    rdx, rds, _ = nm.norm_bwd_reference(
+        g32, h32, scale, None if gh is None else gh.float(), "rmsnorm", eps,
+        False)
+    dot = (g32 * scale * h32).mean(-1, keepdim=True)
+    m_dx = (rr * g32 * scale).abs() + (rr ** 3 * dot * h32).abs()
+    dx_bound = NORM_ROUND * rdx.abs() + NORM_SLACK * m_dx + 1e-6
+    ds_bound = 1e-5 * (g32 * h32 * rr).abs().sum(0) + 1e-6
+    checks = {"out": _over(out, ref, fwd_bound),
+              "dx": _over(dx, rdx, dx_bound),
+              "dscale": _over(ds, rds, ds_bound)}
+    h_exact = bool(torch.equal(h, h_ref))
+    # planted faults: row 17 of x (forward) and of g (backward) replaced
+    # by row 18
+    xb, gb = x.clone(), g.clone()
+    xb[17], gb[17] = x[18], g[18]
+    out_b, _ = nm.norm_fwd_cuda(xb, scale, None, r, "rmsnorm", eps)
+    dx_b, _, _ = nm.norm_bwd_cuda(gb, h, scale, gh, "rmsnorm", eps, False)
+    torch.cuda.synchronize()
+    faults = {"out": _over(out_b, ref, fwd_bound)[1],
+              "dx": _over(dx_b, rdx, dx_bound)[1]}
+    rec = {"phase": "train_kernel", "case": name, "op": "norm",
+           "rows": n, "d": d, "residual": residual, "kind": "rmsnorm",
+           "max_abs_err": {k: c[0] for k, c in checks.items()},
+           "over_bound": {k: c[1] for k, c in checks.items()},
+           "max_err_over_bound": {k: c[2] for k, c in checks.items()},
+           "h_bitwise": h_exact, "fault": "row 17 replaced by row 18",
+           "fault_over_bound": faults}
+    rec["ok"] = (h_exact and all(c[1] == 0 for c in checks.values())
+                 and all(v > 0 for v in faults.values()))
+    if timed:
+        w16 = scale.to(torch.bfloat16)
+        xl = x.detach().requires_grad_()
+        wl = w16.detach().requires_grad_()
+        y = F.rms_norm(xl, (d,), wl, eps)
+        rec["timing"] = {
+            "norm_fwd": {
+                "ms": cuda_ms(lambda: nm.norm_fwd_cuda(
+                    x, scale, None, r, "rmsnorm", eps), 50),
+                "plain_ms": cuda_ms(lambda: nm._reference(
+                    x, scale, None, "rmsnorm", eps, r), 20),
+                "library_ms": None if residual else cuda_ms(
+                    lambda: F.rms_norm(x, (d,), w16, eps), 50)},
+            "norm_bwd": {
+                "ms": cuda_ms(lambda: nm.norm_bwd_cuda(
+                    g, h, scale, gh, "rmsnorm", eps, False), 50),
+                "plain_ms": cuda_ms(lambda: nm.norm_bwd_reference(
+                    g, h, scale, gh, "rmsnorm", eps, False), 20),
+                "library_ms": None if residual else cuda_ms(
+                    lambda: torch.autograd.grad(y, (xl, wl), g,
+                                                retain_graph=True), 50)},
+        }
+        for kernel, t in rec["timing"].items():
+            t["bound_ms"], t["bound_by"] = _norm_bound(kernel, n, d,
+                                                       residual)
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"train_kernel {name}: {rec}")
+    return rec
+
+
+def train_kernel_cases(seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed + 10)
+    cases = [
+        # llama-1.4b's attention in the train step: timed
+        flash_case("llama-1.4b", 8, 1024, 16, 16, 128, True, 0, gen, dev,
+                   True),
+        flash_case("gqa", 2, 1024, 16, 4, 128, True, 0, gen, dev, False),
+        flash_case("window", 2, 1024, 16, 16, 128, True, 256, gen, dev,
+                   False),
+        flash_case("d64", 2, 1024, 16, 16, 64, True, 0, gen, dev, False),
+        flash_case("ragged", 2, 1000, 8, 2, 128, False, 0, gen, dev, False),
+        # the train step's norms: [B·S, d_model] rows, timed
+        norm_case("llama-1.4b", 8192, 2048, False, gen, dev, True),
+        norm_case("llama-1.4b+residual", 8192, 2048, True, gen, dev, True),
+    ]
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the f32 training check
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def future_key_attention(layer: int):
+    """The planted fault: attention call ``layer`` (the layer's index in a
+    forward) runs through the kernels with every query one position
+    later, so query i also sees key i + 1 — the causal edge off by one."""
+    from dlrover_tpu_torch.models import decoder
+
+    saved = decoder.flash_attention
+    calls = [0]
+
+    def attn(q, k, v, **kw):
+        i = calls[0]
+        calls[0] += 1
+        if i != layer:
+            return saved(q, k, v, **kw)
+        q1 = torch.cat([torch.zeros_like(q[:, :1]), q], 1)
+        k1 = torch.cat([k, k[:, -1:]], 1)
+        v1 = torch.cat([v, v[:, -1:]], 1)
+        return saved(q1, k1, v1, **kw)[:, 1:]
+
+    decoder.flash_attention = attn
+    try:
+        yield
+    finally:
+        decoder.flash_attention = saved
+
+
+def train_model_check(cfg, seed, dev):
+    from dlrover_tpu_torch.models import decoder
+
+    model = decoder.init(cfg, seed=seed, device=dev, trainable=True)
+    rng = np.random.default_rng(seed + 5)
+    tok = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ + 1)),
+        device=dev)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    names = [n for n, _ in model.named_parameters()]
+    leaves = [p for _, p in model.named_parameters()]
+
+    def run(run_cfg, attn_impl, ctx):
+        with ctx:
+            loss, _ = decoder.loss_fn(model, batch, run_cfg,
+                                      attn_impl=attn_impl)
+            grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        return [loss.detach()] + list(grads)
+
+    kern = run(cfg, "auto", contextlib.nullcontext())
+    plain = run(dataclasses.replace(cfg, fused_norm=False), "reference",
+                contextlib.nullcontext())
+    fault = run(cfg, "auto", future_key_attention(1))
+
+    def rel(a, b):
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    labels = ["loss"] + names
+    sound = {n: rel(a, b) for n, a, b in zip(labels, kern, plain)}
+    planted = {n: rel(a, b) for n, a, b in zip(labels, fault, plain)}
+    worst = max(sound, key=sound.get)
+    caught = max(planted, key=planted.get)
+    rec = {"phase": "train_model", "config": cfg.name, "dtype": cfg.dtype,
+           "n_layer": cfg.n_layer, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "tol_rel": TRAIN_MODEL_REL_TOL, "loss": float(kern[0]),
+           "loss_plain": float(plain[0]), "leaves": len(names),
+           "max_rel_err": sound[worst], "max_rel_err_leaf": worst,
+           "loss_rel_err": sound["loss"],
+           "fault": "layer 1 attention sees one future key",
+           "fault_max_rel_err": planted[caught], "fault_leaf": caught,
+           "fault_loss_rel_err": planted["loss"],
+           "finite": all(bool(torch.isfinite(t).all()) for t in kern)}
+    rec["ok"] = (rec["finite"] and sound[worst] <= TRAIN_MODEL_REL_TOL
+                 < planted[caught])
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"train_model: {rec}")
+    del model, kern, plain, fault
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: llama-1.4b trains; where a step's time goes
+# ---------------------------------------------------------------------------
+
+
+def _train_launches():
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import norm as nm
+
+    return {**fa.LAUNCHES, **nm.LAUNCHES}
+
+
+def _reset_train_launches():
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import norm as nm
+
+    fa.reset_launches()
+    nm.reset_launches()
+
+
+def train_run(cfg, seed, dev):
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    opt = make_optimizer(learning_rate=1e-4, warmup_steps=10,
+                         decay_steps=1000)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = init_train_state(seed, cfg, opt, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    step = TrainStepBuilder(cfg, opt, device=dev).build()
+    rng = np.random.default_rng(seed + 6)
+    tok = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ + 1)),
+        device=dev)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    losses, grad_norms, device_ms, wall_ms = [], [], [], []
+    _reset_train_launches()
+    for _ in range(TRAIN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        e0.record()
+        state, m = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        wall_ms.append((time.perf_counter() - t) * 1e3)
+        device_ms.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+        grad_norms.append(float(m["grad_norm"]))
+    launches = _train_launches()
+    n_norm = 2 * cfg.n_layer + 1
+    expected = {"flash_fwd": cfg.n_layer, "flash_bwd_dq": cfg.n_layer,
+                "flash_bwd_dkv": cfg.n_layer, "norm_fwd": n_norm,
+                "norm_bwd": n_norm}
+    expected = {k: v * TRAIN_STEPS for k, v in expected.items()}
+    steady = sorted(device_ms[1:])[len(device_ms[1:]) // 2]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rec = {"phase": "train", "config": cfg.name, "n_layer": cfg.n_layer,
+           "params": sum(p.numel() for p in state["params"].parameters()),
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "init_s": init_s, "losses": losses, "grad_norms": grad_norms,
+           "step_device_ms": device_ms, "step_wall_ms": wall_ms,
+           "steady_step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
+           "mfu": cfg.flops_per_token(TRAIN_SEQ) * tokens / (steady / 1e3)
+           / H100_BF16_OPS_PER_S,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "launches": launches, "launches_expected": expected}
+    rec["ok"] = (all(math.isfinite(x) for x in losses + grad_norms)
+                 and losses[-1] < losses[0] and launches == expected)
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"train: {rec}")
+    return state, step, batch, rec, opt
+
+
+def _train_kernel_class(name: str) -> str:
+    low = name.lower()
+    if "flash_fwd_kernel" in low or "flash_bwd_" in low:
+        return "flash"
+    if "norm_fwd_kernel" in low or "norm_bwd_kernel" in low:
+        return "norm"
+    if any(k in low for k in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
+        return "matmul"
+    if "foreach" in low or "multi_tensor" in low:
+        return "optimizer"
+    return "elementwise"
+
+
+def _phase_ms(state, batch, cfg, opt):
+    """One more step run in its pieces under CUDA events: forward (loss),
+    backward, the optimizer update, and the same update by the fused
+    AdamW (``fused_adamw``, one ``_foreach`` walk) on the same grads."""
+    from dlrover_tpu_torch.models import decoder
+    from dlrover_tpu_torch.train.optimizer import fused_adamw
+
+    model = state["params"]
+    params = dict(model.named_parameters())
+    for p in params.values():
+        p.grad = None
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    ev[0].record()
+    loss, _ = decoder.loss_fn(model, batch, cfg)
+    ev[1].record()
+    loss.backward()
+    ev[2].record()
+    grads = {n: p.grad for n, p in params.items()}
+    opt.update_(params, grads, state["opt_state"])
+    ev[3].record()
+    fused = fused_adamw(opt.learning_rate, b1=opt.b1, b2=opt.b2,
+                        eps=opt.eps, weight_decay=opt.weight_decay,
+                        grad_clip=opt.grad_clip)
+    fused.update_(params, grads, state["opt_state"])
+    ev[4].record()
+    torch.cuda.synchronize()
+    for p in params.values():
+        p.grad = None
+    names = ("forward_ms", "backward_ms", "optimizer_ms",
+             "fused_optimizer_ms")
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def train_profile(state, step, batch, cfg, opt):
+    from torch.profiler import ProfilerActivity, profile
+
+    _reset_train_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1e3
+    by_class, n_by_class, by_name = {}, {}, {}
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = evt.device_time / 1e3
+        cls = _train_kernel_class(evt.name)
+        by_class[cls] = by_class.get(cls, 0.0) + ms
+        n_by_class[cls] = n_by_class.get(cls, 0) + 1
+        by_name[evt.name] = by_name.get(evt.name, 0.0) + ms
+    busy = sum(by_class.values())
+    if not busy or not n_by_class.get("flash") or not n_by_class.get("norm"):
+        raise RuntimeError(f"train profile: the trace holds no device time "
+                           f"for the flash or norm kernels ({n_by_class})")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    emit({"phase": "train_profile", "traced_wall_ms": traced_ms,
+          "untraced_step_ms": _phase_ms(state, batch, cfg, opt),
+          "kernel_ms": busy, "device_busy_share": busy / traced_ms,
+          "kernels_per_step": sum(n_by_class.values()),
+          "kernels_per_step_by_class": n_by_class,
+          "kernel_ms_by_class": by_class,
+          "launches": _train_launches(),
+          "top_kernels_ms": [[n[:80], t] for n, t in top]})
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--skip-serve", action="store_true",
-                    help="stop after the model-level check")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -624,7 +1287,6 @@ def main(argv=None) -> int:
         return 2
     from dlrover_tpu_torch.models import decoder
     from dlrover_tpu_torch.models.config import get_config
-    from dlrover_tpu_torch.ops import _build
     from dlrover_tpu_torch.ops import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -637,15 +1299,7 @@ def main(argv=None) -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
     with phase("build"):
-        t0 = time.monotonic()
-        secs = _build.build("paged_attention")
-        log = _build.build_log("paged_attention")
-        regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
-        spill = sum(int(a) + int(b) for a, b in re.findall(
-            r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
-        emit({"phase": "build", "seconds": time.monotonic() - t0,
-              "compile_s": secs, "kernels": len(regs),
-              "max_registers": max(regs, default=0), "spill_bytes": spill})
+        build_all()
     if _failures:
         print("\n".join(_failures), file=sys.stderr)
         return 1
@@ -673,17 +1327,36 @@ def main(argv=None) -> int:
         model32 = decoder.init(cfg32, seed=args.seed, device=dev)
         model_check(model32, cfg32, args.seed, dev)
         del model32
-    main_launches = dict.fromkeys(pa.KERNELS, 0)
-    if not args.skip_serve:
-        rng = np.random.default_rng(args.seed + 3)
-        lengths = rng.integers(64, 1537, size=16)
-        with phase("serve"):
-            rec = serve(model, cfg, args.seed, dev, "int8", 16, lengths)
-            main_launches = rec["launches"]
-        with phase("serve_bf16"):
-            serve(model, cfg, args.seed, dev, "bf16", 4, lengths)
-        with phase("profile"):
-            profile_steps(model, cfg, args.seed, dev)
+    rng = np.random.default_rng(args.seed + 3)
+    lengths = rng.integers(64, 1537, size=16)
+    main_launches = {}
+    with phase("serve"):
+        rec = serve(model, cfg, args.seed, dev, "int8", 16, lengths)
+        main_launches = rec["launches"]
+    with phase("serve_bf16"):
+        serve(model, cfg, args.seed, dev, "bf16", 4, lengths)
+    with phase("profile"):
+        profile_steps(model, cfg, args.seed, dev)
+    del model
+    torch.cuda.empty_cache()
+
+    train_cases = []
+    with phase("train_kernel"):
+        train_cases = train_kernel_cases(args.seed, dev)
+    with phase("train_model"):
+        train_model_check(get_config("llama-1.4b", n_layer=F32_CHECK_LAYERS,
+                                     dtype="float32"), args.seed, dev)
+    torch.cuda.empty_cache()
+    state = None
+    train_launches = {}
+    cfg = get_config("llama-1.4b")
+    with phase("train"):
+        state, step, batch, rec, opt = train_run(cfg, args.seed, dev)
+        train_launches = rec["launches"]
+    if state is not None:
+        with phase("train_profile"):
+            train_profile(state, step, batch, cfg, opt)
+        del state
     if _failures:
         print("\n".join(_failures), file=sys.stderr)
         return 1
@@ -701,6 +1374,23 @@ def main(argv=None) -> int:
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
+        })
+    outputs = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
+               "flash_bwd_dkv": ("dk", "dv"), "norm_fwd": ("out",),
+               "norm_bwd": ("dx",)}
+    for kernel, src, replaces in TRAIN_KERNELS:
+        op = "flash" if kernel.startswith("flash") else "norm"
+        mine = [c for c in train_cases if c["op"] == op]
+        head = next(c for c in mine if "timing" in c)
+        t = head["timing"][kernel]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": train_launches[kernel],
+            "max_abs_err": max(c["max_abs_err"][o] for c in mine
+                               for o in outputs[kernel]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
         })
     print(smi, flush=True)
     emit({"kernels": kernels})

@@ -1,0 +1,361 @@
+// Fused rmsnorm / layernorm, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the TPU kernels of dlrover_tpu/ops/pallas_norm.py:
+//   norm_fwd_kernel <- _fwd_kernel (driven by _call_fwd)
+//   norm_bwd_kernel <- _bwd_kernel (driven by _norm_call_bwd)
+// with the same arithmetic. Forward: the optional residual add in the
+// input type (h = x + res, rounded once, also written out), statistics in
+// f32 (rmsnorm: mean of squares; layernorm: single-pass E[x], E[x^2] with
+// the variance clamped at 0), out = stat-normed x * scale (+ bias) cast to
+// the input type. Backward: the statistics recomputed from the saved
+// stream h, dx from the per-row formulas of _bwd_kernel, the stream's own
+// cotangent gh added to dx, and the dscale / dbias partials of each block
+// written to [n_blocks, d] f32 rows that the caller sums (as JAX sums its
+// per-program partials).
+//
+// What bounds it: bytes. A row of d elements costs a few FLOP per element
+// against 2-4 bytes moved, far below the card's ~295 FLOP/byte ridge. The
+// design moves each byte once: one warp owns one row, reads it with 16-byte
+// vector loads (8 bf16 or 4 f32 per lane per load), keeps it in registers
+// between the statistics and the output (NV vectors per lane, chosen at
+// launch from d), and writes each output once. The backward's column sums
+// (dscale, dbias) accumulate per warp in shared memory and leave each block
+// as one partial row, so no atomics are needed and the partials stay small
+// ([n / 32, d] at 32 rows a block).
+//
+// Interface: plain C functions launched on the caller's stream; they
+// allocate nothing and return cudaGetLastError() after the launch.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarps = 8;          // rows in flight per block
+constexpr int kBwdRowsPerBlock = 32;
+
+using bf16 = __nv_bfloat16;
+
+// 16 bytes of a row: 8 bf16 or 4 f32, moved as one vector access.
+template <typename T>
+struct alignas(16) Vec {
+  static constexpr int N = 16 / sizeof(T);
+  T e[N];
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T>
+__device__ __forceinline__ Vec<T> load_vec(const T* p) {
+  return *reinterpret_cast<const Vec<T>*>(p);
+}
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, const Vec<T>& v) {
+  *reinterpret_cast<Vec<T>*>(p) = v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// forward: one warp per row; lane holds vectors lane, lane + 32, ...
+// ---------------------------------------------------------------------------
+
+template <typename T, bool RMS, bool RES, bool BIAS, int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+    norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                    const float* __restrict__ scale,
+                    const float* __restrict__ bias, T* __restrict__ out,
+                    T* __restrict__ h_out, int n, int d, float eps) {
+  constexpr int VEC = Vec<T>::N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kWarps + warp;
+  if (row >= n) return;
+  const size_t base = (size_t)row * d;
+  const int n_vec = d / VEC;
+  Vec<T> hv[NV];
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int vi = lane + 32 * j;
+    if (vi >= n_vec) break;
+    hv[j] = load_vec(x + base + vi * VEC);
+    if constexpr (RES) {
+      const Vec<T> rv = load_vec(res + base + vi * VEC);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)  // the add in the input type
+        hv[j].e[e] = from_f32<T>(to_f32(hv[j].e[e]) + to_f32(rv.e[e]));
+      store_vec(h_out + base + vi * VEC, hv[j]);
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const float f = to_f32(hv[j].e[e]);
+      s1 += f;
+      s2 += f * f;
+    }
+  }
+  s2 = warp_sum(s2);
+  float mean = 0.f, r;
+  if constexpr (RMS) {
+    r = rsqrtf(s2 / d + eps);
+  } else {
+    s1 = warp_sum(s1);
+    mean = s1 / d;
+    const float var = fmaxf(s2 / d - mean * mean, 0.f);
+    r = rsqrtf(var + eps);
+  }
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int vi = lane + 32 * j;
+    if (vi >= n_vec) break;
+    Vec<T> ov;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      const int c = vi * VEC + e;
+      float y = RMS ? to_f32(hv[j].e[e]) * r
+                    : (to_f32(hv[j].e[e]) - mean) * r;
+      y = y * scale[c];
+      if constexpr (BIAS) y = y + bias[c];
+      ov.e[e] = from_f32<T>(y);
+    }
+    store_vec(out + base + vi * VEC, ov);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// backward: kBwdRowsPerBlock rows per block, one warp per row at a time
+// ---------------------------------------------------------------------------
+
+template <typename T, bool RMS, bool RES, bool BIAS, int NV>
+__global__ void __launch_bounds__(kWarps * 32)
+    norm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ h,
+                    const float* __restrict__ scale, const T* __restrict__ gh,
+                    T* __restrict__ dx, float* __restrict__ dscale_part,
+                    float* __restrict__ dbias_part, int n, int d, float eps) {
+  constexpr int VEC = Vec<T>::N;
+  extern __shared__ float part[];  // [kWarps][d] dscale (+ [kWarps][d] dbias)
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n_vec = d / VEC;
+  float* ds_w = part + (size_t)warp * d;
+  float* db_w = part + (size_t)(kWarps + warp) * d;
+  for (int c = lane; c < d; c += 32) {
+    ds_w[c] = 0.f;
+    if constexpr (BIAS) db_w[c] = 0.f;
+  }
+  const int row_end = min(n, (blockIdx.x + 1) * kBwdRowsPerBlock);
+  for (int row = blockIdx.x * kBwdRowsPerBlock + warp; row < row_end;
+       row += kWarps) {
+    const size_t base = (size_t)row * d;
+    Vec<T> gv[NV], hv[NV];
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int vi = lane + 32 * j;
+      if (vi >= n_vec) break;
+      gv[j] = load_vec(g + base + vi * VEC);
+      hv[j] = load_vec(h + base + vi * VEC);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float f = to_f32(hv[j].e[e]);
+        s1 += f;
+        s2 += f * f;
+      }
+    }
+    s2 = warp_sum(s2);
+    float mean = 0.f, r;
+    if constexpr (RMS) {
+      r = rsqrtf(s2 / d + eps);
+    } else {
+      s1 = warp_sum(s1);
+      mean = s1 / d;
+      r = rsqrtf(fmaxf(s2 / d - mean * mean, 0.f) + eps);
+    }
+    // the row sums of the formulas: rms sum(gx * h); layer sum(gx) and
+    // sum(gx * xhat), gx = g * scale, xhat = (h - mean) * r
+    float dot = 0.f, m1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int vi = lane + 32 * j;
+      if (vi >= n_vec) break;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int c = vi * VEC + e;
+        const float gx = to_f32(gv[j].e[e]) * scale[c];
+        const float hf = to_f32(hv[j].e[e]);
+        if constexpr (RMS) {
+          dot += gx * hf;
+        } else {
+          m1 += gx;
+          dot += gx * ((hf - mean) * r);
+        }
+      }
+    }
+    dot = warp_sum(dot) / d;
+    if constexpr (!RMS) m1 = warp_sum(m1) / d;
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int vi = lane + 32 * j;
+      if (vi >= n_vec) break;
+      Vec<T> ghv;
+      if constexpr (RES) ghv = load_vec(gh + base + vi * VEC);
+      Vec<T> ov;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const int c = vi * VEC + e;
+        const float gf = to_f32(gv[j].e[e]);
+        const float hf = to_f32(hv[j].e[e]);
+        const float gx = gf * scale[c];
+        float dxv;
+        if constexpr (RMS) {
+          dxv = r * gx - (r * r * r) * dot * hf;
+          ds_w[c] += gf * hf * r;
+        } else {
+          const float xhat = (hf - mean) * r;
+          dxv = r * (gx - m1 - xhat * dot);
+          ds_w[c] += gf * xhat;
+          if constexpr (BIAS) db_w[c] += gf;
+        }
+        if constexpr (RES) dxv += to_f32(ghv.e[e]);
+        ov.e[e] = from_f32<T>(dxv);
+      }
+      store_vec(dx + base + vi * VEC, ov);
+    }
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < d; c += kWarps * 32) {
+    float s = 0.f, sb = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      s += part[(size_t)w * d + c];
+      if constexpr (BIAS) sb += part[(size_t)(kWarps + w) * d + c];
+    }
+    dscale_part[(size_t)blockIdx.x * d + c] = s;
+    if constexpr (BIAS) dbias_part[(size_t)blockIdx.x * d + c] = sb;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+struct Call {
+  const void* a;      // fwd: x; bwd: g
+  const void* b;      // fwd: res; bwd: h
+  const float* scale;
+  const float* bias;  // fwd: bias
+  const void* c;      // bwd: gh
+  void* out;          // fwd: out; bwd: dx
+  void* h_out;        // fwd: h
+  float* ds_part;
+  float* db_part;
+  int n, d;
+  float eps;
+};
+
+template <typename T, bool RMS, bool RES, bool BIAS, int NV>
+cudaError_t launch_one(bool fwd, const Call& k, cudaStream_t st) {
+  if (fwd) {
+    const dim3 grid((k.n + kWarps - 1) / kWarps);
+    norm_fwd_kernel<T, RMS, RES, BIAS, NV><<<grid, kWarps * 32, 0, st>>>(
+        static_cast<const T*>(k.a), static_cast<const T*>(k.b), k.scale,
+        k.bias, static_cast<T*>(k.out), static_cast<T*>(k.h_out), k.n, k.d,
+        k.eps);
+    return cudaGetLastError();
+  }
+  auto kernel = norm_bwd_kernel<T, RMS, RES, BIAS, NV>;
+  const size_t smem = sizeof(float) * (BIAS ? 2 : 1) * kWarps * k.d;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((k.n + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock);
+  kernel<<<grid, kWarps * 32, smem, st>>>(
+      static_cast<const T*>(k.a), static_cast<const T*>(k.b), k.scale,
+      static_cast<const T*>(k.c), static_cast<T*>(k.out), k.ds_part,
+      k.db_part, k.n, k.d, k.eps);
+  return cudaGetLastError();
+}
+
+template <typename T, bool RMS, bool RES, bool BIAS>
+cudaError_t pick_nv(bool fwd, const Call& k, cudaStream_t st) {
+  const int per_lane = (k.d / Vec<T>::N + 31) / 32;
+  if (per_lane <= 1) return launch_one<T, RMS, RES, BIAS, 1>(fwd, k, st);
+  if (per_lane <= 2) return launch_one<T, RMS, RES, BIAS, 2>(fwd, k, st);
+  if (per_lane <= 4) return launch_one<T, RMS, RES, BIAS, 4>(fwd, k, st);
+  if (per_lane <= 8) return launch_one<T, RMS, RES, BIAS, 8>(fwd, k, st);
+  if (per_lane <= 16) return launch_one<T, RMS, RES, BIAS, 16>(fwd, k, st);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t pick_kind(bool fwd, int rms, int res, int bias, const Call& k,
+                      cudaStream_t st) {
+  if (rms) {
+    return res ? pick_nv<T, true, true, false>(fwd, k, st)
+               : pick_nv<T, true, false, false>(fwd, k, st);
+  }
+  if (bias)
+    return res ? pick_nv<T, false, true, true>(fwd, k, st)
+               : pick_nv<T, false, false, true>(fwd, k, st);
+  return res ? pick_nv<T, false, true, false>(fwd, k, st)
+             : pick_nv<T, false, false, false>(fwd, k, st);
+}
+
+int dispatch(bool fwd, int rms, int res, int bias, int dtype, const Call& k,
+             void* stream) {
+  if (k.n <= 0 || k.d <= 0 || k.d % 8) return cudaErrorInvalidValue;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return pick_kind<bf16>(fwd, rms, res, bias, k, st);
+  if (dtype == 0) return pick_kind<float>(fwd, rms, res, bias, k, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows of d elements (d a multiple of 8 and at most 16 vectors of 16 bytes
+// a lane: d <= 4096 bf16 or 2048 f32); dtype:
+// 0 = float32, 1 = bfloat16 for x / res / out / h; scale and bias f32.
+// rms: 1 = rmsnorm, 0 = layernorm. Returns a cudaError_t (0 = launched).
+int dlrover_norm_fwd(const void* x, const void* res, const float* scale,
+                     const float* bias, void* out, void* h_out, int n, int d,
+                     float eps, int rms, int dtype, void* stream) {
+  Call k = {x, res, scale, bias, nullptr, out, h_out, nullptr, nullptr,
+            n, d, eps};
+  return dispatch(true, rms, res != nullptr, bias != nullptr, dtype, k,
+                  stream);
+}
+
+// The partials ds_part / db_part are [ceil(n / 32), d] f32 (db_part only
+// for layernorm with a bias); gh may be null (no residual).
+int dlrover_norm_bwd(const void* g, const void* h, const float* scale,
+                     const void* gh, void* dx, float* ds_part, float* db_part,
+                     int n, int d, float eps, int rms, int dtype,
+                     void* stream) {
+  Call k = {g, h, scale, nullptr, gh, dx, nullptr, ds_part, db_part,
+            n, d, eps};
+  return dispatch(false, rms, gh != nullptr, db_part != nullptr, dtype, k,
+                  stream);
+}
+
+int dlrover_norm_bwd_rows_per_block() { return kBwdRowsPerBlock; }
+
+}  // extern "C"

@@ -1,4 +1,4 @@
-"""Weight carry from the JAX param tree to the port's ``Decoder``.
+"""Weight carry between the JAX param tree and the port's ``Decoder``.
 
 The JAX decoder's params (``dlrover_tpu.models.decoder.init``'s nested
 dict) stack per-layer tensors on axis 0 and keep matrices as
@@ -6,7 +6,10 @@ dict) stack per-layer tensors on axis 0 and keep matrices as
 splits the layers, transposes every matrix into ``nn.Linear``'s
 ``[out, in]`` layout, takes ``lm_head.w`` or, for a tied model, the
 embedding, and loads the result (cast to the model's dtypes) into a
-``Decoder``. It reads numpy only: the caller moves arrays out of JAX.
+``Decoder``. ``jax_tree_from_state_dict`` is the bridge back: a state
+dict (parameters or their gradients) as the JAX tree of numpy arrays.
+It reads and writes numpy only: the caller moves arrays out of and into
+JAX.
 """
 
 from typing import Any, Dict
@@ -54,11 +57,51 @@ def state_dict_from_jax(params: Dict[str, Any], cfg: ModelConfig):
     return sd
 
 
+def jax_tree_from_state_dict(sd: Dict[str, torch.Tensor],
+                             cfg: ModelConfig) -> Dict[str, Any]:
+    """The JAX param tree (numpy f32 leaves, layers stacked on axis 0,
+    matrices ``[in, out]``) of a ``Decoder`` state dict, or of a dict of
+    its gradients under the same names."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError("MoE decoders are not ported yet")
+
+    def a(name, transpose=False):
+        x = sd[name].detach().float().cpu().numpy()
+        return np.ascontiguousarray(x.T if transpose else x)
+
+    def stack(fmt, transpose=False):
+        return np.stack([a(fmt.format(i), transpose)
+                         for i in range(cfg.n_layer)])
+
+    mlp_names = ("w_gate", "w_up", "w_down") if cfg.act == "swiglu" else (
+        "w_up", "w_down")
+    layers = {
+        "attn": {n: stack("layers.{}.attn.%s.weight" % n, True)
+                 for n in _ATTN},
+        "mlp": {n: stack("layers.{}.mlp.%s.weight" % n, True)
+                for n in mlp_names},
+    }
+    for ln in ("ln1", "ln2"):
+        layers[ln] = {"scale": stack("layers.{}.%s.scale" % ln)}
+        if cfg.norm == "layernorm":
+            layers[ln]["bias"] = stack("layers.{}.%s.bias" % ln)
+    tree = {"embed": {"tokens": a("embed.tokens")}, "layers": layers,
+            "final_norm": {"scale": a("final_norm.scale")}}
+    if cfg.norm == "layernorm":
+        tree["final_norm"]["bias"] = a("final_norm.bias")
+    if cfg.pos == "learned":
+        tree["pos_embed"] = {"table": a("pos_embed.table")}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = {"w": a("lm_head.weight", True)}
+    return tree
+
+
 @torch.no_grad()
 def load_jax_params(params: Dict[str, Any], cfg: ModelConfig, *,
-                    device="cuda") -> Decoder:
-    """A ``Decoder`` on ``device`` holding the JAX params' values
-    (matrices rounded to ``cfg.dtype``, norms kept f32)."""
-    model = Decoder(cfg, device=device)
+                    device="cuda", trainable: bool = False) -> Decoder:
+    """A ``Decoder`` on ``device`` holding the JAX params' values: frozen
+    matrices rounded to ``cfg.dtype`` (serving), or with ``trainable``
+    every parameter trainable in ``cfg.param_dtype``; norms f32."""
+    model = Decoder(cfg, device=device, trainable=trainable)
     model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
     return model

@@ -1,19 +1,27 @@
-"""Decoder-only transformer: the paged serving (decode) family.
+"""Decoder-only transformer: paged serving and the training forward.
 
-Port of the serving half of ``dlrover_tpu/models/decoder.py`` as an
-``nn.Module``: ``init`` (same parameter names and shapes, matrices in
-``nn.Linear``'s ``[out, in]`` layout, drawn from a ``torch.Generator``),
-``_norm``, ``_rope_tables``/``_rope``, ``_project_qkv`` and
-``_mlp_block`` (no fp8, no mesh), ``_cache_layer_tail`` (dense, with
-``parallel_residual``), ``_paged_guards``, ``decode_step_paged`` and
-``prefill_chunk_paged``.
+Port of ``dlrover_tpu/models/decoder.py`` as an ``nn.Module``: ``init``
+(same parameter names and shapes, matrices in ``nn.Linear``'s
+``[out, in]`` layout, drawn from a ``torch.Generator``), ``_norm``,
+``_rope_tables``/``_rope``, ``_project_qkv`` and ``_mlp_block`` (no fp8,
+no mesh), ``_cache_layer_tail`` (dense, with ``parallel_residual``),
+``_paged_guards``, ``decode_step_paged`` and ``prefill_chunk_paged`` for
+serving; ``_norm_block``, ``_attention_block``, ``_layer_body``,
+``run_trunk``, ``forward``, ``head_weight_scale`` and ``loss_fn`` for
+training (dense layers; no fp8, MoE, pipeline or mesh).
 
-For serving, matrices are stored in the compute dtype (``cfg.dtype``).
-JAX keeps f32 params and casts each weight with ``.astype(x.dtype)`` at
-every use, so the numbers are the same. Norm scales and biases stay
-f32, as JAX reads them. Logits are f32: the head runs on the f32 upcast
-of its bf16 operands, which is what JAX's ``preferred_element_type=f32``
-computes.
+For serving (``Decoder(cfg)``), matrices are stored frozen in the
+compute dtype (``cfg.dtype``). For training (``Decoder(cfg,
+trainable=True)``) every parameter is trainable in ``cfg.param_dtype``.
+Either way each matrix is cast to the activations' dtype at its use, as
+JAX's ``x @ w.astype(x.dtype)`` does (a no-op for serving's weights), so
+the numbers are the same. Norm scales and biases stay f32, as JAX reads
+them. Logits are f32: the head runs on the f32 upcast of its bf16
+operands, which is what JAX's ``preferred_element_type=f32`` computes.
+
+Training sends every layer norm through ``ops.norm`` (the fused norm
+kernels on the card) and attention through ``ops.flash_attention`` (the
+flash kernels on the card); on the CPU both run their plain versions.
 
 The paged steps write each new K/V row into its page cell IN PLACE
 (``ops.paged_attention.write_page_rows``) and attend through
@@ -28,9 +36,14 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models.config import ModelConfig
+from dlrover_tpu_torch.ops import norm as fused_norm
+from dlrover_tpu_torch.ops.attention import mha_reference
+from dlrover_tpu_torch.ops.fused_ce import _mm_f32, fused_linear_ce
+from dlrover_tpu_torch.ops.flash_attention import flash_attention
 from dlrover_tpu_torch.ops.paged_attention import (
     paged_attention,
     write_page_rows,
@@ -86,6 +99,25 @@ def _rope(x: torch.Tensor, rope) -> torch.Tensor:
     return out.reshape(x.shape).to(x.dtype)
 
 
+def _project_qkv(x, layer, cfg: ModelConfig, rope, *,
+                 mup_full_scale: bool):
+    """QKV projection + rope + muP q-scaling. muP wants 1/d_head of
+    attention scaling in all: the training attention applies
+    1/sqrt(d_head) itself, so q carries the other half; the cache paths
+    run attention at scale 1 and set ``mup_full_scale``."""
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    q = _dense(x, layer.attn.wq).reshape(b, s, nh, hd)
+    k = _dense(x, layer.attn.wk).reshape(b, s, nkv, hd)
+    v = _dense(x, layer.attn.wv).reshape(b, s, nkv, hd)
+    if rope is not None:
+        q = _rope(q, rope)
+        k = _rope(k, rope)
+    if cfg.mup_base_width:
+        q = q * (hd ** (-1.0 if mup_full_scale else -0.5))
+    return q, k, v
+
+
 def _paged_guards(cfg: ModelConfig, fn: str):
     if not cfg.causal:
         raise ValueError(f"{fn} requires a causal model")
@@ -108,6 +140,12 @@ def _paged_guards(cfg: ModelConfig, fn: str):
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``x @ w.astype(x.dtype)``: the weight cast to the activations'
+    dtype at its use (a no-op for serving's compute-dtype weights)."""
+    return F.linear(x, lin.weight.to(x.dtype))
 
 
 class Norm(nn.Module):
@@ -163,11 +201,12 @@ class MLP(nn.Module):
         self.w_down = _linear(f, d, dtype, device)
 
     def forward(self, x):
+        """``_mlp_block``: swiglu ``silu(x·Wg) * (x·Wu)`` or tanh-gelu."""
         if self.act == "swiglu":
-            h = F.silu(self.w_gate(x)) * self.w_up(x)
+            h = F.silu(_dense(x, self.w_gate)) * _dense(x, self.w_up)
         else:
-            h = F.gelu(self.w_up(x), approximate="tanh")
-        return self.w_down(h)
+            h = F.gelu(_dense(x, self.w_up), approximate="tanh")
+        return _dense(h, self.w_down)
 
 
 class Layer(nn.Module):
@@ -180,20 +219,24 @@ class Layer(nn.Module):
 
 
 class Decoder(nn.Module):
-    """The decoder's parameters and its paged serving steps.
+    """The decoder's parameters, its paged serving steps, and (through
+    the module functions ``forward``/``loss_fn``) its training forward.
 
     ``Decoder(cfg)`` allocates on ``device`` (default ``"cuda"``; raises
     without a card) with uninitialized weights: fill them with
-    ``init_weights`` or ``models.convert.load_jax_params``."""
+    ``init_weights`` or ``models.convert.load_jax_params``. Serving
+    weights are frozen in ``cfg.dtype``; ``trainable=True`` keeps every
+    parameter trainable in ``cfg.param_dtype`` instead."""
 
-    def __init__(self, cfg: ModelConfig, *, device="cuda"):
+    def __init__(self, cfg: ModelConfig, *, device="cuda",
+                 trainable: bool = False):
         super().__init__()
         if cfg.n_experts > 0:
             raise NotImplementedError(
                 "MoE decoders are not ported yet (ROADMAP A16)"
             )
         dev = resolve_device(device)
-        dt = getattr(torch, cfg.dtype)
+        dt = getattr(torch, cfg.param_dtype if trainable else cfg.dtype)
         self.cfg = cfg
         d, v = cfg.d_model, cfg.vocab_size
         self.embed = Table("tokens", (v, d), dt, dev)
@@ -203,7 +246,9 @@ class Decoder(nn.Module):
             Layer(cfg, dt, dev) for _ in range(cfg.n_layer)
         )
         self.final_norm = Norm(d, cfg.norm, dev)
-        self.lm_head = None if cfg.tie_embeddings else _linear(d, v, dt, dev)
+        self.lm_head = (None if cfg.tie_embeddings
+                        else _linear(d, v, dt, dev))
+        self.requires_grad_(trainable)
 
     @property
     def device(self) -> torch.device:
@@ -239,27 +284,13 @@ class Decoder(nn.Module):
     # ---- pieces ------------------------------------------------------------
 
     def _embed(self, tokens, positions):
+        """Token (and learned position) rows, cast to ``cfg.dtype``."""
         cfg = self.cfg
-        x = self.embed.tokens[tokens.long()]
+        dt = getattr(torch, cfg.dtype)
+        x = self.embed.tokens[tokens.long()].to(dt)
         if cfg.pos == "learned":
-            x = x + self.pos_embed.table[positions.long()]
+            x = x + self.pos_embed.table[positions.long()].to(dt)
         return x
-
-    def _project_qkv(self, x, layer: Layer, rope):
-        """QKV projection + rope + muP q-scaling (the cache paths run
-        attention at scale 1 under muP, so q carries all of 1/d)."""
-        cfg = self.cfg
-        b, s, _ = x.shape
-        nh, nkv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
-        q = layer.attn.wq(x).reshape(b, s, nh, hd)
-        k = layer.attn.wk(x).reshape(b, s, nkv, hd)
-        v = layer.attn.wv(x).reshape(b, s, nkv, hd)
-        if rope is not None:
-            q = _rope(q, rope)
-            k = _rope(k, rope)
-        if cfg.mup_base_width:
-            q = q * (hd ** -1.0)
-        return q, k, v
 
     def _cache_layer_tail(self, x, attn_out, layer: Layer):
         """Residual + MLP wiring shared by prefill and decode."""
@@ -295,7 +326,7 @@ class Decoder(nn.Module):
         for i, layer in enumerate(self.layers):
             pools_l = layer_pools(pools, i)
             h = layer.ln1(x)
-            q, k, v = self._project_qkv(h, layer, rope)
+            q, k, v = _project_qkv(h, layer, cfg, rope, mup_full_scale=True)
             # write-before-attend: the new rows are keys of this step
             write_page_rows(pools_l, tables, positions, write_valid, k, v)
             attn = paged_attention(
@@ -303,7 +334,7 @@ class Decoder(nn.Module):
                 window=cfg.attn_window, kv_heads=cfg.kv_heads,
                 max_pages=max_pages, variant=variant,
             ).reshape(b, c, cfg.n_head * cfg.head_dim)
-            x = self._cache_layer_tail(x, layer.attn.wo(attn), layer)
+            x = self._cache_layer_tail(x, _dense(attn, layer.attn.wo), layer)
         return x
 
     # ---- paged steps -------------------------------------------------------
@@ -364,9 +395,178 @@ class Decoder(nn.Module):
         return self._logits(x), pools
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> Decoder:
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+# remat policies of the JAX package that keep named residuals (save_attn,
+# save_qkv, ...): not ported yet
+_REMAT_NAMED = ("ROADMAP A21: remat policies that save named residuals "
+                "are not ported yet; use remat='none' or 'full'")
+
+
+def _norm_block(x, ln: Norm, cfg: ModelConfig, residual=None):
+    """The layer-body norm. ``cfg.fused_norm`` True sends it to
+    ``ops.norm.norm`` (the fused kernels on the card, their plain
+    versions on the CPU), False to the plain ``_norm``; None (auto) means
+    the kernel for a CUDA tensor and the plain ``_norm`` on the CPU. With
+    ``residual``, returns ``(norm(x + residual), x + residual)``."""
+    use_kernel = cfg.fused_norm
+    if use_kernel is None:
+        use_kernel = x.is_cuda
+    if use_kernel:
+        return fused_norm.norm(x, ln.scale, ln.bias, cfg.norm,
+                               residual=residual)
+    if residual is not None:
+        h = x + residual
+        return _norm(h, ln.scale, ln.bias, cfg.norm), h
+    return _norm(x, ln.scale, ln.bias, cfg.norm)
+
+
+def _attention_block(x, layer: Layer, cfg: ModelConfig, attn_fn, rope):
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(x, layer, cfg, rope, mup_full_scale=False)
+    out = attn_fn(q, k, v).reshape(b, s, cfg.n_head * cfg.head_dim)
+    return _dense(out, layer.attn.wo)
+
+
+def _layer_body(x, layer: Layer, cfg: ModelConfig, attn_fn, rope):
+    h = _norm_block(x, layer.ln1, cfg)
+    attn = _attention_block(h, layer, cfg, attn_fn, rope)
+    if cfg.parallel_residual:
+        # GPTNeoX: both branches read the layer input
+        h2 = _norm_block(x, layer.ln2, cfg)
+    else:
+        # the residual add rides in the norm kernel
+        h2, x = _norm_block(x, layer.ln2, cfg, residual=attn)
+    mlp_out = layer.mlp(h2)
+    return x + attn + mlp_out if cfg.parallel_residual else x + mlp_out
+
+
+def run_trunk(x, model: "Decoder", positions, cfg: ModelConfig, attn_fn):
+    """The layers over embedded inputs ``[B, S, D]`` → pre-final-norm
+    hidden states. ``cfg.remat``: "none", or "full" (each layer under
+    ``torch.utils.checkpoint``, non-reentrant: its activations are
+    recomputed in backward, as ``jax.checkpoint`` over the scan body)."""
+    if cfg.remat not in ("none", "full"):
+        raise NotImplementedError(f"remat={cfg.remat!r}: {_REMAT_NAMED}")
+    rope = (_rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+            if cfg.pos == "rope" else None)
+
+    def body(x, layer):
+        return _layer_body(x, layer, cfg, attn_fn, rope)
+
+    for layer in model.layers:
+        if cfg.remat == "full":
+            x = checkpoint(body, x, layer, use_reentrant=False)
+        else:
+            x = body(x, layer)
+    return x
+
+
+def _attn_fn(cfg: ModelConfig, attn_impl: str, prefix_len):
+    if attn_impl in ("auto", "flash"):
+        return lambda q, k, v: flash_attention(
+            q, k, v, causal=cfg.causal, window=cfg.attn_window,
+            prefix_len=prefix_len)
+    if attn_impl == "reference":
+        return lambda q, k, v: mha_reference(
+            q, k, v, causal=cfg.causal, window=cfg.attn_window,
+            prefix_len=prefix_len)
+    raise NotImplementedError(
+        f"attn_impl={attn_impl!r}: ring and ulysses attention wait for "
+        "the sequence-parallel port (ROADMAP A16)")
+
+
+def forward(model: "Decoder", tokens, cfg: Optional[ModelConfig] = None,
+            positions=None, attn_impl: str = "auto",
+            features_only: bool = False, prefix_len=None):
+    """tokens ``[B, S]`` → logits ``[B, S, V]`` f32, or with
+    ``features_only`` the final-normed hidden states ``[B, S, D]``.
+    ``attn_impl``: "auto"/"flash" (``ops.flash_attention``: the kernels
+    on the card, their plain versions on the CPU) or "reference"
+    (``mha_reference``). ``cfg`` defaults to the model's."""
+    cfg = model.cfg if cfg is None else cfg
+    b, s = tokens.shape
+    if positions is None:
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+    if cfg.prefix_lm and prefix_len is None:
+        raise ValueError(
+            "cfg.prefix_lm is set but no prefix_len was provided; pass "
+            "zeros for fully-causal behavior")
+    x = model._embed(tokens, positions)
+    x = run_trunk(x, model, positions, cfg, _attn_fn(cfg, attn_impl,
+                                                     prefix_len))
+    x = _norm_block(x, model.final_norm, cfg)
+    if features_only:
+        return x
+    w_out, head_scale = head_weight_scale(model, cfg)
+    logits = _mm_f32(x.reshape(b * s, -1), w_out.to(x.dtype))
+    if head_scale != 1.0:
+        logits = logits * head_scale
+    return logits.reshape(b, s, -1)
+
+
+def head_weight_scale(model: "Decoder", cfg: Optional[ModelConfig] = None):
+    """(lm-head weight ``[D, V]`` as a view of the parameter, static logit
+    multiplier). The muP readout multiplier applies only to a tied head."""
+    cfg = model.cfg if cfg is None else cfg
+    if cfg.tie_embeddings:
+        w = model.embed.tokens.t()
+    else:
+        w = model.lm_head.weight.t()
+    scale = 1.0
+    if cfg.mup_base_width and cfg.tie_embeddings:
+        scale = cfg.mup_base_width / cfg.d_model
+    return w, scale
+
+
+def loss_fn(model: "Decoder", batch: Dict[str, torch.Tensor],
+            cfg: Optional[ModelConfig] = None, z_loss: float = 0.0,
+            attn_impl: str = "auto", denom=None):
+    """``(loss, metrics)`` for ``batch`` {"tokens" [B, S], "targets"
+    [B, S], optional "mask" [B, S], optional "prefix_len" [B]}: masked
+    mean NLL over ``denom`` (default the mask's sum), plus ``z_loss`` ·
+    mean logz² when set. ``cfg.fused_ce`` runs the head through
+    ``fused_linear_ce``; otherwise the full f32 logits. Metrics: loss,
+    tokens, accuracy (and z_loss), detached."""
+    cfg = model.cfg if cfg is None else cfg
+    targets = batch["targets"]
+    kw = dict(cfg=cfg, attn_impl=attn_impl,
+              prefix_len=batch.get("prefix_len"))
+    if cfg.fused_ce:
+        feats = forward(model, batch["tokens"], features_only=True, **kw)
+        w_out, head_scale = head_weight_scale(model, cfg)
+        bv = min(cfg.ce_block_v, (cfg.vocab_size + 127) // 128 * 128)
+        logz, tgt_logit, amax = fused_linear_ce(feats, w_out, targets,
+                                                head_scale, bv)
+    else:
+        logits = forward(model, batch["tokens"], **kw)
+        logz = torch.logsumexp(logits, dim=-1)
+        tgt_logit = logits.gather(-1, targets.long()[..., None])[..., 0]
+        amax = logits.argmax(-1)
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones_like(targets, dtype=torch.float32)
+    mask = mask.float()
+    nll = (logz - tgt_logit) * mask
+    if denom is None:
+        denom = torch.clamp(mask.sum(), min=1.0)
+    loss = nll.sum() / denom
+    metrics = {"loss": loss.detach(), "tokens": mask.sum()}
+    if z_loss > 0.0:
+        zl = z_loss * torch.sum((logz * mask) ** 2) / denom
+        loss = loss + zl
+        metrics["z_loss"] = zl.detach()
+    acc = (amax == targets).float() * mask
+    metrics["accuracy"] = (acc.sum() / denom).detach()
+    return loss, metrics
+
+
+def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+         trainable: bool = False) -> Decoder:
     """A ``Decoder`` on ``device`` with weights drawn from ``seed``."""
     dev = resolve_device(device)
-    model = Decoder(cfg, device=dev)
+    model = Decoder(cfg, device=dev, trainable=trainable)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     return model.init_weights(gen)

@@ -1,0 +1,339 @@
+"""FlashAttention-2 forward and backward.
+
+Port of ``dlrover_tpu/ops/pallas_attention.py``:
+
+- ``flash_attention`` / ``flash_attention_with_lse`` — the ops, with
+  autograd. On CUDA tensors the forward launches ``flash_fwd_kernel`` and
+  the backward ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``, the
+  hand-written Hopper kernels of ``csrc/flash_attention.cu``, which
+  replace the TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel`` and
+  ``_bwd_dkv_kernel``. On CPU tensors the same autograd function runs the
+  plain versions. There is no other path: a CUDA tensor launches the
+  kernel or raises.
+- ``flash_fwd_reference`` / ``flash_bwd_reference`` — the plain PyTorch
+  versions: the forward as one block of the kernel's online softmax (p
+  relative to the row max, rounded to the input type before P·V, ``l``
+  summing the unrounded p), the backward the port of
+  ``_chunked_backward``. The CPU tests hold them against the JAX kernels;
+  ``chip_smoke.py`` holds the kernels against them.
+
+The mask is the flash kernels' (``_allowed_mask``): causal aligned
+top-left (query i sees key j iff ``i >= j``) and a sliding ``window``.
+``mha_reference`` aligns causal bottom-right; the two agree when
+``Sq == Sk``, the training case. Layout ``[B, S, H, D]``; GQA shares K/V
+by index (``H`` a multiple of ``Hkv``), never repeated in memory by the
+kernels. ``prefix_len`` (GLM prefix-LM) and ring ``offsets`` run only on
+the plain versions for now (ROADMAP B8).
+"""
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from dlrover_tpu_torch.ops.attention import NEG_INF
+
+#: the CUDA kernels of ``csrc/flash_attention.cu``
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+#: launches of each kernel since the last ``reset_launches()``
+LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_NOT_PORTED = ("prefix_len and ring offsets run only on the plain "
+               "versions: the CUDA kernels do not take them yet "
+               "(ROADMAP B8)")
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (the CPU path and the kernels' oracle)
+# ---------------------------------------------------------------------------
+
+
+def _allowed(sq, sk, causal, window, prefix, offsets, device):
+    """``[B or 1, Sq, Sk]`` visibility (None when unmasked), the rule of
+    ``_allowed_mask`` with the kernels' global offsets and prefix."""
+    if not causal:
+        return None
+    q_pos = torch.arange(sq, device=device)[:, None]
+    k_pos = torch.arange(sk, device=device)[None, :]
+    if offsets is not None:
+        off = torch.as_tensor(offsets, device=device).reshape(-1)
+        q_pos = q_pos + off[0]
+        k_pos = k_pos + off[1]
+    mask = q_pos >= k_pos
+    if window:
+        mask = mask & (q_pos - k_pos < window)
+    mask = mask[None]
+    if prefix is not None:
+        mask = mask | (k_pos[None] < prefix.to(device)[:, None, None])
+    return mask
+
+
+def _grouped(x, hkv):
+    """``[B, S, H, D]`` → ``[B, Hkv, G, S, D]`` f32 (query heads grouped by
+    the KV head they share)."""
+    b, s, h, d = x.shape
+    return x.float().permute(0, 2, 1, 3).reshape(b, hkv, h // hkv, s, d)
+
+
+def flash_fwd_reference(q, k, v, *, causal=True, scale=None, window=0,
+                        prefix=None, offsets=None):
+    """``(out [B, Sq, H, D] in q.dtype, lse [B, H, Sq] f32)``: the kernel's
+    online softmax over one block holding every key, so p is taken
+    against the row max, rounded to ``q.dtype`` before P·V, and ``l``
+    sums the unrounded p; ``l == 0 → 1``; ``lse = m + log l``."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    qg = _grouped(q, hkv)                                   # [B,Hkv,G,Sq,D]
+    kt = k.float().permute(0, 2, 1, 3)                      # [B,Hkv,Sk,D]
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qg, kt) * scale
+    mask = _allowed(sq, sk, causal, window, prefix, offsets, q.device)
+    if mask is not None:
+        s = torch.where(mask[:, None, None], s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l == 0.0, 1.0, l)
+    pv = p.to(q.dtype).float()
+    vt = v.float().permute(0, 2, 1, 3)
+    out = torch.einsum("bkgqc,bkcd->bkgqd", pv, vt) / l
+    lse = (m + torch.log(l))[..., 0].reshape(b, h, sq)
+    out = out.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+    return out.contiguous(), lse
+
+
+def flash_bwd_reference(q, k, v, out, lse, g, *, causal=True, scale=None,
+                        window=0, g_lse=None, prefix=None, offsets=None,
+                        chunk=1024):
+    """``(dq, dk, dv)`` from the saved ``(out, lse)``: the port of
+    ``_chunked_backward``. Recomputes ``p = exp(s − lse)`` one key chunk
+    at a time (never the whole ``[Sq, Sk]`` matrix), ``ds = p·(dp −
+    delta)·scale`` with ``delta = rowsum(dO·O)``, in f32, with GQA kept
+    at ``Hkv`` heads and dk/dv summed over each group. ``g_lse`` (the
+    cotangent of the lse output) folds into delta."""
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    groups = h // hkv
+    scale = d ** -0.5 if scale is None else scale
+    qt, gt, ot = _grouped(q, hkv), _grouped(g, hkv), _grouped(out, hkv)
+    kt = k.float().permute(0, 2, 1, 3)
+    vt = v.float().permute(0, 2, 1, 3)
+    lse_g = lse.float().reshape(b, hkv, groups, sq)
+    delta = (gt * ot).sum(-1)
+    if g_lse is not None:
+        delta = delta - g_lse.float().reshape(b, hkv, groups, sq)
+    mask = _allowed(sq, sk, causal, window, prefix, offsets, q.device)
+    dq = torch.zeros_like(qt)
+    dk = torch.empty_like(kt)
+    dv = torch.empty_like(vt)
+    for c0 in range(0, sk, chunk):
+        c1 = min(sk, c0 + chunk)
+        kc, vc = kt[:, :, c0:c1], vt[:, :, c0:c1]
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qt, kc) * scale
+        if mask is not None:
+            s = torch.where(mask[:, None, None, :, c0:c1], s, NEG_INF)
+        p = torch.exp(s - lse_g[..., None])
+        dv[:, :, c0:c1] = torch.einsum("bkgqc,bkgqd->bkcd", p, gt)
+        dp = torch.einsum("bkgqd,bkcd->bkgqc", gt, vc)
+        ds = p * (dp - delta[..., None]) * scale
+        dk[:, :, c0:c1] = torch.einsum("bkgqc,bkgqd->bkcd", ds, qt)
+        dq = dq + torch.einsum("bkgqc,bkcd->bkgqd", ds, kc)
+    dq = dq.reshape(b, h, sq, d).permute(0, 2, 1, 3).to(q.dtype)
+    return (dq.contiguous(), dk.permute(0, 2, 1, 3).contiguous().to(k.dtype),
+            dv.permute(0, 2, 1, 3).contiguous().to(v.dtype))
+
+
+# ---------------------------------------------------------------------------
+# The kernels
+# ---------------------------------------------------------------------------
+
+_fns = {}
+
+
+def _lib():
+    """The C entry points of ``csrc/flash_attention.cu``, built on first
+    use, with their argument types declared."""
+    if not _fns:
+        from dlrover_tpu_torch.ops import _build
+
+        lib = _build.load("flash_attention")
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fwd = lib.dlrover_flash_fwd
+        fwd.argtypes = [p] * 5 + [i] * 6 + [f, i, i, i, p]
+        fwd.restype = i
+        bwd = lib.dlrover_flash_bwd
+        bwd.argtypes = [i] + [p] * 9 + [i] * 6 + [f, i, i, i, p]
+        bwd.restype = i
+        _fns.update(fwd=fwd, bwd=bwd)
+    return _fns
+
+
+def _check(t, name, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, q on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _geometry(q, k, v):
+    b, sq, h, d = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"flash kernels take f32/bf16, got {q.dtype}")
+    if d not in _HEAD_DIMS:
+        raise ValueError(f"flash kernels take head_dim in {_HEAD_DIMS}, "
+                         f"got {d}")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"{h} query heads do not group over {hkv} KV heads")
+    _check(q, "q", q.device, q.dtype, (b, sq, h, d))
+    _check(k, "k", q.device, q.dtype, (b, sk, hkv, d))
+    _check(v, "v", q.device, q.dtype, (b, sk, hkv, d))
+    return b, sq, sk, h, hkv, d
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+def flash_fwd_cuda(q, k, v, *, causal, scale, window):
+    """``flash_fwd_kernel`` on ``q``'s device and current stream →
+    ``(out, lse)``."""
+    b, sq, sk, h, hkv, d = _geometry(q, k, v)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _lib()["fwd"](
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), b, sq, sk, h, hkv, d, float(scale), int(causal),
+        int(window), _DTYPE_CODE[q.dtype], stream)
+    _raise_on(err, "flash_fwd")
+    LAUNCHES["flash_fwd"] += 1
+    return out, lse
+
+
+def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window):
+    """``flash_bwd_dq_kernel`` then ``flash_bwd_dkv_kernel`` → ``(dq, dk,
+    dv)``. ``delta`` ``[B, H, Sq]`` f32 is ``rowsum(dO·O)`` (minus any
+    lse cotangent)."""
+    b, sq, sk, h, hkv, d = _geometry(q, k, v)
+    _check(g, "dO", q.device, q.dtype, q.shape)
+    _check(lse, "lse", q.device, torch.float32, (b, h, sq))
+    _check(delta, "delta", q.device, torch.float32, (b, h, sq))
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, sq, sk, h, hkv, d, float(scale), int(causal),
+            int(window), _DTYPE_CODE[q.dtype], stream)
+    for which, name in ((1, "flash_bwd_dq"), (2, "flash_bwd_dkv")):
+        _raise_on(_lib()["bwd"](which, *args), name)
+        LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+
+class _Flash(torch.autograd.Function):
+    """Saves ``(q, k, v, out, lse)`` like ``_fwd_rule``; the backward
+    computes ``delta`` in torch and runs the two backward kernels (or, on
+    the CPU, ``flash_bwd_reference``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, prefix, offsets):
+        kw = dict(causal=causal, scale=scale, window=window)
+        if q.device.type == "cuda":
+            if prefix is not None or offsets is not None:
+                raise NotImplementedError(_NOT_PORTED)
+            out, lse = flash_fwd_cuda(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), **kw)
+        elif q.device.type == "cpu":
+            out, lse = flash_fwd_reference(q, k, v, prefix=prefix,
+                                           offsets=offsets, **kw)
+        else:
+            raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                             f"{q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        ctx.extra = (prefix, offsets)
+        ctx.set_materialize_grads(False)  # an unused output's grad is None
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g_out, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        prefix, offsets = ctx.extra
+        if g_out is None:
+            g_out = torch.zeros_like(out)
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_bwd_reference(
+                q, k, v, out, lse, g_out, g_lse=g_lse, prefix=prefix,
+                offsets=offsets, **ctx.kw)
+        else:
+            g = g_out.to(q.dtype).contiguous()
+            b, sq, h, _ = q.shape
+            delta = (g_out.float() * out.float()).sum(-1)       # [B, S, H]
+            delta = delta.permute(0, 2, 1)
+            if g_lse is not None:
+                delta = delta - g_lse.float()
+            dq, dk, dv = flash_bwd_cuda(
+                q.contiguous(), k.contiguous(), v.contiguous(), g, lse,
+                delta.contiguous(), **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def _validate(q, k, causal, window, prefix_len):
+    if window:
+        if window < 0:
+            raise ValueError(f"window must be >= 0, got {window}")
+        if not causal:
+            raise ValueError("window requires causal=True")
+        if prefix_len is not None:
+            raise ValueError("window and prefix_len are mutually exclusive")
+    if prefix_len is not None and not causal:
+        raise ValueError("prefix_len requires causal=True")
+    if q.shape[2] % k.shape[2]:
+        raise ValueError(f"{q.shape[2]} query heads do not group over "
+                         f"{k.shape[2]} KV heads")
+
+
+def flash_attention_with_lse(q, k, v, *, causal: bool = True,
+                             softmax_scale: Optional[float] = None,
+                             window: int = 0, prefix_len=None, offsets=None):
+    """Flash attention returning ``(out, lse)``, both differentiable (ring
+    attention merges blocks through the lse, so its cotangent folds into
+    the backward's delta). q ``[B, Sq, H, D]``, k/v ``[B, Sk, Hkv, D]``;
+    lse ``[B, H, Sq]`` f32. ``offsets`` ``(q_off, k_off)`` shift the mask
+    to global positions (plain versions only, ROADMAP B8)."""
+    _validate(q, k, causal, window, prefix_len)
+    scale = q.shape[-1] ** -0.5 if softmax_scale is None else softmax_scale
+    return _Flash.apply(q, k, v, bool(causal), float(scale), int(window),
+                        prefix_len, offsets)
+
+
+def flash_attention(q, k, v, *, causal: bool = True,
+                    softmax_scale: Optional[float] = None, window: int = 0,
+                    prefix_len=None):
+    """Flash attention ``[B, Sq, H, D]``: the CUDA kernels on the card,
+    their plain versions on the CPU, with the backward of each."""
+    return flash_attention_with_lse(
+        q, k, v, causal=causal, softmax_scale=softmax_scale, window=window,
+        prefix_len=prefix_len)[0]

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
 Marked ``cuda``: each test skips, with a reason, where no NVIDIA GPU is
 present (the decision is made inside the fixture, never at import). On
@@ -7,11 +7,19 @@ JAX, so skip it)::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: f32 queries 1e-4 (the kernel's online softmax reassociates
-the f32 sums). bf16 queries are held against the plain version run in
-f32 on the values the kernel reads (bf16 q and pools upcast, int8 pages
-dequantized to bf16), at 1e-5 + 2^-8 relative: twice the kernel's one
-rounding of its output to bf16.
+Tolerances, paged attention: f32 queries 1e-4 (the kernel's online
+softmax reassociates the f32 sums). bf16 queries are held against the
+plain version run in f32 on the values the kernel reads (bf16 q and
+pools upcast, int8 pages dequantized to bf16), at 1e-5 + 2^-8 relative:
+twice the kernel's one rounding of its output to bf16.
+
+Flash attention and the fused norm: f32 kernels against their plain
+versions at 1e-4 of the largest |value| (f32 sums in another order).
+bf16 kernels against the plain versions run in f32 on the same bf16
+values at 2^-6 of the largest |value|: the kernels round p or ds, and
+their outputs, to bf16 (2^-8 each), and the rounding errors of up to a
+thousand terms add up to a few of those (``chip_smoke.py`` holds the
+same kernels element by element at the training shapes).
 """
 
 import numpy as np
@@ -156,3 +164,148 @@ def test_engine_on_card_matches_cpu_streams(dev):
         finally:
             server.stop()
     assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# flash attention and the fused norm
+# ---------------------------------------------------------------------------
+
+
+def _normwise(out, ref, tol):
+    scale = float(ref.float().abs().max())
+    err = float((out.float() - ref.float()).abs().max())
+    assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d,causal,window", [
+    (2, 256, 4, 4, 128, True, 0), (2, 256, 4, 2, 64, True, 0),
+    (1, 300, 4, 1, 128, False, 0), (2, 200, 2, 2, 64, True, 33),
+    (1, 129, 8, 2, 128, True, 0)])
+def test_flash_kernels_match_plain(dev, dtype, b, s, h, hkv, d, causal,
+                                   window):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(s + d)
+    q, k, v, go = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((b, s, h, d), (b, s, hkv, d),
+                                 (b, s, hkv, d), (b, s, h, d)))
+    kw = dict(causal=causal, scale=d ** -0.5, window=window)
+    fa.reset_launches()
+    out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    delta = (go.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq, dk, dv = fa.flash_bwd_cuda(q, k, v, go, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {k: 1 for k in fa.KERNELS}
+    f = [x.float() for x in (q, k, v)]
+    ref, ref_lse = fa.flash_fwd_reference(*f, **kw)
+    refs = fa.flash_bwd_reference(*f, out.float(), lse, go.float(), **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    _normwise(out, ref, tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    for got, want in zip((dq, dk, dv), refs):
+        _normwise(got, want, tol)
+
+
+def test_flash_autograd_on_card_matches_cpu(dev):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(0)
+    q, k, v, go = (torch.randn(shape, generator=g) for shape in (
+        (2, 160, 4, 64), (2, 160, 2, 64), (2, 160, 2, 64), (2, 160, 4, 64)))
+    grads = {}
+    for where in ("cpu", "cuda"):
+        leaves = [x.to(where).detach().requires_grad_() for x in (q, k, v)]
+        out, lse = fa.flash_attention_with_lse(*leaves, window=50)
+        ((out * go.to(where)).sum() + lse.sum()).backward()
+        grads[where] = [out.detach().cpu()] + [x.grad.cpu() for x in leaves]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        _normwise(a, b, 1e-4)
+
+
+def test_flash_cuda_raises_for_what_the_kernel_does_not_take(dev):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    q = torch.randn(1, 64, 2, 64, device=dev)
+    with pytest.raises(NotImplementedError, match="B8"):
+        fa.flash_attention(q, q, q, prefix_len=torch.tensor([3], device=dev))
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.randn(1, 64, 2, 32, device=dev)
+        fa.flash_attention(x, x, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n,d", [(37, 96), (512, 2048)])
+def test_norm_kernels_match_plain(dev, dtype, kind, residual, n, d):
+    from dlrover_tpu_torch.ops import norm as nm
+
+    g = torch.Generator(device=dev).manual_seed(n + d)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    x, go = rnd(n, d), rnd(n, d)
+    res = rnd(n, d) if residual else None
+    gh = rnd(n, d) if residual else None
+    scale = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+    bias = 0.1 * torch.randn(d, generator=g, device=dev) \
+        if kind == "layernorm" else None
+    eps = nm.RMS_EPS if kind == "rmsnorm" else nm.LN_EPS
+    nm.reset_launches()
+    out, h = nm.norm_fwd_cuda(x, scale, bias, res, kind, eps)
+    dx, ds, db = nm.norm_bwd_cuda(go, h, scale, gh, kind, eps,
+                                  bias is not None)
+    torch.cuda.synchronize()
+    assert nm.LAUNCHES == {"norm_fwd": 1, "norm_bwd": 1}
+    h_ref = x + res if residual else x
+    assert torch.equal(h, h_ref)
+    ref = nm._reference(h_ref.float(), scale, bias, kind, eps, None)
+    rdx, rds, rdb = nm.norm_bwd_reference(
+        go.float(), h_ref.float(), scale, None if gh is None else gh.float(),
+        kind, eps, bias is not None)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    _normwise(out, ref, tol)
+    _normwise(dx, rdx, tol)
+    _normwise(ds, rds, 1e-4)
+    if bias is not None:
+        _normwise(db, rdb, 1e-4)
+
+
+def test_train_step_on_card_matches_cpu_and_counts_launches(dev):
+    """A tiny f32 model: the loss stream of three steps on the card
+    (kernels) equals the CPU's (plain versions) to 1e-4, and each step
+    launches each flash kernel once per layer and each norm kernel
+    2·layers + 1 times."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import norm as nm
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    # head_dim 64: the flash kernels take 64 and 128
+    cfg = get_config("tiny", n_layer=2, d_model=128, n_head=2, n_kv_head=1,
+                     d_ff=256, vocab_size=512, max_seq=64, dtype="float32",
+                     tie_embeddings=False)
+    rng = np.random.default_rng(0)
+    tok = torch.as_tensor(rng.integers(0, 512, size=(4, 65)))
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    losses = {}
+    for where in ("cpu", "cuda"):
+        tx = make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                            decay_steps=20)
+        state = init_train_state(0, cfg, tx, device="cpu")
+        state["params"].to(where)
+        state["opt_state"] = tx.init(dict(state["params"].named_parameters()))
+        step = TrainStepBuilder(cfg, tx, device=where).build()
+        fa.reset_launches()
+        nm.reset_launches()
+        losses[where] = [float(step(state, batch)[1]["loss"])
+                         for _ in range(3)]
+        if where == "cuda":
+            assert fa.LAUNCHES == {k: 3 * 2 for k in fa.KERNELS}
+            assert nm.LAUNCHES == {k: 3 * 5 for k in nm.KERNELS}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

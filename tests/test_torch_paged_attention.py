@@ -388,7 +388,8 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
 def test_build_is_keyed_by_source_and_needs_nvcc(monkeypatch):
     from dlrover_tpu_torch.ops import _build
 
-    assert set(_build.sources()) == {"paged_attention"}
+    assert set(_build.sources()) == {"paged_attention", "flash_attention",
+                                     "fused_norm"}
     path = _build.library_path("paged_attention")
     assert path.parent == _build.BUILD_DIR and path.name.endswith(".so")
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
