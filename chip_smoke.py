@@ -7,7 +7,9 @@ from ``--seed``, through the hand-written CUDA kernels built from
 
 - serving: ``GenerationServer`` → ``Scheduler`` → ``ServingEngine`` →
   ``Decoder`` paged prefill/decode → ``ops.paged_attention``, with
-  llama3-8b at full width and depth;
+  llama3-8b at full width and depth; then with speculative decoding
+  (``spec_k=4``: ``Decoder.verify_chunk_paged`` → the kernel's verify
+  variant) and prefix sharing;
 - training: ``TrainStepBuilder.build()`` → ``loss_fn`` → ``forward`` →
   24 layers (``ops.norm`` fused norms, ``ops.flash_attention``) →
   ``fused_linear_ce`` → backward (the flash and norm backward kernels)
@@ -26,18 +28,29 @@ result:
    version's, ``F.scaled_dot_product_attention`` on pre-gathered dense
    K/V (the gather excluded) and the byte/operation bound. Each case
    also runs a planted fault (a held page dropped, or the window edge
-   moved by one key) that the tolerance must catch;
-3. model: one ``decode_step_paged`` and one ``prefill_chunk_paged`` on
-   the same pools, through the kernel and through the plain attention,
-   and through the kernel with one held page dropped. In f32 (full
-   width, 4 layers) the logits must agree within the stated tolerance
-   and the planted fault must exceed it; in bf16 (full depth) the
-   logits must be finite, and the differences are reported;
+   moved by one key) that the tolerance must catch. Then the verify
+   variant (``verify_cases``): B 8 × C 5 (a spec_k=4 chunk), starts up
+   to 2043, a free slot, stale rows in the cells from each start on,
+   with two planted faults (an in-flight key row replaced; the plain
+   version that sees the stale rows);
+3. model: one ``verify_chunk_paged``, one ``decode_step_paged`` and one
+   ``prefill_chunk_paged`` on the same pools, through the kernel and
+   through the plain attention, and through the kernel with one held
+   page dropped. In f32 (full width, 4 layers) the logits must agree
+   within the stated tolerance and the planted fault must exceed it; in
+   bf16 (full depth) the logits must be finite, and the differences are
+   reported;
 4. serve: 16 requests (prompts 64–1536 tokens, 32 new tokens, half
    greedy, half temperature 0.8 / top-p 0.9) through ``GenerationServer``
    with int8 pools, then 4 through bf16 pools; every output is checked
    and the kernel's launch counts on that path must be above zero;
-5. profile: the decode step and a prefill chunk at the serve shapes,
+   spec_serve (spec-off, spec_k=4 with prompt-lookup drafts, spec_k=4
+   with an oracle draft) and prefix_serve (sharing off/on at spec_k 0
+   and 4), in bf16 (reported) and again with llama3-8b in f32 at full
+   depth (serve_f32, gated: streams equal but at near-ties, the
+   oracle's drafts accepted above 0.9, prefix hits and COW pages);
+5. profile: the decode step, a prefill chunk and a verify step at the
+   serve shapes,
    timed (CUDA events and wall) and traced (``torch.profiler``): kernel
    time by class, launches per step, the device's busy share;
 6. train_kernel: the flash kernels (forward, dq, dkv) and the norm
@@ -106,6 +119,9 @@ TRAIN_KERNELS = (
 # keeps them in f32.
 KERNEL_ATOL = 1e-5
 KERNEL_RTOL = 2.0 ** -8
+# speculative decoding: drafts per verify step (a verify chunk is
+# SPEC_K + 1 rows: the last committed token and the drafts)
+SPEC_K = 4
 # Model logits, kernel vs plain attention, max |Δ| over max |logit|. In
 # f32 (full width, depth cut to 4) the two attentions differ by
 # summation order only, so the logits must agree to 1e-3 of the largest
@@ -113,7 +129,15 @@ KERNEL_RTOL = 2.0 ** -8
 # full depth is a report: every layer rounds its residual stream to
 # bf16, and a random-weight network carries one-ulp differences of the
 # attention output forward into logit differences of the same order as
-# a dropped page's.
+# a dropped page's. The same tolerance decides a near-tie in the served
+# streams: where a spec-on (or prefix-hit) stream leaves the spec-off
+# (or cold) stream, the two tokens' scores there, re-scored
+# teacher-forced, must lie within MODEL_REL_TOL of the largest |logit|.
+# That is gated with llama3-8b in f32 at full depth, where the two runs
+# differ by f32 rounding only; in bf16 it is reported: the verify step
+# runs its matmuls on 5x the rows of a decode step, cuBLAS sums in
+# another order, and one-ulp bf16 differences grow through 32 layers to
+# gaps of ~1% of max |logit| (PERF.md, section 6).
 MODEL_REL_TOL = 1e-3
 F32_CHECK_LAYERS = 4
 # Training kernels vs their plain versions run in f32 on the same bf16
@@ -435,6 +459,231 @@ def kernel_cases(cfg, seed, dev):
     return results
 
 
+def _verify_work(q, tables, pos_rows, geom, window, max_pages):
+    """Bytes and operations of a verify call for THIS data: q, the
+    in-flight K/V rows, positions and tables read, out written, and
+    every held page below the chunk's start that holds a key some row
+    may see read once; 4·D operations per (query head, visible key)
+    pair, held keys below the start and in-flight keys at or before the
+    row's position, both inside the window."""
+    b, c, h, d = q.shape
+    ps = geom.page_size
+    row_bytes = (geom.row_elems * 2 if geom.mode == "bf16"
+                 else geom.row_elems + 4 * geom.n_blocks)
+    tab = tables.cpu().numpy()
+    pos = pos_rows.cpu().numpy()
+    pages = pairs = 0
+    for i in range(b):
+        start, lo_row, hi_row = int(pos[i, 0]), int(pos[i].min()), \
+            int(pos[i].max())
+        held = np.zeros(max_pages * ps, bool)
+        for j in range(max_pages):
+            first = j * ps
+            if tab[i, j] < 0 or first >= start or first > hi_row:
+                continue
+            if window and first + ps - 1 <= lo_row - window:
+                continue
+            pages += 1
+            held[first:first + ps] = True
+        held[start:] = False
+        for r, p in enumerate(pos[i]):
+            lo = max(int(p) - window + 1, 0) if window else 0
+            pairs += int(held[lo:int(p) + 1].sum())
+            pairs += int((pos[i, :r + 1] >= lo).sum())
+    kv_bytes = 2 * pages * ps * row_bytes
+    extra_bytes = 2 * b * c * geom.kv_heads * d * q.element_size()
+    io_bytes = (2 * q.numel() * q.element_size() + pos.size * 4
+                + b * max_pages * 4)
+    return kv_bytes + extra_bytes + io_bytes, 4 * d * h * pairs
+
+
+def _verify_dense(q, pools, tables, pos_rows, ek, ev, geom, window,
+                  max_pages, committed_below_start=True):
+    """Dense K/V for a verify call (the held pages gathered, the in-flight
+    rows appended) and its [B, C, keys] mask: held keys below the chunk's
+    start (or, with ``committed_below_start=False``, every held key at or
+    before the row — the stale rows at the chunk's own positions
+    visible), in-flight keys at or before the row, both inside the
+    window."""
+    from dlrover_tpu_torch.ops.paged_attention import gather_pages
+
+    b = q.shape[0]
+    k, v = (x.to(q.dtype) for x in gather_pages(
+        pools, tables, kv_heads=geom.kv_heads, max_pages=max_pages,
+        dtype=q.dtype))
+    s_len = k.shape[1]
+    kpos = torch.arange(s_len, device=q.device).expand(b, s_len)
+    key_pos = torch.cat([kpos, pos_rows], 1)
+    mask = key_pos[:, None, :] <= pos_rows[:, :, None]
+    if committed_below_start:
+        held = torch.cat([kpos < pos_rows[:, :1],
+                          torch.ones_like(pos_rows, dtype=torch.bool)], 1)
+        mask = mask & held[:, None, :]
+    if window:
+        mask = mask & (key_pos[:, None, :] > pos_rows[:, :, None] - window)
+    return (torch.cat([k, ek.to(k.dtype)], 1), torch.cat([v, ev.to(v.dtype)],
+                                                         1), mask)
+
+
+def _verify_stale_visible(q, pools, tables, pos_rows, ek, ev, geom, scale,
+                          window, max_pages):
+    """The control of the verify cases: the plain verify math in f32 with
+    the held keys masked at ``kpos <= pos`` instead of ``kpos < start``,
+    so the stale rows planted in the pool cells at the chunk's own
+    positions are seen beside the in-flight rows."""
+    b, c, h, d = q.shape
+    k, v, mask = _verify_dense(q, pools, tables, pos_rows, ek, ev, geom,
+                               window, max_pages,
+                               committed_below_start=False)
+    hkv = k.shape[2]
+    qg = q.reshape(b, c, hkv, h // hkv, d)
+    s = torch.einsum("bckgd,bskd->bckgs", qg, k) * scale
+    s = torch.where(mask[:, :, None, None, :], s, -1e30)
+    out = torch.einsum("bckgs,bskd->bckgd", torch.softmax(s, -1), v)
+    return out.reshape(b, c, h, d)
+
+
+def verify_cases(cfg, seed, dev):
+    """The verify variant at llama3-8b's attention shapes and a spec_k=4
+    chunk: B 8 slots, C 5 rows, ragged starts up to 2043 and a free slot
+    (no pages, start 0), bf16 and int8 pools, window 0 and 512. Every
+    slot's table covers its chunk and 32 cells more (the engine reserves
+    the whole generation), so the cells at and past the start hold other
+    rows — the stale rows of an earlier tenant or a copy-on-write donor.
+    Each case is held against the plain version in f32 under the kernel
+    bound, with two planted faults: in-flight K row 2 replaced (rows 2..4
+    must move past the bound), and the control, the plain version that
+    sees the stale rows, which must lie past the bound too."""
+    from dlrover_tpu_torch.ops import paged_attention as pa
+    from dlrover_tpu_torch.serving import kv_cache as kvc
+
+    results = []
+    n_layers = 8
+    d = cfg.head_dim
+    scale = d ** -0.5
+    b, c = 8, SPEC_K + 1
+    rng = np.random.default_rng(seed + 20)
+    gen = torch.Generator(device=dev).manual_seed(seed + 20)
+    geom_cfg = dataclasses.replace(cfg, n_layer=n_layers)
+    for mode in ("bf16", "int8"):
+        geom = kvc.make_geometry(geom_cfg, n_slots=8, max_len=2048,
+                                 page_size=16, mode=mode)
+        pools = _fill_pools(geom, gen, dev)
+        width = geom.max_pages_per_slot
+        for window in (0, 512):
+            start = rng.integers(1, 2044 - c, size=b)
+            start[0] = 2048 - c
+            start[7] = 0
+            lens = np.minimum(start + c + 32, 2048)
+            lens[7] = 0
+            tab_np = _fragmented_tables(b, width, lens, 16, rng)
+            tables = torch.as_tensor(tab_np, device=dev)
+            max_pages = _pages_bucket(tab_np)
+            pos_rows = torch.as_tensor(
+                start[:, None] + np.arange(c)[None, :], dtype=torch.int32,
+                device=dev)
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(
+                    torch.bfloat16)
+
+            q = rnd(b, c, cfg.n_head, d)
+            ek, ev = rnd(b, c, cfg.kv_heads, d), rnd(b, c, cfg.kv_heads, d)
+            kw = dict(scale=scale, window=window, kv_heads=cfg.kv_heads,
+                      max_pages=max_pages, variant="verify")
+            layer0 = kvc.layer_pools(pools, 0)
+            out = pa.paged_attention(q, layer0, tables, pos_rows,
+                                     extra_k=ek, extra_v=ev, **kw)
+            torch.cuda.synchronize()
+            p32 = _f32_pools(layer0, geom)
+            ref = pa.paged_attention_reference(
+                q.float(), p32, tables, pos_rows, extra_k=ek.float(),
+                extra_v=ev.float(), **kw)
+            same = pa.paged_attention_reference(q, layer0, tables, pos_rows,
+                                                extra_k=ek, extra_v=ev, **kw)
+            every = torch.ones(b, dtype=torch.bool, device=dev)
+            err, over = _held(out, ref, every)
+            same_err, _ = _held(out, same, every)
+            finite = bool(torch.isfinite(out.float()).all())
+            bad_k = ek.clone()
+            bad_k[:, 2] = rnd(b, cfg.kv_heads, d)
+            bad = pa.paged_attention(q, layer0, tables, pos_rows,
+                                     extra_k=bad_k, extra_v=ev, **kw)
+            _, bad_over = _held(bad, ref, every)
+            _, early_over = _held(bad[:, :2], ref[:, :2], every)
+            stale_ref = _verify_stale_visible(
+                q.float(), p32, tables, pos_rows, ek.float(), ev.float(),
+                geom, scale, window, max_pages)
+            stale_err, stale_over = _held(out, stale_ref, every)
+            faults = {
+                "inflight_k_row_2": {"over_bound": bad_over,
+                                     "over_bound_rows_0_1": early_over,
+                                     "caught": bad_over > 0
+                                     and early_over == 0},
+                "stale_rows_visible": {"max_abs_err": stale_err,
+                                       "over_bound": stale_over,
+                                       "caught": stale_over > 0},
+            }
+            layers = itertools.cycle(
+                [kvc.layer_pools(pools, i) for i in range(n_layers)])
+
+            def run_kernel():
+                pa.paged_attention(q, next(layers), tables, pos_rows,
+                                   extra_k=ek, extra_v=ev, **kw)
+
+            def run_plain():
+                pa.paged_attention_reference(q, next(layers), tables,
+                                             pos_rows, extra_k=ek,
+                                             extra_v=ev, **kw)
+
+            ms = cuda_ms(run_kernel, 50)
+            plain_ms = cuda_ms(run_plain, 10)
+            lib_ms = _sdpa_verify_ms(q, layer0, tables, pos_rows, ek, ev,
+                                     geom, scale, window, max_pages)
+            moved, ops = _verify_work(q, tables, pos_rows, geom, window,
+                                      max_pages)
+            bound_ms, bound_by = _bound(moved, ops)
+            case = {
+                "phase": "kernel", "kernel": "paged_attention.verify",
+                "variant": "verify", "mode": mode, "window": window,
+                "B": b, "C": c, "max_pages": max_pages,
+                "starts": [int(x) for x in start],
+                "max_abs_err": err, "over_bound": over,
+                "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
+                "same_dtype_max_abs_err": same_err, "faults": faults,
+                "finite": finite, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": lib_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "bytes": moved, "ops": ops,
+                "ok": (over == 0 and finite
+                       and all(f["caught"] for f in faults.values())),
+            }
+            emit(case)
+            if not case["ok"]:
+                _failures.append(f"verify kernel case {case}")
+            results.append(case)
+        del pools
+    return results
+
+
+def _sdpa_verify_ms(q, pools, tables, pos_rows, ek, ev, geom, scale, window,
+                    max_pages):
+    """``F.scaled_dot_product_attention`` over the verify call's keys
+    gathered to dense tensors beforehand (held pages, then the in-flight
+    rows) under the verify mask: the yardstick, the gather not timed."""
+    import torch.nn.functional as F
+
+    k, v, mask = _verify_dense(q, pools, tables, pos_rows, ek, ev, geom,
+                               window, max_pages)
+    kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    qt = q.transpose(1, 2).contiguous()
+    mask = mask[:, None]
+
+    def call():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+    return cuda_ms(call, 20)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: model-level check
 # ---------------------------------------------------------------------------
@@ -479,6 +728,11 @@ def model_check(model, cfg, seed, dev):
     posd = torch.as_tensor(pos, dtype=torch.int32, device=dev)
     valid = torch.ones(8, dtype=torch.bool, device=dev)
     start = torch.tensor([1536], device=dev)
+    # a spec_k=4 verify chunk per slot ending at its decode position: the
+    # cells from its start on hold random (stale) rows the step must not see
+    vstart = posd - SPEC_K
+    vtok = torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, size=(8, SPEC_K + 1)), device=dev)
     # the planted fault: slot 0 (the decode row and the chunk's slot)
     # loses one held page from the middle of its table
     bad_tab = tab.clone()
@@ -490,19 +744,22 @@ def model_check(model, cfg, seed, dev):
             ("page_dropped", contextlib.nullcontext(), bad_tab)):
         pools = {k: v.clone() for k, v in base.items()}
         with ctx:
+            ver, _, _ = model.verify_chunk_paged(vtok, pools, tables, vstart,
+                                                 max_pages=128)
             dec, _ = model.decode_step_paged(tokens, pools, tables, posd,
                                              valid, max_pages=128)
             ch, _ = model.prefill_chunk_paged(
                 chunk_tok, pools, tables[:1], start,
                 torch.tensor([256], device=dev), max_pages=128)
         torch.cuda.synchronize()
-        out[name] = (dec, ch)
+        out[name] = (dec, ch, ver)
         del pools
     gate = cfg.dtype == "float32"
     rec = {"phase": "model", "dtype": cfg.dtype, "n_layer": cfg.n_layer,
            "gate": gate, "tol_rel": MODEL_REL_TOL}
     ok = True
-    for i, step in enumerate(("decode_step_paged", "prefill_chunk_paged")):
+    for i, step in enumerate(("decode_step_paged", "prefill_chunk_paged",
+                              "verify_chunk_paged")):
         a, b, bad = (out[n][i] for n in ("kernel", "plain", "page_dropped"))
         scale = float(b.abs().max())
         rel = float((a - b).abs().max()) / scale
@@ -529,61 +786,269 @@ def model_check(model, cfg, seed, dev):
 # ---------------------------------------------------------------------------
 
 
-def serve(model, cfg, seed, dev, mode, n_requests, lengths):
+def _oracle_draft(streams):
+    """A draft model that proposes the continuation of ``streams`` (the
+    spec-off outputs): every draft is right while a stream follows them."""
+    from dlrover_tpu_torch.serving.engine import DraftModel
+
+    class Oracle(DraftModel):
+        def propose(self, history, k):
+            hist = [int(t) for t in history]
+            for ref in streams:
+                if len(ref) > len(hist) and ref[:len(hist)] == hist:
+                    return ref[len(hist):len(hist) + k]
+            return []
+
+    return Oracle()
+
+
+def _serve_run(model, cfg, dev, prompts, samplings, new, *, staged=0,
+               **engine_kw):
+    """Serve ``prompts`` through ``GenerationServer`` (8 slots, page 16,
+    int8 pools unless ``engine_kw`` says otherwise) with the launch
+    counts set to 0 just before; the first ``staged`` requests are
+    submitted alone and the rest once each of those has its first token.
+    Returns (outputs, record)."""
     from dlrover_tpu_torch.ops import paged_attention as pa
-    from dlrover_tpu_torch.serving.scheduler import SamplingParams
     from dlrover_tpu_torch.serving.server import GenerationServer
 
-    rng = np.random.default_rng(seed + 2)
-    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, size=int(n))))
-               for n in lengths[:n_requests]]
-    new = 32
-    server = GenerationServer(
-        model, cfg, n_slots=8, max_len=2048, page_size=16, mode=mode,
-        prefill_chunk=256, device=dev,
-    )
+    kw = dict(n_slots=8, max_len=2048, page_size=16, mode="int8",
+              prefill_chunk=256)
+    kw.update(engine_kw)
+    server = GenerationServer(model, cfg, device=dev, **kw)
     torch.cuda.reset_peak_memory_stats()
     pa.reset_launches()
     t0 = time.monotonic()
     server.start()
     try:
-        reqs = []
-        for i, p in enumerate(prompts):
-            sampling = (SamplingParams() if i % 2 == 0 else
-                        SamplingParams(temperature=0.8, top_p=0.9,
-                                       seed=seed * 1000 + i))
-            reqs.append(server.submit(p, new, sampling=sampling))
+        reqs = [server.submit(p, new, sampling=s)
+                for p, s in zip(prompts[:staged], samplings[:staged])]
+        while not all(r.first_token_t or r.future.done() for r in reqs):
+            if server.error is not None or time.monotonic() - t0 > 600:
+                raise RuntimeError(f"staged requests stalled: "
+                                   f"{server.error!r}")
+            time.sleep(0.005)
+        reqs += [server.submit(p, new, sampling=s)
+                 for p, s in zip(prompts[staged:], samplings[staged:])]
         outs = [r.future.result(timeout=600) for r in reqs]
         wall = time.monotonic() - t0
     finally:
         server.stop()
+    torch.cuda.synchronize()
     launches = dict(pa.LAUNCHES)
-    ok = True
-    for p, o in zip(prompts, outs):
-        ok = ok and len(o) == len(p) + new and o[:len(p)] == p
-        ok = ok and all(0 <= t < cfg.vocab_size for t in o[len(p):])
-    ok = ok and launches["decode"] > 0 and launches["chunk"] > 0
-    lat = server.scheduler.latency_summary()
     es = server.engine.stats()
+    lat = server.scheduler.latency_summary()
+    ok = all(len(o) == len(p) + new and o[:len(p)] == p
+             and all(0 <= t < cfg.vocab_size for t in o[len(p):])
+             for p, o in zip(prompts, outs))
+    ttft = [(r.first_token_t - r.submit_t) * 1e3 for r in reqs]
     rec = {
-        "phase": "serve", "mode": mode, "requests": len(prompts),
+        "spec_k": es["spec_k"], "prefix_sharing": kw.get("prefix_sharing",
+                                                         False),
+        "mode": kw["mode"], "requests": len(prompts),
         "prompt_tokens": sum(len(p) for p in prompts),
         "new_tokens_per_request": new, "wall_s": wall,
         "generated_tokens": es["tokens_generated"],
         "tokens_per_s": es["tokens_generated"] / wall,
         "ttft_p50_ms": lat["ttft_p50_ms"], "ttft_p99_ms": lat["ttft_p99_ms"],
         "tpot_p50_ms": lat["tpot_p50_ms"], "tpot_p99_ms": lat["tpot_p99_ms"],
-        "e2e_p50_ms": lat["p50"], "e2e_p99_ms": lat["p99"],
+        "e2e_p50_ms": lat["p50"], "e2e_p99_ms": lat["p99"], "ttft_ms": ttft,
         "step_time_s": es["step_time_s"], "host_time_s": es["host_time_s"],
+        "draft_tokens": es["draft_tokens"],
+        "accepted_tokens": es["accepted_tokens"],
+        "spec_accept_rate": es["spec_accept_rate"],
+        "verify_steps": es["verify_steps"],
+        "tokens_per_verify_step": (es["verify_tokens"] / es["verify_steps"]
+                                   if es["verify_steps"] else 0.0),
         "prefill_chunks": es["prefill_chunks"],
+        "prefill_tokens": es["prefill_tokens"],
+        "prefill_tokens_saved": es["prefill_tokens_saved"],
+        "prefix_hit_rate": es["prefix_hit_rate"],
+        "cow_pages": es["cow_pages"], "peak_dedup": es["peak_dedup_ratio"],
         "kv_pool_bytes": server.engine.resident_kv_bytes(),
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
-        "launches": launches, "ok": ok,
+        "launches": launches, "outputs_ok": ok,
     }
+    return outs, rec
+
+
+def _rescore(model, cfg, dev, stream, mode):
+    """Teacher-forced logits ``[V]`` f32 that predict the token after
+    ``stream``: the stream prefilled in 256-token chunks (as the engine
+    prefills a prompt) into fresh one-slot pools."""
+    from dlrover_tpu_torch.serving import kv_cache as kvc
+
+    geom = kvc.make_geometry(cfg, n_slots=1, max_len=2048, page_size=16,
+                             mode=mode)
+    pools = kvc.init_pools(geom, dev)
+    tables = torch.arange(1, 1 + geom.max_pages_per_slot, dtype=torch.int32,
+                          device=dev)[None]
+    n, chunk = len(stream), 256
+    logits = None
+    for s0 in range(0, n, chunk):
+        clen = min(chunk, n - s0)
+        tok = torch.zeros((1, chunk), dtype=torch.int64, device=dev)
+        tok[0, :clen] = torch.as_tensor(stream[s0:s0 + clen], device=dev)
+        lg, _ = model.prefill_chunk_paged(
+            tok, pools, tables, torch.tensor([s0], device=dev),
+            torch.tensor([clen], device=dev),
+            max_pages=-(-(s0 + chunk) // 16))
+        logits = lg[0, clen - 1]
+    del pools
+    return logits.float()
+
+
+def _divergences(model, cfg, dev, ref_outs, outs, samplings, mode):
+    """Each stream's first departure from its reference stream, with the
+    reference side re-scored teacher-forced at that position: the gap
+    between the scores of the two tokens there (the logits for a greedy
+    request; the warped logits plus the position's Gumbel noise, the
+    quantity the draw maximizes, for a sampled one), and whether it is a
+    near-tie: at most MODEL_REL_TOL of the largest |logit| (over the
+    temperature when sampled)."""
+    from dlrover_tpu_torch.models.generate import gumbel_noise, warp_logits
+
+    found = []
+    for i, (a, b) in enumerate(zip(ref_outs, outs)):
+        if a == b:
+            continue
+        t = next(j for j in range(min(len(a), len(b))) if a[j] != b[j])
+        logits = _rescore(model, cfg, dev, a[:t], mode)
+        sp = samplings[i]
+        tol = MODEL_REL_TOL * float(logits.abs().max())
+        score = logits
+        if sp.temperature > 0:
+            tol /= sp.temperature
+            score = warp_logits(logits[None], sp.temperature, sp.top_k,
+                                sp.top_p)[0] + gumbel_noise(
+                torch.tensor([sp.seed], device=dev),
+                torch.tensor([t], device=dev), logits.shape[0])[0]
+        gap = float(score[a[t]] - score[b[t]])
+        top2 = torch.topk(score, 2).indices.tolist()
+        found.append({"request": i, "position": t, "ref_token": a[t],
+                      "token": b[t], "top2": top2, "gap": gap, "tol": tol,
+                      "near_tie": abs(gap) <= tol})
+    return found
+
+
+def _repeating_prompts(rng, vocab, n, lo, hi, span=128):
+    """``n`` prompts of ``lo``..``hi`` tokens, each a random ``span``-token
+    stretch repeated: text that prompt-lookup drafting can match."""
+    return [list(map(int, np.resize(rng.integers(1, vocab, size=span),
+                                    int(rng.integers(lo, hi + 1)))))
+            for _ in range(n)]
+
+
+def _samplings(seed, n):
+    from dlrover_tpu_torch.serving.scheduler import SamplingParams
+
+    return [SamplingParams() if i % 2 == 0 else
+            SamplingParams(temperature=0.8, top_p=0.9, seed=seed * 1000 + i)
+            for i in range(n)]
+
+
+def serve(model, cfg, seed, dev, mode, n_requests, lengths):
+    rng = np.random.default_rng(seed + 2)
+    prompts = [list(map(int, rng.integers(1, cfg.vocab_size, size=int(n))))
+               for n in lengths[:n_requests]]
+    _, run = _serve_run(model, cfg, dev, prompts,
+                        _samplings(seed, len(prompts)), 32, mode=mode)
+    ok = (run["outputs_ok"] and run["launches"]["decode"] > 0
+          and run["launches"]["chunk"] > 0)
+    rec = {"phase": "serve", **run, "ok": ok}
     emit(rec)
     if not ok:
         _failures.append(f"serve {mode}: {rec}")
     return rec
+
+
+def spec_serve(model, cfg, seed, dev, gate):
+    """16 requests (prompts of 512-1536 tokens repeating a 128-token span,
+    64 new tokens, half greedy and half sampled, int8 pools, 8 slots)
+    served three times: spec-off, ``spec_k=4`` with prompt-lookup drafts
+    (the default) and ``spec_k=4`` with an oracle draft that proposes the
+    spec-off continuation. The verify kernel must launch in both spec
+    runs. With ``gate`` (the f32 model) the oracle's drafts must also be
+    accepted above 0.9, and each spec-on stream must equal the spec-off
+    stream or leave it only at a near-tie (``_divergences``); in bf16
+    the divergences are reported (see MODEL_REL_TOL). Returns the
+    prompt-lookup run's launch counts."""
+    rng = np.random.default_rng(seed + 7)
+    prompts = _repeating_prompts(rng, cfg.vocab_size, 16, 512, 1536)
+    samplings = _samplings(seed, 16)
+    new = 64
+    off, r_off = _serve_run(model, cfg, dev, prompts, samplings, new)
+    runs = {"spec_off": r_off}
+    ok = r_off["outputs_ok"]
+    for name, draft in (("prompt_lookup", None),
+                        ("oracle", _oracle_draft(off))):
+        outs, rec = _serve_run(model, cfg, dev, prompts, samplings, new,
+                               spec_k=SPEC_K, draft=draft)
+        rec["divergences"] = _divergences(model, cfg, dev, off, outs,
+                                          samplings, "int8")
+        runs[name] = rec
+        ok = ok and rec["outputs_ok"] and rec["launches"]["verify"] > 0
+        if gate:
+            ok = ok and all(d["near_tie"] for d in rec["divergences"])
+    if gate:
+        ok = ok and runs["oracle"]["spec_accept_rate"] > 0.9
+    rec = {"phase": "spec_serve", "dtype": cfg.dtype, "n_layer": cfg.n_layer,
+           "gate": gate, "tol_rel": MODEL_REL_TOL, "runs": runs, "ok": ok}
+    emit(rec)
+    if not ok:
+        _failures.append(f"spec_serve: {rec}")
+    return runs["prompt_lookup"]["launches"]
+
+
+def prefix_serve(model, cfg, seed, dev, gate):
+    """16 requests in 4 groups whose prompts share a 1000-token prefix
+    (not page-aligned: 62.5 pages of 16) and end in 16-512 tokens of
+    their own; 32 new tokens, half greedy and half sampled, int8 pools,
+    8 slots, 200-token prefill chunks (resume points at 1000 fall inside
+    a page, so the straddling page is copied on write). One request per
+    group is submitted first; the other 12 once those have their first
+    token. Served with sharing off and on, each at ``spec_k`` 0 and 4,
+    with prefix hits and COW pages; with ``gate`` (the f32 model) the
+    sharing-on streams must equal the sharing-off streams or leave them
+    only at a near-tie, in bf16 the divergences are reported."""
+    rng = np.random.default_rng(seed + 8)
+    prefixes = [list(map(int, rng.integers(1, cfg.vocab_size, size=1000)))
+                for _ in range(4)]
+    order = list(range(4)) + [g for _ in range(3) for g in range(4)]
+    prompts = [prefixes[g] + list(map(int, rng.integers(
+        1, cfg.vocab_size, size=int(rng.integers(16, 513)))))
+        for g in order]
+    samplings = _samplings(seed + 1, 16)
+    new = 32
+    runs, ok = {}, True
+    for spec_k in (0, SPEC_K):
+        streams = {}
+        for sharing in (False, True):
+            outs, rec = _serve_run(
+                model, cfg, dev, prompts, samplings, new, staged=4,
+                spec_k=spec_k, prefix_sharing=sharing, max_len=2000,
+                prefill_chunk=200)
+            streams[sharing] = outs
+            rec["follower_ttft_p50_ms"] = float(np.median(rec["ttft_ms"][4:]))
+            runs[f"spec{spec_k}_sharing_{'on' if sharing else 'off'}"] = rec
+            ok = ok and rec["outputs_ok"]
+        on = runs[f"spec{spec_k}_sharing_on"]
+        off = runs[f"spec{spec_k}_sharing_off"]
+        on["divergences"] = _divergences(model, cfg, dev, streams[False],
+                                         streams[True], samplings, "int8")
+        on["prefill_chunks_saved"] = (off["prefill_chunks"]
+                                      - on["prefill_chunks"])
+        ok = ok and on["prefix_hit_rate"] > 0 and on["cow_pages"] > 0
+        if gate:
+            ok = ok and all(d["near_tie"] for d in on["divergences"])
+        if spec_k:
+            ok = ok and on["launches"]["verify"] > 0
+    rec = {"phase": "prefix_serve", "dtype": cfg.dtype,
+           "n_layer": cfg.n_layer, "gate": gate, "tol_rel": MODEL_REL_TOL,
+           "runs": runs, "ok": ok}
+    emit(rec)
+    if not ok:
+        _failures.append(f"prefix_serve: {rec}")
 
 
 # ---------------------------------------------------------------------------
@@ -631,11 +1096,15 @@ def profile_steps(model, cfg, seed, dev, steps=8):
                             device=dev)
     start = torch.tensor([1024], device=dev)
     clen = torch.tensor([256], device=dev)
+    vtok = torch.as_tensor(
+        rng.integers(1, cfg.vocab_size, size=(8, SPEC_K + 1)), device=dev)
     calls = {
         "decode_step_paged": lambda: model.decode_step_paged(
             tokens, pools, tab, posd, valid, max_pages=bucket),
         "prefill_chunk_paged": lambda: model.prefill_chunk_paged(
             chunk, pools, tab[:1], start, clen, max_pages=bucket),
+        "verify_chunk_paged": lambda: model.verify_chunk_paged(
+            vtok, pools, tab, posd - SPEC_K, max_pages=bucket),
     }
     for name, fn in calls.items():
         device_ms = cuda_ms(fn, steps)
@@ -1308,6 +1777,7 @@ def main(argv=None) -> int:
     cases = []
     with phase("kernel"):
         cases = kernel_cases(cfg, args.seed, dev)
+        cases += verify_cases(cfg, args.seed, dev)
     with phase("model_init"):
         t0 = time.monotonic()
         model = decoder.init(cfg, seed=args.seed, device=dev)
@@ -1335,9 +1805,23 @@ def main(argv=None) -> int:
         main_launches = rec["launches"]
     with phase("serve_bf16"):
         serve(model, cfg, args.seed, dev, "bf16", 4, lengths)
+    with phase("spec_serve"):
+        main_launches["verify"] = spec_serve(model, cfg, args.seed, dev,
+                                             False)["verify"]
+    with phase("prefix_serve"):
+        prefix_serve(model, cfg, args.seed, dev, False)
     with phase("profile"):
         profile_steps(model, cfg, args.seed, dev)
     del model
+    torch.cuda.empty_cache()
+    # the gated spec/prefix checks: llama3-8b at full width and depth in
+    # f32, where spec-on and spec-off differ by f32 rounding only
+    with phase("serve_f32"):
+        cfg32 = get_config("llama3-8b", dtype="float32")
+        model32 = decoder.init(cfg32, seed=args.seed, device=dev)
+        spec_serve(model32, cfg32, args.seed, dev, True)
+        prefix_serve(model32, cfg32, args.seed, dev, True)
+    model32 = None
     torch.cuda.empty_cache()
 
     train_cases = []

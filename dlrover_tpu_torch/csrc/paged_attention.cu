@@ -2,7 +2,9 @@
 //
 // Replaces the TPU kernel dlrover_tpu/ops/pallas_paged.py::_paged_kernel
 // (driven by _paged_call / paged_attention) in its "decode" (one query per
-// slot) and "chunk" (C queries per slot, chunked prefill) variants, over
+// slot), "chunk" (C queries per slot, chunked prefill) and "verify" (a
+// speculative-decoding draft chunk whose K/V rows are in flight) variants,
+// over
 // bf16/f32 pools ([P, ps, Hkv, D]) or int8 pools ([P, ps, nb, blk] payloads
 // with f32 per-block scales [P, ps, nb]). Same semantics: a table entry of
 // -1 is an unassigned page and is skipped, key kpos serves query row r iff
@@ -43,6 +45,21 @@
 //   tile of 32 rows). Each warp holds 4 rows; the block stages one page's
 //   K and V for its KV head in shared memory (f32) and every warp reuses
 //   it, so a page is read once per 32 rows.
+// - the verify variant always runs paged_decode_kernel<VERIFY = true>, in
+//   tiles of 8 rows (grid (slot, KV head, tile)): a verify chunk of
+//   spec_k + 1 = 5 rows at llama3-8b's 4 query heads per KV head is 20
+//   rows, past the decode kernel's 8 per warp, but the chunk kernel stages
+//   every page in shared memory for 32 rows at a time and was measured
+//   slower than its plain version; a few short rows are decode-shaped
+//   work, so 3 tiles of 8 rows re-read each page from L2 instead. Held
+//   pages fold only keys kpos < start (start = the chunk's first
+//   position: cells at chunk positions may hold an evicted tenant's or a
+//   copy-on-write donor's stale rows) and pages from start on are
+//   skipped. The C in-flight rows (extra_k / extra_v [B, C, Hkv, D], the
+//   compute type) are then folded once per row, by the LAST warp after
+//   its share of the pages, before the merge: one fixed warp, so a row's
+//   result does not depend on the walk width. In-flight key i at
+//   position pos[i] serves row r iff pos[i] <= pos[r] (and the window).
 //
 // Scores are a warp-shuffle reduction per key; lane i keeps key i's score,
 // so a group of up to 32 keys is one max/exp/sum step of the online
@@ -155,15 +172,18 @@ struct Args {
   const float* v_scale;
   const int* tables;     // [B, tab_stride]; the first W columns are walked
   const int* positions;  // [B, C]
+  const void* extra_k;   // verify: in-flight rows [B, C, Hkv, D] T
+  const void* extra_v;
   int C, H, Hkv, ps, W, tab_stride, blk, window;
   float scale;
 };
 
 // ---------------------------------------------------------------------------
-// decode: one warp holds all R rows, the warps split the page walk
+// decode (and verify): one warp holds all R rows of the block's row tile,
+// the warps split the page walk
 // ---------------------------------------------------------------------------
 
-template <typename T, bool INT8, int DPL, int R>
+template <typename T, bool INT8, int DPL, int R, bool VERIFY>
 __global__ void __launch_bounds__(kWarps * 32)
     paged_decode_kernel(const Args a) {
   using E = std::conditional_t<INT8, int8_t, T>;
@@ -173,6 +193,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int b = blockIdx.x;
   const int kh = blockIdx.y;
+  const int row0 = blockIdx.z * R;  // this block's tile of query rows
   const int groups = a.H / a.Hkv;
   const int n_q = a.C * groups;
   const int lane = threadIdx.x & 31;
@@ -180,6 +201,8 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int n_warps = blockDim.x >> 5;
   const int d0 = lane * DPL;  // this lane's elements d0 .. d0 + DPL - 1
   const T* q = static_cast<const T*>(a.q);
+  // verify: held keys at or past the chunk's first position are stale
+  const int start = VERIFY ? a.positions[(size_t)b * a.C] : INT_MAX;
 
   float qv[R][DPL], acc[R][DPL], m[R], l[R], s_mine[R], p_mine[R];
   int pos[R];
@@ -187,9 +210,10 @@ __global__ void __launch_bounds__(kWarps * 32)
   int min_pos = INT_MAX, max_pos = INT_MIN;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    row_ok[r] = r < n_q;
-    const int c = row_ok[r] ? r / groups : 0;
-    const int g = row_ok[r] ? r % groups : 0;
+    const int row = row0 + r;
+    row_ok[r] = row < n_q;
+    const int c = row_ok[r] ? row / groups : 0;
+    const int g = row_ok[r] ? row % groups : 0;
     pos[r] = row_ok[r] ? a.positions[(size_t)b * a.C + c] : 0;
     if (row_ok[r]) {
       min_pos = min(min_pos, pos[r]);
@@ -215,7 +239,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   for (int j = warp; j < a.W; j += n_warps) {
     const int page = a.tables[(size_t)b * a.tab_stride + j];
     const int first = j * a.ps;
-    bool page_ok = page >= 0 && first <= max_pos;
+    bool page_ok = page >= 0 && first <= max_pos && first < start;
     if (a.window > 0)
       page_ok = page_ok && first + a.ps - 1 > min_pos - a.window;
     if (!page_ok) continue;  // uniform across the warp
@@ -258,9 +282,10 @@ __global__ void __launch_bounds__(kWarps * 32)
           }
         }
       }
-      softmax_step<R, DPL>(s_mine, pos, row_ok, first + i0 + lane,
-                           lane < min(KC, a.ps - i0), a.window, m, l, acc,
-                           p_mine);
+      const int kpos = first + i0 + lane;
+      softmax_step<R, DPL>(s_mine, pos, row_ok, kpos,
+                           lane < min(KC, a.ps - i0) && kpos < start,
+                           a.window, m, l, acc, p_mine);
 #pragma unroll
       for (int i = 0; i < KC; ++i) {
         if (i0 + i < a.ps) {
@@ -273,6 +298,53 @@ __global__ void __launch_bounds__(kWarps * 32)
             const float pi = __shfl_sync(0xffffffffu, p_mine[r], i);
 #pragma unroll
             for (int t = 0; t < DPL; ++t) acc[r][t] = fmaf(pi, vf[t], acc[r][t]);
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (VERIFY) {
+    // the in-flight chunk rows, folded once per row by the last warp
+    if (warp == n_warps - 1) {
+      const T* ek = static_cast<const T*>(a.extra_k);
+      const T* ev = static_cast<const T*>(a.extra_v);
+      for (int i0 = 0; i0 < a.C; i0 += KC) {
+        const int n_keys = min(KC, a.C - i0);
+#pragma unroll
+        for (int r = 0; r < R; ++r) s_mine[r] = kNegInf;
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+          if (i < n_keys) {
+            const Pack<T, DPL> kr = load_pack<T, DPL>(
+                ek + (((size_t)b * a.C + i0 + i) * a.Hkv + kh) * D + d0);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              float part = 0.f;
+#pragma unroll
+              for (int t = 0; t < DPL; ++t)
+                part = fmaf(qv[r][t], to_f32(kr.e[t]), part);
+              const float s = warp_sum(part) * a.scale;
+              if (lane == i) s_mine[r] = s;
+            }
+          }
+        }
+        const int kpos =
+            lane < n_keys ? a.positions[(size_t)b * a.C + i0 + lane] : 0;
+        softmax_step<R, DPL>(s_mine, pos, row_ok, kpos, lane < n_keys,
+                             a.window, m, l, acc, p_mine);
+#pragma unroll
+        for (int i = 0; i < KC; ++i) {
+          if (i < n_keys) {
+            const Pack<T, DPL> vr = load_pack<T, DPL>(
+                ev + (((size_t)b * a.C + i0 + i) * a.Hkv + kh) * D + d0);
+#pragma unroll
+            for (int r = 0; r < R; ++r) {
+              const float pi = __shfl_sync(0xffffffffu, p_mine[r], i);
+#pragma unroll
+              for (int t = 0; t < DPL; ++t)
+                acc[r][t] = fmaf(pi, to_f32(vr.e[t]), acc[r][t]);
+            }
           }
         }
       }
@@ -293,7 +365,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
   __syncthreads();
   T* out = static_cast<T*>(a.out);
-  for (int r = warp; r < R && r < n_q; r += n_warps) {
+  for (int r = warp; r < R && row0 + r < n_q; r += n_warps) {
     float mm = kNegInf;
     for (int w = 0; w < n_warps; ++w)
       mm = fmaxf(mm, smem[(w * R + r) * stride + D]);
@@ -311,8 +383,8 @@ __global__ void __launch_bounds__(kWarps * 32)
     Pack<T, DPL> res;
 #pragma unroll
     for (int t = 0; t < DPL; ++t) res.e[t] = from_f32<T>(o[t] / denom);
-    const int c = r / groups;
-    const int g = r % groups;
+    const int c = (row0 + r) / groups;
+    const int g = (row0 + r) % groups;
     *reinterpret_cast<Pack<T, DPL>*>(
         out + (((size_t)b * a.C + c) * a.H + kh * groups + g) * D + d0) = res;
   }
@@ -496,21 +568,33 @@ __global__ void __launch_bounds__(kWarps * 32)
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, bool INT8, int DPL>
-cudaError_t launch(const Args& a, int B, bool decode, cudaStream_t stream) {
+template <typename T, bool INT8, int DPL, bool VERIFY>
+void launch_decode(const Args& a, int B, int n_q, cudaStream_t stream) {
   constexpr int D = DPL * 32;
-  const int n_q = a.C * (a.H / a.Hkv);
-  if (decode) {
-    const dim3 grid(B, a.Hkv, 1);
+  if constexpr (!VERIFY) {
     if (n_q <= 4) {
       const size_t smem = sizeof(float) * kWarps * 4 * (D + 2);
-      paged_decode_kernel<T, INT8, DPL, 4>
-          <<<grid, kWarps * 32, smem, stream>>>(a);
-    } else {
-      const size_t smem = sizeof(float) * kWarps * 8 * (D + 2);
-      paged_decode_kernel<T, INT8, DPL, 8>
-          <<<grid, kWarps * 32, smem, stream>>>(a);
+      paged_decode_kernel<T, INT8, DPL, 4, false>
+          <<<dim3(B, a.Hkv, 1), kWarps * 32, smem, stream>>>(a);
+      return;
     }
+  }
+  // tiles of 8 rows (verify always: one instantiation fewer to build)
+  const size_t smem = sizeof(float) * kWarps * 8 * (D + 2);
+  paged_decode_kernel<T, INT8, DPL, 8, VERIFY>
+      <<<dim3(B, a.Hkv, (n_q + 7) / 8), kWarps * 32, smem, stream>>>(a);
+}
+
+template <typename T, bool INT8, int DPL>
+cudaError_t launch(const Args& a, int B, int kernel, cudaStream_t stream) {
+  constexpr int D = DPL * 32;
+  const int n_q = a.C * (a.H / a.Hkv);
+  if (kernel == 0) {
+    launch_decode<T, INT8, DPL, false>(a, B, n_q, stream);
+    return cudaGetLastError();
+  }
+  if (kernel == 2) {
+    launch_decode<T, INT8, DPL, true>(a, B, n_q, stream);
     return cudaGetLastError();
   }
   const int warps = std::min(kWarps, (n_q + kChunkRows - 1) / kChunkRows);
@@ -522,15 +606,15 @@ cudaError_t launch(const Args& a, int B, bool decode, cudaStream_t stream) {
 }
 
 template <typename T, bool INT8>
-cudaError_t dispatch_dim(int D, const Args& a, int B, bool decode,
+cudaError_t dispatch_dim(int D, const Args& a, int B, int kernel,
                          cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, INT8, 1>(a, B, decode, stream);
+      return launch<T, INT8, 1>(a, B, kernel, stream);
     case 64:
-      return launch<T, INT8, 2>(a, B, decode, stream);
+      return launch<T, INT8, 2>(a, B, kernel, stream);
     case 128:
-      return launch<T, INT8, 4>(a, B, decode, stream);
+      return launch<T, INT8, 4>(a, B, kernel, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -541,24 +625,28 @@ cudaError_t dispatch_dim(int D, const Args& a, int B, bool decode,
 extern "C" {
 
 // kernel: 0 = paged_decode_kernel (at most 8 query rows per (slot, KV
-// head), C * H / Hkv <= 8), 1 = paged_chunk_kernel (any number).
-// dtype: 0 = float32, 1 = bfloat16 (q, out and verbatim pools).
+// head), C * H / Hkv <= 8), 1 = paged_chunk_kernel (any number), 2 = the
+// verify variant (paged_decode_kernel<VERIFY>, any number of rows; needs
+// extra_k / extra_v, and takes W == 0: only the in-flight rows).
+// dtype: 0 = float32, 1 = bfloat16 (q, out, verbatim pools, extra rows).
 // int8: 1 when the pools are int8 payloads with f32 block scales, whose
-// block width blk must be a multiple of 4. Every pointer is 16-byte
-// aligned. Returns a cudaError_t (0 = launched).
+// block width blk must be a multiple of 4. q, out, the pools and the
+// extra rows are 16-byte aligned (vector loads); tables and positions
+// 4-byte. Returns a cudaError_t (0 = launched).
 int dlrover_paged_attention(const void* q, void* out, const void* k_pool,
                             const void* v_pool, const void* k_scale,
                             const void* v_scale, const void* tables,
-                            const void* positions, int B, int C, int H,
+                            const void* positions, const void* extra_k,
+                            const void* extra_v, int B, int C, int H,
                             int Hkv, int D, int ps, int W, int tab_stride,
                             int blk, int window, float scale, int dtype,
                             int int8, int kernel, void* stream) {
   if (B <= 0 || C <= 0 || Hkv <= 0 || H % Hkv || ps <= 0 || ps > 32 ||
-      W <= 0 || W > tab_stride ||
+      W < (kernel == 2 ? 0 : 1) || W > tab_stride ||
       (int8 && (blk <= 0 || blk % 4 || (Hkv * D) % blk)) ||
-      (kernel != 0 && kernel != 1) || (kernel == 0 && C * (H / Hkv) > 8))
+      kernel < 0 || kernel > 2 || (kernel == 0 && C * (H / Hkv) > 8) ||
+      (kernel == 2 && (extra_k == nullptr || extra_v == nullptr)))
     return cudaErrorInvalidValue;
-  const bool decode = kernel == 0;
   Args a;
   a.q = q;
   a.out = out;
@@ -568,6 +656,8 @@ int dlrover_paged_attention(const void* q, void* out, const void* k_pool,
   a.v_scale = static_cast<const float*>(v_scale);
   a.tables = static_cast<const int*>(tables);
   a.positions = static_cast<const int*>(positions);
+  a.extra_k = extra_k;
+  a.extra_v = extra_v;
   a.C = C;
   a.H = H;
   a.Hkv = Hkv;
@@ -579,11 +669,11 @@ int dlrover_paged_attention(const void* q, void* out, const void* k_pool,
   a.scale = scale;
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == 1)
-    return int8 ? dispatch_dim<__nv_bfloat16, true>(D, a, B, decode, st)
-                : dispatch_dim<__nv_bfloat16, false>(D, a, B, decode, st);
+    return int8 ? dispatch_dim<__nv_bfloat16, true>(D, a, B, kernel, st)
+                : dispatch_dim<__nv_bfloat16, false>(D, a, B, kernel, st);
   if (dtype == 0)
-    return int8 ? dispatch_dim<float, true>(D, a, B, decode, st)
-                : dispatch_dim<float, false>(D, a, B, decode, st);
+    return int8 ? dispatch_dim<float, true>(D, a, B, kernel, st)
+                : dispatch_dim<float, false>(D, a, B, kernel, st);
   return cudaErrorInvalidValue;
 }
 

@@ -5,10 +5,11 @@ Port of ``dlrover_tpu/models/decoder.py`` as an ``nn.Module``: ``init``
 ``[out, in]`` layout, drawn from a ``torch.Generator``), ``_norm``,
 ``_rope_tables``/``_rope``, ``_project_qkv`` and ``_mlp_block`` (no fp8,
 no mesh), ``_cache_layer_tail`` (dense, with ``parallel_residual``),
-``_paged_guards``, ``decode_step_paged`` and ``prefill_chunk_paged`` for
-serving; ``_norm_block``, ``_attention_block``, ``_layer_body``,
-``run_trunk``, ``forward``, ``head_weight_scale`` and ``loss_fn`` for
-training (dense layers; no fp8, MoE, pipeline or mesh).
+``_paged_guards``, ``decode_step_paged``, ``prefill_chunk_paged`` and
+``verify_chunk_paged`` for serving; ``_norm_block``,
+``_attention_block``, ``_layer_body``, ``run_trunk``, ``forward``,
+``head_weight_scale`` and ``loss_fn`` for training (dense layers; no
+fp8, MoE, pipeline or mesh).
 
 For serving (``Decoder(cfg)``), matrices are stored frozen in the
 compute dtype (``cfg.dtype``). For training (``Decoder(cfg,
@@ -27,7 +28,9 @@ The paged steps write each new K/V row into its page cell IN PLACE
 (``ops.paged_attention.write_page_rows``) and attend through
 ``ops.paged_attention.paged_attention`` — the hand-written CUDA kernel
 on the card, its plain PyTorch version on the CPU. No contiguous
-``[L, B, S, ...]`` cache exists anywhere.
+``[L, B, S, ...]`` cache exists anywhere. The verify step writes
+nothing: its chunk rows are in-flight keys of the kernel's ``verify``
+variant, and the engine commits the accepted ones afterwards.
 """
 
 import math
@@ -41,6 +44,7 @@ from torch.utils.checkpoint import checkpoint
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models.config import ModelConfig
 from dlrover_tpu_torch.ops import norm as fused_norm
+from dlrover_tpu_torch.ops import quant
 from dlrover_tpu_torch.ops.attention import mha_reference
 from dlrover_tpu_torch.ops.fused_ce import _mm_f32, fused_linear_ce
 from dlrover_tpu_torch.ops.flash_attention import flash_attention
@@ -393,6 +397,64 @@ class Decoder(nn.Module):
         x = self._layers(x, pools, tables, positions, valid, positions,
                          "chunk", max_pages)
         return self._logits(x), pools
+
+    @torch.no_grad()
+    def verify_chunk_paged(
+        self,
+        tokens: torch.Tensor,        # [B, C] int — [last token, drafts...]
+        pools: Pools,                # layer-leading page pools (READ only)
+        block_tables: torch.Tensor,  # [B, max_pages] int32
+        start: torch.Tensor,         # [B] int — position of the chunk's row 0
+        *,
+        max_pages: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The speculative-decoding verify step with DEFERRED writes:
+        nothing is written to the pools. Each layer's chunk K/V rows ride
+        into the paged attention as in-flight keys (``variant="verify"``),
+        read as a commit would store them (int8 pools: through the block
+        codec; bf16 pools: in the pool dtype), so acceptance does not
+        depend on when the rows are committed. Returns (logits
+        ``[B, C, V]`` f32, chunk_k, chunk_v ``[L, B, C, Hkv, D]`` — the
+        RAW rows; the caller commits the accepted prefix)."""
+        _paged_guards(self.cfg, "verify_chunk_paged")
+        cfg = self.cfg
+        b, c = tokens.shape
+        dev = tokens.device
+        start = torch.as_tensor(start, device=dev).to(torch.int32)
+        if start.ndim == 0:
+            start = start.expand(b)
+        positions = start[:, None] + torch.arange(
+            c, dtype=torch.int32, device=dev)[None, :]
+        tables = block_tables.to(torch.int32)
+        dt = getattr(torch, cfg.dtype)
+        hkv, hd = cfg.kv_heads, cfg.head_dim
+
+        def as_committed(rows, pools_l):
+            if "k" in pools_l:
+                return rows.to(pools_l["k"].dtype).contiguous()
+            qv, sc = quant.kv_encode_rows(rows.reshape(b, c, hkv * hd),
+                                          pools_l["k_q"].shape[-1])
+            return quant.kv_decode_rows(qv, sc, dt).reshape(b, c, hkv, hd)
+
+        x = self._embed(tokens, positions)
+        rope = (_rope_tables(positions, hd, cfg.rope_theta)
+                if cfg.pos == "rope" else None)
+        scale = 1.0 if cfg.mup_base_width else hd ** -0.5
+        chunk_k, chunk_v = [], []
+        for i, layer in enumerate(self.layers):
+            pools_l = layer_pools(pools, i)
+            h = layer.ln1(x)
+            q, k, v = _project_qkv(h, layer, cfg, rope, mup_full_scale=True)
+            attn = paged_attention(
+                q, pools_l, tables, positions, scale=scale,
+                window=cfg.attn_window, kv_heads=hkv, max_pages=max_pages,
+                variant="verify", extra_k=as_committed(k, pools_l),
+                extra_v=as_committed(v, pools_l),
+            ).reshape(b, c, cfg.n_head * hd)
+            x = self._cache_layer_tail(x, _dense(attn, layer.attn.wo), layer)
+            chunk_k.append(k)
+            chunk_v.append(v)
+        return self._logits(x), torch.stack(chunk_k), torch.stack(chunk_v)
 
 
 # ---------------------------------------------------------------------------

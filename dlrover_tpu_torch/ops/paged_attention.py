@@ -11,12 +11,19 @@ Port of ``dlrover_tpu/ops/pallas_paged.py``:
   the JAX reference: gather ONLY the pages the block table names, then
   the dense cached attention. ``decode`` keeps the probabilities in f32
   through P·V; ``chunk`` casts them to ``q.dtype`` first (mirroring
-  ``mha_reference``). The kernel keeps f32 throughout in both variants,
-  so it matches the plain version to a tolerance, not bitwise.
+  ``mha_reference``); ``verify`` runs the decode math per query over the
+  committed keys plus the in-flight chunk rows. The kernel keeps f32
+  throughout in every variant, so it matches the plain version to a
+  tolerance, not bitwise.
 - ``write_page_rows`` / ``gather_pages`` — the page-level tensor ops the
   decoder and the reference share.
 
-The ``verify`` variant (speculative decoding) is not ported yet.
+``verify`` is the speculative-decoding verify step: the C queries are a
+draft chunk whose K/V rows (``extra_k``/``extra_v`` ``[B, C, Hkv, D]``,
+at ``positions`` themselves) are IN FLIGHT — folded as extra keys, never
+written to the pools. Committed keys mask at ``kpos < positions[:, 0]``
+(pool cells at chunk positions may hold another tenant's stale rows) and
+in-flight key i serves query j iff i <= j (and the window).
 
 Pools are one layer's slices: bf16 (or f32) ``{"k", "v"}`` of
 ``[n_pages, ps, Hkv, D]``, or int8 ``{"k_q", "k_scale", "v_q",
@@ -33,13 +40,15 @@ from dlrover_tpu_torch.ops import quant
 from dlrover_tpu_torch.ops.attention import _repeat_kv
 
 NEG_INF = -1e30
-VARIANTS = ("decode", "chunk")
+VARIANTS = ("decode", "chunk", "verify")
 
 #: The CUDA kernels of ``csrc/paged_attention.cu``: ``decode`` is
-#: ``paged_decode_kernel``, ``chunk`` is ``paged_chunk_kernel``.
-KERNELS = ("decode", "chunk")
-#: launches of each kernel since the last ``reset_launches()``, counted
-#: by the kernel launched (``kernel_for``), not by the variant asked for
+#: ``paged_decode_kernel``, ``chunk`` is ``paged_chunk_kernel``,
+#: ``verify`` is ``paged_decode_kernel``'s verify instantiation.
+KERNELS = ("decode", "chunk", "verify")
+#: launches of each kernel since the last ``reset_launches()``: a
+#: ``decode``/``chunk`` call counts under the kernel its rows pick
+#: (``kernel_for``), a ``verify`` call always under ``verify``
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -53,12 +62,14 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def kernel_for(c: int, h: int, hkv: int) -> str:
+def kernel_for(c: int, h: int, hkv: int, variant: str = "decode") -> str:
     """The kernel a call with ``c`` queries per slot, ``h`` query heads
-    and ``hkv`` KV heads launches: ``decode`` while each (slot, KV head)
-    has at most 8 query rows (``c · h / hkv``), else ``chunk``. Either
-    computes either variant; the variant only sets the plain version's
-    precision."""
+    and ``hkv`` KV heads launches. ``verify`` has its own; otherwise
+    ``decode`` while each (slot, KV head) has at most 8 query rows
+    (``c · h / hkv``), else ``chunk``. Either of those computes either
+    variant; the variant only sets the plain version's precision."""
+    if variant == "verify":
+        return "verify"
     return "decode" if c * (h // hkv) <= _DECODE_KERNEL_MAX_ROWS else "chunk"
 
 
@@ -166,28 +177,52 @@ def paged_attention_reference(
     q,                  # [B, C, H, D] (decode: C == 1)
     pools,              # per-LAYER pool slices (bf16 or int8 keys)
     block_tables,       # [B, max_pages] int32, -1 = unassigned
-    positions,          # decode: [B] (or scalar); chunk: [B, C]
+    positions,          # decode: [B] (or scalar); chunk/verify: [B, C]
     *,
     scale,
     window: int = 0,
     kv_heads=None,
     max_pages=None,
     variant: str = "decode",
+    extra_k=None,       # verify: in-flight chunk K rows [B, C, Hkv, D]
+    extra_v=None,
 ):
     """Paged attention via a pages-held-only gather + the dense cached
     attention, op for op the JAX ``paged_attention_reference``. Output
     ``[B, C, H, D]`` in ``q.dtype``."""
     if variant not in VARIANTS:
-        raise NotImplementedError(
-            f"variant {variant!r}: only decode and chunk are ported; the "
-            "verify variant waits for speculative decoding (ROADMAP B7)"
-        )
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
     b, c, h, d = q.shape
     k, v = gather_pages(pools, block_tables, kv_heads=kv_heads,
                         max_pages=max_pages, dtype=q.dtype)
     s_len, hkv = k.shape[1], k.shape[2]
     kpos = torch.arange(s_len, device=q.device)
     pos = torch.as_tensor(positions, device=q.device)
+    if variant == "verify":
+        if extra_k is None or extra_v is None:
+            raise ValueError("verify variant needs extra_k/extra_v rows")
+        if pos.ndim != 2:
+            raise ValueError("verify variant needs per-query positions [B, C]")
+        start = pos[:, 0]
+        groups = h // hkv
+        qg = q.reshape(b, c, hkv, groups, d)
+        kf = torch.cat([k.float(), extra_k.float()], dim=1)
+        vf = torch.cat([v.float(), extra_v.float()], dim=1)
+        # key positions: committed rows at their cell index, in-flight
+        # rows at the chunk positions
+        key_pos = torch.cat([kpos.expand(b, s_len), pos], dim=1)
+        committed = torch.cat(
+            [torch.ones((b, s_len), dtype=torch.bool, device=q.device),
+             torch.zeros((b, c), dtype=torch.bool, device=q.device)], dim=1)
+        mask = key_pos[:, None, :] <= pos[:, :, None]
+        mask = mask & (~committed | (key_pos < start[:, None]))[:, None, :]
+        if window:
+            mask = mask & (key_pos[:, None, :] > pos[:, :, None] - window)
+        s = torch.einsum("bckgd,bskd->bckgs", qg.float(), kf) * scale
+        s = torch.where(mask[:, :, None, None, :], s, NEG_INF)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bckgs,bskd->bckgd", p, vf)
+        return out.reshape(b, c, h, d).to(q.dtype)
     if variant == "decode":
         if c != 1:
             raise ValueError("decode variant takes a single query (C=1)")
@@ -238,13 +273,17 @@ def _kernel():
 
         fn = _build.load("paged_attention").dlrover_paged_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 8 + [i] * 10 + [ctypes.c_float] + [i] * 3 + [p]
+        fn.argtypes = [p] * 10 + [i] * 10 + [ctypes.c_float] + [i] * 3 + [p]
         fn.restype = i
         _lib_fn = fn
     return _lib_fn
 
 
-def _check(t, name, device, dtype=None, shape=None):
+def _check(t, name, device, dtype=None, shape=None, align=16):
+    """Raise unless ``t`` is what the kernel reads: on ``device``, of
+    ``dtype`` and ``shape``, contiguous, and ``align``-byte aligned (16
+    for the rows it loads as 16-byte vectors; 4 for the block tables,
+    read one int at a time, whose one-slot slices start mid-row)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, q on {device}")
     if dtype is not None and t.dtype != dtype:
@@ -253,12 +292,12 @@ def _check(t, name, device, dtype=None, shape=None):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _paged_call(q, pools, block_tables, positions, *, scale, window,
-                kv_heads, max_pages, variant):
+                kv_heads, max_pages, variant, extra_k=None, extra_v=None):
     """Launch the CUDA kernel on ``q``'s device and current stream."""
     mode, ps, hkv, d = _pool_info(pools, kv_heads)
     b, c, h, qd = q.shape
@@ -278,12 +317,19 @@ def _paged_call(q, pools, block_tables, positions, *, scale, window,
         raise ValueError("decode variant takes a single query (C=1)")
     _check(q, "q", dev)
     tables = block_tables
-    _check(tables, "block_tables", dev, torch.int32)
+    _check(tables, "block_tables", dev, torch.int32, align=4)
     w_full = tables.shape[1]
     w = w_full if max_pages is None else min(int(max_pages), w_full)
     pos = _query_positions(positions, b, c, dev)
+    ek_ptr = ev_ptr = None
+    if variant == "verify":
+        if extra_k is None or extra_v is None:
+            raise ValueError("verify variant needs extra_k/extra_v rows")
+        for name, t in (("extra_k", extra_k), ("extra_v", extra_v)):
+            _check(t, name, dev, q.dtype, (b, c, hkv, d))
+        ek_ptr, ev_ptr = extra_k.data_ptr(), extra_v.data_ptr()
     out = torch.empty_like(q)
-    if w == 0:
+    if w == 0 and variant != "verify":
         return out.zero_()
     n_pages = None
     if mode == "bf16":
@@ -305,11 +351,11 @@ def _paged_call(q, pools, block_tables, positions, *, scale, window,
         k_ptr, v_ptr = pools["k_q"].data_ptr(), pools["v_q"].data_ptr()
         ks_ptr = pools["k_scale"].data_ptr()
         vs_ptr = pools["v_scale"].data_ptr()
-    kernel = kernel_for(c, h, hkv)
+    kernel = kernel_for(c, h, hkv, variant)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _kernel()(
         q.data_ptr(), out.data_ptr(), k_ptr, v_ptr, ks_ptr, vs_ptr,
-        tables.data_ptr(), pos.data_ptr(),
+        tables.data_ptr(), pos.data_ptr(), ek_ptr, ev_ptr,
         b, c, h, hkv, d, ps, w, w_full, blk, int(window), float(scale),
         _DTYPE_CODE[q.dtype], int(mode == "int8"), KERNELS.index(kernel),
         stream,
@@ -333,6 +379,8 @@ def paged_attention(
     kv_heads=None,
     max_pages=None,
     variant: str = "decode",
+    extra_k=None,
+    extra_v=None,
 ):
     """Paged attention over block-table KV pools.
 
@@ -340,20 +388,17 @@ def paged_attention(
     the plain version to float tolerance); a CPU ``q`` runs
     ``paged_attention_reference``. ``max_pages`` bounds the walk to the
     first table columns (the host knows how many pages slots hold).
-    ``positions``: ``[B]`` for decode, ``[B, C]`` for chunk."""
+    ``positions``: ``[B]`` for decode, ``[B, C]`` for chunk and verify;
+    ``verify`` also takes the in-flight ``extra_k``/``extra_v`` rows
+    ``[B, C, Hkv, D]``, folded as keys without touching the pools."""
     if variant not in VARIANTS:
-        raise NotImplementedError(
-            f"variant {variant!r}: only decode and chunk are ported; the "
-            "verify variant waits for speculative decoding (ROADMAP B7)"
-        )
+        raise ValueError(f"variant must be one of {VARIANTS}, got {variant!r}")
+    kw = dict(scale=scale, window=window, kv_heads=kv_heads,
+              max_pages=max_pages, variant=variant, extra_k=extra_k,
+              extra_v=extra_v)
     if q.device.type == "cpu":
-        return paged_attention_reference(
-            q, pools, block_tables, positions, scale=scale, window=window,
-            kv_heads=kv_heads, max_pages=max_pages, variant=variant,
-        )
+        return paged_attention_reference(q, pools, block_tables, positions,
+                                         **kw)
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not {q.device}")
-    return _paged_call(
-        q, pools, block_tables, positions, scale=scale, window=window,
-        kv_heads=kv_heads, max_pages=max_pages, variant=variant,
-    )
+    return _paged_call(q, pools, block_tables, positions, **kw)

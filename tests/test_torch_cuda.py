@@ -22,6 +22,8 @@ thousand terms add up to a few of those (``chip_smoke.py`` holds the
 same kernels element by element at the training shapes).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -163,6 +165,138 @@ def test_engine_on_card_matches_cpu_streams(dev):
                            for p in prompts]
         finally:
             server.stop()
+    assert outs["cuda"] == outs["cpu"]
+
+
+# ---------------------------------------------------------------------------
+# the verify variant (speculative decoding)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize(
+    "hkv,groups,d,ps,c,window",
+    [(2, 4, 128, 16, 5, 0), (2, 4, 128, 16, 5, 20), (4, 1, 64, 8, 3, 0),
+     (1, 8, 32, 32, 2, 0), (3, 2, 128, 16, 4, 7),
+     # more in-flight rows than one 16-key step of the fold
+     (2, 4, 64, 16, 17, 0)],
+)
+def test_verify_kernel_matches_plain(dev, dtype, mode, hkv, groups, d, ps, c,
+                                     window):
+    """Every slot's cells from its chunk's start on hold other rows (the
+    stale rows an earlier tenant leaves); slot 2 is free (no pages)."""
+    lens = [ps * 12, c + 5, 0, ps * 3 + 1]
+    q, pools, tab, _, kw, _ = _case(
+        dev, mode=mode, dtype=dtype, hkv=hkv, groups=groups, d=d, ps=ps,
+        c=c, lens=lens, window=window, seed=c + d + 1)
+    start = np.maximum(np.asarray(lens) - c - 2, 0)
+    pos = torch.as_tensor(start[:, None] + np.arange(c)[None, :],
+                          dtype=torch.int32, device=dev)
+    g = torch.Generator(device=dev).manual_seed(c)
+    ek, ev = (torch.randn((len(lens), c, hkv, d), generator=g,
+                          device=dev).to(dtype) for _ in "kv")
+    kw = dict(kw, variant="verify")
+    pa.reset_launches()
+    out = pa.paged_attention(q, pools, tab, pos, extra_k=ek, extra_v=ev,
+                             **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == {k: int(k == "verify") for k in pa.KERNELS}
+    if dtype == torch.float32:
+        ref = pa.paged_attention_reference(q, pools, tab, pos, extra_k=ek,
+                                           extra_v=ev, **kw)
+    else:
+        ref = pa.paged_attention_reference(
+            q.float(), _read_f32(pools, hkv, d), tab, pos,
+            extra_k=ek.float(), extra_v=ev.float(), **kw)
+    rtol, atol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+def test_verify_chunk_paged_on_card_matches_cpu(dev):
+    """The tiny f32 model's verify step: logits and chunk rows on the
+    card (kernel) equal the CPU's (plain version) to 1e-4, one verify
+    launch per layer, and the pools are not written."""
+    cfg = get_config("tiny", n_layer=2, d_model=128, n_head=4, n_kv_head=2,
+                     d_ff=256, vocab_size=128, max_seq=64, dtype="float32")
+    geom = kvc.make_geometry(cfg, n_slots=3, max_len=64, page_size=16,
+                             mode="int8")
+    g = torch.Generator().manual_seed(0)
+    pools = kvc.init_pools(geom, "cpu")
+    for name in ("k", "v"):
+        x = torch.randn((2, geom.n_pages, 16, geom.row_elems), generator=g)
+        qv, sc = quant.kv_encode_rows(x, geom.kv_block)
+        pools[name + "_q"].copy_(qv)
+        pools[name + "_scale"].copy_(sc)
+    tab = torch.arange(1, geom.n_pages, dtype=torch.int32).reshape(3, -1)
+    tokens = torch.randint(0, 128, (3, 5), generator=g)
+    start = torch.tensor([40, 3, 0], dtype=torch.int32)
+    model = decoder.init(cfg, seed=0, device="cpu")
+    got = {}
+    for where in ("cpu", "cuda"):
+        p = {k: v.to(where) for k, v in pools.items()}
+        pa.reset_launches()
+        got[where] = [x.cpu() for x in model.to(where).verify_chunk_paged(
+            tokens.to(where), p, tab.to(where), start.to(where))]
+        for k, v in p.items():
+            assert torch.equal(v.cpu(), pools[k])
+    assert pa.LAUNCHES == {"decode": 0, "chunk": 0, "verify": 2}
+    for a, b in zip(got["cuda"], got["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_kernel_takes_a_block_table_row_view(dev):
+    """One slot's row of a block table whose width is not a multiple of
+    4 (max_len 2000 at page 16 gives 125 columns) starts on a 4-byte,
+    not a 16-byte, boundary: the kernel reads it as it is."""
+    q, pools, tab, pos, kw, _ = _case(
+        dev, mode="int8", dtype=torch.bfloat16, hkv=2, groups=4, d=128,
+        ps=16, c=1, lens=[40, 9, 100], window=0, seed=2)
+    wide = torch.cat([tab, torch.full_like(tab[:, :1], -1)], 1)
+    full = pa.paged_attention(q, pools, tab, pos, **kw)
+    assert wide[1:2].data_ptr() % 16
+    for i in range(3):
+        out = pa.paged_attention(q[i:i + 1], pools, wide[i:i + 1],
+                                 pos[i:i + 1], **kw)
+        assert torch.equal(out, full[i:i + 1])
+
+
+def test_spec_and_sharing_engine_on_card_matches_cpu_streams(dev):
+    """Greedy streams of the tiny f32 model with spec_k=3 and prefix
+    sharing (two prompts share 20 tokens; 5 pages a slot, so a slot's
+    table row starts mid-vector): the card and the CPU agree token for
+    token, and the card ran the verify kernel."""
+    from dlrover_tpu_torch.serving.server import GenerationServer
+
+    cfg = get_config("tiny", n_layer=2, d_model=128, n_head=4, n_kv_head=2,
+                     d_ff=256, vocab_size=128, max_seq=128, dtype="float32")
+    rng = np.random.default_rng(1)
+    shared = list(map(int, rng.integers(1, 128, size=20)))
+    prompts = [shared + [5, 6, 5, 6, 5], shared + [7, 7, 7],
+               [3, 4, 3, 4, 3, 4, 3]]
+    outs = {}
+    for where in ("cpu", "cuda"):
+        model = decoder.init(cfg, seed=0, device="cpu").to(where)
+        server = GenerationServer(model, cfg, device=where, n_slots=3,
+                                  max_len=80, page_size=16, mode="int8",
+                                  prefill_chunk=8, spec_k=3,
+                                  prefix_sharing=True).start()
+        pa.reset_launches()
+        try:
+            # the others arrive while the first still holds its pages
+            first = server.submit(prompts[0], 30)
+            while not (first.first_token_t or first.future.done()):
+                time.sleep(0.001)
+            rest = [server.submit(p, 12) for p in prompts[1:]]
+            outs[where] = [r.future.result(timeout=120)
+                           for r in [first] + rest]
+        finally:
+            server.stop()
+        stats = server.engine.stats()
+        assert stats["prefix_hits"] >= 1 and stats["draft_tokens"] > 0
+        if where == "cuda":
+            assert pa.LAUNCHES["verify"] > 0
     assert outs["cuda"] == outs["cpu"]
 
 

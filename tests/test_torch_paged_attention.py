@@ -339,10 +339,14 @@ def test_cpu_dispatch_is_the_plain_version_and_never_counts():
     ref = tpa.paged_attention_reference(tq, _layer(tpools, 0),
                                         torch.from_numpy(tables), pos, **kw)
     assert torch.equal(out, ref)
-    assert tpa.LAUNCHES == {"decode": 0, "chunk": 0}
-    with pytest.raises(NotImplementedError, match="verify"):
+    assert tpa.LAUNCHES == {"decode": 0, "chunk": 0, "verify": 0}
+    # verify takes the in-flight rows (tests/test_torch_paged_verify.py)
+    with pytest.raises(ValueError, match="extra_k"):
         tpa.paged_attention(tq, _layer(tpools, 0), torch.from_numpy(tables),
-                            pos, variant="verify", **kw)
+                            pos[:, None], variant="verify", **kw)
+    with pytest.raises(ValueError, match="variant"):
+        tpa.paged_attention(tq, _layer(tpools, 0), torch.from_numpy(tables),
+                            pos, variant="prefill", **kw)
     with pytest.raises(ValueError, match="kv_heads"):
         tpa.paged_attention(tq, _layer(tpools, 0), torch.from_numpy(tables),
                             pos, scale=1.0)

@@ -133,9 +133,12 @@ def test_no_hidden_cpu_and_unported_options_raise(setup):
             ServingEngine(model, cfg, Scheduler())
         with pytest.raises(RuntimeError, match="cuda"):
             GenerationServer(model, cfg)
-    for bad in (dict(spec_k=2), dict(role="prefill"),
-                dict(prefix_sharing=True), dict(paged=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            ServingEngine(model, cfg, Scheduler(), spec_k=2,
+                          prefix_sharing=True)
+    for bad in (dict(role="prefill"), dict(role="decode"),
+                dict(paged=False)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
             ServingEngine(model, cfg, Scheduler(), device="cpu", **bad)
 
 
