@@ -11,9 +11,15 @@ from ``--seed``, through the hand-written CUDA kernels built from
   (``spec_k=4``: ``Decoder.verify_chunk_paged`` → the kernel's verify
   variant) and prefix sharing;
 - training: ``TrainStepBuilder.build()`` → ``loss_fn`` → ``forward`` →
-  24 layers (``ops.norm`` fused norms, ``ops.flash_attention``) →
+  the layers (``ops.norm`` fused norms, ``ops.flash_attention``) →
   ``fused_linear_ce`` → backward (the flash and norm backward kernels)
-  → AdamW, with llama-1.4b at full width and depth, batch 8 × seq 1024.
+  → AdamW, at batch 8 × seq 1024 and full width and depth, with
+  llama-1.4b (24 layers, heads of 128: the flash kernels that hold one
+  head a block, rmsnorm) and gpt2-1.5b (48 layers, 25 heads of 64: the
+  packed flash kernels, two heads a block, the last block one;
+  layernorm with bias, learned positions, the tied 50304-vocab head);
+  then glm-10b at full width and 4 layers with a prefix-LM mask per
+  sequence (packed kernels with the prefix).
 
 Phases, one JSON line each; any failure exits nonzero and prints no
 result:
@@ -53,24 +59,41 @@ result:
    serve shapes,
    timed (CUDA events and wall) and traced (``torch.profiler``): kernel
    time by class, launches per step, the device's busy share;
-6. train_kernel: the flash kernels (forward, dq, dkv) and the norm
-   kernels (forward, backward) against their plain versions run in f32
-   on the same bf16 values, at llama-1.4b's shapes (flash B 8, S 1024,
-   H 16, D 128, causal; norm rows [8192, 2048], with and without the
-   residual) and in extra cases (GQA, a window, D 64, a ragged S), each
-   under an element-wise bound and each with a planted fault the bound
-   must catch; with each kernel's time, its bound, the plain version's
-   time and the library call's (``F.scaled_dot_product_attention``,
-   ``F.rms_norm``, timed only);
-7. train_model: ``loss_fn`` and every gradient of an f32 llama-1.4b cut
-   to 4 layers, through the kernels against the plain paths
-   (``mha_reference``, the plain norm); a layer whose attention sees one
-   future key must exceed the bound;
-8. train: llama-1.4b, full depth, 6 steps of ``TrainStepBuilder`` on one
-   fixed batch: finite, falling loss and the expected launches of every
-   training kernel; step time, tokens/s, model-FLOPs share, peak memory;
-9. train_profile: one step under ``torch.profiler``: kernel time by
-   class, launches per step, the device's busy share.
+6. train_kernel: the flash kernels (forward, dq, dkv; a head a block
+   and two heads of 64 packed a block) and the norm kernels (forward,
+   backward) against their plain versions run in f32 on the same bf16
+   values, at the train steps' shapes (llama-1.4b: flash B 8, S 1024,
+   H 16, D 128, norm rows [8192, 2048] rmsnorm; gpt2-1.5b: packed flash
+   B 8, S 1024, H 25, D 64, norm rows [8192, 1600] layernorm with bias;
+   glm-10b: norm rows [8192, 4096] layernorm with bias, the backward on 4
+   warps; norms with and without the residual) and in extra cases (GQA, a
+   window, D 64 unpacked, ragged S; packed: 16 heads, glm-10b's 64 heads
+   at S 2048 with a prefix per sequence of 0, 700 and past the end,
+   non-causal bert-base, 25 heads at S 1000; the prefix in the unpacked
+   kernels at D 128), each under an element-wise bound and each with a
+   planted fault the bound must catch (a key row replaced; the prefix
+   shifted by one key; at 25 heads the last pack's second head written
+   into head 24, where the ragged path must also equal the zero-padded
+   path bit for bit); with each kernel's time, its bound, the plain
+   version's time and the library call's
+   (``F.scaled_dot_product_attention``, ``F.rms_norm``,
+   ``F.layer_norm``, timed only), and at gpt2-1.5b's shape the unpacked
+   D 64 kernels' times beside the packed;
+7. train_model, train_model_gpt2, train_model_glm: ``loss_fn`` and every
+   gradient of an f32 model through the kernels against the plain paths
+   (``mha_reference``, the plain norm): llama-1.4b and gpt2-1.5b cut to
+   4 layers at b8, glm-10b at full width and 4 layers at b2 with
+   ``prefix_len`` (317, 700); a layer whose attention sees one future
+   key (glm: ``prefix_len + 1``) must exceed the bound;
+8. train, train_gpt2: llama-1.4b and gpt2-1.5b, full depth, 6 steps of
+   ``TrainStepBuilder`` on one fixed batch: finite, falling loss and the
+   exact launches of every training kernel (the config's flash kernels
+   once a layer, the other pack's never, each norm kernel 2·layers + 1
+   times a step); step time, tokens/s, model-FLOPs share, peak memory;
+   then train_glm: bf16 glm-10b, 4 layers, 3 steps with a ``prefix_len``
+   per sequence: finite loss, exact launches;
+9. train_profile, train_gpt2_profile: one step under ``torch.profiler``:
+   kernel time by class, launches per step, the device's busy share.
 
 The lines before the last are the card's name and power limit and a
 ``{"kernels": [...]}`` summary; the last line is
@@ -104,6 +127,12 @@ TRAIN_KERNELS = (
     ("flash_fwd", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:213"),
     ("flash_bwd_dq", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:369"),
     ("flash_bwd_dkv", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:423"),
+    ("flash_fwd_packed", FLASH_SRC,
+     "dlrover_tpu/ops/pallas_attention.py:278"),
+    ("flash_bwd_dq_packed", FLASH_SRC,
+     "dlrover_tpu/ops/pallas_attention.py:484"),
+    ("flash_bwd_dkv_packed", FLASH_SRC,
+     "dlrover_tpu/ops/pallas_attention.py:546"),
     ("norm_fwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:95"),
     ("norm_bwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:126"),
 )
@@ -161,8 +190,10 @@ FLASH_DOT = 2.0 ** -16
 # Norms: the kernel rounds its output once (2^-8 relative); its f32 row
 # sums differ from the plain version's in order only, far below 2^-16 of
 # the terms' magnitudes (M = |x·r·s| forward; |r·g·s| + |r³·dot·h| for
-# dx). Bound: 2^-8·|plain| + 2^-16·M + 1e-6. dscale (f32 column sums of
-# 8192 rows): 1e-5 of the sum of magnitudes.
+# dx; layernorm: M = |xhat·s| forward, r·(|g·s| + mean|g·s| +
+# |xhat|·mean|g·s·xhat|) for dx, whose two row means are f32 sums in
+# another order). Bound: 2^-8·|plain| + 2^-16·M + 1e-6. dscale and dbias
+# (f32 column sums of 8192 rows): 1e-5 of the sum of magnitudes.
 NORM_ROUND = 2.0 ** -8
 NORM_SLACK = 2.0 ** -16
 # The f32 train_model check: max |Δ| over max |value| of the loss and of
@@ -171,6 +202,9 @@ NORM_SLACK = 2.0 ** -16
 TRAIN_MODEL_REL_TOL = 1e-3
 TRAIN_STEPS = 6
 TRAIN_BATCH, TRAIN_SEQ = 8, 1024
+# glm-10b at full width, depth cut to 4 layers: steps of the bf16 run, and
+# the batch of the f32 check
+GLM_LAYERS, GLM_STEPS, GLM_CHECK_BATCH = 4, 3, 2
 
 _failures = []
 
@@ -1184,7 +1218,8 @@ def _over(out, ref, bound):
             float((diff / bound).max()))
 
 
-def _flash_magnitudes(q, k, v, out, lse, g, causal, scale, window):
+def _flash_magnitudes(q, k, v, out, lse, g, causal, scale, window,
+                      prefix=None):
     """The magnitude products of the flash bounds, in f32, one batch
     element at a time: sum_j p_j·|v_j| (forward), P^T·|dO| (dV),
     |dS|·|K| (dQ) and |dS|^T·|Q| (dK), and the cancellation terms C of
@@ -1195,7 +1230,7 @@ def _flash_magnitudes(q, k, v, out, lse, g, causal, scale, window):
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
-    mask = fa._allowed(sq, sk, causal, window, None, None, q.device)
+    mask = fa._allowed(sq, sk, causal, window, prefix, None, q.device)
     fwd_m = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dq_m = torch.empty_like(fwd_m)
     dk_m = torch.empty(k.shape, dtype=torch.float32, device=q.device)
@@ -1213,7 +1248,7 @@ def _flash_magnitudes(q, k, v, out, lse, g, causal, scale, window):
         oi = out[i].float().transpose(0, 1)
         s = torch.einsum("hqd,hkd->hqk", qi, ki) * scale
         if mask is not None:
-            s = torch.where(mask, s, -1e30)
+            s = torch.where(mask[i if mask.shape[0] > 1 else 0], s, -1e30)
         p = torch.exp(s - lse[i].float()[..., None])
         fwd_m[i] = torch.einsum("hqk,hkd->hqd", p, vi.abs()).transpose(0, 1)
         dp = torch.einsum("hqd,hkd->hqk", gi, vi)
@@ -1229,16 +1264,18 @@ def _flash_magnitudes(q, k, v, out, lse, g, causal, scale, window):
     return fwd_m, dq_m, dk_m, dv_m, dq_c, dk_c
 
 
-def _visible_pairs(s, causal, window):
-    """(query, key) pairs one head of one sequence attends over."""
+def _visible_pairs(s, causal, window, prefix=0):
+    """(query, key) pairs one head of one sequence attends over; with a
+    prefix p every query i sees max(i + 1, p) keys."""
     if not causal:
         return s * s
     if not window:
-        return s * (s + 1) // 2
+        p = min(max(int(prefix), 0), s)
+        return p * p + (s * (s + 1) - p * (p + 1)) // 2
     return sum(min(i + 1, window) for i in range(s))
 
 
-def _flash_bound(kernel, b, s, h, hkv, d, causal, window):
+def _flash_bound(kernel, b, s, h, hkv, d, causal, window, prefix=None):
     """(bound ms, by what) of one flash kernel's share of the work for
     this call: bf16 tensors read and written once (lse/delta f32), and
     2·D FLOP per visible pair for each product (forward: QK^T, PV). The
@@ -1250,10 +1287,11 @@ def _flash_bound(kernel, b, s, h, hkv, d, causal, window):
     the backward's. The split kernels execute 14·D per pair: both
     recompute QK^T and dO·V^T."""
     q_bytes, kv_bytes, row = b * s * h * d * 2, b * s * hkv * d * 2, b * h * s * 4
-    pairs = b * h * _visible_pairs(s, causal, window)
-    if kernel == "flash_fwd":
+    pairs = h * sum(_visible_pairs(s, causal, window, p)
+                    for p in (prefix if prefix is not None else [0] * b))
+    if kernel.startswith("flash_fwd"):
         moved, ops = 2 * q_bytes + 2 * kv_bytes + row, 4 * d * pairs
-    elif kernel == "flash_bwd_dq":
+    elif kernel.startswith("flash_bwd_dq"):
         moved, ops = q_bytes, 2 * d * pairs
     else:
         moved, ops = 2 * q_bytes + 4 * kv_bytes + 2 * row, 8 * d * pairs
@@ -1261,18 +1299,19 @@ def _flash_bound(kernel, b, s, h, hkv, d, causal, window):
 
 
 def _bwd_kernel_fn(which, q, k, v, g, lse, delta, *, causal, scale,
-                   window):
-    """One backward kernel alone (1: dq, 2: dkv), launched through the C
-    entry, to time it: its outputs are thrown away and its launch count
-    is not touched."""
+                   window, pack=1, prefix=None):
+    """One backward kernel alone (1: dq, 2: dkv; ``pack`` 2 the packed
+    one), launched through the C entry, to time it: its outputs are
+    thrown away and its launch count is not touched."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     outs = [torch.empty_like(x) for x in (q, k, v)]
     args = ([x.data_ptr() for x in (q, k, v, g, lse, delta, *outs)]
+            + [None if prefix is None else prefix.data_ptr()]
             + [b, sq, sk, h, hkv, d, float(scale), int(causal), int(window),
-               fa._DTYPE_CODE[q.dtype],
+               pack, fa._DTYPE_CODE[q.dtype],
                torch.cuda.current_stream(q.device).cuda_stream])
 
     def run():
@@ -1304,10 +1343,23 @@ def _sdpa_train_ms(q, k, v, g, causal, scale):
     return fwd_ms, bwd_ms
 
 
-def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed):
+def _zero_head(x):
+    """``x`` ``[B, S, H, D]`` with one zero head appended."""
+    return torch.cat([x, torch.zeros_like(x[:, :, :1])], 2).contiguous()
+
+
+def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
+               pack=1, prefix=None, fault="key"):
+    """The flash kernels (``pack`` 2: the packed ones) at one shape
+    against their plain versions, with a planted fault: ``key`` (key row
+    S/2 of every KV head replaced), ``prefix`` (the prefix shifted by one
+    key) or ``last_pack`` (odd H: the last pack's second head, run on the
+    zero-padded inputs, written into head H - 1; the ragged path's heads
+    must also equal the padded path's bit for bit)."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     scale = d ** -0.5
+    names = fa.PACKED if pack == 2 else fa.UNPACKED
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(
@@ -1315,17 +1367,26 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed):
 
     q, k, v, g = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
         rnd(b, s, h, d)
+    pref = (None if prefix is None
+            else torch.tensor(prefix, dtype=torch.int32, device=dev))
     kw = dict(causal=causal, scale=scale, window=window)
-    out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
-    delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
-    dq, dk, dv = fa.flash_bwd_cuda(q, k, v, g, lse, delta, **kw)
+
+    def run(q, k, v, g, pref):
+        out, lse = fa.flash_fwd_cuda(q, k, v, prefix=pref, pack=pack, **kw)
+        delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1)
+        grads = fa.flash_bwd_cuda(q, k, v, g, lse, delta.contiguous(),
+                                  prefix=pref, pack=pack, **kw)
+        return dict(zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads)))
+
+    got = run(q, k, v, g, pref)
+    out, lse = got["out"], got["lse"]
     torch.cuda.synchronize()
     f32 = [x.float() for x in (q, k, v)]
-    ref_out, ref_lse = fa.flash_fwd_reference(*f32, **kw)
+    ref_out, ref_lse = fa.flash_fwd_reference(*f32, prefix=pref, **kw)
     rdq, rdk, rdv = fa.flash_bwd_reference(*f32, out.float(), lse,
-                                           g.float(), **kw)
+                                           g.float(), prefix=pref, **kw)
     fm, dqm, dkm, dvm, dqc, dkc = _flash_magnitudes(
-        q, k, v, out, lse, g, causal, scale, window)
+        q, k, v, out, lse, g, causal, scale, window, pref)
 
     def bound(ref, m, c=0.0):
         return (FLASH_ROUND * ref.abs() + (FLASH_ROUND + FLASH_SLACK) * m
@@ -1334,48 +1395,74 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed):
     bounds = {"out": bound(ref_out, fm), "dq": bound(rdq, dqm, dqc),
               "dk": bound(rdk, dkm, dkc), "dv": bound(rdv, dvm)}
     refs = {"out": ref_out, "dq": rdq, "dk": rdk, "dv": rdv}
-    got = {"out": out, "dq": dq, "dk": dk, "dv": dv}
     checks = {n: _over(got[n], refs[n], bounds[n]) for n in refs}
     checks["lse"] = _over(lse, ref_lse, 1e-5 * (1 + ref_lse.abs()))
-    # planted fault: key row S/2 of every KV head replaced
-    kb = k.clone()
-    kb[:, s // 2] = rnd(b, hkv, d)
-    out_b, _ = fa.flash_fwd_cuda(q, kb, v, **kw)
-    bad = dict(zip(("dq", "dk", "dv"),
-                   fa.flash_bwd_cuda(q, kb, v, g, lse, delta, **kw)))
-    bad["out"] = out_b
+    extra = {}
+    if fault == "key":
+        label = "key row S/2 replaced"
+        kb = k.clone()
+        kb[:, s // 2] = rnd(b, hkv, d)
+        bad = run(q, kb, v, g, pref)
+    elif fault == "prefix":
+        label = "prefix shifted by one key"
+        bad = run(q, k, v, g, pref + 1)
+    else:
+        label = "the last pack's second head written into head H-1"
+        padded = run(*(_zero_head(x) for x in (q, k, v, g)), pref)
+        extra["ragged_equals_padded"] = all(
+            bool(torch.equal(padded[n][:, :h] if n == "lse"
+                             else padded[n][:, :, :h], got[n]))
+            for n in got)
+        bad = {}
+        for n in refs:
+            x = padded[n][:, :, :h].clone()
+            x[:, :, h - 1] = padded[n][:, :, h]
+            bad[n] = x
     torch.cuda.synchronize()
     faults = {n: _over(bad[n], refs[n], bounds[n])[1] for n in refs}
     rec = {"phase": "train_kernel", "case": name, "op": "flash",
-           "B": b, "S": s, "H": h, "Hkv": hkv, "D": d, "causal": causal,
-           "window": window,
+           "kernels": list(names), "B": b, "S": s, "H": h, "Hkv": hkv,
+           "D": d, "causal": causal, "window": window, "pack": pack,
+           "prefix": prefix,
            "max_abs_err": {n: c[0] for n, c in checks.items()},
            "over_bound": {n: c[1] for n, c in checks.items()},
            "max_err_over_bound": {n: c[2] for n, c in checks.items()},
-           "fault": "key row S/2 replaced", "fault_over_bound": faults,
+           "fault": label, "fault_over_bound": faults, **extra,
            "finite": bool(all(torch.isfinite(t.float()).all()
-                              for t in (out, lse, dq, dk, dv)))}
+                              for t in got.values()))}
     rec["ok"] = (rec["finite"] and all(c[1] == 0 for c in checks.values())
-                 and all(n > 0 for n in faults.values()))
+                 and all(n > 0 for n in faults.values())
+                 and all(extra.values()))
     if timed:
-        fwd_plain = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, **kw), 3)
+        pkw = dict(kw, prefix=pref)
+        fwd_plain = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, **pkw),
+                            3)
         bwd_plain = cuda_ms(lambda: fa.flash_bwd_reference(
-            q, k, v, out, lse, g, **kw), 3)
-        lib_fwd, lib_bwd = ((None, None) if window else
-                            _sdpa_train_ms(q, k, v, g, causal, scale))
+            q, k, v, out, lse, g, **pkw), 3)
+        lib_fwd, lib_bwd = ((None, None) if window or prefix is not None
+                            else _sdpa_train_ms(q, k, v, g, causal, scale))
+        delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
+            .contiguous()
+
+        def kernel_ms(p):
+            """ms of the forward, dq and dkv kernels at pack ``p``."""
+            return [cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, pack=p, **pkw),
+                            20)] + [
+                cuda_ms(_bwd_kernel_fn(w, q, k, v, g, lse, delta, pack=p,
+                                       **pkw), 20) for w in (1, 2)]
+
         rec["timing"] = {}
-        for kernel, fn, plain, lib in (
-                ("flash_fwd", lambda: fa.flash_fwd_cuda(q, k, v, **kw),
-                 fwd_plain, lib_fwd),
-                ("flash_bwd_dq", _bwd_kernel_fn(1, q, k, v, g, lse, delta,
-                                                **kw), bwd_plain, lib_bwd),
-                ("flash_bwd_dkv", _bwd_kernel_fn(2, q, k, v, g, lse, delta,
-                                                 **kw), bwd_plain, lib_bwd)):
+        for kernel, ms, plain, lib in zip(names, kernel_ms(pack),
+                                          (fwd_plain, bwd_plain, bwd_plain),
+                                          (lib_fwd, lib_bwd, lib_bwd)):
             bound_ms, by = _flash_bound(kernel, b, s, h, hkv, d, causal,
-                                        window)
+                                        window, prefix)
             rec["timing"][kernel] = {
-                "ms": cuda_ms(fn, 20), "plain_ms": plain, "library_ms": lib,
+                "ms": ms, "plain_ms": plain, "library_ms": lib,
                 "bound_ms": bound_ms, "bound_by": by}
+        if pack == 2:
+            # what packing buys: the unpacked D 64 kernels, same inputs
+            rec["unpacked_ms"] = dict(zip(fa.UNPACKED, kernel_ms(1)))
     emit(rec)
     if not rec["ok"]:
         _failures.append(f"train_kernel {name}: {rec}")
@@ -1398,12 +1485,13 @@ def _norm_bound(kernel, n, d, residual):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def norm_case(name, n, d, residual, gen, dev, timed):
+def norm_case(name, n, d, residual, gen, dev, timed, kind="rmsnorm"):
     import torch.nn.functional as F
 
     from dlrover_tpu_torch.ops import norm as nm
 
-    eps = nm.RMS_EPS
+    rms = kind == "rmsnorm"
+    eps = nm.RMS_EPS if rms else nm.LN_EPS
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(
@@ -1413,37 +1501,51 @@ def norm_case(name, n, d, residual, gen, dev, timed):
     r = rnd(n, d) if residual else None
     gh = rnd(n, d) if residual else None
     scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=dev)
-    out, h = nm.norm_fwd_cuda(x, scale, None, r, "rmsnorm", eps)
-    dx, ds, _ = nm.norm_bwd_cuda(g, h, scale, gh, "rmsnorm", eps, False)
+    bias = None if rms else 0.1 * torch.randn(d, generator=gen, device=dev)
+    out, h = nm.norm_fwd_cuda(x, scale, bias, r, kind, eps)
+    dx, ds, db = nm.norm_bwd_cuda(g, h, scale, gh, kind, eps, not rms)
     torch.cuda.synchronize()
     h_ref = x + r if residual else x  # bf16 add: the f32 sum rounded once
     h32, g32 = h_ref.float(), g.float()
-    ref = nm._reference(h32, scale, None, "rmsnorm", eps, None)
-    rr = torch.rsqrt((h32 * h32).mean(-1, keepdim=True) + eps)
-    fwd_bound = (NORM_ROUND * ref.abs() + NORM_SLACK * (h32 * rr * scale).abs()
-                 + 1e-6)
-    rdx, rds, _ = nm.norm_bwd_reference(
-        g32, h32, scale, None if gh is None else gh.float(), "rmsnorm", eps,
-        False)
-    dot = (g32 * scale * h32).mean(-1, keepdim=True)
-    m_dx = (rr * g32 * scale).abs() + (rr ** 3 * dot * h32).abs()
+    ref = nm._reference(h32, scale, bias, kind, eps, None)
+    rdx, rds, rdb = nm.norm_bwd_reference(
+        g32, h32, scale, None if gh is None else gh.float(), kind, eps,
+        not rms)
+    gx = g32 * scale
+    if rms:
+        rr = torch.rsqrt((h32 * h32).mean(-1, keepdim=True) + eps)
+        xhat = h32 * rr
+        dot = (gx * h32).mean(-1, keepdim=True)
+        m_dx = (rr * gx).abs() + (rr ** 3 * dot * h32).abs()
+    else:
+        mean = h32.mean(-1, keepdim=True)
+        var = ((h32 * h32).mean(-1, keepdim=True) - mean * mean).clamp(0)
+        rr = torch.rsqrt(var + eps)
+        xhat = (h32 - mean) * rr
+        m_dx = rr * (gx.abs() + gx.abs().mean(-1, keepdim=True)
+                     + xhat.abs() * (gx * xhat).abs().mean(-1, keepdim=True))
+    fwd_bound = NORM_ROUND * ref.abs() + NORM_SLACK * (xhat * scale).abs() \
+        + 1e-6
     dx_bound = NORM_ROUND * rdx.abs() + NORM_SLACK * m_dx + 1e-6
-    ds_bound = 1e-5 * (g32 * h32 * rr).abs().sum(0) + 1e-6
     checks = {"out": _over(out, ref, fwd_bound),
               "dx": _over(dx, rdx, dx_bound),
-              "dscale": _over(ds, rds, ds_bound)}
+              "dscale": _over(ds, rds, 1e-5 * (g32 * xhat).abs().sum(0)
+                              + 1e-6)}
+    if not rms:
+        checks["dbias"] = _over(db, rdb, 1e-5 * g32.abs().sum(0) + 1e-6)
     h_exact = bool(torch.equal(h, h_ref))
     # planted faults: row 17 of x (forward) and of g (backward) replaced
     # by row 18
     xb, gb = x.clone(), g.clone()
     xb[17], gb[17] = x[18], g[18]
-    out_b, _ = nm.norm_fwd_cuda(xb, scale, None, r, "rmsnorm", eps)
-    dx_b, _, _ = nm.norm_bwd_cuda(gb, h, scale, gh, "rmsnorm", eps, False)
+    out_b, _ = nm.norm_fwd_cuda(xb, scale, bias, r, kind, eps)
+    dx_b, _, _ = nm.norm_bwd_cuda(gb, h, scale, gh, kind, eps, not rms)
     torch.cuda.synchronize()
     faults = {"out": _over(out_b, ref, fwd_bound)[1],
               "dx": _over(dx_b, rdx, dx_bound)[1]}
     rec = {"phase": "train_kernel", "case": name, "op": "norm",
-           "rows": n, "d": d, "residual": residual, "kind": "rmsnorm",
+           "kernels": list(nm.KERNELS), "rows": n, "d": d,
+           "residual": residual, "kind": kind, "bias": not rms,
            "max_abs_err": {k: c[0] for k, c in checks.items()},
            "over_bound": {k: c[1] for k, c in checks.items()},
            "max_err_over_bound": {k: c[2] for k, c in checks.items()},
@@ -1453,24 +1555,30 @@ def norm_case(name, n, d, residual, gen, dev, timed):
                  and all(v > 0 for v in faults.values()))
     if timed:
         w16 = scale.to(torch.bfloat16)
-        xl = x.detach().requires_grad_()
-        wl = w16.detach().requires_grad_()
-        y = F.rms_norm(xl, (d,), wl, eps)
+        b16 = None if rms else bias.to(torch.bfloat16)
+
+        def lib(a, w, b_):
+            return (F.rms_norm(a, (d,), w, eps) if rms
+                    else F.layer_norm(a, (d,), w, b_, eps))
+
+        leaves = [t.detach().requires_grad_()
+                  for t in ((x, w16) if rms else (x, w16, b16))]
+        y = lib(*leaves, None) if rms else lib(*leaves)
         rec["timing"] = {
             "norm_fwd": {
                 "ms": cuda_ms(lambda: nm.norm_fwd_cuda(
-                    x, scale, None, r, "rmsnorm", eps), 50),
+                    x, scale, bias, r, kind, eps), 50),
                 "plain_ms": cuda_ms(lambda: nm._reference(
-                    x, scale, None, "rmsnorm", eps, r), 20),
+                    x, scale, bias, kind, eps, r), 20),
                 "library_ms": None if residual else cuda_ms(
-                    lambda: F.rms_norm(x, (d,), w16, eps), 50)},
+                    lambda: lib(x, w16, b16), 50)},
             "norm_bwd": {
                 "ms": cuda_ms(lambda: nm.norm_bwd_cuda(
-                    g, h, scale, gh, "rmsnorm", eps, False), 50),
+                    g, h, scale, gh, kind, eps, not rms), 50),
                 "plain_ms": cuda_ms(lambda: nm.norm_bwd_reference(
-                    g, h, scale, gh, "rmsnorm", eps, False), 20),
+                    g, h, scale, gh, kind, eps, not rms), 20),
                 "library_ms": None if residual else cuda_ms(
-                    lambda: torch.autograd.grad(y, (xl, wl), g,
+                    lambda: torch.autograd.grad(y, leaves, g,
                                                 retain_graph=True), 50)},
         }
         for kernel, t in rec["timing"].items():
@@ -1493,9 +1601,37 @@ def train_kernel_cases(seed, dev):
                    False),
         flash_case("d64", 2, 1024, 16, 16, 64, True, 0, gen, dev, False),
         flash_case("ragged", 2, 1000, 8, 2, 128, False, 0, gen, dev, False),
-        # the train step's norms: [B·S, d_model] rows, timed
+        # the packed kernels: gpt2-1.5b's attention in the train step,
+        # timed beside the unpacked D 64 kernels (25 heads: the last pack
+        # holds one)
+        flash_case("gpt2-1.5b", 8, 1024, 25, 25, 64, True, 0, gen, dev,
+                   True, pack=2, fault="last_pack"),
+        flash_case("gpt2-355m", 2, 1024, 16, 16, 64, True, 0, gen, dev,
+                   False, pack=2),
+        # glm-10b's heads with a prefix per sequence: none, mid-tile, and
+        # past the end
+        flash_case("glm-10b", 3, 2048, 64, 64, 64, True, 0, gen, dev, False,
+                   pack=2, prefix=(0, 700, 2148), fault="prefix"),
+        flash_case("bert-base", 2, 512, 12, 12, 64, False, 0, gen, dev,
+                   False, pack=2),
+        flash_case("packed-ragged", 2, 1000, 25, 25, 64, True, 0, gen, dev,
+                   False, pack=2),
+        # the prefix in the unpacked kernels
+        flash_case("prefix-d128", 2, 1024, 16, 16, 128, True, 0, gen, dev,
+                   False, prefix=(513, 1500), fault="prefix"),
+        # the train steps' norms: [B·S, d_model] rows, timed
         norm_case("llama-1.4b", 8192, 2048, False, gen, dev, True),
         norm_case("llama-1.4b+residual", 8192, 2048, True, gen, dev, True),
+        norm_case("gpt2-1.5b", 8192, 1600, False, gen, dev, True,
+                  "layernorm"),
+        norm_case("gpt2-1.5b+residual", 8192, 1600, True, gen, dev, True,
+                  "layernorm"),
+        # glm-10b's rows in train_glm: layernorm with bias at d 4096, whose
+        # backward runs 4 warps a block (8 warps' partials pass the shared
+        # memory a block can have)
+        norm_case("glm-10b", 8192, 4096, False, gen, dev, True, "layernorm"),
+        norm_case("glm-10b+residual", 8192, 4096, True, gen, dev, True,
+                  "layernorm"),
     ]
     return cases
 
@@ -1532,19 +1668,30 @@ def future_key_attention(layer: int):
         decoder.flash_attention = saved
 
 
-def train_model_check(cfg, seed, dev):
+def _train_batch(cfg, rng, b, dev, prefix=None):
+    tok = torch.as_tensor(
+        rng.integers(0, cfg.vocab_size, size=(b, TRAIN_SEQ + 1)), device=dev)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    if prefix is not None:
+        batch["prefix_len"] = torch.as_tensor(prefix, dtype=torch.int32,
+                                              device=dev)
+    return batch
+
+
+def train_model_check(cfg, seed, dev, name="train_model", b=TRAIN_BATCH,
+                      prefix=None):
+    """``loss_fn`` and every gradient through the kernels against the
+    plain paths (f32). The planted fault: without a prefix, layer 1's
+    attention sees one future key; with one, ``prefix_len + 1``."""
     from dlrover_tpu_torch.models import decoder
 
     model = decoder.init(cfg, seed=seed, device=dev, trainable=True)
-    rng = np.random.default_rng(seed + 5)
-    tok = torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ + 1)),
-        device=dev)
-    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    batch = _train_batch(cfg, np.random.default_rng(seed + 5), b, dev,
+                         prefix)
     names = [n for n, _ in model.named_parameters()]
     leaves = [p for _, p in model.named_parameters()]
 
-    def run(run_cfg, attn_impl, ctx):
+    def run(run_cfg, attn_impl, ctx, batch):
         with ctx:
             loss, _ = decoder.loss_fn(model, batch, run_cfg,
                                       attn_impl=attn_impl)
@@ -1552,10 +1699,16 @@ def train_model_check(cfg, seed, dev):
         torch.cuda.synchronize()
         return [loss.detach()] + list(grads)
 
-    kern = run(cfg, "auto", contextlib.nullcontext())
+    kern = run(cfg, "auto", contextlib.nullcontext(), batch)
     plain = run(dataclasses.replace(cfg, fused_norm=False), "reference",
-                contextlib.nullcontext())
-    fault = run(cfg, "auto", future_key_attention(1))
+                contextlib.nullcontext(), batch)
+    if prefix is None:
+        label = "layer 1 attention sees one future key"
+        fault = run(cfg, "auto", future_key_attention(1), batch)
+    else:
+        label = "prefix_len + 1"
+        fault = run(cfg, "auto", contextlib.nullcontext(),
+                    dict(batch, prefix_len=batch["prefix_len"] + 1))
 
     def rel(a, b):
         return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
@@ -1565,21 +1718,20 @@ def train_model_check(cfg, seed, dev):
     planted = {n: rel(a, b) for n, a, b in zip(labels, fault, plain)}
     worst = max(sound, key=sound.get)
     caught = max(planted, key=planted.get)
-    rec = {"phase": "train_model", "config": cfg.name, "dtype": cfg.dtype,
-           "n_layer": cfg.n_layer, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
-           "tol_rel": TRAIN_MODEL_REL_TOL, "loss": float(kern[0]),
-           "loss_plain": float(plain[0]), "leaves": len(names),
-           "max_rel_err": sound[worst], "max_rel_err_leaf": worst,
-           "loss_rel_err": sound["loss"],
-           "fault": "layer 1 attention sees one future key",
-           "fault_max_rel_err": planted[caught], "fault_leaf": caught,
-           "fault_loss_rel_err": planted["loss"],
+    rec = {"phase": name, "config": cfg.name, "dtype": cfg.dtype,
+           "n_layer": cfg.n_layer, "batch": b, "seq": TRAIN_SEQ,
+           "prefix_len": prefix, "tol_rel": TRAIN_MODEL_REL_TOL,
+           "loss": float(kern[0]), "loss_plain": float(plain[0]),
+           "leaves": len(names), "max_rel_err": sound[worst],
+           "max_rel_err_leaf": worst, "loss_rel_err": sound["loss"],
+           "fault": label, "fault_max_rel_err": planted[caught],
+           "fault_leaf": caught, "fault_loss_rel_err": planted["loss"],
            "finite": all(bool(torch.isfinite(t).all()) for t in kern)}
     rec["ok"] = (rec["finite"] and sound[worst] <= TRAIN_MODEL_REL_TOL
                  < planted[caught])
     emit(rec)
     if not rec["ok"]:
-        _failures.append(f"train_model: {rec}")
+        _failures.append(f"{name}: {rec}")
     del model, kern, plain, fault
 
 
@@ -1603,7 +1755,14 @@ def _reset_train_launches():
     nm.reset_launches()
 
 
-def train_run(cfg, seed, dev):
+def train_run(cfg, seed, dev, name="train", steps=TRAIN_STEPS,
+              prefix=None, falling=True):
+    """``steps`` steps of ``TrainStepBuilder`` on one fixed batch of
+    TRAIN_BATCH × TRAIN_SEQ (with ``prefix`` as its ``prefix_len``):
+    finite loss, falling when ``falling``, and exactly one launch of each
+    flash kernel of the config's pack per layer and 2·layers + 1 of each
+    norm kernel per step, none of the other pack's."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.train.optimizer import make_optimizer
     from dlrover_tpu_torch.train.train_step import (
         TrainStepBuilder,
@@ -1618,14 +1777,11 @@ def train_run(cfg, seed, dev):
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     step = TrainStepBuilder(cfg, opt, device=dev).build()
-    rng = np.random.default_rng(seed + 6)
-    tok = torch.as_tensor(
-        rng.integers(0, cfg.vocab_size, size=(TRAIN_BATCH, TRAIN_SEQ + 1)),
-        device=dev)
-    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    batch = _train_batch(cfg, np.random.default_rng(seed + 6), TRAIN_BATCH,
+                         dev, prefix)
     losses, grad_norms, device_ms, wall_ms = [], [], [], []
     _reset_train_launches()
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         t = time.perf_counter()
@@ -1638,16 +1794,18 @@ def train_run(cfg, seed, dev):
         losses.append(float(m["loss"]))
         grad_norms.append(float(m["grad_norm"]))
     launches = _train_launches()
-    n_norm = 2 * cfg.n_layer + 1
-    expected = {"flash_fwd": cfg.n_layer, "flash_bwd_dq": cfg.n_layer,
-                "flash_bwd_dkv": cfg.n_layer, "norm_fwd": n_norm,
-                "norm_bwd": n_norm}
-    expected = {k: v * TRAIN_STEPS for k, v in expected.items()}
+    pack = fa.head_pack_for(cfg.n_head, cfg.kv_heads, cfg.head_dim,
+                            cfg.attn_head_pack)
+    flash = fa.PACKED if pack == 2 else fa.UNPACKED
+    expected = {k: cfg.n_layer * (k in flash) for k in fa.KERNELS}
+    expected.update(norm_fwd=2 * cfg.n_layer + 1, norm_bwd=2 * cfg.n_layer + 1)
+    expected = {k: v * steps for k, v in expected.items()}
     steady = sorted(device_ms[1:])[len(device_ms[1:]) // 2]
     tokens = TRAIN_BATCH * TRAIN_SEQ
-    rec = {"phase": "train", "config": cfg.name, "n_layer": cfg.n_layer,
+    rec = {"phase": name, "config": cfg.name, "n_layer": cfg.n_layer,
            "params": sum(p.numel() for p in state["params"].parameters()),
-           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
+           "head_pack": pack, "prefix_len": prefix,
            "init_s": init_s, "losses": losses, "grad_norms": grad_norms,
            "step_device_ms": device_ms, "step_wall_ms": wall_ms,
            "steady_step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
@@ -1656,16 +1814,17 @@ def train_run(cfg, seed, dev):
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": launches, "launches_expected": expected}
     rec["ok"] = (all(math.isfinite(x) for x in losses + grad_norms)
-                 and losses[-1] < losses[0] and launches == expected)
+                 and (losses[-1] < losses[0] or not falling)
+                 and launches == expected)
     emit(rec)
     if not rec["ok"]:
-        _failures.append(f"train: {rec}")
+        _failures.append(f"{name}: {rec}")
     return state, step, batch, rec, opt
 
 
 def _train_kernel_class(name: str) -> str:
     low = name.lower()
-    if "flash_fwd_kernel" in low or "flash_bwd_" in low:
+    if "flash_fwd_" in low or "flash_bwd_" in low:
         return "flash"
     if "norm_fwd_kernel" in low or "norm_bwd_kernel" in low:
         return "norm"
@@ -1709,7 +1868,7 @@ def _phase_ms(state, batch, cfg, opt):
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def train_profile(state, step, batch, cfg, opt):
+def train_profile(state, step, batch, cfg, opt, name="train_profile"):
     from torch.profiler import ProfilerActivity, profile
 
     _reset_train_launches()
@@ -1733,7 +1892,7 @@ def train_profile(state, step, batch, cfg, opt):
         raise RuntimeError(f"train profile: the trace holds no device time "
                            f"for the flash or norm kernels ({n_by_class})")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    emit({"phase": "train_profile", "traced_wall_ms": traced_ms,
+    emit({"phase": name, "config": cfg.name, "traced_wall_ms": traced_ms,
           "untraced_step_ms": _phase_ms(state, batch, cfg, opt),
           "kernel_ms": busy, "device_busy_share": busy / traced_ms,
           "kernels_per_step": sum(n_by_class.values()),
@@ -1831,16 +1990,44 @@ def main(argv=None) -> int:
         train_model_check(get_config("llama-1.4b", n_layer=F32_CHECK_LAYERS,
                                      dtype="float32"), args.seed, dev)
     torch.cuda.empty_cache()
-    state = None
+    with phase("train_model_gpt2"):
+        train_model_check(get_config("gpt2-1.5b", n_layer=F32_CHECK_LAYERS,
+                                     dtype="float32"), args.seed, dev,
+                          "train_model_gpt2")
+    torch.cuda.empty_cache()
+    with phase("train_model_glm"):
+        train_model_check(get_config("glm-10b", n_layer=GLM_LAYERS,
+                                     dtype="float32"), args.seed, dev,
+                          "train_model_glm", b=GLM_CHECK_BATCH,
+                          prefix=(317, 700))
+    torch.cuda.empty_cache()
+    # the main training paths: llama-1.4b (unpacked flash kernels, rmsnorm)
+    # and gpt2-1.5b (packed flash kernels, layernorm with bias), each at
+    # full width and depth; their launches, read right after each run
     train_launches = {}
-    cfg = get_config("llama-1.4b")
-    with phase("train"):
-        state, step, batch, rec, opt = train_run(cfg, args.seed, dev)
-        train_launches = rec["launches"]
-    if state is not None:
-        with phase("train_profile"):
-            train_profile(state, step, batch, cfg, opt)
+    for name, cfg_name in (("train", "llama-1.4b"), ("train_gpt2",
+                                                     "gpt2-1.5b")):
+        state = None
+        cfg = get_config(cfg_name)
+        with phase(name):
+            state, step, batch, rec, opt = train_run(cfg, args.seed, dev,
+                                                     name)
+            train_launches[name] = rec["launches"]
+        if state is not None:
+            with phase(name + "_profile"):
+                train_profile(state, step, batch, cfg, opt,
+                              name + "_profile")
         del state
+        step = batch = opt = None
+        torch.cuda.empty_cache()
+    # glm-10b at full width, 4 layers, bf16, with a prefix per sequence
+    with phase("train_glm"):
+        rng = np.random.default_rng(args.seed + 7)
+        train_run(get_config("glm-10b", n_layer=GLM_LAYERS), args.seed, dev,
+                  "train_glm", steps=GLM_STEPS, falling=False,
+                  prefix=[int(p) for p in rng.integers(
+                      0, TRAIN_SEQ + 1, size=TRAIN_BATCH)])
+    torch.cuda.empty_cache()
     if _failures:
         print("\n".join(_failures), file=sys.stderr)
         return 1
@@ -1859,19 +2046,22 @@ def main(argv=None) -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
         })
-    outputs = {"flash_fwd": ("out", "lse"), "flash_bwd_dq": ("dq",),
-               "flash_bwd_dkv": ("dk", "dv"), "norm_fwd": ("out",),
+    outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",),
+               "bwd_dkv": ("dk", "dv"), "norm_fwd": ("out",),
                "norm_bwd": ("dx",)}
     for kernel, src, replaces in TRAIN_KERNELS:
-        op = "flash" if kernel.startswith("flash") else "norm"
-        mine = [c for c in train_cases if c["op"] == op]
-        head = next(c for c in mine if "timing" in c)
-        t = head["timing"][kernel]
+        mine = [c for c in train_cases if kernel in c["kernels"]]
+        # the timed case at the train step's shapes (the first of its
+        # kernel: llama-1.4b's for the unpacked flash kernels and the
+        # norms, gpt2-1.5b's for the packed)
+        t = next(c for c in mine if "timing" in c)["timing"][kernel]
+        out_key = kernel.replace("flash_", "").replace("_packed", "")
         kernels.append({
             "name": kernel, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": train_launches[kernel],
+            "replaces": replaces,
+            "launches": sum(n[kernel] for n in train_launches.values()),
             "max_abs_err": max(c["max_abs_err"][o] for c in mine
-                               for o in outputs[kernel]),
+                               for o in outputs[out_key]),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],

@@ -1,18 +1,22 @@
 // FlashAttention-2 forward and backward for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of dlrover_tpu/ops/pallas_attention.py:
-//   flash_fwd_kernel     <- _fwd_kernel        (driven by _flash_fwd)
-//   flash_bwd_dq_kernel  <- _bwd_dq_kernel     (driven by _pallas_backward)
-//   flash_bwd_dkv_kernel <- _bwd_dkv_kernel    (driven by _pallas_backward)
+//   flash_fwd_kernel            <- _fwd_kernel             (driven by _flash_fwd)
+//   flash_bwd_dq_kernel         <- _bwd_dq_kernel          (driven by _pallas_backward)
+//   flash_bwd_dkv_kernel        <- _bwd_dkv_kernel         (driven by _pallas_backward)
+//   flash_fwd_packed_kernel     <- _fwd_kernel_packed      (head_pack 2)
+//   flash_bwd_dq_packed_kernel  <- _bwd_dq_kernel_packed   (head_pack 2)
+//   flash_bwd_dkv_packed_kernel <- _bwd_dkv_kernel_packed  (head_pack 2)
 // with the same arithmetic: scores s = (q . k) * scale in f32; masked
 // scores (causal q_pos >= k_pos aligned top-left, a sliding window
-// q_pos - k_pos < window, keys past the ragged end) set to -1e30; the
-// online softmax of _fwd_head_step, in which p = exp(s - m) is rounded to
-// the input type before P.V while l sums the unrounded p; l == 0 -> 1;
-// lse = m + log l. The backward recomputes p = exp(s - lse) and
-// ds = p * (dp - delta) * scale (_p_and_ds), with delta = rowsum(dO * O)
-// computed outside (an lse cotangent folds into delta there), and rounds
-// p and ds to the input type before the dV, dK and dQ products.
+// q_pos - k_pos < window, GLM prefix-LM keys k_pos < prefix[b] seen by every
+// query, keys past the ragged end) set to -1e30; the online softmax of
+// _fwd_head_step, in which p = exp(s - m) is rounded to the input type
+// before P.V while l sums the unrounded p; l == 0 -> 1; lse = m + log l.
+// The backward recomputes p = exp(s - lse) and ds = p * (dp - delta) *
+// scale (_p_and_ds), with delta = rowsum(dO * O) computed outside (an lse
+// cotangent folds into delta there), and rounds p and ds to the input type
+// before the dV, dK and dQ products.
 //
 // What bounds it: operations. Causal attention at the training shapes
 // (B 8, S 1024, H 16, D 128) does 4 * B * H * S^2 * D / 2 = 3.4e10 FLOP in
@@ -23,42 +27,59 @@
 // layout, so both share one body.
 //
 // Design. No block carries state to another: the forward gives each block
-// one (b * H + h, 64-row q tile) and loops over 64-key tiles inside; the
-// dq kernel does the same; the dkv kernel gives each block one
-// (b * Hkv + kh, 64-key tile) and loops over the query heads of the KV
-// head's group and over 32-row q tiles, so the GQA group sum of dk/dv is
-// a sum in registers and needs no atomics. Each of the block's 4 warps owns
-// 16 rows of the output tile and keeps them in mma accumulator fragments.
-// Tiles of Q, K, V and dO are staged in shared memory with their rows
-// padded by 16 bytes (conflict-free fragment loads); P and dS go through a
-// small per-warp buffer, which also rounds them to the input type. The
-// operand of a product that is read along its rows (V in P.V, K in dS.K,
-// dO in P^T.dO, Q in dS^T.Q) is loaded with ldmatrix.trans. Tiles wholly
-// above the causal diagonal or below the window are skipped (_block_runs);
-// masks are exact per element, and the ragged tail of S is masked in the
-// kernel, so S need not be a multiple of a tile. cp.async/TMA pipelining,
-// wgmma and register-resident P are later work.
+// NH query heads of one batch element and one 64-row q tile and loops over
+// 64-key tiles inside; the dq kernel does the same; the dkv kernel gives
+// each block NH KV heads and one 64-key tile and loops over the query heads
+// of each KV head's group and over 32-row q tiles, so the GQA group sum of
+// dk/dv is a sum in registers and needs no atomics. Each head of a block
+// has a group of 4 warps; each warp owns 16 rows of its head's output tile
+// and keeps them in mma accumulator fragments. Tiles of Q, K, V and dO are
+// staged in shared memory with their rows padded by 16 bytes (conflict-free
+// fragment loads); P and dS go through a small per-warp buffer, which also
+// rounds them to the input type. The operand of a product that is read
+// along its rows (V in P.V, K in dS.K, dO in P^T.dO, Q in dS^T.Q) is loaded
+// with ldmatrix.trans. Tiles wholly above the causal diagonal or below the
+// window, and outside the prefix, are skipped (_block_runs); tiles wholly
+// visible (under the diagonal, inside the prefix) only scale their scores;
+// the others are masked exactly per element, the ragged tail of S included,
+// so S need not be a multiple of a tile. The packed kernels' forward and
+// dkv double-buffer their streamed tiles with cp.async (below, kv_bufs);
+// pipelining the rest, wgmma and register-resident P are later work.
+//
+// Head packing (NH = 2, D = 64, MHA: the packed kernels). In the
+// [B, S, H, D] layout heads 2p and 2p + 1 are one contiguous run of 128
+// elements (256 bytes in bf16) of every row, so a packed block stages Q, K,
+// V and dO as [rows, 128] tiles in one coalesced pass by all 8 warps, where
+// the unpacked D = 64 kernel reads 128-byte pieces H * D * 2 bytes apart:
+// the card's counterpart of the TPU kernels' K/V DMA in pack-head batches.
+// Each warp group then computes one head from the shared tiles, so a warp
+// holds the registers of one head of 64 and an SM keeps the unpacked D = 64
+// kernels' 16 warps (two packed blocks). With an odd H the last pack's
+// second head does not exist: its block loads only the first head's
+// columns, and the second warp group joins the loads and barriers but
+// computes and writes nothing (the JAX wrapper zero-pads the heads
+// instead).
 //
 // Layouts as the JAX package's public functions: q, out, dq [B, Sq, H, D];
-// k, v, dk, dv [B, Sk, Hkv, D]; lse and delta [B, H, Sq] f32; all
-// contiguous. Interface: plain C functions launched on the caller's stream;
-// they allocate nothing and return cudaGetLastError() after the launch.
+// k, v, dk, dv [B, Sk, Hkv, D]; lse and delta [B, H, Sq] f32; prefix [B]
+// int32 (or null); all contiguous. Interface: plain C functions launched on
+// the caller's stream; they allocate nothing and return cudaGetLastError()
+// after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
+constexpr int kWarps = 4;   // warps per head of a block (16 rows each)
 constexpr int kFwdBQ = 64;  // q rows per forward / dq block (16 per warp)
 constexpr int kFwdBK = 64;  // keys per inner tile of the forward and dq
 constexpr int kKvBK = 64;   // keys per dkv block (16 per warp)
 constexpr int kKvBQ = 32;   // q rows per inner tile of dkv
+constexpr int kPackD = 64;  // head_dim of the packed kernels (2 heads)
 
 using bf16 = __nv_bfloat16;
 
@@ -73,6 +94,7 @@ struct Args {
   void* dq;
   void* dk;
   void* dv;
+  const int* prefix;  // [B] prefix-LM lengths, or null
   int B, Sq, Sk, H, Hkv;
   float scale;
   int causal;
@@ -84,18 +106,10 @@ __host__ __device__ constexpr int pad_elems() {
   return 16 / static_cast<int>(sizeof(T));
 }
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) {
-  return __float2bfloat16_rn(x);
+// threads of a block holding NH heads: a group of kWarps warps per head
+template <int NH>
+__host__ __device__ constexpr int block_threads() {
+  return NH * kWarps * 32;
 }
 
 // Two adjacent elements of a row, written as one access.
@@ -106,23 +120,60 @@ __device__ __forceinline__ void store2(bf16* p, float x, float y) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
 }
 
-// Rows [row0, row0 + ROWS) of a [*, D] operand whose rows are gstride
-// elements apart, into shared memory with row stride ld; rows at or past
-// n_rows are zero.
-template <typename T, int D, int ROWS>
+// Rows [row0, row0 + ROWS) of an operand whose rows are gstride elements
+// apart, W columns of each, into shared memory with row stride ld; rows at
+// or past n_rows, and columns at or past cols (the missing head of a ragged
+// pack), are zero and never read.
+template <typename T, int W, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile(T* s, int ld, const T* g,
                                           size_t gstride, int row0,
-                                          int n_rows) {
+                                          int n_rows, int cols) {
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < ROWS * kPerRow; i += kThreads) {
+  constexpr int kPerRow = W / kVec;
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += THREADS) {
     const int r = i / kPerRow;
     const int c = (i % kPerRow) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows)
+    if (row0 + r < n_rows && c < cols)
       val = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * gstride +
                                             c);
     *reinterpret_cast<uint4*>(s + r * ld + c) = val;
+  }
+}
+
+// load_tile's asynchronous twin (cp.async, 16 bytes a thread a step):
+// the copies land in the background until cp_async_wait; rows or
+// columns out of range are zero-filled without a read.
+__device__ __forceinline__ void cp_async(void* s, const void* g, int bytes,
+                                         bool valid) {
+  const uint32_t sa = static_cast<uint32_t>(__cvta_generic_to_shared(s));
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(sa),
+                 "l"(g), "r"(valid ? 16 : 0));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(sa),
+                 "l"(g), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+template <typename T, int W, int ROWS, int THREADS>
+__device__ __forceinline__ void load_tile_async(T* s, int ld, const T* g,
+                                                size_t gstride, int row0,
+                                                int n_rows, int cols) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = W / kVec;
+  for (int i = threadIdx.x; i < ROWS * kPerRow; i += THREADS) {
+    const int r = i / kPerRow;
+    const int c = (i % kPerRow) * kVec;
+    const bool valid = row0 + r < n_rows && c < cols;
+    cp_async(s + r * ld + c, valid ? g + (size_t)(row0 + r) * gstride + c : g,
+             16, valid);
   }
 }
 
@@ -238,22 +289,65 @@ __device__ __forceinline__ void mma_nn(const float* A, int lda, const float* B,
 }
 
 // The mask rule of _allowed_mask, plus the ragged ends of both sequences.
-__device__ __forceinline__ bool allowed(const Args& a, int qp, int kp) {
+// pref is this batch element's prefix length (0 without a prefix).
+__device__ __forceinline__ bool allowed(const Args& a, int pref, int qp,
+                                        int kp) {
   if (kp >= a.Sk || qp >= a.Sq) return false;
-  if (!a.causal) return true;
+  if (!a.causal || kp < pref) return true;
   return qp >= kp && (a.window == 0 || qp - kp < a.window);
+}
+
+// Every (query, key) of the tile [q0, q0 + bq) x [k0, k0 + bk) is visible:
+// the tiles under the causal diagonal (inside the window) or inside the
+// prefix, most of a causal sweep, need no mask.
+__device__ __forceinline__ bool tile_visible(const Args& a, int pref, int q0,
+                                             int bq, int k0, int bk) {
+  if (q0 + bq > a.Sq || k0 + bk > a.Sk) return false;
+  if (!a.causal || k0 + bk <= pref) return true;
+  return k0 + bk - 1 <= q0 && (a.window == 0 || q0 + bq - 1 - k0 < a.window);
+}
+
+// s *= scale, and the elements of the tile that the mask hides set to -1e30
+// (none on a wholly visible tile). Element (nt, i) of this lane lies at row
+// rows[i >> 1] and column c0 + nt * 8 + 2t + (i & 1); rows are queries and
+// columns keys, or (KEY_ROWS, the dkv kernel's transposed scores) the other
+// way round.
+template <int NT, bool KEY_ROWS>
+__device__ __forceinline__ void scale_mask(float (*s)[4], const Args& a,
+                                           int pref, bool whole,
+                                           const int rows[2], int c0) {
+  if (whole) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[nt][i] *= a.scale;
+    return;
+  }
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rows[i >> 1], c = c0 + nt * 8 + 2 * t + (i & 1);
+      const bool in =
+          KEY_ROWS ? allowed(a, pref, c, r) : allowed(a, pref, r, c);
+      s[nt][i] = in ? s[nt][i] * a.scale : kNegInf;
+    }
 }
 
 // The key tiles [begin, end) of width bk that a q tile [q0, q0 + bq) may
 // see (_block_runs): causal tiles past the diagonal and, with a window,
-// tiles wholly before the oldest row's window are skipped.
-__device__ __forceinline__ void key_tiles(const Args& a, int q0, int bq,
-                                          int bk, int* begin, int* end) {
-  int e = (a.Sk + bk - 1) / bk;
-  int b = 0;
+// tiles wholly before the oldest row's window are skipped; tiles that reach
+// into the prefix run for every q tile.
+__device__ __forceinline__ void key_tiles(const Args& a, int pref, int q0,
+                                          int bq, int bk, int* begin,
+                                          int* end) {
+  const int n = (a.Sk + bk - 1) / bk;
+  int b = 0, e = n;
   if (a.causal) {
-    e = min(e, (q0 + bq - 1) / bk + 1);
+    e = min(n, (q0 + bq - 1) / bk + 1);
     if (a.window) b = max(0, (q0 - a.window + 1) / bk);
+    e = max(e, (min(pref, a.Sk) + bk - 1) / bk);
   }
   *begin = b;
   *end = e;
@@ -268,70 +362,131 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
+// The heads of a block: batch element b, NH consecutive heads from h0 of
+// which nh exist (nh < NH only in the last pack of an odd head count), and
+// the KV head kh they read (NH > 1 is MHA, so kh == h0). n_heads is H for
+// the forward and dq, Hkv for dkv.
+struct Heads {
+  int b, h0, nh, kh;
+};
+
+template <int NH>
+__device__ __forceinline__ Heads block_heads(const Args& a, int n_heads) {
+  const int per_b = (n_heads + NH - 1) / NH;
+  Heads x;
+  x.b = blockIdx.y / per_b;
+  x.h0 = (blockIdx.y % per_b) * NH;
+  x.nh = NH == 1 ? 1 : min(NH, n_heads - x.h0);
+  x.kh = x.h0 / (a.H / a.Hkv);
+  return x;
+}
+
+__device__ __forceinline__ int prefix_of(const Args& a, int b) {
+  return a.prefix ? a.prefix[b] : 0;
+}
+
 // ---------------------------------------------------------------------------
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
-constexpr size_t fwd_smem() {
-  constexpr int ld = D + pad_elems<T>(), ldp = kFwdBK + pad_elems<T>();
-  return sizeof(T) *
-         ((size_t)(kFwdBQ + 2 * kFwdBK) * ld + (size_t)kWarps * 16 * ldp);
+// The packed kernels double-buffer their streamed tiles (K/V in the
+// forward, Q/dO with lse/delta in dkv): the next tile's cp.async copies
+// run under the current tile's products. Their blocks of 8 warps share
+// one barrier per tile, so an SM's two blocks hide less of an unpipelined
+// load than the unpacked kernels' four blocks of 4 warps.
+template <int NH>
+__host__ __device__ constexpr int kv_bufs() {
+  return NH > 1 ? 2 : 1;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const Args a) {
-  constexpr int LD = D + pad_elems<T>();
+template <typename T, int W, int NH>
+constexpr size_t fwd_smem() {
+  constexpr int ld = W + pad_elems<T>(), ldp = kFwdBK + pad_elems<T>();
+  return sizeof(T) * ((size_t)(kFwdBQ + kv_bufs<NH>() * 2 * kFwdBK) * ld +
+                      (size_t)NH * kWarps * 16 * ldp);
+}
+
+template <typename T, int D, int NH>
+__device__ __forceinline__ void fwd_body(const Args& a) {
+  constexpr int W = NH * D;
+  constexpr int LD = W + pad_elems<T>();
   constexpr int LDP = kFwdBK + pad_elems<T>();
   constexpr int NTD = D / 8, NTK = kFwdBK / 8;
+  constexpr int THREADS = block_threads<NH>();
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NB = kv_bufs<NH>();
+  constexpr int KV = 2 * kFwdBK * LD;  // one buffer: K, then V
   T* sQ = reinterpret_cast<T*>(smem);
-  T* sK = sQ + kFwdBQ * LD;
-  T* sV = sK + kFwdBK * LD;
-  T* sP = sV + kFwdBK * LD + (threadIdx.x / 32) * 16 * LDP;
+  T* sKV = sQ + kFwdBQ * LD;
+  T* sP = sKV + NB * KV + (threadIdx.x / 32) * 16 * LDP;
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
+  // this warp's head and its 16-row slice (one head a block: 0 and warp)
+  const int hh = NH == 1 ? 0 : warp / kWarps;
+  const int wr = NH == 1 ? warp : warp % kWarps;
   const int q0 = blockIdx.x * kFwdBQ;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int kh = h / (a.H / a.Hkv);
+  const Heads hd = block_heads<NH>(a, a.H);
+  const bool live = NH == 1 || hh < hd.nh;  // false: a ragged pack's head 2
+  const int pref = prefix_of(a, hd.b);
+  const int cols = hd.nh * D;
   const size_t qs = (size_t)a.H * D, ks = (size_t)a.Hkv * D;
-  const T* qg = static_cast<const T*>(a.q) + ((size_t)b * a.Sq * a.H + h) * D;
+  const T* qg =
+      static_cast<const T*>(a.q) + ((size_t)hd.b * a.Sq * a.H + hd.h0) * D;
   const T* kg =
-      static_cast<const T*>(a.k) + ((size_t)b * a.Sk * a.Hkv + kh) * D;
+      static_cast<const T*>(a.k) + ((size_t)hd.b * a.Sk * a.Hkv + hd.kh) * D;
   const T* vg =
-      static_cast<const T*>(a.v) + ((size_t)b * a.Sk * a.Hkv + kh) * D;
+      static_cast<const T*>(a.v) + ((size_t)hd.b * a.Sk * a.Hkv + hd.kh) * D;
 
-  load_tile<T, D, kFwdBQ>(sQ, LD, qg, qs, q0, a.Sq);
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[NTD][4];
+  load_tile<T, W, kFwdBQ, THREADS>(sQ, LD, qg, qs, q0, a.Sq, cols);
+  const int row[2] = {q0 + wr * 16 + g, q0 + wr * 16 + g + 8};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, acc[NTD][4];
 #pragma unroll
-  for (int i = 0; i < NTD; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  for (int i = 0; i < NTD; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
   int kt0, kt1;
-  key_tiles(a, q0, kFwdBQ, kFwdBK, &kt0, &kt1);
+  key_tiles(a, pref, q0, kFwdBQ, kFwdBK, &kt0, &kt1);
+  auto prefetch = [&](int k0, T* buf) {
+    load_tile_async<T, W, kFwdBK, THREADS>(buf, LD, kg, ks, k0, a.Sk, cols);
+    load_tile_async<T, W, kFwdBK, THREADS>(buf + kFwdBK * LD, LD, vg, ks, k0,
+                                           a.Sk, cols);
+  };
+  if constexpr (NB == 2) {
+    if (kt0 < kt1) prefetch(kt0 * kFwdBK, sKV);
+    cp_async_commit();
+  }
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * kFwdBK;
-    __syncthreads();  // the previous tile's K/V are no longer read
-    load_tile<T, D, kFwdBK>(sK, LD, kg, ks, k0, a.Sk);
-    load_tile<T, D, kFwdBK>(sV, LD, vg, ks, k0, a.Sk);
-    __syncthreads();
+    T* sK = sKV + (NB == 2 ? ((kt - kt0) & 1) * KV : 0);
+    T* sV = sK + kFwdBK * LD;
+    if constexpr (NB == 2) {
+      cp_async_wait<0>();  // this tile's copies, the only ones in flight
+      // one barrier: this tile is visible to every warp, and the other
+      // buffer's readers (the previous tile) are done, so refill it under
+      // this tile's products
+      __syncthreads();
+      if (kt + 1 < kt1)
+        prefetch(k0 + kFwdBK, sKV + ((kt + 1 - kt0) & 1) * KV);
+      cp_async_commit();
+    } else {
+      __syncthreads();  // the previous tile's K/V are no longer read
+      load_tile<T, W, kFwdBK, THREADS>(sK, LD, kg, ks, k0, a.Sk, cols);
+      load_tile<T, W, kFwdBK, THREADS>(sV, LD, vg, ks, k0, a.Sk, cols);
+      __syncthreads();
+    }
+    if (!live) continue;
+    const bool whole = tile_visible(a, pref, q0, kFwdBQ, k0, kFwdBK);
     float s[NTK][4];
 #pragma unroll
     for (int i = 0; i < NTK; ++i) s[i][0] = s[i][1] = s[i][2] = s[i][3] = 0.f;
-    mma_nt<NTK, D>(sQ + warp * 16 * LD, LD, sK, LD, s);
+    mma_nt<NTK, D>(sQ + wr * 16 * LD + hh * D, LD, sK + hh * D, LD, s);
+    scale_mask<NTK, false>(s, a, pref, whole, row, k0);
     float cur[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int nt = 0; nt < NTK; ++nt)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kp = k0 + nt * 8 + 2 * t + (i & 1);
-        const float x = s[nt][i] * a.scale;
-        s[nt][i] = allowed(a, row[i >> 1], kp) ? x : kNegInf;
-        cur[i >> 1] = fmaxf(cur[i >> 1], s[nt][i]);
-      }
+      for (int i = 0; i < 4; ++i) cur[i >> 1] = fmaxf(cur[i >> 1], s[nt][i]);
     float alpha[2], sum[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -341,8 +496,10 @@ __global__ void __launch_bounds__(kThreads)
     }
 #pragma unroll
     for (int nt = 0; nt < NTK; ++nt) {
-      const float p0 = expf(s[nt][0] - m[0]), p1 = expf(s[nt][1] - m[0]);
-      const float p2 = expf(s[nt][2] - m[1]), p3 = expf(s[nt][3] - m[1]);
+      const float p0 = expf(s[nt][0] - m[0]);
+      const float p1 = expf(s[nt][1] - m[0]);
+      const float p2 = expf(s[nt][2] - m[1]);
+      const float p3 = expf(s[nt][3] - m[1]);
       sum[0] += p0 + p1;
       sum[1] += p2 + p3;
       store2(sP + g * LDP + nt * 8 + 2 * t, p0, p1);
@@ -358,13 +515,15 @@ __global__ void __launch_bounds__(kThreads)
       acc[i][3] *= alpha[1];
     }
     __syncwarp();
-    mma_nn<NTD, kFwdBK>(sP, LDP, sV, LD, acc);
+    mma_nn<NTD, kFwdBK>(sP, LDP, sV + hh * D, LD, acc);
     __syncwarp();
   }
+  if (!live) return;
 
   T* og = static_cast<T*>(const_cast<void*>(a.out)) +
-          ((size_t)b * a.Sq * a.H + h) * D;
-  float* lg = const_cast<float*>(a.lse) + (size_t)blockIdx.y * a.Sq;
+          ((size_t)hd.b * a.Sq * a.H + hd.h0 + hh) * D;
+  float* lg =
+      const_cast<float*>(a.lse) + ((size_t)hd.b * a.H + hd.h0 + hh) * a.Sq;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= a.Sq) continue;
@@ -382,19 +541,20 @@ __global__ void __launch_bounds__(kThreads)
 // backward: dq
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int W, int NH>
 constexpr size_t dq_smem() {
-  constexpr int ld = D + pad_elems<T>(), ldp = kFwdBK + pad_elems<T>();
+  constexpr int ld = W + pad_elems<T>(), ldp = kFwdBK + pad_elems<T>();
   return sizeof(T) * ((size_t)(2 * kFwdBQ + 2 * kFwdBK) * ld +
-                      (size_t)kWarps * 16 * ldp);
+                      (size_t)NH * kWarps * 16 * ldp);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const Args a) {
-  constexpr int LD = D + pad_elems<T>();
+template <typename T, int D, int NH>
+__device__ __forceinline__ void dq_body(const Args& a) {
+  constexpr int W = NH * D;
+  constexpr int LD = W + pad_elems<T>();
   constexpr int LDP = kFwdBK + pad_elems<T>();
   constexpr int NTD = D / 8, NTK = kFwdBK / 8;
+  constexpr int THREADS = block_threads<NH>();
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sO = sQ + kFwdBQ * LD;  // dO
@@ -404,67 +564,72 @@ __global__ void __launch_bounds__(kThreads)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
+  const int hh = NH == 1 ? 0 : warp / kWarps;
+  const int wr = NH == 1 ? warp : warp % kWarps;
   const int q0 = blockIdx.x * kFwdBQ;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int kh = h / (a.H / a.Hkv);
+  const Heads hd = block_heads<NH>(a, a.H);
+  const bool live = NH == 1 || hh < hd.nh;
+  const int pref = prefix_of(a, hd.b);
+  const int cols = hd.nh * D;
   const size_t qs = (size_t)a.H * D, ks = (size_t)a.Hkv * D;
-  const size_t qoff = ((size_t)b * a.Sq * a.H + h) * D;
-  const size_t koff = ((size_t)b * a.Sk * a.Hkv + kh) * D;
+  const size_t qoff = ((size_t)hd.b * a.Sq * a.H + hd.h0) * D;
+  const size_t koff = ((size_t)hd.b * a.Sk * a.Hkv + hd.kh) * D;
   const T* kg = static_cast<const T*>(a.k) + koff;
   const T* vg = static_cast<const T*>(a.v) + koff;
 
-  load_tile<T, D, kFwdBQ>(sQ, LD, static_cast<const T*>(a.q) + qoff, qs, q0,
-                          a.Sq);
-  load_tile<T, D, kFwdBQ>(sO, LD, static_cast<const T*>(a.dout) + qoff, qs, q0,
-                          a.Sq);
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float lse[2], delta[2];
+  load_tile<T, W, kFwdBQ, THREADS>(sQ, LD, static_cast<const T*>(a.q) + qoff,
+                                   qs, q0, a.Sq, cols);
+  load_tile<T, W, kFwdBQ, THREADS>(
+      sO, LD, static_cast<const T*>(a.dout) + qoff, qs, q0, a.Sq, cols);
+  const int row[2] = {q0 + wr * 16 + g, q0 + wr * 16 + g + 8};
+  float lse[2], delta[2], dq[NTD][4];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const size_t i = (size_t)blockIdx.y * a.Sq + row[r];
-    lse[r] = row[r] < a.Sq ? a.lse[i] : 0.f;
-    delta[r] = row[r] < a.Sq ? a.delta[i] : 0.f;
+    const bool in = live && row[r] < a.Sq;
+    const size_t i = ((size_t)hd.b * a.H + hd.h0 + hh) * a.Sq + row[r];
+    lse[r] = in ? a.lse[i] : 0.f;
+    delta[r] = in ? a.delta[i] : 0.f;
   }
-  float dq[NTD][4];
 #pragma unroll
   for (int i = 0; i < NTD; ++i) dq[i][0] = dq[i][1] = dq[i][2] = dq[i][3] = 0.f;
 
   int kt0, kt1;
-  key_tiles(a, q0, kFwdBQ, kFwdBK, &kt0, &kt1);
+  key_tiles(a, pref, q0, kFwdBQ, kFwdBK, &kt0, &kt1);
   for (int kt = kt0; kt < kt1; ++kt) {
     const int k0 = kt * kFwdBK;
     __syncthreads();
-    load_tile<T, D, kFwdBK>(sK, LD, kg, ks, k0, a.Sk);
-    load_tile<T, D, kFwdBK>(sV, LD, vg, ks, k0, a.Sk);
+    load_tile<T, W, kFwdBK, THREADS>(sK, LD, kg, ks, k0, a.Sk, cols);
+    load_tile<T, W, kFwdBK, THREADS>(sV, LD, vg, ks, k0, a.Sk, cols);
     __syncthreads();
+    if (!live) continue;
+    const bool whole = tile_visible(a, pref, q0, kFwdBQ, k0, kFwdBK);
     float s[NTK][4], dp[NTK][4];
 #pragma unroll
     for (int i = 0; i < NTK; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    mma_nt<NTK, D>(sQ + warp * 16 * LD, LD, sK, LD, s);
-    mma_nt<NTK, D>(sO + warp * 16 * LD, LD, sV, LD, dp);
+    mma_nt<NTK, D>(sQ + wr * 16 * LD + hh * D, LD, sK + hh * D, LD, s);
+    mma_nt<NTK, D>(sO + wr * 16 * LD + hh * D, LD, sV + hh * D, LD, dp);
+    scale_mask<NTK, false>(s, a, pref, whole, row, k0);
 #pragma unroll
     for (int nt = 0; nt < NTK; ++nt) {
       float ds[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int r = i >> 1;
-        const int kp = k0 + nt * 8 + 2 * t + (i & 1);
-        const float x =
-            allowed(a, row[r], kp) ? s[nt][i] * a.scale : kNegInf;
-        const float p = expf(x - lse[r]);
+        const float p = expf(s[nt][i] - lse[r]);
         ds[i] = p * (dp[nt][i] - delta[r]) * a.scale;
       }
       store2(sS + g * LDP + nt * 8 + 2 * t, ds[0], ds[1]);
       store2(sS + (g + 8) * LDP + nt * 8 + 2 * t, ds[2], ds[3]);
     }
     __syncwarp();
-    mma_nn<NTD, kFwdBK>(sS, LDP, sK, LD, dq);
+    mma_nn<NTD, kFwdBK>(sS, LDP, sK + hh * D, LD, dq);
     __syncwarp();
   }
+  if (!live) return;
 
-  T* dqg = static_cast<T*>(a.dq) + qoff;
+  T* dqg = static_cast<T*>(a.dq) + qoff + hh * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= a.Sq) continue;
@@ -479,82 +644,131 @@ __global__ void __launch_bounds__(kThreads)
 // backward: dk, dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int W, int NH>
 constexpr size_t dkv_smem() {
-  constexpr int ld = D + pad_elems<T>(), ldw = kKvBQ + pad_elems<T>();
-  return sizeof(T) * ((size_t)(2 * kKvBK + 2 * kKvBQ) * ld +
-                      (size_t)kWarps * 16 * ldw) +
-         sizeof(float) * 2 * kKvBQ;
+  constexpr int ld = W + pad_elems<T>(), ldw = kKvBQ + pad_elems<T>();
+  constexpr int nb = kv_bufs<NH>();
+  return sizeof(T) * ((size_t)(2 * kKvBK + nb * 2 * kKvBQ) * ld +
+                      (size_t)NH * kWarps * 16 * ldw) +
+         sizeof(float) * nb * 2 * NH * kKvBQ;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const Args a) {
-  constexpr int LD = D + pad_elems<T>();
+template <typename T, int D, int NH>
+__device__ __forceinline__ void dkv_body(const Args& a) {
+  constexpr int W = NH * D;
+  constexpr int LD = W + pad_elems<T>();
   constexpr int LDW = kKvBQ + pad_elems<T>();
   constexpr int NTD = D / 8, NTQ = kKvBQ / 8;
+  constexpr int THREADS = block_threads<NH>();
   extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int NB = kv_bufs<NH>();
+  constexpr int QO = 2 * kKvBQ * LD;  // one buffer: Q, then dO
+  constexpr int RS = 2 * NH * kKvBQ;  // one buffer: lse, then delta [NH][BQ]
   T* sK = reinterpret_cast<T*>(smem);
   T* sV = sK + kKvBK * LD;
-  T* sQ = sV + kKvBK * LD;
-  T* sO = sQ + kKvBQ * LD;  // dO
-  T* sW0 = sO + kKvBQ * LD;
-  float* sLse = reinterpret_cast<float*>(sW0 + kWarps * 16 * LDW);
-  float* sDelta = sLse + kKvBQ;
+  T* sQO = sV + kKvBK * LD;
+  T* sW0 = sQO + NB * QO;
+  float* sRows = reinterpret_cast<float*>(sW0 + NH * kWarps * 16 * LDW);
   T* sW = sW0 + (threadIdx.x / 32) * 16 * LDW;  // this warp's P^T, then dS^T
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
+  const int hh = NH == 1 ? 0 : warp / kWarps;  // head, 16-key slice
+  const int wr = NH == 1 ? warp : warp % kWarps;
   const int k0 = blockIdx.x * kKvBK;
-  const int b = blockIdx.y / a.Hkv, kh = blockIdx.y % a.Hkv;
-  const int groups = a.H / a.Hkv;
+  const Heads hd = block_heads<NH>(a, a.Hkv);  // h0, nh: KV heads
+  const bool live = NH == 1 || hh < hd.nh;
+  const int pref = prefix_of(a, hd.b);
+  const int cols = hd.nh * D;
+  const int groups = a.H / a.Hkv;  // 1 when packed (MHA)
   const size_t qs = (size_t)a.H * D, ks = (size_t)a.Hkv * D;
-  const size_t koff = ((size_t)b * a.Sk * a.Hkv + kh) * D;
+  const size_t koff = ((size_t)hd.b * a.Sk * a.Hkv + hd.h0) * D;
 
-  load_tile<T, D, kKvBK>(sK, LD, static_cast<const T*>(a.k) + koff, ks, k0,
-                         a.Sk);
-  load_tile<T, D, kKvBK>(sV, LD, static_cast<const T*>(a.v) + koff, ks, k0,
-                         a.Sk);
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
+  load_tile<T, W, kKvBK, THREADS>(sK, LD, static_cast<const T*>(a.k) + koff,
+                                  ks, k0, a.Sk, cols);
+  load_tile<T, W, kKvBK, THREADS>(sV, LD, static_cast<const T*>(a.v) + koff,
+                                  ks, k0, a.Sk, cols);
+  const int key[2] = {k0 + wr * 16 + g, k0 + wr * 16 + g + 8};
   float dk[NTD][4], dv[NTD][4];
 #pragma unroll
   for (int i = 0; i < NTD; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.f;
 
-  // q tiles of width kKvBQ that may see a key of [k0, k0 + kKvBK)
+  // q tiles of width kKvBQ that may see a key of [k0, k0 + kKvBK): under
+  // causal from the diagonal on, unless the tile reaches into the prefix,
+  // whose keys every query sees
   const int n_qt = (a.Sq + kKvBQ - 1) / kKvBQ;
   int qt0 = 0, qt1 = n_qt;
-  if (a.causal) {
+  if (a.causal && k0 >= pref) {
     qt0 = min(k0 / kKvBQ, n_qt);
     if (a.window)
       qt1 = min(n_qt, (k0 + kKvBK - 1 + a.window - 1) / kKvBQ + 1);
   }
   for (int hg = 0; hg < groups; ++hg) {
-    const int h = kh * groups + hg;
-    const size_t qoff = ((size_t)b * a.Sq * a.H + h) * D;
-    const size_t roff = ((size_t)b * a.H + h) * a.Sq;
+    // query heads h0 * groups + hg (+ hh when packed, where groups == 1, so
+    // the double-buffered loop below runs once)
+    const int qh0 = hd.h0 * groups + hg;
+    const size_t qoff = ((size_t)hd.b * a.Sq * a.H + qh0) * D;
+    const T* qg = static_cast<const T*>(a.q) + qoff;
+    const T* og = static_cast<const T*>(a.dout) + qoff;  // dO
+    const size_t roff = ((size_t)hd.b * a.H + qh0) * a.Sq;
+    // a q tile's Q, dO, lse and delta into buffer b, asynchronously
+    auto prefetch = [&](int q0, int b) {
+      load_tile_async<T, W, kKvBQ, THREADS>(sQO + b * QO, LD, qg, qs, q0,
+                                            a.Sq, cols);
+      load_tile_async<T, W, kKvBQ, THREADS>(sQO + b * QO + kKvBQ * LD, LD,
+                                            og, qs, q0, a.Sq, cols);
+      float* rows = sRows + b * RS;
+      for (int i = threadIdx.x; i < NH * kKvBQ; i += THREADS) {
+        const int h = i / kKvBQ, r = i % kKvBQ;
+        const bool in = h < hd.nh && q0 + r < a.Sq;
+        const size_t j = roff + (size_t)h * a.Sq + q0 + r;
+        cp_async(rows + i, in ? a.lse + j : a.lse, 4, in);
+        cp_async(rows + NH * kKvBQ + i, in ? a.delta + j : a.delta, 4, in);
+      }
+    };
+    if constexpr (NB == 2) {
+      if (qt0 < qt1) prefetch(qt0 * kKvBQ, 0);
+      cp_async_commit();
+    }
     for (int qt = qt0; qt < qt1; ++qt) {
       const int q0 = qt * kKvBQ;
-      __syncthreads();
-      load_tile<T, D, kKvBQ>(sQ, LD, static_cast<const T*>(a.q) + qoff, qs, q0,
-                             a.Sq);
-      load_tile<T, D, kKvBQ>(sO, LD, static_cast<const T*>(a.dout) + qoff, qs,
-                             q0, a.Sq);
-      for (int i = threadIdx.x; i < kKvBQ; i += kThreads) {
-        const bool in = q0 + i < a.Sq;
-        sLse[i] = in ? a.lse[roff + q0 + i] : 0.f;
-        sDelta[i] = in ? a.delta[roff + q0 + i] : 0.f;
+      const int b = NB == 2 ? (qt - qt0) & 1 : 0;
+      const T* sQ = sQO + b * QO;
+      const T* sO = sQ + kKvBQ * LD;  // dO
+      const float* lse_h = sRows + b * RS + hh * kKvBQ;
+      const float* delta_h = lse_h + NH * kKvBQ;
+      if constexpr (NB == 2) {
+        cp_async_wait<0>();  // as in the forward: one barrier a tile
+        __syncthreads();
+        if (qt + 1 < qt1) prefetch(q0 + kKvBQ, b ^ 1);
+        cp_async_commit();
+      } else {
+        __syncthreads();
+        load_tile<T, W, kKvBQ, THREADS>(sQO, LD, qg, qs, q0, a.Sq, cols);
+        load_tile<T, W, kKvBQ, THREADS>(sQO + kKvBQ * LD, LD, og, qs, q0,
+                                        a.Sq, cols);
+        for (int i = threadIdx.x; i < NH * kKvBQ; i += THREADS) {
+          const int h = i / kKvBQ, r = i % kKvBQ;
+          const bool in = h < hd.nh && q0 + r < a.Sq;
+          const size_t j = roff + (size_t)h * a.Sq + q0 + r;
+          sRows[i] = in ? a.lse[j] : 0.f;
+          sRows[NH * kKvBQ + i] = in ? a.delta[j] : 0.f;
+        }
+        __syncthreads();
       }
-      __syncthreads();
+      if (!live) continue;
+      const bool whole = tile_visible(a, pref, q0, kKvBQ, k0, kKvBK);
       // S^T and dP^T: this warp's 16 keys x kKvBQ queries
       float st[NTQ][4], dpt[NTQ][4];
 #pragma unroll
       for (int i = 0; i < NTQ; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-      mma_nt<NTQ, D>(sK + warp * 16 * LD, LD, sQ, LD, st);
-      mma_nt<NTQ, D>(sV + warp * 16 * LD, LD, sO, LD, dpt);
+      mma_nt<NTQ, D>(sK + wr * 16 * LD + hh * D, LD, sQ + hh * D, LD, st);
+      mma_nt<NTQ, D>(sV + wr * 16 * LD + hh * D, LD, sO + hh * D, LD, dpt);
+      scale_mask<NTQ, true>(st, a, pref, whole, key, q0);
       float ds[NTQ][4];
 #pragma unroll
       for (int nt = 0; nt < NTQ; ++nt) {
@@ -562,16 +776,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int c = nt * 8 + 2 * t + (i & 1);
-          const float x = allowed(a, q0 + c, key[i >> 1]) ? st[nt][i] * a.scale
-                                                          : kNegInf;
-          p[i] = expf(x - sLse[c]);
-          ds[nt][i] = p[i] * (dpt[nt][i] - sDelta[c]) * a.scale;
+          p[i] = expf(st[nt][i] - lse_h[c]);
+          ds[nt][i] = p[i] * (dpt[nt][i] - delta_h[c]) * a.scale;
         }
         store2(sW + g * LDW + nt * 8 + 2 * t, p[0], p[1]);
         store2(sW + (g + 8) * LDW + nt * 8 + 2 * t, p[2], p[3]);
       }
       __syncwarp();
-      mma_nn<NTD, kKvBQ>(sW, LDW, sO, LD, dv);  // dV += P^T dO
+      mma_nn<NTD, kKvBQ>(sW, LDW, sO + hh * D, LD, dv);  // dV += P^T dO
       __syncwarp();
 #pragma unroll
       for (int nt = 0; nt < NTQ; ++nt) {
@@ -579,13 +791,14 @@ __global__ void __launch_bounds__(kThreads)
         store2(sW + (g + 8) * LDW + nt * 8 + 2 * t, ds[nt][2], ds[nt][3]);
       }
       __syncwarp();
-      mma_nn<NTD, kKvBQ>(sW, LDW, sQ, LD, dk);  // dK += dS^T Q
+      mma_nn<NTD, kKvBQ>(sW, LDW, sQ + hh * D, LD, dk);  // dK += dS^T Q
       __syncwarp();
     }
   }
+  if (!live) return;
 
-  T* dkg = static_cast<T*>(a.dk) + koff;
-  T* dvg = static_cast<T*>(a.dv) + koff;
+  T* dkg = static_cast<T*>(a.dk) + koff + hh * D;
+  T* dvg = static_cast<T*>(a.dv) + koff + hh * D;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (key[r] >= a.Sk) continue;
@@ -599,46 +812,123 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// the kernels: one head per block (D 64 or 128, GQA) or two packed heads of
+// 64 (MHA), a warp group each
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads1 = block_threads<1>();
+constexpr int kThreads2 = block_threads<2>();
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads1) flash_fwd_kernel(const Args a) {
+  fwd_body<T, D, 1>(a);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads1)
+    flash_bwd_dq_kernel(const Args a) {
+  dq_body<T, D, 1>(a);
+}
+
+// at D 64, four blocks an SM (128 registers a thread) hide the global loads
+// of the unpipelined q-tile loop; one more register costs a quarter of them
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads1, D == 64 ? 4 : 1)
+    flash_bwd_dkv_kernel(const Args a) {
+  dkv_body<T, D, 1>(a);
+}
+
+// the packed kernels keep the unpacked D 64 kernels' 16 warps an SM: two
+// blocks of 8 warps at 128 registers a thread
+template <typename T>
+__global__ void __launch_bounds__(kThreads2, 2)
+    flash_fwd_packed_kernel(const Args a) {
+  fwd_body<T, kPackD, 2>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads2, 2)
+    flash_bwd_dq_packed_kernel(const Args a) {
+  dq_body<T, kPackD, 2>(a);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads2, 2)
+    flash_bwd_dkv_packed_kernel(const Args a) {
+  dkv_body<T, kPackD, 2>(a);
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
 template <typename Kernel>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, const Args& a,
-                   cudaStream_t stream) {
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
+                   const Args& a, cudaStream_t stream) {
   // shared memory above 48 KB is opt-in, per kernel
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, threads, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t run(int which, const Args& a, cudaStream_t stream) {
+  const dim3 q_grid((a.Sq + kFwdBQ - 1) / kFwdBQ, a.B * a.H);
+  const dim3 kv_grid((a.Sk + kKvBK - 1) / kKvBK, a.B * a.Hkv);
   switch (which) {
     case 0:
-      return launch(flash_fwd_kernel<T, D>,
-                    dim3((a.Sq + kFwdBQ - 1) / kFwdBQ, a.B * a.H),
-                    fwd_smem<T, D>(), a, stream);
+      return launch(flash_fwd_kernel<T, D>, q_grid, kThreads1,
+                    fwd_smem<T, D, 1>(), a, stream);
     case 1:
-      return launch(flash_bwd_dq_kernel<T, D>,
-                    dim3((a.Sq + kFwdBQ - 1) / kFwdBQ, a.B * a.H),
-                    dq_smem<T, D>(), a, stream);
+      return launch(flash_bwd_dq_kernel<T, D>, q_grid, kThreads1,
+                    dq_smem<T, D, 1>(), a, stream);
     case 2:
-      return launch(flash_bwd_dkv_kernel<T, D>,
-                    dim3((a.Sk + kKvBK - 1) / kKvBK, a.B * a.Hkv),
-                    dkv_smem<T, D>(), a, stream);
+      return launch(flash_bwd_dkv_kernel<T, D>, kv_grid, kThreads1,
+                    dkv_smem<T, D, 1>(), a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-int dispatch(int which, const Args& a, int D, int dtype, void* stream) {
+template <typename T>
+cudaError_t run_packed(int which, const Args& a, cudaStream_t stream) {
+  constexpr int W = 2 * kPackD;
+  const int packs = (a.H + 1) / 2;  // MHA: H == Hkv
+  const dim3 q_grid((a.Sq + kFwdBQ - 1) / kFwdBQ, a.B * packs);
+  const dim3 kv_grid((a.Sk + kKvBK - 1) / kKvBK, a.B * packs);
+  switch (which) {
+    case 0:
+      return launch(flash_fwd_packed_kernel<T>, q_grid, kThreads2,
+                    fwd_smem<T, W, 2>(), a, stream);
+    case 1:
+      return launch(flash_bwd_dq_packed_kernel<T>, q_grid, kThreads2,
+                    dq_smem<T, W, 2>(), a, stream);
+    case 2:
+      return launch(flash_bwd_dkv_packed_kernel<T>, kv_grid, kThreads2,
+                    dkv_smem<T, W, 2>(), a, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(int which, const Args& a, int D, int pack, int dtype,
+             void* stream) {
   if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Hkv <= 0 || a.H % a.Hkv ||
       a.window < 0)
     return cudaErrorInvalidValue;
+  // the prefix is a causal mask's, and excludes a window
+  if (a.prefix && (!a.causal || a.window)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
+  if (pack == 2) {
+    if (D != kPackD || a.H != a.Hkv) return cudaErrorInvalidValue;
+    if (dtype == 1) return run_packed<bf16>(which, a, st);
+    if (dtype == 0) return run_packed<float>(which, a, st);
+    return cudaErrorInvalidValue;
+  }
+  if (pack != 1) return cudaErrorInvalidValue;
   if (dtype == 1 && D == 128) return run<bf16, 128>(which, a, st);
   if (dtype == 1 && D == 64) return run<bf16, 64>(which, a, st);
   if (dtype == 0 && D == 128) return run<float, 128>(which, a, st);
@@ -651,28 +941,31 @@ int dispatch(int which, const Args& a, int D, int dtype, void* stream) {
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out, dO, dq, dk, dv); D is 64
-// or 128; lse and delta are f32. Every pointer is 16-byte aligned. Returns
-// a cudaError_t (0 = launched).
+// or 128; lse and delta are f32; prefix is [B] int32 or null (causal, no
+// window). pack: 1 = a head per block (flash_*_kernel), 2 = two heads of 64
+// per block (flash_*_packed_kernel; MHA, any H). Every pointer is 16-byte
+// aligned (prefix 4-byte). Returns a cudaError_t (0 = launched).
 int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* out,
-                      float* lse, int B, int Sq, int Sk, int H, int Hkv, int D,
-                      float scale, int causal, int window, int dtype,
-                      void* stream) {
-  Args a = {q, k, v, out, nullptr, lse, nullptr, nullptr, nullptr, nullptr,
-            B, Sq, Sk, H, Hkv, scale, causal, window};
-  return dispatch(0, a, D, dtype, stream);
+                      float* lse, const int* prefix, int B, int Sq, int Sk,
+                      int H, int Hkv, int D, float scale, int causal,
+                      int window, int pack, int dtype, void* stream) {
+  Args a = {q,       k,       v,      out, nullptr, lse, nullptr,
+            nullptr, nullptr, nullptr, prefix, B,  Sq,  Sk,
+            H,       Hkv,     scale,  causal, window};
+  return dispatch(0, a, D, pack, dtype, stream);
 }
 
-// which: 1 = flash_bwd_dq_kernel (writes dq), 2 = flash_bwd_dkv_kernel
-// (writes dk, dv).
+// which: 1 = the dq kernel (writes dq), 2 = the dkv kernel (writes dk, dv).
 int dlrover_flash_bwd(int which, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
-                      void* dq, void* dk, void* dv, int B, int Sq, int Sk,
-                      int H, int Hkv, int D, float scale, int causal,
-                      int window, int dtype, void* stream) {
+                      void* dq, void* dk, void* dv, const int* prefix, int B,
+                      int Sq, int Sk, int H, int Hkv, int D, float scale,
+                      int causal, int window, int pack, int dtype,
+                      void* stream) {
   if (which != 1 && which != 2) return cudaErrorInvalidValue;
-  Args a = {q, k, v, nullptr, dout, lse, delta, dq, dk, dv,
-            B, Sq, Sk, H, Hkv, scale, causal, window};
-  return dispatch(which, a, D, dtype, stream);
+  Args a = {q,  k,  v,  nullptr, dout, lse, delta, dq,     dk,    dv,
+            prefix, B, Sq, Sk,   H,    Hkv, scale, causal, window};
+  return dispatch(which, a, D, pack, dtype, stream);
 }
 
 }  // extern "C"

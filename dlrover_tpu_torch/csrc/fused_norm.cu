@@ -21,7 +21,10 @@
 // launch from d), and writes each output once. The backward's column sums
 // (dscale, dbias) accumulate per warp in shared memory and leave each block
 // as one partial row, so no atomics are needed and the partials stay small
-// ([n / 32, d] at 32 rows a block).
+// ([n / 32, d] at 32 rows a block). The backward runs 8 warps a block
+// unless their dscale (+ dbias) rows pass the 227 KB of shared memory a
+// block can have, as layernorm with a bias does at d > 3632 (glm-10b's
+// 4096: 256 KB); then it runs 4.
 //
 // Interface: plain C functions launched on the caller's stream; they
 // allocate nothing and return cudaGetLastError() after the launch.
@@ -35,6 +38,7 @@ namespace {
 
 constexpr int kWarps = 8;          // rows in flight per block
 constexpr int kBwdRowsPerBlock = 32;
+constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory a block
 
 using bf16 = __nv_bfloat16;
 
@@ -143,25 +147,25 @@ __global__ void __launch_bounds__(kWarps * 32)
 // backward: kBwdRowsPerBlock rows per block, one warp per row at a time
 // ---------------------------------------------------------------------------
 
-template <typename T, bool RMS, bool RES, bool BIAS, int NV>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename T, bool RMS, bool RES, bool BIAS, int NV, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32)
     norm_bwd_kernel(const T* __restrict__ g, const T* __restrict__ h,
                     const float* __restrict__ scale, const T* __restrict__ gh,
                     T* __restrict__ dx, float* __restrict__ dscale_part,
                     float* __restrict__ dbias_part, int n, int d, float eps) {
   constexpr int VEC = Vec<T>::N;
-  extern __shared__ float part[];  // [kWarps][d] dscale (+ [kWarps][d] dbias)
+  extern __shared__ float part[];  // [WARPS][d] dscale (+ [WARPS][d] dbias)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int n_vec = d / VEC;
   float* ds_w = part + (size_t)warp * d;
-  float* db_w = part + (size_t)(kWarps + warp) * d;
+  float* db_w = part + (size_t)(WARPS + warp) * d;
   for (int c = lane; c < d; c += 32) {
     ds_w[c] = 0.f;
     if constexpr (BIAS) db_w[c] = 0.f;
   }
   const int row_end = min(n, (blockIdx.x + 1) * kBwdRowsPerBlock);
   for (int row = blockIdx.x * kBwdRowsPerBlock + warp; row < row_end;
-       row += kWarps) {
+       row += WARPS) {
     const size_t base = (size_t)row * d;
     Vec<T> gv[NV], hv[NV];
     float s1 = 0.f, s2 = 0.f;
@@ -239,12 +243,12 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < d; c += kWarps * 32) {
+  for (int c = threadIdx.x; c < d; c += WARPS * 32) {
     float s = 0.f, sb = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < WARPS; ++w) {
       s += part[(size_t)w * d + c];
-      if constexpr (BIAS) sb += part[(size_t)(kWarps + w) * d + c];
+      if constexpr (BIAS) sb += part[(size_t)(WARPS + w) * d + c];
     }
     dscale_part[(size_t)blockIdx.x * d + c] = s;
     if constexpr (BIAS) dbias_part[(size_t)blockIdx.x * d + c] = sb;
@@ -269,6 +273,21 @@ struct Call {
   float eps;
 };
 
+template <typename T, bool RMS, bool RES, bool BIAS, int NV, int WARPS>
+cudaError_t launch_bwd(const Call& k, size_t smem, cudaStream_t st) {
+  auto kernel = norm_bwd_kernel<T, RMS, RES, BIAS, NV, WARPS>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((k.n + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock);
+  kernel<<<grid, WARPS * 32, smem, st>>>(
+      static_cast<const T*>(k.a), static_cast<const T*>(k.b), k.scale,
+      static_cast<const T*>(k.c), static_cast<T*>(k.out), k.ds_part,
+      k.db_part, k.n, k.d, k.eps);
+  return cudaGetLastError();
+}
+
 template <typename T, bool RMS, bool RES, bool BIAS, int NV>
 cudaError_t launch_one(bool fwd, const Call& k, cudaStream_t st) {
   if (fwd) {
@@ -279,18 +298,15 @@ cudaError_t launch_one(bool fwd, const Call& k, cudaStream_t st) {
         k.eps);
     return cudaGetLastError();
   }
-  auto kernel = norm_bwd_kernel<T, RMS, RES, BIAS, NV>;
-  const size_t smem = sizeof(float) * (BIAS ? 2 : 1) * kWarps * k.d;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((k.n + kBwdRowsPerBlock - 1) / kBwdRowsPerBlock);
-  kernel<<<grid, kWarps * 32, smem, st>>>(
-      static_cast<const T*>(k.a), static_cast<const T*>(k.b), k.scale,
-      static_cast<const T*>(k.c), static_cast<T*>(k.out), k.ds_part,
-      k.db_part, k.n, k.d, k.eps);
-  return cudaGetLastError();
+  // the dscale (+ dbias) rows of kWarps warps; 4 warps where they do not
+  // fit (only rows of more than 8 vectors a lane can pass the limit)
+  const size_t row_bytes = sizeof(float) * (BIAS ? 2 : 1) * k.d;
+  if constexpr (NV > 8) {
+    if (row_bytes * kWarps > kMaxSmem)
+      return launch_bwd<T, RMS, RES, BIAS, NV, 4>(k, row_bytes * 4, st);
+  }
+  return launch_bwd<T, RMS, RES, BIAS, NV, kWarps>(k, row_bytes * kWarps,
+                                                    st);
 }
 
 template <typename T, bool RMS, bool RES, bool BIAS>
@@ -301,6 +317,11 @@ cudaError_t pick_nv(bool fwd, const Call& k, cudaStream_t st) {
   if (per_lane <= 4) return launch_one<T, RMS, RES, BIAS, 4>(fwd, k, st);
   if (per_lane <= 8) return launch_one<T, RMS, RES, BIAS, 8>(fwd, k, st);
   if (per_lane <= 16) return launch_one<T, RMS, RES, BIAS, 16>(fwd, k, st);
+  // 32 vectors a lane only in f32, for d 2049-4096 (glm-10b's width):
+  // no bf16 path runs them, only the f32 model check (train_model_glm)
+  if constexpr (sizeof(T) == 4) {
+    if (per_lane <= 32) return launch_one<T, RMS, RES, BIAS, 32>(fwd, k, st);
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -331,8 +352,8 @@ int dispatch(bool fwd, int rms, int res, int bias, int dtype, const Call& k,
 
 extern "C" {
 
-// Rows of d elements (d a multiple of 8 and at most 16 vectors of 16 bytes
-// a lane: d <= 4096 bf16 or 2048 f32); dtype:
+// Rows of d elements (d a multiple of 8 and at most 4096: 16 vectors of 16
+// bytes a lane in bf16, 32 in f32); dtype:
 // 0 = float32, 1 = bfloat16 for x / res / out / h; scale and bias f32.
 // rms: 1 = rmsnorm, 0 = layernorm. Returns a cudaError_t (0 = launched).
 int dlrover_norm_fwd(const void* x, const void* res, const float* scale,

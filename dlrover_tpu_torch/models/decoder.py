@@ -530,7 +530,7 @@ def _attn_fn(cfg: ModelConfig, attn_impl: str, prefix_len):
     if attn_impl in ("auto", "flash"):
         return lambda q, k, v: flash_attention(
             q, k, v, causal=cfg.causal, window=cfg.attn_window,
-            prefix_len=prefix_len)
+            prefix_len=prefix_len, head_pack=cfg.attn_head_pack)
     if attn_impl == "reference":
         return lambda q, k, v: mha_reference(
             q, k, v, causal=cfg.causal, window=cfg.attn_window,

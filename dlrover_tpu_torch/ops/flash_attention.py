@@ -7,23 +7,30 @@ Port of ``dlrover_tpu/ops/pallas_attention.py``:
   the backward ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``, the
   hand-written Hopper kernels of ``csrc/flash_attention.cu``, which
   replace the TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel``. On CPU tensors the same autograd function runs the
-  plain versions. There is no other path: a CUDA tensor launches the
-  kernel or raises.
+  ``_bwd_dkv_kernel``; with two heads of 64 packed per block
+  (``head_pack``, auto for every MHA model of head_dim 64) they launch
+  ``flash_fwd_packed_kernel``, ``flash_bwd_dq_packed_kernel`` and
+  ``flash_bwd_dkv_packed_kernel``, which replace ``_fwd_kernel_packed``,
+  ``_bwd_dq_kernel_packed`` and ``_bwd_dkv_kernel_packed``. On CPU
+  tensors the same autograd function runs the plain versions, whatever
+  the pack (packing changes where heads run, not the numbers). There is
+  no other path: a CUDA tensor launches the kernel or raises.
 - ``flash_fwd_reference`` / ``flash_bwd_reference`` — the plain PyTorch
   versions: the forward as one block of the kernel's online softmax (p
   relative to the row max, rounded to the input type before P·V, ``l``
   summing the unrounded p), the backward the port of
   ``_chunked_backward``. The CPU tests hold them against the JAX kernels;
   ``chip_smoke.py`` holds the kernels against them.
+- ``head_pack_for`` — the pack rule of the JAX ``flash_attention``.
 
 The mask is the flash kernels' (``_allowed_mask``): causal aligned
-top-left (query i sees key j iff ``i >= j``) and a sliding ``window``.
-``mha_reference`` aligns causal bottom-right; the two agree when
-``Sq == Sk``, the training case. Layout ``[B, S, H, D]``; GQA shares K/V
-by index (``H`` a multiple of ``Hkv``), never repeated in memory by the
-kernels. ``prefix_len`` (GLM prefix-LM) and ring ``offsets`` run only on
-the plain versions for now (ROADMAP B8).
+top-left (query i sees key j iff ``i >= j``), a sliding ``window``, and
+the GLM prefix-LM ``prefix_len`` (keys before ``prefix_len[b]`` seen by
+every query). ``mha_reference`` aligns causal bottom-right; the two
+agree when ``Sq == Sk``, the training case. Layout ``[B, S, H, D]``; GQA
+shares K/V by index (``H`` a multiple of ``Hkv``), never repeated in
+memory by the kernels. Ring ``offsets`` run only on the plain versions
+for now (ROADMAP A16).
 """
 
 import ctypes
@@ -33,21 +40,40 @@ import torch
 
 from dlrover_tpu_torch.ops.attention import NEG_INF
 
-#: the CUDA kernels of ``csrc/flash_attention.cu``
-KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+#: the CUDA kernels of ``csrc/flash_attention.cu``: a head per block,
+#: then two heads of 64 per block
+UNPACKED = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+PACKED = ("flash_fwd_packed", "flash_bwd_dq_packed", "flash_bwd_dkv_packed")
+KERNELS = UNPACKED + PACKED
 #: launches of each kernel since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_NOT_PORTED = ("prefix_len and ring offsets run only on the plain "
-               "versions: the CUDA kernels do not take them yet "
-               "(ROADMAP B8)")
+#: the packed kernels hold two heads of this width
+PACK_HEAD_DIM = 64
+_NOT_PORTED = ("ring offsets run only on the plain versions: the CUDA "
+               "kernels take them with ring attention (ROADMAP A16, B8)")
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
+
+
+def head_pack_for(h: int, hkv: int, d: int, head_pack: int = 0) -> int:
+    """Heads per kernel block, the rule of ``pallas_attention.
+    flash_attention``: 0 (auto) packs ``128 // d`` heads when ``d < 128``
+    divides 128 and the layout is MHA, else 1; a pack asked for is
+    demoted to 1 for GQA or when ``d · pack`` passes 128 (or ``d`` does
+    not divide 128)."""
+    if head_pack < 0:
+        raise ValueError(f"head_pack must be >= 0, got {head_pack}")
+    if head_pack == 0:
+        return 128 // d if (d < 128 and 128 % d == 0 and h == hkv) else 1
+    if h != hkv or d * head_pack > 128 or 128 % d:
+        return 1
+    return head_pack
 
 
 # ---------------------------------------------------------------------------
@@ -166,10 +192,10 @@ def _lib():
         lib = _build.load("flash_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd = lib.dlrover_flash_fwd
-        fwd.argtypes = [p] * 5 + [i] * 6 + [f, i, i, i, p]
+        fwd.argtypes = [p] * 6 + [i] * 6 + [f, i, i, i, i, p]
         fwd.restype = i
         bwd = lib.dlrover_flash_bwd
-        bwd.argtypes = [i] + [p] * 9 + [i] * 6 + [f, i, i, i, p]
+        bwd.argtypes = [i] + [p] * 10 + [i] * 6 + [f, i, i, i, i, p]
         bwd.restype = i
         _fns.update(fwd=fwd, bwd=bwd)
     return _fns
@@ -188,9 +214,16 @@ def _check(t, name, device, dtype, shape):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _geometry(q, k, v):
+def _geometry(q, k, v, pack, prefix):
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    if pack == 2:
+        if d != PACK_HEAD_DIM or h != hkv:
+            raise ValueError(f"the packed flash kernels take MHA heads of "
+                             f"{PACK_HEAD_DIM}, got H {h}, Hkv {hkv}, D {d}")
+    elif pack != 1:
+        raise ValueError(f"no flash kernel packs {pack} heads: the kernels "
+                         f"take 1, or 2 of {PACK_HEAD_DIM}")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"flash kernels take f32/bf16, got {q.dtype}")
     if d not in _HEAD_DIMS:
@@ -201,6 +234,11 @@ def _geometry(q, k, v):
     _check(q, "q", q.device, q.dtype, (b, sq, h, d))
     _check(k, "k", q.device, q.dtype, (b, sk, hkv, d))
     _check(v, "v", q.device, q.dtype, (b, sk, hkv, d))
+    if prefix is not None:
+        if prefix.device != q.device or prefix.dtype != torch.int32 \
+                or tuple(prefix.shape) != (b,) or not prefix.is_contiguous():
+            raise ValueError(f"prefix must be a contiguous [{b}] int32 "
+                             f"tensor on {q.device}")
     return b, sq, sk, h, hkv, d
 
 
@@ -209,27 +247,35 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
-def flash_fwd_cuda(q, k, v, *, causal, scale, window):
-    """``flash_fwd_kernel`` on ``q``'s device and current stream →
-    ``(out, lse)``."""
-    b, sq, sk, h, hkv, d = _geometry(q, k, v)
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def flash_fwd_cuda(q, k, v, *, causal, scale, window, prefix=None, pack=1):
+    """The forward kernel on ``q``'s device and current stream → ``(out,
+    lse)``: ``flash_fwd_kernel`` for ``pack`` 1, ``flash_fwd_packed_kernel``
+    (two heads of 64 per block, MHA, any head count) for ``pack`` 2.
+    ``prefix``: ``[B]`` int32 on the device, or None."""
+    b, sq, sk, h, hkv, d = _geometry(q, k, v, pack, prefix)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()["fwd"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), b, sq, sk, h, hkv, d, float(scale), int(causal),
-        int(window), _DTYPE_CODE[q.dtype], stream)
-    _raise_on(err, "flash_fwd")
-    LAUNCHES["flash_fwd"] += 1
+        lse.data_ptr(), _ptr(prefix), b, sq, sk, h, hkv, d, float(scale),
+        int(causal), int(window), pack, _DTYPE_CODE[q.dtype], stream)
+    name = "flash_fwd_packed" if pack == 2 else "flash_fwd"
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out, lse
 
 
-def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window):
-    """``flash_bwd_dq_kernel`` then ``flash_bwd_dkv_kernel`` → ``(dq, dk,
-    dv)``. ``delta`` ``[B, H, Sq]`` f32 is ``rowsum(dO·O)`` (minus any
-    lse cotangent)."""
-    b, sq, sk, h, hkv, d = _geometry(q, k, v)
+def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window,
+                   prefix=None, pack=1):
+    """The dq kernel then the dkv kernel → ``(dq, dk, dv)``: unpacked for
+    ``pack`` 1, packed for ``pack`` 2. ``delta`` ``[B, H, Sq]`` f32 is
+    ``rowsum(dO·O)`` (minus any lse cotangent)."""
+    b, sq, sk, h, hkv, d = _geometry(q, k, v, pack, prefix)
     _check(g, "dO", q.device, q.dtype, q.shape)
     _check(lse, "lse", q.device, torch.float32, (b, h, sq))
     _check(delta, "delta", q.device, torch.float32, (b, h, sq))
@@ -239,11 +285,12 @@ def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window):
     stream = torch.cuda.current_stream(q.device).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, sq, sk, h, hkv, d, float(scale), int(causal),
-            int(window), _DTYPE_CODE[q.dtype], stream)
+            dv.data_ptr(), _ptr(prefix), b, sq, sk, h, hkv, d, float(scale),
+            int(causal), int(window), pack, _DTYPE_CODE[q.dtype], stream)
+    suffix = "_packed" if pack == 2 else ""
     for which, name in ((1, "flash_bwd_dq"), (2, "flash_bwd_dkv")):
-        _raise_on(_lib()["bwd"](which, *args), name)
-        LAUNCHES[name] += 1
+        _raise_on(_lib()["bwd"](which, *args), name + suffix)
+        LAUNCHES[name + suffix] += 1
     return dq, dk, dv
 
 
@@ -255,16 +302,21 @@ def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window):
 class _Flash(torch.autograd.Function):
     """Saves ``(q, k, v, out, lse)`` like ``_fwd_rule``; the backward
     computes ``delta`` in torch and runs the two backward kernels (or, on
-    the CPU, ``flash_bwd_reference``)."""
+    the CPU, ``flash_bwd_reference``). ``pack`` picks the kernels on the
+    card: 1 the unpacked, 2 the packed."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, window, prefix, offsets):
+    def forward(ctx, q, k, v, causal, scale, window, prefix, offsets, pack):
         kw = dict(causal=causal, scale=scale, window=window)
         if q.device.type == "cuda":
-            if prefix is not None or offsets is not None:
+            if offsets is not None:
                 raise NotImplementedError(_NOT_PORTED)
+            if prefix is not None:
+                prefix = prefix.to(device=q.device,
+                                   dtype=torch.int32).contiguous()
             out, lse = flash_fwd_cuda(q.contiguous(), k.contiguous(),
-                                      v.contiguous(), **kw)
+                                      v.contiguous(), prefix=prefix,
+                                      pack=pack, **kw)
         elif q.device.type == "cpu":
             out, lse = flash_fwd_reference(q, k, v, prefix=prefix,
                                            offsets=offsets, **kw)
@@ -273,14 +325,14 @@ class _Flash(torch.autograd.Function):
                              f"{q.device}")
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.kw = kw
-        ctx.extra = (prefix, offsets)
+        ctx.extra = (prefix, offsets, pack)
         ctx.set_materialize_grads(False)  # an unused output's grad is None
         return out, lse
 
     @staticmethod
     def backward(ctx, g_out, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
-        prefix, offsets = ctx.extra
+        prefix, offsets, pack = ctx.extra
         if g_out is None:
             g_out = torch.zeros_like(out)
         if q.device.type == "cpu":
@@ -289,15 +341,14 @@ class _Flash(torch.autograd.Function):
                 offsets=offsets, **ctx.kw)
         else:
             g = g_out.to(q.dtype).contiguous()
-            b, sq, h, _ = q.shape
             delta = (g_out.float() * out.float()).sum(-1)       # [B, S, H]
             delta = delta.permute(0, 2, 1)
             if g_lse is not None:
                 delta = delta - g_lse.float()
             dq, dk, dv = flash_bwd_cuda(
                 q.contiguous(), k.contiguous(), v.contiguous(), g, lse,
-                delta.contiguous(), **ctx.kw)
-        return dq, dk, dv, None, None, None, None, None
+                delta.contiguous(), prefix=prefix, pack=pack, **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def _validate(q, k, causal, window, prefix_len):
@@ -317,23 +368,30 @@ def _validate(q, k, causal, window, prefix_len):
 
 def flash_attention_with_lse(q, k, v, *, causal: bool = True,
                              softmax_scale: Optional[float] = None,
-                             window: int = 0, prefix_len=None, offsets=None):
+                             window: int = 0, prefix_len=None, offsets=None,
+                             head_pack: int = 0):
     """Flash attention returning ``(out, lse)``, both differentiable (ring
     attention merges blocks through the lse, so its cotangent folds into
     the backward's delta). q ``[B, Sq, H, D]``, k/v ``[B, Sk, Hkv, D]``;
-    lse ``[B, H, Sq]`` f32. ``offsets`` ``(q_off, k_off)`` shift the mask
-    to global positions (plain versions only, ROADMAP B8)."""
+    lse ``[B, H, Sq]`` f32. ``prefix_len`` ``[B]`` int: the GLM
+    prefix-LM mask. ``head_pack``: heads per kernel block
+    (``head_pack_for``; 0 = auto). ``offsets`` ``(q_off, k_off)`` shift
+    the mask to global positions (plain versions only, ROADMAP A16)."""
     _validate(q, k, causal, window, prefix_len)
+    pack = head_pack_for(q.shape[2], k.shape[2], q.shape[3], head_pack)
     scale = q.shape[-1] ** -0.5 if softmax_scale is None else softmax_scale
     return _Flash.apply(q, k, v, bool(causal), float(scale), int(window),
-                        prefix_len, offsets)
+                        prefix_len, offsets, pack)
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
                     softmax_scale: Optional[float] = None, window: int = 0,
-                    prefix_len=None):
+                    prefix_len=None, head_pack: int = 0):
     """Flash attention ``[B, Sq, H, D]``: the CUDA kernels on the card,
-    their plain versions on the CPU, with the backward of each."""
+    their plain versions on the CPU, with the backward of each. With the
+    auto ``head_pack`` an MHA layout of head_dim 64 runs the packed
+    kernels, any head count (an odd one leaves the last block one
+    head)."""
     return flash_attention_with_lse(
         q, k, v, causal=causal, softmax_scale=softmax_scale, window=window,
-        prefix_len=prefix_len)[0]
+        prefix_len=prefix_len, head_pack=head_pack)[0]

@@ -13,8 +13,10 @@ plain version run in f32 on the values the kernel reads (bf16 q and
 pools upcast, int8 pages dequantized to bf16), at 1e-5 + 2^-8 relative:
 twice the kernel's one rounding of its output to bf16.
 
-Flash attention and the fused norm: f32 kernels against their plain
-versions at 1e-4 of the largest |value| (f32 sums in another order).
+Flash attention (a head per block, and two heads of 64 packed per
+block, with and without the prefix-LM mask) and the fused norm: f32
+kernels against their plain versions at 1e-4 of the largest |value|
+(f32 sums in another order).
 bf16 kernels against the plain versions run in f32 on the same bf16
 values at 2^-6 of the largest |value|: the kernels round p or ds, and
 their outputs, to bf16 (2^-8 each), and the rounding errors of up to a
@@ -330,7 +332,7 @@ def test_flash_kernels_match_plain(dev, dtype, b, s, h, hkv, d, causal,
     delta = (go.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     dq, dk, dv = fa.flash_bwd_cuda(q, k, v, go, lse, delta, **kw)
     torch.cuda.synchronize()
-    assert fa.LAUNCHES == {k: 1 for k in fa.KERNELS}
+    assert fa.LAUNCHES == {k: int(k in fa.UNPACKED) for k in fa.KERNELS}
     f = [x.float() for x in (q, k, v)]
     ref, ref_lse = fa.flash_fwd_reference(*f, **kw)
     refs = fa.flash_bwd_reference(*f, out.float(), lse, go.float(), **kw)
@@ -361,11 +363,78 @@ def test_flash_cuda_raises_for_what_the_kernel_does_not_take(dev):
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     q = torch.randn(1, 64, 2, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="B8"):
-        fa.flash_attention(q, q, q, prefix_len=torch.tensor([3], device=dev))
+    with pytest.raises(NotImplementedError, match="A16"):
+        fa.flash_attention_with_lse(
+            q, q, q, offsets=torch.tensor([0, 0], device=dev))
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.randn(1, 64, 2, 32, device=dev)
-        fa.flash_attention(x, x, x)
+        fa.flash_attention(x, x, x, head_pack=1)
+    with pytest.raises(ValueError, match="packs 4"):
+        x = torch.randn(1, 64, 4, 32, device=dev)
+        fa.flash_attention(x, x, x)  # auto: 4 heads of 32 a block
+
+
+def _flash_case(dev, dtype, b, s, h, hkv, d, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, s, h, d), (b, s, hkv, d), (b, s, hkv, d),
+                          (b, s, h, d))]
+
+
+def _check_flash(fa, q, k, v, go, out, lse, grads, kw, prefix, tol):
+    f = [x.float() for x in (q, k, v)]
+    ref, ref_lse = fa.flash_fwd_reference(*f, prefix=prefix, **kw)
+    refs = fa.flash_bwd_reference(*f, out.float(), lse, go.float(),
+                                  prefix=prefix, **kw)
+    _normwise(out, ref, tol)
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-5)
+    for got, want in zip(grads, refs):
+        _normwise(got, want, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,causal,prefix", [
+    # an odd head count: the last block holds one head
+    (2, 256, 5, True, None), (1, 300, 3, False, None),
+    # a prefix per sequence: none, mid-tile, past the end
+    (3, 200, 4, True, (0, 150, 500)), (2, 129, 7, True, (64, 1))])
+def test_packed_flash_kernels_match_plain(dev, dtype, b, s, h, causal,
+                                          prefix):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, go = _flash_case(dev, dtype, b, s, h, h, 64, s + h)
+    pref = (None if prefix is None
+            else torch.tensor(prefix, dtype=torch.int32, device=dev))
+    kw = dict(causal=causal, scale=0.125, window=0)
+    fa.reset_launches()
+    out, lse = fa.flash_fwd_cuda(q, k, v, prefix=pref, pack=2, **kw)
+    delta = (go.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    grads = fa.flash_bwd_cuda(q, k, v, go, lse, delta, prefix=pref, pack=2,
+                              **kw)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {k: int(k in fa.PACKED) for k in fa.KERNELS}
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    _check_flash(fa, q, k, v, go, out, lse, grads, kw, pref, tol)
+    # the packed and the unpacked kernels compute the same function
+    out1, lse1 = fa.flash_fwd_cuda(q, k, v, prefix=pref, **kw)
+    _normwise(out, out1, tol)
+    torch.testing.assert_close(lse, lse1, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hkv,d", [(4, 128), (2, 64)])
+def test_unpacked_flash_kernels_take_the_prefix(dev, dtype, hkv, d):
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, go = _flash_case(dev, dtype, 3, 160, 4, hkv, d, d + hkv)
+    pref = torch.tensor([0, 70, 999], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, scale=d ** -0.5, window=0)
+    out, lse = fa.flash_fwd_cuda(q, k, v, prefix=pref, **kw)
+    delta = (go.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    grads = fa.flash_bwd_cuda(q, k, v, go, lse, delta, prefix=pref, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    _check_flash(fa, q, k, v, go, out, lse, grads, kw, pref, tol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -373,6 +442,20 @@ def test_flash_cuda_raises_for_what_the_kernel_does_not_take(dev):
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("n,d", [(37, 96), (512, 2048)])
 def test_norm_kernels_match_plain(dev, dtype, kind, residual, n, d):
+    _norm_case(dev, dtype, kind, residual, n, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("n,d", [(70, 1600), (45, 4096)])
+def test_norm_kernels_at_gpt2_and_glm_widths(dev, dtype, residual, n, d):
+    """Layernorm with bias at gpt2-1.5b's d 1600 (200 vectors a row, not
+    a multiple of 32 lanes) and glm-10b's 4096 (the backward on 4
+    warps; f32 rows of 32 vectors a lane)."""
+    _norm_case(dev, dtype, "layernorm", residual, n, d)
+
+
+def _norm_case(dev, dtype, kind, residual, n, d):
     from dlrover_tpu_torch.ops import norm as nm
 
     g = torch.Generator(device=dev).manual_seed(n + d)
@@ -440,6 +523,50 @@ def test_train_step_on_card_matches_cpu_and_counts_launches(dev):
         losses[where] = [float(step(state, batch)[1]["loss"])
                          for _ in range(3)]
         if where == "cuda":
-            assert fa.LAUNCHES == {k: 3 * 2 for k in fa.KERNELS}
+            assert fa.LAUNCHES == {k: 3 * 2 * (k in fa.UNPACKED)
+                                   for k in fa.KERNELS}
             assert nm.LAUNCHES == {k: 3 * 5 for k in nm.KERNELS}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+@pytest.mark.parametrize("kind", ["gpt2", "glm"])
+def test_packed_train_step_on_card_matches_cpu(dev, kind):
+    """Tiny f32 models of the packed families (5 heads of 64, learned
+    positions, tied head; 2 heads of 64, rope, prefix-LM): three steps on
+    the card equal the CPU's to 1e-4, each step launching each packed
+    flash kernel once a layer and no unpacked one."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    over = dict(norm="layernorm", act="gelu", tie_embeddings=True,
+                n_layer=2, vocab_size=512, max_seq=64, dtype="float32")
+    if kind == "gpt2":
+        over.update(d_model=320, n_head=5, d_ff=640, pos="learned")
+    else:
+        over.update(d_model=128, n_head=2, d_ff=512, pos="rope",
+                    prefix_lm=True)
+    cfg = get_config("tiny", **over)
+    rng = np.random.default_rng(1)
+    tok = torch.as_tensor(rng.integers(0, 512, size=(4, 65)))
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    if kind == "glm":
+        batch["prefix_len"] = torch.tensor([0, 9, 40, 64], dtype=torch.int32)
+    losses = {}
+    for where in ("cpu", "cuda"):
+        tx = make_optimizer(learning_rate=1e-3, warmup_steps=1,
+                            decay_steps=20)
+        state = init_train_state(0, cfg, tx, device="cpu")
+        state["params"].to(where)
+        state["opt_state"] = tx.init(dict(state["params"].named_parameters()))
+        step = TrainStepBuilder(cfg, tx, device=where).build()
+        fa.reset_launches()
+        losses[where] = [float(step(state, batch)[1]["loss"])
+                         for _ in range(3)]
+        if where == "cuda":
+            assert fa.LAUNCHES == {k: 3 * 2 * (k in fa.PACKED)
+                                   for k in fa.KERNELS}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)

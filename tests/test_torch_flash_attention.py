@@ -172,7 +172,8 @@ def test_mha_reference_matches_jax(sq, sk, window, prefix):
 
 
 def test_prefix_forward_matches_jax_kernel():
-    """The plain versions also serve prefix-LM (the kernels do not)."""
+    """The plain versions serve prefix-LM, as the kernels do on the card
+    (tests/test_torch_flash_packed.py holds the packed twins)."""
     q, k, v, g = _inputs(8, h=4, hkv=2, d=64)
     prefix = np.array([37, 150], np.int32)
     jq, jk, jv = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)

@@ -12,7 +12,13 @@ attention and norms and the port its kernels' plain versions:
   ``single_device_mesh``, with the same optimizer, and the params after;
 - ``grad_accum=2`` the same way;
 - remat "full" equal to "none", the fused norm path equal to the plain
-  one, and the errors of what is not ported.
+  one, and the errors of what is not ported;
+- the two head-packed families (D 64, MHA, so the auto ``head_pack``
+  packs two heads a kernel block on the card): a gpt2-shaped config with
+  an odd head count (5 heads of 64, layernorm with bias, gelu, learned
+  positions, tied head) and a glm-shaped one (prefix-LM with
+  ``prefix_len`` in the batch, rope, tied head), each with its loss,
+  every gradient and a 3-step stream against JAX's.
 
 Tolerances (f32; the point is the algorithm): loss 1e-5 relative; each
 gradient leaf within 1e-4 of its own largest |value| (a sum of many
@@ -256,3 +262,78 @@ def test_state_dict_round_trip_through_the_jax_tree():
     assert jax.tree.structure(tree) == jax.tree.structure(params)
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(params)):
         np.testing.assert_array_equal(a, b)
+
+
+# the head-packed families at D 64 (MHA): gpt2-shaped with an odd head
+# count, glm-shaped with a prefix-LM mask
+_PACKED = {
+    "gpt2": dict(n_layer=2, d_model=320, n_head=5, n_kv_head=None, d_ff=640,
+                 norm="layernorm", act="gelu", pos="learned",
+                 tie_embeddings=True),
+    "glm": dict(n_layer=2, d_model=128, n_head=2, n_kv_head=None, d_ff=512,
+                norm="layernorm", act="gelu", pos="rope", prefix_lm=True,
+                tie_embeddings=True),
+}
+
+
+def _packed_batch(kind, seed):
+    batch = _batch(seed)
+    if kind == "glm":
+        # a bidirectional prefix per sequence (one empty, one whole), the
+        # loss on the tail only, as examples/train_glm.py trains it
+        pref = np.array([5, 0, 17, 32], np.int32)
+        batch["prefix_len"] = pref
+        batch["mask"] = (np.arange(32)[None] >= pref[:, None]).astype(
+            np.float32)
+    return batch
+
+
+@pytest.mark.parametrize("kind", sorted(_PACKED))
+def test_packed_families_loss_and_every_gradient_match_jax(kind):
+    jcfg, cfg = _configs(**_PACKED[kind])
+    assert cfg.head_dim == 64 and cfg.kv_heads == cfg.n_head
+    params = _jparams(jcfg, 11)
+    batch = _packed_batch(kind, 12)
+    mesh = single_device_mesh()
+
+    def jloss(p):
+        return jdec.loss_fn(p, jax.tree.map(jnp.asarray, batch), jcfg,
+                            mesh=mesh)
+
+    (jl, _), jg = jax.value_and_grad(jloss, has_aux=True)(params)
+    model = _model(params, cfg)
+    loss, _ = tdec.loss_fn(model, _tb(batch))
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5)
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    tree = convert.jax_tree_from_state_dict(grads, cfg)
+    flat_j = dict(jax.tree_util.tree_leaves_with_path(jg))
+    for path, leaf in jax.tree_util.tree_leaves_with_path(tree):
+        _leaf_close(leaf, np.asarray(flat_j[path]))
+
+
+@pytest.mark.parametrize("kind", sorted(_PACKED))
+def test_packed_families_three_step_stream_matches_jax(kind):
+    jcfg, cfg = _configs(**_PACKED[kind])
+    mesh = single_device_mesh()
+    jtx = jopt.make_optimizer(**_OPT)
+    jstate = jts.init_train_state(jax.random.key(13), jcfg, mesh, jtx)
+    jstep = jts.TrainStepBuilder(jcfg, mesh, jtx).build()
+    ttx = topt.make_optimizer(**_OPT)
+    model = _model(jax.tree.map(np.asarray, jstate["params"]), cfg)
+    state = {"params": model,
+             "opt_state": ttx.init(dict(model.named_parameters())),
+             "step": 0}
+    step = tts.TrainStepBuilder(cfg, ttx, device="cpu").build()
+    for i in range(3):
+        batch = _packed_batch(kind, 30 + i)
+        jstate, jm = jstep(jstate, jax.tree.map(jnp.asarray, batch))
+        state, m = step(state, _tb(batch))
+        np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]),
+                                   rtol=1e-5)
+        np.testing.assert_allclose(float(m["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-4)
+    tree = convert.jax_tree_from_state_dict(
+        {n: p.detach() for n, p in model.named_parameters()}, cfg)
+    for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(jstate["params"])):
+        _leaf_close(a, np.asarray(b))
