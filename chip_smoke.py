@@ -28,13 +28,18 @@ result:
    kernel builds from source (one ``nvcc`` per source, all at once);
 2. kernel: every paged-attention case against its plain PyTorch
    version at llama3-8b's attention shapes (H 32, Hkv 8, D 128, page
-   16): decode at B=8 and chunk at C=256, bf16 and int8 pools, window 0
-   and 512, ragged positions up to 2047, a shuffled page assignment with
-   -1 columns and a free slot; with the kernel's time, the plain
+   16): decode at B=8 and chunk at C=256 (at 1536; timed), C=200 (800
+   rows, a ragged row tile) and B=2 (starts 1536 and 700), bf16 and
+   int8 pools, window 0 and 512, ragged positions up to 2047, a
+   shuffled page assignment with -1 columns and a free slot; the chunk
+   kernel (on the tensor cores since PR 5, ``csrc/attn_fwd_core.cuh``)
+   under the flash kernels' element-wise bound (``chunk_bound``), the
+   others under 2^-8 relative + 1e-5; each case's largest |Δ|/bound is
+   printed; with the kernel's time, the plain
    version's, ``F.scaled_dot_product_attention`` on pre-gathered dense
    K/V (the gather excluded) and the byte/operation bound. Each case
    also runs a planted fault (a held page dropped, or the window edge
-   moved by one key) that the tolerance must catch. Then the verify
+   moved by one key) that the bound must catch. Then the verify
    variant (``verify_cases``): B 8 × C 5 (a spec_k=4 chunk), starts up
    to 2043, a free slot, stale rows in the cells from each start on,
    with two planted faults (an in-flight key row replaced; the plain
@@ -59,8 +64,9 @@ result:
    serve shapes,
    timed (CUDA events and wall) and traced (``torch.profiler``): kernel
    time by class, launches per step, the device's busy share;
-6. train_kernel: the flash kernels (forward, dq, dkv; a head a block
-   and two heads of 64 packed a block) and the norm kernels (forward,
+6. train_kernel: the flash kernels (forward, dq, dkv; a head a block,
+   the bf16 forward on the tensor-core core since PR 5, and two heads of
+   64 packed a block) and the norm kernels (forward,
    backward) against their plain versions run in f32 on the same bf16
    values, at the train steps' shapes (llama-1.4b: flash B 8, S 1024,
    H 16, D 128, norm rows [8192, 2048] rmsnorm; gpt2-1.5b: packed flash
@@ -139,13 +145,19 @@ TRAIN_KERNELS = (
 # Kernel vs plain version, per element of the attention output. The
 # plain version runs in f32 on the very values the kernel reads (bf16 q
 # and pools upcast exactly; int8 pages dequantized through the codec to
-# bf16, as the kernel rounds its in-register dequant), so the two differ
-# only by f32 summation order (far below 1e-5 at these shapes) and the
-# kernel's one rounding of its output to bf16 (at most 2^-9 relative):
-# the bound is twice that rounding plus 1e-5. Against the plain version
-# in bf16 the difference is only reported: its chunk variant rounds the
-# probabilities to bf16 before P·V (as mha_reference does), the kernel
-# keeps them in f32.
+# bf16, as the kernel rounds its in-register dequant). The decode and
+# verify kernels keep f32 throughout, so the two differ only by f32
+# summation order (far below 1e-5 at these shapes) and the kernel's one
+# rounding of its output to bf16 (at most 2^-9 relative): the bound is
+# twice that rounding plus 1e-5. The bf16 chunk kernel (on the tensor
+# cores) also rounds each unnormalized probability p to bf16 before P·V,
+# as the flash kernels do, while l sums the unrounded p: that adds at most
+# 2^-8 of M = sum_j p_j·|v_j| / l, the attention of the same rows over
+# |V|, which the check computes in f32 from magnitudes; its chunk bound is
+# the flash kernels' (2^-8·|plain| + (2^-8 + 2^-12)·M) plus 1e-5. Against
+# the plain version in bf16 the difference is only reported: its chunk
+# variant rounds the normalized probabilities to bf16 before P·V (as
+# mha_reference does).
 KERNEL_ATOL = 1e-5
 KERNEL_RTOL = 2.0 ** -8
 # speculative decoding: drafts per verify step (a verify chunk is
@@ -349,12 +361,34 @@ def _f32_pools(pools, geom):
             for n in ("k", "v")}
 
 
-def _held(out, ref, active):
-    """(max |out - ref|, elements over the bound) over the active slots."""
+def _held(out, ref, active, bound=None):
+    """(max |out - ref|, elements over the bound, max |out - ref| / bound)
+    over the active slots; the bound is KERNEL_ATOL + KERNEL_RTOL·|ref|
+    unless one is given (``chunk_bound``)."""
     o, r = out.float()[active], ref.float()[active]
     diff = (o - r).abs()
-    over = int((diff > KERNEL_ATOL + KERNEL_RTOL * r.abs()).sum())
-    return float(diff.max()), over
+    b = (KERNEL_ATOL + KERNEL_RTOL * r.abs() if bound is None
+         else bound[active])
+    return float(diff.max()), int((diff > b).sum()), float((diff / b).max())
+
+
+def chunk_bound(q, pools_f32, tables, positions, **kw):
+    """The bf16 chunk kernel's element-wise bound against the f32 plain
+    version (``paged_attention_reference`` on ``q.float()`` and
+    ``pools_f32``, the values the kernel reads): FLASH_ROUND·|plain| +
+    (FLASH_ROUND + FLASH_SLACK)·M + KERNEL_ATOL, where M is the same
+    attention over |V| (sum_j p_j·|v_j| / l), in f32. Returns (plain,
+    bound)."""
+    from dlrover_tpu_torch.ops import paged_attention as pa
+
+    q32 = q.float()
+    ref = pa.paged_attention_reference(q32, pools_f32, tables, positions,
+                                       **kw)
+    mag = pa.paged_attention_reference(
+        q32, {"k": pools_f32["k"], "v": pools_f32["v"].abs()}, tables,
+        positions, **kw)
+    return ref, (FLASH_ROUND * ref.abs() + (FLASH_ROUND + FLASH_SLACK) * mag
+                 + KERNEL_ATOL)
 
 
 def _sdpa_ms(q, pools, tables, pos_rows, geom, scale, window, max_pages):
@@ -380,6 +414,14 @@ def _sdpa_ms(q, pools, tables, pos_rows, geom, scale, window, max_pages):
     return cuda_ms(call, 20)
 
 
+# (B, C, starts, timed) of the chunk cases: one 256-token chunk of a
+# prompt at 1536, as the engine runs it (timed: the kernels line's shape);
+# the ragged C 200 of prefix_serve's prefill_chunk (800 rows, a last row
+# tile of 32); two slots at other starts
+CHUNK_SHAPES = ((1, 256, (1536,), True), (1, 200, (1536,), False),
+                (2, 256, (1536, 700), False))
+
+
 def kernel_cases(cfg, seed, dev):
     from dlrover_tpu_torch.ops import paged_attention as pa
     from dlrover_tpu_torch.serving import kv_cache as kvc
@@ -391,12 +433,15 @@ def kernel_cases(cfg, seed, dev):
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     geom_cfg = dataclasses.replace(cfg, n_layer=n_layers)
+    shapes = [("decode", 8, 1, None, True)] + [
+        ("chunk", b, c, starts, timed)
+        for b, c, starts, timed in CHUNK_SHAPES]
     for mode in ("bf16", "int8"):
         geom = kvc.make_geometry(geom_cfg, n_slots=8, max_len=2048,
                                  page_size=16, mode=mode)
         pools = _fill_pools(geom, gen, dev)
         width = geom.max_pages_per_slot
-        for variant in ("decode", "chunk"):
+        for variant, b, c, starts, timed in shapes:
             for window in (0, 512):
                 if variant == "decode":
                     # ragged positions up to 2047, slot 7 free (pos 0, no pages)
@@ -405,17 +450,15 @@ def kernel_cases(cfg, seed, dev):
                     pos[7] = 0
                     lens = pos + 1
                     lens[7] = 0
-                    b, c = 8, 1
                     pos_rows = torch.as_tensor(pos[:, None], dtype=torch.int32,
                                                device=dev)
                     call_pos = pos_rows[:, 0].contiguous()
                 else:
-                    # one 256-token chunk of a prompt, as the engine runs it
-                    start = 1536
-                    b, c = 1, 256
-                    lens = np.asarray([start + c])
-                    pos_rows = (start + torch.arange(c, device=dev,
-                                                     dtype=torch.int32))[None]
+                    lens = np.asarray(starts) + c
+                    pos_rows = (torch.as_tensor(starts, dtype=torch.int32,
+                                                device=dev)[:, None]
+                                + torch.arange(c, device=dev,
+                                               dtype=torch.int32))
                     call_pos = pos_rows
                 tab_np = _fragmented_tables(b, width, lens, 16, rng)
                 tables = torch.as_tensor(tab_np, device=dev)
@@ -425,16 +468,21 @@ def kernel_cases(cfg, seed, dev):
                 kw = dict(scale=scale, window=window, kv_heads=cfg.kv_heads,
                           max_pages=max_pages, variant=variant)
                 layer0 = kvc.layer_pools(pools, 0)
+                f32 = _f32_pools(layer0, geom)
                 out = pa.paged_attention(q, layer0, tables, call_pos, **kw)
                 torch.cuda.synchronize()
-                ref = pa.paged_attention_reference(
-                    q.float(), _f32_pools(layer0, geom), tables, call_pos,
-                    **kw)
+                kernel = pa.kernel_for(c, cfg.n_head, cfg.kv_heads)
+                if kernel == "chunk":
+                    ref, bound = chunk_bound(q, f32, tables, call_pos, **kw)
+                else:
+                    ref = pa.paged_attention_reference(
+                        q.float(), f32, tables, call_pos, **kw)
+                    bound = None
                 same = pa.paged_attention_reference(q, layer0, tables,
                                                     call_pos, **kw)
                 active = torch.as_tensor(lens > 0, device=dev)
-                err, over = _held(out, ref, active)
-                same_err, _ = _held(out, same, active)
+                err, over, ratio = _held(out, ref, active, bound)
+                same_err = _held(out, same, active)[0]
                 free_zero = bool(torch.all(out[~active] == 0)) if bool(
                     (~active).any()) else True
                 finite = bool(torch.isfinite(out.float()).all())
@@ -450,41 +498,47 @@ def kernel_cases(cfg, seed, dev):
                     bad_tab[0, int((tab_np[0] >= 0).sum()) // 2] = -1
                     bad = pa.paged_attention(q, layer0, bad_tab, call_pos,
                                              **kw)
-                bad_err, bad_over = _held(bad, ref, active)
+                bad_err, bad_over, _ = _held(bad, ref, active, bound)
                 control = {"fault": fault, "max_abs_err": bad_err,
                            "over_bound": bad_over, "caught": bad_over > 0}
-                layers = itertools.cycle(
-                    [kvc.layer_pools(pools, i) for i in range(n_layers)])
-
-                def run_kernel():
-                    pa.paged_attention(q, next(layers), tables, call_pos, **kw)
-
-                def run_plain():
-                    pa.paged_attention_reference(q, next(layers), tables,
-                                                 call_pos, **kw)
-
-                ms = cuda_ms(run_kernel, 50)
-                plain_ms = cuda_ms(run_plain, 10)
-                lib_ms = _sdpa_ms(q, layer0, tables, pos_rows, geom, scale,
-                                  window, max_pages)
-                moved, ops = _work(q, tables, pos_rows, geom, window,
-                                   max_pages)
-                bound_ms, bound_by = _bound(moved, ops)
-                kernel = pa.kernel_for(c, cfg.n_head, cfg.kv_heads)
                 case = {
                     "phase": "kernel", "kernel": f"paged_attention.{kernel}",
+                    "cuda_kernel": pa.cuda_kernel(kernel, q.dtype, d),
                     "variant": variant, "mode": mode, "window": window,
                     "B": b, "C": c, "max_pages": max_pages,
                     "max_abs_err": err, "over_bound": over,
-                    "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
+                    "max_err_over_bound": ratio,
+                    "bound": ("chunk: 2^-8|plain| + (2^-8 + 2^-12) M + 1e-5"
+                              if bound is not None else
+                              f"{KERNEL_ATOL} + {KERNEL_RTOL}|plain|"),
                     "same_dtype_max_abs_err": same_err, "control": control,
                     "free_slot_zero": free_zero, "finite": finite,
-                    "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "bytes": moved, "ops": ops,
+                    "timed": timed,
                     "ok": (over == 0 and control["caught"] and free_zero
                            and finite),
                 }
+                if timed:
+                    layers = itertools.cycle(
+                        [kvc.layer_pools(pools, i) for i in range(n_layers)])
+
+                    def run_kernel():
+                        pa.paged_attention(q, next(layers), tables, call_pos,
+                                           **kw)
+
+                    def run_plain():
+                        pa.paged_attention_reference(q, next(layers), tables,
+                                                     call_pos, **kw)
+
+                    moved, ops = _work(q, tables, pos_rows, geom, window,
+                                       max_pages)
+                    bound_ms, bound_by = _bound(moved, ops)
+                    case.update(
+                        ms=cuda_ms(run_kernel, 50),
+                        plain_ms=cuda_ms(run_plain, 10),
+                        library_ms=_sdpa_ms(q, layer0, tables, pos_rows,
+                                            geom, scale, window, max_pages),
+                        bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
+                        ops=ops)
                 emit(case)
                 if not case["ok"]:
                     _failures.append(f"kernel case {case}")
@@ -636,19 +690,19 @@ def verify_cases(cfg, seed, dev):
             same = pa.paged_attention_reference(q, layer0, tables, pos_rows,
                                                 extra_k=ek, extra_v=ev, **kw)
             every = torch.ones(b, dtype=torch.bool, device=dev)
-            err, over = _held(out, ref, every)
-            same_err, _ = _held(out, same, every)
+            err, over, ratio = _held(out, ref, every)
+            same_err = _held(out, same, every)[0]
             finite = bool(torch.isfinite(out.float()).all())
             bad_k = ek.clone()
             bad_k[:, 2] = rnd(b, cfg.kv_heads, d)
             bad = pa.paged_attention(q, layer0, tables, pos_rows,
                                      extra_k=bad_k, extra_v=ev, **kw)
-            _, bad_over = _held(bad, ref, every)
-            _, early_over = _held(bad[:, :2], ref[:, :2], every)
+            bad_over = _held(bad, ref, every)[1]
+            early_over = _held(bad[:, :2], ref[:, :2], every)[1]
             stale_ref = _verify_stale_visible(
                 q.float(), p32, tables, pos_rows, ek.float(), ev.float(),
                 geom, scale, window, max_pages)
-            stale_err, stale_over = _held(out, stale_ref, every)
+            stale_err, stale_over, _ = _held(out, stale_ref, every)
             faults = {
                 "inflight_k_row_2": {"over_bound": bad_over,
                                      "over_bound_rows_0_1": early_over,
@@ -683,6 +737,7 @@ def verify_cases(cfg, seed, dev):
                 "B": b, "C": c, "max_pages": max_pages,
                 "starts": [int(x) for x in start],
                 "max_abs_err": err, "over_bound": over,
+                "max_err_over_bound": ratio,
                 "atol": KERNEL_ATOL, "rtol": KERNEL_RTOL,
                 "same_dtype_max_abs_err": same_err, "faults": faults,
                 "finite": finite, "ms": ms, "plain_ms": plain_ms,
@@ -2036,7 +2091,10 @@ def main(argv=None) -> int:
     for kernel in pa.KERNELS:
         name = f"paged_attention.{kernel}"
         mine = [c for c in cases if c["kernel"] == name]
-        head = next(c for c in mine if c["mode"] == "int8" and not c["window"])
+        # the timed case over int8 pools without a window (chunk: B 1 x
+        # C 256 at 1536)
+        head = next(c for c in mine if c["mode"] == "int8"
+                    and not c["window"] and "ms" in c)
         kernels.append({
             "name": name, "route": "cuda",
             "source": PAGED_SRC, "replaces": PAGED_REPLACES,

@@ -1,7 +1,8 @@
 // FlashAttention-2 forward and backward for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of dlrover_tpu/ops/pallas_attention.py:
-//   flash_fwd_kernel            <- _fwd_kernel             (driven by _flash_fwd)
+//   flash_fwd_wgmma_kernel      <- _fwd_kernel, bf16      (driven by _flash_fwd)
+//   flash_fwd_kernel            <- _fwd_kernel, f32
 //   flash_bwd_dq_kernel         <- _bwd_dq_kernel          (driven by _pallas_backward)
 //   flash_bwd_dkv_kernel        <- _bwd_dkv_kernel         (driven by _pallas_backward)
 //   flash_fwd_packed_kernel     <- _fwd_kernel_packed      (head_pack 2)
@@ -21,10 +22,14 @@
 // What bounds it: operations. Causal attention at the training shapes
 // (B 8, S 1024, H 16, D 128) does 4 * B * H * S^2 * D / 2 = 3.4e10 FLOP in
 // the forward, ~100x its bytes over the card's ridge. So the products run
-// on the tensor cores: bf16 mma.sync m16n8k16 with f32 accumulation for
-// every product of a bf16 call. An f32 call (the f32 model check) runs the
-// same tiles through f32 FMAs on the CUDA cores, with the same fragment
-// layout, so both share one body.
+// on the tensor cores. The bf16 one-head forward runs on the Hopper core
+// of attn_fwd_core.cuh (wgmma from shared-memory tiles that TMA fills
+// under the products, P kept in registers; see flash_fwd_wgmma_kernel
+// below), the only path to the card's full tensor-core rate. The other
+// bf16 kernels use mma.sync m16n8k16 with f32 accumulation. An f32 call
+// (the f32 model check) runs the mma.sync bodies' tiles through f32 FMAs
+// on the CUDA cores, with the same fragment layout, so both share one
+// body.
 //
 // Design. No block carries state to another: the forward gives each block
 // NH query heads of one batch element and one 64-row q tile and loops over
@@ -66,10 +71,14 @@
 // the caller's stream; they allocate nothing and return cudaGetLastError()
 // after the launch.
 
+#include <cuda.h>  // CUtensorMap
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "attn_fwd_core.cuh"
 
 namespace {
 
@@ -859,6 +868,189 @@ __global__ void __launch_bounds__(kThreads2, 2)
 }
 
 // ---------------------------------------------------------------------------
+// the bf16 forward of one head a block on the tensor-core core
+// ---------------------------------------------------------------------------
+//
+// flash_fwd_wgmma_kernel replaces _fwd_kernel (pallas_attention.py l.213;
+// pallas_call l.1039 in _flash_fwd l.887) for bf16. What bounds it: at
+// llama-1.4b's shape (B 8, S 1024, H 16, D 128, causal) the bytes (134 MB
+// read and written once: 40 us at the HBM rate) and the operations (3.4e10
+// FLOP: 35 us at the bf16 peak) are close; the mma.sync kernel ran 7x
+// that, short of the tensor-core rate, so the design goes for the rate:
+// attn_fwd_core.cuh's core (wgmma for Q.K^T and P.V, the online softmax
+// in registers) on a q tile of 128 rows (two consumer warpgroups of 64)
+// of one query head; GQA reads KV head
+// h / (H / Hkv), never repeated. The producer is one thread issuing TMA
+// copies of the K and V tiles of 128 keys ([128 keys, 64 columns] boxes
+// of a 4-d tensor map [B, Sk, Hkv, D], two a tile at D 128; keys past Sk
+// come in as zeros and are masked) into a ring of 3 stages. The key
+// tiles are key_tiles' (causal, window, prefix) for the block's 128 rows;
+// a warp skips the mask on a wholly visible tile and masks the others per
+// element, by allowed()'s rule. Blocks take q tiles from the last: causal
+// tiles late in the sequence do the most work.
+
+namespace ac = attn_core;
+
+constexpr int kTcBQ = ac::kRows * ac::kConsumers;  // q rows a block
+constexpr int kTcBK = 128;                         // keys a K/V tile
+
+// What a consumer warpgroup's rows see of a key tile: allowed() and
+// tile_visible() on values held in registers.
+struct FlashMask {
+  int sq, sk, causal, window, pref;
+  int q0warp;  // first row of this warp
+  int row[2];  // this thread's rows
+  __device__ __forceinline__ bool whole(const ac::Meta& mt) const {
+    const int k1 = mt.k0 + kTcBK;
+    if (q0warp + 16 > sq || k1 > sk) return false;
+    if (!causal || k1 <= pref) return true;
+    return k1 - 1 <= q0warp && (window == 0 || q0warp + 15 - mt.k0 < window);
+  }
+  __device__ __forceinline__ bool allowed(const ac::Meta& mt, int i,
+                                          int col) const {
+    const int kp = mt.k0 + col, qp = row[i];
+    if (kp >= sk || qp >= sq) return false;
+    if (!causal || kp < pref) return true;
+    return qp >= kp && (window == 0 || qp - kp < window);
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_fwd_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap km,
+                           const __grid_constant__ CUtensorMap vm) {
+  using L = ac::Layout<D, kTcBK, 0>;
+  const uint32_t base = ac::smem_base();
+  ac::init_barriers<L>(base, 1);
+  const int wg = threadIdx.x / 128;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int pref = prefix_of(a, b);
+  if (wg == 0) {
+    ac::setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    const int kh = h / (a.H / a.Hkv);
+    int kt0, kt1;
+    key_tiles(a, pref, q0, kTcBQ, kTcBK, &kt0, &kt1);
+    ac::Ring ring;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      ac::wait_empty<L>(base, ring);
+      ac::write_meta<L>(base, ring.stage, kt * kTcBK, ~0ull);
+      const uint32_t full = base + L::full + 8 * ring.stage;
+      ac::mbar_arrive_tx(full, 2 * L::kKvTile);
+#pragma unroll
+      for (int half = 0; half < D / 64; ++half) {
+        const uint32_t off = half * kTcBK * 128;
+        ac::tma_load_4d(L::k_tile(base, ring.stage) + off, &km, full,
+                        half * 64, kh, kt * kTcBK, b);
+        ac::tma_load_4d(L::v_tile(base, ring.stage) + off, &vm, full,
+                        half * 64, kh, kt * kTcBK, b);
+      }
+      ring.advance();
+    }
+    ac::wait_empty<L>(base, ring);
+    ac::write_meta<L>(base, ring.stage, -1, 0);
+    ac::mbar_arrive(base + L::full + 8 * ring.stage);
+    return;
+  }
+  ac::setmaxnreg_inc<232>();
+  const int ct = threadIdx.x - 128 * wg;
+  const int warp = ct / 32, lane = ct % 32, g = lane >> 2;
+  FlashMask pol;
+  pol.sq = a.Sq;
+  pol.sk = a.Sk;
+  pol.causal = a.causal;
+  pol.window = a.window;
+  pol.pref = pref;
+  const int q0w = q0 + (wg - 1) * ac::kRows;
+  pol.q0warp = q0w + warp * 16;
+  pol.row[0] = pol.q0warp + g;
+  pol.row[1] = pol.q0warp + g + 8;
+  const uint32_t q_tile = base + L::q + (wg - 1) * L::kQTile;
+  const size_t qs = (size_t)a.H * D;
+  const bf16* qg = static_cast<const bf16*>(a.q) +
+                   ((size_t)b * a.Sq * a.H + h) * D;
+  ac::load_q<D>(q_tile, ct, [&](int r) -> const bf16* {
+    const int row = q0w + r;
+    return row < a.Sq ? qg + (size_t)row * qs : nullptr;
+  }, wg);
+  ac::State<D> st;
+  ac::consume<D, L>(base, q_tile, pol, a.scale * ac::kLog2e, st);
+  bf16* og = static_cast<bf16*>(const_cast<void*>(a.out)) +
+             ((size_t)b * a.Sq * a.H + h) * D;
+  float* lg = const_cast<float*>(a.lse) + ((size_t)b * a.H + h) * a.Sq;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = pol.row[i];
+    if (row >= a.Sq) continue;
+    ac::store_row<D>(st, i, og + (size_t)row * qs);
+    if ((lane & 3) == 0)
+      lg[row] = st.m[i] * a.scale + logf(st.l[i] == 0.f ? 1.f : st.l[i]);
+  }
+}
+
+// cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// [B, S, Hkv, D] bf16 as a 4-d tensor map of [kTcBK keys, 64 columns]
+// boxes in the 128-byte swizzle.
+bool kv_tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int Hkv,
+                   int D) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2,
+                                 (cuuint64_t)S * Hkv * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kTcBK, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+cudaError_t run_fwd_wgmma(const Args& a, cudaStream_t stream) {
+  using L = ac::Layout<D, kTcBK, 0>;
+  CUtensorMap km, vm;
+  if (!kv_tensor_map(&km, a.k, a.B, a.Sk, a.Hkv, D) ||
+      !kv_tensor_map(&vm, a.v, a.B, a.Sk, a.Hkv, D))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_wgmma_kernel<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::alloc);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Sq + kTcBQ - 1) / kTcBQ, a.B * a.H);
+  kernel<<<grid, ac::block_threads(1), L::alloc, stream>>>(a, km, vm);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -880,8 +1072,12 @@ cudaError_t run(int which, const Args& a, cudaStream_t stream) {
   const dim3 kv_grid((a.Sk + kKvBK - 1) / kKvBK, a.B * a.Hkv);
   switch (which) {
     case 0:
-      return launch(flash_fwd_kernel<T, D>, q_grid, kThreads1,
-                    fwd_smem<T, D, 1>(), a, stream);
+      // the one-head forward on mma.sync tiles serves f32 only; bf16 runs
+      // flash_fwd_wgmma_kernel
+      if constexpr (std::is_same<T, float>::value)
+        return launch(flash_fwd_kernel<T, D>, q_grid, kThreads1,
+                      fwd_smem<T, D, 1>(), a, stream);
+      return cudaErrorInvalidValue;
     case 1:
       return launch(flash_bwd_dq_kernel<T, D>, q_grid, kThreads1,
                     dq_smem<T, D, 1>(), a, stream);
@@ -914,13 +1110,22 @@ cudaError_t run_packed(int which, const Args& a, cudaStream_t stream) {
   }
 }
 
-int dispatch(int which, const Args& a, int D, int pack, int dtype,
-             void* stream) {
+// Forward kernel ids (the wrapper names the one to launch).
+constexpr int kFwdOneHead = 0;  // flash_fwd_kernel: f32
+constexpr int kFwdPacked = 1;   // flash_fwd_packed_kernel: f32, bf16
+constexpr int kFwdWgmma = 2;    // flash_fwd_wgmma_kernel: bf16
+
+bool valid(const Args& a) {
   if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Hkv <= 0 || a.H % a.Hkv ||
       a.window < 0)
-    return cudaErrorInvalidValue;
+    return false;
   // the prefix is a causal mask's, and excludes a window
-  if (a.prefix && (!a.causal || a.window)) return cudaErrorInvalidValue;
+  return !(a.prefix && (!a.causal || a.window));
+}
+
+int dispatch(int which, const Args& a, int D, int pack, int dtype,
+             void* stream) {
+  if (!valid(a)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (pack == 2) {
     if (D != kPackD || a.H != a.Hkv) return cudaErrorInvalidValue;
@@ -942,18 +1147,39 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out, dO, dq, dk, dv); D is 64
 // or 128; lse and delta are f32; prefix is [B] int32 or null (causal, no
-// window). pack: 1 = a head per block (flash_*_kernel), 2 = two heads of 64
-// per block (flash_*_packed_kernel; MHA, any H). Every pointer is 16-byte
-// aligned (prefix 4-byte). Returns a cudaError_t (0 = launched).
+// window). Every pointer is 16-byte aligned (prefix 4-byte). Returns a
+// cudaError_t (0 = launched).
+//
+// kernel (forward): 0 = flash_fwd_kernel (a head a block, f32), 1 =
+// flash_fwd_packed_kernel (two heads of 64 a block; MHA, any H; f32 or
+// bf16), 2 = flash_fwd_wgmma_kernel (a head a block, bf16).
 int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, const int* prefix, int B, int Sq, int Sk,
                       int H, int Hkv, int D, float scale, int causal,
-                      int window, int pack, int dtype, void* stream) {
+                      int window, int kernel, int dtype, void* stream) {
   Args a = {q,       k,       v,      out, nullptr, lse, nullptr,
             nullptr, nullptr, nullptr, prefix, B,  Sq,  Sk,
             H,       Hkv,     scale,  causal, window};
-  return dispatch(0, a, D, pack, dtype, stream);
+  switch (kernel) {
+    case kFwdOneHead:
+      if (dtype != 0) return cudaErrorInvalidValue;
+      return dispatch(0, a, D, 1, dtype, stream);
+    case kFwdPacked:
+      return dispatch(0, a, D, 2, dtype, stream);
+    case kFwdWgmma: {
+      if (dtype != 1 || !valid(a)) return cudaErrorInvalidValue;
+      auto st = static_cast<cudaStream_t>(stream);
+      if (D == 128) return run_fwd_wgmma<128>(a, st);
+      if (D == 64) return run_fwd_wgmma<64>(a, st);
+      return cudaErrorInvalidValue;
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
+
+// pack (backward): 1 = a head per block (flash_bwd_*_kernel), 2 = two heads
+// of 64 per block (flash_bwd_*_packed_kernel; MHA, any H).
 
 // which: 1 = the dq kernel (writes dq), 2 = the dkv kernel (writes dk, dv).
 int dlrover_flash_bwd(int which, const void* q, const void* k, const void* v,

@@ -14,12 +14,14 @@
 // and never NaN. int8 payloads dequantize in f32 and round through the
 // compute type, the values quant.kv_decode_rows hands the plain version.
 //
-// What bounds it: the bytes of the pages a slot holds. At decode each K/V
-// element serves only the `groups` query heads of its KV head, a few FLOPs
-// per byte, far below the card's ~295 FLOP/byte ridge; a 256-row prefill
-// chunk reuses each element 4 * 256 times and would be bound by operations
-// on the tensor cores, which this first kernel does not use (it does the
-// math in f32 on the CUDA cores). What the design does about the bytes:
+// What bounds it: at decode, the bytes of the pages a slot holds: each
+// K/V element serves only the `groups` query heads of its KV head, a few
+// FLOPs per byte, far below the card's ~295 FLOP/byte ridge. A 256-row
+// prefill chunk reuses each element 4 * 256 times and is bound by
+// operations on the tensor cores: in bf16 it runs on the Hopper core of
+// attn_fwd_core.cuh (paged_chunk_wgmma_kernel below: wgmma, P in
+// registers, pages gathered under the products); the f32 and D 32 calls
+// keep the CUDA-core chunk kernel. What the design does about the bytes:
 // every page is read at most once per block and only if it can hold a key
 // some row of the block may see (unassigned pages and pages outside
 // [min_pos - window, max_pos] are skipped); int8 pages are read at one
@@ -31,9 +33,10 @@
 // chunk row r / groups, head kh * groups + r % groups. A loop over the
 // table columns inside a block takes the place of the TPU's sequential
 // grid axis and its m/l/acc scratch; each block reads its own table row and
-// positions (the TPU's scalar prefetch). Two kernels; the caller names the
-// one to launch (the Python wrapper picks by the number of query rows per
-// (slot, KV head), n_q = C * groups, and counts that kernel's launches):
+// positions (the TPU's scalar prefetch). The caller names the kernel to
+// launch (the Python wrapper picks by the number of query rows per (slot,
+// KV head), n_q = C * groups, and by dtype and D; it counts the launches
+// under the variant the rows pick, "decode" or "chunk"):
 //
 // - paged_decode_kernel (n_q <= 8: decode). Grid (slot, KV head). One warp
 //   holds every row of the block; the block's warps split the page walk
@@ -41,7 +44,9 @@
 //   (m, l, acc), loading K/V straight into registers 16 keys at a time.
 //   The warps' partial states merge through shared memory at the end. This
 //   keeps 8 pages in flight per (slot, KV head) instead of one.
-// - paged_chunk_kernel (n_q > 8: prefill chunks). Grid (slot, KV head,
+// - paged_chunk_wgmma_kernel (n_q > 8, bf16, D 64 or 128: prefill
+//   chunks). Grid (slot, KV head, tile of 128 rows); see its section.
+// - paged_chunk_kernel (n_q > 8, f32 or D 32). Grid (slot, KV head,
 //   tile of 32 rows). Each warp holds 4 rows; the block stages one page's
 //   K and V for its KV head in shared memory (f32) and every warp reuses
 //   it, so a page is read once per 32 rows.
@@ -61,16 +66,18 @@
 //   result does not depend on the walk width. In-flight key i at
 //   position pos[i] serves row r iff pos[i] <= pos[r] (and the window).
 //
-// Scores are a warp-shuffle reduction per key; lane i keeps key i's score,
-// so a group of up to 32 keys is one max/exp/sum step of the online
-// softmax. Tensor cores, TMA, and splitting the walk across blocks are
-// left for later work.
+// In the CUDA-core kernels scores are a warp-shuffle reduction per key;
+// lane i keeps key i's score, so a group of up to 32 keys is one
+// max/exp/sum step of the online softmax. Tensor cores for decode and
+// verify, and splitting the walk across blocks, are left for later work.
 //
 // Interface: a plain C function, launched on the caller's stream; it
 // allocates nothing and returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "attn_fwd_core.cuh"
 
 #include <algorithm>
 #include <climits>
@@ -565,6 +572,361 @@ __global__ void __launch_bounds__(kWarps * 32)
 }
 
 // ---------------------------------------------------------------------------
+// chunk on the tensor cores (bf16 compute; bf16 or int8 pools; D 64, 128)
+// ---------------------------------------------------------------------------
+//
+// paged_chunk_wgmma_kernel replaces the "chunk" variant of
+// dlrover_tpu/ops/pallas_paged.py::_paged_kernel (l.300; pallas_call l.558
+// in _paged_call l.472) for bf16 queries of head dim 64 or 128, over bf16
+// or int8 pools. What bounds it: operations. A llama3-8b prefill chunk
+// (B 1, C 256 at position 1536, 4 query heads a KV head) does 7.0e9 FLOP
+// on the tensor cores (7.1 us at the bf16 peak) and moves 7.9 MB (2.4 us
+// at the HBM rate): each K/V element serves 4 * 256 query rows. What the
+// design does about it: the products run on wgmma from the core of
+// attn_fwd_core.cuh, with P in registers, while producer warpgroups gather
+// the next pages; the page walk reads each page once per 128 rows.
+//
+// Grid (slot, KV head, tile of 128 query rows: two consumer warpgroups of
+// 64), rows in the (c, g) order above, K/V tiles of 64 keys. The
+// producers walk the key tiles [min_pos - window, max_pos] of the row
+// tile; a tile is published only if one of its pages is assigned and in
+// range, with a mask of the keys such pages hold (a -1 page or one outside
+// the range is never read: its keys are zero-filled and masked). bf16
+// pages are gathered by cp.async straight into the swizzled tile,
+// completing on the stage's mbarrier. int8 pages and their f32 block
+// scales arrive by cp.async in a staging buffer one tile ahead (each
+// producer thread reads back only its own copies, so no barrier among
+// them), are dequantized and rounded to bf16 exactly as kv_value does, and
+// stored into the swizzled tile; that work takes a second producer
+// warpgroup. The D 32 and f32 calls keep paged_chunk_kernel (wgmma needs
+// 16-element k-steps of a 64-element swizzle row; the f32 model checks
+// need f32 math).
+
+namespace ac = attn_core;
+
+constexpr int kTcRows = ac::kRows * ac::kConsumers;  // query rows a block
+constexpr int kTcKeys = 64;                          // keys a K/V tile
+
+template <bool INT8, int D>
+struct ChunkTc {
+  // producer warpgroups: the int8 dequant takes a second one
+  static constexpr int kProducers = INT8 ? 2 : 1;
+  static constexpr int kThreads = ac::block_threads(kProducers);
+  // int8 staging, per buffer: K, V payloads [64 keys][D]; then K, V scale
+  // slots, 16 bytes for each 16-element chunk
+  static constexpr int kStg = INT8 ? 4 * kTcKeys * D : 0;
+  using L = ac::Layout<D, kTcKeys, 2 * kStg>;
+};
+
+// What a consumer warp's rows see of a published tile.
+struct PagedMask {
+  int pos[2];      // this thread's two rows (-1: no such row)
+  int wmin, wmax;  // over this warp's 16 rows (an absent row: -1)
+  int window;
+  __device__ __forceinline__ bool whole(const ac::Meta& mt) const {
+    return mt.valid == ~0ull && wmin >= 0 &&
+           mt.k0 + kTcKeys - 1 <= wmin &&
+           (window == 0 || mt.k0 > wmax - window);
+  }
+  __device__ __forceinline__ bool allowed(const ac::Meta& mt, int i,
+                                          int col) const {
+    const int kpos = mt.k0 + col;
+    return ((mt.valid >> col) & 1) && kpos <= pos[i] &&
+           (window == 0 || kpos > pos[i] - window);
+  }
+};
+
+__device__ __forceinline__ int warp_min(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ int warp_max(int v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// 4 int8 (one 32-bit word) times a scale, each rounded to bf16, as two
+// packed pairs: kv_value's arithmetic. The int8 -> f32 conversion is exact
+// and off the conversion unit: byte b ^ 0x80 placed under the exponent of
+// 2^23 is the float 2^23 + 128 + b.
+__device__ __forceinline__ uint2 dequant4(uint32_t w, float s) {
+  const uint32_t biased = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = (__uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + e)) -
+            8388736.f) * s;
+  return make_uint2(ac::pack_bf16(f[0], f[1]), ac::pack_bf16(f[2], f[3]));
+}
+
+// The producer warpgroup of paged_chunk_wgmma_kernel. Each warp walks the
+// same tiles: lane l holds the table entries of keys l and l + 32 of a
+// tile (loaded a tile ahead), a ballot makes the tile's key mask, and a
+// thread copying a chunk of key k takes k's pool cell from lane k % 32 by
+// a shuffle, so the gather itself reads no table.
+template <bool INT8, int D>
+__device__ __forceinline__ void chunk_tc_producer(const Args& a,
+                                                  uint32_t base, int b,
+                                                  int kh, int row0) {
+  using L = typename ChunkTc<INT8, D>::L;
+  constexpr int kStg = ChunkTc<INT8, D>::kStg;
+  constexpr int kProd = 128 * ChunkTc<INT8, D>::kProducers;  // threads
+  const int pt = threadIdx.x;  // 0 .. kProd - 1
+  const int lane = pt & 31;
+  const int groups = a.H / a.Hkv;
+  const int n_q = a.C * groups;
+  const int* tab = a.tables + (size_t)b * a.tab_stride;
+
+  // the row tile's positions
+  int lo = INT_MAX, hi = INT_MIN;
+  const int row_end = min(n_q, row0 + kTcRows);
+  for (int c = row0 / groups + lane; c <= (row_end - 1) / groups; c += 32) {
+    const int p = a.positions[(size_t)b * a.C + c];
+    lo = min(lo, p);
+    hi = max(hi, p);
+  }
+  lo = warp_min(lo);
+  hi = warp_max(hi);
+  const int n_keys = a.W * a.ps;
+  const int t_end = min(hi, n_keys - 1) / kTcKeys;
+  const int t_beg = a.window > 0 ? max(0, lo - a.window + 1) / kTcKeys : 0;
+
+  // the table entry of key kpos of the walk (-1 past it)
+  auto entry = [&](int kpos) {
+    return kpos / kTcKeys <= t_end && kpos < n_keys ? tab[kpos / a.ps]
+                                                      : -1;
+  };
+  // key kpos on page pg is read iff the page is assigned and some row of
+  // the tile may see a key of it (the old kernel's skip rule)
+  auto key_ok = [&](int kpos, int pg) {
+    const int first = kpos - kpos % a.ps;
+    bool ok = pg >= 0 && first <= hi;
+    if (a.window > 0) ok = ok && first + a.ps - 1 > lo - a.window;
+    return ok;
+  };
+  // key k's pool cell, from the lane holding it
+  auto cell_of = [&](int key, int cell_lo, int cell_hi) {
+    const int x = __shfl_sync(0xffffffffu, cell_lo, key & 31);
+    const int y = __shfl_sync(0xffffffffu, cell_hi, key & 31);
+    return static_cast<size_t>(key < 32 ? x : y);
+  };
+  // every live tile in order: f(t, mask, cell_lo, cell_hi)
+  auto walk = [&](auto&& f) {
+    int pg_lo = entry(t_beg * kTcKeys + lane);
+    int pg_hi = entry(t_beg * kTcKeys + 32 + lane);
+    for (int t = t_beg; t <= t_end; ++t) {
+      const int k_lo = t * kTcKeys + lane, k_hi = k_lo + 32;
+      // the next tile's entries, in flight while this tile is copied
+      const int nx_lo = entry(k_lo + kTcKeys);
+      const int nx_hi = entry(k_hi + kTcKeys);
+      const uint32_t m0 = __ballot_sync(0xffffffffu, key_ok(k_lo, pg_lo));
+      const uint32_t m1 = __ballot_sync(0xffffffffu, key_ok(k_hi, pg_hi));
+      const uint64_t mask = m0 | (static_cast<uint64_t>(m1) << 32);
+      if (mask)
+        f(t, mask, pg_lo * a.ps + k_lo % a.ps, pg_hi * a.ps + k_hi % a.ps);
+      pg_lo = nx_lo;
+      pg_hi = nx_hi;
+    }
+  };
+  auto publish = [&](ac::Ring& ring, int k0, uint64_t mask) {
+    if (pt == 0) ac::write_meta<L>(base, ring.stage, k0, mask);
+  };
+
+  ac::Ring ring;
+  if constexpr (!INT8) {
+    const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k_pool);
+    const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v_pool);
+    constexpr int kChunks = D / 8;  // 16-byte chunks of a key row
+    walk([&](int t, uint64_t mask, int cell_lo, int cell_hi) {
+      ac::wait_empty<L>(base, ring);
+      const uint32_t kt = L::k_tile(base, ring.stage);
+      const uint32_t vt = L::v_tile(base, ring.stage);
+#pragma unroll
+      for (int i = pt; i < kTcKeys * kChunks; i += kProd) {
+        const int key = i / kChunks, c = i % kChunks;
+        const bool ok = (mask >> key) & 1;
+        const size_t cell = cell_of(key, cell_lo, cell_hi);
+        const size_t off = ok ? (cell * a.Hkv + kh) * D + c * 8 : 0;
+        ac::cp_async16(kt + ac::swz<kTcKeys>(key, c), kp + off, ok);
+        ac::cp_async16(vt + ac::swz<kTcKeys>(key, c), vp + off, ok);
+      }
+      const uint32_t full = base + L::full + 8 * ring.stage;
+      publish(ring, t * kTcKeys, mask);
+      if (pt == 0) ac::mbar_arrive(full);
+      ac::cp_async_arrive(full);
+      ring.advance();
+    });
+    ac::wait_empty<L>(base, ring);
+    const uint32_t full = base + L::full + 8 * ring.stage;
+    publish(ring, -1, 0);
+    if (pt == 0) ac::mbar_arrive(full);
+    ac::cp_async_arrive(full);
+  } else {
+    const int8_t* kp = static_cast<const int8_t*>(a.k_pool);
+    const int8_t* vp = static_cast<const int8_t*>(a.v_pool);
+    constexpr int kChunks = D / 16;  // 16-element chunks of a key row
+    constexpr int kPay = kTcKeys * D;
+    const int row_elems = a.Hkv * D;
+    const int nb = row_elems / a.blk;
+    const bool one_scale = a.blk % 16 == 0;  // a chunk lies in one block
+    auto stg = [&](int buf) { return base + L::extra + buf * kStg; };
+    // tile t's payloads and scales into staging buffer buf
+    auto issue = [&](uint64_t mask, int cell_lo, int cell_hi, int buf) {
+      const uint32_t s0 = stg(buf);
+#pragma unroll
+      for (int i = pt; i < kTcKeys * kChunks; i += kProd) {
+        const int key = i / kChunks, c = i % kChunks;
+        const size_t cell = cell_of(key, cell_lo, cell_hi);
+        if (!((mask >> key) & 1)) continue;
+        const size_t off = cell * row_elems + kh * D + c * 16;
+        ac::cp_async16(s0 + key * D + c * 16, kp + off, true);
+        ac::cp_async16(s0 + kPay + key * D + c * 16, vp + off, true);
+        const int d0 = kh * D + c * 16;
+        const uint32_t slot = s0 + 2 * kPay + i * 16;
+        for (int g = 0; g < (one_scale ? 1 : 4); ++g) {
+          const size_t si = cell * nb + (d0 + 4 * g) / a.blk;
+          ac::cp_async4(slot + 4 * g, a.k_scale + si);
+          ac::cp_async4(slot + kPay + 4 * g, a.v_scale + si);
+        }
+      }
+      ac::cp_async_commit();
+    };
+    // staging buffer buf, dequantized, into the stage's swizzled tiles:
+    // per tensor, every load of the thread's chunks first, then the math
+    auto convert = [&](uint64_t m, int buf, int stage) {
+      constexpr int kPer = kTcKeys * kChunks / kProd;  // chunks a thread
+      const uint32_t s0 = stg(buf);
+#pragma unroll
+      for (int kv = 0; kv < 2; ++kv) {
+        uint4 w[kPer];
+        float4 sc[kPer];
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const int i = pt + kProd * u, key = i / kChunks, c = i % kChunks;
+          w[u] = *reinterpret_cast<const uint4*>(
+              ac::smem_ptr(s0 + kv * kPay + key * D + c * 16));
+          sc[u] = *reinterpret_cast<const float4*>(
+              ac::smem_ptr(s0 + (2 + kv) * kPay + i * 16));
+        }
+        const uint32_t tile = kv ? L::v_tile(base, stage)
+                                 : L::k_tile(base, stage);
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const int i = pt + kProd * u, key = i / kChunks, c = i % kChunks;
+          uint4 lo16 = make_uint4(0u, 0u, 0u, 0u), hi16 = lo16;
+          if ((m >> key) & 1) {
+            const float s1 = one_scale ? sc[u].x : sc[u].y;
+            const float s2 = one_scale ? sc[u].x : sc[u].z;
+            const float s3 = one_scale ? sc[u].x : sc[u].w;
+            const uint2 e0 = dequant4(w[u].x, sc[u].x);
+            const uint2 e1 = dequant4(w[u].y, s1);
+            const uint2 e2 = dequant4(w[u].z, s2);
+            const uint2 e3 = dequant4(w[u].w, s3);
+            lo16 = make_uint4(e0.x, e0.y, e1.x, e1.y);
+            hi16 = make_uint4(e2.x, e2.y, e3.x, e3.y);
+          }
+          *reinterpret_cast<uint4*>(
+              ac::smem_ptr(tile + ac::swz<kTcKeys>(key, 2 * c))) = lo16;
+          *reinterpret_cast<uint4*>(
+              ac::smem_ptr(tile + ac::swz<kTcKeys>(key, 2 * c + 1))) = hi16;
+        }
+      }
+    };
+    // the previous live tile is converted while this one's copies fly
+    auto finish = [&](int t, uint64_t mask, int buf) {
+      ac::wait_empty<L>(base, ring);
+      convert(mask, buf, ring.stage);
+      ac::fence_proxy_async();
+      publish(ring, t * kTcKeys, mask);
+      ac::mbar_arrive(base + L::full + 8 * ring.stage);
+      ring.advance();
+    };
+    int prev = -1, buf = 0;
+    uint64_t prev_mask = 0;
+    walk([&](int t, uint64_t mask, int cell_lo, int cell_hi) {
+      issue(mask, cell_lo, cell_hi, buf);
+      if (prev >= 0) {
+        ac::cp_async_wait<1>();  // this thread's copies of tile prev
+        finish(prev, prev_mask, buf ^ 1);
+      }
+      prev = t;
+      prev_mask = mask;
+      buf ^= 1;
+    });
+    if (prev >= 0) {
+      ac::cp_async_wait<0>();
+      finish(prev, prev_mask, buf ^ 1);
+    }
+    ac::wait_empty<L>(base, ring);
+    publish(ring, -1, 0);
+    ac::mbar_arrive(base + L::full + 8 * ring.stage);
+  }
+}
+
+template <bool INT8, int D>
+__global__ void __launch_bounds__(ChunkTc<INT8, D>::kThreads, 1)
+    paged_chunk_wgmma_kernel(const Args a) {
+  using L = typename ChunkTc<INT8, D>::L;
+  constexpr int kProducers = ChunkTc<INT8, D>::kProducers;
+  const uint32_t base = ac::smem_base();
+  // full: every int8 producer thread arrives; the bf16 producer's 128
+  // cp.async arrivals and thread 0's, which publishes the Meta
+  ac::init_barriers<L>(base, INT8 ? 128 * kProducers : 129);
+  const int wg = threadIdx.x / 128;
+  const int b = blockIdx.x, kh = blockIdx.y;
+  const int groups = a.H / a.Hkv;
+  const int n_q = a.C * groups;
+  const int row0 = blockIdx.z * kTcRows;
+  // registers: the block starts with 65536 / threads a thread (168 at
+  // 384 threads, 128 at 512); what the producers give up, the consumers
+  // take: 128 * 56 + 256 * 224 = 384 * 168, 256 * 56 + 256 * 200 = 512 * 128
+  if (wg < kProducers) {
+    ac::setmaxnreg_dec<56>();
+    chunk_tc_producer<INT8, D>(a, base, b, kh, row0);
+    return;
+  }
+  ac::setmaxnreg_inc<kProducers == 1 ? 224 : 200>();
+  const int ct = threadIdx.x - 128 * wg;
+  const int warp = ct / 32, lane = ct % 32, g = lane >> 2;
+  const int cw = wg - kProducers;  // consumer warpgroup 0 or 1
+  const int wr0 = row0 + cw * ac::kRows;
+  PagedMask pol;
+  pol.window = a.window;
+  int rows[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    rows[i] = wr0 + warp * 16 + g + 8 * i;
+    pol.pos[i] = rows[i] < n_q
+                     ? a.positions[(size_t)b * a.C + rows[i] / groups]
+                     : -1;
+  }
+  pol.wmin = warp_min(min(pol.pos[0], pol.pos[1]));
+  pol.wmax = warp_max(max(pol.pos[0], pol.pos[1]));
+  const uint32_t q_tile = base + L::q + cw * L::kQTile;
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
+  ac::load_q<D>(q_tile, ct, [&](int r) -> const __nv_bfloat16* {
+    const int row = wr0 + r;
+    if (row >= n_q) return nullptr;
+    return q + (((size_t)b * a.C + row / groups) * a.H + kh * groups +
+                row % groups) * D;
+  }, 1 + cw);
+  ac::State<D> st;
+  ac::consume<D, L>(base, q_tile, pol, a.scale * ac::kLog2e, st);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= n_q) continue;
+    ac::store_row<D>(st, i, out + (((size_t)b * a.C + rows[i] / groups) *
+                                       a.H + kh * groups + rows[i] % groups) *
+                                      D);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -585,10 +947,33 @@ void launch_decode(const Args& a, int B, int n_q, cudaStream_t stream) {
       <<<dim3(B, a.Hkv, (n_q + 7) / 8), kWarps * 32, smem, stream>>>(a);
 }
 
+template <bool INT8, int D>
+cudaError_t launch_chunk_tc(const Args& a, int B, int n_q,
+                            cudaStream_t stream) {
+  using L = typename ChunkTc<INT8, D>::L;
+  auto kernel = paged_chunk_wgmma_kernel<INT8, D>;
+  // shared memory above 48 KB is opt-in, per kernel
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::alloc);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(B, a.Hkv, (n_q + kTcRows - 1) / kTcRows),
+           ChunkTc<INT8, D>::kThreads,
+           L::alloc, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename T, bool INT8, int DPL>
 cudaError_t launch(const Args& a, int B, int kernel, cudaStream_t stream) {
   constexpr int D = DPL * 32;
   const int n_q = a.C * (a.H / a.Hkv);
+  // bf16 chunks of D 64 and 128 run on the tensor cores (kernel 3) only
+  constexpr bool kTc = std::is_same_v<T, __nv_bfloat16> && D >= 64;
+  if (kernel == 3 || (kTc && kernel == 1)) {
+    if constexpr (kTc) {
+      if (kernel == 3) return launch_chunk_tc<INT8, D>(a, B, n_q, stream);
+    }
+    return cudaErrorInvalidValue;
+  }
   if (kernel == 0) {
     launch_decode<T, INT8, DPL, false>(a, B, n_q, stream);
     return cudaGetLastError();
@@ -597,11 +982,13 @@ cudaError_t launch(const Args& a, int B, int kernel, cudaStream_t stream) {
     launch_decode<T, INT8, DPL, true>(a, B, n_q, stream);
     return cudaGetLastError();
   }
-  const int warps = std::min(kWarps, (n_q + kChunkRows - 1) / kChunkRows);
-  const int rows_per_block = warps * kChunkRows;
-  const dim3 grid(B, a.Hkv, (n_q + rows_per_block - 1) / rows_per_block);
-  const size_t smem = 2 * sizeof(float) * static_cast<size_t>(a.ps) * D;
-  paged_chunk_kernel<T, INT8, DPL><<<grid, warps * 32, smem, stream>>>(a);
+  if constexpr (!kTc) {
+    const int warps = std::min(kWarps, (n_q + kChunkRows - 1) / kChunkRows);
+    const int rows_per_block = warps * kChunkRows;
+    const dim3 grid(B, a.Hkv, (n_q + rows_per_block - 1) / rows_per_block);
+    const size_t smem = 2 * sizeof(float) * static_cast<size_t>(a.ps) * D;
+    paged_chunk_kernel<T, INT8, DPL><<<grid, warps * 32, smem, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 
@@ -625,9 +1012,11 @@ cudaError_t dispatch_dim(int D, const Args& a, int B, int kernel,
 extern "C" {
 
 // kernel: 0 = paged_decode_kernel (at most 8 query rows per (slot, KV
-// head), C * H / Hkv <= 8), 1 = paged_chunk_kernel (any number), 2 = the
+// head), C * H / Hkv <= 8), 1 = paged_chunk_kernel (any number; f32, or
+// bf16 at D 32), 2 = the
 // verify variant (paged_decode_kernel<VERIFY>, any number of rows; needs
-// extra_k / extra_v, and takes W == 0: only the in-flight rows).
+// extra_k / extra_v, and takes W == 0: only the in-flight rows), 3 =
+// paged_chunk_wgmma_kernel (any number; bf16 only, D 64 or 128).
 // dtype: 0 = float32, 1 = bfloat16 (q, out, verbatim pools, extra rows).
 // int8: 1 when the pools are int8 payloads with f32 block scales, whose
 // block width blk must be a multiple of 4. q, out, the pools and the
@@ -644,7 +1033,7 @@ int dlrover_paged_attention(const void* q, void* out, const void* k_pool,
   if (B <= 0 || C <= 0 || Hkv <= 0 || H % Hkv || ps <= 0 || ps > 32 ||
       W < (kernel == 2 ? 0 : 1) || W > tab_stride ||
       (int8 && (blk <= 0 || blk % 4 || (Hkv * D) % blk)) ||
-      kernel < 0 || kernel > 2 || (kernel == 0 && C * (H / Hkv) > 8) ||
+      kernel < 0 || kernel > 3 || (kernel == 0 && C * (H / Hkv) > 8) ||
       (kernel == 2 && (extra_k == nullptr || extra_v == nullptr)))
     return cudaErrorInvalidValue;
   Args a;

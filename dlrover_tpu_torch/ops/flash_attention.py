@@ -3,12 +3,14 @@
 Port of ``dlrover_tpu/ops/pallas_attention.py``:
 
 - ``flash_attention`` / ``flash_attention_with_lse`` — the ops, with
-  autograd. On CUDA tensors the forward launches ``flash_fwd_kernel`` and
-  the backward ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``, the
-  hand-written Hopper kernels of ``csrc/flash_attention.cu``, which
-  replace the TPU kernels ``_fwd_kernel``, ``_bwd_dq_kernel`` and
-  ``_bwd_dkv_kernel``; with two heads of 64 packed per block
-  (``head_pack``, auto for every MHA model of head_dim 64) they launch
+  autograd. On CUDA tensors the forward launches ``flash_fwd_wgmma_kernel``
+  (bf16; the tensor-core core of ``csrc/attn_fwd_core.cuh``) or
+  ``flash_fwd_kernel`` (f32) and the backward ``flash_bwd_dq_kernel`` and
+  ``flash_bwd_dkv_kernel``, the hand-written Hopper kernels of
+  ``csrc/flash_attention.cu``, which replace the TPU kernels
+  ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; with two
+  heads of 64 packed per block (``head_pack``, auto for every MHA model
+  of head_dim 64) they launch
   ``flash_fwd_packed_kernel``, ``flash_bwd_dq_packed_kernel`` and
   ``flash_bwd_dkv_packed_kernel``, which replace ``_fwd_kernel_packed``,
   ``_bwd_dq_kernel_packed`` and ``_bwd_dkv_kernel_packed``. On CPU
@@ -48,6 +50,10 @@ KERNELS = UNPACKED + PACKED
 #: launches of each kernel since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
+#: the forward kernels the C entry point takes, by id
+FWD_CUDA_KERNELS = ("flash_fwd_kernel", "flash_fwd_packed_kernel",
+                    "flash_fwd_wgmma_kernel")
+
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 #: the packed kernels hold two heads of this width
@@ -59,6 +65,19 @@ _NOT_PORTED = ("ring offsets run only on the plain versions: the CUDA "
 def reset_launches() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
+
+
+def fwd_cuda_kernel(dtype, pack: int) -> str:
+    """The CUDA forward kernel for ``dtype`` at ``pack``: two heads of 64
+    a block, ``flash_fwd_packed_kernel``; one head a block in bf16, the
+    tensor-core core of ``csrc/attn_fwd_core.cuh``
+    (``flash_fwd_wgmma_kernel``); in f32, ``flash_fwd_kernel``. Each
+    counts under ``LAUNCHES["flash_fwd_packed"]`` or
+    ``LAUNCHES["flash_fwd"]``."""
+    if pack == 2:
+        return "flash_fwd_packed_kernel"
+    return ("flash_fwd_wgmma_kernel" if dtype == torch.bfloat16
+            else "flash_fwd_kernel")
 
 
 def head_pack_for(h: int, hkv: int, d: int, head_pack: int = 0) -> int:
@@ -253,9 +272,10 @@ def _ptr(t):
 
 def flash_fwd_cuda(q, k, v, *, causal, scale, window, prefix=None, pack=1):
     """The forward kernel on ``q``'s device and current stream → ``(out,
-    lse)``: ``flash_fwd_kernel`` for ``pack`` 1, ``flash_fwd_packed_kernel``
-    (two heads of 64 per block, MHA, any head count) for ``pack`` 2.
-    ``prefix``: ``[B]`` int32 on the device, or None."""
+    lse)``: for ``pack`` 1 ``flash_fwd_wgmma_kernel`` (bf16) or
+    ``flash_fwd_kernel`` (f32), for ``pack`` 2 ``flash_fwd_packed_kernel``
+    (two heads of 64 per block, MHA, any head count); ``fwd_cuda_kernel``
+    picks. ``prefix``: ``[B]`` int32 on the device, or None."""
     b, sq, sk, h, hkv, d = _geometry(q, k, v, pack, prefix)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -263,7 +283,9 @@ def flash_fwd_cuda(q, k, v, *, causal, scale, window, prefix=None, pack=1):
     err = _lib()["fwd"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _ptr(prefix), b, sq, sk, h, hkv, d, float(scale),
-        int(causal), int(window), pack, _DTYPE_CODE[q.dtype], stream)
+        int(causal), int(window),
+        FWD_CUDA_KERNELS.index(fwd_cuda_kernel(q.dtype, pack)),
+        _DTYPE_CODE[q.dtype], stream)
     name = "flash_fwd_packed" if pack == 2 else "flash_fwd"
     _raise_on(err, name)
     LAUNCHES[name] += 1

@@ -12,9 +12,10 @@ Port of ``dlrover_tpu/ops/pallas_paged.py``:
   the dense cached attention. ``decode`` keeps the probabilities in f32
   through P·V; ``chunk`` casts them to ``q.dtype`` first (mirroring
   ``mha_reference``); ``verify`` runs the decode math per query over the
-  committed keys plus the in-flight chunk rows. The kernel keeps f32
-  throughout in every variant, so it matches the plain version to a
-  tolerance, not bitwise.
+  committed keys plus the in-flight chunk rows. The decode and verify
+  kernels keep f32 throughout; the bf16 chunk kernel rounds the
+  unnormalized probabilities to bf16 before P·V, as the flash kernels
+  do. Each matches the plain version to a stated bound, not bitwise.
 - ``write_page_rows`` / ``gather_pages`` — the page-level tensor ops the
   decoder and the reference share.
 
@@ -43,9 +44,16 @@ NEG_INF = -1e30
 VARIANTS = ("decode", "chunk", "verify")
 
 #: The CUDA kernels of ``csrc/paged_attention.cu``: ``decode`` is
-#: ``paged_decode_kernel``, ``chunk`` is ``paged_chunk_kernel``,
-#: ``verify`` is ``paged_decode_kernel``'s verify instantiation.
+#: ``paged_decode_kernel``, ``chunk`` is ``paged_chunk_wgmma_kernel`` for
+#: bf16 queries of head_dim 64 or 128 (the tensor-core core of
+#: ``csrc/attn_fwd_core.cuh``, over bf16 or int8 pools) and
+#: ``paged_chunk_kernel`` otherwise (f32, head_dim 32), ``verify`` is
+#: ``paged_decode_kernel``'s verify instantiation.
 KERNELS = ("decode", "chunk", "verify")
+#: the kernel ids the C entry point takes
+CUDA_KERNEL_IDS = {"paged_decode_kernel": 0, "paged_chunk_kernel": 1,
+                   "paged_decode_kernel<VERIFY>": 2,
+                   "paged_chunk_wgmma_kernel": 3}
 #: launches of each kernel since the last ``reset_launches()``: a
 #: ``decode``/``chunk`` call counts under the kernel its rows pick
 #: (``kernel_for``), a ``verify`` call always under ``verify``
@@ -55,6 +63,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_PAGE_SIZE = 32
 _DECODE_KERNEL_MAX_ROWS = 8  # paged_decode_kernel holds <= 8 rows per warp
+_WGMMA_HEAD_DIMS = (64, 128)  # paged_chunk_wgmma_kernel's
 
 
 def reset_launches() -> None:
@@ -71,6 +80,21 @@ def kernel_for(c: int, h: int, hkv: int, variant: str = "decode") -> str:
     if variant == "verify":
         return "verify"
     return "decode" if c * (h // hkv) <= _DECODE_KERNEL_MAX_ROWS else "chunk"
+
+
+def cuda_kernel(kernel: str, dtype, head_dim: int) -> str:
+    """The CUDA kernel that runs ``kernel`` (``kernel_for``'s answer) for
+    queries of ``dtype`` and ``head_dim``: a bf16 chunk of head_dim 64 or
+    128 runs on the tensor cores (``paged_chunk_wgmma_kernel``), whatever
+    the pools (bf16 or int8); f32 and head_dim 32 keep
+    ``paged_chunk_kernel``."""
+    if kernel == "decode":
+        return "paged_decode_kernel"
+    if kernel == "verify":
+        return "paged_decode_kernel<VERIFY>"
+    if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
+        return "paged_chunk_wgmma_kernel"
+    return "paged_chunk_kernel"
 
 
 # ---------------------------------------------------------------------------
@@ -357,8 +381,8 @@ def _paged_call(q, pools, block_tables, positions, *, scale, window,
         q.data_ptr(), out.data_ptr(), k_ptr, v_ptr, ks_ptr, vs_ptr,
         tables.data_ptr(), pos.data_ptr(), ek_ptr, ev_ptr,
         b, c, h, hkv, d, ps, w, w_full, blk, int(window), float(scale),
-        _DTYPE_CODE[q.dtype], int(mode == "int8"), KERNELS.index(kernel),
-        stream,
+        _DTYPE_CODE[q.dtype], int(mode == "int8"),
+        CUDA_KERNEL_IDS[cuda_kernel(kernel, q.dtype, d)], stream,
     )
     if err != 0:
         raise RuntimeError(

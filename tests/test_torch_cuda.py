@@ -10,8 +10,11 @@ JAX, so skip it)::
 Tolerances, paged attention: f32 queries 1e-4 (the kernel's online
 softmax reassociates the f32 sums). bf16 queries are held against the
 plain version run in f32 on the values the kernel reads (bf16 q and
-pools upcast, int8 pages dequantized to bf16), at 1e-5 + 2^-8 relative:
-twice the kernel's one rounding of its output to bf16.
+pools upcast, int8 pages dequantized to bf16): the decode and verify
+kernels at 1e-5 + 2^-8 relative (twice the kernel's one rounding of its
+output to bf16); the tensor-core chunk kernel, which also rounds each
+probability to bf16 before P·V, under ``chip_smoke.chunk_bound``
+(2^-8·|plain| + (2^-8 + 2^-12)·M + 1e-5, M the attention over |V|).
 
 Flash attention (a head per block, and two heads of 64 packed per
 block, with and without the prefix-LM mask) and the fused norm: f32
@@ -30,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from dlrover_tpu_torch.models import decoder
 from dlrover_tpu_torch.models.config import get_config
 from dlrover_tpu_torch.ops import paged_attention as pa
@@ -120,14 +124,21 @@ def test_kernel_matches_plain(dev, dtype, mode, hkv, groups, d, ps, c,
     torch.cuda.synchronize()
     launched = pa.kernel_for(c, hkv * groups, hkv)
     assert pa.LAUNCHES == {k: int(k == launched) for k in pa.KERNELS}
-    if dtype == torch.float32:
-        ref = pa.paged_attention_reference(q, pools, tab, pos, **kw)
+    if pa.cuda_kernel(launched, dtype, d) == "paged_chunk_wgmma_kernel":
+        # the tensor-core chunk kernel rounds p to bf16 before P·V: the
+        # element-wise chunk bound of chip_smoke.py
+        ref, bound = chip_smoke.chunk_bound(q, _read_f32(pools, hkv, d),
+                                            tab, pos, **kw)
+        assert chip_smoke._held(out, ref, active, bound)[1] == 0
     else:
-        ref = pa.paged_attention_reference(
-            q.float(), _read_f32(pools, hkv, d), tab, pos, **kw)
-    rtol, atol = _TOL[dtype]
-    torch.testing.assert_close(out[active].float(), ref[active].float(),
-                               rtol=rtol, atol=atol)
+        if dtype == torch.float32:
+            ref = pa.paged_attention_reference(q, pools, tab, pos, **kw)
+        else:
+            ref = pa.paged_attention_reference(
+                q.float(), _read_f32(pools, hkv, d), tab, pos, **kw)
+        rtol, atol = _TOL[dtype]
+        torch.testing.assert_close(out[active].float(),
+                                   ref[active].float(), rtol=rtol, atol=atol)
     assert torch.all(out[~active] == 0)  # a free slot: exact zeros
 
 
@@ -570,3 +581,138 @@ def test_packed_train_step_on_card_matches_cpu(dev, kind):
             assert fa.LAUNCHES == {k: 3 * 2 * (k in fa.PACKED)
                                    for k in fa.KERNELS}
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the two kernels on the tensor-core core (csrc/attn_fwd_core.cuh)
+# ---------------------------------------------------------------------------
+
+
+def _chunk_tc_case(dev, mode, d, starts, c, held, seed):
+    """llama3-8b's head grouping (4 query heads a KV head, page 16) at
+    2 KV heads: slot i's chunk of C queries at starts[i], holding held[i]
+    tokens' pages (0: a free slot; past the chunk: pages beyond the last
+    position, -1 columns after them)."""
+    cfg = get_config("tiny", n_head=8, n_kv_head=2, d_model=8 * d,
+                     n_layer=1, dtype="bfloat16")
+    b = len(starts)
+    geom = kvc.make_geometry(cfg, n_slots=b, max_len=2048, page_size=16,
+                             mode=mode)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pools = kvc.init_pools(geom, dev)
+    for name in ("k", "v"):
+        x = torch.randn((1, geom.n_pages, 16, geom.row_elems), generator=g,
+                        device=dev)
+        if mode == "bf16":
+            pools[name].copy_(x.reshape(pools[name].shape))
+        else:
+            qv, sc = quant.kv_encode_rows(x, geom.kv_block)
+            pools[name + "_q"].copy_(qv)
+            pools[name + "_scale"].copy_(sc)
+    rng = np.random.default_rng(seed)
+    tab = chip_smoke._fragmented_tables(b, geom.max_pages_per_slot, held, 16,
+                                        rng)
+    pos = torch.as_tensor(np.asarray(starts)[:, None] + np.arange(c),
+                          dtype=torch.int32, device=dev)
+    q = torch.randn((b, c, 8, d), generator=g, device=dev).to(torch.bfloat16)
+    pools = kvc.layer_pools(pools, 0)
+    return (q, pools, torch.as_tensor(tab, device=dev), pos,
+            torch.as_tensor(np.asarray(held) > 0, device=dev))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("starts,c,held,window", [
+    ((1536,), 256, (1792,), 0),
+    ((1536,), 256, (1792,), 512),
+    # ragged: 800 rows, the last tile 32
+    ((1536,), 200, (1736,), 0),
+    # B 2; a free slot; pages held past the last position
+    ((1536, 700), 256, (1792, 956), 0),
+    ((300, 0, 41), 200, (500, 0, 241 + 70), 0)])
+def test_chunk_kernel_on_the_tensor_cores(dev, mode, d, starts, c, held,
+                                          window):
+    q, pools, tab, pos, active = _chunk_tc_case(
+        dev, mode, d, starts, c, held, seed=d + c + len(starts))
+    kw = dict(scale=d ** -0.5, window=window, kv_heads=2, variant="chunk")
+    pa.reset_launches()
+    out = pa.paged_attention(q, pools, tab, pos, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == {"decode": 0, "chunk": 1, "verify": 0}
+    assert pa.cuda_kernel("chunk", q.dtype, d) == "paged_chunk_wgmma_kernel"
+    ref, bound = chip_smoke.chunk_bound(q, _read_f32(pools, 2, d), tab, pos,
+                                        **kw)
+    err, over, ratio = chip_smoke._held(out, ref, active, bound)
+    assert over == 0, (err, ratio)
+    assert torch.all(out[~active] == 0)  # a free slot: exact zeros
+    assert torch.isfinite(out.float()).all()
+    # a one-slot row view of a table whose width is not a multiple of 4
+    wide = torch.cat([tab, torch.full_like(tab[:, :1], -1)], 1)
+    for i in range(len(starts)):
+        one = pa.paged_attention(q[i:i + 1], pools, wide[i:i + 1],
+                                 pos[i:i + 1], **kw)
+        assert torch.equal(one, out[i:i + 1])
+
+
+@pytest.mark.parametrize("name,b,s,h,hkv,d,causal,window,prefix", [
+    ("d128", 2, 256, 4, 4, 128, True, 0, None),
+    ("d64-gqa", 2, 256, 4, 2, 64, True, 0, None),
+    ("noncausal-gqa", 1, 300, 4, 1, 128, False, 0, None),
+    ("s1000", 2, 1000, 8, 2, 128, True, 0, None),
+    ("s1000-d64-noncausal", 2, 1000, 4, 4, 64, False, 0, None),
+    ("window", 2, 512, 4, 4, 128, True, 100, None),
+    ("window-d64", 2, 1000, 4, 2, 64, True, 257, None),
+    # a prefix per sequence: none, mid-tile, past the end
+    ("prefix", 3, 400, 4, 2, 128, True, 0, (0, 150, 500)),
+    ("prefix-d64", 3, 1000, 4, 4, 64, True, 0, (0, 517, 1000))])
+def test_flash_fwd_on_the_tensor_cores(dev, name, b, s, h, hkv, d, causal,
+                                       window, prefix):
+    """The bf16 one-head forward (flash_fwd_wgmma_kernel) against
+    flash_fwd_reference element by element, and the backward kernels on
+    its out and lse, each under chip_smoke.py's flash bounds with a
+    planted fault caught (a key row replaced; the prefix shifted by one
+    key)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    assert fa.fwd_cuda_kernel(torch.bfloat16, 1) == "flash_fwd_wgmma_kernel"
+    gen = torch.Generator(device=dev).manual_seed(s + d + h)
+    fa.reset_launches()
+    rec = chip_smoke.flash_case(name, b, s, h, hkv, d, causal, window, gen,
+                                dev, False, prefix=prefix,
+                                fault="key" if prefix is None else "prefix")
+    assert rec["ok"], rec
+    assert fa.LAUNCHES["flash_fwd"] == 2
+    assert fa.LAUNCHES["flash_fwd_packed"] == 0
+
+
+def test_prefill_step_on_card_matches_cpu(dev):
+    """One bf16 prefill chunk of a tiny model (heads of 64) through the
+    paged steps: the card (the tensor-core chunk kernel, one launch a
+    layer) and the CPU (the plain version) give the same logits to 2^-5
+    of the largest |logit| (bf16 matmuls and attention round in other
+    places on the two)."""
+    cfg = get_config("tiny", n_layer=2, d_model=256, n_head=4, n_kv_head=2,
+                     d_ff=512, vocab_size=256, max_seq=256,
+                     dtype="bfloat16")
+    geom = kvc.make_geometry(cfg, n_slots=2, max_len=256, page_size=16,
+                             mode="int8")
+    rng = np.random.default_rng(0)
+    tokens = torch.as_tensor(rng.integers(1, 256, size=(2, 48)))
+    tab = torch.arange(1, geom.n_pages, dtype=torch.int32).reshape(2, -1)
+    start = torch.tensor([64, 0], dtype=torch.int32)
+    clen = torch.tensor([48, 40], dtype=torch.int32)
+    model = decoder.init(cfg, seed=0, device="cpu")
+    got = {}
+    for where in ("cpu", "cuda"):
+        pools = kvc.init_pools(geom, where)
+        pa.reset_launches()
+        logits, _ = model.to(where).prefill_chunk_paged(
+            tokens.to(where), pools, tab.to(where), start.to(where),
+            clen.to(where))
+        got[where] = logits.float().cpu()
+        if where == "cuda":
+            torch.cuda.synchronize()
+            assert pa.LAUNCHES == {"decode": 0, "chunk": cfg.n_layer,
+                                   "verify": 0}
+    valid = torch.arange(48)[None, :] < clen[:, None]
+    _normwise(got["cuda"][valid], got["cpu"][valid], 2.0 ** -5)
