@@ -28,22 +28,25 @@ result:
    kernel builds from source (one ``nvcc`` per source, all at once);
 2. kernel: every paged-attention case against its plain PyTorch
    version at llama3-8b's attention shapes (H 32, Hkv 8, D 128, page
-   16): decode at B=8 and chunk at C=256 (at 1536; timed), C=200 (800
-   rows, a ragged row tile) and B=2 (starts 1536 and 700), bf16 and
-   int8 pools, window 0 and 512, ragged positions up to 2047, a
-   shuffled page assignment with -1 columns and a free slot; the chunk
-   kernel (on the tensor cores since PR 5, ``csrc/attn_fwd_core.cuh``)
-   under the flash kernels' element-wise bound (``chunk_bound``), the
-   others under 2^-8 relative + 1e-5; each case's largest |Δ|/bound is
-   printed; with the kernel's time, the plain
-   version's, ``F.scaled_dot_product_attention`` on pre-gathered dense
-   K/V (the gather excluded) and the byte/operation bound. Each case
-   also runs a planted fault (a held page dropped, or the window edge
-   moved by one key) that the bound must catch. Then the verify
-   variant (``verify_cases``): B 8 × C 5 (a spec_k=4 chunk), starts up
-   to 2043, a free slot, stale rows in the cells from each start on,
-   with two planted faults (an in-flight key row replaced; the plain
-   version that sees the stale rows);
+   16): decode at B=8 (ragged positions up to 2047, a free slot) and at
+   B=1 (position 2047: the walk split over the most blocks), chunk at
+   C=256 (at 1536), C=200 (800 rows, a ragged row tile) and B=2 (starts
+   1536 and 700), bf16 and int8 pools, window 0 and 512, a shuffled
+   page assignment with -1 columns; the chunk kernel (on the tensor
+   cores, ``csrc/attn_fwd_core.cuh``) under the flash kernels'
+   element-wise bound (``chunk_bound``), the decode and verify kernel
+   (``paged_decode_split_kernel``) under 2^-8 relative + 1e-5; each
+   case's largest |Δ|/bound is printed; with the kernel's time, the
+   plain version's, ``F.scaled_dot_product_attention`` on pre-gathered
+   dense K/V (the gather excluded), each on the card alone (``graph_ms``:
+   calls captured in a CUDA graph and replayed), and the byte/operation
+   bound. Each case also runs a planted fault (a held page dropped, or
+   the window edge moved by one key) that the bound must catch. Then the
+   verify variant (``verify_cases``): B 8 × C 5 (a spec_k=4 chunk),
+   starts up to 2043, a free slot, and B 1 at the end of the context,
+   stale rows in the cells from each start on, with two planted faults
+   (an in-flight key row replaced; the plain version that sees the stale
+   rows);
 3. model: one ``verify_chunk_paged``, one ``decode_step_paged`` and one
    ``prefill_chunk_paged`` on the same pools, through the kernel and
    through the plain attention, and through the kernel with one held
@@ -63,7 +66,8 @@ result:
 5. profile: the decode step, a prefill chunk and a verify step at the
    serve shapes,
    timed (CUDA events and wall) and traced (``torch.profiler``): kernel
-   time by class, launches per step, the device's busy share;
+   time by class (the paged-attention class also on its own), launches
+   per step, the device's busy share;
 6. train_kernel: the flash kernels (forward, dq, dkv; a head a block,
    the bf16 forward on the tensor-core core since PR 5, and two heads of
    64 packed a block) and the norm kernels (forward,
@@ -251,6 +255,33 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters, warmup=3):
+    """Mean device ms per call over ``iters`` calls captured in one CUDA
+    graph and replayed, CUDA events around the replays: the card's time
+    alone. A paged kernel takes a few microseconds on the card while its
+    Python wrapper takes tens on the host, so ``cuda_ms`` would time the
+    host there."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
+
+
 def nvidia_smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -411,7 +442,7 @@ def _sdpa_ms(q, pools, tables, pos_rows, geom, scale, window, max_pages):
     def call():
         return F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
-    return cuda_ms(call, 20)
+    return graph_ms(call, 32)
 
 
 # (B, C, starts, timed) of the chunk cases: one 256-token chunk of a
@@ -433,7 +464,9 @@ def kernel_cases(cfg, seed, dev):
     rng = np.random.default_rng(seed)
     gen = torch.Generator(device=dev).manual_seed(seed)
     geom_cfg = dataclasses.replace(cfg, n_layer=n_layers)
-    shapes = [("decode", 8, 1, None, True)] + [
+    # decode: 8 ragged slots (the kernels line's case), and one slot alone
+    # at 2047, whose walk the split kernel spreads over the most blocks
+    shapes = [("decode", 8, 1, None, True), ("decode", 1, 1, None, True)] + [
         ("chunk", b, c, starts, timed)
         for b, c, starts, timed in CHUNK_SHAPES]
     for mode in ("bf16", "int8"):
@@ -444,12 +477,14 @@ def kernel_cases(cfg, seed, dev):
         for variant, b, c, starts, timed in shapes:
             for window in (0, 512):
                 if variant == "decode":
-                    # ragged positions up to 2047, slot 7 free (pos 0, no pages)
-                    pos = rng.integers(1, 2047, size=8)
+                    # ragged positions up to 2047, slot 7 free (pos 0, no
+                    # pages); B 1: the slot at 2047 alone
+                    pos = rng.integers(1, 2047, size=b)
                     pos[0] = 2047
-                    pos[7] = 0
                     lens = pos + 1
-                    lens[7] = 0
+                    if b == 8:
+                        pos[7] = 0
+                        lens[7] = 0
                     pos_rows = torch.as_tensor(pos[:, None], dtype=torch.int32,
                                                device=dev)
                     call_pos = pos_rows[:, 0].contiguous()
@@ -533,8 +568,8 @@ def kernel_cases(cfg, seed, dev):
                                        max_pages)
                     bound_ms, bound_by = _bound(moved, ops)
                     case.update(
-                        ms=cuda_ms(run_kernel, 50),
-                        plain_ms=cuda_ms(run_plain, 10),
+                        ms=graph_ms(run_kernel, 64),
+                        plain_ms=graph_ms(run_plain, 8),
                         library_ms=_sdpa_ms(q, layer0, tables, pos_rows,
                                             geom, scale, window, max_pages),
                         bound_ms=bound_ms, bound_by=bound_by, bytes=moved,
@@ -649,7 +684,7 @@ def verify_cases(cfg, seed, dev):
     n_layers = 8
     d = cfg.head_dim
     scale = d ** -0.5
-    b, c = 8, SPEC_K + 1
+    c = SPEC_K + 1
     rng = np.random.default_rng(seed + 20)
     gen = torch.Generator(device=dev).manual_seed(seed + 20)
     geom_cfg = dataclasses.replace(cfg, n_layer=n_layers)
@@ -658,12 +693,15 @@ def verify_cases(cfg, seed, dev):
                                  page_size=16, mode=mode)
         pools = _fill_pools(geom, gen, dev)
         width = geom.max_pages_per_slot
-        for window in (0, 512):
+        for b, window in ((8, 0), (8, 512), (1, 0), (1, 512)):
+            # B 8: ragged starts, slot 7 free; B 1: one slot at the end of
+            # the context
             start = rng.integers(1, 2044 - c, size=b)
             start[0] = 2048 - c
-            start[7] = 0
             lens = np.minimum(start + c + 32, 2048)
-            lens[7] = 0
+            if b == 8:
+                start[7] = 0
+                lens[7] = 0
             tab_np = _fragmented_tables(b, width, lens, 16, rng)
             tables = torch.as_tensor(tab_np, device=dev)
             max_pages = _pages_bucket(tab_np)
@@ -724,8 +762,8 @@ def verify_cases(cfg, seed, dev):
                                              pos_rows, extra_k=ek,
                                              extra_v=ev, **kw)
 
-            ms = cuda_ms(run_kernel, 50)
-            plain_ms = cuda_ms(run_plain, 10)
+            ms = graph_ms(run_kernel, 64)
+            plain_ms = graph_ms(run_plain, 8)
             lib_ms = _sdpa_verify_ms(q, layer0, tables, pos_rows, ek, ev,
                                      geom, scale, window, max_pages)
             moved, ops = _verify_work(q, tables, pos_rows, geom, window,
@@ -733,6 +771,7 @@ def verify_cases(cfg, seed, dev):
             bound_ms, bound_by = _bound(moved, ops)
             case = {
                 "phase": "kernel", "kernel": "paged_attention.verify",
+                "cuda_kernel": pa.cuda_kernel("verify", q.dtype, d),
                 "variant": "verify", "mode": mode, "window": window,
                 "B": b, "C": c, "max_pages": max_pages,
                 "starts": [int(x) for x in start],
@@ -770,7 +809,7 @@ def _sdpa_verify_ms(q, pools, tables, pos_rows, ek, ev, geom, scale, window,
     def call():
         return F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
-    return cuda_ms(call, 20)
+    return graph_ms(call, 32)
 
 
 # ---------------------------------------------------------------------------
@@ -1228,6 +1267,7 @@ def profile_steps(model, cfg, seed, dev, steps=8):
               "max_pages": bucket, "wall_ms": wall_ms,
               "device_ms": device_ms, "traced_wall_ms": traced_ms,
               "kernel_ms": busy,
+              "paged_attention_ms": by_class["paged_attention"],
               "kernels_per_step": sum(n_by_class.values()),
               "kernels_per_step_by_class": n_by_class,
               "device_busy_share": busy / traced_ms,
@@ -2091,10 +2131,11 @@ def main(argv=None) -> int:
     for kernel in pa.KERNELS:
         name = f"paged_attention.{kernel}"
         mine = [c for c in cases if c["kernel"] == name]
-        # the timed case over int8 pools without a window (chunk: B 1 x
-        # C 256 at 1536)
+        # the timed case over int8 pools without a window: decode B 8
+        # ragged to 2047, chunk B 1 x C 256 at 1536, verify B 8 x C 5
         head = next(c for c in mine if c["mode"] == "int8"
-                    and not c["window"] and "ms" in c)
+                    and not c["window"] and "ms" in c
+                    and c["B"] == (1 if kernel == "chunk" else 8))
         kernels.append({
             "name": name, "route": "cuda",
             "source": PAGED_SRC, "replaces": PAGED_REPLACES,

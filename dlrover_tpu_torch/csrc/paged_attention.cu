@@ -14,19 +14,19 @@
 // and never NaN. int8 payloads dequantize in f32 and round through the
 // compute type, the values quant.kv_decode_rows hands the plain version.
 //
-// What bounds it: at decode, the bytes of the pages a slot holds: each
-// K/V element serves only the `groups` query heads of its KV head, a few
-// FLOPs per byte, far below the card's ~295 FLOP/byte ridge. A 256-row
-// prefill chunk reuses each element 4 * 256 times and is bound by
-// operations on the tensor cores: in bf16 it runs on the Hopper core of
-// attn_fwd_core.cuh (paged_chunk_wgmma_kernel below: wgmma, P in
-// registers, pages gathered under the products); the f32 and D 32 calls
-// keep the CUDA-core chunk kernel. What the design does about the bytes:
-// every page is read at most once per block and only if it can hold a key
-// some row of the block may see (unassigned pages and pages outside
-// [min_pos - window, max_pos] are skipped); int8 pages are read at one
-// byte per element and dequantized in registers; loads are vectors of 4
-// contiguous elements per lane.
+// What bounds it: at decode and verify, the bytes of the pages a slot
+// holds: each K/V element serves only the `groups` query heads of its KV
+// head (times the chunk's rows in verify), a few FLOPs per byte, far below
+// the card's ~295 FLOP/byte ridge. A 256-row prefill chunk reuses each
+// element 4 * 256 times and is bound by operations on the tensor cores:
+// in bf16 it runs on the Hopper core of attn_fwd_core.cuh
+// (paged_chunk_wgmma_kernel below: wgmma, P in registers, pages gathered
+// under the products); the f32 and D 32 calls keep the CUDA-core chunk
+// kernel. What the designs do about the bytes: a page is read once per row
+// tile and only where it can hold a key some row of the tile may see
+// (unassigned pages and keys outside [min_pos - window + 1, max_pos] are
+// skipped); int8 pages are read at one byte per element and dequantized
+// on the card.
 //
 // Query rows are ordered (c, g) as in the TPU kernel: H is KV-head-major,
 // so query head h belongs to KV head h / groups, and row r of KV head kh is
@@ -36,43 +36,31 @@
 // positions (the TPU's scalar prefetch). The caller names the kernel to
 // launch (the Python wrapper picks by the number of query rows per (slot,
 // KV head), n_q = C * groups, and by dtype and D; it counts the launches
-// under the variant the rows pick, "decode" or "chunk"):
+// under the variant the rows pick, "decode" or "chunk", and under
+// "verify" for the verify variant):
 //
-// - paged_decode_kernel (n_q <= 8: decode). Grid (slot, KV head). One warp
-//   holds every row of the block; the block's warps split the page walk
-//   (warp w takes columns w, w + n_warps, ...), each with its own running
-//   (m, l, acc), loading K/V straight into registers 16 keys at a time.
-//   The warps' partial states merge through shared memory at the end. This
-//   keeps 8 pages in flight per (slot, KV head) instead of one.
+// - paged_decode_split_kernel (n_q <= 8: decode; and every verify call, as
+//   its VERIFY instantiation). Grid (split, KV head x tile of 8 rows, or
+//   32 in verify, slot): the walk of each row tile is split across blocks
+//   over contiguous table columns, K/V stages of 32 keys arrive by
+//   cp.async, and the last split to finish merges the partial states; see
+//   its section. In verify,
+//   held keys serve only below start (the chunk's first position: cells at
+//   chunk positions may hold an evicted tenant's or a copy-on-write donor's
+//   stale rows), and the C in-flight rows (extra_k / extra_v [B, C, Hkv,
+//   D], the compute type) are folded once per row after the merge.
 // - paged_chunk_wgmma_kernel (n_q > 8, bf16, D 64 or 128: prefill
 //   chunks). Grid (slot, KV head, tile of 128 rows); see its section.
 // - paged_chunk_kernel (n_q > 8, f32 or D 32). Grid (slot, KV head,
 //   tile of 32 rows). Each warp holds 4 rows; the block stages one page's
 //   K and V for its KV head in shared memory (f32) and every warp reuses
-//   it, so a page is read once per 32 rows.
-// - the verify variant always runs paged_decode_kernel<VERIFY = true>, in
-//   tiles of 8 rows (grid (slot, KV head, tile)): a verify chunk of
-//   spec_k + 1 = 5 rows at llama3-8b's 4 query heads per KV head is 20
-//   rows, past the decode kernel's 8 per warp, but the chunk kernel stages
-//   every page in shared memory for 32 rows at a time and was measured
-//   slower than its plain version; a few short rows are decode-shaped
-//   work, so 3 tiles of 8 rows re-read each page from L2 instead. Held
-//   pages fold only keys kpos < start (start = the chunk's first
-//   position: cells at chunk positions may hold an evicted tenant's or a
-//   copy-on-write donor's stale rows) and pages from start on are
-//   skipped. The C in-flight rows (extra_k / extra_v [B, C, Hkv, D], the
-//   compute type) are then folded once per row, by the LAST warp after
-//   its share of the pages, before the merge: one fixed warp, so a row's
-//   result does not depend on the walk width. In-flight key i at
-//   position pos[i] serves row r iff pos[i] <= pos[r] (and the window).
-//
-// In the CUDA-core kernels scores are a warp-shuffle reduction per key;
-// lane i keeps key i's score, so a group of up to 32 keys is one
-// max/exp/sum step of the online softmax. Tensor cores for decode and
-// verify, and splitting the walk across blocks, are left for later work.
+//   it, so a page is read once per 32 rows. Its scores are a warp-shuffle
+//   reduction per key; lane i keeps key i's score, so a group of up to 32
+//   keys is one max/exp/sum step of the online softmax.
 //
 // Interface: a plain C function, launched on the caller's stream; it
-// allocates nothing and returns cudaGetLastError() after the launch.
+// allocates nothing (the split kernel's workspace is the caller's) and
+// returns cudaGetLastError() after the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,8 +75,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 8;         // warps per block, both kernels
-constexpr int kKeysPerStep = 16;  // decode: keys loaded per step of a warp
+constexpr int kWarps = 8;         // warps per block, paged_chunk_kernel
 constexpr int kChunkRows = 4;     // chunk: query rows per warp
 
 // N contiguous elements of E, moved as one vector access.
@@ -181,221 +168,13 @@ struct Args {
   const int* positions;  // [B, C]
   const void* extra_k;   // verify: in-flight rows [B, C, Hkv, D] T
   const void* extra_v;
+  float* part;           // split kernel: f32 partial (m, l, acc) per split
+  int* counters;         // split kernel: finished splits per row tile
   int C, H, Hkv, ps, W, tab_stride, blk, window;
+  int splits;            // split kernel: blocks sharing a row tile's walk
+  int n_sc;              // split kernel, int8: most scale blocks a head spans
   float scale;
 };
-
-// ---------------------------------------------------------------------------
-// decode (and verify): one warp holds all R rows of the block's row tile,
-// the warps split the page walk
-// ---------------------------------------------------------------------------
-
-template <typename T, bool INT8, int DPL, int R, bool VERIFY>
-__global__ void __launch_bounds__(kWarps * 32)
-    paged_decode_kernel(const Args a) {
-  using E = std::conditional_t<INT8, int8_t, T>;
-  constexpr int D = DPL * 32;
-  constexpr int KC = kKeysPerStep;
-  extern __shared__ float smem[];  // [n_warps][R][D + 2] partial states
-
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int row0 = blockIdx.z * R;  // this block's tile of query rows
-  const int groups = a.H / a.Hkv;
-  const int n_q = a.C * groups;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const int d0 = lane * DPL;  // this lane's elements d0 .. d0 + DPL - 1
-  const T* q = static_cast<const T*>(a.q);
-  // verify: held keys at or past the chunk's first position are stale
-  const int start = VERIFY ? a.positions[(size_t)b * a.C] : INT_MAX;
-
-  float qv[R][DPL], acc[R][DPL], m[R], l[R], s_mine[R], p_mine[R];
-  int pos[R];
-  bool row_ok[R];
-  int min_pos = INT_MAX, max_pos = INT_MIN;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    const int row = row0 + r;
-    row_ok[r] = row < n_q;
-    const int c = row_ok[r] ? row / groups : 0;
-    const int g = row_ok[r] ? row % groups : 0;
-    pos[r] = row_ok[r] ? a.positions[(size_t)b * a.C + c] : 0;
-    if (row_ok[r]) {
-      min_pos = min(min_pos, pos[r]);
-      max_pos = max(max_pos, pos[r]);
-      const Pack<T, DPL> qp = load_pack<T, DPL>(
-          q + (((size_t)b * a.C + c) * a.H + kh * groups + g) * D + d0);
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) qv[r][t] = to_f32(qp.e[t]);
-    } else {
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) qv[r][t] = 0.f;
-    }
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) acc[r][t] = 0.f;
-    m[r] = kNegInf;
-    l[r] = 0.f;
-  }
-
-  const int row_elems = a.Hkv * D;
-  const int nb = row_elems / a.blk;
-  const E* kp = static_cast<const E*>(a.k_pool);
-  const E* vp = static_cast<const E*>(a.v_pool);
-  for (int j = warp; j < a.W; j += n_warps) {
-    const int page = a.tables[(size_t)b * a.tab_stride + j];
-    const int first = j * a.ps;
-    bool page_ok = page >= 0 && first <= max_pos && first < start;
-    if (a.window > 0)
-      page_ok = page_ok && first + a.ps - 1 > min_pos - a.window;
-    if (!page_ok) continue;  // uniform across the warp
-
-    for (int i0 = 0; i0 < a.ps; i0 += KC) {
-      Pack<E, DPL> kr[KC], vr[KC];
-      float ks[KC], vs[KC];
-#pragma unroll
-      for (int i = 0; i < KC; ++i) {
-        ks[i] = vs[i] = 1.f;
-        if (i0 + i < a.ps) {
-          const size_t cell = (size_t)page * a.ps + i0 + i;
-          const size_t off = INT8 ? cell * row_elems + kh * D + d0
-                                  : (cell * a.Hkv + kh) * D + d0;
-          kr[i] = load_pack<E, DPL>(kp + off);
-          vr[i] = load_pack<E, DPL>(vp + off);
-          if constexpr (INT8) {
-            const size_t si = cell * nb + (kh * D + d0) / a.blk;
-            ks[i] = a.k_scale[si];
-            vs[i] = a.v_scale[si];
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < R; ++r) s_mine[r] = kNegInf;
-#pragma unroll
-      for (int i = 0; i < KC; ++i) {
-        if (i0 + i < a.ps) {
-          float kf[DPL];
-#pragma unroll
-          for (int t = 0; t < DPL; ++t)
-            kf[t] = kv_value<T, INT8>(kr[i].e[t], ks[i]);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            float part = 0.f;
-#pragma unroll
-            for (int t = 0; t < DPL; ++t) part = fmaf(qv[r][t], kf[t], part);
-            const float s = warp_sum(part) * a.scale;
-            if (lane == i) s_mine[r] = s;
-          }
-        }
-      }
-      const int kpos = first + i0 + lane;
-      softmax_step<R, DPL>(s_mine, pos, row_ok, kpos,
-                           lane < min(KC, a.ps - i0) && kpos < start,
-                           a.window, m, l, acc, p_mine);
-#pragma unroll
-      for (int i = 0; i < KC; ++i) {
-        if (i0 + i < a.ps) {
-          float vf[DPL];
-#pragma unroll
-          for (int t = 0; t < DPL; ++t)
-            vf[t] = kv_value<T, INT8>(vr[i].e[t], vs[i]);
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float pi = __shfl_sync(0xffffffffu, p_mine[r], i);
-#pragma unroll
-            for (int t = 0; t < DPL; ++t) acc[r][t] = fmaf(pi, vf[t], acc[r][t]);
-          }
-        }
-      }
-    }
-  }
-
-  if constexpr (VERIFY) {
-    // the in-flight chunk rows, folded once per row by the last warp
-    if (warp == n_warps - 1) {
-      const T* ek = static_cast<const T*>(a.extra_k);
-      const T* ev = static_cast<const T*>(a.extra_v);
-      for (int i0 = 0; i0 < a.C; i0 += KC) {
-        const int n_keys = min(KC, a.C - i0);
-#pragma unroll
-        for (int r = 0; r < R; ++r) s_mine[r] = kNegInf;
-#pragma unroll
-        for (int i = 0; i < KC; ++i) {
-          if (i < n_keys) {
-            const Pack<T, DPL> kr = load_pack<T, DPL>(
-                ek + (((size_t)b * a.C + i0 + i) * a.Hkv + kh) * D + d0);
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              float part = 0.f;
-#pragma unroll
-              for (int t = 0; t < DPL; ++t)
-                part = fmaf(qv[r][t], to_f32(kr.e[t]), part);
-              const float s = warp_sum(part) * a.scale;
-              if (lane == i) s_mine[r] = s;
-            }
-          }
-        }
-        const int kpos =
-            lane < n_keys ? a.positions[(size_t)b * a.C + i0 + lane] : 0;
-        softmax_step<R, DPL>(s_mine, pos, row_ok, kpos, lane < n_keys,
-                             a.window, m, l, acc, p_mine);
-#pragma unroll
-        for (int i = 0; i < KC; ++i) {
-          if (i < n_keys) {
-            const Pack<T, DPL> vr = load_pack<T, DPL>(
-                ev + (((size_t)b * a.C + i0 + i) * a.Hkv + kh) * D + d0);
-#pragma unroll
-            for (int r = 0; r < R; ++r) {
-              const float pi = __shfl_sync(0xffffffffu, p_mine[r], i);
-#pragma unroll
-              for (int t = 0; t < DPL; ++t)
-                acc[r][t] = fmaf(pi, to_f32(vr.e[t]), acc[r][t]);
-            }
-          }
-        }
-      }
-    }
-  }
-
-  // merge the warps' partial (m, l, acc) states
-  constexpr int stride = D + 2;
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    float* st = smem + (warp * R + r) * stride;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) st[d0 + t] = acc[r][t];
-    if (lane == 0) {
-      st[D] = m[r];
-      st[D + 1] = l[r];
-    }
-  }
-  __syncthreads();
-  T* out = static_cast<T*>(a.out);
-  for (int r = warp; r < R && row0 + r < n_q; r += n_warps) {
-    float mm = kNegInf;
-    for (int w = 0; w < n_warps; ++w)
-      mm = fmaxf(mm, smem[(w * R + r) * stride + D]);
-    float ll = 0.f, o[DPL];
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) o[t] = 0.f;
-    for (int w = 0; w < n_warps; ++w) {
-      const float* st = smem + (w * R + r) * stride;
-      const float f = expf(st[D] - mm);
-      ll += st[D + 1] * f;
-#pragma unroll
-      for (int t = 0; t < DPL; ++t) o[t] += st[d0 + t] * f;
-    }
-    const float denom = ll == 0.f ? 1.f : ll;  // fully masked -> 0
-    Pack<T, DPL> res;
-#pragma unroll
-    for (int t = 0; t < DPL; ++t) res.e[t] = from_f32<T>(o[t] / denom);
-    const int c = (row0 + r) / groups;
-    const int g = (row0 + r) % groups;
-    *reinterpret_cast<Pack<T, DPL>*>(
-        out + (((size_t)b * a.C + c) * a.H + kh * groups + g) * D + d0) = res;
-  }
-}
 
 // ---------------------------------------------------------------------------
 // chunk: warps split the rows, the block stages each page in shared memory
@@ -649,17 +428,23 @@ __device__ __forceinline__ int warp_max(int v) {
   return v;
 }
 
-// 4 int8 (one 32-bit word) times a scale, each rounded to bf16, as two
-// packed pairs: kv_value's arithmetic. The int8 -> f32 conversion is exact
-// and off the conversion unit: byte b ^ 0x80 placed under the exponent of
-// 2^23 is the float 2^23 + 128 + b.
-__device__ __forceinline__ uint2 dequant4(uint32_t w, float s) {
+// 4 int8 (one 32-bit word) times a scale, in f32: kv_value's arithmetic
+// for f32 compute. The int8 -> f32 conversion is exact and off the
+// conversion unit: byte b ^ 0x80 placed under the exponent of 2^23 is the
+// float 2^23 + 128 + b.
+__device__ __forceinline__ void dequant4f(uint32_t w, float s, float (&f)[4]) {
   const uint32_t biased = w ^ 0x80808080u;
-  float f[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e)
     f[e] = (__uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + e)) -
             8388736.f) * s;
+}
+
+// The same, each rounded to bf16, as two packed pairs: kv_value's
+// arithmetic for bf16 compute.
+__device__ __forceinline__ uint2 dequant4(uint32_t w, float s) {
+  float f[4];
+  dequant4f(w, s, f);
   return make_uint2(ac::pack_bf16(f[0], f[1]), ac::pack_bf16(f[2], f[3]));
 }
 
@@ -927,24 +712,699 @@ __global__ void __launch_bounds__(ChunkTc<INT8, D>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
+// decode and verify: the page walk split across blocks (flash-decoding)
+// ---------------------------------------------------------------------------
+//
+// paged_decode_split_kernel replaces the "decode" and "verify" variants of
+// dlrover_tpu/ops/pallas_paged.py::_paged_kernel (l.300; pallas_call l.558)
+// for calls of at most 8 query rows per (slot, KV head), and for every
+// verify call. What bounds it: the bytes of the pages a slot holds (a
+// llama3-8b decode of 8 slots up to position 2047 over int8 pages moves
+// ~12 MB, 3.6 us at the HBM rate; each K/V element serves only the 4 query
+// heads of its KV head). What the design does about it:
+//
+// - Grid (split, KV head x row tile, slot). A row tile is up to 8 query
+//   rows of one (slot, KV head) in decode (llama3-8b: 4) and up to 32 in
+//   verify (a spec_k=4 chunk at llama3-8b: 20); more rows take more tiles.
+//   Each split walks a contiguous range of table columns (split s of S:
+//   [s W / S, (s + 1) W / S)), so a lone long request still fills the
+//   card; S is planned on the host from the launch shape alone
+//   (ops/paged_attention.py plan_splits: about 8 blocks an SM, at least
+//   two stages a split, at most 64 splits), never from positions or
+//   tables, so a call needs no device read and can be captured in a graph.
+// - Keys arrive 32 a stage through a cp.async ring of 3 stages (2 for f32
+//   pools) in shared memory. Lane i of every warp holds the table entry of
+//   key i of a stage (loaded a stage ahead; without a window the first
+//   ones load beside the positions); a ballot makes the stage's key mask
+//   and the copying threads take their key's pool cell by a shuffle. Only
+//   keys on assigned pages inside the row tile's visible range
+//   [min_pos - window + 1, max_pos] (and below the chunk's start in
+//   verify) are read; a stage with none is skipped. int8 payloads arrive
+//   with their f32 block scales and are dequantized once per element into
+//   a compute-type tile, rounded as kv_value does.
+// - Q.K^T: for bf16 queries on mma.sync (m16n8k16, bf16 operands from
+//   shared memory, f32 accumulate: the products of bf16 values are exact
+//   in f32), warp w taking keys 8w .. 8w + 7 of the stage; for f32 on the
+//   CUDA cores, lane i owning key i and q read from shared memory by
+//   broadcast. Either way no score is a reduction across lanes. The online
+//   softmax: warp w owns rows w, w + 4, ..., lane i key i; one warp max and
+//   one warp sum per (row, stage). P.V on the CUDA cores: a thread owns 4
+//   columns of D and a set of rows, reading p from shared memory. Scores,
+//   softmax and P.V are f32; p is never rounded.
+// - Each split writes its rows' partial (m, l, acc) in f32 to a workspace
+//   the wrapper owns; the last split block of a row tile to finish (an
+//   atomic counter after a __threadfence, reset by that block for the next
+//   call) merges the partials in split order 0 .. S - 1 (the per-split
+//   factors exp(m_s - m) in shared memory), folds the verify chunk's
+//   in-flight rows once, after the merge, and writes the output. So a
+//   row's result does not depend on which block finishes last, nor, beyond
+//   f32 rounding, on S; with S == 1 the block goes straight on. One launch
+//   a call.
+//
+// What is left (PERF.md): a block's fixed costs (the q load, the first
+// table and page reads, the partial write and the merge) are a third of a
+// decode block's time at S = 17, and the f32 P.V on the CUDA cores is most
+// of verify's.
+//
+// Masks as in the TPU kernel: key kpos serves row r iff kpos <= pos[r]
+// (and kpos > pos[r] - window); in verify held keys serve only below the
+// chunk's start and in-flight key i serves row r iff pos[i] <= pos[r] (and
+// the window). Masked probabilities are zeroed explicitly, and a row that
+// sees no key comes out as exact zeros (l == 0 -> 1).
+
+constexpr int kSplitThreads = 128;  // 4 warps
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSplitKeys = 32;      // keys a stage: lane i holds key i
+constexpr int kMaxSplits = 64;      // the merge: two splits a lane
+// query rows of a row tile: a decode's up to 8; a verify chunk's up to 32
+__host__ __device__ constexpr int split_rows(bool verify) {
+  return verify ? 32 : 8;
+}
+
+// Shared-memory layout (bytes) of paged_decode_split_kernel.
+template <typename T, bool INT8, int D, bool VERIFY>
+struct Split {
+  using E = std::conditional_t<INT8, int8_t, T>;
+  static constexpr int kRows = split_rows(VERIFY);
+  static constexpr int kStages = sizeof(E) == 4 ? 2 : 3;
+  // bf16 scores run on mma.sync (m16n8k16, f32 accumulate)
+  static constexpr bool kMma = std::is_same_v<T, __nv_bfloat16>;
+  static constexpr int kMTiles = (kRows + 15) / 16;  // mma row tiles
+  // a key row of a compute-type tile, padded by 16 bytes: the 16-byte
+  // reads of 8 lanes (8 keys) at one column, and the 4-byte fragment reads
+  // of 8 rows x 4 lanes, fall in distinct banks
+  static constexpr int kRowBytes = D * sizeof(T) + 16;
+  static constexpr int kTile = kSplitKeys * kRowBytes;  // K or V
+  static constexpr int kRaw = kSplitKeys * D;           // int8 payload
+  // q: mma, bf16 rows (16 a row tile) padded as the key rows; else f32
+  static constexpr int kQRows = kMma ? 16 * kMTiles : kRows;
+  static constexpr int kQRowBytes = kMma ? kRowBytes : D * 4;
+  static constexpr int q = 0;
+  static constexpr int p = q + kQRows * kQRowBytes;     // f32 [rows][keys]
+  static constexpr int row = p + kRows * kSplitKeys * 4;  // 2 x [rows]
+  static constexpr int flags = row + 2 * kRows * 4;     // stage masks, last
+  // int8: the compute-type K, V tiles, then the stages of raw payloads and
+  // scales; otherwise the stages of compute-type K, V tiles
+  static constexpr int tiles = flags + 16 * 4;
+  static __host__ __device__ int scales_bytes(int n_sc) {
+    return kSplitKeys * n_sc * 4;
+  }
+  static __host__ __device__ int stage_bytes(int n_sc) {
+    return INT8 ? 2 * kRaw + 2 * scales_bytes(n_sc) : 2 * kTile;
+  }
+  static constexpr int ring = tiles + (INT8 ? 2 * kTile : 0);  // stages
+  // the merge's per-split factors, f32 [2][rows][splits], past the ring
+  static __host__ __device__ int merge_at(int n_sc) {
+    return ring + kStages * stage_bytes(n_sc);
+  }
+  static __host__ int bytes(int n_sc, int splits) {
+    return merge_at(n_sc) + (splits > 1 ? 2 * kRows * splits * 4 : 0);
+  }
+};
+
+// C += A B on the tensor cores: m16n8k16, bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// 4 compute-type elements at a shared-memory address, as f32.
+template <typename T>
+__device__ __forceinline__ void load4(const unsigned char* src, float (&f)[4]) {
+  if constexpr (std::is_same_v<T, float>) {
+    const float4 a = *reinterpret_cast<const float4*>(src);
+    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
+  } else {
+    const uint2 w = *reinterpret_cast<const uint2*>(src);
+    f[0] = __uint_as_float(w.x << 16);
+    f[1] = __uint_as_float(w.x & 0xffff0000u);
+    f[2] = __uint_as_float(w.y << 16);
+    f[3] = __uint_as_float(w.y & 0xffff0000u);
+  }
+}
+
+template <typename T, bool INT8, int D, bool VERIFY>
+__global__ void __launch_bounds__(kSplitThreads)
+    paged_decode_split_kernel(const Args args) {
+  // a copy the lambdas below capture: capturing the kernel parameter
+  // itself takes its address and turns every field read into a load
+  const Args a = args;
+  using L = Split<T, INT8, D, VERIFY>;
+  constexpr int KT = kSplitKeys, RT = L::kRows, NST = L::kStages;
+  constexpr int kQkRows = RT / kSplitWarps;  // rows a warp scores
+  constexpr int kCg = D / 4;                 // P.V: column groups of 4
+  constexpr int kRg = kSplitThreads / kCg;   // P.V: row groups
+  constexpr int kPvRows = (RT + kRg - 1) / kRg;  // P.V: rows a thread
+  extern __shared__ __align__(16) unsigned char sm[];
+  const float* q_s = reinterpret_cast<const float*>(sm + L::q);  // f32 q
+  float* p_s = reinterpret_cast<float*>(sm + L::p);
+  float* a_s = reinterpret_cast<float*>(sm + L::row);  // alpha, merged m
+  float* l_s = a_s + RT;
+  uint32_t* flags = reinterpret_cast<uint32_t*>(sm + L::flags);
+  const uint32_t base = ac::smem_u32(sm);
+
+  const int split = blockIdx.x;
+  const int kh = blockIdx.y % a.Hkv;
+  const int row0 = (blockIdx.y / a.Hkv) * RT;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int groups = a.H / a.Hkv;
+  const int nr = min(RT, a.C * groups - row0);  // rows of this tile
+  const int* posb = a.positions + (size_t)b * a.C;
+  auto q_index = [&](int r) {  // element offset of tile row r's query
+    const int row = row0 + r;
+    return (((size_t)b * a.C + row / groups) * a.H + kh * groups +
+            row % groups) * D;
+  };
+
+  // the tile's query rows (rows past the tile as zeros): bf16 for the
+  // mma fragments, else f32
+  // (every load first, then the stores: one memory latency, not one per
+  // row)
+  const T* q = static_cast<const T*>(a.q);
+  constexpr int kQVecs = L::kQRows * kCg;  // 4-element groups
+  constexpr int kQPer = (kQVecs + kSplitThreads - 1) / kSplitThreads;
+  Pack<T, 4> qx[kQPer];
+#pragma unroll
+  for (int u = 0; u < kQPer; ++u) {
+    const int i = tid + u * kSplitThreads, r = i / kCg;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) qx[u].e[e] = from_f32<T>(0.f);
+    if (r < nr) qx[u] = load_pack<T, 4>(q + q_index(r) + (i % kCg) * 4);
+  }
+#pragma unroll
+  for (int u = 0; u < kQPer; ++u) {
+    const int i = tid + u * kSplitThreads, r = i / kCg, d = (i % kCg) * 4;
+    if (i >= kQVecs) break;
+    unsigned char* dst = sm + L::q + r * L::kQRowBytes;
+    if constexpr (L::kMma) {
+      *reinterpret_cast<Pack<T, 4>*>(dst + d * sizeof(T)) = qx[u];
+    } else {
+      *reinterpret_cast<float4*>(dst + d * 4) =
+          make_float4(to_f32(qx[u].e[0]), to_f32(qx[u].e[1]),
+                      to_f32(qx[u].e[2]), to_f32(qx[u].e[3]));
+    }
+  }
+
+  // this warp's score rows (r = warp + 4 i) and their positions; -1 for a
+  // row past the tile, which no key serves
+  const int qk_rows = max(0, (nr - warp + kSplitWarps - 1) / kSplitWarps);
+  int pos[kQkRows];
+  float m[kQkRows], l[kQkRows];
+#pragma unroll
+  for (int i = 0; i < kQkRows; ++i) {
+    const int r = warp + kSplitWarps * i;
+    pos[i] = r < nr ? posb[(row0 + r) / groups] : -1;
+    m[i] = kNegInf;
+    l[i] = 0.f;
+  }
+  // this thread's P.V rows (r = rg + kRg i) and columns
+  const int cg = tid % kCg, rg = tid / kCg;
+  const int pv_rows = max(0, (nr - rg + kRg - 1) / kRg);
+  float acc[kPvRows][4];
+#pragma unroll
+  for (int i = 0; i < kPvRows; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+
+  // One stage of keys through the online softmax: K and V tiles (compute
+  // type, padded rows) in shared memory, lane i's key at kpos, present
+  // iff key_ok.
+  auto step = [&](const unsigned char* kt, const unsigned char* vt,
+                  int kpos, bool key_ok) {
+    float sc[kQkRows];  // the raw score of lane's key for each warp row
+    if constexpr (L::kMma) {
+      // S = Q K^T on the tensor cores: warp w takes keys 8w .. 8w + 7 of
+      // every row tile; its scores go to p_s, read back by the rows' warps
+      const int g = lane >> 2, t4 = lane & 3;
+      const unsigned char* kb = kt + (warp * 8 + g) * L::kRowBytes + 4 * t4;
+      const unsigned char* qb = sm + L::q + g * L::kQRowBytes + 4 * t4;
+      float c[L::kMTiles][4];
+#pragma unroll
+      for (int mt = 0; mt < L::kMTiles; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[mt][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(kb + ks * 32);
+        const uint32_t b1 =
+            *reinterpret_cast<const uint32_t*>(kb + ks * 32 + 16);
+#pragma unroll
+        for (int mt = 0; mt < L::kMTiles; ++mt) {
+          const unsigned char* qa = qb + mt * 16 * L::kQRowBytes + ks * 32;
+          const uint32_t a0 = *reinterpret_cast<const uint32_t*>(qa);
+          const uint32_t a2 = *reinterpret_cast<const uint32_t*>(qa + 16);
+          uint32_t a1 = 0u, a3 = 0u;
+          if (mt * 16 + 8 < RT) {  // rows g + 8 of the tile exist
+            a1 = *reinterpret_cast<const uint32_t*>(qa + 8 * L::kQRowBytes);
+            a3 = *reinterpret_cast<const uint32_t*>(qa + 8 * L::kQRowBytes +
+                                                    16);
+          }
+          mma_bf16(c[mt], a0, a1, a2, a3, b0, b1);
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < L::kMTiles; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + g + 8 * h;
+          if (r < RT)
+            *reinterpret_cast<float2*>(p_s + r * KT + warp * 8 + 2 * t4) =
+                make_float2(c[mt][2 * h], c[mt][2 * h + 1]);
+        }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < kQkRows; ++i)
+        sc[i] = p_s[(warp + kSplitWarps * i) * KT + lane];
+    } else {
+      float s[kQkRows][4];
+#pragma unroll
+      for (int i = 0; i < kQkRows; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+      const unsigned char* krow = kt + lane * L::kRowBytes;
+      // the loop over D stays rolled: unrolled, the stage's code outgrows
+      // the instruction cache
+#pragma unroll 1
+      for (int d0 = 0; d0 < D; d0 += 32) {
+        float kf[32];  // T is f32 here
+#pragma unroll
+        for (int e = 0; e < 32; e += 4) {
+          const float4 x =
+              *reinterpret_cast<const float4*>(krow + (d0 + e) * 4);
+          kf[e] = x.x;
+          kf[e + 1] = x.y;
+          kf[e + 2] = x.z;
+          kf[e + 3] = x.w;
+        }
+#pragma unroll
+        for (int i = 0; i < kQkRows; ++i) {
+          if (i < qk_rows) {
+            const float* qr = q_s + (warp + kSplitWarps * i) * D + d0;
+#pragma unroll
+            for (int e = 0; e < 32; e += 4) {
+              const float4 qq = *reinterpret_cast<const float4*>(qr + e);
+              s[i][0] = fmaf(qq.x, kf[e], s[i][0]);
+              s[i][1] = fmaf(qq.y, kf[e + 1], s[i][1]);
+              s[i][2] = fmaf(qq.z, kf[e + 2], s[i][2]);
+              s[i][3] = fmaf(qq.w, kf[e + 3], s[i][3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kQkRows; ++i)
+        sc[i] = (s[i][0] + s[i][1]) + (s[i][2] + s[i][3]);
+    }
+    // every row of the warp, present or not (a row past the tile has
+    // position -1 and sees no key): no branch between the rows, so their
+    // shuffle reductions overlap
+#pragma unroll
+    for (int i = 0; i < kQkRows; ++i) {
+      {
+        const int r = warp + kSplitWarps * i;
+        bool ok = key_ok && kpos <= pos[i];
+        if (a.window > 0) ok = ok && kpos > pos[i] - a.window;
+        const float sv = ok ? sc[i] * a.scale : kNegInf;
+        const float m_new = fmaxf(m[i], warp_max(sv));
+        const float alpha = expf(m[i] - m_new);
+        // zero masked probabilities explicitly: an all-masked stage would
+        // otherwise add exp(kNegInf - kNegInf) = 1 per lane
+        const float p = ok ? expf(sv - m_new) : 0.f;
+        l[i] = alpha * l[i] + warp_sum(p);
+        m[i] = m_new;
+        p_s[r * KT + lane] = p;
+        if (lane == 0) a_s[r] = alpha;
+      }
+    }
+    __syncthreads();
+    const unsigned char* vcol = vt + cg * 4 * sizeof(T);
+#pragma unroll
+    for (int i = 0; i < kPvRows; ++i) {
+      if (i < pv_rows) {
+        const float alpha = a_s[rg + kRg * i];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
+      }
+    }
+    // the rows keep their branches here: P.V is most of verify's work, and
+    // products for absent rows would cost more than the overlap gains
+#pragma unroll 1
+    for (int k = 0; k < KT; k += 4) {
+      float vf[4][4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) load4<T>(vcol + (k + j) * L::kRowBytes, vf[j]);
+#pragma unroll
+      for (int i = 0; i < kPvRows; ++i) {
+        if (i < pv_rows) {
+          const float4 pp =
+              *reinterpret_cast<const float4*>(p_s + (rg + kRg * i) * KT + k);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float o = acc[i][c];
+            o = fmaf(pp.x, vf[0][c], o);
+            o = fmaf(pp.y, vf[1][c], o);
+            o = fmaf(pp.z, vf[2][c], o);
+            o = fmaf(pp.w, vf[3][c], o);
+            acc[i][c] = o;
+          }
+        }
+      }
+    }
+  };
+
+  // ---- the split's walk -------------------------------------------------
+  const int c0 = (int)((long long)split * a.W / a.splits);
+  const int c1 = (int)((long long)(split + 1) * a.W / a.splits);
+  const int* tab = a.tables + (size_t)b * a.tab_stride;
+  // the table entry of key kpos of this split's columns (-1 past them)
+  auto entry_at = [&](int kpos) {
+    return kpos < c1 * a.ps ? tab[kpos / a.ps] : -1;
+  };
+  // without a window the walk starts at the split's first column: its
+  // first entries load while the positions do
+  int ent = a.window > 0 ? -1 : entry_at(c0 * a.ps + lane);
+  int lo = INT_MAX, hi = INT_MIN;  // the tile's positions
+  for (int c = row0 / groups + lane; c <= (row0 + nr - 1) / groups; c += 32) {
+    lo = min(lo, posb[c]);
+    hi = max(hi, posb[c]);
+  }
+  lo = warp_min(lo);
+  hi = warp_max(hi);
+  int k_hi = min(hi, a.W * a.ps - 1);
+  if (VERIFY) k_hi = min(k_hi, posb[0] - 1);  // held keys below the start
+  const int k_lo = a.window > 0 ? max(0, lo - a.window + 1) : 0;
+  const int kbeg = max(c0 * a.ps, k_lo);
+  const int kend = min(c1 * a.ps - 1, k_hi);
+  const int n_tiles = kend >= kbeg ? (kend - kbeg) / KT + 1 : 0;
+  if (a.window > 0) ent = entry_at(kbeg + lane);
+
+  auto stage_at = [&](int st) { return L::ring + st * L::stage_bytes(a.n_sc); };
+  unsigned char* tt = sm + L::tiles;  // int8: the compute-type K, V tiles
+  const int row_elems = a.Hkv * D;
+  const int nb = row_elems / a.blk;
+  const int sb0 = INT8 ? kh * D / a.blk : 0;
+  const int n_sc_kh = INT8 ? (kh * D + D - 1) / a.blk - sb0 + 1 : 0;
+
+  // stage t's copies: lane i's entry is key i's page (loaded a stage
+  // ahead); a key is read iff its page is assigned and it lies in the walk
+  auto issue = [&](int t) {
+    const int kpos = kbeg + t * KT + lane;
+    const int nx = entry_at(kpos + KT);  // in flight while these copies go
+    const int st = t % NST;
+    const bool held = ent >= 0 && t < n_tiles && kpos <= kend;
+    const int cell = held ? ent * a.ps + kpos % a.ps : 0;
+    const uint32_t mask = __ballot_sync(0xffffffffu, held);
+    if (tid == 0) flags[st] = mask;
+    const uint32_t s0 = base + stage_at(st);
+    if (mask) {
+      if constexpr (!INT8) {
+        constexpr int kCpk = D * sizeof(T) / 16;  // 16-byte chunks a key
+        constexpr int kPer = KT * kCpk / kSplitThreads;
+        const T* kp = static_cast<const T*>(a.k_pool);
+        const T* vp = static_cast<const T*>(a.v_pool);
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const int i = tid + u * kSplitThreads, key = i / kCpk, c = i % kCpk;
+          const int cl = __shfl_sync(0xffffffffu, cell, key);
+          const bool ok = (mask >> key) & 1;
+          const size_t off =
+              ok ? ((size_t)cl * a.Hkv + kh) * D + c * (16 / sizeof(T)) : 0;
+          const uint32_t dst = s0 + key * L::kRowBytes + c * 16;
+          ac::cp_async16(dst, kp + off, ok);
+          ac::cp_async16(dst + L::kTile, vp + off, ok);
+        }
+      } else {
+        constexpr int kCpk = D / 16;
+        constexpr int kPer = (KT * kCpk + kSplitThreads - 1) / kSplitThreads;
+        const int8_t* kp = static_cast<const int8_t*>(a.k_pool);
+        const int8_t* vp = static_cast<const int8_t*>(a.v_pool);
+#pragma unroll
+        for (int u = 0; u < kPer; ++u) {
+          const int i = tid + u * kSplitThreads;
+          const int key = min(i / kCpk, KT - 1), c = i % kCpk;
+          const int cl = __shfl_sync(0xffffffffu, cell, key);
+          if (i < KT * kCpk && ((mask >> key) & 1)) {
+            const size_t off = (size_t)cl * row_elems + kh * D + c * 16;
+            const uint32_t dst = s0 + key * D + c * 16;
+            ac::cp_async16(dst, kp + off, true);
+            ac::cp_async16(dst + L::kRaw, vp + off, true);
+          }
+        }
+        const uint32_t sc = s0 + 2 * L::kRaw;
+        const int n_sc_copies = KT * a.n_sc;
+        for (int u = 0; u * kSplitThreads < n_sc_copies; ++u) {
+          const int i = tid + u * kSplitThreads;
+          const int key = min(i / a.n_sc, KT - 1), j = i % a.n_sc;
+          const int cl = __shfl_sync(0xffffffffu, cell, key);
+          if (i < n_sc_copies && j < n_sc_kh && ((mask >> key) & 1)) {
+            const size_t si = (size_t)cl * nb + sb0 + j;
+            ac::cp_async4(sc + (key * a.n_sc + j) * 4, a.k_scale + si);
+            ac::cp_async4(sc + L::scales_bytes(a.n_sc) + (key * a.n_sc + j) * 4,
+                          a.v_scale + si);
+          }
+        }
+      }
+    }
+    ac::cp_async_commit();
+    ent = nx;
+  };
+
+  // int8: stage st's payloads, dequantized once, into the compute-type
+  // tiles (keys outside the mask as zeros)
+  // int8: the scale slot of each 4-element group of this thread's
+  // 16-element chunk (the same chunk c = tid % (D / 16) in every unit)
+  int slot[4] = {0, 0, 0, 0};
+  if constexpr (INT8) {
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      slot[g] = (kh * D + (tid % (D / 16)) * 16 + 4 * g) / a.blk - sb0;
+  }
+  auto convert = [&](int st, uint32_t mask) {
+    const unsigned char* s0 = sm + stage_at(st);
+    constexpr int kCpk = D / 16;               // 16-element chunks a key
+    constexpr int kUnits = 2 * KT * kCpk;      // K and V
+    static_assert(kSplitThreads % kCpk == 0, "one chunk column a thread");
+#pragma unroll
+    for (int u = 0; u < kUnits / kSplitThreads; ++u) {
+      const int i = tid + u * kSplitThreads;
+      const int kv = i / (KT * kCpk), j = i % (KT * kCpk);
+      const int key = j / kCpk, c = j % kCpk;
+      unsigned char* dst = tt + kv * L::kTile + key * L::kRowBytes +
+                           c * 16 * sizeof(T);
+      uint4 w = make_uint4(0u, 0u, 0u, 0u);
+      float sg[4] = {0.f, 0.f, 0.f, 0.f};
+      if ((mask >> key) & 1) {
+        w = *reinterpret_cast<const uint4*>(s0 + kv * L::kRaw + key * D +
+                                            c * 16);
+        const float* sc = reinterpret_cast<const float*>(
+            s0 + 2 * L::kRaw + kv * L::scales_bytes(a.n_sc)) + key * a.n_sc;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) sg[g] = sc[slot[g]];
+      }
+      const uint32_t ws[4] = {w.x, w.y, w.z, w.w};
+      if constexpr (std::is_same_v<T, float>) {
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float f[4];
+          dequant4f(ws[g], sg[g], f);
+          reinterpret_cast<float4*>(dst)[g] = make_float4(f[0], f[1], f[2], f[3]);
+        }
+      } else {
+        const uint2 e0 = dequant4(ws[0], sg[0]), e1 = dequant4(ws[1], sg[1]);
+        const uint2 e2 = dequant4(ws[2], sg[2]), e3 = dequant4(ws[3], sg[3]);
+        reinterpret_cast<uint4*>(dst)[0] = make_uint4(e0.x, e0.y, e1.x, e1.y);
+        reinterpret_cast<uint4*>(dst)[1] = make_uint4(e2.x, e2.y, e3.x, e3.y);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int t = 0; t < NST - 1; ++t) issue(t);
+  for (int t = 0; t < n_tiles; ++t) {
+    ac::cp_async_wait<NST - 2>();  // this thread's copies of stage t
+    __syncthreads();               // everyone's; and stage t - 1 is free
+    issue(t + NST - 1);
+    const int st = t % NST;
+    const uint32_t mask = flags[st];
+    if (!mask) continue;  // uniform: no key of the stage is held
+    const unsigned char* kt = sm + stage_at(st);
+    if constexpr (INT8) {
+      convert(st, mask);
+      __syncthreads();
+      kt = tt;
+    }
+    step(kt, kt + L::kTile, kbeg + t * KT + lane, (mask >> lane) & 1);
+  }
+  ac::cp_async_wait<0>();
+
+  // ---- partials, and the merge by the last split to finish --------------
+  if (a.splits > 1) {
+    const size_t n_bk = (size_t)gridDim.y * gridDim.z;
+    const size_t bk = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+    float* p_acc = a.part + bk * a.splits * RT * D;
+    float* p_ml = a.part + n_bk * a.splits * RT * D + bk * a.splits * RT * 2;
+#pragma unroll
+    for (int i = 0; i < kPvRows; ++i) {
+      if (i < pv_rows) {
+        const int r = rg + kRg * i;
+        *reinterpret_cast<float4*>(p_acc + ((size_t)split * RT + r) * D +
+                                   4 * cg) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kQkRows; ++i) {
+      if (i < qk_rows && lane == 0) {
+        const int r = warp + kSplitWarps * i;
+        *reinterpret_cast<float2*>(p_ml + ((size_t)split * RT + r) * 2) =
+            make_float2(m[i], l[i]);
+      }
+    }
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      const int done = atomicAdd(a.counters + bk, 1);
+      const bool last = done == a.splits - 1;
+      if (last) a.counters[bk] = 0;  // ready for the next call
+      flags[NST] = last;
+    }
+    __syncthreads();
+    if (!flags[NST]) return;
+    __threadfence();
+    // the score rows' partial m and l (lane j holds splits j and j + 32):
+    // the merged m, each split's factor exp(m_s - m), and l summed in split
+    // order; the factors go to shared memory for the P.V rows
+    float* f_s = reinterpret_cast<float*>(sm + L::merge_at(a.n_sc));
+    float* lf_s = f_s + RT * a.splits;  // l_s times its factor
+#pragma unroll
+    for (int i = 0; i < kQkRows; ++i) {
+      if (i < qk_rows) {
+        const int r = warp + kSplitWarps * i;
+        float2 x[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int s = lane + 32 * j;
+          x[j] = s < a.splits ? __ldcg(reinterpret_cast<const float2*>(
+                                    p_ml + ((size_t)s * RT + r) * 2))
+                              : make_float2(kNegInf, 0.f);
+        }
+        const float mm = warp_max(fmaxf(x[0].x, x[1].x));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int s = lane + 32 * j;
+          if (s < a.splits) {
+            const float f = expf(x[j].x - mm);
+            f_s[r * a.splits + s] = f;
+            lf_s[r * a.splits + s] = x[j].y * f;
+          }
+        }
+        __syncwarp();
+        float ll = 0.f;
+#pragma unroll 8
+        for (int s = 0; s < a.splits; ++s) ll += lf_s[r * a.splits + s];
+        m[i] = mm;
+        l[i] = ll;
+      }
+    }
+    __syncthreads();
+    // the P.V rows' partial acc, summed in split order (every row's load of
+    // a split in flight together)
+#pragma unroll
+    for (int i = 0; i < kPvRows; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+#pragma unroll 4
+    for (int s = 0; s < a.splits; ++s) {
+#pragma unroll
+      for (int i = 0; i < kPvRows; ++i) {
+        if (i < pv_rows) {
+          const int r = rg + kRg * i;
+          const float f = f_s[r * a.splits + s];
+          const float4 x = __ldcg(reinterpret_cast<const float4*>(
+              p_acc + ((size_t)s * RT + r) * D + 4 * cg));
+          acc[i][0] += x.x * f;
+          acc[i][1] += x.y * f;
+          acc[i][2] += x.z * f;
+          acc[i][3] += x.w * f;
+        }
+      }
+    }
+  }
+
+  // ---- verify: the in-flight rows, folded once, after the merge ---------
+  if constexpr (VERIFY) {
+    const T* ek = static_cast<const T*>(a.extra_k);
+    const T* ev = static_cast<const T*>(a.extra_v);
+    unsigned char* kt = INT8 ? tt : sm + stage_at(0);
+    constexpr int kCpk = D * sizeof(T) / 16;
+    for (int e0 = 0; e0 < a.C; e0 += KT) {
+      const int n_keys = min(KT, a.C - e0);
+      __syncthreads();  // the tiles are free
+      for (int i = tid; i < 2 * KT * kCpk; i += kSplitThreads) {
+        const int kv = i / (KT * kCpk), j = i % (KT * kCpk);
+        const int key = j / kCpk, c = j % kCpk;
+        uint4 w = make_uint4(0u, 0u, 0u, 0u);
+        if (key < n_keys)
+          w = *reinterpret_cast<const uint4*>(
+              (kv ? ev : ek) + (((size_t)b * a.C + e0 + key) * a.Hkv + kh) * D +
+              c * (16 / sizeof(T)));
+        *reinterpret_cast<uint4*>(kt + kv * L::kTile + key * L::kRowBytes +
+                                  c * 16) = w;
+      }
+      __syncthreads();
+      const bool ok = lane < n_keys;
+      step(kt, kt + L::kTile, ok ? posb[e0 + lane] : 0, ok);
+    }
+  }
+
+  // ---- the output: acc / l, a row that saw no key as zeros --------------
+#pragma unroll
+  for (int i = 0; i < kQkRows; ++i)
+    if (i < qk_rows && lane == 0) l_s[warp + kSplitWarps * i] = l[i];
+  __syncthreads();
+  T* out = static_cast<T*>(a.out);
+#pragma unroll
+  for (int i = 0; i < kPvRows; ++i) {
+    if (i < pv_rows) {
+      const int r = rg + kRg * i;
+      const float ll = l_s[r];
+      const float denom = ll == 0.f ? 1.f : ll;
+      Pack<T, 4> res;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) res.e[c] = from_f32<T>(acc[i][c] / denom);
+      *reinterpret_cast<Pack<T, 4>*>(out + q_index(r) + 4 * cg) = res;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, bool INT8, int DPL, bool VERIFY>
-void launch_decode(const Args& a, int B, int n_q, cudaStream_t stream) {
-  constexpr int D = DPL * 32;
-  if constexpr (!VERIFY) {
-    if (n_q <= 4) {
-      const size_t smem = sizeof(float) * kWarps * 4 * (D + 2);
-      paged_decode_kernel<T, INT8, DPL, 4, false>
-          <<<dim3(B, a.Hkv, 1), kWarps * 32, smem, stream>>>(a);
-      return;
-    }
-  }
-  // tiles of 8 rows (verify always: one instantiation fewer to build)
-  const size_t smem = sizeof(float) * kWarps * 8 * (D + 2);
-  paged_decode_kernel<T, INT8, DPL, 8, VERIFY>
-      <<<dim3(B, a.Hkv, (n_q + 7) / 8), kWarps * 32, smem, stream>>>(a);
+// Shared memory above 48 KB is opt-in, per kernel and device. The
+// attribute is set once for the largest size asked so far (a call on the
+// host per launch would cost the host-bound serving steps, and is not a
+// stream operation a CUDA graph could capture); `opted` is the caller's,
+// one per kernel.
+template <typename K>
+cudaError_t opt_in_smem(K* kernel, int bytes, int (&opted)[64]) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || bytes <= 48 * 1024) return err;
+  if (dev < 64 && bytes <= opted[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) opted[dev] = bytes;
+  return err;
 }
 
 template <bool INT8, int D>
@@ -952,13 +1412,25 @@ cudaError_t launch_chunk_tc(const Args& a, int B, int n_q,
                             cudaStream_t stream) {
   using L = typename ChunkTc<INT8, D>::L;
   auto kernel = paged_chunk_wgmma_kernel<INT8, D>;
-  // shared memory above 48 KB is opt-in, per kernel
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::alloc);
+  static int opted[64] = {};
+  const cudaError_t err = opt_in_smem(kernel, L::alloc, opted);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(B, a.Hkv, (n_q + kTcRows - 1) / kTcRows),
            ChunkTc<INT8, D>::kThreads,
            L::alloc, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, bool INT8, int D, bool VERIFY>
+cudaError_t launch_split(const Args& a, int B, int n_q, cudaStream_t stream) {
+  auto kernel = paged_decode_split_kernel<T, INT8, D, VERIFY>;
+  const int smem = Split<T, INT8, D, VERIFY>::bytes(a.n_sc, a.splits);
+  static int opted[64] = {};
+  const cudaError_t err = opt_in_smem(kernel, smem, opted);
+  if (err != cudaSuccess) return err;
+  const int tiles = (n_q + split_rows(VERIFY) - 1) / split_rows(VERIFY);
+  kernel<<<dim3(a.splits, a.Hkv * tiles, B), kSplitThreads, smem, stream>>>(
+      a);
   return cudaGetLastError();
 }
 
@@ -974,14 +1446,8 @@ cudaError_t launch(const Args& a, int B, int kernel, cudaStream_t stream) {
     }
     return cudaErrorInvalidValue;
   }
-  if (kernel == 0) {
-    launch_decode<T, INT8, DPL, false>(a, B, n_q, stream);
-    return cudaGetLastError();
-  }
-  if (kernel == 2) {
-    launch_decode<T, INT8, DPL, true>(a, B, n_q, stream);
-    return cudaGetLastError();
-  }
+  if (kernel == 0) return launch_split<T, INT8, D, false>(a, B, n_q, stream);
+  if (kernel == 2) return launch_split<T, INT8, D, true>(a, B, n_q, stream);
   if constexpr (!kTc) {
     const int warps = std::min(kWarps, (n_q + kChunkRows - 1) / kChunkRows);
     const int rows_per_block = warps * kChunkRows;
@@ -1011,17 +1477,24 @@ cudaError_t dispatch_dim(int D, const Args& a, int B, int kernel,
 
 extern "C" {
 
-// kernel: 0 = paged_decode_kernel (at most 8 query rows per (slot, KV
-// head), C * H / Hkv <= 8), 1 = paged_chunk_kernel (any number; f32, or
-// bf16 at D 32), 2 = the
-// verify variant (paged_decode_kernel<VERIFY>, any number of rows; needs
-// extra_k / extra_v, and takes W == 0: only the in-flight rows), 3 =
+// kernel: 0 = paged_decode_split_kernel (at most 8 query rows per (slot,
+// KV head), C * H / Hkv <= 8), 1 = paged_chunk_kernel (any number; f32,
+// or bf16 at D 32), 2 = the verify variant
+// (paged_decode_split_kernel<VERIFY>, any number of rows; needs extra_k /
+// extra_v, and takes W == 0: only the in-flight rows), 3 =
 // paged_chunk_wgmma_kernel (any number; bf16 only, D 64 or 128).
 // dtype: 0 = float32, 1 = bfloat16 (q, out, verbatim pools, extra rows).
 // int8: 1 when the pools are int8 payloads with f32 block scales, whose
 // block width blk must be a multiple of 4. q, out, the pools and the
 // extra rows are 16-byte aligned (vector loads); tables and positions
-// 4-byte. Returns a cudaError_t (0 = launched).
+// 4-byte. Kernels 0 and 2 split each row tile's walk over `splits`
+// blocks (1 <= splits <= min(max(W, 1), 64)); with splits > 1 they take the
+// caller's workspace: `part`, f32, B * Hkv * tiles * splits * R * (D + 2)
+// values (R = 8 rows a tile for kernel 0, 32 for kernel 2; tiles =
+// ceil(C * H / Hkv / R)), and `counters`, B * Hkv * tiles
+// ints, zero before the first call and left zero by every call. Calls
+// sharing a workspace must run in order (one stream). Returns a
+// cudaError_t (0 = launched).
 int dlrover_paged_attention(const void* q, void* out, const void* k_pool,
                             const void* v_pool, const void* k_scale,
                             const void* v_scale, const void* tables,
@@ -1029,12 +1502,17 @@ int dlrover_paged_attention(const void* q, void* out, const void* k_pool,
                             const void* extra_v, int B, int C, int H,
                             int Hkv, int D, int ps, int W, int tab_stride,
                             int blk, int window, float scale, int dtype,
-                            int int8, int kernel, void* stream) {
+                            int int8, int kernel, void* stream, void* part,
+                            void* counters, int splits) {
+  const bool split_kernel = kernel == 0 || kernel == 2;
   if (B <= 0 || C <= 0 || Hkv <= 0 || H % Hkv || ps <= 0 || ps > 32 ||
       W < (kernel == 2 ? 0 : 1) || W > tab_stride ||
       (int8 && (blk <= 0 || blk % 4 || (Hkv * D) % blk)) ||
       kernel < 0 || kernel > 3 || (kernel == 0 && C * (H / Hkv) > 8) ||
-      (kernel == 2 && (extra_k == nullptr || extra_v == nullptr)))
+      (kernel == 2 && (extra_k == nullptr || extra_v == nullptr)) ||
+      (split_kernel &&
+       (splits < 1 || splits > std::max(W, 1) || splits > kMaxSplits ||
+        (splits > 1 && (part == nullptr || counters == nullptr)))))
     return cudaErrorInvalidValue;
   Args a;
   a.q = q;
@@ -1047,6 +1525,13 @@ int dlrover_paged_attention(const void* q, void* out, const void* k_pool,
   a.positions = static_cast<const int*>(positions);
   a.extra_k = extra_k;
   a.extra_v = extra_v;
+  a.part = static_cast<float*>(part);
+  a.counters = static_cast<int*>(counters);
+  a.splits = split_kernel ? splits : 1;
+  // int8: the most scale blocks one head's D elements span
+  a.n_sc = 0;
+  for (int kh = 0; int8 && kh < Hkv; ++kh)
+    a.n_sc = std::max(a.n_sc, (kh * D + D - 1) / blk - kh * D / blk + 1);
   a.C = C;
   a.H = H;
   a.Hkv = Hkv;

@@ -18,6 +18,13 @@ Port of ``dlrover_tpu/ops/pallas_paged.py``:
   do. Each matches the plain version to a stated bound, not bitwise.
 - ``write_page_rows`` / ``gather_pages`` — the page-level tensor ops the
   decoder and the reference share.
+- ``plan_splits`` / ``split_columns`` — how the decode and verify kernel
+  (``paged_decode_split_kernel``) splits each (slot, KV head)'s page walk
+  across blocks: from the launch shape and the SM count only, so a call
+  needs no device read. Each split's partial (m, l, acc) goes to a
+  per-device workspace the wrapper keeps (``_workspace``); the last split
+  to finish merges them in split order, so the output is the same on
+  every call and, up to f32 rounding, for any split count.
 
 ``verify`` is the speculative-decoding verify step: the C queries are a
 draft chunk whose K/V rows (``extra_k``/``extra_v`` ``[B, C, Hkv, D]``,
@@ -44,15 +51,16 @@ NEG_INF = -1e30
 VARIANTS = ("decode", "chunk", "verify")
 
 #: The CUDA kernels of ``csrc/paged_attention.cu``: ``decode`` is
-#: ``paged_decode_kernel``, ``chunk`` is ``paged_chunk_wgmma_kernel`` for
-#: bf16 queries of head_dim 64 or 128 (the tensor-core core of
-#: ``csrc/attn_fwd_core.cuh``, over bf16 or int8 pools) and
-#: ``paged_chunk_kernel`` otherwise (f32, head_dim 32), ``verify`` is
-#: ``paged_decode_kernel``'s verify instantiation.
+#: ``paged_decode_split_kernel`` (the page walk split across blocks),
+#: ``chunk`` is ``paged_chunk_wgmma_kernel`` for bf16 queries of head_dim
+#: 64 or 128 (the tensor-core core of ``csrc/attn_fwd_core.cuh``, over
+#: bf16 or int8 pools) and ``paged_chunk_kernel`` otherwise (f32,
+#: head_dim 32), ``verify`` is ``paged_decode_split_kernel``'s verify
+#: instantiation.
 KERNELS = ("decode", "chunk", "verify")
 #: the kernel ids the C entry point takes
-CUDA_KERNEL_IDS = {"paged_decode_kernel": 0, "paged_chunk_kernel": 1,
-                   "paged_decode_kernel<VERIFY>": 2,
+CUDA_KERNEL_IDS = {"paged_decode_split_kernel": 0, "paged_chunk_kernel": 1,
+                   "paged_decode_split_kernel<VERIFY>": 2,
                    "paged_chunk_wgmma_kernel": 3}
 #: launches of each kernel since the last ``reset_launches()``: a
 #: ``decode``/``chunk`` call counts under the kernel its rows pick
@@ -62,8 +70,17 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
 _MAX_PAGE_SIZE = 32
-_DECODE_KERNEL_MAX_ROWS = 8  # paged_decode_kernel holds <= 8 rows per warp
+_DECODE_KERNEL_MAX_ROWS = 8  # decode calls of more rows are chunk-shaped
 _WGMMA_HEAD_DIMS = (64, 128)  # paged_chunk_wgmma_kernel's
+# paged_decode_split_kernel: query rows of a row tile (decode, verify) and
+# keys of a stage (split_rows, kSplitKeys in csrc/paged_attention.cu)
+SPLIT_ROWS = {"decode": 8, "verify": 32}
+SPLIT_KEYS = 32
+# the split planner: blocks an SM it aims for, and the fewest stages of
+# keys a split takes (each split's partial state costs a write and a read)
+_SPLIT_BLOCKS_PER_SM = 8
+_SPLIT_MIN_STAGES = 2
+_SPLIT_MAX = 64  # the kernel's merge takes at most 64 splits
 
 
 def reset_launches() -> None:
@@ -89,12 +106,34 @@ def cuda_kernel(kernel: str, dtype, head_dim: int) -> str:
     the pools (bf16 or int8); f32 and head_dim 32 keep
     ``paged_chunk_kernel``."""
     if kernel == "decode":
-        return "paged_decode_kernel"
+        return "paged_decode_split_kernel"
     if kernel == "verify":
-        return "paged_decode_kernel<VERIFY>"
+        return "paged_decode_split_kernel<VERIFY>"
     if dtype == torch.bfloat16 and head_dim in _WGMMA_HEAD_DIMS:
         return "paged_chunk_wgmma_kernel"
     return "paged_chunk_kernel"
+
+
+def plan_splits(b: int, hkv: int, row_tiles: int, w: int, ps: int,
+                n_sm: int) -> int:
+    """How many blocks share each row tile's page walk in
+    ``paged_decode_split_kernel``: about eight blocks an SM over the
+    ``b · hkv · row_tiles`` row tiles, each split at least two stages of
+    keys (``SPLIT_KEYS`` each) and one table column, 64 at most. It reads
+    only the launch shape, never positions or tables, so it needs no
+    device read and the same call always splits the same way. Returns S
+    with 1 <= S <= max(w, 1)."""
+    if w <= 1:
+        return 1
+    want = -(-_SPLIT_BLOCKS_PER_SM * n_sm // (b * hkv * row_tiles))
+    most = max(1, w * ps // (_SPLIT_MIN_STAGES * SPLIT_KEYS))
+    return max(1, min(want, most, w, _SPLIT_MAX))
+
+
+def split_columns(w: int, splits: int):
+    """The table columns ``[c0, c1)`` each split walks, in split order:
+    split s takes ``[s·w // S, (s+1)·w // S)``, as the kernel does."""
+    return [(s * w // splits, (s + 1) * w // splits) for s in range(splits)]
 
 
 # ---------------------------------------------------------------------------
@@ -286,6 +325,10 @@ def paged_attention_reference(
 # ---------------------------------------------------------------------------
 
 _lib_fn = None
+_sms: Dict[int, int] = {}
+# the split kernel's workspace, per device: f32 partials and the row
+# tiles' counters (zero between calls)
+_workspaces: Dict[str, Dict[str, torch.Tensor]] = {}
 
 
 def _kernel():
@@ -297,10 +340,31 @@ def _kernel():
 
         fn = _build.load("paged_attention").dlrover_paged_attention
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 10 + [i] * 10 + [ctypes.c_float] + [i] * 3 + [p]
+        fn.argtypes = ([p] * 10 + [i] * 10 + [ctypes.c_float] + [i] * 3
+                       + [p] * 3 + [i])
         fn.restype = i
         _lib_fn = fn
     return _lib_fn
+
+
+def _sm_count(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def _workspace(dev, n_floats: int, n_tiles: int):
+    """The split kernel's persistent workspace on ``dev``, grown on
+    demand: ``n_floats`` f32 partials and ``n_tiles`` int32 counters, zero
+    at allocation (each call leaves them zero). Calls on one device share
+    it, so they must not run concurrently on two streams."""
+    ws = _workspaces.setdefault(str(dev), {})
+    if "part" not in ws or ws["part"].numel() < n_floats:
+        ws["part"] = torch.empty(n_floats, dtype=torch.float32, device=dev)
+    if "counters" not in ws or ws["counters"].numel() < n_tiles:
+        ws["counters"] = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    return ws["part"], ws["counters"]
 
 
 def _check(t, name, device, dtype=None, shape=None, align=16):
@@ -377,12 +441,23 @@ def _paged_call(q, pools, block_tables, positions, *, scale, window,
         vs_ptr = pools["v_scale"].data_ptr()
     kernel = kernel_for(c, h, hkv, variant)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    splits, part_ptr, cnt_ptr = 1, None, None
+    if kernel != "chunk":
+        rows = SPLIT_ROWS[kernel]
+        tiles = -(-c * (h // hkv) // rows)
+        splits = plan_splits(b, hkv, tiles, w, ps, _sm_count(dev))
+        if splits > 1:
+            n_tiles = b * hkv * tiles
+            part, counters = _workspace(
+                dev, n_tiles * splits * rows * (d + 2), n_tiles)
+            part_ptr, cnt_ptr = part.data_ptr(), counters.data_ptr()
     err = _kernel()(
         q.data_ptr(), out.data_ptr(), k_ptr, v_ptr, ks_ptr, vs_ptr,
         tables.data_ptr(), pos.data_ptr(), ek_ptr, ev_ptr,
         b, c, h, hkv, d, ps, w, w_full, blk, int(window), float(scale),
         _DTYPE_CODE[q.dtype], int(mode == "int8"),
         CUDA_KERNEL_IDS[cuda_kernel(kernel, q.dtype, d)], stream,
+        part_ptr, cnt_ptr, splits,
     )
     if err != 0:
         raise RuntimeError(

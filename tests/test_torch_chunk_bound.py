@@ -123,8 +123,9 @@ class _Stream:
 @pytest.fixture
 def no_card(monkeypatch):
     """The wrappers' launch path without a card: the launcher records,
-    the stream is a stand-in."""
+    the stream and the SM count are stand-ins."""
     monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(pa, "_sm_count", lambda dev: 132)  # an H100's
     rec = _Recorder()
     monkeypatch.setattr(pa, "_kernel", lambda: rec)
     monkeypatch.setattr(fa, "_lib", lambda: {"fwd": rec, "bwd": rec})
@@ -158,13 +159,14 @@ def test_decode_and_verify_keep_their_kernels(no_card, dtype):
     q, layer, _, tab, pos, _ = _chunk("int8", d=128, c=2)
     pa._paged_call(q.to(dtype), layer, tab, pos, scale=1.0, window=0,
                    kv_heads=2, max_pages=None, variant="chunk")
-    assert no_card.calls[-1][23] == pa.CUDA_KERNEL_IDS["paged_decode_kernel"]
+    assert no_card.calls[-1][23] == pa.CUDA_KERNEL_IDS[
+        "paged_decode_split_kernel"]
     ek = torch.zeros((3, 2, 2, 128), dtype=dtype)
     pa._paged_call(q.to(dtype), layer, tab, pos, scale=1.0, window=0,
                    kv_heads=2, max_pages=None, variant="verify",
                    extra_k=ek, extra_v=ek.clone())
     assert no_card.calls[-1][23] == pa.CUDA_KERNEL_IDS[
-        "paged_decode_kernel<VERIFY>"]
+        "paged_decode_split_kernel<VERIFY>"]
 
 
 @pytest.mark.parametrize("dtype,d,pack,kernel", [

@@ -227,6 +227,160 @@ def test_verify_kernel_matches_plain(dev, dtype, mode, hkv, groups, d, ps, c,
                                atol=atol)
 
 
+# ---------------------------------------------------------------------------
+# the split walk of paged_decode_split_kernel (decode and verify)
+# ---------------------------------------------------------------------------
+
+
+def _split_case(dev, *, mode, dtype, ps, lens, holes=(), hkv=2, groups=4,
+                d=128, max_len=2048, seed=0):
+    """Pools of ``hkv`` KV heads of ``d`` holding random rows, a shuffled
+    table per slot covering ``lens[i]`` tokens (0: a free slot), with the
+    columns in ``holes`` set to -1 in slot 0's row; queries of
+    ``hkv · groups`` heads. Returns (q maker, layer pools, tables, f32
+    pools as the kernel reads them, max_pages)."""
+    cfg = get_config("tiny", n_head=hkv * groups, n_kv_head=hkv,
+                     d_model=hkv * groups * d, n_layer=1,
+                     dtype=str(dtype).split(".")[-1])
+    geom = kvc.make_geometry(cfg, n_slots=len(lens), max_len=max_len,
+                             page_size=ps, mode=mode)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pools = kvc.init_pools(geom, dev)
+    for name in ("k", "v"):
+        x = torch.randn((1, geom.n_pages, ps, geom.row_elems), generator=g,
+                        device=dev)
+        if mode == "bf16":
+            pools[name].copy_(x.reshape(pools[name].shape))
+        else:
+            qv, sc = quant.kv_encode_rows(x, geom.kv_block)
+            pools[name + "_q"].copy_(qv)
+            pools[name + "_scale"].copy_(sc)
+    rng = np.random.default_rng(seed)
+    tab = chip_smoke._fragmented_tables(len(lens), geom.max_pages_per_slot,
+                                        lens, ps, rng)
+    tab[0, list(holes)] = -1
+    layer = kvc.layer_pools(pools, 0)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    return (rnd, layer, torch.as_tensor(tab, device=dev),
+            _read_f32(layer, hkv, d), geom.max_pages_per_slot)
+
+
+def _split_plain(q, layer, f32, tab, pos, **kw):
+    """The plain version the split kernel is held to: in q's dtype for
+    f32, else in f32 on the values the kernel reads."""
+    if q.dtype == torch.float32:
+        return pa.paged_attention_reference(q, layer, tab, pos, **kw)
+    extra = {k: v.float() for k, v in kw.items() if k.startswith("extra")}
+    return pa.paged_attention_reference(q.float(), f32, tab, pos,
+                                        **dict(kw, **extra))
+
+
+def _held_keys_plain(q, f32, tab, pos, *, scale, window, kv_heads,
+                     max_pages):
+    """The plain decode math in f32 over the keys of assigned pages only:
+    the kernel skips -1 pages where the plain version reads the trash
+    page, which differs where a hole lies below a slot's position."""
+    b, _, h, d = q.shape
+    k, v = pa.gather_pages(f32, tab, kv_heads=kv_heads, max_pages=max_pages,
+                           dtype=torch.float32)
+    ps = k.shape[1] // max_pages
+    held = (tab[:, :max_pages] >= 0).repeat_interleave(ps, dim=1)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    mask = held & (kpos[None, :] <= pos[:, None])
+    if window:
+        mask = mask & (kpos[None, :] > pos[:, None] - window)
+    s = torch.einsum("bkgd,bskd->bkgs",
+                     q.float().reshape(b, kv_heads, h // kv_heads, d),
+                     k.float()) * scale
+    s = torch.where(mask[:, None, None, :], s, -1e30)
+    out = torch.einsum("bkgs,bskd->bkgd", torch.softmax(s, -1), v.float())
+    return out.reshape(b, 1, h, d)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("name,ps,lens,holes,window", [
+    # B 1 at position 2047: the walk split over 64 blocks
+    ("b1-2047", 16, (2048,), (), 0),
+    ("page4", 4, (2048, 0, 700), (), 0),
+    ("page8", 8, (2048, 1201, 0), (), 0),
+    ("page32", 32, (2048, 0, 33), (), 0),
+    # slot 0's columns 20..59 unassigned: whole splits see only -1
+    ("holes", 16, (2048, 0), tuple(range(20, 60)), 0),
+    # a window of 100 keys at 2047 leaves every split but the last empty
+    ("window", 16, (2048, 1500, 0), (), 100)])
+def test_split_decode_matches_plain(dev, dtype, mode, name, ps, lens, holes,
+                                    window):
+    rnd, layer, tab, f32, width = _split_case(
+        dev, mode=mode, dtype=dtype, ps=ps, lens=lens, holes=holes,
+        seed=ps + len(lens))
+    b = len(lens)
+    pos = torch.as_tensor(np.maximum(np.asarray(lens) - 1, 0),
+                          dtype=torch.int32, device=dev)
+    q = rnd(b, 1, 8, 128)
+    kw = dict(scale=128 ** -0.5, window=window, kv_heads=2,
+              max_pages=width)
+    assert pa.plan_splits(b, 2, 1, width, ps, torch.cuda.get_device_properties(
+        dev).multi_processor_count) > 1
+    pa.reset_launches()
+    out = pa.paged_attention(q, layer, tab, pos, **kw)
+    again = pa.paged_attention(q, layer, tab, pos, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == {"decode": 2, "chunk": 0, "verify": 0}
+    assert torch.equal(out, again)  # bitwise, whichever split ends last
+    active = torch.as_tensor(np.asarray(lens) > 0, device=dev)
+    if holes:  # held below the position: the plain version reads trash
+        ref = _held_keys_plain(q, layer if dtype == torch.float32 else f32,
+                               tab, pos, **kw)
+    else:
+        ref = _split_plain(q, layer, f32, tab, pos, **kw)
+    rtol, atol = _TOL[dtype]
+    torch.testing.assert_close(out[active].float(), ref[active].float(),
+                               rtol=rtol, atol=atol)
+    assert torch.all(out[~active] == 0)  # a free slot: exact zeros
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("name,c,lens,max_pages,window", [
+    # B 1, a spec_k=4 chunk at the end of the context
+    ("b1-end", 5, (2048,), None, 0),
+    # no committed page walked: the in-flight rows alone
+    ("w0", 5, (300, 0), 0, 0),
+    # 17 rows x 4 heads = 68 query rows: three row tiles
+    ("rows68", 17, (1900, 0, 640), None, 0),
+    ("window", 5, (2048, 777), None, 64)])
+def test_split_verify_matches_plain(dev, dtype, mode, name, c, lens,
+                                    max_pages, window):
+    """Cells from each chunk's start on hold other rows (stale rows), which
+    only the kpos < start mask hides; a free slot (start 0, no pages) sees
+    its in-flight rows only."""
+    rnd, layer, tab, f32, width = _split_case(
+        dev, mode=mode, dtype=dtype, ps=16, lens=lens, seed=c + len(lens))
+    b = len(lens)
+    start = np.maximum(np.asarray(lens) - c - 3, 0)
+    pos = torch.as_tensor(start[:, None] + np.arange(c)[None, :],
+                          dtype=torch.int32, device=dev)
+    q = rnd(b, c, 8, 128)
+    ek, ev = rnd(b, c, 2, 128), rnd(b, c, 2, 128)
+    kw = dict(scale=128 ** -0.5, window=window, kv_heads=2,
+              max_pages=width if max_pages is None else max_pages,
+              variant="verify", extra_k=ek, extra_v=ev)
+    pa.reset_launches()
+    out = pa.paged_attention(q, layer, tab, pos, **kw)
+    again = pa.paged_attention(q, layer, tab, pos, **kw)
+    torch.cuda.synchronize()
+    assert pa.LAUNCHES == {"decode": 0, "chunk": 0, "verify": 2}
+    assert torch.equal(out, again)
+    ref = _split_plain(q, layer, f32, tab, pos, **kw)
+    rtol, atol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
 def test_verify_chunk_paged_on_card_matches_cpu(dev):
     """The tiny f32 model's verify step: logits and chunk rows on the
     card (kernel) equal the CPU's (plain version) to 1e-4, one verify
@@ -588,20 +742,21 @@ def test_packed_train_step_on_card_matches_cpu(dev, kind):
 # ---------------------------------------------------------------------------
 
 
-def _chunk_tc_case(dev, mode, d, starts, c, held, seed):
-    """llama3-8b's head grouping (4 query heads a KV head, page 16) at
-    2 KV heads: slot i's chunk of C queries at starts[i], holding held[i]
-    tokens' pages (0: a free slot; past the chunk: pages beyond the last
-    position, -1 columns after them)."""
+def _chunk_tc_case(dev, mode, d, starts, c, held, seed, ps=16):
+    """llama3-8b's head grouping (4 query heads a KV head) at 2 KV heads,
+    pages of ``ps`` (llama3-8b's 16 by default): slot i's chunk of C
+    queries at starts[i], holding held[i] tokens' pages in a shuffled
+    order (0: a free slot; past the chunk: pages beyond the last position,
+    -1 columns after them)."""
     cfg = get_config("tiny", n_head=8, n_kv_head=2, d_model=8 * d,
                      n_layer=1, dtype="bfloat16")
     b = len(starts)
-    geom = kvc.make_geometry(cfg, n_slots=b, max_len=2048, page_size=16,
+    geom = kvc.make_geometry(cfg, n_slots=b, max_len=2048, page_size=ps,
                              mode=mode)
     g = torch.Generator(device=dev).manual_seed(seed)
     pools = kvc.init_pools(geom, dev)
     for name in ("k", "v"):
-        x = torch.randn((1, geom.n_pages, 16, geom.row_elems), generator=g,
+        x = torch.randn((1, geom.n_pages, ps, geom.row_elems), generator=g,
                         device=dev)
         if mode == "bf16":
             pools[name].copy_(x.reshape(pools[name].shape))
@@ -610,7 +765,7 @@ def _chunk_tc_case(dev, mode, d, starts, c, held, seed):
             pools[name + "_q"].copy_(qv)
             pools[name + "_scale"].copy_(sc)
     rng = np.random.default_rng(seed)
-    tab = chip_smoke._fragmented_tables(b, geom.max_pages_per_slot, held, 16,
+    tab = chip_smoke._fragmented_tables(b, geom.max_pages_per_slot, held, ps,
                                         rng)
     pos = torch.as_tensor(np.asarray(starts)[:, None] + np.arange(c),
                           dtype=torch.int32, device=dev)
@@ -622,18 +777,26 @@ def _chunk_tc_case(dev, mode, d, starts, c, held, seed):
 
 @pytest.mark.parametrize("mode", ["bf16", "int8"])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("starts,c,held,window", [
-    ((1536,), 256, (1792,), 0),
-    ((1536,), 256, (1792,), 512),
+@pytest.mark.parametrize("starts,c,held,window,ps", [
+    ((1536,), 256, (1792,), 0, 16),
+    ((1536,), 256, (1792,), 512, 16),
     # ragged: 800 rows, the last tile 32
-    ((1536,), 200, (1736,), 0),
+    ((1536,), 200, (1736,), 0, 16),
     # B 2; a free slot; pages held past the last position
-    ((1536, 700), 256, (1792, 956), 0),
-    ((300, 0, 41), 200, (500, 0, 241 + 70), 0)])
+    ((1536, 700), 256, (1792, 956), 0, 16),
+    ((300, 0, 41), 200, (500, 0, 241 + 70), 0, 16),
+    # pages of 8 and 32: a 64-key tile spans 8 or 2 pages held out of
+    # order (8: not 64-key aligned past a window edge either)
+    ((1536,), 256, (1792,), 0, 8),
+    ((1536, 700), 256, (1792, 956), 300, 8),
+    ((300, 0, 41), 200, (500, 0, 241 + 70), 0, 8),
+    ((1536,), 256, (1792,), 0, 32),
+    ((1536, 700), 256, (1792, 956), 300, 32),
+    ((300, 0, 41), 200, (500, 0, 241 + 70), 0, 32)])
 def test_chunk_kernel_on_the_tensor_cores(dev, mode, d, starts, c, held,
-                                          window):
+                                          window, ps):
     q, pools, tab, pos, active = _chunk_tc_case(
-        dev, mode, d, starts, c, held, seed=d + c + len(starts))
+        dev, mode, d, starts, c, held, seed=d + c + len(starts), ps=ps)
     kw = dict(scale=d ** -0.5, window=window, kv_heads=2, variant="chunk")
     pa.reset_launches()
     out = pa.paged_attention(q, pools, tab, pos, **kw)
