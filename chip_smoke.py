@@ -69,26 +69,29 @@ result:
    time by class (the paged-attention class also on its own), launches
    per step, the device's busy share;
 6. train_kernel: the flash kernels (forward, dq, dkv; a head a block,
-   the bf16 forward on the tensor-core core since PR 5, and two heads of
-   64 packed a block) and the norm kernels (forward,
-   backward) against their plain versions run in f32 on the same bf16
-   values, at the train steps' shapes (llama-1.4b: flash B 8, S 1024,
-   H 16, D 128, norm rows [8192, 2048] rmsnorm; gpt2-1.5b: packed flash
-   B 8, S 1024, H 25, D 64, norm rows [8192, 1600] layernorm with bias;
-   glm-10b: norm rows [8192, 4096] layernorm with bias, the backward on 4
-   warps; norms with and without the residual) and in extra cases (GQA, a
-   window, D 64 unpacked, ragged S; packed: 16 heads, glm-10b's 64 heads
-   at S 2048 with a prefix per sequence of 0, 700 and past the end,
-   non-causal bert-base, 25 heads at S 1000; the prefix in the unpacked
-   kernels at D 128), each under an element-wise bound and each with a
-   planted fault the bound must catch (a key row replaced; the prefix
-   shifted by one key; at 25 heads the last pack's second head written
-   into head 24, where the ragged path must also equal the zero-padded
-   path bit for bit); with each kernel's time, its bound, the plain
-   version's time and the library call's
-   (``F.scaled_dot_product_attention``, ``F.rms_norm``,
-   ``F.layer_norm``, timed only), and at gpt2-1.5b's shape the unpacked
-   D 64 kernels' times beside the packed;
+   and two heads of 64 packed a block; both bf16 forwards on the
+   tensor-core core, ``flash_fwd_wgmma_kernel`` and
+   ``flash_fwd_packed_wgmma_kernel``) and the norm kernels (forward, which
+   spreads a wide row over several warps, and backward) against their
+   plain versions run in f32 on the same bf16 values, at the train steps'
+   shapes (llama-1.4b: flash B 8, S 1024, H 16, D 128, norm rows [8192,
+   2048] rmsnorm; gpt2-1.5b: packed flash B 8, S 1024, H 25, D 64, norm
+   rows [8192, 1600] layernorm with bias; glm-10b: norm rows [8192, 4096]
+   layernorm with bias, the backward on 4 warps; norms with and without
+   the residual) and in extra cases (GQA, a window, D 64 unpacked, ragged
+   S; packed: 16 heads, glm-10b's 64 heads at S 2048 with a prefix per
+   sequence of 0, 700 and past the end, non-causal bert-base, 25 heads at
+   S 1000; the prefix in the unpacked kernels at D 128), each under an
+   element-wise bound and each with a planted fault the bound must catch
+   (a key row replaced; the prefix shifted by one key; at 25 heads the
+   last pack's second head written into head 24, where the ragged path
+   must also equal the zero-padded path bit for bit); with each kernel's
+   time, its bound, the plain version's time and the library call's
+   (``F.scaled_dot_product_attention``, ``F.rms_norm``, ``F.layer_norm``,
+   timed only), all on the card alone (``graph_ms``) but the library
+   backward through autograd (CUDA events, named in the record's
+   ``library_timer``), and at gpt2-1.5b's shape the unpacked D 64
+   kernels' times beside the packed;
 7. train_model, train_model_gpt2, train_model_glm: ``loss_fn`` and every
    gradient of an f32 model through the kernels against the plain paths
    (``mha_reference``, the plain norm): llama-1.4b and gpt2-1.5b cut to
@@ -132,19 +135,27 @@ PAGED_SRC = "dlrover_tpu_torch/csrc/paged_attention.cu"
 PAGED_REPLACES = "dlrover_tpu/ops/pallas_paged.py:300"
 FLASH_SRC = "dlrover_tpu_torch/csrc/flash_attention.cu"
 NORM_SRC = "dlrover_tpu_torch/csrc/fused_norm.cu"
-# the training kernels: (name, source, the TPU kernel it replaces)
+# the training kernels: (name, source, the TPU kernel it replaces, the CUDA
+# kernel the bf16 train steps launch)
 TRAIN_KERNELS = (
-    ("flash_fwd", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:213"),
-    ("flash_bwd_dq", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:369"),
-    ("flash_bwd_dkv", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:423"),
+    ("flash_fwd", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:213",
+     "flash_fwd_wgmma_kernel"),
+    ("flash_bwd_dq", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:369",
+     "flash_bwd_dq_kernel"),
+    ("flash_bwd_dkv", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:423",
+     "flash_bwd_dkv_kernel"),
     ("flash_fwd_packed", FLASH_SRC,
-     "dlrover_tpu/ops/pallas_attention.py:278"),
+     "dlrover_tpu/ops/pallas_attention.py:278",
+     "flash_fwd_packed_wgmma_kernel"),
     ("flash_bwd_dq_packed", FLASH_SRC,
-     "dlrover_tpu/ops/pallas_attention.py:484"),
+     "dlrover_tpu/ops/pallas_attention.py:484", "flash_bwd_dq_packed_kernel"),
     ("flash_bwd_dkv_packed", FLASH_SRC,
-     "dlrover_tpu/ops/pallas_attention.py:546"),
-    ("norm_fwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:95"),
-    ("norm_bwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:126"),
+     "dlrover_tpu/ops/pallas_attention.py:546",
+     "flash_bwd_dkv_packed_kernel"),
+    ("norm_fwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:95",
+     "norm_fwd_kernel"),
+    ("norm_bwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:126",
+     "norm_bwd_kernel"),
 )
 # Kernel vs plain version, per element of the attention output. The
 # plain version runs in f32 on the very values the kernel reads (bf16 q
@@ -279,6 +290,17 @@ def graph_ms(fn, iters, warmup=3):
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / (3 * iters)
     del graph
+    return ms
+
+
+def in_turns_ms(fns, iters):
+    """``graph_ms`` of each of ``fns``, timed in turns (first to last, then
+    last to first) and averaged, so that a drift of the card's clocks
+    during the timings (as after the flash cases' tensor-core load) weighs
+    on each alike: a kernel and its yardstick are compared so."""
+    ms = [0.0] * len(fns)
+    for i in list(range(len(fns))) + list(range(len(fns)))[::-1]:
+        ms[i] += graph_ms(fns[i], iters) / 2
     return ms
 
 
@@ -1406,11 +1428,12 @@ def _bwd_kernel_fn(which, q, k, v, g, lse, delta, *, causal, scale,
     args = ([x.data_ptr() for x in (q, k, v, g, lse, delta, *outs)]
             + [None if prefix is None else prefix.data_ptr()]
             + [b, sq, sk, h, hkv, d, float(scale), int(causal), int(window),
-               pack, fa._DTYPE_CODE[q.dtype],
-               torch.cuda.current_stream(q.device).cuda_stream])
+               pack, fa._DTYPE_CODE[q.dtype]])
 
     def run():
-        err = fa._lib()["bwd"](which, *args)
+        # the stream current at the call: graph_ms captures on its own
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fa._lib()["bwd"](which, *args, stream)
         if err:
             raise RuntimeError(f"flash bwd kernel {which}: cudaError {err}")
         return outs
@@ -1418,9 +1441,11 @@ def _bwd_kernel_fn(which, q, k, v, g, lse, delta, *, causal, scale,
     return run
 
 
-def _sdpa_train_ms(q, k, v, g, causal, scale):
-    """``F.scaled_dot_product_attention`` forward, and its backward
-    through autograd, on the same bf16 tensors: the yardsticks."""
+def _sdpa_train(q, k, v, g, causal, scale):
+    """The yardsticks on the same bf16 tensors: a call of
+    ``F.scaled_dot_product_attention``'s forward (to time on the card
+    alone) and the ms of its backward through autograd (CUDA events: the
+    autograd call is not captured in a graph)."""
     import torch.nn.functional as F
 
     qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
@@ -1430,12 +1455,11 @@ def _sdpa_train_ms(q, k, v, g, causal, scale):
         return F.scaled_dot_product_attention(a, b_, c, is_causal=causal,
                                               scale=scale, enable_gqa=gqa)
 
-    fwd_ms = cuda_ms(lambda: fwd(qt, kt, vt), 20)
     leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
     o = fwd(*leaves)
     bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, gt,
                                                  retain_graph=True), 10)
-    return fwd_ms, bwd_ms
+    return (lambda: fwd(qt, kt, vt)), bwd_ms
 
 
 def _zero_head(x):
@@ -1529,32 +1553,43 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
                  and all(n > 0 for n in faults.values())
                  and all(extra.values()))
     if timed:
+        # on the card alone (graph_ms), but SDPA's backward: CUDA events
         pkw = dict(kw, prefix=pref)
-        fwd_plain = cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, **pkw),
-                            3)
-        bwd_plain = cuda_ms(lambda: fa.flash_bwd_reference(
+        fwd_plain = graph_ms(lambda: fa.flash_fwd_reference(q, k, v, **pkw),
+                             3)
+        bwd_plain = graph_ms(lambda: fa.flash_bwd_reference(
             q, k, v, out, lse, g, **pkw), 3)
-        lib_fwd, lib_bwd = ((None, None) if window or prefix is not None
-                            else _sdpa_train_ms(q, k, v, g, causal, scale))
+        sdpa_fwd, lib_bwd = ((None, None) if window or prefix is not None
+                             else _sdpa_train(q, k, v, g, causal, scale))
         delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
             .contiguous()
 
-        def kernel_ms(p):
-            """ms of the forward, dq and dkv kernels at pack ``p``."""
-            return [cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, pack=p, **pkw),
-                            20)] + [
-                cuda_ms(_bwd_kernel_fn(w, q, k, v, g, lse, delta, pack=p,
-                                       **pkw), 20) for w in (1, 2)]
+        def kernel_ms(p, yardstick=None):
+            """ms of the forward, dq and dkv kernels at pack ``p``; with a
+            yardstick, the forward in turns with it (its ms appended)."""
+            fwd = [lambda: fa.flash_fwd_cuda(q, k, v, pack=p, **pkw)]
+            fwd_ms = in_turns_ms(fwd + [yardstick], 20) if yardstick \
+                else [graph_ms(fwd[0], 20)]
+            return fwd_ms[:1] + [
+                graph_ms(_bwd_kernel_fn(w, q, k, v, g, lse, delta, pack=p,
+                                        **pkw), 20) for w in (1, 2)
+            ] + fwd_ms[1:]
+
+        ms3 = kernel_ms(pack, sdpa_fwd)
+        lib_fwd = ms3.pop() if sdpa_fwd else None
 
         rec["timing"] = {}
-        for kernel, ms, plain, lib in zip(names, kernel_ms(pack),
+        for kernel, ms, plain, lib in zip(names, ms3,
                                           (fwd_plain, bwd_plain, bwd_plain),
                                           (lib_fwd, lib_bwd, lib_bwd)):
             bound_ms, by = _flash_bound(kernel, b, s, h, hkv, d, causal,
                                         window, prefix)
             rec["timing"][kernel] = {
                 "ms": ms, "plain_ms": plain, "library_ms": lib,
-                "bound_ms": bound_ms, "bound_by": by}
+                "bound_ms": bound_ms, "bound_by": by, "timer": "graph",
+                "library_timer": (None if lib is None else "graph"
+                                  if kernel.startswith("flash_fwd")
+                                  else "events")}
         if pack == 2:
             # what packing buys: the unpacked D 64 kernels, same inputs
             rec["unpacked_ms"] = dict(zip(fa.UNPACKED, kernel_ms(1)))
@@ -1659,22 +1694,31 @@ def norm_case(name, n, d, residual, gen, dev, timed, kind="rmsnorm"):
         leaves = [t.detach().requires_grad_()
                   for t in ((x, w16) if rms else (x, w16, b16))]
         y = lib(*leaves, None) if rms else lib(*leaves)
+        # on the card alone (graph_ms; the forward in turns with its
+        # library call), but the library backward through autograd: CUDA
+        # events
+        fwd = [lambda: nm.norm_fwd_cuda(x, scale, bias, r, kind, eps)]
+        if not residual:
+            fwd.append(lambda: lib(x, w16, b16))
+        fwd_ms = in_turns_ms(fwd, 50)
         rec["timing"] = {
             "norm_fwd": {
-                "ms": cuda_ms(lambda: nm.norm_fwd_cuda(
-                    x, scale, bias, r, kind, eps), 50),
-                "plain_ms": cuda_ms(lambda: nm._reference(
+                "ms": fwd_ms[0],
+                "plain_ms": graph_ms(lambda: nm._reference(
                     x, scale, bias, kind, eps, r), 20),
-                "library_ms": None if residual else cuda_ms(
-                    lambda: lib(x, w16, b16), 50)},
+                "library_ms": None if residual else fwd_ms[1],
+                "timer": "graph",
+                "library_timer": None if residual else "graph"},
             "norm_bwd": {
-                "ms": cuda_ms(lambda: nm.norm_bwd_cuda(
+                "ms": graph_ms(lambda: nm.norm_bwd_cuda(
                     g, h, scale, gh, kind, eps, not rms), 50),
-                "plain_ms": cuda_ms(lambda: nm.norm_bwd_reference(
+                "plain_ms": graph_ms(lambda: nm.norm_bwd_reference(
                     g, h, scale, gh, kind, eps, not rms), 20),
                 "library_ms": None if residual else cuda_ms(
                     lambda: torch.autograd.grad(y, leaves, g,
-                                                retain_graph=True), 50)},
+                                                retain_graph=True), 50),
+                "timer": "graph",
+                "library_timer": None if residual else "events"},
         }
         for kernel, t in rec["timing"].items():
             t["bound_ms"], t["bound_by"] = _norm_bound(kernel, n, d,
@@ -2137,7 +2181,7 @@ def main(argv=None) -> int:
                     and not c["window"] and "ms" in c
                     and c["B"] == (1 if kernel == "chunk" else 8))
         kernels.append({
-            "name": name, "route": "cuda",
+            "name": name, "kernel": head["cuda_kernel"], "route": "cuda",
             "source": PAGED_SRC, "replaces": PAGED_REPLACES,
             "launches": main_launches[kernel],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
@@ -2148,7 +2192,7 @@ def main(argv=None) -> int:
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",),
                "bwd_dkv": ("dk", "dv"), "norm_fwd": ("out",),
                "norm_bwd": ("dx",)}
-    for kernel, src, replaces in TRAIN_KERNELS:
+    for kernel, src, replaces, cuda_kernel in TRAIN_KERNELS:
         mine = [c for c in train_cases if kernel in c["kernels"]]
         # the timed case at the train step's shapes (the first of its
         # kernel: llama-1.4b's for the unpacked flash kernels and the
@@ -2156,8 +2200,8 @@ def main(argv=None) -> int:
         t = next(c for c in mine if "timing" in c)["timing"][kernel]
         out_key = kernel.replace("flash_", "").replace("_packed", "")
         kernels.append({
-            "name": kernel, "route": "cuda", "source": src,
-            "replaces": replaces,
+            "name": kernel, "kernel": cuda_kernel, "route": "cuda",
+            "source": src, "replaces": replaces,
             "launches": sum(n[kernel] for n in train_launches.values()),
             "max_abs_err": max(c["max_abs_err"][o] for c in mine
                                for o in outputs[out_key]),

@@ -1,17 +1,21 @@
 // One Hopper tensor-core attention-forward core, shared by the flash
-// forward (flash_attention.cu, flash_fwd_wgmma_kernel) and the paged
-// prefill-chunk kernel (paged_attention.cu, paged_chunk_wgmma_kernel).
+// forwards (flash_attention.cu: flash_fwd_wgmma_kernel, a head a block,
+// and flash_fwd_packed_wgmma_kernel, two heads of 64 a block) and the
+// paged prefill-chunk kernel (paged_attention.cu, paged_chunk_wgmma_kernel).
 //
 // A block is a producer warpgroup (two for int8 pages, which take the
 // dequantization) and two consumer warpgroups. The producer keeps a ring
 // of kStages K/V tiles of KEYS keys in shared memory (64 for the paged
-// kernel, 128 for the flash kernel), each signalled through a "full"
+// kernel, 128 for the flash kernels), each signalled through a "full"
 // mbarrier and released through an "empty" one; it gives up registers
 // (setmaxnreg) to the two consumer warpgroups. Where the K/V
 // tiles come from is the kernel's business (TMA from a dense tensor, or
 // cp.async gathers of pages through a block table); the core only fixes
 // their layout and the handshake. Each consumer warpgroup holds 64 query
-// rows (128 a block) and runs, per key tile:
+// rows and runs, per key tile (the one-head kernels: 128 rows a block
+// over one head; the packed flash kernel: 64 rows a block, consumer j
+// over head 2p + j, reading column block j of a stage laid out for
+// D 128: consume()'s kv_off):
 //
 //   S = Q K^T         wgmma m64n{KEYS}k16, bf16 in, f32 accumulate; Q and
 //                     K from shared memory, K-major, 128-byte swizzle;
@@ -402,8 +406,9 @@ __device__ __forceinline__ void init_barriers(uint32_t base, int full_count) {
   __syncthreads();
 }
 
-// The producer's position in the ring. The first pass over the stages
-// waits on nothing (parity 1 of a fresh barrier counts as completed).
+// A position in the ring. The producer's first pass over the stages
+// waits on nothing (parity 1 of a fresh barrier counts as completed); the
+// consumers wait on parity 0 of the full barriers.
 struct Ring {
   int stage = 0;
   int phase = 0;
@@ -489,13 +494,18 @@ struct State {
 //                            this thread sees key k0 + col
 // `scale_log2` = softmax scale * log2(e). Scores stay unscaled until the
 // exponent: the masks compare raw q.k, whose order is the scaled one's.
+// `kv_off`: bytes from a stage's K (and V) tile to the column block this
+// warpgroup reads (0 but in the packed flash kernel). `ring`: the
+// consumers' position in the ring, left at the stage of the end Meta (a
+// kernel that walks several times releases that stage and moves on).
 //
 // Overlap: the next tile's Q.K^T and this tile's P.V run on the tensor
 // cores while the warpgroup computes the next tile's softmax.
 template <int D, class L, class Policy>
 __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
                                         const Policy& pol, float scale_log2,
-                                        State<D>& st) {
+                                        State<D>& st, uint32_t kv_off,
+                                        Ring& ring) {
   constexpr int KEYS = L::kKeys;
   constexpr int NS = KEYS / 2;  // score registers a thread
   const int t = threadIdx.x & 3;
@@ -503,22 +513,19 @@ __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
   for (int i = 0; i < D / 2; ++i) st.o[i] = 0.f;
   st.m[0] = st.m[1] = kNegInf;
   st.l[0] = st.l[1] = 0.f;
-  int stage = 0, phase = 0;
   // the next tile; false at the end of the walk
   auto acquire = [&](Meta& mt, int& stg) {
-    mbar_wait(base + L::full + 8 * stage, phase);
+    mbar_wait(base + L::full + 8 * ring.stage, ring.phase);
     fence_proxy_async();  // cp.async-written tiles, read by wgmma
-    mt = *reinterpret_cast<const Meta*>(smem_ptr(base + L::meta + 16 * stage));
+    mt = *reinterpret_cast<const Meta*>(
+        smem_ptr(base + L::meta + 16 * ring.stage));
     if (mt.k0 < 0) return false;
-    stg = stage;
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1;
-    }
+    stg = ring.stage;
+    ring.advance();
     return true;
   };
   auto issue_s = [&](float (&s)[NS], int stg) {
-    const uint32_t k_tile = L::k_tile(base, stg);
+    const uint32_t k_tile = L::k_tile(base, stg) + kv_off;
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks)
       wgmma_s<KEYS>(
@@ -574,7 +581,7 @@ __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
     for (int i = 0; i < D / 2; ++i) st.o[i] *= alpha[(i >> 1) & 1];
   };
   auto issue_pv = [&](const uint32_t (&pa)[KEYS / 16][4], int stg) {
-    const uint32_t v_tile = L::v_tile(base, stg);
+    const uint32_t v_tile = L::v_tile(base, stg) + kv_off;
 #pragma unroll
     for (int j = 0; j < KEYS / 16; ++j)
       wgmma_pv<D>(st.o, pa[j], desc_mnmajor<KEYS>(v_tile + j * 16 * 128));
@@ -630,6 +637,16 @@ __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
   wgmma_wait<0>();
   fence_regs(st.o);
   release(cur);
+}
+
+// One walk from a fresh ring (the kernels that walk once a block:
+// flash_fwd_wgmma_kernel, paged_chunk_wgmma_kernel).
+template <int D, class L, class Policy>
+__device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
+                                        const Policy& pol, float scale_log2,
+                                        State<D>& st) {
+  Ring ring;
+  consume<D, L>(base, q_tile, pol, scale_log2, st, 0, ring);
 }
 
 // Row i (0: g, 1: g + 8) of this thread's output as bf16, divided by l

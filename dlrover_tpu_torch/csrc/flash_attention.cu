@@ -1,13 +1,14 @@
 // FlashAttention-2 forward and backward for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of dlrover_tpu/ops/pallas_attention.py:
-//   flash_fwd_wgmma_kernel      <- _fwd_kernel, bf16      (driven by _flash_fwd)
-//   flash_fwd_kernel            <- _fwd_kernel, f32
-//   flash_bwd_dq_kernel         <- _bwd_dq_kernel          (driven by _pallas_backward)
-//   flash_bwd_dkv_kernel        <- _bwd_dkv_kernel         (driven by _pallas_backward)
-//   flash_fwd_packed_kernel     <- _fwd_kernel_packed      (head_pack 2)
-//   flash_bwd_dq_packed_kernel  <- _bwd_dq_kernel_packed   (head_pack 2)
-//   flash_bwd_dkv_packed_kernel <- _bwd_dkv_kernel_packed  (head_pack 2)
+//   flash_fwd_wgmma_kernel         <- _fwd_kernel, bf16         (driven by _flash_fwd)
+//   flash_fwd_kernel               <- _fwd_kernel, f32
+//   flash_bwd_dq_kernel            <- _bwd_dq_kernel            (driven by _pallas_backward)
+//   flash_bwd_dkv_kernel           <- _bwd_dkv_kernel           (driven by _pallas_backward)
+//   flash_fwd_packed_wgmma_kernel  <- _fwd_kernel_packed, bf16  (head_pack 2)
+//   flash_fwd_packed_kernel        <- _fwd_kernel_packed, f32   (head_pack 2)
+//   flash_bwd_dq_packed_kernel     <- _bwd_dq_kernel_packed     (head_pack 2)
+//   flash_bwd_dkv_packed_kernel    <- _bwd_dkv_kernel_packed    (head_pack 2)
 // with the same arithmetic: scores s = (q . k) * scale in f32; masked
 // scores (causal q_pos >= k_pos aligned top-left, a sliding window
 // q_pos - k_pos < window, GLM prefix-LM keys k_pos < prefix[b] seen by every
@@ -22,48 +23,49 @@
 // What bounds it: operations. Causal attention at the training shapes
 // (B 8, S 1024, H 16, D 128) does 4 * B * H * S^2 * D / 2 = 3.4e10 FLOP in
 // the forward, ~100x its bytes over the card's ridge. So the products run
-// on the tensor cores. The bf16 one-head forward runs on the Hopper core
-// of attn_fwd_core.cuh (wgmma from shared-memory tiles that TMA fills
-// under the products, P kept in registers; see flash_fwd_wgmma_kernel
-// below), the only path to the card's full tensor-core rate. The other
-// bf16 kernels use mma.sync m16n8k16 with f32 accumulation. An f32 call
-// (the f32 model check) runs the mma.sync bodies' tiles through f32 FMAs
+// on the tensor cores. Both bf16 forwards run on the Hopper core of
+// attn_fwd_core.cuh (wgmma from shared-memory tiles that TMA fills under
+// the products, P kept in registers): flash_fwd_wgmma_kernel, a head and
+// 128 q rows a block, and flash_fwd_packed_wgmma_kernel, a persistent
+// kernel walking items of two heads and 64 q rows (see each below), the
+// only path to the card's full tensor-core rate. The other bf16 kernels
+// (the backward) use mma.sync m16n8k16 with f32 accumulation. An f32 call
+// (the f32 model checks) runs the mma.sync bodies' tiles through f32 FMAs
 // on the CUDA cores, with the same fragment layout, so both share one
 // body.
 //
-// Design. No block carries state to another: the forward gives each block
-// NH query heads of one batch element and one 64-row q tile and loops over
-// 64-key tiles inside; the dq kernel does the same; the dkv kernel gives
-// each block NH KV heads and one 64-key tile and loops over the query heads
-// of each KV head's group and over 32-row q tiles, so the GQA group sum of
-// dk/dv is a sum in registers and needs no atomics. Each head of a block
-// has a group of 4 warps; each warp owns 16 rows of its head's output tile
-// and keeps them in mma accumulator fragments. Tiles of Q, K, V and dO are
-// staged in shared memory with their rows padded by 16 bytes (conflict-free
-// fragment loads); P and dS go through a small per-warp buffer, which also
-// rounds them to the input type. The operand of a product that is read
-// along its rows (V in P.V, K in dS.K, dO in P^T.dO, Q in dS^T.Q) is loaded
-// with ldmatrix.trans. Tiles wholly above the causal diagonal or below the
+// The mma.sync bodies (the backward; the f32 forwards). No block carries
+// state to another: the forward gives each block NH query heads of one
+// batch element and one 64-row q tile and loops over 64-key tiles inside;
+// the dq kernel does the same; the dkv kernel gives each block NH KV heads
+// and one 64-key tile and loops over the query heads of each KV head's
+// group and over 32-row q tiles, so the GQA group sum of dk/dv is a sum in
+// registers and needs no atomics. Each head of a block has a group of 4
+// warps; each warp owns 16 rows of its head's output tile and keeps them in
+// mma accumulator fragments. Tiles of Q, K, V and dO are staged in shared
+// memory with their rows padded by 16 bytes (conflict-free fragment
+// loads); P and dS go through a small per-warp buffer, which also rounds
+// them to the input type. The operand of a product that is read along its
+// rows (V in P.V, K in dS.K, dO in P^T.dO, Q in dS^T.Q) is loaded with
+// ldmatrix.trans. Tiles wholly above the causal diagonal or below the
 // window, and outside the prefix, are skipped (_block_runs); tiles wholly
 // visible (under the diagonal, inside the prefix) only scale their scores;
 // the others are masked exactly per element, the ragged tail of S included,
-// so S need not be a multiple of a tile. The packed kernels' forward and
-// dkv double-buffer their streamed tiles with cp.async (below, kv_bufs);
-// pipelining the rest, wgmma and register-resident P are later work.
+// so S need not be a multiple of a tile. The packed bodies' forward and
+// dkv double-buffer their streamed tiles with cp.async (below, kv_bufs).
 //
 // Head packing (NH = 2, D = 64, MHA: the packed kernels). In the
 // [B, S, H, D] layout heads 2p and 2p + 1 are one contiguous run of 128
 // elements (256 bytes in bf16) of every row, so a packed block stages Q, K,
-// V and dO as [rows, 128] tiles in one coalesced pass by all 8 warps, where
-// the unpacked D = 64 kernel reads 128-byte pieces H * D * 2 bytes apart:
-// the card's counterpart of the TPU kernels' K/V DMA in pack-head batches.
-// Each warp group then computes one head from the shared tiles, so a warp
-// holds the registers of one head of 64 and an SM keeps the unpacked D = 64
-// kernels' 16 warps (two packed blocks). With an odd H the last pack's
-// second head does not exist: its block loads only the first head's
-// columns, and the second warp group joins the loads and barriers but
-// computes and writes nothing (the JAX wrapper zero-pads the heads
-// instead).
+// V and dO as [rows, 128] tiles in one coalesced pass by all 8 warps (the
+// bf16 forward: two adjacent TMA boxes a tile), where the unpacked D = 64
+// kernel reads 128-byte pieces H * D * 2 bytes apart: the card's
+// counterpart of the TPU kernels' K/V DMA in pack-head batches. Each warp
+// group then computes one head from the shared tiles. With an odd H the
+// last pack's second head does not exist: its block loads only the first
+// head's columns, and the second warp group takes part in the loads and
+// barriers but computes and writes nothing (the JAX wrapper zero-pads the
+// heads instead).
 //
 // Layouts as the JAX package's public functions: q, out, dq [B, Sq, H, D];
 // k, v, dk, dv [B, Sk, Hkv, D]; lse and delta [B, H, Sq] f32; prefix [B]
@@ -75,6 +77,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <type_traits>
 
@@ -875,19 +878,20 @@ __global__ void __launch_bounds__(kThreads2, 2)
 // pallas_call l.1039 in _flash_fwd l.887) for bf16. What bounds it: at
 // llama-1.4b's shape (B 8, S 1024, H 16, D 128, causal) the bytes (134 MB
 // read and written once: 40 us at the HBM rate) and the operations (3.4e10
-// FLOP: 35 us at the bf16 peak) are close; the mma.sync kernel ran 7x
-// that, short of the tensor-core rate, so the design goes for the rate:
-// attn_fwd_core.cuh's core (wgmma for Q.K^T and P.V, the online softmax
-// in registers) on a q tile of 128 rows (two consumer warpgroups of 64)
-// of one query head; GQA reads KV head
-// h / (H / Hkv), never repeated. The producer is one thread issuing TMA
-// copies of the K and V tiles of 128 keys ([128 keys, 64 columns] boxes
-// of a 4-d tensor map [B, Sk, Hkv, D], two a tile at D 128; keys past Sk
-// come in as zeros and are masked) into a ring of 3 stages. The key
-// tiles are key_tiles' (causal, window, prefix) for the block's 128 rows;
-// a warp skips the mask on a wholly visible tile and masks the others per
-// element, by allowed()'s rule. Blocks take q tiles from the last: causal
-// tiles late in the sequence do the most work.
+// FLOP: 35 us at the bf16 peak) are close, so the design goes for the
+// tensor-core rate: attn_fwd_core.cuh's core (wgmma for Q.K^T and P.V, the
+// online softmax in registers) on a q tile of 128 rows (two consumer
+// warpgroups of 64) of one query head; GQA reads KV head h / (H / Hkv),
+// never repeated. The producer is one thread issuing TMA copies of the K
+// and V tiles of 128 keys ([128 keys, 64 columns] boxes of a 4-d tensor
+// map [B, Sk, Hkv, D], two a tile at D 128; keys past Sk come in as zeros
+// and are masked) into a ring of 3 stages. The key tiles are key_tiles'
+// (causal, window, prefix) for the block's 128 rows; a warp skips the mask
+// on a wholly visible tile and masks the others per element, by
+// allowed()'s rule. Blocks take q tiles from the last: causal tiles late
+// in the sequence do the most work. (The packed kernel below masks by a
+// range of keys a row, which took its masked tiles' softmax from ~5k
+// cycles to the unmasked tiles' cost; this kernel keeps allowed().)
 
 namespace ac = attn_core;
 
@@ -989,6 +993,244 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 forward of two packed heads of 64 on the tensor-core core
+// ---------------------------------------------------------------------------
+//
+// flash_fwd_packed_wgmma_kernel replaces _fwd_kernel_packed
+// (pallas_attention.py l.278; pallas_call l.1039) for bf16: a work item is
+// two heads of 64 of one batch element and a tile of 64 q rows, the mask
+// computed once for both heads. What bounds it: at gpt2-1.5b's shape (B 8,
+// S 1024, H 25, D 64, causal) the bytes (106 MB read and written once:
+// 32 us at the HBM rate) and the operations (2.7e10 FLOP: 27 us at the
+// bf16 peak) are close, so, as for K1, the design goes for the tensor-core
+// rate on attn_fwd_core.cuh's core.
+//
+// Persistent: one block an SM takes items from a counter in device memory
+// in the order of the hardware's block scheduler (pack by pack, each
+// pack's q tiles from the last: the causal items that do the most work
+// first, and the blocks at work at once read few heads' K/V, which stay
+// in L2), and its K/V ring runs on from one item into the next. The last
+// block to finish resets the counter, so launches must follow each other
+// on one stream. The producer thread takes the item, publishes it beside
+// its Q slot and loads both heads' Q tiles ([64 rows, 64 columns] TMA
+// boxes, into one of two Q slots on that slot's barrier, once the
+// consumers have released the slot's previous item), then, per
+// 128-key stage, four TMA boxes of [128 keys, 64 columns] from the D 64
+// tensor maps: K and V of heads 2p and 2p + 1, which lays the stage out
+// exactly as a D 128 stage (ac::Layout<128, 128, .>), column block j
+// holding head 2p + j; then an end Meta. So an item's Q and first tiles
+// land while the consumers still finish the previous item, and its output
+// stores run under the next item's loads. Consumer warpgroup j computes
+// head 2p + j from its column block (consume()'s kv_off) with the core's
+// arithmetic (p rounded to bf16 before P.V, l summing the unrounded p,
+// l == 0 -> 1) and writes lse [B, H, Sq] f32 as K2p reads it. The key
+// tiles are key_tiles' for the item's rows, shared by both heads. With an
+// odd H the last pack has one head: its producer loads only that head's
+// boxes (half the expected bytes), and the second consumer computes and
+// writes nothing but still takes and releases each of the item's stages
+// and its Q slot, so every barrier counts both consumers' arrivals.
+//
+// The mask (RangeMask) is one range of keys [lo, hi) a row, computed once
+// an item, so a masked tile costs two compares and a select a score: the
+// per-element rule of allowed(), compiled with its branches, took the
+// softmax of a masked tile (one in 4.5 at gpt2's shape) to ~5k cycles.
+
+constexpr int kPackBQ = ac::kRows;  // q rows a packed item (both heads)
+
+// The keys a row sees are one range: causal, [max(0, q - window + 1),
+// max(prefix, q + 1)) (a window and a prefix exclude each other), else
+// [0, Sk); cut to [0, Sk), and empty for rows past Sq. whole(): every row
+// of this warp sees every key of the tile.
+struct RangeMask {
+  int lo[2], hi[2];  // this thread's rows
+  int wlo, whi;      // keys every row of this warp sees: [wlo, whi)
+  __device__ __forceinline__ void init(const Args& a, int pref, int q0warp,
+                                       const int (&row)[2]) {
+    auto lo_of = [&](int q) {
+      return a.causal && a.window ? q - a.window + 1 : 0;
+    };
+    auto hi_of = [&](int q) {
+      if (q >= a.Sq) return 0;
+      return a.causal ? min(a.Sk, max(pref, q + 1)) : a.Sk;
+    };
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      lo[i] = lo_of(row[i]);
+      hi[i] = hi_of(row[i]);
+    }
+    // lo grows and hi never falls with the row: the warp's last row
+    // bounds lo, its first bounds hi; a warp reaching past Sq sees none
+    wlo = lo_of(q0warp + 15);
+    whi = q0warp + 16 > a.Sq ? 0 : hi_of(q0warp);
+  }
+  __device__ __forceinline__ bool whole(const ac::Meta& mt) const {
+    return mt.k0 >= wlo && mt.k0 + kTcBK <= whi;
+  }
+  __device__ __forceinline__ bool allowed(const ac::Meta& mt, int i,
+                                          int col) const {
+    const int kp = mt.k0 + col;
+    return (kp >= lo[i]) & (kp < hi[i]);
+  }
+};
+
+// extra: the Q slots' full and empty barriers, then their item numbers
+using PackedLayout = ac::Layout<2 * kPackD, kTcBK, 48>;
+
+// The item counter (next item, blocks done) of the packed forward.
+__device__ unsigned int g_packed_work[2];
+
+// Work item w of the packed forward: batch element, first head, heads
+// (2, or 1 in an odd H's last pack), first q row.
+struct PackedItem {
+  int b, h0, nh, q0;
+  __device__ __forceinline__ PackedItem(const Args& a, int w) {
+    const int packs = (a.H + 1) / 2;
+    const int n_qt = (a.Sq + kPackBQ - 1) / kPackBQ;
+    const int bp = w / n_qt;
+    q0 = (n_qt - 1 - w % n_qt) * kPackBQ;
+    b = bp / packs;
+    h0 = (bp % packs) * 2;
+    nh = min(2, a.H - h0);
+  }
+};
+
+__device__ __forceinline__ int packed_items(const Args& a) {
+  return (a.Sq + kPackBQ - 1) / kPackBQ * a.B * ((a.H + 1) / 2);
+}
+
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_fwd_packed_wgmma_kernel(const Args a,
+                                  const __grid_constant__ CUtensorMap qm,
+                                  const __grid_constant__ CUtensorMap km,
+                                  const __grid_constant__ CUtensorMap vm) {
+  using L = PackedLayout;
+  const uint32_t base = ac::smem_base();
+  // Q slot s: tiles of heads 0 and 1 at q + (2 s + j) * 8 KB; filled on
+  // q_full(s), released on q_empty(s) by every consumer thread
+  auto q_full = [&](int s) { return base + L::extra + 8 * s; };
+  auto q_empty = [&](int s) { return base + L::extra + 16 + 8 * s; };
+  auto q_tile = [&](int s, int j) {
+    return base + L::q + (2 * s + j) * kPackBQ * 128;
+  };
+  auto item_of = [&](int s) {
+    return reinterpret_cast<volatile int*>(
+        ac::smem_ptr(base + L::extra + 32 + 4 * s));
+  };
+  if (threadIdx.x == 0) {  // fenced and synced by init_barriers
+    for (int s = 0; s < 2; ++s) {
+      ac::mbar_init(q_full(s), 1);
+      ac::mbar_init(q_empty(s), 128 * ac::kConsumers);
+    }
+  }
+  ac::init_barriers<L>(base, 1);
+  const int wg = threadIdx.x / 128;
+  const int items = packed_items(a);
+  ac::Ring ring;
+  if (wg == 0) {
+    ac::setmaxnreg_dec<40>();
+    if (threadIdx.x != 0) return;
+    for (int n = 0;; ++n) {
+      const int w = atomicAdd(&g_packed_work[0], 1u);
+      const int s = n & 1;
+      if (n >= 2) ac::mbar_wait(q_empty(s), ((n >> 1) - 1) & 1);
+      *item_of(s) = w;
+      if (w >= items) {  // no work left: the consumers see w and stop
+        ac::mbar_arrive(q_full(s));
+        break;
+      }
+      const PackedItem it(a, w);
+      ac::mbar_arrive_tx(q_full(s), it.nh * kPackBQ * 128);
+      for (int j = 0; j < it.nh; ++j)
+        ac::tma_load_4d(q_tile(s, j), &qm, q_full(s), 0, it.h0 + j, it.q0,
+                        it.b);
+      int kt0, kt1;
+      key_tiles(a, prefix_of(a, it.b), it.q0, kPackBQ, kTcBK, &kt0, &kt1);
+      for (int kt = kt0; kt < kt1; ++kt) {
+        ac::wait_empty<L>(base, ring);
+        ac::write_meta<L>(base, ring.stage, kt * kTcBK, ~0ull);
+        const uint32_t full = base + L::full + 8 * ring.stage;
+        ac::mbar_arrive_tx(full, it.nh * 2 * kTcBK * 128);
+        for (int j = 0; j < it.nh; ++j) {
+          const uint32_t off = j * kTcBK * 128;
+          ac::tma_load_4d(L::k_tile(base, ring.stage) + off, &km, full, 0,
+                          it.h0 + j, kt * kTcBK, it.b);
+          ac::tma_load_4d(L::v_tile(base, ring.stage) + off, &vm, full, 0,
+                          it.h0 + j, kt * kTcBK, it.b);
+        }
+        ring.advance();
+      }
+      ac::wait_empty<L>(base, ring);
+      ac::write_meta<L>(base, ring.stage, -1, 0);
+      ac::mbar_arrive(base + L::full + 8 * ring.stage);
+      ring.advance();
+    }
+    // the last block out resets the counter for the next launch
+    if (atomicAdd(&g_packed_work[1], 1u) == gridDim.x - 1) {
+      g_packed_work[0] = 0;
+      g_packed_work[1] = 0;
+    }
+    return;
+  }
+  ac::setmaxnreg_inc<232>();
+  const int j = wg - 1;  // this consumer's head: h0 + j
+  const int ct = threadIdx.x - 128 * wg;
+  const int warp = ct / 32, lane = ct % 32, g = lane >> 2, t = lane & 3;
+  const size_t qs = (size_t)a.H * kPackD;
+  for (int n = 0;; ++n) {
+    const int s = n & 1;
+    ac::mbar_wait(q_full(s), (n >> 1) & 1);
+    const int w = *item_of(s);
+    if (w >= items) break;
+    const PackedItem it(a, w);
+    if (j >= it.nh) {
+      // a ragged pack's absent head: take and release the item's stages,
+      // up to and with its end Meta, and its Q slot
+      for (;;) {
+        ac::mbar_wait(base + L::full + 8 * ring.stage, ring.phase);
+        const bool end = reinterpret_cast<const ac::Meta*>(
+                             ac::smem_ptr(base + L::meta + 16 * ring.stage))
+                             ->k0 < 0;
+        ac::mbar_arrive(base + L::empty + 8 * ring.stage);
+        ring.advance();
+        if (end) break;
+      }
+      ac::mbar_arrive(q_empty(s));
+      continue;
+    }
+    const int h = it.h0 + j;
+    const int q0warp = it.q0 + warp * 16;
+    const int row[2] = {q0warp + g, q0warp + g + 8};
+    RangeMask pol;
+    pol.init(a, prefix_of(a, it.b), q0warp, row);
+    ac::State<kPackD> st;
+    ac::consume<kPackD, L>(base, q_tile(s, j), pol, a.scale * ac::kLog2e, st,
+                           j * kTcBK * 128, ring);
+    // the end Meta's stage and the Q slot, released
+    ac::mbar_arrive(base + L::empty + 8 * ring.stage);
+    ring.advance();
+    ac::mbar_arrive(q_empty(s));
+    bf16* og = static_cast<bf16*>(const_cast<void*>(a.out)) +
+               ((size_t)it.b * a.Sq * a.H + h) * kPackD;
+    float* lg =
+        const_cast<float*>(a.lse) + ((size_t)it.b * a.H + h) * a.Sq;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= a.Sq) continue;
+      // l == 0 -> 1: a row that saw no key is exactly 0
+      const float l = st.l[i] == 0.f ? 1.f : st.l[i];
+      const float inv = 1.f / l;
+      bf16* dst = og + (size_t)row[i] * qs;
+#pragma unroll
+      for (int nt = 0; nt < kPackD / 8; ++nt)
+        *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8 + 2 * t) =
+            __floats2bfloat162_rn(st.o[nt * 4 + 2 * i] * inv,
+                                  st.o[nt * 4 + 2 * i + 1] * inv);
+      if (t == 0) lg[row[i]] = st.m[i] * a.scale + logf(l);
+    }
+  }
+}
+
 // cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -1015,17 +1257,17 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [B, S, Hkv, D] bf16 as a 4-d tensor map of [kTcBK keys, 64 columns]
-// boxes in the 128-byte swizzle.
+// [B, S, Hkv, D] bf16 as a 4-d tensor map of [rows, 64 columns] boxes
+// (rows: kTcBK keys, or a Q tile's 64 rows) in the 128-byte swizzle.
 bool kv_tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int Hkv,
-                   int D) {
+                   int D, int rows = kTcBK) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hkv, (cuuint64_t)S,
                               (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)Hkv * D * 2,
                                  (cuuint64_t)S * Hkv * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kTcBK, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, elem,
@@ -1047,6 +1289,35 @@ cudaError_t run_fwd_wgmma(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Sq + kTcBQ - 1) / kTcBQ, a.B * a.H);
   kernel<<<grid, ac::block_threads(1), L::alloc, stream>>>(a, km, vm);
+  return cudaGetLastError();
+}
+
+// The SMs of the current device, cached per device.
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
+cudaError_t run_fwd_packed_wgmma(const Args& a, cudaStream_t stream) {
+  using L = PackedLayout;
+  CUtensorMap qm, km, vm;
+  if (!kv_tensor_map(&qm, a.q, a.B, a.Sq, a.H, kPackD, kPackBQ) ||
+      !kv_tensor_map(&km, a.k, a.B, a.Sk, a.Hkv, kPackD) ||
+      !kv_tensor_map(&vm, a.v, a.B, a.Sk, a.Hkv, kPackD))
+    return cudaErrorInvalidValue;
+  auto kernel = flash_fwd_packed_wgmma_kernel;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::alloc);
+  if (err != cudaSuccess) return err;
+  // one block an SM (the block takes the SM's shared memory), never more
+  // than there are items
+  const int items = (a.Sq + kPackBQ - 1) / kPackBQ * a.B * ((a.H + 1) / 2);
+  const int blocks = std::min(items, std::max(1, sm_count()));
+  kernel<<<blocks, ac::block_threads(1), L::alloc, stream>>>(a, qm, km, vm);
   return cudaGetLastError();
 }
 
@@ -1097,8 +1368,12 @@ cudaError_t run_packed(int which, const Args& a, cudaStream_t stream) {
   const dim3 kv_grid((a.Sk + kKvBK - 1) / kKvBK, a.B * packs);
   switch (which) {
     case 0:
-      return launch(flash_fwd_packed_kernel<T>, q_grid, kThreads2,
-                    fwd_smem<T, W, 2>(), a, stream);
+      // the packed forward on mma.sync tiles serves f32 only; bf16 runs
+      // flash_fwd_packed_wgmma_kernel
+      if constexpr (std::is_same<T, float>::value)
+        return launch(flash_fwd_packed_kernel<T>, q_grid, kThreads2,
+                      fwd_smem<T, W, 2>(), a, stream);
+      return cudaErrorInvalidValue;
     case 1:
       return launch(flash_bwd_dq_packed_kernel<T>, q_grid, kThreads2,
                     dq_smem<T, W, 2>(), a, stream);
@@ -1112,8 +1387,9 @@ cudaError_t run_packed(int which, const Args& a, cudaStream_t stream) {
 
 // Forward kernel ids (the wrapper names the one to launch).
 constexpr int kFwdOneHead = 0;  // flash_fwd_kernel: f32
-constexpr int kFwdPacked = 1;   // flash_fwd_packed_kernel: f32, bf16
+constexpr int kFwdPacked = 1;   // flash_fwd_packed_kernel: f32
 constexpr int kFwdWgmma = 2;    // flash_fwd_wgmma_kernel: bf16
+constexpr int kFwdPackedWgmma = 3;  // flash_fwd_packed_wgmma_kernel: bf16
 
 bool valid(const Args& a) {
   if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Hkv <= 0 || a.H % a.Hkv ||
@@ -1151,8 +1427,10 @@ extern "C" {
 // cudaError_t (0 = launched).
 //
 // kernel (forward): 0 = flash_fwd_kernel (a head a block, f32), 1 =
-// flash_fwd_packed_kernel (two heads of 64 a block; MHA, any H; f32 or
-// bf16), 2 = flash_fwd_wgmma_kernel (a head a block, bf16).
+// flash_fwd_packed_kernel (two heads of 64 a block; MHA, any H; f32), 2 =
+// flash_fwd_wgmma_kernel (a head a block, bf16), 3 =
+// flash_fwd_packed_wgmma_kernel (two heads of 64 a block; MHA, any H;
+// bf16).
 int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, const int* prefix, int B, int Sq, int Sk,
                       int H, int Hkv, int D, float scale, int causal,
@@ -1173,6 +1451,10 @@ int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* out,
       if (D == 64) return run_fwd_wgmma<64>(a, st);
       return cudaErrorInvalidValue;
     }
+    case kFwdPackedWgmma:
+      if (dtype != 1 || D != kPackD || a.H != a.Hkv || !valid(a))
+        return cudaErrorInvalidValue;
+      return run_fwd_packed_wgmma(a, static_cast<cudaStream_t>(stream));
     default:
       return cudaErrorInvalidValue;
   }

@@ -15,16 +15,33 @@
 //
 // What bounds it: bytes. A row of d elements costs a few FLOP per element
 // against 2-4 bytes moved, far below the card's ~295 FLOP/byte ridge. The
-// design moves each byte once: one warp owns one row, reads it with 16-byte
-// vector loads (8 bf16 or 4 f32 per lane per load), keeps it in registers
-// between the statistics and the output (NV vectors per lane, chosen at
-// launch from d), and writes each output once. The backward's column sums
-// (dscale, dbias) accumulate per warp in shared memory and leave each block
-// as one partial row, so no atomics are needed and the partials stay small
-// ([n / 32, d] at 32 rows a block). The backward runs 8 warps a block
-// unless their dscale (+ dbias) rows pass the 227 KB of shared memory a
-// block can have, as layernorm with a bias does at d > 3632 (glm-10b's
-// 4096: 256 KB); then it runs 4.
+// design moves each byte once, with 16-byte vector accesses (8 bf16 or 4
+// f32 a lane) and each row held in registers between its statistics and
+// its output.
+//
+// Forward: a persistent grid (as many blocks of 8 warps as the card holds
+// at once), in which a group of G warps owns a row and walks rows
+// gridDim.x * 8 / G apart, issuing the next row's loads before this row's
+// reduction and stores, so every warp keeps loads in flight. The wrapper
+// plans G and the vectors a lane, NV (ops/norm.py fwd_plan): the fewest
+// warps that hold the row at 2 vectors a lane (4 with a residual, whose
+// lanes also hold the residual's vectors), so a row is spread over many
+// small loads: at bf16 d 2048 four warps, at d 4096 eight (the plans the
+// H100 ran fastest at the training widths, PERF.md). The G warps of a row
+// add their partial sums through shared memory in one order, so each
+// computes the same statistics. scale (and bias) are staged in shared
+// memory once per block, as float4 chunks a warp reads without bank
+// conflicts: the output loop reads them with 16-byte loads, where one
+// thread used to read them as scalar global loads, twice the loads of its
+// row's own traffic.
+//
+// Backward: one warp owns one row (NV vectors a lane, chosen at launch
+// from d). Its column sums (dscale, dbias) accumulate per warp in shared
+// memory and leave each block as one partial row, so no atomics are needed
+// and the partials stay small ([n / 32, d] at 32 rows a block). It runs 8
+// warps a block unless their dscale (+ dbias) rows pass the 227 KB of
+// shared memory a block can have, as layernorm with a bias does at d >
+// 3632 (glm-10b's 4096: 256 KB); then it runs 4.
 //
 // Interface: plain C functions launched on the caller's stream; they
 // allocate nothing and return cudaGetLastError() after the launch.
@@ -32,11 +49,12 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 
 namespace {
 
-constexpr int kWarps = 8;          // rows in flight per block
+constexpr int kWarps = 8;          // backward: rows in flight per block
 constexpr int kBwdRowsPerBlock = 32;
 constexpr size_t kMaxSmem = 227 * 1024;  // dynamic shared memory a block
 
@@ -79,67 +97,144 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// forward: one warp per row; lane holds vectors lane, lane + 32, ...
+// forward: G warps per row, each warp walking rows; scale and bias staged
+// in shared memory once per block
 // ---------------------------------------------------------------------------
 
-template <typename T, bool RMS, bool RES, bool BIAS, int NV>
-__global__ void __launch_bounds__(kWarps * 32)
+constexpr int kFwdWarps = 8;  // warps per forward block
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// This lane's vectors of row `row` (x, and res with a residual): no
+// lambda, so the kernel's parameters are never taken by address (which
+// would turn each read of one into a load from memory).
+template <typename T, bool RES, int NV, int G>
+__device__ __forceinline__ void load_row(const T* __restrict__ x,
+                                         const T* __restrict__ res, int row,
+                                         int d, int lg, Vec<T> (&xv)[NV],
+                                         Vec<T> (&rv)[NV]) {
+  constexpr int VEC = Vec<T>::N;
+  const size_t base = (size_t)row * d;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) {
+    const int vi = lg + 32 * G * j;
+    if (vi < d / VEC) {
+      xv[j] = load_vec(x + base + vi * VEC);
+      if constexpr (RES) rv[j] = load_vec(res + base + vi * VEC);
+    }
+  }
+}
+
+// Lane L of a row's G warps (L = 32 * part + lane) holds the row's 16-byte
+// vectors L, L + 32 G, ..., NV of them at most. The f32 scale (and bias)
+// of vector vi sit in shared memory as VEC / 4 float4 chunks, chunk k at
+// [k * n_vec + vi], so a warp's lanes read consecutive float4s.
+template <typename T, bool RMS, bool RES, bool BIAS, int NV, int G>
+__global__ void __launch_bounds__(kFwdWarps * 32)
     norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ res,
                     const float* __restrict__ scale,
                     const float* __restrict__ bias, T* __restrict__ out,
                     T* __restrict__ h_out, int n, int d, float eps) {
   constexpr int VEC = Vec<T>::N;
+  constexpr int CH = VEC / 4;          // float4 chunks of scale a vector
+  constexpr int GROUPS = kFwdWarps / G;  // rows in flight a block
+  extern __shared__ float4 cols[];     // scale, then bias: [CH][n_vec]
+  __shared__ float2 red[2][kFwdWarps];  // (s1, s2) of each warp, by parity
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + warp;
-  if (row >= n) return;
-  const size_t base = (size_t)row * d;
+  const int grp = warp / G, part = warp % G;
+  const int lg = part * 32 + lane;
   const int n_vec = d / VEC;
-  Vec<T> hv[NV];
-  float s1 = 0.f, s2 = 0.f;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int vi = lane + 32 * j;
-    if (vi >= n_vec) break;
-    hv[j] = load_vec(x + base + vi * VEC);
-    if constexpr (RES) {
-      const Vec<T> rv = load_vec(res + base + vi * VEC);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e)  // the add in the input type
-        hv[j].e[e] = from_f32<T>(to_f32(hv[j].e[e]) + to_f32(rv.e[e]));
-      store_vec(h_out + base + vi * VEC, hv[j]);
-    }
-#pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const float f = to_f32(hv[j].e[e]);
-      s1 += f;
-      s2 += f * f;
-    }
+  float4* sc = cols;
+  float4* bi = cols + CH * n_vec;
+  for (int i = threadIdx.x; i < CH * n_vec; i += kFwdWarps * 32) {
+    const int vi = i / CH, k = i % CH;
+    sc[k * n_vec + vi] = reinterpret_cast<const float4*>(scale)[i];
+    if constexpr (BIAS)
+      bi[k * n_vec + vi] = reinterpret_cast<const float4*>(bias)[i];
   }
-  s2 = warp_sum(s2);
-  float mean = 0.f, r;
-  if constexpr (RMS) {
-    r = rsqrtf(s2 / d + eps);
-  } else {
-    s1 = warp_sum(s1);
-    mean = s1 / d;
-    const float var = fmaxf(s2 / d - mean * mean, 0.f);
-    r = rsqrtf(var + eps);
-  }
+  __syncthreads();
+
+  Vec<T> xv[NV], rv[NV];
+  const int stride = gridDim.x * GROUPS;
+  int row = blockIdx.x * GROUPS + grp;
+  if (row < n) load_row<T, RES, NV, G>(x, res, row, d, lg, xv, rv);
+  for (int it = 0; row < n; row += stride, ++it) {
+    const size_t base = (size_t)row * d;
+    Vec<T> hv[NV];
+    float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int vi = lane + 32 * j;
-    if (vi >= n_vec) break;
-    Vec<T> ov;
+    for (int j = 0; j < NV; ++j) {
+      const int vi = lg + 32 * G * j;
+      if (vi >= n_vec) break;
+      hv[j] = xv[j];
+      if constexpr (RES) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) {
-      const int c = vi * VEC + e;
-      float y = RMS ? to_f32(hv[j].e[e]) * r
-                    : (to_f32(hv[j].e[e]) - mean) * r;
-      y = y * scale[c];
-      if constexpr (BIAS) y = y + bias[c];
-      ov.e[e] = from_f32<T>(y);
+        for (int e = 0; e < VEC; ++e)  // the add in the input type
+          hv[j].e[e] = from_f32<T>(to_f32(hv[j].e[e]) + to_f32(rv[j].e[e]));
+        store_vec(h_out + base + vi * VEC, hv[j]);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float f = to_f32(hv[j].e[e]);
+        s1 += f;
+        s2 += f * f;
+      }
     }
-    store_vec(out + base + vi * VEC, ov);
+    // the next row's loads, in flight under this row's sums and stores
+    if (row + stride < n)
+      load_row<T, RES, NV, G>(x, res, row + stride, d, lg, xv, rv);
+    s2 = warp_sum(s2);
+    if constexpr (!RMS) s1 = warp_sum(s1);
+    if constexpr (G > 1) {
+      // the row's G partials, summed in the same order by every warp
+      if (lane == 0) red[it & 1][warp] = make_float2(s1, s2);
+      named_sync(1 + grp, 32 * G);
+      s1 = s2 = 0.f;
+#pragma unroll
+      for (int w = 0; w < G; ++w) {
+        const float2 p = red[it & 1][grp * G + w];
+        s1 += p.x;
+        s2 += p.y;
+      }
+    }
+    float mean = 0.f, r;
+    if constexpr (RMS) {
+      r = rsqrtf(s2 / d + eps);
+    } else {
+      mean = s1 / d;
+      const float var = fmaxf(s2 / d - mean * mean, 0.f);
+      r = rsqrtf(var + eps);
+    }
+#pragma unroll
+    for (int j = 0; j < NV; ++j) {
+      const int vi = lg + 32 * G * j;
+      if (vi >= n_vec) break;
+      Vec<T> ov;
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        const float4 s4 = sc[k * n_vec + vi];
+        const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+        float bv[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (BIAS) {
+          const float4 b4 = bi[k * n_vec + vi];
+          bv[0] = b4.x;
+          bv[1] = b4.y;
+          bv[2] = b4.z;
+          bv[3] = b4.w;
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float hf = to_f32(hv[j].e[4 * k + e]);
+          float y = RMS ? hf * r : (hf - mean) * r;
+          y = y * sv[e];
+          if constexpr (BIAS) y = y + bv[e];
+          ov.e[4 * k + e] = from_f32<T>(y);
+        }
+      }
+      store_vec(out + base + vi * VEC, ov);
+    }
   }
 }
 
@@ -288,16 +383,73 @@ cudaError_t launch_bwd(const Call& k, size_t smem, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <typename T, bool RMS, bool RES, bool BIAS, int NV>
-cudaError_t launch_one(bool fwd, const Call& k, cudaStream_t st) {
-  if (fwd) {
-    const dim3 grid((k.n + kWarps - 1) / kWarps);
-    norm_fwd_kernel<T, RMS, RES, BIAS, NV><<<grid, kWarps * 32, 0, st>>>(
-        static_cast<const T*>(k.a), static_cast<const T*>(k.b), k.scale,
-        k.bias, static_cast<T*>(k.out), static_cast<T*>(k.h_out), k.n, k.d,
-        k.eps);
-    return cudaGetLastError();
+// The SMs of the current device, cached per device.
+int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev);
+  return counts[dev];
+}
+
+// The forward: a persistent grid of as many blocks as fit on the card at
+// once (each group of G warps walks rows), never more than the rows need.
+template <typename T, bool RMS, bool RES, bool BIAS, int NV, int G>
+cudaError_t launch_fwd(const Call& k, cudaStream_t st) {
+  auto kernel = norm_fwd_kernel<T, RMS, RES, BIAS, NV, G>;
+  const size_t smem = sizeof(float) * (BIAS ? 2 : 1) * k.d;
+  // blocks an SM at this shared-memory size, cached for the last d
+  static int last_d = -1, per_sm = 0;
+  if (k.d != last_d) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kFwdWarps * 32, smem);
+    if (err != cudaSuccess) return err;
+    last_d = k.d;
   }
+  constexpr int groups = kFwdWarps / G;
+  const int need = (k.n + groups - 1) / groups;
+  const int blocks = std::min(need, std::max(1, per_sm * sm_count()));
+  kernel<<<blocks, kFwdWarps * 32, smem, st>>>(
+      static_cast<const T*>(k.a), static_cast<const T*>(k.b), k.scale,
+      k.bias, static_cast<T*>(k.out), static_cast<T*>(k.h_out), k.n, k.d,
+      k.eps);
+  return cudaGetLastError();
+}
+
+// The forward's plan from the wrapper (ops/norm.py fwd_plan): G warps a
+// row (1, 2, 4 or 8) and NV vectors a lane (1, 2 or 4), covering the row.
+template <typename T, bool RMS, bool RES, bool BIAS>
+cudaError_t pick_plan(int warps_per_row, int nv, const Call& k,
+                      cudaStream_t st) {
+  const int n_vec = k.d / Vec<T>::N;
+  if (n_vec > 32 * warps_per_row * nv) return cudaErrorInvalidValue;
+  switch (warps_per_row * 10 + nv) {
+    case 11:
+      return launch_fwd<T, RMS, RES, BIAS, 1, 1>(k, st);
+    case 12:
+      return launch_fwd<T, RMS, RES, BIAS, 2, 1>(k, st);
+    case 14:
+      return launch_fwd<T, RMS, RES, BIAS, 4, 1>(k, st);
+    case 22:
+      return launch_fwd<T, RMS, RES, BIAS, 2, 2>(k, st);
+    case 24:
+      return launch_fwd<T, RMS, RES, BIAS, 4, 2>(k, st);
+    case 42:
+      return launch_fwd<T, RMS, RES, BIAS, 2, 4>(k, st);
+    case 44:
+      return launch_fwd<T, RMS, RES, BIAS, 4, 4>(k, st);
+    case 82:
+      return launch_fwd<T, RMS, RES, BIAS, 2, 8>(k, st);
+    case 84:
+      return launch_fwd<T, RMS, RES, BIAS, 4, 8>(k, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, bool RMS, bool RES, bool BIAS, int NV>
+cudaError_t launch_one(const Call& k, cudaStream_t st) {
   // the dscale (+ dbias) rows of kWarps warps; 4 warps where they do not
   // fit (only rows of more than 8 vectors a lane can pass the limit)
   const size_t row_bytes = sizeof(float) * (BIAS ? 2 : 1) * k.d;
@@ -309,42 +461,54 @@ cudaError_t launch_one(bool fwd, const Call& k, cudaStream_t st) {
                                                     st);
 }
 
+// The backward's vectors a lane, from d.
 template <typename T, bool RMS, bool RES, bool BIAS>
-cudaError_t pick_nv(bool fwd, const Call& k, cudaStream_t st) {
+cudaError_t pick_nv(const Call& k, cudaStream_t st) {
   const int per_lane = (k.d / Vec<T>::N + 31) / 32;
-  if (per_lane <= 1) return launch_one<T, RMS, RES, BIAS, 1>(fwd, k, st);
-  if (per_lane <= 2) return launch_one<T, RMS, RES, BIAS, 2>(fwd, k, st);
-  if (per_lane <= 4) return launch_one<T, RMS, RES, BIAS, 4>(fwd, k, st);
-  if (per_lane <= 8) return launch_one<T, RMS, RES, BIAS, 8>(fwd, k, st);
-  if (per_lane <= 16) return launch_one<T, RMS, RES, BIAS, 16>(fwd, k, st);
+  if (per_lane <= 1) return launch_one<T, RMS, RES, BIAS, 1>(k, st);
+  if (per_lane <= 2) return launch_one<T, RMS, RES, BIAS, 2>(k, st);
+  if (per_lane <= 4) return launch_one<T, RMS, RES, BIAS, 4>(k, st);
+  if (per_lane <= 8) return launch_one<T, RMS, RES, BIAS, 8>(k, st);
+  if (per_lane <= 16) return launch_one<T, RMS, RES, BIAS, 16>(k, st);
   // 32 vectors a lane only in f32, for d 2049-4096 (glm-10b's width):
   // no bf16 path runs them, only the f32 model check (train_model_glm)
   if constexpr (sizeof(T) == 4) {
-    if (per_lane <= 32) return launch_one<T, RMS, RES, BIAS, 32>(fwd, k, st);
+    if (per_lane <= 32) return launch_one<T, RMS, RES, BIAS, 32>(k, st);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
-cudaError_t pick_kind(bool fwd, int rms, int res, int bias, const Call& k,
-                      cudaStream_t st) {
-  if (rms) {
-    return res ? pick_nv<T, true, true, false>(fwd, k, st)
-               : pick_nv<T, true, false, false>(fwd, k, st);
-  }
-  if (bias)
-    return res ? pick_nv<T, false, true, true>(fwd, k, st)
-               : pick_nv<T, false, false, true>(fwd, k, st);
-  return res ? pick_nv<T, false, true, false>(fwd, k, st)
-             : pick_nv<T, false, false, false>(fwd, k, st);
+// The kernel's kind from the flags: fwd (with the plan) or bwd.
+template <typename T, bool RMS, bool RES, bool BIAS>
+cudaError_t pick(bool fwd, int warps_per_row, int nv, const Call& k,
+                 cudaStream_t st) {
+  return fwd ? pick_plan<T, RMS, RES, BIAS>(warps_per_row, nv, k, st)
+             : pick_nv<T, RMS, RES, BIAS>(k, st);
 }
 
-int dispatch(bool fwd, int rms, int res, int bias, int dtype, const Call& k,
-             void* stream) {
+template <typename T>
+cudaError_t pick_kind(bool fwd, int rms, int res, int bias, int warps_per_row,
+                      int nv, const Call& k, cudaStream_t st) {
+  const int w = warps_per_row;
+  if (rms) {
+    return res ? pick<T, true, true, false>(fwd, w, nv, k, st)
+               : pick<T, true, false, false>(fwd, w, nv, k, st);
+  }
+  if (bias)
+    return res ? pick<T, false, true, true>(fwd, w, nv, k, st)
+               : pick<T, false, false, true>(fwd, w, nv, k, st);
+  return res ? pick<T, false, true, false>(fwd, w, nv, k, st)
+             : pick<T, false, false, false>(fwd, w, nv, k, st);
+}
+
+int dispatch(bool fwd, int rms, int res, int bias, int dtype,
+             int warps_per_row, int nv, const Call& k, void* stream) {
   if (k.n <= 0 || k.d <= 0 || k.d % 8) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return pick_kind<bf16>(fwd, rms, res, bias, k, st);
-  if (dtype == 0) return pick_kind<float>(fwd, rms, res, bias, k, st);
+  if (dtype == 1)
+    return pick_kind<bf16>(fwd, rms, res, bias, warps_per_row, nv, k, st);
+  if (dtype == 0)
+    return pick_kind<float>(fwd, rms, res, bias, warps_per_row, nv, k, st);
   return cudaErrorInvalidValue;
 }
 
@@ -352,17 +516,18 @@ int dispatch(bool fwd, int rms, int res, int bias, int dtype, const Call& k,
 
 extern "C" {
 
-// Rows of d elements (d a multiple of 8 and at most 4096: 16 vectors of 16
-// bytes a lane in bf16, 32 in f32); dtype:
+// Rows of d elements (d a multiple of 8 and at most 4096); dtype:
 // 0 = float32, 1 = bfloat16 for x / res / out / h; scale and bias f32.
-// rms: 1 = rmsnorm, 0 = layernorm. Returns a cudaError_t (0 = launched).
+// rms: 1 = rmsnorm, 0 = layernorm. warps_per_row and nv: the wrapper's
+// plan (ops/norm.py fwd_plan). Returns a cudaError_t (0 = launched).
 int dlrover_norm_fwd(const void* x, const void* res, const float* scale,
                      const float* bias, void* out, void* h_out, int n, int d,
-                     float eps, int rms, int dtype, void* stream) {
+                     float eps, int rms, int dtype, int warps_per_row,
+                     int nv, void* stream) {
   Call k = {x, res, scale, bias, nullptr, out, h_out, nullptr, nullptr,
             n, d, eps};
-  return dispatch(true, rms, res != nullptr, bias != nullptr, dtype, k,
-                  stream);
+  return dispatch(true, rms, res != nullptr, bias != nullptr, dtype,
+                  warps_per_row, nv, k, stream);
 }
 
 // The partials ds_part / db_part are [ceil(n / 32), d] f32 (db_part only
@@ -373,8 +538,8 @@ int dlrover_norm_bwd(const void* g, const void* h, const float* scale,
                      void* stream) {
   Call k = {g, h, scale, nullptr, gh, dx, nullptr, ds_part, db_part,
             n, d, eps};
-  return dispatch(false, rms, gh != nullptr, db_part != nullptr, dtype, k,
-                  stream);
+  return dispatch(false, rms, gh != nullptr, db_part != nullptr, dtype, 0, 0,
+                  k, stream);
 }
 
 int dlrover_norm_bwd_rows_per_block() { return kBwdRowsPerBlock; }

@@ -10,10 +10,11 @@ Port of ``dlrover_tpu/ops/pallas_attention.py``:
   ``csrc/flash_attention.cu``, which replace the TPU kernels
   ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; with two
   heads of 64 packed per block (``head_pack``, auto for every MHA model
-  of head_dim 64) they launch
-  ``flash_fwd_packed_kernel``, ``flash_bwd_dq_packed_kernel`` and
-  ``flash_bwd_dkv_packed_kernel``, which replace ``_fwd_kernel_packed``,
-  ``_bwd_dq_kernel_packed`` and ``_bwd_dkv_kernel_packed``. On CPU
+  of head_dim 64) they launch ``flash_fwd_packed_wgmma_kernel`` (bf16, on
+  the same core) or ``flash_fwd_packed_kernel`` (f32), then
+  ``flash_bwd_dq_packed_kernel`` and ``flash_bwd_dkv_packed_kernel``,
+  which replace ``_fwd_kernel_packed``, ``_bwd_dq_kernel_packed`` and
+  ``_bwd_dkv_kernel_packed``. On CPU
   tensors the same autograd function runs the plain versions, whatever
   the pack (packing changes where heads run, not the numbers). There is
   no other path: a CUDA tensor launches the kernel or raises.
@@ -52,7 +53,7 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 #: the forward kernels the C entry point takes, by id
 FWD_CUDA_KERNELS = ("flash_fwd_kernel", "flash_fwd_packed_kernel",
-                    "flash_fwd_wgmma_kernel")
+                    "flash_fwd_wgmma_kernel", "flash_fwd_packed_wgmma_kernel")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -68,16 +69,17 @@ def reset_launches() -> None:
 
 
 def fwd_cuda_kernel(dtype, pack: int) -> str:
-    """The CUDA forward kernel for ``dtype`` at ``pack``: two heads of 64
-    a block, ``flash_fwd_packed_kernel``; one head a block in bf16, the
-    tensor-core core of ``csrc/attn_fwd_core.cuh``
-    (``flash_fwd_wgmma_kernel``); in f32, ``flash_fwd_kernel``. Each
-    counts under ``LAUNCHES["flash_fwd_packed"]`` or
-    ``LAUNCHES["flash_fwd"]``."""
+    """The CUDA forward kernel for ``dtype`` at ``pack``. In bf16 both
+    run on the tensor-core core of ``csrc/attn_fwd_core.cuh``: one head a
+    block ``flash_fwd_wgmma_kernel``, two heads of 64 a block
+    ``flash_fwd_packed_wgmma_kernel``. In f32 the mma.sync bodies'
+    ``flash_fwd_kernel`` and ``flash_fwd_packed_kernel``. Each counts
+    under ``LAUNCHES["flash_fwd"]`` or ``LAUNCHES["flash_fwd_packed"]``."""
+    bf16 = dtype == torch.bfloat16
     if pack == 2:
-        return "flash_fwd_packed_kernel"
-    return ("flash_fwd_wgmma_kernel" if dtype == torch.bfloat16
-            else "flash_fwd_kernel")
+        return ("flash_fwd_packed_wgmma_kernel" if bf16
+                else "flash_fwd_packed_kernel")
+    return "flash_fwd_wgmma_kernel" if bf16 else "flash_fwd_kernel"
 
 
 def head_pack_for(h: int, hkv: int, d: int, head_pack: int = 0) -> int:
@@ -273,9 +275,13 @@ def _ptr(t):
 def flash_fwd_cuda(q, k, v, *, causal, scale, window, prefix=None, pack=1):
     """The forward kernel on ``q``'s device and current stream → ``(out,
     lse)``: for ``pack`` 1 ``flash_fwd_wgmma_kernel`` (bf16) or
-    ``flash_fwd_kernel`` (f32), for ``pack`` 2 ``flash_fwd_packed_kernel``
-    (two heads of 64 per block, MHA, any head count); ``fwd_cuda_kernel``
-    picks. ``prefix``: ``[B]`` int32 on the device, or None."""
+    ``flash_fwd_kernel`` (f32), for ``pack`` 2
+    ``flash_fwd_packed_wgmma_kernel`` (bf16) or ``flash_fwd_packed_kernel``
+    (f32), two heads of 64 per block, MHA, any head count;
+    ``fwd_cuda_kernel`` picks. ``prefix``: ``[B]`` int32 on the device, or
+    None. ``flash_fwd_packed_wgmma_kernel`` is persistent and takes its
+    work from a counter in device memory that each launch resets at its
+    end, so its launches must not run on two streams at once."""
     b, sq, sk, h, hkv, d = _geometry(q, k, v, pack, prefix)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

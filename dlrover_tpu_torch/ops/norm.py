@@ -106,9 +106,31 @@ def norm_bwd_reference(g, h, scale, gh, kind, eps, has_bias):
 # ---------------------------------------------------------------------------
 
 _fns = {}
-# per-lane register budget of the kernels: 16 vectors of 16 bytes in bf16,
-# 32 in f32 (the f32 model checks at d_model 4096)
+# the widest rows the kernels take: the backward's per-lane register
+# budget, 16 vectors of 16 bytes in bf16, 32 in f32 (the f32 model checks
+# at d_model 4096)
 _MAX_D = {torch.bfloat16: 4096, torch.float32: 4096}
+#: vectors of 16 bytes a lane the forward plans for a row, at most:
+#: without and with a residual
+FWD_LANE_VECTORS = (2, 4)
+#: the forward's warps a row
+FWD_WARPS = (1, 2, 4, 8)
+
+
+def fwd_plan(d: int, dtype, residual: bool = False) -> tuple:
+    """``(warps_per_row, vectors_per_lane)`` of ``norm_fwd_kernel`` for
+    rows of ``d`` elements: the fewest of ``FWD_WARPS`` whose lanes hold
+    the row's 16-byte vectors at ``FWD_LANE_VECTORS`` a lane (8 warps
+    beyond that: f32 rows over 2048 elements without a residual), and the
+    vectors a lane rounded up to a power of two (the kernel's
+    instantiations). Spreading a row over many small loads ran fastest on
+    the H100 at the training widths (PERF.md)."""
+    n_vec = d // (16 // dtype.itemsize)
+    cap = FWD_LANE_VECTORS[bool(residual)]
+    warps = next((w for w in FWD_WARPS if n_vec <= 32 * w * cap),
+                 FWD_WARPS[-1])
+    per_lane = -(-n_vec // (32 * warps))
+    return warps, 1 << (per_lane - 1).bit_length()
 
 
 def _lib():
@@ -119,7 +141,7 @@ def _lib():
         lib = _build.load("fused_norm")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd = lib.dlrover_norm_fwd
-        fwd.argtypes = [p] * 6 + [i, i, f, i, i, p]
+        fwd.argtypes = [p] * 6 + [i, i, f, i, i, i, i, p]
         fwd.restype = i
         bwd = lib.dlrover_norm_bwd
         bwd.argtypes = [p] * 7 + [i, i, f, i, i, p]
@@ -151,7 +173,8 @@ def _geometry(x2):
 
 def norm_fwd_cuda(x2, scale, bias, res2, kind, eps):
     """``norm_fwd_kernel`` over rows ``[N, D]`` → ``(out, h)`` (``h`` is
-    ``x2`` itself without a residual)."""
+    ``x2`` itself without a residual), launched with ``fwd_plan``'s warps
+    a row and vectors a lane."""
     n, d = _geometry(x2)
     dev = x2.device
     _check_rows(x2, "x", x2.dtype, (n, d), dev)
@@ -168,6 +191,7 @@ def norm_fwd_cuda(x2, scale, bias, res2, kind, eps):
         scale.data_ptr(), bias.data_ptr() if bias is not None else None,
         out.data_ptr(), h.data_ptr() if res2 is not None else None,
         n, d, float(eps), int(kind == "rmsnorm"), _DTYPE_CODE[x2.dtype],
+        *fwd_plan(d, x2.dtype, res2 is not None),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"norm_fwd kernel launch failed: cudaError {err}")

@@ -174,7 +174,7 @@ def test_decode_and_verify_keep_their_kernels(no_card, dtype):
     (torch.bfloat16, 64, 1, "flash_fwd_wgmma_kernel"),
     (torch.float32, 128, 1, "flash_fwd_kernel"),
     (torch.float32, 64, 1, "flash_fwd_kernel"),
-    (torch.bfloat16, 64, 2, "flash_fwd_packed_kernel"),
+    (torch.bfloat16, 64, 2, "flash_fwd_packed_wgmma_kernel"),
     (torch.float32, 64, 2, "flash_fwd_packed_kernel")])
 def test_flash_forward_dispatch_by_dtype(no_card, dtype, d, pack, kernel):
     rng = np.random.default_rng(d + pack)

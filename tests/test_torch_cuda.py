@@ -562,7 +562,14 @@ def _check_flash(fa, q, k, v, go, out, lse, grads, kw, prefix, tol):
     # an odd head count: the last block holds one head
     (2, 256, 5, True, None), (1, 300, 3, False, None),
     # a prefix per sequence: none, mid-tile, past the end
-    (3, 200, 4, True, (0, 150, 500)), (2, 129, 7, True, (64, 1))])
+    (3, 200, 4, True, (0, 150, 500)), (2, 129, 7, True, (64, 1)),
+    # one head (a single ragged pack); gpt2-1.5b's 25 heads at S 1024
+    (2, 127, 1, True, None), (2, 1024, 25, True, None),
+    # q tiles of 64 and key tiles of 128 both ragged
+    (2, 129, 2, True, None), (1, 1000, 3, True, None),
+    (2, 1000, 5, False, None),
+    # glm-10b's 64 heads with prefixes of none, mid-tile and past the end
+    (3, 256, 64, True, (0, 100, 400))])
 def test_packed_flash_kernels_match_plain(dev, dtype, b, s, h, causal,
                                           prefix):
     from dlrover_tpu_torch.ops import flash_attention as fa
@@ -584,6 +591,56 @@ def test_packed_flash_kernels_match_plain(dev, dtype, b, s, h, causal,
     out1, lse1 = fa.flash_fwd_cuda(q, k, v, prefix=pref, **kw)
     _normwise(out, out1, tol)
     torch.testing.assert_close(lse, lse1, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_packed_flash_forward_takes_a_window(dev, dtype):
+    """A sliding window in the packed forward (its key range a row) and
+    the packed backward, odd H, ragged S."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, go = _flash_case(dev, dtype, 2, 300, 5, 5, 64, 11)
+    kw = dict(causal=True, scale=0.125, window=50)
+    out, lse = fa.flash_fwd_cuda(q, k, v, pack=2, **kw)
+    delta = (go.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    grads = fa.flash_bwd_cuda(q, k, v, go, lse, delta, pack=2, **kw)
+    torch.cuda.synchronize()
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    _check_flash(fa, q, k, v, go, out, lse, grads, kw, None, tol)
+
+
+def test_packed_bf16_forward_runs_on_the_core(dev, monkeypatch):
+    """A bf16 pack-2 forward launches flash_fwd_packed_wgmma_kernel (the
+    id the C entry gets), counts under flash_fwd_packed, repeats bit for
+    bit, and its heads equal the zero-padded call's (the ragged pack)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._lib()
+    real, ids = lib["fwd"], []
+
+    def fwd(*args):
+        ids.append(args[15])
+        return real(*args)
+
+    monkeypatch.setitem(lib, "fwd", fwd)
+    q, k, v, _ = _flash_case(dev, torch.bfloat16, 3, 1000, 25, 25, 64, 7)
+    pref = torch.tensor([0, 333, 2000], dtype=torch.int32, device=dev)
+    kw = dict(causal=True, scale=0.125, window=0, prefix=pref)
+    fa.reset_launches()
+    first = fa.flash_fwd_cuda(q, k, v, pack=2, **kw)
+    second = fa.flash_fwd_cuda(q, k, v, pack=2, **kw)
+    padded = fa.flash_fwd_cuda(*(torch.cat(
+        [x, torch.zeros_like(x[:, :, :1])], 2).contiguous()
+        for x in (q, k, v)), pack=2, **kw)
+    torch.cuda.synchronize()
+    assert ids == [fa.FWD_CUDA_KERNELS.index(
+        "flash_fwd_packed_wgmma_kernel")] * 3
+    assert fa.LAUNCHES == {n: 3 * (n == "flash_fwd_packed")
+                           for n in fa.KERNELS}
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert torch.equal(first[0], padded[0][:, :, :25])
+    assert torch.equal(first[1], padded[1][:, :25])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -612,11 +669,15 @@ def test_norm_kernels_match_plain(dev, dtype, kind, residual, n, d):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n,d", [(70, 1600), (45, 4096)])
+@pytest.mark.parametrize("n,d", [(70, 1600), (45, 4096)] + [
+    (n, d) for d in (8, 136, 1600, 2048, 4096) for n in (1, 7, 8193)])
 def test_norm_kernels_at_gpt2_and_glm_widths(dev, dtype, residual, n, d):
     """Layernorm with bias at gpt2-1.5b's d 1600 (200 vectors a row, not
     a multiple of 32 lanes) and glm-10b's 4096 (the backward on 4
-    warps; f32 rows of 32 vectors a lane)."""
+    warps; f32 rows of 32 vectors a lane), and at the forward plan's
+    edges: one vector a row (d 8), 17 (d 136), a row over 2, 4 and 8 warps
+    (d 1600 to 4096), and row counts no block's rows divide (1, 7, 8193),
+    so the persistent grid's last rows and its smallest grids run."""
     _norm_case(dev, dtype, "layernorm", residual, n, d)
 
 

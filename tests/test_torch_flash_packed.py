@@ -17,6 +17,9 @@ through the padded packed kernels, 2e-4 (one more reassociation, the
 softmax through the saved lse).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -181,3 +184,34 @@ def test_cpu_path_takes_the_plain_versions_at_any_pack():
     for run in runs[1:]:
         for a, b in zip(run, runs[0]):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype,pack,kernel", [
+    (torch.bfloat16, 2, "flash_fwd_packed_wgmma_kernel"),
+    (torch.float32, 2, "flash_fwd_packed_kernel"),
+    (torch.bfloat16, 1, "flash_fwd_wgmma_kernel"),
+    (torch.float32, 1, "flash_fwd_kernel")])
+def test_forward_kernel_choice(dtype, pack, kernel):
+    """bf16 packs run on the tensor-core core, f32 on the mma.sync
+    bodies (the f32 model checks); one head a block likewise."""
+    assert fa.fwd_cuda_kernel(dtype, pack) == kernel
+
+
+def test_forward_kernel_ids_match_the_c_entry():
+    """``FWD_CUDA_KERNELS[i]`` is the kernel the C entry launches for id
+    i: the ids as ``csrc/flash_attention.cu`` declares them."""
+    src = (Path(fa.__file__).resolve().parent.parent / "csrc"
+           / "flash_attention.cu").read_text()
+    ids = dict((int(i), name) for i, name in re.findall(
+        r"constexpr int kFwd\w+ = (\d+);\s*// (\w+):", src))
+    assert ids == dict(enumerate(fa.FWD_CUDA_KERNELS))
+
+
+def test_smoke_names_the_forward_kernels_the_steps_launch():
+    """chip_smoke's kernels line names the bf16 forwards the wrapper
+    picks for the train steps (one head a block, two packed)."""
+    import chip_smoke
+
+    named = {k[0]: k[3] for k in chip_smoke.TRAIN_KERNELS}
+    assert named["flash_fwd"] == fa.fwd_cuda_kernel(torch.bfloat16, 1)
+    assert named["flash_fwd_packed"] == fa.fwd_cuda_kernel(torch.bfloat16, 2)

@@ -22,6 +22,9 @@ Tolerances:
   sit within it).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -170,3 +173,74 @@ def test_launch_counters_untouched_on_cpu():
     out, h = tnorm.norm(x, _t(a["scale"]), None, residual=_t(a["res"]))
     (out.sum() + h.sum()).backward()
     assert tnorm.LAUNCHES == {k: 0 for k in tnorm.KERNELS}
+
+
+def _c_plans():
+    """The forward plans ``csrc/fused_norm.cu`` instantiates: (warps a row,
+    vectors a lane) from each ``case`` of its plan switch."""
+    src = (Path(tnorm.__file__).resolve().parent.parent / "csrc"
+           / "fused_norm.cu").read_text()
+    plans = set()
+    for case, nv, g in re.findall(
+            r"case (\d+):\s*(?:if constexpr \([^)]*\)\s*)?return "
+            r"launch_fwd<T, RMS, RES, BIAS, (\d+), (\d+)>", src):
+        assert int(case) == 10 * int(g) + int(nv)
+        plans.add((int(g), int(nv)))
+    return plans
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fwd_plan_covers_every_width(dtype, residual):
+    """For every d from 8 to 4096 in steps of 8: the plan's lanes hold
+    the row's 16-byte vectors; it takes the fewest warps that keep a lane
+    at ``FWD_LANE_VECTORS`` (8 warps past that) and the fewest vectors a
+    lane, a power of two; and the kernel instantiates it."""
+    planned = _c_plans()
+    cap = tnorm.FWD_LANE_VECTORS[residual]
+    vec = 16 // dtype.itemsize
+    for d in range(8, 4097, 8):
+        warps, nv = tnorm.fwd_plan(d, dtype, residual)
+        n_vec = d // vec
+        assert (warps, nv) in planned, (d, warps, nv)
+        assert warps in tnorm.FWD_WARPS and nv & (nv - 1) == 0
+        assert n_vec <= 32 * warps * nv, d
+        assert nv == 1 or n_vec > 32 * warps * (nv // 2), d
+        if warps > 1:
+            assert n_vec > 32 * (warps // 2) * cap, d
+        if n_vec <= 32 * tnorm.FWD_WARPS[-1] * cap:
+            assert nv <= cap, d
+
+
+class _Recorder:
+    """Stands in for the C entry point: records its arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("d", [8, 1600, 2048, 4096])
+def test_fwd_launch_passes_the_plan(monkeypatch, d, residual):
+    """The wrapper hands the C entry ``fwd_plan``'s warps and vectors
+    (the arguments after the dtype) and counts one launch."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    rec = _Recorder()
+    monkeypatch.setattr(tnorm, "_lib", lambda: {"fwd": rec})
+    tnorm.reset_launches()
+    x = torch.zeros(3, d, dtype=torch.bfloat16)
+    res = torch.zeros_like(x) if residual else None
+    tnorm.norm_fwd_cuda(x, torch.ones(d), torch.zeros(d), res, "layernorm",
+                        tnorm.LN_EPS)
+    assert rec.calls[-1][11:13] == tnorm.fwd_plan(d, torch.bfloat16,
+                                                  residual)
+    assert tnorm.LAUNCHES == {"norm_fwd": 1, "norm_bwd": 0}
+    tnorm.reset_launches()
