@@ -26,6 +26,9 @@ result:
 
 1. device: the card (``nvidia-smi`` name and power limit) and the
    kernel builds from source (one ``nvcc`` per source, all at once);
+   library: the library backwards timed as yardsticks, each captured in
+   a CUDA graph, replayed once under the profiler, which must list the
+   library's kernels;
 2. kernel: every paged-attention case against its plain PyTorch
    version at llama3-8b's attention shapes (H 32, Hkv 8, D 128, page
    16): decode at B=8 (ragged positions up to 2047, a free slot) and at
@@ -69,8 +72,9 @@ result:
    time by class (the paged-attention class also on its own), launches
    per step, the device's busy share;
 6. train_kernel: the flash kernels (forward, dq, dkv; a head a block,
-   and two heads of 64 packed a block; both bf16 forwards on the
-   tensor-core core, ``flash_fwd_wgmma_kernel`` and
+   and two heads of 64 packed a block; the bf16 kernels of a head a block
+   and the packed bf16 forward on wgmma, ``flash_fwd_wgmma_kernel``,
+   ``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel`` and
    ``flash_fwd_packed_wgmma_kernel``) and the norm kernels (forward, which
    spreads a wide row over several warps, and backward) against their
    plain versions run in f32 on the same bf16 values, at the train steps'
@@ -88,10 +92,12 @@ result:
    must also equal the zero-padded path bit for bit); with each kernel's
    time, its bound, the plain version's time and the library call's
    (``F.scaled_dot_product_attention``, ``F.rms_norm``, ``F.layer_norm``,
-   timed only), all on the card alone (``graph_ms``) but the library
-   backward through autograd (CUDA events, named in the record's
-   ``library_timer``), and at gpt2-1.5b's shape the unpacked D 64
-   kernels' times beside the packed;
+   timed only), all on the card alone (``graph_ms``), each kernel in
+   turns with its library call, the library backwards through autograd
+   captured whole in the graph (``library_backward``; the kernels one
+   replay of each runs, by the profiler, in the ``library`` phase right
+   after the build), and at gpt2-1.5b's shape the unpacked D 64 kernels'
+   times beside the packed;
 7. train_model, train_model_gpt2, train_model_glm: ``loss_fn`` and every
    gradient of an f32 model through the kernels against the plain paths
    (``mha_reference``, the plain norm): llama-1.4b and gpt2-1.5b cut to
@@ -141,9 +147,9 @@ TRAIN_KERNELS = (
     ("flash_fwd", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:213",
      "flash_fwd_wgmma_kernel"),
     ("flash_bwd_dq", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:369",
-     "flash_bwd_dq_kernel"),
+     "flash_bwd_dq_wgmma_kernel"),
     ("flash_bwd_dkv", FLASH_SRC, "dlrover_tpu/ops/pallas_attention.py:423",
-     "flash_bwd_dkv_kernel"),
+     "flash_bwd_dkv_wgmma_kernel"),
     ("flash_fwd_packed", FLASH_SRC,
      "dlrover_tpu/ops/pallas_attention.py:278",
      "flash_fwd_packed_wgmma_kernel"),
@@ -266,17 +272,65 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+_capture = []
+
+
+def capture_stream():
+    """The one stream every CUDA graph of this script is captured on.
+    Autograd runs a backward's kernels on the stream its forward ran on,
+    so a library backward whose forward ran here (``library_backward``)
+    is captured whole, as ``torch.cuda.make_graphed_callables`` captures
+    one."""
+    if not _capture:
+        _capture.append(torch.cuda.Stream())
+    return _capture[0]
+
+
+def library_backward(fwd, inputs, grad):
+    """A call of the library's backward of ``fwd`` (``torch.autograd.grad``
+    of ``fwd(*inputs)`` against ``grad``, every input a leaf) that
+    ``graph_ms`` can capture: the forward runs once, on the capture
+    stream."""
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    stream = capture_stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out = fwd(*leaves)
+    torch.cuda.current_stream().wait_stream(stream)
+    return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+
+def graph_kernels(fn):
+    """The device kernels of one replay of ``fn`` captured in a CUDA graph,
+    by the profiler: what a graph-timed library call runs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=capture_stream()):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    del graph
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
 def graph_ms(fn, iters, warmup=3):
     """Mean device ms per call over ``iters`` calls captured in one CUDA
     graph and replayed, CUDA events around the replays: the card's time
     alone. A paged kernel takes a few microseconds on the card while its
     Python wrapper takes tens on the host, so ``cuda_ms`` would time the
-    host there."""
+    host there; a library backward through autograd likewise."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=capture_stream()):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -1323,16 +1377,54 @@ def build_all():
           "sources": per})
 
 
+def library_check(seed, dev):
+    """The library backwards the kernels line times, captured in a CUDA
+    graph as ``graph_ms`` captures them (``library_backward``): one replay
+    of each under the profiler must run the library's kernels (not only
+    memsets). Run before any other phase has profiled: later in the
+    process the profiler was seen to list no kernel of a replayed graph.
+    SDPA's backward at llama-1.4b's attention, ``F.rms_norm``'s at its
+    [8192, 2048] rows, ``F.layer_norm``'s at glm-10b's [8192, 4096]."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    q, k, v, g = (rnd(TRAIN_BATCH, TRAIN_SEQ, 16, 128) for _ in range(4))
+    x, gx, w = rnd(8192, 2048), rnd(8192, 2048), rnd(2048)
+    y, gy, wy, by = rnd(8192, 4096), rnd(8192, 4096), rnd(4096), rnd(4096)
+    calls = {
+        "sdpa_backward": _sdpa_train(q, k, v, g, True, 128 ** -0.5)[1],
+        "rms_norm_backward": library_backward(
+            lambda a, s_: F.rms_norm(a, (2048,), s_, 1e-6), (x, w), gx),
+        "layer_norm_backward": library_backward(
+            lambda a, s_, b_: F.layer_norm(a, (4096,), s_, b_, 1e-5),
+            (y, wy, by), gy),
+    }
+    kernels = {name: graph_kernels(fn) for name, fn in calls.items()}
+    rec = {"phase": "library", "timer": "graph", "kernels": kernels,
+           "ok": all(any(not n.startswith("Memset") for n in names)
+                     for names in kernels.values())}
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"library: {rec}")
+
+
 # ---------------------------------------------------------------------------
 # phase 6: the training kernels
 # ---------------------------------------------------------------------------
 
 
 def _over(out, ref, bound):
-    """(max |out − ref|, elements over ``bound``, max |out − ref| / bound)."""
+    """(max |out − ref|, elements over ``bound``, max |out − ref| / bound;
+    an exact 0 where the bound is 0, as for a key no query sees, counts
+    0)."""
     diff = (out.float() - ref.float()).abs()
-    return (float(diff.max()), int((diff > bound).sum()),
-            float((diff / bound).max()))
+    ratio = torch.where(diff == 0, 0.0, diff / bound)
+    return (float(diff.max()), int((diff > bound).sum()), float(ratio.max()))
 
 
 def _flash_magnitudes(q, k, v, out, lse, g, causal, scale, window,
@@ -1417,35 +1509,37 @@ def _flash_bound(kernel, b, s, h, hkv, d, causal, window, prefix=None):
 
 def _bwd_kernel_fn(which, q, k, v, g, lse, delta, *, causal, scale,
                    window, pack=1, prefix=None):
-    """One backward kernel alone (1: dq, 2: dkv; ``pack`` 2 the packed
-    one), launched through the C entry, to time it: its outputs are
-    thrown away and its launch count is not touched."""
+    """One backward kernel alone (1: dq, 2: dkv; the one
+    ``bwd_cuda_kernel`` picks for ``q.dtype`` at ``pack``), launched
+    through the C entry, to time it: its outputs are thrown away and its
+    launch count is not touched."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
+    name = fa.bwd_cuda_kernel(q.dtype, pack)[which - 1]
+    kernel = fa.BWD_CUDA_KERNELS.index(name)
     outs = [torch.empty_like(x) for x in (q, k, v)]
     args = ([x.data_ptr() for x in (q, k, v, g, lse, delta, *outs)]
             + [None if prefix is None else prefix.data_ptr()]
             + [b, sq, sk, h, hkv, d, float(scale), int(causal), int(window),
-               pack, fa._DTYPE_CODE[q.dtype]])
+               fa._DTYPE_CODE[q.dtype]])
 
     def run():
         # the stream current at the call: graph_ms captures on its own
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fa._lib()["bwd"](which, *args, stream)
+        err = fa._lib()["bwd"](kernel, *args, stream)
         if err:
-            raise RuntimeError(f"flash bwd kernel {which}: cudaError {err}")
+            raise RuntimeError(f"{name}: cudaError {err}")
         return outs
 
     return run
 
 
 def _sdpa_train(q, k, v, g, causal, scale):
-    """The yardsticks on the same bf16 tensors: a call of
-    ``F.scaled_dot_product_attention``'s forward (to time on the card
-    alone) and the ms of its backward through autograd (CUDA events: the
-    autograd call is not captured in a graph)."""
+    """The yardsticks on the same bf16 tensors, two calls that ``graph_ms``
+    captures: ``F.scaled_dot_product_attention``'s forward, and its
+    backward through autograd (dq, dk and dv; ``library_backward``)."""
     import torch.nn.functional as F
 
     qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
@@ -1455,11 +1549,7 @@ def _sdpa_train(q, k, v, g, causal, scale):
         return F.scaled_dot_product_attention(a, b_, c, is_causal=causal,
                                               scale=scale, enable_gqa=gqa)
 
-    leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
-    o = fwd(*leaves)
-    bwd_ms = cuda_ms(lambda: torch.autograd.grad(o, leaves, gt,
-                                                 retain_graph=True), 10)
-    return (lambda: fwd(qt, kt, vt)), bwd_ms
+    return (lambda: fwd(qt, kt, vt)), library_backward(fwd, (qt, kt, vt), gt)
 
 
 def _zero_head(x):
@@ -1468,13 +1558,14 @@ def _zero_head(x):
 
 
 def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
-               pack=1, prefix=None, fault="key"):
-    """The flash kernels (``pack`` 2: the packed ones) at one shape
-    against their plain versions, with a planted fault: ``key`` (key row
-    S/2 of every KV head replaced), ``prefix`` (the prefix shifted by one
-    key) or ``last_pack`` (odd H: the last pack's second head, run on the
-    zero-padded inputs, written into head H - 1; the ragged path's heads
-    must also equal the padded path's bit for bit)."""
+               pack=1, prefix=None, fault="key", sk=None):
+    """The flash kernels (``pack`` 2: the packed ones) at one shape (``s``
+    queries, ``sk`` keys, ``s`` by default) against their plain versions,
+    with a planted fault: ``key`` (key row min(Sq, Sk)/2 of every KV
+    head replaced), ``prefix`` (the prefix shifted by one key) or ``last_pack``
+    (odd H: the last pack's second head, run on the zero-padded inputs,
+    written into head H - 1; the ragged path's heads must also equal the
+    padded path's bit for bit)."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     scale = d ** -0.5
@@ -1484,7 +1575,8 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
-    q, k, v, g = rnd(b, s, h, d), rnd(b, s, hkv, d), rnd(b, s, hkv, d), \
+    sk = s if sk is None else sk
+    q, k, v, g = rnd(b, s, h, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), \
         rnd(b, s, h, d)
     pref = (None if prefix is None
             else torch.tensor(prefix, dtype=torch.int32, device=dev))
@@ -1518,9 +1610,9 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
     checks["lse"] = _over(lse, ref_lse, 1e-5 * (1 + ref_lse.abs()))
     extra = {}
     if fault == "key":
-        label = "key row S/2 replaced"
+        label = "key row min(Sq, Sk)/2 replaced"  # a key some query sees
         kb = k.clone()
-        kb[:, s // 2] = rnd(b, hkv, d)
+        kb[:, min(s, sk) // 2] = rnd(b, hkv, d)
         bad = run(q, kb, v, g, pref)
     elif fault == "prefix":
         label = "prefix shifted by one key"
@@ -1540,7 +1632,8 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
     torch.cuda.synchronize()
     faults = {n: _over(bad[n], refs[n], bounds[n])[1] for n in refs}
     rec = {"phase": "train_kernel", "case": name, "op": "flash",
-           "kernels": list(names), "B": b, "S": s, "H": h, "Hkv": hkv,
+           "kernels": list(names), "B": b, "S": s, "Sk": sk, "H": h,
+           "Hkv": hkv,
            "D": d, "causal": causal, "window": window, "pack": pack,
            "prefix": prefix,
            "max_abs_err": {n: c[0] for n, c in checks.items()},
@@ -1553,43 +1646,46 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
                  and all(n > 0 for n in faults.values())
                  and all(extra.values()))
     if timed:
-        # on the card alone (graph_ms), but SDPA's backward: CUDA events
+        # on the card alone (graph_ms), each kernel in turns with its
+        # library call: the forward with SDPA's, dq and dkv with SDPA's
+        # backward (dq, dk and dv) through autograd
         pkw = dict(kw, prefix=pref)
         fwd_plain = graph_ms(lambda: fa.flash_fwd_reference(q, k, v, **pkw),
                              3)
         bwd_plain = graph_ms(lambda: fa.flash_bwd_reference(
             q, k, v, out, lse, g, **pkw), 3)
-        sdpa_fwd, lib_bwd = ((None, None) if window or prefix is not None
-                             else _sdpa_train(q, k, v, g, causal, scale))
+        sdpa_fwd, sdpa_bwd = (
+            (None, None) if window or prefix is not None or sk != s
+            else _sdpa_train(q, k, v, g, causal, scale))
         delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
             .contiguous()
 
-        def kernel_ms(p, yardstick=None):
-            """ms of the forward, dq and dkv kernels at pack ``p``; with a
-            yardstick, the forward in turns with it (its ms appended)."""
+        def kernel_ms(p, fwd_yard=None, bwd_yard=None):
+            """ms of the forward, dq and dkv kernels at pack ``p``, then
+            of the yardsticks given: the forward in turns with
+            ``fwd_yard``, dq and dkv with ``bwd_yard``."""
             fwd = [lambda: fa.flash_fwd_cuda(q, k, v, pack=p, **pkw)]
-            fwd_ms = in_turns_ms(fwd + [yardstick], 20) if yardstick \
-                else [graph_ms(fwd[0], 20)]
-            return fwd_ms[:1] + [
-                graph_ms(_bwd_kernel_fn(w, q, k, v, g, lse, delta, pack=p,
-                                        **pkw), 20) for w in (1, 2)
-            ] + fwd_ms[1:]
+            bwd = [_bwd_kernel_fn(w, q, k, v, g, lse, delta, pack=p, **pkw)
+                   for w in (1, 2)]
+            fwd_ms = (in_turns_ms(fwd + [fwd_yard], 20) if fwd_yard
+                      else [graph_ms(fwd[0], 20)])
+            bwd_ms = (in_turns_ms(bwd + [bwd_yard], 20) if bwd_yard
+                      else [graph_ms(f, 20) for f in bwd])
+            return fwd_ms[:1] + bwd_ms[:2] + fwd_ms[1:] + bwd_ms[2:]
 
-        ms3 = kernel_ms(pack, sdpa_fwd)
-        lib_fwd = ms3.pop() if sdpa_fwd else None
+        ms = kernel_ms(pack, sdpa_fwd, sdpa_bwd)
+        lib_fwd, lib_bwd = ms[3:] if sdpa_fwd else (None, None)
 
         rec["timing"] = {}
-        for kernel, ms, plain, lib in zip(names, ms3,
-                                          (fwd_plain, bwd_plain, bwd_plain),
-                                          (lib_fwd, lib_bwd, lib_bwd)):
+        for kernel, t, plain, lib in zip(names, ms[:3],
+                                         (fwd_plain, bwd_plain, bwd_plain),
+                                         (lib_fwd, lib_bwd, lib_bwd)):
             bound_ms, by = _flash_bound(kernel, b, s, h, hkv, d, causal,
                                         window, prefix)
             rec["timing"][kernel] = {
-                "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "ms": t, "plain_ms": plain, "library_ms": lib,
                 "bound_ms": bound_ms, "bound_by": by, "timer": "graph",
-                "library_timer": (None if lib is None else "graph"
-                                  if kernel.startswith("flash_fwd")
-                                  else "events")}
+                "library_timer": None if lib is None else "graph"}
         if pack == 2:
             # what packing buys: the unpacked D 64 kernels, same inputs
             rec["unpacked_ms"] = dict(zip(fa.UNPACKED, kernel_ms(1)))
@@ -1691,16 +1787,19 @@ def norm_case(name, n, d, residual, gen, dev, timed, kind="rmsnorm"):
             return (F.rms_norm(a, (d,), w, eps) if rms
                     else F.layer_norm(a, (d,), w, b_, eps))
 
-        leaves = [t.detach().requires_grad_()
-                  for t in ((x, w16) if rms else (x, w16, b16))]
-        y = lib(*leaves, None) if rms else lib(*leaves)
-        # on the card alone (graph_ms; the forward in turns with its
-        # library call), but the library backward through autograd: CUDA
-        # events
+        lib_bwd = None if residual else library_backward(
+            (lambda a, w: lib(a, w, None)) if rms else lib,
+            (x, w16) if rms else (x, w16, b16), g)
+        # on the card alone (graph_ms), each kernel in turns with its
+        # library call (the backward's through autograd)
         fwd = [lambda: nm.norm_fwd_cuda(x, scale, bias, r, kind, eps)]
         if not residual:
             fwd.append(lambda: lib(x, w16, b16))
         fwd_ms = in_turns_ms(fwd, 50)
+        bwd = [lambda: nm.norm_bwd_cuda(g, h, scale, gh, kind, eps, not rms)]
+        if lib_bwd:
+            bwd.append(lib_bwd)
+        bwd_ms = in_turns_ms(bwd, 50)
         rec["timing"] = {
             "norm_fwd": {
                 "ms": fwd_ms[0],
@@ -1710,15 +1809,12 @@ def norm_case(name, n, d, residual, gen, dev, timed, kind="rmsnorm"):
                 "timer": "graph",
                 "library_timer": None if residual else "graph"},
             "norm_bwd": {
-                "ms": graph_ms(lambda: nm.norm_bwd_cuda(
-                    g, h, scale, gh, kind, eps, not rms), 50),
+                "ms": bwd_ms[0],
                 "plain_ms": graph_ms(lambda: nm.norm_bwd_reference(
                     g, h, scale, gh, kind, eps, not rms), 20),
-                "library_ms": None if residual else cuda_ms(
-                    lambda: torch.autograd.grad(y, leaves, g,
-                                                retain_graph=True), 50),
+                "library_ms": None if residual else bwd_ms[1],
                 "timer": "graph",
-                "library_timer": None if residual else "events"},
+                "library_timer": None if residual else "graph"},
         }
         for kernel, t in rec["timing"].items():
             t["bound_ms"], t["bound_by"] = _norm_bound(kernel, n, d,
@@ -2067,6 +2163,8 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda})
     with phase("build"):
         build_all()
+    with phase("library"):
+        library_check(args.seed, dev)
     if _failures:
         print("\n".join(_failures), file=sys.stderr)
         return 1

@@ -3,8 +3,10 @@
 // Replaces the TPU kernels of dlrover_tpu/ops/pallas_attention.py:
 //   flash_fwd_wgmma_kernel         <- _fwd_kernel, bf16         (driven by _flash_fwd)
 //   flash_fwd_kernel               <- _fwd_kernel, f32
-//   flash_bwd_dq_kernel            <- _bwd_dq_kernel            (driven by _pallas_backward)
-//   flash_bwd_dkv_kernel           <- _bwd_dkv_kernel           (driven by _pallas_backward)
+//   flash_bwd_dq_wgmma_kernel      <- _bwd_dq_kernel, bf16      (driven by _pallas_backward)
+//   flash_bwd_dkv_wgmma_kernel     <- _bwd_dkv_kernel, bf16     (driven by _pallas_backward)
+//   flash_bwd_dq_kernel            <- _bwd_dq_kernel, f32
+//   flash_bwd_dkv_kernel           <- _bwd_dkv_kernel, f32
 //   flash_fwd_packed_wgmma_kernel  <- _fwd_kernel_packed, bf16  (head_pack 2)
 //   flash_fwd_packed_kernel        <- _fwd_kernel_packed, f32   (head_pack 2)
 //   flash_bwd_dq_packed_kernel     <- _bwd_dq_kernel_packed     (head_pack 2)
@@ -22,20 +24,24 @@
 //
 // What bounds it: operations. Causal attention at the training shapes
 // (B 8, S 1024, H 16, D 128) does 4 * B * H * S^2 * D / 2 = 3.4e10 FLOP in
-// the forward, ~100x its bytes over the card's ridge. So the products run
-// on the tensor cores. Both bf16 forwards run on the Hopper core of
-// attn_fwd_core.cuh (wgmma from shared-memory tiles that TMA fills under
-// the products, P kept in registers): flash_fwd_wgmma_kernel, a head and
-// 128 q rows a block, and flash_fwd_packed_wgmma_kernel, a persistent
-// kernel walking items of two heads and 64 q rows (see each below), the
-// only path to the card's full tensor-core rate. The other bf16 kernels
-// (the backward) use mma.sync m16n8k16 with f32 accumulation. An f32 call
-// (the f32 model checks) runs the mma.sync bodies' tiles through f32 FMAs
-// on the CUDA cores, with the same fragment layout, so both share one
-// body.
+// the forward, ~100x its bytes over the card's ridge; the backward's least
+// work is 10·D FLOP a visible pair (five products), and its two kernels
+// execute 14·D (both recompute Q.K^T and dO.V^T, so that neither needs
+// atomics). So the products run on the tensor cores. The bf16 kernels of
+// one head a block and the bf16 packed forward run on wgmma, the only path
+// to the card's full tensor-core rate, from shared-memory tiles that TMA
+// fills under the products (attn_fwd_core.cuh's primitives; P and dS kept
+// in registers): flash_fwd_wgmma_kernel (a head and 128 q rows a block),
+// flash_fwd_packed_wgmma_kernel (a persistent kernel walking items of two
+// heads and 64 q rows), flash_bwd_dq_wgmma_kernel (128 q rows of a head a
+// block) and flash_bwd_dkv_wgmma_kernel (128 keys of a KV head a block);
+// see each below. The packed backward (both types) uses mma.sync m16n8k16
+// with f32 accumulation. An f32 call (the f32 model checks) runs the
+// mma.sync bodies' tiles through f32 FMAs on the CUDA cores, with the same
+// fragment layout, so both share one body.
 //
-// The mma.sync bodies (the backward; the f32 forwards). No block carries
-// state to another: the forward gives each block NH query heads of one
+// The mma.sync bodies (the packed backward; every f32 kernel). No block
+// carries state to another: the forward gives each block NH query heads of one
 // batch element and one 64-row q tile and loops over 64-key tiles inside;
 // the dq kernel does the same; the dkv kernel gives each block NH KV heads
 // and one 64-key tile and loops over the query heads of each KV head's
@@ -824,8 +830,8 @@ __device__ __forceinline__ void dkv_body(const Args& a) {
 }
 
 // ---------------------------------------------------------------------------
-// the kernels: one head per block (D 64 or 128, GQA) or two packed heads of
-// 64 (MHA), a warp group each
+// the mma.sync kernels: one head per block (D 64 or 128, GQA; f32) or two
+// packed heads of 64 (MHA; f32, and the bf16 backward), a warp group each
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads1 = block_threads<1>();
@@ -1231,6 +1237,642 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// the bf16 backward of one head a block on the tensor cores
+// ---------------------------------------------------------------------------
+//
+// flash_bwd_dkv_wgmma_kernel and flash_bwd_dq_wgmma_kernel replace
+// _bwd_dkv_kernel (pallas_attention.py l.423; pallas_call l.859) and
+// _bwd_dq_kernel (l.369; pallas_call l.823) for bf16, D 64 or 128, GQA, as
+// _pallas_backward (l.615) drives them. What bounds them: operations. The
+// backward's least work is five products, 10·D FLOP a visible (query, key)
+// pair. It stays two kernels so that neither needs atomics: the GQA group
+// sum of dk and dv is a sum in registers in a fixed order, and a call
+// repeats bit for bit. So both recompute S = Q.K^T and dP = dO.V^T: 14·D
+// FLOP a pair executed. At llama-1.4b's shape (B 8, S 1024, H 16, D 128,
+// causal) that is 1.2e11 FLOP, 0.12 ms at the bf16 peak, against 134 MB
+// read and written once (0.04 ms). Every product therefore runs on wgmma,
+// built from attn_fwd_core.cuh's primitives: a producer warpgroup keeps a
+// ring of 3 stages filled by TMA behind full/empty mbarriers and gives its
+// registers to two consumer warpgroups of 64 rows (setmaxnreg: 24 and 240
+// a thread); tiles are stored in the 128-byte swizzle; the products that
+// consume P or dS take it in registers as the A operand (the score
+// accumulator's layout is the A fragment's) with the other operand
+// MN-major (wgmma_pv), so P and dS never pass through shared memory. The
+// arithmetic is _p_and_ds (l.183): p = exp(s - lse) recomputed from the
+// forward's lse, as 2^(q.k * scale * log2(e) - lse * log2(e)) in one FMA;
+// a masked element is exactly 0; ds = p (dp - delta) scale, computed as
+// p (dp scale - delta scale); p and ds rounded to bf16 for the products
+// that take them; sums in f32, rounded once when stored.
+//
+// What sets the pace (clock64 counters per phase, in scratch copies): the
+// wgmmas of the two consumer warpgroups and their elementwise work. Both
+// warpgroups take every stage, so left alone they run in step, issue their
+// wgmmas together and then leave the tensor cores idle through their
+// elementwise work together. PingPong hands the tensor cores from one to
+// the other, so one's elementwise work runs under the other's products.
+// The elementwise work (per element an FMA, an exponential, a range test
+// against constants, an FMA and a multiply) is kept short: it is on the
+// critical path.
+//
+// dkv: a block owns 128 keys of one KV head (64 a consumer warpgroup) and
+// loads their K and V once by TMA. One producer warp streams, for each
+// query head of the group and each q tile of 64 rows that can see the
+// block's keys (q_tiles), the Q and dO tiles (TMA) with their lse and
+// delta rows (4-byte cp.async: a [B, H, Sq] f32 row is not a multiple of
+// the 16 bytes a tensor map's strides need at every Sq). A consumer
+// computes S^T = K.Q^T and dP^T = V.dO^T (keys as the M rows, both
+// operands from shared memory, wgmma_s), P^T and dS^T in registers, then
+// dV += P^T.dO and dK += dS^T.Q. Its mask is a range of queries a key
+// (q_range: RangeMask turned round). Blocks take key tiles from the
+// first: under causal key tile 0 is seen by every q tile.
+//
+// dq: a block owns 128 q rows of one query head (64 a consumer) and loads
+// their Q and dO once by TMA; the producer thread streams K and V tiles of
+// kDqKeys keys over key_tiles' range, as the forward's does. A consumer
+// keeps the lse and delta of its rows, and its Q and dO as A fragments, in
+// registers, computes S = Q.K^T and dP = dO.V^T (register A, K and V
+// K-major from the stage: only B is read from shared memory, whose
+// bandwidth the shared-A form of these m64n64 products saturates), dS in
+// registers, and dQ += dS.K with the stage's K as the MN-major operand.
+// Its mask is the packed forward's RangeMask. Blocks take q tiles from the
+// last, as the forward does.
+//
+// Every consumer thread takes and releases every stage, whatever its rows
+// see of it (a stage that none of a warpgroup's rows sees adds exactly 0),
+// so the barrier counts never drift. Rows past Sq and keys past Sk come in
+// from TMA as zeros and are masked; stores stop at Sq and Sk.
+
+constexpr int kDkvKeys = ac::kRows * ac::kConsumers;  // keys a dkv block
+constexpr int kDkvBQ = 64;                            // q rows a dkv stage
+constexpr int kDqBQ = ac::kRows * ac::kConsumers;     // q rows a dq block
+constexpr int kDqKeys = 64;                           // keys a dq stage
+
+// dkv's shared memory: K and V of the block's keys ([128 keys][64] column
+// blocks), the ring's stages (Q and dO tiles of kDkvBQ rows), each stage's
+// lse and delta rows (f32), the barriers.
+template <int D>
+struct DkvLayout {
+  static constexpr int kRowTile = (D / 64) * kDkvBQ * 128;
+  static constexpr int kKvTile = (D / 64) * kDkvKeys * 128;
+  static constexpr int k = 0;
+  static constexpr int v = kKvTile;
+  static constexpr int stages = 2 * kKvTile;
+  static constexpr int rows = stages + ac::kStages * 2 * kRowTile;
+  static constexpr int full = rows + ac::kStages * 2 * kDkvBQ * 4;
+  static constexpr int empty = full + 8 * ac::kStages;
+  static constexpr int kv_full = empty + 8 * ac::kStages;
+  static constexpr int bytes = kv_full + 8;
+  static constexpr int alloc = bytes + 1024;  // alignment slack
+  static __device__ __forceinline__ uint32_t q_tile(uint32_t base, int s) {
+    return base + stages + s * 2 * kRowTile;
+  }
+  static __device__ __forceinline__ uint32_t do_tile(uint32_t base, int s) {
+    return q_tile(base, s) + kRowTile;
+  }
+  // lse[kDkvBQ], then delta[kDkvBQ]
+  static __device__ __forceinline__ uint32_t rows_of(uint32_t base, int s) {
+    return base + rows + s * 2 * kDkvBQ * 4;
+  }
+};
+
+// dq's: the core's layout (Q tiles, the K/V ring) with the dO tiles and
+// the Q/dO barrier as its extra bytes.
+template <int D>
+using DqLayout = ac::Layout<D, kDqKeys, 2 * (D / 64) * ac::kRows * 128 + 8>;
+
+// D[64 x N] = A.B^T over D: A this warpgroup's 64 rows of a swizzled tile
+// whose column blocks are A_ROWS rows, B a swizzled tile of N rows, both
+// K-major (D contiguous).
+template <int D, int N, int A_ROWS>
+__device__ __forceinline__ void issue_kmajor(float (&d)[N / 2], uint32_t a,
+                                             uint32_t b) {
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+    ac::wgmma_s<N>(
+        d, ac::desc_kmajor(a + (ks >> 2) * A_ROWS * 128 + (ks & 3) * 32),
+        ac::desc_kmajor(b + (ks >> 2) * N * 128 + (ks & 3) * 32), ks > 0);
+}
+
+// D[64 x D] += A.B over K: A in registers (K / 16 k-steps), B a swizzled
+// tile of K rows, MN-major (D contiguous).
+template <int D, int K>
+__device__ __forceinline__ void issue_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[K / 16][4],
+                                         uint32_t b) {
+#pragma unroll
+  for (int j = 0; j < K / 16; ++j)
+    ac::wgmma_pv<D>(d, a[j], ac::desc_mnmajor<K>(b + j * 16 * 128));
+}
+
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A in registers, B K-major in
+// shared memory (wgmma's register-A form with B not transposed).
+__device__ __forceinline__ void wgmma_rs_kmajor_m64n64(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
+// This thread's A fragments of a warpgroup's 64-row swizzled tile of D
+// columns, for products over D: k-step ks, register i holds row
+// 16 warp + g + 8 (i & 1), columns 16 ks + 8 (i >> 1) + 2t and + 1.
+template <int D>
+__device__ __forceinline__ void load_a(uint32_t tile, int warp, int lane,
+                                       uint32_t (&a)[D / 16][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp * 16 + g + 8 * (i & 1);
+      const int c = ks * 16 + 8 * (i >> 1) + 2 * t;
+      a[ks][i] = *reinterpret_cast<const uint32_t*>(
+          ac::smem_ptr(tile + ac::swz<ac::kRows>(r, c >> 3) + (c & 7) * 2));
+    }
+}
+
+// An m64nN accumulator rounded to bf16 as the A fragments of the next
+// product: n-tile nt = i / 4 is half (nt & 1) of k-step nt / 2.
+template <int NS>
+__device__ __forceinline__ void to_a(const float (&s)[NS],
+                                     uint32_t (&a)[NS / 8][4]) {
+#pragma unroll
+  for (int i = 0; i < NS; i += 2) {
+    const int nt = i >> 2;
+    a[nt >> 1][(nt & 1) * 2 + ((i >> 1) & 1)] = ac::pack_bf16(s[i], s[i + 1]);
+  }
+}
+
+// The two consumer warpgroups take turns at issuing their wgmmas (FA3's
+// ping-pong): warpgroup j waits on named barrier 1 + j before a burst and
+// arrives on the other's after it, so one warpgroup's elementwise work
+// runs under the other's products. Both give the same number of bursts;
+// warpgroup 1 arrives once before the first (warpgroup 0 goes first) and
+// not after its last, so no arrival is left over.
+struct PingPong {
+  int j;  // this consumer warpgroup, 0 or 1
+  __device__ __forceinline__ void start() const {
+    if (j == 1) arrive(1);
+  }
+  __device__ __forceinline__ void turn() const {
+    ac::named_sync(1 + j, 128 * ac::kConsumers);
+  }
+  __device__ __forceinline__ void pass(bool last) const {
+    if (!(last && j == 1)) arrive(2 - j);
+  }
+  static __device__ __forceinline__ void arrive(int id) {
+    asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(128 * ac::kConsumers)
+                 : "memory");
+  }
+};
+
+// The queries [lo, hi) that key k sees, RangeMask's rule turned round:
+// causal, [k, k + window) ([k, Sq) without a window); a key inside the
+// prefix, or any key without causal, is seen by every query; cut to
+// [0, Sq), and empty for keys past Sk. (ops/flash_attention.py's
+// dkv_q_range is its plain twin.)
+__device__ __forceinline__ void q_range(const Args& a, int pref, int k,
+                                        int& lo, int& hi) {
+  lo = 0;
+  hi = k < a.Sk ? a.Sq : 0;
+  if (a.causal && k >= pref) {
+    lo = k;
+    if (a.window) hi = min(hi, k + a.window);
+  }
+}
+
+// The q tiles [begin, end) of kDkvBQ rows that may see a key of
+// [k0, k0 + kDkvKeys): under causal from the diagonal on, up to the last
+// key's window; every tile when the block reaches into the prefix.
+__device__ __forceinline__ void q_tiles(const Args& a, int pref, int k0,
+                                        int& begin, int& end) {
+  const int n = (a.Sq + kDkvBQ - 1) / kDkvBQ;
+  begin = 0;
+  end = n;
+  if (a.causal && k0 >= pref) {
+    begin = min(k0 / kDkvBQ, n);
+    if (a.window)
+      end = min(n, (k0 + kDkvKeys - 1 + a.window - 1) / kDkvBQ + 1);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_bwd_dkv_wgmma_kernel(const Args a,
+                               const __grid_constant__ CUtensorMap qm,
+                               const __grid_constant__ CUtensorMap om,
+                               const __grid_constant__ CUtensorMap km,
+                               const __grid_constant__ CUtensorMap vm) {
+  using L = DkvLayout<D>;
+  const uint32_t base = ac::smem_base();
+  const uint32_t kv_full = base + L::kv_full;
+  if (threadIdx.x == 0) ac::mbar_init(kv_full, 1);  // synced below
+  // full: the producer thread's expect_tx and its warp's 32 cp.async
+  // arrivals
+  ac::init_barriers<L>(base, 1 + 32);
+  const int wg = threadIdx.x / 128;
+  const int k0 = blockIdx.x * kDkvKeys;
+  const int b = blockIdx.y / a.Hkv, kh = blockIdx.y % a.Hkv;
+  const int groups = a.H / a.Hkv;
+  const int pref = prefix_of(a, b);
+  int qt0, qt1;
+  q_tiles(a, pref, k0, qt0, qt1);
+  const int n_qt = qt1 - qt0;
+  const int stages = groups * n_qt;  // (query head, q tile) in that order
+  // registers: 128 * 24 + 256 * 240 = 384 * 168, the block's pool
+  if (wg == 0) {
+    ac::setmaxnreg_dec<24>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    if (lane == 0) {
+      ac::mbar_arrive_tx(kv_full, 2 * L::kKvTile);
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb) {
+        const uint32_t off = cb * kDkvKeys * 128;
+        ac::tma_load_4d(base + L::k + off, &km, kv_full, cb * 64, kh, k0, b);
+        ac::tma_load_4d(base + L::v + off, &vm, kv_full, cb * 64, kh, k0, b);
+      }
+    }
+    ac::Ring ring;
+    for (int n = 0; n < stages; ++n) {
+      const int h = kh * groups + n / n_qt;
+      const int q0 = (qt0 + n % n_qt) * kDkvBQ;
+      ac::wait_empty<L>(base, ring);
+      const uint32_t full = base + L::full + 8 * ring.stage;
+      if (lane == 0) {
+        ac::mbar_arrive_tx(full, 2 * L::kRowTile);
+#pragma unroll
+        for (int cb = 0; cb < D / 64; ++cb) {
+          const uint32_t off = cb * kDkvBQ * 128;
+          ac::tma_load_4d(L::q_tile(base, ring.stage) + off, &qm, full,
+                          cb * 64, h, q0, b);
+          ac::tma_load_4d(L::do_tile(base, ring.stage) + off, &om, full,
+                          cb * 64, h, q0, b);
+        }
+      }
+      const size_t row0 = ((size_t)b * a.H + h) * a.Sq;
+      unsigned char* rows = ac::smem_ptr(L::rows_of(base, ring.stage));
+#pragma unroll
+      for (int i = lane; i < kDkvBQ; i += 32) {
+        const bool in = q0 + i < a.Sq;  // rows past Sq: zeros, no read
+        const size_t r = in ? row0 + q0 + i : 0;
+        cp_async(rows + 4 * i, a.lse + r, 4, in);
+        cp_async(rows + 4 * (kDkvBQ + i), a.delta + r, 4, in);
+      }
+      ac::cp_async_arrive(full);
+      ring.advance();
+    }
+    return;
+  }
+  ac::setmaxnreg_inc<240>();
+  const int j = wg - 1;  // this consumer's keys: k0 + 64 j ..
+  const int ct = threadIdx.x - 128 * wg;
+  const int warp = ct / 32, lane = ct % 32, g = lane >> 2, t = lane & 3;
+  const int key[2] = {k0 + j * ac::kRows + warp * 16 + g,
+                      k0 + j * ac::kRows + warp * 16 + g + 8};
+  int lo[2], hi[2];
+  q_range(a, pref, key[0], lo[0], hi[0]);
+  q_range(a, pref, key[1], lo[1], hi[1]);
+  const uint32_t k_tile = base + L::k + j * ac::kRows * 128;
+  const uint32_t v_tile = base + L::v + j * ac::kRows * 128;
+  const float scale = a.scale, scale_log2 = scale * ac::kLog2e;
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  float st[kDkvBQ / 2], dpt[kDkvBQ / 2];             // S^T, dP^T
+  uint32_t pa[kDkvBQ / 16][4], da[kDkvBQ / 16][4];  // P^T, dS^T in bf16
+  ac::Ring ring;
+  const PingPong pp{j};
+  // Every wgmma is issued unconditionally between its fence and its wait,
+  // with its registers pinned on both sides (fence_regs), or the compiler
+  // serializes every wgmma of the kernel.
+  auto issue_sdp = [&](int stg) {  // S^T = K Q^T, dP^T = V dO^T
+    ac::fence_regs(st);
+    ac::fence_regs(dpt);
+    ac::wgmma_fence();
+    issue_kmajor<D, kDkvBQ, kDkvKeys>(st, k_tile, L::q_tile(base, stg));
+    issue_kmajor<D, kDkvBQ, kDkvKeys>(dpt, v_tile, L::do_tile(base, stg));
+    ac::wgmma_commit();
+  };
+  auto wait_sdp = [&]() {
+    ac::wgmma_wait<0>();
+    ac::fence_regs(st);
+    ac::fence_regs(dpt);
+  };
+  auto issue_dkv = [&](int stg) {  // dV += P^T dO, dK += dS^T Q
+    ac::fence_regs(dv);
+    ac::fence_regs(dk);
+    ac::fence_regs(pa);
+    ac::fence_regs(da);
+    ac::wgmma_fence();
+    issue_rs<D, kDkvBQ>(dv, pa, L::do_tile(base, stg));
+    issue_rs<D, kDkvBQ>(dk, da, L::q_tile(base, stg));
+    ac::wgmma_commit();
+  };
+  auto wait_dkv = [&]() {
+    ac::wgmma_wait<0>();
+    ac::fence_regs(dv);
+    ac::fence_regs(dk);
+    ac::fence_regs(pa);
+    ac::fence_regs(da);
+  };
+  // stage n of the walk, in place: st becomes P^T, dpt dS^T, then both
+  // are rounded into the A fragments. Element i: key row r = (i >> 1) & 1
+  // of this thread, query q0 + 2t + col, col = (i >> 2) * 8 + (i & 1). The
+  // elementwise work sets the pace of a stage, so it is kept short: the
+  // key row's query range is taken relative to q0 + 2t, so that each test
+  // compares with a constant, on every stage (a branch to skip it on the
+  // wholly visible stages doubles the code and ran slower), and the scale
+  // is folded into dP - delta.
+  auto grads = [&](int n, int stg) {
+    const int q0 = (qt0 + n % n_qt) * kDkvBQ;
+    const float* rows =
+        reinterpret_cast<const float*>(ac::smem_ptr(L::rows_of(base, stg)));
+    const int lr[2] = {lo[0] - q0 - 2 * t, lo[1] - q0 - 2 * t};
+    const int hr[2] = {hi[0] - q0 - 2 * t, hi[1] - q0 - 2 * t};
+#pragma unroll
+    for (int nt = 0; nt < kDkvBQ / 8; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      const float2 ls = *reinterpret_cast<const float2*>(rows + c);
+      const float2 dl = *reinterpret_cast<const float2*>(rows + kDkvBQ + c);
+      const float l2[2] = {ls.x * ac::kLog2e, ls.y * ac::kLog2e};
+      const float ds[2] = {dl.x * scale, dl.y * scale};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = nt * 4 + e, col = nt * 8 + (e & 1), r = e >> 1;
+        const float p = (col >= lr[r]) & (col < hr[r])
+                            ? ac::ex2(fmaf(st[i], scale_log2, -l2[e & 1]))
+                            : 0.f;
+        st[i] = p;
+        dpt[i] = p * fmaf(dpt[i], scale, -ds[e & 1]);
+      }
+    }
+    to_a(st, pa);
+    to_a(dpt, da);
+  };
+  auto acquire = [&]() {
+    const int stg = ring.stage;
+    ac::mbar_wait(base + L::full + 8 * stg, ring.phase);
+    ring.advance();
+    return stg;
+  };
+  auto release = [&](int stg) { ac::mbar_arrive(base + L::empty + 8 * stg); };
+  // A burst is this stage's dV and dK, then the next stage's S^T and dP^T
+  // (one after the other: P^T, dS^T, S^T, dP^T, dK and dV live at once
+  // leave ptxas too few registers at D 128, and it serializes the wgmmas,
+  // C7512); the stage's P^T and dS^T are computed while the other
+  // warpgroup's burst runs.
+  auto walk = [&]() {
+    if (stages == 0) return;
+    pp.start();
+    int cur = acquire();
+    pp.turn();
+    issue_sdp(cur);
+    pp.pass(false);
+    wait_sdp();
+    grads(0, cur);
+    for (int n = 1; n < stages; ++n) {
+      const int nxt = acquire();
+      pp.turn();
+      issue_dkv(cur);
+      wait_dkv();
+      release(cur);
+      issue_sdp(nxt);
+      pp.pass(false);
+      wait_sdp();
+      grads(n, nxt);
+      cur = nxt;
+    }
+    pp.turn();
+    issue_dkv(cur);
+    pp.pass(true);
+    wait_dkv();
+    release(cur);
+  };
+  ac::mbar_wait(kv_full, 0);
+  walk();
+  const size_t ks = (size_t)a.Hkv * D;
+  const size_t koff = ((size_t)b * a.Sk * a.Hkv + kh) * D;
+  bf16* dkg = static_cast<bf16*>(a.dk) + koff;
+  bf16* dvg = static_cast<bf16*>(a.dv) + koff;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= a.Sk) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt) {
+      const size_t o = (size_t)key[i] * ks + nt * 8 + 2 * t;
+      store2(dkg + o, dk[nt * 4 + 2 * i], dk[nt * 4 + 2 * i + 1]);
+      store2(dvg + o, dv[nt * 4 + 2 * i], dv[nt * 4 + 2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_bwd_dq_wgmma_kernel(const Args a,
+                              const __grid_constant__ CUtensorMap qm,
+                              const __grid_constant__ CUtensorMap om,
+                              const __grid_constant__ CUtensorMap km,
+                              const __grid_constant__ CUtensorMap vm) {
+  using L = DqLayout<D>;
+  const uint32_t base = ac::smem_base();
+  const uint32_t do_tiles = base + L::extra;  // consumer j's at + j kQTile
+  const uint32_t q_full = base + L::extra + 2 * L::kQTile;
+  if (threadIdx.x == 0) ac::mbar_init(q_full, 1);  // synced below
+  ac::init_barriers<L>(base, 1);
+  const int wg = threadIdx.x / 128;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqBQ;
+  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
+  const int pref = prefix_of(a, b);
+  int kt0, kt1;
+  key_tiles(a, pref, q0, kDqBQ, kDqKeys, &kt0, &kt1);
+  if (wg == 0) {
+    // registers: 128 * 24 + 256 * 240 = 384 * 168, the block's pool
+    ac::setmaxnreg_dec<24>();
+    if (threadIdx.x != 0) return;
+    const int kh = h / (a.H / a.Hkv);
+    ac::mbar_arrive_tx(q_full, 2 * ac::kConsumers * L::kQTile);
+#pragma unroll
+    for (int j = 0; j < ac::kConsumers; ++j)
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb) {
+        const uint32_t off = j * L::kQTile + cb * ac::kRows * 128;
+        const int row = q0 + j * ac::kRows;
+        ac::tma_load_4d(base + L::q + off, &qm, q_full, cb * 64, h, row, b);
+        ac::tma_load_4d(do_tiles + off, &om, q_full, cb * 64, h, row, b);
+      }
+    ac::Ring ring;
+    for (int kt = kt0; kt < kt1; ++kt) {
+      ac::wait_empty<L>(base, ring);
+      const uint32_t full = base + L::full + 8 * ring.stage;
+      ac::mbar_arrive_tx(full, 2 * L::kKvTile);
+#pragma unroll
+      for (int cb = 0; cb < D / 64; ++cb) {
+        const uint32_t off = cb * kDqKeys * 128;
+        ac::tma_load_4d(L::k_tile(base, ring.stage) + off, &km, full,
+                        cb * 64, kh, kt * kDqKeys, b);
+        ac::tma_load_4d(L::v_tile(base, ring.stage) + off, &vm, full,
+                        cb * 64, kh, kt * kDqKeys, b);
+      }
+      ring.advance();
+    }
+    return;
+  }
+  ac::setmaxnreg_inc<240>();
+  const int j = wg - 1;  // this consumer's rows: q0 + 64 j ..
+  const int ct = threadIdx.x - 128 * wg;
+  const int warp = ct / 32, lane = ct % 32, g = lane >> 2, t = lane & 3;
+  const int q0warp = q0 + j * ac::kRows + warp * 16;
+  const int row[2] = {q0warp + g, q0warp + g + 8};
+  RangeMask pol;  // its keys [lo, hi) a row
+  pol.init(a, pref, q0warp, row);
+  // lse * log2(e) and delta * scale of this thread's rows; 0 past Sq,
+  // where every key is masked
+  float lse2[2], delta_s[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool in = row[i] < a.Sq;
+    const size_t r = ((size_t)b * a.H + h) * a.Sq + row[i];
+    lse2[i] = in ? a.lse[r] * ac::kLog2e : 0.f;
+    delta_s[i] = in ? a.delta[r] * a.scale : 0.f;
+  }
+  const uint32_t q_tile = base + L::q + j * L::kQTile;
+  const uint32_t o_tile = do_tiles + j * L::kQTile;
+  const float scale = a.scale, scale_log2 = scale * ac::kLog2e;
+  float dq[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+  float s[kDqKeys / 2], dp[kDqKeys / 2];
+  uint32_t da[kDqKeys / 16][4];  // dS in bf16
+  // Q and dO of this warpgroup's rows as register A operands: S and dP
+  // then read only K and V from shared memory, whose bandwidth the
+  // shared-A form of m64n64 products saturates
+  uint32_t qa[D / 16][4], oa[D / 16][4];
+  ac::Ring ring;
+  static_assert(kDqKeys == 64, "S and dP are m64n64 products");
+  auto issue_sdp = [&](int stg) {  // S = Q K^T, dP = dO V^T
+    const uint32_t k_tile = L::k_tile(base, stg);
+    const uint32_t v_tile = L::v_tile(base, stg);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) {
+      const uint32_t off = (ks >> 2) * kDqKeys * 128 + (ks & 3) * 32;
+      wgmma_rs_kmajor_m64n64(s, qa[ks], ac::desc_kmajor(k_tile + off),
+                             ks > 0);
+      wgmma_rs_kmajor_m64n64(dp, oa[ks], ac::desc_kmajor(v_tile + off),
+                             ks > 0);
+    }
+    ac::wgmma_commit();
+  };
+  auto issue_dq = [&](int stg) {  // dQ += dS K
+    issue_rs<D, kDqKeys>(dq, da, L::k_tile(base, stg));
+    ac::wgmma_commit();
+  };
+  // key tile kt, in place: s becomes dS. Element i: row r = (i >> 1) & 1
+  // of this thread, key kt * kDqKeys + 2t + col, col = (i >> 2) * 8 +
+  // (i & 1); the row's key range relative to kt * kDqKeys + 2t, as dkv's.
+  auto grads = [&](int kt) {
+    const int k0 = kt * kDqKeys + 2 * t;
+    const int lr[2] = {pol.lo[0] - k0, pol.lo[1] - k0};
+    const int hr[2] = {pol.hi[0] - k0, pol.hi[1] - k0};
+#pragma unroll
+    for (int i = 0; i < kDqKeys / 2; ++i) {
+      const int r = (i >> 1) & 1, col = (i >> 2) * 8 + (i & 1);
+      const float p = (col >= lr[r]) & (col < hr[r])
+                          ? ac::ex2(fmaf(s[i], scale_log2, -lse2[r]))
+                          : 0.f;
+      s[i] = p * fmaf(dp[i], scale, -delta_s[r]);
+    }
+  };
+  auto acquire = [&]() {
+    const int stg = ring.stage;
+    ac::mbar_wait(base + L::full + 8 * stg, ring.phase);
+    ring.advance();
+    return stg;
+  };
+  auto release = [&](int stg) { ac::mbar_arrive(base + L::empty + 8 * stg); };
+  // A burst is the next tile's S and dP, then this tile's dQ, in flight
+  // while the next tile's dS is computed in place (the forward's overlap)
+  // and while the other warpgroup's burst runs (PingPong).
+  const PingPong pp{j};
+  auto walk = [&]() {
+    if (kt0 >= kt1) return;  // a causal window's rows past Sk + window
+    pp.start();
+    int cur = acquire();
+    pp.turn();
+    ac::fence_regs(s);
+    ac::fence_regs(dp);
+    ac::fence_regs(qa);
+    ac::fence_regs(oa);
+    ac::wgmma_fence();
+    issue_sdp(cur);
+    pp.pass(false);
+    ac::wgmma_wait<0>();
+    ac::fence_regs(s);
+    ac::fence_regs(dp);
+    grads(kt0);
+    to_a(s, da);
+    for (int kt = kt0 + 1; kt < kt1; ++kt) {
+      const int nxt = acquire();
+      pp.turn();
+      ac::fence_regs(s);
+      ac::fence_regs(dp);
+      ac::fence_regs(qa);
+      ac::fence_regs(oa);
+      ac::wgmma_fence();
+      issue_sdp(nxt);
+      ac::fence_regs(dq);
+      ac::wgmma_fence();
+      issue_dq(cur);
+      pp.pass(false);
+      ac::wgmma_wait<1>();  // the next tile's S and dP
+      ac::fence_regs(s);
+      ac::fence_regs(dp);
+      grads(kt);
+      ac::wgmma_wait<0>();
+      ac::fence_regs(dq);
+      ac::fence_regs(da);
+      release(cur);
+      to_a(s, da);
+      cur = nxt;
+    }
+    pp.turn();
+    ac::fence_regs(dq);
+    ac::wgmma_fence();
+    issue_dq(cur);
+    pp.pass(true);
+    ac::wgmma_wait<0>();
+    ac::fence_regs(dq);
+    ac::fence_regs(da);
+    release(cur);
+  };
+  ac::mbar_wait(q_full, 0);
+  load_a<D>(q_tile, warp, lane, qa);
+  load_a<D>(o_tile, warp, lane, oa);
+  walk();
+  const size_t qs = (size_t)a.H * D;
+  bf16* dqg = static_cast<bf16*>(a.dq) + ((size_t)b * a.Sq * a.H + h) * D;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (row[i] >= a.Sq) continue;
+#pragma unroll
+    for (int nt = 0; nt < D / 8; ++nt)
+      store2(dqg + (size_t)row[i] * qs + nt * 8 + 2 * t, dq[nt * 4 + 2 * i],
+             dq[nt * 4 + 2 * i + 1]);
+  }
+}
+
 // cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
@@ -1321,6 +1963,30 @@ cudaError_t run_fwd_packed_wgmma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// which: 1 = flash_bwd_dq_wgmma_kernel, 2 = flash_bwd_dkv_wgmma_kernel.
+template <int D>
+cudaError_t run_bwd_wgmma(int which, const Args& a, cudaStream_t stream) {
+  const bool dkv = which == 2;
+  const int q_rows = dkv ? kDkvBQ : ac::kRows;  // a TMA box: rows x 64
+  const int kv_rows = dkv ? kDkvKeys : kDqKeys;
+  CUtensorMap qm, om, km, vm;
+  if (!kv_tensor_map(&qm, a.q, a.B, a.Sq, a.H, D, q_rows) ||
+      !kv_tensor_map(&om, a.dout, a.B, a.Sq, a.H, D, q_rows) ||
+      !kv_tensor_map(&km, a.k, a.B, a.Sk, a.Hkv, D, kv_rows) ||
+      !kv_tensor_map(&vm, a.v, a.B, a.Sk, a.Hkv, D, kv_rows))
+    return cudaErrorInvalidValue;
+  auto kernel =
+      dkv ? flash_bwd_dkv_wgmma_kernel<D> : flash_bwd_dq_wgmma_kernel<D>;
+  const int smem = dkv ? DkvLayout<D>::alloc : DqLayout<D>::alloc;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid = dkv ? dim3((a.Sk + kDkvKeys - 1) / kDkvKeys, a.B * a.Hkv)
+                        : dim3((a.Sq + kDqBQ - 1) / kDqBQ, a.B * a.H);
+  kernel<<<grid, ac::block_threads(1), smem, stream>>>(a, qm, om, km, vm);
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
@@ -1337,18 +2003,17 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t run(int which, const Args& a, cudaStream_t stream) {
+// The one-head kernels on mma.sync tiles serve f32 only (the f32 model
+// checks); bf16 runs flash_fwd_wgmma_kernel and the backward pair above.
+template <int D>
+cudaError_t run_f32(int which, const Args& a, cudaStream_t stream) {
+  using T = float;
   const dim3 q_grid((a.Sq + kFwdBQ - 1) / kFwdBQ, a.B * a.H);
   const dim3 kv_grid((a.Sk + kKvBK - 1) / kKvBK, a.B * a.Hkv);
   switch (which) {
     case 0:
-      // the one-head forward on mma.sync tiles serves f32 only; bf16 runs
-      // flash_fwd_wgmma_kernel
-      if constexpr (std::is_same<T, float>::value)
-        return launch(flash_fwd_kernel<T, D>, q_grid, kThreads1,
-                      fwd_smem<T, D, 1>(), a, stream);
-      return cudaErrorInvalidValue;
+      return launch(flash_fwd_kernel<T, D>, q_grid, kThreads1,
+                    fwd_smem<T, D, 1>(), a, stream);
     case 1:
       return launch(flash_bwd_dq_kernel<T, D>, q_grid, kThreads1,
                     dq_smem<T, D, 1>(), a, stream);
@@ -1391,6 +2056,15 @@ constexpr int kFwdPacked = 1;   // flash_fwd_packed_kernel: f32
 constexpr int kFwdWgmma = 2;    // flash_fwd_wgmma_kernel: bf16
 constexpr int kFwdPackedWgmma = 3;  // flash_fwd_packed_wgmma_kernel: bf16
 
+// Backward kernel ids (the wrapper names the pair to launch, one at a
+// time: dq, then dkv).
+constexpr int kBwdDq = 0;            // flash_bwd_dq_kernel: f32
+constexpr int kBwdDkv = 1;           // flash_bwd_dkv_kernel: f32
+constexpr int kBwdDqPacked = 2;      // flash_bwd_dq_packed_kernel: f32, bf16
+constexpr int kBwdDkvPacked = 3;     // flash_bwd_dkv_packed_kernel: f32, bf16
+constexpr int kBwdDqWgmma = 4;       // flash_bwd_dq_wgmma_kernel: bf16
+constexpr int kBwdDkvWgmma = 5;      // flash_bwd_dkv_wgmma_kernel: bf16
+
 bool valid(const Args& a) {
   if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Hkv <= 0 || a.H % a.Hkv ||
       a.window < 0)
@@ -1409,11 +2083,9 @@ int dispatch(int which, const Args& a, int D, int pack, int dtype,
     if (dtype == 0) return run_packed<float>(which, a, st);
     return cudaErrorInvalidValue;
   }
-  if (pack != 1) return cudaErrorInvalidValue;
-  if (dtype == 1 && D == 128) return run<bf16, 128>(which, a, st);
-  if (dtype == 1 && D == 64) return run<bf16, 64>(which, a, st);
-  if (dtype == 0 && D == 128) return run<float, 128>(which, a, st);
-  if (dtype == 0 && D == 64) return run<float, 64>(which, a, st);
+  if (pack != 1 || dtype != 0) return cudaErrorInvalidValue;
+  if (D == 128) return run_f32<128>(which, a, st);
+  if (D == 64) return run_f32<64>(which, a, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1460,20 +2132,37 @@ int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* out,
   }
 }
 
-// pack (backward): 1 = a head per block (flash_bwd_*_kernel), 2 = two heads
-// of 64 per block (flash_bwd_*_packed_kernel; MHA, any H).
-
-// which: 1 = the dq kernel (writes dq), 2 = the dkv kernel (writes dk, dv).
-int dlrover_flash_bwd(int which, const void* q, const void* k, const void* v,
+// kernel (backward; a dq kernel writes dq, a dkv kernel dk and dv): 0 =
+// flash_bwd_dq_kernel, 1 = flash_bwd_dkv_kernel (a head a block, f32); 2 =
+// flash_bwd_dq_packed_kernel, 3 = flash_bwd_dkv_packed_kernel (two heads of
+// 64 a block; MHA, any H; f32 or bf16); 4 = flash_bwd_dq_wgmma_kernel, 5 =
+// flash_bwd_dkv_wgmma_kernel (a head a block, bf16, on the tensor cores).
+int dlrover_flash_bwd(int kernel, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, void* dk, void* dv, const int* prefix, int B,
                       int Sq, int Sk, int H, int Hkv, int D, float scale,
-                      int causal, int window, int pack, int dtype,
-                      void* stream) {
-  if (which != 1 && which != 2) return cudaErrorInvalidValue;
+                      int causal, int window, int dtype, void* stream) {
   Args a = {q,  k,  v,  nullptr, dout, lse, delta, dq,     dk,    dv,
             prefix, B, Sq, Sk,   H,    Hkv, scale, causal, window};
-  return dispatch(which, a, D, pack, dtype, stream);
+  switch (kernel) {
+    case kBwdDq:
+    case kBwdDkv:
+      return dispatch(kernel == kBwdDq ? 1 : 2, a, D, 1, dtype, stream);
+    case kBwdDqPacked:
+    case kBwdDkvPacked:
+      return dispatch(kernel == kBwdDqPacked ? 1 : 2, a, D, 2, dtype, stream);
+    case kBwdDqWgmma:
+    case kBwdDkvWgmma: {
+      if (dtype != 1 || !valid(a)) return cudaErrorInvalidValue;
+      const int which = kernel == kBwdDqWgmma ? 1 : 2;
+      auto st = static_cast<cudaStream_t>(stream);
+      if (D == 128) return run_bwd_wgmma<128>(which, a, st);
+      if (D == 64) return run_bwd_wgmma<64>(which, a, st);
+      return cudaErrorInvalidValue;
+    }
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

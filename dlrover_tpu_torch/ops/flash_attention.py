@@ -3,18 +3,25 @@
 Port of ``dlrover_tpu/ops/pallas_attention.py``:
 
 - ``flash_attention`` / ``flash_attention_with_lse`` — the ops, with
-  autograd. On CUDA tensors the forward launches ``flash_fwd_wgmma_kernel``
-  (bf16; the tensor-core core of ``csrc/attn_fwd_core.cuh``) or
-  ``flash_fwd_kernel`` (f32) and the backward ``flash_bwd_dq_kernel`` and
-  ``flash_bwd_dkv_kernel``, the hand-written Hopper kernels of
-  ``csrc/flash_attention.cu``, which replace the TPU kernels
-  ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; with two
-  heads of 64 packed per block (``head_pack``, auto for every MHA model
-  of head_dim 64) they launch ``flash_fwd_packed_wgmma_kernel`` (bf16, on
-  the same core) or ``flash_fwd_packed_kernel`` (f32), then
-  ``flash_bwd_dq_packed_kernel`` and ``flash_bwd_dkv_packed_kernel``,
-  which replace ``_fwd_kernel_packed``, ``_bwd_dq_kernel_packed`` and
-  ``_bwd_dkv_kernel_packed``. On CPU
+  autograd. On CUDA tensors they launch the hand-written Hopper kernels
+  of ``csrc/flash_attention.cu``, which replace the TPU kernels
+  ``_fwd_kernel``, ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``: in bf16
+  the forward ``flash_fwd_wgmma_kernel`` and the backward
+  ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel``, all
+  on wgmma from TMA-fed shared-memory rings (the primitives of
+  ``csrc/attn_fwd_core.cuh``); in f32 ``flash_fwd_kernel``,
+  ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` (mma.sync tiles
+  through f32 FMAs). With two heads of 64 packed per block
+  (``head_pack``, auto for every MHA model of head_dim 64) they launch
+  ``flash_fwd_packed_wgmma_kernel`` (bf16, on the same core) or
+  ``flash_fwd_packed_kernel`` (f32), then ``flash_bwd_dq_packed_kernel``
+  and ``flash_bwd_dkv_packed_kernel`` (mma.sync, both types), which
+  replace ``_fwd_kernel_packed``, ``_bwd_dq_kernel_packed`` and
+  ``_bwd_dkv_kernel_packed``. ``fwd_cuda_kernel`` and
+  ``bwd_cuda_kernel`` name the kernels a call launches. The backward is
+  bound by operations: its least work is 10·D FLOP a visible (query,
+  key) pair, and its two kernels execute 14·D (both recompute Q·Kᵀ and
+  dO·Vᵀ, so that neither needs atomics). On CPU
   tensors the same autograd function runs the plain versions, whatever
   the pack (packing changes where heads run, not the numbers). There is
   no other path: a CUDA tensor launches the kernel or raises.
@@ -37,7 +44,7 @@ for now (ROADMAP A16).
 """
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -54,6 +61,10 @@ LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 #: the forward kernels the C entry point takes, by id
 FWD_CUDA_KERNELS = ("flash_fwd_kernel", "flash_fwd_packed_kernel",
                     "flash_fwd_wgmma_kernel", "flash_fwd_packed_wgmma_kernel")
+#: the backward kernels the C entry point takes, by id
+BWD_CUDA_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                    "flash_bwd_dq_packed_kernel", "flash_bwd_dkv_packed_kernel",
+                    "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -80,6 +91,22 @@ def fwd_cuda_kernel(dtype, pack: int) -> str:
         return ("flash_fwd_packed_wgmma_kernel" if bf16
                 else "flash_fwd_packed_kernel")
     return "flash_fwd_wgmma_kernel" if bf16 else "flash_fwd_kernel"
+
+
+def bwd_cuda_kernel(dtype, pack: int) -> Tuple[str, str]:
+    """The CUDA backward kernels ``(dq, dkv)`` for ``dtype`` at ``pack``:
+    bf16 one head a block on the tensor cores,
+    ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel``; f32
+    one head a block the mma.sync bodies' ``flash_bwd_dq_kernel`` and
+    ``flash_bwd_dkv_kernel``; two heads of 64 a block (both types)
+    ``flash_bwd_dq_packed_kernel`` and ``flash_bwd_dkv_packed_kernel``.
+    They count under ``LAUNCHES["flash_bwd_dq"]`` and
+    ``LAUNCHES["flash_bwd_dkv"]`` (``_packed`` at pack 2)."""
+    if pack == 2:
+        return "flash_bwd_dq_packed_kernel", "flash_bwd_dkv_packed_kernel"
+    if dtype == torch.bfloat16:
+        return "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"
+    return "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
 
 
 def head_pack_for(h: int, hkv: int, d: int, head_pack: int = 0) -> int:
@@ -120,6 +147,27 @@ def _allowed(sq, sk, causal, window, prefix, offsets, device):
     if prefix is not None:
         mask = mask | (k_pos[None] < prefix.to(device)[:, None, None])
     return mask
+
+
+def dkv_q_range(sq, sk, causal, window, prefix=None):
+    """``(lo, hi)``, ``[B or 1, Sk]`` int64: the queries ``[lo, hi)`` that
+    each key sees, the rule the dkv kernel masks a key row by (``q_range``
+    in ``csrc/flash_attention.cu``): causal ``[k, k + window)`` (``[k,
+    Sq)`` without a window); a key inside the prefix, or any key without
+    causal, is seen by every query; cut to ``[0, Sq)`` (``lo >= hi``: no
+    query). The same visibility as ``_allowed``, turned round."""
+    k = torch.arange(sk)[None]
+    lo = torch.zeros_like(k)
+    hi = torch.full_like(k, sq)
+    if causal:
+        lo = k
+        if window:
+            hi = torch.clamp(k + window, max=sq)
+        if prefix is not None:
+            seen = k < prefix.cpu().long()[:, None]
+            lo = torch.where(seen, 0, lo)
+            hi = torch.where(seen, sq, hi)
+    return lo, hi
 
 
 def _grouped(x, hkv):
@@ -216,7 +264,7 @@ def _lib():
         fwd.argtypes = [p] * 6 + [i] * 6 + [f, i, i, i, i, p]
         fwd.restype = i
         bwd = lib.dlrover_flash_bwd
-        bwd.argtypes = [i] + [p] * 10 + [i] * 6 + [f, i, i, i, i, p]
+        bwd.argtypes = [i] + [p] * 10 + [i] * 6 + [f, i, i, i, p]
         bwd.restype = i
         _fns.update(fwd=fwd, bwd=bwd)
     return _fns
@@ -300,9 +348,13 @@ def flash_fwd_cuda(q, k, v, *, causal, scale, window, prefix=None, pack=1):
 
 def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window,
                    prefix=None, pack=1):
-    """The dq kernel then the dkv kernel → ``(dq, dk, dv)``: unpacked for
-    ``pack`` 1, packed for ``pack`` 2. ``delta`` ``[B, H, Sq]`` f32 is
-    ``rowsum(dO·O)`` (minus any lse cotangent)."""
+    """The dq kernel then the dkv kernel on ``q``'s device and current
+    stream → ``(dq, dk, dv)``: ``bwd_cuda_kernel`` picks the pair, for
+    ``pack`` 1 ``flash_bwd_dq_wgmma_kernel`` and
+    ``flash_bwd_dkv_wgmma_kernel`` (bf16, on the tensor cores) or the
+    mma.sync ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` (f32),
+    for ``pack`` 2 the packed mma.sync pair. ``delta`` ``[B, H, Sq]`` f32
+    is ``rowsum(dO·O)`` (minus any lse cotangent)."""
     b, sq, sk, h, hkv, d = _geometry(q, k, v, pack, prefix)
     _check(g, "dO", q.device, q.dtype, q.shape)
     _check(lse, "lse", q.device, torch.float32, (b, h, sq))
@@ -314,10 +366,12 @@ def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _ptr(prefix), b, sq, sk, h, hkv, d, float(scale),
-            int(causal), int(window), pack, _DTYPE_CODE[q.dtype], stream)
+            int(causal), int(window), _DTYPE_CODE[q.dtype], stream)
     suffix = "_packed" if pack == 2 else ""
-    for which, name in ((1, "flash_bwd_dq"), (2, "flash_bwd_dkv")):
-        _raise_on(_lib()["bwd"](which, *args), name + suffix)
+    for kernel, name in zip(bwd_cuda_kernel(q.dtype, pack),
+                            ("flash_bwd_dq", "flash_bwd_dkv")):
+        _raise_on(_lib()["bwd"](BWD_CUDA_KERNELS.index(kernel), *args),
+                  name + suffix)
         LAUNCHES[name + suffix] += 1
     return dq, dk, dv
 

@@ -878,7 +878,7 @@ def test_chunk_kernel_on_the_tensor_cores(dev, mode, d, starts, c, held,
         assert torch.equal(one, out[i:i + 1])
 
 
-@pytest.mark.parametrize("name,b,s,h,hkv,d,causal,window,prefix", [
+_TC_FLASH_CASES = [
     ("d128", 2, 256, 4, 4, 128, True, 0, None),
     ("d64-gqa", 2, 256, 4, 2, 64, True, 0, None),
     ("noncausal-gqa", 1, 300, 4, 1, 128, False, 0, None),
@@ -888,7 +888,11 @@ def test_chunk_kernel_on_the_tensor_cores(dev, mode, d, starts, c, held,
     ("window-d64", 2, 1000, 4, 2, 64, True, 257, None),
     # a prefix per sequence: none, mid-tile, past the end
     ("prefix", 3, 400, 4, 2, 128, True, 0, (0, 150, 500)),
-    ("prefix-d64", 3, 1000, 4, 4, 64, True, 0, (0, 517, 1000))])
+    ("prefix-d64", 3, 1000, 4, 4, 64, True, 0, (0, 517, 1000))]
+
+
+@pytest.mark.parametrize("name,b,s,h,hkv,d,causal,window,prefix",
+                         _TC_FLASH_CASES)
 def test_flash_fwd_on_the_tensor_cores(dev, name, b, s, h, hkv, d, causal,
                                        window, prefix):
     """The bf16 one-head forward (flash_fwd_wgmma_kernel) against
@@ -907,6 +911,74 @@ def test_flash_fwd_on_the_tensor_cores(dev, name, b, s, h, hkv, d, causal,
     assert rec["ok"], rec
     assert fa.LAUNCHES["flash_fwd"] == 2
     assert fa.LAUNCHES["flash_fwd_packed"] == 0
+
+
+@pytest.mark.parametrize("name,b,s,h,hkv,d,causal,window,prefix,sk", [
+    case + (None,) for case in _TC_FLASH_CASES] + [
+    # GQA groups of 4 and 8 (the dkv kernel's ring runs on from one query
+    # head of the group to the next)
+    ("gqa4", 2, 512, 16, 4, 128, True, 0, None, None),
+    ("gqa8-d64", 2, 512, 16, 2, 64, True, 0, None, None),
+    ("gqa8-window", 1, 1001, 8, 1, 128, True, 100, None, None),
+    # lse rows of S * 4 bytes, not a multiple of 16
+    ("s257", 2, 257, 4, 4, 128, True, 0, None, None),
+    ("s1001-d64", 2, 1001, 4, 2, 64, True, 0, None, None),
+    ("prefix-s1001", 3, 1001, 4, 4, 128, True, 0, (0, 517, 1100), None),
+    # Sq != Sk
+    ("noncausal-sq<sk", 2, 257, 4, 2, 128, False, 0, None, 1001),
+    ("noncausal-sq>sk-d64", 2, 1001, 4, 4, 64, False, 0, None, 257),
+    ("causal-sq<sk", 1, 300, 4, 2, 128, True, 0, None, 1001),
+    # a window wider than S
+    ("window>s", 2, 300, 4, 4, 128, True, 1000, None, None)])
+def test_flash_bwd_on_the_tensor_cores(dev, monkeypatch, name, b, s, h, hkv,
+                                       d, causal, window, prefix, sk):
+    """The bf16 backward of one head a block (flash_bwd_dq_wgmma_kernel,
+    flash_bwd_dkv_wgmma_kernel) on the forward kernel's out and lse,
+    through chip_smoke.flash_case: dq, dk and dv under chip_smoke.py's
+    flash bounds element by element, with a planted fault caught (a key
+    row replaced; the prefix shifted by one key), and the kernel ids the
+    C entry was given."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    lib = fa._lib()
+    real, ids = lib["bwd"], []
+
+    def bwd(*args):
+        ids.append(args[0])
+        return real(*args)
+
+    monkeypatch.setitem(lib, "bwd", bwd)
+    gen = torch.Generator(device=dev).manual_seed(s + d + h)
+    fa.reset_launches()
+    rec = chip_smoke.flash_case(name, b, s, h, hkv, d, causal, window, gen,
+                                dev, False, prefix=prefix, sk=sk,
+                                fault="key" if prefix is None else "prefix")
+    assert rec["ok"], rec
+    pair = [fa.BWD_CUDA_KERNELS.index(n)
+            for n in fa.bwd_cuda_kernel(torch.bfloat16, 1)]
+    assert pair == [fa.BWD_CUDA_KERNELS.index("flash_bwd_dq_wgmma_kernel"),
+                    fa.BWD_CUDA_KERNELS.index("flash_bwd_dkv_wgmma_kernel")]
+    assert ids == pair * 2  # the checked run and the faulted run
+    assert fa.LAUNCHES["flash_bwd_dq"] == fa.LAUNCHES["flash_bwd_dkv"] == 2
+    assert fa.LAUNCHES["flash_bwd_dq_packed"] == 0
+
+
+@pytest.mark.parametrize("hkv,d,window", [(2, 128, 0), (16, 64, 300)])
+def test_flash_bwd_repeats_bit_for_bit(dev, hkv, d, window):
+    """dq, dk and dv of the bf16 backward pair are equal bit for bit on a
+    repeated call: no atomics, the GQA group summed in a fixed order."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, go = _flash_case(dev, torch.bfloat16, 2, 1001, 16, hkv, d, 5)
+    kw = dict(causal=True, scale=d ** -0.5, window=window)
+    out, lse = fa.flash_fwd_cuda(q, k, v, **kw)
+    delta = (go.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    first = fa.flash_bwd_cuda(q, k, v, go, lse, delta, **kw)
+    second = fa.flash_bwd_cuda(q, k, v, go, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    assert all(bool(torch.isfinite(x.float()).all()) for x in first)
 
 
 def test_prefill_step_on_card_matches_cpu(dev):
