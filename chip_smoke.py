@@ -72,20 +72,23 @@ result:
    time by class (the paged-attention class also on its own), launches
    per step, the device's busy share;
 6. train_kernel: the flash kernels (forward, dq, dkv; a head a block,
-   and two heads of 64 packed a block; the bf16 kernels of a head a block
-   and the packed bf16 forward on wgmma, ``flash_fwd_wgmma_kernel``,
-   ``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel`` and
-   ``flash_fwd_packed_wgmma_kernel``) and the norm kernels (forward, which
-   spreads a wide row over several warps, and backward) against their
+   and two heads of 64 packed a block; every bf16 kernel on wgmma,
+   ``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
+   ``flash_bwd_dkv_wgmma_kernel``, ``flash_fwd_packed_wgmma_kernel``,
+   ``flash_bwd_dq_packed_wgmma_kernel`` and
+   ``flash_bwd_dkv_packed_wgmma_kernel``) and the norm kernels (forward and
+   backward, which spread a wide row over several warps; the backward
+   keeps its column sums in registers) against their
    plain versions run in f32 on the same bf16 values, at the train steps'
    shapes (llama-1.4b: flash B 8, S 1024, H 16, D 128, norm rows [8192,
    2048] rmsnorm; gpt2-1.5b: packed flash B 8, S 1024, H 25, D 64, norm
    rows [8192, 1600] layernorm with bias; glm-10b: norm rows [8192, 4096]
-   layernorm with bias, the backward on 4 warps; norms with and without
-   the residual) and in extra cases (GQA, a window, D 64 unpacked, ragged
-   S; packed: 16 heads, glm-10b's 64 heads at S 2048 with a prefix per
-   sequence of 0, 700 and past the end, non-causal bert-base, 25 heads at
-   S 1000; the prefix in the unpacked kernels at D 128), each under an
+   layernorm with bias; norms with and without the residual, each norm
+   record with the plans its kernels ran) and in extra cases (GQA, a
+   window, D 64 unpacked, ragged S; packed: 16 heads, glm-10b's 64 heads
+   at S 2048 with a prefix per sequence of 0, 700 and past the end,
+   non-causal bert-base, 25 heads at S 1000; the prefix in the unpacked
+   kernels at D 128), each under an
    element-wise bound and each with a planted fault the bound must catch
    (a key row replaced; the prefix shifted by one key; at 25 heads the
    last pack's second head written into head 24, where the ragged path
@@ -154,10 +157,11 @@ TRAIN_KERNELS = (
      "dlrover_tpu/ops/pallas_attention.py:278",
      "flash_fwd_packed_wgmma_kernel"),
     ("flash_bwd_dq_packed", FLASH_SRC,
-     "dlrover_tpu/ops/pallas_attention.py:484", "flash_bwd_dq_packed_kernel"),
+     "dlrover_tpu/ops/pallas_attention.py:484",
+     "flash_bwd_dq_packed_wgmma_kernel"),
     ("flash_bwd_dkv_packed", FLASH_SRC,
      "dlrover_tpu/ops/pallas_attention.py:546",
-     "flash_bwd_dkv_packed_kernel"),
+     "flash_bwd_dkv_packed_wgmma_kernel"),
     ("norm_fwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:95",
      "norm_fwd_kernel"),
     ("norm_bwd", NORM_SRC, "dlrover_tpu/ops/pallas_norm.py:126",
@@ -1769,9 +1773,20 @@ def norm_case(name, n, d, residual, gen, dev, timed, kind="rmsnorm"):
     torch.cuda.synchronize()
     faults = {"out": _over(out_b, ref, fwd_bound)[1],
               "dx": _over(dx_b, rdx, dx_bound)[1]}
+    # the plans the kernels ran: the forward's and the backward's warps a
+    # row and vectors a lane, and the backward's grid (its partial rows)
+    bwd_plan = nm.bwd_plan(d, x.dtype, residual)
+    plans = {
+        "fwd": dict(zip(("warps_per_row", "vectors_per_lane"),
+                        nm.fwd_plan(d, x.dtype, residual))),
+        "bwd": dict(zip(("warps_per_row", "vectors_per_lane"), bwd_plan),
+                    blocks=nm._lib()["bwd_blocks"](
+                        n, d, int(rms), int(residual), int(not rms),
+                        nm._DTYPE_CODE[x.dtype], *bwd_plan))}
     rec = {"phase": "train_kernel", "case": name, "op": "norm",
            "kernels": list(nm.KERNELS), "rows": n, "d": d,
            "residual": residual, "kind": kind, "bias": not rms,
+           "plans": plans,
            "max_abs_err": {k: c[0] for k, c in checks.items()},
            "over_bound": {k: c[1] for k, c in checks.items()},
            "max_err_over_bound": {k: c[2] for k, c in checks.items()},
@@ -1861,9 +1876,8 @@ def train_kernel_cases(seed, dev):
                   "layernorm"),
         norm_case("gpt2-1.5b+residual", 8192, 1600, True, gen, dev, True,
                   "layernorm"),
-        # glm-10b's rows in train_glm: layernorm with bias at d 4096, whose
-        # backward runs 4 warps a block (8 warps' partials pass the shared
-        # memory a block can have)
+        # glm-10b's rows in train_glm: layernorm with bias at d 4096 (a
+        # row over 8 warps in both kernels)
         norm_case("glm-10b", 8192, 4096, False, gen, dev, True, "layernorm"),
         norm_case("glm-10b+residual", 8192, 4096, True, gen, dev, True,
                   "layernorm"),
@@ -2061,7 +2075,8 @@ def _train_kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_fwd_" in low or "flash_bwd_" in low:
         return "flash"
-    if "norm_fwd_kernel" in low or "norm_bwd_kernel" in low:
+    if any(k in low for k in ("norm_fwd_kernel", "norm_bwd_kernel",
+                              "norm_bwd_colsum_kernel")):
         return "norm"
     if any(k in low for k in ("gemm", "xmma", "cutlass", "gemv", "nvjet")):
         return "matmul"

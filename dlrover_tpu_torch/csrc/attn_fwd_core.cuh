@@ -76,20 +76,21 @@ struct Meta {
 };
 
 // Byte offsets into the block's dynamic shared memory (1024-aligned
-// base) for head dim D and K/V tiles of KEYS keys. EXTRA: kernel-owned
-// bytes (the paged kernel's int8 staging).
-template <int D, int KEYS, int EXTRA>
+// base) for head dim D and K/V tiles of KEYS keys in a ring of NS stages.
+// EXTRA: kernel-owned bytes (the paged kernel's int8 staging).
+template <int D, int KEYS, int EXTRA, int NS = kStages>
 struct Layout {
   static constexpr int kKeys = KEYS;
+  static constexpr int kRingStages = NS;
   static constexpr int kQTile = (D / 64) * kRows * 128;  // 64 rows x D
   static constexpr int kKvTile = (D / 64) * KEYS * 128;  // KEYS rows x D
   static constexpr int q = 0;                            // kConsumers tiles
   static constexpr int kv = q + kConsumers * kQTile;     // stages: K, V
-  static constexpr int extra = kv + kStages * 2 * kKvTile;
-  static constexpr int full = extra + EXTRA;             // kStages mbarriers
-  static constexpr int empty = full + 8 * kStages;
-  static constexpr int meta = empty + 8 * kStages;       // kStages Metas
-  static constexpr int bytes = meta + 16 * kStages;
+  static constexpr int extra = kv + NS * 2 * kKvTile;
+  static constexpr int full = extra + EXTRA;             // NS mbarriers
+  static constexpr int empty = full + 8 * NS;
+  static constexpr int meta = empty + 8 * NS;            // NS Metas
+  static constexpr int bytes = meta + 16 * NS;
   static constexpr int alloc = bytes + 1024;             // alignment slack
   static __device__ __forceinline__ uint32_t k_tile(uint32_t base, int s) {
     return base + kv + s * 2 * kKvTile;
@@ -391,13 +392,14 @@ __device__ __forceinline__ unsigned char* smem_ptr(uint32_t addr) {
   return dyn_smem + (addr - smem_u32(dyn_smem));
 }
 
-// Thread 0 initialises the barriers: `full` expects `full_count`
-// arrivals (plus the TMA bytes, if any), `empty` one per consumer
-// thread. Every thread of the block must call this (it syncs them).
+// Thread 0 initialises the barriers of the L::kRingStages stages: `full`
+// expects `full_count` arrivals (plus the TMA bytes, if any), `empty` one
+// per consumer thread. Every thread of the block must call this (it syncs
+// them).
 template <class L>
 __device__ __forceinline__ void init_barriers(uint32_t base, int full_count) {
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < L::kRingStages; ++s) {
       mbar_init(base + L::full + 8 * s, full_count);
       mbar_init(base + L::empty + 8 * s, 128 * kConsumers);
     }
@@ -406,22 +408,24 @@ __device__ __forceinline__ void init_barriers(uint32_t base, int full_count) {
   __syncthreads();
 }
 
-// A position in the ring. The producer's first pass over the stages
-// waits on nothing (parity 1 of a fresh barrier counts as completed); the
-// consumers wait on parity 0 of the full barriers.
-struct Ring {
+// A position in a ring of NS stages. The producer's first pass over the
+// stages waits on nothing (parity 1 of a fresh barrier counts as
+// completed); the consumers wait on parity 0 of the full barriers.
+template <int NS>
+struct RingN {
   int stage = 0;
   int phase = 0;
   __device__ __forceinline__ void advance() {
-    if (++stage == kStages) {
+    if (++stage == NS) {
       stage = 0;
       phase ^= 1;
     }
   }
 };
+using Ring = RingN<kStages>;
 
-template <class L>
-__device__ __forceinline__ void wait_empty(uint32_t base, const Ring& r) {
+template <class L, class R>
+__device__ __forceinline__ void wait_empty(uint32_t base, const R& r) {
   mbar_wait(base + L::empty + 8 * r.stage, r.phase ^ 1);
 }
 

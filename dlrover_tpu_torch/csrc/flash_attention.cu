@@ -9,8 +9,10 @@
 //   flash_bwd_dkv_kernel           <- _bwd_dkv_kernel, f32
 //   flash_fwd_packed_wgmma_kernel  <- _fwd_kernel_packed, bf16  (head_pack 2)
 //   flash_fwd_packed_kernel        <- _fwd_kernel_packed, f32   (head_pack 2)
-//   flash_bwd_dq_packed_kernel     <- _bwd_dq_kernel_packed     (head_pack 2)
-//   flash_bwd_dkv_packed_kernel    <- _bwd_dkv_kernel_packed    (head_pack 2)
+//   flash_bwd_dq_packed_wgmma_kernel  <- _bwd_dq_kernel_packed, bf16  (head_pack 2)
+//   flash_bwd_dkv_packed_wgmma_kernel <- _bwd_dkv_kernel_packed, bf16 (head_pack 2)
+//   flash_bwd_dq_packed_kernel     <- _bwd_dq_kernel_packed, f32   (head_pack 2)
+//   flash_bwd_dkv_packed_kernel    <- _bwd_dkv_kernel_packed, f32  (head_pack 2)
 // with the same arithmetic: scores s = (q . k) * scale in f32; masked
 // scores (causal q_pos >= k_pos aligned top-left, a sliding window
 // q_pos - k_pos < window, GLM prefix-LM keys k_pos < prefix[b] seen by every
@@ -27,44 +29,44 @@
 // the forward, ~100x its bytes over the card's ridge; the backward's least
 // work is 10·D FLOP a visible pair (five products), and its two kernels
 // execute 14·D (both recompute Q.K^T and dO.V^T, so that neither needs
-// atomics). So the products run on the tensor cores. The bf16 kernels of
-// one head a block and the bf16 packed forward run on wgmma, the only path
-// to the card's full tensor-core rate, from shared-memory tiles that TMA
-// fills under the products (attn_fwd_core.cuh's primitives; P and dS kept
-// in registers): flash_fwd_wgmma_kernel (a head and 128 q rows a block),
-// flash_fwd_packed_wgmma_kernel (a persistent kernel walking items of two
-// heads and 64 q rows), flash_bwd_dq_wgmma_kernel (128 q rows of a head a
-// block) and flash_bwd_dkv_wgmma_kernel (128 keys of a KV head a block);
-// see each below. The packed backward (both types) uses mma.sync m16n8k16
-// with f32 accumulation. An f32 call (the f32 model checks) runs the
-// mma.sync bodies' tiles through f32 FMAs on the CUDA cores, with the same
-// fragment layout, so both share one body.
+// atomics). So the products run on the tensor cores: every bf16 kernel
+// runs on wgmma, the only path to the card's full tensor-core rate, from
+// shared-memory tiles that TMA fills under the products (attn_fwd_core.cuh's
+// primitives; P and dS kept in registers): flash_fwd_wgmma_kernel (a head
+// and 128 q rows a block), flash_fwd_packed_wgmma_kernel (a persistent
+// kernel walking items of two heads and 64 q rows),
+// flash_bwd_dq_wgmma_kernel (128 q rows of a head a block) and
+// flash_bwd_dkv_wgmma_kernel (128 keys of a KV head a block), and their
+// packed twins flash_bwd_dq_packed_wgmma_kernel (64 q rows of two heads)
+// and flash_bwd_dkv_packed_wgmma_kernel (64 keys of two heads); see each
+// below. An f32 call (the f32 model checks) runs the mma.sync bodies,
+// whose tiles go through f32 FMAs on the CUDA cores in mma.sync's fragment
+// layout.
 //
-// The mma.sync bodies (the packed backward; every f32 kernel). No block
-// carries state to another: the forward gives each block NH query heads of one
-// batch element and one 64-row q tile and loops over 64-key tiles inside;
-// the dq kernel does the same; the dkv kernel gives each block NH KV heads
-// and one 64-key tile and loops over the query heads of each KV head's
-// group and over 32-row q tiles, so the GQA group sum of dk/dv is a sum in
-// registers and needs no atomics. Each head of a block has a group of 4
-// warps; each warp owns 16 rows of its head's output tile and keeps them in
-// mma accumulator fragments. Tiles of Q, K, V and dO are staged in shared
-// memory with their rows padded by 16 bytes (conflict-free fragment
-// loads); P and dS go through a small per-warp buffer, which also rounds
-// them to the input type. The operand of a product that is read along its
-// rows (V in P.V, K in dS.K, dO in P^T.dO, Q in dS^T.Q) is loaded with
-// ldmatrix.trans. Tiles wholly above the causal diagonal or below the
+// The mma.sync bodies (every f32 kernel). No block carries state to
+// another: the forward gives each block NH query heads of one batch element
+// and one 64-row q tile and loops over 64-key tiles inside; the dq kernel
+// does the same; the dkv kernel gives each block NH KV heads and one 64-key
+// tile and loops over the query heads of each KV head's group and over
+// 32-row q tiles, so the GQA group sum of dk/dv is a sum in registers and
+// needs no atomics. Each head of a block has a group of 4 warps; each warp
+// owns 16 rows of its head's output tile and keeps them in mma accumulator
+// fragments. Tiles of Q, K, V and dO are staged in shared memory with their
+// rows padded by 16 bytes (conflict-free fragment loads); P and dS go
+// through a small per-warp buffer. The operand of a product that is read
+// along its rows (V in P.V, K in dS.K, dO in P^T.dO, Q in dS^T.Q) is read
+// as stored (mma_nn). Tiles wholly above the causal diagonal or below the
 // window, and outside the prefix, are skipped (_block_runs); tiles wholly
 // visible (under the diagonal, inside the prefix) only scale their scores;
 // the others are masked exactly per element, the ragged tail of S included,
-// so S need not be a multiple of a tile. The packed bodies' forward and
-// dkv double-buffer their streamed tiles with cp.async (below, kv_bufs).
+// so S need not be a multiple of a tile. The packed bodies' forward and dkv
+// double-buffer their streamed tiles with cp.async (below, kv_bufs).
 //
 // Head packing (NH = 2, D = 64, MHA: the packed kernels). In the
 // [B, S, H, D] layout heads 2p and 2p + 1 are one contiguous run of 128
 // elements (256 bytes in bf16) of every row, so a packed block stages Q, K,
 // V and dO as [rows, 128] tiles in one coalesced pass by all 8 warps (the
-// bf16 forward: two adjacent TMA boxes a tile), where the unpacked D = 64
+// bf16 kernels: two adjacent TMA boxes a tile), where the unpacked D = 64
 // kernel reads 128-byte pieces H * D * 2 bytes apart: the card's
 // counterpart of the TPU kernels' K/V DMA in pack-head batches. Each warp
 // group then computes one head from the shared tiles. With an odd H the
@@ -85,7 +87,6 @@
 
 #include <algorithm>
 #include <cstdint>
-#include <type_traits>
 
 #include "attn_fwd_core.cuh"
 
@@ -196,75 +197,14 @@ __device__ __forceinline__ void load_tile_async(T* s, int ld, const T* g,
 }
 
 // ---------------------------------------------------------------------------
-// Warp-level products. C is a 16 x (8 * NT) tile in mma.sync's accumulator
-// layout: lane (g = lane / 4, t = lane % 4) holds c[nt][0..1] at row g,
-// columns nt * 8 + 2t, 2t + 1, and c[nt][2..3] at row g + 8. A is a
-// row-major [16][K] shared tile (stride lda). B is either given
-// transposed, Bt[n][k] (mma_nt), or as stored, B[k][n] (mma_nn).
+// Warp-level products of the f32 bodies, in mma.sync's fragment layout
+// through f32 FMAs. C is a 16 x (8 * NT) tile: lane (g = lane / 4, t =
+// lane % 4) holds c[nt][0..1] at row g, columns nt * 8 + 2t, 2t + 1, and
+// c[nt][2..3] at row g + 8. A is a row-major [16][K] shared tile (stride
+// lda). B is either given transposed, Bt[n][k] (mma_nt), or as stored,
+// B[k][n] (mma_nn).
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-template <int NT, int K>
-__device__ __forceinline__ void mma_nt(const bf16* A, int lda, const bf16* Bt,
-                                       int ldb, float (*c)[4]) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const uint32_t a0 = ld32(A + g * lda + k0 + 2 * t);
-    const uint32_t a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
-    const uint32_t a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
-    const uint32_t a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const bf16* bp = Bt + (nt * 8 + g) * ldb + k0 + 2 * t;
-      mma_bf16(c[nt], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-    }
-  }
-}
-
-template <int NT, int K>
-__device__ __forceinline__ void mma_nn(const bf16* A, int lda, const bf16* B,
-                                       int ldb, float (*c)[4]) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    const uint32_t a0 = ld32(A + g * lda + k0 + 2 * t);
-    const uint32_t a1 = ld32(A + (g + 8) * lda + k0 + 2 * t);
-    const uint32_t a2 = ld32(A + g * lda + k0 + 8 + 2 * t);
-    const uint32_t a3 = ld32(A + (g + 8) * lda + k0 + 8 + 2 * t);
-    // lanes 0-15 address rows k0 .. k0 + 15 of B; the transposed 8x8 loads
-    // hand lane (g, t) B[k0 + 2t, +1][n0 + g] and B[k0 + 8 + 2t, +1][n0 + g]
-    const bf16* row = B + (k0 + (lane & 15)) * ldb;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const uint32_t addr =
-          static_cast<uint32_t>(__cvta_generic_to_shared(row + nt * 8));
-      uint32_t b0, b1;
-      asm volatile(
-          "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-          : "=r"(b0), "=r"(b1)
-          : "r"(addr));
-      mma_bf16(c[nt], a0, a1, a2, a3, b0, b1);
-    }
-  }
-}
-
-// The f32 twins: the same tiles and fragment layout, f32 FMAs.
 template <int NT, int K>
 __device__ __forceinline__ void mma_nt(const float* A, int lda,
                                        const float* Bt, int ldb,
@@ -831,7 +771,7 @@ __device__ __forceinline__ void dkv_body(const Args& a) {
 
 // ---------------------------------------------------------------------------
 // the mma.sync kernels: one head per block (D 64 or 128, GQA; f32) or two
-// packed heads of 64 (MHA; f32, and the bf16 backward), a warp group each
+// packed heads of 64 (MHA; f32), a warp group each
 // ---------------------------------------------------------------------------
 
 constexpr int kThreads1 = block_threads<1>();
@@ -1238,32 +1178,38 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 backward of one head a block on the tensor cores
+// the bf16 backward on the tensor cores: one head a block, or two packed
+// heads of 64
 // ---------------------------------------------------------------------------
 //
 // flash_bwd_dkv_wgmma_kernel and flash_bwd_dq_wgmma_kernel replace
 // _bwd_dkv_kernel (pallas_attention.py l.423; pallas_call l.859) and
 // _bwd_dq_kernel (l.369; pallas_call l.823) for bf16, D 64 or 128, GQA, as
-// _pallas_backward (l.615) drives them. What bounds them: operations. The
-// backward's least work is five products, 10·D FLOP a visible (query, key)
-// pair. It stays two kernels so that neither needs atomics: the GQA group
-// sum of dk and dv is a sum in registers in a fixed order, and a call
-// repeats bit for bit. So both recompute S = Q.K^T and dP = dO.V^T: 14·D
-// FLOP a pair executed. At llama-1.4b's shape (B 8, S 1024, H 16, D 128,
-// causal) that is 1.2e11 FLOP, 0.12 ms at the bf16 peak, against 134 MB
-// read and written once (0.04 ms). Every product therefore runs on wgmma,
-// built from attn_fwd_core.cuh's primitives: a producer warpgroup keeps a
-// ring of 3 stages filled by TMA behind full/empty mbarriers and gives its
-// registers to two consumer warpgroups of 64 rows (setmaxnreg: 24 and 240
-// a thread); tiles are stored in the 128-byte swizzle; the products that
-// consume P or dS take it in registers as the A operand (the score
-// accumulator's layout is the A fragment's) with the other operand
-// MN-major (wgmma_pv), so P and dS never pass through shared memory. The
-// arithmetic is _p_and_ds (l.183): p = exp(s - lse) recomputed from the
-// forward's lse, as 2^(q.k * scale * log2(e) - lse * log2(e)) in one FMA;
-// a masked element is exactly 0; ds = p (dp - delta) scale, computed as
-// p (dp scale - delta scale); p and ds rounded to bf16 for the products
-// that take them; sums in f32, rounded once when stored.
+// _pallas_backward (l.615) drives them; their packed twins
+// flash_bwd_dkv_packed_wgmma_kernel and flash_bwd_dq_packed_wgmma_kernel
+// replace _bwd_dkv_kernel_packed (l.546; pallas_call l.799) and
+// _bwd_dq_kernel_packed (l.484; pallas_call l.764) for bf16, two MHA heads
+// of 64 a block. All four are one pair of bodies with the heads a block
+// (NH = 1 or 2) as a template parameter. What bounds them: operations.
+// The backward's least work is five products, 10·D FLOP a visible (query,
+// key) pair. It stays two kernels so that neither needs atomics: the GQA
+// group sum of dk and dv is a sum in registers in a fixed order, and a
+// call repeats bit for bit. So both recompute S = Q.K^T and dP = dO.V^T:
+// 14·D FLOP a pair executed. At llama-1.4b's shape (B 8, S 1024, H 16, D
+// 128, causal) that is 1.2e11 FLOP, 0.12 ms at the bf16 peak, against 134
+// MB read and written once (0.04 ms). Every product therefore runs on
+// wgmma, built from attn_fwd_core.cuh's primitives: a producer warpgroup
+// keeps a ring of 3 stages filled by TMA behind full/empty mbarriers and
+// gives its registers to two consumer warpgroups of 64 rows (setmaxnreg:
+// 24 and 240 a thread); tiles are stored in the 128-byte swizzle; the
+// products that consume P or dS take it in registers as the A operand
+// (the score accumulator's layout is the A fragment's) with the other
+// operand MN-major (wgmma_pv), so P and dS never pass through shared
+// memory. The arithmetic is _p_and_ds (l.183): p = exp(s - lse)
+// recomputed from the forward's lse, as 2^(q.k * scale * log2(e) - lse *
+// log2(e)) in one FMA; a masked element is exactly 0; ds = p (dp - delta)
+// scale, computed as p (dp scale - delta scale); p and ds rounded to bf16
+// for the products that take them; sums in f32, rounded once when stored.
 //
 // What sets the pace (clock64 counters per phase, in scratch copies): the
 // wgmmas of the two consumer warpgroups and their elementwise work. Both
@@ -1275,54 +1221,99 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
 // against constants, an FMA and a multiply) is kept short: it is on the
 // critical path.
 //
-// dkv: a block owns 128 keys of one KV head (64 a consumer warpgroup) and
-// loads their K and V once by TMA. One producer warp streams, for each
-// query head of the group and each q tile of 64 rows that can see the
-// block's keys (q_tiles), the Q and dO tiles (TMA) with their lse and
-// delta rows (4-byte cp.async: a [B, H, Sq] f32 row is not a multiple of
-// the 16 bytes a tensor map's strides need at every Sq). A consumer
-// computes S^T = K.Q^T and dP^T = V.dO^T (keys as the M rows, both
-// operands from shared memory, wgmma_s), P^T and dS^T in registers, then
-// dV += P^T.dO and dK += dS^T.Q. Its mask is a range of queries a key
-// (q_range: RangeMask turned round). Blocks take key tiles from the
-// first: under causal key tile 0 is seen by every q tile.
+// Work items. A dkv item is 128 keys of one KV head (64 a consumer
+// warpgroup), or 64 keys of a pack's two heads (consumer j: head 2p + j);
+// a dq item 128 q rows of one query head (64 a consumer), or 64 q rows of
+// a pack's two heads. At D 128 a block takes one item. At D 64 a block is
+// persistent (one an SM): its producer takes items from a counter in
+// device memory (the packed forward's scheme), and since a consumer holds
+// its item's K and V (dkv) or Q and dO (dq) in registers once it has read
+// them, the next item's land, and its first stages stream, while this
+// item's walk and stores run: at gpt2-1.5b's shape the blocks had spent
+// ~7k of their ~25k cycles outside the walk. Items go in the order of
+// one block an item: dkv's key tiles from the first (under causal key
+// tile 0 is seen by every q tile), dq's q tiles from the last.
 //
-// dq: a block owns 128 q rows of one query head (64 a consumer) and loads
-// their Q and dO once by TMA; the producer thread streams K and V tiles of
-// kDqKeys keys over key_tiles' range, as the forward's does. A consumer
-// keeps the lse and delta of its rows, and its Q and dO as A fragments, in
-// registers, computes S = Q.K^T and dP = dO.V^T (register A, K and V
-// K-major from the stage: only B is read from shared memory, whose
-// bandwidth the shared-A form of these m64n64 products saturates), dS in
-// registers, and dQ += dS.K with the stage's K as the MN-major operand.
-// Its mask is the packed forward's RangeMask. Blocks take q tiles from the
-// last, as the forward does.
+// dkv: an item's K and V are loaded once by TMA. The producer streams, for
+// each query head of the group and each q tile of 64 rows that can see the
+// item's keys (q_tiles), the Q and dO tiles (TMA, one thread) with their
+// lse and delta rows (4-byte cp.async by a second warp: a [B, H, Sq] f32
+// row is not a multiple of the 16 bytes a tensor map's strides need at
+// every Sq). A consumer computes S^T = K.Q^T and dP^T = V.dO^T (keys as
+// the M rows; K and V from shared memory at D 128, as register A operands
+// at D 64), P^T and dS^T in registers, then dV += P^T.dO and dK += dS^T.Q.
+// Its mask is a range of queries a key (q_range: RangeMask turned round).
+//
+// dq: an item's Q and dO are loaded once by TMA; the producer thread
+// streams K and V tiles of kDqKeys keys over key_tiles' range, as the
+// forward's does. A consumer keeps the lse and delta of its rows, and its
+// Q and dO as A fragments, in registers, computes S = Q.K^T and dP =
+// dO.V^T (register A, K and V K-major from the stage: only B is read from
+// shared memory, whose bandwidth the shared-A form of these m64n64
+// products saturates), dS in registers, and dQ += dS.K with the stage's K
+// as the MN-major operand. Its mask is the packed forward's RangeMask.
+//
+// Packed (NH = 2, MHA, D 64): a ring stage holds both heads' tiles, two
+// [rows, 64] TMA boxes from the D 64 tensor maps laid out as one D 128
+// stage (column block j: head 2p + j), as flash_fwd_packed_wgmma_kernel
+// lays out its K/V; consumer j reads column block j. The row tiles of 64
+// (dq's q rows, dkv's keys) leave no stage that one consumer's rows cannot
+// see under causal, where one head's 128 rows leave one in each item.
+// The mask (a key range a row, a query range a key) depends only on the
+// rows, so it is the same for both heads. With an odd H the last pack has
+// one head: its producer loads only that head's boxes (half the expected
+// bytes) and the second consumer still takes and releases every stage, on
+// shared memory nothing filled, and writes nothing, so every barrier
+// counts both consumers' arrivals. The two consumers of a packed block
+// share no tile, so a stage holds twice a one-head stage's bytes: the
+// packed rings run 4 stages. At D 64 dK and dV take half the accumulators
+// they take at D 128, so a dkv consumer keeps its K and V as register A
+// operands, as dq keeps Q and dO.
 //
 // Every consumer thread takes and releases every stage, whatever its rows
 // see of it (a stage that none of a warpgroup's rows sees adds exactly 0),
 // so the barrier counts never drift. Rows past Sq and keys past Sk come in
 // from TMA as zeros and are masked; stores stop at Sq and Sk.
 
-constexpr int kDkvKeys = ac::kRows * ac::kConsumers;  // keys a dkv block
-constexpr int kDkvBQ = 64;                            // q rows a dkv stage
-constexpr int kDqBQ = ac::kRows * ac::kConsumers;     // q rows a dq block
-constexpr int kDqKeys = 64;                           // keys a dq stage
+constexpr int kDkvBQ = 64;   // q rows a dkv stage
+constexpr int kDqKeys = 64;  // keys a dq stage
 
-// dkv's shared memory: K and V of the block's keys ([128 keys][64] column
-// blocks), the ring's stages (Q and dO tiles of kDkvBQ rows), each stage's
-// lse and delta rows (f32), the barriers.
-template <int D>
+// rows a block owns (dq: q rows; dkv: keys): 64 a consumer of one head,
+// or 64 of both packed heads
+template <int NH>
+__host__ __device__ constexpr int bwd_rows() {
+  return ac::kRows * ac::kConsumers / NH;
+}
+
+// The backward's rings: a packed stage holds both heads' tiles (32 KB),
+// twice a one-head stage at D 64, and takes longer to land, so a packed
+// ring runs a stage deeper (dq at gpt2-1.5b's shape: 0.1239 ms at 3
+// stages, 0.1195 at 4; dkv alike at both).
+template <int NH>
+__host__ __device__ constexpr int bwd_stages() {
+  return NH == 2 ? 4 : ac::kStages;
+}
+
+// dkv's shared memory, for KEYS keys a block and stages W = NH * D wide:
+// K and V of the block's keys ([KEYS][64] column blocks), the ring's NS
+// stages (Q and dO tiles of kDkvBQ rows), each stage's lse and delta rows
+// of each head (f32), the barriers, the item's number.
+template <int W, int KEYS, int NH, int NS>
 struct DkvLayout {
-  static constexpr int kRowTile = (D / 64) * kDkvBQ * 128;
-  static constexpr int kKvTile = (D / 64) * kDkvKeys * 128;
+  static constexpr int kRingStages = NS;
+  static constexpr int kRowTile = (W / 64) * kDkvBQ * 128;
+  static constexpr int kKvTile = (W / 64) * KEYS * 128;
+  static constexpr int kRowBytes = NH * 2 * kDkvBQ * 4;
   static constexpr int k = 0;
   static constexpr int v = kKvTile;
   static constexpr int stages = 2 * kKvTile;
-  static constexpr int rows = stages + ac::kStages * 2 * kRowTile;
-  static constexpr int full = rows + ac::kStages * 2 * kDkvBQ * 4;
-  static constexpr int empty = full + 8 * ac::kStages;
-  static constexpr int kv_full = empty + 8 * ac::kStages;
-  static constexpr int bytes = kv_full + 8;
+  static constexpr int rows = stages + NS * 2 * kRowTile;
+  static constexpr int full = rows + NS * kRowBytes;
+  static constexpr int empty = full + 8 * NS;
+  static constexpr int kv_full = empty + 8 * NS;
+  static constexpr int kv_empty = kv_full + 8;
+  static constexpr int slot = kv_empty + 8;  // the item number
+  static constexpr int bytes = slot + 8;
   static constexpr int alloc = bytes + 1024;  // alignment slack
   static __device__ __forceinline__ uint32_t q_tile(uint32_t base, int s) {
     return base + stages + s * 2 * kRowTile;
@@ -1330,16 +1321,21 @@ struct DkvLayout {
   static __device__ __forceinline__ uint32_t do_tile(uint32_t base, int s) {
     return q_tile(base, s) + kRowTile;
   }
-  // lse[kDkvBQ], then delta[kDkvBQ]
-  static __device__ __forceinline__ uint32_t rows_of(uint32_t base, int s) {
-    return base + rows + s * 2 * kDkvBQ * 4;
+  // head i's lse[kDkvBQ], then its delta[kDkvBQ]
+  static __device__ __forceinline__ uint32_t rows_of(uint32_t base, int s,
+                                                     int i) {
+    return base + rows + s * kRowBytes + i * 2 * kDkvBQ * 4;
   }
 };
 
-// dq's: the core's layout (Q tiles, the K/V ring) with the dO tiles and
-// the Q/dO barrier as its extra bytes.
-template <int D>
-using DqLayout = ac::Layout<D, kDqKeys, 2 * (D / 64) * ac::kRows * 128 + 8>;
+// dq's: the core's layout for stages NH * D wide (the K/V ring; the Q
+// tiles, a consumer's of (D / 64) * 8 KB at the front of its region) with
+// the dO tiles, the Q/dO barriers and the item's number as its extra
+// bytes.
+template <int D, int NH>
+using DqLayout =
+    ac::Layout<NH * D, kDqKeys, 2 * (D / 64) * ac::kRows * 128 + 24,
+               bwd_stages<NH>()>;
 
 // D[64 x N] = A.B^T over D: A this warpgroup's 64 rows of a swizzled tile
 // whose column blocks are A_ROWS rows, B a swizzled tile of N rows, both
@@ -1454,106 +1450,254 @@ __device__ __forceinline__ void q_range(const Args& a, int pref, int k,
 }
 
 // The q tiles [begin, end) of kDkvBQ rows that may see a key of
-// [k0, k0 + kDkvKeys): under causal from the diagonal on, up to the last
+// [k0, k0 + keys): under causal from the diagonal on, up to the last
 // key's window; every tile when the block reaches into the prefix.
 __device__ __forceinline__ void q_tiles(const Args& a, int pref, int k0,
-                                        int& begin, int& end) {
+                                        int keys, int& begin, int& end) {
   const int n = (a.Sq + kDkvBQ - 1) / kDkvBQ;
   begin = 0;
   end = n;
   if (a.causal && k0 >= pref) {
     begin = min(k0 / kDkvBQ, n);
     if (a.window)
-      end = min(n, (k0 + kDkvKeys - 1 + a.window - 1) / kDkvBQ + 1);
+      end = min(n, (k0 + keys - 1 + a.window - 1) / kDkvBQ + 1);
   }
 }
 
+// The TMA box of column block c of a stage NH * D wide: one head's column
+// block c (NH 1: columns 64 c of head h), or head h + c of a pack (D 64).
+template <int NH>
+__device__ __forceinline__ void stage_box(int h, int c, int& col, int& head) {
+  col = NH == 1 ? 64 * c : 0;
+  head = NH == 1 ? h : h + c;
+}
+
+// lse and delta of rows [q0, q0 + kDkvBQ) of the [B, H, Sq] row that
+// starts at row0, into a stage's rows (lse, then delta), by one warp in
+// 4-byte copies (16-byte copies, where Sq keeps the rows aligned, ran the
+// D 128 dkv 12% slower and the D 64 kernels 1% faster); rows past Sq are
+// zeros and never read.
+__device__ __forceinline__ void copy_rows(const Args& a, size_t row0, int q0,
+                                          int lane, unsigned char* rows) {
+#pragma unroll
+  for (int r = lane; r < kDkvBQ; r += 32) {
+    const bool in = q0 + r < a.Sq;
+    const size_t at = in ? row0 + q0 + r : 0;
+    cp_async(rows + 4 * r, a.lse + at, 4, in);
+    cp_async(rows + 4 * (kDkvBQ + r), a.delta + at, 4, in);
+  }
+}
+
+// The backward's work items: (batch element, head or pack, tile of the
+// block's rows), the tiles fastest, in the order blocks take them: dkv's
+// key tiles from the first, dq's q tiles from the last (under causal the
+// tiles that do the most work first, and the blocks at work at once read
+// few heads' tiles, which stay in L2). r0: the tile's first key (dkv) or
+// q row (dq); nh: the heads that exist (an odd H's last pack: 1).
+struct BwdItem {
+  int b, h0, nh, r0;
+};
+
+template <int NH, bool DKV>
+__device__ __forceinline__ int bwd_tiles(const Args& a) {
+  return ((DKV ? a.Sk : a.Sq) + bwd_rows<NH>() - 1) / bwd_rows<NH>();
+}
+
+template <int NH, bool DKV>
+__device__ __forceinline__ int bwd_items(const Args& a) {
+  const int heads = DKV ? a.Hkv : a.H;
+  return bwd_tiles<NH, DKV>(a) * a.B * ((heads + NH - 1) / NH);
+}
+
+template <int NH, bool DKV>
+__device__ __forceinline__ BwdItem bwd_item(const Args& a, int w) {
+  const int heads = DKV ? a.Hkv : a.H;
+  const int n_t = bwd_tiles<NH, DKV>(a);
+  const int per_b = (heads + NH - 1) / NH;
+  const int bp = w / n_t, tile = w % n_t;
+  BwdItem it;
+  it.b = bp / per_b;
+  it.h0 = (bp % per_b) * NH;
+  it.nh = NH == 1 ? 1 : min(NH, heads - it.h0);
+  it.r0 = (DKV ? tile : n_t - 1 - tile) * bwd_rows<NH>();
+  return it;
+}
+
+// The item counters (next item, blocks done) of the persistent backward
+// kernels, by [dkv][NH - 1]. The last block out resets its pair, so a
+// kernel's launches must follow each other on one stream.
+__device__ unsigned int g_bwd_work[2][2][2];
+
+// At D 64 a backward kernel is persistent (one block an SM, never more than
+// there are items; the producer takes items from g_bwd_work): a consumer
+// holds its item's K and V (dkv) or Q and dO (dq) in registers, so the
+// next item's land, and its first stages stream, while this item's walk
+// and stores run. At D 128 a block takes one item (its own index).
 template <int D>
-__global__ void __launch_bounds__(ac::block_threads(1), 1)
-    flash_bwd_dkv_wgmma_kernel(const Args a,
-                               const __grid_constant__ CUtensorMap qm,
-                               const __grid_constant__ CUtensorMap om,
-                               const __grid_constant__ CUtensorMap km,
-                               const __grid_constant__ CUtensorMap vm) {
-  using L = DkvLayout<D>;
+__host__ __device__ constexpr bool bwd_persistent() {
+  return D == 64;
+}
+
+// The item number the producer takes for its n-th item: >= items ends.
+template <int D>
+__device__ __forceinline__ int take_item(unsigned int* work, int n,
+                                         int items) {
+  if constexpr (bwd_persistent<D>())
+    return static_cast<int>(atomicAdd(&work[0], 1u));
+  else
+    return n == 0 ? static_cast<int>(blockIdx.x) : items;
+}
+
+// The producer thread, once its last item is taken: the last block out
+// resets the counter for the next launch.
+template <int D>
+__device__ __forceinline__ void finish_items(unsigned int* work) {
+  if constexpr (bwd_persistent<D>()) {
+    if (atomicAdd(&work[1], 1u) == gridDim.x - 1) {
+      work[0] = 0;
+      work[1] = 0;
+    }
+  }
+}
+
+template <int D, int NH>
+__device__ __forceinline__ void dkv_wgmma_body(const Args& a,
+                                               const CUtensorMap& qm,
+                                               const CUtensorMap& om,
+                                               const CUtensorMap& km,
+                                               const CUtensorMap& vm) {
+  constexpr int KEYS = bwd_rows<NH>();
+  using L = DkvLayout<NH * D, KEYS, NH, bwd_stages<NH>()>;
   const uint32_t base = ac::smem_base();
+  // an item's K and V (and its number in the slot) landed; the consumers
+  // are done with them
   const uint32_t kv_full = base + L::kv_full;
-  if (threadIdx.x == 0) ac::mbar_init(kv_full, 1);  // synced below
-  // full: the producer thread's expect_tx and its warp's 32 cp.async
+  const uint32_t kv_empty = base + L::kv_empty;
+  volatile int* slot =
+      reinterpret_cast<volatile int*>(ac::smem_ptr(base + L::slot));
+  if (threadIdx.x == 0) {  // synced below
+    ac::mbar_init(kv_full, 1);
+    ac::mbar_init(kv_empty, 128 * ac::kConsumers);
+  }
+  // full: the TMA thread's expect_tx and the rows warp's 32 cp.async
   // arrivals
   ac::init_barriers<L>(base, 1 + 32);
   const int wg = threadIdx.x / 128;
-  const int k0 = blockIdx.x * kDkvKeys;
-  const int b = blockIdx.y / a.Hkv, kh = blockIdx.y % a.Hkv;
-  const int groups = a.H / a.Hkv;
-  const int pref = prefix_of(a, b);
-  int qt0, qt1;
-  q_tiles(a, pref, k0, qt0, qt1);
-  const int n_qt = qt1 - qt0;
-  const int stages = groups * n_qt;  // (query head, q tile) in that order
-  // registers: 128 * 24 + 256 * 240 = 384 * 168, the block's pool
+  const int items = bwd_items<NH, true>(a);
+  const int groups = NH == 1 ? a.H / a.Hkv : 1;
+  // registers: 128 * P + 256 * C = 384 * 168, the block's pool. At D 64
+  // the consumers need fewer (their K and V fragments included), and the
+  // producer, which copies a pack's two heads of lse and delta rows a
+  // stage, ran out of 24 (spilled, and took 2.7x the cycles a stage of
+  // one head's producer) and so starved the consumers.
+  constexpr int kProducerRegs = D == 64 ? 40 : 24;
+  constexpr int kConsumerRegs = D == 64 ? 232 : 240;
+  // The producer is two warps: warp 0's lane 0 takes the items and issues
+  // the TMA copies, warp 1 copies the lse and delta rows, each stage on
+  // both once it is empty (on one warp the two took twice the cycles of a
+  // packed stage).
   if (wg == 0) {
-    ac::setmaxnreg_dec<24>();
-    if (threadIdx.x >= 32) return;
-    const int lane = threadIdx.x;
-    if (lane == 0) {
-      ac::mbar_arrive_tx(kv_full, 2 * L::kKvTile);
-#pragma unroll
-      for (int cb = 0; cb < D / 64; ++cb) {
-        const uint32_t off = cb * kDkvKeys * 128;
-        ac::tma_load_4d(base + L::k + off, &km, kv_full, cb * 64, kh, k0, b);
-        ac::tma_load_4d(base + L::v + off, &vm, kv_full, cb * 64, kh, k0, b);
+    ac::setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x >= 64) return;
+    const bool rows_warp = threadIdx.x >= 32;
+    const int lane = threadIdx.x % 32;
+    unsigned int* work = g_bwd_work[1][NH - 1];
+    int col, head;
+    ac::RingN<L::kRingStages> ring;
+    for (int n = 0;; ++n) {
+      // the next item, published once the consumers are done with the
+      // last one's K and V, and once warp 1 has read the last one's number
+      ac::named_sync(3, 64);
+      if (threadIdx.x == 0) {
+        const int w = take_item<D>(work, n, items);
+        if (n > 0) ac::mbar_wait(kv_empty, (n - 1) & 1);
+        *slot = w;
       }
-    }
-    ac::Ring ring;
-    for (int n = 0; n < stages; ++n) {
-      const int h = kh * groups + n / n_qt;
-      const int q0 = (qt0 + n % n_qt) * kDkvBQ;
-      ac::wait_empty<L>(base, ring);
-      const uint32_t full = base + L::full + 8 * ring.stage;
-      if (lane == 0) {
-        ac::mbar_arrive_tx(full, 2 * L::kRowTile);
-#pragma unroll
-        for (int cb = 0; cb < D / 64; ++cb) {
-          const uint32_t off = cb * kDkvBQ * 128;
-          ac::tma_load_4d(L::q_tile(base, ring.stage) + off, &qm, full,
-                          cb * 64, h, q0, b);
-          ac::tma_load_4d(L::do_tile(base, ring.stage) + off, &om, full,
-                          cb * 64, h, q0, b);
+      ac::named_sync(3, 64);
+      const int w = *slot;
+      if (w >= items) {  // no work left: the consumers see w and stop
+        if (threadIdx.x == 0) {
+          ac::mbar_arrive(kv_full);
+          finish_items<D>(work);
+        }
+        break;
+      }
+      const BwdItem it = bwd_item<NH, true>(a, w);
+      // column blocks of a tile: D / 64 of one head, or a pack's heads
+      const int n_cb = NH == 1 ? D / 64 : it.nh;
+      if (threadIdx.x == 0) {
+        ac::mbar_arrive_tx(kv_full, 2 * n_cb * KEYS * 128);
+        for (int c = 0; c < n_cb; ++c) {
+          const uint32_t off = c * KEYS * 128;
+          stage_box<NH>(it.h0, c, col, head);
+          ac::tma_load_4d(base + L::k + off, &km, kv_full, col, head, it.r0,
+                          it.b);
+          ac::tma_load_4d(base + L::v + off, &vm, kv_full, col, head, it.r0,
+                          it.b);
         }
       }
-      const size_t row0 = ((size_t)b * a.H + h) * a.Sq;
-      unsigned char* rows = ac::smem_ptr(L::rows_of(base, ring.stage));
+      int qt0, qt1;
+      q_tiles(a, prefix_of(a, it.b), it.r0, KEYS, qt0, qt1);
+      // NH 2: one pass, h the pack's first head
+      for (int h = it.h0 * groups; h < (it.h0 + 1) * groups; ++h) {
+        for (int q0 = qt0 * kDkvBQ; q0 < qt1 * kDkvBQ; q0 += kDkvBQ) {
+          ac::wait_empty<L>(base, ring);
+          const uint32_t full = base + L::full + 8 * ring.stage;
+          if (!rows_warp) {
+            if (lane == 0) {
+              ac::mbar_arrive_tx(full, 2 * n_cb * kDkvBQ * 128);
+              for (int c = 0; c < n_cb; ++c) {
+                const uint32_t off = c * kDkvBQ * 128;
+                stage_box<NH>(h, c, col, head);
+                ac::tma_load_4d(L::q_tile(base, ring.stage) + off, &qm, full,
+                                col, head, q0, it.b);
+                ac::tma_load_4d(L::do_tile(base, ring.stage) + off, &om,
+                                full, col, head, q0, it.b);
+              }
+            }
+          } else {
 #pragma unroll
-      for (int i = lane; i < kDkvBQ; i += 32) {
-        const bool in = q0 + i < a.Sq;  // rows past Sq: zeros, no read
-        const size_t r = in ? row0 + q0 + i : 0;
-        cp_async(rows + 4 * i, a.lse + r, 4, in);
-        cp_async(rows + 4 * (kDkvBQ + i), a.delta + r, 4, in);
+            for (int i = 0; i < NH; ++i) {
+              if (i >= n_cb) break;  // NH 1 has one head, whatever n_cb is
+              copy_rows(a, ((size_t)it.b * a.H + h + i) * a.Sq, q0, lane,
+                        ac::smem_ptr(L::rows_of(base, ring.stage, i)));
+            }
+            ac::cp_async_arrive(full);
+          }
+          ring.advance();
+        }
       }
-      ac::cp_async_arrive(full);
-      ring.advance();
     }
     return;
   }
-  ac::setmaxnreg_inc<240>();
-  const int j = wg - 1;  // this consumer's keys: k0 + 64 j ..
+  ac::setmaxnreg_inc<kConsumerRegs>();
+  const int j = wg - 1;  // this consumer's keys (NH 1) or head (NH 2)
   const int ct = threadIdx.x - 128 * wg;
   const int warp = ct / 32, lane = ct % 32, g = lane >> 2, t = lane & 3;
-  const int key[2] = {k0 + j * ac::kRows + warp * 16 + g,
-                      k0 + j * ac::kRows + warp * 16 + g + 8};
-  int lo[2], hi[2];
-  q_range(a, pref, key[0], lo[0], hi[0]);
-  q_range(a, pref, key[1], lo[1], hi[1]);
+  // this consumer's 64 keys of K and V: rows 64 j of one head's tiles, or
+  // column block j of a pack's (both j * 8 KB on)
   const uint32_t k_tile = base + L::k + j * ac::kRows * 128;
   const uint32_t v_tile = base + L::v + j * ac::kRows * 128;
+  // its column block of a stage's Q and dO tiles, and its lse/delta rows
+  const uint32_t q_off = NH == 1 ? 0 : j * kDkvBQ * 128;
+  const int row_head = NH == 1 ? 0 : j;
   const float scale = a.scale, scale_log2 = scale * ac::kLog2e;
   float dk[D / 2], dv[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
   float st[kDkvBQ / 2], dpt[kDkvBQ / 2];             // S^T, dP^T
   uint32_t pa[kDkvBQ / 16][4], da[kDkvBQ / 16][4];  // P^T, dS^T in bf16
-  ac::Ring ring;
+  // At D 64, this consumer's K and V as register A operands (32
+  // registers, which the D 64 accumulators leave free): S^T and dP^T then
+  // read only Q and dO from shared memory, whose bandwidth the shared-A
+  // form of these m64n64 products saturates (dq's reason). At D 128 they
+  // would take 64 and leave too few.
+  constexpr bool kRegKv = D == 64;
+  static_assert(!bwd_persistent<D>() || kRegKv,
+                "a persistent dkv needs K and V in registers");
+  uint32_t ka[kRegKv ? D / 16 : 1][4], va[kRegKv ? D / 16 : 1][4];
+  // the item's: the queries [lo, hi) each of this thread's keys sees, and
+  // its q tiles [qt0, qt1) of each query head of the group
+  int lo[2] = {0, 0}, hi[2] = {0, 0}, qt0 = 0, qt1 = 0, stages = 0;
+  ac::RingN<L::kRingStages> ring;
   const PingPong pp{j};
   // Every wgmma is issued unconditionally between its fence and its wait,
   // with its registers pinned on both sides (fence_regs), or the compiler
@@ -1561,9 +1705,24 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
   auto issue_sdp = [&](int stg) {  // S^T = K Q^T, dP^T = V dO^T
     ac::fence_regs(st);
     ac::fence_regs(dpt);
-    ac::wgmma_fence();
-    issue_kmajor<D, kDkvBQ, kDkvKeys>(st, k_tile, L::q_tile(base, stg));
-    issue_kmajor<D, kDkvBQ, kDkvKeys>(dpt, v_tile, L::do_tile(base, stg));
+    const uint32_t qt = L::q_tile(base, stg) + q_off;
+    const uint32_t ot = L::do_tile(base, stg) + q_off;
+    if constexpr (kRegKv) {
+      ac::fence_regs(ka);
+      ac::fence_regs(va);
+      ac::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = (ks & 3) * 32;
+        wgmma_rs_kmajor_m64n64(st, ka[ks], ac::desc_kmajor(qt + off), ks > 0);
+        wgmma_rs_kmajor_m64n64(dpt, va[ks], ac::desc_kmajor(ot + off),
+                               ks > 0);
+      }
+    } else {
+      ac::wgmma_fence();
+      issue_kmajor<D, kDkvBQ, KEYS>(st, k_tile, qt);
+      issue_kmajor<D, kDkvBQ, KEYS>(dpt, v_tile, ot);
+    }
     ac::wgmma_commit();
   };
   auto wait_sdp = [&]() {
@@ -1577,8 +1736,8 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
     ac::fence_regs(pa);
     ac::fence_regs(da);
     ac::wgmma_fence();
-    issue_rs<D, kDkvBQ>(dv, pa, L::do_tile(base, stg));
-    issue_rs<D, kDkvBQ>(dk, da, L::q_tile(base, stg));
+    issue_rs<D, kDkvBQ>(dv, pa, L::do_tile(base, stg) + q_off);
+    issue_rs<D, kDkvBQ>(dk, da, L::q_tile(base, stg) + q_off);
     ac::wgmma_commit();
   };
   auto wait_dkv = [&]() {
@@ -1588,18 +1747,17 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
     ac::fence_regs(pa);
     ac::fence_regs(da);
   };
-  // stage n of the walk, in place: st becomes P^T, dpt dS^T, then both
+  // the stage of q tile q0, in place: st becomes P^T, dpt dS^T, then both
   // are rounded into the A fragments. Element i: key row r = (i >> 1) & 1
-  // of this thread, query q0 + 2t + col, col = (i >> 2) * 8 + (i & 1). The
-  // elementwise work sets the pace of a stage, so it is kept short: the
-  // key row's query range is taken relative to q0 + 2t, so that each test
-  // compares with a constant, on every stage (a branch to skip it on the
-  // wholly visible stages doubles the code and ran slower), and the scale
-  // is folded into dP - delta.
-  auto grads = [&](int n, int stg) {
-    const int q0 = (qt0 + n % n_qt) * kDkvBQ;
-    const float* rows =
-        reinterpret_cast<const float*>(ac::smem_ptr(L::rows_of(base, stg)));
+  // of this thread, query q0 + 2t + col, col = (i >> 2) * 8 + (i & 1).
+  // The elementwise work sets the pace of a stage, so it is kept short:
+  // the key row's query range is taken relative to q0 + 2t, so that each
+  // test compares with a constant, on every stage (a branch to skip it on
+  // the wholly visible stages doubles the code and ran slower), and the
+  // scale is folded into dP - delta.
+  auto grads = [&](int q0, int stg) {
+    const float* rows = reinterpret_cast<const float*>(
+        ac::smem_ptr(L::rows_of(base, stg, row_head)));
     const int lr[2] = {lo[0] - q0 - 2 * t, lo[1] - q0 - 2 * t};
     const int hr[2] = {hi[0] - q0 - 2 * t, hi[1] - q0 - 2 * t};
 #pragma unroll
@@ -1630,21 +1788,29 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
   };
   auto release = [&](int stg) { ac::mbar_arrive(base + L::empty + 8 * stg); };
   // A burst is this stage's dV and dK, then the next stage's S^T and dP^T
-  // (one after the other: P^T, dS^T, S^T, dP^T, dK and dV live at once
-  // leave ptxas too few registers at D 128, and it serializes the wgmmas,
-  // C7512); the stage's P^T and dS^T are computed while the other
-  // warpgroup's burst runs.
+  // (one after the other: with the next S^T and dP^T in flight under dV
+  // and dK, the D 128 kernel has too few registers and ptxas serializes
+  // the wgmmas, C7512, and the D 64 kernels ran no faster); the stage's
+  // P^T and dS^T are computed while the other warpgroup's burst runs.
   auto walk = [&]() {
     if (stages == 0) return;
+    // the q tile of the stage, which runs over [qt0, qt1) for each query
+    // head of the group
+    int q0 = qt0 * kDkvBQ;
+    auto next_q0 = [&]() {
+      q0 += kDkvBQ;
+      if (q0 == qt1 * kDkvBQ) q0 = qt0 * kDkvBQ;
+    };
     pp.start();
     int cur = acquire();
     pp.turn();
     issue_sdp(cur);
     pp.pass(false);
     wait_sdp();
-    grads(0, cur);
+    grads(q0, cur);
     for (int n = 1; n < stages; ++n) {
       const int nxt = acquire();
+      next_q0();
       pp.turn();
       issue_dkv(cur);
       wait_dkv();
@@ -1652,7 +1818,7 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
       issue_sdp(nxt);
       pp.pass(false);
       wait_sdp();
-      grads(n, nxt);
+      grads(q0, nxt);
       cur = nxt;
     }
     pp.turn();
@@ -1661,110 +1827,164 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
     wait_dkv();
     release(cur);
   };
-  ac::mbar_wait(kv_full, 0);
-  walk();
-  const size_t ks = (size_t)a.Hkv * D;
-  const size_t koff = ((size_t)b * a.Sk * a.Hkv + kh) * D;
-  bf16* dkg = static_cast<bf16*>(a.dk) + koff;
-  bf16* dvg = static_cast<bf16*>(a.dv) + koff;
+  // this thread's first key of the item's tile
+  const int key_off = (NH == 1 ? j * ac::kRows : 0) + warp * 16 + g;
+  for (int n = 0;; ++n) {
+    ac::mbar_wait(kv_full, n & 1);
+    const int w = *slot;
+    if (w >= items) break;
+    {  // the item's mask and q tiles (only these stay live in the walk)
+      const BwdItem it = bwd_item<NH, true>(a, w);
+      const int pref = prefix_of(a, it.b);
+      q_tiles(a, pref, it.r0, KEYS, qt0, qt1);
+      stages = groups * (qt1 - qt0);  // (query head, q tile)
+      q_range(a, pref, it.r0 + key_off, lo[0], hi[0]);
+      q_range(a, pref, it.r0 + key_off + 8, lo[1], hi[1]);
+    }
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] >= a.Sk) continue;
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    if constexpr (kRegKv) {
+      load_a<D>(k_tile, warp, lane, ka);
+      load_a<D>(v_tile, warp, lane, va);
+      ac::mbar_arrive(kv_empty);  // the next item's K and V may land
+    }
+    walk();
+    if constexpr (!kRegKv) ac::mbar_arrive(kv_empty);
+    const BwdItem it = bwd_item<NH, true>(a, w);
+    const int key[2] = {it.r0 + key_off, it.r0 + key_off + 8};
+    if (NH == 2 && j >= it.nh) continue;  // an odd H's absent head
+    const int out_head = NH == 1 ? it.h0 : it.h0 + j;
+    const size_t ks = (size_t)a.Hkv * D;
+    const size_t koff = ((size_t)it.b * a.Sk * a.Hkv + out_head) * D;
+    bf16* dkg = static_cast<bf16*>(a.dk) + koff;
+    bf16* dvg = static_cast<bf16*>(a.dv) + koff;
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt) {
-      const size_t o = (size_t)key[i] * ks + nt * 8 + 2 * t;
-      store2(dkg + o, dk[nt * 4 + 2 * i], dk[nt * 4 + 2 * i + 1]);
-      store2(dvg + o, dv[nt * 4 + 2 * i], dv[nt * 4 + 2 * i + 1]);
+    for (int i = 0; i < 2; ++i) {
+      if (key[i] >= a.Sk) continue;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const size_t o = (size_t)key[i] * ks + nt * 8 + 2 * t;
+        store2(dkg + o, dk[nt * 4 + 2 * i], dk[nt * 4 + 2 * i + 1]);
+        store2(dvg + o, dv[nt * 4 + 2 * i], dv[nt * 4 + 2 * i + 1]);
+      }
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(ac::block_threads(1), 1)
-    flash_bwd_dq_wgmma_kernel(const Args a,
-                              const __grid_constant__ CUtensorMap qm,
-                              const __grid_constant__ CUtensorMap om,
-                              const __grid_constant__ CUtensorMap km,
-                              const __grid_constant__ CUtensorMap vm) {
-  using L = DqLayout<D>;
+template <int D, int NH>
+__device__ __forceinline__ void dq_wgmma_body(const Args& a,
+                                              const CUtensorMap& qm,
+                                              const CUtensorMap& om,
+                                              const CUtensorMap& km,
+                                              const CUtensorMap& vm) {
+  using L = DqLayout<D, NH>;
+  constexpr int kQT = (D / 64) * ac::kRows * 128;  // a consumer's Q tile
   const uint32_t base = ac::smem_base();
-  const uint32_t do_tiles = base + L::extra;  // consumer j's at + j kQTile
-  const uint32_t q_full = base + L::extra + 2 * L::kQTile;
-  if (threadIdx.x == 0) ac::mbar_init(q_full, 1);  // synced below
+  const uint32_t do_tiles = base + L::extra;  // consumer j's at + j kQT
+  // an item's Q and dO (and its number in the slot) landed; the consumers
+  // hold them in registers
+  const uint32_t q_full = base + L::extra + 2 * kQT;
+  const uint32_t q_empty = q_full + 8;
+  volatile int* slot =
+      reinterpret_cast<volatile int*>(ac::smem_ptr(q_full + 16));
+  if (threadIdx.x == 0) {  // synced below
+    ac::mbar_init(q_full, 1);
+    ac::mbar_init(q_empty, 128 * ac::kConsumers);
+  }
   ac::init_barriers<L>(base, 1);
   const int wg = threadIdx.x / 128;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqBQ;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int pref = prefix_of(a, b);
-  int kt0, kt1;
-  key_tiles(a, pref, q0, kDqBQ, kDqKeys, &kt0, &kt1);
+  const int items = bwd_items<NH, false>(a);
+  // consumer j's Q/dO tile: rows 64 j of one head, or a pack's head j
+  auto head_of = [](const BwdItem& it, int j) {
+    return NH == 1 ? it.h0 : it.h0 + j;
+  };
+  auto row_of = [](const BwdItem& it, int j) {
+    return NH == 1 ? it.r0 + j * ac::kRows : it.r0;
+  };
+  // registers: 128 * P + 256 * C = 384 * 168, the block's pool; at D 64
+  // the consumers' Q and dO fragments take half their D 128 count, and the
+  // producer's item loop spilled in 24
+  constexpr int kProducerRegs = D == 64 ? 40 : 24;
+  constexpr int kConsumerRegs = D == 64 ? 232 : 240;
   if (wg == 0) {
-    // registers: 128 * 24 + 256 * 240 = 384 * 168, the block's pool
-    ac::setmaxnreg_dec<24>();
+    ac::setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x != 0) return;
-    const int kh = h / (a.H / a.Hkv);
-    ac::mbar_arrive_tx(q_full, 2 * ac::kConsumers * L::kQTile);
-#pragma unroll
-    for (int j = 0; j < ac::kConsumers; ++j)
-#pragma unroll
-      for (int cb = 0; cb < D / 64; ++cb) {
-        const uint32_t off = j * L::kQTile + cb * ac::kRows * 128;
-        const int row = q0 + j * ac::kRows;
-        ac::tma_load_4d(base + L::q + off, &qm, q_full, cb * 64, h, row, b);
-        ac::tma_load_4d(do_tiles + off, &om, q_full, cb * 64, h, row, b);
+    unsigned int* work = g_bwd_work[0][NH - 1];
+    int col, head;
+    ac::RingN<L::kRingStages> ring;
+    for (int n = 0;; ++n) {
+      // the next item, published once the consumers hold the last one's
+      // Q and dO in registers
+      const int w = take_item<D>(work, n, items);
+      if (n > 0) ac::mbar_wait(q_empty, (n - 1) & 1);
+      *slot = w;
+      if (w >= items) {  // no work left: the consumers see w and stop
+        ac::mbar_arrive(q_full);
+        finish_items<D>(work);
+        break;
       }
-    ac::Ring ring;
-    for (int kt = kt0; kt < kt1; ++kt) {
-      ac::wait_empty<L>(base, ring);
-      const uint32_t full = base + L::full + 8 * ring.stage;
-      ac::mbar_arrive_tx(full, 2 * L::kKvTile);
+      const BwdItem it = bwd_item<NH, false>(a, w);
+      const int kh = it.h0 / (a.H / a.Hkv);
+      // the tiles of both consumers, or of the pack's heads that exist
+      const int n_q = NH == 1 ? ac::kConsumers : it.nh;
+      ac::mbar_arrive_tx(q_full, 2 * n_q * kQT);
+      for (int jj = 0; jj < n_q; ++jj)
 #pragma unroll
-      for (int cb = 0; cb < D / 64; ++cb) {
-        const uint32_t off = cb * kDqKeys * 128;
-        ac::tma_load_4d(L::k_tile(base, ring.stage) + off, &km, full,
-                        cb * 64, kh, kt * kDqKeys, b);
-        ac::tma_load_4d(L::v_tile(base, ring.stage) + off, &vm, full,
-                        cb * 64, kh, kt * kDqKeys, b);
+        for (int cb = 0; cb < D / 64; ++cb) {
+          const uint32_t off = jj * kQT + cb * ac::kRows * 128;
+          ac::tma_load_4d(base + L::q + off, &qm, q_full, cb * 64,
+                          head_of(it, jj), row_of(it, jj), it.b);
+          ac::tma_load_4d(do_tiles + off, &om, q_full, cb * 64,
+                          head_of(it, jj), row_of(it, jj), it.b);
+        }
+      int kt0, kt1;
+      key_tiles(a, prefix_of(a, it.b), it.r0, bwd_rows<NH>(), kDqKeys, &kt0,
+                &kt1);
+      const int n_cb = NH == 1 ? D / 64 : it.nh;
+      for (int kt = kt0; kt < kt1; ++kt) {
+        ac::wait_empty<L>(base, ring);
+        const uint32_t full = base + L::full + 8 * ring.stage;
+        ac::mbar_arrive_tx(full, 2 * n_cb * kDqKeys * 128);
+        for (int c = 0; c < n_cb; ++c) {
+          const uint32_t off = c * kDqKeys * 128;
+          stage_box<NH>(kh, c, col, head);
+          ac::tma_load_4d(L::k_tile(base, ring.stage) + off, &km, full, col,
+                          head, kt * kDqKeys, it.b);
+          ac::tma_load_4d(L::v_tile(base, ring.stage) + off, &vm, full, col,
+                          head, kt * kDqKeys, it.b);
+        }
+        ring.advance();
       }
-      ring.advance();
     }
     return;
   }
-  ac::setmaxnreg_inc<240>();
-  const int j = wg - 1;  // this consumer's rows: q0 + 64 j ..
+  ac::setmaxnreg_inc<kConsumerRegs>();
+  const int j = wg - 1;  // this consumer's rows (NH 1) or head (NH 2)
   const int ct = threadIdx.x - 128 * wg;
   const int warp = ct / 32, lane = ct % 32, g = lane >> 2, t = lane & 3;
-  const int q0warp = q0 + j * ac::kRows + warp * 16;
-  const int row[2] = {q0warp + g, q0warp + g + 8};
-  RangeMask pol;  // its keys [lo, hi) a row
-  pol.init(a, pref, q0warp, row);
-  // lse * log2(e) and delta * scale of this thread's rows; 0 past Sq,
-  // where every key is masked
-  float lse2[2], delta_s[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = row[i] < a.Sq;
-    const size_t r = ((size_t)b * a.H + h) * a.Sq + row[i];
-    lse2[i] = in ? a.lse[r] * ac::kLog2e : 0.f;
-    delta_s[i] = in ? a.delta[r] * a.scale : 0.f;
-  }
-  const uint32_t q_tile = base + L::q + j * L::kQTile;
-  const uint32_t o_tile = do_tiles + j * L::kQTile;
+  const uint32_t q_tile = base + L::q + j * kQT;
+  const uint32_t o_tile = do_tiles + j * kQT;
+  // this consumer's column block of a stage's K and V (a pack's head j)
+  const uint32_t kv_off = NH == 1 ? 0 : j * kDqKeys * 128;
   const float scale = a.scale, scale_log2 = scale * ac::kLog2e;
   float dq[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
   float s[kDqKeys / 2], dp[kDqKeys / 2];
   uint32_t da[kDqKeys / 16][4];  // dS in bf16
   // Q and dO of this warpgroup's rows as register A operands: S and dP
   // then read only K and V from shared memory, whose bandwidth the
   // shared-A form of m64n64 products saturates
   uint32_t qa[D / 16][4], oa[D / 16][4];
-  ac::Ring ring;
+  // the item's: each row's keys [lo, hi), lse * log2(e) and delta * scale
+  // of this thread's rows (0 past Sq, where every key is masked), its key
+  // tiles [kt0, kt1)
+  RangeMask pol = {};
+  float lse2[2] = {0.f, 0.f}, delta_s[2] = {0.f, 0.f};
+  int kt0 = 0, kt1 = 0;
+  ac::RingN<L::kRingStages> ring;
   static_assert(kDqKeys == 64, "S and dP are m64n64 products");
   auto issue_sdp = [&](int stg) {  // S = Q K^T, dP = dO V^T
-    const uint32_t k_tile = L::k_tile(base, stg);
-    const uint32_t v_tile = L::v_tile(base, stg);
+    const uint32_t k_tile = L::k_tile(base, stg) + kv_off;
+    const uint32_t v_tile = L::v_tile(base, stg) + kv_off;
 #pragma unroll
     for (int ks = 0; ks < D / 16; ++ks) {
       const uint32_t off = (ks >> 2) * kDqKeys * 128 + (ks & 3) * 32;
@@ -1776,7 +1996,7 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
     ac::wgmma_commit();
   };
   auto issue_dq = [&](int stg) {  // dQ += dS K
-    issue_rs<D, kDqKeys>(dq, da, L::k_tile(base, stg));
+    issue_rs<D, kDqKeys>(dq, da, L::k_tile(base, stg) + kv_off);
     ac::wgmma_commit();
   };
   // key tile kt, in place: s becomes dS. Element i: row r = (i >> 1) & 1
@@ -1857,21 +2077,75 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
     ac::fence_regs(da);
     release(cur);
   };
-  ac::mbar_wait(q_full, 0);
-  load_a<D>(q_tile, warp, lane, qa);
-  load_a<D>(o_tile, warp, lane, oa);
-  walk();
-  const size_t qs = (size_t)a.H * D;
-  bf16* dqg = static_cast<bf16*>(a.dq) + ((size_t)b * a.Sq * a.H + h) * D;
+  for (int n = 0;; ++n) {
+    ac::mbar_wait(q_full, n & 1);
+    const int w = *slot;
+    if (w >= items) break;
+    const BwdItem it = bwd_item<NH, false>(a, w);
+    const int pref = prefix_of(a, it.b);
+    key_tiles(a, pref, it.r0, bwd_rows<NH>(), kDqKeys, &kt0, &kt1);
+    const int h = head_of(it, j);
+    const bool present = NH == 1 || j < it.nh;  // an odd H's last pack: 1
+    const int q0warp = row_of(it, j) + warp * 16;
+    const int row[2] = {q0warp + g, q0warp + g + 8};
+    pol.init(a, pref, q0warp, row);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] >= a.Sq) continue;
+    for (int i = 0; i < 2; ++i) {
+      const bool in = present && row[i] < a.Sq;
+      const size_t r = in ? ((size_t)it.b * a.H + h) * a.Sq + row[i] : 0;
+      lse2[i] = in ? a.lse[r] * ac::kLog2e : 0.f;
+      delta_s[i] = in ? a.delta[r] * a.scale : 0.f;
+    }
 #pragma unroll
-    for (int nt = 0; nt < D / 8; ++nt)
-      store2(dqg + (size_t)row[i] * qs + nt * 8 + 2 * t, dq[nt * 4 + 2 * i],
-             dq[nt * 4 + 2 * i + 1]);
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    load_a<D>(q_tile, warp, lane, qa);
+    load_a<D>(o_tile, warp, lane, oa);
+    ac::mbar_arrive(q_empty);  // the next item's Q and dO may land
+    walk();
+    if (!present) continue;
+    const size_t qs = (size_t)a.H * D;
+    bf16* dqg =
+        static_cast<bf16*>(a.dq) + ((size_t)it.b * a.Sq * a.H + h) * D;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (row[i] >= a.Sq) continue;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        store2(dqg + (size_t)row[i] * qs + nt * 8 + 2 * t,
+               dq[nt * 4 + 2 * i], dq[nt * 4 + 2 * i + 1]);
+    }
   }
 }
+
+#define BWD_WGMMA_PARAMS                                                    \
+  const Args a, const __grid_constant__ CUtensorMap qm,                     \
+      const __grid_constant__ CUtensorMap om,                               \
+      const __grid_constant__ CUtensorMap km,                               \
+      const __grid_constant__ CUtensorMap vm
+
+template <int D>
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_bwd_dkv_wgmma_kernel(BWD_WGMMA_PARAMS) {
+  dkv_wgmma_body<D, 1>(a, qm, om, km, vm);
+}
+
+template <int D>
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_bwd_dq_wgmma_kernel(BWD_WGMMA_PARAMS) {
+  dq_wgmma_body<D, 1>(a, qm, om, km, vm);
+}
+
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_bwd_dkv_packed_wgmma_kernel(BWD_WGMMA_PARAMS) {
+  dkv_wgmma_body<kPackD, 2>(a, qm, om, km, vm);
+}
+
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_bwd_dq_packed_wgmma_kernel(BWD_WGMMA_PARAMS) {
+  dq_wgmma_body<kPackD, 2>(a, qm, om, km, vm);
+}
+
+#undef BWD_WGMMA_PARAMS
 
 // cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -1963,27 +2237,41 @@ cudaError_t run_fwd_packed_wgmma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// which: 1 = flash_bwd_dq_wgmma_kernel, 2 = flash_bwd_dkv_wgmma_kernel.
-template <int D>
+// which: 1 = the dq kernel, 2 = the dkv kernel; NH 1:
+// flash_bwd_{dq,dkv}_wgmma_kernel<D>; NH 2 (D 64, MHA):
+// flash_bwd_{dq,dkv}_packed_wgmma_kernel.
+template <int D, int NH>
 cudaError_t run_bwd_wgmma(int which, const Args& a, cudaStream_t stream) {
   const bool dkv = which == 2;
-  const int q_rows = dkv ? kDkvBQ : ac::kRows;  // a TMA box: rows x 64
-  const int kv_rows = dkv ? kDkvKeys : kDqKeys;
+  constexpr int ROWS = bwd_rows<NH>();  // a block's q rows (dq) or keys
+  // TMA boxes: rows x 64 columns
+  const int q_rows = dkv ? kDkvBQ : ac::kRows;
+  const int kv_rows = dkv ? ROWS : kDqKeys;
   CUtensorMap qm, om, km, vm;
   if (!kv_tensor_map(&qm, a.q, a.B, a.Sq, a.H, D, q_rows) ||
       !kv_tensor_map(&om, a.dout, a.B, a.Sq, a.H, D, q_rows) ||
       !kv_tensor_map(&km, a.k, a.B, a.Sk, a.Hkv, D, kv_rows) ||
       !kv_tensor_map(&vm, a.v, a.B, a.Sk, a.Hkv, D, kv_rows))
     return cudaErrorInvalidValue;
-  auto kernel =
-      dkv ? flash_bwd_dkv_wgmma_kernel<D> : flash_bwd_dq_wgmma_kernel<D>;
-  const int smem = dkv ? DkvLayout<D>::alloc : DqLayout<D>::alloc;
+  decltype(&flash_bwd_dq_packed_wgmma_kernel) kernel;  // all four alike
+  if constexpr (NH == 1)
+    kernel = dkv ? flash_bwd_dkv_wgmma_kernel<D> : flash_bwd_dq_wgmma_kernel<D>;
+  else
+    kernel = dkv ? flash_bwd_dkv_packed_wgmma_kernel
+                 : flash_bwd_dq_packed_wgmma_kernel;
+  const int smem = dkv ? DkvLayout<NH * D, ROWS, NH, bwd_stages<NH>()>::alloc
+                       : DqLayout<D, NH>::alloc;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = dkv ? dim3((a.Sk + kDkvKeys - 1) / kDkvKeys, a.B * a.Hkv)
-                        : dim3((a.Sq + kDqBQ - 1) / kDqBQ, a.B * a.H);
-  kernel<<<grid, ac::block_threads(1), smem, stream>>>(a, qm, om, km, vm);
+  // blocks: one an item (the rows' tiles, by batch element and head or
+  // pack), or, persistent, one an SM, never more than there are items
+  const int heads = dkv ? a.Hkv : a.H;
+  const int rows = dkv ? a.Sk : a.Sq;
+  const int items = (rows + ROWS - 1) / ROWS * a.B * ((heads + NH - 1) / NH);
+  const int blocks =
+      bwd_persistent<D>() ? std::min(items, std::max(1, sm_count())) : items;
+  kernel<<<blocks, ac::block_threads(1), smem, stream>>>(a, qm, om, km, vm);
   return cudaGetLastError();
 }
 
@@ -2025,20 +2313,19 @@ cudaError_t run_f32(int which, const Args& a, cudaStream_t stream) {
   }
 }
 
-template <typename T>
-cudaError_t run_packed(int which, const Args& a, cudaStream_t stream) {
+// The packed kernels on mma.sync tiles serve f32 only (the f32 model
+// checks); bf16 runs flash_fwd_packed_wgmma_kernel and the packed backward
+// pair on wgmma.
+cudaError_t run_packed_f32(int which, const Args& a, cudaStream_t stream) {
+  using T = float;
   constexpr int W = 2 * kPackD;
   const int packs = (a.H + 1) / 2;  // MHA: H == Hkv
   const dim3 q_grid((a.Sq + kFwdBQ - 1) / kFwdBQ, a.B * packs);
   const dim3 kv_grid((a.Sk + kKvBK - 1) / kKvBK, a.B * packs);
   switch (which) {
     case 0:
-      // the packed forward on mma.sync tiles serves f32 only; bf16 runs
-      // flash_fwd_packed_wgmma_kernel
-      if constexpr (std::is_same<T, float>::value)
-        return launch(flash_fwd_packed_kernel<T>, q_grid, kThreads2,
-                      fwd_smem<T, W, 2>(), a, stream);
-      return cudaErrorInvalidValue;
+      return launch(flash_fwd_packed_kernel<T>, q_grid, kThreads2,
+                    fwd_smem<T, W, 2>(), a, stream);
     case 1:
       return launch(flash_bwd_dq_packed_kernel<T>, q_grid, kThreads2,
                     dq_smem<T, W, 2>(), a, stream);
@@ -2060,10 +2347,12 @@ constexpr int kFwdPackedWgmma = 3;  // flash_fwd_packed_wgmma_kernel: bf16
 // time: dq, then dkv).
 constexpr int kBwdDq = 0;            // flash_bwd_dq_kernel: f32
 constexpr int kBwdDkv = 1;           // flash_bwd_dkv_kernel: f32
-constexpr int kBwdDqPacked = 2;      // flash_bwd_dq_packed_kernel: f32, bf16
-constexpr int kBwdDkvPacked = 3;     // flash_bwd_dkv_packed_kernel: f32, bf16
+constexpr int kBwdDqPacked = 2;      // flash_bwd_dq_packed_kernel: f32
+constexpr int kBwdDkvPacked = 3;     // flash_bwd_dkv_packed_kernel: f32
 constexpr int kBwdDqWgmma = 4;       // flash_bwd_dq_wgmma_kernel: bf16
 constexpr int kBwdDkvWgmma = 5;      // flash_bwd_dkv_wgmma_kernel: bf16
+constexpr int kBwdDqPackedWgmma = 6;   // flash_bwd_dq_packed_wgmma_kernel: bf16
+constexpr int kBwdDkvPackedWgmma = 7; // flash_bwd_dkv_packed_wgmma_kernel: bf16
 
 bool valid(const Args& a) {
   if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Hkv <= 0 || a.H % a.Hkv ||
@@ -2078,10 +2367,9 @@ int dispatch(int which, const Args& a, int D, int pack, int dtype,
   if (!valid(a)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
   if (pack == 2) {
-    if (D != kPackD || a.H != a.Hkv) return cudaErrorInvalidValue;
-    if (dtype == 1) return run_packed<bf16>(which, a, st);
-    if (dtype == 0) return run_packed<float>(which, a, st);
-    return cudaErrorInvalidValue;
+    if (D != kPackD || a.H != a.Hkv || dtype != 0)
+      return cudaErrorInvalidValue;
+    return run_packed_f32(which, a, st);
   }
   if (pack != 1 || dtype != 0) return cudaErrorInvalidValue;
   if (D == 128) return run_f32<128>(which, a, st);
@@ -2135,8 +2423,11 @@ int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* out,
 // kernel (backward; a dq kernel writes dq, a dkv kernel dk and dv): 0 =
 // flash_bwd_dq_kernel, 1 = flash_bwd_dkv_kernel (a head a block, f32); 2 =
 // flash_bwd_dq_packed_kernel, 3 = flash_bwd_dkv_packed_kernel (two heads of
-// 64 a block; MHA, any H; f32 or bf16); 4 = flash_bwd_dq_wgmma_kernel, 5 =
-// flash_bwd_dkv_wgmma_kernel (a head a block, bf16, on the tensor cores).
+// 64 a block; MHA, any H; f32); 4 = flash_bwd_dq_wgmma_kernel, 5 =
+// flash_bwd_dkv_wgmma_kernel (a head a block, bf16, on the tensor cores);
+// 6 = flash_bwd_dq_packed_wgmma_kernel, 7 =
+// flash_bwd_dkv_packed_wgmma_kernel (two heads of 64 a block; MHA, any H;
+// bf16, on the tensor cores).
 int dlrover_flash_bwd(int kernel, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, void* dk, void* dv, const int* prefix, int B,
@@ -2144,6 +2435,7 @@ int dlrover_flash_bwd(int kernel, const void* q, const void* k, const void* v,
                       int causal, int window, int dtype, void* stream) {
   Args a = {q,  k,  v,  nullptr, dout, lse, delta, dq,     dk,    dv,
             prefix, B, Sq, Sk,   H,    Hkv, scale, causal, window};
+  auto st = static_cast<cudaStream_t>(stream);
   switch (kernel) {
     case kBwdDq:
     case kBwdDkv:
@@ -2155,11 +2447,16 @@ int dlrover_flash_bwd(int kernel, const void* q, const void* k, const void* v,
     case kBwdDkvWgmma: {
       if (dtype != 1 || !valid(a)) return cudaErrorInvalidValue;
       const int which = kernel == kBwdDqWgmma ? 1 : 2;
-      auto st = static_cast<cudaStream_t>(stream);
-      if (D == 128) return run_bwd_wgmma<128>(which, a, st);
-      if (D == 64) return run_bwd_wgmma<64>(which, a, st);
+      if (D == 128) return run_bwd_wgmma<128, 1>(which, a, st);
+      if (D == 64) return run_bwd_wgmma<64, 1>(which, a, st);
       return cudaErrorInvalidValue;
     }
+    case kBwdDqPackedWgmma:
+    case kBwdDkvPackedWgmma:
+      if (dtype != 1 || D != kPackD || a.H != a.Hkv || !valid(a))
+        return cudaErrorInvalidValue;
+      return run_bwd_wgmma<kPackD, 2>(kernel == kBwdDqPackedWgmma ? 1 : 2, a,
+                                      st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -14,9 +14,12 @@ Port of ``dlrover_tpu/ops/pallas_attention.py``:
   through f32 FMAs). With two heads of 64 packed per block
   (``head_pack``, auto for every MHA model of head_dim 64) they launch
   ``flash_fwd_packed_wgmma_kernel`` (bf16, on the same core) or
-  ``flash_fwd_packed_kernel`` (f32), then ``flash_bwd_dq_packed_kernel``
-  and ``flash_bwd_dkv_packed_kernel`` (mma.sync, both types), which
-  replace ``_fwd_kernel_packed``, ``_bwd_dq_kernel_packed`` and
+  ``flash_fwd_packed_kernel`` (f32), then
+  ``flash_bwd_dq_packed_wgmma_kernel`` and
+  ``flash_bwd_dkv_packed_wgmma_kernel`` (bf16, the backward pair's bodies
+  at two heads a block) or ``flash_bwd_dq_packed_kernel`` and
+  ``flash_bwd_dkv_packed_kernel`` (f32, mma.sync tiles), which replace
+  ``_fwd_kernel_packed``, ``_bwd_dq_kernel_packed`` and
   ``_bwd_dkv_kernel_packed``. ``fwd_cuda_kernel`` and
   ``bwd_cuda_kernel`` name the kernels a call launches. The backward is
   bound by operations: its least work is 10·D FLOP a visible (query,
@@ -64,7 +67,9 @@ FWD_CUDA_KERNELS = ("flash_fwd_kernel", "flash_fwd_packed_kernel",
 #: the backward kernels the C entry point takes, by id
 BWD_CUDA_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                     "flash_bwd_dq_packed_kernel", "flash_bwd_dkv_packed_kernel",
-                    "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel")
+                    "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel",
+                    "flash_bwd_dq_packed_wgmma_kernel",
+                    "flash_bwd_dkv_packed_wgmma_kernel")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -94,19 +99,19 @@ def fwd_cuda_kernel(dtype, pack: int) -> str:
 
 
 def bwd_cuda_kernel(dtype, pack: int) -> Tuple[str, str]:
-    """The CUDA backward kernels ``(dq, dkv)`` for ``dtype`` at ``pack``:
-    bf16 one head a block on the tensor cores,
-    ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel``; f32
-    one head a block the mma.sync bodies' ``flash_bwd_dq_kernel`` and
-    ``flash_bwd_dkv_kernel``; two heads of 64 a block (both types)
+    """The CUDA backward kernels ``(dq, dkv)`` for ``dtype`` at ``pack``.
+    In bf16 both run on the tensor cores, one pair of bodies at one head
+    or two heads of 64 a block: ``flash_bwd_dq_wgmma_kernel`` and
+    ``flash_bwd_dkv_wgmma_kernel``, or ``flash_bwd_dq_packed_wgmma_kernel``
+    and ``flash_bwd_dkv_packed_wgmma_kernel``. In f32 the mma.sync bodies'
+    ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel``, or
     ``flash_bwd_dq_packed_kernel`` and ``flash_bwd_dkv_packed_kernel``.
     They count under ``LAUNCHES["flash_bwd_dq"]`` and
     ``LAUNCHES["flash_bwd_dkv"]`` (``_packed`` at pack 2)."""
-    if pack == 2:
-        return "flash_bwd_dq_packed_kernel", "flash_bwd_dkv_packed_kernel"
-    if dtype == torch.bfloat16:
-        return "flash_bwd_dq_wgmma_kernel", "flash_bwd_dkv_wgmma_kernel"
-    return "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"
+    packed = "_packed" if pack == 2 else ""
+    core = "_wgmma" if dtype == torch.bfloat16 else ""
+    return (f"flash_bwd_dq{packed}{core}_kernel",
+            f"flash_bwd_dkv{packed}{core}_kernel")
 
 
 def head_pack_for(h: int, hkv: int, d: int, head_pack: int = 0) -> int:
@@ -353,8 +358,12 @@ def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window,
     ``pack`` 1 ``flash_bwd_dq_wgmma_kernel`` and
     ``flash_bwd_dkv_wgmma_kernel`` (bf16, on the tensor cores) or the
     mma.sync ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` (f32),
-    for ``pack`` 2 the packed mma.sync pair. ``delta`` ``[B, H, Sq]`` f32
-    is ``rowsum(dO·O)`` (minus any lse cotangent)."""
+    for ``pack`` 2 their packed twins (bf16) or the packed mma.sync pair
+    (f32). ``delta`` ``[B, H, Sq]`` f32
+    is ``rowsum(dO·O)`` (minus any lse cotangent). At head_dim 64 the bf16
+    pair is persistent and takes its work from counters in device memory
+    that each launch resets at its end, as the packed forward does, so its
+    launches must not run on two streams at once."""
     b, sq, sk, h, hkv, d = _geometry(q, k, v, pack, prefix)
     _check(g, "dO", q.device, q.dtype, q.shape)
     _check(lse, "lse", q.device, torch.float32, (b, h, sq))

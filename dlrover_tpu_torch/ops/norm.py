@@ -19,7 +19,6 @@ from one visit, and the backward saves only the summed stream ``h``
 """
 
 import ctypes
-import math
 from typing import Dict
 
 import torch
@@ -106,15 +105,25 @@ def norm_bwd_reference(g, h, scale, gh, kind, eps, has_bias):
 # ---------------------------------------------------------------------------
 
 _fns = {}
-# the widest rows the kernels take: the backward's per-lane register
-# budget, 16 vectors of 16 bytes in bf16, 32 in f32 (the f32 model checks
-# at d_model 4096)
+# the widest rows the kernels take (glm-10b's d_model; the f32 model
+# checks run it too)
 _MAX_D = {torch.bfloat16: 4096, torch.float32: 4096}
 #: vectors of 16 bytes a lane the forward plans for a row, at most:
 #: without and with a residual
 FWD_LANE_VECTORS = (2, 4)
-#: the forward's warps a row
+#: the same for the backward, whose lanes also keep their columns'
+#: dscale (dbias) sums in registers
+BWD_LANE_VECTORS = (2, 2)
+#: warps a row (forward and backward)
 FWD_WARPS = (1, 2, 4, 8)
+
+
+def _plan(d, dtype, cap):
+    n_vec = d // (16 // dtype.itemsize)
+    warps = next((w for w in FWD_WARPS if n_vec <= 32 * w * cap),
+                 FWD_WARPS[-1])
+    per_lane = -(-n_vec // (32 * warps))
+    return warps, 1 << (per_lane - 1).bit_length()
 
 
 def fwd_plan(d: int, dtype, residual: bool = False) -> tuple:
@@ -125,12 +134,16 @@ def fwd_plan(d: int, dtype, residual: bool = False) -> tuple:
     vectors a lane rounded up to a power of two (the kernel's
     instantiations). Spreading a row over many small loads ran fastest on
     the H100 at the training widths (PERF.md)."""
-    n_vec = d // (16 // dtype.itemsize)
-    cap = FWD_LANE_VECTORS[bool(residual)]
-    warps = next((w for w in FWD_WARPS if n_vec <= 32 * w * cap),
-                 FWD_WARPS[-1])
-    per_lane = -(-n_vec // (32 * warps))
-    return warps, 1 << (per_lane - 1).bit_length()
+    return _plan(d, dtype, FWD_LANE_VECTORS[bool(residual)])
+
+
+def bwd_plan(d: int, dtype, residual: bool = False) -> tuple:
+    """``(warps_per_row, vectors_per_lane)`` of ``norm_bwd_kernel``: the
+    rule of ``fwd_plan`` at ``BWD_LANE_VECTORS`` a lane (8 warps beyond
+    that: f32 rows over 2048 elements, 4 vectors a lane). A lane holds its
+    vectors of the row's g and h (and gh) and its columns' dscale (dbias)
+    sums in f32 without spilling; the next rows wait in shared memory."""
+    return _plan(d, dtype, BWD_LANE_VECTORS[bool(residual)])
 
 
 def _lib():
@@ -144,11 +157,12 @@ def _lib():
         fwd.argtypes = [p] * 6 + [i, i, f, i, i, i, i, p]
         fwd.restype = i
         bwd = lib.dlrover_norm_bwd
-        bwd.argtypes = [p] * 7 + [i, i, f, i, i, p]
+        bwd.argtypes = [p] * 9 + [i, i, f, i, i, i, i, i, p]
         bwd.restype = i
-        rows = lib.dlrover_norm_bwd_rows_per_block
-        rows.restype = i
-        _fns.update(fwd=fwd, bwd=bwd, rows=rows())
+        blocks = lib.dlrover_norm_bwd_blocks
+        blocks.argtypes = [i] * 8
+        blocks.restype = i
+        _fns.update(fwd=fwd, bwd=bwd, bwd_blocks=blocks)
     return _fns
 
 
@@ -200,8 +214,11 @@ def norm_fwd_cuda(x2, scale, bias, res2, kind, eps):
 
 
 def norm_bwd_cuda(g2, h2, scale, gh2, kind, eps, has_bias):
-    """``norm_bwd_kernel`` → ``(dx, dscale, dbias)``; the kernel writes one
-    dscale/dbias partial row per block of rows, summed here."""
+    """``norm_bwd_kernel`` → ``(dx, dscale, dbias)``, launched with
+    ``bwd_plan``'s warps a row and vectors a lane over the grid the C side
+    reports; each block writes one dscale/dbias partial row into scratch
+    of that many rows, and the same C call sums them in a fixed order
+    (``norm_bwd_colsum_kernel``)."""
     n, d = _geometry(h2)
     dev = h2.device
     _check_rows(g2, "g", h2.dtype, (n, d), dev)
@@ -210,21 +227,29 @@ def norm_bwd_cuda(g2, h2, scale, gh2, kind, eps, has_bias):
     if gh2 is not None:
         _check_rows(gh2, "gh", h2.dtype, (n, d), dev)
     fns = _lib()
-    n_part = math.ceil(n / fns["rows"])
+    rms = int(kind == "rmsnorm")
+    code = _DTYPE_CODE[h2.dtype]
+    plan = bwd_plan(d, h2.dtype, gh2 is not None)
+    n_part = fns["bwd_blocks"](n, d, rms, int(gh2 is not None),
+                               int(has_bias), code, *plan)
+    if n_part <= 0:
+        raise RuntimeError(f"norm_bwd grid query failed: cudaError "
+                           f"{-n_part}")
     dx = torch.empty_like(h2)
-    ds_part = torch.empty((n_part, d), dtype=torch.float32, device=dev)
-    db_part = (torch.empty((n_part, d), dtype=torch.float32, device=dev)
-               if has_bias else None)
+    parts = torch.empty((1 + has_bias, n_part, d), dtype=torch.float32,
+                        device=dev)
+    sums = torch.empty((1 + has_bias, d), dtype=torch.float32, device=dev)
     err = fns["bwd"](
         g2.data_ptr(), h2.data_ptr(), scale.data_ptr(),
         gh2.data_ptr() if gh2 is not None else None, dx.data_ptr(),
-        ds_part.data_ptr(), db_part.data_ptr() if has_bias else None,
-        n, d, float(eps), int(kind == "rmsnorm"), _DTYPE_CODE[h2.dtype],
+        parts[0].data_ptr(), parts[1].data_ptr() if has_bias else None,
+        sums[0].data_ptr(), sums[1].data_ptr() if has_bias else None,
+        n, d, float(eps), rms, code, *plan, n_part,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"norm_bwd kernel launch failed: cudaError {err}")
     LAUNCHES["norm_bwd"] += 1
-    return dx, ds_part.sum(0), db_part.sum(0) if has_bias else None
+    return dx, sums[0], sums[1] if has_bias else None
 
 
 # ---------------------------------------------------------------------------

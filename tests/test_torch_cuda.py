@@ -557,6 +557,28 @@ def _check_flash(fa, q, k, v, go, out, lse, grads, kw, prefix, tol):
         _normwise(got, want, tol)
 
 
+def _record_bwd_ids(fa, monkeypatch):
+    """The backward kernel ids the C entry is given, in call order."""
+    lib = fa._lib()
+    real, ids = lib["bwd"], []
+
+    def bwd(*args):
+        ids.append(args[0])
+        return real(*args)
+
+    monkeypatch.setitem(lib, "bwd", bwd)
+    return ids
+
+
+def _packed_bwd_ids(fa, dtype):
+    """bf16: the packed pair on wgmma; f32: the mma.sync pair."""
+    want = (("flash_bwd_dq_packed_wgmma_kernel",
+             "flash_bwd_dkv_packed_wgmma_kernel") if dtype == torch.bfloat16
+            else ("flash_bwd_dq_packed_kernel", "flash_bwd_dkv_packed_kernel"))
+    assert fa.bwd_cuda_kernel(dtype, 2) == want
+    return [fa.BWD_CUDA_KERNELS.index(n) for n in want]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,causal,prefix", [
     # an odd head count: the last block holds one head
@@ -570,10 +592,11 @@ def _check_flash(fa, q, k, v, go, out, lse, grads, kw, prefix, tol):
     (2, 1000, 5, False, None),
     # glm-10b's 64 heads with prefixes of none, mid-tile and past the end
     (3, 256, 64, True, (0, 100, 400))])
-def test_packed_flash_kernels_match_plain(dev, dtype, b, s, h, causal,
-                                          prefix):
+def test_packed_flash_kernels_match_plain(dev, monkeypatch, dtype, b, s, h,
+                                          causal, prefix):
     from dlrover_tpu_torch.ops import flash_attention as fa
 
+    ids = _record_bwd_ids(fa, monkeypatch)
     q, k, v, go = _flash_case(dev, dtype, b, s, h, h, 64, s + h)
     pref = (None if prefix is None
             else torch.tensor(prefix, dtype=torch.int32, device=dev))
@@ -585,6 +608,7 @@ def test_packed_flash_kernels_match_plain(dev, dtype, b, s, h, causal,
                               **kw)
     torch.cuda.synchronize()
     assert fa.LAUNCHES == {k: int(k in fa.PACKED) for k in fa.KERNELS}
+    assert ids == _packed_bwd_ids(fa, dtype)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
     _check_flash(fa, q, k, v, go, out, lse, grads, kw, pref, tol)
     # the packed and the unpacked kernels compute the same function
@@ -594,19 +618,50 @@ def test_packed_flash_kernels_match_plain(dev, dtype, b, s, h, causal,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_packed_flash_forward_takes_a_window(dev, dtype):
+def test_packed_flash_forward_takes_a_window(dev, monkeypatch, dtype):
     """A sliding window in the packed forward (its key range a row) and
     the packed backward, odd H, ragged S."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
+    ids = _record_bwd_ids(fa, monkeypatch)
     q, k, v, go = _flash_case(dev, dtype, 2, 300, 5, 5, 64, 11)
     kw = dict(causal=True, scale=0.125, window=50)
     out, lse = fa.flash_fwd_cuda(q, k, v, pack=2, **kw)
     delta = (go.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
     grads = fa.flash_bwd_cuda(q, k, v, go, lse, delta, pack=2, **kw)
     torch.cuda.synchronize()
+    assert ids == _packed_bwd_ids(fa, dtype)
     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
     _check_flash(fa, q, k, v, go, out, lse, grads, kw, None, tol)
+
+
+@pytest.mark.parametrize("b,s,h,prefix", [
+    # gpt2-1.5b's 25 heads (a ragged last pack) at a ragged S; glm-10b's
+    # 64 heads with prefixes of none, mid-tile and past the end
+    (2, 1001, 25, None), (3, 512, 64, (0, 200, 600))])
+def test_packed_flash_bwd_repeats_and_matches_unpacked(dev, b, s, h,
+                                                       prefix):
+    """The bf16 packed backward pair (persistent, items from a counter)
+    repeats bit for bit, and equals the unpacked D 64 pair on the same
+    out and lse within the bf16 kernels' tolerance (2^-6 of the largest
+    |value|): the same arithmetic on other blocks."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, go = _flash_case(dev, torch.bfloat16, b, s, h, h, 64, s + h)
+    pref = (None if prefix is None
+            else torch.tensor(prefix, dtype=torch.int32, device=dev))
+    kw = dict(causal=True, scale=0.125, window=0, prefix=pref)
+    out, lse = fa.flash_fwd_cuda(q, k, v, pack=2, **kw)
+    delta = (go.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    first = fa.flash_bwd_cuda(q, k, v, go, lse, delta, pack=2, **kw)
+    second = fa.flash_bwd_cuda(q, k, v, go, lse, delta, pack=2, **kw)
+    unpacked = fa.flash_bwd_cuda(q, k, v, go, lse, delta, pack=1, **kw)
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    for a, u in zip(first, unpacked):
+        assert bool(torch.isfinite(a.float()).all())
+        _normwise(a, u, 2.0 ** -6)
 
 
 def test_packed_bf16_forward_runs_on_the_core(dev, monkeypatch):
@@ -662,23 +717,59 @@ def test_unpacked_flash_kernels_take_the_prefix(dev, dtype, hkv, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
 @pytest.mark.parametrize("residual", [False, True])
-@pytest.mark.parametrize("n,d", [(37, 96), (512, 2048)])
+@pytest.mark.parametrize("n,d", [(37, 96), (512, 2048), (1, 2048),
+                                 (3, 1600), (263, 4096)])
 def test_norm_kernels_match_plain(dev, dtype, kind, residual, n, d):
+    """Also a row, and row counts below the backward's grid that its rows
+    a block do not divide."""
     _norm_case(dev, dtype, kind, residual, n, d)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("residual", [False, True])
 @pytest.mark.parametrize("n,d", [(70, 1600), (45, 4096)] + [
-    (n, d) for d in (8, 136, 1600, 2048, 4096) for n in (1, 7, 8193)])
+    (n, d) for d in (8, 136, 1600, 2048, 4096)
+    for n in (1, 7, 8193, 3, 263)])
 def test_norm_kernels_at_gpt2_and_glm_widths(dev, dtype, residual, n, d):
     """Layernorm with bias at gpt2-1.5b's d 1600 (200 vectors a row, not
-    a multiple of 32 lanes) and glm-10b's 4096 (the backward on 4
-    warps; f32 rows of 32 vectors a lane), and at the forward plan's
-    edges: one vector a row (d 8), 17 (d 136), a row over 2, 4 and 8 warps
-    (d 1600 to 4096), and row counts no block's rows divide (1, 7, 8193),
-    so the persistent grid's last rows and its smallest grids run."""
+    a multiple of 32 lanes) and glm-10b's 4096 (a row over 8 warps; f32
+    rows of 4 vectors a lane in the backward), and at the plans' edges:
+    one vector a row (d 8), 17 (d 136), a row over 2, 4 and 8 warps (d
+    1600 to 4096), and row counts no block's rows divide (1, 3, 7, 263,
+    8193), below the grid and past it, so the persistent grids' last rows
+    and their smallest grids run."""
     _norm_case(dev, dtype, "layernorm", residual, n, d)
+
+
+@pytest.mark.parametrize("kind,d", [("layernorm", 4096),
+                                    ("rmsnorm", 2048)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_norm_backward_repeats_bit_for_bit(dev, kind, d, residual):
+    """dx, dscale and dbias of the norm backward are equal bit for bit on a
+    repeated call at glm-10b's d 4096 with a bias and llama-1.4b's d 2048:
+    rows go to groups by a fixed stride, the column sums are added in a
+    fixed order, no atomics."""
+    from dlrover_tpu_torch.ops import norm as nm
+
+    g = torch.Generator(device=dev).manual_seed(d)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    n = 8192
+    go, h = rnd(n, d), rnd(n, d)
+    gh = rnd(n, d) if residual else None
+    scale = 1.0 + 0.1 * torch.randn(d, generator=g, device=dev)
+    eps = nm.RMS_EPS if kind == "rmsnorm" else nm.LN_EPS
+    bias = kind == "layernorm"
+    first = nm.norm_bwd_cuda(go, h, scale, gh, kind, eps, bias)
+    second = nm.norm_bwd_cuda(go, h, scale, gh, kind, eps, bias)
+    torch.cuda.synchronize()
+    assert (first[2] is None) == (not bias)
+    for a, b in zip(first, second):
+        if a is not None:
+            assert torch.equal(a, b)
+            assert bool(torch.isfinite(a.float()).all())
 
 
 def _norm_case(dev, dtype, kind, residual, n, d):

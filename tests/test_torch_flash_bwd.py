@@ -1,7 +1,9 @@
 """The flash backward's kernel choice and the dkv kernel's mask, on the CPU.
 
-The bf16 backward of one head a block runs on the tensor cores
-(``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``); the
+The bf16 backward runs on the tensor cores, one head a block
+(``flash_bwd_dq_wgmma_kernel``, ``flash_bwd_dkv_wgmma_kernel``) or two
+packed heads of 64 (``flash_bwd_dq_packed_wgmma_kernel``,
+``flash_bwd_dkv_packed_wgmma_kernel``, the same bodies); the
 dkv kernel masks each key row by the range of queries that see it
 (``q_range`` in ``csrc/flash_attention.cu``), whose plain twin is
 ``ops.flash_attention.dkv_q_range``. The masks here are compared
@@ -33,14 +35,48 @@ _DKV_KEYS, _DKV_BQ = 128, 64
     (torch.bfloat16, 1, ("flash_bwd_dq_wgmma_kernel",
                          "flash_bwd_dkv_wgmma_kernel")),
     (torch.float32, 1, ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel")),
-    (torch.bfloat16, 2, ("flash_bwd_dq_packed_kernel",
-                         "flash_bwd_dkv_packed_kernel")),
+    (torch.bfloat16, 2, ("flash_bwd_dq_packed_wgmma_kernel",
+                         "flash_bwd_dkv_packed_wgmma_kernel")),
     (torch.float32, 2, ("flash_bwd_dq_packed_kernel",
                         "flash_bwd_dkv_packed_kernel"))])
 def test_backward_kernel_choice(dtype, pack, kernels):
-    """bf16 one head a block runs on the tensor cores; f32 (the f32 model
-    checks) and the packed heads on the mma.sync bodies."""
+    """bf16 runs on the tensor cores, one head or two packed heads of 64 a
+    block; f32 (the f32 model checks) on the mma.sync bodies."""
     assert fa.bwd_cuda_kernel(dtype, pack) == kernels
+
+
+class _Stream:
+    cuda_stream = 0
+
+
+@pytest.mark.parametrize("dtype,pack,ids", [
+    (torch.bfloat16, 2, (6, 7)), (torch.float32, 2, (2, 3)),
+    (torch.bfloat16, 1, (4, 5)), (torch.float32, 1, (0, 1))])
+def test_backward_launch_passes_the_kernel_ids(monkeypatch, dtype, pack,
+                                               ids):
+    """``flash_bwd_cuda`` hands the C entry the ids of ``bwd_cuda_kernel``'s
+    pair, dq then dkv, and counts one launch of each under the pack's
+    names (``flash_bwd_dq_packed`` / ``flash_bwd_dkv_packed`` at pack 2,
+    whichever kernel runs them)."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(fa, "_lib", lambda: {
+        "bwd": lambda *args: calls.append(args) or 0})
+    b, s, h, d = 1, 65, 3, 64
+    q = torch.zeros(b, s, h, d, dtype=dtype)
+    lse = torch.zeros(b, h, s)
+    fa.reset_launches()
+    fa.flash_bwd_cuda(q, q, q, q, lse, lse, causal=True, scale=0.125,
+                      window=0, pack=pack)
+    assert tuple(c[0] for c in calls) == ids
+    assert tuple(fa.BWD_CUDA_KERNELS[i] for i in ids) == \
+        fa.bwd_cuda_kernel(dtype, pack)
+    assert all(c[11:17] == (b, s, s, h, h, d) for c in calls)
+    suffix = "_packed" if pack == 2 else ""
+    assert fa.LAUNCHES == {
+        n: int(n in ("flash_bwd_dq" + suffix, "flash_bwd_dkv" + suffix))
+        for n in fa.KERNELS}
+    fa.reset_launches()
 
 
 def test_backward_kernel_ids_match_the_c_entry():

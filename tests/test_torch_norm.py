@@ -10,7 +10,7 @@ Inputs come from numpy with a seed.
 Tolerances:
 
 - f32 forward and every gradient, 1e-5: the same formulas, row sums in
-  another order (d ≤ 256 terms of O(1)).
+  another order (d ≤ 4096 terms of O(1), a few rows at the wide d).
 - bf16 forward, one bf16 ulp relative (2^-7) + 1e-6: both add the
   residual in bf16 (bit-identical), take f32 statistics and round the
   output once, so they differ only where a sum-order difference moves
@@ -22,6 +22,7 @@ Tolerances:
   sit within it).
 """
 
+import ctypes
 import re
 from pathlib import Path
 
@@ -36,8 +37,9 @@ from dlrover_tpu.ops import pallas_norm as jnorm  # noqa: E402
 from dlrover_tpu_torch.models import decoder as tdec  # noqa: E402
 from dlrover_tpu_torch.ops import norm as tnorm  # noqa: E402
 
+# d 1600 and 4096: gpt2-1.5b's and glm-10b's widths, at few rows
 _CASES = [(kind, residual, d) for kind in ("rmsnorm", "layernorm")
-          for residual in (False, True) for d in (96, 256)]
+          for residual in (False, True) for d in (96, 256, 1600, 4096)]
 
 
 def _inputs(seed, d, n=(4, 16)):
@@ -59,7 +61,7 @@ def _t(a, grad=False):
 
 @pytest.mark.parametrize("kind,residual,d", _CASES)
 def test_forward_and_grads_match_jax(kind, residual, d):
-    a = _inputs(d + residual, d)
+    a = _inputs(d + residual, d, n=(4, 16) if d <= 256 else (2, 3))
     bias = a["bias"] if kind == "layernorm" else None
 
     def jfn(x, scale, bias, res):
@@ -243,4 +245,104 @@ def test_fwd_launch_passes_the_plan(monkeypatch, d, residual):
     assert rec.calls[-1][11:13] == tnorm.fwd_plan(d, torch.bfloat16,
                                                   residual)
     assert tnorm.LAUNCHES == {"norm_fwd": 1, "norm_bwd": 0}
+    tnorm.reset_launches()
+
+
+def _c_bwd_plans():
+    """The backward plans ``csrc/fused_norm.cu`` instantiates, from each
+    ``case`` of ``pick_bwd_plan``: ``{(warps a row, vectors a lane): f32
+    only}``."""
+    src = (Path(tnorm.__file__).resolve().parent.parent / "csrc"
+           / "fused_norm.cu").read_text()
+    body = src[src.index("cudaError_t pick_bwd_plan("):]
+    body = body[:body.index("default:")]
+    plans = {}
+    for case, guard, nv, g in re.findall(
+            r"case (\d+):[^\n]*\n\s*(if constexpr \(sizeof\(T\) == 4\)\s*)?"
+            r"return launch_bwd<T, RMS, RES, BIAS, (\d+), (\d+)>", body):
+        assert int(case) == 10 * int(g) + int(nv)
+        plans[(int(g), int(nv))] = bool(guard)
+    return plans
+
+
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bwd_plan_covers_every_width(dtype, residual):
+    """For every d from 8 to 4096 in steps of 8: the backward plan's lanes
+    hold the row's 16-byte vectors; it takes the fewest warps that keep a
+    lane at ``BWD_LANE_VECTORS`` (8 warps past that) and the fewest
+    vectors a lane, a power of two; and the kernel instantiates it for
+    this dtype."""
+    planned = _c_bwd_plans()
+    cap = tnorm.BWD_LANE_VECTORS[residual]
+    vec = 16 // dtype.itemsize
+    for d in range(8, 4097, 8):
+        warps, nv = tnorm.bwd_plan(d, dtype, residual)
+        n_vec = d // vec
+        assert (warps, nv) in planned, (d, warps, nv)
+        assert dtype == torch.float32 or not planned[(warps, nv)], d
+        assert warps in tnorm.FWD_WARPS and nv & (nv - 1) == 0
+        assert n_vec <= 32 * warps * nv, d
+        assert nv == 1 or n_vec > 32 * warps * (nv // 2), d
+        if warps > 1:
+            assert n_vec > 32 * (warps // 2) * cap, d
+        if n_vec <= 32 * tnorm.FWD_WARPS[-1] * cap:
+            assert nv <= cap, d
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("residual", [False, True])
+@pytest.mark.parametrize("d", [8, 1600, 2048, 4096])
+def test_bwd_launch_passes_the_plan(monkeypatch, d, residual, kind):
+    """The wrapper asks the C side for the grid at ``bwd_plan``'s warps and
+    vectors, hands the C entry the plan, scratch of that many partial rows
+    and the dscale (dbias) outputs, returns what the C call wrote there,
+    and counts one launch."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    n_part = 5
+    asked, calls = [], []
+
+    def blocks(*args):
+        asked.append(args)
+        return n_part
+
+    def bwd(*args):
+        # the C call: the kernel's partial rows (row i of dscale holds
+        # i + 1, of dbias 2 (i + 1)), then their column sums
+        calls.append(args)
+        for part, out, k in ((args[5], args[7], 1.0),
+                             (args[6], args[8], 2.0)):
+            assert (part is None) == (out is None)
+            if part is None:
+                continue
+            rows = (ctypes.c_float * (n_part * d)).from_address(part)
+            for i in range(n_part):
+                rows[i * d:(i + 1) * d] = [k * (i + 1)] * d
+            sums = (ctypes.c_float * d).from_address(out)
+            for c in range(d):
+                sums[c] = sum(rows[i * d + c] for i in range(n_part))
+        return 0
+
+    monkeypatch.setattr(tnorm, "_lib",
+                        lambda: {"bwd": bwd, "bwd_blocks": blocks})
+    tnorm.reset_launches()
+    h = torch.zeros(3, d, dtype=torch.bfloat16)
+    gh = torch.zeros_like(h) if residual else None
+    bias = kind == "layernorm"
+    dx, ds, db = tnorm.norm_bwd_cuda(h, h, torch.ones(d), gh, kind,
+                                     tnorm.LN_EPS, bias)
+    plan = tnorm.bwd_plan(d, torch.bfloat16, residual)
+    rms = int(kind == "rmsnorm")
+    assert asked == [(3, d, rms, int(residual), int(bias), 1) + plan]
+    assert calls[-1][9:11] == (3, d)
+    assert calls[-1][12:17] == (rms, 1) + plan + (n_part,)
+    assert (calls[-1][3] is None) == (not residual)
+    assert (calls[-1][6] is None) == (not bias)
+    total = n_part * (n_part + 1) / 2
+    assert torch.equal(ds, torch.full((d,), total))
+    assert (db is None) == (not bias)
+    if bias:
+        assert torch.equal(db, torch.full((d,), 2 * total))
+    assert dx.shape == h.shape and dx.dtype == h.dtype
+    assert tnorm.LAUNCHES == {"norm_fwd": 0, "norm_bwd": 1}
     tnorm.reset_launches()
