@@ -36,7 +36,8 @@ result:
    C=256 (at 1536), C=200 (800 rows, a ragged row tile) and B=2 (starts
    1536 and 700), bf16 and int8 pools, window 0 and 512, a shuffled
    page assignment with -1 columns; the chunk kernel (on the tensor
-   cores, ``csrc/attn_fwd_core.cuh``) under the flash kernels'
+   cores, ``csrc/attn_fwd_core.cuh``, its walk split across blocks: each
+   case records the split count) under the flash kernels'
    element-wise bound (``chunk_bound``), the decode and verify kernel
    (``paged_decode_split_kernel``) under 2^-8 relative + 1e-5; each
    case's largest |Δ|/bound is printed; with the kernel's time, the
@@ -118,7 +119,9 @@ result:
    kernel time by class, launches per step, the device's busy share.
 
 The lines before the last are the card's name and power limit and a
-``{"kernels": [...]}`` summary; the last line is
+``{"kernels": [...]}`` summary (the chunk kernel's entry also gives its
+split count; it and ``flash_fwd`` give their bytes and the share of
+their bound they reach); the last line is
 ``{"ok": true, "device": {...}}``. Run: ``python3 chip_smoke.py``.
 """
 
@@ -616,11 +619,16 @@ def kernel_cases(cfg, seed, dev):
                 bad_err, bad_over, _ = _held(bad, ref, active, bound)
                 control = {"fault": fault, "max_abs_err": bad_err,
                            "over_bound": bad_over, "caught": bad_over > 0}
+                cuda = pa.cuda_kernel(kernel, q.dtype, d)
                 case = {
                     "phase": "kernel", "kernel": f"paged_attention.{kernel}",
-                    "cuda_kernel": pa.cuda_kernel(kernel, q.dtype, d),
+                    "cuda_kernel": cuda,
                     "variant": variant, "mode": mode, "window": window,
                     "B": b, "C": c, "max_pages": max_pages,
+                    "splits": pa.call_splits(
+                        kernel, cuda, b, c, cfg.n_head, cfg.kv_heads,
+                        max_pages, 16, torch.cuda.get_device_properties(
+                            dev).multi_processor_count),
                     "max_abs_err": err, "over_bound": over,
                     "max_err_over_bound": ratio,
                     "bound": ("chunk: 2^-8|plain| + (2^-8 + 2^-12) M + 1e-5"
@@ -1488,8 +1496,8 @@ def _visible_pairs(s, causal, window, prefix=0):
     return sum(min(i + 1, window) for i in range(s))
 
 
-def _flash_bound(kernel, b, s, h, hkv, d, causal, window, prefix=None):
-    """(bound ms, by what) of one flash kernel's share of the work for
+def _flash_work(kernel, b, s, h, hkv, d, causal, window, prefix=None):
+    """(bytes, operations) of one flash kernel's share of the work for
     this call: bf16 tensors read and written once (lse/delta f32), and
     2·D FLOP per visible pair for each product (forward: QK^T, PV). The
     backward's least work is five products (10·D per pair, the FA2
@@ -1508,7 +1516,7 @@ def _flash_bound(kernel, b, s, h, hkv, d, causal, window, prefix=None):
         moved, ops = q_bytes, 2 * d * pairs
     else:
         moved, ops = 2 * q_bytes + 4 * kv_bytes + 2 * row, 8 * d * pairs
-    return _bound(moved, ops)
+    return moved, ops
 
 
 def _bwd_kernel_fn(which, q, k, v, g, lse, delta, *, causal, scale,
@@ -1684,11 +1692,13 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
         for kernel, t, plain, lib in zip(names, ms[:3],
                                          (fwd_plain, bwd_plain, bwd_plain),
                                          (lib_fwd, lib_bwd, lib_bwd)):
-            bound_ms, by = _flash_bound(kernel, b, s, h, hkv, d, causal,
-                                        window, prefix)
+            moved, ops = _flash_work(kernel, b, s, h, hkv, d, causal,
+                                     window, prefix)
+            bound_ms, by = _bound(moved, ops)
             rec["timing"][kernel] = {
                 "ms": t, "plain_ms": plain, "library_ms": lib,
-                "bound_ms": bound_ms, "bound_by": by, "timer": "graph",
+                "bound_ms": bound_ms, "bound_by": by, "bytes": moved,
+                "timer": "graph",
                 "library_timer": None if lib is None else "graph"}
         if pack == 2:
             # what packing buys: the unpacked D 64 kernels, same inputs
@@ -2302,6 +2312,9 @@ def main(argv=None) -> int:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"],
         })
+        if kernel == "chunk":  # the split walk: its splits, bytes, share
+            kernels[-1].update(splits=head["splits"], bytes=head["bytes"],
+                               bound_share=head["bound_ms"] / head["ms"])
     outputs = {"fwd": ("out", "lse"), "bwd_dq": ("dq",),
                "bwd_dkv": ("dk", "dv"), "norm_fwd": ("out",),
                "norm_bwd": ("dx",)}
@@ -2322,6 +2335,9 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        if kernel == "flash_fwd":  # K1: its bytes, the share of its bound
+            kernels[-1].update(bytes=t["bytes"],
+                               bound_share=t["bound_ms"] / t["ms"])
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

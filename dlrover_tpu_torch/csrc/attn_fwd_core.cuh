@@ -214,6 +214,25 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map,
       : "memory");
 }
 
+// A 4-d TMA tile store from shared memory (the tensor map clips what lies
+// past its bounds), in this thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const void* map, uint32_t src,
+                                             int c0, int c1, int c2,
+                                             int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, "
+      "%3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
+
+// Commits this thread's bulk stores and waits until their shared-memory
+// sources have been read.
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma
 // ---------------------------------------------------------------------------
@@ -494,25 +513,37 @@ struct State {
 // warpgroups take every tile; where none of a row's keys is in a tile,
 // its scores there are all masked and add exactly 0. Policy `pol`:
 //   bool whole(const Meta&)  every row of this warp sees every key
-//   bool allowed(const Meta&, int i, int col)  row i (0: g, 1: g + 8) of
-//                            this thread sees key k0 + col
+//   T tile(const Meta&)      what allowed() needs of a masked tile,
+//                            computed once a tile (key ranges relative to
+//                            this thread's first key k0 + 2t, page bits)
+//   bool allowed(const T&, int i, int c)  row i (0: g, 1: g + 8) of this
+//                            thread sees key k0 + 2t + c; c = (e >> 2) * 8
+//                            + (e & 1) for score e is a constant once
+//                            unrolled, so a score costs a few compares
+//                            and a select, no branch
 // `scale_log2` = softmax scale * log2(e). Scores stay unscaled until the
 // exponent: the masks compare raw q.k, whose order is the scaled one's.
 // `kv_off`: bytes from a stage's K (and V) tile to the column block this
-// warpgroup reads (0 but in the packed flash kernel). `ring`: the
+// warpgroup reads (0 but in the packed flash forward). `ring`: the
 // consumers' position in the ring, left at the stage of the end Meta (a
 // kernel that walks several times releases that stage and moves on).
+// `q_done()` is called once, as soon as the walk has read Q for the last
+// time (its end Meta seen, every Q.K^T landed): a persistent kernel
+// releases the item's Q slot there, before the last P.V and the stores.
+// `epi(stage)` is called once the last P.V has landed, before the last
+// tile's stage is released, where the walk had a tile: the flash forward
+// stages its output in that stage for a TMA store.
 //
 // Overlap: the next tile's Q.K^T and this tile's P.V run on the tensor
 // cores while the warpgroup computes the next tile's softmax.
-template <int D, class L, class Policy>
+template <int D, class L, class Policy, class QDone, class Epi>
 __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
                                         const Policy& pol, float scale_log2,
                                         State<D>& st, uint32_t kv_off,
-                                        Ring& ring) {
+                                        Ring& ring, QDone&& q_done,
+                                        Epi&& epi) {
   constexpr int KEYS = L::kKeys;
   constexpr int NS = KEYS / 2;  // score registers a thread
-  const int t = threadIdx.x & 3;
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) st.o[i] = 0.f;
   st.m[0] = st.m[1] = kNegInf;
@@ -543,10 +574,12 @@ __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
   auto softmax = [&](float (&s)[NS], const Meta& mt, float (&alpha)[2]) {
     // masked scores -1e30; the scale is folded into the exponent
     if (!pol.whole(mt)) {
+      const auto tv = pol.tile(mt);
 #pragma unroll
       for (int i = 0; i < NS; ++i)
-        if (!pol.allowed(mt, (i >> 1) & 1, (i >> 2) * 8 + 2 * t + (i & 1)))
-          s[i] = kNegInf;
+        s[i] = pol.allowed(tv, (i >> 1) & 1, (i >> 2) * 8 + (i & 1))
+                   ? s[i]
+                   : kNegInf;
     }
     float cur[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -603,7 +636,10 @@ __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
   // compiler serialize every wgmma of the kernel.
   Meta mt;
   int cur;
-  if (!acquire(mt, cur)) return;
+  if (!acquire(mt, cur)) {
+    q_done();
+    return;
+  }
   float s[NS], alpha[2];
   uint32_t pa[KEYS / 16][4];
   fence_regs(s);
@@ -633,6 +669,7 @@ __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
     to_p(s, pa);
     cur = nxt;
   }
+  q_done();
   // the last tile's P.V
   rescale(alpha);
   fence_regs(st.o);
@@ -640,31 +677,34 @@ __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
   issue_pv(pa, cur);
   wgmma_wait<0>();
   fence_regs(st.o);
+  epi(cur);
   release(cur);
 }
 
-// One walk from a fresh ring (the kernels that walk once a block:
-// flash_fwd_wgmma_kernel, paged_chunk_wgmma_kernel).
+// One walk from a fresh ring (a kernel that walks once a block:
+// paged_chunk_wgmma_kernel).
 template <int D, class L, class Policy>
 __device__ __forceinline__ void consume(uint32_t base, uint32_t q_tile,
                                         const Policy& pol, float scale_log2,
                                         State<D>& st) {
   Ring ring;
-  consume<D, L>(base, q_tile, pol, scale_log2, st, 0, ring);
+  consume<D, L>(base, q_tile, pol, scale_log2, st, 0, ring, [] {},
+                [](int) {});
 }
 
-// Row i (0: g, 1: g + 8) of this thread's output as bf16, divided by l
-// (l == 0 -> 1: a row that saw no key is exactly 0).
+// Row i (0: g, 1: g + 8) of this thread's output as bf16, times 1 / l
+// (l == 0 -> 1: a row that saw no key is exactly 0): one division a row,
+// not one an element (those took a quarter of K1's cycles).
 template <int D>
 __device__ __forceinline__ void store_row(const State<D>& st, int i,
                                           __nv_bfloat16* dst) {
   const int t = threadIdx.x & 3;
-  const float denom = st.l[i] == 0.f ? 1.f : st.l[i];
+  const float inv = 1.f / (st.l[i] == 0.f ? 1.f : st.l[i]);
 #pragma unroll
   for (int nt = 0; nt < D / 8; ++nt)
     *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8 + 2 * t) =
-        __floats2bfloat162_rn(st.o[nt * 4 + 2 * i] / denom,
-                              st.o[nt * 4 + 2 * i + 1] / denom);
+        __floats2bfloat162_rn(st.o[nt * 4 + 2 * i] * inv,
+                              st.o[nt * 4 + 2 * i + 1] * inv);
 }
 
 }  // namespace attn_core

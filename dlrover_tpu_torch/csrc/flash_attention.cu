@@ -32,9 +32,9 @@
 // atomics). So the products run on the tensor cores: every bf16 kernel
 // runs on wgmma, the only path to the card's full tensor-core rate, from
 // shared-memory tiles that TMA fills under the products (attn_fwd_core.cuh's
-// primitives; P and dS kept in registers): flash_fwd_wgmma_kernel (a head
-// and 128 q rows a block), flash_fwd_packed_wgmma_kernel (a persistent
-// kernel walking items of two heads and 64 q rows),
+// primitives; P and dS kept in registers): flash_fwd_wgmma_kernel and
+// flash_fwd_packed_wgmma_kernel (one persistent body walking items of a
+// head and 128 q rows, or of two heads and 64 q rows),
 // flash_bwd_dq_wgmma_kernel (128 q rows of a head a block) and
 // flash_bwd_dkv_wgmma_kernel (128 keys of a KV head a block), and their
 // packed twins flash_bwd_dq_packed_wgmma_kernel (64 q rows of two heads)
@@ -817,180 +817,103 @@ __global__ void __launch_bounds__(kThreads2, 2)
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 forward of one head a block on the tensor-core core
+// the bf16 forward on the tensor-core core: one head, or two packed heads
+// of 64, a work item
 // ---------------------------------------------------------------------------
 //
 // flash_fwd_wgmma_kernel replaces _fwd_kernel (pallas_attention.py l.213;
-// pallas_call l.1039 in _flash_fwd l.887) for bf16. What bounds it: at
-// llama-1.4b's shape (B 8, S 1024, H 16, D 128, causal) the bytes (134 MB
-// read and written once: 40 us at the HBM rate) and the operations (3.4e10
-// FLOP: 35 us at the bf16 peak) are close, so the design goes for the
-// tensor-core rate: attn_fwd_core.cuh's core (wgmma for Q.K^T and P.V, the
-// online softmax in registers) on a q tile of 128 rows (two consumer
-// warpgroups of 64) of one query head; GQA reads KV head h / (H / Hkv),
-// never repeated. The producer is one thread issuing TMA copies of the K
-// and V tiles of 128 keys ([128 keys, 64 columns] boxes of a 4-d tensor
-// map [B, Sk, Hkv, D], two a tile at D 128; keys past Sk come in as zeros
-// and are masked) into a ring of 3 stages. The key tiles are key_tiles'
-// (causal, window, prefix) for the block's 128 rows; a warp skips the mask
-// on a wholly visible tile and masks the others per element, by
-// allowed()'s rule. Blocks take q tiles from the last: causal tiles late
-// in the sequence do the most work. (The packed kernel below masks by a
-// range of keys a row, which took its masked tiles' softmax from ~5k
-// cycles to the unmasked tiles' cost; this kernel keeps allowed().)
+// pallas_call l.1039 in _flash_fwd l.887) for bf16, and
+// flash_fwd_packed_wgmma_kernel replaces _fwd_kernel_packed (l.278; the
+// same pallas_call). Both are one body, fwd_wgmma_body<D, NH>, with the
+// heads of a work item as a template parameter:
+// - NH 1 (K1): one query head of D 64 or 128 and a tile of 128 q rows (64
+//   a consumer warpgroup); GQA reads KV head h / (H / Hkv), never
+//   repeated;
+// - NH 2 (K1p): two MHA heads of 64 and a tile of 64 q rows, the mask
+//   computed once for both; consumer warpgroup j computes head 2p + j.
+// What bounds them: at llama-1.4b's shape (B 8, S 1024, H 16, D 128,
+// causal) the bytes (134 MB read and written once: 40 us at the HBM rate)
+// and the operations (3.4e10 FLOP: 35 us at the bf16 peak) are close, at
+// gpt2-1.5b's (B 8, S 1024, H 25, D 64) 106 MB (32 us) and 2.7e10 FLOP
+// (27 us). So the design goes for the tensor-core rate on
+// attn_fwd_core.cuh's core (wgmma for Q.K^T and P.V, the online softmax in
+// registers; p rounded to bf16 before P.V, l summing the unrounded p,
+// l == 0 -> 1) and keeps the tensor cores fed from one item to the next.
+//
+// Persistent: one block an SM takes items from a counter in device memory
+// (K1 g_fwd_work, K1p g_packed_work) in the order of the hardware's block
+// scheduler, and its K/V ring runs on from one item into the next. Items
+// go head by head, each head's q tiles from the last: the causal items
+// that do the most work first. K1 walks KV head by KV head with the query
+// heads of one group adjacent at each q tile, so the blocks at work at
+// once read few heads' K/V, which stay in L2 (K1p: pack by pack). The
+// last block to finish resets the counter, so a kernel's launches must
+// follow each other on one stream.
+//
+// The producer thread takes the item, publishes it beside its Q slot and,
+// once the consumers have released the slot, loads the item's Q by TMA
+// ([64 rows, 64 columns] boxes of a 4-d map [B, Sq, H, D]) on the slot's
+// barrier; then each stage of 128 keys ([128 keys, 64 columns] boxes of
+// [B, Sk, Hkv, D] maps: K1 the D / 64 column blocks of its KV head, K1p
+// heads 2p and 2p + 1, which lays the stage out exactly as a D 128 stage,
+// column block j holding head 2p + j); then an end Meta. The key tiles are
+// key_tiles' for the item's rows. The consumers release the Q slot as soon
+// as their walk has read Q for the last time (consume()'s q_done), so the
+// next item's Q and first stages land under this item's last P.V and its
+// output stores; the output leaves by TMA from the last tile's stage
+// (consume()'s epi, below). Shared memory: K1 at D 128 holds one Q slot of 128 rows
+// (32 KB) and 3 stages of 128 keys (192 KB), 225 KB in all; two Q slots
+// and 3 stages would take 257 KB of the 227 KB a block can have, and two
+// Q slots with 2 stages ran 18% slower at llama-1.4b's shape (0.1191
+// against 0.1009 ms, PERF.md). K1p holds two Q slots of 16 KB.
+// Keys past Sk and rows past Sq come in from TMA as zeros and are masked;
+// stores stop at Sq. lse [B, H, Sq] f32 is written as K2 reads it.
+//
+// With an odd H the last pack of K1p has one head: its producer loads only
+// that head's boxes (half the expected bytes), and the second consumer
+// computes and writes nothing but still takes and releases each of the
+// item's stages and its Q slot, so every barrier counts both consumers'
+// arrivals.
+//
+// The mask (RangeMask) is one range of keys [lo, hi) a row, computed once
+// an item, so a masked tile costs two compares and a select a score: a
+// per-element rule compiled with its branches took the softmax of a
+// masked tile (one in 4.5 at these shapes) to ~5k cycles.
 
 namespace ac = attn_core;
 
-constexpr int kTcBQ = ac::kRows * ac::kConsumers;  // q rows a block
-constexpr int kTcBK = 128;                         // keys a K/V tile
+constexpr int kTcBK = 128;  // keys a K/V stage
 
-// What a consumer warpgroup's rows see of a key tile: allowed() and
-// tile_visible() on values held in registers.
-struct FlashMask {
-  int sq, sk, causal, window, pref;
-  int q0warp;  // first row of this warp
-  int row[2];  // this thread's rows
-  __device__ __forceinline__ bool whole(const ac::Meta& mt) const {
-    const int k1 = mt.k0 + kTcBK;
-    if (q0warp + 16 > sq || k1 > sk) return false;
-    if (!causal || k1 <= pref) return true;
-    return k1 - 1 <= q0warp && (window == 0 || q0warp + 15 - mt.k0 < window);
-  }
-  __device__ __forceinline__ bool allowed(const ac::Meta& mt, int i,
-                                          int col) const {
-    const int kp = mt.k0 + col, qp = row[i];
-    if (kp >= sk || qp >= sq) return false;
-    if (!causal || kp < pref) return true;
-    return qp >= kp && (window == 0 || qp - kp < window);
-  }
-};
-
-template <int D>
-__global__ void __launch_bounds__(ac::block_threads(1), 1)
-    flash_fwd_wgmma_kernel(const Args a, const __grid_constant__ CUtensorMap km,
-                           const __grid_constant__ CUtensorMap vm) {
-  using L = ac::Layout<D, kTcBK, 0>;
-  const uint32_t base = ac::smem_base();
-  ac::init_barriers<L>(base, 1);
-  const int wg = threadIdx.x / 128;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int pref = prefix_of(a, b);
-  if (wg == 0) {
-    ac::setmaxnreg_dec<40>();
-    if (threadIdx.x != 0) return;
-    const int kh = h / (a.H / a.Hkv);
-    int kt0, kt1;
-    key_tiles(a, pref, q0, kTcBQ, kTcBK, &kt0, &kt1);
-    ac::Ring ring;
-    for (int kt = kt0; kt < kt1; ++kt) {
-      ac::wait_empty<L>(base, ring);
-      ac::write_meta<L>(base, ring.stage, kt * kTcBK, ~0ull);
-      const uint32_t full = base + L::full + 8 * ring.stage;
-      ac::mbar_arrive_tx(full, 2 * L::kKvTile);
-#pragma unroll
-      for (int half = 0; half < D / 64; ++half) {
-        const uint32_t off = half * kTcBK * 128;
-        ac::tma_load_4d(L::k_tile(base, ring.stage) + off, &km, full,
-                        half * 64, kh, kt * kTcBK, b);
-        ac::tma_load_4d(L::v_tile(base, ring.stage) + off, &vm, full,
-                        half * 64, kh, kt * kTcBK, b);
-      }
-      ring.advance();
-    }
-    ac::wait_empty<L>(base, ring);
-    ac::write_meta<L>(base, ring.stage, -1, 0);
-    ac::mbar_arrive(base + L::full + 8 * ring.stage);
-    return;
-  }
-  ac::setmaxnreg_inc<232>();
-  const int ct = threadIdx.x - 128 * wg;
-  const int warp = ct / 32, lane = ct % 32, g = lane >> 2;
-  FlashMask pol;
-  pol.sq = a.Sq;
-  pol.sk = a.Sk;
-  pol.causal = a.causal;
-  pol.window = a.window;
-  pol.pref = pref;
-  const int q0w = q0 + (wg - 1) * ac::kRows;
-  pol.q0warp = q0w + warp * 16;
-  pol.row[0] = pol.q0warp + g;
-  pol.row[1] = pol.q0warp + g + 8;
-  const uint32_t q_tile = base + L::q + (wg - 1) * L::kQTile;
-  const size_t qs = (size_t)a.H * D;
-  const bf16* qg = static_cast<const bf16*>(a.q) +
-                   ((size_t)b * a.Sq * a.H + h) * D;
-  ac::load_q<D>(q_tile, ct, [&](int r) -> const bf16* {
-    const int row = q0w + r;
-    return row < a.Sq ? qg + (size_t)row * qs : nullptr;
-  }, wg);
-  ac::State<D> st;
-  ac::consume<D, L>(base, q_tile, pol, a.scale * ac::kLog2e, st);
-  bf16* og = static_cast<bf16*>(const_cast<void*>(a.out)) +
-             ((size_t)b * a.Sq * a.H + h) * D;
-  float* lg = const_cast<float*>(a.lse) + ((size_t)b * a.H + h) * a.Sq;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = pol.row[i];
-    if (row >= a.Sq) continue;
-    ac::store_row<D>(st, i, og + (size_t)row * qs);
-    if ((lane & 3) == 0)
-      lg[row] = st.m[i] * a.scale + logf(st.l[i] == 0.f ? 1.f : st.l[i]);
-  }
+// q rows a forward item: 128 of one head (64 a consumer), or 64 of a pack
+template <int NH>
+__host__ __device__ constexpr int fwd_rows() {
+  return ac::kRows * ac::kConsumers / NH;
 }
 
-// ---------------------------------------------------------------------------
-// the bf16 forward of two packed heads of 64 on the tensor-core core
-// ---------------------------------------------------------------------------
-//
-// flash_fwd_packed_wgmma_kernel replaces _fwd_kernel_packed
-// (pallas_attention.py l.278; pallas_call l.1039) for bf16: a work item is
-// two heads of 64 of one batch element and a tile of 64 q rows, the mask
-// computed once for both heads. What bounds it: at gpt2-1.5b's shape (B 8,
-// S 1024, H 25, D 64, causal) the bytes (106 MB read and written once:
-// 32 us at the HBM rate) and the operations (2.7e10 FLOP: 27 us at the
-// bf16 peak) are close, so, as for K1, the design goes for the tensor-core
-// rate on attn_fwd_core.cuh's core.
-//
-// Persistent: one block an SM takes items from a counter in device memory
-// in the order of the hardware's block scheduler (pack by pack, each
-// pack's q tiles from the last: the causal items that do the most work
-// first, and the blocks at work at once read few heads' K/V, which stay
-// in L2), and its K/V ring runs on from one item into the next. The last
-// block to finish resets the counter, so launches must follow each other
-// on one stream. The producer thread takes the item, publishes it beside
-// its Q slot and loads both heads' Q tiles ([64 rows, 64 columns] TMA
-// boxes, into one of two Q slots on that slot's barrier, once the
-// consumers have released the slot's previous item), then, per
-// 128-key stage, four TMA boxes of [128 keys, 64 columns] from the D 64
-// tensor maps: K and V of heads 2p and 2p + 1, which lays the stage out
-// exactly as a D 128 stage (ac::Layout<128, 128, .>), column block j
-// holding head 2p + j; then an end Meta. So an item's Q and first tiles
-// land while the consumers still finish the previous item, and its output
-// stores run under the next item's loads. Consumer warpgroup j computes
-// head 2p + j from its column block (consume()'s kv_off) with the core's
-// arithmetic (p rounded to bf16 before P.V, l summing the unrounded p,
-// l == 0 -> 1) and writes lse [B, H, Sq] f32 as K2p reads it. The key
-// tiles are key_tiles' for the item's rows, shared by both heads. With an
-// odd H the last pack has one head: its producer loads only that head's
-// boxes (half the expected bytes), and the second consumer computes and
-// writes nothing but still takes and releases each of the item's stages
-// and its Q slot, so every barrier counts both consumers' arrivals.
-//
-// The mask (RangeMask) is one range of keys [lo, hi) a row, computed once
-// an item, so a masked tile costs two compares and a select a score: the
-// per-element rule of allowed(), compiled with its branches, took the
-// softmax of a masked tile (one in 4.5 at gpt2's shape) to ~5k cycles.
-
-constexpr int kPackBQ = ac::kRows;  // q rows a packed item (both heads)
+// The forward's shared memory: a stage holds the NH heads' columns, laid
+// out as a D * NH stage; the Q region holds kQSlots slots of kSlot bytes,
+// consumer j's tile at j * kSlot / 2 of its slot; extra: the Q slots'
+// full and empty barriers, then their item numbers.
+template <int D, int NH>
+struct FwdTc {
+  static_assert(NH == 1 || D == 64, "the packed heads are 64 wide");
+  static constexpr int kQSlots = NH == 1 ? 1 : 2;
+  using L = ac::Layout<D * NH, kTcBK, 48>;
+  static constexpr int kSlot = ac::kConsumers * L::kQTile / kQSlots;
+};
 
 // The keys a row sees are one range: causal, [max(0, q - window + 1),
 // max(prefix, q + 1)) (a window and a prefix exclude each other), else
 // [0, Sk); cut to [0, Sk), and empty for rows past Sq. whole(): every row
-// of this warp sees every key of the tile.
+// of this warp sees every key of the tile. tile(): the rows' ranges
+// relative to this thread's first key of the tile, k0 + 2t.
 struct RangeMask {
   int lo[2], hi[2];  // this thread's rows
   int wlo, whi;      // keys every row of this warp sees: [wlo, whi)
+  int t2;            // 2t
+  struct Tile {
+    int lo[2], hi[2];
+  };
   __device__ __forceinline__ void init(const Args& a, int pref, int q0warp,
                                        const int (&row)[2]) {
     auto lo_of = [&](int q) {
@@ -1009,100 +932,145 @@ struct RangeMask {
     // bounds lo, its first bounds hi; a warp reaching past Sq sees none
     wlo = lo_of(q0warp + 15);
     whi = q0warp + 16 > a.Sq ? 0 : hi_of(q0warp);
+    t2 = 2 * (threadIdx.x & 3);
   }
   __device__ __forceinline__ bool whole(const ac::Meta& mt) const {
     return mt.k0 >= wlo && mt.k0 + kTcBK <= whi;
   }
-  __device__ __forceinline__ bool allowed(const ac::Meta& mt, int i,
-                                          int col) const {
-    const int kp = mt.k0 + col;
-    return (kp >= lo[i]) & (kp < hi[i]);
+  __device__ __forceinline__ Tile tile(const ac::Meta& mt) const {
+    const int k0 = mt.k0 + t2;
+    return {{lo[0] - k0, lo[1] - k0}, {hi[0] - k0, hi[1] - k0}};
+  }
+  __device__ __forceinline__ bool allowed(const Tile& tv, int i,
+                                          int c) const {
+    return (c >= tv.lo[i]) & (c < tv.hi[i]);
   }
 };
 
-// extra: the Q slots' full and empty barriers, then their item numbers
-using PackedLayout = ac::Layout<2 * kPackD, kTcBK, 48>;
-
-// The item counter (next item, blocks done) of the packed forward.
+// The item counters (next item, blocks done) of the persistent forwards:
+// K1's, and K1p's.
+__device__ unsigned int g_fwd_work[2];
 __device__ unsigned int g_packed_work[2];
 
-// Work item w of the packed forward: batch element, first head, heads
-// (2, or 1 in an odd H's last pack), first q row.
-struct PackedItem {
-  int b, h0, nh, q0;
-  __device__ __forceinline__ PackedItem(const Args& a, int w) {
-    const int packs = (a.H + 1) / 2;
-    const int n_qt = (a.Sq + kPackBQ - 1) / kPackBQ;
-    const int bp = w / n_qt;
-    q0 = (n_qt - 1 - w % n_qt) * kPackBQ;
-    b = bp / packs;
-    h0 = (bp % packs) * 2;
-    nh = min(2, a.H - h0);
-  }
-};
-
-__device__ __forceinline__ int packed_items(const Args& a) {
-  return (a.Sq + kPackBQ - 1) / kPackBQ * a.B * ((a.H + 1) / 2);
+template <int NH>
+__device__ __forceinline__ unsigned int* fwd_work() {
+  return NH == 1 ? g_fwd_work : g_packed_work;
 }
 
-__global__ void __launch_bounds__(ac::block_threads(1), 1)
-    flash_fwd_packed_wgmma_kernel(const Args a,
-                                  const __grid_constant__ CUtensorMap qm,
-                                  const __grid_constant__ CUtensorMap km,
-                                  const __grid_constant__ CUtensorMap vm) {
-  using L = PackedLayout;
+// A forward work item: batch element, first head, heads that exist (2,
+// or 1 in an odd H's last pack), the KV head, first q row.
+struct FwdItem {
+  int b, h0, nh, kh, q0;
+};
+
+template <int NH>
+__host__ __device__ __forceinline__ int fwd_items(const Args& a) {
+  return (a.Sq + fwd_rows<NH>() - 1) / fwd_rows<NH>() * a.B *
+         ((a.H + NH - 1) / NH);
+}
+
+// Item w, in the order blocks take them: K1 (batch element, KV head, q
+// tile from the last, query head of the group); K1p (batch element, pack,
+// q tile from the last).
+template <int NH>
+__device__ __forceinline__ FwdItem fwd_item(const Args& a, int w) {
+  constexpr int R = fwd_rows<NH>();
+  const int n_qt = (a.Sq + R - 1) / R;
+  FwdItem it;
+  if constexpr (NH == 1) {
+    const int groups = a.H / a.Hkv;
+    const int r = w / groups, bk = r / n_qt;
+    it.q0 = (n_qt - 1 - r % n_qt) * R;
+    it.b = bk / a.Hkv;
+    it.kh = bk % a.Hkv;
+    it.h0 = it.kh * groups + w % groups;
+    it.nh = 1;
+  } else {
+    const int packs = (a.H + 1) / 2;
+    const int bp = w / n_qt;
+    it.q0 = (n_qt - 1 - w % n_qt) * R;
+    it.b = bp / packs;
+    it.h0 = (bp % packs) * 2;
+    it.nh = min(2, a.H - it.h0);
+    it.kh = it.h0;  // MHA
+  }
+  return it;
+}
+
+template <int D, int NH>
+__device__ __forceinline__ void fwd_wgmma_body(const Args& a,
+                                               const CUtensorMap& qm,
+                                               const CUtensorMap& km,
+                                               const CUtensorMap& vm,
+                                               const CUtensorMap& om) {
+  using T = FwdTc<D, NH>;
+  using L = typename T::L;
+  constexpr int QS = T::kQSlots;
+  constexpr int kCols = D / 64;  // column blocks of one head
   const uint32_t base = ac::smem_base();
-  // Q slot s: tiles of heads 0 and 1 at q + (2 s + j) * 8 KB; filled on
-  // q_full(s), released on q_empty(s) by every consumer thread
+  // Q slot s: filled on q_full(s), released on q_empty(s) by every
+  // consumer thread; consumer j's tile at q_tile(s, j)
   auto q_full = [&](int s) { return base + L::extra + 8 * s; };
   auto q_empty = [&](int s) { return base + L::extra + 16 + 8 * s; };
   auto q_tile = [&](int s, int j) {
-    return base + L::q + (2 * s + j) * kPackBQ * 128;
+    return base + L::q + s * T::kSlot + j * (T::kSlot / 2);
   };
   auto item_of = [&](int s) {
     return reinterpret_cast<volatile int*>(
         ac::smem_ptr(base + L::extra + 32 + 4 * s));
   };
   if (threadIdx.x == 0) {  // fenced and synced by init_barriers
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < QS; ++s) {
       ac::mbar_init(q_full(s), 1);
       ac::mbar_init(q_empty(s), 128 * ac::kConsumers);
     }
   }
   ac::init_barriers<L>(base, 1);
   const int wg = threadIdx.x / 128;
-  const int items = packed_items(a);
+  const int items = fwd_items<NH>(a);
+  unsigned int* work = fwd_work<NH>();
   ac::Ring ring;
   if (wg == 0) {
     ac::setmaxnreg_dec<40>();
     if (threadIdx.x != 0) return;
     for (int n = 0;; ++n) {
-      const int w = atomicAdd(&g_packed_work[0], 1u);
-      const int s = n & 1;
-      if (n >= 2) ac::mbar_wait(q_empty(s), ((n >> 1) - 1) & 1);
+      const int w = atomicAdd(&work[0], 1u);
+      const int s = n % QS;
+      if (n >= QS) ac::mbar_wait(q_empty(s), (n / QS - 1) & 1);
       *item_of(s) = w;
       if (w >= items) {  // no work left: the consumers see w and stop
         ac::mbar_arrive(q_full(s));
         break;
       }
-      const PackedItem it(a, w);
-      ac::mbar_arrive_tx(q_full(s), it.nh * kPackBQ * 128);
-      for (int j = 0; j < it.nh; ++j)
-        ac::tma_load_4d(q_tile(s, j), &qm, q_full(s), 0, it.h0 + j, it.q0,
-                        it.b);
+      const FwdItem it = fwd_item<NH>(a, w);
+      // Q boxes: K1 both consumers' 64 rows in kCols column blocks; K1p
+      // 64 rows of each head that exists
+      const int nq = NH == 1 ? ac::kConsumers * kCols : it.nh;
+      ac::mbar_arrive_tx(q_full(s), nq * ac::kRows * 128);
+      for (int x = 0; x < nq; ++x) {
+        const int j = NH == 1 ? x / kCols : x, c = NH == 1 ? x % kCols : 0;
+        ac::tma_load_4d(q_tile(s, j) + c * ac::kRows * 128, &qm, q_full(s),
+                        c * 64, it.h0 + (NH == 1 ? 0 : j),
+                        it.q0 + (NH == 1 ? j * ac::kRows : 0), it.b);
+      }
+      // K/V boxes a stage: K1 its KV head's column blocks; K1p the heads
+      const int nkv = NH == 1 ? kCols : it.nh;
       int kt0, kt1;
-      key_tiles(a, prefix_of(a, it.b), it.q0, kPackBQ, kTcBK, &kt0, &kt1);
+      key_tiles(a, prefix_of(a, it.b), it.q0, fwd_rows<NH>(), kTcBK, &kt0,
+                &kt1);
       for (int kt = kt0; kt < kt1; ++kt) {
         ac::wait_empty<L>(base, ring);
         ac::write_meta<L>(base, ring.stage, kt * kTcBK, ~0ull);
         const uint32_t full = base + L::full + 8 * ring.stage;
-        ac::mbar_arrive_tx(full, it.nh * 2 * kTcBK * 128);
-        for (int j = 0; j < it.nh; ++j) {
-          const uint32_t off = j * kTcBK * 128;
-          ac::tma_load_4d(L::k_tile(base, ring.stage) + off, &km, full, 0,
-                          it.h0 + j, kt * kTcBK, it.b);
-          ac::tma_load_4d(L::v_tile(base, ring.stage) + off, &vm, full, 0,
-                          it.h0 + j, kt * kTcBK, it.b);
+        ac::mbar_arrive_tx(full, nkv * 2 * kTcBK * 128);
+        for (int x = 0; x < nkv; ++x) {
+          const uint32_t off = x * kTcBK * 128;
+          const int col = NH == 1 ? x * 64 : 0;
+          const int head = NH == 1 ? it.kh : it.h0 + x;
+          ac::tma_load_4d(L::k_tile(base, ring.stage) + off, &km, full, col,
+                          head, kt * kTcBK, it.b);
+          ac::tma_load_4d(L::v_tile(base, ring.stage) + off, &vm, full, col,
+                          head, kt * kTcBK, it.b);
         }
         ring.advance();
       }
@@ -1112,24 +1080,24 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
       ring.advance();
     }
     // the last block out resets the counter for the next launch
-    if (atomicAdd(&g_packed_work[1], 1u) == gridDim.x - 1) {
-      g_packed_work[0] = 0;
-      g_packed_work[1] = 0;
+    if (atomicAdd(&work[1], 1u) == gridDim.x - 1) {
+      work[0] = 0;
+      work[1] = 0;
     }
     return;
   }
   ac::setmaxnreg_inc<232>();
-  const int j = wg - 1;  // this consumer's head: h0 + j
+  const int j = wg - 1;  // this consumer's rows (K1) or head (K1p)
   const int ct = threadIdx.x - 128 * wg;
   const int warp = ct / 32, lane = ct % 32, g = lane >> 2, t = lane & 3;
-  const size_t qs = (size_t)a.H * kPackD;
+  const size_t qs = (size_t)a.H * D;
   for (int n = 0;; ++n) {
-    const int s = n & 1;
-    ac::mbar_wait(q_full(s), (n >> 1) & 1);
+    const int s = n % QS;
+    ac::mbar_wait(q_full(s), (n / QS) & 1);
     const int w = *item_of(s);
     if (w >= items) break;
-    const PackedItem it(a, w);
-    if (j >= it.nh) {
+    const FwdItem it = fwd_item<NH>(a, w);
+    if (NH == 2 && j >= it.nh) {
       // a ragged pack's absent head: take and release the item's stages,
       // up to and with its end Meta, and its Q slot
       for (;;) {
@@ -1144,37 +1112,88 @@ __global__ void __launch_bounds__(ac::block_threads(1), 1)
       ac::mbar_arrive(q_empty(s));
       continue;
     }
-    const int h = it.h0 + j;
-    const int q0warp = it.q0 + warp * 16;
+    const int h = it.h0 + (NH == 1 ? 0 : j);
+    const int r0 = NH == 1 ? j * ac::kRows : 0;  // first row in the item
+    const int q0warp = it.q0 + r0 + warp * 16;
     const int row[2] = {q0warp + g, q0warp + g + 8};
     RangeMask pol;
     pol.init(a, prefix_of(a, it.b), q0warp, row);
-    ac::State<kPackD> st;
-    ac::consume<kPackD, L>(base, q_tile(s, j), pol, a.scale * ac::kLog2e, st,
-                           j * kTcBK * 128, ring);
-    // the end Meta's stage and the Q slot, released
+    ac::State<D> st;
+    // The output leaves through the last tile's stage: its K tile (K1:
+    // 128 rows of D; K1p: column block j, 64 rows of head h) takes this
+    // consumer's rows, rounded to bf16 in the swizzled layout, and one
+    // thread stores them by TMA (rows past Sq clipped by the map); the
+    // stage is released once the store has read it. Stored row by row
+    // from registers, 4 bytes a thread, the output took a quarter of the
+    // kernel's time (PERF.md). K1's consumers both read every column
+    // block of K, so they meet first; a K1p consumer reads only its own.
+    bool staged = false;
+    auto stage_out = [&](int stg) {
+      if (NH == 1) ac::named_sync(3, 128 * ac::kConsumers);
+      const uint32_t o_tile =
+          L::k_tile(base, stg) + (NH == 1 ? 0u : j * kTcBK * 128);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int r = r0 + warp * 16 + g + 8 * i;
+        const float inv = 1.f / (st.l[i] == 0.f ? 1.f : st.l[i]);
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt)
+          *reinterpret_cast<uint32_t*>(
+              ac::smem_ptr(o_tile + ac::swz<kTcBK>(r, nt) + 4 * t)) =
+              ac::pack_bf16(st.o[nt * 4 + 2 * i] * inv,
+                            st.o[nt * 4 + 2 * i + 1] * inv);
+      }
+      ac::fence_proxy_async();  // the generic stores, read by the TMA
+      ac::named_sync(1 + j, 128);
+      if (ct == 0) {
+#pragma unroll
+        for (int c = 0; c < kCols; ++c)
+          ac::tma_store_4d(&om, o_tile + c * kTcBK * 128 + r0 * 128, c * 64,
+                           h, it.q0 + r0, it.b);
+        ac::tma_store_wait_read();
+      }
+      ac::named_sync(1 + j, 128);  // the stage is read: consume() frees it
+      staged = true;
+    };
+    ac::consume<D, L>(base, q_tile(s, j), pol, a.scale * ac::kLog2e, st,
+                      NH == 1 ? 0u : j * kTcBK * 128, ring,
+                      [&] { ac::mbar_arrive(q_empty(s)); }, stage_out);
+    // the end Meta's stage, released
     ac::mbar_arrive(base + L::empty + 8 * ring.stage);
     ring.advance();
-    ac::mbar_arrive(q_empty(s));
     bf16* og = static_cast<bf16*>(const_cast<void*>(a.out)) +
-               ((size_t)it.b * a.Sq * a.H + h) * kPackD;
+               ((size_t)it.b * a.Sq * a.H + h) * D;
     float* lg =
         const_cast<float*>(a.lse) + ((size_t)it.b * a.H + h) * a.Sq;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (row[i] >= a.Sq) continue;
+      // a walk without a tile (no key to see: exact zeros) held no stage
+      if (!staged) ac::store_row<D>(st, i, og + (size_t)row[i] * qs);
       // l == 0 -> 1: a row that saw no key is exactly 0
-      const float l = st.l[i] == 0.f ? 1.f : st.l[i];
-      const float inv = 1.f / l;
-      bf16* dst = og + (size_t)row[i] * qs;
-#pragma unroll
-      for (int nt = 0; nt < kPackD / 8; ++nt)
-        *reinterpret_cast<__nv_bfloat162*>(dst + nt * 8 + 2 * t) =
-            __floats2bfloat162_rn(st.o[nt * 4 + 2 * i] * inv,
-                                  st.o[nt * 4 + 2 * i + 1] * inv);
-      if (t == 0) lg[row[i]] = st.m[i] * a.scale + logf(l);
+      if (t == 0)
+        lg[row[i]] = st.m[i] * a.scale + logf(st.l[i] == 0.f ? 1.f : st.l[i]);
     }
   }
+}
+
+template <int D>
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_fwd_wgmma_kernel(const Args a,
+                           const __grid_constant__ CUtensorMap qm,
+                           const __grid_constant__ CUtensorMap km,
+                           const __grid_constant__ CUtensorMap vm,
+                           const __grid_constant__ CUtensorMap om) {
+  fwd_wgmma_body<D, 1>(a, qm, km, vm, om);
+}
+
+__global__ void __launch_bounds__(ac::block_threads(1), 1)
+    flash_fwd_packed_wgmma_kernel(const Args a,
+                                  const __grid_constant__ CUtensorMap qm,
+                                  const __grid_constant__ CUtensorMap km,
+                                  const __grid_constant__ CUtensorMap vm,
+                                  const __grid_constant__ CUtensorMap om) {
+  fwd_wgmma_body<kPackD, 2>(a, qm, km, vm, om);
 }
 
 // ---------------------------------------------------------------------------
@@ -2192,22 +2211,6 @@ bool kv_tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int Hkv,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
-cudaError_t run_fwd_wgmma(const Args& a, cudaStream_t stream) {
-  using L = ac::Layout<D, kTcBK, 0>;
-  CUtensorMap km, vm;
-  if (!kv_tensor_map(&km, a.k, a.B, a.Sk, a.Hkv, D) ||
-      !kv_tensor_map(&vm, a.v, a.B, a.Sk, a.Hkv, D))
-    return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_wgmma_kernel<D>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::alloc);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((a.Sq + kTcBQ - 1) / kTcBQ, a.B * a.H);
-  kernel<<<grid, ac::block_threads(1), L::alloc, stream>>>(a, km, vm);
-  return cudaGetLastError();
-}
-
 // The SMs of the current device, cached per device.
 int sm_count() {
   static int counts[64] = {0};
@@ -2218,22 +2221,29 @@ int sm_count() {
   return counts[dev];
 }
 
-cudaError_t run_fwd_packed_wgmma(const Args& a, cudaStream_t stream) {
-  using L = PackedLayout;
-  CUtensorMap qm, km, vm;
-  if (!kv_tensor_map(&qm, a.q, a.B, a.Sq, a.H, kPackD, kPackBQ) ||
-      !kv_tensor_map(&km, a.k, a.B, a.Sk, a.Hkv, kPackD) ||
-      !kv_tensor_map(&vm, a.v, a.B, a.Sk, a.Hkv, kPackD))
+// NH 1: flash_fwd_wgmma_kernel<D>; NH 2 (D 64, MHA):
+// flash_fwd_packed_wgmma_kernel. One block an SM (the block takes the
+// SM's shared memory), never more than there are items.
+template <int D, int NH>
+cudaError_t run_fwd_wgmma(const Args& a, cudaStream_t stream) {
+  using L = typename FwdTc<D, NH>::L;
+  CUtensorMap qm, km, vm, om;
+  if (!kv_tensor_map(&qm, a.q, a.B, a.Sq, a.H, D, ac::kRows) ||
+      !kv_tensor_map(&km, a.k, a.B, a.Sk, a.Hkv, D) ||
+      !kv_tensor_map(&vm, a.v, a.B, a.Sk, a.Hkv, D) ||
+      !kv_tensor_map(&om, a.out, a.B, a.Sq, a.H, D, ac::kRows))
     return cudaErrorInvalidValue;
-  auto kernel = flash_fwd_packed_wgmma_kernel;
+  decltype(&flash_fwd_packed_wgmma_kernel) kernel;  // both alike
+  if constexpr (NH == 1)
+    kernel = flash_fwd_wgmma_kernel<D>;
+  else
+    kernel = flash_fwd_packed_wgmma_kernel;
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::alloc);
   if (err != cudaSuccess) return err;
-  // one block an SM (the block takes the SM's shared memory), never more
-  // than there are items
-  const int items = (a.Sq + kPackBQ - 1) / kPackBQ * a.B * ((a.H + 1) / 2);
-  const int blocks = std::min(items, std::max(1, sm_count()));
-  kernel<<<blocks, ac::block_threads(1), L::alloc, stream>>>(a, qm, km, vm);
+  const int blocks = std::min(fwd_items<NH>(a), std::max(1, sm_count()));
+  kernel<<<blocks, ac::block_threads(1), L::alloc, stream>>>(a, qm, km, vm,
+                                                              om);
   return cudaGetLastError();
 }
 
@@ -2407,14 +2417,14 @@ int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* out,
     case kFwdWgmma: {
       if (dtype != 1 || !valid(a)) return cudaErrorInvalidValue;
       auto st = static_cast<cudaStream_t>(stream);
-      if (D == 128) return run_fwd_wgmma<128>(a, st);
-      if (D == 64) return run_fwd_wgmma<64>(a, st);
+      if (D == 128) return run_fwd_wgmma<128, 1>(a, st);
+      if (D == 64) return run_fwd_wgmma<64, 1>(a, st);
       return cudaErrorInvalidValue;
     }
     case kFwdPackedWgmma:
       if (dtype != 1 || D != kPackD || a.H != a.Hkv || !valid(a))
         return cudaErrorInvalidValue;
-      return run_fwd_packed_wgmma(a, static_cast<cudaStream_t>(stream));
+      return run_fwd_wgmma<kPackD, 2>(a, static_cast<cudaStream_t>(stream));
     default:
       return cudaErrorInvalidValue;
   }

@@ -50,7 +50,8 @@
 //   stale rows), and the C in-flight rows (extra_k / extra_v [B, C, Hkv,
 //   D], the compute type) are folded once per row after the merge.
 // - paged_chunk_wgmma_kernel (n_q > 8, bf16, D 64 or 128: prefill
-//   chunks). Grid (slot, KV head, tile of 128 rows); see its section.
+//   chunks). Grid (split, KV head x tile of 128 rows, slot): the walk of
+//   each row tile split across blocks as in decode; see its section.
 // - paged_chunk_kernel (n_q > 8, f32 or D 32). Grid (slot, KV head,
 //   tile of 32 rows). Each warp holds 4 rows; the block stages one page's
 //   K and V for its KV head in shared memory (f32) and every warp reuses
@@ -363,56 +364,77 @@ __global__ void __launch_bounds__(kWarps * 32)
 // at the HBM rate): each K/V element serves 4 * 256 query rows. What the
 // design does about it: the products run on wgmma from the core of
 // attn_fwd_core.cuh, with P in registers, while producer warpgroups gather
-// the next pages; the page walk reads each page once per 128 rows.
+// the next pages; the walk is split across blocks so that a lone prefill
+// chunk fills the card.
 //
-// Grid (slot, KV head, tile of 128 query rows: two consumer warpgroups of
-// 64), rows in the (c, g) order above, K/V tiles of 64 keys. The
-// producers walk the key tiles [min_pos - window, max_pos] of the row
-// tile; a tile is published only if one of its pages is assigned and in
-// range, with a mask of the keys such pages hold (a -1 page or one outside
-// the range is never read: its keys are zero-filled and masked). bf16
-// pages are gathered by cp.async straight into the swizzled tile,
-// completing on the stage's mbarrier. int8 pages and their f32 block
-// scales arrive by cp.async in a staging buffer one tile ahead (each
-// producer thread reads back only its own copies, so no barrier among
-// them), are dequantized and rounded to bf16 exactly as kv_value does, and
-// stored into the swizzled tile; that work takes a second producer
-// warpgroup. The D 32 and f32 calls keep paged_chunk_kernel (wgmma needs
-// 16-element k-steps of a 64-element swizzle row; the f32 model checks
-// need f32 math).
+// - Grid (split, KV head x tile of 128 query rows, slot): a row tile is
+//   two consumer warpgroups of 64 rows, rows in the (c, g) order above.
+//   The keys the tile's rows may see, [min_pos - window + 1, max_pos] cut
+//   to the table, are T tiles of 64 keys from the first; split s of S
+//   walks tiles [s T / S, (s + 1) T / S) (ops/paged_attention.py
+//   chunk_split_keys is the plain twin). Splitting the visible keys, not
+//   the table columns as decode does, keeps the splits even where a
+//   window or the page bucket leaves most columns unseen. S comes from
+//   the launch shape alone (ops/paged_attention.py plan_chunk_splits: one
+//   wave of blocks), never from positions or tables, so a call needs no
+//   device read and can be captured in a graph. llama3-8b's prefill chunk
+//   (B 1, C 256) has 64 row tiles: 64 blocks left half the SMs idle.
+// - A tile is published only if it holds a key on an assigned page inside
+//   the split's range, with a mask of such keys (Meta::valid); no other
+//   key is read (its rows are zero-filled and masked). bf16 pages are
+//   gathered by cp.async straight into the swizzled tile, completing on
+//   the stage's mbarrier.
+// - int8 pages take two producer warpgroups with one role each. The copy
+//   warpgroup gathers a tile's payloads and f32 block scales by cp.async
+//   into one of kStgBufs staging buffers, up to kStgBufs tiles ahead,
+//   completing on the buffer's `landed` mbarrier
+//   (cp.async.mbarrier.arrive.noinc); the convert warpgroup waits there,
+//   dequantizes the buffer into a ring stage exactly as kv_value does (f32,
+//   rounded to bf16: dequant4) and releases it on its `freed` mbarrier.
+//   Each waits only on the other's barrier. When a scale block spans a
+//   whole number of 16-element chunks (blk % 16 == 0), a key row's scales
+//   for its KV head are copied once a row, not once a chunk, and a
+//   converter holds one scale a chunk.
+// - The mask (ChunkMask) is one key range [pos - window + 1, pos] a row
+//   ([0, pos] without a window), computed once, ANDed with the tile's key
+//   mask: two compares, a bit test and a select a score.
+// - With S > 1 each split writes its rows' partial (m, l, acc) in f32 to
+//   the caller's workspace; the last split block of a row tile to finish
+//   (an atomic counter after a __threadfence, reset by that block for the
+//   next call) merges the partials in split order 0 .. S - 1 and writes
+//   the output. So a row's result does not depend on which block finishes
+//   last: a call repeats bit for bit. With S == 1 the block writes its
+//   output directly.
+//
+// The D 32 and f32 calls keep paged_chunk_kernel (wgmma needs 16-element
+// k-steps of a 64-element swizzle row; the f32 model checks need f32
+// math).
 
 namespace ac = attn_core;
 
-constexpr int kTcRows = ac::kRows * ac::kConsumers;  // query rows a block
+constexpr int kTcRows = ac::kRows * ac::kConsumers;  // query rows a tile
 constexpr int kTcKeys = 64;                          // keys a K/V tile
+// int8 staging buffers (D 128: 32 KB each; three bring the block to 225 KB
+// of the 227 KB it can have)
+constexpr int kStgBufs = 3;
 
 template <bool INT8, int D>
 struct ChunkTc {
-  // producer warpgroups: the int8 dequant takes a second one
+  // producer warpgroups: int8 pages take a copy and a convert warpgroup
   static constexpr int kProducers = INT8 ? 2 : 1;
   static constexpr int kThreads = ac::block_threads(kProducers);
   // int8 staging, per buffer: K, V payloads [64 keys][D]; then K, V scale
-  // slots, 16 bytes for each 16-element chunk
+  // slots, [64 keys][D / 4] f32
   static constexpr int kStg = INT8 ? 4 * kTcKeys * D : 0;
-  using L = ac::Layout<D, kTcKeys, 2 * kStg>;
-};
-
-// What a consumer warp's rows see of a published tile.
-struct PagedMask {
-  int pos[2];      // this thread's two rows (-1: no such row)
-  int wmin, wmax;  // over this warp's 16 rows (an absent row: -1)
-  int window;
-  __device__ __forceinline__ bool whole(const ac::Meta& mt) const {
-    return mt.valid == ~0ull && wmin >= 0 &&
-           mt.k0 + kTcKeys - 1 <= wmin &&
-           (window == 0 || mt.k0 > wmax - window);
-  }
-  __device__ __forceinline__ bool allowed(const ac::Meta& mt, int i,
-                                          int col) const {
-    const int kpos = mt.k0 + col;
-    return ((mt.valid >> col) & 1) && kpos <= pos[i] &&
-           (window == 0 || kpos > pos[i] - window);
-  }
+  static constexpr int kBufs = INT8 ? kStgBufs : 0;
+  // after the staging buffers: the buffers' landed and freed barriers,
+  // their tile records (first key, key mask), the merge's flag
+  static constexpr int kCtl = kBufs * kStg;
+  static constexpr int landed = kCtl;
+  static constexpr int freed = kCtl + 32;
+  static constexpr int rec = kCtl + 64;
+  static constexpr int flag = kCtl + 128;
+  using L = ac::Layout<D, kTcKeys, kCtl + 144>;
 };
 
 __device__ __forceinline__ int warp_min(int v) {
@@ -427,6 +449,43 @@ __device__ __forceinline__ int warp_max(int v) {
     v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
+
+// What a consumer thread's rows see: keys [lo, hi] (hi < lo: none; a row
+// past the chunk sees none), ANDed with the tile's key mask. whole():
+// every row of this warp sees every key of the tile. tile(): the ranges
+// relative to this thread's first key k0 + 2t, and the mask from there.
+struct ChunkMask {
+  int lo[2], hi[2];
+  int wlo, whi;  // keys every row of this warp sees: [wlo, whi]
+  int t2;        // 2t
+  struct Tile {
+    int lo[2], hi[2];
+    uint64_t valid;
+  };
+  __device__ __forceinline__ void init(const int (&pos)[2], int window) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      hi[i] = pos[i];  // -1 for a row past the chunk
+      lo[i] = pos[i] < 0 ? 0 : window > 0 ? pos[i] - window + 1 : 0;
+    }
+    wlo = warp_max(max(lo[0], lo[1]));
+    whi = warp_min(min(hi[0], hi[1]));
+    t2 = 2 * (threadIdx.x & 3);
+  }
+  __device__ __forceinline__ bool whole(const ac::Meta& mt) const {
+    return mt.valid == ~0ull && mt.k0 >= wlo && mt.k0 + kTcKeys - 1 <= whi;
+  }
+  __device__ __forceinline__ Tile tile(const ac::Meta& mt) const {
+    const int k0 = mt.k0 + t2;
+    return {{lo[0] - k0, lo[1] - k0}, {hi[0] - k0, hi[1] - k0},
+            mt.valid >> t2};
+  }
+  __device__ __forceinline__ bool allowed(const Tile& tv, int i,
+                                          int c) const {
+    return (c >= tv.lo[i]) & (c <= tv.hi[i]) &
+           static_cast<bool>((tv.valid >> c) & 1);
+  }
+};
 
 // 4 int8 (one 32-bit word) times a scale, in f32: kv_value's arithmetic
 // for f32 compute. The int8 -> f32 conversion is exact and off the
@@ -448,24 +507,117 @@ __device__ __forceinline__ uint2 dequant4(uint32_t w, float s) {
   return make_uint2(ac::pack_bf16(f[0], f[1]), ac::pack_bf16(f[2], f[3]));
 }
 
-// The producer warpgroup of paged_chunk_wgmma_kernel. Each warp walks the
-// same tiles: lane l holds the table entries of keys l and l + 32 of a
-// tile (loaded a tile ahead), a ballot makes the tile's key mask, and a
+// The tile records the int8 copy warpgroup hands the convert warpgroup
+// with each staging buffer (k0 < 0 ends the walk).
+struct StgRec {
+  int k0;
+  int pad;
+  uint64_t mask;
+};
+
+// The producers of paged_chunk_wgmma_kernel. The copying warpgroup (the
+// only one for bf16 pages; warpgroup 0 for int8) walks the split's tiles,
+// each warp alike: lane l holds the table entries of keys l and l + 32 of
+// a tile (loaded a tile ahead), a ballot makes the tile's key mask, and a
 // thread copying a chunk of key k takes k's pool cell from lane k % 32 by
-// a shuffle, so the gather itself reads no table.
+// a shuffle, so the gather itself reads no table. For int8 pages
+// warpgroup 1 converts.
 template <bool INT8, int D>
 __device__ __forceinline__ void chunk_tc_producer(const Args& a,
                                                   uint32_t base, int b,
-                                                  int kh, int row0) {
-  using L = typename ChunkTc<INT8, D>::L;
-  constexpr int kStg = ChunkTc<INT8, D>::kStg;
-  constexpr int kProd = 128 * ChunkTc<INT8, D>::kProducers;  // threads
-  const int pt = threadIdx.x;  // 0 .. kProd - 1
+                                                  int kh, int row0,
+                                                  int split) {
+  using C = ChunkTc<INT8, D>;
+  using L = typename C::L;
+  const int wg = threadIdx.x / 128;
+  const int pt = threadIdx.x - 128 * wg;  // 0 .. 127
   const int lane = pt & 31;
+  auto stg = [&](int buf) { return base + L::extra + buf * C::kStg; };
+  auto landed = [&](int buf) { return base + L::extra + C::landed + 8 * buf; };
+  auto freed = [&](int buf) { return base + L::extra + C::freed + 8 * buf; };
+  auto rec = [&](int buf) {
+    return reinterpret_cast<volatile StgRec*>(
+        ac::smem_ptr(base + L::extra + C::rec + 16 * buf));
+  };
+  const int kpay = kTcKeys * D;  // bytes of a staged payload tile
+  const int row_elems = a.Hkv * D;
+  const int sb0 = kh * D / a.blk;  // the KV head's first scale block
+
+  if constexpr (INT8) {
+    if (wg == 1) {
+      // the convert warpgroup: each landed buffer, dequantized into the
+      // next ring stage (keys outside the mask as zeros), then freed
+      constexpr int kChunks = D / 16;  // 16-element chunks of a key row
+      constexpr int kPer = kTcKeys * kChunks / 128;  // chunks a thread
+      static_assert(128 % kChunks == 0, "one chunk column a thread");
+      const int c = pt % kChunks;  // every unit's chunk column
+      const bool one_scale = a.blk % 16 == 0;  // a chunk lies in one block
+      const int slot = (kh * D + c * 16) / a.blk - sb0;
+      ac::Ring ring;
+      for (int n = 0;; ++n) {
+        const int buf = n % kStgBufs;
+        ac::mbar_wait(landed(buf), (n / kStgBufs) & 1);
+        const int k0 = rec(buf)->k0;
+        const uint64_t m = rec(buf)->mask;
+        ac::wait_empty<L>(base, ring);
+        if (k0 < 0) {
+          if (pt == 0) ac::write_meta<L>(base, ring.stage, -1, 0);
+          ac::mbar_arrive(base + L::full + 8 * ring.stage);
+          return;
+        }
+        const uint32_t s0 = stg(buf);
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {
+          // per tensor, every load of the thread's chunks first, then the
+          // math; a scale a chunk (blk % 16 == 0), else one a 4-element
+          // group, read again below
+          uint4 w[kPer];
+          float x[kPer];
+#pragma unroll
+          for (int u = 0; u < kPer; ++u) {
+            const int key = (pt + 128 * u) / kChunks;
+            w[u] = *reinterpret_cast<const uint4*>(
+                ac::smem_ptr(s0 + kv * kpay + key * D + c * 16));
+            x[u] = *reinterpret_cast<const float*>(
+                ac::smem_ptr(s0 + (2 + kv) * kpay + key * D +
+                             (one_scale ? 4 * slot : c * 16)));
+          }
+          const uint32_t tile = kv ? L::v_tile(base, ring.stage)
+                                   : L::k_tile(base, ring.stage);
+#pragma unroll
+          for (int u = 0; u < kPer; ++u) {
+            const int key = (pt + 128 * u) / kChunks;
+            uint4 lo16 = make_uint4(0u, 0u, 0u, 0u), hi16 = lo16;
+            if ((m >> key) & 1) {
+              float4 sc = make_float4(x[u], x[u], x[u], x[u]);
+              if (!one_scale)
+                sc = *reinterpret_cast<const float4*>(ac::smem_ptr(
+                    s0 + (2 + kv) * kpay + key * D + c * 16));
+              const uint2 e0 = dequant4(w[u].x, sc.x);
+              const uint2 e1 = dequant4(w[u].y, sc.y);
+              const uint2 e2 = dequant4(w[u].z, sc.z);
+              const uint2 e3 = dequant4(w[u].w, sc.w);
+              lo16 = make_uint4(e0.x, e0.y, e1.x, e1.y);
+              hi16 = make_uint4(e2.x, e2.y, e3.x, e3.y);
+            }
+            *reinterpret_cast<uint4*>(
+                ac::smem_ptr(tile + ac::swz<kTcKeys>(key, 2 * c))) = lo16;
+            *reinterpret_cast<uint4*>(
+                ac::smem_ptr(tile + ac::swz<kTcKeys>(key, 2 * c + 1))) = hi16;
+          }
+        }
+        ac::fence_proxy_async();  // the generic-proxy stores, read by wgmma
+        if (pt == 0) ac::write_meta<L>(base, ring.stage, k0, m);
+        ac::mbar_arrive(base + L::full + 8 * ring.stage);
+        ac::mbar_arrive(freed(buf));
+        ring.advance();
+      }
+    }
+  }
+
   const int groups = a.H / a.Hkv;
   const int n_q = a.C * groups;
   const int* tab = a.tables + (size_t)b * a.tab_stride;
-
   // the row tile's positions
   int lo = INT_MAX, hi = INT_MIN;
   const int row_end = min(n_q, row0 + kTcRows);
@@ -476,62 +628,65 @@ __device__ __forceinline__ void chunk_tc_producer(const Args& a,
   }
   lo = warp_min(lo);
   hi = warp_max(hi);
-  const int n_keys = a.W * a.ps;
-  const int t_end = min(hi, n_keys - 1) / kTcKeys;
-  const int t_beg = a.window > 0 ? max(0, lo - a.window + 1) / kTcKeys : 0;
+  // the split's keys [kbeg, kend]: split s of S takes tiles [s T / S,
+  // (s + 1) T / S) of the T tiles of 64 keys that cover the keys some row
+  // of the tile may see, [lo - window + 1, hi] cut to the table
+  const int k_lo = a.window > 0 ? max(0, lo - a.window + 1) : 0;
+  const int k_hi = min(hi, a.W * a.ps - 1);
+  const int n_all = k_hi >= k_lo ? (k_hi - k_lo) / kTcKeys + 1 : 0;
+  const int t0 = split * n_all / a.splits;
+  const int n_tiles = (split + 1) * n_all / a.splits - t0;
+  const int kbeg = k_lo + t0 * kTcKeys;
+  const int kend = min(k_hi, kbeg + n_tiles * kTcKeys - 1);
 
   // the table entry of key kpos of the walk (-1 past it)
-  auto entry = [&](int kpos) {
-    return kpos / kTcKeys <= t_end && kpos < n_keys ? tab[kpos / a.ps]
-                                                      : -1;
-  };
-  // key kpos on page pg is read iff the page is assigned and some row of
-  // the tile may see a key of it (the old kernel's skip rule)
-  auto key_ok = [&](int kpos, int pg) {
-    const int first = kpos - kpos % a.ps;
-    bool ok = pg >= 0 && first <= hi;
-    if (a.window > 0) ok = ok && first + a.ps - 1 > lo - a.window;
-    return ok;
-  };
+  auto entry = [&](int kpos) { return kpos <= kend ? tab[kpos / a.ps] : -1; };
   // key k's pool cell, from the lane holding it
   auto cell_of = [&](int key, int cell_lo, int cell_hi) {
     const int x = __shfl_sync(0xffffffffu, cell_lo, key & 31);
     const int y = __shfl_sync(0xffffffffu, cell_hi, key & 31);
     return static_cast<size_t>(key < 32 ? x : y);
   };
-  // every live tile in order: f(t, mask, cell_lo, cell_hi)
+  // every live tile in order: f(k0, mask, cell_lo, cell_hi); a key is
+  // read iff its page is assigned and it lies in [kbeg, kend]
   auto walk = [&](auto&& f) {
-    int pg_lo = entry(t_beg * kTcKeys + lane);
-    int pg_hi = entry(t_beg * kTcKeys + 32 + lane);
-    for (int t = t_beg; t <= t_end; ++t) {
-      const int k_lo = t * kTcKeys + lane, k_hi = k_lo + 32;
+    int pg_lo = entry(kbeg + lane);
+    int pg_hi = entry(kbeg + 32 + lane);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int k0 = kbeg + t * kTcKeys;
+      const int k_lo = k0 + lane, k_hi = k_lo + 32;
       // the next tile's entries, in flight while this tile is copied
       const int nx_lo = entry(k_lo + kTcKeys);
       const int nx_hi = entry(k_hi + kTcKeys);
-      const uint32_t m0 = __ballot_sync(0xffffffffu, key_ok(k_lo, pg_lo));
-      const uint32_t m1 = __ballot_sync(0xffffffffu, key_ok(k_hi, pg_hi));
+      const uint32_t m0 = __ballot_sync(0xffffffffu, pg_lo >= 0);
+      const uint32_t m1 = __ballot_sync(0xffffffffu, pg_hi >= 0);
       const uint64_t mask = m0 | (static_cast<uint64_t>(m1) << 32);
       if (mask)
-        f(t, mask, pg_lo * a.ps + k_lo % a.ps, pg_hi * a.ps + k_hi % a.ps);
+        f(k0, mask, pg_lo * a.ps + k_lo % a.ps, pg_hi * a.ps + k_hi % a.ps);
       pg_lo = nx_lo;
       pg_hi = nx_hi;
     }
   };
-  auto publish = [&](ac::Ring& ring, int k0, uint64_t mask) {
-    if (pt == 0) ac::write_meta<L>(base, ring.stage, k0, mask);
-  };
 
-  ac::Ring ring;
   if constexpr (!INT8) {
+    ac::Ring ring;
     const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(a.k_pool);
     const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(a.v_pool);
     constexpr int kChunks = D / 8;  // 16-byte chunks of a key row
-    walk([&](int t, uint64_t mask, int cell_lo, int cell_hi) {
+    auto publish = [&](int k0, uint64_t mask) {
+      const uint32_t full = base + L::full + 8 * ring.stage;
+      if (pt == 0) {
+        ac::write_meta<L>(base, ring.stage, k0, mask);
+        ac::mbar_arrive(full);
+      }
+      ac::cp_async_arrive(full);
+    };
+    walk([&](int k0, uint64_t mask, int cell_lo, int cell_hi) {
       ac::wait_empty<L>(base, ring);
       const uint32_t kt = L::k_tile(base, ring.stage);
       const uint32_t vt = L::v_tile(base, ring.stage);
 #pragma unroll
-      for (int i = pt; i < kTcKeys * kChunks; i += kProd) {
+      for (int i = pt; i < kTcKeys * kChunks; i += 128) {
         const int key = i / kChunks, c = i % kChunks;
         const bool ok = (mask >> key) & 1;
         const size_t cell = cell_of(key, cell_lo, cell_hi);
@@ -539,158 +694,125 @@ __device__ __forceinline__ void chunk_tc_producer(const Args& a,
         ac::cp_async16(kt + ac::swz<kTcKeys>(key, c), kp + off, ok);
         ac::cp_async16(vt + ac::swz<kTcKeys>(key, c), vp + off, ok);
       }
-      const uint32_t full = base + L::full + 8 * ring.stage;
-      publish(ring, t * kTcKeys, mask);
-      if (pt == 0) ac::mbar_arrive(full);
-      ac::cp_async_arrive(full);
+      publish(k0, mask);
       ring.advance();
     });
     ac::wait_empty<L>(base, ring);
-    const uint32_t full = base + L::full + 8 * ring.stage;
-    publish(ring, -1, 0);
-    if (pt == 0) ac::mbar_arrive(full);
-    ac::cp_async_arrive(full);
+    publish(-1, 0);
   } else {
+    // the copy threads: tile n's payloads and scales into staging buffer
+    // n % kStgBufs once the convert threads have freed it
     const int8_t* kp = static_cast<const int8_t*>(a.k_pool);
     const int8_t* vp = static_cast<const int8_t*>(a.v_pool);
     constexpr int kChunks = D / 16;  // 16-element chunks of a key row
-    constexpr int kPay = kTcKeys * D;
-    const int row_elems = a.Hkv * D;
     const int nb = row_elems / a.blk;
-    const bool one_scale = a.blk % 16 == 0;  // a chunk lies in one block
-    auto stg = [&](int buf) { return base + L::extra + buf * kStg; };
-    // tile t's payloads and scales into staging buffer buf
-    auto issue = [&](uint64_t mask, int cell_lo, int cell_hi, int buf) {
+    const bool one_scale = a.blk % 16 == 0;
+    const int n_sc_kh = (kh * D + D - 1) / a.blk - sb0 + 1;
+    int n = 0;
+    auto take = [&]() {  // the next buffer, once freed
+      const int buf = n % kStgBufs;
+      if (n >= kStgBufs) ac::mbar_wait(freed(buf), (n / kStgBufs - 1) & 1);
+      return buf;
+    };
+    auto hand_over = [&](int buf, int k0, uint64_t mask) {
+      if (pt == 0) {
+        rec(buf)->k0 = k0;
+        rec(buf)->mask = mask;
+        ac::mbar_arrive(landed(buf));
+      }
+      ac::cp_async_arrive(landed(buf));
+      ++n;
+    };
+    walk([&](int k0, uint64_t mask, int cell_lo, int cell_hi) {
+      const int buf = take();
       const uint32_t s0 = stg(buf);
 #pragma unroll
-      for (int i = pt; i < kTcKeys * kChunks; i += kProd) {
+      for (int i = pt; i < kTcKeys * kChunks; i += 128) {
         const int key = i / kChunks, c = i % kChunks;
         const size_t cell = cell_of(key, cell_lo, cell_hi);
         if (!((mask >> key) & 1)) continue;
         const size_t off = cell * row_elems + kh * D + c * 16;
         ac::cp_async16(s0 + key * D + c * 16, kp + off, true);
-        ac::cp_async16(s0 + kPay + key * D + c * 16, vp + off, true);
-        const int d0 = kh * D + c * 16;
-        const uint32_t slot = s0 + 2 * kPay + i * 16;
-        for (int g = 0; g < (one_scale ? 1 : 4); ++g) {
-          const size_t si = cell * nb + (d0 + 4 * g) / a.blk;
-          ac::cp_async4(slot + 4 * g, a.k_scale + si);
-          ac::cp_async4(slot + kPay + 4 * g, a.v_scale + si);
-        }
-      }
-      ac::cp_async_commit();
-    };
-    // staging buffer buf, dequantized, into the stage's swizzled tiles:
-    // per tensor, every load of the thread's chunks first, then the math
-    auto convert = [&](uint64_t m, int buf, int stage) {
-      constexpr int kPer = kTcKeys * kChunks / kProd;  // chunks a thread
-      const uint32_t s0 = stg(buf);
+        ac::cp_async16(s0 + kpay + key * D + c * 16, vp + off, true);
+        if (!one_scale) {  // a scale a 4-element group
+          const uint32_t sa = s0 + 2 * kpay + key * D + c * 16;
 #pragma unroll
-      for (int kv = 0; kv < 2; ++kv) {
-        uint4 w[kPer];
-        float4 sc[kPer];
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int i = pt + kProd * u, key = i / kChunks, c = i % kChunks;
-          w[u] = *reinterpret_cast<const uint4*>(
-              ac::smem_ptr(s0 + kv * kPay + key * D + c * 16));
-          sc[u] = *reinterpret_cast<const float4*>(
-              ac::smem_ptr(s0 + (2 + kv) * kPay + i * 16));
-        }
-        const uint32_t tile = kv ? L::v_tile(base, stage)
-                                 : L::k_tile(base, stage);
-#pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int i = pt + kProd * u, key = i / kChunks, c = i % kChunks;
-          uint4 lo16 = make_uint4(0u, 0u, 0u, 0u), hi16 = lo16;
-          if ((m >> key) & 1) {
-            const float s1 = one_scale ? sc[u].x : sc[u].y;
-            const float s2 = one_scale ? sc[u].x : sc[u].z;
-            const float s3 = one_scale ? sc[u].x : sc[u].w;
-            const uint2 e0 = dequant4(w[u].x, sc[u].x);
-            const uint2 e1 = dequant4(w[u].y, s1);
-            const uint2 e2 = dequant4(w[u].z, s2);
-            const uint2 e3 = dequant4(w[u].w, s3);
-            lo16 = make_uint4(e0.x, e0.y, e1.x, e1.y);
-            hi16 = make_uint4(e2.x, e2.y, e3.x, e3.y);
+          for (int g = 0; g < 4; ++g) {
+            const size_t si = cell * nb + (kh * D + c * 16 + 4 * g) / a.blk;
+            ac::cp_async4(sa + 4 * g, a.k_scale + si);
+            ac::cp_async4(sa + kpay + 4 * g, a.v_scale + si);
           }
-          *reinterpret_cast<uint4*>(
-              ac::smem_ptr(tile + ac::swz<kTcKeys>(key, 2 * c))) = lo16;
-          *reinterpret_cast<uint4*>(
-              ac::smem_ptr(tile + ac::swz<kTcKeys>(key, 2 * c + 1))) = hi16;
         }
       }
-    };
-    // the previous live tile is converted while this one's copies fly
-    auto finish = [&](int t, uint64_t mask, int buf) {
-      ac::wait_empty<L>(base, ring);
-      convert(mask, buf, ring.stage);
-      ac::fence_proxy_async();
-      publish(ring, t * kTcKeys, mask);
-      ac::mbar_arrive(base + L::full + 8 * ring.stage);
-      ring.advance();
-    };
-    int prev = -1, buf = 0;
-    uint64_t prev_mask = 0;
-    walk([&](int t, uint64_t mask, int cell_lo, int cell_hi) {
-      issue(mask, cell_lo, cell_hi, buf);
-      if (prev >= 0) {
-        ac::cp_async_wait<1>();  // this thread's copies of tile prev
-        finish(prev, prev_mask, buf ^ 1);
+      if (one_scale) {  // a key row's scale blocks, once a row
+        for (int u = 0; u * 128 < kTcKeys * a.n_sc; ++u) {
+          const int i = pt + 128 * u;
+          const int key = min(i / a.n_sc, kTcKeys - 1), j = i % a.n_sc;
+          const size_t cell = cell_of(key, cell_lo, cell_hi);
+          if (i < kTcKeys * a.n_sc && j < n_sc_kh && ((mask >> key) & 1)) {
+            const size_t si = cell * nb + sb0 + j;
+            const uint32_t sa = s0 + 2 * kpay + key * D + 4 * j;
+            ac::cp_async4(sa, a.k_scale + si);
+            ac::cp_async4(sa + kpay, a.v_scale + si);
+          }
+        }
       }
-      prev = t;
-      prev_mask = mask;
-      buf ^= 1;
+      hand_over(buf, k0, mask);
     });
-    if (prev >= 0) {
-      ac::cp_async_wait<0>();
-      finish(prev, prev_mask, buf ^ 1);
-    }
-    ac::wait_empty<L>(base, ring);
-    publish(ring, -1, 0);
-    ac::mbar_arrive(base + L::full + 8 * ring.stage);
+    hand_over(take(), -1, 0);  // the end of the walk
   }
 }
 
 template <bool INT8, int D>
 __global__ void __launch_bounds__(ChunkTc<INT8, D>::kThreads, 1)
-    paged_chunk_wgmma_kernel(const Args a) {
-  using L = typename ChunkTc<INT8, D>::L;
-  constexpr int kProducers = ChunkTc<INT8, D>::kProducers;
+    paged_chunk_wgmma_kernel(const Args args) {
+  // a copy the lambdas below capture: capturing the kernel parameter
+  // itself takes its address and turns every field read into a load
+  const Args a = args;
+  using C = ChunkTc<INT8, D>;
+  using L = typename C::L;
+  constexpr int kProducers = C::kProducers;
   const uint32_t base = ac::smem_base();
-  // full: every int8 producer thread arrives; the bf16 producer's 128
+  if (INT8 && threadIdx.x == 0) {  // fenced and synced by init_barriers
+    for (int buf = 0; buf < kStgBufs; ++buf) {
+      // landed: the copy warpgroup's 128 cp.async arrivals and its
+      // thread 0's, which writes the record; freed: the 128 converters
+      ac::mbar_init(base + L::extra + C::landed + 8 * buf, 129);
+      ac::mbar_init(base + L::extra + C::freed + 8 * buf, 128);
+    }
+  }
+  // full: the int8 converters' 128 arrivals; the bf16 producer's 128
   // cp.async arrivals and thread 0's, which publishes the Meta
-  ac::init_barriers<L>(base, INT8 ? 128 * kProducers : 129);
+  ac::init_barriers<L>(base, INT8 ? 128 : 129);
   const int wg = threadIdx.x / 128;
-  const int b = blockIdx.x, kh = blockIdx.y;
+  const int split = blockIdx.x;
+  const int kh = blockIdx.y % a.Hkv;
+  const int row0 = (blockIdx.y / a.Hkv) * kTcRows;
+  const int b = blockIdx.z;
   const int groups = a.H / a.Hkv;
   const int n_q = a.C * groups;
-  const int row0 = blockIdx.z * kTcRows;
   // registers: the block starts with 65536 / threads a thread (168 at
   // 384 threads, 128 at 512); what the producers give up, the consumers
   // take: 128 * 56 + 256 * 224 = 384 * 168, 256 * 56 + 256 * 200 = 512 * 128
   if (wg < kProducers) {
     ac::setmaxnreg_dec<56>();
-    chunk_tc_producer<INT8, D>(a, base, b, kh, row0);
+    chunk_tc_producer<INT8, D>(a, base, b, kh, row0, split);
     return;
   }
   ac::setmaxnreg_inc<kProducers == 1 ? 224 : 200>();
   const int ct = threadIdx.x - 128 * wg;
-  const int warp = ct / 32, lane = ct % 32, g = lane >> 2;
+  const int warp = ct / 32, lane = ct % 32, g = lane >> 2, t = lane & 3;
   const int cw = wg - kProducers;  // consumer warpgroup 0 or 1
   const int wr0 = row0 + cw * ac::kRows;
-  PagedMask pol;
-  pol.window = a.window;
-  int rows[2];
+  int rows[2], pos[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     rows[i] = wr0 + warp * 16 + g + 8 * i;
-    pol.pos[i] = rows[i] < n_q
-                     ? a.positions[(size_t)b * a.C + rows[i] / groups]
-                     : -1;
+    pos[i] = rows[i] < n_q ? a.positions[(size_t)b * a.C + rows[i] / groups]
+                           : -1;
   }
-  pol.wmin = warp_min(min(pol.pos[0], pol.pos[1]));
-  pol.wmax = warp_max(max(pol.pos[0], pol.pos[1]));
+  ChunkMask pol;
+  pol.init(pos, a.window);
   const uint32_t q_tile = base + L::q + cw * L::kQTile;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(a.q);
   ac::load_q<D>(q_tile, ct, [&](int r) -> const __nv_bfloat16* {
@@ -700,7 +822,72 @@ __global__ void __launch_bounds__(ChunkTc<INT8, D>::kThreads, 1)
                 row % groups) * D;
   }, 1 + cw);
   ac::State<D> st;
-  ac::consume<D, L>(base, q_tile, pol, a.scale * ac::kLog2e, st);
+  const float scale_log2 = a.scale * ac::kLog2e;
+  ac::consume<D, L>(base, q_tile, pol, scale_log2, st);
+
+  if (a.splits > 1) {
+    // this split's partial (m, l, acc) of the tile's 128 rows: acc
+    // [splits][128][D], then (m, l) [splits][128][2], f32, by row tile
+    const int S = a.splits;
+    const size_t n_bk = (size_t)gridDim.y * gridDim.z;
+    const size_t bk = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+    float* p_acc = a.part + bk * S * kTcRows * D;
+    float* p_ml = a.part + n_bk * S * kTcRows * D + bk * S * kTcRows * 2;
+    int r[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      r[i] = cw * ac::kRows + warp * 16 + g + 8 * i;
+      float* dst = p_acc + ((size_t)split * kTcRows + r[i]) * D + 2 * t;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        *reinterpret_cast<float2*>(dst + nt * 8) =
+            make_float2(st.o[nt * 4 + 2 * i], st.o[nt * 4 + 2 * i + 1]);
+      if (t == 0)
+        *reinterpret_cast<float2*>(p_ml + ((size_t)split * kTcRows + r[i]) *
+                                              2) =
+            make_float2(st.m[i], st.l[i]);
+    }
+    __threadfence();
+    ac::named_sync(3, 128 * ac::kConsumers);
+    volatile int* last = reinterpret_cast<volatile int*>(
+        ac::smem_ptr(base + L::extra + C::flag));
+    if (cw == 0 && ct == 0) {
+      const int done = atomicAdd(a.counters + bk, 1);
+      *last = done == S - 1;
+      if (done == S - 1) a.counters[bk] = 0;  // ready for the next call
+    }
+    ac::named_sync(3, 128 * ac::kConsumers);
+    if (!*last) return;
+    __threadfence();
+    // the merge, in split order: m the largest partial m, each split's
+    // factor 2^((m_s - m) * scale * log2(e)), l and acc summed
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float m = ac::kNegInf;
+      for (int s = 0; s < S; ++s)
+        m = fmaxf(m, __ldcg(p_ml + ((size_t)s * kTcRows + r[i]) * 2));
+      float l = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt)
+        st.o[nt * 4 + 2 * i] = st.o[nt * 4 + 2 * i + 1] = 0.f;
+      for (int s = 0; s < S; ++s) {
+        const float2 ml = __ldcg(reinterpret_cast<const float2*>(
+            p_ml + ((size_t)s * kTcRows + r[i]) * 2));
+        const float f = ac::ex2((ml.x - m) * scale_log2);
+        l += ml.y * f;
+        const float* src = p_acc + ((size_t)s * kTcRows + r[i]) * D + 2 * t;
+#pragma unroll
+        for (int nt = 0; nt < D / 8; ++nt) {
+          const float2 x =
+              __ldcg(reinterpret_cast<const float2*>(src + nt * 8));
+          st.o[nt * 4 + 2 * i] += x.x * f;
+          st.o[nt * 4 + 2 * i + 1] += x.y * f;
+        }
+      }
+      st.m[i] = m;
+      st.l[i] = l;
+    }
+  }
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(a.out);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -1415,8 +1602,8 @@ cudaError_t launch_chunk_tc(const Args& a, int B, int n_q,
   static int opted[64] = {};
   const cudaError_t err = opt_in_smem(kernel, L::alloc, opted);
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(B, a.Hkv, (n_q + kTcRows - 1) / kTcRows),
-           ChunkTc<INT8, D>::kThreads,
+  const int tiles = (n_q + kTcRows - 1) / kTcRows;
+  kernel<<<dim3(a.splits, a.Hkv * tiles, B), ChunkTc<INT8, D>::kThreads,
            L::alloc, stream>>>(a);
   return cudaGetLastError();
 }
@@ -1487,11 +1674,11 @@ extern "C" {
 // int8: 1 when the pools are int8 payloads with f32 block scales, whose
 // block width blk must be a multiple of 4. q, out, the pools and the
 // extra rows are 16-byte aligned (vector loads); tables and positions
-// 4-byte. Kernels 0 and 2 split each row tile's walk over `splits`
+// 4-byte. Kernels 0, 2 and 3 split each row tile's walk over `splits`
 // blocks (1 <= splits <= min(max(W, 1), 64)); with splits > 1 they take the
 // caller's workspace: `part`, f32, B * Hkv * tiles * splits * R * (D + 2)
-// values (R = 8 rows a tile for kernel 0, 32 for kernel 2; tiles =
-// ceil(C * H / Hkv / R)), and `counters`, B * Hkv * tiles
+// values (R = 8 rows a tile for kernel 0, 32 for kernel 2, 128 for kernel
+// 3; tiles = ceil(C * H / Hkv / R)), and `counters`, B * Hkv * tiles
 // ints, zero before the first call and left zero by every call. Calls
 // sharing a workspace must run in order (one stream). Returns a
 // cudaError_t (0 = launched).
@@ -1504,7 +1691,7 @@ int dlrover_paged_attention(const void* q, void* out, const void* k_pool,
                             int blk, int window, float scale, int dtype,
                             int int8, int kernel, void* stream, void* part,
                             void* counters, int splits) {
-  const bool split_kernel = kernel == 0 || kernel == 2;
+  const bool split_kernel = kernel == 0 || kernel == 2 || kernel == 3;
   if (B <= 0 || C <= 0 || Hkv <= 0 || H % Hkv || ps <= 0 || ps > 32 ||
       W < (kernel == 2 ? 0 : 1) || W > tab_stride ||
       (int8 && (blk <= 0 || blk % 4 || (Hkv * D) % blk)) ||

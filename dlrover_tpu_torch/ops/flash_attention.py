@@ -9,7 +9,8 @@ Port of ``dlrover_tpu/ops/pallas_attention.py``:
   the forward ``flash_fwd_wgmma_kernel`` and the backward
   ``flash_bwd_dq_wgmma_kernel`` and ``flash_bwd_dkv_wgmma_kernel``, all
   on wgmma from TMA-fed shared-memory rings (the primitives of
-  ``csrc/attn_fwd_core.cuh``); in f32 ``flash_fwd_kernel``,
+  ``csrc/attn_fwd_core.cuh``; the forward persistent, one body with the
+  packed forward's); in f32 ``flash_fwd_kernel``,
   ``flash_bwd_dq_kernel`` and ``flash_bwd_dkv_kernel`` (mma.sync tiles
   through f32 FMAs). With two heads of 64 packed per block
   (``head_pack``, auto for every MHA model of head_dim 64) they launch
@@ -175,6 +176,34 @@ def dkv_q_range(sq, sk, causal, window, prefix=None):
     return lo, hi
 
 
+def fwd_items(b, sq, h, hkv, pack=1):
+    """The work items of the persistent bf16 forward kernels, ``(batch
+    element, first head, first q row)``, in the order their blocks take
+    them (``fwd_item`` in ``csrc/flash_attention.cu``): at ``pack`` 1
+    (``flash_fwd_wgmma_kernel``) tiles of 128 q rows by batch element, KV
+    head, q tile from the last, then the query heads of the KV head's
+    group side by side; at ``pack`` 2 (``flash_fwd_packed_wgmma_kernel``)
+    tiles of 64 rows by batch element, pack of two heads, q tile from the
+    last. The causal items that do the most work come first, and the
+    blocks at work at once read few heads' K/V."""
+    rows = 128 // pack
+    n_qt = -(-sq // rows)
+    items = []
+    if pack == 1:
+        groups = h // hkv
+        for bi in range(b):
+            for kh in range(hkv):
+                for qt in reversed(range(n_qt)):
+                    items += [(bi, kh * groups + g, qt * rows)
+                              for g in range(groups)]
+    else:
+        for bi in range(b):
+            for p in range(-(-h // 2)):
+                items += [(bi, 2 * p, qt * rows)
+                          for qt in reversed(range(n_qt))]
+    return items
+
+
 def _grouped(x, hkv):
     """``[B, S, H, D]`` → ``[B, Hkv, G, S, D]`` f32 (query heads grouped by
     the KV head they share)."""
@@ -332,9 +361,10 @@ def flash_fwd_cuda(q, k, v, *, causal, scale, window, prefix=None, pack=1):
     ``flash_fwd_packed_wgmma_kernel`` (bf16) or ``flash_fwd_packed_kernel``
     (f32), two heads of 64 per block, MHA, any head count;
     ``fwd_cuda_kernel`` picks. ``prefix``: ``[B]`` int32 on the device, or
-    None. ``flash_fwd_packed_wgmma_kernel`` is persistent and takes its
-    work from a counter in device memory that each launch resets at its
-    end, so its launches must not run on two streams at once."""
+    None. Both bf16 kernels are persistent: each takes its work items
+    (``fwd_items``) from its own counter in device memory, which each
+    launch resets at its end, so their launches must not run on two
+    streams at once."""
     b, sq, sk, h, hkv, d = _geometry(q, k, v, pack, prefix)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

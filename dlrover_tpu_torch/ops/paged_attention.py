@@ -18,13 +18,16 @@ Port of ``dlrover_tpu/ops/pallas_paged.py``:
   do. Each matches the plain version to a stated bound, not bitwise.
 - ``write_page_rows`` / ``gather_pages`` — the page-level tensor ops the
   decoder and the reference share.
-- ``plan_splits`` / ``split_columns`` — how the decode and verify kernel
-  (``paged_decode_split_kernel``) splits each (slot, KV head)'s page walk
-  across blocks: from the launch shape and the SM count only, so a call
-  needs no device read. Each split's partial (m, l, acc) goes to a
-  per-device workspace the wrapper keeps (``_workspace``); the last split
-  to finish merges them in split order, so the output is the same on
-  every call and, up to f32 rounding, for any split count.
+- ``plan_splits`` / ``plan_chunk_splits`` / ``split_columns`` /
+  ``chunk_split_keys`` — how the decode and verify kernel
+  (``paged_decode_split_kernel``: contiguous table columns) and the
+  tensor-core chunk kernel (``paged_chunk_wgmma_kernel``: contiguous
+  tiles of the keys its rows may see) split each row tile's page walk
+  across blocks: how many splits, from the launch shape and the SM count
+  only, so a call needs no device read. Each split's partial (m, l, acc)
+  goes to a per-device workspace the wrapper keeps (``_workspace``); the
+  last split to finish merges them in split order, so the output is the
+  same on every call and, up to f32 rounding, for any split count.
 
 ``verify`` is the speculative-decoding verify step: the C queries are a
 draft chunk whose K/V rows (``extra_k``/``extra_v`` ``[B, C, Hkv, D]``,
@@ -72,15 +75,20 @@ _HEAD_DIMS = (32, 64, 128)
 _MAX_PAGE_SIZE = 32
 _DECODE_KERNEL_MAX_ROWS = 8  # decode calls of more rows are chunk-shaped
 _WGMMA_HEAD_DIMS = (64, 128)  # paged_chunk_wgmma_kernel's
-# paged_decode_split_kernel: query rows of a row tile (decode, verify) and
-# keys of a stage (split_rows, kSplitKeys in csrc/paged_attention.cu)
-SPLIT_ROWS = {"decode": 8, "verify": 32}
+# query rows of a row tile (split_rows, kTcRows in
+# csrc/paged_attention.cu): decode and verify's paged_decode_split_kernel,
+# the chunk's paged_chunk_wgmma_kernel; keys of a split kernel's stage
+# (kSplitKeys) and of a chunk kernel's tile (kTcKeys)
+SPLIT_ROWS = {"decode": 8, "verify": 32, "chunk": 128}
 SPLIT_KEYS = 32
+CHUNK_KEYS = 64
 # the split planner: blocks an SM it aims for, and the fewest stages of
 # keys a split takes (each split's partial state costs a write and a read)
 _SPLIT_BLOCKS_PER_SM = 8
 _SPLIT_MIN_STAGES = 2
 _SPLIT_MAX = 64  # the kernel's merge takes at most 64 splits
+# the chunk planner: the fewest key tiles a split takes
+_CHUNK_MIN_TILES = 4
 
 
 def reset_launches() -> None:
@@ -128,6 +136,56 @@ def plan_splits(b: int, hkv: int, row_tiles: int, w: int, ps: int,
     want = -(-_SPLIT_BLOCKS_PER_SM * n_sm // (b * hkv * row_tiles))
     most = max(1, w * ps // (_SPLIT_MIN_STAGES * SPLIT_KEYS))
     return max(1, min(want, most, w, _SPLIT_MAX))
+
+
+def plan_chunk_splits(b: int, hkv: int, row_tiles: int, w: int, ps: int,
+                      n_sm: int) -> int:
+    """How many blocks share each row tile's page walk in
+    ``paged_chunk_wgmma_kernel``. A block of that kernel takes a whole SM
+    (its registers), so blocks beyond the SM count wait for a second wave
+    and the walk is only as short as a wave allows: the splits fill one
+    wave, ``S = n_sm // (b · hkv · row_tiles)`` (fewer SMs idle than
+    there are row tiles), each split at least ``_CHUNK_MIN_TILES``
+    tiles of ``CHUNK_KEYS`` keys and one table column, 64 at most. Like
+    ``plan_splits`` it reads only the launch shape, so the same call
+    always splits the same way. Returns S with 1 <= S <= max(w, 1)."""
+    if w <= 1:
+        return 1
+    fill = n_sm // (b * hkv * row_tiles)
+    most = max(1, w * ps // (_CHUNK_MIN_TILES * CHUNK_KEYS))
+    return max(1, min(fill, most, w, _SPLIT_MAX))
+
+
+def call_splits(kernel: str, cuda: str, b: int, c: int, h: int, hkv: int,
+                w: int, ps: int, n_sm: int) -> int:
+    """The split count a call launches with: ``kernel`` is
+    ``kernel_for``'s answer, ``cuda`` ``cuda_kernel``'s. The split kernels
+    (decode, verify) plan by ``plan_splits``, the tensor-core chunk kernel
+    by ``plan_chunk_splits``, over the row tiles of ``SPLIT_ROWS`` rows;
+    the CUDA-core chunk kernel never splits."""
+    if cuda == "paged_chunk_kernel":
+        return 1
+    tiles = -(-c * (h // hkv) // SPLIT_ROWS[kernel])
+    plan = plan_chunk_splits if kernel == "chunk" else plan_splits
+    return plan(b, hkv, tiles, w, ps, n_sm)
+
+
+def chunk_split_keys(lo: int, hi: int, window: int, w: int, ps: int,
+                     splits: int):
+    """The keys ``[kbeg, kend]`` each split of ``paged_chunk_wgmma_kernel``
+    walks for a row tile whose positions span ``[lo, hi]``, in split order
+    (empty: ``kend < kbeg``). The keys some row may see, ``[lo - window +
+    1, hi]`` cut to the table's ``w · ps``, are T tiles of ``CHUNK_KEYS``
+    from the first; split s takes tiles ``[s·T // S, (s+1)·T // S)``."""
+    k_lo = max(0, lo - window + 1) if window else 0
+    k_hi = min(hi, w * ps - 1)
+    n_all = (k_hi - k_lo) // CHUNK_KEYS + 1 if k_hi >= k_lo else 0
+    keys = []
+    for s in range(splits):
+        t0, t1 = s * n_all // splits, (s + 1) * n_all // splits
+        kbeg = k_lo + t0 * CHUNK_KEYS
+        keys.append((kbeg, min(k_hi, kbeg + (t1 - t0) * CHUNK_KEYS - 1)))
+    return keys
 
 
 def split_columns(w: int, splits: int):
@@ -440,23 +498,22 @@ def _paged_call(q, pools, block_tables, positions, *, scale, window,
         ks_ptr = pools["k_scale"].data_ptr()
         vs_ptr = pools["v_scale"].data_ptr()
     kernel = kernel_for(c, h, hkv, variant)
+    cuda = cuda_kernel(kernel, q.dtype, d)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    splits, part_ptr, cnt_ptr = 1, None, None
-    if kernel != "chunk":
+    part_ptr, cnt_ptr = None, None
+    splits = call_splits(kernel, cuda, b, c, h, hkv, w, ps, _sm_count(dev))
+    if splits > 1:
         rows = SPLIT_ROWS[kernel]
-        tiles = -(-c * (h // hkv) // rows)
-        splits = plan_splits(b, hkv, tiles, w, ps, _sm_count(dev))
-        if splits > 1:
-            n_tiles = b * hkv * tiles
-            part, counters = _workspace(
-                dev, n_tiles * splits * rows * (d + 2), n_tiles)
-            part_ptr, cnt_ptr = part.data_ptr(), counters.data_ptr()
+        n_tiles = b * hkv * -(-c * (h // hkv) // rows)
+        part, counters = _workspace(
+            dev, n_tiles * splits * rows * (d + 2), n_tiles)
+        part_ptr, cnt_ptr = part.data_ptr(), counters.data_ptr()
     err = _kernel()(
         q.data_ptr(), out.data_ptr(), k_ptr, v_ptr, ks_ptr, vs_ptr,
         tables.data_ptr(), pos.data_ptr(), ek_ptr, ev_ptr,
         b, c, h, hkv, d, ps, w, w_full, blk, int(window), float(scale),
-        _DTYPE_CODE[q.dtype], int(mode == "int8"),
-        CUDA_KERNEL_IDS[cuda_kernel(kernel, q.dtype, d)], stream,
+        _DTYPE_CODE[q.dtype], int(mode == "int8"), CUDA_KERNEL_IDS[cuda],
+        stream,
         part_ptr, cnt_ptr, splits,
     )
     if err != 0:

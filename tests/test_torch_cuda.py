@@ -961,12 +961,26 @@ def test_chunk_kernel_on_the_tensor_cores(dev, mode, d, starts, c, held,
     assert over == 0, (err, ratio)
     assert torch.all(out[~active] == 0)  # a free slot: exact zeros
     assert torch.isfinite(out.float()).all()
-    # a one-slot row view of a table whose width is not a multiple of 4
+    # a one-slot row view of a table whose width is not a multiple of 4:
+    # equal to the batch call's slot bit for bit where both split the walk
+    # alike (the split count follows the launch shape), else under the
+    # bound as well
     wide = torch.cat([tab, torch.full_like(tab[:, :1], -1)], 1)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = -(-c * 4 // pa.SPLIT_ROWS["chunk"])
+    split_b = pa.plan_chunk_splits(len(starts), 2, tiles, tab.shape[1], ps,
+                                   sms)
     for i in range(len(starts)):
         one = pa.paged_attention(q[i:i + 1], pools, wide[i:i + 1],
                                  pos[i:i + 1], **kw)
-        assert torch.equal(one, out[i:i + 1])
+        if pa.plan_chunk_splits(1, 2, tiles, wide.shape[1], ps,
+                                sms) == split_b:
+            assert torch.equal(one, out[i:i + 1])
+        if bool(active[i]):
+            assert chip_smoke._held(one, ref[i:i + 1], active[i:i + 1],
+                                    bound[i:i + 1])[1] == 0
+        else:
+            assert torch.all(one == 0)
 
 
 _TC_FLASH_CASES = [
@@ -1103,3 +1117,84 @@ def test_prefill_step_on_card_matches_cpu(dev):
                                    "verify": 0}
     valid = torch.arange(48)[None, :] < clen[:, None]
     _normwise(got["cuda"][valid], got["cpu"][valid], 2.0 ** -5)
+
+
+# ---------------------------------------------------------------------------
+# the persistent one-head forward and the split chunk walk
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,window,prefix", [
+    (8, 1024, 16, 16, 128, 0, None),     # llama-1.4b's attention
+    (2, 1001, 16, 4, 128, 0, None),      # GQA, ragged S
+    (2, 1000, 8, 2, 64, 257, None),      # D 64, a window
+    (3, 400, 4, 2, 128, 0, (0, 150, 500))])
+def test_flash_fwd_repeats_bit_for_bit(dev, b, s, h, hkv, d, window, prefix):
+    """K1 (persistent, items from its own counter) gives the same out and
+    lse bit for bit on every call, whichever block takes which item."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_case(dev, torch.bfloat16, b, s, h, hkv, d, 9)
+    pref = (None if prefix is None
+            else torch.tensor(prefix, dtype=torch.int32, device=dev))
+    kw = dict(causal=True, scale=d ** -0.5, window=window, prefix=pref)
+    first = fa.flash_fwd_cuda(q, k, v, **kw)
+    for _ in range(3):
+        again = fa.flash_fwd_cuda(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(again[0], first[0])
+        assert torch.equal(again[1], first[1])
+    assert bool(torch.isfinite(first[0].float()).all())
+
+
+def test_flash_fwd_k1_and_k1p_alternate_on_one_stream(dev):
+    """K1 and K1p are both persistent, each with its own item counter that
+    its last block resets: launched alternately 20 times on one stream,
+    each result equals its first bit for bit (a counter left dirty by
+    either kernel would skip or repeat items of the next launch)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    one = _flash_case(dev, torch.bfloat16, 2, 1024, 16, 16, 128, 3)[:3]
+    two = _flash_case(dev, torch.bfloat16, 2, 1024, 25, 25, 64, 4)[:3]
+    kw = dict(causal=True, window=0)
+    fa.reset_launches()
+    first = (fa.flash_fwd_cuda(*one, scale=128 ** -0.5, **kw),
+             fa.flash_fwd_cuda(*two, scale=64 ** -0.5, pack=2, **kw))
+    for _ in range(20):
+        a = fa.flash_fwd_cuda(*one, scale=128 ** -0.5, **kw)
+        p = fa.flash_fwd_cuda(*two, scale=64 ** -0.5, pack=2, **kw)
+        torch.cuda.synchronize()
+        for got, want in ((a, first[0]), (p, first[1])):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(got[1], want[1])
+    assert fa.LAUNCHES["flash_fwd"] == fa.LAUNCHES["flash_fwd_packed"] == 21
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("c", [200, 256, 512])
+def test_chunk_at_every_planned_split(dev, mode, b, c):
+    """The tensor-core chunk kernel at the split count the planner gives
+    each shape (B 1, 2, 8 x C 200, 256, 512 at 2 KV heads of 4 query heads:
+    1 to 8 splits), under chunk_bound, a repeated call equal bit for bit,
+    and a planted fault (slot 0's middle held page dropped) caught."""
+    starts = [1536 - 300 * (i % 4) for i in range(b)]
+    held = [s_ + c for s_ in starts]
+    q, pools, tab, pos, active = _chunk_tc_case(dev, mode, 128, starts, c,
+                                                held, seed=b + c)
+    kw = dict(scale=128 ** -0.5, window=0, kv_heads=2, variant="chunk")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = -(-c * 4 // pa.SPLIT_ROWS["chunk"])
+    splits = pa.plan_chunk_splits(b, 2, tiles, tab.shape[1], 16, sms)
+    out = pa.paged_attention(q, pools, tab, pos, **kw)
+    again = pa.paged_attention(q, pools, tab, pos, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)
+    ref, bound = chip_smoke.chunk_bound(q, _read_f32(pools, 2, 128), tab,
+                                        pos, **kw)
+    err, over, ratio = chip_smoke._held(out, ref, active, bound)
+    assert over == 0, (splits, err, ratio)
+    bad_tab = tab.clone()
+    bad_tab[0, int((tab[0] >= 0).sum()) // 2] = -1
+    bad = pa.paged_attention(q, pools, bad_tab, pos, **kw)
+    assert chip_smoke._held(bad, ref, active, bound)[1] > 0, splits

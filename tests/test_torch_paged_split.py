@@ -253,3 +253,115 @@ def test_the_wrapper_splits_by_shape_alone(monkeypatch, variant):
         assert (args[25] is None) == (args[27] == 1)
     assert seen == {pa.plan_splits(3, 2, 1, w, _PS, 132)}
     pa.reset_launches()
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core chunk kernel's split walk (paged_chunk_wgmma_kernel)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("b,hkv,tiles,w,ps,n_sm", [
+    (1, 8, 8, 128, 16, 132), (1, 8, 7, 128, 16, 132), (2, 8, 8, 128, 16, 132),
+    (8, 8, 8, 128, 16, 132), (1, 8, 16, 128, 16, 132), (1, 2, 1, 4, 16, 132),
+    (1, 2, 1, 1, 16, 132), (1, 2, 1, 0, 16, 132), (3, 2, 2, 12, 8, 132),
+    (1, 1, 1, 512, 32, 132), (1, 8, 8, 64, 32, 16), (4, 2, 1, 200, 1, 132)])
+def test_plan_chunk_splits_bounds(b, hkv, tiles, w, ps, n_sm):
+    s = pa.plan_chunk_splits(b, hkv, tiles, w, ps, n_sm)
+    assert 1 <= s <= min(max(w, 1), 64)
+    # shape-only and deterministic: the same call, the same answer
+    assert s == pa.plan_chunk_splits(b, hkv, tiles, w, ps, n_sm)
+    # every split holds at least four tiles of 64 keys where the walk
+    # allows; the blocks fit one wave, one an SM
+    assert s == 1 or w * ps // s >= 4 * pa.CHUNK_KEYS
+    assert s == 1 or b * hkv * tiles * s <= n_sm
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("c", [200, 256, 512])
+def test_llama3_8b_prefill_chunks_fill_the_card(b, c):
+    """llama3-8b (8 KV heads, 4 query heads each, pages of 16, a 128-column
+    walk): every prefill chunk shape the engine runs fills one wave of an
+    H100's 132 SMs, short of it by less than one split's row tiles; the
+    timed one (B 1, C 256: 64 row tiles, half the SMs) splits each walk
+    in two (128 blocks)."""
+    tiles = b * 8 * -(-c * 4 // pa.SPLIT_ROWS["chunk"])
+    s = pa.plan_chunk_splits(b, 8, tiles // (b * 8), 128, 16, 132)
+    assert tiles * s <= max(132, tiles)
+    assert tiles * (s + 1) > 132
+    if (b, c) == (1, 256):
+        assert (tiles, s) == (64, 2)
+
+
+def _chunk_call(seed=0, c=37):
+    """A bf16 chunk of head_dim 64 (the tensor-core kernel's) over three
+    slots, the middle one free."""
+    rng = np.random.default_rng(seed)
+    cfg = get_config("tiny", n_layer=1, d_model=256, n_head=4, n_kv_head=2,
+                     dtype="bfloat16")
+    geom = kvc.make_geometry(cfg, n_slots=3, max_len=512, page_size=16,
+                             mode="int8")
+    pools = kvc.layer_pools(kvc.init_pools(geom, "cpu"), 0)
+    tab = torch.full((3, geom.max_pages_per_slot), -1, dtype=torch.int32)
+    perm = rng.permutation(np.arange(1, geom.n_pages))
+    tab[0, :25] = torch.as_tensor(perm[:25])
+    tab[2, :3] = torch.as_tensor(perm[25:28])
+    start = torch.as_tensor([[360], [0], [0]], dtype=torch.int32)
+    pos = start + torch.arange(c, dtype=torch.int32)
+    q = torch.zeros((3, c, 4, 64), dtype=torch.bfloat16)
+    return q, pools, tab, pos
+
+
+def test_the_wrapper_splits_the_chunk_by_shape_alone(monkeypatch):
+    """The tensor-core chunk kernel gets the split count of
+    ``plan_chunk_splits`` and the workspace for it, whatever the
+    positions and table contents; the CUDA-core chunk kernel (D 32, f32)
+    never splits."""
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(pa, "_sm_count", lambda dev: 132)
+    rec = _Recorder()
+    monkeypatch.setattr(pa, "_kernel", lambda: rec)
+    q, pools, tab, pos = _chunk_call()
+    w = tab.shape[1]
+    want = pa.plan_chunk_splits(3, 2, 1, w, 16, 132)
+    assert want > 1
+    rng = np.random.default_rng(5)
+    for trial in range(3):
+        t = tab if trial == 0 else torch.from_numpy(
+            rng.permutation(tab.numpy().ravel()).reshape(tab.shape))
+        p = pos if trial == 0 else (pos + 7 * trial) % 300
+        pa._paged_call(q, pools, t, p, scale=0.125, window=0, kv_heads=2,
+                       max_pages=None, variant="chunk")
+        args = rec.calls[-1]
+        assert args[23] == pa.CUDA_KERNEL_IDS["paged_chunk_wgmma_kernel"]
+        assert args[27] == want and args[25] is not None
+    ws = pa._workspaces["cpu"]
+    assert ws["part"].numel() >= 3 * 2 * 1 * want * 128 * (64 + 2)
+    # f32: the CUDA-core chunk kernel, one launch a row tile, no split
+    pa._paged_call(q.float(), pools, tab, pos, scale=0.125, window=0,
+                   kv_heads=2, max_pages=None, variant="chunk")
+    assert rec.calls[-1][23] == pa.CUDA_KERNEL_IDS["paged_chunk_kernel"]
+    assert rec.calls[-1][27] == 1 and rec.calls[-1][25] is None
+    pa.reset_launches()
+
+
+@pytest.mark.parametrize("lo,hi,window", [
+    (1536, 1791, 0), (1536, 1791, 512), (0, 36, 0), (0, 0, 0), (310, 346, 300),
+    (700, 799, 5), (5, 3000, 0)])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 64])
+def test_chunk_split_keys_cover_the_visible_keys_once(lo, hi, window,
+                                                      splits):
+    """The chunk kernel's splits walk the keys a row tile may see, [lo -
+    window + 1, hi] cut to a 128-column table of pages of 16, each key
+    once and in order, in whole tiles of 64 keys but the last; the
+    splits' tile counts differ by at most one (an empty split: none)."""
+    w, ps = 128, 16
+    keys = pa.chunk_split_keys(lo, hi, window, w, ps, splits)
+    assert len(keys) == splits
+    walked = [k for kbeg, kend in keys for k in range(kbeg, kend + 1)]
+    first = max(0, lo - window + 1) if window else 0
+    assert walked == list(range(first, min(hi, w * ps - 1) + 1))
+    tiles = [-(-(kend - kbeg + 1) // pa.CHUNK_KEYS) for kbeg, kend in keys]
+    assert max(tiles) - min(tiles) <= 1
+    for kbeg, kend in keys[:-1]:
+        n = kend - kbeg + 1
+        assert n <= 0 or n % pa.CHUNK_KEYS == 0
