@@ -116,7 +116,19 @@ result:
    then train_glm: bf16 glm-10b, 4 layers, 3 steps with a ``prefix_len``
    per sequence: finite loss, exact launches;
 9. train_profile, train_gpt2_profile: one step under ``torch.profiler``:
-   kernel time by class, launches per step, the device's busy share.
+   kernel time by class, launches per step, the device's busy share;
+10. trainer: ``Trainer`` with Flash Checkpoint, llama-1.4b at full size
+   (b8 × s1024, f32 params and moments, fixed batches from ``--seed``):
+   (a) 10 steps, staging to shared memory every 2 and persisting every 4
+   over the first 8 (two persists of the 16.4 GB pack), exact launches;
+   (b) a new Trainer resumes from the memory tier to a state equal to
+   the saved one bit for bit and repeats (a)'s last losses; (d) a byte
+   flipped in the staged pack shows in that leaf alone; (c) the segment
+   unlinked, the same from storage (``step_8/``); (e) ``block_k=4`` over
+   the same batches gives (a)'s losses, its first block under
+   ``torch.cuda.set_sync_debug_mode("error")``; each save, persist and
+   restore beside its bound from the pinned copy and disk rates measured
+   in the phase.
 
 The lines before the last are the card's name and power limit and a
 ``{"kernels": [...]}`` summary (the chunk kernel's entry also gives its
@@ -132,6 +144,7 @@ import dataclasses
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -2163,6 +2176,335 @@ def train_profile(state, step, batch, cfg, opt, name="train_profile"):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the Trainer with Flash Checkpoint
+# ---------------------------------------------------------------------------
+
+# run (a): TRAINER_STEPS steps, the checkpoint cadences over the first
+# TRAINER_SAVED (memory every 2, disk every 4: two persists of the pack),
+# the last two with the cadences off, the reference the resumed runs
+# repeat; run (e) takes the same batches TRAINER_BLOCK_K steps a dispatch
+TRAINER_STEPS, TRAINER_SAVED = 10, 8
+TRAINER_MEMORY_EVERY, TRAINER_DISK_EVERY, TRAINER_BLOCK_K = 2, 4, 4
+YARDSTICK_BYTES, DISK_YARDSTICK_GIB = 1 << 30, 4
+
+
+def _trainer_batches(cfg, seed, n):
+    """``n`` fixed host batches (numpy) of TRAIN_BATCH × TRAIN_SEQ."""
+    rng = np.random.default_rng(seed + 8)
+    out = []
+    for _ in range(n):
+        tok = rng.integers(0, cfg.vocab_size,
+                           size=(TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)
+        out.append({"tokens": tok[:, :-1], "targets": tok[:, 1:]})
+    return out
+
+
+def _bits(t):
+    """``t`` as integers of its width: bitwise equality, NaNs included."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def _leaves_diff(got, ref):
+    """The paths of ``got``'s leaves whose bits differ from ``ref``'s."""
+    def same(x, y):
+        return torch.equal(_bits(x), _bits(y).to(x.device))
+
+    return [a.path for a, b in zip(got, ref)
+            if a.path != b.path or not all(
+                same(x.tensor, y.tensor) for x, y in zip(a.shards, b.shards))]
+
+
+def _snapshot(leaves):
+    """A copy of a state's leaves, on the card, to hold a restore against."""
+    from dlrover_tpu_torch.checkpoint import core
+
+    return [core.Leaf(leaf.path, leaf.dtype, leaf.global_shape,
+                      [core.Shard(s.index, s.tensor.clone(), s.transposed)
+                       for s in leaf.shards]) for leaf in leaves]
+
+
+def yardsticks(dev, out_dir):
+    """The rates a checkpoint's times are held against, measured here:
+    pinned device → host and host → device copies of 1 GiB (CUDA events,
+    the mean of 3), and a write of DISK_YARDSTICK_GIB GiB to ``out_dir``'s
+    disk as the engine's storage writes (one file, fsync)."""
+    d = torch.empty(YARDSTICK_BYTES, dtype=torch.uint8, device=dev)
+    h = torch.empty(YARDSTICK_BYTES, dtype=torch.uint8, pin_memory=True)
+    rates = {}
+    for name, dst, src in (("pinned_d2h", h, d), ("pinned_h2d", d, h)):
+        ms = cuda_ms(lambda: dst.copy_(src, non_blocking=True), 3, warmup=1)
+        rates[name + "_gbps"] = YARDSTICK_BYTES / (ms / 1e3) / 1e9
+    path = os.path.join(out_dir, "yardstick.bin")
+    t0 = time.perf_counter()
+    with open(path, "wb") as f:
+        for _ in range(DISK_YARDSTICK_GIB):
+            f.write(memoryview(h.numpy()))
+        f.flush()
+        os.fsync(f.fileno())
+    rates["disk_write_gbps"] = DISK_YARDSTICK_GIB * YARDSTICK_BYTES / (
+        time.perf_counter() - t0) / 1e9
+    os.unlink(path)
+    return rates
+
+
+class _Watch:
+    """Callback: each step's loss, device ms and end (host clock); at
+    ``on_train_begin`` the state's leaves against ``ref`` (the paths that
+    differ)."""
+
+    def __init__(self, ref=None):
+        self.ref, self.diff = ref, None
+        self.losses, self.device_ms, self.end_at = {}, {}, {}
+
+    def on_train_begin(self, trainer, control):
+        if self.ref is not None:
+            self.diff = _leaves_diff(trainer.state_leaves(), self.ref)
+
+    def on_step_end(self, trainer, step, metrics, control):
+        self.losses[step] = metrics["loss"]
+        self.device_ms[step] = trainer.timer.last_device_ms
+        self.end_at[step] = time.perf_counter()
+
+    def __getattr__(self, hook):  # the other hooks: nothing to do
+        if hook.startswith("on_"):
+            return lambda *a, **k: None
+        raise AttributeError(hook)
+
+
+def _guarded_builder(cfg, opt, dev):
+    """A ``TrainStepBuilder`` whose first block runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync inside a
+    block (an ``.item()``, a host branch on a device value) raises."""
+    from dlrover_tpu_torch.train.train_step import TrainStepBuilder
+
+    class Guarded(TrainStepBuilder):
+        guarded = 0
+
+        def block_fn(self, state, batches):
+            if self.guarded:
+                return super().block_fn(state, batches)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                out = super().block_fn(state, batches)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            self.guarded = len(batches)
+            return out
+
+    return Guarded(cfg, opt, device=dev)
+
+
+def trainer_check(cfg, seed, dev, name="trainer"):
+    """``Trainer`` with Flash Checkpoint at full size: (a) TRAINER_STEPS
+    steps with the cadences over the first TRAINER_SAVED, exact kernel
+    launches; (b) a new Trainer resumes from the memory tier to a state
+    equal bit for bit to the one saved and repeats (a)'s last losses;
+    (d) a byte flipped in the staged pack must show in that leaf alone;
+    (c) the segment unlinked, a new Trainer resumes from storage
+    (``step_8/``), the same; (e) ``block_k`` TRAINER_BLOCK_K over the same
+    batches gives (a)'s losses, its first block with no host sync. Every
+    save, persist and restore time beside its bound, from the yardsticks
+    measured in the phase."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.checkpoint import core
+    from dlrover_tpu_torch.checkpoint.engine import (
+        CheckpointEngine,
+        shm_name,
+    )
+    from dlrover_tpu_torch.common.multi_process import attach_shared_memory
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+    from dlrover_tpu_torch.train.trainer import Trainer, TrainerArgs
+
+    os.environ["DLROVER_TPU_RUN_ID"] = f"chip_smoke_{os.getpid()}"
+    out = tempfile.mkdtemp(prefix="dlrover_trainer_")
+    ckpt_dir = os.path.join(out, "checkpoints")
+    batches = _trainer_batches(cfg, seed, TRAINER_STEPS)
+
+    def opt():
+        return make_optimizer(learning_rate=1e-4, warmup_steps=10,
+                              decay_steps=1000)
+
+    def args(**kw):
+        base = dict(output_dir=out, max_steps=TRAINER_STEPS, save_interval=0,
+                    log_interval=0, seed=seed, prefetch=2)
+        return TrainerArgs(**dict(base, **kw))
+
+    pack = fa.head_pack_for(cfg.n_head, cfg.kv_heads, cfg.head_dim,
+                            cfg.attn_head_pack)
+    flash = fa.PACKED if pack == 2 else fa.UNPACKED
+    per_step = {k: cfg.n_layer * (k in flash) for k in fa.KERNELS}
+    per_step.update(norm_fwd=2 * cfg.n_layer + 1,
+                    norm_bwd=2 * cfg.n_layer + 1)
+    rec = {"phase": name, "config": cfg.name, "n_layer": cfg.n_layer,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAINER_STEPS,
+           "shm_free_bytes": _shm_free(), "mem_available_bytes":
+           _mem_available()}
+    try:
+        rec["yardsticks"] = rates = yardsticks(dev, out)
+        # (a) the cadences over the first TRAINER_SAVED steps, then the
+        # last steps with them off
+        watch_a = _Watch()
+        t_a = time.perf_counter()
+        a = Trainer(cfg, args(max_steps=TRAINER_SAVED,
+                              save_interval=TRAINER_DISK_EVERY,
+                              memory_save_interval=TRAINER_MEMORY_EVERY),
+                    batches, opt(), callbacks=[watch_a], device=dev)
+        _reset_train_launches()
+        t0 = time.perf_counter()
+        a.train()
+        rec["a_cadence_s"] = time.perf_counter() - t0
+        ref = _snapshot(a.state_leaves())
+        a.args.max_steps = TRAINER_STEPS
+        a.args.save_interval = a.args.memory_save_interval = 0
+        a.train()
+        rec["launches"] = _train_launches()
+        rec["launches_expected"] = {k: v * TRAINER_STEPS
+                                    for k, v in per_step.items()}
+        losses = [watch_a.losses[s] for s in range(1, TRAINER_STEPS + 1)]
+        rec["losses_a"] = losses
+        rec["step_device_ms_a"] = [watch_a.device_ms[s]
+                                   for s in range(1, TRAINER_STEPS + 1)]
+        # the host clock from (a)'s start: each step's end, each save's and
+        # persist's start, to read a persist's overlap with the steps
+        rec["step_end_s_a"] = [watch_a.end_at[s] - t_a
+                               for s in range(1, TRAINER_STEPS + 1)]
+        timings = [dict(t, at=t["at"] - t_a) if "at" in t else t
+                   for t in a.checkpointer.engine.timings]
+        nbytes = max(t.get("nbytes", 0) for t in timings)
+        rec["pack_bytes"] = nbytes
+        rec["saves"] = [dict(t, bound_s=t["nbytes"] / (
+            rates["pinned_d2h_gbps"] * 1e9)) if "nbytes" in t else t
+            for t in timings if t["kind"] in ("save_memory", "save_storage",
+                                              "skipped")]
+        rec["persists"] = [dict(t, bound_s=t["nbytes"] / (
+            rates["disk_write_gbps"] * 1e9))
+            for t in timings if t["kind"] == "persist"]
+        a.checkpointer.close()
+        del a
+        torch.cuda.empty_cache()
+
+        def restore_rec(trainer):
+            t = [x for x in trainer.checkpointer.engine.timings
+                 if x["kind"] == "restore"][-1]
+            return dict({k: v for k, v in t.items() if k != "at"},
+                        nbytes=nbytes, bound_s=nbytes / (
+                            rates["pinned_h2d_gbps"] * 1e9))
+
+        # (b) the memory tier
+        watch_b = _Watch(ref)
+        b = Trainer(cfg, args(), batches[TRAINER_SAVED:], opt(),
+                    callbacks=[watch_b], device=dev)
+        b.train()
+        rec["restore_memory"] = restore_rec(b)
+        rec["b_state_diff"] = watch_b.diff
+        rec["losses_b"] = [watch_b.losses.get(s) for s in
+                           range(TRAINER_SAVED + 1, TRAINER_STEPS + 1)]
+        # (d) a planted fault: one byte flipped in a staged leaf
+        shm = attach_shared_memory(shm_name())
+        raw = torch.frombuffer(shm.buf, dtype=torch.uint8)
+        doc = core.read_header(raw)
+        leaf = next(x for x in doc["leaves"]
+                    if x["path"] == "params/layers/attn/wq")
+        at = _payload_start(raw) + leaf["shards"][0]["offset"] + 1
+        raw[at] ^= 0x40
+        del raw
+        shm.close()
+        leaves_b = b.state_leaves()
+        b.checkpointer.load_checkpoint(leaves_b)
+        rec["fault_diff"] = _leaves_diff(leaves_b, ref)
+        b.checkpointer.close()
+        del b, leaves_b
+        torch.cuda.empty_cache()
+        # (c) the storage tier
+        rec["segment_unlinked"] = CheckpointEngine.unlink_segment()
+        watch_c = _Watch(ref)
+        c = Trainer(cfg, args(), batches[TRAINER_SAVED:], opt(),
+                    callbacks=[watch_c], device=dev)
+        c.train()
+        rec["restore_storage"] = restore_rec(c)
+        c.checkpointer.close()
+        rec["c_state_diff"] = watch_c.diff
+        rec["losses_c"] = [watch_c.losses.get(s) for s in
+                           range(TRAINER_SAVED + 1, TRAINER_STEPS + 1)]
+        del c, ref
+        torch.cuda.empty_cache()
+        # (e) the fused loop over the same batches
+        watch_e = _Watch()
+        opt_e = opt()
+        builder = _guarded_builder(cfg, opt_e, dev)
+        e = Trainer(cfg, args(block_k=TRAINER_BLOCK_K, resume=False,
+                              output_dir=os.path.join(out, "block")),
+                    batches, opt_e, callbacks=[watch_e],
+                    step_builder=builder, device=dev)
+        _reset_train_launches()
+        t0 = time.perf_counter()
+        e.train()
+        rec["e_seconds"] = time.perf_counter() - t0
+        rec["e_launches"] = _train_launches()
+        rec["e_guarded_block_steps"] = builder.guarded
+        rec["losses_e"] = [watch_e.losses.get(s)
+                           for s in range(1, TRAINER_STEPS + 1)]
+        rec["step_device_ms_e"] = [watch_e.device_ms.get(s)
+                                   for s in range(1, TRAINER_STEPS + 1)]
+        del e
+    finally:
+        CheckpointEngine.unlink_segment()
+        shutil.rmtree(out, ignore_errors=True)
+        torch.cuda.empty_cache()
+    tail = losses[TRAINER_SAVED:]
+    steady = sorted(rec["step_device_ms_a"][1:])
+    rec["steady_step_device_ms"] = steady[len(steady) // 2]
+    rec["checks"] = checks = {
+        "finite": all(math.isfinite(x) for x in losses),
+        "launches_exact": rec["launches"] == rec["launches_expected"]
+        and rec["e_launches"] == rec["launches_expected"],
+        "two_persists": len(rec["persists"]) == 2,
+        "memory_tier": rec["restore_memory"]["tier"] == "memory"
+        and rec["restore_memory"]["step"] == TRAINER_SAVED,
+        "memory_state_equal": rec["b_state_diff"] == [],
+        "memory_losses_equal": rec["losses_b"] == tail,
+        "fault_caught": rec["fault_diff"] == ["params/layers/attn/wq"],
+        "storage_tier": rec["restore_storage"]["tier"] == "storage"
+        and rec["restore_storage"]["step"] == TRAINER_SAVED,
+        "storage_state_equal": rec["c_state_diff"] == [],
+        "storage_losses_equal": rec["losses_c"] == tail,
+        "block_losses_equal": rec["losses_e"] == losses,
+        "block_no_host_sync": rec["e_guarded_block_steps"]
+        == TRAINER_BLOCK_K,
+    }
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"{name}: {[k for k, v in checks.items() if not v]}")
+    return rec
+
+
+def _payload_start(raw):
+    from dlrover_tpu_torch.checkpoint import core
+
+    n = int.from_bytes(raw[:core.HEADER_LEN_BYTES].numpy().tobytes(),
+                       "little")
+    return (core.HEADER_LEN_BYTES + n + core.ALIGN - 1) \
+        // core.ALIGN * core.ALIGN
+
+
+def _shm_free():
+    st = os.statvfs("/dev/shm")
+    return st.f_bavail * st.f_frsize
+
+
+def _mem_available():
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    return None
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -2289,6 +2631,11 @@ def main(argv=None) -> int:
                   "train_glm", steps=GLM_STEPS, falling=False,
                   prefix=[int(p) for p in rng.integers(
                       0, TRAIN_SEQ + 1, size=TRAIN_BATCH)])
+    torch.cuda.empty_cache()
+    # the Trainer with Flash Checkpoint, llama-1.4b at full size
+    with phase("trainer"):
+        rec = trainer_check(get_config("llama-1.4b"), args.seed, dev)
+        train_launches["trainer"] = rec["launches"]
     torch.cuda.empty_cache()
     if _failures:
         print("\n".join(_failures), file=sys.stderr)

@@ -1,8 +1,9 @@
 """The training step on one device.
 
 Port of the replicated path of ``dlrover_tpu/train/train_step.py``:
-``init_train_state`` and ``TrainStepBuilder`` (``step_fn`` and
-``build``), without a mesh, update sharding, fp8 or health sentinels.
+``init_train_state``, ``TrainStepBuilder`` (``step_fn``, ``build``, the
+fused K-step ``block_fn`` and ``build_block``) and ``build_eval_step``,
+without a mesh, update sharding, fp8 or health sentinels.
 
 One step: the loss and gradients of ``decoder.loss_fn`` (the mean over
 micro-batches when ``grad_accum > 1``: gradients summed over the
@@ -13,7 +14,7 @@ updates the state's parameters and moments IN PLACE and returns the same
 dict.
 """
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
 
 import torch
 
@@ -96,3 +97,32 @@ class TrainStepBuilder:
         state is updated in place: the port's counterpart of the JAX
         step's ``donate_argnums``."""
         return self.step_fn
+
+    def block_fn(self, state: TrainState,
+                 batches: List[Dict]) -> Tuple[TrainState, Dict]:
+        """K train steps, one a batch of ``batches``, dispatched with no
+        host read between them (the JAX block is a ``lax.scan`` of
+        ``step_fn`` in one program). Each metric comes back stacked on the
+        device, ``[K]``, for the caller to read when it needs it."""
+        per_step = [self.step_fn(state, b)[1] for b in batches]
+        return state, {k: torch.stack([m[k] for m in per_step])
+                       for k in per_step[0]}
+
+    def build_block(self) -> Callable:
+        """The block callable ``block(state, batches) → (state, metrics)``,
+        updating the state in place."""
+        return self.block_fn
+
+
+def build_eval_step(cfg: ModelConfig, attn_impl: str = "auto",
+                    device="cuda") -> Callable:
+    """``eval_step(model, batch) → metrics`` of ``decoder.loss_fn``, no
+    gradients."""
+    dev = resolve_device(device)
+
+    @torch.no_grad()
+    def eval_step(model, batch):
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        return decoder.loss_fn(model, batch, cfg, attn_impl=attn_impl)[1]
+
+    return eval_step

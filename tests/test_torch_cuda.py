@@ -1198,3 +1198,63 @@ def test_chunk_at_every_planned_split(dev, mode, b, c):
     bad_tab[0, int((tab[0] >= 0).sum()) // 2] = -1
     bad = pa.paged_attention(q, pools, bad_tab, pos, **kw)
     assert chip_smoke._held(bad, ref, active, bound)[1] > 0, splits
+
+
+def _ckpt_setup(dev, tmp_path, monkeypatch):
+    """A small bf16 llama-shaped train state on ``dev``, its optimizer, one
+    step and one batch, under a run id of its own."""
+    import uuid
+
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    monkeypatch.setenv("DLROVER_TPU_RUN_ID", "cuda" + uuid.uuid4().hex[:12])
+    cfg = get_config("tiny", n_layer=2, d_model=256, n_head=2, n_kv_head=1,
+                     d_ff=512, vocab_size=512, max_seq=128)
+    opt = make_optimizer(learning_rate=1e-3, warmup_steps=1, decay_steps=10)
+    state = init_train_state(0, cfg, opt, device=dev)
+    rng = np.random.default_rng(0)
+    tok = torch.as_tensor(rng.integers(0, 512, size=(2, 129)), device=dev)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    return cfg, opt, state, TrainStepBuilder(cfg, opt, device=dev).build(), \
+        batch
+
+
+def test_staged_pack_unchanged_by_the_next_step_on_card(dev, tmp_path,
+                                                        monkeypatch):
+    """The save's copies (device transposes, page-locked segment) end
+    before ``save_to_memory`` returns: a step right after it, updating
+    the state in place, leaves the pack as it was; a new engine restores
+    it to the card bit for bit through the page-locked segment."""
+    from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
+    from dlrover_tpu_torch.models import convert
+    from dlrover_tpu_torch.train.train_step import init_train_state
+
+    cfg, opt, state, step, batch = _ckpt_setup(dev, tmp_path, monkeypatch)
+    d = str(tmp_path / "ckpt")
+    try:
+        step(state, batch)  # moments and params away from their init
+        eng = CheckpointEngine(d)
+        assert eng.save_to_memory(1, convert.train_state_leaves(state, cfg,
+                                                                opt))
+        staged = convert.train_state_arrays(state, cfg, opt)
+        step(state, batch)
+        moved = convert.train_state_arrays(state, cfg, opt)
+        assert any(not np.array_equal(moved[p], staged[p]) for p in staged)
+        fresh = init_train_state(1, cfg, opt, device=dev)
+        leaves = convert.train_state_leaves(fresh, cfg, opt)
+        new = CheckpointEngine(d)
+        assert new.load(leaves) == 1
+        assert new.timings[-1]["tier"] == "memory"
+        assert new.register_seconds > 0
+        convert.load_scalars(fresh, leaves, opt)
+        got = convert.train_state_arrays(fresh, cfg, opt)
+        for p in staged:
+            np.testing.assert_array_equal(got[p], staged[p], err_msg=p)
+        new.close()
+        eng.close()
+    finally:
+        CheckpointEngine.unlink_segment()
