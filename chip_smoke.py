@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/H100 port (``dlrover_tpu_torch``) on one card.
 
-Drives the port's two main paths with random weights drawn on the card
+Drives the port's main paths with random weights drawn on the card
 from ``--seed``, through the hand-written CUDA kernels built from
 ``dlrover_tpu_torch/csrc/``:
 
@@ -19,7 +19,12 @@ from ``--seed``, through the hand-written CUDA kernels built from
   packed flash kernels, two heads a block, the last block one;
   layernorm with bias, learned positions, the tied 50304-vocab head);
   then glm-10b at full width and 4 layers with a prefix-LM mask per
-  sequence (packed kernels with the prefix).
+  sequence (packed kernels with the prefix); then ``Trainer`` with
+  Flash Checkpoint;
+- elastic training: the launcher (``dlrover_tpu_torch.agent.launcher``:
+  a local job master, the elastic agent and its checkpoint saver)
+  restarting a crashed llama-1.4b worker
+  (``dlrover_tpu_torch.examples.train_gpt_elastic``) on the card.
 
 Phases, one JSON line each; any failure exits nonzero and prints no
 result:
@@ -117,10 +122,11 @@ result:
    per sequence: finite loss, exact launches;
 9. train_profile, train_gpt2_profile: one step under ``torch.profiler``:
    kernel time by class, launches per step, the device's busy share;
-10. trainer: ``Trainer`` with Flash Checkpoint, llama-1.4b at full size
-   (b8 × s1024, f32 params and moments, fixed batches from ``--seed``):
+10. trainer: ``Trainer`` with Flash Checkpoint, llama-1.4b at full width
+   and 2 layers (b8 × s1024, f32 params and moments, fixed batches from
+   ``--seed``; the depth keeps the run's disk writes under 45 GiB):
    (a) 10 steps, staging to shared memory every 2 and persisting every 4
-   over the first 8 (two persists of the 16.4 GB pack), exact launches;
+   over the first 8 (two persists of the 2.8 GB pack), exact launches;
    (b) a new Trainer resumes from the memory tier to a state equal to
    the saved one bit for bit and repeats (a)'s last losses; (d) a byte
    flipped in the staged pack shows in that leaf alone; (c) the segment
@@ -128,7 +134,32 @@ result:
    the same batches gives (a)'s losses, its first block under
    ``torch.cuda.set_sync_debug_mode("error")``; each save, persist and
    restore beside its bound from the pinned copy and disk rates measured
-   in the phase.
+   in the phase. The batches are the elastic worker's
+   (``synthetic_batch``, keyed by the step);
+11. elastic: ``python -m dlrover_tpu_torch.agent.launcher --nnodes 1
+   --nproc 1 --max-restarts 1 -- python -m
+   dlrover_tpu_torch.examples.train_gpt_elastic`` in a subprocess under
+   ``timeout``: the worker forms an NCCL group (world 1) from the sealed
+   rendezvous, loads the kernels built above, trains llama-1.4b at full
+   width and depth (b8 × s1024, f32 params and moments: the 16.4 GB
+   pack) staging to the agent-served shared memory every 2 steps and to
+   disk every 4, and crashes right after step 5 on its first run; the
+   agent sees the exit, persists the staged step 4 from its own process,
+   re-rendezvouses and respawns; the new worker resumes from the memory
+   tier at step 4, checks the staged pack against the committed
+   ``step_4/`` byte for byte and trains to step 8. First, the same run
+   uninterrupted and without checkpoints in this process (the same seed,
+   batches and optimizer) gives the reference. Gated: the order exit →
+   round 2 → success and launcher exit 0; NCCL world 1 rank 0 on CUDA;
+   no kernel rebuilt in a worker; both runs' losses equal the
+   reference's bit for bit; step 4 committed before the respawn, and
+   step 8 last; the committed pack's payload the reference's; exact
+   launches every step; no segment or socket left. Read from the run's
+   trace files (agent and workers): the crash to the agent seeing it,
+   the agent's persists against the disk yardstick, rendezvous and
+   respawn, the worker's start, group, kernel load and memory restore,
+   the crash to the first step back, the steady step against the
+   reference's, and any step stalled during a persist.
 
 The lines before the last are the card's name and power limit and a
 ``{"kernels": [...]}`` summary (the chunk kernel's entry also gives its
@@ -139,6 +170,7 @@ their bound they reach); the last line is
 
 import argparse
 import concurrent.futures
+import gc
 import contextlib
 import dataclasses
 import itertools
@@ -2185,18 +2217,22 @@ def train_profile(state, step, batch, cfg, opt, name="train_profile"):
 # repeat; run (e) takes the same batches TRAINER_BLOCK_K steps a dispatch
 TRAINER_STEPS, TRAINER_SAVED = 10, 8
 TRAINER_MEMORY_EVERY, TRAINER_DISK_EVERY, TRAINER_BLOCK_K = 2, 4, 4
-YARDSTICK_BYTES, DISK_YARDSTICK_GIB = 1 << 30, 4
+# a run writes about 38 GiB to disk, under the 45 GiB cap of a host that
+# does not take freed blocks back: the elastic phase's two persists of
+# the full-size 16.4 GB pack, and here two of a 2.8 GB pack (llama-1.4b
+# at TRAINER_LAYERS layers) and the disk yardstick
+TRAINER_LAYERS = 2
+YARDSTICK_BYTES, DISK_YARDSTICK_GIB = 1 << 30, 2
 
 
 def _trainer_batches(cfg, seed, n):
-    """``n`` fixed host batches (numpy) of TRAIN_BATCH × TRAIN_SEQ."""
-    rng = np.random.default_rng(seed + 8)
-    out = []
-    for _ in range(n):
-        tok = rng.integers(0, cfg.vocab_size,
-                           size=(TRAIN_BATCH, TRAIN_SEQ + 1)).astype(np.int32)
-        out.append({"tokens": tok[:, :-1], "targets": tok[:, 1:]})
-    return out
+    """``n`` fixed host batches (numpy) of TRAIN_BATCH × TRAIN_SEQ: the
+    elastic worker's (``synthetic_batch`` keyed by the step), so the
+    ``elastic`` phase's losses hold against an in-process run's."""
+    from dlrover_tpu_torch.examples.train_gpt_elastic import synthetic_batch
+
+    return [synthetic_batch(seed, step, 0, TRAIN_BATCH, TRAIN_SEQ,
+                            cfg.vocab_size) for step in range(1, n + 1)]
 
 
 def _bits(t):
@@ -2296,7 +2332,8 @@ def _guarded_builder(cfg, opt, dev):
 
 
 def trainer_check(cfg, seed, dev, name="trainer"):
-    """``Trainer`` with Flash Checkpoint at full size: (a) TRAINER_STEPS
+    """``Trainer`` with Flash Checkpoint (llama-1.4b at TRAINER_LAYERS
+    layers, full width): (a) TRAINER_STEPS
     steps with the cadences over the first TRAINER_SAVED, exact kernel
     launches; (b) a new Trainer resumes from the memory tier to a state
     equal bit for bit to the one saved and repeats (a)'s last losses;
@@ -2324,9 +2361,11 @@ def trainer_check(cfg, seed, dev, name="trainer"):
     ckpt_dir = os.path.join(out, "checkpoints")
     batches = _trainer_batches(cfg, seed, TRAINER_STEPS)
 
-    def opt():
-        return make_optimizer(learning_rate=1e-4, warmup_steps=10,
-                              decay_steps=1000)
+    from dlrover_tpu_torch.examples import train_gpt_elastic as ex
+
+    def opt():  # the elastic worker's
+        return make_optimizer(learning_rate=ex.LR, warmup_steps=ex.WARMUP,
+                              decay_steps=ex.DECAY)
 
     def args(**kw):
         base = dict(output_dir=out, max_steps=TRAINER_STEPS, save_interval=0,
@@ -2483,6 +2522,340 @@ def trainer_check(cfg, seed, dev, name="trainer"):
     return rec
 
 
+# the elastic phase: the worker's 8 steps, memory saves every 2, disk
+# saves every 4 (two persists: steps 4 and 8; a third would take the
+# run past the disk's 45 GiB), a crash right after step 5 of the first
+# run; the launcher's time limit
+ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_CRASH_AT = 8, 2, 5
+ELASTIC_TIMEOUT_S = 540
+_STEP_LINE = re.compile(r"\[worker\] step=(\d+) loss=(\S+) rank=\d+ "
+                        r"device_ms=(\S+) at=(\S+) launches=(\{.*\})")
+
+
+def _trace_events(trace_dir):
+    """Every event of the run's trace files: {role: [[events of one
+    process, in order], ...]}, processes in the order they started."""
+    out = {}
+    for name in sorted(os.listdir(trace_dir)):
+        role = name.split("-")[1]
+        with open(os.path.join(trace_dir, name)) as f:
+            evs = [json.loads(line) for line in f if line.strip()]
+        if evs:
+            out.setdefault(role, []).append(evs)
+    for procs in out.values():
+        procs.sort(key=lambda evs: evs[0]["ts"])
+    return out
+
+
+def _ev(evs, name, nth=0):
+    hits = [e for e in evs if e["name"] == name]
+    return hits[nth] if len(hits) > nth else None
+
+
+def _s(ev, end=False):
+    """An event's time on the shared clock (s); a span's end with
+    ``end``."""
+    return (ev["ts"] + (ev.get("dur", 0.0) if end else 0.0)) / 1e6
+
+
+def _elastic_reference(cfg, seed, dev):
+    """The elastic worker's run uninterrupted, in this process and with
+    no checkpoint (the same seed, batches and optimizer): its losses, its
+    steady step (device ms) and its state's payload bytes (a pack less
+    its header)."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.checkpoint import core
+    from dlrover_tpu_torch.examples import train_gpt_elastic as ex
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+    from dlrover_tpu_torch.train.trainer import Trainer, TrainerArgs
+
+    out = tempfile.mkdtemp(prefix="dlrover_elastic_ref_")
+    watch = _Watch()
+    try:
+        t = Trainer(cfg, TrainerArgs(output_dir=out, max_steps=ELASTIC_STEPS,
+                                     save_interval=0, log_interval=0,
+                                     seed=seed, prefetch=2),
+                    _trainer_batches(cfg, seed, ELASTIC_STEPS),
+                    make_optimizer(learning_rate=ex.LR,
+                                   warmup_steps=ex.WARMUP,
+                                   decay_steps=ex.DECAY),
+                    callbacks=[watch], device=dev)
+        t.train()
+        payload = core.plan_pack(t.state_leaves())[1]
+        t.checkpointer.close()
+        del t
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    steps = range(1, ELASTIC_STEPS + 1)
+    steady = sorted(watch.device_ms[s] for s in steps[1:]
+                    if watch.device_ms[s] is not None)
+    return {"losses": [watch.losses[s] for s in steps],
+            "steady_step_device_ms": (steady[len(steady) // 2]
+                                      if steady else None),
+            "payload_bytes": payload}
+
+
+def elastic_check(cfg, seed, ref, name="elastic", device="cuda",
+                  overrides=()):
+    """The elastic control plane on the card: the port's launcher (a
+    local job master, the agent and its checkpoint saver) runs the
+    elastic worker (``examples/train_gpt_elastic.py``: llama-1.4b at full
+    width and depth through ``Trainer``) in a subprocess; the worker
+    crashes right after step ELASTIC_CRASH_AT, the agent persists the
+    staged step from its own process, re-rendezvouses and respawns, and
+    the new worker resumes from the agent-served memory tier. Its losses
+    (and the first run's) must equal bit for bit those of the same run
+    uninterrupted, in this process first (``_elastic_reference``).
+    Readings from the run's trace files (agent and workers); the persists
+    against the disk yardstick of ``ref`` (the ``trainer`` phase's
+    record). ``device`` and ``overrides`` (``--override`` items of the
+    worker's config) serve a rehearsal on the CPU at a cut size."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.common.multi_process import (
+        attach_shared_memory,
+        unlink_shared_memory,
+    )
+    from dlrover_tpu_torch.checkpoint.storage import PosixStorage, read_tracker
+    from dlrover_tpu_torch.examples.train_gpt_elastic import launches
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    out = tempfile.mkdtemp(prefix="dlrover_elastic_")
+    run_id = f"chip_smoke_elastic_{os.getpid()}"
+    trace_dir = os.path.join(out, "trace")
+    sock_dir = os.path.join(out, "sock")
+    ckpt_dir = os.path.join(out, "run")
+    env = dict(os.environ, DLROVER_TPU_RUN_ID=run_id,
+               DLROVER_TPU_COORDINATOR_PORT="0",
+               DLROVER_TPU_TRACE_DIR=trace_dir,
+               DLROVER_TPU_SOCK_DIR=sock_dir)
+    env.pop("DLROVER_TPU_MASTER_ADDR", None)
+    cmd = ["timeout", "-k", "10", str(ELASTIC_TIMEOUT_S), sys.executable,
+           "-m", "dlrover_tpu_torch.agent.launcher", "--nnodes", "1",
+           "--nproc", "1", "--max-restarts", "1", "--monitor-interval",
+           "0.2", "--", sys.executable, "-m",
+           "dlrover_tpu_torch.examples.train_gpt_elastic", "--model",
+           cfg.name, "--steps", str(ELASTIC_STEPS), "--batch",
+           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", str(seed),
+           "--ckpt-dir", ckpt_dir, "--ckpt-every", str(ELASTIC_CKPT_EVERY),
+           "--crash-at", str(ELASTIC_CRASH_AT), "--check-committed",
+           "--device", device]
+    for item in overrides:
+        cmd += ["--override", item]
+    per_step = {k: 0 for k in launches()}
+    per_step.update({k: cfg.n_layer for k in fa.UNPACKED},
+                    norm_fwd=2 * cfg.n_layer + 1, norm_bwd=2 * cfg.n_layer + 1)
+    rec = {"phase": name, "config": cfg.name, "n_layer": cfg.n_layer,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": ELASTIC_STEPS,
+           "crash_at": ELASTIC_CRASH_AT, "command": cmd[4:],
+           "card": nvidia_smi_line()}
+    runs = []
+    try:
+        t0 = time.perf_counter()
+        rec["reference"] = reference = _elastic_reference(
+            cfg, seed, torch.device(device))
+        rec["reference_s"] = time.perf_counter() - t0
+        rec["parent_reserved_bytes"] = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launcher_rc"] = proc.returncode
+        log = proc.stdout
+        # the launcher's whole log, too long for the record (gitignored)
+        log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "chip_smoke")
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, "elastic_log.txt"), "w") as f:
+            f.write(log)
+        lines = log.splitlines()
+
+        def first(pattern, start=0):
+            for i in range(start, len(lines)):
+                if re.search(pattern, lines[i]):
+                    return i
+            return -1
+
+        i_exit = first(r"worker exited rc=17")
+        i_round2 = first(r"rendezvous round 2:", max(i_exit, 0))
+        i_ok = first(r"worker succeeded", max(i_round2, 0))
+        rec["log_order"] = [i_exit, i_round2, i_ok]
+        runs, cur = [], None
+        for line in lines:
+            if "[worker] process group" in line:
+                cur = {"group": line.split("[worker] ")[1], "steps": {},
+                       "kernels": None}
+                runs.append(cur)
+            elif cur is None:
+                continue
+            elif "[worker] kernels " in line:
+                cur["kernels"] = json.loads(line.split("kernels ", 1)[1])
+            elif "[worker] resumed from step" in line:
+                cur["resumed"] = line.split("[worker] ", 1)[1]
+            elif "[worker] committed pack check" in line:
+                cur["pack_check"] = json.loads(line.split("check ", 1)[1])
+            m = _STEP_LINE.search(line)
+            if m:
+                cur["steps"][int(m.group(1))] = {
+                    "loss": float(m.group(2)),
+                    "device_ms": (None if m.group(3) == "None"
+                                  else float(m.group(3))),
+                    "at": float(m.group(4)),
+                    "launches": json.loads(m.group(5))}
+        rec["runs"] = [{k: v for k, v in r.items() if k != "steps"}
+                       for r in runs]
+        a = runs[0]["steps"] if runs else {}
+        b = runs[1]["steps"] if len(runs) > 1 else {}
+        rec["losses_first"] = [a[s]["loss"] for s in sorted(a)]
+        rec["losses_resumed"] = [b[s]["loss"] for s in sorted(b)]
+        rec["resumed_steps"] = sorted(b)
+        rec["launches_per_step_ok"] = all(
+            st["launches"] == per_step for r in runs
+            for st in r["steps"].values())
+        rec["launches"] = {k: sum(st["launches"].get(k, 0) for r in runs
+                                  for st in r["steps"].values())
+                           for k in per_step}
+        steady = sorted(st["device_ms"] for r in runs
+                        for s, st in r["steps"].items()
+                        if st["device_ms"] is not None and s != min(
+                            r["steps"]))
+        rec["steady_step_device_ms"] = (steady[len(steady) // 2]
+                                        if steady else None)
+        rec["reference_steady_step_device_ms"] = reference[
+            "steady_step_device_ms"]
+        pack = runs[1].get("pack_check", {}) if len(runs) > 1 else {}
+        rec["pack_check"] = pack
+        ck = os.path.join(ckpt_dir, "checkpoints")
+        rec["committed_step_4"] = os.path.exists(os.path.join(
+            ck, f"step_{ELASTIC_CRASH_AT - 1}", "done", "host_0.done"))
+        rec["last_committed_step"] = read_tracker(ck, PosixStorage())
+        i_commit4 = first(r"committed checkpoint step "
+                          f"{ELASTIC_CRASH_AT - 1} ")
+        rec["commit_before_respawn"] = 0 <= i_commit4 < i_round2
+        rec["emergency_wrote"] = 0 <= first(
+            r"emergency checkpoint persist done") < i_round2
+        try:
+            rec.update(_elastic_readings(trace_dir, runs, ref))
+        except Exception as exc:  # noqa: BLE001 — a missing mark: fail
+            rec["readings_error"] = repr(exc)
+    finally:
+        leftovers = [f for f in os.listdir("/dev/shm") if run_id in f]
+        for f in leftovers:
+            unlink_shared_memory(attach_shared_memory(f))
+        socks = os.listdir(sock_dir) if os.path.isdir(sock_dir) else []
+        rec["left_behind"] = leftovers + socks
+        shutil.rmtree(out, ignore_errors=True)
+    tail = rec.get("reference", {}).get("losses", [])
+    rec["checks"] = checks = {
+        "launcher_rc_0": rec.get("launcher_rc") == 0,
+        "exit_then_round2_then_success": -1 not in rec.get("log_order", [-1])
+        and rec["log_order"] == sorted(rec["log_order"]),
+        "two_runs": len(runs) == 2,
+        "nccl_world_1_rank_0_cuda": all(
+            r["group"].startswith("process group nccl world 1 rank 0 "
+                                  "device cuda") for r in runs)
+        and bool(runs),
+        "no_rebuild": all(r["kernels"] and r["kernels"]["compiled_s"] == 0
+                          for r in runs),
+        "resumed_from_memory": len(runs) == 2 and runs[1].get(
+            "resumed", "").startswith(
+            f"resumed from step {ELASTIC_CRASH_AT - 1} (tier memory"),
+        "first_run_losses_equal": rec.get("losses_first")
+        == tail[:ELASTIC_CRASH_AT],
+        "resumed_losses_equal": rec.get("resumed_steps") == list(
+            range(ELASTIC_CRASH_AT, ELASTIC_STEPS + 1))
+        and rec["losses_resumed"] == tail[ELASTIC_CRASH_AT - 1:],
+        "committed_step_4_before_respawn": rec.get("committed_step_4")
+        and rec.get("commit_before_respawn"),
+        # and the pack holds the whole state: the reference's payload
+        "committed_pack_equals_staged": rec.get("pack_check", {}).get(
+            "equal") is True
+        and rec["pack_check"].get("payload_bytes")
+        == rec["reference"]["payload_bytes"],
+        "final_save_committed": rec.get("last_committed_step")
+        == ELASTIC_STEPS,
+        "launches_exact": rec.get("launches_per_step_ok") is True,
+        "readings": "readings_error" not in rec,
+        "nothing_left_behind": rec["left_behind"] == [],
+    }
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"{name}: {[k for k, v in checks.items() if not v]}")
+    return rec
+
+
+def _elastic_readings(trace_dir, runs, ref):
+    """The recovery's phases from the trace files, on the shared clock:
+    the crash to the agent seeing it, the agent's persist (against the
+    disk yardstick of the ``trainer`` phase), rendezvous, respawn, the
+    worker's start, kernel load and memory-tier restore, the crash to the
+    first step back; and whether a step stalled during a persist."""
+    ev = _trace_events(trace_dir)
+    agent = ev["agent"][0]
+    w1, w2 = ev["worker"][0], ev["worker"][1]
+    crash = _ev(w1, "worker.crash")
+    seen = _ev(agent, "failover.worker_exit")
+    emergency = _ev(agent, "failover.ckpt_persist")
+    rdzv2 = _ev(agent, "failover.rendezvous", 1)
+    spawn2 = _ev(agent, "failover.spawn", 1)
+    restore = _ev(w2, "failover.restore")
+    back = _ev(w2, "failover.first_step")
+    persists = [{"step": e["args"].get("step"), "start_s": _s(e),
+                 "seconds": e["dur"] / 1e6, "nbytes": e["args"]["nbytes"]}
+                for e in agent if e["name"] == "ckpt.persist"]
+    rate = ref["yardsticks"]["disk_write_gbps"] * 1e9
+    for p in persists:
+        p["bound_s"] = p["nbytes"] / rate
+    r = {
+        "crash_to_seen_s": _s(seen) - _s(crash),
+        "emergency_persist_s": emergency["dur"] / 1e6,
+        "persists": persists,
+        "rendezvous_s": rdzv2["dur"] / 1e6,
+        "seen_to_spawn_s": _s(spawn2) - _s(seen),
+        "spawn_to_worker_start_s": _s(_ev(w2, "worker.start")) - _s(spawn2),
+        "worker_group_s": _s(_ev(w2, "worker.group"))
+        - _s(_ev(w2, "worker.start")),
+        "kernel_load_s": [r["kernels"] and r["kernels"]["seconds"]
+                          for r in runs],
+        "restore_s": restore["dur"] / 1e6,
+        "restore_tier": restore["args"].get("tier"),
+        "crash_to_first_step_back_s": _s(back) - _s(crash),
+    }
+    # each step's host interval from the previous step's end; those
+    # after a boundary with no save (and not after a run's first step,
+    # which the resumed run's pack check follows) set the baseline, and
+    # one of them over it by more than 0.5 s while a persist runs is a
+    # stall
+    gaps = []
+    for run in runs:
+        steps = sorted(run["steps"])
+        for prev, s in zip(steps, steps[1:]):
+            t1, t2 = run["steps"][prev]["at"], run["steps"][s]["at"]
+            gaps.append({
+                "step": s, "host_s": t2 - t1,
+                "after_save": prev % ELASTIC_CKPT_EVERY == 0
+                or prev == steps[0],
+                "during_persist": any(
+                    p["start_s"] < t2 and t1 < p["start_s"] + p["seconds"]
+                    for p in persists)})
+    plain = sorted(g["host_s"] for g in gaps if not g["after_save"])
+    base = plain[len(plain) // 2] if plain else 0.0
+    r["step_host_gaps"] = gaps
+    r["baseline_step_host_s"] = base
+    r["stalled_during_persist"] = [
+        dict(g, stall_s=g["host_s"] - base) for g in gaps
+        if g["during_persist"] and not g["after_save"]
+        and g["host_s"] > base + 0.5]
+    return r
+
+
 def _payload_start(raw):
     from dlrover_tpu_torch.checkpoint import core
 
@@ -2632,11 +3005,22 @@ def main(argv=None) -> int:
                   prefix=[int(p) for p in rng.integers(
                       0, TRAIN_SEQ + 1, size=TRAIN_BATCH)])
     torch.cuda.empty_cache()
-    # the Trainer with Flash Checkpoint, llama-1.4b at full size
+    # the Trainer with Flash Checkpoint, llama-1.4b at full width
+    trainer_rec = None
     with phase("trainer"):
-        rec = trainer_check(get_config("llama-1.4b"), args.seed, dev)
-        train_launches["trainer"] = rec["launches"]
+        trainer_rec = trainer_check(
+            get_config("llama-1.4b", n_layer=TRAINER_LAYERS), args.seed, dev)
+        train_launches["trainer"] = trainer_rec["launches"]
+    # the elastic control plane: the launcher, agent and a crashed worker
+    # restarted, llama-1.4b at full size in the worker; this process
+    # frees its cached card memory first
+    gc.collect()
     torch.cuda.empty_cache()
+    if trainer_rec is not None:
+        with phase("elastic"):
+            rec = elastic_check(get_config("llama-1.4b"), args.seed,
+                                trainer_rec)
+            train_launches["elastic"] = rec["launches"]
     if _failures:
         print("\n".join(_failures), file=sys.stderr)
         return 1

@@ -10,7 +10,12 @@ finds the counterpart of each file.
 Ported so far: the serving path (``serving.server.GenerationServer`` →
 ``serving.scheduler`` → ``serving.engine.ServingEngine`` →
 ``models.decoder.Decoder`` paged decode/prefill →
-``ops.paged_attention``, a hand-written CUDA kernel for ``sm_90a``).
+``ops.paged_attention``, a hand-written CUDA kernel for ``sm_90a``);
+training (``train.trainer.Trainer`` → ``train.train_step`` → the flash
+attention and fused norm kernels, with Flash Checkpoint); and elastic
+training under the master/agent control plane (``agent.launcher`` →
+``master`` + ``agent.agent`` → ``train.distributed`` and the trainer in
+each worker).
 Entry points run on ``device="cuda"`` unless the caller asks for the
 CPU; without a card they raise instead of falling back.
 """

@@ -1,0 +1,177 @@
+"""The torchrun-style elastic launcher
+(``python -m dlrover_tpu_torch.agent.launcher``).
+
+Port of ``dlrover_tpu/agent/launcher.py`` (reference:
+dlrover/trainer/torch/elastic_run.py: parse_args:125, run:342,
+_launch_dlrover_local_master:237). A single-node run starts an
+in-process ``LocalJobMaster``; multi-node runs point every node's agent
+at the job master (``--master-addr``, see ``master/main.py``). The
+agent serves Flash Checkpoint's brokers (``AsyncCheckpointSaver``) to
+its workers, one a local GPU (``--nproc``, default: every GPU), and
+unlinks their staging segments when the job ends.
+
+Usage:
+    python -m dlrover_tpu_torch.agent.launcher --nnodes 1 --nproc 1 \
+        --max-restarts 1 -- python -m \
+        dlrover_tpu_torch.examples.train_gpt_elastic --steps 10
+
+``--network-check`` and ``--comm-perf-test`` wait for ROADMAP A20; the
+resource monitor and the dataloader config tuner of the JAX launcher
+wait for A12 and A20.
+"""
+
+import argparse
+import os
+import sys
+import threading
+from typing import List, Optional
+
+from dlrover_tpu_torch.agent.agent import (
+    ElasticLaunchConfig,
+    ElasticTrainingAgent,
+)
+from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.common.constants import GraftEnv
+from dlrover_tpu_torch.common.log import get_logger
+
+logger = get_logger(__name__)
+
+
+def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
+    p = argparse.ArgumentParser(prog="dlrover-tpu-torch-run")
+    p.add_argument(
+        "--nnodes",
+        default="1",
+        help="N or MIN:MAX node count (elastic range)",
+    )
+    p.add_argument("--node-id", type=int, default=None)
+    p.add_argument(
+        "--nproc",
+        type=int,
+        default=0,
+        help="workers on this node, one a GPU (0 = every local GPU)",
+    )
+    p.add_argument("--master-addr", default="", help="job master host:port")
+    p.add_argument("--max-restarts", type=int, default=3)
+    p.add_argument(
+        "--network-check",
+        action="store_true",
+        help="the matmul+collective health check (not ported yet: "
+        "ROADMAP A20)",
+    )
+    p.add_argument(
+        "--comm-perf-test",
+        action="store_true",
+        help="the all-reduce bandwidth sweep (not ported yet: ROADMAP A20)",
+    )
+    p.add_argument("--node-unit", type=int, default=1)
+    p.add_argument("--monitor-interval", type=float, default=2.0)
+    p.add_argument("entrypoint", nargs=argparse.REMAINDER)
+    args = p.parse_args(argv)
+    if args.entrypoint and args.entrypoint[0] == "--":
+        args.entrypoint = args.entrypoint[1:]
+    return args
+
+
+def _parse_nnodes(spec: str):
+    if ":" in spec:
+        lo, hi = spec.split(":")
+        return int(lo), int(hi)
+    return int(spec), int(spec)
+
+
+def _detect_local_chips() -> int:
+    """Local GPUs (NVML's count: no CUDA context in the agent); a node
+    without one runs one CPU worker."""
+    import torch
+
+    return torch.cuda.device_count() or 1
+
+
+def _launch_local_master(num_workers: int, max_workers: int, node_unit: int):
+    """Spin an in-process LocalJobMaster (reference: :237)."""
+    from dlrover_tpu_torch.master.master import LocalJobMaster
+
+    master = LocalJobMaster(
+        port=0,
+        num_workers=num_workers,
+        max_workers=max_workers,
+        node_unit=node_unit,
+    )
+    master.prepare()
+    threading.Thread(
+        target=master.run, name="local-master", daemon=True
+    ).start()
+    logger.info("local master started at %s", master.addr)
+    return master
+
+
+def run(args: argparse.Namespace) -> int:
+    if args.network_check or args.comm_perf_test:
+        raise NotImplementedError(
+            "--network-check and --comm-perf-test (agent/node_check.py) "
+            "are not ported yet (ROADMAP A20)")
+    min_nodes, max_nodes = _parse_nnodes(args.nnodes)
+    node_id = (
+        args.node_id
+        if args.node_id is not None
+        else int(os.environ.get(GraftEnv.NODE_ID, "0"))
+    )
+    if os.environ.get(GraftEnv.TRACE_DIR):
+        # flight recorder on: this process's failover spans stream as
+        # role=agent (workers it spawns stream as role=worker)
+        from dlrover_tpu_torch.observability.tracing import configure_tracer
+
+        configure_tracer("agent")
+    local_chips = args.nproc or _detect_local_chips()
+
+    config = ElasticLaunchConfig(
+        min_nodes=min_nodes,
+        max_nodes=max_nodes,
+        node_id=node_id,
+        local_chips=local_chips,
+        max_restarts=args.max_restarts,
+        monitor_interval_s=args.monitor_interval,
+        node_unit=args.node_unit,
+        entrypoint=args.entrypoint,
+    )
+    config.auto_configure()
+    if not config.entrypoint:
+        logger.error("no training entrypoint given")
+        return 2
+
+    master = None
+    master_addr = args.master_addr or os.environ.get(GraftEnv.MASTER_ADDR, "")
+    if not master_addr:
+        if min_nodes > 1:
+            logger.error("multi-node runs need --master-addr")
+            return 2
+        master = _launch_local_master(min_nodes, max_nodes, args.node_unit)
+        master_addr = master.addr
+        # one node: its workers' store is on this host
+        os.environ.setdefault("DLROVER_TPU_HOST_ADDR", "localhost")
+
+    from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
+
+    saver = None
+    try:
+        client = MasterClient(master_addr, node_id=node_id)
+        client.register_node(local_chips=config.local_chips)
+        agent = ElasticTrainingAgent(config, client)
+        saver = AsyncCheckpointSaver.start_async_saving_ckpt(
+            config.local_chips)
+        agent.attach_ckpt_saver(saver)
+        return agent.run()
+    finally:
+        if saver is not None:
+            saver.close(unlink=True)
+        if master is not None:
+            master.request_stop()
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    return run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

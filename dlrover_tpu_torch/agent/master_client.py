@@ -1,0 +1,272 @@
+"""Typed master client: the ONLY channel from agents/workers to the master.
+
+Port of ``dlrover_tpu/agent/master_client.py`` (``MasterClient``,
+``build_master_client``) for the calls the elastic path makes: node
+registration, heartbeats, status, restart and failure reports, the
+rendezvous, the KV store and sync barriers, the global step, checkpoint
+steps and model info. The data-shard, reshard, serving, tuning, PS and
+network-check calls wait for their ROADMAP items (A11, A15, A20, A18);
+the master answers them with an error naming the item, which the
+transport raises as ``NotImplementedError``.
+"""
+
+import os
+import socket
+import time
+from typing import Dict, List, Optional, Tuple
+
+from dlrover_tpu_torch.common import messages as msgs
+from dlrover_tpu_torch.common.comm import MasterTransportClient
+from dlrover_tpu_torch.common.constants import GraftEnv, RendezvousName
+from dlrover_tpu_torch.common.global_context import get_context
+from dlrover_tpu_torch.common.log import get_logger
+
+logger = get_logger(__name__)
+
+_singleton: Optional["MasterClient"] = None
+
+
+class MasterClient:
+    def __init__(self, master_addr: str, node_id: int = 0, node_rank: int = -1):
+        ctx = get_context()
+        self._t = MasterTransportClient(
+            master_addr, timeout_s=ctx.rpc_timeout_s, retries=ctx.rpc_retry
+        )
+        self.node_id = node_id
+        self.node_rank = node_rank
+
+    @property
+    def addr(self) -> str:
+        return self._t.addr
+
+    # ---- node lifecycle --------------------------------------------------
+
+    def register_node(
+        self,
+        node_type: str = "worker",
+        local_chips: int = 0,
+        tpu_type: str = "",
+        slice_id: str = "",
+        slice_index: int = 0,
+        restart_count: int = 0,
+        role: str = "",
+    ) -> msgs.NodeRegisterResponse:
+        """``local_chips`` is the node's GPU count and ``tpu_type`` (the
+        wire field's name) its device kind."""
+        meta = msgs.NodeMeta(
+            node_type=node_type,
+            node_id=self.node_id,
+            node_rank=self.node_rank,
+            host_name=socket.gethostname(),
+            host_addr=os.environ.get(
+                "DLROVER_TPU_HOST_ADDR", socket.gethostname()
+            ),
+            local_chips=local_chips,
+            tpu_type=tpu_type,
+            slice_id=slice_id,
+            slice_index=slice_index,
+            role=role,
+        )
+        resp = self._t.get(
+            msgs.NodeRegisterRequest(meta=meta, restart_count=restart_count)
+        )
+        if resp and resp.node_rank >= 0:
+            self.node_rank = resp.node_rank
+        return resp
+
+    def report_heartbeat(self) -> bool:
+        return self._t.report(
+            msgs.HeartbeatReport(
+                node_id=self.node_id, timestamp=time.time()
+            )
+        )
+
+    def heartbeat_with_actions(self) -> List[str]:
+        """Heartbeat that returns queued actions for this node."""
+        resp = self._t.get(
+            msgs.HeartbeatReport(node_id=self.node_id, timestamp=time.time())
+        )
+        return list(resp.actions) if resp else []
+
+    def report_node_status(
+        self,
+        status: str,
+        exit_reason: str = "",
+        retries: Optional[int] = None,
+    ) -> bool:
+        return self._t.report(
+            msgs.NodeStatusReport(
+                node_id=self.node_id, status=status, exit_reason=exit_reason
+            ),
+            retries=retries,
+        )
+
+    def report_worker_restart(
+        self, reason: str = "", retries: Optional[int] = None
+    ) -> bool:
+        """Planned worker kill+respawn (membership change, restart
+        prescription)."""
+        return self._t.report(
+            msgs.WorkerRestartReport(node_id=self.node_id, reason=reason),
+            retries=retries,
+        )
+
+    def report_failure(
+        self,
+        error_data: str,
+        level: str = "process_error",
+        restart_count=0,
+        retries: Optional[int] = None,
+    ) -> bool:
+        return self._t.report(
+            msgs.NodeFailureReport(
+                node_id=self.node_id,
+                node_rank=self.node_rank,
+                error_data=error_data,
+                level=level,
+                restart_count=restart_count,
+            ),
+            retries=retries,
+        )
+
+    # ---- rendezvous ------------------------------------------------------
+
+    def join_rendezvous(
+        self,
+        local_world_size: int,
+        rdzv_name: str = RendezvousName.TRAINING,
+        coordinator_port: int = 0,
+    ) -> int:
+        """Join the next round; ``coordinator_port`` is the store port
+        this node offers should it be the first of the world (0: the
+        master's default)."""
+        resp = self._t.get(
+            msgs.JoinRendezvousRequest(
+                node_id=self.node_id,
+                node_rank=self.node_rank,
+                local_world_size=local_world_size,
+                rdzv_name=rdzv_name,
+                coordinator_port=coordinator_port,
+            )
+        )
+        return resp.round if resp else -1
+
+    def get_comm_world(
+        self, rdzv_name: str = RendezvousName.TRAINING
+    ) -> Tuple[int, int, Dict[int, int], str]:
+        resp = self._t.get(
+            msgs.CommWorldRequest(node_id=self.node_id, rdzv_name=rdzv_name)
+        )
+        if resp is None:
+            return -1, 0, {}, ""
+        return (
+            resp.rdzv_round,
+            resp.group,
+            {int(k): v for k, v in resp.world.items()},
+            resp.coordinator,
+        )
+
+    def num_nodes_waiting(
+        self, rdzv_name: str = RendezvousName.TRAINING
+    ) -> int:
+        resp = self._t.get(msgs.NumNodesWaitingRequest(rdzv_name=rdzv_name))
+        return resp.waiting_num if resp else 0
+
+    # ---- telemetry -------------------------------------------------------
+
+    def report_global_step(self, step: int, worker_num: int = 0) -> bool:
+        return self._t.report(
+            msgs.GlobalStepRecord(
+                global_step=step,
+                timestamp=time.time(),
+                worker_num=worker_num,
+                node_id=self.node_id,
+            )
+        )
+
+    def report_model_info(
+        self,
+        model_name: str = "",
+        num_params: int = 0,
+        flops_per_token: float = 0.0,
+        global_batch_size: int = 0,
+        seq_len: int = 0,
+        strategy_json: str = "",
+    ) -> bool:
+        """Model/job statistics (reference: master_client.py:217)."""
+        return self._t.report(
+            msgs.ModelInfoReport(
+                node_id=self.node_id,
+                model_name=model_name,
+                num_params=num_params,
+                flops_per_token=flops_per_token,
+                global_batch_size=global_batch_size,
+                seq_len=seq_len,
+                strategy_json=strategy_json,
+            )
+        )
+
+    def get_running_nodes(self) -> list:
+        resp = self._t.get(msgs.RunningNodesRequest(node_id=self.node_id))
+        return list(resp.nodes) if resp else []
+
+    # ---- kv / sync -------------------------------------------------------
+
+    def kv_store_set(self, key: str, value: str) -> bool:
+        return self._t.report(msgs.KeyValuePair(key=key, value=value))
+
+    def kv_store_get(self, key: str) -> str:
+        resp = self._t.get(msgs.KeyRequest(key=key))
+        return resp.value if resp else ""
+
+    def join_sync(self, sync_name: str) -> bool:
+        return self._t.report(
+            msgs.SyncJoin(
+                sync_name=sync_name,
+                node_id=self.node_id,
+                node_rank=self.node_rank,
+            )
+        )
+
+    def sync_finished(self, sync_name: str) -> bool:
+        resp = self._t.get(msgs.SyncRequest(sync_name=sync_name))
+        return bool(resp and resp.success)
+
+    # ---- checkpoint sync -------------------------------------------------
+
+    def report_ckpt_step(self, step: int, rank: Optional[int] = None) -> bool:
+        """The step this rank staged; ``rank`` (a worker's global rank)
+        keys it instead of the node rank, as several workers of a node
+        stage each their own."""
+        return self._t.report(
+            msgs.CheckpointStepSync(
+                node_rank=self.node_rank if rank is None else rank, step=step)
+        )
+
+    def get_min_ckpt_step(self) -> int:
+        resp = self._t.get(msgs.CheckpointStepRequest())
+        return resp.step if resp else 0
+
+    def close(self):
+        self._t.close()
+
+
+def build_master_client(
+    master_addr: Optional[str] = None, node_id: Optional[int] = None
+) -> MasterClient:
+    """Singleton accessor, env-driven (reference: master_client.py:420)."""
+    global _singleton
+    if _singleton is None:
+        addr = master_addr or os.environ.get(GraftEnv.MASTER_ADDR, "")
+        if not addr:
+            raise RuntimeError(
+                f"{GraftEnv.MASTER_ADDR} not set and no master_addr given"
+            )
+        nid = node_id
+        if nid is None:
+            nid = int(os.environ.get(GraftEnv.NODE_ID, "0"))
+        _singleton = MasterClient(addr, node_id=nid)
+        rank = os.environ.get(GraftEnv.NODE_RANK)
+        if rank is not None:
+            _singleton.node_rank = int(rank)
+    return _singleton

@@ -1,4 +1,5 @@
-"""Port of ``dlrover_tpu.checkpoint``: Flash Checkpoint in one process."""
+"""Port of ``dlrover_tpu.checkpoint``: Flash Checkpoint, standalone or
+under the node's agent."""
 
 from dlrover_tpu_torch.checkpoint.checkpointer import (  # noqa: F401
     Checkpointer,

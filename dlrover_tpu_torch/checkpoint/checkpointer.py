@@ -2,10 +2,12 @@
 
 Port of ``dlrover_tpu/checkpoint/checkpointer.py``: ``save_checkpoint(step,
 state, storage_type=MEMORY|DISK)`` and ``load_checkpoint``, over the
-standalone ``CheckpointEngine``. A state is a list of ``core.Leaf``
-(``models.convert.train_state_leaves`` makes one of a train state); a
-restore writes into the given state in place and returns the restored
-step. Peer replication (``replicate=True``) waits for ROADMAP A10's ring.
+``CheckpointEngine`` (in agent mode when the node's agent serves the
+run's checkpoint brokers; ``master_client`` reports each staged step
+and pins a memory restore to the cluster's minimum). A state is a list
+of ``core.Leaf`` (``models.convert.train_state_leaves`` makes one of a
+train state); a restore writes into the given state in place and
+returns the restored step. Peer replication (``replicate=True``) waits for ROADMAP A10's ring.
 """
 
 from typing import Optional, Sequence
@@ -21,9 +23,10 @@ class StorageType:
 
 
 class Checkpointer:
-    def __init__(self, ckpt_dir: str, storage=None):
+    def __init__(self, ckpt_dir: str, storage=None, master_client=None):
         self.ckpt_dir = ckpt_dir
-        self.engine = CheckpointEngine(ckpt_dir, storage=storage)
+        self.engine = CheckpointEngine(ckpt_dir, storage=storage,
+                                       master_client=master_client)
 
     def save_checkpoint(self, step: int, state: Sequence[Leaf],
                         storage_type: str = StorageType.DISK) -> bool:

@@ -107,14 +107,15 @@ def plan_pack(leaves: Sequence[Leaf]) -> Tuple[List[LeafEntry], int]:
 
 
 def header_bytes(step: int, entries: List[LeafEntry],
-                 extra: Optional[Dict] = None) -> bytes:
-    """The header JSON, field for field the JAX package's (one process:
-    ``process_index`` 0 of ``process_count`` 1)."""
+                 extra: Optional[Dict] = None, process_index: int = 0,
+                 process_count: int = 1) -> bytes:
+    """The header JSON, field for field the JAX package's; the process
+    is the worker's global rank of the world's."""
     doc = {
         "version": 1,
         "step": step,
-        "process_index": 0,
-        "process_count": 1,
+        "process_index": process_index,
+        "process_count": process_count,
         "extra": extra or {},
         "leaves": [
             {

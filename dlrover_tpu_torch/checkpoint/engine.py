@@ -1,15 +1,34 @@
 """Worker-side checkpoint engine: device → host shared memory, async persist.
 
-Port of ``CheckpointEngine`` of ``dlrover_tpu/checkpoint/engine.py`` in
-its standalone mode (no agent): the worker blocks only for the copy of
-its state into a named POSIX segment; a thread of the engine persists
-the segment to storage and commits the tracker. Restore reads the
-segment when it holds a complete pack of this checkpoint directory,
-else the committed storage. The agent mode (queue, dict and lock
-served by the agent, ROADMAP A8) and the peer replica tier (ROADMAP
-A10's ring) are not ported yet.
+Port of ``CheckpointEngine`` of ``dlrover_tpu/checkpoint/engine.py``:
+the worker blocks only for the copy of its state into a named POSIX
+segment; the segment is persisted to storage, and the tracker committed,
+off the worker's path. Restore reads the segment when it holds a
+complete pack of this checkpoint directory, else the committed storage.
+The peer replica tier (ROADMAP A10's ring) is not ported yet.
 
-Two things differ from the JAX engine, each for a reason:
+Two modes, detected as the JAX engine detects them (``use_agent``: a
+live agent broker serves the run's checkpoint queue):
+
+- **Agent mode.** The agent's ``AsyncCheckpointSaver`` serves a queue,
+  a dict and a lock a worker. A save stages the segment under the
+  agent's lock (skipped while the agent holds it, reading the segment),
+  records the staged pack in the agent's dict and reports the step to
+  the master. A disk save first waits for the agent's persist in flight
+  (its lock), then stages and asks the agent to persist. The agent
+  persists from its own process, and again after a worker crash, so a
+  staged pack outlives the worker. A memory restore takes the pack the
+  agent's dict names, and only at the master's minimum staged step
+  (``get_min_ckpt_step``), so every rank resumes the same step. This is
+  the JAX package's own discipline, but for the disk save's wait: the
+  JAX engine skips a disk save while the agent persists, so a job's
+  final save could be lost (ROADMAP C).
+- **Standalone.** A thread of the engine persists, as below.
+
+In both, the pack's process is the worker's global rank of the world
+(``torch.distributed``), and each rank stages its own segment
+(``shm_name(rank)``). Two things of the standalone mode differ from the
+JAX engine, each for a reason:
 
 - The standalone persist holds the engine's lock while it reads the
   segment, as the JAX agent's saver does (``saver.py`` of the JAX
@@ -37,21 +56,32 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from dlrover_tpu_torch.checkpoint import core
-from dlrover_tpu_torch.checkpoint.saver import persist_pack
+from dlrover_tpu_torch.checkpoint.saver import (
+    lock_name,
+    meta_key,
+    persist_pack,
+)
 from dlrover_tpu_torch.checkpoint.storage import PosixStorage, read_tracker
 from dlrover_tpu_torch.common.constants import GraftEnv
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.common.multi_process import (
+    SharedDictClient,
+    SharedLockClient,
+    SharedQueueClient,
     attach_shared_memory,
+    broker_alive,
     create_shared_memory,
     unlink_shared_memory,
 )
 from dlrover_tpu_torch.observability import telemetry
 from dlrover_tpu_torch.observability.tracing import get_tracer
+from dlrover_tpu_torch.train.distributed import process_count, process_index
 
 logger = get_logger(__name__)
 
 SHM_DIR = "/dev/shm"
+# how long a disk save under the agent waits for the persist in flight
+PERSIST_WAIT_S = 300.0
 
 
 def shm_name(process_index: int = 0) -> str:
@@ -103,9 +133,19 @@ class CheckpointEngine:
     restore (its ``register_s`` within its ``seconds``), with their
     bytes; ``at`` is each one's start on ``time.perf_counter``."""
 
-    def __init__(self, ckpt_dir: str, storage=None):
+    def __init__(self, ckpt_dir: str, storage=None, master_client=None,
+                 use_agent: Optional[bool] = None):
         self.ckpt_dir = ckpt_dir
+        self._client = master_client
         self._storage = storage or PosixStorage()
+        if use_agent is None:
+            use_agent = broker_alive("queue_ckpt")
+        self._use_agent = use_agent
+        self.local_rank = int(os.environ.get("LOCAL_RANK", "0"))
+        if use_agent:
+            self._queue = SharedQueueClient("ckpt")
+            self._agent_meta = SharedDictClient("ckpt_meta")
+            self._agent_lock = SharedLockClient(lock_name(self.local_rank))
         self._shm = None
         self._buf: Optional[torch.Tensor] = None  # uint8 over the segment
         self._registered = False
@@ -117,6 +157,34 @@ class CheckpointEngine:
         self._persist_error: Optional[BaseException] = None
         self.timings: collections.deque = collections.deque(maxlen=256)
 
+    @property
+    def use_agent(self) -> bool:
+        return self._use_agent
+
+    @property
+    def process_index(self) -> int:
+        """This worker's global rank (0 outside a process group)."""
+        return process_index()
+
+    @property
+    def process_count(self) -> int:
+        return process_count()
+
+    def _acquire(self, timeout: Optional[float] = None) -> bool:
+        """Take the segment's lock: at once, or within ``timeout``."""
+        blocking = timeout is not None
+        if self._use_agent:
+            return self._agent_lock.acquire(blocking=blocking,
+                                            timeout=timeout or 0.0)
+        return self._lock.acquire(blocking=blocking,
+                                  timeout=timeout if blocking else -1)
+
+    def _release(self) -> None:
+        if self._use_agent:
+            self._agent_lock.release()
+        else:
+            self._lock.release()
+
     # ---- save ------------------------------------------------------------
 
     def save_to_memory(self, step: int, leaves: Sequence[core.Leaf]) -> bool:
@@ -125,7 +193,16 @@ class CheckpointEngine:
         return self._stage(step, leaves, "save_memory", 0.0, hold=False)
 
     def save_to_storage(self, step: int, leaves: Sequence[core.Leaf]) -> bool:
-        """Wait for the previous persist, stage, and persist on a thread."""
+        """Wait for the previous persist, stage, and persist: on a thread
+        (standalone), or from the agent's process (agent mode), whose
+        persist is waited for by its lock, at most ``PERSIST_WAIT_S``.
+        Returns False if that wait ran out."""
+        if self._use_agent:
+            if not self._stage(step, leaves, "save_storage", 0.0, hold=False,
+                               lock_timeout=PERSIST_WAIT_S):
+                return False
+            return self._queue.put({"type": "persist", "step": step,
+                                    "local_rank": self.local_rank})
         t0 = time.perf_counter()
         self._join_persist()
         wait_s = time.perf_counter() - t0
@@ -138,18 +215,29 @@ class CheckpointEngine:
         self._persist_thread.start()
         return True
 
-    def _stage(self, step, leaves, kind, wait_s, hold) -> bool:
-        """Stage under the lock; with ``hold`` the lock stays held for the
-        caller's persist, which releases it."""
+    def _stage(self, step, leaves, kind, wait_s, hold,
+               lock_timeout: Optional[float] = None) -> bool:
+        """Stage under the lock, taken at once or within ``lock_timeout``;
+        with ``hold`` (standalone) the lock stays held for the caller's
+        persist, which releases it."""
         t0 = time.perf_counter()
         entries, payload = core.plan_pack(leaves)
-        header = core.header_bytes(step, entries, {"dir": self.ckpt_dir})
+        rank, world = self.process_index, self.process_count
+        header = core.header_bytes(step, entries, {"dir": self.ckpt_dir},
+                                   rank, world)
         total = core.pack_size(header, payload)
-        if not self._lock.acquire(blocking=False):
-            logger.warning("step %d: a persist is reading the segment, "
-                           "skipping the memory save", step)
+        t_lock = time.perf_counter()
+        if not self._acquire(lock_timeout):
+            if lock_timeout is None:
+                logger.warning("step %d: a persist is reading the segment, "
+                               "skipping the memory save", step)
+            else:
+                logger.error("step %d: the persist in flight did not end "
+                             "within %.0fs; the disk save is NOT made",
+                             step, lock_timeout)
             self.timings.append({"kind": "skipped", "step": step})
             return False
+        lock_wait_s = time.perf_counter() - t_lock
         span = get_tracer().span("ckpt.save_memory", step=step, nbytes=total)
         staged = False
         try:
@@ -162,24 +250,32 @@ class CheckpointEngine:
             t_end = time.perf_counter()
             self._latest = {
                 "step": step, "used": used, "dir": self.ckpt_dir,
-                "shm": self._shm.name, "process_index": 0,
-                "process_count": 1, "time": time.time(),
+                "shm": self._shm.name, "process_index": rank,
+                "process_count": world, "time": time.time(),
             }
+            if self._use_agent:
+                self._agent_meta.set(meta_key(self.local_rank), self._latest)
             self._local_step = step
             staged = True
         finally:
             if not (staged and hold):
-                self._lock.release()
+                self._release()
             span.end()
         rec = {"kind": kind, "step": step, "nbytes": total, "at": t0,
                "register_s": t_copy - t_reg, "copy_s": t_end - t_copy,
-               "wait_s": wait_s, "seconds": wait_s + t_end - t0}
+               "wait_s": wait_s + lock_wait_s,
+               "seconds": wait_s + t_end - t0}
         self.timings.append(rec)
         hub = telemetry.get_hub()
         if hub.enabled:
             hub.publish(telemetry.CheckpointRecord(
                 kind="save_memory", step=step, seconds=rec["seconds"],
                 nbytes=total, tier="memory"))
+        if self._client is not None:
+            try:
+                self._client.report_ckpt_step(step, rank=rank)
+            except Exception:  # noqa: BLE001
+                logger.warning("ckpt step report failed", exc_info=True)
         logger.info("staged step %d to shm in %.3fs (%.1f MB)", step,
                     rec["seconds"], total / 1e6)
         return True
@@ -187,7 +283,7 @@ class CheckpointEngine:
     def _ensure_segment(self, total: int, on_card: bool) -> None:
         if self._shm is None or self._shm.size < total:
             self._close_segment()
-            name = shm_name()
+            name = shm_name(self.process_index)
             size = _round_up(total)
             _check_room(name, size)
             self._adopt(create_shared_memory(name, size))
@@ -248,12 +344,25 @@ class CheckpointEngine:
                 from err
         return True
 
+    def _wait_for_tracker(self, timeout: float) -> bool:
+        """Agent mode: the agent commits; wait for the tracker to name
+        the latest staged step."""
+        deadline = time.time() + timeout
+        while read_tracker(self.ckpt_dir, self._storage) != self._local_step:
+            if time.time() >= deadline:
+                return False
+            time.sleep(0.1)
+        return True
+
     def wait_for_persist(self, timeout: float = 300.0) -> bool:
         """Block until the latest staged step is committed to storage.
         Returns False, and publishes a failed ``persist_wait`` record, when
         the commit does not land inside ``timeout``; raises when the
-        persist failed."""
-        ok = self._join_persist(timeout)
+        standalone persist failed."""
+        if self._use_agent:
+            ok = self._wait_for_tracker(timeout)
+        else:
+            ok = self._join_persist(timeout)
         if not ok:
             logger.error(
                 "persist of step %d did not commit within %.0fs; the "
@@ -273,10 +382,11 @@ class CheckpointEngine:
         self._close_segment()
 
     @staticmethod
-    def unlink_segment() -> bool:
-        """Remove this run's staging segment; False if there was none."""
+    def unlink_segment(process_index: int = 0) -> bool:
+        """Remove this run's staging segment of ``process_index``; False
+        if there was none."""
         try:
-            shm = attach_shared_memory(shm_name())
+            shm = attach_shared_memory(shm_name(process_index))
         except FileNotFoundError:
             return False
         unlink_shared_memory(shm)
@@ -325,18 +435,41 @@ class CheckpointEngine:
                 ok=tier != "none", tier=tier))
         return got
 
+    def _staged(self) -> Optional[Dict]:
+        """Agent mode: the agent's record of this worker's staged pack."""
+        meta = self._agent_meta.get(meta_key(self.local_rank))
+        if not meta or meta["dir"] != self.ckpt_dir:
+            return None
+        return meta
+
     def _load_from_memory(self, leaves, step, partial) -> Optional[int]:
         idx = core.PackIndex()
         try:
+            name = shm_name(self.process_index)
+            if self._use_agent:
+                meta = self._staged()
+                if meta is None:
+                    return None
+                name = meta["shm"]
             if self._buf is None:
                 # the run's segment, staged by an earlier engine or process:
                 # this engine adopts it, for this restore and its next saves
-                self._adopt(attach_shared_memory(shm_name()))
+                self._adopt(attach_shared_memory(name))
             doc = core.read_header(self._buf)
             if doc is None or doc.get("extra", {}).get("dir") != self.ckpt_dir:
                 return None
+            if self._use_agent and doc["step"] != meta["step"]:
+                return None  # torn since the agent recorded it
             if step is not None and doc["step"] != step:
                 return None
+            if self._client is not None:
+                # all ranks must resume the same staged step
+                min_step = self._client.get_min_ckpt_step()
+                if min_step != doc["step"]:
+                    logger.warning(
+                        "staged step %s inconsistent with cluster min %s",
+                        doc["step"], min_step)
+                    return None
             if any(s.tensor.is_cuda for leaf in leaves for s in leaf.shards):
                 # page-locked, the copies run at the bus's rate; pageable,
                 # each first touch of a page faults (a few GB/s at best)
@@ -366,6 +499,11 @@ class CheckpointEngine:
                        if f.endswith(".pack"))
         if not packs:
             return None
+        own = f"host_{self.process_index}.pack"
+        if own in packs:
+            # replicated data parallelism: every rank's pack is the whole
+            # state; read this rank's own
+            packs = [own]
         idx = core.PackIndex()
         try:
             for name in packs:

@@ -1,0 +1,331 @@
+"""Typed control-plane messages.
+
+Port of ``dlrover_tpu/common/messages.py``: one dataclass per message
+type, encoded as the JSON envelope ``{"t": <type-name>, "d": {fields}}``
+with a strict registry, so only registered message classes can ever be
+instantiated. The encoding is byte for byte the JAX package's for the
+messages both packages send; the port registers the messages its
+control plane sends (node lifecycle, rendezvous, the KV store and sync
+barriers, the global step, checkpoint steps, model info).
+
+One field is the port's own: ``JoinRendezvousRequest.coordinator_port``
+(the port of the torch.distributed store the joining agent picked). A
+field marked ``_EXT`` is left out of the encoding at its default, so a
+join that picks no port encodes as the JAX package's join.
+"""
+
+import dataclasses
+import json
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional
+
+_REGISTRY: Dict[str, type] = {}
+_EXT = {"ext": True}
+
+
+def message(cls):
+    """Register a dataclass as a wire message type."""
+    cls = dataclass(cls)
+    _REGISTRY[cls.__name__] = cls
+    return cls
+
+
+def registered(name: str) -> bool:
+    return name in _REGISTRY
+
+
+def _omitted(f: dataclasses.Field, value) -> bool:
+    return f.metadata.get("ext", False) and value == f.default
+
+
+def _to_jsonable(value):
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        return {
+            "__msg__": type(value).__name__,
+            **{
+                f.name: _to_jsonable(getattr(value, f.name))
+                for f in dataclasses.fields(value)
+                if not _omitted(f, getattr(value, f.name))
+            },
+        }
+    if isinstance(value, dict):
+        return {str(k): _to_jsonable(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [_to_jsonable(v) for v in value]
+    return value
+
+
+def _from_jsonable(value):
+    if isinstance(value, dict):
+        if "__msg__" in value:
+            cls = _REGISTRY[value["__msg__"]]
+            kwargs = {
+                k: _from_jsonable(v) for k, v in value.items() if k != "__msg__"
+            }
+            return cls(**kwargs)
+        return {k: _from_jsonable(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_from_jsonable(v) for v in value]
+    return value
+
+
+def serialize(msg) -> bytes:
+    if not dataclasses.is_dataclass(msg):
+        raise TypeError(f"not a message dataclass: {type(msg)}")
+    name = type(msg).__name__
+    if name not in _REGISTRY:
+        raise TypeError(f"unregistered message type: {name}")
+    payload = _to_jsonable(msg)
+    payload.pop("__msg__", None)
+    return json.dumps({"t": name, "d": payload}).encode("utf-8")
+
+
+def type_name(data: bytes) -> str:
+    """The envelope's type name, without decoding the fields."""
+    return json.loads(data.decode("utf-8"))["t"]
+
+
+def deserialize(data: bytes):
+    if not data:
+        return None
+    obj = json.loads(data.decode("utf-8"))
+    name = obj["t"]
+    if name not in _REGISTRY:
+        raise TypeError(f"unregistered message type: {name}")
+    return _from_jsonable({"__msg__": name, **obj["d"]})
+
+
+# ---------------------------------------------------------------------------
+# Generic responses
+# ---------------------------------------------------------------------------
+
+
+@message
+class Response:
+    success: bool = True
+    reason: str = ""
+
+
+@message
+class Empty:
+    pass
+
+
+# ---------------------------------------------------------------------------
+# Node lifecycle
+# ---------------------------------------------------------------------------
+
+
+@message
+class NodeMeta:
+    node_type: str = "worker"
+    node_id: int = 0
+    node_rank: int = -1
+    host_name: str = ""
+    host_addr: str = ""
+    local_chips: int = 0        # the node's local GPUs
+    tpu_type: str = ""          # the JAX field's name: the device kind
+    slice_id: str = ""
+    slice_index: int = 0
+    role: str = ""
+
+
+@message
+class NodeRegisterRequest:
+    meta: Optional[NodeMeta] = None
+    restart_count: int = 0
+
+
+@message
+class NodeRegisterResponse:
+    success: bool = True
+    node_rank: int = -1
+    node_num: int = 0
+
+
+@message
+class HeartbeatReport:
+    node_id: int = 0
+    node_type: str = "worker"
+    timestamp: float = 0.0
+
+
+@message
+class HeartbeatResponse:
+    # actions for the agent to execute (e.g. "restart_worker")
+    actions: List[str] = field(default_factory=list)
+
+
+@message
+class NodeStatusReport:
+    node_id: int = 0
+    node_type: str = "worker"
+    status: str = ""
+    exit_reason: str = ""
+
+
+@message
+class WorkerRestartReport:
+    """Agent notice that it killed and is respawning its workers on
+    purpose (membership change, restart prescription)."""
+
+    node_id: int = 0
+    reason: str = ""
+
+
+@message
+class NodeFailureReport:
+    node_id: int = 0
+    node_rank: int = -1
+    error_data: str = ""
+    level: str = "process_error"
+    restart_count: int = 0
+
+
+@message
+class ModelInfoReport:
+    """Model/job statistics (reference: grpc.ModelInfo)."""
+
+    node_id: int = 0
+    model_name: str = ""
+    num_params: int = 0
+    flops_per_token: float = 0.0
+    global_batch_size: int = 0
+    seq_len: int = 0
+    strategy_json: str = ""
+
+
+@message
+class RunningNodesRequest:
+    node_id: int = 0
+
+
+@message
+class NodeInfo:
+    id: int = 0
+    type: str = "worker"
+    name: str = ""
+    status: str = ""
+    host_addr: str = ""
+    rank_index: int = 0
+
+
+@message
+class RunningNodesResponse:
+    nodes: List[NodeInfo] = field(default_factory=list)
+
+
+# ---------------------------------------------------------------------------
+# Rendezvous
+# ---------------------------------------------------------------------------
+
+
+@message
+class JoinRendezvousRequest:
+    node_id: int = 0
+    node_rank: int = -1
+    local_world_size: int = 1
+    rdzv_name: str = "elastic-training"
+    node_unit: int = 1
+    # the port's own: the store port this node's agent picked (0 = none)
+    coordinator_port: int = field(default=0, metadata=_EXT)
+
+
+@message
+class JoinRendezvousResponse:
+    round: int = 0
+
+
+@message
+class CommWorldRequest:
+    node_id: int = 0
+    rdzv_name: str = "elastic-training"
+
+
+@message
+class CommWorldResponse:
+    rdzv_round: int = 0
+    group: int = 0
+    # node_rank -> local world size (GPUs) for every node in the world;
+    # empty until the rendezvous completes.
+    world: Dict[str, int] = field(default_factory=dict)
+    # host:port of the worker group's store, filled once the world is
+    # sealed.
+    coordinator: str = ""
+
+
+@message
+class NumNodesWaitingRequest:
+    rdzv_name: str = "elastic-training"
+
+
+@message
+class NumNodesWaitingResponse:
+    waiting_num: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Training telemetry
+# ---------------------------------------------------------------------------
+
+
+@message
+class GlobalStepRecord:
+    global_step: int = 0
+    timestamp: float = 0.0
+    worker_num: int = 0
+    node_id: int = -1
+
+
+# ---------------------------------------------------------------------------
+# KV store + sync service
+# ---------------------------------------------------------------------------
+
+
+@message
+class KeyValuePair:
+    key: str = ""
+    value: str = ""
+
+
+@message
+class KeyRequest:
+    key: str = ""
+
+
+@message
+class SyncJoin:
+    sync_name: str = ""
+    node_id: int = 0
+    node_rank: int = -1
+
+
+@message
+class SyncRequest:
+    sync_name: str = ""
+
+
+@message
+class SyncResponse:
+    success: bool = False
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint coordination
+# ---------------------------------------------------------------------------
+
+
+@message
+class CheckpointStepSync:
+    node_rank: int = -1
+    step: int = 0
+
+
+@message
+class CheckpointStepRequest:
+    pass
+
+
+@message
+class CheckpointStepResponse:
+    step: int = 0

@@ -1,0 +1,158 @@
+"""Job masters: compose managers + transport; supervision loop.
+
+Port of ``dlrover_tpu/master/master.py`` (``JobMaster``,
+``LocalJobMaster``, ``run``): the node manager, the training
+rendezvous, the KV store, the sync service and the speed monitor
+behind one ``MasterServicer`` on the two-RPC transport, and the loop
+that ends the job when every worker has exited. What the JAX master
+also composes waits for its ROADMAP item: the data-shard task manager
+(A11), diagnosis and its hang kick (A22), job metrics and goodput with
+their HTTP endpoint (A12), ElasticPS (A18), the auto-scaler and Brain
+(A23) and the network-check rendezvous (A20).
+"""
+
+import threading
+from typing import Dict, Optional
+
+from dlrover_tpu_torch.common.comm import MasterTransportServer
+from dlrover_tpu_torch.common.constants import JobExitReason, RendezvousName
+from dlrover_tpu_torch.common.global_context import get_context
+from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.master.kv_store import KVStoreService
+from dlrover_tpu_torch.master.node_manager import JobManager, Scaler
+from dlrover_tpu_torch.master.rdzv_manager import (
+    ElasticTrainingRendezvousManager,
+)
+from dlrover_tpu_torch.master.servicer import MasterServicer
+from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
+from dlrover_tpu_torch.master.sync_service import SyncService
+from dlrover_tpu_torch.observability.tracing import get_tracer
+
+logger = get_logger(__name__)
+
+
+class RendezvousPruneCallback:
+    """Drop a dead node from every rendezvous world so the next seal
+    does not wait on it (the JAX master's ``event_callback.py``)."""
+
+    def __init__(self, rdzv_managers):
+        self._managers = rdzv_managers
+
+    def on_node_failed(self, node, ctx):
+        for mgr in self._managers.values():
+            mgr.remove_alive_node(node.rank_index)
+
+    on_node_deleted = on_node_failed
+
+
+class JobMaster:
+    """Composition root; subclasses pick scaler flavors."""
+
+    def __init__(
+        self,
+        port: int = 0,
+        num_workers: int = 1,
+        max_workers: Optional[int] = None,
+        node_unit: int = 1,
+        scaler: Optional[Scaler] = None,
+        job_name: str = "",
+    ):
+        ctx = get_context()
+        self.job_name = job_name
+        self.speed_monitor = SpeedMonitor()
+        self.job_manager = JobManager(
+            num_workers=num_workers,
+            relaunch_budget=ctx.relaunch_budget,
+            heartbeat_timeout_s=ctx.heartbeat_timeout_s,
+            pending_timeout_s=ctx.pending_timeout_s,
+            scaler=scaler,
+        )
+        self.rdzv_managers: Dict[str, object] = {
+            RendezvousName.TRAINING: ElasticTrainingRendezvousManager(),
+        }
+        max_w = max_workers or num_workers
+        for mgr in self.rdzv_managers.values():
+            mgr.update_rdzv_params(
+                min_nodes=num_workers,
+                max_nodes=max_w,
+                waiting_timeout=ctx.rdzv_wait_extra_nodes_s,
+                node_unit=node_unit,
+            )
+        self.kv_store = KVStoreService()
+        self.sync_service = SyncService()
+        self.sync_service.set_world_size_fn(
+            lambda: len(self.job_manager.running_nodes()) or 1
+        )
+        self.servicer = MasterServicer(
+            job_manager=self.job_manager,
+            rdzv_managers=self.rdzv_managers,
+            kv_store=self.kv_store,
+            sync_service=self.sync_service,
+            speed_monitor=self.speed_monitor,
+        )
+        self.server = MasterTransportServer(self.servicer, port=port)
+        self._stop = threading.Event()
+        self.exit_reason = ""
+        self.job_manager.event_callbacks.append(
+            RendezvousPruneCallback(self.rdzv_managers))
+        self.job_manager.node_failed_callbacks.append(self._on_node_down)
+
+    def _on_node_down(self, node):
+        self.speed_monitor.reset_running_speed()
+        self.speed_monitor.drop_node(node.id)
+        get_tracer().instant(
+            "failover.detect", node=node.id, source="heartbeat_timeout"
+        )
+
+    @property
+    def port(self) -> int:
+        return self.server.port
+
+    @property
+    def addr(self) -> str:
+        return f"localhost:{self.server.port}"
+
+    def prepare(self):
+        self.server.start()
+        self.job_manager.start()
+
+    def run(self, poll_interval_s: Optional[float] = None) -> str:
+        """Supervision loop (reference: dist_master.py:211)."""
+        ctx = get_context()
+        interval = poll_interval_s or ctx.supervise_interval_s
+        try:
+            while not self._stop.wait(interval):
+                if self.job_manager.all_workers_exited():
+                    if self.job_manager.all_workers_succeeded():
+                        self.exit_reason = JobExitReason.SUCCEEDED
+                    else:
+                        self.exit_reason = (
+                            JobExitReason.RELAUNCH_BUDGET_EXHAUSTED
+                        )
+                    break
+                if self.job_manager.pending_timeout():
+                    self.exit_reason = JobExitReason.PENDING_TIMEOUT
+                    break
+        finally:
+            self.stop()
+        logger.info("master exiting: %s", self.exit_reason)
+        return self.exit_reason
+
+    def request_stop(self, reason: str = ""):
+        self.exit_reason = reason or self.exit_reason
+        self._stop.set()
+
+    def stop(self):
+        self._stop.set()
+        self.job_manager.stop()
+        self.server.stop()
+
+
+class LocalJobMaster(JobMaster):
+    """In-process master for a single-host launcher run."""
+
+
+class DistributedJobMaster(JobMaster):
+    """Multi-host master (``master/main.py``); platform scalers attach
+    here."""
+

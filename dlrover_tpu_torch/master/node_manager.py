@@ -1,0 +1,340 @@
+"""Job-level node lifecycle management.
+
+Port of ``dlrover_tpu/master/node_manager.py`` (``JobManager``,
+``NoopScaler``): the master's record of every node, fed by
+registrations, heartbeats, status reports and platform events; status
+transitions go through ``status_flow``; a failed or deleted node is
+relaunched while its budget lasts (a ``ScalePlan`` for the scaler).
+Observers (``event_callbacks``: objects with ``on_node_started``,
+``on_node_succeeded``, ``on_node_failed``, ``on_node_deleted``) hear of
+each transition; the master wires the rendezvous prune through them.
+The serving, tuning and evaluator directives of the JAX manager wait
+for ROADMAP A15 and A20.
+"""
+
+import threading
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional
+
+from dlrover_tpu_torch.common.constants import (
+    DefaultValues,
+    NodeEventType,
+    NodeExitReason,
+    NodeStatus,
+    NodeType,
+)
+from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.common.messages import NodeMeta
+from dlrover_tpu_torch.common.node import Node, NodeResource
+from dlrover_tpu_torch.master.status_flow import transition
+
+logger = get_logger(__name__)
+
+
+@dataclass
+class NodeEvent:
+    event_type: str
+    node_id: int
+    status: str = ""
+    exit_reason: str = ""
+    # which incarnation of the node the event is about; -1 = unknown →
+    # always accepted (guards relaunches against stale events)
+    incarnation: int = -1
+
+
+class ScalePlan:
+    """What the scaler must do (reference: scaler/base_scaler.py ScalePlan)."""
+
+    def __init__(self):
+        self.launch_nodes: List[Node] = []
+        self.remove_nodes: List[Node] = []
+        self.worker_num: Optional[int] = None
+
+    def empty(self) -> bool:
+        return not self.launch_nodes and not self.remove_nodes and (
+            self.worker_num is None
+        )
+
+    def __repr__(self):
+        return (
+            f"ScalePlan(launch={[n.name for n in self.launch_nodes]}, "
+            f"remove={[n.name for n in self.remove_nodes]}, "
+            f"worker_num={self.worker_num})"
+        )
+
+
+class Scaler:
+    """Executes ScalePlans on the platform."""
+
+    def scale(self, plan: ScalePlan):
+        raise NotImplementedError
+
+
+class NoopScaler(Scaler):
+    def __init__(self):
+        self.plans: List[ScalePlan] = []
+
+    def scale(self, plan: ScalePlan):
+        self.plans.append(plan)
+
+
+class JobManager:
+    """Track nodes, consume events, decide relaunches."""
+
+    def __init__(
+        self,
+        num_workers: int = 1,
+        relaunch_budget: int = DefaultValues.RELAUNCH_BUDGET,
+        heartbeat_timeout_s: float = DefaultValues.HEARTBEAT_TIMEOUT_S,
+        pending_timeout_s: float = DefaultValues.PENDING_TIMEOUT_S,
+        scaler: Optional[Scaler] = None,
+    ):
+        self._lock = threading.Lock()
+        self._nodes: Dict[int, Node] = {}
+        self._num_workers = num_workers
+        self._relaunch_budget = relaunch_budget
+        self._heartbeat_timeout_s = heartbeat_timeout_s
+        self._pending_timeout_s = pending_timeout_s
+        self._scaler = scaler or NoopScaler()
+        self._stop = threading.Event()
+        self._threads: List[threading.Thread] = []
+        self._start_time = time.time()
+        self.node_failed_callbacks: List[Callable[[Node], None]] = []
+        self.node_succeeded_callbacks: List[Callable[[Node], None]] = []
+        self.event_callbacks: List[Any] = []
+        self.cluster_context: Any = None
+        self._init_nodes()
+
+    def _init_nodes(self):
+        for i in range(self._num_workers):
+            self._nodes[i] = Node(
+                node_type=NodeType.WORKER,
+                node_id=i,
+                rank_index=i,
+                max_relaunch_count=self._relaunch_budget,
+            )
+            self._nodes[i].create_time = time.time()
+
+    # ---- lifecycle -------------------------------------------------------
+
+    def start(self):
+        t = threading.Thread(
+            target=self._monitor_heartbeats, name="hb-monitor", daemon=True
+        )
+        t.start()
+        self._threads.append(t)
+
+    def stop(self):
+        self._stop.set()
+
+    # ---- RPC-surface handlers -------------------------------------------
+
+    def register_node(self, meta: NodeMeta, restart_count: int = 0) -> Node:
+        with self._lock:
+            node = self._nodes.get(meta.node_id)
+            if node is None:
+                node = Node(
+                    node_type=meta.node_type or NodeType.WORKER,
+                    node_id=meta.node_id,
+                    rank_index=(
+                        meta.node_rank if meta.node_rank >= 0 else meta.node_id
+                    ),
+                    max_relaunch_count=self._relaunch_budget,
+                )
+                self._nodes[meta.node_id] = node
+            elif meta.node_type and node.type != meta.node_type:
+                if node.name == f"{node.type}-{node.id}":
+                    node.name = f"{meta.node_type}-{node.id}"
+                node.type = meta.node_type
+            node.host_addr = meta.host_addr
+            node.config_resource = NodeResource(
+                chips=meta.local_chips, device_kind=meta.tpu_type
+            )
+            node.heartbeat_time = time.time()
+            prev_status = node.status
+            prev_rc = node.agent_restart_count
+            node.agent_restart_count = max(prev_rc, restart_count)
+            self._apply_status(node, NodeStatus.RUNNING)
+            started = node.status == NodeStatus.RUNNING and (
+                prev_status != NodeStatus.RUNNING
+                or restart_count > prev_rc
+            )
+            logger.info("registered %s from %s", node, meta.host_addr)
+        # outside the lock: observers may call back into query methods
+        if started:
+            self._fire("on_node_started", node)
+        return node
+
+    def handle_heartbeat(self, node_id: int) -> List[str]:
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is None:
+                return []
+            node.heartbeat_time = time.time()
+            return []
+
+    def handle_status_report(
+        self, node_id: int, status: str, exit_reason: str = ""
+    ):
+        self.process_event(
+            NodeEvent(
+                NodeEventType.MODIFIED,
+                node_id,
+                status=status,
+                exit_reason=exit_reason,
+            )
+        )
+
+    # ---- event processing ------------------------------------------------
+
+    def process_event(self, event: NodeEvent):
+        with self._lock:
+            node = self._nodes.get(event.node_id)
+            if node is None:
+                return
+            if 0 <= event.incarnation < node.incarnation:
+                return  # stale: about a node this one already replaced
+            if event.event_type == NodeEventType.HEARTBEAT_TIMEOUT:
+                status = NodeStatus.FAILED
+                node.exit_reason = NodeExitReason.KILLED
+            elif event.event_type == NodeEventType.DELETED:
+                status = NodeStatus.DELETED
+                node.exit_reason = event.exit_reason or NodeExitReason.KILLED
+            else:
+                status = event.status
+                if event.exit_reason:
+                    node.exit_reason = event.exit_reason
+            flow = transition(node.status, status)
+            if not flow.allowed:
+                return
+            self._apply_status(node, status)
+
+        if status in (NodeStatus.FAILED, NodeStatus.DELETED):
+            self._fire(
+                "on_node_deleted"
+                if status == NodeStatus.DELETED
+                else "on_node_failed",
+                node,
+            )
+            self._on_node_down(node)
+        elif status == NodeStatus.SUCCEEDED:
+            self._fire("on_node_succeeded", node)
+            for cb in self.node_succeeded_callbacks:
+                cb(node)
+        elif status == NodeStatus.RUNNING:
+            self._fire("on_node_started", node)
+
+    def _apply_status(self, node: Node, status: str):
+        flow = transition(node.status, status)
+        if flow.allowed:
+            node.update_status(status)
+
+    def _fire(self, hook: str, node: Node):
+        """Dispatch one lifecycle hook to every registered observer; an
+        observer exception never breaks node bookkeeping."""
+        for cb in self.event_callbacks:
+            fn = getattr(cb, hook, None)
+            if fn is None:
+                continue
+            try:
+                fn(node, self.cluster_context)
+            except Exception:  # noqa: BLE001
+                logger.exception(
+                    "event callback %s.%s failed", type(cb).__name__, hook
+                )
+
+    def _on_node_down(self, node: Node):
+        if node.is_released:
+            return  # removed on purpose (scale-in): not a failure
+        for cb in self.node_failed_callbacks:
+            cb(node)
+        if node.should_relaunch():
+            node.inc_relaunch_count()
+            self._relaunch_node(node)
+        else:
+            logger.warning(
+                "%s exhausted relaunch budget (reason=%s)",
+                node,
+                node.exit_reason,
+            )
+
+    def _relaunch_node(self, node: Node):
+        logger.info(
+            "relaunching %s (attempt %d/%d, reason=%s)",
+            node.name,
+            node.relaunch_count,
+            node.max_relaunch_count,
+            node.exit_reason,
+        )
+        with self._lock:
+            new_node = node.new_incarnation()
+            self._nodes[node.id] = new_node
+        plan = ScalePlan()
+        plan.launch_nodes.append(new_node)
+        self._scaler.scale(plan)
+
+    # ---- monitors --------------------------------------------------------
+
+    def _monitor_heartbeats(self):
+        interval = min(30.0, self._heartbeat_timeout_s / 4)
+        while not self._stop.wait(interval):
+            now = time.time()
+            dead: List[int] = []
+            with self._lock:
+                for node in self._nodes.values():
+                    if node.status != NodeStatus.RUNNING:
+                        continue
+                    last = node.heartbeat_time or node.create_time or now
+                    if now - last > self._heartbeat_timeout_s:
+                        dead.append(node.id)
+            for node_id in dead:
+                logger.warning("node %d heartbeat timeout", node_id)
+                self.process_event(
+                    NodeEvent(NodeEventType.HEARTBEAT_TIMEOUT, node_id)
+                )
+
+    # ---- job-level queries ----------------------------------------------
+
+    def get_node(self, node_id: int) -> Optional[Node]:
+        with self._lock:
+            return self._nodes.get(node_id)
+
+    def running_nodes(self) -> List[Node]:
+        with self._lock:
+            return [
+                n
+                for n in self._nodes.values()
+                if n.status == NodeStatus.RUNNING
+            ]
+
+    def all_workers_exited(self) -> bool:
+        with self._lock:
+            return all(
+                n.is_exited()
+                for n in self._nodes.values()
+                if n.type in (NodeType.WORKER, NodeType.CHIEF)
+            )
+
+    def all_workers_succeeded(self) -> bool:
+        with self._lock:
+            return all(
+                n.status == NodeStatus.SUCCEEDED
+                for n in self._nodes.values()
+                if n.type in (NodeType.WORKER, NodeType.CHIEF)
+            )
+
+    def pending_timeout(self) -> bool:
+        now = time.time()
+        with self._lock:
+            for n in self._nodes.values():
+                if n.status in (NodeStatus.INITIAL, NodeStatus.PENDING):
+                    created = n.create_time or self._start_time
+                    if now - created > self._pending_timeout_s:
+                        return True
+            return False
+
+    @property
+    def worker_num(self) -> int:
+        with self._lock:
+            return self._num_workers

@@ -1,0 +1,215 @@
+"""Master-side rendezvous managers.
+
+Port of ``dlrover_tpu/master/rdzv_manager.py`` (``RendezvousManager``,
+``ElasticTrainingRendezvousManager``): nodes join a round, the master
+seals min..max of them (in multiples of ``node_unit``) into a world
+``{node_rank: local_world_size}`` and hands every member the same world
+and coordinator. The coordinator is the host:port of the worker
+group's ``torch.distributed`` store, on the first node of the world.
+
+The JAX manager fixes the coordinator's port at 7010. Here the first
+node's agent may send the port it picked with its join (the
+``DLROVER_TPU_COORDINATOR_PORT`` environment asks for one, 0 for a
+free port), so jobs on one host, and a restarted world whose old
+listener is still closing, do not collide; a join that sends none gets
+the JAX package's 7010. The network-check manager waits for ROADMAP
+A20 and the live-reshard directive for A11.
+"""
+
+import threading
+import time
+from typing import Dict, Optional, Tuple
+
+from dlrover_tpu_torch.common.constants import DefaultValues, RendezvousName
+from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.observability.tracing import get_tracer
+
+logger = get_logger(__name__)
+
+
+class _WaitingNode:
+    def __init__(self, node_id, node_rank, local_world_size, host_addr="",
+                 coordinator_port=0):
+        self.node_id = node_id
+        self.node_rank = node_rank
+        self.local_world_size = local_world_size
+        self.host_addr = host_addr
+        self.coordinator_port = coordinator_port
+        self.join_time = time.time()
+
+
+class RendezvousManager:
+    """Assemble a world of {node_rank: local_world_size} per round."""
+
+    def __init__(self, name: str = RendezvousName.TRAINING):
+        self.name = name
+        self._lock = threading.Lock()
+        self._waiting: Dict[int, _WaitingNode] = {}
+        self._world: Dict[int, int] = {}
+        self._world_coordinator: str = ""
+        self._rdzv_round = 0
+        self._min_nodes = 1
+        self._max_nodes = 1
+        self._node_unit = 1
+        self._waiting_timeout = DefaultValues.RDZV_WAIT_EXTRA_NODES_S
+        self._rdzv_timeout = DefaultValues.RDZV_TIMEOUT_S
+        self._start_waiting_time = 0.0
+        self._coordinator_port = DefaultValues.COORDINATOR_PORT
+        self._alive_nodes: set = set()
+
+    # ---- config ---------------------------------------------------------
+
+    def update_rdzv_params(
+        self,
+        min_nodes: Optional[int] = None,
+        max_nodes: Optional[int] = None,
+        waiting_timeout: Optional[float] = None,
+        node_unit: Optional[int] = None,
+        rdzv_timeout: Optional[float] = None,
+    ):
+        """Partial update: None keeps the current value."""
+        with self._lock:
+            if min_nodes is not None:
+                self._min_nodes = min_nodes
+            if max_nodes is not None:
+                self._max_nodes = max_nodes
+            if waiting_timeout is not None:
+                self._waiting_timeout = waiting_timeout
+            if node_unit is not None:
+                self._node_unit = max(1, node_unit)
+            if rdzv_timeout is not None:
+                self._rdzv_timeout = rdzv_timeout
+
+    def add_alive_node(self, node_rank: int):
+        with self._lock:
+            self._alive_nodes.add(node_rank)
+
+    def remove_alive_node(self, node_rank: int):
+        """A node died: drop it and force a new round if it was in-world."""
+        with self._lock:
+            self._alive_nodes.discard(node_rank)
+            self._waiting.pop(node_rank, None)
+            if node_rank not in self._world:
+                return
+            logger.info(
+                "%s: node %s left the sealed world; next joins start "
+                "round %d",
+                self.name,
+                node_rank,
+                self._rdzv_round + 1,
+            )
+            self._world = {}
+            self._world_coordinator = ""
+
+    # ---- join / poll ----------------------------------------------------
+
+    def join_rendezvous(
+        self,
+        node_id: int,
+        node_rank: int,
+        local_world_size: int,
+        host_addr: str = "",
+        coordinator_port: int = 0,
+    ) -> int:
+        with self._lock:
+            if node_rank in self._world:
+                # a member of the sealed world re-joining ⇒ it restarted;
+                # the old world is stale.
+                self._world = {}
+                self._world_coordinator = ""
+            if not self._waiting:
+                self._start_waiting_time = time.time()
+                self._rdzv_round += 1
+            self._waiting[node_rank] = _WaitingNode(
+                node_id, node_rank, local_world_size, host_addr,
+                coordinator_port,
+            )
+            self._alive_nodes.add(node_rank)
+            get_tracer().instant(
+                "failover.rdzv_join",
+                rdzv=self.name,
+                node=node_rank,
+                rdzv_round=self._rdzv_round,
+                waiting=len(self._waiting),
+            )
+            logger.info(
+                "%s round %d: node %s joined (%d waiting, min=%d max=%d)",
+                self.name,
+                self._rdzv_round,
+                node_rank,
+                len(self._waiting),
+                self._min_nodes,
+                self._max_nodes,
+            )
+            return self._rdzv_round
+
+    def _check_rdzv_completed(self) -> bool:
+        """Called with the lock held."""
+        n = len(self._waiting)
+        if n >= self._max_nodes:
+            return True
+        waited = time.time() - self._start_waiting_time
+        usable = n - (n % self._node_unit)
+        if usable >= self._min_nodes and waited >= self._waiting_timeout:
+            return True
+        return False
+
+    def _seal_world(self):
+        """Seal min..max nodes into the world; lock held."""
+        ranks = sorted(self._waiting.keys())
+        n = len(ranks)
+        usable = min(n - (n % self._node_unit), self._max_nodes)
+        if usable <= 0:
+            return
+        chosen = ranks[:usable]
+        self._world = {
+            r: self._waiting[r].local_world_size for r in chosen
+        }
+        first = self._waiting[chosen[0]]
+        host = first.host_addr or "localhost"
+        port = first.coordinator_port or self._coordinator_port
+        self._world_coordinator = f"{host}:{port}"
+        for r in chosen:
+            self._waiting.pop(r)
+        get_tracer().instant(
+            "failover.rdzv_seal",
+            rdzv=self.name,
+            rdzv_round=self._rdzv_round,
+            world_size=len(self._world),
+        )
+        logger.info(
+            "%s round %d sealed: world=%s coordinator=%s",
+            self.name,
+            self._rdzv_round,
+            self._world,
+            self._world_coordinator,
+        )
+
+    def get_comm_world(
+        self, node_rank: int
+    ) -> Tuple[int, int, Dict[int, int], str]:
+        """Poll for the sealed world: (round, group, world, coordinator)."""
+        with self._lock:
+            if not self._world and self._waiting:
+                if self._check_rdzv_completed():
+                    self._seal_world()
+            return (
+                self._rdzv_round,
+                0,
+                dict(self._world),
+                self._world_coordinator,
+            )
+
+    def num_nodes_waiting(self) -> int:
+        with self._lock:
+            return len(self._waiting)
+
+    @property
+    def rdzv_round(self) -> int:
+        with self._lock:
+            return self._rdzv_round
+
+
+class ElasticTrainingRendezvousManager(RendezvousManager):
+    def __init__(self):
+        super().__init__(RendezvousName.TRAINING)

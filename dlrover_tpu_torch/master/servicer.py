@@ -1,0 +1,263 @@
+"""MasterServicer: demux the two-RPC surface onto the managers.
+
+Port of ``dlrover_tpu/master/servicer.py`` for the handlers the elastic
+path reaches: heartbeats, node status, worker restarts and failures,
+registration, the rendezvous (join, comm world, nodes waiting), the
+KV store, sync barriers, the global step, checkpoint steps, model info
+and the running-node listing. Exceptions never cross the RPC edge.
+
+Every other message type of the JAX servicer is answered with an error
+naming the ROADMAP item that ports it (``UNPORTED``); the transport
+sends it back and the client raises ``NotImplementedError`` with it.
+"""
+
+import time
+from typing import Dict, Optional
+
+from dlrover_tpu_torch.common import messages as msgs
+from dlrover_tpu_torch.common.log import get_logger
+
+logger = get_logger(__name__)
+
+_ITEMS = {
+    "A11 (the master's data-shard service and live resharding)": (
+        "TaskRequest", "TaskResult", "DatasetShardParams",
+        "ShardCheckpointRequest", "ShardCheckpoint", "DatasetEpochRequest",
+        "EvictionNotice", "ReshardPlanRequest"),
+    "A15 (the rest of the serving tier)": (
+        "ServingEvictionNotice", "ServingReshardRequest",
+        "ServingScaleNotice", "ServingScaleRequest"),
+    "A20 (the network check, tuning and the strategy engine)": (
+        "NetworkReadyRequest", "NetworkCheckResult",
+        "NetworkCheckStatusRequest", "ParallelConfigRequest",
+        "TuningPlanNotice", "TuningPlanRequest", "StrategySearchRequest"),
+    "A18 (the sparse tier's ElasticPS)": (
+        "PsVersionReport", "PsVersionRequest"),
+    "A12 (resource stats and the telemetry sinks)": (
+        "ResourceStats", "TelemetryEventReport"),
+    "A23 (the auto-scaler and Brain)": (
+        "BrainPersistMetricsRequest", "BrainOptimizeRequest",
+        "BrainJobMetricsRequest"),
+}
+UNPORTED: Dict[str, str] = {
+    name: f"{name}: its master handler is not ported yet (ROADMAP {item})"
+    for item, names in _ITEMS.items() for name in names
+}
+
+
+class MasterServicer:
+    def __init__(
+        self,
+        job_manager=None,
+        rdzv_managers=None,
+        kv_store=None,
+        sync_service=None,
+        speed_monitor=None,
+    ):
+        self.job_manager = job_manager
+        self.rdzv_managers = rdzv_managers or {}
+        self.kv_store = kv_store
+        self.sync_service = sync_service
+        self.speed_monitor = speed_monitor
+        self._ckpt_steps = {}  # node_rank -> step (flash-ckpt rank sync)
+        # the latest model statistics (the JAX master's job meta; its
+        # metric collector waits for ROADMAP A12)
+        self.model_info: Dict[str, object] = {}
+
+    @staticmethod
+    def unported(type_name: str) -> Optional[str]:
+        return UNPORTED.get(type_name)
+
+    # ---- report: fire-and-forget ----------------------------------------
+
+    def report(self, msg) -> bool:
+        handler = self._REPORT_HANDLERS.get(type(msg).__name__)
+        if handler is None:
+            logger.warning("no report handler for %s", type(msg).__name__)
+            return False
+        return bool(handler(self, msg))
+
+    def _report_heartbeat(self, m: msgs.HeartbeatReport) -> bool:
+        if self.job_manager:
+            self.job_manager.handle_heartbeat(m.node_id)
+        return True
+
+    def _get_heartbeat(self, m: msgs.HeartbeatReport):
+        """Heartbeat via get: the response carries queued actions (the
+        diagnosis manager that queues them waits for ROADMAP A22)."""
+        if self.job_manager:
+            self.job_manager.handle_heartbeat(m.node_id)
+        return msgs.HeartbeatResponse(actions=[])
+
+    def _report_node_status(self, m: msgs.NodeStatusReport) -> bool:
+        if self.job_manager:
+            self.job_manager.handle_status_report(
+                m.node_id, m.status, m.exit_reason
+            )
+        return True
+
+    def _report_worker_restart(self, m: msgs.WorkerRestartReport) -> bool:
+        logger.info(
+            "node %d restarting its worker (%s)", m.node_id, m.reason
+        )
+        return True
+
+    def _report_node_failure(self, m: msgs.NodeFailureReport) -> bool:
+        logger.warning(
+            "node %d failure (level=%s restart=%d): %s",
+            m.node_id,
+            m.level,
+            m.restart_count,
+            m.error_data[:500],
+        )
+        return True
+
+    def _report_global_step(self, m: msgs.GlobalStepRecord) -> bool:
+        if self.speed_monitor:
+            self.speed_monitor.collect_global_step(
+                m.global_step, m.timestamp or time.time(), node_id=m.node_id
+            )
+        return True
+
+    def _report_kv(self, m: msgs.KeyValuePair) -> bool:
+        if self.kv_store:
+            self.kv_store.set(m.key, m.value)
+        return True
+
+    def _report_sync_join(self, m: msgs.SyncJoin) -> bool:
+        if self.sync_service:
+            return self.sync_service.join_sync(m.sync_name, m.node_rank)
+        return False
+
+    def _report_ckpt_step(self, m: msgs.CheckpointStepSync) -> bool:
+        self._ckpt_steps[m.node_rank] = m.step
+        return True
+
+    def _report_model_info(self, m: msgs.ModelInfoReport) -> bool:
+        # partial update: unset (zero/empty) fields must not clobber
+        # values another reporter already provided
+        self.model_info.update({
+            k: v
+            for k, v in (
+                ("model_name", m.model_name),
+                ("num_params", m.num_params),
+                ("flops_per_token", m.flops_per_token),
+                ("global_batch_size", m.global_batch_size),
+                ("seq_len", m.seq_len),
+                ("strategy_json", m.strategy_json),
+            )
+            if v
+        })
+        return True
+
+    _REPORT_HANDLERS = {
+        "ModelInfoReport": _report_model_info,
+        "HeartbeatReport": _report_heartbeat,
+        "NodeStatusReport": _report_node_status,
+        "WorkerRestartReport": _report_worker_restart,
+        "NodeFailureReport": _report_node_failure,
+        "GlobalStepRecord": _report_global_step,
+        "KeyValuePair": _report_kv,
+        "SyncJoin": _report_sync_join,
+        "CheckpointStepSync": _report_ckpt_step,
+    }
+
+    # ---- get: request → response ----------------------------------------
+
+    def get(self, msg):
+        handler = self._GET_HANDLERS.get(type(msg).__name__)
+        if handler is None:
+            logger.warning("no get handler for %s", type(msg).__name__)
+            return None
+        return handler(self, msg)
+
+    def _get_register(self, m: msgs.NodeRegisterRequest):
+        if self.job_manager and m.meta:
+            node = self.job_manager.register_node(m.meta, m.restart_count)
+            for mgr in self.rdzv_managers.values():
+                mgr.add_alive_node(node.rank_index)
+            return msgs.NodeRegisterResponse(
+                success=True,
+                node_rank=node.rank_index,
+                node_num=self.job_manager.worker_num,
+            )
+        return msgs.NodeRegisterResponse(success=False)
+
+    def _get_join_rdzv(self, m: msgs.JoinRendezvousRequest):
+        mgr = self.rdzv_managers.get(m.rdzv_name)
+        if mgr is None:
+            return None
+        node = (
+            self.job_manager.get_node(m.node_id) if self.job_manager else None
+        )
+        host = node.host_addr if node else ""
+        rdzv_round = mgr.join_rendezvous(
+            m.node_id, m.node_rank, m.local_world_size, host_addr=host,
+            coordinator_port=m.coordinator_port,
+        )
+        return msgs.JoinRendezvousResponse(round=rdzv_round)
+
+    def _get_comm_world(self, m: msgs.CommWorldRequest):
+        mgr = self.rdzv_managers.get(m.rdzv_name)
+        if mgr is None:
+            return None
+        rdzv_round, group, world, coord = mgr.get_comm_world(m.node_id)
+        return msgs.CommWorldResponse(
+            rdzv_round=rdzv_round,
+            group=group,
+            world={str(k): v for k, v in world.items()},
+            coordinator=coord,
+        )
+
+    def _get_num_nodes_waiting(self, m: msgs.NumNodesWaitingRequest):
+        mgr = self.rdzv_managers.get(m.rdzv_name)
+        n = mgr.num_nodes_waiting() if mgr else 0
+        return msgs.NumNodesWaitingResponse(waiting_num=n)
+
+    def _get_kv(self, m: msgs.KeyRequest):
+        value = self.kv_store.get(m.key) if self.kv_store else ""
+        return msgs.KeyValuePair(key=m.key, value=value)
+
+    def _get_sync(self, m: msgs.SyncRequest):
+        ok = (
+            self.sync_service.sync_finished(m.sync_name)
+            if self.sync_service
+            else False
+        )
+        return msgs.SyncResponse(success=ok)
+
+    def _get_ckpt_step(self, m: msgs.CheckpointStepRequest):
+        if not self._ckpt_steps:
+            return msgs.CheckpointStepResponse(step=0)
+        return msgs.CheckpointStepResponse(
+            step=min(self._ckpt_steps.values())
+        )
+
+    def _get_running_nodes(self, m: msgs.RunningNodesRequest):
+        if not self.job_manager:
+            return msgs.RunningNodesResponse()
+        return msgs.RunningNodesResponse(
+            nodes=[
+                msgs.NodeInfo(
+                    id=n.id,
+                    type=n.type,
+                    name=n.name,
+                    status=n.status,
+                    host_addr=n.host_addr or "",
+                    rank_index=n.rank_index,
+                )
+                for n in self.job_manager.running_nodes()
+            ]
+        )
+
+    _GET_HANDLERS = {
+        "RunningNodesRequest": _get_running_nodes,
+        "HeartbeatReport": _get_heartbeat,
+        "NodeRegisterRequest": _get_register,
+        "JoinRendezvousRequest": _get_join_rdzv,
+        "CommWorldRequest": _get_comm_world,
+        "NumNodesWaitingRequest": _get_num_nodes_waiting,
+        "KeyRequest": _get_kv,
+        "SyncRequest": _get_sync,
+        "CheckpointStepRequest": _get_ckpt_step,
+    }

@@ -5,7 +5,8 @@ telemetry.py``) with the same fields and the same ``to_json`` envelope,
 so a record the port publishes reads back through the JAX package's
 ``from_json``: the trainer's ``StepRecord``, the checkpoint engine's
 ``CheckpointRecord``, ``ElasticEvent``, the loss-spike detector's
-``NumericEvent`` and the serving replica's ``ServingRecord``. The hub
+``NumericEvent``, the serving replica's ``ServingRecord`` and the
+master speed monitor's ``StragglerRecord``. The hub
 keeps the JAX contract: ``get_hub()`` is a no-op hub whose ``enabled``
 is False until ``configure_hub`` installs one, so producers guard with
 ``if hub.enabled:`` and a disabled hub costs one attribute read. The
@@ -82,6 +83,19 @@ class ElasticEvent:
     restart: int = -1
     seconds: float = 0.0
     detail: str = ""
+    ts: float = 0.0
+
+
+@telemetry_record
+class StragglerRecord:
+    """A worker lagging the per-worker step watermark front (the
+    master's speed monitor publishes it)."""
+
+    node_id: int = -1
+    step: int = 0
+    max_step: int = 0
+    lag_steps: int = 0
+    ratio: float = 0.0
     ts: float = 0.0
 
 

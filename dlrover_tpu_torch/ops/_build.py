@@ -7,13 +7,16 @@ the checkout by a hash of the sources and flags. Only sources in the
 repository are used. ``build(name)`` compiles one source if it is not
 built yet; ``load(name)`` builds it if needed and returns the
 ``ctypes.CDLL``. A failed build raises with the compiler's output:
-nothing falls back to a plain version.
+nothing falls back to a plain version. Processes that build one source
+at once (the elastic agent's workers) take turns on a file lock, so
+the source compiles once and the others load its library.
 
 Nothing here runs at import: the CPU tests import every module, on
 machines that may have no ``nvcc``.
 """
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -74,6 +77,14 @@ def build(name: str) -> float:
     if out.exists():
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(out.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        if out.exists():  # built by another process while we waited
+            return 0.0
+        return _compile(name, out)
+
+
+def _compile(name: str, out: Path) -> float:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(sources()[name])]
     t0 = time.monotonic()

@@ -4,8 +4,13 @@ Port of ``prefetch_to_device`` from ``dlrover_tpu/train/data_utils.py``.
 ``jax.device_put`` is asynchronous; here each batch is copied from
 page-locked host memory (``pin_memory``) with ``non_blocking`` copies on
 a side stream, ``size`` batches ahead of the one the step takes, and the
-step's stream waits on the copy's event before it reads the batch. The
-multi-host batch formation of the JAX module waits for ROADMAP A8.
+step's stream waits on the copy's event before it reads the batch.
+
+The JAX module's ``form_global_batch`` assembles one global array from
+every host's local rows. The port's replicated data parallelism needs
+no assembly: each rank keeps its own rows (rows [rank·B/W,
+(rank+1)·B/W) of the global batch), and the step all-reduces the
+gradients (``train_step.py``).
 """
 
 import collections

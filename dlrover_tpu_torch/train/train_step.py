@@ -5,6 +5,15 @@ Port of the replicated path of ``dlrover_tpu/train/train_step.py``:
 fused K-step ``block_fn`` and ``build_block``) and ``build_eval_step``,
 without a mesh, update sharding, fp8 or health sentinels.
 
+In a ``torch.distributed`` world of W > 1 processes the step is the JAX
+step under a data-parallel mesh: each rank holds its rows of the global
+batch; the loss divides by the GLOBAL mask sum (all-reduced first, as
+``loss_fn`` under a dp mesh divides by the global sum, so ranks with
+unequal masks train the model the one-process step would); after the
+backward the gradients, with the loss and accuracy, go through one flat
+f32 all-reduce (no buckets: ZeRO and the bucketed, int8 wire are ROADMAP
+A9). At W = 1 no collective runs and the step is the one-process step.
+
 One step: the loss and gradients of ``decoder.loss_fn`` (the mean over
 micro-batches when ``grad_accum > 1``: gradients summed over the
 micro-batches, then divided, as ``_accumulated_grads`` does), the global
@@ -17,10 +26,12 @@ dict.
 from typing import Callable, Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
 
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import decoder
 from dlrover_tpu_torch.models.config import ModelConfig
+from dlrover_tpu_torch.train.distributed import process_count
 from dlrover_tpu_torch.train.optimizer import AdamW, global_norm
 
 TrainState = Dict
@@ -51,10 +62,42 @@ class TrainStepBuilder:
         self.grad_accum = grad_accum
         self.attn_impl = attn_impl
         self.device = resolve_device(device)
+        self.world = process_count()
+        if self.world > 1 and grad_accum > 1:
+            raise NotImplementedError(
+                "grad_accum > 1 in a multi-process world (the global batch "
+                "kept fixed across world sizes) is not ported yet "
+                "(ROADMAP A11)")
 
-    def _loss(self, model, batch):
+    def _loss(self, model, batch, denom=None):
         return decoder.loss_fn(model, batch, self.cfg,
-                               attn_impl=self.attn_impl)
+                               attn_impl=self.attn_impl, denom=denom)
+
+    def _dp_grads(self, model, params, batch) -> Dict:
+        """The data-parallel loss and gradients (W > 1): the global mask
+        sum first, then one flat f32 all-reduce of every gradient with the
+        loss and accuracy. Leaves the summed gradients in ``.grad``."""
+        mask = batch.get("mask")
+        if mask is None:
+            count = torch.tensor(float(batch["targets"].numel()),
+                                 device=self.device)
+        else:
+            count = mask.float().sum()
+        dist.all_reduce(count)
+        loss, metrics = self._loss(model, batch,
+                                   denom=torch.clamp(count, min=1.0))
+        loss.backward()
+        grads = [p.grad for p in params.values()]
+        flat = torch.cat([g.reshape(-1).float() for g in grads]
+                         + [metrics["loss"].reshape(1).float(),
+                            metrics["accuracy"].reshape(1).float()])
+        dist.all_reduce(flat)
+        at = 0
+        for g in grads:
+            g.copy_(flat[at: at + g.numel()].view(g.shape))
+            at += g.numel()
+        return dict(metrics, loss=flat[-2].clone(),
+                    accuracy=flat[-1].clone(), tokens=count)
 
     def step_fn(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         """One optimizer step on ``batch`` (tensors with a leading batch
@@ -67,7 +110,9 @@ class TrainStepBuilder:
             p.grad = None
         batch = {k: v.to(self.device) for k, v in batch.items()}
         a = self.grad_accum
-        if a == 1:
+        if self.world > 1:
+            metrics = self._dp_grads(model, params, batch)
+        elif a == 1:
             loss, metrics = self._loss(model, batch)
             loss.backward()
         else:

@@ -1,18 +1,28 @@
 """High-level trainer: the loop with its cadences around the train step.
 
 Port of ``dlrover_tpu/train/trainer.py`` (``TrainerArgs``, ``Trainer``)
-for one process on one device: ``TrainStepBuilder``'s step (or its fused
+for one device a process: ``TrainStepBuilder``'s step (or its fused
 K-step block) over the batches, Flash Checkpoint resume (shared memory,
 then storage) and cadenced saves (``memory_save_interval`` stages to
-shared memory, ``save_interval`` also persists on the engine's thread),
-evaluation, loss-spike detection, step timing on CUDA events, callbacks
-and telemetry. Every cadence stays exact for any ``block_k``: blocks
+shared memory, ``save_interval`` also persists, on the engine's thread
+or, under the elastic agent, from the agent's process), evaluation,
+loss-spike detection, step timing on CUDA events, callbacks and
+telemetry. Every cadence stays exact for any ``block_k``: blocks
 shrink to land on each boundary (``_next_block_k``).
 
+In a ``torch.distributed`` world of several processes (the agent's
+workers) the step is replicated data parallelism: each rank's
+``train_iter`` yields its own rows of the global batch (rows
+[rank·B/W, (rank+1)·B/W), as the JAX ``form_global_batch`` lays them
+out), and the step all-reduces the gradients (``train_step.py``). With
+a master client the trainer reports the model's statistics (rank 0) and
+every global step, as the JAX trainer does, and its checkpoints report
+their staged steps.
+
 Not ported yet, and refused with the ROADMAP item that ports them: a
-mesh or several processes and master reporting (A8), update sharding
-and the bucketed gradient exchange (A9), health sentinels and the
-sampled runtime profile (A12), the gradient sanitizer (A17).
+device mesh, update sharding and the bucketed gradient exchange (A9),
+health sentinels and the sampled runtime profile (A12), the gradient
+sanitizer (A17).
 """
 
 import os
@@ -39,6 +49,7 @@ from dlrover_tpu_torch.train.callbacks import (
     TrainerControl,
 )
 from dlrover_tpu_torch.train.data_utils import prefetch_to_device
+from dlrover_tpu_torch.train.distributed import process_count, process_index
 from dlrover_tpu_torch.train.train_step import (
     TrainStepBuilder,
     build_eval_step,
@@ -89,7 +100,7 @@ class TrainerArgs:
     sanitize_grads: Optional[str] = None        # ROADMAP A17
 
 
-def _refuse_unported(args: TrainerArgs, mesh, master_client) -> None:
+def _refuse_unported(args: TrainerArgs, mesh) -> None:
     if (args.update_sharding or args.comm_bucket_mb != 4.0
             or args.comm_wire_dtype != "float32"
             or args.comm_wire_dtype_dcn is not None):
@@ -103,22 +114,19 @@ def _refuse_unported(args: TrainerArgs, mesh, master_client) -> None:
     if args.sanitize_grads:
         raise NotImplementedError(
             "sanitize_grads is not ported yet (ROADMAP A17)")
-    dist = torch.distributed
-    if mesh is not None or (dist.is_available() and dist.is_initialized()
-                            and dist.get_world_size() > 1):
+    if mesh is not None:
         raise NotImplementedError(
-            "a mesh or a multi-process run is not ported yet (ROADMAP A8)")
-    if master_client is not None:
-        raise NotImplementedError(
-            "reporting to the elastic master is not ported yet (ROADMAP A8)")
+            "a device mesh (DDP/FSDP/TP over dp/fsdp/tp) is not ported yet "
+            "(ROADMAP A9)")
 
 
 class Trainer:
     """Own the training loop for one model, optimizer and device.
 
-    ``train_iter`` yields batch dicts ({"tokens", "targets", ...}) of the
-    global batch size, as arrays or host tensors; the trainer moves them
-    to the device (``args.prefetch`` ahead). The state is
+    ``train_iter`` yields batch dicts ({"tokens", "targets", ...}) of
+    this process's rows of the global batch (all of it in a one-process
+    run), as arrays or host tensors; the trainer moves them to the device
+    (``args.prefetch`` ahead). The state is
     ``train_step.init_train_state``'s, updated in place by every step.
     """
 
@@ -140,8 +148,9 @@ class Trainer:
         """``step_builder``/``init_state_fn``/``eval_step_fn`` hand in the
         lowering instead of the one built here from ``args``;
         ``init_state_fn(seed)`` returns a train state."""
-        _refuse_unported(args, mesh, master_client)
+        _refuse_unported(args, mesh)
         self.cfg = cfg
+        self.client = master_client
         self.args = args
         self.device = resolve_device(device)
         self.optimizer = optimizer
@@ -182,7 +191,9 @@ class Trainer:
     def checkpointer(self) -> Checkpointer:
         if self._ckpt is None:
             self._ckpt = Checkpointer(
-                os.path.join(self.args.output_dir, "checkpoints"))
+                os.path.join(self.args.output_dir, "checkpoints"),
+                master_client=self.client if self.args.report_to_master
+                else None)
         return self._ckpt
 
     def state_leaves(self):
@@ -219,6 +230,20 @@ class Trainer:
             self._init_state()
         if self._step_fn is None:
             self._step_fn = self._builder.build()
+        if (self.client is not None and args.report_to_master
+                and process_index() == 0):
+            # model statistics → the master's job meta (reference:
+            # master_client.py report_model_info)
+            try:
+                self.client.report_model_info(
+                    model_name=self.cfg.name,
+                    num_params=self.cfg.num_params(),
+                    flops_per_token=self.cfg.flops_per_token(
+                        self.cfg.max_seq),
+                    seq_len=self.cfg.max_seq,
+                )
+            except Exception:  # noqa: BLE001
+                logger.warning("model-info report failed", exc_info=True)
         control = self.control
         self.callbacks.fire("on_train_begin", self, control)
         if args.block_k > 1:
@@ -234,18 +259,31 @@ class Trainer:
                                     eval_metrics, control)
         # final checkpoint so a clean exit is always resumable (skipped
         # when the loop's cadence already saved this exact step); any
-        # save at all is awaited, or the process could exit mid-persist
+        # save at all is awaited, or the process could exit mid-persist.
+        # A final save that is refused or does not commit fails the run.
         if args.save_interval:
             final_step = self.state["step"]
             if final_step != last_saved:
-                self._save(final_step, StorageType.DISK)
+                if not self._save(final_step, StorageType.DISK):
+                    raise RuntimeError(
+                        f"the final checkpoint of step {final_step} was "
+                        "not saved")
                 last_saved = final_step
-        if last_saved >= 0:
-            self.checkpointer.wait_for_persist()
+        if last_saved >= 0 and not self.checkpointer.wait_for_persist():
+            raise RuntimeError(
+                f"the checkpoint of step {last_saved} did not commit")
         self.callbacks.fire("on_train_end", self, control)
         return self.state
 
     # ---- telemetry producers --------------------------------------------
+
+    def _report_step(self, step: int):
+        """The global step to the master, as the JAX trainer reports it."""
+        if self.client is not None and self.args.report_to_master:
+            try:
+                self.client.report_global_step(step, process_count())
+            except Exception:  # noqa: BLE001
+                logger.warning("global-step report failed", exc_info=True)
 
     def _emit_step_telemetry(self, step: int, loss: float,
                              step_time_s: float, batch=None,
@@ -337,6 +375,7 @@ class Trainer:
             if control.should_log or (
                     args.log_interval and step % args.log_interval == 0):
                 self._log(step, window, control)
+            self._report_step(step)
             saved, evaled = self._boundary(step)
             last_saved = step if saved else last_saved
             last_evaled = step if evaled else last_evaled
@@ -431,6 +470,7 @@ class Trainer:
                 drain(*pending)
             pending = (step + 1, k, host, ready, timing)
             step += k
+            self._report_step(step)
             saved, evaled = self._boundary(step)
             last_saved = step if saved else last_saved
             last_evaled = step if evaled else last_evaled

@@ -18,7 +18,10 @@ A llama-family config at 2 layers and narrow widths (the one of
 - the telemetry records read back through the JAX ``from_json``, and the
   loss-spike detector flags the steps JAX's flags;
 - the ``TrainerArgs`` this slice does not carry raise, naming their
-  ROADMAP item.
+  ROADMAP item;
+- with a master client, the port's ``Trainer`` reports the model's
+  statistics and every global step as the JAX ``Trainer`` does, in the
+  stepwise and the block loop.
 """
 
 import dataclasses
@@ -306,13 +309,12 @@ def test_loss_spike_detector_flags_what_jax_flags(zscore):
     (dict(health_sentinels=True), "A12"),
     (dict(profile_interval=5), "A12"),
     (dict(sanitize_grads="skip"), "A17"),
-    (dict(mesh=object()), "A8"),
-    (dict(master_client=object()), "A8"),
+    (dict(mesh=object()), "A9"),
 ])
 def test_unported_trainer_args_raise_naming_their_item(tmp_path, kw, item):
     cfg = get_config("tiny", **_CFG)
     tx = topt.make_optimizer(**_OPT)
-    ctor = {k: kw.pop(k) for k in ("mesh", "master_client") if k in kw}
+    ctor = {k: kw.pop(k) for k in ("mesh",) if k in kw}
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ttrainer.Trainer(cfg, ttrainer.TrainerArgs(output_dir=str(tmp_path),
                                                    **kw), [], tx,
@@ -330,3 +332,44 @@ def test_prefetch_on_the_cpu_is_the_plain_copy(tmp_path):
                       prefetch=n).train()
         recs.append(rec.losses)
     assert recs[0] == recs[1]
+
+
+class _Client:
+    """A master client stub recording the trainer's reports."""
+
+    def __init__(self):
+        self.calls = []
+
+    def report_model_info(self, **kw):
+        self.calls.append(("model_info", sorted(kw.items())))
+
+    def report_global_step(self, step, worker_num=0):
+        self.calls.append(("global_step", step, worker_num))
+
+    def report_ckpt_step(self, step, rank=None):
+        self.calls.append(("ckpt_step", step))
+
+    def get_min_ckpt_step(self):
+        return 0
+
+
+@pytest.mark.parametrize("block_k", [1, 3])
+def test_master_reports_are_the_jax_trainers(tmp_path, block_k):
+    batches = _batches()
+    theirs, mine = _Client(), _Client()
+    jt = _jax_trainer(tmp_path / "jax", batches, Record(), block_k=block_k)
+    jt.client = theirs
+    jt.train()
+    cfg = get_config("tiny", **_CFG)
+    tx = topt.make_optimizer(**_OPT)
+    arrays = _jax_init()[2]
+    args = ttrainer.TrainerArgs(output_dir=str(tmp_path / "port"),
+                                max_steps=STEPS, save_interval=0,
+                                log_interval=0, block_k=block_k)
+    ttrainer.Trainer(cfg, args, batches, tx, master_client=mine,
+                     init_state_fn=_port_init(arrays, cfg, tx),
+                     device="cpu").train()
+    assert mine.calls == theirs.calls
+    assert mine.calls[0][0] == "model_info"
+    assert [c[1] for c in mine.calls[1:]] == (
+        list(range(1, STEPS + 1)) if block_k == 1 else [3, 6])

@@ -1,0 +1,214 @@
+"""The port's control-plane wire against the JAX package's, on the CPU.
+
+- every message the port registers (what its control plane sends)
+  encodes to the same bytes as the JAX package's message of the same
+  name and fields, and decodes back equal, in both packages (hypothesis
+  over the field values); the port's one extension field
+  (``JoinRendezvousRequest.coordinator_port``) is left out at its
+  default, and decodes in the port when set;
+- the transport (length-prefixed frames over TCP, no grpc) does report
+  and get round trips, retries a refused call on the JAX package's
+  jittered backoff schedule, answers a failing get with an error, and
+  answers a message type whose master handler is not ported with the
+  text naming its ROADMAP item, which the client raises as
+  ``NotImplementedError``;
+- every request type the JAX servicer handles is either handled by the
+  port's or named in its ``UNPORTED`` table.
+"""
+
+import dataclasses
+import random
+import typing
+
+import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from dlrover_tpu.common import comm as jcomm  # noqa: E402
+from dlrover_tpu.common import messages as jmsgs  # noqa: E402
+from dlrover_tpu.master.servicer import MasterServicer as JServicer  # noqa
+from dlrover_tpu_torch.common import comm, messages as msgs  # noqa: E402
+from dlrover_tpu_torch.master.kv_store import KVStoreService  # noqa: E402
+from dlrover_tpu_torch.master.servicer import (  # noqa: E402
+    UNPORTED,
+    MasterServicer,
+)
+
+_INT = st.integers(-(2 ** 40), 2 ** 40)
+_TEXT = st.text(max_size=12)
+_FLOAT = st.floats(allow_nan=False, allow_infinity=False, width=64)
+
+
+def _strategy(tp):
+    origin = typing.get_origin(tp)
+    args = typing.get_args(tp)
+    if tp is int:
+        return _INT
+    if tp is float:
+        return _FLOAT
+    if tp is str:
+        return _TEXT
+    if tp is bool:
+        return st.booleans()
+    if origin is typing.Union:  # Optional[X]
+        inner = [a for a in args if a is not type(None)][0]
+        return st.none() | _strategy(inner)
+    if origin in (list, typing.List):
+        return st.lists(_strategy(args[0]), max_size=3)
+    if origin in (dict, typing.Dict):
+        return st.dictionaries(_TEXT, _strategy(args[1]), max_size=3)
+    if dataclasses.is_dataclass(tp):
+        return _message(tp)
+    raise TypeError(tp)
+
+
+def _message(cls):
+    hints = typing.get_type_hints(cls)
+    fields = {f.name: _strategy(hints[f.name])
+              for f in dataclasses.fields(cls)
+              if not f.metadata.get("ext")}
+    return st.builds(cls, **fields)
+
+
+def _jax_twin(value):
+    """The JAX package's message with the same fields (recursively)."""
+    if dataclasses.is_dataclass(value) and not isinstance(value, type):
+        cls = jmsgs._REGISTRY[type(value).__name__]
+        return cls(**{f.name: _jax_twin(getattr(value, f.name))
+                      for f in dataclasses.fields(value)
+                      if not f.metadata.get("ext")})
+    if isinstance(value, list):
+        return [_jax_twin(v) for v in value]
+    if isinstance(value, dict):
+        return {k: _jax_twin(v) for k, v in value.items()}
+    return value
+
+
+PORT_MESSAGES = sorted(msgs._REGISTRY)
+
+
+def test_the_port_registers_only_messages_of_the_jax_package():
+    assert set(PORT_MESSAGES) <= set(jmsgs._REGISTRY)
+    for name in PORT_MESSAGES:
+        mine = [f.name for f in dataclasses.fields(msgs._REGISTRY[name])
+                if not f.metadata.get("ext")]
+        theirs = [f.name for f in dataclasses.fields(jmsgs._REGISTRY[name])]
+        assert mine == theirs, name
+
+
+@pytest.mark.parametrize("name", PORT_MESSAGES)
+@settings(max_examples=25, deadline=None)
+@given(data=st.data())
+def test_every_message_encodes_as_the_jax_package_does(name, data):
+    msg = data.draw(_message(msgs._REGISTRY[name]))
+    raw = msgs.serialize(msg)
+    assert raw == jmsgs.serialize(_jax_twin(msg))
+    assert msgs.deserialize(raw) == msg
+    assert jmsgs.deserialize(raw) == _jax_twin(msg)
+
+
+def test_the_join_sends_its_store_port_only_when_it_has_one():
+    plain = msgs.JoinRendezvousRequest(node_id=3, node_rank=1)
+    assert msgs.serialize(plain) == jmsgs.serialize(
+        jmsgs.JoinRendezvousRequest(node_id=3, node_rank=1))
+    picked = msgs.JoinRendezvousRequest(node_id=3, node_rank=1,
+                                        coordinator_port=29511)
+    raw = msgs.serialize(picked)
+    assert b'"coordinator_port": 29511' in raw
+    assert msgs.deserialize(raw) == picked
+
+
+class _Stub:
+    """A servicer answering a few types; one handler raises."""
+
+    def __init__(self):
+        self.kv = KVStoreService()
+        self.reports = []
+
+    def report(self, m):
+        self.reports.append(m)
+        if isinstance(m, msgs.KeyValuePair):
+            self.kv.set(m.key, m.value)
+        return True
+
+    def get(self, m):
+        if isinstance(m, msgs.KeyRequest):
+            if m.key == "boom":
+                raise ValueError("boom")
+            return msgs.KeyValuePair(key=m.key, value=self.kv.get(m.key))
+        return None
+
+    unported = staticmethod(MasterServicer.unported)
+
+
+@pytest.fixture()
+def server():
+    stub = _Stub()
+    srv = comm.MasterTransportServer(stub, port=0)
+    srv.start()
+    yield srv, stub
+    srv.stop()
+
+
+def test_report_and_get_round_trip(server):
+    srv, stub = server
+    client = comm.MasterTransportClient(f"localhost:{srv.port}", retries=2)
+    assert client.report(msgs.KeyValuePair(key="a", value="1"))
+    assert client.get(msgs.KeyRequest(key="a")) == msgs.KeyValuePair(
+        key="a", value="1")
+    # a get the servicer answers with nothing decodes to None
+    assert client.get(msgs.SyncRequest(sync_name="s")) is None
+    assert stub.reports == [msgs.KeyValuePair(key="a", value="1")]
+
+
+def test_a_failing_get_raises_remote_error(server):
+    srv, _ = server
+    client = comm.MasterTransportClient(f"localhost:{srv.port}", retries=1)
+    with pytest.raises(comm.RemoteError, match="boom"):
+        client.get(msgs.KeyRequest(key="boom"))
+
+
+@pytest.mark.parametrize("name,item", [
+    ("TaskRequest", "A11"), ("EvictionNotice", "A11"),
+    ("ServingScaleRequest", "A15"), ("ParallelConfigRequest", "A20"),
+    ("PsVersionRequest", "A18"), ("ResourceStats", "A12"),
+])
+def test_an_unported_handler_answers_with_its_roadmap_item(server, name,
+                                                            item):
+    srv, _ = server
+    client = comm.MasterTransportClient(f"localhost:{srv.port}", retries=1)
+    raw = jmsgs.serialize(jmsgs._REGISTRY[name]())
+    for method in (b"r", b"g"):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            client.call(method, raw)
+
+
+def test_every_jax_request_is_handled_or_named_unported():
+    jax_requests = set(JServicer._REPORT_HANDLERS) | set(
+        JServicer._GET_HANDLERS)
+    port = set(MasterServicer._REPORT_HANDLERS) | set(
+        MasterServicer._GET_HANDLERS)
+    assert jax_requests - port <= set(UNPORTED)
+    assert not port & set(UNPORTED)
+    assert set(UNPORTED) <= set(jmsgs._REGISTRY)
+
+
+def test_the_backoff_is_the_jax_package_schedule():
+    for seed in range(3):
+        random.seed(seed)
+        mine = [comm._backoff_delay(a) for a in range(12)]
+        random.seed(seed)
+        theirs = [jcomm._backoff_delay(a) for a in range(12)]
+        assert mine == theirs
+
+
+def test_a_refused_call_retries_on_that_schedule(monkeypatch):
+    waits = []
+    monkeypatch.setattr(comm, "_wait", waits.append)
+    client = comm.MasterTransportClient(
+        f"localhost:{comm.find_free_port()}", timeout_s=2.0)
+    random.seed(11)
+    with pytest.raises(OSError):
+        client.report(msgs.HeartbeatReport(node_id=1), retries=4)
+    random.seed(11)
+    assert waits == [jcomm._backoff_delay(a) for a in range(4)]
