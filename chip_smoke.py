@@ -24,7 +24,11 @@ from ``--seed``, through the hand-written CUDA kernels built from
 - elastic training: the launcher (``dlrover_tpu_torch.agent.launcher``:
   a local job master, the elastic agent and its checkpoint saver)
   restarting a crashed llama-1.4b worker
-  (``dlrover_tpu_torch.examples.train_gpt_elastic``) on the card.
+  (``dlrover_tpu_torch.examples.train_gpt_elastic``) on the card;
+- sequence parallelism: ``TrainStepBuilder`` over ``MeshConfig(dp=1,
+  sp=4)`` → ``loss_fn(mesh=...)`` → ``ring_attention`` (the flash
+  kernels with ring offsets on its window-partial and prefix-only
+  blocks) or ``ulysses_attention``, four ranks on the one card.
 
 Phases, one JSON line each; any failure exits nonzero and prints no
 result:
@@ -159,7 +163,26 @@ result:
    the agent's persists against the disk yardstick, rendezvous and
    respawn, the worker's start, group, kernel load and memory restore,
    the crash to the first step back, the steady step against the
-   reference's, and any step stalled during a persist.
+   reference's, and any step stalled during a persist;
+12. ring, ulysses, ring_glm: four processes on the card in a gloo group
+   (asked for: NCCL refuses two ranks on one GPU; the ring shifts and
+   all-to-alls stage their CUDA tensors through page-locked host
+   memory), ``MeshConfig(dp=1, sp=4)``: mistral-7b at full width and 2
+   layers, b1 × s8192 (blocks of 2048, window 4096: ranks 2 and 3 each
+   meet a window-partial block, the offsets, a dense and a diagonal one,
+   rank 3 also an empty one), over the ring and over Ulysses
+   (``attn_impl="auto"``); glm-10b at full width and 2 layers, b2 ×
+   s2048, prefixes 0 and one past the first block (prefix-only blocks)
+   over the ring. Each: f32 loss and first-layer gradients within 1e-3 of
+   one process's flash step on the same batch and weights, a planted
+   fault (the ring's k_off on one rank; Ulysses' window or prefix on one
+   rank's heads) beyond it, bf16 within 2e-3 (loss) and 5e-2
+   (gradients), then 3 bf16 steps: finite losses, each rank's launches
+   (the offset ones apart) exactly those of its block map, no kernel
+   rebuilt in a worker, each rank's peak memory. The train_kernel phase
+   also holds the six flash kernels with ring offsets against their
+   plain versions at these blocks' shapes (bf16 and f32, the fault k_off
+   off by one key), timed beside themselves without offsets.
 
 The lines before the last are the card's name and power limit and a
 ``{"kernels": [...]}`` summary (the chunk kernel's entry also gives its
@@ -1485,7 +1508,7 @@ def _over(out, ref, bound):
 
 
 def _flash_magnitudes(q, k, v, out, lse, g, causal, scale, window,
-                      prefix=None):
+                      prefix=None, offsets=None):
     """The magnitude products of the flash bounds, in f32, one batch
     element at a time: sum_j p_j·|v_j| (forward), P^T·|dO| (dV),
     |dS|·|K| (dQ) and |dS|^T·|Q| (dK), and the cancellation terms C of
@@ -1496,7 +1519,7 @@ def _flash_magnitudes(q, k, v, out, lse, g, causal, scale, window,
     b, sq, h, d = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     rep = h // hkv
-    mask = fa._allowed(sq, sk, causal, window, prefix, None, q.device)
+    mask = fa._allowed(sq, sk, causal, window, prefix, offsets, q.device)
     fwd_m = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dq_m = torch.empty_like(fwd_m)
     dk_m = torch.empty(k.shape, dtype=torch.float32, device=q.device)
@@ -1541,7 +1564,8 @@ def _visible_pairs(s, causal, window, prefix=0):
     return sum(min(i + 1, window) for i in range(s))
 
 
-def _flash_work(kernel, b, s, h, hkv, d, causal, window, prefix=None):
+def _flash_work(kernel, b, s, h, hkv, d, causal, window, prefix=None,
+                pairs=None):
     """(bytes, operations) of one flash kernel's share of the work for
     this call: bf16 tensors read and written once (lse/delta f32), and
     2·D FLOP per visible pair for each product (forward: QK^T, PV). The
@@ -1551,10 +1575,13 @@ def _flash_work(kernel, b, s, h, hkv, d, causal, window, prefix=None):
     in dkv (QK^T, dO·V^T, P^T·dO, dS^T·Q, every read, the dk/dv writes),
     so dq holds only dS·K and its dq write, and the two bounds add up to
     the backward's. The split kernels execute 14·D per pair: both
-    recompute QK^T and dO·V^T."""
+    recompute QK^T and dO·V^T. ``pairs``: the visible (query, key) pairs
+    of every head, counted from the mask (a ring block's offsets), else
+    from the mask rule."""
     q_bytes, kv_bytes, row = b * s * h * d * 2, b * s * hkv * d * 2, b * h * s * 4
-    pairs = h * sum(_visible_pairs(s, causal, window, p)
-                    for p in (prefix if prefix is not None else [0] * b))
+    if pairs is None:
+        pairs = h * sum(_visible_pairs(s, causal, window, p)
+                        for p in (prefix if prefix is not None else [0] * b))
     if kernel.startswith("flash_fwd"):
         moved, ops = 2 * q_bytes + 2 * kv_bytes + row, 4 * d * pairs
     elif kernel.startswith("flash_bwd_dq"):
@@ -1565,7 +1592,7 @@ def _flash_work(kernel, b, s, h, hkv, d, causal, window, prefix=None):
 
 
 def _bwd_kernel_fn(which, q, k, v, g, lse, delta, *, causal, scale,
-                   window, pack=1, prefix=None):
+                   window, pack=1, prefix=None, offsets=None):
     """One backward kernel alone (1: dq, 2: dkv; the one
     ``bwd_cuda_kernel`` picks for ``q.dtype`` at ``pack``), launched
     through the C entry, to time it: its outputs are thrown away and its
@@ -1577,10 +1604,11 @@ def _bwd_kernel_fn(which, q, k, v, g, lse, delta, *, causal, scale,
     name = fa.bwd_cuda_kernel(q.dtype, pack)[which - 1]
     kernel = fa.BWD_CUDA_KERNELS.index(name)
     outs = [torch.empty_like(x) for x in (q, k, v)]
+    q_off, k_off = fa.host_offsets(offsets, sq, sk, window)
     args = ([x.data_ptr() for x in (q, k, v, g, lse, delta, *outs)]
             + [None if prefix is None else prefix.data_ptr()]
             + [b, sq, sk, h, hkv, d, float(scale), int(causal), int(window),
-               fa._DTYPE_CODE[q.dtype]])
+               q_off, k_off, fa._DTYPE_CODE[q.dtype]])
 
     def run():
         # the stream current at the call: graph_ms captures on its own
@@ -1609,28 +1637,52 @@ def _sdpa_train(q, k, v, g, causal, scale):
     return (lambda: fwd(qt, kt, vt)), library_backward(fwd, (qt, kt, vt), gt)
 
 
+def _sdpa_masked(q, k, v, g, mask, scale):
+    """``_sdpa_train`` with an explicit boolean mask ``[B or 1, Sq, Sk]``:
+    the library call that computes a ring block's attention (a row that
+    sees no key gives NaN there; only its time is read)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    gqa = q.shape[2] != k.shape[2]
+    m = mask[:, None]
+
+    def fwd(a, b_, c):
+        return F.scaled_dot_product_attention(a, b_, c, attn_mask=m,
+                                              scale=scale, enable_gqa=gqa)
+
+    return (lambda: fwd(qt, kt, vt)), library_backward(fwd, (qt, kt, vt), gt)
+
+
 def _zero_head(x):
     """``x`` ``[B, S, H, D]`` with one zero head appended."""
     return torch.cat([x, torch.zeros_like(x[:, :, :1])], 2).contiguous()
 
 
 def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
-               pack=1, prefix=None, fault="key", sk=None):
+               pack=1, prefix=None, fault="key", sk=None, offsets=None,
+               dtype=torch.bfloat16):
     """The flash kernels (``pack`` 2: the packed ones) at one shape (``s``
     queries, ``sk`` keys, ``s`` by default) against their plain versions,
     with a planted fault: ``key`` (key row min(Sq, Sk)/2 of every KV
-    head replaced), ``prefix`` (the prefix shifted by one key) or ``last_pack``
-    (odd H: the last pack's second head, run on the zero-padded inputs,
-    written into head H - 1; the ragged path's heads must also equal the
-    padded path's bit for bit)."""
+    head replaced), ``prefix`` (the prefix shifted by one key), ``k_off``
+    (the ring offsets' k_off off by one key) or ``last_pack`` (odd H: the
+    last pack's second head, run on the zero-padded inputs, written into
+    head H - 1; the ragged path's heads must also equal the padded path's
+    bit for bit). ``offsets``: a ring block's ``(q_off, k_off)``; the
+    rows that see no key of the block are compared as the ring router
+    reads them (their cotangent 0, their lse at or below -1e27, their
+    output unread), and the timed case is also timed without offsets on
+    the same inputs (the cost of the shift). ``dtype`` float32 runs the
+    f32 kernels under the same bound (their arithmetic rounds nothing to
+    bf16, so they sit far inside it)."""
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     scale = d ** -0.5
     names = fa.PACKED if pack == 2 else fa.UNPACKED
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(
-            torch.bfloat16)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     sk = s if sk is None else sk
     q, k, v, g = rnd(b, s, h, d), rnd(b, sk, hkv, d), rnd(b, sk, hkv, d), \
@@ -1638,23 +1690,43 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
     pref = (None if prefix is None
             else torch.tensor(prefix, dtype=torch.int32, device=dev))
     kw = dict(causal=causal, scale=scale, window=window)
+    mask = fa._allowed(s, sk, causal, window, pref, offsets, dev)
+    seen = None
+    if offsets is not None:
+        seen = mask.any(-1).expand(b, s)      # rows that see a key
+        g = torch.where(seen[:, :, None, None], g, 0).to(g.dtype)
 
-    def run(q, k, v, g, pref):
-        out, lse = fa.flash_fwd_cuda(q, k, v, prefix=pref, pack=pack, **kw)
+    def run(q, k, v, g, pref, offs=offsets):
+        out, lse = fa.flash_fwd_cuda(q, k, v, prefix=pref, pack=pack,
+                                     offsets=offs, **kw)
         delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1)
         grads = fa.flash_bwd_cuda(q, k, v, g, lse, delta.contiguous(),
-                                  prefix=pref, pack=pack, **kw)
-        return dict(zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads)))
+                                  prefix=pref, pack=pack, offsets=offs, **kw)
+        res = dict(zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *grads)))
+        if seen is not None:   # the rows the ring merge reads
+            res["out"] = torch.where(seen[:, :, None, None], out, 0)
+            res["lse"] = torch.where(seen[:, None, :], lse, 0)
+        return res
 
     got = run(q, k, v, g, pref)
     out, lse = got["out"], got["lse"]
+    raw_lse = None
     torch.cuda.synchronize()
     f32 = [x.float() for x in (q, k, v)]
-    ref_out, ref_lse = fa.flash_fwd_reference(*f32, prefix=pref, **kw)
-    rdq, rdk, rdv = fa.flash_bwd_reference(*f32, out.float(), lse,
-                                           g.float(), prefix=pref, **kw)
+    ref_out, ref_lse = fa.flash_fwd_reference(*f32, prefix=pref,
+                                              offsets=offsets, **kw)
+    if seen is not None:
+        # the kernel's own lse, which its backward read
+        raw_lse = fa.flash_fwd_cuda(q, k, v, prefix=pref, pack=pack,
+                                    offsets=offsets, **kw)[1]
+        ref_out = torch.where(seen[:, :, None, None], ref_out, 0)
+        ref_lse = torch.where(seen[:, None, :], ref_lse, 0)
+    bwd_lse = lse if raw_lse is None else raw_lse
+    rdq, rdk, rdv = fa.flash_bwd_reference(*f32, out.float(), bwd_lse,
+                                           g.float(), prefix=pref,
+                                           offsets=offsets, **kw)
     fm, dqm, dkm, dvm, dqc, dkc = _flash_magnitudes(
-        q, k, v, out, lse, g, causal, scale, window, pref)
+        q, k, v, out, bwd_lse, g, causal, scale, window, pref, offsets)
 
     def bound(ref, m, c=0.0):
         return (FLASH_ROUND * ref.abs() + (FLASH_ROUND + FLASH_SLACK) * m
@@ -1666,7 +1738,17 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
     checks = {n: _over(got[n], refs[n], bounds[n]) for n in refs}
     checks["lse"] = _over(lse, ref_lse, 1e-5 * (1 + ref_lse.abs()))
     extra = {}
-    if fault == "key":
+    if seen is not None:
+        # a row that sees no key: an lse the merge's guard drops
+        extra["dark_rows_lse_low"] = bool(
+            (raw_lse.transpose(1, 2)[~seen] <= -1e27).all())
+    if fault == "k_off":
+        # (a prefix-only block's q_off, at the kernels' range already,
+        # moves with it: its causal term stays dead)
+        label = "k_off off by one key"
+        bad = run(q, k, v, g, pref,
+                  (offsets[0] + (offsets[0] < 0), offsets[1] + 1))
+    elif fault == "key":
         label = "key row min(Sq, Sk)/2 replaced"  # a key some query sees
         kb = k.clone()
         kb[:, min(s, sk) // 2] = rnd(b, hkv, d)
@@ -1690,9 +1772,10 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
     faults = {n: _over(bad[n], refs[n], bounds[n])[1] for n in refs}
     rec = {"phase": "train_kernel", "case": name, "op": "flash",
            "kernels": list(names), "B": b, "S": s, "Sk": sk, "H": h,
-           "Hkv": hkv,
+           "Hkv": hkv, "dtype": str(q.dtype).replace("torch.", ""),
            "D": d, "causal": causal, "window": window, "pack": pack,
-           "prefix": prefix,
+           "prefix": prefix, "offsets": offsets,
+           "dark_rows": None if seen is None else int((~seen).sum()),
            "max_abs_err": {n: c[0] for n, c in checks.items()},
            "over_bound": {n: c[1] for n, c in checks.items()},
            "max_err_over_bound": {n: c[2] for n, c in checks.items()},
@@ -1707,22 +1790,28 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
         # library call: the forward with SDPA's, dq and dkv with SDPA's
         # backward (dq, dk and dv) through autograd
         pkw = dict(kw, prefix=pref)
-        fwd_plain = graph_ms(lambda: fa.flash_fwd_reference(q, k, v, **pkw),
+        okw = dict(pkw, offsets=offsets)
+        fwd_plain = graph_ms(lambda: fa.flash_fwd_reference(q, k, v, **okw),
                              3)
         bwd_plain = graph_ms(lambda: fa.flash_bwd_reference(
-            q, k, v, out, lse, g, **pkw), 3)
-        sdpa_fwd, sdpa_bwd = (
-            (None, None) if window or prefix is not None or sk != s
-            else _sdpa_train(q, k, v, g, causal, scale))
+            q, k, v, out, bwd_lse, g, **okw), 3)
+        if offsets is not None:
+            sdpa_fwd, sdpa_bwd = _sdpa_masked(q, k, v, g, mask, scale)
+        else:
+            sdpa_fwd, sdpa_bwd = (
+                (None, None) if window or prefix is not None or sk != s
+                else _sdpa_train(q, k, v, g, causal, scale))
         delta = (g.float() * out.float()).sum(-1).permute(0, 2, 1) \
             .contiguous()
 
-        def kernel_ms(p, fwd_yard=None, bwd_yard=None):
-            """ms of the forward, dq and dkv kernels at pack ``p``, then
-            of the yardsticks given: the forward in turns with
-            ``fwd_yard``, dq and dkv with ``bwd_yard``."""
-            fwd = [lambda: fa.flash_fwd_cuda(q, k, v, pack=p, **pkw)]
-            bwd = [_bwd_kernel_fn(w, q, k, v, g, lse, delta, pack=p, **pkw)
+        def kernel_ms(p, fwd_yard=None, bwd_yard=None, offs=offsets):
+            """ms of the forward, dq and dkv kernels at pack ``p`` (with
+            ``offs``), then of the yardsticks given: the forward in turns
+            with ``fwd_yard``, dq and dkv with ``bwd_yard``."""
+            fwd = [lambda: fa.flash_fwd_cuda(q, k, v, pack=p, offsets=offs,
+                                             **pkw)]
+            bwd = [_bwd_kernel_fn(w, q, k, v, g, bwd_lse, delta, pack=p,
+                                  offsets=offs, **pkw)
                    for w in (1, 2)]
             fwd_ms = (in_turns_ms(fwd + [fwd_yard], 20) if fwd_yard
                       else [graph_ms(fwd[0], 20)])
@@ -1733,18 +1822,23 @@ def flash_case(name, b, s, h, hkv, d, causal, window, gen, dev, timed,
         ms = kernel_ms(pack, sdpa_fwd, sdpa_bwd)
         lib_fwd, lib_bwd = ms[3:] if sdpa_fwd else (None, None)
 
+        twin = kernel_ms(pack, offs=None) if offsets is not None else None
         rec["timing"] = {}
-        for kernel, t, plain, lib in zip(names, ms[:3],
-                                         (fwd_plain, bwd_plain, bwd_plain),
-                                         (lib_fwd, lib_bwd, lib_bwd)):
-            moved, ops = _flash_work(kernel, b, s, h, hkv, d, causal,
-                                     window, prefix)
+        for i, (kernel, t, plain, lib) in enumerate(zip(
+                names, ms[:3], (fwd_plain, bwd_plain, bwd_plain),
+                (lib_fwd, lib_bwd, lib_bwd))):
+            moved, ops = _flash_work(
+                kernel, b, s, h, hkv, d, causal, window, prefix,
+                None if offsets is None else h * int(mask.expand(
+                    b, s, sk).sum()))
             bound_ms, by = _bound(moved, ops)
             rec["timing"][kernel] = {
                 "ms": t, "plain_ms": plain, "library_ms": lib,
                 "bound_ms": bound_ms, "bound_by": by, "bytes": moved,
                 "timer": "graph",
                 "library_timer": None if lib is None else "graph"}
+            if twin is not None:   # the same inputs without the offsets
+                rec["timing"][kernel]["no_offsets_ms"] = twin[i]
         if pack == 2:
             # what packing buys: the unpacked D 64 kernels, same inputs
             rec["unpacked_ms"] = dict(zip(fa.UNPACKED, kernel_ms(1)))
@@ -1895,6 +1989,69 @@ def norm_case(name, n, d, residual, gen, dev, timed, kind="rmsnorm"):
     return rec
 
 
+#: the ring blocks that carry offsets at the ring phases' shapes (local
+#: S 2048 for mistral-7b at s8192, 512 for glm-10b at s2048, sp 4)
+MISTRAL_BOUNDARY = (6144, 2048)    # rank 3 against rank 1's block
+PREFIX_ONLY = (-(1 << 30), 0)
+
+
+def offsets_cases(gen, dev):
+    """The flash kernels with ring offsets, each against its plain version
+    with the k_off fault, in bf16 (timed, and beside the same kernels
+    without offsets) and in f32: mistral-7b's window-boundary block (the
+    one-head kernels, GQA, D 128), glm-10b's prefix-only block (the packed
+    kernels; block prefixes 200 and 512, then 0 and 200: a sequence no
+    prefix reaches), a D 64 window block of the one-head kernels."""
+    f32 = torch.float32
+    return [
+        flash_case("mistral-7b-boundary", 1, 2048, 32, 8, 128, True, 4096,
+                   gen, dev, True, offsets=MISTRAL_BOUNDARY, fault="k_off"),
+        flash_case("mistral-7b-boundary-f32", 1, 2048, 32, 8, 128, True,
+                   4096, gen, dev, False, offsets=MISTRAL_BOUNDARY,
+                   fault="k_off", dtype=f32),
+        flash_case("glm-10b-prefix-only", 2, 512, 64, 64, 64, True, 0, gen,
+                   dev, True, pack=2, prefix=(200, 512),
+                   offsets=PREFIX_ONLY, fault="k_off"),
+        flash_case("glm-10b-prefix-only-dark", 2, 512, 64, 64, 64, True, 0,
+                   gen, dev, False, pack=2, prefix=(0, 200),
+                   offsets=PREFIX_ONLY, fault="k_off"),
+        flash_case("glm-10b-prefix-only-f32", 2, 512, 64, 64, 64, True, 0,
+                   gen, dev, False, pack=2, prefix=(0, 512),
+                   offsets=PREFIX_ONLY, fault="k_off", dtype=f32),
+        flash_case("window-d64-boundary", 1, 1024, 8, 2, 64, True, 700, gen,
+                   dev, False, offsets=(2048, 1024), fault="k_off"),
+        flash_case("window-d64-boundary-f32", 1, 1024, 8, 2, 64, True, 700,
+                   gen, dev, False, offsets=(2048, 1024), fault="k_off",
+                   dtype=f32),
+    ]
+
+
+def sp_shape_cases(gen, dev):
+    """The kernels at the other shapes the sp phases launch them (offsets
+    0), each against its plain version: mistral-7b's Ulysses attention
+    (the whole 8192 sequence, 32/4 query and 8/4 KV heads a rank, window
+    4096), its ring's dense block (non-causal) and diagonal block (causal,
+    window 4096) at one 2048 block, glm-10b's dense and diagonal blocks
+    (the packed kernels; the diagonal with the block's prefixes, one 0),
+    and mistral-7b's rmsnorm rows (a rank's 2048 rows of d 4096, plain
+    and with the residual)."""
+    return [
+        flash_case("mistral-7b-ulysses", 1, 8192, 8, 2, 128, True, 4096,
+                   gen, dev, False),
+        flash_case("mistral-7b-ring-dense", 1, 2048, 32, 8, 128, False, 0,
+                   gen, dev, False),
+        flash_case("mistral-7b-ring-diagonal", 1, 2048, 32, 8, 128, True,
+                   4096, gen, dev, False),
+        flash_case("glm-10b-ring-dense", 2, 512, 64, 64, 64, False, 0, gen,
+                   dev, False, pack=2),
+        flash_case("glm-10b-ring-diagonal", 2, 512, 64, 64, 64, True, 0,
+                   gen, dev, False, pack=2, prefix=(0, 300),
+                   fault="prefix"),
+        norm_case("mistral-7b", 2048, 4096, False, gen, dev, False),
+        norm_case("mistral-7b+residual", 2048, 4096, True, gen, dev, False),
+    ]
+
+
 def train_kernel_cases(seed, dev):
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
     cases = [
@@ -1924,6 +2081,10 @@ def train_kernel_cases(seed, dev):
         # the prefix in the unpacked kernels
         flash_case("prefix-d128", 2, 1024, 16, 16, 128, True, 0, gen, dev,
                    False, prefix=(513, 1500), fault="prefix"),
+    ]
+    cases += offsets_cases(gen, dev)
+    cases += sp_shape_cases(gen, dev)
+    cases += [
         # the train steps' norms: [B·S, d_model] rows, timed
         norm_case("llama-1.4b", 8192, 2048, False, gen, dev, True),
         norm_case("llama-1.4b+residual", 8192, 2048, True, gen, dev, True),
@@ -2878,12 +3039,468 @@ def _mem_available():
     return None
 
 # ---------------------------------------------------------------------------
+# phase 12: sequence parallelism, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+SP = 4
+SP_LAYERS, SP_STEPS = 2, 3
+# mistral-7b at b1 x s8192 (blocks of 2048, window 4096), glm-10b at
+# b2 x s2048 (blocks of 512)
+SP_SHAPES = {"mistral-7b": (1, 8192), "glm-10b": (2, 2048)}
+# Ring (or Ulysses) against one process's flash step, on the same batch
+# and weights: the loss, relative, and the first layer's gradients, max
+# |Δ| over max |value|. In f32 the two differ by summation order (the
+# ring's merge, the all-reduce): 1e-3, the train_model gate. In bf16 the
+# ring rounds each block's output to bf16 before its f32 merge where one
+# process rounds once, and the difference grows through the layers: the
+# loss within 2e-3, the gradients within 5e-2 (a CPU rehearsal at test
+# size read 1.8e-2).
+SP_F32_TOL = 1e-3
+SP_BF16_LOSS_TOL, SP_BF16_GRAD_TOL = 2e-3, 5e-2
+SP_TIMEOUT_S = 600
+
+
+def _sp_batch(shape, cfg, seed, dev):
+    """The phase's global batch of ``shape`` (B, S): tokens from ``seed``;
+    with a prefix-LM, the prefixes 0 and one that reaches past the first
+    ring block but not into the last."""
+    b, s = shape
+    rng = np.random.default_rng(seed + 21)
+    tok = torch.as_tensor(rng.integers(0, cfg.vocab_size, size=(b, s + 1)),
+                          device=dev)
+    batch = {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+    if cfg.prefix_lm:
+        blk = s // SP
+        batch["prefix_len"] = torch.tensor(
+            [0, int(rng.integers(blk + 1, s - blk))], dtype=torch.int32,
+            device=dev)
+    return batch
+
+
+def _first_layer_grads(model):
+    return {n: p.grad.detach().float().cpu()
+            for n, p in model.named_parameters() if n.startswith("layers.0.")}
+
+
+def _rel(got, ref):
+    """max |got − ref| / max |ref| over a dict of tensors (or scalars)."""
+    if isinstance(ref, dict):
+        return max(_rel(got[k], ref[k]) for k in ref)
+    ref = torch.as_tensor(ref, dtype=torch.float64)
+    got = torch.as_tensor(got, dtype=torch.float64)
+    return float((got - ref).abs().max() / max(float(ref.abs().max()),
+                                               1e-30))
+
+
+def _sp_reference(cfg_name, overrides, shape, seed, dev, out_path):
+    """One process's flash loss and first-layer gradients, bf16 and f32,
+    on the phase's batch and weights, saved for the comparison."""
+    from dlrover_tpu_torch.models import decoder
+    from dlrover_tpu_torch.models.config import get_config
+
+    ref = {}
+    for dt in ("bfloat16", "float32"):
+        cfg = get_config(cfg_name, **dict(overrides, dtype=dt))
+        model = decoder.init(cfg, seed=seed, device=dev, trainable=True)
+        batch = _sp_batch(shape, cfg, seed, dev)
+        loss, _ = decoder.loss_fn(model, batch, cfg, attn_impl="flash")
+        loss.backward()
+        ref[dt] = {"loss": float(loss.detach()),
+                   "grads": _first_layer_grads(model)}
+        del model, loss
+        torch.cuda.empty_cache()
+    torch.save(ref, out_path)
+    return ref
+
+
+def _sp_expected(cfg, s_l, rank, impl, prefix):
+    """The flash launches of one rank in SP_STEPS steps, from its ring
+    block map (``sequence.block_case``): each non-empty block launches the
+    forward once, and in the backward its recompute (the checkpointed
+    step), dq and dkv; Ulysses one forward, dq and dkv a layer. Returns
+    (launches by kernel, offset launches by kernel, the block map)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.parallel import sequence
+
+    pack = fa.head_pack_for(cfg.n_head, cfg.kv_heads, cfg.head_dim,
+                            cfg.attn_head_pack)
+    fwd, dq, dkv = fa.PACKED if pack == 2 else fa.UNPACKED
+    blocks = []
+    if impl == "ring":
+        for step in range(SP):
+            src = (rank - step) % SP
+            blocks.append(sequence.block_case(
+                rank * s_l, src * s_l, s_l, s_l, cfg.causal, cfg.attn_window,
+                prefix))
+        live = sum(c != sequence.EMPTY for c in blocks)
+        shifted = sum(c in (sequence.WINDOW_PARTIAL, sequence.PREFIX_ONLY)
+                      for c in blocks)
+        per = {fwd: 2 * live, dq: live, dkv: live}
+        off = {fwd: 2 * shifted, dq: shifted, dkv: shifted}
+    else:
+        per = {fwd: 1, dq: 1, dkv: 1}
+        off = {}
+    n = cfg.n_layer * SP_STEPS
+    launches = {k: n * per.get(k, 0) for k in fa.KERNELS}
+    launches.update(norm_fwd=(2 * cfg.n_layer + 1) * SP_STEPS,
+                    norm_bwd=(2 * cfg.n_layer + 1) * SP_STEPS)
+    return launches, {k: n * off.get(k, 0) for k in fa.KERNELS}, blocks
+
+
+def _fault_rank(cfg, s_l, impl, prefix):
+    """The rank that plants the fault: the last whose ring blocks carry
+    offsets (Ulysses: the last)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    if impl != "ring":
+        return SP - 1
+    return max(r for r in range(SP) if any(
+        _sp_expected(cfg, s_l, r, impl, prefix)[1][k] for k in fa.KERNELS))
+
+
+@contextlib.contextmanager
+def _planted(impl, rank, fault_rank, s_l):
+    """The planted fault, on ``fault_rank`` alone: the ring's offset
+    blocks with k_off moved by a quarter block (on a prefix-only block
+    q_off with it: its q_off sits at the kernels' range already, and the
+    causal term stays dead); Ulysses' attention over its share of the
+    heads with the window moved by a quarter block (mistral-7b) or the
+    prefixes by as much (glm-10b)."""
+    from dlrover_tpu_torch.parallel import sequence
+
+    if rank != fault_rank:
+        yield
+        return
+    if impl == "ring":
+        orig = sequence.flash_attention_with_lse
+
+        def shifted(*a, offsets=None, **kw):
+            if offsets is not None:
+                d = s_l // 4
+                offsets = (offsets[0] + d * (offsets[0] < 0),
+                           offsets[1] + d)
+            return orig(*a, offsets=offsets, **kw)
+
+        sequence.flash_attention_with_lse = shifted
+        try:
+            yield
+        finally:
+            sequence.flash_attention_with_lse = orig
+        return
+    orig = sequence.ulysses_attention
+
+    def moved(q, k, v, mesh, *, attn_fn=None, prefix_len=None, window=0,
+              **kw):
+        def inner(q, k, v, prefix_len=None, window=0):
+            if window:
+                window += s_l // 4
+            if prefix_len is not None:
+                prefix_len = prefix_len + s_l // 4
+            kws = {}
+            if prefix_len is not None:
+                kws["prefix_len"] = prefix_len
+            if window:
+                kws["window"] = window
+            return attn_fn(q, k, v, **kws)
+        return orig(q, k, v, mesh, attn_fn=inner, prefix_len=prefix_len,
+                    window=window, **kw)
+
+    sequence.ulysses_attention = moved
+    try:
+        yield
+    finally:
+        sequence.ulysses_attention = orig
+
+
+def _sp_grads(model, cfg, batch, mesh, impl):
+    """Loss and first-layer gradients of the sp step on this rank's block:
+    the global mask sum, the backward, then the loss and the first layer's
+    gradients all-reduced (the step's reduction, cut to what the check
+    reads)."""
+    from dlrover_tpu_torch.models import decoder
+    from dlrover_tpu_torch.parallel.collectives import all_reduce_
+    from dlrover_tpu_torch.train.data_utils import sequence_block
+
+    for p in model.parameters():
+        p.grad = None
+    blk = sequence_block(batch, mesh)
+    count = torch.tensor(float(blk["targets"].numel()),
+                         device=batch["tokens"].device)
+    all_reduce_(count)
+    loss, _ = decoder.loss_fn(model, blk, cfg, attn_impl=impl,
+                              denom=count, mesh=mesh)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if n.startswith("layers.0.")}
+    flat = torch.cat([g.reshape(-1).float() for g in grads.values()]
+                     + [loss.detach().reshape(1).float()])
+    all_reduce_(flat)
+    at, out = 0, {}
+    for n, g in grads.items():
+        out[n] = flat[at: at + g.numel()].view(g.shape).cpu()
+        at += g.numel()
+    for p in model.parameters():
+        p.grad = None
+    return float(flat[-1]), out
+
+
+def sp_worker(spec_path, rank):
+    """One rank of an sp phase (a subprocess of ``sp_check``): a gloo group
+    of SP ranks on card 0 (asked for: NCCL refuses two ranks on one
+    GPU), the mesh ``MeshConfig(dp=1, sp=SP)``; for each ``attn_impl``:
+    the f32 loss and first-layer gradients, again with the planted fault,
+    the bf16 ones, then SP_STEPS bf16 steps of ``TrainStepBuilder`` with
+    the launch counts read around them. Writes its record and the values
+    the parent compares."""
+    from dlrover_tpu_torch.models import decoder
+    from dlrover_tpu_torch.models.config import get_config
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.parallel.collectives import all_reduce_
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.train.distributed import (
+        init_distributed,
+        shutdown_distributed,
+    )
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+    from dlrover_tpu_torch.train.train_step import TrainStepBuilder
+
+    spec = json.loads(open(spec_path).read())
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    init_distributed(coordinator=f"127.0.0.1:{spec['port']}", world_size=SP,
+                     rank=rank, device=dev.type, backend="gloo",
+                     device_index=0 if cuda else None,
+                     timeout_s=SP_TIMEOUT_S)
+    group_s = time.monotonic() - t0
+    rebuilt = []
+    real_build = _build.build
+
+    def counted(name):  # a compile here would have cost the phase minutes
+        secs = real_build(name)
+        if secs > 0:
+            rebuilt.append(name)
+        return secs
+
+    _build.build = counted
+    out = {"rank": rank, "group_s": group_s, "impls": {}}
+    vals = {}
+    try:
+        mesh = build_mesh(MeshConfig(dp=1, sp=SP))
+        name, seed, over = spec["config"], spec["seed"], spec["overrides"]
+        shape = tuple(spec["shape"])
+        s_l = shape[1] // SP
+        for impl in spec["impls"]:
+            rec = {}
+            cfg32 = get_config(name, **dict(over, dtype="float32"))
+            model = decoder.init(cfg32, seed=seed, device=dev,
+                                 trainable=True)
+            batch = _sp_batch(shape, cfg32, seed, dev)
+            prefix = (batch["prefix_len"].tolist()
+                      if "prefix_len" in batch else None)
+            vals[(impl, "float32")] = _sp_grads(model, cfg32, batch, mesh,
+                                                impl)
+            fault_rank = _fault_rank(cfg32, s_l, impl, prefix)
+            rec["fault_rank"] = fault_rank
+            with _planted(impl, rank, fault_rank, s_l):
+                vals[(impl, "fault")] = _sp_grads(model, cfg32, batch, mesh,
+                                                  impl)
+            del model
+            cfg = get_config(name, **over)
+            opt = make_optimizer(learning_rate=1e-4, warmup_steps=10,
+                                 decay_steps=1000)
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            model = decoder.init(cfg, seed=seed, device=dev, trainable=True)
+            vals[(impl, "bfloat16")] = _sp_grads(model, cfg, batch, mesh,
+                                                 impl)
+            state = {"params": model,
+                     "opt_state": opt.init(dict(model.named_parameters())),
+                     "step": 0}
+            step = TrainStepBuilder(cfg, opt, attn_impl=impl, device=dev,
+                                    mesh=mesh).build()
+            losses, wall_ms = [], []
+            _reset_train_launches()
+            for _ in range(SP_STEPS):
+                t = time.perf_counter()
+                state, m = step(state, batch)
+                if cuda:
+                    torch.cuda.synchronize()
+                wall_ms.append((time.perf_counter() - t) * 1e3)
+                losses.append(float(m["loss"]))
+            launches = _train_launches()
+            offset_launches = dict(fa.OFFSET_LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() if cuda else None
+            want, want_off, blocks = _sp_expected(cfg, s_l, rank, impl,
+                                                  prefix)
+            # the step's gradient all-reduce alone (its flat f32 buffer,
+            # host-staged over gloo): what it takes of a step
+            flat = torch.zeros(sum(p.numel() for p in model.parameters()),
+                               device=dev)
+            t = time.perf_counter()
+            all_reduce_(flat)
+            if cuda:
+                torch.cuda.synchronize()
+            rec["allreduce_ms"] = (time.perf_counter() - t) * 1e3
+            del flat
+            rec.update(
+                losses=losses, step_wall_ms=wall_ms, blocks=blocks,
+                launches=launches, launches_expected=want,
+                offset_launches=offset_launches,
+                offset_launches_expected=want_off,
+                max_memory_allocated=peak,
+                finite=all(math.isfinite(x) for x in losses))
+            out["impls"][impl] = rec
+            del state, model, step, m
+            if cuda:
+                torch.cuda.empty_cache()
+        out["rebuilt"] = len(rebuilt)
+    finally:
+        shutdown_distributed()
+    if rank == 0:
+        torch.save(vals, spec["values"])
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sp_check(cfg_name, impls, names, seed, dev, overrides=None,
+             shape=None):
+    """The sp phases of one config: the one-process references here (then
+    freed), SP worker processes on card 0 (``sp_worker``), each gated:
+    f32 loss and first-layer gradients within SP_F32_TOL of one process's,
+    the planted fault beyond it, bf16 within SP_BF16_LOSS_TOL /
+    SP_BF16_GRAD_TOL, finite losses, every rank's launches (the offset
+    ones apart) equal to its block map's, no kernel rebuilt in a worker.
+    ``names``: the phase name of each impl. ``overrides`` (default: the
+    depth cut to SP_LAYERS) and ``shape`` (default SP_SHAPES') size a
+    rehearsal. Returns the records."""
+    overrides = dict(n_layer=SP_LAYERS) if overrides is None else overrides
+    shape = SP_SHAPES[cfg_name] if shape is None else shape
+    out_dir = os.path.join("build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    ref = _sp_reference(cfg_name, overrides, shape, seed, dev,
+                        os.path.join(out_dir, f"sp_ref_{cfg_name}.pt"))
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    spec = {"config": cfg_name, "seed": seed, "impls": list(impls),
+            "device": str(dev), "overrides": overrides, "shape": shape,
+            "port": _free_port(),
+            "values": os.path.join(out_dir, f"sp_values_{cfg_name}.pt"),
+            "out": os.path.join(out_dir, f"sp_{cfg_name}_{{rank}}.json")}
+    spec_path = os.path.join(out_dir, f"sp_spec_{cfg_name}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    log_path = os.path.join(out_dir, f"sp_log_{cfg_name}.txt")
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sp-worker",
+             spec_path, "--rank", str(r)], stdout=log,
+            stderr=subprocess.STDOUT) for r in range(SP)]
+        try:
+            rcs = [p.wait(timeout=SP_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    seconds = time.monotonic() - t0
+    if any(rcs):
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        for name in names.values():
+            _failures.append(f"{name}: worker exit codes {rcs}\n{tail}")
+        emit({"phase": "sp_" + cfg_name, "ok": False, "exit_codes": rcs,
+              "log_tail": tail})
+        return {}
+    ranks = []
+    for r in range(SP):
+        with open(spec["out"].format(rank=r)) as f:
+            ranks.append(json.load(f))
+    vals = torch.load(spec["values"], weights_only=False)
+    recs = {}
+    for impl, name in names.items():
+        f32_loss, f32_grads = vals[(impl, "float32")]
+        bad_loss, bad_grads = vals[(impl, "fault")]
+        bf_loss, bf_grads = vals[(impl, "bfloat16")]
+        r32, rbf = ref["float32"], ref["bfloat16"]
+        per_rank = [x["impls"][impl] for x in ranks]
+        err = {"f32_loss": _rel(f32_loss, r32["loss"]),
+               "f32_grads": _rel(f32_grads, r32["grads"]),
+               "fault_loss": _rel(bad_loss, r32["loss"]),
+               "fault_grads": _rel(bad_grads, r32["grads"]),
+               "bf16_loss": _rel(bf_loss, rbf["loss"]),
+               "bf16_grads": _rel(bf_grads, rbf["grads"]),
+               "bf16_step1_loss": _rel(per_rank[0]["losses"][0], rbf["loss"])}
+        gates = {
+            "f32_within": max(err["f32_loss"], err["f32_grads"]) <= SP_F32_TOL,
+            "fault_caught": max(err["fault_loss"], err["fault_grads"])
+            > SP_F32_TOL,
+            "bf16_within": (err["bf16_loss"] <= SP_BF16_LOSS_TOL
+                            and err["bf16_step1_loss"] <= SP_BF16_LOSS_TOL
+                            and err["bf16_grads"] <= SP_BF16_GRAD_TOL),
+            "finite": all(x["finite"] for x in per_rank),
+            "launches_exact": all(
+                x["launches"] == x["launches_expected"]
+                and {k: v for k, v in x["offset_launches"].items()}
+                == x["offset_launches_expected"] for x in per_rank),
+            "offsets_ran": (impl != "ring" or sum(
+                sum(x["offset_launches"].values()) for x in per_rank) > 0),
+            "no_rebuild": all(x["rebuilt"] == 0 for x in ranks),
+        }
+        b, s = shape
+        rec = {"phase": name, "config": cfg_name,
+               "n_layer": overrides.get("n_layer"),
+               "attn_impl": impl, "sp": SP, "batch": b, "seq": s,
+               "backend": "gloo (host-staged), 4 ranks on cuda:0",
+               "steps": SP_STEPS, "errors": err,
+               "tolerances": {"f32": SP_F32_TOL, "bf16_loss":
+                              SP_BF16_LOSS_TOL, "bf16_grads":
+                              SP_BF16_GRAD_TOL},
+               "fault": (f"rank {per_rank[0]['fault_rank']}: "
+                         + ("its offset blocks' k_off + S_l/4"
+                            if impl == "ring" else
+                            "its heads' window/prefix + S_l/4")),
+               "ranks": [{k: x[k] for k in (
+                   "blocks", "losses", "step_wall_ms", "allreduce_ms",
+                   "fault_rank",
+                   "max_memory_allocated", "launches", "offset_launches")}
+                   for x in per_rank],
+               "group_s": [x["group_s"] for x in ranks],
+               "phase_s": seconds, "gates": gates}
+        rec["ok"] = all(gates.values())
+        emit(rec)
+        if not rec["ok"]:
+            _failures.append(f"{name}: {rec['gates']} {rec['errors']}")
+        recs[name] = rec
+    return recs
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sp-worker", default=None,
+                    help="run one rank of an sp phase (internal)")
+    ap.add_argument("--rank", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.sp_worker:  # on the device its spec names
+        sp_worker(args.sp_worker, args.rank)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -3021,6 +3638,25 @@ def main(argv=None) -> int:
             rec = elastic_check(get_config("llama-1.4b"), args.seed,
                                 trainer_rec)
             train_launches["elastic"] = rec["launches"]
+    # sequence parallelism (sp 4, four ranks on this card over gloo):
+    # mistral-7b over the ring (window-partial blocks: the offsets) and
+    # Ulysses, glm-10b over the ring (prefix-only blocks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp_recs = {}
+    with phase("sp_mistral"):
+        sp_recs.update(sp_check("mistral-7b", ("ring", "auto"),
+                                {"ring": "ring", "auto": "ulysses"},
+                                args.seed, dev))
+    with phase("sp_glm"):
+        sp_recs.update(sp_check("glm-10b", ("ring",), {"ring": "ring_glm"},
+                                args.seed, dev))
+    offset_launches = {}
+    for name, rec in sp_recs.items():
+        for r, x in enumerate(rec["ranks"]):
+            train_launches[f"{name}_rank{r}"] = x["launches"]
+            for k, n in x["offset_launches"].items():
+                offset_launches[k] = offset_launches.get(k, 0) + n
     if _failures:
         print("\n".join(_failures), file=sys.stderr)
         return 1
@@ -3069,6 +3705,22 @@ def main(argv=None) -> int:
         if kernel == "flash_fwd":  # K1: its bytes, the share of its bound
             kernels[-1].update(bytes=t["bytes"],
                                bound_share=t["bound_ms"] / t["ms"])
+        # the same kernel with ring offsets (a window-partial or
+        # prefix-only block), timed beside itself without them
+        shifted = [c for c in mine if c.get("offsets") is not None]
+        if not shifted:
+            continue
+        t = next(c for c in shifted if "timing" in c)["timing"][kernel]
+        kernels.append({
+            "name": kernel + "+offsets", "kernel": cuda_kernel,
+            "route": "cuda", "source": src, "replaces": replaces,
+            "launches": offset_launches.get(kernel, 0),
+            "max_abs_err": max(c["max_abs_err"][o] for c in shifted
+                               for o in outputs[out_key]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "no_offsets_ms": t["no_offsets_ms"]})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -118,7 +118,27 @@ struct Args {
   float scale;
   int causal;
   int window;
+  // ring attention: the global positions of q row 0 and key 0 (0 and 0
+  // without offsets); the mask compares global positions, every bound and
+  // address stays local
+  int q_off, k_off;
 };
+
+// floor(x / d) for d > 0 and any x (C's / truncates toward zero, which is
+// one tile off for the negative positions of a hugely negative q_off)
+__host__ __device__ __forceinline__ int floor_div(int x, int d) {
+  return x >= 0 ? x / d : -((-x + d - 1) / d);
+}
+
+__host__ __device__ __forceinline__ int clamp_to(int x, int lo, int hi) {
+  return x < lo ? lo : (x > hi ? hi : x);
+}
+
+// q_off - k_off: local query row q sits at local key position q + shift,
+// where the causal diagonal and the window compare it with a key
+__device__ __forceinline__ int q_shift(const Args& a) {
+  return a.q_off - a.k_off;
+}
 
 template <typename T>
 __host__ __device__ constexpr int pad_elems() {
@@ -247,12 +267,14 @@ __device__ __forceinline__ void mma_nn(const float* A, int lda, const float* B,
 }
 
 // The mask rule of _allowed_mask, plus the ragged ends of both sequences.
-// pref is this batch element's prefix length (0 without a prefix).
+// pref is this batch element's prefix in local keys (prefix_of; 0 without
+// a prefix); the causal and window terms compare global positions.
 __device__ __forceinline__ bool allowed(const Args& a, int pref, int qp,
                                         int kp) {
   if (kp >= a.Sk || qp >= a.Sq) return false;
   if (!a.causal || kp < pref) return true;
-  return qp >= kp && (a.window == 0 || qp - kp < a.window);
+  const int d = qp + q_shift(a);
+  return d >= kp && (a.window == 0 || d - kp < a.window);
 }
 
 // Every (query, key) of the tile [q0, q0 + bq) x [k0, k0 + bk) is visible:
@@ -262,7 +284,8 @@ __device__ __forceinline__ bool tile_visible(const Args& a, int pref, int q0,
                                              int bq, int k0, int bk) {
   if (q0 + bq > a.Sq || k0 + bk > a.Sk) return false;
   if (!a.causal || k0 + bk <= pref) return true;
-  return k0 + bk - 1 <= q0 && (a.window == 0 || q0 + bq - 1 - k0 < a.window);
+  const int d0 = q0 + q_shift(a);
+  return k0 + bk - 1 <= d0 && (a.window == 0 || d0 + bq - 1 - k0 < a.window);
 }
 
 // s *= scale, and the elements of the tile that the mask hides set to -1e30
@@ -296,15 +319,18 @@ __device__ __forceinline__ void scale_mask(float (*s)[4], const Args& a,
 // The key tiles [begin, end) of width bk that a q tile [q0, q0 + bq) may
 // see (_block_runs): causal tiles past the diagonal and, with a window,
 // tiles wholly before the oldest row's window are skipped; tiles that reach
-// into the prefix run for every q tile.
+// into the prefix run for every q tile. With offsets the diagonal and the
+// window edge move by q_shift, and may leave no tile (begin >= end).
+// (ops/flash_attention.py's key_tiles is its plain twin.)
 __device__ __forceinline__ void key_tiles(const Args& a, int pref, int q0,
                                           int bq, int bk, int* begin,
                                           int* end) {
   const int n = (a.Sk + bk - 1) / bk;
   int b = 0, e = n;
   if (a.causal) {
-    e = min(n, (q0 + bq - 1) / bk + 1);
-    if (a.window) b = max(0, (q0 - a.window + 1) / bk);
+    const int d0 = q0 + q_shift(a);
+    e = clamp_to(floor_div(d0 + bq - 1, bk) + 1, 0, n);
+    if (a.window) b = clamp_to(floor_div(d0 - a.window + 1, bk), 0, n);
     e = max(e, (min(pref, a.Sk) + bk - 1) / bk);
   }
   *begin = b;
@@ -339,8 +365,10 @@ __device__ __forceinline__ Heads block_heads(const Args& a, int n_heads) {
   return x;
 }
 
+// Batch element b's prefix in local keys: the keys [0, pref) of this call
+// that every query sees, the global prefix less k_off, cut to [0, Sk].
 __device__ __forceinline__ int prefix_of(const Args& a, int b) {
-  return a.prefix ? a.prefix[b] : 0;
+  return a.prefix ? clamp_to(a.prefix[b] - a.k_off, 0, a.Sk) : 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -659,9 +687,11 @@ __device__ __forceinline__ void dkv_body(const Args& a) {
   const int n_qt = (a.Sq + kKvBQ - 1) / kKvBQ;
   int qt0 = 0, qt1 = n_qt;
   if (a.causal && k0 >= pref) {
-    qt0 = min(k0 / kKvBQ, n_qt);
+    const int sh = q_shift(a);
+    qt0 = clamp_to(floor_div(k0 - sh, kKvBQ), 0, n_qt);
     if (a.window)
-      qt1 = min(n_qt, (k0 + kKvBK - 1 + a.window - 1) / kKvBQ + 1);
+      qt1 = clamp_to(
+          floor_div(k0 + kKvBK - 1 - sh + a.window - 1, kKvBQ) + 1, 0, n_qt);
   }
   for (int hg = 0; hg < groups; ++hg) {
     // query heads h0 * groups + hg (+ hh when packed, where groups == 1, so
@@ -904,7 +934,8 @@ struct FwdTc {
 
 // The keys a row sees are one range: causal, [max(0, q - window + 1),
 // max(prefix, q + 1)) (a window and a prefix exclude each other), else
-// [0, Sk); cut to [0, Sk), and empty for rows past Sq. whole(): every row
+// [0, Sk), with q at its local key position q + q_shift; cut to [0, Sk),
+// and empty for rows past Sq. whole(): every row
 // of this warp sees every key of the tile. tile(): the rows' ranges
 // relative to this thread's first key of the tile, k0 + 2t.
 struct RangeMask {
@@ -916,12 +947,13 @@ struct RangeMask {
   };
   __device__ __forceinline__ void init(const Args& a, int pref, int q0warp,
                                        const int (&row)[2]) {
+    const int sh = q_shift(a);  // row q sits at local key q + sh
     auto lo_of = [&](int q) {
-      return a.causal && a.window ? q - a.window + 1 : 0;
+      return a.causal && a.window ? q + sh - a.window + 1 : 0;
     };
     auto hi_of = [&](int q) {
       if (q >= a.Sq) return 0;
-      return a.causal ? min(a.Sk, max(pref, q + 1)) : a.Sk;
+      return a.causal ? min(a.Sk, max(pref, q + sh + 1)) : a.Sk;
     };
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -1454,32 +1486,36 @@ struct PingPong {
 };
 
 // The queries [lo, hi) that key k sees, RangeMask's rule turned round:
-// causal, [k, k + window) ([k, Sq) without a window); a key inside the
-// prefix, or any key without causal, is seen by every query; cut to
-// [0, Sq), and empty for keys past Sk. (ops/flash_attention.py's
+// causal, [k, k + window) ([k, Sq) without a window), less q_shift; a key
+// inside the prefix, or any key without causal, is seen by every query;
+// cut to [0, Sq), and empty for keys past Sk. (ops/flash_attention.py's
 // dkv_q_range is its plain twin.)
 __device__ __forceinline__ void q_range(const Args& a, int pref, int k,
                                         int& lo, int& hi) {
   lo = 0;
   hi = k < a.Sk ? a.Sq : 0;
   if (a.causal && k >= pref) {
-    lo = k;
-    if (a.window) hi = min(hi, k + a.window);
+    const int sh = q_shift(a);
+    lo = clamp_to(k - sh, 0, a.Sq);
+    if (a.window) hi = clamp_to(min(hi, k - sh + a.window), 0, a.Sq);
   }
 }
 
 // The q tiles [begin, end) of kDkvBQ rows that may see a key of
 // [k0, k0 + keys): under causal from the diagonal on, up to the last
-// key's window; every tile when the block reaches into the prefix.
+// key's window (both moved by q_shift); every tile when the block reaches
+// into the prefix. (ops/flash_attention.py's q_tiles is its plain twin.)
 __device__ __forceinline__ void q_tiles(const Args& a, int pref, int k0,
                                         int keys, int& begin, int& end) {
   const int n = (a.Sq + kDkvBQ - 1) / kDkvBQ;
   begin = 0;
   end = n;
   if (a.causal && k0 >= pref) {
-    begin = min(k0 / kDkvBQ, n);
+    const int sh = q_shift(a);
+    begin = clamp_to(floor_div(k0 - sh, kDkvBQ), 0, n);
     if (a.window)
-      end = min(n, (k0 + keys - 1 + a.window - 1) / kDkvBQ + 1);
+      end = clamp_to(floor_div(k0 + keys - 1 - sh + a.window - 1, kDkvBQ) + 1,
+                     0, n);
   }
 }
 
@@ -2364,10 +2400,25 @@ constexpr int kBwdDkvWgmma = 5;      // flash_bwd_dkv_wgmma_kernel: bf16
 constexpr int kBwdDqPackedWgmma = 6;   // flash_bwd_dq_packed_wgmma_kernel: bf16
 constexpr int kBwdDkvPackedWgmma = 7; // flash_bwd_dkv_packed_wgmma_kernel: bf16
 
+// The offsets' range keeps every position and every difference of two in
+// int32: |q_off|, |k_off| and |q_off - k_off| at most 2^30 with S and the
+// window under 2^24 (ring attention's largest is prefix_only's -2^30).
+constexpr int kMaxOffset = 1 << 30;
+constexpr int kMaxLocal = 1 << 24;
+
+bool offsets_in_range(const Args& a) {
+  const long long sh = (long long)a.q_off - a.k_off;
+  return a.q_off >= -kMaxOffset && a.q_off <= kMaxOffset &&
+         a.k_off >= -kMaxOffset && a.k_off <= kMaxOffset &&
+         sh >= -kMaxOffset && sh <= kMaxOffset && a.Sq < kMaxLocal &&
+         a.Sk < kMaxLocal && a.window < kMaxLocal;
+}
+
 bool valid(const Args& a) {
   if (a.B <= 0 || a.Sq <= 0 || a.Sk <= 0 || a.Hkv <= 0 || a.H % a.Hkv ||
       a.window < 0)
     return false;
+  if ((a.q_off || a.k_off) && !offsets_in_range(a)) return false;
   // the prefix is a causal mask's, and excludes a window
   return !(a.prefix && (!a.causal || a.window));
 }
@@ -2393,8 +2444,10 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, out, dO, dq, dk, dv); D is 64
 // or 128; lse and delta are f32; prefix is [B] int32 or null (causal, no
-// window). Every pointer is 16-byte aligned (prefix 4-byte). Returns a
-// cudaError_t (0 = launched).
+// window), in global key positions. q_off, k_off: the global positions of
+// q row 0 and key 0 (ring attention; 0, 0 otherwise), within
+// offsets_in_range. Every pointer is 16-byte aligned (prefix 4-byte).
+// Returns a cudaError_t (0 = launched).
 //
 // kernel (forward): 0 = flash_fwd_kernel (a head a block, f32), 1 =
 // flash_fwd_packed_kernel (two heads of 64 a block; MHA, any H; f32), 2 =
@@ -2404,10 +2457,11 @@ extern "C" {
 int dlrover_flash_fwd(const void* q, const void* k, const void* v, void* out,
                       float* lse, const int* prefix, int B, int Sq, int Sk,
                       int H, int Hkv, int D, float scale, int causal,
-                      int window, int kernel, int dtype, void* stream) {
-  Args a = {q,       k,       v,      out, nullptr, lse, nullptr,
-            nullptr, nullptr, nullptr, prefix, B,  Sq,  Sk,
-            H,       Hkv,     scale,  causal, window};
+                      int window, int q_off, int k_off, int kernel, int dtype,
+                      void* stream) {
+  Args a = {q,       k,       v,      out,    nullptr, lse,   nullptr,
+            nullptr, nullptr, nullptr, prefix, B,       Sq,    Sk,
+            H,       Hkv,     scale,  causal, window,  q_off, k_off};
   switch (kernel) {
     case kFwdOneHead:
       if (dtype != 0) return cudaErrorInvalidValue;
@@ -2442,9 +2496,11 @@ int dlrover_flash_bwd(int kernel, const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       void* dq, void* dk, void* dv, const int* prefix, int B,
                       int Sq, int Sk, int H, int Hkv, int D, float scale,
-                      int causal, int window, int dtype, void* stream) {
-  Args a = {q,  k,  v,  nullptr, dout, lse, delta, dq,     dk,    dv,
-            prefix, B, Sq, Sk,   H,    Hkv, scale, causal, window};
+                      int causal, int window, int q_off, int k_off, int dtype,
+                      void* stream) {
+  Args a = {q,      k,  v,  nullptr, dout, lse,   delta,  dq,     dk,
+            dv,     prefix, B, Sq,   Sk,   H,     Hkv,    scale,  causal,
+            window, q_off,  k_off};
   auto st = static_cast<cudaStream_t>(stream);
   switch (kernel) {
     case kBwdDq:

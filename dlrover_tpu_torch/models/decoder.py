@@ -9,7 +9,10 @@ no mesh), ``_cache_layer_tail`` (dense, with ``parallel_residual``),
 ``verify_chunk_paged`` for serving; ``_norm_block``,
 ``_attention_block``, ``_layer_body``, ``run_trunk``, ``forward``,
 ``head_weight_scale`` and ``loss_fn`` for training (dense layers; no
-fp8, MoE, pipeline or mesh).
+fp8, MoE or pipeline). Under a dp × sp mesh (``parallel/mesh.py``) each
+rank runs its rows and its sequence block: positions are global
+(``sp rank · S_l + arange(S_l)``) and attention is ``ring_attention`` or
+``ulysses_attention`` (``parallel/sequence.py``).
 
 For serving (``Decoder(cfg)``), matrices are stored frozen in the
 compute dtype (``cfg.dtype``). For training (``Decoder(cfg,
@@ -526,39 +529,72 @@ def run_trunk(x, model: "Decoder", positions, cfg: ModelConfig, attn_fn):
     return x
 
 
-def _attn_fn(cfg: ModelConfig, attn_impl: str, prefix_len):
-    if attn_impl in ("auto", "flash"):
-        return lambda q, k, v: flash_attention(
-            q, k, v, causal=cfg.causal, window=cfg.attn_window,
-            prefix_len=prefix_len, head_pack=cfg.attn_head_pack)
+def _sp_size(mesh) -> int:
+    return 1 if mesh is None else mesh.shape.get("sp", 1)
+
+
+def _attn_fn(cfg: ModelConfig, attn_impl: str, prefix_len, mesh=None):
+    if attn_impl == "auto":
+        # an sp mesh runs the sequence-parallel path, as the JAX forward
+        attn_impl = "ulysses" if _sp_size(mesh) > 1 else "flash"
+
+    def flash(q, k, v, **kw):
+        return flash_attention(q, k, v, causal=cfg.causal,
+                               head_pack=cfg.attn_head_pack, **kw)
+
+    masks = dict(window=cfg.attn_window, prefix_len=prefix_len)
+    if attn_impl in ("flash", "reference") and _sp_size(mesh) > 1:
+        # each rank holds one sequence block: a local attention would see
+        # only its own block
+        raise ValueError(
+            f"attn_impl={attn_impl!r} attends within one rank's sequence "
+            f"block; an sp mesh (sp={_sp_size(mesh)}) needs \"ring\", "
+            "\"ulysses\" or \"auto\"")
+    if attn_impl == "flash":
+        return lambda q, k, v: flash(q, k, v, **masks)
     if attn_impl == "reference":
         return lambda q, k, v: mha_reference(
-            q, k, v, causal=cfg.causal, window=cfg.attn_window,
-            prefix_len=prefix_len)
-    raise NotImplementedError(
-        f"attn_impl={attn_impl!r}: ring and ulysses attention wait for "
-        "the sequence-parallel port (ROADMAP A16)")
+            q, k, v, causal=cfg.causal, **masks)
+    if attn_impl in ("ring", "ulysses") and mesh is None:
+        raise ValueError(f"attn_impl={attn_impl!r} needs a mesh")
+    if attn_impl == "ring":
+        from dlrover_tpu_torch.parallel.sequence import ring_attention
+
+        return lambda q, k, v: ring_attention(
+            q, k, v, mesh, causal=cfg.causal, **masks)
+    if attn_impl == "ulysses":
+        from dlrover_tpu_torch.parallel.sequence import ulysses_attention
+
+        return lambda q, k, v: ulysses_attention(
+            q, k, v, mesh, causal=cfg.causal, attn_fn=flash, **masks)
+    raise ValueError(f"unknown attn_impl {attn_impl!r}")
 
 
 def forward(model: "Decoder", tokens, cfg: Optional[ModelConfig] = None,
             positions=None, attn_impl: str = "auto",
-            features_only: bool = False, prefix_len=None):
+            features_only: bool = False, prefix_len=None, mesh=None):
     """tokens ``[B, S]`` → logits ``[B, S, V]`` f32, or with
     ``features_only`` the final-normed hidden states ``[B, S, D]``.
-    ``attn_impl``: "auto"/"flash" (``ops.flash_attention``: the kernels
-    on the card, their plain versions on the CPU) or "reference"
-    (``mha_reference``). ``cfg`` defaults to the model's."""
+    ``attn_impl``: "auto" (flash, or under an sp mesh "ulysses"),
+    "flash" (``ops.flash_attention``: the kernels on the card, their plain
+    versions on the CPU), "reference" (``mha_reference``), "ring" or
+    "ulysses" (``parallel/sequence.py``, over ``mesh``). Under a mesh
+    ``tokens`` is this rank's block, ``[B_l, S_l]``, at global positions
+    ``sp rank · S_l + arange(S_l)``; ``prefix_len`` stays global. ``cfg``
+    defaults to the model's."""
     cfg = model.cfg if cfg is None else cfg
     b, s = tokens.shape
     if positions is None:
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        first = 0 if mesh is None else mesh.coord("sp") * s
+        positions = torch.arange(first, first + s,
+                                 device=tokens.device).expand(b, s)
     if cfg.prefix_lm and prefix_len is None:
         raise ValueError(
             "cfg.prefix_lm is set but no prefix_len was provided; pass "
             "zeros for fully-causal behavior")
     x = model._embed(tokens, positions)
-    x = run_trunk(x, model, positions, cfg, _attn_fn(cfg, attn_impl,
-                                                     prefix_len))
+    x = run_trunk(x, model, positions, cfg,
+                  _attn_fn(cfg, attn_impl, prefix_len, mesh))
     x = _norm_block(x, model.final_norm, cfg)
     if features_only:
         return x
@@ -585,17 +621,18 @@ def head_weight_scale(model: "Decoder", cfg: Optional[ModelConfig] = None):
 
 def loss_fn(model: "Decoder", batch: Dict[str, torch.Tensor],
             cfg: Optional[ModelConfig] = None, z_loss: float = 0.0,
-            attn_impl: str = "auto", denom=None):
+            attn_impl: str = "auto", denom=None, mesh=None):
     """``(loss, metrics)`` for ``batch`` {"tokens" [B, S], "targets"
     [B, S], optional "mask" [B, S], optional "prefix_len" [B]}: masked
     mean NLL over ``denom`` (default the mask's sum), plus ``z_loss`` ·
     mean logz² when set. ``cfg.fused_ce`` runs the head through
     ``fused_linear_ce``; otherwise the full f32 logits. Metrics: loss,
-    tokens, accuracy (and z_loss), detached."""
+    tokens, accuracy (and z_loss), detached. Under a ``mesh`` the batch
+    is this rank's block (``forward``) and ``denom`` the global one."""
     cfg = model.cfg if cfg is None else cfg
     targets = batch["targets"]
     kw = dict(cfg=cfg, attn_impl=attn_impl,
-              prefix_len=batch.get("prefix_len"))
+              prefix_len=batch.get("prefix_len"), mesh=mesh)
     if cfg.fused_ce:
         feats = forward(model, batch["tokens"], features_only=True, **kw)
         w_out, head_scale = head_weight_scale(model, cfg)

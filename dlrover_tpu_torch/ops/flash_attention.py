@@ -43,8 +43,12 @@ the GLM prefix-LM ``prefix_len`` (keys before ``prefix_len[b]`` seen by
 every query). ``mha_reference`` aligns causal bottom-right; the two
 agree when ``Sq == Sk``, the training case. Layout ``[B, S, H, D]``; GQA
 shares K/V by index (``H`` a multiple of ``Hkv``), never repeated in
-memory by the kernels. Ring ``offsets`` run only on the plain versions
-for now (ROADMAP A16).
+memory by the kernels. Ring ``offsets`` ``(q_off, k_off)``, host ints, put
+q row 0 and key 0 at those global positions: the causal and window terms
+and the prefix compare global positions, every bound stays local. Every
+kernel takes them (``OFFSET_LAUNCHES`` counts the launches that carried
+them); ``key_tiles``, ``q_tiles`` and ``dkv_q_range`` are the plain twins
+of the kernels' tile and range math.
 """
 
 import ctypes
@@ -61,6 +65,8 @@ PACKED = ("flash_fwd_packed", "flash_bwd_dq_packed", "flash_bwd_dkv_packed")
 KERNELS = UNPACKED + PACKED
 #: launches of each kernel since the last ``reset_launches()``
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
+#: the launches of ``LAUNCHES`` that carried ring offsets
+OFFSET_LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 #: the forward kernels the C entry point takes, by id
 FWD_CUDA_KERNELS = ("flash_fwd_kernel", "flash_fwd_packed_kernel",
@@ -76,13 +82,38 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 #: the packed kernels hold two heads of this width
 PACK_HEAD_DIM = 64
-_NOT_PORTED = ("ring offsets run only on the plain versions: the CUDA "
-               "kernels take them with ring attention (ROADMAP A16, B8)")
+#: the kernels' tiles: q rows and keys a tile of the forward and dq
+#: (bf16: ``kTcBK`` keys a forward stage, ``kDqKeys`` a dq stage) and
+#: the q rows a dkv stage (``kDkvBQ``)
+FWD_TILE_KEYS, DQ_TILE_KEYS, DKV_TILE_ROWS = 128, 64, 64
+#: the offsets' range (``offsets_in_range`` in the CUDA file): positions
+#: and their differences stay in int32
+MAX_OFFSET, MAX_LOCAL = 1 << 30, 1 << 24
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         LAUNCHES[k] = 0
+        OFFSET_LAUNCHES[k] = 0
+
+
+def host_offsets(offsets, sq: int = 0, sk: int = 0,
+                 window: int = 0) -> Tuple[int, int]:
+    """``(q_off, k_off)`` as host ints (``(0, 0)`` for None), checked
+    against the kernels' range: ``|q_off|``, ``|k_off|`` and ``|q_off −
+    k_off|`` at most 2^30, ``Sq``, ``Sk`` and the window under 2^24."""
+    if offsets is None:
+        return 0, 0
+    if isinstance(offsets, torch.Tensor):
+        offsets = offsets.reshape(-1).tolist()
+    q_off, k_off = (int(x) for x in offsets)
+    if (max(abs(q_off), abs(k_off), abs(q_off - k_off)) > MAX_OFFSET
+            or max(sq, sk, window) >= MAX_LOCAL):
+        raise ValueError(
+            f"offsets ({q_off}, {k_off}) with Sq {sq}, Sk {sk}, window "
+            f"{window} leave the kernels' int32 range: |q_off|, |k_off| "
+            f"and |q_off - k_off| at most 2^30, S and window under 2^24")
+    return q_off, k_off
 
 
 def fwd_cuda_kernel(dtype, pack: int) -> str:
@@ -140,12 +171,9 @@ def _allowed(sq, sk, causal, window, prefix, offsets, device):
     ``_allowed_mask`` with the kernels' global offsets and prefix."""
     if not causal:
         return None
-    q_pos = torch.arange(sq, device=device)[:, None]
-    k_pos = torch.arange(sk, device=device)[None, :]
-    if offsets is not None:
-        off = torch.as_tensor(offsets, device=device).reshape(-1)
-        q_pos = q_pos + off[0]
-        k_pos = k_pos + off[1]
+    q_off, k_off = host_offsets(offsets)
+    q_pos = torch.arange(q_off, q_off + sq, device=device)[:, None]
+    k_pos = torch.arange(k_off, k_off + sk, device=device)[None, :]
     mask = q_pos >= k_pos
     if window:
         mask = mask & (q_pos - k_pos < window)
@@ -155,25 +183,74 @@ def _allowed(sq, sk, causal, window, prefix, offsets, device):
     return mask
 
 
-def dkv_q_range(sq, sk, causal, window, prefix=None):
+def local_prefix(prefix: int, k_off: int, sk: int) -> int:
+    """A global prefix in this call's keys: the keys ``[0, p)`` every
+    query sees (``prefix_of`` in ``csrc/flash_attention.cu``)."""
+    return min(max(int(prefix) - k_off, 0), sk)
+
+
+def dkv_q_range(sq, sk, causal, window, prefix=None, offsets=None):
     """``(lo, hi)``, ``[B or 1, Sk]`` int64: the queries ``[lo, hi)`` that
     each key sees, the rule the dkv kernel masks a key row by (``q_range``
     in ``csrc/flash_attention.cu``): causal ``[k, k + window)`` (``[k,
-    Sq)`` without a window); a key inside the prefix, or any key without
-    causal, is seen by every query; cut to ``[0, Sq)`` (``lo >= hi``: no
-    query). The same visibility as ``_allowed``, turned round."""
+    Sq)`` without a window), less ``q_off − k_off``; a key inside the
+    prefix, or any key without causal, is seen by every query; cut to
+    ``[0, Sq)`` (``lo >= hi``: no query). The same visibility as
+    ``_allowed``, turned round."""
+    q_off, k_off = host_offsets(offsets)
+    sh = q_off - k_off
     k = torch.arange(sk)[None]
     lo = torch.zeros_like(k)
     hi = torch.full_like(k, sq)
     if causal:
-        lo = k
+        lo = torch.clamp(k - sh, 0, sq)
         if window:
-            hi = torch.clamp(k + window, max=sq)
+            hi = torch.clamp(k - sh + window, 0, sq)
         if prefix is not None:
-            seen = k < prefix.cpu().long()[:, None]
+            pref = torch.clamp(prefix.cpu().long() - k_off, 0, sk)
+            seen = k < pref[:, None]
             lo = torch.where(seen, 0, lo)
             hi = torch.where(seen, sq, hi)
     return lo, hi
+
+
+def key_tiles(q0, bq, bk, sk, causal, window, pref=0, offsets=None):
+    """``(begin, end)``: the key tiles of width ``bk`` that the q tile
+    ``[q0, q0 + bq)`` visits, the twin of ``key_tiles`` in
+    ``csrc/flash_attention.cu`` (the forward's and dq's walk): causal up
+    to the tile's last row's diagonal, with a window from its first row's
+    window edge, both moved by ``q_off − k_off`` (floor division: a
+    negative position is not rounded toward 0), and every tile that
+    reaches into the local prefix ``pref`` (``local_prefix``)."""
+    q_off, k_off = host_offsets(offsets)
+    n = -(-sk // bk)
+    b, e = 0, n
+    if causal:
+        d0 = q0 + q_off - k_off
+        e = min(max((d0 + bq - 1) // bk + 1, 0), n)
+        if window:
+            b = min(max((d0 - window + 1) // bk, 0), n)
+        e = max(e, -(-min(pref, sk) // bk))
+    return b, e
+
+
+def q_tiles(k0, keys, sq, causal, window, pref=0, offsets=None,
+            rows=DKV_TILE_ROWS):
+    """``(begin, end)``: the q tiles of ``rows`` rows that the dkv walk of
+    the keys ``[k0, k0 + keys)`` visits, the twin of ``q_tiles`` (bf16)
+    and of the f32 dkv body's range in ``csrc/flash_attention.cu``: under
+    causal from the first key's diagonal, with a window up to the last
+    key's window edge, both moved by ``q_off − k_off``; every tile when
+    the first key lies in the local prefix."""
+    q_off, k_off = host_offsets(offsets)
+    n = -(-sq // rows)
+    b, e = 0, n
+    if causal and k0 >= pref:
+        sh = q_off - k_off
+        b = min(max((k0 - sh) // rows, 0), n)
+        if window:
+            e = min(max((k0 + keys - 1 - sh + window - 1) // rows + 1, 0), n)
+    return b, e
 
 
 def fwd_items(b, sq, h, hkv, pack=1):
@@ -295,10 +372,10 @@ def _lib():
         lib = _build.load("flash_attention")
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         fwd = lib.dlrover_flash_fwd
-        fwd.argtypes = [p] * 6 + [i] * 6 + [f, i, i, i, i, p]
+        fwd.argtypes = [p] * 6 + [i] * 6 + [f] + [i] * 6 + [p]
         fwd.restype = i
         bwd = lib.dlrover_flash_bwd
-        bwd.argtypes = [i] + [p] * 10 + [i] * 6 + [f, i, i, i, p]
+        bwd.argtypes = [i] + [p] * 10 + [i] * 6 + [f] + [i] * 5 + [p]
         bwd.restype = i
         _fns.update(fwd=fwd, bwd=bwd)
     return _fns
@@ -354,35 +431,41 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def flash_fwd_cuda(q, k, v, *, causal, scale, window, prefix=None, pack=1):
+def flash_fwd_cuda(q, k, v, *, causal, scale, window, prefix=None, pack=1,
+                   offsets=None):
     """The forward kernel on ``q``'s device and current stream → ``(out,
     lse)``: for ``pack`` 1 ``flash_fwd_wgmma_kernel`` (bf16) or
     ``flash_fwd_kernel`` (f32), for ``pack`` 2
     ``flash_fwd_packed_wgmma_kernel`` (bf16) or ``flash_fwd_packed_kernel``
     (f32), two heads of 64 per block, MHA, any head count;
     ``fwd_cuda_kernel`` picks. ``prefix``: ``[B]`` int32 on the device, or
-    None. Both bf16 kernels are persistent: each takes its work items
-    (``fwd_items``) from its own counter in device memory, which each
-    launch resets at its end, so their launches must not run on two
-    streams at once."""
+    None. ``offsets``: ``(q_off, k_off)`` host ints, or None. Both bf16
+    kernels are persistent: each takes its work items (``fwd_items``)
+    from its own counter in device memory, which each launch resets at its
+    end, so their launches must not run on two streams at once (processes
+    that share a card each have their own context, and so their own
+    counters)."""
     b, sq, sk, h, hkv, d = _geometry(q, k, v, pack, prefix)
+    q_off, k_off = host_offsets(offsets, sq, sk, window)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _lib()["fwd"](
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _ptr(prefix), b, sq, sk, h, hkv, d, float(scale),
-        int(causal), int(window),
+        int(causal), int(window), q_off, k_off,
         FWD_CUDA_KERNELS.index(fwd_cuda_kernel(q.dtype, pack)),
         _DTYPE_CODE[q.dtype], stream)
     name = "flash_fwd_packed" if pack == 2 else "flash_fwd"
     _raise_on(err, name)
     LAUNCHES[name] += 1
+    if q_off or k_off:
+        OFFSET_LAUNCHES[name] += 1
     return out, lse
 
 
 def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window,
-                   prefix=None, pack=1):
+                   prefix=None, pack=1, offsets=None):
     """The dq kernel then the dkv kernel on ``q``'s device and current
     stream → ``(dq, dk, dv)``: ``bwd_cuda_kernel`` picks the pair, for
     ``pack`` 1 ``flash_bwd_dq_wgmma_kernel`` and
@@ -395,6 +478,7 @@ def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window,
     that each launch resets at its end, as the packed forward does, so its
     launches must not run on two streams at once."""
     b, sq, sk, h, hkv, d = _geometry(q, k, v, pack, prefix)
+    q_off, k_off = host_offsets(offsets, sq, sk, window)
     _check(g, "dO", q.device, q.dtype, q.shape)
     _check(lse, "lse", q.device, torch.float32, (b, h, sq))
     _check(delta, "delta", q.device, torch.float32, (b, h, sq))
@@ -405,13 +489,16 @@ def flash_bwd_cuda(q, k, v, g, lse, delta, *, causal, scale, window,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), _ptr(prefix), b, sq, sk, h, hkv, d, float(scale),
-            int(causal), int(window), _DTYPE_CODE[q.dtype], stream)
+            int(causal), int(window), q_off, k_off, _DTYPE_CODE[q.dtype],
+            stream)
     suffix = "_packed" if pack == 2 else ""
     for kernel, name in zip(bwd_cuda_kernel(q.dtype, pack),
                             ("flash_bwd_dq", "flash_bwd_dkv")):
         _raise_on(_lib()["bwd"](BWD_CUDA_KERNELS.index(kernel), *args),
                   name + suffix)
         LAUNCHES[name + suffix] += 1
+        if q_off or k_off:
+            OFFSET_LAUNCHES[name + suffix] += 1
     return dq, dk, dv
 
 
@@ -430,14 +517,12 @@ class _Flash(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale, window, prefix, offsets, pack):
         kw = dict(causal=causal, scale=scale, window=window)
         if q.device.type == "cuda":
-            if offsets is not None:
-                raise NotImplementedError(_NOT_PORTED)
             if prefix is not None:
                 prefix = prefix.to(device=q.device,
                                    dtype=torch.int32).contiguous()
             out, lse = flash_fwd_cuda(q.contiguous(), k.contiguous(),
                                       v.contiguous(), prefix=prefix,
-                                      pack=pack, **kw)
+                                      pack=pack, offsets=offsets, **kw)
         elif q.device.type == "cpu":
             out, lse = flash_fwd_reference(q, k, v, prefix=prefix,
                                            offsets=offsets, **kw)
@@ -468,7 +553,8 @@ class _Flash(torch.autograd.Function):
                 delta = delta - g_lse.float()
             dq, dk, dv = flash_bwd_cuda(
                 q.contiguous(), k.contiguous(), v.contiguous(), g, lse,
-                delta.contiguous(), prefix=prefix, pack=pack, **ctx.kw)
+                delta.contiguous(), prefix=prefix, pack=pack,
+                offsets=offsets, **ctx.kw)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -496,9 +582,12 @@ def flash_attention_with_lse(q, k, v, *, causal: bool = True,
     the backward's delta). q ``[B, Sq, H, D]``, k/v ``[B, Sk, Hkv, D]``;
     lse ``[B, H, Sq]`` f32. ``prefix_len`` ``[B]`` int: the GLM
     prefix-LM mask. ``head_pack``: heads per kernel block
-    (``head_pack_for``; 0 = auto). ``offsets`` ``(q_off, k_off)`` shift
-    the mask to global positions (plain versions only, ROADMAP A16)."""
+    (``head_pack_for``; 0 = auto). ``offsets`` ``(q_off, k_off)`` (host
+    ints, or a 2-element tensor read once to the host) shift the mask to
+    global positions, as the JAX ``offs`` do."""
     _validate(q, k, causal, window, prefix_len)
+    if offsets is not None:
+        offsets = host_offsets(offsets, q.shape[1], k.shape[1], window)
     pack = head_pack_for(q.shape[2], k.shape[2], q.shape[3], head_pack)
     scale = q.shape[-1] ** -0.5 if softmax_scale is None else softmax_scale
     return _Flash.apply(q, k, v, bool(causal), float(scale), int(window),

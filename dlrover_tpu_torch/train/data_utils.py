@@ -10,7 +10,11 @@ The JAX module's ``form_global_batch`` assembles one global array from
 every host's local rows. The port's replicated data parallelism needs
 no assembly: each rank keeps its own rows (rows [rank·B/W,
 (rank+1)·B/W) of the global batch), and the step all-reduces the
-gradients (``train_step.py``).
+gradients (``train_step.py``). Under a dp × sp mesh a rank's rows are
+those of its dp coordinate (``dp_rows``, for a caller that holds the
+global batch) and it keeps its sp block of the sequence
+(``sequence_block``): the block the JAX ``batch_sharding`` puts on its
+device.
 """
 
 import collections
@@ -21,6 +25,33 @@ import torch
 
 def _host(v) -> torch.Tensor:
     return v if isinstance(v, torch.Tensor) else torch.as_tensor(v)
+
+
+def _block(x: torch.Tensor, dim: int, index: int, n: int) -> torch.Tensor:
+    if x.shape[dim] % n:
+        raise ValueError(f"a batch axis of {x.shape[dim]} does not split "
+                         f"into {n} equal blocks")
+    size = x.shape[dim] // n
+    return x.narrow(dim, index * size, size)
+
+
+def dp_rows(batch: Dict, mesh) -> Dict:
+    """This rank's rows of a global batch: block ``dp coordinate`` of the
+    leading axis of every array, cut in ``dp`` equal blocks."""
+    n, i = mesh.shape["dp"], mesh.coord("dp")
+    return {k: _block(_host(v), 0, i, n) for k, v in batch.items()}
+
+
+def sequence_block(batch: Dict, mesh) -> Dict:
+    """This rank's sequence block of its rows: every per-token array
+    (``[B, S, ...]``: tokens, targets, mask) cut to block ``sp
+    coordinate`` of ``sp`` equal blocks of its second axis; per-row arrays
+    (``[B]``: ``prefix_len``, in global positions) kept whole."""
+    n, i = mesh.shape["sp"], mesh.coord("sp")
+    if n == 1:
+        return batch
+    return {k: _block(_host(v), 1, i, n) if _host(v).dim() >= 2 else v
+            for k, v in batch.items()}
 
 
 def prefetch_to_device(it: Iterable[Dict], size: int = 2,

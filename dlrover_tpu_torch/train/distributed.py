@@ -7,6 +7,10 @@ group: NCCL on CUDA, gloo on the CPU, ``tcp://<coordinator>`` (the
 store on the world's first node), ``RANK`` and ``WORLD_SIZE``. On CUDA
 it first binds the process to its card (``LOCAL_RANK``) and ends with
 one barrier, so the bootstrap has run on the card even at world 1.
+A caller may name the backend and the card: several ranks sharing one
+card (NCCL refuses two ranks on one GPU) ask for gloo and card 0, and
+the sequence-parallel collectives then stage their CUDA tensors through
+host memory (``parallel/collectives.py``). Nothing picks gloo by itself.
 The JAX function skips a one-process world; here an agent-launched
 worker always forms its group (the agent set the coordinator).
 """
@@ -31,13 +35,18 @@ def init_distributed(
     rank: Optional[int] = None,
     device="cuda",
     timeout_s: float = 600.0,
+    backend: Optional[str] = None,
+    device_index: Optional[int] = None,
 ) -> bool:
     """Form the process group from the agent's env. Idempotent.
 
-    Returns True if a group was formed (or already was); False without
-    a coordinator (a run outside the agent). Raises when ``device`` is
-    CUDA and the process has no card, or when the group cannot form:
-    there is no fallback to another backend.
+    ``backend``: "nccl" or "gloo" (default: NCCL on CUDA, gloo on the
+    CPU). ``device_index``: the card this rank runs on (default
+    ``LOCAL_RANK``); ranks may share one under gloo. Returns True if a
+    group was formed (or already was); False without a coordinator (a run
+    outside the agent). Raises when ``device`` is CUDA and the process has
+    no card, or when the group cannot form: there is no fallback to
+    another backend.
     """
     if dist.is_available() and dist.is_initialized():
         return True
@@ -53,10 +62,13 @@ def init_distributed(
         if not torch.cuda.is_available():
             raise RuntimeError("init_distributed(device='cuda'): this "
                                "worker sees no CUDA device")
-        local_rank = int(os.environ.get("LOCAL_RANK", "0"))
-        torch.cuda.set_device(local_rank)
-        backend = "nccl"
+        if device_index is None:
+            device_index = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(device_index)
+        backend = backend or "nccl"
     else:
+        if backend not in (None, "gloo"):
+            raise ValueError(f"backend {backend!r} on the CPU: only gloo")
         backend = "gloo"
     dist.init_process_group(
         backend=backend, init_method=f"tcp://{coordinator}",

@@ -15,14 +15,16 @@ workers) the step is replicated data parallelism: each rank's
 ``train_iter`` yields its own rows of the global batch (rows
 [rank·B/W, (rank+1)·B/W), as the JAX ``form_global_batch`` lays them
 out), and the step all-reduces the gradients (``train_step.py``). With
-a master client the trainer reports the model's statistics (rank 0) and
-every global step, as the JAX trainer does, and its checkpoints report
-their staged steps.
+a dp × sp ``mesh`` (``parallel/mesh.py``; a ``MeshConfig`` is built over
+the world) the rows are those of the rank's dp coordinate, and the step
+keeps the rank's sp block of the sequence. With a master client the
+trainer reports the model's statistics (rank 0) and every global step,
+as the JAX trainer does, and its checkpoints report their staged steps.
 
-Not ported yet, and refused with the ROADMAP item that ports them: a
-device mesh, update sharding and the bucketed gradient exchange (A9),
-health sentinels and the sampled runtime profile (A12), the gradient
-sanitizer (A17).
+Not ported yet, and refused with the ROADMAP item that ports them: mesh
+axes other than dp and sp (fsdp and tp: A9; pp and ep: A16), update
+sharding and the bucketed gradient exchange (A9), health sentinels and
+the sampled runtime profile (A12), the gradient sanitizer (A17).
 """
 
 import os
@@ -42,6 +44,12 @@ from dlrover_tpu_torch.observability import telemetry
 from dlrover_tpu_torch.observability.loss_spike import LossSpikeDetector
 from dlrover_tpu_torch.observability.profiler import StepTimer
 from dlrover_tpu_torch.observability.tracing import get_tracer
+from dlrover_tpu_torch.parallel.mesh import (
+    Mesh,
+    MeshConfig,
+    build_mesh,
+    check_ported,
+)
 from dlrover_tpu_torch.train.callbacks import (
     Callback,
     CallbackList,
@@ -100,7 +108,7 @@ class TrainerArgs:
     sanitize_grads: Optional[str] = None        # ROADMAP A17
 
 
-def _refuse_unported(args: TrainerArgs, mesh) -> None:
+def _refuse_unported(args: TrainerArgs) -> None:
     if (args.update_sharding or args.comm_bucket_mb != 4.0
             or args.comm_wire_dtype != "float32"
             or args.comm_wire_dtype_dcn is not None):
@@ -114,10 +122,23 @@ def _refuse_unported(args: TrainerArgs, mesh) -> None:
     if args.sanitize_grads:
         raise NotImplementedError(
             "sanitize_grads is not ported yet (ROADMAP A17)")
-    if mesh is not None:
+
+
+def _mesh(mesh):
+    """A ``MeshConfig`` built over the world, a ``Mesh`` checked: axes
+    other than dp and sp above 1 raise, naming their ROADMAP items, as
+    does any other kind of mesh (the sharded layouts wait for A9)."""
+    if mesh is None:
+        return None
+    if isinstance(mesh, MeshConfig):
+        return build_mesh(mesh)
+    if not isinstance(mesh, Mesh):
         raise NotImplementedError(
-            "a device mesh (DDP/FSDP/TP over dp/fsdp/tp) is not ported yet "
-            "(ROADMAP A9)")
+            f"a mesh of type {type(mesh).__name__}: the port takes a "
+            "parallel.mesh.Mesh or MeshConfig over dp x sp; sharded "
+            "layouts (fsdp, tp) are not ported yet (ROADMAP A9)")
+    check_ported(mesh.shape)
+    return mesh
 
 
 class Trainer:
@@ -147,8 +168,11 @@ class Trainer:
     ):
         """``step_builder``/``init_state_fn``/``eval_step_fn`` hand in the
         lowering instead of the one built here from ``args``;
-        ``init_state_fn(seed)`` returns a train state."""
-        _refuse_unported(args, mesh)
+        ``init_state_fn(seed)`` returns a train state. ``mesh``: a
+        ``parallel.mesh.Mesh`` or ``MeshConfig`` (dp × sp), or None."""
+        _refuse_unported(args)
+        mesh = _mesh(mesh)
+        self.mesh = mesh
         self.cfg = cfg
         self.client = master_client
         self.args = args
@@ -158,7 +182,7 @@ class Trainer:
         self._init_state_fn = init_state_fn
         self._builder = step_builder or TrainStepBuilder(
             cfg, optimizer, grad_accum=args.grad_accum,
-            attn_impl=args.attn_impl, device=self.device)
+            attn_impl=args.attn_impl, device=self.device, mesh=mesh)
         self._step_fn = None
         self._block_fn = None
         self._eval_fn = eval_step_fn
@@ -497,7 +521,7 @@ class Trainer:
             return {}
         if self._eval_fn is None:
             self._eval_fn = build_eval_step(self.cfg, self.args.attn_impl,
-                                            self.device)
+                                            self.device, self.mesh)
         total, n = 0.0, 0
         for i, batch in enumerate(self.eval_iter_fn()):
             if i >= self.args.eval_steps:

@@ -185,7 +185,9 @@ def test_flash_forward_dispatch_by_dtype(no_card, dtype, d, pack, kernel):
     fa.flash_fwd_cuda(q, k, v, causal=True, scale=d ** -0.5, window=0,
                       pack=pack)
     assert fa.fwd_cuda_kernel(dtype, pack) == kernel
-    assert no_card.calls[-1][15] == fa.FWD_CUDA_KERNELS.index(kernel)
+    # the kernel id follows the ring offsets (q_off, k_off) in the C entry
+    assert no_card.calls[-1][15:17] == (0, 0)
+    assert no_card.calls[-1][17] == fa.FWD_CUDA_KERNELS.index(kernel)
     # the launch counts under the forward's name, as train's checks expect
     name = "flash_fwd_packed" if pack == 2 else "flash_fwd"
     assert fa.LAUNCHES == {n: int(n == name) for n in fa.KERNELS}

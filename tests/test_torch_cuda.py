@@ -508,6 +508,66 @@ def test_flash_kernels_match_plain(dev, dtype, b, s, h, hkv, d, causal,
         _normwise(got, want, tol)
 
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,hkv,d,window,offsets,prefix", [
+    # a ring block the window edge crosses: GQA at D 128 and D 64
+    (1, 512, 8, 2, 128, 700, (1536, 1024), None),
+    (1, 300, 4, 2, 64, 333, (900, 600), None),
+    # a prefix-only block (packed): prefixes 0, inside and past the block
+    (3, 256, 4, 4, 64, 0, (-(1 << 30), 0), (0, 100, 256)),
+    # a prefix-only block of the one-head kernels (D 128)
+    (2, 200, 4, 2, 128, 0, (-(1 << 30), 0), (77, 0))])
+def test_flash_kernels_take_ring_offsets(dev, dtype, b, s, h, hkv, d, window,
+                                         offsets, prefix):
+    """Every flash kernel with ring offsets against the plain versions on
+    the rows that see a key; a row that sees none ends with an lse at or
+    below -1e27 (the ring merge's NEG_INF guard drops it), and its
+    cotangent is zero, as the ring router leaves it."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(s + d + b)
+    q, k, v, go = (torch.randn(shape, generator=g, device=dev).to(dtype)
+                   for shape in ((b, s, h, d), (b, s, hkv, d),
+                                 (b, s, hkv, d), (b, s, h, d)))
+    pref = (None if prefix is None
+            else torch.tensor(prefix, dtype=torch.int32, device=dev))
+    pack = fa.head_pack_for(h, hkv, d)
+    kw = dict(causal=True, scale=d ** -0.5, window=window)
+    seen = fa._allowed(s, s, True, window, pref, offsets, dev).any(-1)
+    go = torch.where(seen[:, :, None, None], go, 0).to(dtype)
+    fa.reset_launches()
+    out, lse = fa.flash_fwd_cuda(q, k, v, prefix=pref, pack=pack,
+                                 offsets=offsets, **kw)
+    delta = (go.float() * out.float()).sum(-1).permute(0, 2, 1).contiguous()
+    dq, dk, dv = fa.flash_bwd_cuda(q, k, v, go, lse, delta, prefix=pref,
+                                   pack=pack, offsets=offsets, **kw)
+    torch.cuda.synchronize()
+    names = fa.PACKED if pack == 2 else fa.UNPACKED
+    assert fa.OFFSET_LAUNCHES == {n: int(n in names) for n in fa.KERNELS}
+    f = [x.float() for x in (q, k, v)]
+    ref, ref_lse = fa.flash_fwd_reference(*f, prefix=pref, offsets=offsets,
+                                          **kw)
+    refs = fa.flash_bwd_reference(*f, out.float(), lse, go.float(),
+                                  prefix=pref, offsets=offsets, **kw)
+    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+    rows = seen.expand(b, s)
+    _normwise(out[rows], ref[rows], tol)
+    lse_t = lse.transpose(1, 2)
+    torch.testing.assert_close(lse_t[rows], ref_lse.transpose(1, 2)[rows],
+                               rtol=1e-5, atol=1e-5)
+    assert bool((lse_t[~rows] <= -1e27).all())
+    assert bool(torch.isfinite(out.float()).all())
+    for got, want in zip((dq, dk, dv), refs):
+        _normwise(got, want, tol)
+    # the fault the gates must catch: k_off off by one key (a prefix-only
+    # block's q_off, at the kernels' range, moves with it)
+    bad, _ = fa.flash_fwd_cuda(
+        q, k, v, prefix=pref, pack=pack,
+        offsets=(offsets[0] + (offsets[0] < 0), offsets[1] + 1), **kw)
+    err = float((bad.float() - ref)[rows].abs().max())
+    assert err > tol * float(ref[rows].abs().max())
+
 def test_flash_autograd_on_card_matches_cpu(dev):
     from dlrover_tpu_torch.ops import flash_attention as fa
 
@@ -528,9 +588,9 @@ def test_flash_cuda_raises_for_what_the_kernel_does_not_take(dev):
     from dlrover_tpu_torch.ops import flash_attention as fa
 
     q = torch.randn(1, 64, 2, 64, device=dev)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="int32 range"):
         fa.flash_attention_with_lse(
-            q, q, q, offsets=torch.tensor([0, 0], device=dev))
+            q, q, q, offsets=torch.tensor([-(1 << 30), 1], device=dev))
     with pytest.raises(ValueError, match="head_dim"):
         x = torch.randn(1, 64, 2, 32, device=dev)
         fa.flash_attention(x, x, x, head_pack=1)

@@ -245,12 +245,32 @@ def test_unported_options_raise():
     batch = _tb(_batch(9))
     with pytest.raises(NotImplementedError, match="A21"):
         tdec.loss_fn(model, batch)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         tdec.loss_fn(model, batch, dataclasses.replace(cfg, remat="none"),
                      attn_impl="ring")
+    with pytest.raises(NotImplementedError, match="A16"):
+        tdec.init(dataclasses.replace(cfg, remat="none", n_experts=4),
+                  seed=0, device="cpu", trainable=True)
     with pytest.raises(ValueError, match="grad_accum"):
         tts.TrainStepBuilder(cfg, topt.make_optimizer(), grad_accum=0,
                              device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["flash", "reference"])
+def test_local_attention_under_an_sp_mesh_raises(impl):
+    """Under sp > 1 each rank holds one sequence block: "flash" and
+    "reference" would attend within it alone, so they refuse the mesh."""
+    from dlrover_tpu_torch.parallel.mesh import Mesh
+
+    _, cfg = _configs()
+    model = tdec.init(cfg, seed=0, device="cpu", trainable=True)
+    batch = _tb(_batch(9))
+    mesh = Mesh({"dp": 1, "sp": 4}, rank=1)
+    with pytest.raises(ValueError, match="needs \"ring\", \"ulysses\""):
+        tdec.loss_fn(model, batch, cfg, attn_impl=impl, mesh=mesh)
+    # sp == 1 is no sequence split: the local attention is the whole one
+    tdec.loss_fn(model, batch, cfg, attn_impl=impl,
+                 mesh=Mesh({"dp": 1, "sp": 1}))
 
 
 def test_state_dict_round_trip_through_the_jax_tree():
