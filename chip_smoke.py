@@ -24,7 +24,10 @@ from ``--seed``, through the hand-written CUDA kernels built from
 - elastic training: the launcher (``dlrover_tpu_torch.agent.launcher``:
   a local job master, the elastic agent and its checkpoint saver)
   restarting a crashed llama-1.4b worker
-  (``dlrover_tpu_torch.examples.train_gpt_elastic``) on the card;
+  (``dlrover_tpu_torch.examples.train_gpt_elastic``) on the card, its
+  batches from the master's data-shard service; then four ranks of the
+  worker on the card with ZeRO update sharding, two of them evicted
+  mid-run and the optimizer state live-resharded onto the other two;
 - sequence parallelism: ``TrainStepBuilder`` over ``MeshConfig(dp=1,
   sp=4)`` → ``loss_fn(mesh=...)`` → ``ring_attention`` (the flash
   kernels with ring offsets on its window-partial and prefix-only
@@ -98,7 +101,8 @@ result:
    window, D 64 unpacked, ragged S; packed: 16 heads, glm-10b's 64 heads
    at S 2048 with a prefix per sequence of 0, 700 and past the end,
    non-causal bert-base, 25 heads at S 1000; the prefix in the unpacked
-   kernels at D 128), each under an
+   kernels at D 128; a reshard rank's shapes: llama-1.4b's flash at B 2
+   and its norm rows [2048, 2048]), each under an
    element-wise bound and each with a planted fault the bound must catch
    (a key row replaced; the prefix shifted by one key; at 25 heads the
    last pack's second head written into head 24, where the ragged path
@@ -157,13 +161,39 @@ result:
    round 2 → success and launcher exit 0; NCCL world 1 rank 0 on CUDA;
    no kernel rebuilt in a worker; both runs' losses equal the
    reference's bit for bit; step 4 committed before the respawn, and
-   step 8 last; the committed pack's payload the reference's; exact
-   launches every step; no segment or socket left. Read from the run's
+   step 8 last; the committed pack's payload the reference's; every
+   step's batch from the master's shard of that step, the resumed run's
+   dataset position put back from the restored pack; exact launches
+   every step; no segment or socket left. Read from the run's
    trace files (agent and workers): the crash to the agent seeing it,
    the agent's persists against the disk yardstick, rendezvous and
    respawn, the worker's start, group, kernel load and memory restore,
    the crash to the first step back, the steady step against the
    reference's, and any step stalled during a persist;
+11b. reshard: the same launcher with ``--nproc 4`` runs the worker on
+   four ranks of the one card over gloo (``--one-card``), llama-1.4b at
+   full width and 2 layers (as ``trainer``), b8 × s1024, ``--zero1``
+   (the zero2 mode: the moments are each rank's columns of the flat
+   bucket stream; 64 MB buckets), the data from the master's shard
+   service, no checkpoint. After step 4 of 8 ranks 2 and 3 are evicted:
+   the master's reshard directive, the migration of the flat moments
+   to the survivors, the departing ranks' exit 0, the survivors' new
+   gloo group at ``grad_accum`` 2. Gated: both survivors' ``[reshard]
+   done`` live with dp 4->2 and all five phases ok, no storage restore;
+   each survivor's migrated columns (moments and packed parameters) equal
+   the ``reshard_flat`` repack of the state gathered before the eviction
+   bit for bit; the first loss after it within 1.0 of the last before,
+   every loss finite; every rank's loss and grad norm of every step
+   within 1e-5 and 1e-4 (relative) of a replicated run in this process
+   on the same global batches (grad_accum 4 micro-batches of a rank's 2
+   rows), and a second launcher run of 2 steps whose every gradient
+   exchange has its middle bucket zeroed (``--zero-fault-worker``)
+   outside them; rank 0's shards cover [0, 8 × 8) once and the
+   master counts 8 completed; the departing ranks' exit; K1, K2 and the
+   norm kernels launched on every rank every step as the layers and the
+   accumulation imply; the two runs' disk writes under 3 GiB. Read: the
+   phase's seconds, each reshard phase's, the recovery, the step at dp 4
+   and at dp 2, peak memory a rank;
 12. ring, ulysses, ring_glm: four processes on the card in a gloo group
    (asked for: NCCL refuses two ranks on one GPU; the ring shifts and
    all-to-alls stage their CUDA tensors through page-locked host
@@ -2052,6 +2082,21 @@ def sp_shape_cases(gen, dev):
     ]
 
 
+def reshard_shape_cases(gen, dev):
+    """The kernels at the shapes a rank of the reshard phase launches
+    them, each against its plain version with its planted fault:
+    llama-1.4b's attention at a rank's 2 rows (b8 over dp 4, and over dp
+    2 in 2 micro-batches), causal, no window, no prefix; its rmsnorm rows
+    (2048 of d 2048, plain and with the residual)."""
+    return [
+        flash_case("llama-1.4b-reshard", 2, 1024, 16, 16, 128, True, 0,
+                   gen, dev, False),
+        norm_case("llama-1.4b-reshard", 2048, 2048, False, gen, dev, False),
+        norm_case("llama-1.4b-reshard+residual", 2048, 2048, True, gen, dev,
+                  False),
+    ]
+
+
 def train_kernel_cases(seed, dev):
     gen = torch.Generator(device=dev).manual_seed(seed + 10)
     cases = [
@@ -2084,6 +2129,7 @@ def train_kernel_cases(seed, dev):
     ]
     cases += offsets_cases(gen, dev)
     cases += sp_shape_cases(gen, dev)
+    cases += reshard_shape_cases(gen, dev)
     cases += [
         # the train steps' norms: [B·S, d_model] rows, timed
         norm_case("llama-1.4b", 8192, 2048, False, gen, dev, True),
@@ -2691,6 +2737,7 @@ ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_CRASH_AT = 8, 2, 5
 ELASTIC_TIMEOUT_S = 540
 _STEP_LINE = re.compile(r"\[worker\] step=(\d+) loss=(\S+) rank=\d+ "
                         r"device_ms=(\S+) at=(\S+) launches=(\{.*\})")
+_SHARD_LINE = re.compile(r"\[worker\] shard step=(\d+) \[(\d+), (\d+)\)")
 
 
 def _trace_events(trace_dir):
@@ -2893,6 +2940,9 @@ def elastic_check(cfg, seed, ref, name="elastic", device="cuda",
         pack = runs[1].get("pack_check", {}) if len(runs) > 1 else {}
         rec["pack_check"] = pack
         ck = os.path.join(ckpt_dir, "checkpoints")
+        rec["shard_steps"] = [(int(n), int(a), int(b))
+                              for n, a, b in _SHARD_LINE.findall(log)]
+        rec["dataset_restored"] = "[worker] dataset position restored" in log
         rec["committed_step_4"] = os.path.exists(os.path.join(
             ck, f"step_{ELASTIC_CRASH_AT - 1}", "done", "host_0.done"))
         rec["last_committed_step"] = read_tracker(ck, PosixStorage())
@@ -2941,6 +2991,14 @@ def elastic_check(cfg, seed, ref, name="elastic", device="cuda",
         == rec["reference"]["payload_bytes"],
         "final_save_committed": rec.get("last_committed_step")
         == ELASTIC_STEPS,
+        # every step's batch from the master's shard of it; the resumed
+        # run's dataset position put back to the restored step's
+        "shards_from_the_service": bool(rec.get("shard_steps"))
+        and all(a == (n - 1) * TRAIN_BATCH and b == n * TRAIN_BATCH
+                for n, a, b in rec["shard_steps"])
+        and sorted({n for n, _, _ in rec["shard_steps"]})
+        == list(range(1, ELASTIC_STEPS + 1))
+        and rec.get("dataset_restored") is True,
         "launches_exact": rec.get("launches_per_step_ok") is True,
         "readings": "readings_error" not in rec,
         "nothing_left_behind": rec["left_behind"] == [],
@@ -3037,6 +3095,352 @@ def _mem_available():
             if line.startswith("MemAvailable:"):
                 return int(line.split()[1]) * 1024
     return None
+
+# ---------------------------------------------------------------------------
+# phase 11b: the live reshard, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+RESHARD_LAYERS, RESHARD_STEPS, RESHARD_EVICT_AT = 2, 8, 4
+RESHARD_RANKS, RESHARD_LOST = 4, (2, 3)
+RESHARD_BUCKET_MB = 64.0
+RESHARD_TIMEOUT_S = 480
+RESHARD_DISK_CAP = 3 << 30
+# the ZeRO stream against the replicated one, relative. The CPU tests
+# hold f32 streams of 3 steps at 1e-5 (losses) and 1e-4 (norms); here
+# the steps run the bf16 kernels for 8 steps, where another summation
+# order of the same gradients alone moves both by some 1e-5 (the
+# ``order_spread`` reading: the replicated run against itself with its
+# micro-batches reversed). A dropped bucket moves the norm by percents,
+# a wrong divide by grad_accum by a factor.
+RESHARD_RTOL_LOSS, RESHARD_RTOL_NORM = 1e-4, 1e-4
+# the planted fault: a run of this many steps at dp 4 whose every
+# gradient exchange returns its middle bucket zeroed (llama-1.4b at 2
+# layers has 14 of 64 MB: bucket 7, MLP weights of both layers)
+RESHARD_FAULT_STEPS = 2
+_RANK_STEP = re.compile(r"\[worker\] step=(\d+) loss=(\S+) rank=(\d+) "
+                        r"grad_norm=(\S+) device_ms=(\S+) at=(\S+) "
+                        r"launches=(\{.*\})")
+
+
+def _write_bytes():
+    """Bytes this process and its reaped children caused to be written to
+    storage (``/proc/self/io``)."""
+    with open("/proc/self/io") as f:
+        return int(next(line.split()[1] for line in f
+                        if line.startswith("write_bytes:")))
+
+
+def zero_fault_worker(argv):
+    """The elastic example's worker (``argv`` its arguments) with the
+    middle bucket of every gradient exchange's result zeroed: the reshard
+    phase's planted fault, which its step gate must catch."""
+    from dlrover_tpu_torch.examples import train_gpt_elastic as ex
+    from dlrover_tpu_torch.parallel import sharding as shd
+
+    exchange = shd.exchange_buckets
+
+    def dropped(g, plan, group=None):
+        out = exchange(g, plan, group)
+        out[plan.n_buckets // 2] = 0
+        return out
+
+    shd.exchange_buckets = dropped
+    return ex.main(argv)
+
+
+def _reshard_launch(cfg, seed, device, overrides, steps, flags, worker,
+                    log_name):
+    """One run of the port's launcher: the elastic worker (``worker``: the
+    command that starts one) on ``RESHARD_RANKS`` ranks of one node, all
+    on card 0 over gloo, ``--zero1`` with ``RESHARD_BUCKET_MB`` buckets,
+    ``steps`` steps at b``TRAIN_BATCH`` × s``TRAIN_SEQ``, no checkpoint,
+    ``flags`` added. Returns (its record, its log)."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.common.multi_process import (
+        attach_shared_memory,
+        unlink_shared_memory,
+    )
+
+    out = tempfile.mkdtemp(prefix="dlrover_reshard_")
+    run_id = f"chip_smoke_{log_name}_{os.getpid()}"
+    sock_dir = os.path.join(out, "sock")
+    env = dict(os.environ, DLROVER_TPU_RUN_ID=run_id,
+               DLROVER_TPU_COORDINATOR_PORT="0",
+               DLROVER_TPU_SOCK_DIR=sock_dir)
+    env.pop("DLROVER_TPU_MASTER_ADDR", None)
+    env.pop("DLROVER_TPU_TRACE_DIR", None)
+    cmd = ["timeout", "-k", "10", str(RESHARD_TIMEOUT_S), sys.executable,
+           "-m", "dlrover_tpu_torch.agent.launcher", "--nnodes", "1",
+           "--nproc", str(RESHARD_RANKS), "--max-restarts", "0",
+           "--monitor-interval", "0.2", "--", *worker, "--model",
+           cfg.name, "--override", f"n_layer={cfg.n_layer}",
+           "--steps", str(steps), "--batch", str(TRAIN_BATCH),
+           "--seq", str(TRAIN_SEQ), "--seed", str(seed), "--ckpt-dir",
+           os.path.join(out, "run"), "--ckpt-every", "0", "--zero1",
+           "--bucket-mb", str(RESHARD_BUCKET_MB), *flags, "--one-card",
+           "--device", device]
+    for item in overrides:
+        cmd += ["--override", item]
+    rec = {"command": cmd[4:]}
+    log = ""
+    try:
+        w0 = _write_bytes()
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        rec["seconds"] = time.perf_counter() - t0
+        rec["disk_write_bytes"] = _write_bytes() - w0
+        rec["launcher_rc"] = proc.returncode
+        log = proc.stdout
+        log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "chip_smoke")
+        os.makedirs(log_dir, exist_ok=True)
+        with open(os.path.join(log_dir, f"{log_name}_log.txt"), "w") as f:
+            f.write(log)
+    finally:
+        leftovers = [f for f in os.listdir("/dev/shm") if run_id in f]
+        for f in leftovers:
+            unlink_shared_memory(attach_shared_memory(f))
+        socks = os.listdir(sock_dir) if os.path.isdir(sock_dir) else []
+        rec["left_behind"] = leftovers + socks
+        shutil.rmtree(out, ignore_errors=True)
+    return rec, log
+
+
+def _rank_steps(log):
+    """step -> rank -> its loss, grad norm, wall time and launches."""
+    steps = {}
+    for m in _RANK_STEP.finditer(log):
+        steps.setdefault(int(m.group(1)), {})[int(m.group(3))] = {
+            "loss": float(m.group(2)), "grad_norm": float(m.group(4)),
+            "at": float(m.group(6)), "launches": json.loads(m.group(7))}
+    return steps
+
+
+def reshard_reference(cfg, seed, dev, steps, overrides=(), reverse=False):
+    """The replicated stream the ZeRO run is held to: one process, each
+    step's global batch (the dp ranks' rows in dp order: the
+    ``RESHARD_RANKS`` ranks' through step ``RESHARD_EVICT_AT``, the
+    survivors' after) in micro-batches of a rank's ``TRAIN_BATCH /
+    RESHARD_RANKS`` rows, the worker's optimizer and config (its
+    ``overrides``); ``reverse``: the micro-batches in the reverse order.
+    [(loss, grad_norm)] a step."""
+    from dlrover_tpu_torch.examples import train_gpt_elastic as ex
+    from dlrover_tpu_torch.models.config import get_config
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    fields = dict(n_layer=cfg.n_layer)
+    for item in overrides:
+        key, _, value = item.partition("=")
+        fields[key] = json.loads(value)
+    cfg = get_config(cfg.name, max_seq=TRAIN_SEQ, **fields)
+    opt = make_optimizer(learning_rate=ex.LR, warmup_steps=ex.WARMUP,
+                         decay_steps=ex.DECAY)
+    state = init_train_state(seed, cfg, opt, device=dev)
+    micro = TRAIN_BATCH // RESHARD_RANKS
+    accum = TRAIN_BATCH // micro
+    step = TrainStepBuilder(cfg, opt, grad_accum=accum, device=dev).build()
+    out = []
+    for s in range(1, steps + 1):
+        dp = (RESHARD_RANKS if s <= RESHARD_EVICT_AT
+              else RESHARD_RANKS - len(RESHARD_LOST))
+        parts = [ex.synthetic_batch(seed, s, i, TRAIN_BATCH // dp,
+                                    TRAIN_SEQ, cfg.vocab_size)
+                 for i in range(dp)]
+        batch = {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+        if reverse:
+            batch = {k: v.reshape((accum, micro) + v.shape[1:])[::-1]
+                     .reshape(v.shape) for k, v in batch.items()}
+        state, m = step(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _stream_errors(steps, ref):
+    """The largest relative error of every rank's loss and grad norm
+    against ``ref``'s over the steps they ran, and whether both are
+    within ``RESHARD_RTOL_LOSS`` and ``RESHARD_RTOL_NORM``."""
+    loss = norm = 0.0
+    for s, ranks in steps.items():
+        if not 1 <= s <= len(ref):
+            return {"loss": None, "grad_norm": None, "within": False}
+        want_loss, want_norm = ref[s - 1]
+        for r in ranks.values():
+            loss = max(loss, abs(r["loss"] - want_loss) / abs(want_loss))
+            norm = max(norm, abs(r["grad_norm"] - want_norm) / abs(want_norm))
+    return {"loss": loss, "grad_norm": norm,
+            "within": loss <= RESHARD_RTOL_LOSS and norm <= RESHARD_RTOL_NORM}
+
+
+def reshard_check(cfg, seed, name="reshard", device="cuda", overrides=()):
+    """The live reshard on the card: the port's launcher runs the elastic
+    worker on ``RESHARD_RANKS`` ranks of one node, all on card 0 over
+    gloo (``--one-card``), with ZeRO update sharding (``--zero1``: the
+    zero2 mode) and the data from the master's shard service; after step
+    ``RESHARD_EVICT_AT`` ranks ``RESHARD_LOST`` are evicted: the master
+    issues the reshard directive, the ranks migrate the flat optimizer
+    state, the departing ones exit 0 and the survivors train on at dp 2,
+    ``grad_accum`` 2. No checkpoint is saved (``--ckpt-every 0``): the
+    phase persists nothing. Every rank's loss and grad norm of every step
+    are held to ``reshard_reference``'s replicated stream, and so are a
+    second run's with one bucket of each exchange zeroed
+    (``zero_fault_worker``), which must fall outside."""
+    from dlrover_tpu_torch.examples.train_gpt_elastic import launches
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    survivors = [r for r in range(RESHARD_RANKS) if r not in RESHARD_LOST]
+    dp_new = len(survivors)
+    accum_new = -(-TRAIN_BATCH // (TRAIN_BATCH // RESHARD_RANKS * dp_new))
+
+    def per_step(accum):
+        want = {k: 0 for k in launches()}
+        want.update({k: cfg.n_layer * accum for k in fa.UNPACKED},
+                    norm_fwd=(2 * cfg.n_layer + 1) * accum,
+                    norm_bwd=(2 * cfg.n_layer + 1) * accum)
+        return want
+
+    rec = {"phase": name, "config": cfg.name, "n_layer": cfg.n_layer,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": RESHARD_STEPS,
+           "ranks": RESHARD_RANKS, "evict_at": RESHARD_EVICT_AT,
+           "lost": list(RESHARD_LOST), "bucket_mb": RESHARD_BUCKET_MB,
+           "grad_accum_after": accum_new, "card": nvidia_smi_line()}
+    module = [sys.executable, "-m",
+              "dlrover_tpu_torch.examples.train_gpt_elastic"]
+    run, log = _reshard_launch(
+        cfg, seed, device, overrides, RESHARD_STEPS,
+        ["--evict-at", str(RESHARD_EVICT_AT), "--evict-dp-ranks",
+         ",".join(map(str, RESHARD_LOST)), "--check-migration"],
+        module, name)
+    rec.update(run)
+    fault, fault_log = _reshard_launch(
+        cfg, seed, device, overrides, RESHARD_FAULT_STEPS, [],
+        [sys.executable, os.path.abspath(__file__), "--zero-fault-worker"],
+        f"{name}_fault")
+    t0 = time.perf_counter()
+    ref = reshard_reference(cfg, seed, torch.device(device), RESHARD_STEPS,
+                            overrides)
+    rec["reference_s"] = time.perf_counter() - t0
+    reverse = reshard_reference(cfg, seed, torch.device(device),
+                                RESHARD_STEPS, overrides, reverse=True)
+    lines = log.splitlines()
+
+    def tagged(tag):
+        return [line.split(tag, 1)[1] for line in lines if tag in line]
+
+    steps = _rank_steps(log)
+    fault_steps = _rank_steps(fault_log)
+    done = [json.loads(x) for x in tagged("[reshard] done ")]
+    checks_m = [json.loads(x) for x in tagged("[reshard] migration check ")]
+    events = [json.loads(x)["d"] for x in tagged("[event] ")]
+    shards = sorted((int(a), int(b)) for _, a, b in _SHARD_LINE.findall(log))
+    peaks = {}
+    for line in lines:
+        m = re.search(r"\[worker\] (?:done at step \d+|evicted) rank (\d+) "
+                      r"peak_bytes=(\S+)", line)
+        if m:
+            peaks[int(m.group(1))] = (None if m.group(2) == "None"
+                                      else int(m.group(2)))
+    completed = re.search(r"dataset train: (\d+) shards completed", log)
+    losses = [steps[s][0]["loss"] for s in sorted(steps) if 0 in steps[s]]
+    rank0 = {s: v[0]["at"] for s, v in steps.items() if 0 in v}
+
+    def step_s(lo, hi):
+        gaps = sorted(rank0[s] - rank0[s - 1] for s in range(lo, hi + 1)
+                      if s in rank0 and s - 1 in rank0)
+        return gaps[len(gaps) // 2] if gaps else None
+
+    phase_ok = {e["kind"]: e["detail"] for e in events
+                if e["kind"].startswith("reshard_")}
+    rec.update({
+        "losses": losses,
+        "grad_norms": [steps[s][0]["grad_norm"] for s in sorted(steps)
+                       if 0 in steps[s]],
+        "reference": ref, "errors": _stream_errors(steps, ref),
+        "order_spread": _stream_errors(
+            {s: {0: {"loss": x, "grad_norm": n}}
+             for s, (x, n) in enumerate(reverse, 1)}, ref),
+        "fault": {"bucket": "n_buckets // 2",
+                  "launcher_rc": fault.get("launcher_rc"),
+                  "seconds": fault.get("seconds"),
+                  "disk_write_bytes": fault.get("disk_write_bytes"),
+                  "left_behind": fault["left_behind"],
+                  "steps": sorted(fault_steps),
+                  "errors": _stream_errors(fault_steps, ref)},
+        "tolerances": {"loss": RESHARD_RTOL_LOSS,
+                       "grad_norm": RESHARD_RTOL_NORM},
+        "reshard": done, "migration_checks": checks_m,
+        "shards": shards, "completed_shards": (int(completed.group(1))
+                                               if completed else None),
+        "peak_bytes_by_rank": peaks,
+        "step_s_dp4": step_s(2, RESHARD_EVICT_AT),
+        "step_s_dp2": step_s(RESHARD_EVICT_AT + 2, RESHARD_STEPS),
+        "events": [(e["kind"], e["detail"]) for e in events
+                   if e["kind"].startswith("reshard_")],
+        "launches": {k: sum(r["launches"].get(k, 0) for v in steps.values()
+                            for r in v.values()) for k in launches()}})
+    launches_ok = sorted(steps) == list(range(1, RESHARD_STEPS + 1)) and all(
+        sorted(steps[s]) == (list(range(RESHARD_RANKS))
+                             if s <= RESHARD_EVICT_AT else survivors)
+        and all(r["launches"] == per_step(1 if s <= RESHARD_EVICT_AT
+                                          else accum_new)
+                for r in steps[s].values())
+        for s in steps)
+    evict_loss = steps.get(RESHARD_EVICT_AT, {}).get(0, {}).get("loss")
+    first_loss = steps.get(RESHARD_EVICT_AT + 1, {}).get(0, {}).get("loss")
+    rec["checks"] = checks = {
+        "launcher_rc_0": rec.get("launcher_rc") == 0,
+        "live_4_to_2": len(done) == dp_new and all(
+            d["path"] == "live" and d["dp"] == f"{RESHARD_RANKS}->{dp_new}"
+            and d["grad_accum"] == accum_new for d in done),
+        "five_phases_ok": len(done) == dp_new and all(
+            sorted(d["phases"]) == sorted(["detect", "replan", "migrate",
+                                           "rebuild", "first_step"])
+            for d in done) and all(
+            f"reshard_{p}" in phase_ok and "ok=True" in phase_ok[
+                f"reshard_{p}"] for p in ("detect", "replan", "migrate",
+                                          "rebuild", "first_step")),
+        "no_storage_restore": "resumed from step" not in log
+        and "falling back" not in log,
+        "migrated_bitwise": checks_m == [{"m": True, "v": True,
+                                          "params": True}] * dp_new,
+        "continuation": evict_loss is not None and first_loss is not None
+        and abs(first_loss - evict_loss) < 1.0
+        and all(math.isfinite(x) for x in losses),
+        "matches_replicated": sorted(steps) == list(
+            range(1, RESHARD_STEPS + 1)) and rec["errors"]["within"],
+        "fault_caught": fault.get("launcher_rc") == 0
+        and sorted(fault_steps) == list(range(1, RESHARD_FAULT_STEPS + 1))
+        and not rec["fault"]["errors"]["within"],
+        "data_once": shards == [(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+                                for i in range(RESHARD_STEPS)]
+        and rec["completed_shards"] == RESHARD_STEPS,
+        "departing_exit": sorted(r for r in peaks if r in RESHARD_LOST)
+        == list(RESHARD_LOST) and log.count("donated, exiting") == len(
+            RESHARD_LOST),
+        "launches_exact": launches_ok,
+        "disk_under_3gib": rec.get("disk_write_bytes", 1 << 62)
+        + fault.get("disk_write_bytes", 1 << 62) < RESHARD_DISK_CAP,
+        "readings": rec["step_s_dp4"] is not None
+        and rec["step_s_dp2"] is not None and len(peaks) == RESHARD_RANKS,
+        "nothing_left_behind": rec["left_behind"] == []
+        and fault["left_behind"] == [],
+    }
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"{name}: {[k for k, v in checks.items() if not v]}")
+    return rec
+
 
 # ---------------------------------------------------------------------------
 # phase 12: sequence parallelism, four ranks on the one card
@@ -3492,6 +3896,9 @@ def sp_check(cfg_name, impls, names, seed, dev, overrides=None,
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["--zero-fault-worker"]:  # a rank of the fault run
+        return zero_fault_worker(argv[1:])
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sp-worker", default=None,
@@ -3638,6 +4045,14 @@ def main(argv=None) -> int:
             rec = elastic_check(get_config("llama-1.4b"), args.seed,
                                 trainer_rec)
             train_launches["elastic"] = rec["launches"]
+    # the live reshard: four ranks on this card over gloo, ZeRO update
+    # sharding, two ranks evicted mid-run
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("reshard"):
+        rec = reshard_check(get_config("llama-1.4b",
+                                       n_layer=RESHARD_LAYERS), args.seed)
+        train_launches["reshard"] = rec["launches"]
     # sequence parallelism (sp 4, four ranks on this card over gloo):
     # mistral-7b over the ring (window-partial blocks: the offsets) and
     # Ulysses, glm-10b over the ring (prefix-only blocks)

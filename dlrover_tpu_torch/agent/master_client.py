@@ -4,8 +4,9 @@ Port of ``dlrover_tpu/agent/master_client.py`` (``MasterClient``,
 ``build_master_client``) for the calls the elastic path makes: node
 registration, heartbeats, status, restart and failure reports, the
 rendezvous, the KV store and sync barriers, the global step, checkpoint
-steps and model info. The data-shard, reshard, serving, tuning, PS and
-network-check calls wait for their ROADMAP items (A11, A15, A20, A18);
+steps, model info, the data-shard service and the live-reshard
+directive (an eviction notice, the plan). The serving, tuning, PS and
+network-check calls wait for their ROADMAP items (A15, A20, A18);
 the master answers them with an error naming the item, which the
 transport raises as ``NotImplementedError``.
 """
@@ -171,6 +172,95 @@ class MasterClient:
     ) -> int:
         resp = self._t.get(msgs.NumNodesWaitingRequest(rdzv_name=rdzv_name))
         return resp.waiting_num if resp else 0
+
+    def report_eviction(
+        self,
+        lost_dp_ranks,
+        dp_size: int,
+        deadline_s: float = 30.0,
+        reason: str = "",
+    ) -> bool:
+        """Announce departing dp ranks; the master answers future
+        ``get_reshard_plan`` polls with a live-reshard directive."""
+        return self._t.report(
+            msgs.EvictionNotice(
+                node_id=self.node_id,
+                node_rank=self.node_rank,
+                lost_dp_ranks=[int(r) for r in lost_dp_ranks],
+                dp_size=int(dp_size),
+                deadline_s=deadline_s,
+                reason=reason,
+            )
+        )
+
+    def get_reshard_plan(
+        self, rdzv_name: str = RendezvousName.TRAINING
+    ) -> msgs.ReshardPlanResponse:
+        resp = self._t.get(
+            msgs.ReshardPlanRequest(
+                node_id=self.node_id,
+                node_rank=self.node_rank,
+                rdzv_name=rdzv_name,
+            )
+        )
+        return resp if resp else msgs.ReshardPlanResponse()
+
+    # ---- data sharding ---------------------------------------------------
+
+    def report_dataset_shard_params(
+        self,
+        dataset_name: str,
+        dataset_size: int,
+        shard_size: int,
+        num_epochs: int = 1,
+        shuffle: bool = False,
+        storage_type: str = "table",
+        task_type: str = "training",
+    ) -> bool:
+        return self._t.report(
+            msgs.DatasetShardParams(
+                dataset_name=dataset_name,
+                dataset_size=dataset_size,
+                shard_size=shard_size,
+                num_epochs=num_epochs,
+                shuffle=shuffle,
+                storage_type=storage_type,
+                task_type=task_type,
+            )
+        )
+
+    def get_task(self, dataset_name: str) -> msgs.Task:
+        resp = self._t.get(
+            msgs.TaskRequest(dataset_name=dataset_name, worker_id=self.node_id)
+        )
+        return resp or msgs.Task()
+
+    def report_task_result(
+        self, dataset_name: str, task_id: int, success: bool = True
+    ) -> bool:
+        return self._t.report(
+            msgs.TaskResult(
+                dataset_name=dataset_name,
+                task_id=task_id,
+                worker_id=self.node_id,
+                success=success,
+            )
+        )
+
+    def get_shard_checkpoint(self, dataset_name: str) -> str:
+        resp = self._t.get(
+            msgs.ShardCheckpointRequest(dataset_name=dataset_name)
+        )
+        return resp.content if resp else ""
+
+    def report_shard_checkpoint(self, dataset_name: str, content: str) -> bool:
+        return self._t.report(
+            msgs.ShardCheckpoint(dataset_name=dataset_name, content=content)
+        )
+
+    def get_dataset_epoch(self, dataset_name: str) -> int:
+        resp = self._t.get(msgs.DatasetEpochRequest(dataset_name=dataset_name))
+        return resp.epoch if resp else 0
 
     # ---- telemetry -------------------------------------------------------
 

@@ -10,7 +10,7 @@ train state); a restore writes into the given state in place and
 returns the restored step. Peer replication (``replicate=True``) waits for ROADMAP A10's ring.
 """
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 from dlrover_tpu_torch.checkpoint.core import Leaf
 from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
@@ -29,11 +29,14 @@ class Checkpointer:
                                        master_client=master_client)
 
     def save_checkpoint(self, step: int, state: Sequence[Leaf],
-                        storage_type: str = StorageType.DISK) -> bool:
-        """Stage to memory; DISK also persists on the engine's thread."""
+                        storage_type: str = StorageType.DISK,
+                        extra: Optional[Dict] = None) -> bool:
+        """Stage to memory; DISK also persists on the engine's thread.
+        ``extra`` rides in the pack header (``engine.restored_extra``
+        after a restore)."""
         if storage_type == StorageType.MEMORY:
-            return self.engine.save_to_memory(step, state)
-        return self.engine.save_to_storage(step, state)
+            return self.engine.save_to_memory(step, state, extra)
+        return self.engine.save_to_storage(step, state, extra)
 
     def load_checkpoint(self, state: Sequence[Leaf],
                         step: Optional[int] = None,

@@ -210,6 +210,7 @@ class PackIndex:
                                            torch.Tensor]]] = {}
         self._meta: Dict[str, Tuple[str, Tuple[int, ...]]] = {}
         self.step: Optional[int] = None
+        self.extra: Dict = {}  # the first pack's header ``extra``
 
     def add_pack(self, buf):
         raw = _as_bytes(buf)
@@ -218,6 +219,7 @@ class PackIndex:
             raise KeyError("pack is incomplete: its header length is 0")
         if self.step is None:
             self.step = doc["step"]
+            self.extra = doc.get("extra", {})
         start = _align(HEADER_LEN_BYTES + _header_len(raw))
         for leaf in doc["leaves"]:
             path = leaf["path"]

@@ -152,6 +152,12 @@ class CheckpointEngine:
         self.register_seconds = 0.0
         self._local_step = -1
         self._latest: Optional[Dict] = None  # the staged pack's meta
+        # the restored pack's header ``extra`` (its dir and what the saver
+        # added to it)
+        self.restored_extra: Dict = {}
+        # the process group whose ranks write a step's packs (the world;
+        # after a live reshard, the survivors')
+        self.group = None
         self._lock = threading.Lock()
         self._persist_thread: Optional[threading.Thread] = None
         self._persist_error: Optional[BaseException] = None
@@ -163,12 +169,12 @@ class CheckpointEngine:
 
     @property
     def process_index(self) -> int:
-        """This worker's global rank (0 outside a process group)."""
-        return process_index()
+        """This worker's rank in ``group`` (0 outside a process group)."""
+        return process_index(self.group)
 
     @property
     def process_count(self) -> int:
-        return process_count()
+        return process_count(self.group)
 
     def _acquire(self, timeout: Optional[float] = None) -> bool:
         """Take the segment's lock: at once, or within ``timeout``."""
@@ -187,26 +193,32 @@ class CheckpointEngine:
 
     # ---- save ------------------------------------------------------------
 
-    def save_to_memory(self, step: int, leaves: Sequence[core.Leaf]) -> bool:
+    def save_to_memory(self, step: int, leaves: Sequence[core.Leaf],
+                       extra: Optional[Dict] = None) -> bool:
         """Stage ``leaves`` into shared memory. Returns False if skipped
-        (a persist is reading the segment)."""
-        return self._stage(step, leaves, "save_memory", 0.0, hold=False)
+        (a persist is reading the segment). ``extra``: more fields of the
+        pack header's ``extra`` (a dataset position), given back by a
+        restore as ``restored_extra``."""
+        return self._stage(step, leaves, "save_memory", 0.0, hold=False,
+                           extra=extra)
 
-    def save_to_storage(self, step: int, leaves: Sequence[core.Leaf]) -> bool:
+    def save_to_storage(self, step: int, leaves: Sequence[core.Leaf],
+                        extra: Optional[Dict] = None) -> bool:
         """Wait for the previous persist, stage, and persist: on a thread
         (standalone), or from the agent's process (agent mode), whose
         persist is waited for by its lock, at most ``PERSIST_WAIT_S``.
         Returns False if that wait ran out."""
         if self._use_agent:
             if not self._stage(step, leaves, "save_storage", 0.0, hold=False,
-                               lock_timeout=PERSIST_WAIT_S):
+                               lock_timeout=PERSIST_WAIT_S, extra=extra):
                 return False
             return self._queue.put({"type": "persist", "step": step,
                                     "local_rank": self.local_rank})
         t0 = time.perf_counter()
         self._join_persist()
         wait_s = time.perf_counter() - t0
-        if not self._stage(step, leaves, "save_storage", wait_s, hold=True):
+        if not self._stage(step, leaves, "save_storage", wait_s, hold=True,
+                           extra=extra):
             return False
         meta = dict(self._latest)
         self._persist_thread = threading.Thread(
@@ -216,14 +228,16 @@ class CheckpointEngine:
         return True
 
     def _stage(self, step, leaves, kind, wait_s, hold,
-               lock_timeout: Optional[float] = None) -> bool:
+               lock_timeout: Optional[float] = None,
+               extra: Optional[Dict] = None) -> bool:
         """Stage under the lock, taken at once or within ``lock_timeout``;
         with ``hold`` (standalone) the lock stays held for the caller's
         persist, which releases it."""
         t0 = time.perf_counter()
         entries, payload = core.plan_pack(leaves)
         rank, world = self.process_index, self.process_count
-        header = core.header_bytes(step, entries, {"dir": self.ckpt_dir},
+        header = core.header_bytes(step, entries,
+                                   dict(extra or {}, dir=self.ckpt_dir),
                                    rank, world)
         total = core.pack_size(header, payload)
         t_lock = time.perf_counter()
@@ -476,6 +490,7 @@ class CheckpointEngine:
                 self._register()
             idx.add_pack(self._buf)
             core.restore_leaves(leaves, idx, partial)
+            self.restored_extra = dict(idx.extra)
             logger.info("restored step %d from shared memory", idx.step)
             return idx.step
         except (FileNotFoundError, KeyError):
@@ -509,6 +524,7 @@ class CheckpointEngine:
             for name in packs:
                 idx.add_pack(self._storage.mmap(os.path.join(step_dir, name)))
             core.restore_leaves(leaves, idx, partial)
+            self.restored_extra = dict(idx.extra)
         finally:
             idx.close()
         logger.info("restored step %d from %s", step, step_dir)

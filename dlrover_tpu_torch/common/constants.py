@@ -93,6 +93,17 @@ class DefaultValues:
     # the coordinator port the master hands out when the first node's
     # agent does not send one (the JAX rdzv_manager's fixed port)
     COORDINATOR_PORT = 7010
+    SHARD_TIMEOUT_S = 1800.0         # re-queue a dispatched shard after this
+
+
+class TaskType:
+    """Data-shard task flavours (reference: proto elastic_training TaskType)."""
+
+    TRAINING = "training"
+    EVALUATION = "evaluation"
+    PREDICTION = "prediction"
+    WAIT = "wait"
+    NONE = "none"
 
 
 class GraftEnv:

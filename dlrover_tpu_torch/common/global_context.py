@@ -27,6 +27,7 @@ class Context:
         self.relaunch_budget = DefaultValues.RELAUNCH_BUDGET
         self.pending_timeout_s = DefaultValues.PENDING_TIMEOUT_S
         self.straggler_ratio = DefaultValues.STRAGGLER_RATIO
+        self.shard_timeout_s = DefaultValues.SHARD_TIMEOUT_S
         self._load_env_overrides()
 
     def _load_env_overrides(self):

@@ -6,7 +6,8 @@ with a strict registry, so only registered message classes can ever be
 instantiated. The encoding is byte for byte the JAX package's for the
 messages both packages send; the port registers the messages its
 control plane sends (node lifecycle, rendezvous, the KV store and sync
-barriers, the global step, checkpoint steps, model info).
+barriers, the global step, checkpoint steps, model info, the data-shard
+service and the live-reshard directive).
 
 One field is the port's own: ``JoinRendezvousRequest.coordinator_port``
 (the port of the torch.distributed store the joining agent picked). A
@@ -329,3 +330,107 @@ class CheckpointStepRequest:
 @message
 class CheckpointStepResponse:
     step: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Live reshard (a graceful eviction and the master's directive)
+# ---------------------------------------------------------------------------
+
+
+@message
+class EvictionNotice:
+    """A node (or the scheduler, relayed by a worker) announces dp ranks
+    leaving the job — graceful eviction with a donation grace window."""
+
+    node_id: int = 0
+    node_rank: int = -1
+    lost_dp_ranks: List[int] = field(default_factory=list)
+    dp_size: int = 0             # dp size the notice is relative to
+    deadline_s: float = 30.0     # donation grace window
+    reason: str = ""
+
+
+@message
+class ReshardPlanRequest:
+    node_id: int = 0
+    node_rank: int = -1
+    rdzv_name: str = "elastic-training"
+
+
+@message
+class ReshardPlanResponse:
+    """The master's live-reshard directive. ``version`` increments per
+    directive; 0 means no reshard is pending."""
+
+    version: int = 0
+    rdzv_round: int = -1
+    dp_old: int = 0
+    dp_new: int = 0
+    lost_ranks: List[int] = field(default_factory=list)
+    deadline_s: float = 30.0
+    reason: str = ""
+
+
+# ---------------------------------------------------------------------------
+# Dynamic data sharding
+# ---------------------------------------------------------------------------
+
+
+@message
+class DatasetShardParams:
+    dataset_name: str = ""
+    dataset_size: int = 0
+    shard_size: int = 0          # samples per shard (= batches × batch size)
+    batch_size: int = 0
+    num_epochs: int = 1
+    shuffle: bool = False
+    storage_type: str = "table"  # table | text | stream
+    task_type: str = "training"
+
+
+@message
+class TaskRequest:
+    dataset_name: str = ""
+    worker_id: int = 0
+
+
+@message
+class Task:
+    task_id: int = -1
+    task_type: str = "none"
+    dataset_name: str = ""
+    shard_start: int = 0
+    shard_end: int = 0
+    epoch: int = 0
+    # record indices inside the shard when shuffling
+    record_indices: List[int] = field(default_factory=list)
+
+
+@message
+class TaskResult:
+    dataset_name: str = ""
+    task_id: int = -1
+    worker_id: int = 0
+    success: bool = True
+    elapsed_time: float = 0.0
+
+
+@message
+class ShardCheckpointRequest:
+    dataset_name: str = ""
+
+
+@message
+class ShardCheckpoint:
+    dataset_name: str = ""
+    content: str = ""  # JSON payload of the dataset manager's checkpoint
+
+
+@message
+class DatasetEpochRequest:
+    dataset_name: str = ""
+
+
+@message
+class DatasetEpochResponse:
+    epoch: int = 0

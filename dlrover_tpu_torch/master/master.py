@@ -3,10 +3,10 @@
 Port of ``dlrover_tpu/master/master.py`` (``JobMaster``,
 ``LocalJobMaster``, ``run``): the node manager, the training
 rendezvous, the KV store, the sync service and the speed monitor
+and the data-shard task manager (started and stopped with the master)
 behind one ``MasterServicer`` on the two-RPC transport, and the loop
 that ends the job when every worker has exited. What the JAX master
-also composes waits for its ROADMAP item: the data-shard task manager
-(A11), diagnosis and its hang kick (A22), job metrics and goodput with
+also composes waits for its ROADMAP item: diagnosis and its hang kick (A22), job metrics and goodput with
 their HTTP endpoint (A12), ElasticPS (A18), the auto-scaler and Brain
 (A23) and the network-check rendezvous (A20).
 """
@@ -25,6 +25,7 @@ from dlrover_tpu_torch.master.rdzv_manager import (
 )
 from dlrover_tpu_torch.master.servicer import MasterServicer
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
+from dlrover_tpu_torch.master.task_manager import TaskManager
 from dlrover_tpu_torch.master.sync_service import SyncService
 from dlrover_tpu_torch.observability.tracing import get_tracer
 
@@ -60,6 +61,8 @@ class JobMaster:
         ctx = get_context()
         self.job_name = job_name
         self.speed_monitor = SpeedMonitor()
+        self.task_manager = TaskManager(shard_timeout_s=ctx.shard_timeout_s)
+        self.task_manager.speed_monitor = self.speed_monitor
         self.job_manager = JobManager(
             num_workers=num_workers,
             relaunch_budget=ctx.relaunch_budget,
@@ -89,6 +92,7 @@ class JobMaster:
             kv_store=self.kv_store,
             sync_service=self.sync_service,
             speed_monitor=self.speed_monitor,
+            task_manager=self.task_manager,
         )
         self.server = MasterTransportServer(self.servicer, port=port)
         self._stop = threading.Event()
@@ -114,6 +118,7 @@ class JobMaster:
 
     def prepare(self):
         self.server.start()
+        self.task_manager.start()
         self.job_manager.start()
 
     def run(self, poll_interval_s: Optional[float] = None) -> str:
@@ -144,6 +149,9 @@ class JobMaster:
 
     def stop(self):
         self._stop.set()
+        for name, n in self.task_manager.completed_counts().items():
+            logger.info("dataset %s: %d shards completed", name, n)
+        self.task_manager.stop()
         self.job_manager.stop()
         self.server.stop()
 

@@ -13,12 +13,16 @@ node's agent may send the port it picked with its join (the
 free port), so jobs on one host, and a restarted world whose old
 listener is still closing, do not collide; a join that sends none gets
 the JAX package's 7010. The network-check manager waits for ROADMAP
-A20 and the live-reshard directive for A11.
+A20. ``plan_reshard``/``get_reshard_plan`` are the JAX manager's
+live-reshard directive, and the round stays sealed for the survivors.
+The JAX manager takes the lost dp ranks for node ranks (a host there is
+one process); a node here runs ``local_world_size`` ranks, so a node
+leaves the sealed world only when every one of its dp ranks is lost.
 """
 
 import threading
 import time
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch.common.constants import DefaultValues, RendezvousName
 from dlrover_tpu_torch.common.log import get_logger
@@ -56,6 +60,10 @@ class RendezvousManager:
         self._start_waiting_time = 0.0
         self._coordinator_port = DefaultValues.COORDINATOR_PORT
         self._alive_nodes: set = set()
+        self._reshard_version = 0
+        self._reshard: Optional[Dict] = None
+        # the node rank of each dp rank of the live world, in dp order
+        self._dp_nodes: List[int] = []
 
     # ---- config ---------------------------------------------------------
 
@@ -85,10 +93,28 @@ class RendezvousManager:
             self._alive_nodes.add(node_rank)
 
     def remove_alive_node(self, node_rank: int):
-        """A node died: drop it and force a new round if it was in-world."""
+        """A node died: drop it and force a new round if it was in-world.
+
+        Exception: when a pending live-reshard directive already lost
+        every dp rank of this node, the survivors are migrating state in
+        place — the node is out of the sealed world already and the round
+        is not torn down (the whole point of the live path is not to
+        restart)."""
         with self._lock:
             self._alive_nodes.discard(node_rank)
             self._waiting.pop(node_rank, None)
+            directive = self._reshard
+            if (directive is not None
+                    and node_rank in directive["lost_nodes"]):
+                logger.info(
+                    "%s: node %s left after reshard directive v%d; "
+                    "survivors keep round %d",
+                    self.name,
+                    node_rank,
+                    directive["version"],
+                    self._rdzv_round,
+                )
+                return
             if node_rank not in self._world:
                 return
             logger.info(
@@ -100,6 +126,77 @@ class RendezvousManager:
             )
             self._world = {}
             self._world_coordinator = ""
+
+    # ---- live reshard ---------------------------------------------------
+
+    def plan_reshard(
+        self,
+        lost_dp_ranks: List[int],
+        dp_size: int,
+        deadline_s: float = 30.0,
+        reason: str = "",
+    ) -> int:
+        """Issue a live-reshard directive: survivors migrate ZeRO-1
+        shards to the shrunken dp layout instead of restarting.
+
+        Returns the directive version (monotonic, starts at 1). A node
+        of the sealed world whose every dp rank is lost leaves it at
+        once (the directive's ``lost_nodes``); the round stays sealed
+        for the survivors. The dp ranks are the live world's, each
+        node's ``local_world_size`` of them in node-rank order, and
+        after a reshard the survivors' in their old order."""
+        lost = sorted(set(int(r) for r in lost_dp_ranks))
+        with self._lock:
+            dp_old = int(dp_size)
+            dp_new = dp_old - len(lost)
+            if dp_new <= 0:
+                raise ValueError(
+                    f"reshard would leave no survivors: dp={dp_old}, "
+                    f"lost={lost}"
+                )
+            nodes = (self._dp_nodes if self._world
+                     and len(self._dp_nodes) == dp_old else [])
+            kept = [n for i, n in enumerate(nodes) if i not in lost]
+            lost_nodes = sorted(set(nodes) - set(kept))
+            self._reshard_version += 1
+            self._reshard = {
+                "version": self._reshard_version,
+                "rdzv_round": self._rdzv_round,
+                "dp_old": dp_old,
+                "dp_new": dp_new,
+                "lost_ranks": lost,
+                "lost_nodes": lost_nodes,
+                "deadline_s": float(deadline_s),
+                "reason": reason,
+            }
+            self._dp_nodes = kept
+            for n in lost_nodes:
+                self._world.pop(n, None)
+            get_tracer().instant(
+                "failover.reshard_plan",
+                rdzv=self.name,
+                version=self._reshard_version,
+                dp_old=dp_old,
+                dp_new=dp_new,
+                lost=len(lost),
+            )
+            logger.info(
+                "%s: reshard directive v%d: dp %d -> %d, lost=%s (%s)",
+                self.name,
+                self._reshard_version,
+                dp_old,
+                dp_new,
+                lost,
+                reason or "eviction",
+            )
+            return self._reshard_version
+
+    def get_reshard_plan(self) -> Dict:
+        """The pending directive, or ``{"version": 0}`` when none."""
+        with self._lock:
+            if self._reshard is None:
+                return {"version": 0}
+            return dict(self._reshard)
 
     # ---- join / poll ----------------------------------------------------
 
@@ -165,6 +262,7 @@ class RendezvousManager:
         self._world = {
             r: self._waiting[r].local_world_size for r in chosen
         }
+        self._dp_nodes = [r for r in chosen for _ in range(self._world[r])]
         first = self._waiting[chosen[0]]
         host = first.host_addr or "localhost"
         port = first.coordinator_port or self._coordinator_port

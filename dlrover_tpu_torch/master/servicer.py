@@ -3,8 +3,11 @@
 Port of ``dlrover_tpu/master/servicer.py`` for the handlers the elastic
 path reaches: heartbeats, node status, worker restarts and failures,
 registration, the rendezvous (join, comm world, nodes waiting), the
-KV store, sync barriers, the global step, checkpoint steps, model info
-and the running-node listing. Exceptions never cross the RPC edge.
+KV store, sync barriers, the global step, checkpoint steps, model info,
+the running-node listing, the data-shard service (datasets, tasks and
+their results, the dataset checkpoint, the epoch; a restarted or failed
+node's in-flight shards re-queued) and the live-reshard directive (an
+eviction notice in, the plan out). Exceptions never cross the RPC edge.
 
 Every other message type of the JAX servicer is answered with an error
 naming the ROADMAP item that ports it (``UNPORTED``); the transport
@@ -15,15 +18,12 @@ import time
 from typing import Dict, Optional
 
 from dlrover_tpu_torch.common import messages as msgs
+from dlrover_tpu_torch.common.constants import RendezvousName
 from dlrover_tpu_torch.common.log import get_logger
 
 logger = get_logger(__name__)
 
 _ITEMS = {
-    "A11 (the master's data-shard service and live resharding)": (
-        "TaskRequest", "TaskResult", "DatasetShardParams",
-        "ShardCheckpointRequest", "ShardCheckpoint", "DatasetEpochRequest",
-        "EvictionNotice", "ReshardPlanRequest"),
     "A15 (the rest of the serving tier)": (
         "ServingEvictionNotice", "ServingReshardRequest",
         "ServingScaleNotice", "ServingScaleRequest"),
@@ -53,8 +53,10 @@ class MasterServicer:
         kv_store=None,
         sync_service=None,
         speed_monitor=None,
+        task_manager=None,
     ):
         self.job_manager = job_manager
+        self.task_manager = task_manager
         self.rdzv_managers = rdzv_managers or {}
         self.kv_store = kv_store
         self.sync_service = sync_service
@@ -97,12 +99,21 @@ class MasterServicer:
         return True
 
     def _report_worker_restart(self, m: msgs.WorkerRestartReport) -> bool:
+        """Voluntary worker kill+respawn: re-queue the node's in-flight
+        shards (a leaked lease can never complete and deadlocks the
+        dataset's tail)."""
         logger.info(
             "node %d restarting its worker (%s)", m.node_id, m.reason
         )
+        if self.task_manager:
+            self.task_manager.recover_worker_tasks(m.node_id)
         return True
 
     def _report_node_failure(self, m: msgs.NodeFailureReport) -> bool:
+        # the restarting worker lost its in-flight shards — re-queue them
+        # (at-least-once delivery; reference: task_manager re-queue on death)
+        if self.task_manager:
+            self.task_manager.recover_worker_tasks(m.node_id)
         logger.warning(
             "node %d failure (level=%s restart=%d): %s",
             m.node_id,
@@ -133,6 +144,54 @@ class MasterServicer:
         self._ckpt_steps[m.node_rank] = m.step
         return True
 
+    def _report_task_result(self, m: msgs.TaskResult) -> bool:
+        if self.task_manager:
+            self.task_manager.report_task_status(
+                m.dataset_name, m.task_id, m.success, m.worker_id
+            )
+        return True
+
+    def _report_dataset(self, m: msgs.DatasetShardParams) -> bool:
+        if self.task_manager:
+            self.task_manager.new_dataset(
+                m.dataset_name,
+                m.dataset_size,
+                m.shard_size,
+                num_epochs=m.num_epochs,
+                shuffle=m.shuffle,
+                storage_type=m.storage_type,
+                task_type=m.task_type,
+            )
+        return True
+
+    def _report_shard_ckpt(self, m: msgs.ShardCheckpoint) -> bool:
+        if self.task_manager:
+            self.task_manager.restore_checkpoint(m.dataset_name, m.content)
+        return True
+
+    def _report_eviction(self, m: msgs.EvictionNotice) -> bool:
+        """A worker announced departing dp ranks: issue the live-reshard
+        directive so survivors migrate their in-device state instead of
+        restarting from a checkpoint. (The JAX servicer also publishes an
+        ``eviction_notice`` event to its telemetry hub, which waits for
+        ROADMAP A12 here.)"""
+        mgr = self.rdzv_managers.get(RendezvousName.TRAINING)
+        if mgr is None:
+            return False
+        try:
+            mgr.plan_reshard(
+                m.lost_dp_ranks,
+                m.dp_size,
+                deadline_s=m.deadline_s,
+                reason=m.reason,
+            )
+        except ValueError as e:
+            logger.warning(
+                "rejecting eviction notice from node %d: %s", m.node_id, e
+            )
+            return False
+        return True
+
     def _report_model_info(self, m: msgs.ModelInfoReport) -> bool:
         # partial update: unset (zero/empty) fields must not clobber
         # values another reporter already provided
@@ -160,6 +219,10 @@ class MasterServicer:
         "KeyValuePair": _report_kv,
         "SyncJoin": _report_sync_join,
         "CheckpointStepSync": _report_ckpt_step,
+        "TaskResult": _report_task_result,
+        "DatasetShardParams": _report_dataset,
+        "ShardCheckpoint": _report_shard_ckpt,
+        "EvictionNotice": _report_eviction,
     }
 
     # ---- get: request → response ----------------------------------------
@@ -208,6 +271,53 @@ class MasterServicer:
             world={str(k): v for k, v in world.items()},
             coordinator=coord,
         )
+
+    def _get_reshard_plan(self, m: msgs.ReshardPlanRequest):
+        mgr = self.rdzv_managers.get(m.rdzv_name)
+        if mgr is None:
+            return msgs.ReshardPlanResponse()
+        plan = mgr.get_reshard_plan()
+        if not plan.get("version"):
+            return msgs.ReshardPlanResponse()
+        return msgs.ReshardPlanResponse(
+            version=plan["version"],
+            rdzv_round=plan["rdzv_round"],
+            dp_old=plan["dp_old"],
+            dp_new=plan["dp_new"],
+            lost_ranks=list(plan["lost_ranks"]),
+            deadline_s=plan["deadline_s"],
+            reason=plan["reason"],
+        )
+
+    def _get_task(self, m: msgs.TaskRequest):
+        if self.task_manager is None:
+            return msgs.Task()
+        task = self.task_manager.get_task(m.dataset_name, m.worker_id)
+        return msgs.Task(
+            task_id=task.task_id,
+            task_type=task.task_type,
+            dataset_name=m.dataset_name,
+            shard_start=task.shard.start,
+            shard_end=task.shard.end,
+            epoch=task.epoch,
+            record_indices=list(task.shard.record_indices),
+        )
+
+    def _get_shard_ckpt(self, m: msgs.ShardCheckpointRequest):
+        if self.task_manager is None:
+            return msgs.ShardCheckpoint()
+        return msgs.ShardCheckpoint(
+            dataset_name=m.dataset_name,
+            content=self.task_manager.checkpoint(m.dataset_name),
+        )
+
+    def _get_epoch(self, m: msgs.DatasetEpochRequest):
+        epoch = (
+            self.task_manager.get_epoch(m.dataset_name)
+            if self.task_manager
+            else 0
+        )
+        return msgs.DatasetEpochResponse(epoch=epoch)
 
     def _get_num_nodes_waiting(self, m: msgs.NumNodesWaitingRequest):
         mgr = self.rdzv_managers.get(m.rdzv_name)
@@ -260,4 +370,8 @@ class MasterServicer:
         "KeyRequest": _get_kv,
         "SyncRequest": _get_sync,
         "CheckpointStepRequest": _get_ckpt_step,
+        "ReshardPlanRequest": _get_reshard_plan,
+        "TaskRequest": _get_task,
+        "ShardCheckpointRequest": _get_shard_ckpt,
+        "DatasetEpochRequest": _get_epoch,
     }

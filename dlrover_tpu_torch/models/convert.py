@@ -21,6 +21,12 @@ everything here reads it:
   as ``{path: numpy array}`` (bf16 as ``np.uint16`` words: no ml_dtypes),
   the flattened JAX train state of numpy arrays.
 
+Under ZeRO update sharding (``shard=(plan, rank)``) the moments are the
+JAX update-sharded state's flat leaves, ``<mu path>/flat`` and ``<nu
+path>/flat`` of global shape ``(n_buckets, bucket_elems)``, of which a
+rank holds (and packs) its columns: the pack's shard index says which,
+so a pack per rank holds the whole state between them.
+
 It reads and writes numpy only: the caller moves arrays out of and into
 JAX.
 """
@@ -174,19 +180,35 @@ def _scalar_leaf(path: str, value: int) -> core.Leaf:
                      [core.Shard([], torch.tensor(value, dtype=torch.int32))])
 
 
-def train_state_leaves(state: Dict, cfg: ModelConfig,
-                       optimizer) -> List[core.Leaf]:
+def _flat_leaf(path: str, t: torch.Tensor, shard) -> core.Leaf:
+    """This rank's columns ``t`` of a flat ``(n_buckets, bucket_elems)``
+    leaf."""
+    plan, rank = shard
+    cols = plan.columns(rank)
+    return core.Leaf(f"{path}/flat", core.dtype_name(t.dtype),
+                     [plan.n_buckets, plan.bucket_elems],
+                     [core.Shard([[0, plan.n_buckets], [cols.start, cols.stop]],
+                                 t.detach())])
+
+
+def train_state_leaves(state: Dict, cfg: ModelConfig, optimizer,
+                       shard=None) -> List[core.Leaf]:
     """The port train state as the JAX train state's flattened leaves, in
     JAX's order (dict keys sorted). The tensors are the state's own
     (detached views): a restore into these leaves writes the state; the
     scalars (``step``, the counts) are copies that ``load_scalars`` puts
-    back."""
+    back. ``shard``: ``(PackPlan, rank)`` of an update-sharded state
+    (``TrainStepBuilder.shard``), whose moments are flat columns."""
     opt = state["opt_state"]
     params = dict(state["params"].named_parameters())
     counts, mu, nu = opt_state_paths(optimizer)
-    leaves = (_tensor_leaves("params", params, cfg)
-              + _tensor_leaves(mu, opt["m"], cfg)
-              + _tensor_leaves(nu, opt["v"], cfg)
+    if shard is not None:
+        moments = [_flat_leaf(mu, opt["m"]["flat"], shard),
+                   _flat_leaf(nu, opt["v"]["flat"], shard)]
+    else:
+        moments = (_tensor_leaves(mu, opt["m"], cfg)
+                   + _tensor_leaves(nu, opt["v"], cfg))
+    leaves = (_tensor_leaves("params", params, cfg) + moments
               + [_scalar_leaf(c, opt["step"]) for c in counts]
               + [_scalar_leaf("step", state["step"])])
     return sorted(leaves, key=lambda leaf: leaf.path.split("/"))
@@ -215,13 +237,15 @@ def _from_numpy(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def train_state_arrays(state: Dict, cfg: ModelConfig,
-                       optimizer) -> Dict[str, np.ndarray]:
+def train_state_arrays(state: Dict, cfg: ModelConfig, optimizer,
+                       shard=None) -> Dict[str, np.ndarray]:
     """``{JAX path: numpy array}`` of a port train state (bf16 leaves as
-    ``np.uint16`` words)."""
+    ``np.uint16`` words). With ``shard`` a flat leaf holds this rank's
+    columns and zeros elsewhere: the ranks' arrays sum to the global
+    one, exactly (each element is one rank's value plus zeros)."""
     out = {}
-    for leaf in train_state_leaves(state, cfg, optimizer):
-        full = torch.empty(leaf.global_shape, dtype=core.DTYPES[leaf.dtype])
+    for leaf in train_state_leaves(state, cfg, optimizer, shard):
+        full = torch.zeros(leaf.global_shape, dtype=core.DTYPES[leaf.dtype])
         for s in leaf.shards:
             idx = tuple(slice(a, b) for a, b in s.index)
             src = s.tensor.t() if s.transposed else s.tensor
@@ -232,12 +256,14 @@ def train_state_arrays(state: Dict, cfg: ModelConfig,
 
 @torch.no_grad()
 def load_train_state_arrays(state: Dict, arrays: Dict[str, np.ndarray],
-                            cfg: ModelConfig, optimizer) -> None:
+                            cfg: ModelConfig, optimizer, shard=None) -> None:
     """Write ``{JAX path: numpy array}`` (every leaf of the train state;
-    bf16 as ``np.uint16`` words) into the port train state, in place."""
+    bf16 as ``np.uint16`` words) into the port train state, in place;
+    with ``shard`` each flat leaf's global array gives this rank its
+    columns."""
     idx = core.PackIndex()
     for path, a in arrays.items():
         idx.add_tensor(path, _from_numpy(np.asarray(a)))
-    leaves = train_state_leaves(state, cfg, optimizer)
+    leaves = train_state_leaves(state, cfg, optimizer, shard)
     core.restore_leaves(leaves, idx)
     load_scalars(state, leaves, optimizer)

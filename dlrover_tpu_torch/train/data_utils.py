@@ -1,6 +1,7 @@
-"""Batches onto the device ahead of the step.
+"""Batches onto the device ahead of the step, and the lockstep shard feed.
 
-Port of ``prefetch_to_device`` from ``dlrover_tpu/train/data_utils.py``.
+Port of ``prefetch_to_device`` and ``iter_shards_spmd`` from
+``dlrover_tpu/train/data_utils.py``.
 ``jax.device_put`` is asynchronous; here each batch is copied from
 page-locked host memory (``pin_memory``) with ``non_blocking`` copies on
 a side stream, ``size`` batches ahead of the one the step takes, and the
@@ -18,9 +19,10 @@ device.
 """
 
 import collections
-from typing import Dict, Iterable, Iterator
+from typing import Dict, Iterable, Iterator, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 def _host(v) -> torch.Tensor:
@@ -91,3 +93,45 @@ def prefetch_to_device(it: Iterable[Dict], size: int = 2,
             yield take(queue.popleft())
     while queue:
         yield take(queue.popleft())
+
+
+def iter_shards_spmd(sharding_client, poll_interval_s: float = 2.0,
+                     group=None) -> Iterator[Tuple[int, int]]:
+    """Lockstep shard iteration over the ranks of ``group`` (the world by
+    default).
+
+    Every rank must run the same number of (collective-bearing) train
+    steps; a per-rank pull from the master's shard queue could leave one
+    rank a shard short at the end of the dataset and hang the last
+    collectives. Here only the group's first rank talks to the master and
+    broadcasts each ``(start, end, done)``, so every rank sees the same
+    shard sequence; each shard is one global step, from which a rank cuts
+    its own rows. Outside a process group the client is read directly.
+
+    The JAX generator reports a shard done when the next one is asked
+    for. A loop that keeps batches in flight ahead of its step asks
+    early, and a dataset checkpoint would then count shards as done that
+    no step has trained. So here the caller reports: the group's first
+    rank calls ``sharding_client.report_shard_done()`` once the step that
+    trained the shard has run.
+    """
+    multi = dist.is_available() and dist.is_initialized() and (
+        dist.get_world_size(group) > 1)
+    first = not multi or dist.get_rank(group) == 0
+    device = torch.device("cpu")
+    if multi and dist.get_backend(group) == dist.Backend.NCCL:
+        device = torch.device("cuda", torch.cuda.current_device())
+    while True:
+        if first:
+            shard = sharding_client.fetch_shard(poll_interval_s)
+            msg = [0, 0, 1] if shard is None else [shard[0], shard[1], 0]
+        else:
+            msg = [0, 0, 0]
+        if multi:
+            t = torch.tensor(msg, dtype=torch.int64, device=device)
+            dist.broadcast(t, dist.get_global_rank(group, 0)
+                           if group is not None else 0, group=group)
+            msg = t.tolist()
+        if msg[2]:
+            return
+        yield int(msg[0]), int(msg[1])

@@ -93,15 +93,17 @@ def global_chip_count() -> int:
     return process_count()
 
 
-def process_index() -> int:
-    """This worker's global rank (0 outside a group)."""
+def process_index(group=None) -> int:
+    """This worker's rank in ``group``, the world by default (0 outside
+    a process group)."""
     if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
+        return dist.get_rank(group)
     return 0
 
 
-def process_count() -> int:
-    """The world's size (1 outside a group)."""
+def process_count(group=None) -> int:
+    """The size of ``group``, the world by default (1 outside a process
+    group)."""
     if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
+        return dist.get_world_size(group)
     return 1

@@ -21,6 +21,14 @@ Parameters, gradients and state are dicts of tensors keyed by parameter
 name; the update is applied IN PLACE (the port's counterpart of the JAX
 step donating its state). ``fused=True`` is ``fused_adamw``: the same
 numbers in one walk over the leaves with ``torch._foreach_*`` ops.
+
+Under ZeRO update sharding (``train_step.py``) the optimizer runs on one
+leaf, ``{"flat": ...}``: this rank's columns of the flat bucket stream,
+as the JAX step runs its optax chain on ``{"flat": grads_flat}``. Every
+term is elementwise, so the shard's update is the whole stream's update
+restricted to the shard; the one global quantity, the clip's norm, comes
+in as ``norm`` (the square sums all-reduced over the dp group), and the
+weight decay sees every flat element as it sees every leaf.
 """
 
 from typing import Callable, Dict, Union
@@ -145,18 +153,22 @@ class AdamW:
             return self.b1 * m
         return (m * torch.tensor(self.b1, dtype=m.dtype)).float()
 
-    def _clip_factors(self, grads):
+    def _clip_factors(self, grads, norm=None):
         """(divisor, multiplier) per leaf: (1, 1) under the clip norm,
         else (norm, grad_clip), so ``(g / div) * mul`` is the clip's
-        ``select`` without a host sync."""
-        norm = global_norm(grads)
+        ``select`` without a host sync. ``norm``: the global norm when
+        ``grads`` are one rank's shard of it."""
+        if norm is None:
+            norm = global_norm(grads)
         keep = norm < self.grad_clip
         one = torch.ones_like(norm)
         return (torch.where(keep, one, norm),
                 torch.where(keep, one, torch.full_like(norm, self.grad_clip)))
 
     @torch.no_grad()
-    def update_(self, params, grads, state) -> None:
+    def update_(self, params, grads, state, norm=None) -> None:
+        """One update in place. ``norm``: the gradients' global norm,
+        given when ``grads`` hold a shard of them (the clip reads it)."""
         names = list(params)
         lr = self.lr(state["step"])  # the count before the increment
         state["step"] += 1
@@ -164,7 +176,7 @@ class AdamW:
         bc2 = _bias_correction(self.b2, state["step"])
         g = [grads[n] for n in names]
         if self.grad_clip and self.grad_clip > 0:
-            div, mul = self._clip_factors(g)
+            div, mul = self._clip_factors(g, norm)
         else:
             div = mul = None
         if self.fused:

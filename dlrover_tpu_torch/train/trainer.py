@@ -21,10 +21,15 @@ keeps the rank's sp block of the sequence. With a master client the
 trainer reports the model's statistics (rank 0) and every global step,
 as the JAX trainer does, and its checkpoints report their staged steps.
 
+``update_sharding`` (True, ``"zero1"``, ``"zero2"``) with
+``comm_bucket_mb`` runs the ZeRO step on the f32 wire
+(``train_step.py``): the moments are this rank's columns of the flat
+bucket stream, and each rank's checkpoint pack holds its columns.
+
 Not ported yet, and refused with the ROADMAP item that ports them: mesh
-axes other than dp and sp (fsdp and tp: A9; pp and ep: A16), update
-sharding and the bucketed gradient exchange (A9), health sentinels and
-the sampled runtime profile (A12), the gradient sanitizer (A17).
+axes other than dp and sp (fsdp and tp: A9; pp and ep: A16), the bf16
+and int8 gradient wires (A9), health sentinels and the sampled runtime
+profile (A12), the gradient sanitizer (A17).
 """
 
 import os
@@ -44,6 +49,7 @@ from dlrover_tpu_torch.observability import telemetry
 from dlrover_tpu_torch.observability.loss_spike import LossSpikeDetector
 from dlrover_tpu_torch.observability.profiler import StepTimer
 from dlrover_tpu_torch.observability.tracing import get_tracer
+from dlrover_tpu_torch.parallel.sharding import CommConfig
 from dlrover_tpu_torch.parallel.mesh import (
     Mesh,
     MeshConfig,
@@ -100,8 +106,10 @@ class TrainerArgs:
     # per-step loop. Cadences and max_steps stay exact for any K; control
     # flags are honored at the next block boundary.
     block_k: int = 1
-    update_sharding: Union[bool, str] = False   # ROADMAP A9
-    comm_bucket_mb: float = 4.0                 # ROADMAP A9
+    # ZeRO update sharding (True = "zero2", "zero1", "zero2") and its
+    # bucket size, on the f32 wire
+    update_sharding: Union[bool, str] = False
+    comm_bucket_mb: float = 4.0
     comm_wire_dtype: str = "float32"            # ROADMAP A9
     comm_wire_dtype_dcn: Optional[str] = None   # ROADMAP A9
     health_sentinels: bool = False              # ROADMAP A12
@@ -109,12 +117,11 @@ class TrainerArgs:
 
 
 def _refuse_unported(args: TrainerArgs) -> None:
-    if (args.update_sharding or args.comm_bucket_mb != 4.0
-            or args.comm_wire_dtype != "float32"
+    if (args.comm_wire_dtype != "float32"
             or args.comm_wire_dtype_dcn is not None):
         raise NotImplementedError(
-            "update_sharding and the comm_* options (ZeRO update sharding, "
-            "the bucketed gradient exchange) are not ported yet (ROADMAP A9)")
+            "comm_wire_dtype/comm_wire_dtype_dcn: the bf16 and int8 gradient "
+            "wires are not ported yet (ROADMAP A9)")
     if args.health_sentinels or args.profile_interval:
         raise NotImplementedError(
             "health_sentinels and profile_interval are not ported yet "
@@ -165,11 +172,15 @@ class Trainer:
         init_state_fn: Optional[Callable[[int], Dict]] = None,
         eval_step_fn: Optional[Callable] = None,
         device="cuda",
+        ckpt_extra: Optional[Callable[[], Dict]] = None,
     ):
         """``step_builder``/``init_state_fn``/``eval_step_fn`` hand in the
         lowering instead of the one built here from ``args``;
         ``init_state_fn(seed)`` returns a train state. ``mesh``: a
-        ``parallel.mesh.Mesh`` or ``MeshConfig`` (dp × sp), or None."""
+        ``parallel.mesh.Mesh`` or ``MeshConfig`` (dp × sp), or None.
+        ``ckpt_extra()``: a dict each checkpoint carries in its pack
+        header (the dataset position), back after a restore in
+        ``checkpointer.engine.restored_extra``."""
         _refuse_unported(args)
         mesh = _mesh(mesh)
         self.mesh = mesh
@@ -180,9 +191,14 @@ class Trainer:
         self.optimizer = optimizer
         self.eval_iter_fn = eval_iter_fn
         self._init_state_fn = init_state_fn
+        self._ckpt_extra = ckpt_extra
+        self.comm = (CommConfig(update_sharding=args.update_sharding,
+                                bucket_mb=args.comm_bucket_mb)
+                     if args.update_sharding else None)
         self._builder = step_builder or TrainStepBuilder(
             cfg, optimizer, grad_accum=args.grad_accum,
-            attn_impl=args.attn_impl, device=self.device, mesh=mesh)
+            attn_impl=args.attn_impl, device=self.device, mesh=mesh,
+            comm=self.comm)
         self._step_fn = None
         self._block_fn = None
         self._eval_fn = eval_step_fn
@@ -224,18 +240,20 @@ class Trainer:
         """The state as the JAX train state's leaves (what a checkpoint
         holds)."""
         return convert.train_state_leaves(self.state, self.cfg,
-                                          self.optimizer)
+                                          self.optimizer, self._builder.shard)
 
     def _save(self, step: int, storage_type: str) -> bool:
-        return self.checkpointer.save_checkpoint(step, self.state_leaves(),
-                                                 storage_type=storage_type)
+        return self.checkpointer.save_checkpoint(
+            step, self.state_leaves(), storage_type=storage_type,
+            extra=self._ckpt_extra() if self._ckpt_extra else None)
 
     def _init_state(self):
         if self._init_state_fn is not None:
             self.state = self._init_state_fn(self.args.seed)
         else:
-            self.state = init_train_state(self.args.seed, self.cfg,
-                                          self.optimizer, device=self.device)
+            self.state = init_train_state(
+                self.args.seed, self.cfg, self.optimizer, device=self.device,
+                comm=self.comm if self._builder.update_sharding else None)
         if not self.args.resume:
             return
         leaves = self.state_leaves()

@@ -9,6 +9,10 @@ package's, on the CPU.
   none) and waiting count;
 - the port's manager hands out the first node's store port when its
   agent sends one;
+- the live-reshard directive: with one process a node the port's
+  manager excises the same nodes as the JAX one; with several ranks a
+  node, a node leaves the sealed world only when all of its dp ranks
+  are lost, and a lost node's death does not end the survivors' round;
 - ``JobManager``: the same registrations, status reports and heartbeat
   timeouts give the same node statuses, exit reasons, relaunch counts,
   incarnations and relaunch plans.
@@ -96,6 +100,61 @@ def test_the_first_nodes_store_port_is_the_coordinators():
     mgr = TRdzv()
     mgr.join_rendezvous(0, 0, 1, host_addr="a")
     assert mgr.get_comm_world(0)[3] == "a:7010"
+
+
+def _sealed(mgr, lws):
+    """A sealed world of ``len(lws)`` nodes, node ``i`` with ``lws[i]``
+    ranks."""
+    mgr.update_rdzv_params(min_nodes=len(lws), max_nodes=len(lws))
+    for i, n in enumerate(lws):
+        mgr.join_rendezvous(i, i, n)
+    return mgr.get_comm_world(0)[2]
+
+
+def test_one_process_nodes_reshard_as_the_jax_manager_does():
+    worlds = []
+    for mgr in (JRdzv(), TRdzv()):
+        _sealed(mgr, [1, 1, 1, 1])
+        mgr.plan_reshard([2, 3], dp_size=4)
+        before = mgr.get_comm_world(0)[:3]
+        mgr.remove_alive_node(3)  # a lost node dies: no new round
+        worlds.append((before, mgr.get_comm_world(0)[:3],
+                       mgr.get_reshard_plan()["lost_ranks"]))
+    assert worlds[1] == worlds[0]
+    assert worlds[1][1][2] == {0: 1, 1: 1}
+
+
+# (local world sizes, evictions as (lost dp ranks, dp size), the nodes
+# lost by each, the sealed world after them)
+RESHARDS = {
+    "one_node_dp0_dp1": ([4], [([0, 1], 4)], [[]], {0: 4}),
+    "one_node_dp2_dp3": ([4], [([2, 3], 4)], [[]], {0: 4}),
+    "second_node_whole": ([2, 2], [([2, 3], 4)], [[1]], {0: 2}),
+    "first_node_whole": ([2, 2], [([0, 1], 4)], [[0]], {1: 2}),
+    "a_rank_of_each": ([2, 2], [([1, 2], 4)], [[]], {0: 2, 1: 2}),
+    # dp 1 of the survivors [0, 3] is node 1's last rank
+    "two_evictions": ([2, 2], [([1, 2], 4), ([1], 2)], [[], [1]],
+                      {0: 2}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(RESHARDS))
+def test_a_node_leaves_only_when_all_its_dp_ranks_are_lost(name):
+    lws, evictions, lost_nodes, world = RESHARDS[name]
+    mgr = TRdzv()
+    _sealed(mgr, lws)
+    rdzv_round = mgr.rdzv_round
+    for (lost, dp), nodes in zip(evictions, lost_nodes):
+        mgr.plan_reshard(lost, dp_size=dp)
+        plan = mgr.get_reshard_plan()
+        assert (plan["lost_ranks"], plan["lost_nodes"]) == (lost, nodes)
+    assert mgr.get_comm_world(0)[2] == world
+    for node in lost_nodes[-1]:
+        mgr.remove_alive_node(node)  # its processes end: the round stays
+    assert mgr.get_comm_world(0)[:3] == (rdzv_round, 0, world)
+    # a surviving node's death still ends the round
+    mgr.remove_alive_node(min(world))
+    assert mgr.get_comm_world(0)[2] == {}
 
 
 def _meta(pkg, node_id):

@@ -169,7 +169,7 @@ def test_a_failing_get_raises_remote_error(server):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("TaskRequest", "A11"), ("EvictionNotice", "A11"),
+    ("ServingEvictionNotice", "A15"), ("BrainOptimizeRequest", "A23"),
     ("ServingScaleRequest", "A15"), ("ParallelConfigRequest", "A20"),
     ("PsVersionRequest", "A18"), ("ResourceStats", "A12"),
 ])

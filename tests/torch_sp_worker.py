@@ -147,8 +147,9 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def spawn(task, spec, world, tmp, timeout_s=150):
-    """Run ``task`` on ``world`` ranks, each a subprocess under a time
+def spawn(task, spec, world, tmp, timeout_s=150, script=None):
+    """Run ``task`` on ``world`` ranks, each a subprocess of ``script``
+    (this file by default; it takes the same arguments) under a time
     limit; returns their results by rank."""
     import subprocess
 
@@ -160,7 +161,7 @@ def spawn(task, spec, world, tmp, timeout_s=150):
             for r in range(world)]
     env = dict(os.environ, OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), task, str(r),
+        [sys.executable, script or os.path.abspath(__file__), task, str(r),
          str(world), str(port), path_in, outs[r]],
         stdout=logs[r], stderr=subprocess.STDOUT, env=env, cwd=ROOT)
         for r in range(world)]
