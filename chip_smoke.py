@@ -2130,6 +2130,7 @@ def train_kernel_cases(seed, dev):
     cases += offsets_cases(gen, dev)
     cases += sp_shape_cases(gen, dev)
     cases += reshard_shape_cases(gen, dev)
+    cases += fsdp_tp_shape_cases(gen, dev)
     cases += [
         # the train steps' norms: [B·S, d_model] rows, timed
         norm_case("llama-1.4b", 8192, 2048, False, gen, dev, True),
@@ -3893,6 +3894,361 @@ def sp_check(cfg_name, impls, names, seed, dev, overrides=None,
 
 
 # ---------------------------------------------------------------------------
+# phase 13: fsdp x tp, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+FSDP_TP_MESH = {"fsdp": 2, "tp": 2}
+FSDP_TP_RANKS = 4
+FSDP_TP_LAYERS, FSDP_TP_STEPS, FSDP_TP_FAULT_STEPS = 2, 8, 2
+FSDP_TP_TIMEOUT_S = 480
+# every rank's loss and grad norm against the one-process replicated run
+# on the same global batches, relative: ``RESHARD_RTOL_*``'s bound (the
+# sharded step rounds its fsdp rows' and tp blocks' partial products to
+# bf16 where one process rounds once; ``order_spread`` reads what a
+# reordering alone moves)
+FSDP_TP_RTOL_LOSS, FSDP_TP_RTOL_NORM = 1e-4, 1e-4
+#: the planted fault: the step skips the tp sum of these gradients
+FSDP_TP_FAULT_LEAVES = ("layers/attn/wk", "layers/attn/wv")
+# the sharded state against the replicated one: params, grads and AdamW's
+# two moments, f32. A quarter, and wk/wv (cut over fsdp only) a half:
+# 0.27 at llama-1.4b's widths; the gate allows 0.3
+FSDP_TP_STATE_SHARE = 0.3
+
+
+def fsdp_tp_shape_cases(gen, dev):
+    """The kernels at the shapes a rank of the fsdp_tp phase launches
+    them, each against its plain version with its planted fault:
+    llama-1.4b's attention at a rank's 4 rows (b8 over fsdp 2) and 8 of
+    its 16 heads (tp 2), causal; its rmsnorm rows (4096 of d 2048, the
+    whole d on every tp rank; plain and with the residual)."""
+    return [
+        flash_case("llama-1.4b-fsdp-tp", 4, 1024, 8, 8, 128, True, 0,
+                   gen, dev, False),
+        norm_case("llama-1.4b-fsdp-tp", 4096, 2048, False, gen, dev, False),
+        norm_case("llama-1.4b-fsdp-tp+residual", 4096, 2048, True, gen, dev,
+                  False),
+    ]
+
+
+def _fsdp_tp_opt():
+    from dlrover_tpu_torch.examples import train_gpt_elastic as ex
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+
+    return make_optimizer(learning_rate=ex.LR, warmup_steps=ex.WARMUP,
+                          decay_steps=ex.DECAY)
+
+
+def _fsdp_tp_batch(cfg, seed, step, b, s):
+    """Global step ``step``'s batch, [b, s] tokens and targets, from
+    ``seed``: the same for every rank and for the reference."""
+    rng = np.random.default_rng([seed, 31, step])
+    tok = rng.integers(0, cfg.vocab_size, size=(b, s + 1))
+    return {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+
+
+def _state_bytes(model):
+    """Params, gradients and AdamW's two moments, all f32: 16 B a
+    parameter this rank holds."""
+    return 16 * sum(p.numel() for p in model.parameters())
+
+
+def fsdp_tp_reference(cfg, seed, dev, steps, b, s, reverse=False):
+    """The one-process replicated stream the sharded run is held to: each
+    step's global batch in 2 micro-batches, an fsdp rank's rows each
+    (``reverse``: the second first), from the same init (every layout
+    draws the same global weights). Returns ([(loss, grad_norm)] a step,
+    its record: peak memory, the state's bytes, the median step's wall
+    s)."""
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    cuda = dev.type == "cuda"
+    opt = _fsdp_tp_opt()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(seed, cfg, opt, device=dev)
+    accum = FSDP_TP_MESH["fsdp"]
+    step = TrainStepBuilder(cfg, opt, grad_accum=accum, device=dev).build()
+    out, walls = [], []
+    for i in range(1, steps + 1):
+        batch = _fsdp_tp_batch(cfg, seed, i, b, s)
+        if reverse:
+            batch = {k: np.concatenate(np.split(v, accum)[::-1])
+                     for k, v in batch.items()}
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+        walls.append(time.perf_counter() - t)
+    rec = {"peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           "state_bytes": _state_bytes(state["params"]),
+           "step_s": sorted(walls[1:])[len(walls[1:]) // 2]}
+    del state, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, rec
+
+
+class _Clock:
+    """Wall seconds spent inside the collectives a step runs (each timed
+    from a synchronized card, so a host-staged copy does not count the
+    compute queued before it)."""
+
+    def __init__(self, cuda):
+        self.cuda, self.seconds, self.calls = cuda, 0.0, 0
+
+    def wrap(self, fn):
+        def timed(*args, **kw):
+            if self.cuda:
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            if self.cuda:
+                torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t
+            self.calls += 1
+            return out
+        return timed
+
+
+def fsdp_tp_worker(spec_path, rank):
+    """One rank of the fsdp_tp phase (a subprocess of ``fsdp_tp_check``):
+    a gloo group of FSDP_TP_RANKS ranks on card 0, the mesh
+    ``MeshConfig(fsdp=2, tp=2)``, ``init_train_state`` and
+    ``TrainStepBuilder`` on it for FSDP_TP_STEPS steps, each on this
+    rank's rows of the global batch, the launch counts and the time in
+    the collectives read around each step; then FSDP_TP_FAULT_STEPS steps
+    from the same init with the planted fault. Writes its record."""
+    from dlrover_tpu_torch.models.config import get_config
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.parallel import collectives
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.train import train_step as ts
+    from dlrover_tpu_torch.train.data_utils import dp_rows
+    from dlrover_tpu_torch.train.distributed import (
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    spec = json.loads(open(spec_path).read())
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    init_distributed(coordinator=f"127.0.0.1:{spec['port']}",
+                     world_size=FSDP_TP_RANKS, rank=rank, device=dev.type,
+                     backend="gloo", device_index=0 if cuda else None,
+                     timeout_s=FSDP_TP_TIMEOUT_S)
+    out = {"rank": rank, "group_s": time.monotonic() - t0}
+    rebuilt = []
+    real_build = _build.build
+
+    def counted(name):  # a compile here would have cost the phase minutes
+        secs = real_build(name)
+        if secs > 0:
+            rebuilt.append(name)
+        return secs
+
+    _build.build = counted
+    clock = _Clock(cuda)
+    for name in ("all_gather_dim", "reduce_scatter_dim", "all_reduce_"):
+        setattr(collectives, name, clock.wrap(getattr(collectives, name)))
+    ts.all_reduce_ = collectives.all_reduce_
+    try:
+        cfg = get_config(spec["config"], **spec["overrides"])
+        mesh = build_mesh(MeshConfig(**FSDP_TP_MESH))
+        out["mesh"] = dict(mesh.shape)
+        b, s = spec["shape"]
+
+        def run(steps, fault):
+            opt = _fsdp_tp_opt()
+            state = ts.init_train_state(spec["seed"], cfg, opt, device=dev,
+                                        mesh=mesh)
+            builder = ts.TrainStepBuilder(cfg, opt, device=dev, mesh=mesh)
+            if fault:
+                for n, shard in builder.layout.items():
+                    if shard.path in FSDP_TP_FAULT_LEAVES:
+                        builder.reduce_axes[n] = tuple(
+                            a for a in builder.reduce_axes[n] if a != "tp")
+            rec = {"losses": [], "grad_norms": [], "step_s": [],
+                   "collective_s": [], "collective_calls": [],
+                   "launches": [],
+                   "state_bytes": _state_bytes(state["params"])}
+            for i in range(1, steps + 1):
+                batch = dp_rows(_fsdp_tp_batch(cfg, spec["seed"], i, b, s),
+                                mesh)
+                _reset_train_launches()
+                clock.seconds, clock.calls = 0.0, 0
+                t = time.perf_counter()
+                state, m = builder.step_fn(state, batch)
+                loss, norm = float(m["loss"]), float(m["grad_norm"])
+                if cuda:
+                    torch.cuda.synchronize()
+                rec["step_s"].append(time.perf_counter() - t)
+                rec["launches"].append(_train_launches())
+                rec["collective_s"].append(clock.seconds)
+                rec["collective_calls"].append(clock.calls)
+                rec["losses"].append(loss)
+                rec["grad_norms"].append(norm)
+            del state, builder
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+            return rec
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        out["run"] = run(FSDP_TP_STEPS, False)
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated() if cuda
+                             else None)
+        out["fault"] = run(FSDP_TP_FAULT_STEPS, True)
+        out["rebuilt"] = len(rebuilt)
+    finally:
+        shutdown_distributed()
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+
+
+def fsdp_tp_check(cfg_name, seed, dev, name="fsdp_tp", overrides=None,
+                  shape=None):
+    """The fsdp_tp phase: llama-1.4b at full width and FSDP_TP_LAYERS
+    layers on ``MeshConfig(fsdp=2, tp=2)``, FSDP_TP_RANKS worker
+    processes on card 0 over gloo (``fsdp_tp_worker``), FSDP_TP_STEPS
+    steps at b``TRAIN_BATCH`` × s``TRAIN_SEQ``; then, in this process,
+    the replicated reference and its micro-batches reversed
+    (``order_spread``). Gated: every rank's loss and grad norm of every
+    step within FSDP_TP_RTOL_* of the reference, the planted fault (no
+    tp sum of ``wk``/``wv``'s gradients) beyond them, finite losses,
+    exact launches a rank a step, each rank's state under
+    FSDP_TP_STATE_SHARE of the replicated one, no kernel rebuilt. Writes
+    nothing but its log and records under ``build/chip_smoke``.
+    ``overrides`` and ``shape`` size a rehearsal."""
+    from dlrover_tpu_torch.models.config import get_config
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    overrides = (dict(n_layer=FSDP_TP_LAYERS) if overrides is None
+                 else overrides)
+    b, s = shape or (TRAIN_BATCH, TRAIN_SEQ)
+    cfg = get_config(cfg_name, **dict(overrides, max_seq=s))
+    out_dir = os.path.join("build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    spec = {"config": cfg_name, "seed": seed, "device": str(dev),
+            "overrides": dict(overrides, max_seq=s), "shape": [b, s],
+            "port": _free_port(),
+            "out": os.path.join(out_dir, f"{name}_{{rank}}.json")}
+    spec_path = os.path.join(out_dir, f"{name}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    log_path = os.path.join(out_dir, f"{name}_log.txt")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fsdp-tp-worker",
+             spec_path, "--rank", str(r)], stdout=log,
+            stderr=subprocess.STDOUT) for r in range(FSDP_TP_RANKS)]
+        try:
+            rcs = [p.wait(timeout=FSDP_TP_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    seconds = time.monotonic() - t0
+    if any(rcs):
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        _failures.append(f"{name}: worker exit codes {rcs}\n{tail}")
+        emit({"phase": name, "ok": False, "exit_codes": rcs,
+              "log_tail": tail})
+        return {"launches": {}, "ranks": []}
+    ranks = []
+    for r in range(FSDP_TP_RANKS):
+        with open(spec["out"].format(rank=r)) as f:
+            ranks.append(json.load(f))
+    t1 = time.monotonic()
+    ref, ref_rec = fsdp_tp_reference(cfg, seed, dev, FSDP_TP_STEPS, b, s)
+    reverse, _ = fsdp_tp_reference(cfg, seed, dev, FSDP_TP_STEPS, b, s,
+                                   reverse=True)
+    ref_rec["seconds"] = time.monotonic() - t1
+
+    def steps_of(key):
+        return {i + 1: {x["rank"]: {"loss": x[key]["losses"][i],
+                                    "grad_norm": x[key]["grad_norms"][i]}
+                        for x in ranks}
+                for i in range(len(ranks[0][key]["losses"]))}
+
+    def errors(steps):
+        e = _stream_errors(steps, ref)
+        e["within"] = (e["loss"] is not None
+                       and e["loss"] <= FSDP_TP_RTOL_LOSS
+                       and e["grad_norm"] <= FSDP_TP_RTOL_NORM)
+        return e
+
+    want = {k: 0 for k in _train_launches()}
+    want.update({k: cfg.n_layer for k in fa.UNPACKED},
+                norm_fwd=2 * cfg.n_layer + 1, norm_bwd=2 * cfg.n_layer + 1)
+    run = [x["run"] for x in ranks]
+    share = [x["state_bytes"] / ref_rec["state_bytes"] for x in run]
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    rec = {"phase": name, "config": cfg_name, "n_layer": cfg.n_layer,
+           "d_model": cfg.d_model, "n_head": cfg.n_head,
+           "mesh": FSDP_TP_MESH, "batch": b, "seq": s,
+           "steps": FSDP_TP_STEPS,
+           "backend": "gloo (host-staged), 4 ranks on cuda:0",
+           "card": nvidia_smi_line() if dev.type == "cuda" else None,
+           "losses": run[0]["losses"], "grad_norms": run[0]["grad_norms"],
+           "reference": ref, "errors": errors(steps_of("run")),
+           "order_spread": _stream_errors(
+               {i: {0: {"loss": x, "grad_norm": n}}
+                for i, (x, n) in enumerate(reverse, 1)}, ref),
+           "fault": {"what": "no tp sum of the wk/wv gradients",
+                     "steps": FSDP_TP_FAULT_STEPS,
+                     "errors": errors(steps_of("fault"))},
+           "tolerances": {"loss": FSDP_TP_RTOL_LOSS,
+                          "grad_norm": FSDP_TP_RTOL_NORM},
+           "step_s_by_rank": [median(x["step_s"][1:]) for x in run],
+           "collective_s_by_rank": [median(x["collective_s"][1:])
+                                    for x in run],
+           "collective_calls_a_step": run[0]["collective_calls"][-1],
+           "peak_bytes_by_rank": [x["peak_bytes"] for x in ranks],
+           "state_bytes_by_rank": [x["state_bytes"] for x in run],
+           "state_share": share, "reference_run": ref_rec,
+           "group_s": [x["group_s"] for x in ranks], "phase_s": seconds,
+           "launches": {k: sum(step[k] for x in run
+                               for step in x["launches"])
+                        for k in _train_launches()}}
+    rec["collective_share"] = [c / t for c, t in zip(
+        rec["collective_s_by_rank"], rec["step_s_by_rank"])]
+    rec["checks"] = checks = {
+        "mesh": all({k: v for k, v in x["mesh"].items() if v > 1}
+                    == FSDP_TP_MESH for x in ranks),
+        "matches_replicated": rec["errors"]["within"],
+        "fault_caught": not rec["fault"]["errors"]["within"],
+        "finite": all(math.isfinite(v) for x in run for v in x["losses"]),
+        "launches_exact": all(step == want for x in run
+                              for step in x["launches"]),
+        "state_sharded": all(v < FSDP_TP_STATE_SHARE for v in share),
+        "no_rebuild": all(x["rebuilt"] == 0 for x in ranks),
+    }
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"{name}: {[k for k, v in checks.items() if not v]}"
+                         f" {rec['errors']} {rec['fault']['errors']}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -3903,10 +4259,15 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sp-worker", default=None,
                     help="run one rank of an sp phase (internal)")
+    ap.add_argument("--fsdp-tp-worker", default=None,
+                    help="run one rank of the fsdp_tp phase (internal)")
     ap.add_argument("--rank", type=int, default=0)
     args = ap.parse_args(argv)
     if args.sp_worker:  # on the device its spec names
         sp_worker(args.sp_worker, args.rank)
+        return 0
+    if args.fsdp_tp_worker:
+        fsdp_tp_worker(args.fsdp_tp_worker, args.rank)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4066,6 +4427,13 @@ def main(argv=None) -> int:
     with phase("sp_glm"):
         sp_recs.update(sp_check("glm-10b", ("ring",), {"ring": "ring_glm"},
                                 args.seed, dev))
+    # fsdp x tp (fsdp 2, tp 2: four ranks on this card over gloo),
+    # llama-1.4b at full width
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("fsdp_tp"):
+        rec = fsdp_tp_check("llama-1.4b", args.seed, dev)
+        train_launches["fsdp_tp"] = rec["launches"]
     offset_launches = {}
     for name, rec in sp_recs.items():
         for r, x in enumerate(rec["ranks"]):

@@ -516,9 +516,11 @@ class CheckpointEngine:
             return None
         own = f"host_{self.process_index}.pack"
         if own in packs:
-            # replicated data parallelism: every rank's pack is the whole
-            # state; read this rank's own
-            packs = [own]
+            # this rank's own pack first: under replicated data parallelism
+            # it is the whole state, and at the layout that wrote it every
+            # shard reads from it; another layout's shards are assembled
+            # from the others (mapped, nothing read until a slice is)
+            packs = [own] + [p for p in packs if p != own]
         idx = core.PackIndex()
         try:
             for name in packs:

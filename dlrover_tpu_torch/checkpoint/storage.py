@@ -9,6 +9,7 @@ reads in the other.
 import os
 import re
 import shutil
+import threading
 from typing import List, Optional
 
 from dlrover_tpu_torch.common.log import get_logger
@@ -42,9 +43,11 @@ class CheckpointStorage:
 class PosixStorage(CheckpointStorage):
     def write_bytes(self, data: memoryview, path: str):
         """Write through a temporary file, fsync it, then rename, so a
-        reader never sees a partial file under ``path``."""
+        reader never sees a partial file under ``path``. The temporary
+        name is the writer's own (process and thread): ranks that commit
+        the same tracker at once each rename a whole file."""
         os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = path + ".tmp"
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         with open(tmp, "wb") as f:
             f.write(data)
             f.flush()

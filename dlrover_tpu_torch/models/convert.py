@@ -9,14 +9,17 @@ everything here reads it:
 
 - ``state_dict_from_jax`` / ``jax_tree_from_state_dict`` / ``load_jax_params``:
   a param tree of numpy arrays ⇄ a ``Decoder`` state dict (or a dict of
-  its gradients under the same names);
+  its gradients under the same names); given a sharded mesh, the state
+  dict of that rank's shards (``decoder.param_layout``), and
+  ``gather_jax_tree`` assembles the whole tree from every rank's;
 - ``train_state_leaves``: a port train state (``train_step.init_train_state``)
   as the flattened leaves of the JAX train state, ``params/...``, the
   AdamW moments and counts under the optax state's paths for the same
   optimizer settings, and ``step``. A stacked leaf's L shards are the
   port's L per-layer tensors (transposed where the port keeps
-  ``[out, in]``). The checkpoint pack writes and restores these leaves,
-  so a pack restores in either package;
+  ``[out, in]``); a sharded model's shards carry their global indices.
+  The checkpoint pack writes and restores these leaves, so a pack
+  restores in either package and at any other layout;
 - ``train_state_arrays`` / ``load_train_state_arrays``: the same leaves
   as ``{path: numpy array}`` (bf16 as ``np.uint16`` words: no ml_dtypes),
   the flattened JAX train state of numpy arrays.
@@ -38,36 +41,13 @@ import torch
 
 from dlrover_tpu_torch.checkpoint import core
 from dlrover_tpu_torch.models.config import ModelConfig
-from dlrover_tpu_torch.models.decoder import Decoder
-
-_ATTN = ("wq", "wk", "wv", "wo")
-
-# (JAX path, port name, or its per-layer format, stacked, transposed)
-ParamRow = Tuple[str, str, bool, bool]
-
-
-def param_table(cfg: ModelConfig) -> List[ParamRow]:
-    """Each param leaf of the JAX tree and the port tensor(s) behind it."""
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE decoders are not ported yet (ROADMAP A16)")
-    mlp = ("w_gate", "w_up", "w_down") if cfg.act == "swiglu" else (
-        "w_up", "w_down")
-    norm = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
-    rows: List[ParamRow] = [("embed/tokens", "embed.tokens", False, False)]
-    if cfg.pos == "learned":
-        rows.append(("pos_embed/table", "pos_embed.table", False, False))
-    rows += [(f"layers/attn/{n}", f"layers.{{}}.attn.{n}.weight", True, True)
-             for n in _ATTN]
-    rows += [(f"layers/mlp/{n}", f"layers.{{}}.mlp.{n}.weight", True, True)
-             for n in mlp]
-    rows += [(f"layers/{ln}/{k}", f"layers.{{}}.{ln}.{k}", True, False)
-             for ln in ("ln1", "ln2") for k in norm]
-    rows += [(f"final_norm/{k}", f"final_norm.{k}", False, False)
-             for k in norm]
-    if not cfg.tie_embeddings:
-        rows.append(("lm_head/w", "lm_head.weight", False, True))
-    return rows
+from dlrover_tpu_torch.models.decoder import (  # noqa: F401 (re-exported)
+    Decoder,
+    ParamRow,
+    param_layout,
+    param_table,
+)
+from dlrover_tpu_torch.parallel.mesh import Mesh
 
 
 def _get(tree, path):
@@ -83,22 +63,55 @@ def _set(tree, path, value):
     tree[last] = value
 
 
-def state_dict_from_jax(params: Dict[str, Any], cfg: ModelConfig):
+def state_dict_from_jax(params: Dict[str, Any], cfg: ModelConfig,
+                        mesh=None):
     """The ``Decoder`` state dict (f32 CPU tensors) for a JAX param tree
-    of numpy arrays."""
-    def t(a, transpose):
-        a = np.asarray(a, np.float32)
-        return torch.from_numpy(np.array(a.T if transpose else a, order="C"))
+    of numpy arrays: under a sharded ``mesh`` (a ``parallel.mesh.Mesh``:
+    its shape and this rank), each tensor this rank's shard."""
+    layout = param_layout(cfg, mesh if mesh is not None and mesh.sharded
+                          else None)
+
+    def t(a, name):
+        shard = layout[name]
+        a = np.asarray(a, np.float32)[tuple(slice(*i) for i in shard.index)]
+        return torch.from_numpy(np.array(a.T if shard.transposed else a,
+                                         order="C"))
 
     sd = {}
-    for path, name, stacked, transposed in param_table(cfg):
+    for path, name, stacked, _ in param_table(cfg):
         a = _get(params, path)
         if stacked:
             for i in range(cfg.n_layer):
-                sd[name.format(i)] = t(a[i], transposed)
+                sd[name.format(i)] = t(a[i], name.format(i))
         else:
-            sd[name] = t(a, transposed)
+            sd[name] = t(a, name)
     return sd
+
+
+def gather_jax_tree(state_dicts: List[Dict[str, torch.Tensor]],
+                    cfg: ModelConfig, sizes: Dict[str, int]
+                    ) -> Dict[str, Any]:
+    """The JAX param tree (numpy f32) assembled from every rank's sharded
+    state dict (or gradients, or AdamW moments, under the parameter
+    names), ``state_dicts[r]`` rank r's of a mesh of ``sizes``."""
+    tree: Dict[str, Any] = {}
+    for rank, sd in enumerate(state_dicts):
+        layout = param_layout(cfg, Mesh(sizes, rank))
+        for path, name, stacked, _ in param_table(cfg):
+            for i in range(cfg.n_layer) if stacked else (None,):
+                key = name.format(i) if stacked else name
+                shard = layout[key]
+                try:
+                    full = _get(tree, path)
+                except KeyError:
+                    full = np.zeros(((cfg.n_layer,) if stacked else ())
+                                    + shard.shape, np.float32)
+                    _set(tree, path, full)
+                x = sd[key].detach().float().cpu().numpy()
+                idx = tuple(slice(*i) for i in shard.index)
+                (full[i] if stacked else full)[idx] = (
+                    x.T if shard.transposed else x)
+    return tree
 
 
 def jax_tree_from_state_dict(sd: Dict[str, torch.Tensor],
@@ -122,12 +135,15 @@ def jax_tree_from_state_dict(sd: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def load_jax_params(params: Dict[str, Any], cfg: ModelConfig, *,
-                    device="cuda", trainable: bool = False) -> Decoder:
+                    device="cuda", trainable: bool = False,
+                    mesh=None) -> Decoder:
     """A ``Decoder`` on ``device`` holding the JAX params' values: frozen
     matrices rounded to ``cfg.dtype`` (serving), or with ``trainable``
-    every parameter trainable in ``cfg.param_dtype``; norms f32."""
-    model = Decoder(cfg, device=device, trainable=trainable)
-    model.load_state_dict(state_dict_from_jax(params, cfg), strict=True)
+    every parameter trainable in ``cfg.param_dtype``; norms f32. Under a
+    sharded ``mesh``, this rank's shards of them."""
+    model = Decoder(cfg, device=device, trainable=trainable, mesh=mesh)
+    model.load_state_dict(state_dict_from_jax(params, cfg, mesh),
+                          strict=True)
     return model
 
 
@@ -153,25 +169,24 @@ def opt_state_paths(optimizer) -> Tuple[List[str], str, str]:
 
 
 def _tensor_leaves(prefix: str, tensors: Dict[str, torch.Tensor],
-                   cfg: ModelConfig) -> List[core.Leaf]:
+                   cfg: ModelConfig, layout) -> List[core.Leaf]:
     leaves = []
     for path, name, stacked, transposed in param_table(cfg):
+        names = ([name.format(i) for i in range(cfg.n_layer)] if stacked
+                 else [name])
+        shard = layout[names[0]]
+        index = [list(i) for i in shard.index]
+        gshape = list(shard.shape)
         if stacked:
-            ts = [tensors[name.format(i)] for i in range(cfg.n_layer)]
+            gshape = [cfg.n_layer] + gshape
+            shards = [core.Shard([[i, i + 1]] + index,
+                                 tensors[n].detach(), transposed)
+                      for i, n in enumerate(names)]
         else:
-            ts = [tensors[name]]
-        inner = list(ts[0].shape[::-1] if transposed else ts[0].shape)
-        if stacked:
-            gshape = [cfg.n_layer] + inner
-            shards = [core.Shard([[i, i + 1]] + [[0, d] for d in inner],
-                                 t.detach(), transposed)
-                      for i, t in enumerate(ts)]
-        else:
-            gshape = inner
-            shards = [core.Shard([[0, d] for d in inner], ts[0].detach(),
-                                 transposed)]
+            shards = [core.Shard(index, tensors[name].detach(), transposed)]
         leaves.append(core.Leaf(f"{prefix}/{path}",
-                                core.dtype_name(ts[0].dtype), gshape, shards))
+                                core.dtype_name(tensors[names[0]].dtype),
+                                gshape, shards))
     return leaves
 
 
@@ -198,17 +213,20 @@ def train_state_leaves(state: Dict, cfg: ModelConfig, optimizer,
     (detached views): a restore into these leaves writes the state; the
     scalars (``step``, the counts) are copies that ``load_scalars`` puts
     back. ``shard``: ``(PackPlan, rank)`` of an update-sharded state
-    (``TrainStepBuilder.shard``), whose moments are flat columns."""
+    (``TrainStepBuilder.shard``), whose moments are flat columns. A
+    sharded model's parameters and moments are its shards, each with its
+    global index (``Decoder.layout``)."""
     opt = state["opt_state"]
     params = dict(state["params"].named_parameters())
+    layout = state["params"].layout
     counts, mu, nu = opt_state_paths(optimizer)
     if shard is not None:
         moments = [_flat_leaf(mu, opt["m"]["flat"], shard),
                    _flat_leaf(nu, opt["v"]["flat"], shard)]
     else:
-        moments = (_tensor_leaves(mu, opt["m"], cfg)
-                   + _tensor_leaves(nu, opt["v"], cfg))
-    leaves = (_tensor_leaves("params", params, cfg) + moments
+        moments = (_tensor_leaves(mu, opt["m"], cfg, layout)
+                   + _tensor_leaves(nu, opt["v"], cfg, layout))
+    leaves = (_tensor_leaves("params", params, cfg, layout) + moments
               + [_scalar_leaf(c, opt["step"]) for c in counts]
               + [_scalar_leaf("step", state["step"])])
     return sorted(leaves, key=lambda leaf: leaf.path.split("/"))
@@ -242,7 +260,8 @@ def train_state_arrays(state: Dict, cfg: ModelConfig, optimizer,
     """``{JAX path: numpy array}`` of a port train state (bf16 leaves as
     ``np.uint16`` words). With ``shard`` a flat leaf holds this rank's
     columns and zeros elsewhere: the ranks' arrays sum to the global
-    one, exactly (each element is one rank's value plus zeros)."""
+    one, exactly (each element is one rank's value plus zeros). So does a
+    sharded model's leaf: its shard, zeros elsewhere."""
     out = {}
     for leaf in train_state_leaves(state, cfg, optimizer, shard):
         full = torch.zeros(leaf.global_shape, dtype=core.DTYPES[leaf.dtype])

@@ -14,6 +14,23 @@ rank runs its rows and its sequence block: positions are global
 (``sp rank · S_l + arange(S_l)``) and attention is ``ring_attention`` or
 ``ulysses_attention`` (``parallel/sequence.py``).
 
+Under a mesh with fsdp or tp above 1 (``Decoder(cfg, mesh=...)``) each
+parameter holds only this rank's shard, laid out by the JAX rules
+(``logical_axes``, ``param_layout``: ``embed`` over fsdp, ``heads``,
+``mlp`` and ``vocab`` over tp, ``kv`` whole), the transpose of it where
+``nn.Linear`` keeps ``[out, in]``. The forward gathers each weight's
+fsdp-cut dim on use (``collectives.fsdp_gather``: the gathered weight is
+kept for the backward, which frees it; under ``remat="full"`` the
+recompute gathers again), and runs Megatron's tensor parallelism: ``wq``,
+``w_gate`` and ``w_up`` column-parallel, ``wo`` and ``w_down``
+row-parallel with a sum over tp, a rank's ``n_head / tp`` query heads
+attending to the KV heads they map to under GQA (rows of the replicated
+``wk``/``wv``), the vocab-parallel embedding lookup (a masked take and
+a sum over tp) and the vocab-parallel head and loss
+(``fused_ce.vocab_parallel_ce``). JAX counterparts: ``_attention_block``,
+``_mlp_block``, ``_vocab_parallel_embed`` and ``loss_fn``'s unfused path
+under GSPMD. The sharded model trains; its paged serving steps refuse.
+
 For serving (``Decoder(cfg)``), matrices are stored frozen in the
 compute dtype (``cfg.dtype``). For training (``Decoder(cfg,
 trainable=True)``) every parameter is trainable in ``cfg.param_dtype``.
@@ -37,7 +54,8 @@ variant, and the engine commits the accepted ones afterwards.
 """
 
 import math
-from typing import Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -49,11 +67,22 @@ from dlrover_tpu_torch.models.config import ModelConfig
 from dlrover_tpu_torch.ops import norm as fused_norm
 from dlrover_tpu_torch.ops import quant
 from dlrover_tpu_torch.ops.attention import mha_reference
-from dlrover_tpu_torch.ops.fused_ce import _mm_f32, fused_linear_ce
+from dlrover_tpu_torch.ops.fused_ce import (
+    _mm_f32,
+    fused_linear_ce,
+    vocab_parallel_ce,
+)
 from dlrover_tpu_torch.ops.flash_attention import flash_attention
 from dlrover_tpu_torch.ops.paged_attention import (
     paged_attention,
     write_page_rows,
+)
+from dlrover_tpu_torch.parallel import sharding as shd
+from dlrover_tpu_torch.parallel.collectives import (
+    copy_to_tp,
+    fsdp_gather,
+    gather_from_tp,
+    reduce_from_tp,
 )
 from dlrover_tpu_torch.serving.kv_cache import layer_pools
 
@@ -107,16 +136,21 @@ def _rope(x: torch.Tensor, rope) -> torch.Tensor:
 
 
 def _project_qkv(x, layer, cfg: ModelConfig, rope, *,
-                 mup_full_scale: bool):
+                 mup_full_scale: bool, tp=None):
     """QKV projection + rope + muP q-scaling. muP wants 1/d_head of
     attention scaling in all: the training attention applies
     1/sqrt(d_head) itself, so q carries the other half; the cache paths
-    run attention at scale 1 and set ``mup_full_scale``."""
+    run attention at scale 1 and set ``mup_full_scale``. ``tp``: this
+    rank's ``TpPlan`` (its query heads; its KV heads' rows of ``wk`` and
+    ``wv``)."""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    rows = None
+    if tp is not None:
+        nh, nkv, rows = tp.heads, tp.kv_heads, tp.kv_rows
     q = _dense(x, layer.attn.wq).reshape(b, s, nh, hd)
-    k = _dense(x, layer.attn.wk).reshape(b, s, nkv, hd)
-    v = _dense(x, layer.attn.wv).reshape(b, s, nkv, hd)
+    k = _dense(x, layer.attn.wk, rows).reshape(b, s, nkv, hd)
+    v = _dense(x, layer.attn.wv, rows).reshape(b, s, nkv, hd)
     if rope is not None:
         q = _rope(q, rope)
         k = _rope(k, rope)
@@ -125,7 +159,11 @@ def _project_qkv(x, layer, cfg: ModelConfig, rope, *,
     return q, k, v
 
 
-def _paged_guards(cfg: ModelConfig, fn: str):
+def _paged_guards(cfg: ModelConfig, fn: str, sharded: bool = False):
+    if sharded:
+        raise NotImplementedError(
+            f"{fn} serves whole weights; a model sharded over fsdp or tp "
+            "trains only")
     if not cfg.causal:
         raise ValueError(f"{fn} requires a causal model")
     if cfg.prefix_lm:
@@ -141,6 +179,229 @@ def _paged_guards(cfg: ModelConfig, fn: str):
 
 
 # ---------------------------------------------------------------------------
+# The parameter table and its layout on a mesh
+# ---------------------------------------------------------------------------
+
+_ATTN = ("wq", "wk", "wv", "wo")
+
+# (JAX path, port name, or its per-layer format, stacked, transposed)
+ParamRow = Tuple[str, str, bool, bool]
+
+
+def param_table(cfg: ModelConfig) -> List[ParamRow]:
+    """Each param leaf of the JAX tree and the port tensor(s) behind it:
+    the JAX tree stacks per-layer tensors on axis 0 and keeps matrices
+    ``[in, out]``, the port one ``nn.Linear`` a layer, ``[out, in]``."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "MoE decoders are not ported yet (ROADMAP A16)")
+    mlp = ("w_gate", "w_up", "w_down") if cfg.act == "swiglu" else (
+        "w_up", "w_down")
+    norm = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
+    rows: List[ParamRow] = [("embed/tokens", "embed.tokens", False, False)]
+    if cfg.pos == "learned":
+        rows.append(("pos_embed/table", "pos_embed.table", False, False))
+    rows += [(f"layers/attn/{n}", f"layers.{{}}.attn.{n}.weight", True, True)
+             for n in _ATTN]
+    rows += [(f"layers/mlp/{n}", f"layers.{{}}.mlp.{n}.weight", True, True)
+             for n in mlp]
+    rows += [(f"layers/{ln}/{k}", f"layers.{{}}.{ln}.{k}", True, False)
+             for ln in ("ln1", "ln2") for k in norm]
+    rows += [(f"final_norm/{k}", f"final_norm.{k}", False, False)
+             for k in norm]
+    if not cfg.tie_embeddings:
+        rows.append(("lm_head/w", "lm_head.weight", False, True))
+    return rows
+
+
+def logical_axes(cfg: ModelConfig) -> Dict:
+    """Pytree of logical-axis tuples, the structure of the JAX ``init``'s
+    param tree (``dlrover_tpu/models/decoder.py`` ``logical_axes``)."""
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            "MoE decoders are not ported yet (ROADMAP A16)")
+    ax: Dict = {
+        "embed": {"tokens": ("vocab", "embed")},
+        "layers": {
+            "attn": {
+                "wq": ("layers", "embed", "heads"),
+                "wk": ("layers", "embed", "kv"),
+                "wv": ("layers", "embed", "kv"),
+                "wo": ("layers", "heads", "embed"),
+            },
+            "ln1": {"scale": ("layers", "norm")},
+            "ln2": {"scale": ("layers", "norm")},
+        },
+        "final_norm": {"scale": ("norm",)},
+    }
+    mlp = ("w_gate", "w_up") if cfg.act == "swiglu" else ("w_up",)
+    ax["layers"]["mlp"] = {n: ("layers", "embed", "mlp") for n in mlp}
+    ax["layers"]["mlp"]["w_down"] = ("layers", "mlp", "embed")
+    if cfg.norm == "layernorm":
+        ax["layers"]["ln1"]["bias"] = ("layers", "norm")
+        ax["layers"]["ln2"]["bias"] = ("layers", "norm")
+        ax["final_norm"]["bias"] = ("norm",)
+    if cfg.pos == "learned":
+        ax["pos_embed"] = {"table": ("seq", "embed")}
+    if not cfg.tie_embeddings:
+        ax["lm_head"] = {"w": ("embed", "vocab")}
+    return ax
+
+
+#: the mesh axes the port cuts parameters over (the JAX rules also put a
+#: learned position table's ``seq`` over sp; the port keeps parameters
+#: whole under dp × sp)
+PARAM_CUT_AXES = ("fsdp", "tp")
+#: leaves replicated over tp whose use each tp rank splits (the KV heads
+#: of its query heads): their gradients are summed over tp
+TP_SPLIT_USE = ("layers/attn/wk", "layers/attn/wv")
+
+
+@dataclass(frozen=True)
+class ParamShard:
+    """One port tensor's place in its JAX leaf on this rank: the leaf's
+    JAX path, the global shape and this rank's ``[start, stop]`` a dim in
+    the JAX layout (a stacked leaf's per-layer slice: no layer dim), the
+    partition spec (mesh axes a dim) and whether the port holds the
+    transpose."""
+
+    path: str
+    shape: Tuple[int, ...]
+    index: Tuple[Tuple[int, int], ...]
+    spec: shd.Spec
+    transposed: bool
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        """The mesh axes this leaf is cut over."""
+        return tuple(a for e in self.spec for a in shd.spec_axes(e))
+
+    def _port(self, seq):
+        return tuple(seq[::-1]) if self.transposed else tuple(seq)
+
+    @property
+    def port_shape(self) -> Tuple[int, ...]:
+        """The local tensor's shape, in the port's layout."""
+        return self._port([b - a for a, b in self.index])
+
+    @property
+    def port_global_shape(self) -> Tuple[int, ...]:
+        return self._port(self.shape)
+
+    @property
+    def port_slices(self) -> Tuple[slice, ...]:
+        """This shard's slices of the port-layout global tensor."""
+        return self._port([slice(a, b) for a, b in self.index])
+
+    @property
+    def fsdp_dim(self) -> Optional[int]:
+        """The port dim cut over fsdp, or None."""
+        for d, e in enumerate(self.spec):
+            if "fsdp" in shd.spec_axes(e):
+                return len(self.shape) - 1 - d if self.transposed else d
+        return None
+
+
+def check_mesh(cfg: ModelConfig, mesh_shape: Dict[str, int]) -> None:
+    """Refuse, naming ROADMAP A9, a tp that does not divide ``n_head``,
+    ``d_ff`` or ``vocab_size``, or an fsdp that does not divide
+    ``d_model``: GSPMD pads such splits; the port does not yet."""
+    tp, fsdp = mesh_shape.get("tp", 1), mesh_shape.get("fsdp", 1)
+    bad = [f"{name}={n} over tp={tp}" for name, n in (
+        ("n_head", cfg.n_head), ("d_ff", cfg.d_ff),
+        ("vocab_size", cfg.vocab_size)) if n % tp]
+    if cfg.d_model % fsdp:
+        bad.append(f"d_model={cfg.d_model} over fsdp={fsdp}")
+    if bad:
+        raise NotImplementedError(
+            f"{', '.join(bad)}: uneven splits are not ported yet "
+            "(ROADMAP A9)")
+
+
+def param_layout(cfg: ModelConfig, mesh=None) -> Dict[str, ParamShard]:
+    """Every port parameter's ``ParamShard`` on ``mesh``'s rank (by port
+    name): the JAX ``shardings_for_tree(mesh, logical_axes(cfg))`` spec
+    of its leaf, cut to the axes the port shards parameters over, and
+    the index ``NamedSharding.devices_indices_map`` gives that rank.
+    Without a mesh every shard is its whole leaf."""
+    shape = {} if mesh is None else dict(mesh.shape)
+    coords = {} if mesh is None else dict(mesh.coords)
+    if mesh is not None:
+        check_mesh(cfg, shape)
+    specs = shd.shardings_for_tree(shape, logical_axes(cfg))
+    out = {}
+    for path, name, stacked, transposed in param_table(cfg):
+        spec = specs
+        for k in path.split("/"):
+            spec = spec[k]
+        jax_shape = _leaf_shape(cfg, path)
+        spec = tuple(_cut(e) for e in (spec[1:] if stacked else spec))
+        index = shd.shard_index(spec, jax_shape, shape, coords)
+        shard = ParamShard(path, jax_shape, tuple(map(tuple, index)), spec,
+                           transposed)
+        for i in range(cfg.n_layer) if stacked else (None,):
+            out[name.format(i) if stacked else name] = shard
+    return out
+
+
+def _cut(entry: shd.MeshAxes) -> shd.MeshAxes:
+    """A spec entry kept to ``PARAM_CUT_AXES``."""
+    axes = tuple(a for a in shd.spec_axes(entry) if a in PARAM_CUT_AXES)
+    return axes[0] if len(axes) == 1 else (axes or None)
+
+
+def _leaf_shape(cfg: ModelConfig, path: str) -> Tuple[int, ...]:
+    """The JAX leaf's shape (a stacked leaf's per-layer shape)."""
+    d, v, f = cfg.d_model, cfg.vocab_size, cfg.d_ff
+    q, kv = cfg.n_head * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    last = path.split("/")[-1]
+    return {"embed/tokens": (v, d), "pos_embed/table": (cfg.max_seq, d),
+            "layers/attn/wq": (d, q), "layers/attn/wk": (d, kv),
+            "layers/attn/wv": (d, kv), "layers/attn/wo": (q, d),
+            "layers/mlp/w_gate": (d, f), "layers/mlp/w_up": (d, f),
+            "layers/mlp/w_down": (f, d), "lm_head/w": (d, v),
+            }.get(path, (d,) if last in ("scale", "bias") else None)
+
+
+@dataclass(frozen=True)
+class TpPlan:
+    """This rank's share of the heads and the vocab under tp: its query
+    heads ``[heads·r, heads·(r+1))``, the rows of ``wk``/``wv`` (port
+    layout) of the KV heads they map to under GQA and how many KV heads
+    those are, and its vocab block ``[vocab_start, vocab_start +
+    vocab_size)``. When the query heads cover KV groups unevenly, each
+    query head gets its own KV head's rows (``kv_heads == heads``)."""
+
+    mesh: object
+    heads: int
+    kv_rows: object   # a slice, or a LongTensor of rows
+    kv_heads: int
+    vocab_start: int
+    vocab_size: int
+
+
+def tp_plan(cfg: ModelConfig, mesh, device) -> Optional[TpPlan]:
+    """The ``TpPlan`` of ``mesh``'s rank, or None when tp is 1."""
+    tp = 1 if mesh is None else mesh.shape["tp"]
+    if tp == 1:
+        return None
+    r, hd = mesh.coord("tp"), cfg.head_dim
+    h = cfg.n_head // tp
+    rep = cfg.n_head // cfg.kv_heads
+    first = r * h
+    if h % rep == 0 or rep % h == 0:
+        lo, n = first // rep, max(h // rep, 1)
+        rows, kv = slice(lo * hd, (lo + n) * hd), n
+    else:
+        heads = (first + torch.arange(h)) // rep
+        rows = (heads[:, None] * hd + torch.arange(hd)).reshape(-1).to(
+            device)
+        kv = h
+    vl = cfg.vocab_size // tp
+    return TpPlan(mesh, h, rows, kv, r * vl, vl)
+
+
+# ---------------------------------------------------------------------------
 # Modules
 # ---------------------------------------------------------------------------
 
@@ -149,10 +410,24 @@ def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
-def _dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+def _use(p: torch.Tensor, module: nn.Module, dtype) -> torch.Tensor:
+    """Parameter ``p`` of ``module`` in ``dtype``, its fsdp-cut dim
+    gathered when the module's ``fsdp`` says so (``(dim, mesh)``)."""
+    cut = getattr(module, "fsdp", None)
+    if cut is None:
+        return p.to(dtype)
+    return fsdp_gather(p, cut[0], dtype, cut[1])
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear, rows=None) -> torch.Tensor:
     """``x @ w.astype(x.dtype)``: the weight cast to the activations'
-    dtype at its use (a no-op for serving's compute-dtype weights)."""
-    return F.linear(x, lin.weight.to(x.dtype))
+    dtype at its use (a no-op for serving's compute-dtype weights),
+    gathered over fsdp under a sharded layout; ``rows``: only those rows
+    of the port-layout weight (output features)."""
+    w = _use(lin.weight, lin, x.dtype)
+    if rows is not None:
+        w = w[rows]
+    return F.linear(x, w)
 
 
 class Norm(nn.Module):
@@ -181,48 +456,52 @@ class Table(nn.Module):
         )
 
 
-def _linear(n_in, n_out, dtype, device) -> nn.Linear:
-    lin = nn.Linear(n_in, n_out, bias=False, dtype=dtype, device=device)
+def _linear(shape, dtype, device) -> nn.Linear:
+    """An ``nn.Linear`` whose weight is ``shape`` (``[out, in]``)."""
+    lin = nn.Linear(shape[1], shape[0], bias=False, dtype=dtype,
+                    device=device)
     lin.weight.requires_grad_(False)
     return lin
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, shape, dtype, device):
         super().__init__()
-        d, nh, nkv, hd = cfg.d_model, cfg.n_head, cfg.kv_heads, cfg.head_dim
-        self.wq = _linear(d, nh * hd, dtype, device)
-        self.wk = _linear(d, nkv * hd, dtype, device)
-        self.wv = _linear(d, nkv * hd, dtype, device)
-        self.wo = _linear(nh * hd, d, dtype, device)
+        for n in _ATTN:
+            setattr(self, n, _linear(shape(f"attn.{n}.weight"), dtype,
+                                     device))
 
 
 class MLP(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, shape, dtype, device):
         super().__init__()
-        d, f = cfg.d_model, cfg.d_ff
         self.act = cfg.act
         if cfg.act == "swiglu":
-            self.w_gate = _linear(d, f, dtype, device)
-        self.w_up = _linear(d, f, dtype, device)
-        self.w_down = _linear(f, d, dtype, device)
+            self.w_gate = _linear(shape("mlp.w_gate.weight"), dtype, device)
+        self.w_up = _linear(shape("mlp.w_up.weight"), dtype, device)
+        self.w_down = _linear(shape("mlp.w_down.weight"), dtype, device)
 
-    def forward(self, x):
-        """``_mlp_block``: swiglu ``silu(x·Wg) * (x·Wu)`` or tanh-gelu."""
+    def forward(self, x, tp: Optional[TpPlan] = None):
+        """``_mlp_block``: swiglu ``silu(x·Wg) * (x·Wu)`` or tanh-gelu;
+        under tp ``w_gate``/``w_up`` column-parallel, ``w_down``
+        row-parallel and summed over tp."""
+        if tp is not None:
+            x = copy_to_tp(x, tp.mesh)
         if self.act == "swiglu":
             h = F.silu(_dense(x, self.w_gate)) * _dense(x, self.w_up)
         else:
             h = F.gelu(_dense(x, self.w_up), approximate="tanh")
-        return _dense(h, self.w_down)
+        out = _dense(h, self.w_down)
+        return out if tp is None else reduce_from_tp(out, tp.mesh)
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg: ModelConfig, dtype, device):
+    def __init__(self, cfg: ModelConfig, shape, dtype, device):
         super().__init__()
         self.ln1 = Norm(cfg.d_model, cfg.norm, device)
-        self.attn = Attention(cfg, dtype, device)
+        self.attn = Attention(shape, dtype, device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, device)
-        self.mlp = MLP(cfg, dtype, device)
+        self.mlp = MLP(cfg, shape, dtype, device)
 
 
 class Decoder(nn.Module):
@@ -233,10 +512,13 @@ class Decoder(nn.Module):
     without a card) with uninitialized weights: fill them with
     ``init_weights`` or ``models.convert.load_jax_params``. Serving
     weights are frozen in ``cfg.dtype``; ``trainable=True`` keeps every
-    parameter trainable in ``cfg.param_dtype`` instead."""
+    parameter trainable in ``cfg.param_dtype`` instead. ``mesh``: a
+    ``parallel.mesh.Mesh`` with fsdp or tp above 1 makes every parameter
+    this rank's shard (``layout``, by parameter name); any other mesh,
+    or None, keeps them whole."""
 
     def __init__(self, cfg: ModelConfig, *, device="cuda",
-                 trainable: bool = False):
+                 trainable: bool = False, mesh=None):
         super().__init__()
         if cfg.n_experts > 0:
             raise NotImplementedError(
@@ -245,17 +527,31 @@ class Decoder(nn.Module):
         dev = resolve_device(device)
         dt = getattr(torch, cfg.param_dtype if trainable else cfg.dtype)
         self.cfg = cfg
-        d, v = cfg.d_model, cfg.vocab_size
-        self.embed = Table("tokens", (v, d), dt, dev)
+        self.mesh = mesh if mesh is not None and mesh.sharded else None
+        self.layout = param_layout(cfg, self.mesh)
+
+        def shape(name):
+            return self.layout[name].port_shape
+
+        self.embed = Table("tokens", shape("embed.tokens"), dt, dev)
         if cfg.pos == "learned":
-            self.pos_embed = Table("table", (cfg.max_seq, d), dt, dev)
+            self.pos_embed = Table("table", shape("pos_embed.table"), dt,
+                                   dev)
         self.layers = nn.ModuleList(
-            Layer(cfg, dt, dev) for _ in range(cfg.n_layer)
+            Layer(cfg, lambda n: shape(f"layers.0.{n}"), dt, dev)
+            for _ in range(cfg.n_layer)
         )
-        self.final_norm = Norm(d, cfg.norm, dev)
+        self.final_norm = Norm(cfg.d_model, cfg.norm, dev)
         self.lm_head = (None if cfg.tie_embeddings
-                        else _linear(d, v, dt, dev))
+                        else _linear(shape("lm_head.weight"), dt, dev))
         self.requires_grad_(trainable)
+        self.tp = tp_plan(cfg, self.mesh, dev)
+        if self.mesh is not None and self.mesh.shape["fsdp"] > 1:
+            for name, mod in self.named_modules():
+                for pname, _ in mod.named_parameters(recurse=False):
+                    dim = self.layout[f"{name}.{pname}"].fsdp_dim
+                    if dim is not None:
+                        mod.fsdp = (dim, self.mesh)
 
     @property
     def device(self) -> torch.device:
@@ -268,20 +564,24 @@ class Decoder(nn.Module):
         """Draw every matrix as N(0, 1) / sqrt(fan_in) (the embedding
         N(0, 0.02²), learned positions N(0, 0.01²)) from ``generator``,
         whose device must be the model's; norms to 1/0 — the scales of
-        the JAX ``init``, not its bits."""
+        the JAX ``init``, not its bits. Each matrix is drawn whole, one at
+        a time, and a sharded model keeps its shard: every layout holds
+        the same global weights."""
         dev = self.device
 
-        def draw(p: torch.Tensor, std: float):
-            x = torch.randn(p.shape, generator=generator, device=dev,
-                            dtype=torch.float32)
-            p.copy_(x.mul_(std))
+        def draw(name: str, p: torch.Tensor, std: float):
+            shard = self.layout[name]
+            x = torch.randn(shard.port_global_shape, generator=generator,
+                            device=dev, dtype=torch.float32)
+            p.copy_(x[shard.port_slices].mul_(std))
 
-        draw(self.embed.tokens, 0.02)
+        draw("embed.tokens", self.embed.tokens, 0.02)
         if self.cfg.pos == "learned":
-            draw(self.pos_embed.table, 0.01)
-        for mod in self.modules():
+            draw("pos_embed.table", self.pos_embed.table, 0.01)
+        for name, mod in self.named_modules():
             if isinstance(mod, nn.Linear):
-                draw(mod.weight, 1.0 / math.sqrt(mod.in_features))
+                fan_in = self.layout[name + ".weight"].shape[0]
+                draw(name + ".weight", mod.weight, 1.0 / math.sqrt(fan_in))
             elif isinstance(mod, Norm):
                 mod.scale.fill_(1.0)
                 if mod.bias is not None:
@@ -291,12 +591,26 @@ class Decoder(nn.Module):
     # ---- pieces ------------------------------------------------------------
 
     def _embed(self, tokens, positions):
-        """Token (and learned position) rows, cast to ``cfg.dtype``."""
+        """Token (and learned position) rows, cast to ``cfg.dtype``.
+        Sharded, the tables are gathered over fsdp in their own dtype (the
+        lookup's gradient accumulates in f32, as one process's) and the
+        token rows come from the vocab-parallel lookup under tp."""
         cfg = self.cfg
         dt = getattr(torch, cfg.dtype)
-        x = self.embed.tokens[tokens.long()].to(dt)
+        table = _use(self.embed.tokens, self.embed, self.embed.tokens.dtype)
+        if self.tp is None:
+            x = table[tokens.long()].to(dt)
+        else:
+            # _vocab_parallel_embed: out-of-block ids take row 0, masked
+            idx = tokens.long() - self.tp.vocab_start
+            inb = (idx >= 0) & (idx < self.tp.vocab_size)
+            x = table[torch.where(inb, idx, 0)].to(dt)
+            x = reduce_from_tp(torch.where(inb[..., None], x, 0),
+                               self.tp.mesh)
         if cfg.pos == "learned":
-            x = x + self.pos_embed.table[positions.long()].to(dt)
+            pos = _use(self.pos_embed.table, self.pos_embed,
+                       self.pos_embed.table.dtype)
+            x = x + pos[positions.long()].to(dt)
         return x
 
     def _cache_layer_tail(self, x, attn_out, layer: Layer):
@@ -361,7 +675,7 @@ class Decoder(nn.Module):
         commits the new K/V row to its page cell (encode-on-write in
         int8 mode) and attends with the paged kernel, whose walk
         ``max_pages`` bounds. Returns (logits ``[B, V]`` f32, pools)."""
-        _paged_guards(self.cfg, "decode_step_paged")
+        _paged_guards(self.cfg, "decode_step_paged", self.mesh is not None)
         if pos.ndim != 1:
             raise ValueError("decode_step_paged is per-slot: pos must be [B]")
         positions = pos[:, None].to(torch.int32)
@@ -386,7 +700,7 @@ class Decoder(nn.Module):
         trash page (their logits are garbage the caller ignores), queries
         attend through the paged kernel's chunk variant. Returns
         (logits ``[B, C, V]`` f32, pools)."""
-        _paged_guards(self.cfg, "prefill_chunk_paged")
+        _paged_guards(self.cfg, "prefill_chunk_paged", self.mesh is not None)
         b, c = tokens.shape
         dev = tokens.device
         start = torch.as_tensor(start, device=dev).to(torch.int32)
@@ -419,7 +733,7 @@ class Decoder(nn.Module):
         depend on when the rows are committed. Returns (logits
         ``[B, C, V]`` f32, chunk_k, chunk_v ``[L, B, C, Hkv, D]`` — the
         RAW rows; the caller commits the accepted prefix)."""
-        _paged_guards(self.cfg, "verify_chunk_paged")
+        _paged_guards(self.cfg, "verify_chunk_paged", self.mesh is not None)
         cfg = self.cfg
         b, c = tokens.shape
         dev = tokens.device
@@ -488,23 +802,30 @@ def _norm_block(x, ln: Norm, cfg: ModelConfig, residual=None):
     return _norm(x, ln.scale, ln.bias, cfg.norm)
 
 
-def _attention_block(x, layer: Layer, cfg: ModelConfig, attn_fn, rope):
+def _attention_block(x, layer: Layer, cfg: ModelConfig, attn_fn, rope,
+                     tp=None):
+    """Attention; under tp ``wq`` column-parallel over heads, ``wo``
+    row-parallel and summed over tp."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(x, layer, cfg, rope, mup_full_scale=False)
-    out = attn_fn(q, k, v).reshape(b, s, cfg.n_head * cfg.head_dim)
-    return _dense(out, layer.attn.wo)
+    if tp is not None:
+        x = copy_to_tp(x, tp.mesh)
+    q, k, v = _project_qkv(x, layer, cfg, rope, mup_full_scale=False, tp=tp)
+    out = attn_fn(q, k, v).reshape(b, s, q.shape[2] * cfg.head_dim)
+    out = _dense(out, layer.attn.wo)
+    return out if tp is None else reduce_from_tp(out, tp.mesh)
 
 
-def _layer_body(x, layer: Layer, cfg: ModelConfig, attn_fn, rope):
+def _layer_body(x, layer: Layer, cfg: ModelConfig, attn_fn, rope,
+                tp=None):
     h = _norm_block(x, layer.ln1, cfg)
-    attn = _attention_block(h, layer, cfg, attn_fn, rope)
+    attn = _attention_block(h, layer, cfg, attn_fn, rope, tp)
     if cfg.parallel_residual:
         # GPTNeoX: both branches read the layer input
         h2 = _norm_block(x, layer.ln2, cfg)
     else:
         # the residual add rides in the norm kernel
         h2, x = _norm_block(x, layer.ln2, cfg, residual=attn)
-    mlp_out = layer.mlp(h2)
+    mlp_out = layer.mlp(h2, tp)
     return x + attn + mlp_out if cfg.parallel_residual else x + mlp_out
 
 
@@ -519,7 +840,7 @@ def run_trunk(x, model: "Decoder", positions, cfg: ModelConfig, attn_fn):
             if cfg.pos == "rope" else None)
 
     def body(x, layer):
-        return _layer_body(x, layer, cfg, attn_fn, rope)
+        return _layer_body(x, layer, cfg, attn_fn, rope, model.tp)
 
     for layer in model.layers:
         if cfg.remat == "full":
@@ -599,20 +920,29 @@ def forward(model: "Decoder", tokens, cfg: Optional[ModelConfig] = None,
     if features_only:
         return x
     w_out, head_scale = head_weight_scale(model, cfg)
+    if model.tp is not None:
+        x = copy_to_tp(x, model.tp.mesh)
     logits = _mm_f32(x.reshape(b * s, -1), w_out.to(x.dtype))
     if head_scale != 1.0:
         logits = logits * head_scale
-    return logits.reshape(b, s, -1)
+    logits = logits.reshape(b, s, -1)
+    if model.tp is not None:
+        logits = gather_from_tp(logits, -1, model.tp.mesh)
+    return logits
 
 
 def head_weight_scale(model: "Decoder", cfg: Optional[ModelConfig] = None):
     """(lm-head weight ``[D, V]`` as a view of the parameter, static logit
-    multiplier). The muP readout multiplier applies only to a tied head."""
+    multiplier). The muP readout multiplier applies only to a tied head.
+    Sharded, the weight is this tp rank's vocab block ``[D, V/tp]``, its
+    fsdp-cut dim gathered (in the parameter's dtype)."""
     cfg = model.cfg if cfg is None else cfg
     if cfg.tie_embeddings:
-        w = model.embed.tokens.t()
+        w = _use(model.embed.tokens, model.embed,
+                 model.embed.tokens.dtype).t()
     else:
-        w = model.lm_head.weight.t()
+        w = _use(model.lm_head.weight, model.lm_head,
+                 model.lm_head.weight.dtype).t()
     scale = 1.0
     if cfg.mup_base_width and cfg.tie_embeddings:
         scale = cfg.mup_base_width / cfg.d_model
@@ -628,12 +958,22 @@ def loss_fn(model: "Decoder", batch: Dict[str, torch.Tensor],
     mean logz² when set. ``cfg.fused_ce`` runs the head through
     ``fused_linear_ce``; otherwise the full f32 logits. Metrics: loss,
     tokens, accuracy (and z_loss), detached. Under a ``mesh`` the batch
-    is this rank's block (``forward``) and ``denom`` the global one."""
+    is this rank's block (``forward``) and ``denom`` the global one;
+    under tp the head and loss are vocab-parallel
+    (``vocab_parallel_ce``, fused or not as ``cfg.fused_ce`` says)."""
     cfg = model.cfg if cfg is None else cfg
     targets = batch["targets"]
     kw = dict(cfg=cfg, attn_impl=attn_impl,
               prefix_len=batch.get("prefix_len"), mesh=mesh)
-    if cfg.fused_ce:
+    if model.tp is not None:
+        feats = forward(model, batch["tokens"], features_only=True, **kw)
+        w_out, head_scale = head_weight_scale(model, cfg)
+        vl = model.tp.vocab_size
+        bv = min(cfg.ce_block_v, (vl + 127) // 128 * 128)
+        logz, tgt_logit, amax = vocab_parallel_ce(
+            copy_to_tp(feats, model.tp.mesh), w_out, targets, head_scale,
+            bv, model.tp.vocab_start, model.tp.mesh, fused=cfg.fused_ce)
+    elif cfg.fused_ce:
         feats = forward(model, batch["tokens"], features_only=True, **kw)
         w_out, head_scale = head_weight_scale(model, cfg)
         bv = min(cfg.ce_block_v, (cfg.vocab_size + 127) // 128 * 128)
@@ -663,9 +1003,10 @@ def loss_fn(model: "Decoder", batch: Dict[str, torch.Tensor],
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-         trainable: bool = False) -> Decoder:
-    """A ``Decoder`` on ``device`` with weights drawn from ``seed``."""
+         trainable: bool = False, mesh=None) -> Decoder:
+    """A ``Decoder`` on ``device`` with weights drawn from ``seed`` (this
+    rank's shards of them under a sharded ``mesh``)."""
     dev = resolve_device(device)
-    model = Decoder(cfg, device=dev, trainable=trainable)
+    model = Decoder(cfg, device=dev, trainable=trainable, mesh=mesh)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     return model.init_weights(gen)

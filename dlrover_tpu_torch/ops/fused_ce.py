@@ -11,6 +11,10 @@ and the chunk's slice of ``dw`` in f32. Peak memory is one
 
 Not a Pallas kernel in the JAX package, so none here: the chunk products
 are matrix multiplications with f32 output (cuBLAS on the card).
+
+``vocab_parallel_ce``: the same three outputs when the head's vocab is
+cut over tp (``collectives.tp_logsumexp``, ``reduce_from_tp``,
+``tp_argmax`` combine each rank's block), fused or not.
 """
 
 import torch
@@ -59,11 +63,12 @@ class _FusedCE(torch.autograd.Function):
         ctx.save_for_backward(x, w, targets, logz)
         ctx.scale, ctx.block_v = scale, block_v
         ai = ai.to(torch.int32).reshape(b, s)
-        ctx.mark_non_differentiable(ai)
-        return logz.reshape(b, s), tgt.reshape(b, s), ai
+        av = av.reshape(b, s)
+        ctx.mark_non_differentiable(ai, av)
+        return logz.reshape(b, s), tgt.reshape(b, s), ai, av
 
     @staticmethod
-    def backward(ctx, g_logz, g_tgt, _g_argmax):
+    def backward(ctx, g_logz, g_tgt, _g_argmax, _g_max):
         x, w, targets, logz = ctx.saved_tensors
         scale, block_v = ctx.scale, ctx.block_v
         b, s, d = x.shape
@@ -102,4 +107,41 @@ def fused_linear_ce(x, w, targets, scale: float = 1.0, block_v: int = 4096):
     (pass ``lm_head.weight.t()`` or ``embed.t()``; the gradient reaches
     the parameter through the view), ``targets`` ``[B, S]`` ids in
     ``[0, V)``. NLL is ``logz − tgt_logit``. Differentiable in x and w."""
-    return _FusedCE.apply(x, w, targets, float(scale), int(block_v))
+    return _FusedCE.apply(x, w, targets, float(scale), int(block_v))[:3]
+
+
+def vocab_parallel_ce(x, w, targets, scale: float, block_v: int, start: int,
+                      mesh, fused: bool = True):
+    """``fused_linear_ce``'s ``(logz, tgt_logit, argmax)`` over the whole
+    vocab when this tp rank holds the vocab block ``[start, start + V_l)``
+    of the head, ``w`` ``[D, V_l]``, and ``x`` is the same on every tp
+    rank: each rank's partial logz, target logit and maximum (over its
+    block, fused or from its f32 logits) meet over tp: logz as a
+    logsumexp of the partials, the target logit from the rank that owns
+    the target (the others add 0), the argmax as the first global
+    maximum. The JAX step takes its unfused path under tp; either path
+    here computes the same function."""
+    from dlrover_tpu_torch.parallel.collectives import (
+        reduce_from_tp,
+        tp_argmax,
+        tp_logsumexp,
+    )
+
+    rel = targets.long() - start  # outside [0, V_l): another rank's
+    if fused:
+        logz, tgt, amax, amax_v = _FusedCE.apply(x, w, rel, float(scale),
+                                                 int(block_v))
+    else:
+        b, s, d = x.shape
+        logits = _mm_f32(x.reshape(b * s, d), w.to(x.dtype)).reshape(b, s, -1)
+        if scale != 1.0:
+            logits = logits * scale
+        vl = logits.shape[-1]
+        logz = torch.logsumexp(logits, dim=-1)
+        inb = (rel >= 0) & (rel < vl)
+        got = logits.gather(-1, rel.clamp(0, vl - 1)[..., None])[..., 0]
+        tgt = torch.where(inb, got, torch.zeros_like(got))
+        amax = logits.detach().argmax(-1)
+        amax_v = logits.detach().gather(-1, amax[..., None])[..., 0]
+    return (tp_logsumexp(logz, mesh), reduce_from_tp(tgt, mesh),
+            tp_argmax(amax_v, amax.long() + start, mesh))

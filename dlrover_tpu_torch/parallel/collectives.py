@@ -1,4 +1,5 @@
-"""The collectives of sequence parallelism, with autograd.
+"""The collectives of sequence, fully sharded and tensor parallelism,
+with autograd.
 
 Port of the ``jax.lax`` collectives ``parallel/sequence.py`` uses inside
 its ``shard_map``s: ``ppermute`` (the ring's k/v rotation) and the tiled
@@ -7,12 +8,31 @@ function whose backward is its transpose: the ring shift sends the
 gradients back the way the values came, the all-to-all runs the inverse
 exchange.
 
+And the collectives GSPMD inserts for the sharded layouts (the JAX
+decoder under ``DEFAULT_RULES``), made explicit:
+
+- ``fsdp_gather``: ZeRO-3 gather-on-use of a weight's fsdp-cut dim, cast
+  to the compute dtype first (the same bits as JAX's cast after the
+  gather, half the traffic); its backward reduce-scatters the f32
+  gradient, a sum, since the fsdp ranks hold different rows;
+- ``copy_to_tp`` / ``reduce_from_tp``: Megatron's f and g around a
+  tensor-parallel block: the identity whose backward sums the input's
+  gradient over tp, and the sum over tp of the row-parallel partials,
+  whose backward is the identity (every tp rank holds the same loss, so
+  the same output gradient);
+- ``gather_from_tp``: an all-gather over tp whose backward slices this
+  rank's block back out (not a reduce-scatter: the gradients that reach
+  it are the same on every tp rank);
+- ``tp_logsumexp``: logsumexp over the tp ranks' partial logsumexps (the
+  vocab-parallel logz), and ``tp_argmax``: the first maximum over the
+  whole vocab from each rank's maximum and its global index.
+
 Transport. On an NCCL group the tensors go as they are. On a gloo group
 (the caller asked for it: several ranks that share one card, or the CPU)
 a CUDA tensor is staged through a page-locked host buffer, since gloo
-moves host memory: ``dist.batch_isend_irecv`` and
-``dist.all_to_all_single`` run on the host copies, and the results come
-back to the card. Nothing here picks a backend.
+moves host memory: the point-to-point batches, all-to-alls, all-gathers,
+reduce-scatters and all-reduces run on the host copies, and the results
+come back to the card. Nothing here picks a backend.
 """
 
 from typing import List, Sequence, Tuple
@@ -123,3 +143,142 @@ def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
     else:
         dist.all_reduce(t, group=group)
     return t
+
+
+# ---------------------------------------------------------------------------
+# fsdp and tp
+# ---------------------------------------------------------------------------
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` joined along ``dim`` in rank order
+    (one all-gather)."""
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    staged = _staged(group, x)
+    src = _host(x) if staged else x
+    out = torch.empty((n,) + tuple(x.shape), dtype=x.dtype,
+                      device=src.device, pin_memory=staged)
+    dist.all_gather_into_tensor(out.view(-1), src.view(-1), group=group)
+    if staged:
+        out = out.to(x.device)
+    return torch.cat(out.unbind(0), dim=dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of ``x``, of which this rank keeps block
+    ``rank`` of ``n`` along ``dim`` (one reduce-scatter)."""
+    n = dist.get_world_size(group)
+    chunks = torch.stack(x.chunk(n, dim=dim)).contiguous()
+    staged = _staged(group, x)
+    src = _host(chunks) if staged else chunks
+    out = torch.empty(src.shape[1:], dtype=x.dtype, device=src.device,
+                      pin_memory=staged)
+    dist.reduce_scatter_tensor(out.view(-1), src.view(-1), group=group)
+    return out.to(x.device) if staged else out
+
+
+class _FsdpGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, w, dim, dtype, group):
+        ctx.args = (dim, group, w.dtype)
+        return all_gather_dim(w.to(dtype), dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, group, dtype = ctx.args
+        return (reduce_scatter_dim(g.float(), dim, group).to(dtype), None,
+                None, None)
+
+
+def fsdp_gather(w: torch.Tensor, dim: int, dtype: torch.dtype, mesh
+                ) -> torch.Tensor:
+    """The whole of ``w``'s fsdp-cut ``dim`` in ``dtype`` (this rank's
+    block cast, then gathered over its fsdp group); the backward
+    reduce-scatters the f32 gradient to this rank's block, summed."""
+    return _FsdpGather.apply(w, dim, dtype, mesh.group("fsdp"))
+
+
+class _CopyToTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.clone(memory_format=torch.contiguous_format),
+                           ctx.group), None
+
+
+class _ReduceFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                           group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's f: ``x`` as it is; the backward sums its gradient over
+    tp (each tp rank's block used only its share of ``x``'s uses)."""
+    return _CopyToTp.apply(x, mesh.group("tp"))
+
+
+def reduce_from_tp(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Megatron's g: the sum over tp of ``x`` (a row-parallel partial);
+    the backward passes the gradient through."""
+    return _ReduceFromTp.apply(x, mesh.group("tp"))
+
+
+class _GatherFromTp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.args = (dim, dist.get_rank(group), x.shape[dim])
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, rank, size = ctx.args
+        return g.narrow(dim, rank * size, size), None, None
+
+
+def gather_from_tp(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """Every tp rank's block of ``x`` joined along ``dim``; the backward
+    keeps this rank's block of the gradient."""
+    return _GatherFromTp.apply(x, dim, mesh.group("tp"))
+
+
+class _TpLogSumExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lse, group):
+        out = torch.logsumexp(all_gather_dim(lse[None], 0, group), dim=0)
+        ctx.save_for_backward(lse, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        lse, out = ctx.saved_tensors
+        return g * torch.exp(lse - out), None
+
+
+def tp_logsumexp(lse: torch.Tensor, mesh) -> torch.Tensor:
+    """``log Σ_r exp(lse_r)`` over the tp ranks' ``lse`` (the logsumexp
+    of each rank's vocab block): the logsumexp over the whole vocab."""
+    return _TpLogSumExp.apply(lse, mesh.group("tp"))
+
+
+@torch.no_grad()
+def tp_argmax(value: torch.Tensor, index: torch.Tensor, mesh
+              ) -> torch.Tensor:
+    """The global index of the largest ``value`` over the tp ranks (each
+    rank's maximum over its vocab block and that maximum's global index):
+    on a tie the lowest index, as ``jnp.argmax`` over the whole vocab."""
+    group = mesh.group("tp")
+    values = all_gather_dim(value[None].float(), 0, group)
+    indices = all_gather_dim(index[None].long(), 0, group)
+    best = values.argmax(0, keepdim=True)
+    return indices.gather(0, best)[0].to(index.dtype)

@@ -8,25 +8,38 @@ world, one rank a process, laid out row-major in the JAX axis order
 reshapes its device list the same way off a TPU topology), so sp is the
 innermost of the ported axes: the ranks of one sp group are adjacent.
 
-Ported: data parallelism (``dp``, parameters replicated) and sequence
-parallelism (``sp``, ``parallel/sequence.py``). sp above 1 gets its
-process groups, formed by every rank in the same order: the sequence
-collectives run over them. dp is a coordinate only (the parameters are
-replicated on both axes, so the step's all-reduces run over the whole
-world and need no group of their own). The other axes
-above 1 raise: ``fsdp`` and ``tp`` wait for ROADMAP A9, ``pp`` and
-``ep`` for A16 (pipeline, MoE).
+Ported: data parallelism (``dp``), fully sharded data parallelism
+(``fsdp``: the parameters' ``embed`` dim cut over it, gathered on use),
+tensor parallelism (``tp``: heads, MLP columns and the vocabulary cut
+over it, Megatron style) and sequence parallelism (``sp``,
+``parallel/sequence.py``). The batch is cut over ``data_axes()``, dp
+and fsdp jointly. sp above 1 gets its process groups, formed by every
+rank in the same order: the sequence collectives run over them. Under
+dp × sp the parameters are replicated, so the step's all-reduces run
+over the whole world. When fsdp or tp is above 1 every combination of
+dp, fsdp and tp gets its groups (``group(("dp", "fsdp"))``: the ranks
+that differ only in those coordinates): the parameter collectives run
+over fsdp and tp, each gradient's sum over the axes where its
+contributions differ (``train/train_step.py``).
+
+Refused, each naming its ROADMAP item: ``pp`` and ``ep`` above 1
+(A16: pipeline, MoE), sp above 1 together with fsdp or tp (A9: the
+JAX sequence paths keep heads over tp), and the multi-slice layout
+(A9).
 """
 
+import itertools
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch.distributed as dist
 
 MESH_AXES = ("dp", "pp", "ep", "fsdp", "sp", "tp")
 #: the ROADMAP item that ports each other axis
-UNPORTED_AXES = {"fsdp": "A9", "tp": "A9", "pp": "A16", "ep": "A16"}
+UNPORTED_AXES = {"pp": "A16", "ep": "A16"}
+#: the axes whose groups the sharded layouts' collectives run over
+PARAM_AXES = ("dp", "fsdp", "tp")
 
 
 @dataclass
@@ -68,14 +81,21 @@ class MeshConfig:
 
 def check_ported(sizes: Dict[str, int], num_slices: int = 1) -> None:
     """Raise ``NotImplementedError`` for an axis above 1 the port does not
-    run, naming the ROADMAP item that ports it."""
+    run, or a combination it does not, naming the ROADMAP item that ports
+    it."""
     for axis, item in UNPORTED_AXES.items():
         if sizes.get(axis, 1) > 1:
-            what = ("fully sharded data parallelism and tensor parallelism"
-                    if item == "A9" else "pipeline and expert parallelism")
             raise NotImplementedError(
-                f"mesh axis {axis}={sizes[axis]}: {what} are not ported "
-                f"yet (ROADMAP {item}); the port's mesh runs dp x sp")
+                f"mesh axis {axis}={sizes[axis]}: pipeline and expert "
+                f"parallelism are not ported yet (ROADMAP {item}); the "
+                "port's mesh runs dp x fsdp x tp or dp x sp")
+    if sizes.get("sp", 1) > 1 and (sizes.get("fsdp", 1) > 1
+                                   or sizes.get("tp", 1) > 1):
+        raise NotImplementedError(
+            f"sp={sizes['sp']} with fsdp={sizes.get('fsdp', 1)}, "
+            f"tp={sizes.get('tp', 1)}: sequence parallelism together with "
+            "sharded parameters is not ported yet (ROADMAP A9); the port "
+            "runs dp x fsdp x tp or dp x sp")
     if num_slices != 1:
         raise NotImplementedError(
             f"num_slices={num_slices}: the multi-slice layout is not "
@@ -100,18 +120,46 @@ def coords_rank(coords: Dict[str, int], sizes: Dict[str, int]) -> int:
     return rank
 
 
-def axis_groups(sizes: Dict[str, int], axis: str) -> List[List[int]]:
-    """Every group of ranks along ``axis`` (the ranks that differ only in
-    their ``axis`` coordinate), each in coordinate order, the groups in
-    the order of their first rank."""
+Axes = Union[str, Sequence[str]]
+
+
+def _axes(axes: Axes) -> Tuple[str, ...]:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _members(coords: Dict[str, int], sizes: Dict[str, int],
+             axes: Tuple[str, ...]) -> List[int]:
+    """The ranks that share ``coords`` off ``axes``, row-major over
+    ``axes`` in mesh order."""
+    axes = tuple(a for a in MESH_AXES if a in axes)
+    return [coords_rank(dict(coords, **dict(zip(axes, idx))), sizes)
+            for idx in itertools.product(*(range(sizes[a]) for a in axes))]
+
+
+def axis_groups(sizes: Dict[str, int], axis: Axes) -> List[List[int]]:
+    """Every group of ranks along ``axis`` (an axis, or several: the ranks
+    that differ only in those coordinates), each in coordinate order, the
+    groups in the order of their first rank."""
+    axes = _axes(axis)
     world = math.prod(sizes.values())
     groups = []
     for rank in range(world):
         c = rank_coords(rank, sizes)
-        if c[axis] == 0:
-            groups.append([coords_rank(dict(c, **{axis: i}), sizes)
-                           for i in range(sizes[axis])])
+        if all(c[a] == 0 for a in axes):
+            groups.append(_members(c, sizes, axes))
     return groups
+
+
+def data_axes() -> tuple:
+    """Mesh axes over which the global batch is sharded."""
+    return ("dp", "fsdp")
+
+
+def _key(shape: Dict[str, int], axes: Axes) -> Tuple[str, ...]:
+    """The axes of ``axes`` above 1, in mesh order: groups are formed and
+    looked up by it."""
+    axes = _axes(axes)
+    return tuple(a for a in MESH_AXES if a in axes and shape[a] > 1)
 
 
 class Mesh:
@@ -134,19 +182,29 @@ class Mesh:
         """This rank's coordinate along ``axis``."""
         return self.coords[axis]
 
-    def ranks(self, axis: str) -> List[int]:
-        """The global ranks of this rank's group along ``axis``, in
-        coordinate order."""
-        return [coords_rank(dict(self.coords, **{axis: i}), self.shape)
-                for i in range(self.shape[axis])]
+    @property
+    def sharded(self) -> bool:
+        """True when fsdp or tp is above 1: the parameters are cut."""
+        return self.shape["fsdp"] > 1 or self.shape["tp"] > 1
 
-    def group(self, axis: str):
-        """The process group of this rank's ``axis`` group: sp's, or None
-        when the axis is 1 (no collective runs over it). Only sp has
-        one."""
-        if self.shape[axis] == 1:
+    def ranks(self, axis: Axes) -> List[int]:
+        """The global ranks of this rank's group along ``axis`` (one axis
+        or several), in coordinate order."""
+        return _members(self.coords, self.shape, _axes(axis))
+
+    def group(self, axis: Axes):
+        """The process group of this rank's group along ``axis`` (one
+        axis, or several jointly), or None when every one of them is 1 (no
+        collective runs over it). sp has groups; so, when the parameters
+        are sharded, has every combination of dp, fsdp and tp."""
+        key = _key(self.shape, axis)
+        if not key:
             return None
-        return self._groups[axis]
+        return self._groups[key]
+
+    def size_of(self, axis: Axes) -> int:
+        """The number of ranks in this rank's group along ``axis``."""
+        return math.prod(self.shape[a] for a in _axes(axis))
 
     def __repr__(self):
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -155,7 +213,8 @@ class Mesh:
 def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     """The mesh over the ``torch.distributed`` world (one process, no
     group: a world of 1). Every rank calls it, in the same order as its
-    other group-forming calls: sp above 1 forms all its groups."""
+    other group-forming calls: sp above 1 forms all its groups, and fsdp
+    or tp above 1 the groups of every combination of dp, fsdp and tp."""
     config = config or MeshConfig()
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
@@ -164,10 +223,19 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
                  config.num_slices)
     sizes = config.resolved_sizes(world)
     check_ported(sizes)
-    groups = {}
+    keys = []
     if sizes["sp"] > 1:
-        for members in axis_groups(sizes, "sp"):
+        keys.append(("sp",))
+    if sizes["fsdp"] > 1 or sizes["tp"] > 1:
+        for n in range(1, len(PARAM_AXES) + 1):
+            for axes in itertools.combinations(PARAM_AXES, n):
+                key = _key(sizes, axes)
+                if key and key not in keys:
+                    keys.append(key)
+    groups = {}
+    for key in keys:
+        for members in axis_groups(sizes, key):
             g = dist.new_group(members)
             if rank in members:
-                groups["sp"] = g
+                groups[key] = g
     return Mesh(sizes, rank, groups)

@@ -1,8 +1,15 @@
-"""ZeRO update sharding: the flat bucket layout and its gradient exchange.
+"""Logical-axis sharding rules, and ZeRO update sharding's flat bucket
+layout and gradient exchange.
 
-Port of the update-sharding half of ``dlrover_tpu/parallel/sharding.py``
-(``CommConfig``, ``PackPlan``, ``build_pack_plan``, ``pack_flat``,
-``unpack_flat``, ``exchange_buckets``) for a pure data-parallel world.
+Port of ``dlrover_tpu/parallel/sharding.py``: the t5x-style rules
+(``DEFAULT_RULES``, ``rules_for_mesh``, ``logical_to_mesh_axes``,
+``shardings_for_tree``), which map each parameter's logical axes to mesh
+axes (a ``PartitionSpec`` here is a tuple, one entry a dim: None, an
+axis, or a tuple of axes), with ``shard_index``, the global index of the
+shard a mesh coordinate holds (JAX ``NamedSharding.devices_indices_map``
+for an even split); and the update-sharding half (``CommConfig``,
+``PackPlan``, ``build_pack_plan``, ``pack_flat``, ``unpack_flat``,
+``exchange_buckets``) for a pure data-parallel world.
 
 The flat stream is the JAX param tree's canonical leaf order (sorted
 keys, ``models.convert.param_table``), each leaf in the JAX layout
@@ -23,15 +30,114 @@ table's, which the plan still places at offset 0 (``tie_size``,
 """
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-from dlrover_tpu_torch.models.convert import param_table
 from dlrover_tpu_torch.models.config import ModelConfig
 from dlrover_tpu_torch.ops.quant import BLOCK
 from dlrover_tpu_torch.parallel.collectives import _host, _staged
+
+MeshAxes = Union[None, str, Tuple[str, ...]]
+# rules: logical axis name -> mesh axis (or tuple, or None)
+Rules = Dict[str, MeshAxes]
+Spec = Tuple[MeshAxes, ...]
+
+# The default "3D + sequence" ruleset, the JAX package's:
+#  - batch over (dp, fsdp): standard fsdp data sharding
+#  - seq over sp: sequence/context parallelism
+#  - embed over fsdp: ZeRO-3 parameter sharding along the model dim
+#  - heads/mlp/vocab over tp: Megatron-style tensor parallelism
+#  - experts over ep; layers (scan axis) over pp when pipelining
+DEFAULT_RULES: Rules = {
+    "batch": ("dp", "fsdp"),
+    "seq": "sp",
+    "embed": "fsdp",
+    "vocab": "tp",
+    "heads": "tp",
+    "kv": None,
+    "mlp": "tp",
+    "expert": "ep",
+    "layers": None,
+    "norm": None,
+}
+
+
+def rules_for_mesh(mesh_shape: Dict[str, int],
+                   rules: Optional[Rules] = None) -> Rules:
+    """DEFAULT_RULES specialised to a mesh (its ``shape``): the stacked
+    layer axis shards over pp when the mesh pipelines."""
+    out = dict(DEFAULT_RULES)
+    if mesh_shape.get("pp", 1) > 1:
+        out["layers"] = "pp"
+    out.update(rules or {})
+    return out
+
+
+def logical_to_mesh_axes(logical_axes: Optional[Sequence[Optional[str]]],
+                         rules: Rules) -> Spec:
+    """Map a tuple of logical axis names to a partition spec (trailing
+    None entries dropped, as ``PartitionSpec`` prints). One mesh axis
+    shards at most one tensor dim: a later dim that names a used axis
+    stays whole."""
+    if logical_axes is None:
+        return ()
+    spec: List[MeshAxes] = []
+    used: set = set()
+    for name in logical_axes:
+        axis = rules.get(name) if name is not None else None
+        if axis is not None:
+            axes = axis if isinstance(axis, tuple) else (axis,)
+            if any(a in used for a in axes):
+                axis = None
+            else:
+                used.update(axes)
+        spec.append(axis)
+    while spec and spec[-1] is None:
+        spec.pop()
+    return tuple(spec)
+
+
+def shardings_for_tree(mesh_shape: Dict[str, int], logical_tree,
+                       rules: Optional[Rules] = None):
+    """A tree of logical-axes tuples (``decoder.logical_axes``) → the same
+    tree of partition specs."""
+    rules = rules_for_mesh(mesh_shape, rules)
+    if isinstance(logical_tree, dict):
+        return {k: shardings_for_tree(mesh_shape, v, rules)
+                for k, v in logical_tree.items()}
+    return logical_to_mesh_axes(logical_tree, rules)
+
+
+def spec_axes(entry: MeshAxes) -> Tuple[str, ...]:
+    """The mesh axes of one spec entry."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
+def shard_index(spec: Spec, shape: Sequence[int], mesh_shape: Dict[str, int],
+                coords: Dict[str, int]) -> List[List[int]]:
+    """The global ``[start, stop]`` a dim of the shard that the device at
+    ``coords`` holds of an array of ``shape`` laid out by ``spec``: a dim
+    over axes (a, b) is cut in ``size(a)·size(b)`` equal blocks, block
+    ``coord(a)·size(b) + coord(b)``. An uneven cut raises naming ROADMAP
+    A9 (GSPMD pads it; the port does not)."""
+    out = []
+    for dim, n in enumerate(shape):
+        axes = spec_axes(spec[dim]) if dim < len(spec) else ()
+        parts, block = 1, 0
+        for a in axes:
+            parts *= mesh_shape.get(a, 1)
+            block = block * mesh_shape.get(a, 1) + coords.get(a, 0)
+        if n % parts:
+            raise NotImplementedError(
+                f"a dim of {n} over mesh axes {axes} ({parts} ways): "
+                "uneven splits are not ported yet (ROADMAP A9)")
+        size = n // parts
+        out.append([block * size, (block + 1) * size])
+    return out
 
 _WIRE_DTYPES = ("float32", "bfloat16", "int8")
 # legacy boolean True maps to "zero2" (the per-micro-batch exchange)
@@ -121,6 +227,8 @@ class PackPlan:
 
 def pack_rows(cfg: ModelConfig):
     """``param_table`` rows in the JAX canonical (sorted-key) order."""
+    from dlrover_tpu_torch.models.decoder import param_table
+
     return sorted(param_table(cfg), key=lambda row: row[0].split("/"))
 
 

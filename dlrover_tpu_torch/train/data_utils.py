@@ -11,8 +11,8 @@ The JAX module's ``form_global_batch`` assembles one global array from
 every host's local rows. The port's replicated data parallelism needs
 no assembly: each rank keeps its own rows (rows [rank·B/W,
 (rank+1)·B/W) of the global batch), and the step all-reduces the
-gradients (``train_step.py``). Under a dp × sp mesh a rank's rows are
-those of its dp coordinate (``dp_rows``, for a caller that holds the
+gradients (``train_step.py``). Under a mesh a rank's rows are those of
+its dp and fsdp coordinates (``dp_rows``, for a caller that holds the
 global batch) and it keeps its sp block of the sequence
 (``sequence_block``): the block the JAX ``batch_sharding`` puts on its
 device.
@@ -23,6 +23,8 @@ from typing import Dict, Iterable, Iterator, Tuple
 
 import torch
 import torch.distributed as dist
+
+from dlrover_tpu_torch.parallel.mesh import data_axes
 
 
 def _host(v) -> torch.Tensor:
@@ -38,9 +40,15 @@ def _block(x: torch.Tensor, dim: int, index: int, n: int) -> torch.Tensor:
 
 
 def dp_rows(batch: Dict, mesh) -> Dict:
-    """This rank's rows of a global batch: block ``dp coordinate`` of the
-    leading axis of every array, cut in ``dp`` equal blocks."""
-    n, i = mesh.shape["dp"], mesh.coord("dp")
+    """This rank's rows of a global batch: the leading axis of every array
+    cut in ``dp · fsdp`` equal blocks over ``data_axes()`` jointly, in the
+    JAX mesh order (``batch_sharding``'s ``P(("dp", "fsdp"))``): block
+    ``dp coordinate · fsdp + fsdp coordinate``. The ranks that differ
+    only in sp or tp get the same rows."""
+    n, i = 1, 0
+    for axis in data_axes():
+        n *= mesh.shape[axis]
+        i = i * mesh.shape[axis] + mesh.coord(axis)
     return {k: _block(_host(v), 0, i, n) for k, v in batch.items()}
 
 

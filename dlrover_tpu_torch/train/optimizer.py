@@ -22,6 +22,10 @@ name; the update is applied IN PLACE (the port's counterpart of the JAX
 step donating its state). ``fused=True`` is ``fused_adamw``: the same
 numbers in one walk over the leaves with ``torch._foreach_*`` ops.
 
+Under sharded parameters (a dp × fsdp × tp mesh) the optimizer runs on
+this rank's shards, its moments shaped like them; the clip's global norm
+comes in as ``norm`` (``sharded_global_norm``).
+
 Under ZeRO update sharding (``train_step.py``) the optimizer runs on one
 leaf, ``{"flat": ...}``: this rank's columns of the flat bucket stream,
 as the JAX step runs its optax chain on ``{"flat": grads_flat}``. Every
@@ -112,6 +116,22 @@ def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of squares of every element (f32, on device)."""
     norms = torch._foreach_norm([t.float() for t in tensors])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def sharded_global_norm(tensors, replicas, group) -> torch.Tensor:
+    """``global_norm`` of a state cut over ``group``'s ranks, every
+    element counted once: ``tensors[i]``, this rank's shard of a leaf,
+    has the same values on ``replicas[i]`` ranks of the group, so each
+    rank's square sum of it is divided by that count before the sum over
+    the group (a leaf cut over the whole group: 1; one held whole by
+    every rank: the group's size)."""
+    from dlrover_tpu_torch.parallel.collectives import all_reduce_
+
+    norms = torch._foreach_norm([t.float() for t in tensors])
+    sq = torch.stack([n * n / r for n, r in zip(norms, replicas)]).sum()
+    if group is not None:
+        all_reduce_(sq, group)
+    return torch.sqrt(sq)
 
 
 class AdamW:

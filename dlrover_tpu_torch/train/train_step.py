@@ -2,9 +2,10 @@
 
 Port of ``dlrover_tpu/train/train_step.py``: ``init_train_state``,
 ``TrainStepBuilder`` (``step_fn``, ``build``, the fused K-step
-``block_fn`` and ``build_block``) and ``build_eval_step``, over no mesh
-or a dp × sp mesh (``parallel/mesh.py``), replicated or with ZeRO update
-sharding on the f32 wire, without fp8 or health sentinels.
+``block_fn`` and ``build_block``) and ``build_eval_step``, over no mesh,
+a dp × sp mesh or a dp × fsdp × tp mesh (``parallel/mesh.py``),
+replicated or with ZeRO update sharding on the f32 wire, without fp8 or
+health sentinels.
 
 In a ``torch.distributed`` data-parallel group of W > 1 processes (the
 world, or the ``group`` given: the survivors after a live reshard) the
@@ -45,6 +46,23 @@ all-reduce run over the whole dp × sp world, as above; update sharding
 falls back to the replicated update there, with its reason, as the JAX
 resolver falls back on a mesh axis it does not shard over.
 
+Under a dp × fsdp × tp mesh (sharded parameters: ``Decoder(mesh=)``)
+each rank's batch is the rows of its dp and fsdp coordinates
+(``data_utils.dp_rows``), the same on its tp ranks. The mask sum is
+summed over dp × fsdp only (the tp ranks hold the same rows). After the
+backward each leaf's gradient is summed over exactly the axes where its
+contributions differ (``reduce_axes``): dp, and fsdp unless the leaf is
+cut over fsdp (its gather's backward already reduce-scattered it), and
+tp for ``wk``/``wv``, replicated over tp while each tp rank uses its
+own KV heads; never over tp for a leaf whose gradient is already the
+same on every tp rank, as the norm scales' are after Megatron's
+``copy_to_tp``. AdamW runs on the local shards, its moments shaped like
+them (the JAX ``state_shardings``); the global gradient norm counts
+every element once: each rank's square sums divided by the ranks of its
+fsdp × tp group that hold the same values, then summed over that group.
+ZeRO update sharding on such a mesh falls back to this replicated
+update with its reason (ROADMAP A9 ports it).
+
 The JAX step is a pure function whose jitted call donates the old state;
 the port updates the state's parameters and moments IN PLACE and returns
 the same dict.
@@ -59,10 +77,14 @@ from dlrover_tpu_torch.models import decoder
 from dlrover_tpu_torch.models.config import ModelConfig
 from dlrover_tpu_torch.parallel.collectives import all_reduce_
 from dlrover_tpu_torch.parallel import sharding as shd
-from dlrover_tpu_torch.parallel.mesh import check_ported
+from dlrover_tpu_torch.parallel.mesh import check_ported, data_axes
 from dlrover_tpu_torch.train.data_utils import sequence_block
 from dlrover_tpu_torch.train.distributed import process_count, process_index
-from dlrover_tpu_torch.train.optimizer import AdamW, global_norm
+from dlrover_tpu_torch.train.optimizer import (
+    AdamW,
+    global_norm,
+    sharded_global_norm,
+)
 
 TrainState = Dict
 
@@ -75,9 +97,13 @@ def init_train_state(seed: int, cfg: ModelConfig, optimizer: AdamW,
     ``seed``. When ``comm``'s update sharding resolves active over
     ``group`` (as the step builder resolves it), the optimizer state is
     born on this rank's columns of the flat bucket view: ``{"m":
-    {"flat": [n_buckets, S]}, "v": {...}, "step": 0}``."""
+    {"flat": [n_buckets, S]}, "v": {...}, "step": 0}``. Under a
+    ``mesh`` with fsdp or tp above 1 the parameters and moments are this
+    rank's shards of the same global state (each weight drawn whole, one
+    at a time, and cut)."""
     dev = resolve_device(device)
-    model = decoder.init(cfg, seed=seed, device=dev, trainable=True)
+    model = decoder.init(cfg, seed=seed, device=dev, trainable=True,
+                         mesh=mesh)
     params = dict(model.named_parameters())
     active, _, plan = shd.resolve_update_sharding(
         cfg, params, process_count(group), comm,
@@ -99,10 +125,11 @@ class TrainStepBuilder:
                  device="cuda", mesh=None,
                  comm: Optional[shd.CommConfig] = None, group=None):
         """``mesh``: a ``parallel.mesh.Mesh`` over the whole world (dp ×
-        sp), or None. ``comm``: the update sharding asked for (resolved
-        here: ``update_sharding``, ``update_sharding_reason``, ``plan``).
-        ``group``: the data-parallel process group every collective of
-        the step runs over (the world by default)."""
+        sp, or dp × fsdp × tp), or None. ``comm``: the update sharding
+        asked for (resolved here: ``update_sharding``,
+        ``update_sharding_reason``, ``plan``). ``group``: the
+        data-parallel process group every collective of the step runs
+        over (the world by default)."""
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.cfg = cfg
@@ -114,11 +141,29 @@ class TrainStepBuilder:
         self.world = process_count(group)
         self.rank = process_index(group)
         self.mesh = mesh
+        self.sharded = mesh is not None and mesh.sharded
         if mesh is not None:
             check_ported(mesh.shape)
+            if self.sharded:  # refuses an uneven split
+                self.layout = decoder.param_layout(cfg, mesh)
             if mesh.size != self.world:
                 raise ValueError(f"the mesh {mesh.shape} covers {mesh.size} "
                                  f"ranks, the world has {self.world}")
+        if self.sharded:
+            # by parameter name: the axes its gradient is summed over, and
+            # how many ranks of the fsdp x tp group hold its values
+            self.reduce_axes, self.replicas = {}, {}
+            for name, shard in self.layout.items():
+                axes = {"dp"}
+                if "fsdp" not in shard.axes:
+                    axes.add("fsdp")
+                if (shard.path in decoder.TP_SPLIT_USE
+                        and "tp" not in shard.axes):
+                    axes.add("tp")
+                self.reduce_axes[name] = tuple(
+                    a for a in ("dp", "fsdp", "tp") if a in axes)
+                self.replicas[name] = mesh.size_of(
+                    [a for a in ("fsdp", "tp") if a not in shard.axes])
         self.comm = comm
         params = dict(decoder.Decoder(cfg, device="meta",
                                       trainable=True).named_parameters())
@@ -151,7 +196,7 @@ class TrainStepBuilder:
     def _local_micro(self, model, mb, sums) -> None:
         """One micro-batch's backward over its global mask sum; its
         loss, accuracy and tokens added to ``sums``."""
-        count = _global_count(mb, self.device, self.group)
+        count = _global_count(mb, self.device, self.group, self.mesh)
         loss, m = self._loss(model, mb, denom=torch.clamp(count, min=1.0))
         loss.backward()  # .grad sums over the micro-batches
         for k, v in (("loss", m["loss"]), ("accuracy", m["accuracy"]),
@@ -179,6 +224,49 @@ class TrainStepBuilder:
             at += g.numel()
         return {"loss": flat[-2].clone(), "accuracy": flat[-1].clone(),
                 "tokens": sums["tokens"]}
+
+    def _sum(self, t: torch.Tensor, axes) -> torch.Tensor:
+        """``t`` summed in place over this rank's group along ``axes``
+        (nothing when that group is this rank alone)."""
+        if self.mesh.size_of(axes) > 1:
+            all_reduce_(t, self.mesh.group(axes))
+        return t
+
+    def _sharded_grads(self, model, params, batch) -> Dict:
+        """The loss and gradients on a dp × fsdp × tp mesh (module
+        docstring): per micro-batch the mask sum over dp × fsdp, then the
+        backward; then one flat f32 all-reduce for each set of
+        ``reduce_axes`` (the loss and accuracy ride with the dp × fsdp
+        one), divided by ``grad_accum``; the global norm. Leaves the mean
+        gradients in ``.grad``."""
+        a, sums = self.grad_accum, {}
+        for mb in self._micro(batch):
+            self._local_micro(model, mb, sums)
+        buckets: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+        for n, p in params.items():
+            buckets.setdefault(self.reduce_axes[n], []).append(p.grad)
+        data = data_axes()  # the norm scales' reduce_axes
+        stats = torch.stack([sums["loss"], sums["accuracy"]]).float()
+        buckets.setdefault(data, [])
+        for axes, grads in buckets.items():
+            extra = [stats] if axes == data else []
+            flat = torch.cat([g.reshape(-1).float() for g in grads] + extra)
+            self._sum(flat, axes)
+            if a > 1:
+                flat /= a
+            at = 0
+            for g in grads:
+                g.copy_(flat[at: at + g.numel()].view(g.shape))
+                at += g.numel()
+            if extra:
+                stats = flat[at:]
+        names = list(params)
+        norm = sharded_global_norm(
+            [params[n].grad for n in names],
+            [self.replicas[n] for n in names],
+            self.mesh.group(("fsdp", "tp")))
+        return {"loss": stats[0].clone(), "accuracy": stats[1].clone(),
+                "tokens": sums["tokens"], "grad_norm": norm}
 
     def _zero_step(self, model, params, batch, opt_state) -> Dict:
         """The update-sharded step (module docstring); the parameters
@@ -235,7 +323,9 @@ class TrainStepBuilder:
                 p.grad = None
             state["step"] += 1
             return state, metrics
-        if self.world > 1:
+        if self.sharded:
+            metrics = self._sharded_grads(model, params, batch)
+        elif self.world > 1:
             metrics = self._dp_grads(model, params, batch)
         elif a == 1:
             loss, metrics = self._loss(model, batch)
@@ -255,8 +345,11 @@ class TrainStepBuilder:
             metrics["tokens"] = sums["tokens"]
         grads = {n: p.grad for n, p in params.items()}
         metrics = dict(metrics)
-        metrics["grad_norm"] = global_norm(list(grads.values()))
-        self.optimizer.update_(params, grads, state["opt_state"])
+        if "grad_norm" not in metrics:
+            metrics["grad_norm"] = global_norm(list(grads.values()))
+        self.optimizer.update_(params, grads, state["opt_state"],
+                               norm=metrics["grad_norm"]
+                               if self.sharded else None)
         for p in params.values():
             p.grad = None
         state["step"] += 1
@@ -284,14 +377,21 @@ class TrainStepBuilder:
         return self.block_fn
 
 
-def _global_count(batch, device, group=None) -> torch.Tensor:
+def _global_count(batch, device, group=None, mesh=None) -> torch.Tensor:
     """The mask sum over the group (W > 1): the denominator of the
-    global mean loss, as ``_dp_grads`` and the eval step take it."""
+    global mean loss, as ``_dp_grads`` and the eval step take it. On a
+    sharded ``mesh`` the sum runs over dp × fsdp only: the tp ranks of
+    a group hold the same rows, and a sum over them would count each
+    token tp times."""
     mask = batch.get("mask")
     if mask is None:
         count = torch.tensor(float(batch["targets"].numel()), device=device)
     else:
         count = mask.float().sum()
+    if mesh is not None and mesh.sharded:
+        if mesh.size_of(data_axes()) > 1:
+            all_reduce_(count, mesh.group(data_axes()))
+        return count
     return all_reduce_(count, group)
 
 
@@ -301,7 +401,8 @@ def build_eval_step(cfg: ModelConfig, attn_impl: str = "auto",
     gradients. In a world of W > 1 the metrics are the global ones (the
     mask sum, then the loss and accuracy, summed over the world, as the
     train step takes them); under a ``mesh`` the batch is cut as the
-    train step cuts it."""
+    train step cuts it, and on a sharded one the sums run over dp ×
+    fsdp."""
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -312,11 +413,14 @@ def build_eval_step(cfg: ModelConfig, attn_impl: str = "auto",
         if process_count() == 1:
             return decoder.loss_fn(model, batch, cfg, attn_impl=attn_impl,
                                    mesh=mesh)[1]
-        count = _global_count(batch, dev)
+        count = _global_count(batch, dev, mesh=mesh)
         m = decoder.loss_fn(model, batch, cfg, attn_impl=attn_impl,
                             denom=torch.clamp(count, min=1.0), mesh=mesh)[1]
-        sums = all_reduce_(torch.stack([m["loss"].float(),
-                                        m["accuracy"].float()]))
+        sums = torch.stack([m["loss"].float(), m["accuracy"].float()])
+        if mesh is None or not mesh.sharded:
+            all_reduce_(sums)
+        elif mesh.size_of(data_axes()) > 1:
+            all_reduce_(sums, mesh.group(data_axes()))
         return dict(m, loss=sums[0], accuracy=sums[1], tokens=count)
 
     return eval_step

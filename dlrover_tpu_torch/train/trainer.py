@@ -17,7 +17,12 @@ workers) the step is replicated data parallelism: each rank's
 out), and the step all-reduces the gradients (``train_step.py``). With
 a dp × sp ``mesh`` (``parallel/mesh.py``; a ``MeshConfig`` is built over
 the world) the rows are those of the rank's dp coordinate, and the step
-keeps the rank's sp block of the sequence. With a master client the
+keeps the rank's sp block of the sequence. With a dp × fsdp × tp mesh
+the rows are those of the rank's dp and fsdp coordinates
+(``data_utils.dp_rows``), the state is this rank's shards, and each
+rank stages and persists its own pack of them (the header's
+``process_index``); a restore assembles the rank's shards from every
+rank's pack of a step, whatever layout wrote them. With a master client the
 trainer reports the model's statistics (rank 0) and every global step,
 as the JAX trainer does, and its checkpoints report their staged steps.
 
@@ -26,10 +31,10 @@ as the JAX trainer does, and its checkpoints report their staged steps.
 (``train_step.py``): the moments are this rank's columns of the flat
 bucket stream, and each rank's checkpoint pack holds its columns.
 
-Not ported yet, and refused with the ROADMAP item that ports them: mesh
-axes other than dp and sp (fsdp and tp: A9; pp and ep: A16), the bf16
-and int8 gradient wires (A9), health sentinels and the sampled runtime
-profile (A12), the gradient sanitizer (A17).
+Not ported yet, and refused with the ROADMAP item that ports them: pp
+and ep (A16), sp together with fsdp or tp and uneven splits (A9), the
+bf16 and int8 gradient wires (A9), health sentinels and the sampled
+runtime profile (A12), the gradient sanitizer (A17).
 """
 
 import os
@@ -132,9 +137,10 @@ def _refuse_unported(args: TrainerArgs) -> None:
 
 
 def _mesh(mesh):
-    """A ``MeshConfig`` built over the world, a ``Mesh`` checked: axes
-    other than dp and sp above 1 raise, naming their ROADMAP items, as
-    does any other kind of mesh (the sharded layouts wait for A9)."""
+    """A ``MeshConfig`` built over the world, a ``Mesh`` checked: pp and
+    ep above 1, and sp with fsdp or tp, raise naming their ROADMAP
+    items, as does any other kind of mesh (a JAX mesh, say: the
+    multi-slice layout waits for A9)."""
     if mesh is None:
         return None
     if isinstance(mesh, MeshConfig):
@@ -142,8 +148,8 @@ def _mesh(mesh):
     if not isinstance(mesh, Mesh):
         raise NotImplementedError(
             f"a mesh of type {type(mesh).__name__}: the port takes a "
-            "parallel.mesh.Mesh or MeshConfig over dp x sp; sharded "
-            "layouts (fsdp, tp) are not ported yet (ROADMAP A9)")
+            "parallel.mesh.Mesh or MeshConfig over dp x fsdp x tp or "
+            "dp x sp; other layouts are not ported yet (ROADMAP A9)")
     check_ported(mesh.shape)
     return mesh
 
@@ -177,7 +183,8 @@ class Trainer:
         """``step_builder``/``init_state_fn``/``eval_step_fn`` hand in the
         lowering instead of the one built here from ``args``;
         ``init_state_fn(seed)`` returns a train state. ``mesh``: a
-        ``parallel.mesh.Mesh`` or ``MeshConfig`` (dp × sp), or None.
+        ``parallel.mesh.Mesh`` or ``MeshConfig`` (dp × fsdp × tp or dp ×
+        sp), or None.
         ``ckpt_extra()``: a dict each checkpoint carries in its pack
         header (the dataset position), back after a restore in
         ``checkpointer.engine.restored_extra``."""
@@ -253,7 +260,8 @@ class Trainer:
         else:
             self.state = init_train_state(
                 self.args.seed, self.cfg, self.optimizer, device=self.device,
-                comm=self.comm if self._builder.update_sharding else None)
+                comm=self.comm if self._builder.update_sharding else None,
+                mesh=self.mesh)
         if not self.args.resume:
             return
         leaves = self.state_leaves()

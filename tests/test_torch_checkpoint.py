@@ -12,6 +12,13 @@
   memory save skipped while a persist holds the lock (so the committed
   pack is the staged one, never a later step's), a staged pack unchanged
   by an in-place step after it, and a clear error when /dev/shm is short.
+- sharded layouts: the four packs of a ``Trainer`` on
+  ``MeshConfig(fsdp=2, tp=2)`` (4 gloo processes,
+  ``tests/torch_fsdp_tp_worker.py``; each rank packs its shards with
+  their global indices) restore bit for bit at the same layout from
+  each tier, in one process and at dp 4; a JAX pack of a train state on
+  ``MeshConfig(dp=2, fsdp=2, tp=2)`` restores in the port at fsdp2×tp2
+  and the port's four packs restore in JAX on that mesh, bit for bit.
 
 Each test stages under a run id of its own and removes its segment.
 """
@@ -29,6 +36,8 @@ import torch  # noqa: E402
 from dlrover_tpu.checkpoint import core as jcore  # noqa: E402
 from dlrover_tpu.checkpoint import storage as jstorage  # noqa: E402
 from dlrover_tpu.models.config import get_config as jget  # noqa: E402
+from dlrover_tpu.parallel.mesh import MeshConfig as JMeshConfig  # noqa
+from dlrover_tpu.parallel.mesh import build_mesh as jbuild_mesh  # noqa
 from dlrover_tpu.parallel.mesh import single_device_mesh  # noqa: E402
 from dlrover_tpu.train import optimizer as jopt  # noqa: E402
 from dlrover_tpu.train import train_step as jts  # noqa: E402
@@ -39,6 +48,7 @@ from dlrover_tpu_torch.checkpoint.engine import (  # noqa: E402
 )
 from dlrover_tpu_torch.models import convert  # noqa: E402
 from dlrover_tpu_torch.models.config import get_config  # noqa: E402
+from dlrover_tpu_torch.parallel import mesh as tmesh  # noqa: E402
 from dlrover_tpu_torch.train import optimizer as topt  # noqa: E402
 from dlrover_tpu_torch.train import train_step as tts  # noqa: E402
 
@@ -387,3 +397,158 @@ def test_a_torn_segment_is_not_restored(tmp_path):
     eng.close()
     assert CheckpointEngine(d).load(
         convert.train_state_leaves(state, cfg, ttx)) is None
+
+
+# ---- sharded layouts ----------------------------------------------------
+
+_WORKER = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "torch_fsdp_tp_worker.py")
+_MESH_CFG = dict(_CFG, n_head=4, n_kv_head=2)
+
+
+def _assemble(ranks):
+    """{path: global array} from every rank's shards (index, values)."""
+    out = {}
+    for shards in ranks:
+        for path, items in shards.items():
+            for index, t in items:
+                if path not in out:
+                    out[path] = torch.zeros([b for _, b in index] or [],
+                                            dtype=t.dtype)
+                full = out[path]
+                grow = [max(a, b) for a, b in zip(
+                    full.shape, [b for _, b in index])]
+                if list(full.shape) != grow:
+                    bigger = torch.zeros(grow, dtype=t.dtype)
+                    bigger[tuple(slice(0, n) for n in full.shape)] = full
+                    out[path] = full = bigger
+                full[tuple(slice(a, b) for a, b in index)] = t.reshape(
+                    [b - a for a, b in index])
+    return out
+
+
+def _same_shards(got, want):
+    """Every shard of ``got`` (a rank's) equals ``want`` (global arrays)
+    at its index, bit for bit."""
+    assert sorted(got) == sorted(want)
+    for path, items in got.items():
+        for index, t in items:
+            ref = want[path][tuple(slice(a, b) for a, b in index)]
+            assert torch.equal(t.reshape(ref.shape), ref), path
+
+
+def test_fsdp2_tp2_trainer_packs_restore_at_each_layout(tmp_path):
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(2):
+        tok = rng.integers(0, 256, size=(8, 33)).astype(np.int64)
+        batches.append({"tokens": torch.from_numpy(tok[:, :-1]),
+                        "targets": torch.from_numpy(tok[:, 1:])})
+    spec = {"cfg": ("tiny", _MESH_CFG), "mesh": {"fsdp": 2, "tp": 2},
+            "opt": _OPTS["chain"], "batches": batches, "steps": 2,
+            "seed": 3, "output_dir": str(tmp_path / "out")}
+    for sub in ("a", "b"):
+        (tmp_path / sub).mkdir()
+    try:
+        _fsdp2_tp2_restores(spec, tmp_path)
+    finally:  # a worker that failed left its segment (the fixture: rank 0's)
+        for rank in range(1, 4):
+            CheckpointEngine.unlink_segment(rank)
+
+
+def _fsdp2_tp2_restores(spec, tmp_path):
+    import torch_sp_worker
+
+    ranks = torch_sp_worker.spawn("trainer", spec, 4, tmp_path / "a",
+                                  script=_WORKER)
+    saved = _assemble([r["saved"] for r in ranks])
+    for r in ranks:
+        assert r["mesh"]["fsdp"] == 2 and r["mesh"]["tp"] == 2
+        assert (r["memory_tier"], r["storage_tier"]) == ("memory", "storage")
+        _same_shards(r["saved"], saved)
+        _same_shards(r["memory"], saved)
+        _same_shards(r["storage"], saved)
+    # each rank's pack holds its shards only: a cut leaf is a quarter
+    wq = "params/layers/attn/wq"
+    assert sum(t.numel() for _, t in ranks[0]["saved"][wq]) * 4 == \
+        saved[wq].numel()
+    # one process: the four packs assemble the whole state
+    from dlrover_tpu_torch.train.trainer import Trainer, TrainerArgs
+
+    cfg = get_config("tiny", **_MESH_CFG)
+    t = Trainer(cfg, TrainerArgs(output_dir=spec["output_dir"], max_steps=2,
+                                 save_interval=0, detect_loss_spikes=False,
+                                 report_to_master=False, log_interval=0),
+                [], topt.make_optimizer(**_OPTS["chain"]), device="cpu")
+    t.train()
+    assert t.state["step"] == 2
+    assert t.checkpointer.engine.timings[-1]["tier"] == "storage"
+    one = {leaf.path: [(s.index, (s.tensor.t() if s.transposed else
+                                  s.tensor).detach().clone())
+                       for s in leaf.shards] for leaf in t.state_leaves()}
+    t.checkpointer.close()
+    _same_shards(one, saved)
+    # dp 4: every rank the whole state, from the same four packs
+    dp4 = torch_sp_worker.spawn("trainer", dict(spec, mesh={"dp": 4},
+                                                restore_only=True), 4,
+                                tmp_path / "b", script=_WORKER)
+    for r in dp4:
+        assert r["storage_tier"] == "storage"
+        _same_shards(r["storage"], saved)
+
+
+def _jax_mesh_state(seed):
+    """A JAX train state on ``MeshConfig(dp=2, fsdp=2, tp=2)``, every leaf
+    filled from ``seed`` in its own sharding, its step and counts 7."""
+    jcfg = jget("tiny", **_MESH_CFG)
+    jtx = jopt.make_optimizer(**_OPTS["chain"])
+    mesh = jbuild_mesh(JMeshConfig(dp=2, fsdp=2, tp=2))
+    st = jts.init_train_state(jax.random.key(0), jcfg, mesh, jtx)
+    rng = np.random.default_rng(seed)
+
+    def fill(x):
+        a = np.asarray(x)
+        a = (np.full(a.shape, 7, a.dtype) if a.dtype.kind == "i"
+             else rng.standard_normal(a.shape).astype(a.dtype))
+        return jax.device_put(a, x.sharding)
+
+    return jax.tree.map(fill, st), mesh
+
+
+def test_a_dp2_fsdp2_tp2_jax_pack_restores_at_fsdp2_tp2_and_back():
+    st, mesh = _jax_mesh_state(9)
+    want = _flat(st)
+    idx = core.PackIndex()
+    idx.add_pack(_jax_pack(7, st))
+    cfg = get_config("tiny", **_MESH_CFG)
+    ttx = topt.make_optimizer(**_OPTS["chain"])
+    sizes = tmesh.MeshConfig(fsdp=2, tp=2).resolved_sizes(4)
+    packs = []
+    for rank in range(4):
+        state = tts.init_train_state(1, cfg, ttx, device="cpu",
+                                     mesh=tmesh.Mesh(sizes, rank))
+        leaves = convert.train_state_leaves(state, cfg, ttx)
+        assert core.restore_leaves(leaves, idx) == []
+        convert.load_scalars(state, leaves, ttx)
+        assert state["step"] == 7 and state["opt_state"]["step"] == 7
+        for leaf in leaves:
+            for s in leaf.shards:
+                ref = torch.from_numpy(np.array(
+                    want[leaf.path][tuple(slice(a, b) for a, b in s.index)]))
+                t = s.tensor.t() if s.transposed else s.tensor
+                assert torch.equal(t.reshape(ref.shape), ref), leaf.path
+        entries, payload = core.plan_pack(leaves)
+        header = core.header_bytes(7, entries, {"dir": "/ckpt"}, rank, 4)
+        buf = torch.zeros(core.pack_size(header, payload), dtype=torch.uint8)
+        core.write_pack(buf, leaves, entries, header)
+        packs.append(buf)
+    idx.close()
+    jidx = jcore.PackIndex()
+    for buf in packs:
+        jidx.add_pack(memoryview(buf.numpy()))
+    template = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+                            st)
+    restored = jcore.restore_tree(template, jidx,
+                                  jax.tree.map(lambda x: x.sharding, st))
+    jidx.close()
+    _assert_same_arrays(_flat(restored), want)

@@ -10,9 +10,10 @@ JAX package's, on the CPU.
 - a rank's block of a global batch (``torch_sp_worker.local_batch``: its
   dp rows, and its sp sequence block from ``data_utils.sequence_block``) is the shard JAX's ``batch_sharding``
   puts on that device;
-- axes other than dp and sp above 1 raise, naming their ROADMAP items
-  (fsdp, tp: A9; pp, ep: A16), and so does ``Trainer`` given such a
-  mesh;
+- the layouts the port does not run raise, naming their ROADMAP items
+  (sp with fsdp or tp, multi-slice: A9; pp, ep: A16), and so does
+  ``Trainer`` given such a mesh (fsdp and tp themselves:
+  ``tests/test_torch_fsdp_tp.py``);
 - ``Trainer`` given ``MeshConfig(dp=2, sp=2)`` in 4 gloo processes
   (``tests/torch_sp_worker.py``) trains on it: its 2 losses equal the
   one-process ``TrainStepBuilder``'s on the global batches, and its
@@ -98,14 +99,15 @@ def test_local_batch_is_the_jax_shard(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fsdp=2), "A9"), (dict(tp=2), "A9"), (dict(pp=2), "A16"),
+    (dict(fsdp=2, sp=2), "A9"), (dict(tp=2, sp=2), "A9"), (dict(pp=2), "A16"),
     (dict(ep=2), "A16"), (dict(num_slices=2), "A9")])
 def test_unported_axes_raise_naming_their_item(tmp_path, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tmesh.build_mesh(tmesh.MeshConfig(**kw))
+    world = int(np.prod([v for k, v in kw.items() if k != "num_slices"]))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tmesh.check_ported(tmesh.MeshConfig(**kw).resolved_sizes(
-            2 if "num_slices" not in kw else 1), kw.get("num_slices", 1))
+        tmesh.check_ported(tmesh.MeshConfig(**kw).resolved_sizes(world),
+                           kw.get("num_slices", 1))
     cfg = get_config("tiny", **_CFG)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ttrainer.Trainer(cfg, ttrainer.TrainerArgs(output_dir=str(tmp_path)),

@@ -7,8 +7,10 @@
   ``pack_flat`` of the converted parameters equals the JAX ``pack_flat``
   bit for bit; ``unpack_flat`` inverts it.
 - The step: zero1 and zero2, ``grad_accum`` 1 and 2, in 2 and 4 gloo
-  processes (``tests/torch_zero_worker.py``), each rank given its rows
-  of the global batch as the JAX step lays them out. The JAX ZeRO step
+  processes (``tests/torch_zero_worker.py``) on the llama, and in 2 on
+  the tied gpt2 (``tie_size`` > 0: the table's lookup and head
+  gradients meet in one bucket row), each rank given its rows of the
+  global batch as the JAX step lays them out. The JAX ZeRO step
   does not trace on this jax (``ops/fused_ce.py:134``, a scan carry
   under shard_map; ROADMAP C), so the reference is the JAX REPLICATED
   step on the global batch: 3 steps' losses within 1e-5 relative, grad
@@ -90,16 +92,22 @@ def _jparams(jcfg):
     return jax.tree.map(np.asarray, jdec.init(jax.random.key(0), jcfg))
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg, cfg = _cfgs(_LLAMA)
+_MODELS = {"llama": _LLAMA, "gpt2": _GPT2}
+
+
+def _setup(which):
+    jcfg, cfg = _cfgs(_MODELS[which])
     params = _jparams(jcfg)
     weights = convert.state_dict_from_jax(params, cfg)
     return jcfg, cfg, params, weights, _batches()
 
 
 @pytest.fixture(scope="module")
-def jax_ref(setup):
+def setup():
+    return _setup("llama")
+
+
+def _jax_ref(setup):
     """The JAX replicated step, 3 steps on the global batches, by
     accumulation."""
     jcfg, _, params, _, batches = setup
@@ -124,15 +132,34 @@ def jax_ref(setup):
     return out
 
 
-@pytest.fixture(scope="module", params=[2, 4])
-def zero_runs(request, setup, tmp_path_factory):
-    _, _, _, weights, batches = setup
-    world = request.param
-    spec = {"cfg": (_LLAMA[0], _LLAMA[1]), "opt": _OPT, "weights": weights,
+@pytest.fixture(scope="module")
+def jax_refs(setup):
+    """The JAX replicated step of each model, computed when first asked
+    for."""
+    cache = {}
+
+    def get(which):
+        if which not in cache:
+            model = setup if which == "llama" else _setup(which)
+            cache[which] = (model, _jax_ref(model))
+        return cache[which]
+
+    return get
+
+
+@pytest.fixture(scope="module",
+                params=[(2, "llama"), (4, "llama"), (2, "gpt2")],
+                ids=["2", "4", "2-gpt2"])
+def zero_runs(request, jax_refs, tmp_path_factory):
+    """(world, the rank results, (setup, JAX reference)) of a model."""
+    world, which = request.param
+    model_setup, ref = jax_refs(which)
+    _, _, _, weights, batches = model_setup
+    spec = {"cfg": _MODELS[which], "opt": _OPT, "weights": weights,
             "batches": batches, "cases": CASES, "bucket_mb": BUCKET_MB}
     return world, torch_sp_worker.spawn(
-        "zero", spec, world, tmp_path_factory.mktemp(f"zero{world}"),
-        script=WORKER)
+        "zero", spec, world, tmp_path_factory.mktemp(f"zero{world}{which}"),
+        script=WORKER), (model_setup, ref)
 
 
 def _gathered(ranks, key):
@@ -215,10 +242,8 @@ def _check_against(got, ref, cfg, plan_key="plan"):
 
 @pytest.mark.parametrize("mode", ["zero1", "zero2"])
 @pytest.mark.parametrize("accum", [1, 2])
-def test_zero_step_matches_the_jax_replicated_step(zero_runs, jax_ref, setup,
-                                                   mode, accum):
-    jcfg, cfg, _, _, _ = setup
-    world, ranks = zero_runs
+def test_zero_step_matches_the_jax_replicated_step(zero_runs, mode, accum):
+    world, ranks, ((jcfg, cfg, _, _, _), jax_ref) = zero_runs
     got = [r[(mode, accum)] for r in ranks]
     ref = jax_ref[accum]
     for r in got:
@@ -235,7 +260,10 @@ def test_zero_step_matches_the_jax_replicated_step(zero_runs, jax_ref, setup,
     assert plan.dp == world and got[0]["m"]["flat"].shape == (
         plan.n_buckets, plan.bucket_elems // world)
     jplan = jshd.build_pack_plan(jax.tree.map(jnp.asarray, ref["params"]),
-                                 world, plan.bucket_elems * 4)
+                                 world, plan.bucket_elems * 4,
+                                 tie_embeddings=jcfg.tie_embeddings)
+    assert (jplan.tie_size, jplan.n_tie_buckets) == (plan.tie_size,
+                                                     plan.n_tie_buckets)
     for key, jkey in (("m", "mu"), ("v", "nu")):
         want = np.asarray(jshd.pack_flat(
             jax.tree.map(jnp.asarray, ref[jkey]), jplan))
@@ -243,11 +271,9 @@ def test_zero_step_matches_the_jax_replicated_step(zero_runs, jax_ref, setup,
 
 
 @pytest.mark.parametrize("accum", [1, 2])
-def test_replicated_step_at_world_gt_1_matches_jax(zero_runs, jax_ref, setup,
-                                                   accum):
+def test_replicated_step_at_world_gt_1_matches_jax(zero_runs, accum):
     """``grad_accum > 1`` in a multi-process world, lifted here."""
-    _, cfg, _, _, _ = setup
-    _, ranks = zero_runs
+    _, ranks, ((_, cfg, _, _, _), jax_ref) = zero_runs
     ref = jax_ref[accum]
     for r in ranks:
         got = r[(None, accum)]
@@ -261,7 +287,7 @@ def test_replicated_step_at_world_gt_1_matches_jax(zero_runs, jax_ref, setup,
 @pytest.mark.parametrize("mode", ["zero1", "zero2"])
 @pytest.mark.parametrize("accum", [1, 2])
 def test_zero_step_matches_the_ports_replicated_step(zero_runs, mode, accum):
-    _, ranks = zero_runs
+    _, ranks, _ = zero_runs
     for r in ranks:
         got, rep = r[(mode, accum)], r[(None, accum)]
         np.testing.assert_allclose(got["losses"], rep["losses"], rtol=1e-5)
