@@ -31,7 +31,11 @@ from ``--seed``, through the hand-written CUDA kernels built from
 - sequence parallelism: ``TrainStepBuilder`` over ``MeshConfig(dp=1,
   sp=4)`` → ``loss_fn(mesh=...)`` → ``ring_attention`` (the flash
   kernels with ring offsets on its window-partial and prefix-only
-  blocks) or ``ulysses_attention``, four ranks on the one card.
+  blocks) or ``ulysses_attention``, four ranks on the one card;
+- fully sharded data and tensor parallelism, four ranks on the card,
+  and ZeRO on those meshes: the elastic example's ``--hosts-per-slice
+  2 --zero1`` (dp 2 × fsdp 2), dp 2 × tp 2, and dp 4 over four slices
+  on the int8 and bf16 gradient wires.
 
 Phases, one JSON line each; any failure exits nonzero and prints no
 result:
@@ -76,14 +80,14 @@ result:
    and the kernel's launch counts on that path must be above zero;
    spec_serve (spec-off, spec_k=4 with prompt-lookup drafts, spec_k=4
    with an oracle draft) and prefix_serve (sharing off/on at spec_k 0
-   and 4), in bf16 (reported) and again with llama3-8b in f32 at full
+   and 4), in bf16 (reported, at half the new tokens:
+   ``MEASURE_NEW_TOKENS``) and again with llama3-8b in f32 at full
    depth (serve_f32, gated: streams equal but at near-ties, the
    oracle's drafts accepted above 0.9, prefix hits and COW pages);
 5. profile: the decode step, a prefill chunk and a verify step at the
-   serve shapes,
-   timed (CUDA events and wall) and traced (``torch.profiler``): kernel
-   time by class (the paged-attention class also on its own), launches
-   per step, the device's busy share;
+   serve shapes, 4 of each, timed (CUDA events and wall) and traced
+   (``torch.profiler``): kernel time by class (the paged-attention
+   class also on its own), launches per step, the device's busy share;
 6. train_kernel: the flash kernels (forward, dq, dkv; a head a block,
    and two heads of 64 packed a block; every bf16 kernel on wgmma,
    ``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
@@ -212,7 +216,33 @@ result:
    rebuilt in a worker, each rank's peak memory. The train_kernel phase
    also holds the six flash kernels with ring offsets against their
    plain versions at these blocks' shapes (bf16 and f32, the fault k_off
-   off by one key), timed beside themselves without offsets.
+   off by one key), timed beside themselves without offsets;
+13. fsdp_tp: four processes on the card over gloo, ``MeshConfig(fsdp=2,
+   tp=2)``, llama-1.4b at full width and 2 layers, 8 steps at b8 ×
+   s1024: every rank's loss and grad norm within 1e-4 (relative) of a
+   one-process replicated run, a run without the tp sum of ``wk``/``wv``'s
+   gradients outside it, exact launches, each rank's state under 0.3 of
+   the replicated one;
+14. hybrid_zero: llama-1.4b at full width and 2 layers, four ranks on the
+   card over gloo, b8 × s1024, 3 steps in (a), 2 in (b) and (c): (a)
+   the elastic example
+   with ``--hosts-per-slice 2 --zero1`` under the launcher (dp 2 × fsdp
+   2 over two slices, zero2), (b) dp 2 × tp 2 zero1, then one step on
+   each mesh with a planted fault (a leaf's gradient from one fsdp
+   peer's shard only; the columns' square sums over the world), (c) dp
+   4 over ``num_slices=4`` on the int8 dcn wire and on the bf16 wire,
+   a step on the f32 wire, and an int8 step with a planted wire fault
+   (the middle bucket decoded without one peer's rows). Gated: (a) and
+   (b) every rank's loss and grad norm of every step within 1e-4 of a
+   one-process replicated run on the same global batches, the faults
+   outside; (c) within ``HYBRID_WIRE_RTOL`` and not the f32 stream, the
+   wire fault outside; the bytes each rank sends a step equal to the
+   plan's count; exact launches; no kernel rebuilt; (a) writes nothing
+   to disk. Read: a step's wall s a rank and its share in the
+   collectives (in the exchange for (a), from its ``zero.exchange``
+   spans), state bytes and peak memory a rank, the phase's seconds.
+   The train_kernel phase holds K1/K2 at a rank's B 2 × H 16 and K3/K4
+   at [2048, 2048].
 
 The lines before the last are the card's name and power limit and a
 ``{"kernels": [...]}`` summary (the chunk kernel's entry also gives its
@@ -307,6 +337,11 @@ SPEC_K = 4
 # gaps of ~1% of max |logit| (PERF.md, section 6).
 MODEL_REL_TOL = 1e-3
 F32_CHECK_LAYERS = 4
+# the bf16 spec and prefix runs measure (their streams are not gated):
+# they generate half the tokens of the gated f32 runs, which keeps the
+# whole script inside its time limit (one run on a slow host took 1199 s
+# of the 1200 with 64 and 32)
+MEASURE_NEW_TOKENS = 32
 # Training kernels vs their plain versions run in f32 on the same bf16
 # values, per element. bf16 keeps 8 significant bits, so one rounding is
 # at most 2^-8 relative. A bf16 kernel rounds (a) its output once, and
@@ -345,6 +380,10 @@ TRAIN_BATCH, TRAIN_SEQ = 8, 1024
 GLM_LAYERS, GLM_STEPS, GLM_CHECK_BATCH = 4, 3, 2
 
 _failures = []
+#: each phase's seconds on the host clock, in the order they ran, and
+#: when the script's imports were done
+_phase_seconds = {}
+_START = time.monotonic()
 
 
 def emit(obj) -> None:
@@ -360,6 +399,8 @@ def phase(name):
         _failures.append(f"{name}: {exc!r}")
         emit({"phase": name, "ok": False, "error": repr(exc),
               "seconds": time.monotonic() - t0})
+    finally:
+        _phase_seconds[name] = time.monotonic() - t0
 
 
 def cuda_ms(fn, iters, warmup=3):
@@ -1278,7 +1319,8 @@ def serve(model, cfg, seed, dev, mode, n_requests, lengths):
 
 def spec_serve(model, cfg, seed, dev, gate):
     """16 requests (prompts of 512-1536 tokens repeating a 128-token span,
-    64 new tokens, half greedy and half sampled, int8 pools, 8 slots)
+    64 new tokens with ``gate``, else ``MEASURE_NEW_TOKENS`` of them, half
+    greedy and half sampled, int8 pools, 8 slots)
     served three times: spec-off, ``spec_k=4`` with prompt-lookup drafts
     (the default) and ``spec_k=4`` with an oracle draft that proposes the
     spec-off continuation. The verify kernel must launch in both spec
@@ -1290,7 +1332,7 @@ def spec_serve(model, cfg, seed, dev, gate):
     rng = np.random.default_rng(seed + 7)
     prompts = _repeating_prompts(rng, cfg.vocab_size, 16, 512, 1536)
     samplings = _samplings(seed, 16)
-    new = 64
+    new = 64 if gate else MEASURE_NEW_TOKENS
     off, r_off = _serve_run(model, cfg, dev, prompts, samplings, new)
     runs = {"spec_off": r_off}
     ok = r_off["outputs_ok"]
@@ -1317,7 +1359,8 @@ def spec_serve(model, cfg, seed, dev, gate):
 def prefix_serve(model, cfg, seed, dev, gate):
     """16 requests in 4 groups whose prompts share a 1000-token prefix
     (not page-aligned: 62.5 pages of 16) and end in 16-512 tokens of
-    their own; 32 new tokens, half greedy and half sampled, int8 pools,
+    their own; 32 new tokens (``MEASURE_NEW_TOKENS // 2`` without
+    ``gate``), half greedy and half sampled, int8 pools,
     8 slots, 200-token prefill chunks (resume points at 1000 fall inside
     a page, so the straddling page is copied on write). One request per
     group is submitted first; the other 12 once those have their first
@@ -1333,7 +1376,7 @@ def prefix_serve(model, cfg, seed, dev, gate):
         1, cfg.vocab_size, size=int(rng.integers(16, 513)))))
         for g in order]
     samplings = _samplings(seed + 1, 16)
-    new = 32
+    new = 32 if gate else MEASURE_NEW_TOKENS // 2
     runs, ok = {}, True
     for spec_k in (0, SPEC_K):
         streams = {}
@@ -1379,7 +1422,7 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_steps(model, cfg, seed, dev, steps=8):
+def profile_steps(model, cfg, seed, dev, steps=4):
     """Time the two model steps of the serve phase at its shapes — a
     decode of 8 slots and one 256-token prefill chunk over int8 pools —
     with CUDA events (device time) and the host clock (wall), and trace
@@ -2131,6 +2174,7 @@ def train_kernel_cases(seed, dev):
     cases += sp_shape_cases(gen, dev)
     cases += reshard_shape_cases(gen, dev)
     cases += fsdp_tp_shape_cases(gen, dev)
+    cases += hybrid_shape_cases(gen, dev)
     cases += [
         # the train steps' norms: [B·S, d_model] rows, timed
         norm_case("llama-1.4b", 8192, 2048, False, gen, dev, True),
@@ -3140,8 +3184,8 @@ def zero_fault_worker(argv):
 
     exchange = shd.exchange_buckets
 
-    def dropped(g, plan, group=None):
-        out = exchange(g, plan, group)
+    def dropped(g, plan, group=None, **kw):
+        out = exchange(g, plan, group, **kw)
         out[plan.n_buckets // 2] = 0
         return out
 
@@ -3150,12 +3194,14 @@ def zero_fault_worker(argv):
 
 
 def _reshard_launch(cfg, seed, device, overrides, steps, flags, worker,
-                    log_name):
+                    log_name, trace=False):
     """One run of the port's launcher: the elastic worker (``worker``: the
     command that starts one) on ``RESHARD_RANKS`` ranks of one node, all
     on card 0 over gloo, ``--zero1`` with ``RESHARD_BUCKET_MB`` buckets,
     ``steps`` steps at b``TRAIN_BATCH`` × s``TRAIN_SEQ``, no checkpoint,
-    ``flags`` added. Returns (its record, its log)."""
+    ``flags`` added. Returns (its record, its log). ``trace``: the run
+    traced, and the record's ``exchange_spans`` each worker process's
+    ``zero.exchange`` span seconds, in order."""
     import shutil
     import tempfile
 
@@ -3172,6 +3218,10 @@ def _reshard_launch(cfg, seed, device, overrides, steps, flags, worker,
                DLROVER_TPU_SOCK_DIR=sock_dir)
     env.pop("DLROVER_TPU_MASTER_ADDR", None)
     env.pop("DLROVER_TPU_TRACE_DIR", None)
+    trace_dir = os.path.join(out, "trace")
+    if trace:
+        os.makedirs(trace_dir)
+        env["DLROVER_TPU_TRACE_DIR"] = trace_dir
     cmd = ["timeout", "-k", "10", str(RESHARD_TIMEOUT_S), sys.executable,
            "-m", "dlrover_tpu_torch.agent.launcher", "--nnodes", "1",
            "--nproc", str(RESHARD_RANKS), "--max-restarts", "0",
@@ -3201,6 +3251,10 @@ def _reshard_launch(cfg, seed, device, overrides, steps, flags, worker,
         os.makedirs(log_dir, exist_ok=True)
         with open(os.path.join(log_dir, f"{log_name}_log.txt"), "w") as f:
             f.write(log)
+        if trace:
+            rec["exchange_spans"] = [
+                [e["dur"] / 1e6 for e in evs if e["name"] == "zero.exchange"]
+                for evs in _trace_events(trace_dir).get("worker", [])]
     finally:
         leftovers = [f for f in os.listdir("/dev/shm") if run_id in f]
         for f in leftovers:
@@ -4249,6 +4303,515 @@ def fsdp_tp_check(cfg_name, seed, dev, name="fsdp_tp", overrides=None,
 
 
 # ---------------------------------------------------------------------------
+# phase 14: hybrid sharded data parallelism and the gradient wires, four
+# ranks on the one card
+# ---------------------------------------------------------------------------
+
+HYBRID_RANKS = 4
+# (a) 3 steps (its step time is read between steps 2 and 3), (b) and (c)
+# 2, the f32 and fault runs 1: at 6 and 4 a run the whole script took
+# 1040 and 1060 s on one H100 80GB HBM3 at 700 W, 87-88% of its 1200 s
+# limit, and at 3 a run 1199 s on a slow host
+HYBRID_LAYERS, HYBRID_STEPS, HYBRID_FAULT_STEPS, HYBRID_F32_STEPS = 2, 3, 1, 1
+HYBRID_WORKER_STEPS = 2
+HYBRID_TIMEOUT_S = 480
+# (a) and (b) against the one-process replicated run: the fsdp_tp and
+# reshard phases' bound
+HYBRID_RTOL_LOSS, HYBRID_RTOL_NORM = 1e-4, 1e-4
+# (c) the quantized wires against the same run, relative. First stated
+# from a CPU rehearsal (int8 1e-3 loss, 1e-2 norm; bf16 1e-3, 5e-3), then
+# cut towards what the card read at full width (H100 80GB HBM3, 700 W; the
+# streams are deterministic: every run read the same): int8 at most
+# 1.47e-5 (loss) and 9.22e-5 (norm), bf16 1.95e-5 and 1.36e-5. int8's
+# norm bound is some 3 times its largest reading; the rest is the (a)/(b)
+# bound. The planted wire fault (``wire_rows``) must fall outside
+HYBRID_WIRE_RTOL = {"int8": {"loss": 1e-4, "grad_norm": 3e-4},
+                    "bfloat16": {"loss": 1e-4, "grad_norm": 1e-4}}
+# the worker's runs: (name, mesh, CommConfig, steps, planted fault)
+HYBRID_RUNS = (
+    ("tp", dict(dp=2, tp=2), dict(update_sharding="zero1"),
+     HYBRID_WORKER_STEPS, None),
+    ("fault_fsdp", dict(dp=2, fsdp=2), dict(update_sharding="zero2"),
+     HYBRID_FAULT_STEPS, "unassembled"),
+    ("fault_tp", dict(dp=2, tp=2), dict(update_sharding="zero1"),
+     HYBRID_FAULT_STEPS, "norm_world"),
+    ("int8", dict(dp=4, num_slices=4),
+     dict(update_sharding="zero2", wire_dtype_dcn="int8"),
+     HYBRID_WORKER_STEPS, None),
+    ("bf16", dict(dp=4, num_slices=4),
+     dict(update_sharding="zero2", wire_dtype="bfloat16"),
+     HYBRID_WORKER_STEPS, None),
+    ("f32", dict(dp=4, num_slices=4), dict(update_sharding="zero2"),
+     HYBRID_F32_STEPS, None),
+    ("fault_wire", dict(dp=4, num_slices=4),
+     dict(update_sharding="zero2", wire_dtype_dcn="int8"),
+     HYBRID_FAULT_STEPS, "wire_rows"),
+)
+#: the unassembled fault's leaf: laid into the gradient stream from this
+#: rank's shard alone, the other fsdp peer's left out
+HYBRID_FAULT_LEAF = "layers/mlp/w_up"
+
+
+def hybrid_shape_cases(gen, dev):
+    """The kernels at the shapes a rank of the hybrid_zero phase launches
+    them that no earlier case covers, each against its plain version with
+    its planted fault: llama-1.4b's attention at a rank's 2 rows (b8 over
+    dp 2 × fsdp 2, or dp 4) and all 16 heads, causal; its rmsnorm rows
+    (2048 of d 2048; plain and with the residual). dp 2 × tp 2 runs the
+    fsdp_tp shapes (B 4 × H 8, [4096, 2048])."""
+    return [
+        flash_case("llama-1.4b-hybrid", 2, 1024, 16, 16, 128, True, 0,
+                   gen, dev, False),
+        norm_case("llama-1.4b-hybrid", 2048, 2048, False, gen, dev, False),
+        norm_case("llama-1.4b-hybrid+residual", 2048, 2048, True, gen, dev,
+                  False),
+    ]
+
+
+def _hybrid_batch(cfg, seed, step, s):
+    """Global step ``step``'s batch: the elastic example's rows of its
+    ``HYBRID_RANKS`` data ranks (``synthetic_batch``, ``TRAIN_BATCH /
+    HYBRID_RANKS`` rows each), in rank order: what run (a) trains, and
+    what every mesh of the phase cuts its rows from."""
+    from dlrover_tpu_torch.examples import train_gpt_elastic as ex
+
+    parts = [ex.synthetic_batch(seed, step, r, TRAIN_BATCH // HYBRID_RANKS,
+                                s, cfg.vocab_size)
+             for r in range(HYBRID_RANKS)]
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def hybrid_reference(cfg, seed, dev, steps, s):
+    """The one-process replicated stream the phase is held to: each step's
+    global batch in ``HYBRID_RANKS`` micro-batches of a data rank's rows,
+    the example's optimizer, the same init
+    (every layout draws the same global weights). ([(loss, grad_norm)] a
+    step, its record: peak memory, state bytes, the median step's wall
+    s)."""
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    cuda = dev.type == "cuda"
+    opt = _fsdp_tp_opt()
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(seed, cfg, opt, device=dev)
+    accum = HYBRID_RANKS
+    step = TrainStepBuilder(cfg, opt, grad_accum=accum, device=dev).build()
+    out, walls = [], []
+    for i in range(1, steps + 1):
+        batch = _hybrid_batch(cfg, seed, i, s)
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+        walls.append(time.perf_counter() - t)
+    rec = {"peak_bytes": torch.cuda.max_memory_allocated() if cuda else None,
+           "state_bytes": _state_bytes(state["params"]),
+           "step_s": sorted(walls[1:])[len(walls[1:]) // 2]}
+    del state, step
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out, rec
+
+
+def _plant_hybrid_fault(builder, fault):
+    """``norm_world``: the columns' square sums added over the whole world
+    (every fsdp × tp peer's copy counted again); ``unassembled``:
+    ``HYBRID_FAULT_LEAF``'s gradient laid into the stream from this
+    rank's shard alone; ``wire_rows``: the int8 wire's decode-sum of the
+    middle bucket leaves out the last peer's rows. Returns what undoes a
+    fault planted outside the builder."""
+    from dlrover_tpu_torch.parallel import sharding as shd
+    from dlrover_tpu_torch.parallel.mesh import data_axes
+
+    mesh = builder.mesh
+    if fault == "norm_world":
+        builder._zero_sums = lambda stats, sq: (
+            builder._sum(stats, data_axes()),
+            builder._sum(sq, ("dp", "fsdp", "tp")))
+        return lambda: None
+    if fault == "wire_rows":
+        real_sum, n = shd.wire_decode_sum, builder.plan.n_buckets
+        calls = [0]
+
+        def short(q, scale):  # the buckets go from the last down
+            bucket = n - 1 - calls[0] % n
+            calls[0] += 1
+            if bucket == n // 2:
+                q, scale = q[:-1], scale[:-1]
+            return real_sum(q, scale)
+
+        shd.wire_decode_sum = short
+        return lambda: setattr(shd, "wire_decode_sum", real_sum)
+    own = mesh.ranks(("fsdp", "tp")).index(mesh.rank)
+    names = [n for n, sh in builder.layout.items()
+             if sh.path == HYBRID_FAULT_LEAF]
+    real, real_grads = shd.pack_shards, builder._grad_stream
+
+    def own_only(cfg, peers, layouts, plan):
+        peers = [p if i == own else dict(p, **{
+            n: torch.zeros_like(p[n]) for n in names})
+            for i, p in enumerate(peers)]
+        return real(cfg, peers, layouts, plan)
+
+    def grad_stream(params):
+        shd.pack_shards = own_only
+        try:
+            return real_grads(params)
+        finally:
+            shd.pack_shards = real
+
+    builder._grad_stream = grad_stream
+    return lambda: None
+
+
+def hybrid_worker(spec_path, rank):
+    """One rank of the hybrid_zero phase (a subprocess of
+    ``hybrid_check``): a gloo group of HYBRID_RANKS ranks on card 0, then
+    each of ``HYBRID_RUNS``: its mesh (``build_mesh``), its
+    ``CommConfig``, ``init_train_state`` and ``TrainStepBuilder`` for its
+    steps, each on this rank's rows of the global batch, the launch
+    counts, the bytes on the wire (``sharding.WIRE``) and the time in the
+    collectives read around each step. Writes its record."""
+    from dlrover_tpu_torch.models.config import get_config
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.parallel import collectives
+    from dlrover_tpu_torch.parallel import sharding as shd
+    from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from dlrover_tpu_torch.train import train_step as ts
+    from dlrover_tpu_torch.train.data_utils import dp_rows
+    from dlrover_tpu_torch.train.distributed import (
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    spec = json.loads(open(spec_path).read())
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    init_distributed(coordinator=f"127.0.0.1:{spec['port']}",
+                     world_size=HYBRID_RANKS, rank=rank, device=dev.type,
+                     backend="gloo", device_index=0 if cuda else None,
+                     timeout_s=HYBRID_TIMEOUT_S)
+    out = {"rank": rank, "group_s": time.monotonic() - t0, "runs": {}}
+    rebuilt = []
+    real_build = _build.build
+
+    def counted(name):  # a compile here would have cost the phase minutes
+        secs = real_build(name)
+        if secs > 0:
+            rebuilt.append(name)
+        return secs
+
+    _build.build = counted
+    clock = _Clock(cuda)
+    for name in ("all_gather_dim", "reduce_scatter_dim", "all_reduce_"):
+        setattr(collectives, name, clock.wrap(getattr(collectives, name)))
+    ts.all_reduce_ = collectives.all_reduce_
+    ts.all_gather_dim = collectives.all_gather_dim
+    # the exchange (encode, all-to-alls or reduce-scatters, decode) and
+    # the columns' all-gather
+    shd._exchange = clock.wrap(shd._exchange)
+    shd.all_gather_columns = clock.wrap(shd.all_gather_columns)
+    try:
+        cfg = get_config(spec["config"], **spec["overrides"])
+        s = spec["seq"]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        for name, mesh_kw, comm_kw, steps, fault in HYBRID_RUNS:
+            mesh = build_mesh(MeshConfig(**mesh_kw))
+            opt = _fsdp_tp_opt()
+            comm = shd.CommConfig(bucket_mb=spec["bucket_mb"], **comm_kw)
+            state = ts.init_train_state(spec["seed"], cfg, opt, device=dev,
+                                        comm=comm, mesh=mesh)
+            builder = ts.TrainStepBuilder(cfg, opt, device=dev, mesh=mesh,
+                                          comm=comm)
+            if not builder.update_sharding:
+                raise RuntimeError(
+                    f"{name}: update sharding did not resolve: "
+                    f"{builder.update_sharding_reason}")
+            undo = _plant_hybrid_fault(builder, fault) if fault else None
+            plan = builder.plan
+            held = sum(p.numel() for p in state["params"].parameters())
+            rec = {"mesh": {k: v for k, v in mesh.shape.items() if v > 1},
+                   "num_slices": mesh.num_slices, "wire": builder.wire,
+                   "mesh_axes": list(plan.mesh_axes),
+                   "plan_wire_bytes": shd.wire_bytes(plan, builder.wire),
+                   "losses": [], "grad_norms": [], "step_s": [],
+                   "collective_s": [], "collective_calls": [],
+                   "wire_bytes": [], "launches": [],
+                   # params and gradients (this rank's shards) and the
+                   # moments (its dp columns), f32
+                   "state_bytes": 8 * held + 8 * plan.shard_elems}
+            for i in range(1, steps + 1):
+                batch = dp_rows(_hybrid_batch(cfg, spec["seed"], i, s), mesh)
+                _reset_train_launches()
+                clock.seconds, clock.calls = 0.0, 0
+                sent = shd.WIRE["bytes"]
+                t = time.perf_counter()
+                state, m = builder.step_fn(state, batch)
+                loss, norm = float(m["loss"]), float(m["grad_norm"])
+                if cuda:
+                    torch.cuda.synchronize()
+                rec["step_s"].append(time.perf_counter() - t)
+                rec["launches"].append(_train_launches())
+                rec["collective_s"].append(clock.seconds)
+                rec["collective_calls"].append(clock.calls)
+                rec["wire_bytes"].append(shd.WIRE["bytes"] - sent)
+                rec["losses"].append(loss)
+                rec["grad_norms"].append(norm)
+            if undo:
+                undo()
+            out["runs"][name] = rec
+            del state, builder
+            gc.collect()
+            if cuda:
+                torch.cuda.empty_cache()
+        out["peak_bytes"] = (torch.cuda.max_memory_allocated() if cuda
+                             else None)
+        out["rebuilt"] = len(rebuilt)
+    finally:
+        shutdown_distributed()
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def hybrid_check(cfg_name, seed, dev, name="hybrid_zero", overrides=None,
+                 launch_overrides=()):
+    """The hybrid_zero phase: llama-1.4b at full width and HYBRID_LAYERS
+    layers, four ranks on card 0 over gloo, b``TRAIN_BATCH`` ×
+    s``TRAIN_SEQ``:
+
+    (a) ``train_gpt_elastic --hosts-per-slice 2 --zero1`` under the
+        port's launcher (``_reshard_launch``, its trace on): the slice
+        mesh dp 2 × fsdp 2, zero2, HYBRID_STEPS steps from the master's
+        shard service; the ``zero.exchange`` spans give each rank's time
+        in the exchange;
+    (b) in ``hybrid_worker``'s processes: dp 2 × tp 2, zero1, then one
+        planted-fault step on each mesh; (c) dp 4 over ``num_slices=4``
+        with ``wire_dtype_dcn="int8"``, with ``wire_dtype="bfloat16"``,
+        and HYBRID_F32_STEPS steps on the f32 wire, then one int8 step
+        with a planted wire fault.
+
+    Held to ``hybrid_reference``'s replicated run on the same global
+    batches: (a) and (b) every rank's loss and grad norm of every step
+    within HYBRID_RTOL_*, each fault outside; (c) within
+    HYBRID_WIRE_RTOL and not the f32 stream, the wire fault outside. The
+    bytes a rank sends a step equal the plan's count
+    (``sharding.wire_bytes``); launches exact a rank a step; no kernel
+    rebuilt; finite losses; the run (a) writes under 256 MiB to disk.
+    ``overrides`` and ``launch_overrides`` (the same fields as the
+    example's ``--override`` items) size a
+    rehearsal."""
+    from dlrover_tpu_torch.examples.train_gpt_elastic import launches
+    from dlrover_tpu_torch.models.config import get_config
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    overrides = (dict(n_layer=HYBRID_LAYERS) if overrides is None
+                 else overrides)
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    cfg = get_config(cfg_name, **dict(overrides, max_seq=s))
+    out_dir = os.path.join("build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    t_phase = time.monotonic()
+    # (a): the example, through the launcher
+    run_a, log_a = _reshard_launch(
+        cfg, seed, dev.type, list(launch_overrides), HYBRID_STEPS,
+        ["--hosts-per-slice", "2"],
+        [sys.executable, "-m", "dlrover_tpu_torch.examples.train_gpt_elastic"],
+        f"{name}_a", trace=True)
+    # (b), (c): the worker
+    spec = {"config": cfg_name, "seed": seed, "device": str(dev),
+            "overrides": dict(overrides, max_seq=s), "seq": s,
+            "bucket_mb": RESHARD_BUCKET_MB, "port": _free_port(),
+            "out": os.path.join(out_dir, f"{name}_{{rank}}.json")}
+    spec_path = os.path.join(out_dir, f"{name}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    log_path = os.path.join(out_dir, f"{name}_log.txt")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--hybrid-worker",
+             spec_path, "--rank", str(r)], stdout=log,
+            stderr=subprocess.STDOUT) for r in range(HYBRID_RANKS)]
+        try:
+            rcs = [p.wait(timeout=HYBRID_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    worker_s = time.monotonic() - t0
+    if any(rcs):
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        _failures.append(f"{name}: worker exit codes {rcs}\n{tail}")
+        emit({"phase": name, "ok": False, "exit_codes": rcs,
+              "log_tail": tail, "run_a": run_a})
+        return {"launches": {}}
+    ranks = []
+    for r in range(HYBRID_RANKS):
+        with open(spec["out"].format(rank=r)) as f:
+            ranks.append(json.load(f))
+    t1 = time.monotonic()
+    ref, ref_rec = hybrid_reference(cfg, seed, dev, HYBRID_STEPS, s)
+    ref_rec["seconds"] = time.monotonic() - t1
+
+    def steps_of(run):
+        return {i + 1: {x["rank"]: {"loss": x["runs"][run]["losses"][i],
+                                    "grad_norm":
+                                        x["runs"][run]["grad_norms"][i]}
+                        for x in ranks}
+                for i in range(len(ranks[0]["runs"][run]["losses"]))}
+
+    def errors(steps, tol=None):
+        e = _stream_errors(steps, ref)
+        tol = tol or {"loss": HYBRID_RTOL_LOSS, "grad_norm": HYBRID_RTOL_NORM}
+        e["within"] = (e["loss"] is not None and e["loss"] <= tol["loss"]
+                       and e["grad_norm"] <= tol["grad_norm"])
+        return e
+
+    per_step = {k: 0 for k in launches()}
+    per_step.update({k: cfg.n_layer for k in fa.UNPACKED},
+                    norm_fwd=2 * cfg.n_layer + 1, norm_bwd=2 * cfg.n_layer + 1)
+    # (a) from the launcher's log and the workers' traces
+    steps_a = _rank_steps(log_a)
+    rank0 = {st: v[0]["at"] for st, v in steps_a.items() if 0 in v}
+    gaps = [rank0[st] - rank0[st - 1] for st in range(3, HYBRID_STEPS + 1)
+            if st in rank0 and st - 1 in rank0]
+    spans = run_a.pop("exchange_spans", [])
+    kernels_a = [json.loads(x) for x in re.findall(
+        r"\[worker\] kernels (\{.*\})", log_a)]
+    peaks_a = [int(x) for x in re.findall(
+        r"\[worker\] done at step \d+ rank \d+ peak_bytes=(\d+)", log_a)]
+    rec_a = {
+        "command": run_a["command"], "seconds": run_a.get("seconds"),
+        "launcher_rc": run_a.get("launcher_rc"),
+        "disk_write_bytes": run_a.get("disk_write_bytes"),
+        "left_behind": run_a["left_behind"],
+        "mesh": "dp 2 x fsdp 2 (num_slices 2), zero2, f32 wire",
+        "losses": [steps_a[st][0]["loss"] for st in sorted(steps_a)
+                   if 0 in steps_a[st]],
+        "grad_norms": [steps_a[st][0]["grad_norm"] for st in sorted(steps_a)
+                       if 0 in steps_a[st]],
+        "errors": errors(steps_a),
+        "step_s": _median(gaps),
+        "exchange_s_by_rank": [_median(x[1:]) for x in spans],
+        "peak_bytes_by_rank": peaks_a,
+        "launches": {k: sum(r["launches"].get(k, 0)
+                            for v in steps_a.values() for r in v.values())
+                     for k in launches()}}
+    rec_a["exchange_share_by_rank"] = [
+        x / rec_a["step_s"] if x is not None and rec_a["step_s"] else None
+        for x in rec_a["exchange_s_by_rank"]]
+    runs = {}
+    for run, mesh_kw, comm_kw, steps, fault in HYBRID_RUNS:
+        xs = [x["runs"][run] for x in ranks]
+        tol = (HYBRID_WIRE_RTOL[xs[0]["wire"]]
+               if xs[0]["wire"] in HYBRID_WIRE_RTOL else None)
+        runs[run] = {
+            "mesh": xs[0]["mesh"], "num_slices": xs[0]["num_slices"],
+            "wire": xs[0]["wire"], "mesh_axes": xs[0]["mesh_axes"],
+            "fault": fault, "losses": xs[0]["losses"],
+            "grad_norms": xs[0]["grad_norms"],
+            "errors": errors(steps_of(run), tol),
+            "step_s_by_rank": [_median(x["step_s"][1:] or x["step_s"])
+                               for x in xs],
+            "collective_s_by_rank": [
+                _median(x["collective_s"][1:] or x["collective_s"])
+                for x in xs],
+            "collective_calls_a_step": xs[0]["collective_calls"][-1],
+            "wire_bytes_a_step": xs[0]["wire_bytes"],
+            "plan_wire_bytes": xs[0]["plan_wire_bytes"],
+            "state_bytes_by_rank": [x["state_bytes"] for x in xs]}
+        runs[run]["collective_share"] = [
+            c / t for c, t in zip(runs[run]["collective_s_by_rank"],
+                                  runs[run]["step_s_by_rank"])]
+    f32 = runs["f32"]
+
+    def quantized(run):
+        return any((a, b) != (c, d) for a, b, c, d in zip(
+            runs[run]["losses"], runs[run]["grad_norms"], f32["losses"],
+            f32["grad_norms"]))
+
+    rec = {"phase": name, "config": cfg_name, "n_layer": cfg.n_layer,
+           "d_model": cfg.d_model, "n_head": cfg.n_head, "batch": b,
+           "seq": s, "steps": HYBRID_STEPS,
+           "bucket_mb": RESHARD_BUCKET_MB,
+           "backend": "gloo (host-staged), 4 ranks on cuda:0",
+           "card": nvidia_smi_line() if dev.type == "cuda" else None,
+           "reference": ref, "reference_run": ref_rec,
+           "tolerances": {"a_b": {"loss": HYBRID_RTOL_LOSS,
+                                  "grad_norm": HYBRID_RTOL_NORM},
+                          "c": HYBRID_WIRE_RTOL},
+           "a": rec_a, "runs": runs,
+           "peak_bytes_by_rank": [x["peak_bytes"] for x in ranks],
+           "group_s": [x["group_s"] for x in ranks], "worker_s": worker_s,
+           "phase_s": time.monotonic() - t_phase,
+           "launches": {k: rec_a["launches"][k] + sum(
+               st.get(k, 0) for x in ranks for r in x["runs"].values()
+               for st in r["launches"]) for k in launches()}}
+    worker_launches = all({k: st.get(k, 0) for k in per_step} == per_step
+                          for x in ranks for r in x["runs"].values()
+                          for st in r["launches"])
+    rec["checks"] = checks = {
+        "a_launcher_rc_0": run_a.get("launcher_rc") == 0,
+        "a_slice_mesh": log_a.count(
+            "[worker] slice mesh: num_slices=2 dp=2 fsdp=2") == HYBRID_RANKS,
+        "a_matches_replicated": sorted(steps_a) == list(
+            range(1, HYBRID_STEPS + 1)) and all(
+            sorted(v) == list(range(HYBRID_RANKS))
+            for v in steps_a.values()) and rec_a["errors"]["within"],
+        "b_matches_replicated": runs["tp"]["errors"]["within"],
+        "faults_caught": not runs["fault_fsdp"]["errors"]["within"]
+        and not runs["fault_tp"]["errors"]["within"],
+        "wire_fault_caught": not runs["fault_wire"]["errors"]["within"]
+        and runs["fault_wire"]["wire"] == "int8",
+        "c_within_bound": runs["int8"]["errors"]["within"]
+        and runs["bf16"]["errors"]["within"]
+        and runs["int8"]["wire"] == "int8"
+        and runs["bf16"]["wire"] == "bfloat16",
+        "c_quantized": quantized("int8") and quantized("bf16")
+        and f32["errors"]["within"],
+        "wire_bytes_exact": all(
+            b == x["runs"][run]["plan_wire_bytes"] for x in ranks
+            for run in x["runs"] for b in x["runs"][run]["wire_bytes"]),
+        "finite": all(math.isfinite(v) for v in rec_a["losses"])
+        and all(math.isfinite(v) for r in runs.values()
+                for v in r["losses"]),
+        "launches_exact": all(r["launches"] == per_step
+                              for v in steps_a.values()
+                              for r in v.values()) and worker_launches,
+        "no_rebuild": all(x["rebuilt"] == 0 for x in ranks)
+        and len(kernels_a) == HYBRID_RANKS
+        and all(k["compiled_s"] == 0 for k in kernels_a),
+        "a_no_disk": run_a.get("disk_write_bytes", 1 << 62) < (256 << 20),
+        "nothing_left_behind": run_a["left_behind"] == [],
+    }
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"{name}: {[k for k, v in checks.items() if not v]}"
+                         f" a {rec_a['errors']} "
+                         + str({k: r["errors"] for k, r in runs.items()}))
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -4261,6 +4824,8 @@ def main(argv=None) -> int:
                     help="run one rank of an sp phase (internal)")
     ap.add_argument("--fsdp-tp-worker", default=None,
                     help="run one rank of the fsdp_tp phase (internal)")
+    ap.add_argument("--hybrid-worker", default=None,
+                    help="run one rank of the hybrid_zero phase (internal)")
     ap.add_argument("--rank", type=int, default=0)
     args = ap.parse_args(argv)
     if args.sp_worker:  # on the device its spec names
@@ -4268,6 +4833,9 @@ def main(argv=None) -> int:
         return 0
     if args.fsdp_tp_worker:
         fsdp_tp_worker(args.fsdp_tp_worker, args.rank)
+        return 0
+    if args.hybrid_worker:
+        hybrid_worker(args.hybrid_worker, args.rank)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -4434,6 +5002,14 @@ def main(argv=None) -> int:
     with phase("fsdp_tp"):
         rec = fsdp_tp_check("llama-1.4b", args.seed, dev)
         train_launches["fsdp_tp"] = rec["launches"]
+    # hybrid sharded data parallelism and the gradient wires (four ranks
+    # on this card over gloo): the example's --hosts-per-slice 2 --zero1,
+    # dp 2 x tp 2 ZeRO, dp 4 over four slices on the int8 and bf16 wires
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("hybrid_zero"):
+        rec = hybrid_check("llama-1.4b", args.seed, dev)
+        train_launches["hybrid_zero"] = rec["launches"]
     offset_launches = {}
     for name, rec in sp_recs.items():
         for r, x in enumerate(rec["ranks"]):
@@ -4504,6 +5080,8 @@ def main(argv=None) -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "no_offsets_ms": t["no_offsets_ms"]})
+    emit({"phase_seconds": _phase_seconds,
+          "total_s": time.monotonic() - _START})
     print(smi, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

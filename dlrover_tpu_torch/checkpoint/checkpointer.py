@@ -40,12 +40,16 @@ class Checkpointer:
 
     def load_checkpoint(self, state: Sequence[Leaf],
                         step: Optional[int] = None,
-                        partial: bool = False) -> Optional[int]:
+                        partial: bool = False,
+                        bridge=None) -> Optional[int]:
         """Restore into ``state`` in place, shared memory first, storage
         after; the restored step, or None when there is no checkpoint.
         ``partial``: leaves missing from the checkpoint keep their values
-        (the state-tree-upgrade path; never a params leaf)."""
-        return self.engine.load(state, step=step, partial=partial)
+        (the state-tree-upgrade path; never a params leaf). ``bridge``:
+        ``core.restore_leaves``'s (``models.convert.moment_bridge`` for a
+        train state)."""
+        return self.engine.load(state, step=step, partial=partial,
+                                bridge=bridge)
 
     def latest_committed_step(self) -> Optional[int]:
         return read_tracker(self.ckpt_dir, self.engine._storage)

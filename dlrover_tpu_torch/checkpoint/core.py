@@ -22,12 +22,17 @@ the buffer, so bf16 leaves need no ml_dtypes.
 The port writes the 8-byte header length LAST, after every shard and
 the header: a staged segment whose length reads 0 is being written (or
 was torn by a crash) and is never restored.
+
+``restore_leaves`` takes a ``bridge``: a function that adds to the pack
+index, before the check, what the leaves ask for in another layout than
+the pack's (``models.convert.moment_bridge``: ZeRO's flat moments
+and the per-leaf ones).
 """
 
 import dataclasses
 import json
 import math
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -242,14 +247,20 @@ class PackIndex:
         self._shards.clear()
         self._meta.clear()
 
+    def __contains__(self, path: str) -> bool:
+        return path in self._meta
+
     def global_shape(self, path: str) -> Tuple[int, ...]:
         return self._meta[path][1]
+
+    def dtype(self, path: str) -> torch.dtype:
+        return DTYPES[self._meta[path][0]]
 
     def read_slice(self, path: str, want: Sequence[Sequence[int]]
                    ) -> torch.Tensor:
         """The global slice ``want`` ([start, stop] a dim) of ``path``: a
         view when one stored shard covers it, else assembled."""
-        dtype = DTYPES[self._meta[path][0]]
+        dtype = self.dtype(path)
         stored = self._shards.get(path, [])
         shape = [b - a for a, b in want]
         for idx, raw in stored:
@@ -294,14 +305,20 @@ def state_template(leaves: Sequence[Leaf]) -> Dict[str, Tuple[str, Tuple]]:
 
 
 def restore_leaves(leaves: Sequence[Leaf], pack_index: PackIndex,
-                   partial: bool = False) -> List[str]:
+                   partial: bool = False,
+                   bridge: Optional[Callable[[Sequence[Leaf], PackIndex],
+                                             None]] = None) -> List[str]:
     """Copy the pack's values into ``leaves``' tensors, in place, each in
-    its tensor's dtype. Every leaf is checked against the pack before any
-    tensor is written. ``partial``: leaves missing from the pack keep
-    their values (never a ``params`` leaf). Returns the kept paths."""
+    its tensor's dtype. ``bridge(leaves, pack_index)``, when given, first
+    adds the leaves the pack holds in another layout. Every leaf is
+    checked against the pack before any tensor is written. ``partial``:
+    leaves missing from the pack keep their values (never a ``params``
+    leaf). Returns the kept paths."""
+    if bridge is not None:
+        bridge(leaves, pack_index)
     kept = []
     for path, (_, gshape) in state_template(leaves).items():
-        if path not in pack_index._meta:
+        if path not in pack_index:
             if not partial:
                 raise RestoreMismatchError(
                     f"checkpoint has no leaf {path} (state tree grew since "

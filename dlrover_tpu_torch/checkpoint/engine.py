@@ -84,10 +84,10 @@ SHM_DIR = "/dev/shm"
 PERSIST_WAIT_S = 300.0
 
 
-def shm_name(process_index: int = 0) -> str:
-    """The staging segment's name: one per run (``DLROVER_TPU_RUN_ID``)
-    and process."""
-    run_id = os.environ.get(GraftEnv.RUN_ID, "default")
+def shm_name(process_index: int = 0, run_id: Optional[str] = None) -> str:
+    """The staging segment's name: one per run (``run_id``, by default
+    ``DLROVER_TPU_RUN_ID``) and process."""
+    run_id = run_id or os.environ.get(GraftEnv.RUN_ID, "default")
     return f"dlrover_tpu_torch_ckpt_{run_id}_{process_index}"
 
 
@@ -396,11 +396,12 @@ class CheckpointEngine:
         self._close_segment()
 
     @staticmethod
-    def unlink_segment(process_index: int = 0) -> bool:
-        """Remove this run's staging segment of ``process_index``; False
-        if there was none."""
+    def unlink_segment(process_index: int = 0,
+                       run_id: Optional[str] = None) -> bool:
+        """Remove the staging segment of ``process_index`` in this run (or
+        in ``run_id``'s); False if there was none."""
         try:
-            shm = attach_shared_memory(shm_name(process_index))
+            shm = attach_shared_memory(shm_name(process_index, run_id))
         except FileNotFoundError:
             return False
         unlink_shared_memory(shm)
@@ -409,11 +410,12 @@ class CheckpointEngine:
     # ---- load ------------------------------------------------------------
 
     def load(self, leaves: Sequence[core.Leaf], step: Optional[int] = None,
-             partial: bool = False) -> Optional[int]:
+             partial: bool = False, bridge=None) -> Optional[int]:
         """Restore into ``leaves`` in place: the segment if it holds a
         complete pack of this directory (and of ``step`` when given), else
         committed storage. Returns the restored step, or None if there is
-        none. A tree-contract violation (``core.RestoreMismatchError``) in
+        none. ``bridge``: ``core.restore_leaves``'s, for either tier. A
+        tree-contract violation (``core.RestoreMismatchError``) in
         the memory tier falls through to storage, the source of truth, but
         re-raises when no tier restores: a silent restart from scratch is
         the worst outcome of a restore bug."""
@@ -423,13 +425,14 @@ class CheckpointEngine:
         with get_tracer().span("failover.restore") as span:
             tier = "none"
             try:
-                got = self._load_from_memory(leaves, step, partial)
+                got = self._load_from_memory(leaves, step, partial,
+                                              bridge)
                 if got is not None:
                     tier = "memory"
             except core.RestoreMismatchError as e:
                 mismatch, got = e, None
             if got is None:
-                got = self.load_from_storage(leaves, step, partial)
+                got = self.load_from_storage(leaves, step, partial, bridge)
                 if got is not None:
                     tier = "storage"
             span.args["tier"] = tier
@@ -456,7 +459,8 @@ class CheckpointEngine:
             return None
         return meta
 
-    def _load_from_memory(self, leaves, step, partial) -> Optional[int]:
+    def _load_from_memory(self, leaves, step, partial, bridge=None
+                          ) -> Optional[int]:
         idx = core.PackIndex()
         try:
             name = shm_name(self.process_index)
@@ -489,7 +493,7 @@ class CheckpointEngine:
                 # each first touch of a page faults (a few GB/s at best)
                 self._register()
             idx.add_pack(self._buf)
-            core.restore_leaves(leaves, idx, partial)
+            core.restore_leaves(leaves, idx, partial, bridge)
             self.restored_extra = dict(idx.extra)
             logger.info("restored step %d from shared memory", idx.step)
             return idx.step
@@ -503,8 +507,8 @@ class CheckpointEngine:
         finally:
             idx.close()
 
-    def load_from_storage(self, leaves, step=None, partial=False
-                          ) -> Optional[int]:
+    def load_from_storage(self, leaves, step=None, partial=False,
+                          bridge=None) -> Optional[int]:
         step = step if step is not None else read_tracker(
             self.ckpt_dir, self._storage)
         if step is None:
@@ -525,7 +529,7 @@ class CheckpointEngine:
         try:
             for name in packs:
                 idx.add_pack(self._storage.mmap(os.path.join(step_dir, name)))
-            core.restore_leaves(leaves, idx, partial)
+            core.restore_leaves(leaves, idx, partial, bridge)
             self.restored_extra = dict(idx.extra)
         finally:
             idx.close()

@@ -37,8 +37,15 @@ the batches of an uninterrupted one. With ``--crash-at N`` the worker
 exits with code 17 right after step N when ``DLROVER_TPU_RESTART_COUNT``
 is 0. It prints ``resumed from step N`` (with the restore's tier), one
 loss line a step, with the step's device ms and its kernel launches by
-kernel, and (rank 0) the shard each step trained. Hybrid slices
-(``--hosts-per-slice``) wait for ROADMAP A9.
+kernel, and (rank 0) the shard each step trained.
+
+``--hosts-per-slice N`` builds the JAX example's hybrid multi-slice
+mesh: every N processes form one slice, ``num_slices = world // N``,
+``MeshConfig(dp=num_slices, fsdp=-1, num_slices=num_slices)``: fsdp
+inside a slice, dp across the slices (the mesh is built from the
+current world at every start). With ``--zero1`` the update shards over
+dp (the hybrid ZeRO step on the f32 wire). The worker prints ``[worker]
+slice mesh: num_slices=… dp=… fsdp=…``.
 """
 
 import argparse
@@ -72,6 +79,7 @@ from dlrover_tpu_torch.observability import telemetry
 from dlrover_tpu_torch.observability.profiler import StepTimer
 from dlrover_tpu_torch.observability.tracing import get_tracer
 from dlrover_tpu_torch.parallel import sharding as shd
+from dlrover_tpu_torch.parallel.mesh import MeshConfig, build_mesh
 from dlrover_tpu_torch.train import distributed
 from dlrover_tpu_torch.train.data_utils import iter_shards_spmd
 from dlrover_tpu_torch.train.optimizer import make_optimizer
@@ -301,6 +309,11 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--check-committed", action="store_true",
                    help="after a memory-tier resume, compare the staged "
                    "segment with the committed pack of its step")
+    p.add_argument("--hosts-per-slice", type=int, default=0,
+                   help="build a hybrid multi-slice mesh: every "
+                   "hosts-per-slice processes form one slice, dp rides "
+                   "across slices (num_slices = process_count // "
+                   "hosts_per_slice)")
     p.add_argument("--zero1", action="store_true",
                    help="ZeRO update sharding (the flat bucketed optimizer "
                    "state) through ElasticTrainer; required for --evict-at")
@@ -326,6 +339,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.evict_at >= 0 and not args.zero1:
         p.error("--evict-at needs --zero1 (the live reshard moves ZeRO "
                 "state)")
+    if args.evict_at >= 0 and args.hosts_per_slice > 0:
+        p.error("--evict-at with --hosts-per-slice: the live reshard "
+                "refuses a hybrid plan (mesh_axes beyond dp)")
     return args
 
 
@@ -362,8 +378,9 @@ class ZeroRun:
     shard feed, the saves, and the live reshard."""
 
     def __init__(self, args, cfg, opt, dev, client, sharding, rank, world,
-                 restart):
+                 restart, mesh=None):
         self.args, self.cfg, self.opt, self.dev = args, cfg, opt, dev
+        self.mesh = mesh
         self.client, self.sharding = client, sharding
         self.rank, self.restart = rank, restart
         self.comm = shd.CommConfig(update_sharding=True,
@@ -374,7 +391,7 @@ class ZeroRun:
                                       self._build_step,
                                       data_replicas_fn=lambda: len(self.ranks))
         self.state = init_train_state(args.seed, cfg, opt, device=dev,
-                                      comm=self.comm)
+                                      comm=self.comm, mesh=mesh)
         self.ckpt = Checkpointer(os.path.join(args.ckpt_dir, "checkpoints"),
                                  master_client=client)
         self.timer = StepTimer(dev)
@@ -384,7 +401,7 @@ class ZeroRun:
     def _build_step(self, accum: int):
         b = TrainStepBuilder(self.cfg, self.opt, grad_accum=accum,
                              device=self.dev, comm=self.comm,
-                             group=self.group)
+                             group=self.group, mesh=self.mesh)
         if not b.update_sharding:
             raise RuntimeError("--zero1: update sharding did not resolve: "
                                f"{b.update_sharding_reason}")
@@ -444,7 +461,9 @@ class ZeroRun:
         """The loop; the last step, None on a rank evicted midway."""
         args = self.args
         leaves = self.leaves()
-        if self.ckpt.load_checkpoint(leaves) is not None:
+        if self.ckpt.load_checkpoint(
+                leaves, bridge=convert.moment_bridge(self.cfg, self.opt)
+        ) is not None:
             convert.load_scalars(self.state, leaves, self.opt)
         resumed, _ = resume_line(self.ckpt.engine, self.state["step"])
         if resumed is not None:
@@ -643,6 +662,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise ValueError(f"--batch {args.batch} does not split over "
                          f"{world} ranks")
     rows = args.batch // world
+    mesh = None
+    if args.hosts_per_slice > 0:
+        # the mesh is built from the world of this start: a world that
+        # lost a whole slice re-meshes to fewer slices
+        num_slices = max(1, world // args.hosts_per_slice)
+        mesh = build_mesh(MeshConfig(dp=num_slices, fsdp=-1,
+                                     num_slices=num_slices))
+        say(f"[worker] slice mesh: num_slices={num_slices} "
+            f"dp={mesh.shape['dp']} fsdp={mesh.shape['fsdp']}")
     opt = make_optimizer(learning_rate=LR, warmup_steps=WARMUP,
                          decay_steps=DECAY)
     # one shard of the master's dataset a global step
@@ -654,7 +682,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             lambda r: say(f"[event] {r.to_json()}"),
             types=("ElasticEvent", "NumericEvent"))
         last = ZeroRun(args, cfg, opt, dev, client, sharding, rank, world,
-                       restart).train()
+                       restart, mesh).train()
     else:
         targs = TrainerArgs(
             output_dir=args.ckpt_dir, max_steps=args.steps, log_interval=0,
@@ -667,7 +695,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                       cfg.vocab_size), opt,
             master_client=client,
             callbacks=[StepPrinter(args, rank, restart, sharding)],
-            device=dev,
+            device=dev, mesh=mesh,
             ckpt_extra=lambda: ({"dataset": sharding.checkpoint()}
                                 if rank == 0 else {}))
         trainer.train()

@@ -24,17 +24,25 @@ everything here reads it:
   as ``{path: numpy array}`` (bf16 as ``np.uint16`` words: no ml_dtypes),
   the flattened JAX train state of numpy arrays.
 
-Under ZeRO update sharding (``shard=(plan, rank)``) the moments are the
-JAX update-sharded state's flat leaves, ``<mu path>/flat`` and ``<nu
-path>/flat`` of global shape ``(n_buckets, bucket_elems)``, of which a
-rank holds (and packs) its columns: the pack's shard index says which,
-so a pack per rank holds the whole state between them.
+Under ZeRO update sharding (``shard=(plan, dp rank)``) the moments are
+the JAX update-sharded state's flat leaves, ``<mu path>/flat`` and
+``<nu path>/flat`` of global shape ``(n_buckets, bucket_elems)``, of
+which a rank holds (and packs) its dp columns: the pack's shard index
+says which, so a pack per dp rank holds the whole state between them. On
+a dp × fsdp × tp mesh (the hybrid ZeRO step) the flat stream is the
+global leaves', every fsdp × tp peer of a dp rank packs the same
+columns, and the parameters are each rank's shards. A restore given
+``moment_bridge`` reads the flat moments into per-leaf ones and back,
+at the plan's offsets, so such a pack restores in one process, at
+another mesh without ZeRO, or at a pure-dp ZeRO layout of the same
+plan.
 
 It reads and writes numpy only: the caller moves arrays out of and into
 JAX.
 """
 
-from typing import Any, Dict, List, Tuple
+import math
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -232,6 +240,50 @@ def train_state_leaves(state: Dict, cfg: ModelConfig, optimizer,
     return sorted(leaves, key=lambda leaf: leaf.path.split("/"))
 
 
+def moment_bridge(cfg: ModelConfig, optimizer
+                  ) -> Callable[[Sequence[core.Leaf], core.PackIndex], None]:
+    """``core.restore_leaves``'s bridge for a train state of ``cfg`` and
+    ``optimizer``: each AdamW moment the leaves ask for in the layout the
+    pack lacks is added from the one it holds. A ``<moment>/flat`` leaf
+    (ZeRO's stream, global ``(n_buckets, bucket_elems)``) is laid out
+    from the per-leaf moments; per-leaf moments are cut from the flat
+    one. Where each leaf lies in the stream is the ``PackPlan``'s
+    (``sharding.build_pack_plan``: its offsets do not depend on dp or the
+    bucket size; zeros after the last leaf)."""
+    from dlrover_tpu_torch.parallel.sharding import build_pack_plan, pack_rows
+
+    plan = build_pack_plan(cfg, {}, 1)
+    _, mu, nu = opt_state_paths(optimizer)
+
+    def bridge(leaves: Sequence[core.Leaf], idx: core.PackIndex) -> None:
+        want = {leaf.path: leaf for leaf in leaves}
+        for prefix in (mu, nu):
+            flat = f"{prefix}/flat"
+            parts = [(f"{prefix}/{row[0]}", off, size, shape)
+                     for row, off, size, shape in zip(
+                         pack_rows(cfg), plan.offsets, plan.sizes,
+                         plan.shapes)]
+            if (flat in want and flat not in idx
+                    and all(p in idx for p, *_ in parts)):
+                shape = list(want[flat].global_shape)
+                stream = torch.zeros(math.prod(shape),
+                                     dtype=idx.dtype(parts[0][0]))
+                for p, off, size, leaf_shape in parts:
+                    stream[off: off + size] = idx.read_slice(
+                        p, [[0, d] for d in leaf_shape]).reshape(-1)
+                idx.add_tensor(flat, stream.view(shape))
+            missing = [x for x in parts if x[0] in want and x[0] not in idx]
+            if missing and flat in idx:
+                stream = idx.read_slice(
+                    flat, [[0, d] for d in idx.global_shape(flat)]
+                ).reshape(-1)
+                for p, off, size, leaf_shape in missing:
+                    idx.add_tensor(p, stream[off: off + size].reshape(
+                        leaf_shape))
+
+    return bridge
+
+
 def load_scalars(state: Dict, leaves: List[core.Leaf], optimizer) -> None:
     """Put the restored ``step`` and AdamW count of ``leaves`` (from
     ``train_state_leaves``) back into ``state``."""
@@ -259,9 +311,10 @@ def train_state_arrays(state: Dict, cfg: ModelConfig, optimizer,
                        shard=None) -> Dict[str, np.ndarray]:
     """``{JAX path: numpy array}`` of a port train state (bf16 leaves as
     ``np.uint16`` words). With ``shard`` a flat leaf holds this rank's
-    columns and zeros elsewhere: the ranks' arrays sum to the global
-    one, exactly (each element is one rank's value plus zeros). So does a
-    sharded model's leaf: its shard, zeros elsewhere."""
+    columns and zeros elsewhere: in a data-parallel world the ranks'
+    arrays sum to the global one, exactly (each element is one rank's
+    value plus zeros). So does a sharded model's leaf: its shard, zeros
+    elsewhere."""
     out = {}
     for leaf in train_state_leaves(state, cfg, optimizer, shard):
         full = torch.zeros(leaf.global_shape, dtype=core.DTYPES[leaf.dtype])
@@ -284,5 +337,5 @@ def load_train_state_arrays(state: Dict, arrays: Dict[str, np.ndarray],
     for path, a in arrays.items():
         idx.add_tensor(path, _from_numpy(np.asarray(a)))
     leaves = train_state_leaves(state, cfg, optimizer, shard)
-    core.restore_leaves(leaves, idx)
+    core.restore_leaves(leaves, idx, bridge=moment_bridge(cfg, optimizer))
     load_scalars(state, leaves, optimizer)

@@ -1,14 +1,18 @@
-"""The int8 KV block codec of the paged serving cache.
+"""The int8 block codecs: the paged serving cache's and the gradient
+wire's.
 
-Port of the KV part of ``dlrover_tpu/ops/quant.py``: ``_quant_blocks`` /
-``_dequant_blocks`` (8-bit only), ``kv_block_size``, ``kv_encode_rows``
-and ``kv_decode_rows``. The encoding is the per-block max/127 scheme:
+Port of the KV and wire parts of ``dlrover_tpu/ops/quant.py``:
+``_quant_blocks`` / ``_dequant_blocks`` (8-bit only), ``kv_block_size``,
+``kv_encode_rows``, ``kv_decode_rows``, and ``wire_encode_rows`` /
+``wire_decode_sum``, the int8 wire of ZeRO's gradient exchange
+(``parallel/sharding.py``). The encoding is the per-block max/127 scheme:
 one f32 scale per block of ``block`` elements, payloads rounded half to
 even (``torch.round``, like ``jnp.round``) and clipped to ±127. Every
 step is the same f32 operation in the same order as the JAX codec, so
-the two are bit-exact (pinned by ``tests/test_torch_quant.py``); the
-paged-attention kernel's in-register dequant reproduces
-``kv_decode_rows`` on the card.
+the two are bit-exact (pinned by ``tests/test_torch_quant.py`` and
+``tests/test_torch_wire_dtypes.py``); the paged-attention kernel's
+in-register dequant reproduces ``kv_decode_rows`` on the card. The wire
+codec is plain torch ops, as the JAX one is plain ``jnp``.
 """
 
 import torch
@@ -65,3 +69,25 @@ def kv_decode_rows(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
     out = _dequant_blocks(q, scale[..., None])
     *lead, nb, blk = out.shape
     return out.reshape(*lead, nb * blk).to(dtype)
+
+
+def wire_encode_rows(rows: torch.Tensor):
+    """Encode ``[r, n]`` f32 rows (n a multiple of ``BLOCK``) → (int8
+    ``[r, n]``, f32 scales ``[r, n // BLOCK]``), one scale a block of a
+    row."""
+    r, n = rows.shape
+    q, scale = _quant_blocks(rows.to(torch.float32).reshape(
+        r, n // BLOCK, BLOCK))
+    return q.reshape(r, n), scale[..., 0]
+
+
+def wire_decode_sum(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Decode ``wire_encode_rows``'s output and sum the rows in f32 →
+    ``[n]``: row 0 first, each next row added in turn."""
+    r, n = q.shape
+    rows = _dequant_blocks(q.reshape(r, n // BLOCK, BLOCK),
+                           scale[..., None]).reshape(r, n)
+    out = rows[0].clone()
+    for i in range(1, r):
+        out += rows[i]
+    return out

@@ -27,12 +27,18 @@ decoder under ``DEFAULT_RULES``), made explicit:
   vocab-parallel logz), and ``tp_argmax``: the first maximum over the
   whole vocab from each rank's maximum and its global index.
 
+And ``all_to_all_rows``, the untiled all-to-all of ZeRO's quantized
+gradient wires (``parallel/sharding.py``): row j of a rank's tensor to
+rank j of the group.
+
 Transport. On an NCCL group the tensors go as they are. On a gloo group
 (the caller asked for it: several ranks that share one card, or the CPU)
 a CUDA tensor is staged through a page-locked host buffer, since gloo
 moves host memory: the point-to-point batches, all-to-alls, all-gathers,
 reduce-scatters and all-reduces run on the host copies, and the results
-come back to the card. Nothing here picks a backend.
+come back to the card; ``all_to_all_rows`` moves its rows across a gloo
+group as bytes (the same bits: an all-to-all does no arithmetic).
+Nothing here picks a backend.
 """
 
 from typing import List, Sequence, Tuple
@@ -131,6 +137,27 @@ def all_to_all(x: torch.Tensor, mesh, split_axis: int, concat_axis: int,
     ``split_axis``, chunk j sent to coordinate j, the chunks received
     joined along ``concat_axis`` in coordinate order. Differentiable."""
     return _AllToAll.apply(x, split_axis, concat_axis, mesh.group(axis))
+
+
+def all_to_all_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` of ``[n, ...]`` over a group of n ranks: row j goes to rank j
+    of the group, and row i of the result came from rank i (one
+    ``all_to_all_single``; ``jax.lax.all_to_all`` with ``split_axis =
+    concat_axis = 0``)."""
+    x = x.contiguous()
+    gloo = dist.get_backend(group) == dist.Backend.GLOO
+    # gloo takes some dtypes and not others (int16 not, on torch 2.x):
+    # it moves every one as its bytes, which an all-to-all leaves as they
+    # are
+    words = x.view(torch.uint8) if gloo else x
+    staged = _staged(group, words)
+    send = _host(words) if staged else words
+    recv = torch.empty(send.shape, dtype=send.dtype, device=send.device,
+                       pin_memory=staged)
+    dist.all_to_all_single(recv, send, group=group)
+    if staged:
+        recv = recv.to(x.device)
+    return recv.view(x.dtype)
 
 
 def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:

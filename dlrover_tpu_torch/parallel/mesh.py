@@ -22,18 +22,33 @@ that differ only in those coordinates): the parameter collectives run
 over fsdp and tp, each gradient's sum over the axes where its
 contributions differ (``train/train_step.py``).
 
+The multi-slice layout (``MeshConfig.num_slices``, the JAX hybrid
+mesh): the ranks are laid out slice-major, dp outermost, so with ``dp %
+num_slices == 0`` slice ``s`` is the contiguous block of ranks ``[s·W/n,
+(s+1)·W/n)`` (the JAX CPU emulation's order: a row-major reshape of the
+device list). The JAX package reads a device's ``slice_index``; a rank
+here has none, so the layout decides which slice it is in, and
+``axis_crosses_dcn`` reads the layout: dp crosses slices when
+``num_slices`` is above 1, every other axis stays inside one. Where the
+workers know their node (``GraftEnv.NODE_RANK``, which the elastic
+agent sets), a slice whose ranks lie on two nodes raises
+(``check_slice_nodes``), as the JAX real-hardware path lets a
+misconfiguration raise.
+
 Refused, each naming its ROADMAP item: ``pp`` and ``ep`` above 1
-(A16: pipeline, MoE), sp above 1 together with fsdp or tp (A9: the
-JAX sequence paths keep heads over tp), and the multi-slice layout
-(A9).
+(A16: pipeline, MoE) and sp above 1 together with fsdp or tp (A9: the
+JAX sequence paths keep heads over tp).
 """
 
 import itertools
 import math
+import os
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch.distributed as dist
+
+from dlrover_tpu_torch.common.constants import GraftEnv
 
 MESH_AXES = ("dp", "pp", "ep", "fsdp", "sp", "tp")
 #: the ROADMAP item that ports each other axis
@@ -52,7 +67,8 @@ class MeshConfig:
     fsdp: int = 1
     sp: int = 1
     tp: int = 1
-    # DCN-connected slices (the JAX multi-slice layout); the port runs 1
+    # DCN-connected slices (the JAX multi-slice layout): dp outermost,
+    # cut over them
     num_slices: int = 1
 
     def resolved_sizes(self, n_devices: int) -> Dict[str, int]:
@@ -79,7 +95,7 @@ class MeshConfig:
                       if k in cls.__dataclass_fields__})
 
 
-def check_ported(sizes: Dict[str, int], num_slices: int = 1) -> None:
+def check_ported(sizes: Dict[str, int]) -> None:
     """Raise ``NotImplementedError`` for an axis above 1 the port does not
     run, or a combination it does not, naming the ROADMAP item that ports
     it."""
@@ -96,10 +112,6 @@ def check_ported(sizes: Dict[str, int], num_slices: int = 1) -> None:
             f"tp={sizes.get('tp', 1)}: sequence parallelism together with "
             "sharded parameters is not ported yet (ROADMAP A9); the port "
             "runs dp x fsdp x tp or dp x sp")
-    if num_slices != 1:
-        raise NotImplementedError(
-            f"num_slices={num_slices}: the multi-slice layout is not "
-            "ported yet (ROADMAP A9)")
 
 
 def rank_coords(rank: int, sizes: Dict[str, int]) -> Dict[str, int]:
@@ -162,17 +174,37 @@ def _key(shape: Dict[str, int], axes: Axes) -> Tuple[str, ...]:
     return tuple(a for a in MESH_AXES if a in axes and shape[a] > 1)
 
 
+def check_slices(sizes: Dict[str, int], num_slices: int) -> None:
+    """Raise ``ValueError`` unless dp divides over ``num_slices``, as the
+    JAX ``build_mesh`` does."""
+    if num_slices < 1:
+        raise ValueError(f"num_slices must be >= 1, got {num_slices}")
+    if sizes["dp"] % num_slices:
+        raise ValueError(f"dp={sizes['dp']} must be divisible by "
+                         f"num_slices={num_slices}")
+
+
+def slice_of(rank: int, world: int, num_slices: int) -> int:
+    """The slice rank ``rank`` lies in: slice-major, ``world //
+    num_slices`` ranks a slice."""
+    return rank // (world // num_slices)
+
+
 class Mesh:
     """The mesh as this rank sees it: ``shape`` (axis → size, as the JAX
     ``Mesh.shape``), this rank's coordinates, the ranks of its group along
-    each axis and, when sp is above 1, its sp process group."""
+    each axis and, when sp is above 1, its sp process group;
+    ``num_slices``, the DCN slices dp is cut over."""
 
     def __init__(self, sizes: Dict[str, int], rank: int = 0,
-                 groups: Optional[Dict[str, object]] = None):
+                 groups: Optional[Dict[str, object]] = None,
+                 num_slices: int = 1):
         self.shape = {a: int(sizes.get(a, 1)) for a in MESH_AXES}
         self.rank = rank
         self.coords = rank_coords(rank, self.shape)
         self._groups = dict(groups or {})
+        check_slices(self.shape, num_slices)
+        self.num_slices = num_slices
 
     @property
     def size(self) -> int:
@@ -207,22 +239,76 @@ class Mesh:
         return math.prod(self.shape[a] for a in _axes(axis))
 
     def __repr__(self):
-        return f"Mesh({self.shape}, rank={self.rank})"
+        slices = (f", num_slices={self.num_slices}" if self.num_slices > 1
+                  else "")
+        return f"Mesh({self.shape}, rank={self.rank}{slices})"
+
+
+def axis_crosses_dcn(mesh: Mesh, axis: str) -> bool:
+    """True when stepping along ``axis`` can change slice: a collective
+    over ``axis`` crosses DCN. One pencil along ``axis`` through each
+    point of the other axes' grid, each rank's slice from the layout
+    (``slice_of``)."""
+    if mesh.shape.get(axis, 1) <= 1 or mesh.num_slices <= 1:
+        return False
+    world = mesh.size
+    for rank in range(world):
+        c = rank_coords(rank, mesh.shape)
+        if c[axis]:
+            continue
+        pencil = _members(c, mesh.shape, (axis,))
+        if len({slice_of(r, world, mesh.num_slices) for r in pencil}) > 1:
+            return True
+    return False
+
+
+def check_slice_nodes(nodes: Sequence[int], num_slices: int) -> None:
+    """Raise ``ValueError`` naming the first slice whose ranks lie on two
+    nodes: ``nodes[r]``, rank r's node; the slices slice-major over the
+    ranks."""
+    world = len(nodes)
+    for s in range(num_slices):
+        members = [r for r in range(world)
+                   if slice_of(r, world, num_slices) == s]
+        on = sorted({nodes[r] for r in members})
+        if len(on) > 1:
+            raise ValueError(
+                f"slice {s} of {num_slices} (ranks {members}) spans nodes "
+                f"{on}: a slice must lie on one node")
+
+
+def _gather_nodes(world: int) -> Optional[List[int]]:
+    """Every rank's node (``GraftEnv.NODE_RANK``, which the elastic agent
+    sets), gathered over the world; None where the workers do not know
+    theirs."""
+    node = os.environ.get(GraftEnv.NODE_RANK)
+    if node is None:
+        return None
+    nodes: List[int] = [0] * world
+    dist.all_gather_object(nodes, int(node))
+    return nodes
 
 
 def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     """The mesh over the ``torch.distributed`` world (one process, no
     group: a world of 1). Every rank calls it, in the same order as its
     other group-forming calls: sp above 1 forms all its groups, and fsdp
-    or tp above 1 the groups of every combination of dp, fsdp and tp."""
+    or tp above 1 the groups of every combination of dp, fsdp and tp.
+    With ``num_slices`` above 1, dp must divide over the slices
+    (``ValueError``, as in JAX) and, where the node ranks are known, no
+    slice may span two nodes."""
     config = config or MeshConfig()
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     rank = dist.get_rank() if initialized else 0
-    check_ported({a: getattr(config, a) for a in MESH_AXES},
-                 config.num_slices)
+    check_ported({a: getattr(config, a) for a in MESH_AXES})
     sizes = config.resolved_sizes(world)
     check_ported(sizes)
+    check_slices(sizes, config.num_slices)
+    if initialized and config.num_slices > 1:
+        nodes = _gather_nodes(world)
+        if nodes is not None:
+            check_slice_nodes(nodes, config.num_slices)
     keys = []
     if sizes["sp"] > 1:
         keys.append(("sp",))
@@ -238,4 +324,4 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
             g = dist.new_group(members)
             if rank in members:
                 groups[key] = g
-    return Mesh(sizes, rank, groups)
+    return Mesh(sizes, rank, groups, config.num_slices)

@@ -4,8 +4,9 @@ Port of ``dlrover_tpu/train/train_step.py``: ``init_train_state``,
 ``TrainStepBuilder`` (``step_fn``, ``build``, the fused K-step
 ``block_fn`` and ``build_block``) and ``build_eval_step``, over no mesh,
 a dp × sp mesh or a dp × fsdp × tp mesh (``parallel/mesh.py``),
-replicated or with ZeRO update sharding on the f32 wire, without fp8 or
-health sentinels.
+replicated or with ZeRO update sharding (on dp, or on dp × fsdp and dp ×
+tp), on the f32, bf16 or int8 gradient wire, without fp8 or health
+sentinels.
 
 In a ``torch.distributed`` data-parallel group of W > 1 processes (the
 world, or the ``group`` given: the survivors after a live reshard) the
@@ -25,16 +26,18 @@ accuracy, go through one flat f32 all-reduce.
 
 Update-sharded (``comm.update_sharding``, JAX ``_sharded_step_fn``; the
 parameters stay whole f32 on every rank): the gradients are packed into
-the flat bucket stream (``parallel/sharding.py``) and reduce-scattered
-a bucket at a time, so each rank gets the summed gradients of its
-columns: zero2 exchanges every micro-batch and accumulates the shard,
-zero1 accumulates the full local gradient and exchanges once. The shard
-is divided by a after the exchange; the global gradient norm is the
-square sums all-reduced over the group; AdamW (its moments this rank's
-columns of every bucket) updates this rank's columns of the packed
-parameters, ``p_shard + u`` before the gather as JAX ``:1040-1054``
-does; one all-gather brings every rank's columns back and they are
-unpacked into the parameters.
+the flat bucket stream (``parallel/sharding.py``) and exchanged a
+bucket at a time on the wire ``comm.wire_for(mesh, "dp")`` names (f32:
+a reduce-scatter; bf16, int8: an all-to-all, summed in f32), so each
+rank gets the summed gradients of its columns: zero2 exchanges every
+micro-batch and accumulates the shard, zero1 accumulates the full local
+gradient and exchanges once. The shard is divided by a after the
+exchange; the global gradient norm is the square sums all-reduced over
+the group; AdamW (its moments this rank's columns of every bucket)
+updates this rank's columns of the packed parameters, a bucket's row at
+a time (``_update_columns``), ``p_shard + u`` before the gather as JAX
+``:1040-1054`` does; one all-gather brings
+every rank's columns back and they are unpacked into the parameters.
 
 Under a dp × sp ``mesh`` (the JAX step's ``batch_sharding`` over
 ``("dp", "fsdp")`` rows and the sp sequence) each rank's batch is the
@@ -60,14 +63,35 @@ same on every tp rank, as the norm scales' are after Megatron's
 them (the JAX ``state_shardings``); the global gradient norm counts
 every element once: each rank's square sums divided by the ranks of its
 fsdp × tp group that hold the same values, then summed over that group.
-ZeRO update sharding on such a mesh falls back to this replicated
-update with its reason (ROADMAP A9 ports it).
+
+ZeRO on a dp × fsdp or dp × tp mesh (the JAX hybrid step: manual over
+dp, fsdp and tp left to the partitioner; the f32 wire only, as the JAX
+gate asks). The plan packs the GLOBAL leaves, and a rank's moments are
+the JAX hybrid layout's: its dp coordinate's columns of every bucket
+(``P(None, "dp")``), the same columns on every fsdp × tp peer (the port
+cuts a dp column block no further: each peer updates the same columns,
+as the JAX partitioner keeps the flat view replicated over fsdp and
+tp). After each backward (zero2) or the last (zero1) every leaf's
+gradient is summed over its ``reduce_axes`` but dp, so each rank holds
+its shard of the dp-local gradient; the shards are gathered over the
+fsdp × tp group and laid into the global stream, each at its global
+index (``sharding.pack_shards``: copied, so a leaf replicated over tp
+lands once), and exchanged over the dp group. The loss and accuracy sum
+over dp × fsdp, the columns' square sums over dp only (every peer holds
+the same columns: a sum over fsdp or tp would count them again). The
+update runs on the parameters' dp columns, and after the dp all-gather
+each rank keeps its own shards (``sharding.unpack_shard``), as JAX
+re-pins the rule shardings. A rank keeps its updated columns for the
+next step (``_param_columns``), so the parameters' global stream is
+assembled over fsdp × tp only for the first step and after something
+else wrote the parameters (a restore).
 
 The JAX step is a pure function whose jitted call donates the old state;
 the port updates the state's parameters and moments IN PLACE and returns
 the same dict.
 """
 
+import weakref
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -75,9 +99,10 @@ import torch
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import decoder
 from dlrover_tpu_torch.models.config import ModelConfig
-from dlrover_tpu_torch.parallel.collectives import all_reduce_
+from dlrover_tpu_torch.observability.tracing import get_tracer
+from dlrover_tpu_torch.parallel.collectives import all_gather_dim, all_reduce_
 from dlrover_tpu_torch.parallel import sharding as shd
-from dlrover_tpu_torch.parallel.mesh import check_ported, data_axes
+from dlrover_tpu_torch.parallel.mesh import Mesh, check_ported, data_axes
 from dlrover_tpu_torch.train.data_utils import sequence_block
 from dlrover_tpu_torch.train.distributed import process_count, process_index
 from dlrover_tpu_torch.train.optimizer import (
@@ -106,8 +131,7 @@ def init_train_state(seed: int, cfg: ModelConfig, optimizer: AdamW,
                          mesh=mesh)
     params = dict(model.named_parameters())
     active, _, plan = shd.resolve_update_sharding(
-        cfg, params, process_count(group), comm,
-        None if mesh is None else mesh.shape)
+        cfg, params, process_count(group), comm, mesh)
     if active:
         flat = {"flat": torch.zeros((plan.n_buckets, plan.bucket_elems
                                      // plan.dp), device=dev)}
@@ -169,16 +193,30 @@ class TrainStepBuilder:
                                       trainable=True).named_parameters())
         (self.update_sharding, self.update_sharding_reason,
          self.plan) = shd.resolve_update_sharding(
-            cfg, params, self.world, comm,
-            None if mesh is None else mesh.shape)
+            cfg, params, self.world, comm, mesh)
         self.update_mode = comm.update_mode if self.update_sharding else ""
+        self.wire = comm.wire_for(mesh, "dp") if self.update_sharding else None
+        # the exchange's group and this rank's columns: the dp axis of a
+        # sharded mesh, else the data-parallel group
+        self.dp_group, self.dp_rank = ((mesh.group("dp"), mesh.coord("dp"))
+                                       if self.sharded
+                                       else (group, self.rank))
+        if self.update_sharding and self.sharded:
+            # every peer of this rank's fsdp x tp group, in group order:
+            # where its shards lie in the global leaves
+            self.peer_layouts = [
+                decoder.param_layout(cfg, Mesh(mesh.shape, r))
+                for r in mesh.ranks(("fsdp", "tp"))]
+        # the last update's parameter columns and what they were read
+        # from (``_param_columns``)
+        self._kept = None
 
     @property
     def shard(self):
-        """(plan, rank) of the flat optimizer state when update sharding
-        is active, else None: what ``convert.train_state_leaves`` needs to
-        lay the state out."""
-        return (self.plan, self.rank) if self.update_sharding else None
+        """(plan, dp rank) of the flat optimizer state when update
+        sharding is active, else None: what ``convert.train_state_leaves``
+        needs to lay the state out."""
+        return (self.plan, self.dp_rank) if self.update_sharding else None
 
     def _loss(self, model, batch, denom=None):
         return decoder.loss_fn(model, batch, self.cfg,
@@ -268,38 +306,144 @@ class TrainStepBuilder:
         return {"loss": stats[0].clone(), "accuracy": stats[1].clone(),
                 "tokens": sums["tokens"], "grad_norm": norm}
 
+    def _stream(self, tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global flat stream of ``tensors`` (by param name): packed
+        as they are, or, on a sharded mesh, every fsdp × tp peer's shards
+        gathered (one all-gather) and laid at their global indices. The
+        dict is emptied once its values are copied, so that what only it
+        still holds is freed before the gather."""
+        if not self.sharded:
+            return shd.pack_flat(self.cfg, tensors, self.plan)
+        shapes = {n: t.shape for n, t in tensors.items()}
+        mine = torch.cat([t.reshape(-1).float() for t in tensors.values()])
+        tensors.clear()
+        n_mine = mine.numel()
+        got = all_gather_dim(mine, 0, self.mesh.group(("fsdp", "tp")))
+        del mine
+        blocks = []
+        for i in range(len(self.peer_layouts)):
+            at, own = i * n_mine, {}
+            for n, shape in shapes.items():
+                own[n] = got[at: at + shape.numel()].view(shape)
+                at += shape.numel()
+            blocks.append(own)
+        return shd.pack_shards(self.cfg, blocks, self.peer_layouts,
+                               self.plan)
+
+    def _grad_stream(self, params) -> torch.Tensor:
+        """The stream of this rank's dp-local gradients: on a sharded
+        mesh each leaf first summed over its ``reduce_axes`` but dp. The
+        parameters' ``.grad`` are dropped: the stream holds them now."""
+        if self.sharded:
+            buckets: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
+            for n, p in params.items():
+                axes = tuple(a for a in self.reduce_axes[n] if a != "dp")
+                if axes and self.mesh.size_of(axes) > 1:
+                    buckets.setdefault(axes, []).append(p.grad)
+            for axes, grads in buckets.items():
+                flat = torch.cat([g.reshape(-1).float() for g in grads])
+                self._sum(flat, axes)
+                at = 0
+                for g in grads:
+                    g.copy_(flat[at: at + g.numel()].view(g.shape))
+                    at += g.numel()
+            buckets = grads = flat = None  # no reference past the gather
+        grads = {n: p.grad for n, p in params.items()}
+        for p in params.values():
+            p.grad = None
+        return self._stream(grads)
+
+    def _exchange(self, params) -> torch.Tensor:
+        """This rank's columns of the dp-summed gradient stream, under a
+        ``zero.exchange`` span (the host's time in the gather and the
+        exchange, the wire's bytes)."""
+        with get_tracer().span("zero.exchange", wire=self.wire) as span:
+            out = shd.exchange_buckets(self._grad_stream(params), self.plan,
+                                       self.dp_group, wire=self.wire)
+            span.args["bytes"] = shd.wire_bytes(self.plan, self.wire)
+        return out
+
+    def _param_columns(self, params) -> torch.Tensor:
+        """This rank's dp columns of the parameters' f32 stream. The last
+        step's updated columns are kept while the parameters are the same
+        tensors at the versions that step's unpack left (a restore, or any
+        other write, moves a version): a step then reads them from no
+        collective and builds no global parameter stream."""
+        kept = self._kept
+        if kept is not None and len(kept[0]) == len(params) and all(
+                ref() is p and v == p._version
+                for (ref, v), p in zip(kept[0], params.values())):
+            return kept[1]
+        self._kept = None
+        return self._stream(dict(params))[:, self.plan.columns(
+            self.dp_rank)].contiguous()
+
+    def _update_columns(self, p_shard: torch.Tensor, shards: torch.Tensor,
+                        opt_state: Dict, norm: torch.Tensor) -> None:
+        """AdamW on this rank's columns, a bucket's row as a leaf: the
+        update's temporaries are a row's size, not the whole shard's (the
+        arithmetic is elementwise, so the bits are the same)."""
+        rows = range(p_shard.shape[0])
+        state = {"step": opt_state["step"],
+                 "m": {i: opt_state["m"]["flat"][i] for i in rows},
+                 "v": {i: opt_state["v"]["flat"][i] for i in rows}}
+        self.optimizer.update_({i: p_shard[i] for i in rows},
+                               {i: shards[i] for i in rows}, state, norm=norm)
+        opt_state["step"] = state["step"]
+
+    def _keep_columns(self, params, p_shard: torch.Tensor) -> None:
+        """Keep ``p_shard``, the columns just unpacked into ``params``, for
+        ``_param_columns``: beside each parameter (weakly) and its
+        version now."""
+        self._kept = ([(weakref.ref(p), p._version)
+                       for p in params.values()], p_shard)
+
+    def _zero_sums(self, stats: torch.Tensor, sq: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss and accuracy summed over the data ranks, the columns'
+        square sum over dp): one all-reduce over the group, or, on a
+        sharded mesh, the stats over dp × fsdp and the square sum over dp
+        (every fsdp × tp peer holds the same columns)."""
+        if not self.sharded:
+            red = all_reduce_(torch.cat([stats, sq.reshape(1)]), self.group)
+            return red[:2], red[2]
+        return self._sum(stats, data_axes()), self._sum(sq, "dp")
+
     def _zero_step(self, model, params, batch, opt_state) -> Dict:
         """The update-sharded step (module docstring); the parameters
         updated in place, the metrics returned."""
-        cfg, plan, group, a = self.cfg, self.plan, self.group, self.grad_accum
+        cfg, plan, a = self.cfg, self.plan, self.grad_accum
         defer = self.update_mode == "zero1"
         shards, sums = None, {}
         for mb in self._micro(batch):
             self._local_micro(model, mb, sums)
             if not defer:
-                got = shd.exchange_buckets(
-                    shd.pack_flat(cfg, {n: p.grad for n, p in params.items()},
-                                  plan), plan, group)
+                got = self._exchange(params)
                 shards = got if shards is None else shards + got
                 for p in params.values():
                     p.grad = None
         if defer:
-            shards = shd.exchange_buckets(
-                shd.pack_flat(cfg, {n: p.grad for n, p in params.items()},
-                              plan), plan, group)
+            shards = self._exchange(params)
+            for p in params.values():
+                p.grad = None
         if a > 1:
             # divide AFTER the exchange, where the JAX step divides
             shards = shards / a
-        red = all_reduce_(torch.stack([sums["loss"], sums["accuracy"],
-                                       shards.square().sum()]), group)
-        norm = torch.sqrt(red[2])
-        p_shard = shd.pack_flat(cfg, params, plan)[
-            :, plan.columns(self.rank)].contiguous()
-        self.optimizer.update_({"flat": p_shard}, {"flat": shards}, opt_state,
-                               norm=norm)
-        shd.unpack_flat(cfg, shd.all_gather_columns(p_shard, plan, group),
-                        params, plan)
-        return {"loss": red[0] / a, "accuracy": red[1] / a,
+        stats, sq = self._zero_sums(
+            torch.stack([sums["loss"], sums["accuracy"]]).float(),
+            shards.square().sum())
+        norm = torch.sqrt(sq)
+        p_shard = self._param_columns(params)
+        self._update_columns(p_shard, shards, opt_state, norm)
+        del shards
+        full = shd.all_gather_columns(p_shard, plan, self.dp_group)
+        if self.sharded:
+            shd.unpack_shard(cfg, full, params, plan, self.layout)
+        else:
+            shd.unpack_flat(cfg, full, params, plan)
+        del full
+        self._keep_columns(params, p_shard)
+        return {"loss": stats[0] / a, "accuracy": stats[1] / a,
                 "tokens": sums["tokens"], "grad_norm": norm}
 
     def step_fn(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:

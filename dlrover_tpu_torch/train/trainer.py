@@ -27,14 +27,17 @@ trainer reports the model's statistics (rank 0) and every global step,
 as the JAX trainer does, and its checkpoints report their staged steps.
 
 ``update_sharding`` (True, ``"zero1"``, ``"zero2"``) with
-``comm_bucket_mb`` runs the ZeRO step on the f32 wire
-(``train_step.py``): the moments are this rank's columns of the flat
-bucket stream, and each rank's checkpoint pack holds its columns.
+``comm_bucket_mb`` runs the ZeRO step (``train_step.py``) on the wire
+``comm_wire_dtype`` names (``comm_wire_dtype_dcn`` where dp crosses the
+slices of a ``MeshConfig(num_slices=...)``), over a data-parallel world
+or the dp axis of a dp × fsdp × tp mesh: the moments are this rank's dp
+columns of the flat bucket stream, and each rank's checkpoint pack holds
+its columns (the same on every fsdp × tp peer).
 
 Not ported yet, and refused with the ROADMAP item that ports them: pp
-and ep (A16), sp together with fsdp or tp and uneven splits (A9), the
-bf16 and int8 gradient wires (A9), health sentinels and the sampled
-runtime profile (A12), the gradient sanitizer (A17).
+and ep (A16), sp together with fsdp or tp and uneven splits (A9), health
+sentinels and the sampled runtime profile (A12), the gradient sanitizer
+(A17).
 """
 
 import os
@@ -111,22 +114,18 @@ class TrainerArgs:
     # per-step loop. Cadences and max_steps stay exact for any K; control
     # flags are honored at the next block boundary.
     block_k: int = 1
-    # ZeRO update sharding (True = "zero2", "zero1", "zero2") and its
-    # bucket size, on the f32 wire
+    # ZeRO update sharding (True = "zero2", "zero1", "zero2"), its bucket
+    # size and the gradient wire (float32, bfloat16, int8; the dcn one
+    # where dp crosses slices)
     update_sharding: Union[bool, str] = False
     comm_bucket_mb: float = 4.0
-    comm_wire_dtype: str = "float32"            # ROADMAP A9
-    comm_wire_dtype_dcn: Optional[str] = None   # ROADMAP A9
+    comm_wire_dtype: str = "float32"
+    comm_wire_dtype_dcn: Optional[str] = None
     health_sentinels: bool = False              # ROADMAP A12
     sanitize_grads: Optional[str] = None        # ROADMAP A17
 
 
 def _refuse_unported(args: TrainerArgs) -> None:
-    if (args.comm_wire_dtype != "float32"
-            or args.comm_wire_dtype_dcn is not None):
-        raise NotImplementedError(
-            "comm_wire_dtype/comm_wire_dtype_dcn: the bf16 and int8 gradient "
-            "wires are not ported yet (ROADMAP A9)")
     if args.health_sentinels or args.profile_interval:
         raise NotImplementedError(
             "health_sentinels and profile_interval are not ported yet "
@@ -139,8 +138,7 @@ def _refuse_unported(args: TrainerArgs) -> None:
 def _mesh(mesh):
     """A ``MeshConfig`` built over the world, a ``Mesh`` checked: pp and
     ep above 1, and sp with fsdp or tp, raise naming their ROADMAP
-    items, as does any other kind of mesh (a JAX mesh, say: the
-    multi-slice layout waits for A9)."""
+    items, as does any other kind of mesh (a JAX mesh, say)."""
     if mesh is None:
         return None
     if isinstance(mesh, MeshConfig):
@@ -200,7 +198,9 @@ class Trainer:
         self._init_state_fn = init_state_fn
         self._ckpt_extra = ckpt_extra
         self.comm = (CommConfig(update_sharding=args.update_sharding,
-                                bucket_mb=args.comm_bucket_mb)
+                                bucket_mb=args.comm_bucket_mb,
+                                wire_dtype=args.comm_wire_dtype,
+                                wire_dtype_dcn=args.comm_wire_dtype_dcn)
                      if args.update_sharding else None)
         self._builder = step_builder or TrainStepBuilder(
             cfg, optimizer, grad_accum=args.grad_accum,
@@ -267,7 +267,8 @@ class Trainer:
         leaves = self.state_leaves()
         restored = self.checkpointer.load_checkpoint(
             leaves, step=self.args.resume_from_step,
-            partial=self.args.resume_partial)
+            partial=self.args.resume_partial,
+            bridge=convert.moment_bridge(self.cfg, self.optimizer))
         if restored is not None:
             convert.load_scalars(self.state, leaves, self.optimizer)
             logger.info("resumed from step %d", self.state["step"])

@@ -33,8 +33,10 @@
   gradients summed over tp (doubled), and with ``wk``/``wv``'s not
   summed over tp (partial), each falls outside those bounds.
 - Refusals: sp with fsdp or tp, pp, ep, and uneven splits raise,
-  naming their ROADMAP items; ZeRO update sharding on a dp × fsdp or dp
-  × tp mesh falls back to the replicated update with its reason.
+  naming their ROADMAP items. ZeRO update sharding on a dp × fsdp or dp
+  × tp mesh resolves to the JAX hybrid plan on the f32 wire, and falls
+  back with the JAX reason on a quantized wire (its stream:
+  ``tests/test_torch_hybrid_zero.py``).
 """
 
 import os
@@ -349,14 +351,32 @@ def test_data_axes_and_the_rows_of_a_rank_are_the_jax_batch_shard():
                                       np.asarray(shard.data))
 
 
-@pytest.mark.parametrize("kw,axes", [(dict(dp=2, fsdp=2), "['fsdp']"),
-                                     (dict(dp=2, tp=2), "['tp']")])
+@pytest.mark.parametrize("kw,axes", [(dict(dp=2, fsdp=2), ("fsdp",)),
+                                     (dict(dp=2, tp=2), ("tp",))])
 def test_zero_on_a_sharded_mesh_falls_back_with_its_reason(kw, axes):
-    _, cfg = _cfgs(_LLAMA)
+    """ZeRO on dp × fsdp and dp × tp is active on the f32 wire, its plan
+    the JAX hybrid plan (global leaves, ``mesh_axes`` dp and the axis in
+    use); a quantized wire there falls back with the JAX reason."""
+    jcfg, cfg = _cfgs(_LLAMA)
     sizes = tmesh.MeshConfig(**kw).resolved_sizes(4)
     params = dict(tdec.Decoder(cfg, device="meta",
                                trainable=True).named_parameters())
+    mesh = tmesh.Mesh(sizes, 0)
     active, reason, plan = tshd.resolve_update_sharding(
-        cfg, params, 4, tshd.CommConfig(update_sharding=True), sizes)
-    assert (active, plan) == (False, None)
-    assert reason == f"non-dp mesh axes in use: {axes}"
+        cfg, params, 4, tshd.CommConfig(update_sharding=True), mesh)
+    assert (active, reason) == (True, None)
+    abs_ = jax.eval_shape(lambda: jdec.init(jax.random.key(0), jcfg))
+    want = jshd.build_pack_plan(abs_, 2, tshd.CommConfig().bucket_bytes,
+                                mesh_axes=("dp",) + axes)
+    for field in ("shapes", "sizes", "offsets", "total", "bucket_elems",
+                  "n_buckets", "dp", "tie_size", "n_tie_buckets",
+                  "mesh_axes"):
+        assert getattr(plan, field) == getattr(want, field), field
+    jm = _jmesh(kw)
+    for wire in ("bfloat16", "int8"):
+        comm = tshd.CommConfig(update_sharding=True, wire_dtype=wire)
+        got = tshd.resolve_update_sharding(cfg, params, 4, comm, mesh)
+        ref = jts.resolve_update_sharding(
+            jcfg, jm, jopt.make_optimizer(**_OPT),
+            jshd.CommConfig(update_sharding=True, wire_dtype=wire))
+        assert got[:2] == ref[:2] and not got[0] and "pure-dp" in got[1]

@@ -11,7 +11,7 @@ JAX package's, on the CPU.
   dp rows, and its sp sequence block from ``data_utils.sequence_block``) is the shard JAX's ``batch_sharding``
   puts on that device;
 - the layouts the port does not run raise, naming their ROADMAP items
-  (sp with fsdp or tp, multi-slice: A9; pp, ep: A16), and so does
+  (sp with fsdp or tp: A9; pp, ep: A16), and so does
   ``Trainer`` given such a mesh (fsdp and tp themselves:
   ``tests/test_torch_fsdp_tp.py``);
 - ``Trainer`` given ``MeshConfig(dp=2, sp=2)`` in 4 gloo processes
@@ -100,14 +100,13 @@ def test_local_batch_is_the_jax_shard(kw):
 
 @pytest.mark.parametrize("kw,item", [
     (dict(fsdp=2, sp=2), "A9"), (dict(tp=2, sp=2), "A9"), (dict(pp=2), "A16"),
-    (dict(ep=2), "A16"), (dict(num_slices=2), "A9")])
+    (dict(ep=2), "A16")])
 def test_unported_axes_raise_naming_their_item(tmp_path, kw, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tmesh.build_mesh(tmesh.MeshConfig(**kw))
-    world = int(np.prod([v for k, v in kw.items() if k != "num_slices"]))
+    world = int(np.prod(list(kw.values())))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        tmesh.check_ported(tmesh.MeshConfig(**kw).resolved_sizes(world),
-                           kw.get("num_slices", 1))
+        tmesh.check_ported(tmesh.MeshConfig(**kw).resolved_sizes(world))
     cfg = get_config("tiny", **_CFG)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ttrainer.Trainer(cfg, ttrainer.TrainerArgs(output_dir=str(tmp_path)),

@@ -303,9 +303,6 @@ def test_loss_spike_detector_flags_what_jax_flags(zscore):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(update_sharding="zero1", comm_wire_dtype="bfloat16"), "A9"),
-    (dict(comm_wire_dtype="int8"), "A9"),
-    (dict(comm_wire_dtype_dcn="int8"), "A9"),
     (dict(health_sentinels=True), "A12"),
     (dict(profile_interval=5), "A12"),
     (dict(sanitize_grads="skip"), "A17"),
@@ -321,18 +318,24 @@ def test_unported_trainer_args_raise_naming_their_item(tmp_path, kw, item):
                          device="cpu", **ctor)
 
 
-@pytest.mark.parametrize("kw", [dict(update_sharding="zero1"),
-                                dict(update_sharding=True, comm_bucket_mb=8.0)])
+@pytest.mark.parametrize("kw", [
+    dict(update_sharding="zero1"),
+    dict(update_sharding=True, comm_bucket_mb=8.0),
+    dict(update_sharding="zero1", comm_wire_dtype="bfloat16"),
+    dict(update_sharding=True, comm_wire_dtype="int8"),
+    dict(update_sharding="zero2", comm_wire_dtype_dcn="int8")])
 def test_update_sharding_args_are_accepted(tmp_path, kw):
-    """ZeRO update sharding on the f32 wire is ported: the Trainer takes
-    it, and in a one-process world it falls back to the replicated update
-    with the JAX resolver's reason."""
+    """ZeRO update sharding and its wires are ported: the Trainer takes
+    them into its ``CommConfig``, and in a one-process world it falls back
+    to the replicated update with the JAX resolver's reason."""
     cfg = get_config("tiny", **_CFG)
     tx = topt.make_optimizer(**_OPT)
     t = ttrainer.Trainer(cfg, ttrainer.TrainerArgs(output_dir=str(tmp_path),
                                                    **kw), [], tx,
                          device="cpu")
     assert t.comm.bucket_mb == kw.get("comm_bucket_mb", 4.0)
+    assert t.comm.wire_dtype == kw.get("comm_wire_dtype", "float32")
+    assert t.comm.wire_dtype_dcn == kw.get("comm_wire_dtype_dcn")
     assert not t._builder.update_sharding
     assert t._builder.update_sharding_reason == "mesh has dp<=1"
 

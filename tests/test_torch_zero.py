@@ -24,7 +24,8 @@
 - The train state: the flat moments' paths and global shapes are those
   of the JAX update-sharded ``init_train_state``; a rank's pack holds its
   columns and the ranks' packs restore the whole state.
-- bf16 and int8 wires raise naming ROADMAP A9.
+- The bf16 and int8 wires: ``tests/test_torch_wire_dtypes.py``; ZeRO
+  on dp × fsdp and dp × tp: ``tests/test_torch_hybrid_zero.py``.
 """
 
 import os
@@ -209,14 +210,6 @@ def test_pack_flat_equals_jax_bitwise_and_unpacks(which):
         assert torch.equal(back[n], t), n
 
 
-@pytest.mark.parametrize("kw", [dict(wire_dtype="bfloat16"),
-                                dict(wire_dtype="int8"),
-                                dict(wire_dtype_dcn="int8")])
-def test_quantized_wires_raise_naming_a9(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        shd.CommConfig(update_sharding=True, **kw)
-
-
 def test_update_sharding_falls_back_with_its_reason():
     _, cfg = _cfgs(_LLAMA)
     comm = shd.CommConfig(update_sharding="zero1")
@@ -322,6 +315,57 @@ def test_flat_state_paths_and_shapes_are_the_jax_update_sharded_states():
     got = {leaf.path: tuple(leaf.global_shape) for leaf in leaves}
     assert got == {k: tuple(v) for k, v in want.items()}
     assert not b.update_sharding  # one process: the builder falls back
+
+
+def test_kept_parameter_columns_go_after_a_write_to_the_parameters():
+    """The update's columns kept for the next step (``_param_columns``)
+    are read again from the parameters once anything wrote them (a
+    restore), or when they are another state's."""
+    _, cfg = _cfgs(_LLAMA)
+    tx = topt.make_optimizer(**_OPT)
+    state = tts.init_train_state(0, cfg, tx, device="cpu")
+    params = dict(state["params"].named_parameters())
+    b = tts.TrainStepBuilder(cfg, tx, device="cpu")
+    b.plan = shd.build_pack_plan(cfg, params, 2, 1 << 14)
+    b.dp_rank = 1
+    cols = b._param_columns(params)
+    assert torch.equal(cols, shd.pack_flat(cfg, params, b.plan)[
+        :, b.plan.columns(1)])
+    b._keep_columns(params, cols)
+    assert b._param_columns(params) is cols
+    other = tts.init_train_state(1, cfg, tx, device="cpu")
+    assert b._param_columns(dict(other["params"].named_parameters())) \
+        is not cols
+    b._keep_columns(params, cols)
+    with torch.no_grad():
+        params["embed.tokens"].add_(1.0)
+    got = b._param_columns(params)
+    assert got is not cols and not torch.equal(got, cols)
+    assert torch.equal(got, shd.pack_flat(cfg, params, b.plan)[
+        :, b.plan.columns(1)])
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_the_columns_update_row_by_row_to_the_same_bits(fused):
+    """``_update_columns`` (AdamW a bucket row at a time, so its
+    temporaries are a row's size) equals one update of the whole shard,
+    bit for bit, and counts one step."""
+    tx = (topt.fused_adamw(1e-3, weight_decay=0.1, grad_clip=1.0) if fused
+          else topt.make_optimizer(**_OPT))
+    gen = torch.Generator().manual_seed(0)
+    p, g = (torch.randn(5, 1024, generator=gen) for _ in range(2))
+    state = tx.init({"flat": p})
+    state["m"]["flat"].copy_(torch.randn(5, 1024, generator=gen))
+    state["v"]["flat"].copy_(torch.rand(5, 1024, generator=gen))
+    rows = {"step": state["step"], "m": {"flat": state["m"]["flat"].clone()},
+            "v": {"flat": state["v"]["flat"].clone()}}
+    p_rows, norm = p.clone(), torch.tensor(3.0)
+    tx.update_({"flat": p}, {"flat": g}, state, norm=norm)
+    b = tts.TrainStepBuilder(_cfgs(_LLAMA)[1], tx, device="cpu")
+    b._update_columns(p_rows, g, rows, norm)
+    assert torch.equal(p_rows, p) and rows["step"] == state["step"] == 1
+    for k in ("m", "v"):
+        assert torch.equal(rows[k]["flat"], state[k]["flat"])
 
 
 def test_each_ranks_pack_holds_its_columns_and_they_restore_the_whole():

@@ -15,15 +15,20 @@ Tasks:
   may plant a wrong reduction (``fault``: the norm scales' gradients
   summed over tp, or ``wk``/``wv``'s not), or run the steps through
   ``Trainer(mesh=MeshConfig(...))`` with an evaluation at the end
-  (``trainer``). Returns the losses, grad norms (the builder's), the
-  evaluation's loss (the Trainer's), and this rank's parameters and
-  moments;
+  (``trainer``). A case with ``zero`` ("zero1" or "zero2") runs ZeRO
+  update sharding on the mesh (the hybrid step), its moments this
+  rank's dp columns of the flat stream; its faults: ``unassembled``
+  (``layers/mlp/w_up``'s gradient laid into the global stream from
+  this rank's shard alone, not every fsdp peer's) and ``norm_world``
+  (the columns' square sums added over the whole world, not dp).
+  Returns the losses, grad norms (the builder's), the evaluation's loss
+  (the Trainer's), and this rank's parameters and moments;
 - ``trainer``: ``Trainer(mesh=MeshConfig(**IN["mesh"]))`` for
   ``steps`` steps, saving to IN's directory (memory every step, storage
-  at the last); then, unless ``restore_only``, a second ``Trainer`` that
-  resumes from the staged segment and a third, the segment unlinked,
-  from storage. Returns each state's leaves: every shard's global index
-  and values.
+  at the last), with ZeRO when IN names ``update_sharding``; then,
+  unless ``restore_only``, a second ``Trainer`` that resumes from the
+  staged segment and a third, the segment unlinked, from storage.
+  Returns each state's leaves: every shard's global index and values.
 """
 
 import os
@@ -45,6 +50,8 @@ from dlrover_tpu_torch.parallel.mesh import (  # noqa: E402
     MeshConfig,
     build_mesh,
 )
+from dlrover_tpu_torch.parallel import sharding as shd  # noqa: E402
+from dlrover_tpu_torch.parallel.mesh import data_axes  # noqa: E402
 from dlrover_tpu_torch.train import optimizer as topt  # noqa: E402
 from dlrover_tpu_torch.train import train_step as tts  # noqa: E402
 from dlrover_tpu_torch.train.distributed import (  # noqa: E402
@@ -80,6 +87,39 @@ def plant(builder, fault):
                 a for a in ("dp", "fsdp", "tp") if a in axes)
 
 
+#: the hybrid ZeRO faults' leaf
+UNASSEMBLED = "layers/mlp/w_up"
+
+
+def plant_zero(builder, fault):
+    """A hybrid ZeRO fault (module docstring) planted in ``builder``."""
+    mesh = builder.mesh
+    if fault == "norm_world":
+        def sums(stats, sq):
+            return (builder._sum(stats, data_axes()),
+                    builder._sum(sq, ("dp", "fsdp", "tp")))
+        builder._zero_sums = sums
+        return
+    own = mesh.ranks(("fsdp", "tp")).index(mesh.rank)
+    names = [n for n, sh in builder.layout.items() if sh.path == UNASSEMBLED]
+    real, real_grads = shd.pack_shards, builder._grad_stream
+
+    def own_only(cfg, peers, layouts, plan):
+        peers = [p if i == own else dict(p, **{
+            n: torch.zeros_like(p[n]) for n in names})
+            for i, p in enumerate(peers)]
+        return real(cfg, peers, layouts, plan)
+
+    def grad_stream(params):
+        shd.pack_shards = own_only
+        try:
+            return real_grads(params)
+        finally:
+            shd.pack_shards = real
+
+    builder._grad_stream = grad_stream
+
+
 def train(spec, rank, world):
     out = {}
     for case in spec["cases"]:
@@ -96,13 +136,20 @@ def train(spec, rank, world):
             model = convert.load_jax_params(case["params"], cfg,
                                             device="cpu", trainable=True,
                                             mesh=mesh)
-            state = {"params": model,
-                     "opt_state": tx.init(dict(model.named_parameters())),
-                     "step": 0}
+            comm = (shd.CommConfig(update_sharding=case["zero"],
+                                   bucket_mb=case["bucket_mb"])
+                    if case.get("zero") else None)
             b = tts.TrainStepBuilder(cfg, tx, grad_accum=case["accum"],
-                                     device="cpu", mesh=mesh)
-            if case.get("fault"):
+                                     device="cpu", mesh=mesh, comm=comm)
+            assert b.update_sharding == bool(comm), b.update_sharding_reason
+            opt = (tx.init({"flat": torch.zeros(
+                b.plan.n_buckets, b.plan.bucket_elems // b.plan.dp)})
+                if comm else tx.init(dict(model.named_parameters())))
+            state = {"params": model, "opt_state": opt, "step": 0}
+            if case.get("fault") in FAULTS:
                 plant(b, case["fault"])
+            elif case.get("fault"):
+                plant_zero(b, case["fault"])
             index, n = data_index(mesh)
             losses, norms, evals = [], [], []
             for batch in spec["batches"]:
@@ -118,6 +165,8 @@ def train(spec, rank, world):
             "m": {k: v.clone() for k, v in opt["m"].items()},
             "v": {k: v.clone() for k, v in opt["v"].items()},
             "mesh": shape}
+        if case.get("zero"):
+            out[case["id"]]["shard"] = b.shard
     return out
 
 
@@ -191,9 +240,14 @@ def trainer(spec, rank, world):
                            memory_save_interval=min(every, 1),
                            log_interval=0, detect_loss_spikes=False,
                            report_to_master=False, resume=resume,
-                           seed=spec["seed"])
+                           seed=spec["seed"],
+                           update_sharding=spec.get("update_sharding",
+                                                    False),
+                           comm_bucket_mb=spec.get("bucket_mb", 4.0))
         batches = [accum_rows(b, index, n) for b in spec["batches"]]
         t = Trainer(cfg, args, batches, tx, mesh=mesh_cfg, device="cpu")
+        assert t._builder.update_sharding == bool(args.update_sharding), \
+            t._builder.update_sharding_reason
         t.train()
         t.checkpointer.close()
         return t

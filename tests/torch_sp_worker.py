@@ -150,8 +150,13 @@ def _free_port() -> int:
 def spawn(task, spec, world, tmp, timeout_s=150, script=None):
     """Run ``task`` on ``world`` ranks, each a subprocess of ``script``
     (this file by default; it takes the same arguments) under a time
-    limit; returns their results by rank."""
+    limit; returns their results by rank. The ranks run under a run id of
+    their own (``DLROVER_TPU_RUN_ID``), so their checkpoint segments and
+    sockets are no other run's; the segments left behind are removed."""
     import subprocess
+    import uuid
+
+    from dlrover_tpu_torch.checkpoint.engine import CheckpointEngine
 
     path_in = os.path.join(str(tmp), f"{task}_in.pt")
     torch.save(spec, path_in)
@@ -159,7 +164,8 @@ def spawn(task, spec, world, tmp, timeout_s=150, script=None):
     outs = [os.path.join(str(tmp), f"{task}_out{r}.pt") for r in range(world)]
     logs = [open(os.path.join(str(tmp), f"{task}_log{r}.txt"), "w+")
             for r in range(world)]
-    env = dict(os.environ, OMP_NUM_THREADS="1")
+    run_id = "sp" + uuid.uuid4().hex[:12]
+    env = dict(os.environ, OMP_NUM_THREADS="1", DLROVER_TPU_RUN_ID=run_id)
     procs = [subprocess.Popen(
         [sys.executable, script or os.path.abspath(__file__), task, str(r),
          str(world), str(port), path_in, outs[r]],
@@ -172,6 +178,8 @@ def spawn(task, spec, world, tmp, timeout_s=150, script=None):
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        for r in range(world):
+            CheckpointEngine.unlink_segment(r, run_id)
     texts = []
     for f in logs:
         f.seek(0)

@@ -13,6 +13,10 @@ Tasks:
   ``TrainStepBuilder`` from the weights of IN over the global batches of
   IN, each rank given its rows (``accum_rows``): the losses,
   grad norms, parameters and this rank's moments;
+- ``exchange``: for each case of IN (a wire, a plan, every rank's
+  packed stream and tied-head extra), ``exchange_buckets`` of this
+  rank's stream over the world: this rank's columns and the bytes it
+  counted on the wire;
 - ``shards``: ``iter_shards_spmd`` over a ``ShardingClient`` of the
   master at IN's address: the shard sequence this rank saw;
 - ``reshard``: the ``LiveResharder`` fault cases on synthetic plans,
@@ -125,6 +129,18 @@ def zero(spec, rank, world):
             norms.append(float(m["grad_norm"]))
         out[(mode, accum)] = dict(_out(state, b), losses=losses,
                                   grad_norms=norms)
+    return out
+
+
+def exchange(spec, rank, world):
+    out = {}
+    for cid, case in spec["cases"].items():
+        extra = case["tie_extra"]
+        before = shd.WIRE["bytes"]
+        got = shd.exchange_buckets(
+            case["streams"][rank], case["plan"], wire=case["wire"],
+            tie_extra=None if extra is None else extra[rank])
+        out[cid] = {"shard": got, "bytes": shd.WIRE["bytes"] - before}
     return out
 
 
@@ -267,7 +283,8 @@ def main(task, rank, world, port, path_in, path_out):
                      rank=rank, device="cpu", timeout_s=120.0)
     try:
         spec = torch.load(path_in, weights_only=False)
-        fn = {"zero": zero, "shards": shards, "reshard": reshard}[task]
+        fn = {"zero": zero, "shards": shards, "reshard": reshard,
+              "exchange": exchange}[task]
         torch.save(fn(spec, rank, world), path_out)
     finally:
         shutdown_distributed()
