@@ -35,7 +35,12 @@ from ``--seed``, through the hand-written CUDA kernels built from
 - fully sharded data and tensor parallelism, four ranks on the card,
   and ZeRO on those meshes: the elastic example's ``--hosts-per-slice
   2 --zero1`` (dp 2 × fsdp 2), dp 2 × tp 2, and dp 4 over four slices
-  on the int8 and bf16 gradient wires.
+  on the int8 and bf16 gradient wires;
+- sequence parallelism with tensor parallelism
+  (``Trainer(mesh=MeshConfig(sp=2, tp=2))``, the ring) and tensor
+  parallelism over a head count tp does not divide (gpt2-1.5b's 25
+  heads on fsdp 2 × tp 2: each rank's ``wq`` columns moved over tp to
+  its whole heads and back), four ranks on the card.
 
 Phases, one JSON line each; any failure exits nonzero and prints no
 result:
@@ -179,7 +184,7 @@ result:
    full width and 2 layers (as ``trainer``), b8 × s1024, ``--zero1``
    (the zero2 mode: the moments are each rank's columns of the flat
    bucket stream; 64 MB buckets), the data from the master's shard
-   service, no checkpoint. After step 4 of 8 ranks 2 and 3 are evicted:
+   service, no checkpoint. After step 4 of 6 ranks 2 and 3 are evicted:
    the master's reshard directive, the migration of the flat moments
    to the survivors, the departing ranks' exit 0, the survivors' new
    gloo group at ``grad_accum`` 2. Gated: both survivors' ``[reshard]
@@ -192,8 +197,8 @@ result:
    on the same global batches (grad_accum 4 micro-batches of a rank's 2
    rows), and a second launcher run of 2 steps whose every gradient
    exchange has its middle bucket zeroed (``--zero-fault-worker``)
-   outside them; rank 0's shards cover [0, 8 × 8) once and the
-   master counts 8 completed; the departing ranks' exit; K1, K2 and the
+   outside them; rank 0's shards cover [0, 6 × 8) once and the
+   master counts 6 completed; the departing ranks' exit; K1, K2 and the
    norm kernels launched on every rank every step as the layers and the
    accumulation imply; the two runs' disk writes under 3 GiB. Read: the
    phase's seconds, each reshard phase's, the recovery, the step at dp 4
@@ -211,14 +216,14 @@ result:
    one process's flash step on the same batch and weights, a planted
    fault (the ring's k_off on one rank; Ulysses' window or prefix on one
    rank's heads) beyond it, bf16 within 2e-3 (loss) and 5e-2
-   (gradients), then 3 bf16 steps: finite losses, each rank's launches
+   (gradients), then 1 bf16 step: finite losses, each rank's launches
    (the offset ones apart) exactly those of its block map, no kernel
    rebuilt in a worker, each rank's peak memory. The train_kernel phase
    also holds the six flash kernels with ring offsets against their
    plain versions at these blocks' shapes (bf16 and f32, the fault k_off
    off by one key), timed beside themselves without offsets;
 13. fsdp_tp: four processes on the card over gloo, ``MeshConfig(fsdp=2,
-   tp=2)``, llama-1.4b at full width and 2 layers, 8 steps at b8 ×
+   tp=2)``, llama-1.4b at full width and 2 layers, 2 steps at b8 ×
    s1024: every rank's loss and grad norm within 1e-4 (relative) of a
    one-process replicated run, a run without the tp sum of ``wk``/``wv``'s
    gradients outside it, exact launches, each rank's state under 0.3 of
@@ -242,7 +247,23 @@ result:
    collectives (in the exchange for (a), from its ``zero.exchange``
    spans), state bytes and peak memory a rank, the phase's seconds.
    The train_kernel phase holds K1/K2 at a rank's B 2 × H 16 and K3/K4
-   at [2048, 2048].
+   at [2048, 2048];
+15. mesh4d: four processes on the card over gloo. (a) mistral-7b at
+   full width and 2 layers on ``Trainer(mesh=MeshConfig(sp=2, tp=2))``,
+   ring attention, b1 × s8192 (a rank's 16 query and 4 KV heads over a
+   4096 block; sp rank 1's window-partial block carries the offsets);
+   (b) gpt2-1.5b at full width and 2 layers on ``MeshConfig(fsdp=2,
+   tp=2)``, b8 × s1024 (each tp rank's 800 ``wq`` columns moved to its
+   13 or 12 whole heads: K1p/K2p). Each: 2 f32 steps whose every rank's
+   loss and grad norm must be within 1e-4 of a one-process replicated
+   f32 run on the same global batches, a planted fault step outside it
+   ((a) no sp sum of the wk/wv gradients; (b) the q move's backward
+   dropping the straddling head's returned half), 2 bf16 steps with
+   exact launches a rank (the offset ones too), finite losses; no kernel
+   rebuilt. Read: a bf16 step's wall s, peak memory and state bytes a
+   rank. The train_kernel phase holds K1/K2 at (a)'s shapes (the
+   diagonal and the offsets block), K1p/K2p at 13 and 12 heads, K3/K4 at
+   [4096, 4096] and [4096, 1600].
 
 The lines before the last are the card's name and power limit and a
 ``{"kernels": [...]}`` summary (the chunk kernel's entry also gives its
@@ -2175,6 +2196,7 @@ def train_kernel_cases(seed, dev):
     cases += reshard_shape_cases(gen, dev)
     cases += fsdp_tp_shape_cases(gen, dev)
     cases += hybrid_shape_cases(gen, dev)
+    cases += mesh4d_shape_cases(gen, dev)
     cases += [
         # the train steps' norms: [B·S, d_model] rows, timed
         norm_case("llama-1.4b", 8192, 2048, False, gen, dev, True),
@@ -3145,14 +3167,16 @@ def _mem_available():
 # phase 11b: the live reshard, four ranks on the one card
 # ---------------------------------------------------------------------------
 
-RESHARD_LAYERS, RESHARD_STEPS, RESHARD_EVICT_AT = 2, 8, 4
+# 6 steps, 2 after the eviction (8 before the mesh4d phase joined the
+# script)
+RESHARD_LAYERS, RESHARD_STEPS, RESHARD_EVICT_AT = 2, 6, 4
 RESHARD_RANKS, RESHARD_LOST = 4, (2, 3)
 RESHARD_BUCKET_MB = 64.0
 RESHARD_TIMEOUT_S = 480
 RESHARD_DISK_CAP = 3 << 30
 # the ZeRO stream against the replicated one, relative. The CPU tests
 # hold f32 streams of 3 steps at 1e-5 (losses) and 1e-4 (norms); here
-# the steps run the bf16 kernels for 8 steps, where another summation
+# the steps run the bf16 kernels for 6 steps, where another summation
 # order of the same gradients alone moves both by some 1e-5 (the
 # ``order_spread`` reading: the replicated run against itself with its
 # micro-batches reversed). A dropped bucket moves the norm by percents,
@@ -3502,7 +3526,9 @@ def reshard_check(cfg, seed, name="reshard", device="cuda", overrides=()):
 # ---------------------------------------------------------------------------
 
 SP = 4
-SP_LAYERS, SP_STEPS = 2, 3
+# 1 bf16 step a phase (3 before the mesh4d phase joined the script: its
+# time comes from here, FSDP_TP_STEPS and RESHARD_STEPS)
+SP_LAYERS, SP_STEPS = 2, 1
 # mistral-7b at b1 x s8192 (blocks of 2048, window 4096), glm-10b at
 # b2 x s2048 (blocks of 512)
 SP_SHAPES = {"mistral-7b": (1, 8192), "glm-10b": (2, 2048)}
@@ -3953,7 +3979,8 @@ def sp_check(cfg_name, impls, names, seed, dev, overrides=None,
 
 FSDP_TP_MESH = {"fsdp": 2, "tp": 2}
 FSDP_TP_RANKS = 4
-FSDP_TP_LAYERS, FSDP_TP_STEPS, FSDP_TP_FAULT_STEPS = 2, 8, 2
+# 2 steps (8 before the mesh4d phase joined the script)
+FSDP_TP_LAYERS, FSDP_TP_STEPS, FSDP_TP_FAULT_STEPS = 2, 2, 2
 FSDP_TP_TIMEOUT_S = 480
 # every rank's loss and grad norm against the one-process replicated run
 # on the same global batches, relative: ``RESHARD_RTOL_*``'s bound (the
@@ -4812,6 +4839,469 @@ def hybrid_check(cfg_name, seed, dev, name="hybrid_zero", overrides=None,
 
 
 # ---------------------------------------------------------------------------
+# phase 15: sp with fsdp and tp, and tp over a head count it does not
+# divide, four ranks on the one card
+# ---------------------------------------------------------------------------
+
+MESH4D_RANKS = 4
+MESH4D_LAYERS = 2
+# a run's bf16 steps (launches, times), f32 gate steps and fault steps
+MESH4D_STEPS, MESH4D_F32_STEPS, MESH4D_FAULT_STEPS = 2, 2, 1
+MESH4D_TIMEOUT_S = 540
+# every rank's f32 loss and grad norm against the one-process replicated
+# f32 run on the same global batches, relative: the fsdp_tp bound
+MESH4D_RTOL_LOSS, MESH4D_RTOL_NORM = 1e-4, 1e-4
+#: the runs: config (full width, MESH4D_LAYERS layers), mesh, global
+#: batch (B, S), attn_impl, whether through ``Trainer``, planted fault
+MESH4D_RUNS = {
+    "a": dict(config="mistral-7b", mesh={"sp": 2, "tp": 2}, shape=[1, 8192],
+              attn_impl="ring", trainer=True, fault="kv_no_sp"),
+    "b": dict(config="gpt2-1.5b", mesh={"fsdp": 2, "tp": 2},
+              shape=[8, 1024], attn_impl="auto", trainer=False,
+              fault="reshard_drop"),
+}
+MESH4D_FAULTS = {
+    "kv_no_sp": "the wk/wv gradients not summed over sp",
+    "reshard_drop": "the q columns' move to the heads, its backward "
+                    "dropping the straddling head's half returned to "
+                    "another rank",
+}
+#: the leaves of the kv_no_sp fault. Not the norm scales: at d 4096 they
+#: hold too small a share of the gradient's square norm for their missing
+#: sp sum to move the grad norm past MESH4D_RTOL_NORM
+#: (tests/test_torch_mesh4d.py plants that one at test size)
+MESH4D_KV = ("layers/attn/wk", "layers/attn/wv")
+
+
+def mesh4d_shape_cases(gen, dev):
+    """The kernels at the shapes a rank of the mesh4d phase launches them
+    that no earlier case covers, each against its plain version with its
+    planted fault: (a) mistral-7b on sp 2 × tp 2, a rank's 16 query and
+    4 KV heads over a 4096 block, window 4096: the diagonal block and
+    sp rank 1's window-partial block against rank 0's (the offsets),
+    its rmsnorm rows ([4096, 4096], plain and with the residual); (b)
+    gpt2-1.5b on fsdp 2 × tp 2, a rank's 4 rows and its 13 or 12 heads
+    of 64 (the packed kernels; 13: the last pack one head), its
+    layernorm rows ([4096, 1600], plain and with the residual)."""
+    return [
+        flash_case("mistral-7b-sp2tp2-diagonal", 1, 4096, 16, 4, 128, True,
+                   4096, gen, dev, False),
+        flash_case("mistral-7b-sp2tp2-boundary", 1, 4096, 16, 4, 128, True,
+                   4096, gen, dev, False, offsets=(4096, 0), fault="k_off"),
+        flash_case("gpt2-1.5b-tp2-13", 4, 1024, 13, 13, 64, True, 0, gen,
+                   dev, False, pack=2, fault="last_pack"),
+        flash_case("gpt2-1.5b-tp2-12", 4, 1024, 12, 12, 64, True, 0, gen,
+                   dev, False, pack=2),
+        norm_case("mistral-7b-sp2tp2", 4096, 4096, False, gen, dev, False),
+        norm_case("mistral-7b-sp2tp2+residual", 4096, 4096, True, gen, dev,
+                  False),
+        norm_case("gpt2-1.5b-fsdp2tp2", 4096, 1600, False, gen, dev, False,
+                  "layernorm"),
+        norm_case("gpt2-1.5b-fsdp2tp2+residual", 4096, 1600, True, gen, dev,
+                  False, "layernorm"),
+    ]
+
+
+def _mesh4d_batch(cfg, seed, run, step, b, s):
+    """Run ``run``'s global batch of step ``step``: the same for every
+    rank and for the reference."""
+    return _fsdp_tp_batch(cfg, seed + 1000 * (ord(run) - ord("a") + 1),
+                          step, b, s)
+
+
+def _mesh4d_cfg(conf, overrides, s, dtype=None):
+    from dlrover_tpu_torch.models.config import get_config
+
+    over = dict(n_layer=MESH4D_LAYERS, max_seq=s, **overrides)
+    if dtype:
+        over["dtype"] = dtype
+    return get_config(conf["config"], **over)
+
+
+def _mesh4d_expected(cfg, sizes, s, rank):
+    """(launches, offset launches) of the flash and norm kernels a step on
+    ``rank``: its heads from its ``TpPlan`` (the pack as the kernels pick
+    it); under sp the ring's block map (``sequence.block_case``): each
+    live block its forward and, in the backward, its recompute, dq and
+    dkv; without sp one of each a layer (none for a rank with no heads).
+    Each norm kernel 2 · layers + 1 times."""
+    from dlrover_tpu_torch.models import decoder
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.parallel import sequence
+    from dlrover_tpu_torch.parallel.mesh import Mesh
+
+    plan = decoder.tp_plan(cfg, Mesh(sizes, rank), "cpu")
+    heads, kv = ((plan.heads, plan.kv_heads) if plan is not None
+                 else (cfg.n_head, cfg.kv_heads))
+    pack = fa.head_pack_for(heads, kv, cfg.head_dim, cfg.attn_head_pack)
+    fwd, dq, dkv = fa.PACKED if pack == 2 else fa.UNPACKED
+    sp = sizes["sp"]
+    per, off = {}, {}
+    if sp > 1:
+        s_l, c = s // sp, Mesh(sizes, rank).coord("sp")
+        blocks = [sequence.block_case(c * s_l, ((c - i) % sp) * s_l, s_l,
+                                      s_l, cfg.causal, cfg.attn_window)
+                  for i in range(sp)]
+        live = sum(x != sequence.EMPTY for x in blocks)
+        shifted = sum(x == sequence.WINDOW_PARTIAL for x in blocks)
+        per = {fwd: 2 * live, dq: live, dkv: live}
+        off = {fwd: 2 * shifted, dq: shifted, dkv: shifted}
+    elif heads:
+        per = {fwd: 1, dq: 1, dkv: 1}
+    launches = {k: cfg.n_layer * per.get(k, 0) for k in fa.KERNELS}
+    launches.update(norm_fwd=2 * cfg.n_layer + 1,
+                    norm_bwd=2 * cfg.n_layer + 1)
+    return launches, {k: cfg.n_layer * off.get(k, 0) for k in fa.KERNELS}
+
+
+@contextlib.contextmanager
+def _mesh4d_fault(fault, builder, cols):
+    """A run's planted fault while the block runs (``MESH4D_FAULTS``):
+    ``kv_no_sp`` drops sp from ``wk``'s and ``wv``'s ``reduce_axes``;
+    ``reshard_drop`` zeroes, in the backward of the q columns' move to
+    the heads (``collectives.tp_reshard`` from ``cols``), the gradient
+    a rank returns to another."""
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.parallel import collectives
+
+    if fault is None:
+        yield
+        return
+    if fault == "kv_no_sp":
+        for n, shard in builder.layout.items():
+            if shard.path in MESH4D_KV:
+                builder.reduce_axes[n] = tuple(
+                    a for a in builder.reduce_axes[n] if a != "sp")
+        yield
+        return
+    real = collectives._TpReshard.backward
+
+    def backward(ctx, g):
+        src, dst, group = ctx.args
+        if src == cols:
+            r = dist.get_rank(group)
+            at = torch.arange(*dst[r], device=g.device)
+            own = (at >= src[r][0]) & (at < src[r][1])
+            g = torch.where(own, g, torch.zeros_like(g))
+        return real(ctx, g)
+
+    collectives._TpReshard.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        collectives._TpReshard.backward = staticmethod(real)
+
+
+def _mesh4d_steps(run, conf, spec, rank, dev, dtype, steps, fault):
+    """``steps`` steps of one run on this rank, through ``Trainer`` or
+    ``TrainStepBuilder`` as the run says, each on this rank's rows of
+    the global batch, with the launches and the wall s read around each
+    step; ``dtype`` float32 for the gate and fault runs, None for the
+    config's bf16."""
+    from dlrover_tpu_torch.models import decoder
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
+    from dlrover_tpu_torch.train import train_step as ts
+    from dlrover_tpu_torch.train.data_utils import dp_rows
+
+    cuda = dev.type == "cuda"
+    b, s = conf["shape"]
+    cfg = _mesh4d_cfg(conf, spec["overrides"].get(run, {}), s, dtype)
+    mesh_cfg = MeshConfig(**conf["mesh"])
+    layout = Mesh(mesh_cfg.resolved_sizes(MESH4D_RANKS), rank)
+    plan = decoder.tp_plan(cfg, layout, "cpu")
+    batches = [dp_rows(_mesh4d_batch(cfg, spec["seed"], run, i, b, s),
+                       layout) for i in range(1, steps + 1)]
+    opt = _fsdp_tp_opt()
+    rec = {"losses": [], "grad_norms": [], "step_s": [], "launches": [],
+           "offset_launches": []}
+
+    def timed(step_fn):
+        def step(state, batch):
+            _reset_train_launches()
+            t = time.perf_counter()
+            state, m = step_fn(state, batch)
+            loss, norm = float(m["loss"]), float(m["grad_norm"])
+            if cuda:
+                torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t)
+            rec["launches"].append(_train_launches())
+            rec["offset_launches"].append(dict(fa.OFFSET_LAUNCHES))
+            rec["losses"].append(loss)
+            rec["grad_norms"].append(norm)
+            return state, m
+        return step
+
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    cols = plan.cols if plan is not None else None
+    if conf["trainer"]:
+        from dlrover_tpu_torch.train.trainer import Trainer, TrainerArgs
+
+        args = TrainerArgs(
+            output_dir=os.path.join(spec["out_dir"], f"trainer_{rank}"),
+            max_steps=steps, save_interval=0, log_interval=0, resume=False,
+            detect_loss_spikes=False, report_to_master=False,
+            seed=spec["seed"], attn_impl=conf["attn_impl"])
+        t = Trainer(cfg, args, batches, opt, mesh=mesh_cfg, device=dev)
+        t._step_fn = timed(t._builder.build())
+        with _mesh4d_fault(fault, t._builder, cols):
+            t.train()
+        state, mesh = t.state, t.mesh
+        del t
+    else:
+        mesh = build_mesh(mesh_cfg)
+        state = ts.init_train_state(spec["seed"], cfg, opt, device=dev,
+                                    mesh=mesh)
+        builder = ts.TrainStepBuilder(cfg, opt, attn_impl=conf["attn_impl"],
+                                      device=dev, mesh=mesh)
+        step = timed(builder.step_fn)
+        with _mesh4d_fault(fault, builder, cols):
+            for batch in batches:
+                state, _ = step(state, batch)
+        del builder
+    rec.update(mesh=dict(mesh.shape), state_bytes=_state_bytes(
+        state["params"]), peak_bytes=(torch.cuda.max_memory_allocated()
+                                      if cuda else None),
+               heads=None if plan is None else [plan.mode, plan.heads,
+                                                plan.kv_heads])
+    del state
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return rec
+
+
+def mesh4d_worker(spec_path, rank):
+    """One rank of the mesh4d phase (a subprocess of ``mesh4d_check``): a
+    gloo group of MESH4D_RANKS ranks on card 0; for each run of
+    MESH4D_RUNS its f32 gate steps, its fault steps and its bf16 steps.
+    Writes its record."""
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.train.distributed import (
+        init_distributed,
+        shutdown_distributed,
+    )
+
+    spec = json.loads(open(spec_path).read())
+    dev = torch.device(spec["device"])
+    cuda = dev.type == "cuda"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    init_distributed(coordinator=f"127.0.0.1:{spec['port']}",
+                     world_size=MESH4D_RANKS, rank=rank, device=dev.type,
+                     backend="gloo", device_index=0 if cuda else None,
+                     timeout_s=MESH4D_TIMEOUT_S)
+    out = {"rank": rank, "group_s": time.monotonic() - t0, "runs": {}}
+    rebuilt = []
+    real_build = _build.build
+
+    def counted(name):  # a compile here would have cost the phase minutes
+        secs = real_build(name)
+        if secs > 0:
+            rebuilt.append(name)
+        return secs
+
+    _build.build = counted
+    try:
+        for run, conf in spec["runs"].items():
+            out["runs"][run] = {
+                "f32": _mesh4d_steps(run, conf, spec, rank, dev, "float32",
+                                     MESH4D_F32_STEPS, None),
+                "fault": _mesh4d_steps(run, conf, spec, rank, dev,
+                                       "float32", MESH4D_FAULT_STEPS,
+                                       conf["fault"]),
+                "bf16": _mesh4d_steps(run, conf, spec, rank, dev, None,
+                                      MESH4D_STEPS, None)}
+        out["rebuilt"] = len(rebuilt)
+    finally:
+        shutdown_distributed()
+    with open(spec["out"].format(rank=rank), "w") as f:
+        json.dump(out, f)
+
+
+def mesh4d_reference(run, conf, seed, dev, overrides=None):
+    """The one-process replicated f32 stream run ``run`` is held to: each
+    step's global batch in one micro-batch a data rank (dp × fsdp), the
+    same init (every layout draws the same global weights). Returns
+    ([(loss, grad_norm)] a step, the state's bytes)."""
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    b, s = conf["shape"]
+    cfg = _mesh4d_cfg(conf, overrides or {}, s, "float32")
+    opt = _fsdp_tp_opt()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    state = init_train_state(seed, cfg, opt, device=dev)
+    accum = conf["mesh"].get("dp", 1) * conf["mesh"].get("fsdp", 1)
+    step = TrainStepBuilder(cfg, opt, grad_accum=accum, device=dev).build()
+    out = []
+    for i in range(1, MESH4D_F32_STEPS + 1):
+        state, m = step(state, _mesh4d_batch(cfg, seed, run, i, b, s))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    nbytes = _state_bytes(state["params"])
+    del state, step
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out, nbytes
+
+
+def mesh4d_check(seed, dev, name="mesh4d", overrides=None, shapes=None):
+    """The mesh4d phase: MESH4D_RANKS worker processes on card 0 over gloo
+    (``mesh4d_worker``) run (a) mistral-7b at full width and
+    MESH4D_LAYERS layers on ``Trainer(mesh=MeshConfig(sp=2, tp=2))``,
+    ring attention, b1 × s8192 (sp rank 1's window-partial block carries
+    the offsets), and (b) gpt2-1.5b at full width and MESH4D_LAYERS
+    layers on ``MeshConfig(fsdp=2, tp=2)``, b8 × s1024 (each tp rank's
+    800 ``wq`` columns, 12.5 heads, moved to its 13 or 12 whole heads:
+    K1p/K2p); then, in this process, each run's one-process replicated
+    f32 reference. Gated, each run: every rank's f32 loss and grad norm
+    within MESH4D_RTOL_* of the reference, its planted fault outside,
+    finite bf16 losses, exact launches a rank a bf16 step (the offset
+    ones too), no kernel rebuilt. Records each rank's bf16 step wall s,
+    peak memory and state bytes. Writes nothing but its log and
+    records under ``build/chip_smoke``. ``overrides`` ({run: config
+    overrides}) and ``shapes`` ({run: [B, S]}) size a rehearsal."""
+    runs = {k: dict(v, shape=(shapes or {}).get(k, v["shape"]))
+            for k, v in MESH4D_RUNS.items()}
+    overrides = overrides or {}
+    out_dir = os.path.join("build", "chip_smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    spec = {"runs": runs, "seed": seed, "device": str(dev),
+            "overrides": overrides, "port": _free_port(), "out_dir": out_dir,
+            "out": os.path.join(out_dir, f"{name}_{{rank}}.json")}
+    spec_path = os.path.join(out_dir, f"{name}_spec.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    log_path = os.path.join(out_dir, f"{name}_log.txt")
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    with open(log_path, "w") as log:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--mesh4d-worker",
+             spec_path, "--rank", str(r)], stdout=log,
+            stderr=subprocess.STDOUT) for r in range(MESH4D_RANKS)]
+        try:
+            rcs = [p.wait(timeout=MESH4D_TIMEOUT_S) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    seconds = time.monotonic() - t0
+    if any(rcs):
+        with open(log_path) as f:
+            tail = f.read()[-6000:]
+        _failures.append(f"{name}: worker exit codes {rcs}\n{tail}")
+        emit({"phase": name, "ok": False, "exit_codes": rcs,
+              "log_tail": tail})
+        return {"launches": {}, "offset_launches": {}}
+    ranks = []
+    for r in range(MESH4D_RANKS):
+        with open(spec["out"].format(rank=r)) as f:
+            ranks.append(json.load(f))
+
+    def median(xs):
+        xs = sorted(xs)
+        return xs[len(xs) // 2]
+
+    rec = {"phase": name, "backend": "gloo (host-staged), 4 ranks on cuda:0",
+           "card": nvidia_smi_line() if dev.type == "cuda" else None,
+           "tolerances": {"loss": MESH4D_RTOL_LOSS,
+                          "grad_norm": MESH4D_RTOL_NORM},
+           "workers_s": seconds, "group_s": [x["group_s"] for x in ranks],
+           "runs": {}, "launches": {}, "offset_launches": {}}
+    checks = {"no_rebuild": all(x["rebuilt"] == 0 for x in ranks)}
+    t1 = time.monotonic()
+    for run, conf in runs.items():
+        b, s = conf["shape"]
+        ref, ref_bytes = mesh4d_reference(run, conf, seed, dev,
+                                          overrides.get(run))
+        got = [x["runs"][run] for x in ranks]
+
+        def errors(key):
+            steps = {i + 1: {r: {"loss": g[key]["losses"][i],
+                                 "grad_norm": g[key]["grad_norms"][i]}
+                             for r, g in enumerate(got)}
+                     for i in range(len(got[0][key]["losses"]))}
+            e = _stream_errors(steps, ref)
+            e["within"] = (e["loss"] is not None
+                           and e["loss"] <= MESH4D_RTOL_LOSS
+                           and e["grad_norm"] <= MESH4D_RTOL_NORM)
+            return e
+
+        cfg = _mesh4d_cfg(conf, overrides.get(run, {}), s)
+        sizes = {a: 1 for a in ("dp", "pp", "ep", "fsdp", "sp", "tp")}
+        sizes.update(conf["mesh"])
+        want = [_mesh4d_expected(cfg, sizes, s, r)
+                for r in range(MESH4D_RANKS)]
+        bf = [g["bf16"] for g in got]
+        run_rec = {
+            "config": conf["config"], "n_layer": cfg.n_layer,
+            "d_model": cfg.d_model, "n_head": cfg.n_head,
+            "n_kv_head": cfg.kv_heads, "mesh": conf["mesh"], "batch": b,
+            "seq": s, "attn_impl": conf["attn_impl"],
+            "through": "Trainer" if conf["trainer"] else "TrainStepBuilder",
+            "steps": {"bf16": MESH4D_STEPS, "f32": MESH4D_F32_STEPS,
+                      "fault": MESH4D_FAULT_STEPS},
+            "heads_by_rank": [g["bf16"]["heads"] for g in got],
+            "reference": ref, "errors": errors("f32"),
+            "fault": {"what": MESH4D_FAULTS[conf["fault"]],
+                      "errors": errors("fault")},
+            "bf16_losses": bf[0]["losses"],
+            "step_s_by_rank": [x["step_s"][-1] for x in bf],
+            "peak_bytes_by_rank": [x["peak_bytes"] for x in bf],
+            "state_bytes_by_rank": [x["state_bytes"] for x in bf],
+            "reference_state_bytes": ref_bytes,
+            "launches_a_step_by_rank": [x["launches"][-1] for x in bf],
+            "offset_launches_a_step_by_rank": [x["offset_launches"][-1]
+                                               for x in bf]}
+        run_rec["checks"] = {
+            "mesh": all({k: v for k, v in g[key]["mesh"].items() if v > 1}
+                        == conf["mesh"] for g in got
+                        for key in ("f32", "fault", "bf16")),
+            "matches_replicated": run_rec["errors"]["within"],
+            "fault_caught": not run_rec["fault"]["errors"]["within"],
+            "finite": all(math.isfinite(v) for x in bf for v in x["losses"]),
+            "launches_exact": all(
+                step == want[r][0] and off == want[r][1]
+                for r, x in enumerate(bf)
+                for step, off in zip(x["launches"], x["offset_launches"])),
+            "offsets_ran": (conf["mesh"].get("sp", 1) == 1 or any(
+                sum(off.values()) for x in bf
+                for off in x["offset_launches"])),
+        }
+        checks.update({f"{run}_{k}": v
+                       for k, v in run_rec["checks"].items()})
+        rec["runs"][run] = run_rec
+        for x in bf:
+            for step in x["launches"]:
+                for k, n in step.items():
+                    rec["launches"][k] = rec["launches"].get(k, 0) + n
+            for off in x["offset_launches"]:
+                for k, n in off.items():
+                    rec["offset_launches"][k] = (
+                        rec["offset_launches"].get(k, 0) + n)
+    rec["reference_s"] = time.monotonic() - t1
+    rec["phase_s"] = time.monotonic() - t0
+    rec["checks"] = checks
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"{name}: {[k for k, v in checks.items() if not v]}"
+                         f" {[r['errors'] for r in rec['runs'].values()]}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -4826,6 +5316,8 @@ def main(argv=None) -> int:
                     help="run one rank of the fsdp_tp phase (internal)")
     ap.add_argument("--hybrid-worker", default=None,
                     help="run one rank of the hybrid_zero phase (internal)")
+    ap.add_argument("--mesh4d-worker", default=None,
+                    help="run one rank of the mesh4d phase (internal)")
     ap.add_argument("--rank", type=int, default=0)
     args = ap.parse_args(argv)
     if args.sp_worker:  # on the device its spec names
@@ -4836,6 +5328,9 @@ def main(argv=None) -> int:
         return 0
     if args.hybrid_worker:
         hybrid_worker(args.hybrid_worker, args.rank)
+        return 0
+    if args.mesh4d_worker:
+        mesh4d_worker(args.mesh4d_worker, args.rank)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -5010,7 +5505,16 @@ def main(argv=None) -> int:
     with phase("hybrid_zero"):
         rec = hybrid_check("llama-1.4b", args.seed, dev)
         train_launches["hybrid_zero"] = rec["launches"]
+    # sp with tp (mistral-7b, sp 2 x tp 2, the ring through Trainer) and
+    # tp over 25 heads (gpt2-1.5b, fsdp 2 x tp 2), four ranks on this card
+    # over gloo
+    gc.collect()
+    torch.cuda.empty_cache()
     offset_launches = {}
+    with phase("mesh4d"):
+        rec = mesh4d_check(args.seed, dev)
+        train_launches["mesh4d"] = rec["launches"]
+        offset_launches.update(rec["offset_launches"])
     for name, rec in sp_recs.items():
         for r, x in enumerate(rec["ranks"]):
             train_launches[f"{name}_rank{r}"] = x["launches"]

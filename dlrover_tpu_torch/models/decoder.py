@@ -9,10 +9,11 @@ no mesh), ``_cache_layer_tail`` (dense, with ``parallel_residual``),
 ``verify_chunk_paged`` for serving; ``_norm_block``,
 ``_attention_block``, ``_layer_body``, ``run_trunk``, ``forward``,
 ``head_weight_scale`` and ``loss_fn`` for training (dense layers; no
-fp8, MoE or pipeline). Under a dp × sp mesh (``parallel/mesh.py``) each
-rank runs its rows and its sequence block: positions are global
-(``sp rank · S_l + arange(S_l)``) and attention is ``ring_attention`` or
-``ulysses_attention`` (``parallel/sequence.py``).
+fp8, MoE or pipeline). Under a mesh with sp above 1
+(``parallel/mesh.py``) each rank runs its rows and its sequence block:
+positions are global (``sp rank · S_l + arange(S_l)``) and attention is
+``ring_attention`` or ``ulysses_attention`` (``parallel/sequence.py``),
+alone or with fsdp and tp.
 
 Under a mesh with fsdp or tp above 1 (``Decoder(cfg, mesh=...)``) each
 parameter holds only this rank's shard, laid out by the JAX rules
@@ -23,13 +24,19 @@ fsdp-cut dim on use (``collectives.fsdp_gather``: the gathered weight is
 kept for the backward, which frees it; under ``remat="full"`` the
 recompute gathers again), and runs Megatron's tensor parallelism: ``wq``,
 ``w_gate`` and ``w_up`` column-parallel, ``wo`` and ``w_down``
-row-parallel with a sum over tp, a rank's ``n_head / tp`` query heads
-attending to the KV heads they map to under GQA (rows of the replicated
-``wk``/``wv``), the vocab-parallel embedding lookup (a masked take and
-a sum over tp) and the vocab-parallel head and loss
-(``fused_ce.vocab_parallel_ce``). JAX counterparts: ``_attention_block``,
-``_mlp_block``, ``_vocab_parallel_embed`` and ``loss_fn``'s unfused path
-under GSPMD. The sharded model trains; its paged serving steps refuse.
+row-parallel with a sum over tp, a rank's query heads attending to the
+KV heads they map to under GQA (rows of the replicated ``wk``/``wv``),
+the vocab-parallel embedding lookup (a masked take and a sum over tp)
+and the vocab-parallel head and loss (``fused_ce.vocab_parallel_ce``).
+JAX counterparts: ``_attention_block``, ``_mlp_block``,
+``_vocab_parallel_embed`` and ``loss_fn``'s unfused path under GSPMD.
+A rank's ``wq`` columns are always the JAX leaf's column block; where
+tp does not divide ``n_head`` the attention runs on whole heads in
+GSPMD's padded head blocks (``TpPlan``: the columns moved over tp to
+the heads and back), and inside a sequence-parallel attention every tp
+rank attends over all heads unless tp divides both head counts (the
+JAX ``_head_axis``). The sharded model trains; its paged serving steps
+refuse.
 
 For serving (``Decoder(cfg)``), matrices are stored frozen in the
 compute dtype (``cfg.dtype``). For training (``Decoder(cfg,
@@ -82,8 +89,11 @@ from dlrover_tpu_torch.parallel.collectives import (
     copy_to_tp,
     fsdp_gather,
     gather_from_tp,
+    gather_sum_tp,
     reduce_from_tp,
+    tp_reshard,
 )
+from dlrover_tpu_torch.parallel.sequence import _KeepInGraph, head_axis
 from dlrover_tpu_torch.serving.kv_cache import layer_pools
 
 Pools = Dict[str, torch.Tensor]
@@ -141,14 +151,16 @@ def _project_qkv(x, layer, cfg: ModelConfig, rope, *,
     attention scaling in all: the training attention applies
     1/sqrt(d_head) itself, so q carries the other half; the cache paths
     run attention at scale 1 and set ``mup_full_scale``. ``tp``: this
-    rank's ``TpPlan`` (its query heads; its KV heads' rows of ``wk`` and
-    ``wv``)."""
+    rank's ``TpPlan`` (its ``wq`` columns moved to the query heads it
+    attends over; its KV heads' rows of ``wk`` and ``wv``)."""
     b, s, _ = x.shape
     nh, nkv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
     rows = None
+    q = _dense(x, layer.attn.wq)
     if tp is not None:
         nh, nkv, rows = tp.heads, tp.kv_heads, tp.kv_rows
-    q = _dense(x, layer.attn.wq).reshape(b, s, nh, hd)
+        q = tp.q_heads(q)
+    q = q.reshape(b, s, nh, hd)
     k = _dense(x, layer.attn.wk, rows).reshape(b, s, nkv, hd)
     v = _dense(x, layer.attn.wv, rows).reshape(b, s, nkv, hd)
     if rope is not None:
@@ -248,9 +260,10 @@ def logical_axes(cfg: ModelConfig) -> Dict:
     return ax
 
 
-#: the mesh axes the port cuts parameters over (the JAX rules also put a
-#: learned position table's ``seq`` over sp; the port keeps parameters
-#: whole under dp × sp)
+#: the mesh axes the port cuts parameters over. The JAX rules also put a
+#: learned position table's ``seq`` over sp; the port keeps the table
+#: whole over sp on every mesh (each sp rank reads the rows of its block
+#: from it), so its gradient is summed over sp like every other leaf's
 PARAM_CUT_AXES = ("fsdp", "tp")
 #: leaves replicated over tp whose use each tp rank splits (the KV heads
 #: of its query heads): their gradients are summed over tp
@@ -303,19 +316,20 @@ class ParamShard:
 
 
 def check_mesh(cfg: ModelConfig, mesh_shape: Dict[str, int]) -> None:
-    """Refuse, naming ROADMAP A9, a tp that does not divide ``n_head``,
-    ``d_ff`` or ``vocab_size``, or an fsdp that does not divide
-    ``d_model``: GSPMD pads such splits; the port does not yet."""
+    """Raise ``ValueError`` for a leaf dim its mesh axes do not divide: a
+    tp that does not divide the q columns (``n_head · head_dim``), ``d_ff``
+    or ``vocab_size``, or an fsdp that does not divide ``d_model``, as the
+    JAX placement does. A tp that does not divide ``n_head`` itself runs
+    (``TpPlan``: GSPMD's padded head blocks)."""
     tp, fsdp = mesh_shape.get("tp", 1), mesh_shape.get("fsdp", 1)
     bad = [f"{name}={n} over tp={tp}" for name, n in (
-        ("n_head", cfg.n_head), ("d_ff", cfg.d_ff),
+        ("n_head*head_dim", cfg.n_head * cfg.head_dim), ("d_ff", cfg.d_ff),
         ("vocab_size", cfg.vocab_size)) if n % tp]
     if cfg.d_model % fsdp:
         bad.append(f"d_model={cfg.d_model} over fsdp={fsdp}")
     if bad:
-        raise NotImplementedError(
-            f"{', '.join(bad)}: uneven splits are not ported yet "
-            "(ROADMAP A9)")
+        raise ValueError(f"{', '.join(bad)} does not split evenly: "
+                         + shd.UNEVEN_LEAF)
 
 
 def param_layout(cfg: ModelConfig, mesh=None) -> Dict[str, ParamShard]:
@@ -365,19 +379,73 @@ def _leaf_shape(cfg: ModelConfig, path: str) -> Tuple[int, ...]:
 
 @dataclass(frozen=True)
 class TpPlan:
-    """This rank's share of the heads and the vocab under tp: its query
-    heads ``[heads·r, heads·(r+1))``, the rows of ``wk``/``wv`` (port
-    layout) of the KV heads they map to under GQA and how many KV heads
-    those are, and its vocab block ``[vocab_start, vocab_start +
-    vocab_size)``. When the query heads cover KV groups unevenly, each
-    query head gets its own KV head's rows (``kv_heads == heads``)."""
+    """This rank's share of the heads and the vocab under tp. Its ``wq``
+    columns are block ``rank`` of ``cols`` (the JAX leaf's column block,
+    ``n_head · head_dim / tp`` wide), its ``wo`` rows the same. ``mode``
+    says which query heads it attends over:
+
+    - ``"even"``: tp divides ``n_head``; its columns are its heads;
+    - ``"heads"``: tp does not divide ``n_head`` (no sp): the whole heads
+      of its block of ``head_cols``, GSPMD's padded head blocks
+      (``ceil(n_head / tp)`` heads a rank, the last ranks fewer, maybe
+      none); the q columns are moved there over tp before attention and
+      the output back after (``collectives.tp_reshard``);
+    - ``"all"``: under sp, where tp does not divide both head counts
+      (``sequence.head_axis`` is None, the JAX ``_head_axis``): every
+      head, its q columns gathered over tp, and it keeps its columns of
+      the output.
+
+    ``heads``: how many; ``kv_rows``: the rows of ``wk``/``wv`` (port
+    layout) of the KV heads they map to under GQA (a slice, a LongTensor
+    when the heads cover KV groups unevenly: each query head its own KV
+    head's rows, ``kv_heads == heads``; None: all), ``kv_heads`` how many
+    those are; its vocab block ``[vocab_start, vocab_start +
+    vocab_size)``."""
 
     mesh: object
+    rank: int
+    mode: str
     heads: int
-    kv_rows: object   # a slice, or a LongTensor of rows
+    kv_rows: object
     kv_heads: int
+    cols: Tuple[Tuple[int, int], ...]
+    head_cols: Tuple[Tuple[int, int], ...]
     vocab_start: int
     vocab_size: int
+
+    def q_heads(self, q: torch.Tensor) -> torch.Tensor:
+        """``q`` ``[..., cols]`` from this rank's ``wq`` columns → the
+        columns of the heads it attends over."""
+        if self.mode == "heads":
+            return tp_reshard(q, self.cols, self.head_cols, self.mesh)
+        if self.mode == "all":
+            return gather_sum_tp(q, -1, self.mesh)
+        return q
+
+    def out_cols(self, out: torch.Tensor) -> torch.Tensor:
+        """The attention output of its heads ``[..., heads · head_dim]`` →
+        the columns of its ``wo`` rows."""
+        if self.mode == "heads":
+            return tp_reshard(out, self.head_cols, self.cols, self.mesh)
+        if self.mode == "all":
+            lo, hi = self.cols[self.rank]
+            return out[..., lo:hi]
+        return out
+
+
+def _kv_rows(first: int, n: int, rep: int, hd: int, device):
+    """(rows of ``wk``/``wv``, KV head count) of query heads ``[first,
+    first + n)`` under GQA with ``rep`` query heads a KV head."""
+    if n == 0:
+        return slice(0, 0), 0
+    lo, last = first // rep, (first + n - 1) // rep
+    if lo == last:
+        return slice(lo * hd, (lo + 1) * hd), 1
+    if first % rep == 0 and n % rep == 0:
+        return slice(lo * hd, (last + 1) * hd), n // rep
+    heads = (first + torch.arange(n)) // rep
+    rows = (heads[:, None] * hd + torch.arange(hd)).reshape(-1).to(device)
+    return rows, n
 
 
 def tp_plan(cfg: ModelConfig, mesh, device) -> Optional[TpPlan]:
@@ -385,20 +453,22 @@ def tp_plan(cfg: ModelConfig, mesh, device) -> Optional[TpPlan]:
     tp = 1 if mesh is None else mesh.shape["tp"]
     if tp == 1:
         return None
-    r, hd = mesh.coord("tp"), cfg.head_dim
-    h = cfg.n_head // tp
-    rep = cfg.n_head // cfg.kv_heads
-    first = r * h
-    if h % rep == 0 or rep % h == 0:
-        lo, n = first // rep, max(h // rep, 1)
-        rows, kv = slice(lo * hd, (lo + n) * hd), n
-    else:
-        heads = (first + torch.arange(h)) // rep
-        rows = (heads[:, None] * hd + torch.arange(hd)).reshape(-1).to(
-            device)
-        kv = h
+    r, hd, nh = mesh.coord("tp"), cfg.head_dim, cfg.n_head
+    width = nh * hd // tp
+    cols = tuple((i * width, (i + 1) * width) for i in range(tp))
+    h = -(-nh // tp)
+    head_cols = tuple((min(i * h, nh) * hd, min((i + 1) * h, nh) * hd)
+                      for i in range(tp))
     vl = cfg.vocab_size // tp
-    return TpPlan(mesh, h, rows, kv, r * vl, vl)
+    if mesh.shape["sp"] > 1 and head_axis(mesh.shape, nh,
+                                          cfg.kv_heads) is None:
+        return TpPlan(mesh, r, "all", nh, None, cfg.kv_heads, cols,
+                      head_cols, r * vl, vl)
+    first = head_cols[r][0] // hd
+    n = head_cols[r][1] // hd - first
+    rows, kv = _kv_rows(first, n, nh // cfg.kv_heads, hd, device)
+    return TpPlan(mesh, r, "even" if nh % tp == 0 else "heads", n, rows, kv,
+                  cols, head_cols, r * vl, vl)
 
 
 # ---------------------------------------------------------------------------
@@ -804,13 +874,20 @@ def _norm_block(x, ln: Norm, cfg: ModelConfig, residual=None):
 
 def _attention_block(x, layer: Layer, cfg: ModelConfig, attn_fn, rope,
                      tp=None):
-    """Attention; under tp ``wq`` column-parallel over heads, ``wo``
-    row-parallel and summed over tp."""
+    """Attention; under tp ``wq`` column-parallel, its columns moved to
+    the rank's heads as ``tp.mode`` says and the output back to them,
+    ``wo`` row-parallel and summed over tp. A rank with no heads (a
+    padded head block past ``n_head``) attends over nothing, its k and v
+    kept in the graph so that every rank runs the same collectives in the
+    backward."""
     b, s, _ = x.shape
     if tp is not None:
         x = copy_to_tp(x, tp.mesh)
     q, k, v = _project_qkv(x, layer, cfg, rope, mup_full_scale=False, tp=tp)
-    out = attn_fn(q, k, v).reshape(b, s, q.shape[2] * cfg.head_dim)
+    out = attn_fn(q, k, v) if q.shape[2] else _KeepInGraph.apply(q, k, v)
+    out = out.reshape(b, s, q.shape[2] * cfg.head_dim)
+    if tp is not None:
+        out = tp.out_cols(out)
     out = _dense(out, layer.attn.wo)
     return out if tp is None else reduce_from_tp(out, tp.mesh)
 

@@ -23,6 +23,17 @@ decoder under ``DEFAULT_RULES``), made explicit:
 - ``gather_from_tp``: an all-gather over tp whose backward slices this
   rank's block back out (not a reduce-scatter: the gradients that reach
   it are the same on every tp rank);
+- ``gather_sum_tp``: an all-gather over tp whose backward
+  reduce-scatters, for a block whose gathered whole each tp rank uses
+  for a different share of its output (the q heads every tp rank
+  attends over inside a sequence-parallel attention when tp does not
+  divide the heads, as the JAX ``_head_axis`` leaves them);
+- ``tp_reshard``: a dim cut over tp in one partition moved to another
+  (uneven blocks allowed) by one all-to-all: the q columns of a rank's
+  ``wq`` block to the whole heads it attends over, GSPMD's padded head
+  blocks when tp does not divide the head count, and the attention's
+  output back; its backward is the inverse move, each element's
+  gradient back to its owner;
 - ``tp_logsumexp``: logsumexp over the tp ranks' partial logsumexps (the
   vocab-parallel logz), and ``tp_argmax``: the first maximum over the
   whole vocab from each rank's maximum and its global index.
@@ -41,6 +52,7 @@ group as bytes (the same bits: an all-to-all does no arithmetic).
 Nothing here picks a backend.
 """
 
+import math
 from typing import List, Sequence, Tuple
 
 import torch
@@ -277,6 +289,62 @@ def gather_from_tp(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     """Every tp rank's block of ``x`` joined along ``dim``; the backward
     keeps this rank's block of the gradient."""
     return _GatherFromTp.apply(x, dim, mesh.group("tp"))
+
+
+def gather_sum_tp(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """Every tp rank's block of ``x`` joined along ``dim``; the backward
+    sums the gradient over tp and keeps this rank's block of it (each
+    rank's use of the whole reaches other ranks' blocks)."""
+    return _FsdpGather.apply(x, dim, x.dtype, mesh.group("tp"))
+
+
+def _overlap(a: Tuple[int, int], b: Tuple[int, int]) -> int:
+    return max(0, min(a[1], b[1]) - max(a[0], b[0]))
+
+
+def _reshard(x: torch.Tensor, src, dst, group) -> torch.Tensor:
+    """``x``, this rank's block ``src[r]`` of the last dim, as its block
+    ``dst[r]`` (both partitions in rank order over the same range): one
+    all-to-all with uneven splits, the last dim moved to the front."""
+    r = dist.get_rank(group)
+    lead = x.shape[:-1]
+    (lo, hi), (dlo, dhi) = src[r], dst[r]
+    send = x.reshape(math.prod(lead), hi - lo).t().contiguous()
+    sends = [_overlap(src[r], d) for d in dst]
+    recvs = [_overlap(s, dst[r]) for s in src]
+    gloo = dist.get_backend(group) == dist.Backend.GLOO
+    # gloo moves rows of any dtype as bytes, as all_to_all_rows does
+    words = send.view(torch.uint8) if gloo else send
+    staged = _staged(group, words)
+    buf = _host(words) if staged else words
+    recv = torch.empty((dhi - dlo,) + tuple(buf.shape[1:]), dtype=buf.dtype,
+                       device=buf.device, pin_memory=staged)
+    dist.all_to_all_single(recv, buf, recvs, sends, group=group)
+    if staged:
+        recv = recv.to(x.device)
+    return recv.view(x.dtype).t().reshape(*lead, dhi - dlo)
+
+
+class _TpReshard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, src, dst, group):
+        ctx.args = (src, dst, group)
+        return _reshard(x, src, dst, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, dst, group = ctx.args
+        return _reshard(g, dst, src, group), None, None, None
+
+
+def tp_reshard(x: torch.Tensor, src, dst, mesh) -> torch.Tensor:
+    """``x``'s last dim, this tp rank's block ``src[r]`` (``(start,
+    stop)`` a rank, in rank order, covering one range) of a dim cut over
+    tp, as its block ``dst[r]`` of another partition of the same range:
+    each rank sends every other the part of its block that falls in that
+    rank's new one. The backward moves the gradient back, ``dst`` to
+    ``src``."""
+    return _TpReshard.apply(x, tuple(src), tuple(dst), mesh.group("tp"))
 
 
 class _TpLogSumExp(torch.autograd.Function):

@@ -12,15 +12,16 @@ Ported: data parallelism (``dp``), fully sharded data parallelism
 (``fsdp``: the parameters' ``embed`` dim cut over it, gathered on use),
 tensor parallelism (``tp``: heads, MLP columns and the vocabulary cut
 over it, Megatron style) and sequence parallelism (``sp``,
-``parallel/sequence.py``). The batch is cut over ``data_axes()``, dp
-and fsdp jointly. sp above 1 gets its process groups, formed by every
-rank in the same order: the sequence collectives run over them. Under
-dp × sp the parameters are replicated, so the step's all-reduces run
-over the whole world. When fsdp or tp is above 1 every combination of
-dp, fsdp and tp gets its groups (``group(("dp", "fsdp"))``: the ranks
-that differ only in those coordinates): the parameter collectives run
-over fsdp and tp, each gradient's sum over the axes where its
-contributions differ (``train/train_step.py``).
+``parallel/sequence.py``), in any combination: the JAX "3D + sequence"
+rules. The batch is cut over ``data_axes()``, dp and fsdp jointly, and
+the sequence over sp. Under dp × sp alone the parameters are
+replicated: sp gets its process groups (the sequence collectives run
+over them) and the step's all-reduces run over the whole world. When
+fsdp or tp is above 1 every combination of dp, fsdp, sp and tp gets its
+groups (``group(("dp", "fsdp"))``: the ranks that differ only in those
+coordinates): the parameter collectives run over fsdp and tp, the
+sequence collectives over sp, each gradient's sum over the axes where
+its contributions differ (``train/train_step.py``).
 
 The multi-slice layout (``MeshConfig.num_slices``, the JAX hybrid
 mesh): the ranks are laid out slice-major, dp outermost, so with ``dp %
@@ -35,9 +36,8 @@ agent sets), a slice whose ranks lie on two nodes raises
 (``check_slice_nodes``), as the JAX real-hardware path lets a
 misconfiguration raise.
 
-Refused, each naming its ROADMAP item: ``pp`` and ``ep`` above 1
-(A16: pipeline, MoE) and sp above 1 together with fsdp or tp (A9: the
-JAX sequence paths keep heads over tp).
+Refused, naming its ROADMAP item: ``pp`` and ``ep`` above 1 (A16:
+pipeline, MoE).
 """
 
 import itertools
@@ -53,8 +53,10 @@ from dlrover_tpu_torch.common.constants import GraftEnv
 MESH_AXES = ("dp", "pp", "ep", "fsdp", "sp", "tp")
 #: the ROADMAP item that ports each other axis
 UNPORTED_AXES = {"pp": "A16", "ep": "A16"}
-#: the axes whose groups the sharded layouts' collectives run over
-PARAM_AXES = ("dp", "fsdp", "tp")
+#: the axes whose groups, in every combination, a mesh with fsdp or tp
+#: above 1 forms: the sharded layouts' and the sequence collectives run
+#: over them
+GROUP_AXES = ("dp", "fsdp", "sp", "tp")
 
 
 @dataclass
@@ -97,21 +99,13 @@ class MeshConfig:
 
 def check_ported(sizes: Dict[str, int]) -> None:
     """Raise ``NotImplementedError`` for an axis above 1 the port does not
-    run, or a combination it does not, naming the ROADMAP item that ports
-    it."""
+    run, naming the ROADMAP item that ports it."""
     for axis, item in UNPORTED_AXES.items():
         if sizes.get(axis, 1) > 1:
             raise NotImplementedError(
                 f"mesh axis {axis}={sizes[axis]}: pipeline and expert "
                 f"parallelism are not ported yet (ROADMAP {item}); the "
-                "port's mesh runs dp x fsdp x tp or dp x sp")
-    if sizes.get("sp", 1) > 1 and (sizes.get("fsdp", 1) > 1
-                                   or sizes.get("tp", 1) > 1):
-        raise NotImplementedError(
-            f"sp={sizes['sp']} with fsdp={sizes.get('fsdp', 1)}, "
-            f"tp={sizes.get('tp', 1)}: sequence parallelism together with "
-            "sharded parameters is not ported yet (ROADMAP A9); the port "
-            "runs dp x fsdp x tp or dp x sp")
+                "port's mesh runs dp x fsdp x sp x tp")
 
 
 def rank_coords(rank: int, sizes: Dict[str, int]) -> Dict[str, int]:
@@ -228,7 +222,7 @@ class Mesh:
         """The process group of this rank's group along ``axis`` (one
         axis, or several jointly), or None when every one of them is 1 (no
         collective runs over it). sp has groups; so, when the parameters
-        are sharded, has every combination of dp, fsdp and tp."""
+        are sharded, has every combination of dp, fsdp, sp and tp."""
         key = _key(self.shape, axis)
         if not key:
             return None
@@ -293,7 +287,8 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     """The mesh over the ``torch.distributed`` world (one process, no
     group: a world of 1). Every rank calls it, in the same order as its
     other group-forming calls: sp above 1 forms all its groups, and fsdp
-    or tp above 1 the groups of every combination of dp, fsdp and tp.
+    or tp above 1 the groups of every combination of dp, fsdp, sp and
+    tp.
     With ``num_slices`` above 1, dp must divide over the slices
     (``ValueError``, as in JAX) and, where the node ranks are known, no
     slice may span two nodes."""
@@ -313,8 +308,8 @@ def build_mesh(config: Optional[MeshConfig] = None) -> Mesh:
     if sizes["sp"] > 1:
         keys.append(("sp",))
     if sizes["fsdp"] > 1 or sizes["tp"] > 1:
-        for n in range(1, len(PARAM_AXES) + 1):
-            for axes in itertools.combinations(PARAM_AXES, n):
+        for n in range(1, len(GROUP_AXES) + 1):
+            for axes in itertools.combinations(GROUP_AXES, n):
                 key = _key(sizes, axes)
                 if key and key not in keys:
                     keys.append(key)

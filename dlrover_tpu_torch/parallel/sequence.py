@@ -3,8 +3,13 @@
 Port of ``dlrover_tpu/parallel/sequence.py``. The JAX functions take
 global arrays sharded over the mesh and run their bodies in a
 ``shard_map``; here each rank calls them with its own block, ``[B_l,
-S_l, H, D]`` (its dp rows and its sp sequence block), and the
-collectives of ``parallel/collectives.py`` run over its sp group.
+S_l, H, D]`` (its rows of the batch over dp and fsdp, its sp sequence
+block, and under tp the heads its ``decoder.TpPlan`` gives it), and
+the collectives of ``parallel/collectives.py`` run over its sp group.
+As in the JAX ``shard_map`` specs, heads stay cut over tp only when tp
+divides both the query and the KV head counts (``head_axis``, the JAX
+``_head_axis``): contiguous head blocks then keep each query head with
+its KV group. Otherwise every tp rank attends over all heads.
 
 - ``ulysses_attention``: an all-to-all turns ``[B, S/sp, H, D]`` into
   ``[B, S, H/sp, D]`` (the full sequence, a share of the heads), the
@@ -44,6 +49,16 @@ DENSE, DIAGONAL, WINDOW_PARTIAL, PREFIX_ONLY, EMPTY = (
 #: prefix_only's q offset: kills the causal term for every pair, leaving
 #: the prefix mask
 PREFIX_ONLY_Q_OFF = -(1 << 30)
+
+
+def head_axis(mesh_shape, n_head: int, n_kv: int) -> Optional[str]:
+    """``"tp"`` when heads stay cut over tp inside the sequence paths (tp
+    above 1 and dividing both ``n_head`` and ``n_kv``), else None: every
+    tp rank attends over all heads. The JAX ``_head_axis``."""
+    tp = mesh_shape.get("tp", 1)
+    if tp > 1 and n_head % tp == 0 and n_kv % tp == 0:
+        return "tp"
+    return None
 
 
 def _match_heads(q, k, v):
@@ -93,7 +108,8 @@ def ulysses_attention(q, k, v, mesh, *, causal: bool = True,
     sp = mesh.shape[axis]
     if sp == 1:
         return call(q, k, v)
-    # GQA stays at Hkv heads unless sp cannot split them
+    # GQA stays at Hkv heads unless sp cannot split them: decided from
+    # this rank's (under tp, tp-local) KV head count, as JAX does
     if k.shape[2] % sp:
         k, v = _match_heads(q, k, v)
     qh, kh, vh = (all_to_all(x, mesh, 2, 1, axis) for x in (q, k, v))

@@ -140,13 +140,20 @@ def spec_axes(entry: MeshAxes) -> Tuple[str, ...]:
     return entry if isinstance(entry, tuple) else (entry,)
 
 
+#: why an uneven leaf split raises: the JAX package refuses it too
+UNEVEN_LEAF = ("the JAX package refuses such a leaf as well (jax.device_put "
+               "of an unevenly-sharded leaf fails: \"unevenly-sharded leaves "
+               "cannot exist in this framework\", tests/test_checkpoint.py:"
+               "119)")
+
+
 def shard_index(spec: Spec, shape: Sequence[int], mesh_shape: Dict[str, int],
                 coords: Dict[str, int]) -> List[List[int]]:
     """The global ``[start, stop]`` a dim of the shard that the device at
     ``coords`` holds of an array of ``shape`` laid out by ``spec``: a dim
     over axes (a, b) is cut in ``size(a)·size(b)`` equal blocks, block
-    ``coord(a)·size(b) + coord(b)``. An uneven cut raises naming ROADMAP
-    A9 (GSPMD pads it; the port does not)."""
+    ``coord(a)·size(b) + coord(b)``. An uneven cut raises ``ValueError``,
+    as the JAX placement does (``UNEVEN_LEAF``)."""
     out = []
     for dim, n in enumerate(shape):
         axes = spec_axes(spec[dim]) if dim < len(spec) else ()
@@ -155,12 +162,13 @@ def shard_index(spec: Spec, shape: Sequence[int], mesh_shape: Dict[str, int],
             parts *= mesh_shape.get(a, 1)
             block = block * mesh_shape.get(a, 1) + coords.get(a, 0)
         if n % parts:
-            raise NotImplementedError(
-                f"a dim of {n} over mesh axes {axes} ({parts} ways): "
-                "uneven splits are not ported yet (ROADMAP A9)")
+            raise ValueError(
+                f"a dim of {n} over mesh axes {axes} ({parts} ways) does not "
+                "split evenly: " + UNEVEN_LEAF)
         size = n // parts
         out.append([block * size, (block + 1) * size])
     return out
+
 
 _WIRE_DTYPES = ("float32", "bfloat16", "int8")
 # legacy boolean True maps to "zero2" (the per-micro-batch exchange)

@@ -14,8 +14,9 @@ no assembly: each rank keeps its own rows (rows [rank·B/W,
 gradients (``train_step.py``). Under a mesh a rank's rows are those of
 its dp and fsdp coordinates (``dp_rows``, for a caller that holds the
 global batch) and it keeps its sp block of the sequence
-(``sequence_block``): the block the JAX ``batch_sharding`` puts on its
-device.
+(``sequence_block``): the block the JAX ``batch_sharding``
+(``P(("dp", "fsdp"), "sp")``) puts on its device; its tp peers hold the
+same block.
 """
 
 import collections

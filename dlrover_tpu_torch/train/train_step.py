@@ -2,8 +2,8 @@
 
 Port of ``dlrover_tpu/train/train_step.py``: ``init_train_state``,
 ``TrainStepBuilder`` (``step_fn``, ``build``, the fused K-step
-``block_fn`` and ``build_block``) and ``build_eval_step``, over no mesh,
-a dp × sp mesh or a dp × fsdp × tp mesh (``parallel/mesh.py``),
+``block_fn`` and ``build_block``) and ``build_eval_step``, over no mesh
+or a dp × fsdp × sp × tp mesh (``parallel/mesh.py``),
 replicated or with ZeRO update sharding (on dp, or on dp × fsdp and dp ×
 tp), on the f32, bf16 or int8 gradient wire, without fp8 or health
 sentinels.
@@ -49,20 +49,26 @@ all-reduce run over the whole dp × sp world, as above; update sharding
 falls back to the replicated update there, with its reason, as the JAX
 resolver falls back on a mesh axis it does not shard over.
 
-Under a dp × fsdp × tp mesh (sharded parameters: ``Decoder(mesh=)``)
-each rank's batch is the rows of its dp and fsdp coordinates
-(``data_utils.dp_rows``), the same on its tp ranks. The mask sum is
-summed over dp × fsdp only (the tp ranks hold the same rows). After the
-backward each leaf's gradient is summed over exactly the axes where its
-contributions differ (``reduce_axes``): dp, and fsdp unless the leaf is
-cut over fsdp (its gather's backward already reduce-scattered it), and
-tp for ``wk``/``wv``, replicated over tp while each tp rank uses its
-own KV heads; never over tp for a leaf whose gradient is already the
-same on every tp rank, as the norm scales' are after Megatron's
-``copy_to_tp``. AdamW runs on the local shards, its moments shaped like
-them (the JAX ``state_shardings``); the global gradient norm counts
-every element once: each rank's square sums divided by the ranks of its
-fsdp × tp group that hold the same values, then summed over that group.
+Under a mesh with fsdp or tp above 1 (sharded parameters:
+``Decoder(mesh=)``), with or without sp, each rank's batch is the rows
+of its dp and fsdp coordinates (``data_utils.dp_rows``), the same on
+its sp and tp ranks, of which it keeps its sp block. The mask sum is
+summed over dp × fsdp × sp (``BATCH_AXES``; the tp ranks hold the same
+tokens). After the backward each leaf's gradient is summed over exactly
+the axes where its contributions differ (``reduce_axes``): dp and sp
+(each sp rank's gradient covers its sequence block only), and fsdp
+unless the leaf is cut over fsdp (its gather's backward already
+reduce-scattered it), and tp for ``wk``/``wv``, replicated over tp
+while each tp rank uses its own KV heads; never over tp for a leaf
+whose gradient is already the same on every tp rank, as the norm
+scales' are after Megatron's ``copy_to_tp``. AdamW runs on the local
+shards, its moments shaped like them (the JAX ``state_shardings``); the
+global gradient norm counts every element once: each rank's square sums
+divided by the ranks of its fsdp × sp × tp group that hold the same
+values, then summed over that group. ZeRO update sharding on a mesh
+with sp falls back to this replicated update with the JAX reason
+(``resolve_update_sharding``: "non-dp mesh axes beyond fsdp/tp in
+use").
 
 ZeRO on a dp × fsdp or dp × tp mesh (the JAX hybrid step: manual over
 dp, fsdp and tp left to the partitioner; the f32 wire only, as the JAX
@@ -112,6 +118,15 @@ from dlrover_tpu_torch.train.optimizer import (
 )
 
 TrainState = Dict
+#: the order of a leaf's ``reduce_axes`` (the mesh's)
+REDUCE_ORDER = ("dp", "fsdp", "sp", "tp")
+#: the group the sharded global norm sums over: every rank of it holds
+#: one shard of each leaf or a replica of one
+NORM_AXES = ("fsdp", "sp", "tp")
+#: the mesh axes over which a rank's tokens differ (in ``REDUCE_ORDER``):
+#: the mask sum, the loss and the accuracy are summed over them on a
+#: sharded mesh
+BATCH_AXES = data_axes() + ("sp",)
 
 
 def init_train_state(seed: int, cfg: ModelConfig, optimizer: AdamW,
@@ -149,7 +164,7 @@ class TrainStepBuilder:
                  device="cuda", mesh=None,
                  comm: Optional[shd.CommConfig] = None, group=None):
         """``mesh``: a ``parallel.mesh.Mesh`` over the whole world (dp ×
-        sp, or dp × fsdp × tp), or None. ``comm``: the update sharding
+        fsdp × sp × tp), or None. ``comm``: the update sharding
         asked for (resolved here: ``update_sharding``,
         ``update_sharding_reason``, ``plan``). ``group``: the
         data-parallel process group every collective of the step runs
@@ -175,19 +190,19 @@ class TrainStepBuilder:
                                  f"ranks, the world has {self.world}")
         if self.sharded:
             # by parameter name: the axes its gradient is summed over, and
-            # how many ranks of the fsdp x tp group hold its values
+            # how many ranks of the fsdp x sp x tp group hold its values
             self.reduce_axes, self.replicas = {}, {}
             for name, shard in self.layout.items():
-                axes = {"dp"}
+                axes = {"dp", "sp"}
                 if "fsdp" not in shard.axes:
                     axes.add("fsdp")
                 if (shard.path in decoder.TP_SPLIT_USE
                         and "tp" not in shard.axes):
                     axes.add("tp")
                 self.reduce_axes[name] = tuple(
-                    a for a in ("dp", "fsdp", "tp") if a in axes)
+                    a for a in REDUCE_ORDER if a in axes)
                 self.replicas[name] = mesh.size_of(
-                    [a for a in ("fsdp", "tp") if a not in shard.axes])
+                    [a for a in NORM_AXES if a not in shard.axes])
         self.comm = comm
         params = dict(decoder.Decoder(cfg, device="meta",
                                       trainable=True).named_parameters())
@@ -271,19 +286,19 @@ class TrainStepBuilder:
         return t
 
     def _sharded_grads(self, model, params, batch) -> Dict:
-        """The loss and gradients on a dp × fsdp × tp mesh (module
-        docstring): per micro-batch the mask sum over dp × fsdp, then the
+        """The loss and gradients on a sharded mesh (module docstring):
+        per micro-batch the mask sum over ``BATCH_AXES``, then the
         backward; then one flat f32 all-reduce for each set of
-        ``reduce_axes`` (the loss and accuracy ride with the dp × fsdp
-        one), divided by ``grad_accum``; the global norm. Leaves the mean
-        gradients in ``.grad``."""
+        ``reduce_axes`` (the loss and accuracy ride with the
+        ``BATCH_AXES`` one, the norm scales'), divided by ``grad_accum``;
+        the global norm. Leaves the mean gradients in ``.grad``."""
         a, sums = self.grad_accum, {}
         for mb in self._micro(batch):
             self._local_micro(model, mb, sums)
         buckets: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
         for n, p in params.items():
             buckets.setdefault(self.reduce_axes[n], []).append(p.grad)
-        data = data_axes()  # the norm scales' reduce_axes
+        data = BATCH_AXES  # the norm scales' reduce_axes
         stats = torch.stack([sums["loss"], sums["accuracy"]]).float()
         buckets.setdefault(data, [])
         for axes, grads in buckets.items():
@@ -302,7 +317,7 @@ class TrainStepBuilder:
         norm = sharded_global_norm(
             [params[n].grad for n in names],
             [self.replicas[n] for n in names],
-            self.mesh.group(("fsdp", "tp")))
+            self.mesh.group(NORM_AXES))
         return {"loss": stats[0].clone(), "accuracy": stats[1].clone(),
                 "tokens": sums["tokens"], "grad_norm": norm}
 
@@ -524,8 +539,8 @@ class TrainStepBuilder:
 def _global_count(batch, device, group=None, mesh=None) -> torch.Tensor:
     """The mask sum over the group (W > 1): the denominator of the
     global mean loss, as ``_dp_grads`` and the eval step take it. On a
-    sharded ``mesh`` the sum runs over dp × fsdp only: the tp ranks of
-    a group hold the same rows, and a sum over them would count each
+    sharded ``mesh`` the sum runs over ``BATCH_AXES`` only: the tp ranks
+    of a group hold the same tokens, and a sum over them would count each
     token tp times."""
     mask = batch.get("mask")
     if mask is None:
@@ -533,8 +548,8 @@ def _global_count(batch, device, group=None, mesh=None) -> torch.Tensor:
     else:
         count = mask.float().sum()
     if mesh is not None and mesh.sharded:
-        if mesh.size_of(data_axes()) > 1:
-            all_reduce_(count, mesh.group(data_axes()))
+        if mesh.size_of(BATCH_AXES) > 1:
+            all_reduce_(count, mesh.group(BATCH_AXES))
         return count
     return all_reduce_(count, group)
 
@@ -545,8 +560,8 @@ def build_eval_step(cfg: ModelConfig, attn_impl: str = "auto",
     gradients. In a world of W > 1 the metrics are the global ones (the
     mask sum, then the loss and accuracy, summed over the world, as the
     train step takes them); under a ``mesh`` the batch is cut as the
-    train step cuts it, and on a sharded one the sums run over dp ×
-    fsdp."""
+    train step cuts it, and on a sharded one the sums run over
+    ``BATCH_AXES``."""
     dev = resolve_device(device)
 
     @torch.no_grad()
@@ -563,8 +578,8 @@ def build_eval_step(cfg: ModelConfig, attn_impl: str = "auto",
         sums = torch.stack([m["loss"].float(), m["accuracy"].float()])
         if mesh is None or not mesh.sharded:
             all_reduce_(sums)
-        elif mesh.size_of(data_axes()) > 1:
-            all_reduce_(sums, mesh.group(data_axes()))
+        elif mesh.size_of(BATCH_AXES) > 1:
+            all_reduce_(sums, mesh.group(BATCH_AXES))
         return dict(m, loss=sums[0], accuracy=sums[1], tokens=count)
 
     return eval_step

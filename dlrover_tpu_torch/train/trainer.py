@@ -15,16 +15,16 @@ workers) the step is replicated data parallelism: each rank's
 ``train_iter`` yields its own rows of the global batch (rows
 [rank·B/W, (rank+1)·B/W), as the JAX ``form_global_batch`` lays them
 out), and the step all-reduces the gradients (``train_step.py``). With
-a dp × sp ``mesh`` (``parallel/mesh.py``; a ``MeshConfig`` is built over
-the world) the rows are those of the rank's dp coordinate, and the step
-keeps the rank's sp block of the sequence. With a dp × fsdp × tp mesh
-the rows are those of the rank's dp and fsdp coordinates
-(``data_utils.dp_rows``), the state is this rank's shards, and each
-rank stages and persists its own pack of them (the header's
-``process_index``); a restore assembles the rank's shards from every
-rank's pack of a step, whatever layout wrote them. With a master client the
-trainer reports the model's statistics (rank 0) and every global step,
-as the JAX trainer does, and its checkpoints report their staged steps.
+a ``mesh`` (``parallel/mesh.py``; a ``MeshConfig`` is built over the
+world) the rows are those of the rank's dp and fsdp coordinates
+(``data_utils.dp_rows``), and the step keeps the rank's sp block of the
+sequence. With fsdp or tp above 1 (sp or not) the state is this rank's
+shards, and each rank stages and persists its own pack of them (the
+header's ``process_index``); a restore assembles the rank's shards from
+every rank's pack of a step, whatever layout wrote them. With a master
+client the trainer reports the model's statistics (rank 0) and every
+global step, as the JAX trainer does, and its checkpoints report their
+staged steps.
 
 ``update_sharding`` (True, ``"zero1"``, ``"zero2"``) with
 ``comm_bucket_mb`` runs the ZeRO step (``train_step.py``) on the wire
@@ -35,9 +35,9 @@ columns of the flat bucket stream, and each rank's checkpoint pack holds
 its columns (the same on every fsdp × tp peer).
 
 Not ported yet, and refused with the ROADMAP item that ports them: pp
-and ep (A16), sp together with fsdp or tp and uneven splits (A9), health
-sentinels and the sampled runtime profile (A12), the gradient sanitizer
-(A17).
+and ep (A16), health sentinels and the sampled runtime profile (A12),
+the gradient sanitizer (A17). A mesh of another type than the port's
+(a JAX mesh, say) is refused naming A9, the mesh's item.
 """
 
 import os
@@ -136,9 +136,10 @@ def _refuse_unported(args: TrainerArgs) -> None:
 
 
 def _mesh(mesh):
-    """A ``MeshConfig`` built over the world, a ``Mesh`` checked: pp and
-    ep above 1, and sp with fsdp or tp, raise naming their ROADMAP
-    items, as does any other kind of mesh (a JAX mesh, say)."""
+    """A ``MeshConfig`` built over the world (dp × fsdp × sp × tp, in any
+    combination), a ``Mesh`` checked: pp and ep above 1 raise naming
+    their ROADMAP item, and any other kind of mesh (a JAX mesh, say)
+    naming A9's."""
     if mesh is None:
         return None
     if isinstance(mesh, MeshConfig):
@@ -146,8 +147,8 @@ def _mesh(mesh):
     if not isinstance(mesh, Mesh):
         raise NotImplementedError(
             f"a mesh of type {type(mesh).__name__}: the port takes a "
-            "parallel.mesh.Mesh or MeshConfig over dp x fsdp x tp or "
-            "dp x sp; other layouts are not ported yet (ROADMAP A9)")
+            "parallel.mesh.Mesh or MeshConfig over dp x fsdp x sp x tp "
+            "(ROADMAP A9)")
     check_ported(mesh.shape)
     return mesh
 
@@ -181,8 +182,8 @@ class Trainer:
         """``step_builder``/``init_state_fn``/``eval_step_fn`` hand in the
         lowering instead of the one built here from ``args``;
         ``init_state_fn(seed)`` returns a train state. ``mesh``: a
-        ``parallel.mesh.Mesh`` or ``MeshConfig`` (dp × fsdp × tp or dp ×
-        sp), or None.
+        ``parallel.mesh.Mesh`` or ``MeshConfig`` (dp × fsdp × sp × tp), or
+        None.
         ``ckpt_extra()``: a dict each checkpoint carries in its pack
         header (the dataset position), back after a restore in
         ``checkpointer.engine.restored_extra``."""

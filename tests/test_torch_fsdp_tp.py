@@ -32,8 +32,12 @@
 - Negative controls: the fsdp2×tp2 stream with the norm scales'
   gradients summed over tp (doubled), and with ``wk``/``wv``'s not
   summed over tp (partial), each falls outside those bounds.
-- Refusals: sp with fsdp or tp, pp, ep, and uneven splits raise,
-  naming their ROADMAP items. ZeRO update sharding on a dp × fsdp or dp
+- Refusals: pp and ep raise, naming their ROADMAP item (A16); sp with
+  fsdp or tp is accepted (its streams: ``tests/test_torch_mesh4d.py``);
+  a tp that does not divide ``n_head`` runs on GSPMD's padded head
+  blocks, and the splits the JAX placement refuses (a leaf dim its axes
+  do not divide: ``d_ff`` or ``vocab_size`` over tp, ``d_model`` over
+  fsdp) raise ``ValueError`` citing that refusal. ZeRO update sharding on a dp × fsdp or dp
   × tp mesh resolves to the JAX hybrid plan on the f32 wire, and falls
   back with the JAX reason on a quantized wire (its stream:
   ``tests/test_torch_hybrid_zero.py``).
@@ -312,13 +316,25 @@ def test_a_wrong_gradient_reduction_falls_outside_the_bounds(streams, fault):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(sp=2, fsdp=2), "A9"), (dict(sp=2, tp=2), "A9"),
+    (dict(sp=2, fsdp=2), None), (dict(sp=2, tp=2), None),
     (dict(pp=2, fsdp=2), "A16"), (dict(ep=2, tp=2), "A16")])
 def test_unported_combinations_raise_naming_their_item(kw, item):
+    """pp and ep raise naming A16; sp with fsdp or tp is accepted (item
+    None): the sharded model builds, and in one process the step refuses
+    only the mesh's four ranks (its streams: test_torch_mesh4d.py)."""
     sizes = tmesh.MeshConfig(**kw).resolved_sizes(4)
+    _, cfg = _cfgs(_LLAMA)
+    if item is None:
+        tmesh.check_ported(sizes)
+        model = tdec.Decoder(cfg, device="meta", trainable=True,
+                             mesh=tmesh.Mesh(sizes, 0))
+        assert model.mesh is not None
+        with pytest.raises(ValueError, match="the world has 1"):
+            tts.TrainStepBuilder(cfg, topt.make_optimizer(**_OPT),
+                                 device="cpu", mesh=tmesh.Mesh(sizes, 0))
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tmesh.check_ported(sizes)
-    _, cfg = _cfgs(_LLAMA)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tts.TrainStepBuilder(cfg, topt.make_optimizer(**_OPT), device="cpu",
                              mesh=tmesh.Mesh(sizes, 0))
@@ -329,11 +345,25 @@ def test_unported_combinations_raise_naming_their_item(kw, item):
     (dict(d_ff=130), dict(tp=4)), (dict(vocab_size=254), dict(tp=4)),
     (dict(d_model=66, n_head=2, n_kv_head=1), dict(fsdp=4))])
 def test_uneven_splits_raise_naming_a9(over, kw):
+    """A tp that does not divide ``n_head`` (6 heads, 96 q columns over
+    tp 4) runs on GSPMD's padded head blocks (rank 1: heads 2 and 3, its
+    24 columns resharded to them); the leaf splits the JAX placement
+    refuses raise ``ValueError`` citing that refusal."""
     _, cfg = _cfgs(_LLAMA, **over)
     mesh = tmesh.Mesh(tmesh.MeshConfig(**kw).resolved_sizes(4), 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    if over.get("n_head") == 6:
+        model = tdec.Decoder(cfg, device="meta", trainable=True, mesh=mesh)
+        assert (model.tp.mode, model.tp.heads) == ("heads", 2)
+        assert model.tp.head_cols[1] == (32, 64) and \
+            model.tp.cols[1] == (24, 48)
+        # one process refuses only the mesh's four ranks
+        with pytest.raises(ValueError, match="the world has 1"):
+            tts.TrainStepBuilder(cfg, topt.make_optimizer(**_OPT),
+                                 device="cpu", mesh=mesh)
+        return
+    with pytest.raises(ValueError, match="JAX package refuses"):
         tdec.Decoder(cfg, device="meta", trainable=True, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+    with pytest.raises(ValueError, match="JAX package refuses"):
         tts.TrainStepBuilder(cfg, topt.make_optimizer(**_OPT), device="cpu",
                              mesh=mesh)
 

@@ -10,10 +10,10 @@ JAX package's, on the CPU.
 - a rank's block of a global batch (``torch_sp_worker.local_batch``: its
   dp rows, and its sp sequence block from ``data_utils.sequence_block``) is the shard JAX's ``batch_sharding``
   puts on that device;
-- the layouts the port does not run raise, naming their ROADMAP items
-  (sp with fsdp or tp: A9; pp, ep: A16), and so does
-  ``Trainer`` given such a mesh (fsdp and tp themselves:
-  ``tests/test_torch_fsdp_tp.py``);
+- the layouts the port does not run raise, naming their ROADMAP item
+  (pp, ep: A16), and so does ``Trainer`` given such a mesh; sp with fsdp
+  or tp is a port layout (its streams: ``tests/test_torch_mesh4d.py``;
+  fsdp and tp themselves: ``tests/test_torch_fsdp_tp.py``);
 - ``Trainer`` given ``MeshConfig(dp=2, sp=2)`` in 4 gloo processes
   (``tests/torch_sp_worker.py``) trains on it: its 2 losses equal the
   one-process ``TrainStepBuilder``'s on the global batches, and its
@@ -99,15 +99,30 @@ def test_local_batch_is_the_jax_shard(kw):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(fsdp=2, sp=2), "A9"), (dict(tp=2, sp=2), "A9"), (dict(pp=2), "A16"),
+    (dict(fsdp=2, sp=2), None), (dict(tp=2, sp=2), None), (dict(pp=2), "A16"),
     (dict(ep=2), "A16")])
 def test_unported_axes_raise_naming_their_item(tmp_path, kw, item):
+    """pp and ep raise naming A16. sp with fsdp or tp (item None) passes
+    the check; in one process its four ranks do not fit the world, which
+    ``build_mesh`` and ``Trainer`` refuse as JAX's ``resolved_sizes``
+    does; every rank's groups are the JAX mesh's
+    (``test_rank_layout_is_the_jax_device_order``)."""
+    world = int(np.prod(list(kw.values())))
+    cfg = get_config("tiny", **_CFG)
+    if item is None:
+        tmesh.check_ported(tmesh.MeshConfig(**kw).resolved_sizes(world))
+        for call in (lambda: tmesh.build_mesh(tmesh.MeshConfig(**kw)),
+                     lambda: ttrainer.Trainer(
+                         cfg, ttrainer.TrainerArgs(output_dir=str(tmp_path)),
+                         [], topt.make_optimizer(**_OPT), device="cpu",
+                         mesh=tmesh.MeshConfig(**kw))):
+            with pytest.raises(ValueError, match="device count 1"):
+                call()
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tmesh.build_mesh(tmesh.MeshConfig(**kw))
-    world = int(np.prod(list(kw.values())))
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         tmesh.check_ported(tmesh.MeshConfig(**kw).resolved_sizes(world))
-    cfg = get_config("tiny", **_CFG)
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         ttrainer.Trainer(cfg, ttrainer.TrainerArgs(output_dir=str(tmp_path)),
                          [], topt.make_optimizer(**_OPT), device="cpu",

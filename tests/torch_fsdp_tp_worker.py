@@ -11,9 +11,13 @@ Tasks:
 - ``train``: for each case of IN, the mesh it names, the JAX weights of
   IN cut to this rank's shards (``convert.load_jax_params(mesh=)``),
   ``TrainStepBuilder`` steps over the global batches of IN, each rank
-  given its rows (its dp and fsdp block of each micro-batch); a case
-  may plant a wrong reduction (``fault``: the norm scales' gradients
-  summed over tp, or ``wk``/``wv``'s not), or run the steps through
+  given its rows (its dp and fsdp block of each micro-batch; the step
+  keeps its sp block), through the case's ``attn_impl``; a case may
+  plant a wrong reduction (``fault``: the norm scales' gradients summed
+  over tp, or not over sp, or ``wk``/``wv``'s not over tp), a wrong
+  move (``reshard_drop``: the backward of the q columns' move to the
+  heads leaves out what it returns to another rank, the straddling
+  head's other half), or run the steps through
   ``Trainer(mesh=MeshConfig(...))`` with an evaluation at the end
   (``trainer``). A case with ``zero`` ("zero1" or "zero2") runs ZeRO
   update sharding on the mesh (the hybrid step), its moments this
@@ -31,10 +35,12 @@ Tasks:
   Returns each state's leaves: every shard's global index and values.
 """
 
+import contextlib
 import os
 import sys
 
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
@@ -50,6 +56,7 @@ from dlrover_tpu_torch.parallel.mesh import (  # noqa: E402
     MeshConfig,
     build_mesh,
 )
+from dlrover_tpu_torch.parallel import collectives  # noqa: E402
 from dlrover_tpu_torch.parallel import sharding as shd  # noqa: E402
 from dlrover_tpu_torch.parallel.mesh import data_axes  # noqa: E402
 from dlrover_tpu_torch.train import optimizer as topt  # noqa: E402
@@ -60,11 +67,12 @@ from dlrover_tpu_torch.train.distributed import (  # noqa: E402
 )
 from torch_zero_worker import accum_rows  # noqa: E402
 
-#: the planted faults: (leaves by JAX path, axis added or dropped)
+_NORMS = ("layers/ln1/scale", "layers/ln2/scale", "final_norm/scale")
+#: the planted faults: (leaves by JAX path, axis added or dropped, axis)
 FAULTS = {
-    "norm_tp": (("layers/ln1/scale", "layers/ln2/scale",
-                 "final_norm/scale"), "add"),
-    "kv_no_tp": (("layers/attn/wk", "layers/attn/wv"), "drop"),
+    "norm_tp": (_NORMS, "add", "tp"),
+    "norm_no_sp": (_NORMS, "drop", "sp"),
+    "kv_no_tp": (("layers/attn/wk", "layers/attn/wv"), "drop", "tp"),
 }
 
 
@@ -75,16 +83,40 @@ def data_index(mesh):
 
 
 def plant(builder, fault):
-    paths, how = FAULTS[fault]
+    paths, how, axis = FAULTS[fault]
     for name, shard in builder.layout.items():
         if shard.path in paths:
             axes = set(builder.reduce_axes[name])
             if how == "add":
-                axes.add("tp")
+                axes.add(axis)
             else:
-                axes.discard("tp")
+                axes.discard(axis)
             builder.reduce_axes[name] = tuple(
-                a for a in ("dp", "fsdp", "tp") if a in axes)
+                a for a in tts.REDUCE_ORDER if a in axes)
+
+
+@contextlib.contextmanager
+def reshard_drop(model):
+    """The ``reshard_drop`` fault while the block runs: the backward of
+    the q columns' move to the heads (``collectives.tp_reshard``) zeroes
+    the gradient it returns to another rank."""
+    real = collectives._TpReshard.backward
+    cols = model.tp.cols
+
+    def backward(ctx, g):
+        src, dst, group = ctx.args
+        if src == cols:
+            r = dist.get_rank(group)
+            at = torch.arange(*dst[r])
+            own = (at >= src[r][0]) & (at < src[r][1])
+            g = torch.where(own, g, torch.zeros_like(g))
+        return real(ctx, g)
+
+    collectives._TpReshard.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        collectives._TpReshard.backward = staticmethod(real)
 
 
 #: the hybrid ZeRO faults' leaf
@@ -140,23 +172,28 @@ def train(spec, rank, world):
                                    bucket_mb=case["bucket_mb"])
                     if case.get("zero") else None)
             b = tts.TrainStepBuilder(cfg, tx, grad_accum=case["accum"],
-                                     device="cpu", mesh=mesh, comm=comm)
+                                     device="cpu", mesh=mesh, comm=comm,
+                                     attn_impl=case.get("attn_impl", "auto"))
             assert b.update_sharding == bool(comm), b.update_sharding_reason
             opt = (tx.init({"flat": torch.zeros(
                 b.plan.n_buckets, b.plan.bucket_elems // b.plan.dp)})
                 if comm else tx.init(dict(model.named_parameters())))
             state = {"params": model, "opt_state": opt, "step": 0}
+            fault = contextlib.nullcontext()
             if case.get("fault") in FAULTS:
                 plant(b, case["fault"])
+            elif case.get("fault") == "reshard_drop":
+                fault = reshard_drop(model)
             elif case.get("fault"):
                 plant_zero(b, case["fault"])
             index, n = data_index(mesh)
             losses, norms, evals = [], [], []
-            for batch in spec["batches"]:
-                state, m = b.step_fn(state, accum_rows(batch, index, n,
-                                                       case["accum"]))
-                losses.append(float(m["loss"]))
-                norms.append(float(m["grad_norm"]))
+            with fault:
+                for batch in spec["batches"]:
+                    state, m = b.step_fn(state, accum_rows(
+                        batch, index, n, case["accum"]))
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
         opt = state["opt_state"]
         out[case["id"]] = {
             "losses": losses, "grad_norms": norms, "evals": evals,
@@ -199,7 +236,8 @@ def _trainer_run(spec, case, cfg, tx, rank, world):
                        max_steps=len(spec["batches"]), save_interval=0,
                        log_interval=0, grad_accum=case["accum"],
                        detect_loss_spikes=False, report_to_master=False,
-                       eval_at_end=True, eval_steps=1)
+                       eval_at_end=True, eval_steps=1,
+                       attn_impl=case.get("attn_impl", "auto"))
     t = Trainer(cfg, args, [accum_rows(b, index, n, case["accum"])
                             for b in spec["batches"]], tx, mesh=mesh_cfg,
                 device="cpu", init_state_fn=init, callbacks=[Record()],
