@@ -25,7 +25,10 @@ from ``--seed``, through the hand-written CUDA kernels built from
   a local job master, the elastic agent and its checkpoint saver)
   restarting a crashed llama-1.4b worker
   (``dlrover_tpu_torch.examples.train_gpt_elastic``) on the card, its
-  batches from the master's data-shard service; then four ranks of the
+  batches from the master's data-shard service; then two nodes'
+  launchers under a standalone master, one of the nodes lost to a card
+  fault, diagnosed, relaunched and restored from its peer's memory (the
+  replica ring), its batches from the elastic sampler; then four ranks of the
   worker on the card with ZeRO update sharding, two of them evicted
   mid-run and the optimizer state live-resharded onto the other two;
 - sequence parallelism: ``TrainStepBuilder`` over ``MeshConfig(dp=1,
@@ -158,8 +161,9 @@ result:
    dlrover_tpu_torch.examples.train_gpt_elastic`` in a subprocess under
    ``timeout``: the worker forms an NCCL group (world 1) from the sealed
    rendezvous, loads the kernels built above, trains llama-1.4b at full
-   width and depth (b8 × s1024, f32 params and moments: the 16.4 GB
-   pack) staging to the agent-served shared memory every 2 steps and to
+   width and 2 layers (b8 × s1024, f32 params and moments: the 2.81 GB
+   pack; full depth, 16.4 GB, before the node_loss phase joined) staging
+   to the agent-served shared memory every 2 steps and to
    disk every 4, and crashes right after step 5 on its first run; the
    agent sees the exit, persists the staged step 4 from its own process,
    re-rendezvouses and respawns; the new worker resumes from the memory
@@ -179,6 +183,33 @@ result:
    respawn, the worker's start, group, kernel load and memory restore,
    the crash to the first step back, the steady step against the
    reference's, and any step stalled during a persist;
+11a. node_loss: a standalone master (``python -m
+   dlrover_tpu_torch.master.main --num-workers 2``) and two nodes'
+   launchers (``--nnodes 2 --node-id N --nproc 1``; a run id, socket
+   directory and staging segment of their own each, as two hosts; one
+   wire token; the heartbeat at 1 s) run the elastic worker with
+   ``--data sampler --replicate --one-card``: llama-1.4b at full width and
+   2 layers, dp 2 over gloo on the card, b8 × s1024 from
+   ``ElasticDataLoader(sampler=ElasticDistributedSampler(...))``, a memory
+   save every 2 steps backed up by each node's agent to the ring peer
+   (the agents hold the peers' 2.81 GB packs). After step 3, once node 0
+   holds its staged step 2, node 1's worker writes a CUDA hardware error
+   and exits 1; the master classifies it, node 1's agent reports,
+   respawns and, told by the next heartbeat, exits 2. Acting as the
+   platform, the phase reads node 1's staged pack, unlinks the segment
+   and starts a replacement launcher for node 1. Gated: the master's
+   ``hardware_error`` → ``relaunch_node``; node 1's agent rc 2; node 1's
+   replacement restores step 2 through the replica tier from holder 0
+   and node 0 through memory; the sampler resumes at the saved position;
+   the re-run steps' losses equal the first run's bit for bit on both
+   ranks; the restored pack's digest equals the staged pack's, and a
+   copy with one byte flipped in its first tensor does not; every step's
+   launches exact (K1 2, K2 2 pairs, K3/K4 5 each a rank); no kernel
+   rebuilt; both nodes done; disk writes under 1 GiB (the checkpoint
+   directory on /dev/shm); nothing left behind. Read: failure to first
+   step back, split into detect, diagnosis, relaunch, rendezvous, start,
+   replica fetch, restore and first step; the fetch's bytes and rate;
+   the step at dp 2; each node's peak host RSS; the phase's disk bytes;
 11b. reshard: the same launcher with ``--nproc 4`` runs the worker on
    four ranks of the one card over gloo (``--one-card``), llama-1.4b at
    full width and 2 layers (as ``trainer``), b8 × s1024, ``--zero1``
@@ -2797,10 +2828,12 @@ def trainer_check(cfg, seed, dev, name="trainer"):
 
 
 # the elastic phase: the worker's 8 steps, memory saves every 2, disk
-# saves every 4 (two persists: steps 4 and 8; a third would take the
-# run past the disk's 45 GiB), a crash right after step 5 of the first
-# run; the launcher's time limit
+# saves every 4 (two persists: steps 4 and 8), a crash right after step 5
+# of the first run; the launcher's time limit
 ELASTIC_STEPS, ELASTIC_CKPT_EVERY, ELASTIC_CRASH_AT = 8, 2, 5
+# llama-1.4b at full width and 2 layers (a 2.81 GB pack): 24 layers (16.37
+# GB) until the node_loss phase joined the script and needed its time
+ELASTIC_LAYERS = 2
 ELASTIC_TIMEOUT_S = 540
 _STEP_LINE = re.compile(r"\[worker\] step=(\d+) loss=(\S+) rank=\d+ "
                         r"device_ms=(\S+) at=(\S+) launches=(\{.*\})")
@@ -2915,7 +2948,8 @@ def elastic_check(cfg, seed, ref, name="elastic", device="cuda",
            "--nproc", "1", "--max-restarts", "1", "--monitor-interval",
            "0.2", "--", sys.executable, "-m",
            "dlrover_tpu_torch.examples.train_gpt_elastic", "--model",
-           cfg.name, "--steps", str(ELASTIC_STEPS), "--batch",
+           cfg.name, "--override", f"n_layer={cfg.n_layer}",
+           "--steps", str(ELASTIC_STEPS), "--batch",
            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--seed", str(seed),
            "--ckpt-dir", ckpt_dir, "--ckpt-every", str(ELASTIC_CKPT_EVERY),
            "--crash-at", str(ELASTIC_CRASH_AT), "--check-committed",
@@ -3162,6 +3196,371 @@ def _mem_available():
             if line.startswith("MemAvailable:"):
                 return int(line.split()[1]) * 1024
     return None
+
+# ---------------------------------------------------------------------------
+# phase 11a: a lost node restores from its peer's memory
+# ---------------------------------------------------------------------------
+
+# two nodes of one worker each (dp 2 over gloo on card 0); llama-1.4b at
+# full width and 2 layers, b8 x s1024; a memory save every 2 steps, each
+# backed up to the ring peer; node 1 goes after step 3 (its saved step 2
+# held by node 0), its replacement and node 0 resume step 2 and train to
+# step 4; the heartbeat at 1 s (the drill's: the default is 15)
+NODE_LOSS_LAYERS, NODE_LOSS_STEPS, NODE_LOSS_AT = 2, 4, 2
+NODE_LOSS_TIMEOUT_S = 420
+NODE_LOSS_HEARTBEAT_S = 1.0
+_NODE_STEP = re.compile(r"\[worker\] step=(\d+) loss=(\S+) rank=(\d+) "
+                        r"device_ms=(\S+) at=(\S+) launches=(\{.*\})")
+
+
+def _node_loss_runs(text):
+    """Each worker start's lines in a launcher's log: its group line, kernel
+    load, restore record, sampler position, steps and last line."""
+    runs, cur = [], None
+    for line in text.splitlines():
+        if "[worker] process group" in line:
+            cur = {"group": line.split("[worker] ")[1], "steps": {},
+                   "kernels": None, "restore": None, "sampler": None,
+                   "rss": None}
+            runs.append(cur)
+        elif cur is None:
+            continue
+        elif "[worker] kernels " in line:
+            cur["kernels"] = json.loads(line.split("kernels ", 1)[1])
+        elif "[worker] restore " in line:
+            cur["restore"] = json.loads(line.split("restore ", 1)[1])
+        elif "[worker] sampler position restored " in line:
+            cur["sampler"] = json.loads(line.split("restored ", 1)[1])
+        m = re.search(r"peak_rss_bytes=(\d+)", line)
+        if m and "[worker]" in line:
+            cur["rss"] = int(m.group(1))
+        m = _NODE_STEP.search(line)
+        if m:
+            cur["steps"][int(m.group(1))] = {
+                "loss": m.group(2), "rank": int(m.group(3)),
+                "device_ms": (None if m.group(4) == "None"
+                              else float(m.group(4))),
+                "at": float(m.group(5)), "launches": json.loads(m.group(6))}
+    return runs
+
+
+def _staged_pack(name):
+    """The pack in segment ``name``: its step, bytes and digest, and the
+    digest of a copy with one byte flipped in the middle of its first
+    tensor."""
+    from dlrover_tpu_torch.checkpoint import core
+    from dlrover_tpu_torch.common.multi_process import attach_shared_memory
+    from dlrover_tpu_torch.examples.train_gpt_elastic import (
+        chunk_digests,
+        pack_digest,
+    )
+
+    shm = attach_shared_memory(name)
+    try:
+        n = core.pack_length(shm.buf)
+        view = shm.buf[:n]
+        doc = core.read_header(view)
+        hdr = int.from_bytes(bytes(view[:core.HEADER_LEN_BYTES]), "little")
+        first = doc["leaves"][0]["shards"][0]
+        flip = (core.payload_start(bytes(view[core.HEADER_LEN_BYTES:
+                                              core.HEADER_LEN_BYTES + hdr]))
+                + first["offset"] + first["nbytes"] // 2)
+        t0 = time.perf_counter()
+        parts = chunk_digests(view)
+        out = {"step": doc["step"], "nbytes": n,
+               "digest": pack_digest(parts=parts), "flip_at": flip,
+               "flipped_digest": pack_digest(view, parts, flip)}
+        out["digest_s"] = time.perf_counter() - t0
+        del view
+        return out
+    finally:
+        shm.close()
+
+
+def node_loss_check(cfg, seed, name="node_loss", device="cuda",
+                    overrides=()):
+    """A node lost and restored from its peer's memory, on the card: a
+    standalone job master and two nodes' launchers (a run id, a socket
+    directory and a staging segment of their own each, as two hosts; one
+    wire token) run the elastic example with ``--data sampler
+    --replicate --one-card``: each worker's staged pack is backed up by
+    its node's agent to the ring peer. Node 1's worker, once node 0 holds
+    its saved step, runs a further step, writes a CUDA hardware error and
+    exits 1; the master classifies it and prescribes a relaunch, node 1's
+    agent (after reporting and respawning, the JAX order) exits 2. Acting
+    as the platform, this reads node 1's staged pack, unlinks the segment
+    (a fresh host has none) and starts a replacement launcher. The
+    checkpoint directory is on /dev/shm (tmpfs: off the disk). Readings
+    from the trace files, the logs and ``/proc/self/io``. ``device`` and
+    ``overrides`` serve a rehearsal on the CPU at a cut size."""
+    import glob
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.common.multi_process import (
+        attach_shared_memory,
+        unlink_shared_memory,
+    )
+    from dlrover_tpu_torch.examples.train_gpt_elastic import launches
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    log_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(log_dir, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="dlrover_node_loss_")
+    ckpt_dir = tempfile.mkdtemp(prefix="dlrover_node_loss_ckpt_",
+                                dir="/dev/shm")
+    run = f"chip_smoke_node_loss_{os.getpid()}"
+    trace_dir = os.path.join(out, "trace")
+    env = dict(os.environ, DLROVER_TPU_COORDINATOR_PORT="0",
+               DLROVER_TPU_WIRE_TOKEN=f"{run}_token",
+               DLROVER_TPU_REPLICA_HOST="127.0.0.1",
+               DLROVER_TPU_CTX_HEARTBEAT_INTERVAL_S=str(
+                   NODE_LOSS_HEARTBEAT_S),
+               DLROVER_TPU_TRACE_DIR=trace_dir, TMPDIR=out)
+    env.pop("DLROVER_TPU_MASTER_ADDR", None)
+    per_step = {k: 0 for k in launches()}
+    per_step.update({k: cfg.n_layer for k in fa.UNPACKED},
+                    norm_fwd=2 * cfg.n_layer + 1,
+                    norm_bwd=2 * cfg.n_layer + 1)
+    rec = {"phase": name, "config": cfg.name, "n_layer": cfg.n_layer,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "dp": 2,
+           "steps": NODE_LOSS_STEPS, "lose_after_saved_step": NODE_LOSS_AT,
+           "heartbeat_s": NODE_LOSS_HEARTBEAT_S, "card": nvidia_smi_line()}
+    procs, files, logs = [], [], {}
+    addr = None
+
+    def launch(node, tag):
+        cmd = ["timeout", "-k", "10", str(NODE_LOSS_TIMEOUT_S),
+               sys.executable, "-m", "dlrover_tpu_torch.agent.launcher",
+               "--nnodes", "2", "--node-id", str(node), "--nproc", "1",
+               "--max-restarts", "3", "--monitor-interval", "0.2",
+               "--master-addr", addr, "--", sys.executable, "-m",
+               "dlrover_tpu_torch.examples.train_gpt_elastic", "--model",
+               cfg.name, "--override", f"n_layer={cfg.n_layer}",
+               "--steps", str(NODE_LOSS_STEPS), "--batch", str(TRAIN_BATCH),
+               "--seq", str(TRAIN_SEQ), "--seed", str(seed), "--ckpt-dir",
+               ckpt_dir, "--ckpt-every", "2", "--data", "sampler",
+               "--replicate", "--lose-node-at", str(NODE_LOSS_AT),
+               "--hash-restored", "--one-card", "--device", device]
+        for item in overrides:
+            cmd += ["--override", item]
+        rec.setdefault("commands", {})[tag] = cmd[4:]
+        logs[tag] = os.path.join(log_dir, f"{name}_{tag}.txt")
+        f = open(logs[tag], "w")
+        files.append(f)
+        p = subprocess.Popen(
+            cmd, cwd=here, stdout=f, stderr=subprocess.STDOUT,
+            env=dict(env, DLROVER_TPU_RUN_ID=f"{run}_n{node}",
+                     DLROVER_TPU_SOCK_DIR=os.path.join(out, f"sock{node}")))
+        procs.append(p)
+        return p
+
+    def wait(ps, deadline):
+        for p in ps:
+            try:
+                p.wait(max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+
+    w0 = _write_bytes()
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + NODE_LOSS_TIMEOUT_S + 60
+    try:
+        logs["master"] = os.path.join(log_dir, f"{name}_master.txt")
+        f = open(logs["master"], "w")
+        files.append(f)
+        master = subprocess.Popen(
+            ["timeout", "-k", "10", str(NODE_LOSS_TIMEOUT_S + 30),
+             sys.executable, "-m", "dlrover_tpu_torch.master.main",
+             "--num-workers", "2"], cwd=here, stdout=subprocess.PIPE,
+            stderr=f, text=True,
+            env=dict(env, DLROVER_TPU_TRACE_ROLE="master"))
+        procs.append(master)
+        addr = master.stdout.readline().strip().split("=", 1)[1]
+        n0, n1 = launch(0, "n0"), launch(1, "n1")
+        wait([n1], deadline)
+        rec["node1_rc"] = n1.returncode
+        rec["node1_exit_s"] = time.perf_counter() - t0
+        # the platform: what node 1 staged, then a fresh host without it
+        segs = [os.path.basename(p) for p in
+                glob.glob(f"/dev/shm/*{run}_n1_*")]
+        rec["node1_segments"] = segs
+        if segs:
+            rec["staged"] = _staged_pack(segs[0])
+        for s in segs:
+            unlink_shared_memory(attach_shared_memory(s))
+        rec["replacement_at_s"] = time.perf_counter() - t0
+        n1b = launch(1, "n1b")
+        wait([n0, n1b], deadline)
+        rec["rcs"] = [n0.returncode, n1b.returncode]
+        wait([master], time.monotonic() + 30)
+        rec["seconds"] = time.perf_counter() - t0
+        rec["disk_write_bytes"] = _write_bytes() - w0
+        text = {k: open(v).read() for k, v in logs.items()}
+        runs = {k: _node_loss_runs(v) for k, v in text.items()
+                if k != "master"}
+        rec["runs"] = {k: [{x: y for x, y in r.items() if x != "steps"}
+                           for r in v] for k, v in runs.items()}
+        rec["diagnosed"] = re.findall(r"diagnosed node \d+ failure as \S+ "
+                                      r"→ \S+", text["master"])
+        rec["agent_peak_rss_bytes"] = {
+            k: [int(m) for m in re.findall(
+                r"agent of node \d+ exits \(rc -?\d+\): peak_rss_bytes=(\d+)",
+                v)] for k, v in text.items() if k != "master"}
+        every = [r for v in runs.values() for r in v]
+        losses = {}
+        for r in every:
+            for s, st in r["steps"].items():
+                losses.setdefault(f"{st['rank']}:{s}", []).append(st["loss"])
+        rec["losses"] = losses
+        rec["launches"] = {k: sum(st["launches"].get(k, 0) for r in every
+                                  for st in r["steps"].values())
+                           for k in per_step}
+        rec["launches_per_step_ok"] = all(
+            st["launches"] == per_step for r in every
+            for st in r["steps"].values())
+        final = {"n0": runs["n0"][-1] if runs.get("n0") else {},
+                 "n1b": runs["n1b"][-1] if runs.get("n1b") else {}}
+        rec["final_restores"] = {k: r.get("restore") for k, r in
+                                 final.items()}
+        rec["final_samplers"] = {k: r.get("sampler") for k, r in
+                                 final.items()}
+        try:
+            rec.update(_node_loss_readings(trace_dir, runs, rec))
+        except Exception as exc:  # noqa: BLE001 — a missing mark: fail
+            rec["readings_error"] = repr(exc)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+        leftovers = [f for f in os.listdir("/dev/shm") if run in f]
+        for f in leftovers:
+            unlink_shared_memory(attach_shared_memory(f))
+        socks = [s for d in glob.glob(os.path.join(out, "sock*"))
+                 for s in os.listdir(d)]
+        rec["left_behind"] = leftovers + socks
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n0r = (rec.get("final_restores") or {}).get("n0") or {}
+    n1r = (rec.get("final_restores") or {}).get("n1b") or {}
+    staged = rec.get("staged", {})
+    groups = [r["group"] for v in rec.get("runs", {}).values() for r in v]
+    rerun = [k for k, v in rec.get("losses", {}).items() if len(v) > 1]
+    want_sampler = NODE_LOSS_AT * TRAIN_BATCH
+    rec["checks"] = checks = {
+        "diagnosed_hardware_relaunch": rec.get("diagnosed", [])[:1] == [
+            "diagnosed node 1 failure as hardware_error → relaunch_node"],
+        "node1_agent_rc_2": rec.get("node1_rc") == 2,
+        "node1_segment_unlinked_and_replaced": len(
+            rec.get("node1_segments", [])) == 1
+        and staged.get("step") == NODE_LOSS_AT,
+        "node1_replica_from_holder_0": n1r.get("tier") == "replica"
+        and n1r.get("holder") == 0,
+        "node0_memory": n0r.get("tier") == "memory",
+        "same_step": n0r.get("step") == n1r.get("step") == NODE_LOSS_AT,
+        "restored_pack_is_the_staged": staged.get("digest") is not None
+        and n1r.get("digest") == staged["digest"]
+        and n1r.get("fetch_nbytes") == staged["nbytes"],
+        "flipped_byte_caught": staged.get("flipped_digest") not in (
+            None, staged.get("digest")),
+        "sampler_resumed": len(rec.get("final_samplers") or {}) == 2
+        and all((s or {}).get("completed") == want_sampler
+                for s in rec["final_samplers"].values()),
+        "reruns_bit_for_bit": all(len(set(v)) == 1
+                                  for v in rec.get("losses", {}).values())
+        and {f"0:{NODE_LOSS_AT + 1}", f"1:{NODE_LOSS_AT + 1}"} <= set(rerun),
+        "gloo_world_2_on_the_device": bool(groups) and all(
+            g.startswith("process group gloo world 2 rank ")
+            and f"device {device}" in g for g in groups),
+        "no_rebuild": all(r["kernels"] and r["kernels"]["compiled_s"] == 0
+                          for v in rec.get("runs", {}).values() for r in v),
+        "launches_exact": rec.get("launches_per_step_ok") is True,
+        "both_done": rec.get("rcs") == [0, 0],
+        "disk_writes_under_1_gib": rec.get("disk_write_bytes", 1 << 40)
+        < (1 << 30),
+        "readings": "readings_error" not in rec,
+        "nothing_left_behind": rec["left_behind"] == [],
+    }
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"{name}: {[k for k, v in checks.items() if not v]}")
+    return rec
+
+
+def _node_loss_readings(trace_dir, runs, rec):
+    """The recovery's phases on the shared clock, from the failure (node
+    1's ``worker.crash``) to the replacement's first step: detect (node
+    1's agent sees the exit), diagnosis (the master's verdict reaches the
+    agent by heartbeat), relaunch (the agent acts, exits; the platform
+    reads and unlinks the segment and starts the replacement, which
+    registers), rendezvous, start (spawn to the restore: process start,
+    card, group, kernels, model), replica fetch, restore (the rest of
+    it), first step; the fetch's bytes and rate; the step at dp 2; peak
+    host RSS a node."""
+    ev = _trace_events(trace_dir)
+    agents = ev.get("agent", [])
+    workers = ev.get("worker", [])
+    crash = next(_ev(w, "worker.crash") for w in workers
+                 if _ev(w, "worker.crash"))
+    node1 = [a for a in agents
+             if any(e.get("args", {}).get("node") == 1 for e in a)]
+    lost, repl = node1[0], node1[-1]
+    seen = next(e for e in lost if e["name"] == "failover.worker_exit")
+    told = next(e for e in lost if e["name"] == "failover.action"
+                and e["args"].get("action") == "relaunch_node")
+    acted = _ev(lost, "failover.relaunch")
+    rdzv = _ev(repl, "failover.rendezvous")
+    w_repl = next(w for w in workers
+                  if (_ev(w, "failover.restore") or {}).get(
+                      "args", {}).get("tier") == "replica")
+    restore = _ev(w_repl, "failover.restore")
+    fetch = _ev(w_repl, "ckpt.replica_fetch")
+    first = min(st["at"] for st in runs["n1b"][-1]["steps"].values())
+    diagnosed = next((e for m in ev.get("master", []) for e in m
+                      if e["name"] == "failover.diagnosed"), None)
+    marks = [("detect_s", _s(crash), _s(seen)),
+             ("diagnosis_s", _s(seen), _s(told)),
+             ("relaunch_s", _s(told), _s(rdzv)),
+             ("rendezvous_s", _s(rdzv), _s(rdzv, end=True)),
+             ("start_s", _s(rdzv, end=True), _s(restore)),
+             ("replica_fetch_s", _s(restore), _s(fetch, end=True)),
+             ("restore_s", _s(fetch, end=True), _s(restore, end=True)),
+             ("first_step_s", _s(restore, end=True), first)]
+    r = {"recovery": {k: b - a for k, a, b in marks},
+         "failure_to_first_step_back_s": first - _s(crash),
+         "agent_acted_after_told_s": _s(acted) - _s(told),
+         "diagnosed_after_seen_s": (_s(diagnosed) - _s(seen)
+                                    if diagnosed else None)}
+    fetched = runs["n1b"][-1]["restore"]
+    r["fetch_nbytes"] = fetched["fetch_nbytes"]
+    r["fetch_s"] = fetched["fetch_s"]
+    r["fetch_gbps"] = fetched["fetch_nbytes"] / fetched["fetch_s"] / 1e9
+    # the step at dp 2: host gaps between steps not after a save, and the
+    # device ms (CUDA events) of every step but a run's first
+    gaps, dev = [], []
+    for v in runs.values():
+        for run in v:
+            steps = sorted(run["steps"])
+            for prev, s in zip(steps, steps[1:]):
+                if prev % 2:
+                    gaps.append(run["steps"][s]["at"]
+                                - run["steps"][prev]["at"])
+            dev += [run["steps"][s]["device_ms"] for s in steps[1:]
+                    if run["steps"][s]["device_ms"] is not None]
+    r["step_wall_s"] = sorted(gaps)
+    r["step_device_ms"] = sorted(dev)
+    r["peak_rss_bytes"] = {
+        k: {"agents": rec["agent_peak_rss_bytes"].get(k, []),
+            "workers": [run["rss"] for run in v]}
+        for k, v in runs.items()}
+    return r
+
 
 # ---------------------------------------------------------------------------
 # phase 11b: the live reshard, four ranks on the one card
@@ -5466,9 +5865,18 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     if trainer_rec is not None:
         with phase("elastic"):
-            rec = elastic_check(get_config("llama-1.4b"), args.seed,
-                                trainer_rec)
+            rec = elastic_check(get_config("llama-1.4b",
+                                           n_layer=ELASTIC_LAYERS),
+                                args.seed, trainer_rec)
             train_launches["elastic"] = rec["launches"]
+    # a lost node restored from its peer's memory: two nodes' launchers,
+    # llama-1.4b at full width and 2 layers at dp 2 on this card
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("node_loss"):
+        rec = node_loss_check(get_config("llama-1.4b",
+                                         n_layer=NODE_LOSS_LAYERS), args.seed)
+        train_launches["node_loss"] = rec["launches"]
     # the live reshard: four ranks on this card over gloo, ZeRO update
     # sharding, two ranks evicted mid-run
     gc.collect()

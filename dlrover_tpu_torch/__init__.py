@@ -19,3 +19,17 @@ each worker).
 Entry points run on ``device="cuda"`` unless the caller asks for the
 CPU; without a card they raise instead of falling back.
 """
+
+# A worker the elastic agent launches gets a SIGUSR2 Python-stack dumper,
+# so the agent's StackCollector can diagnose a hang (the agent sets the
+# variable; agent/collectors.py).
+import os as _os
+
+if _os.environ.get("DLROVER_TPU_STACK_DUMP") == "1":
+    try:
+        from dlrover_tpu_torch.agent.collectors import StackCollector
+
+        StackCollector.install_in_worker()
+    except Exception:  # noqa: BLE001 — diagnosis must never break startup
+        pass
+del _os

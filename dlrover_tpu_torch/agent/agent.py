@@ -14,6 +14,16 @@ its whole worker group: the others are stopped, the staged checkpoint
 is persisted from this process (the attached ``AsyncCheckpointSaver``),
 the node re-joins the rendezvous and respawns. The XLA compile-cache
 variables of the JAX agent have no torch counterpart.
+
+The heartbeat brings back the master's diagnosis actions, handled in
+the JAX agent's order: ``abort_job`` (the workers stopped, the node
+FAILED with ``fatal_error``, exit 1), ``relaunch_node`` (the workers
+stopped, FAILED with ``killed``, which keeps the node's relaunch budget,
+exit 2: the platform replaces the node), ``restart_worker`` (a restart
+of the worker group while it runs). A worker that dies is reported and
+respawned first; a relaunch its report prescribed is acted on at the
+next poll. Each worker runs with ``DLROVER_TPU_STACK_DUMP=1`` (its
+SIGUSR2 stack dump, ``collectors.StackCollector``).
 """
 
 import os
@@ -26,6 +36,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from dlrover_tpu_torch.agent.collectors import StackCollector
 from dlrover_tpu_torch.agent.master_client import MasterClient
 from dlrover_tpu_torch.agent.rendezvous import (
     MasterRendezvousHandler,
@@ -87,6 +98,8 @@ class WorkerProcess:
         self._cmd = cmd
         full_env = dict(os.environ)
         full_env.update(env)
+        # SIGUSR2 Python-stack dumper for hang diagnosis (collectors.py)
+        full_env.setdefault("DLROVER_TPU_STACK_DUMP", "1")
         self._tail: "deque[str]" = deque(maxlen=200)
         self._proc = subprocess.Popen(
             cmd, env=full_env, stderr=subprocess.PIPE, text=True
@@ -120,17 +133,20 @@ class WorkerProcess:
         return self._proc.pid
 
     def poll(self) -> Optional[int]:
-        return self._proc.poll()
+        rc = self._proc.poll()
+        if rc is not None:
+            StackCollector.remove(self.pid)
+        return rc
 
     def terminate(self, grace_s: float = 10.0):
-        if self._proc.poll() is not None:
-            return
-        self._proc.send_signal(signal.SIGTERM)
-        try:
-            self._proc.wait(grace_s)
-        except subprocess.TimeoutExpired:
-            self._proc.kill()
-            self._proc.wait()
+        if self._proc.poll() is None:
+            self._proc.send_signal(signal.SIGTERM)
+            try:
+                self._proc.wait(grace_s)
+            except subprocess.TimeoutExpired:
+                self._proc.kill()
+                self._proc.wait()
+        StackCollector.remove(self.pid)
 
 
 class ElasticTrainingAgent:
@@ -140,6 +156,9 @@ class ElasticTrainingAgent:
         self._workers: List[WorkerProcess] = []
         self._outcome: Optional[RendezvousOutcome] = None
         self._remaining_restarts = config.max_restarts
+        self._pending_restart = threading.Event()
+        self._pending_abort = threading.Event()
+        self._pending_relaunch = threading.Event()
         self._stop = threading.Event()
         self._hb_thread: Optional[threading.Thread] = None
         self._ckpt_saver = None  # AsyncCheckpointSaver, attached by launcher
@@ -154,14 +173,26 @@ class ElasticTrainingAgent:
     # ---- setup -----------------------------------------------------------
 
     def _start_heartbeats(self):
-        """Keep the node alive in the master's ``JobManager``. The actions
-        a heartbeat can carry (restart, abort, relaunch) come with the
-        diagnosis manager that queues them (ROADMAP A22)."""
+        """Keep the node alive in the master's ``JobManager`` and pick up
+        the actions the diagnosis manager queued for it."""
 
         def loop():
             while not self._stop.wait(self.config.heartbeat_interval_s):
                 try:
-                    self.client.report_heartbeat()
+                    actions = self.client.heartbeat_with_actions()
+                    for action in actions:
+                        get_tracer().instant("failover.action",
+                                             node=self.config.node_id,
+                                             action=action)
+                    if "restart_worker" in actions:
+                        logger.info("master prescribed worker restart")
+                        self._pending_restart.set()
+                    if "abort_job" in actions:
+                        logger.error("master prescribed job abort")
+                        self._pending_abort.set()
+                    if "relaunch_node" in actions:
+                        logger.warning("master prescribed node relaunch")
+                        self._pending_relaunch.set()
                 except Exception:  # noqa: BLE001 — master may be restarting
                     logger.warning("heartbeat failed", exc_info=True)
 
@@ -295,6 +326,25 @@ class ElasticTrainingAgent:
         while True:
             time.sleep(self.config.monitor_interval_s)
             rcs = [w.poll() for w in self._workers]
+            if self._pending_abort.is_set():
+                # diagnosis found the workload unrecoverable (user error,
+                # OOM): stop spending the restart budget
+                self._save_ckpt_to_storage()
+                self._terminate_workers()
+                self._safe_report(self.client.report_node_status,
+                                  NodeStatus.FAILED,
+                                  exit_reason="fatal_error")
+                return 1
+            if self._pending_relaunch.is_set():
+                # a hardware fault: exit so the platform replaces the node;
+                # "killed" keeps the node's relaunch budget
+                get_tracer().instant("failover.relaunch",
+                                     node=self.config.node_id)
+                self._save_ckpt_to_storage()
+                self._terminate_workers()
+                self._safe_report(self.client.report_node_status,
+                                  NodeStatus.FAILED, exit_reason="killed")
+                return 2
             failed = [(lr, rc) for lr, rc in enumerate(rcs)
                       if rc is not None and rc != 0]
             if not failed:
@@ -304,14 +354,20 @@ class ElasticTrainingAgent:
                         self.client.report_node_status, NodeStatus.SUCCEEDED
                     )
                     return 0
-                if any(rc is None for rc in rcs) and \
-                        self._membership_changed():
-                    logger.info(
-                        "membership changed; checkpoint + restart workers"
-                    )
-                    self._save_ckpt_to_storage()
-                    if not self._restart_worker():
-                        return 1
+                if any(rc is None for rc in rcs):
+                    if self._pending_restart.is_set():
+                        self._pending_restart.clear()
+                        logger.info("diagnosis action: restarting workers")
+                        self._save_ckpt_to_storage()
+                        if not self._restart_worker():
+                            return 1
+                    elif self._membership_changed():
+                        logger.info(
+                            "membership changed; checkpoint + restart "
+                            "workers")
+                        self._save_ckpt_to_storage()
+                        if not self._restart_worker():
+                            return 1
                 continue
             # failure path (reference: training.py:687,665,704)
             lr, rc = failed[0]
@@ -353,6 +409,8 @@ class ElasticTrainingAgent:
     def _restart_worker(self) -> bool:
         """Re-rendezvous + respawn. False when the master is gone (job over
         or master crashed) — the caller exits instead of raising."""
+        # a restart satisfies any restart prescription that raced with it
+        self._pending_restart.clear()
         if self._workers:
             self._terminate_workers()
             self._safe_report(

@@ -6,18 +6,23 @@ dlrover/trainer/torch/elastic_run.py: parse_args:125, run:342,
 _launch_dlrover_local_master:237). A single-node run starts an
 in-process ``LocalJobMaster``; multi-node runs point every node's agent
 at the job master (``--master-addr``, see ``master/main.py``). The
-agent serves Flash Checkpoint's brokers (``AsyncCheckpointSaver``) to
-its workers, one a local GPU (``--nproc``, default: every GPU), and
-unlinks their staging segments when the job ends.
+agent serves Flash Checkpoint's brokers (``AsyncCheckpointSaver``, with
+the replica ring's stores) to its workers, one a local GPU
+(``--nproc``, default: every GPU), and unlinks their staging segments
+when it exits, but for a relaunch (exit code 2: the segments stay for
+whatever the platform does with the host). The resource monitor
+(``monitor.py``) reports the node's CPU, memory and card memory to the
+master, as the JAX launcher's does. The heartbeat interval is the
+context's (``DLROVER_TPU_CTX_HEARTBEAT_INTERVAL_S``). At exit the
+launcher logs its process's peak resident set (``peak_rss_bytes``).
 
 Usage:
     python -m dlrover_tpu_torch.agent.launcher --nnodes 1 --nproc 1 \
         --max-restarts 1 -- python -m \
         dlrover_tpu_torch.examples.train_gpt_elastic --steps 10
 
-``--network-check`` and ``--comm-perf-test`` wait for ROADMAP A20; the
-resource monitor and the dataloader config tuner of the JAX launcher
-wait for A12 and A20.
+``--network-check`` and ``--comm-perf-test`` wait for ROADMAP A20, and
+the dataloader config tuner of the JAX launcher with them.
 """
 
 import argparse
@@ -31,7 +36,9 @@ from dlrover_tpu_torch.agent.agent import (
     ElasticTrainingAgent,
 )
 from dlrover_tpu_torch.agent.master_client import MasterClient
+from dlrover_tpu_torch.agent.monitor import ResourceMonitor, peak_rss_bytes
 from dlrover_tpu_torch.common.constants import GraftEnv
+from dlrover_tpu_torch.common.global_context import get_context
 from dlrover_tpu_torch.common.log import get_logger
 
 logger = get_logger(__name__)
@@ -132,6 +139,7 @@ def run(args: argparse.Namespace) -> int:
         local_chips=local_chips,
         max_restarts=args.max_restarts,
         monitor_interval_s=args.monitor_interval,
+        heartbeat_interval_s=get_context().heartbeat_interval_s,
         node_unit=args.node_unit,
         entrypoint=args.entrypoint,
     )
@@ -153,20 +161,28 @@ def run(args: argparse.Namespace) -> int:
 
     from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
 
-    saver = None
+    saver = monitor = None
+    rc = 1
     try:
         client = MasterClient(master_addr, node_id=node_id)
         client.register_node(local_chips=config.local_chips)
+        monitor = ResourceMonitor(client)
+        monitor.start()
         agent = ElasticTrainingAgent(config, client)
         saver = AsyncCheckpointSaver.start_async_saving_ckpt(
-            config.local_chips)
+            config.local_chips, master_client=client)
         agent.attach_ckpt_saver(saver)
-        return agent.run()
+        rc = agent.run()
+        return rc
     finally:
+        if monitor is not None:
+            monitor.stop()
         if saver is not None:
-            saver.close(unlink=True)
+            saver.close(unlink=rc != 2)
         if master is not None:
             master.request_stop()
+        logger.info("agent of node %d exits (rc %d): peak_rss_bytes=%d",
+                    node_id, rc, peak_rss_bytes())
 
 
 def main(argv: Optional[List[str]] = None) -> int:

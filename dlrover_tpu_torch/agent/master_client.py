@@ -2,9 +2,10 @@
 
 Port of ``dlrover_tpu/agent/master_client.py`` (``MasterClient``,
 ``build_master_client``) for the calls the elastic path makes: node
-registration, heartbeats, status, restart and failure reports, the
-rendezvous, the KV store and sync barriers, the global step, checkpoint
-steps, model info, the data-shard service and the live-reshard
+registration, heartbeats (and the actions they bring back), status,
+restart and failure reports, resource stats, the rendezvous, the KV
+store and sync barriers, the global step, checkpoint steps, model info,
+the data-shard service and the live-reshard
 directive (an eviction notice, the plan). The serving, tuning, PS and
 network-check calls wait for their ROADMAP items (A15, A20, A18);
 the master answers them with an error naming the item, which the
@@ -129,6 +130,14 @@ class MasterClient:
             ),
             retries=retries,
         )
+
+    def report_resource_stats(self, cpu_percent: float,
+                              used_memory_mb: float, **kw) -> bool:
+        """The node's resource use (``hbm_used_mb``, ``hbm_peak_mb``: the
+        card's memory under the JAX field names)."""
+        return self._t.report(msgs.ResourceStats(
+            node_id=self.node_id, cpu_percent=cpu_percent,
+            used_memory_mb=used_memory_mb, **kw))
 
     # ---- rendezvous ------------------------------------------------------
 

@@ -195,6 +195,18 @@ def read_header(buf) -> Optional[Dict]:
                       .numpy().tobytes())
 
 
+def pack_length(buf) -> Optional[int]:
+    """The bytes the pack in ``buf`` spans (its header, padding and last
+    shard's end), or None while its header length reads 0."""
+    raw = _as_bytes(buf)
+    doc = read_header(raw)
+    if doc is None:
+        return None
+    start = _align(HEADER_LEN_BYTES + _header_len(raw))
+    return max([start] + [start + s["offset"] + s["nbytes"]
+                          for leaf in doc["leaves"] for s in leaf["shards"]])
+
+
 def _header_len(raw: torch.Tensor) -> int:
     return int.from_bytes(raw[:HEADER_LEN_BYTES].numpy().tobytes(), "little")
 

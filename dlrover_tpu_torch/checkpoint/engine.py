@@ -4,8 +4,9 @@ Port of ``CheckpointEngine`` of ``dlrover_tpu/checkpoint/engine.py``:
 the worker blocks only for the copy of its state into a named POSIX
 segment; the segment is persisted to storage, and the tracker committed,
 off the worker's path. Restore reads the segment when it holds a
-complete pack of this checkpoint directory, else the committed storage.
-The peer replica tier (ROADMAP A10's ring) is not ported yet.
+complete pack of this checkpoint directory, else a ring peer's copy
+(the replica tier, ``replica.py``, when the engine has a
+``ReplicaManager``), else the committed storage.
 
 Two modes, detected as the JAX engine detects them (``use_agent``: a
 live agent broker serves the run's checkpoint queue):
@@ -45,13 +46,26 @@ On the card the segment is registered with CUDA (page-locked) once per
 engine, when it creates or adopts it: copies to and from pageable
 memory run at a fraction of the bus's rate, and a fresh mapping's
 first touch of each page faults.
+
+The replica tier (the JAX engine's): each staged step is backed up to
+the ring successors, off the worker's path. Standalone, the engine's
+own manager copies the segment under the engine's lock on a thread;
+under the agent, the engine asks the agent to (``{"type": "backup"}``
+on the checkpoint queue), whose manager holds the peers' packs across
+worker restarts. Either copy reads the segment only after the staging
+that wrote it has released the lock, and ``core.write_pack`` waits for
+its card copies before it writes the header length, so a backup never
+reads a pack whose card copies are in flight. A restore that finds no
+staged pack of its own fetches it from a holder, pinned to the
+master's minimum staged step (``get_min_ckpt_step``), trying the next
+holder when a pack fails to restore.
 """
 
 import collections
 import os
 import threading
 import time
-from typing import Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -134,8 +148,14 @@ class CheckpointEngine:
     bytes; ``at`` is each one's start on ``time.perf_counter``."""
 
     def __init__(self, ckpt_dir: str, storage=None, master_client=None,
-                 use_agent: Optional[bool] = None):
+                 use_agent: Optional[bool] = None, replica=None):
+        """``replica``: a ``replica.ReplicaManager`` (the worker's own when
+        standalone; under the agent a ``serve=False`` one, for fetches)."""
         self.ckpt_dir = ckpt_dir
+        self._replica = replica
+        # called on each pack the replica tier restores; its result goes
+        # in the restore's timing record (``digest``)
+        self.replica_digest: Optional[Callable[[memoryview], str]] = None
         self._client = master_client
         self._storage = storage or PosixStorage()
         if use_agent is None:
@@ -146,6 +166,15 @@ class CheckpointEngine:
             self._queue = SharedQueueClient("ckpt")
             self._agent_meta = SharedDictClient("ckpt_meta")
             self._agent_lock = SharedLockClient(lock_name(self.local_rank))
+            if replica is not None:
+                # the agent's manager holds the peers' packs for this rank
+                self._queue.put({"type": "replica",
+                                 "local_rank": self.local_rank,
+                                 "rank": replica.process_index,
+                                 "world": replica.process_count,
+                                 "num_replicas": replica.config.num_replicas,
+                                 "max_store_bytes":
+                                     replica.config.max_store_bytes})
         self._shm = None
         self._buf: Optional[torch.Tensor] = None  # uint8 over the segment
         self._registered = False
@@ -166,6 +195,11 @@ class CheckpointEngine:
     @property
     def use_agent(self) -> bool:
         return self._use_agent
+
+    @property
+    def replica(self):
+        """The engine's ``ReplicaManager``, or None."""
+        return self._replica
 
     @property
     def process_index(self) -> int:
@@ -285,6 +319,8 @@ class CheckpointEngine:
             hub.publish(telemetry.CheckpointRecord(
                 kind="save_memory", step=step, seconds=rec["seconds"],
                 nbytes=total, tier="memory"))
+        if self._replica is not None:
+            self._backup(step)
         if self._client is not None:
             try:
                 self._client.report_ckpt_step(step, rank=rank)
@@ -293,6 +329,18 @@ class CheckpointEngine:
         logger.info("staged step %d to shm in %.3fs (%.1f MB)", step,
                     rec["seconds"], total / 1e6)
         return True
+
+    def _backup(self, step: int) -> None:
+        """Stream the staged pack to the ring peers, off the worker's path:
+        the agent's manager does it under the agent; standalone, this
+        engine's, once the staging (or the persist it handed the lock to)
+        has released the lock."""
+        if self._use_agent:
+            self._queue.put({"type": "backup", "step": step,
+                             "local_rank": self.local_rank})
+        else:
+            self._replica.backup_async(dict(self._latest),
+                                       shm_lock=self._lock)
 
     def _ensure_segment(self, total: int, on_card: bool) -> None:
         if self._shm is None or self._shm.size < total:
@@ -390,9 +438,12 @@ class CheckpointEngine:
         return ok
 
     def close(self) -> None:
-        """Wait for the persist, then release the segment (it stays in
-        /dev/shm for a later restore; ``unlink_segment`` removes it)."""
+        """Wait for the persist (and the replica backup), then release the
+        segment (it stays in /dev/shm for a later restore;
+        ``unlink_segment`` removes it)."""
         self._join_persist()
+        if self._replica is not None:
+            self._replica.close()
         self._close_segment()
 
     @staticmethod
@@ -413,15 +464,17 @@ class CheckpointEngine:
              partial: bool = False, bridge=None) -> Optional[int]:
         """Restore into ``leaves`` in place: the segment if it holds a
         complete pack of this directory (and of ``step`` when given), else
-        committed storage. Returns the restored step, or None if there is
-        none. ``bridge``: ``core.restore_leaves``'s, for either tier. A
-        tree-contract violation (``core.RestoreMismatchError``) in
-        the memory tier falls through to storage, the source of truth, but
-        re-raises when no tier restores: a silent restart from scratch is
-        the worst outcome of a restore bug."""
+        a ring peer's copy (with a replica manager), else committed
+        storage. Returns the restored step, or None if there is none.
+        ``bridge``: ``core.restore_leaves``'s, for every tier. A
+        tree-contract violation (``core.RestoreMismatchError``) in the
+        memory or replica tier falls through to storage, the source of
+        truth, but re-raises when no tier restores: a silent restart from
+        scratch is the worst outcome of a restore bug."""
         mismatch = None
         t0 = time.perf_counter()
         reg0 = self.register_seconds
+        fetched: Dict = {}
         with get_tracer().span("failover.restore") as span:
             tier = "none"
             try:
@@ -431,6 +484,15 @@ class CheckpointEngine:
                     tier = "memory"
             except core.RestoreMismatchError as e:
                 mismatch, got = e, None
+            if got is None:
+                try:
+                    got = self._load_from_replica(leaves, step, partial,
+                                                  bridge, fetched)
+                    if got is not None:
+                        tier = "replica"
+                        span.args["holder"] = fetched.get("holder")
+                except core.RestoreMismatchError as e:
+                    mismatch, got = mismatch or e, None
             if got is None:
                 got = self.load_from_storage(leaves, step, partial, bridge)
                 if got is not None:
@@ -444,7 +506,8 @@ class CheckpointEngine:
         self.timings.append({"kind": "restore", "tier": tier, "step": got,
                              "at": t0,
                              "register_s": self.register_seconds - reg0,
-                             "seconds": seconds})
+                             "seconds": seconds,
+                             **(fetched if tier == "replica" else {})})
         hub = telemetry.get_hub()
         if hub.enabled:
             hub.publish(telemetry.CheckpointRecord(
@@ -506,6 +569,62 @@ class CheckpointEngine:
             return None
         finally:
             idx.close()
+
+    def _load_from_replica(self, leaves, step, partial, bridge=None,
+                           fetched: Optional[Dict] = None) -> Optional[int]:
+        """No staged pack of this rank here (its host was replaced): its
+        pack from a ring peer. Pinned to the master's minimum staged step
+        (a peer may hold a step the other ranks did not stage: restoring
+        it would diverge this rank from the rest); a holder whose pack
+        fails to restore is skipped for the next. ``fetched`` gets the
+        holder, the fetch's bytes and seconds and the ``digest``."""
+        if self._replica is None:
+            return None
+        fetched = {} if fetched is None else fetched
+        try:
+            if step is None and self._client is not None:
+                min_step = self._client.get_min_ckpt_step()
+                if min_step > 0:
+                    step = min_step
+            tried: set = set()
+            while True:
+                t0 = time.perf_counter()
+                with get_tracer().span("ckpt.replica_fetch") as span:
+                    hit = self._replica.fetch(step=step,
+                                              exclude=tuple(tried),
+                                              with_holder=True)
+                    if hit is not None:
+                        span.args.update(holder=hit[2], nbytes=len(hit[1]))
+                if hit is None:
+                    return None
+                got_step, pack, holder = hit
+                fetched.update(holder=holder, fetch_nbytes=len(pack),
+                               fetch_s=time.perf_counter() - t0)
+                idx = core.PackIndex()
+                try:
+                    idx.add_pack(pack)
+                    core.restore_leaves(leaves, idx, partial, bridge)
+                    self.restored_extra = dict(idx.extra)
+                except core.RestoreMismatchError:
+                    raise  # load() decides its fate
+                except Exception:  # noqa: BLE001 — the next holder's
+                    logger.warning("replica restore from holder rank %d "
+                                   "failed; trying the next peer", holder,
+                                   exc_info=True)
+                    tried.add(holder)
+                    continue
+                finally:
+                    idx.close()
+                if self.replica_digest is not None:
+                    fetched["digest"] = self.replica_digest(memoryview(pack))
+                logger.info("restored step %d from a peer replica (holder "
+                            "rank %d)", got_step, holder)
+                return got_step
+        except core.RestoreMismatchError:
+            raise
+        except Exception:  # noqa: BLE001 — a cache tier: storage decides
+            logger.warning("replica restore failed", exc_info=True)
+            return None
 
     def load_from_storage(self, leaves, step=None, partial=False,
                           bridge=None) -> Optional[int]:

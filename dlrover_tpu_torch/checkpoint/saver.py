@@ -22,6 +22,16 @@ worker's memory save skips while the lock is held. Two more guards:
   killed mid-stage leaves the header length 0 (it goes in last), and
   the persist then commits nothing newer. The lock of a dead holder is
   released by the broker (``common/multi_process.py``).
+
+The saver also serves the replica ring (``replica.py``) for its
+workers: a worker whose ``Checkpointer`` replicates asks for a store
+(``{"type": "replica"}``: its rank, the world, ``num_replicas``), which
+this process runs, one ``ReplicaManager`` a local rank, and keeps while
+the worker's ring slot stays the same; each staged step the worker
+then asks to back up (``{"type": "backup"}``) is copied under that
+worker's lock and sent to the ring successors from here. So a worker
+restart, which every surviving node goes through when a peer node is
+lost, keeps the peers' packs this node holds.
 """
 
 import collections
@@ -123,9 +133,12 @@ class AsyncCheckpointSaver:
     _lock = threading.Lock()
 
     def __init__(self, storage: Optional[CheckpointStorage] = None,
-                 local_world_size: int = 1):
+                 local_world_size: int = 1, master_client=None):
         self.storage = storage or PosixStorage()
         self.local_world_size = local_world_size
+        # the replica ring's peer discovery (the master's KV store)
+        self.master_client = master_client
+        self.replicas: Dict[int, object] = {}  # local rank -> ReplicaManager
         self.queue = SharedQueue("ckpt")
         self.meta = SharedDict("ckpt_meta")
         self.shm_locks = [SharedLock(lock_name(i))
@@ -144,18 +157,23 @@ class AsyncCheckpointSaver:
     # ---- lifecycle -------------------------------------------------------
 
     @classmethod
-    def start_async_saving_ckpt(cls, local_world_size: int = 1
+    def start_async_saving_ckpt(cls, local_world_size: int = 1,
+                                master_client=None
                                 ) -> "AsyncCheckpointSaver":
         with cls._lock:
             if cls._instance is None:
-                cls._instance = cls(local_world_size=local_world_size)
+                cls._instance = cls(local_world_size=local_world_size,
+                                    master_client=master_client)
         return cls._instance
 
     def close(self, unlink: bool = False):
-        """Stop the daemon and its brokers; ``unlink`` also removes the
-        workers' staging segments (the job is over)."""
+        """Stop the daemon, its brokers and replica stores; ``unlink`` also
+        removes the workers' staging segments (the job is over)."""
         self._stop.set()
         self._thread.join(5.0)
+        for mgr in self.replicas.values():
+            mgr.close()
+        self.replicas.clear()
         if unlink:
             self.unlink_segments()
         self.queue.close()
@@ -208,11 +226,51 @@ class AsyncCheckpointSaver:
             event = self.queue.get(timeout=1.0)
             if not event:
                 continue
-            if event.get("type") == "persist":
-                try:
+            kind = event.get("type")
+            try:
+                if kind == "persist":
                     self._persist_latest(event.get("local_rank"), by="queue")
-                except Exception:  # noqa: BLE001
-                    logger.exception("async persist failed")
+                elif kind == "replica":
+                    self._serve_replica(event)
+                elif kind == "backup":
+                    self._backup(event)
+            except Exception:  # noqa: BLE001
+                logger.exception("checkpoint event %s failed", kind)
+
+    # ---- the replica ring -------------------------------------------------
+
+    def _serve_replica(self, event: Dict) -> None:
+        """Run (or keep) the store of a worker's ring slot."""
+        from dlrover_tpu_torch.checkpoint.replica import (
+            ReplicaConfig,
+            ReplicaManager,
+        )
+
+        lr = event["local_rank"]
+        cur = self.replicas.get(lr)
+        slot = (event["rank"], event["world"])
+        if cur is not None and (cur.process_index,
+                                cur.process_count) == slot:
+            cur.register()  # the same slot: its held packs stay
+            return
+        if cur is not None:
+            cur.close()
+        self.replicas[lr] = ReplicaManager(
+            *slot, master_client=self.master_client,
+            config=ReplicaConfig(num_replicas=event["num_replicas"],
+                                 max_store_bytes=event["max_store_bytes"]))
+        logger.info("replica store of rank %d of %d at %s", *slot,
+                    self.replicas[lr].addr)
+
+    def _backup(self, event: Dict) -> None:
+        """Send a worker's staged pack to its ring successors (on the
+        manager's thread; the copy under the worker's lock)."""
+        lr = event["local_rank"]
+        mgr = self.replicas.get(lr)
+        meta = self.meta.get(meta_key(lr))
+        if mgr is None or not meta or meta["step"] != event["step"]:
+            return  # no store, or a newer staging whose own backup follows
+        mgr.backup_async(meta, shm_lock=self.shm_locks[lr])
 
     def _persist_latest(self, local_rank: Optional[int] = None,
                         by: str = "emergency") -> bool:

@@ -15,6 +15,7 @@ class NodeType:
     MASTER = "master"
     WORKER = "worker"          # a host driving its local GPUs
     CHIEF = "chief"            # rank-0 coordination anchor
+    EVALUATOR = "evaluator"    # side-car eval host, outside the train mesh
 
 
 class NodeStatus:
@@ -94,6 +95,7 @@ class DefaultValues:
     # agent does not send one (the JAX rdzv_manager's fixed port)
     COORDINATOR_PORT = 7010
     SHARD_TIMEOUT_S = 1800.0         # re-queue a dispatched shard after this
+    HANG_KICK_COOLDOWN_S = 600.0     # min gap between job-wide hang kicks
 
 
 class TaskType:
@@ -119,6 +121,8 @@ class GraftEnv:
     # the master hands out DefaultValues.COORDINATOR_PORT
     COORDINATOR_PORT = "DLROVER_TPU_COORDINATOR_PORT"
     LOCAL_CHIPS = "DLROVER_TPU_LOCAL_CHIPS"
+    # the parallel-config file the elastic dataloader reloads
+    PARAL_CONFIG_PATH = "DLROVER_TPU_PARAL_CONFIG"
     RUN_ID = "DLROVER_TPU_RUN_ID"
     RDZV_ROUND = "DLROVER_TPU_RDZV_ROUND"
     RESTART_COUNT = "DLROVER_TPU_RESTART_COUNT"

@@ -28,6 +28,7 @@ class Context:
         self.pending_timeout_s = DefaultValues.PENDING_TIMEOUT_S
         self.straggler_ratio = DefaultValues.STRAGGLER_RATIO
         self.shard_timeout_s = DefaultValues.SHARD_TIMEOUT_S
+        self.hang_kick_cooldown_s = DefaultValues.HANG_KICK_COOLDOWN_S
         self._load_env_overrides()
 
     def _load_env_overrides(self):

@@ -7,7 +7,8 @@ instantiated. The encoding is byte for byte the JAX package's for the
 messages both packages send; the port registers the messages its
 control plane sends (node lifecycle, rendezvous, the KV store and sync
 barriers, the global step, checkpoint steps, model info, the data-shard
-service and the live-reshard directive).
+service, the live-reshard directive and the agent monitor's resource
+stats).
 
 One field is the port's own: ``JoinRendezvousRequest.coordinator_port``
 (the port of the torch.distributed store the joining agent picked). A
@@ -181,6 +182,19 @@ class NodeFailureReport:
     error_data: str = ""
     level: str = "process_error"
     restart_count: int = 0
+
+
+@message
+class ResourceStats:
+    """A node's resource use (``hbm_*``: the JAX field names; on the
+    card, its memory)."""
+
+    node_id: int = 0
+    cpu_percent: float = 0.0
+    used_memory_mb: float = 0.0
+    tpu_duty_cycle: float = 0.0
+    hbm_used_mb: float = 0.0
+    hbm_peak_mb: float = 0.0
 
 
 @message

@@ -1,3 +1,3 @@
-"""Elastic training: fixed global batch across world-size changes, fault
-injection and the live ZeRO reshard (port of ``dlrover_tpu/elastic``;
-its sampler and dataloader wait for ROADMAP A11's rest)."""
+"""Elastic training: the sampler and dataloader that resume mid-epoch at
+any world size, a fixed global batch across world-size changes, fault
+injection and the live ZeRO reshard (port of ``dlrover_tpu/elastic``)."""

@@ -39,6 +39,23 @@ is 0. It prints ``resumed from step N`` (with the restore's tier), one
 loss line a step, with the step's device ms and its kernel launches by
 kernel, and (rank 0) the shard each step trained.
 
+``--data sampler`` feeds the steps from ``ElasticDataLoader(sampler=
+ElasticDistributedSampler(...))`` in place of the master's shards: one
+epoch of ``steps × batch`` samples, each sample's tokens keyed by its
+index (``sample_batch``), each rank its rows of every global batch; the
+sampler's position rides in each checkpoint's header (``"sampler"``)
+and a resumed run puts it back before its first batch. ``--replicate``
+backs each staged pack up to the ring peer (``Checkpointer(replicate=
+True)``; the agent holds the peers' packs). ``--lose-node-at S``: on
+its first run (restart 0, nothing restored) the last rank, once step
+S+1 has run, waits until every ring holder of its pack holds step S
+(``replica.wait_peer_steps``), writes a CUDA hardware error to stderr
+and exits 1, as a node whose card failed; S must be a saved step.
+``--hash-restored`` prints the digest of a pack the replica tier
+restored (``pack_digest``). Each run prints ``[worker] restore {json}``
+(the restore's tier, holder, fetch bytes and seconds) and, at its end,
+its process's peak resident set.
+
 ``--hosts-per-slice N`` builds the JAX example's hybrid multi-slice
 mesh: every N processes form one slice, ``num_slices = world // N``,
 ``MeshConfig(dp=num_slices, fsdp=-1, num_slices=num_slices)``: fsdp
@@ -65,7 +82,10 @@ from dlrover_tpu_torch.checkpoint import core
 from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
 from dlrover_tpu_torch.common.constants import GraftEnv
 from dlrover_tpu_torch.common.device import resolve_device
+from dlrover_tpu_torch.agent.monitor import peak_rss_bytes
+from dlrover_tpu_torch.elastic.dataloader import ElasticDataLoader
 from dlrover_tpu_torch.elastic.faults import get_injector
+from dlrover_tpu_torch.elastic.sampler import ElasticDistributedSampler
 from dlrover_tpu_torch.elastic.resharding import (
     LiveResharder,
     PhaseBudgets,
@@ -94,6 +114,9 @@ TRAIN_SOURCES = ("flash_attention", "fused_norm")
 # the optimizer's schedule (AdamW, warmup then cosine) and the batches
 # kept in flight to the card
 LR, WARMUP, DECAY, PREFETCH = 1e-4, 10, 1000, 2
+# what a node whose card failed writes before it exits (--lose-node-at)
+LOST_NODE_ERROR = ("RuntimeError: CUDA error: uncorrectable ECC error "
+                   "encountered")
 
 
 def say(line: str) -> None:
@@ -116,6 +139,47 @@ def synthetic_batch(seed: int, step: int, rank: int, rows: int, seq: int,
         batch["mask"] = (np.arange(seq)[None, :] < valid[:, None]).astype(
             np.float32)
     return batch
+
+
+def sample_batch(seed: int, indices, seq: int,
+                 vocab: int) -> Dict[str, np.ndarray]:
+    """The rows of samples ``indices``: each sample's tokens drawn from a
+    generator keyed by its index alone."""
+    tok = np.stack([np.random.default_rng([seed, int(i)]).integers(
+        0, vocab, size=seq + 1) for i in indices]).astype(np.int32)
+    return {"tokens": tok[:, :-1], "targets": tok[:, 1:]}
+
+
+DIGEST_CHUNK = 1 << 26
+
+
+def chunk_digests(buf, threads: int = 8) -> List[bytes]:
+    """The sha1 of each 64 MiB chunk of ``buf``, hashed on ``threads``
+    threads."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    view = memoryview(buf).cast("B")
+    with ThreadPoolExecutor(threads) as ex:
+        return list(ex.map(
+            lambda lo: hashlib.sha1(view[lo: lo + DIGEST_CHUNK]).digest(),
+            range(0, len(view), DIGEST_CHUNK)))
+
+
+def pack_digest(buf=None, parts: Optional[List[bytes]] = None,
+                flip: Optional[int] = None) -> str:
+    """A digest of a pack's bytes: the sha1 of its chunks' sha1s
+    (``parts``, if already taken). ``flip``: the digest of a copy with
+    that byte's low bit flipped (only its chunk hashed again)."""
+    import hashlib
+
+    parts = list(parts if parts is not None else chunk_digests(buf))
+    if flip is not None:
+        lo = flip // DIGEST_CHUNK * DIGEST_CHUNK
+        part = bytearray(memoryview(buf).cast("B")[lo: lo + DIGEST_CHUNK])
+        part[flip - lo] ^= 1
+        parts[flip // DIGEST_CHUNK] = hashlib.sha1(part).digest()
+    return hashlib.sha1(b"".join(parts)).hexdigest()
 
 
 def launches() -> Dict[str, int]:
@@ -215,8 +279,11 @@ def resume_dataset(engine, sharding, first: bool) -> None:
 
 
 def resume_line(engine, step: int) -> Tuple[Optional[int], str]:
-    """Print the start or resume line; (resumed step or None, tier)."""
+    """Print the restore record and the start or resume line; (resumed
+    step or None, tier)."""
     rec = [t for t in engine.timings if t["kind"] == "restore"]
+    if rec:
+        say(f"[worker] restore {json.dumps(rec[-1])}")
     if rec and rec[-1]["tier"] != "none":
         say(f"[worker] resumed from step {step} (tier {rec[-1]['tier']}, "
             f"{rec[-1]['seconds']:.3f} s)")
@@ -234,15 +301,37 @@ def shard_done(sharding, first: bool, step: int) -> None:
             say(f"[worker] shard step={step} [{shard[0]}, {shard[1]})")
 
 
-class StepPrinter:
-    """Trainer callback: the resume line (and the dataset position put
-    back), one line a step (loss, device ms, launches), the step's shard
-    reported done, the optional check of the committed pack and the
-    deliberate crash."""
+def lose_node(trainer, args, rank: int, step: int) -> None:
+    """The node-loss drill's failure: once every ring holder of this
+    rank's pack holds step ``args.lose_node_at``, write a CUDA hardware
+    error to stderr and exit 1."""
+    from dlrover_tpu_torch.checkpoint.replica import wait_peer_steps
 
-    def __init__(self, args, rank: int, restart: int, sharding):
+    mgr = trainer.checkpointer.engine.replica
+    holders = mgr.holders(rank) if mgr is not None else []
+    held = {h: wait_peer_steps(mgr, {rank: args.lose_node_at},
+                               timeout=120.0, holder=h) for h in holders}
+    say(f"[worker] losing the node after step {step}: holders of step "
+        f"{args.lose_node_at} {json.dumps(held)} peak_rss_bytes="
+        f"{peak_rss_bytes()}")
+    get_tracer().instant("worker.crash", step=step)
+    sys.stderr.write(LOST_NODE_ERROR + "\n")
+    sys.stderr.flush()
+    os._exit(1)
+
+
+class StepPrinter:
+    """Trainer callback: the resume line (and the dataset or sampler
+    position put back), one line a step (loss, device ms, launches), the
+    step's shard reported done, the optional check of the committed pack
+    and the deliberate crash or node loss."""
+
+    def __init__(self, args, rank: int, restart: int, sharding,
+                 sampler=None, lose_rank: int = -1):
         self.args, self.rank, self.restart = args, rank, restart
         self.sharding = sharding
+        self.sampler = sampler
+        self.lose_rank = lose_rank
         self.last = launches()
         self.resumed_from: Optional[int] = None
         self.resumed_tier = "none"
@@ -251,7 +340,12 @@ class StepPrinter:
         engine = trainer.checkpointer.engine
         self.resumed_from, self.resumed_tier = resume_line(
             engine, trainer.state["step"])
-        if self.resumed_from is not None:
+        if self.resumed_from is not None and self.sampler is not None:
+            # before the loader's first batch (the prefetch starts there)
+            self.sampler.load_state_dict(engine.restored_extra["sampler"])
+            say("[worker] sampler position restored "
+                f"{json.dumps(self.sampler.state_dict())}")
+        elif self.resumed_from is not None:
             resume_dataset(engine, self.sharding, self.rank == 0)
         self.last = launches()
 
@@ -259,7 +353,8 @@ class StepPrinter:
         now = launches()
         diff = {k: now[k] - self.last[k] for k in now}
         self.last = now
-        shard_done(self.sharding, self.rank == 0, step)
+        if self.sampler is None:
+            shard_done(self.sharding, self.rank == 0, step)
         say(f"[worker] step={step} loss={metrics['loss']!r} "
             f"rank={self.rank} device_ms={trainer.timer.last_device_ms} "
             f"at={time.time():.6f} "
@@ -272,6 +367,10 @@ class StepPrinter:
                 os.path.join(self.args.ckpt_dir, "checkpoints"),
                 self.resumed_from, self.rank)
             say(f"[worker] committed pack check {json.dumps(res)}")
+        if (self.args.lose_node_at >= 0 and self.restart == 0
+                and self.resumed_from is None and self.rank == self.lose_rank
+                and step == self.args.lose_node_at + 1):
+            lose_node(trainer, self.args, self.rank, step)
         if (self.args.crash_at >= 0 and step >= self.args.crash_at
                 and self.restart == 0):
             say(f"[worker] simulating crash at step {step}")
@@ -309,6 +408,20 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--check-committed", action="store_true",
                    help="after a memory-tier resume, compare the staged "
                    "segment with the committed pack of its step")
+    p.add_argument("--data", choices=("shards", "sampler"),
+                   default="shards",
+                   help="the batches: the master's data shards, or an "
+                   "ElasticDataLoader over an ElasticDistributedSampler")
+    p.add_argument("--replicate", action="store_true",
+                   help="back each staged pack up to the ring peer "
+                   "(Checkpointer(replicate=True))")
+    p.add_argument("--lose-node-at", type=int, default=-1,
+                   help="node-loss drill: after step N+1 of the first run, "
+                   "once the ring holders hold the saved step N, the last "
+                   "rank writes a CUDA hardware error and exits 1")
+    p.add_argument("--hash-restored", action="store_true",
+                   help="print the digest of a pack the replica tier "
+                   "restored")
     p.add_argument("--hosts-per-slice", type=int, default=0,
                    help="build a hybrid multi-slice mesh: every "
                    "hosts-per-slice processes form one slice, dp rides "
@@ -342,6 +455,15 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     if args.evict_at >= 0 and args.hosts_per_slice > 0:
         p.error("--evict-at with --hosts-per-slice: the live reshard "
                 "refuses a hybrid plan (mesh_axes beyond dp)")
+    if (args.data == "sampler" or args.replicate
+            or args.lose_node_at >= 0) and args.zero1:
+        p.error("--data sampler, --replicate and --lose-node-at run the "
+                "Trainer loop, not --zero1's")
+    if args.lose_node_at >= 0 and not (
+            args.replicate and args.ckpt_every
+            and args.lose_node_at % args.ckpt_every == 0):
+        p.error("--lose-node-at needs --replicate and a saved step (a "
+                "multiple of --ckpt-every)")
     return args
 
 
@@ -673,10 +795,18 @@ def main(argv: Optional[List[str]] = None) -> int:
             f"dp={mesh.shape['dp']} fsdp={mesh.shape['fsdp']}")
     opt = make_optimizer(learning_rate=LR, warmup_steps=WARMUP,
                          decay_steps=DECAY)
-    # one shard of the master's dataset a global step
-    sharding = ShardingClient(client, "train",
-                              dataset_size=args.steps * args.batch,
-                              shard_size=args.batch)
+    sampler = None
+    if args.data == "sampler":
+        # one epoch of steps x batch samples, each rank its rows of a step
+        sampler = ElasticDistributedSampler(args.steps * args.batch,
+                                            num_replicas=world, rank=rank,
+                                            shuffle=True, seed=args.seed)
+        sharding = None
+    else:
+        # one shard of the master's dataset a global step
+        sharding = ShardingClient(client, "train",
+                                  dataset_size=args.steps * args.batch,
+                                  shard_size=args.batch)
     if args.zero1:
         telemetry.configure_hub().subscribe(
             lambda r: say(f"[event] {r.to_json()}"),
@@ -690,22 +820,44 @@ def main(argv: Optional[List[str]] = None) -> int:
             memory_save_interval=args.ckpt_every, seed=args.seed,
             prefetch=PREFETCH if dev.type == "cuda" else 0)
 
+        if sampler is not None:
+            batches = iter(ElasticDataLoader(
+                lambda idx: sample_batch(args.seed, idx, args.seq,
+                                         cfg.vocab_size),
+                sampler=sampler, batch_size=rows))
+
+            def ckpt_extra():
+                # the position after the trained steps (the loader runs
+                # ahead of the step by the prefetch)
+                done = trainer.state["step"] * args.batch
+                return {"sampler": dict(sampler.state_dict(),
+                                        completed=min(done,
+                                                      sampler.dataset_size))}
+        else:
+            batches = shard_batches(sharding, args, rank, rows,
+                                    cfg.vocab_size)
+
+            def ckpt_extra():
+                return {"dataset": sharding.checkpoint()} if rank == 0 else {}
         trainer = Trainer(
-            cfg, targs, shard_batches(sharding, args, rank, rows,
-                                      cfg.vocab_size), opt,
-            master_client=client,
-            callbacks=[StepPrinter(args, rank, restart, sharding)],
-            device=dev, mesh=mesh,
-            ckpt_extra=lambda: ({"dataset": sharding.checkpoint()}
-                                if rank == 0 else {}))
+            cfg, targs, batches, opt, master_client=client,
+            callbacks=[StepPrinter(args, rank, restart, sharding, sampler,
+                                   lose_rank=world - 1)],
+            device=dev, mesh=mesh, ckpt_extra=ckpt_extra,
+            replicate_checkpoints=args.replicate)
+        if args.hash_restored:
+            trainer.checkpointer.engine.replica_digest = pack_digest
         trainer.train()
         trainer.checkpointer.close()
         last = trainer.state["step"]
     peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    rss = peak_rss_bytes()
     if last is not None:
-        say(f"[worker] done at step {last} rank {rank} peak_bytes={peak}")
+        say(f"[worker] done at step {last} rank {rank} peak_bytes={peak} "
+            f"peak_rss_bytes={rss}")
     else:
-        say(f"[worker] evicted rank {rank} peak_bytes={peak}")
+        say(f"[worker] evicted rank {rank} peak_bytes={peak} "
+            f"peak_rss_bytes={rss}")
     distributed.shutdown_distributed()
     return 0
 

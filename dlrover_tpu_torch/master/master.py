@@ -2,22 +2,34 @@
 
 Port of ``dlrover_tpu/master/master.py`` (``JobMaster``,
 ``LocalJobMaster``, ``run``): the node manager, the training
-rendezvous, the KV store, the sync service and the speed monitor
-and the data-shard task manager (started and stopped with the master)
-behind one ``MasterServicer`` on the two-RPC transport, and the loop
-that ends the job when every worker has exited. What the JAX master
-also composes waits for its ROADMAP item: diagnosis and its hang kick (A22), job metrics and goodput with
-their HTTP endpoint (A12), ElasticPS (A18), the auto-scaler and Brain
-(A23) and the network-check rendezvous (A20).
+rendezvous, the KV store, the sync service, the speed monitor, the
+data-shard task manager (started and stopped with the master) and the
+diagnosis manager (subscribed to the master's own telemetry hub, where
+the servicer publishes the agents' resource stats and the speed
+monitor its straggler flags) behind one ``MasterServicer`` on the
+two-RPC transport; the node-event callbacks (``event_callback.py``:
+shard re-queue, rendezvous prune, a chief past its budget failing the
+job); and the loop that ends the job when every worker has exited and
+kicks every node to restart its worker when all of them have idled a
+whole hang window (a cooldown between kicks). What the JAX master also
+composes waits for its ROADMAP item: job metrics and goodput with their
+HTTP endpoint and the telemetry sinks (A12), ElasticPS (A18), the
+auto-scaler and Brain (A23) and the network-check rendezvous (A20).
 """
 
 import threading
+import time
 from typing import Dict, Optional
 
 from dlrover_tpu_torch.common.comm import MasterTransportServer
 from dlrover_tpu_torch.common.constants import JobExitReason, RendezvousName
 from dlrover_tpu_torch.common.global_context import get_context
 from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.diagnosis.manager import DiagnosisManager
+from dlrover_tpu_torch.master.event_callback import (
+    ClusterContext,
+    default_callbacks,
+)
 from dlrover_tpu_torch.master.kv_store import KVStoreService
 from dlrover_tpu_torch.master.node_manager import JobManager, Scaler
 from dlrover_tpu_torch.master.rdzv_manager import (
@@ -27,23 +39,10 @@ from dlrover_tpu_torch.master.servicer import MasterServicer
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
 from dlrover_tpu_torch.master.task_manager import TaskManager
 from dlrover_tpu_torch.master.sync_service import SyncService
+from dlrover_tpu_torch.observability import telemetry
 from dlrover_tpu_torch.observability.tracing import get_tracer
 
 logger = get_logger(__name__)
-
-
-class RendezvousPruneCallback:
-    """Drop a dead node from every rendezvous world so the next seal
-    does not wait on it (the JAX master's ``event_callback.py``)."""
-
-    def __init__(self, rdzv_managers):
-        self._managers = rdzv_managers
-
-    def on_node_failed(self, node, ctx):
-        for mgr in self._managers.values():
-            mgr.remove_alive_node(node.rank_index)
-
-    on_node_deleted = on_node_failed
 
 
 class JobMaster:
@@ -86,6 +85,12 @@ class JobMaster:
         self.sync_service.set_world_size_fn(
             lambda: len(self.job_manager.running_nodes()) or 1
         )
+        self.diagnosis_manager = DiagnosisManager()
+        # a master-local hub (not the process one), so masters composed in
+        # one process do not cross wires
+        self.telemetry_hub = telemetry.TelemetryHub()
+        self.diagnosis_manager.attach(self.telemetry_hub)
+        self.speed_monitor.attach_hub(self.telemetry_hub)
         self.servicer = MasterServicer(
             job_manager=self.job_manager,
             rdzv_managers=self.rdzv_managers,
@@ -93,13 +98,27 @@ class JobMaster:
             sync_service=self.sync_service,
             speed_monitor=self.speed_monitor,
             task_manager=self.task_manager,
+            diagnosis_manager=self.diagnosis_manager,
+            telemetry_hub=self.telemetry_hub,
         )
         self.server = MasterTransportServer(self.servicer, port=port)
         self._stop = threading.Event()
+        self._last_hang_kick = 0.0
         self.exit_reason = ""
-        self.job_manager.event_callbacks.append(
-            RendezvousPruneCallback(self.rdzv_managers))
+        self.job_manager.cluster_context = ClusterContext(
+            self.job_manager, task_manager=self.task_manager,
+            rdzv_managers=self.rdzv_managers,
+            speed_monitor=self.speed_monitor)
+        self.job_manager.event_callbacks.extend(default_callbacks(
+            task_manager=self.task_manager,
+            rdzv_managers=self.rdzv_managers,
+            on_job_failed=self._fail_job))
         self.job_manager.node_failed_callbacks.append(self._on_node_down)
+
+    def _fail_job(self, reason: str):
+        self.exit_reason = JobExitReason.RELAUNCH_BUDGET_EXHAUSTED
+        logger.error("job failed: %s", reason)
+        self._stop.set()
 
     def _on_node_down(self, node):
         self.speed_monitor.reset_running_speed()
@@ -138,10 +157,27 @@ class JobMaster:
                 if self.job_manager.pending_timeout():
                     self.exit_reason = JobExitReason.PENDING_TIMEOUT
                     break
+                self._kick_if_hanged(ctx.hang_kick_cooldown_s)
         finally:
             self.stop()
         logger.info("master exiting: %s", self.exit_reason)
         return self.exit_reason
+
+    def _kick_if_hanged(self, cooldown_s: float) -> bool:
+        """A job-wide hang (reference: dist_job_manager.py:802): every
+        node idle over the window gets a restart prescription; the
+        cooldown leaves the restart and re-rendezvous time to land fresh
+        samples before the next kick. (The JAX master also backdates its
+        goodput stall here: A12.)"""
+        if (time.time() - self._last_hang_kick <= cooldown_s
+                or not self.diagnosis_manager.all_nodes_hanged()):
+            return False
+        self._last_hang_kick = time.time()
+        logger.warning("all nodes idle — prescribing restart")
+        self.diagnosis_manager.queue_action_for(
+            [n.id for n in self.job_manager.running_nodes()],
+            "restart_worker")
+        return True
 
     def request_stop(self, reason: str = ""):
         self.exit_reason = reason or self.exit_reason

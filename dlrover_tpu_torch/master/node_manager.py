@@ -324,6 +324,11 @@ class JobManager:
                 if n.type in (NodeType.WORKER, NodeType.CHIEF)
             )
 
+    def all_evaluators_exited(self) -> bool:
+        with self._lock:
+            return all(n.is_exited() for n in self._nodes.values()
+                       if n.type == NodeType.EVALUATOR)
+
     def pending_timeout(self) -> bool:
         now = time.time()
         with self._lock:

@@ -1,13 +1,19 @@
 """MasterServicer: demux the two-RPC surface onto the managers.
 
 Port of ``dlrover_tpu/master/servicer.py`` for the handlers the elastic
-path reaches: heartbeats, node status, worker restarts and failures,
-registration, the rendezvous (join, comm world, nodes waiting), the
-KV store, sync barriers, the global step, checkpoint steps, model info,
-the running-node listing, the data-shard service (datasets, tasks and
-their results, the dataset checkpoint, the epoch; a restarted or failed
-node's in-flight shards re-queued) and the live-reshard directive (an
-eviction notice in, the plan out). Exceptions never cross the RPC edge.
+path reaches: heartbeats (their responses carry the diagnosis manager's
+queued actions), node status, worker restarts, failures (classified by
+the diagnosis manager; an abort fans out to every running node; a
+collector's ``level="diagnosis"`` report is evidence only), resource
+stats (onto the master's telemetry hub, or to the diagnosis manager
+without one), registration, the rendezvous (join, comm world, nodes
+waiting), the KV store, sync barriers, the global step, checkpoint
+steps, model info, the running-node listing, the data-shard service
+(datasets, tasks and their results, the dataset checkpoint, the epoch;
+a restarted or failed node's in-flight shards re-queued) and the
+live-reshard directive (an eviction notice in, the plan out).
+Exceptions never cross the RPC edge. Where the JAX handlers also mark
+the goodput tracker stalled, that tracker waits for ROADMAP A12.
 
 Every other message type of the JAX servicer is answered with an error
 naming the ROADMAP item that ports it (``UNPORTED``); the transport
@@ -20,6 +26,8 @@ from typing import Dict, Optional
 from dlrover_tpu_torch.common import messages as msgs
 from dlrover_tpu_torch.common.constants import RendezvousName
 from dlrover_tpu_torch.common.log import get_logger
+from dlrover_tpu_torch.observability import telemetry
+from dlrover_tpu_torch.observability.tracing import get_tracer
 
 logger = get_logger(__name__)
 
@@ -33,8 +41,7 @@ _ITEMS = {
         "TuningPlanNotice", "TuningPlanRequest", "StrategySearchRequest"),
     "A18 (the sparse tier's ElasticPS)": (
         "PsVersionReport", "PsVersionRequest"),
-    "A12 (resource stats and the telemetry sinks)": (
-        "ResourceStats", "TelemetryEventReport"),
+    "A12 (the telemetry sinks)": ("TelemetryEventReport",),
     "A23 (the auto-scaler and Brain)": (
         "BrainPersistMetricsRequest", "BrainOptimizeRequest",
         "BrainJobMetricsRequest"),
@@ -54,8 +61,12 @@ class MasterServicer:
         sync_service=None,
         speed_monitor=None,
         task_manager=None,
+        diagnosis_manager=None,
+        telemetry_hub=None,
     ):
         self.job_manager = job_manager
+        self.diagnosis_manager = diagnosis_manager
+        self.telemetry_hub = telemetry_hub
         self.task_manager = task_manager
         self.rdzv_managers = rdzv_managers or {}
         self.kv_store = kv_store
@@ -85,17 +96,21 @@ class MasterServicer:
         return True
 
     def _get_heartbeat(self, m: msgs.HeartbeatReport):
-        """Heartbeat via get: the response carries queued actions (the
-        diagnosis manager that queues them waits for ROADMAP A22)."""
+        """Heartbeat via get: the response carries the node's queued
+        diagnosis actions."""
         if self.job_manager:
             self.job_manager.handle_heartbeat(m.node_id)
-        return msgs.HeartbeatResponse(actions=[])
+        actions = (self.diagnosis_manager.take_actions(m.node_id)
+                   if self.diagnosis_manager else [])
+        return msgs.HeartbeatResponse(actions=actions)
 
     def _report_node_status(self, m: msgs.NodeStatusReport) -> bool:
         if self.job_manager:
             self.job_manager.handle_status_report(
                 m.node_id, m.status, m.exit_reason
             )
+        # (the JAX handler also closes its goodput tracker on SUCCEEDED:
+        # A12)
         return True
 
     def _report_worker_restart(self, m: msgs.WorkerRestartReport) -> bool:
@@ -107,9 +122,34 @@ class MasterServicer:
         )
         if self.task_manager:
             self.task_manager.recover_worker_tasks(m.node_id)
+        # (the JAX handler also marks its goodput tracker stalled: A12)
         return True
 
     def _report_node_failure(self, m: msgs.NodeFailureReport) -> bool:
+        if m.level == "diagnosis":
+            # a collector's payload (log tail, proc state, stack) is
+            # evidence, not a failure: no re-queue, no classification, so a
+            # healthy worker whose log holds an old error string triggers
+            # nothing
+            if self.diagnosis_manager:
+                self.diagnosis_manager.collect_diagnosis_data(
+                    m.node_id, m.error_data)
+            logger.info("diagnosis data from node %d: %s", m.node_id,
+                        m.error_data[:200])
+            return True
+        # (the JAX handler also marks its goodput tracker stalled: A12)
+        if self.diagnosis_manager:
+            rec = self.diagnosis_manager.collect_failure(m)
+            get_tracer().instant("failover.diagnosed", node=m.node_id,
+                                 classification=rec.classification,
+                                 action=rec.action)
+            # an abort is a job-level verdict: every node must stop, not
+            # just the reporter (the others would re-rendezvous forever)
+            if rec.action == "abort_job":
+                ids = {m.node_id}
+                if self.job_manager:
+                    ids.update(n.id for n in self.job_manager.running_nodes())
+                self.diagnosis_manager.queue_action_for(ids, rec.action)
         # the restarting worker lost its in-flight shards — re-queue them
         # (at-least-once delivery; reference: task_manager re-queue on death)
         if self.task_manager:
@@ -121,6 +161,18 @@ class MasterServicer:
             m.restart_count,
             m.error_data[:500],
         )
+        return True
+
+    def _report_resource(self, m: msgs.ResourceStats) -> bool:
+        """Wire → record on the master's hub (the diagnosis manager
+        subscribes); without a hub, straight to the manager."""
+        if self.telemetry_hub is not None and self.telemetry_hub.enabled:
+            self.telemetry_hub.publish(telemetry.ResourceRecord(
+                node_id=m.node_id, cpu_percent=m.cpu_percent,
+                mem_mb=m.used_memory_mb, hbm_mb=m.hbm_used_mb,
+                hbm_peak_mb=m.hbm_peak_mb))
+        elif self.diagnosis_manager:
+            self.diagnosis_manager.collect_resource(m)
         return True
 
     def _report_global_step(self, m: msgs.GlobalStepRecord) -> bool:
@@ -215,6 +267,7 @@ class MasterServicer:
         "NodeStatusReport": _report_node_status,
         "WorkerRestartReport": _report_worker_restart,
         "NodeFailureReport": _report_node_failure,
+        "ResourceStats": _report_resource,
         "GlobalStepRecord": _report_global_step,
         "KeyValuePair": _report_kv,
         "SyncJoin": _report_sync_join,

@@ -5,8 +5,10 @@ telemetry.py``) with the same fields and the same ``to_json`` envelope,
 so a record the port publishes reads back through the JAX package's
 ``from_json``: the trainer's ``StepRecord``, the checkpoint engine's
 ``CheckpointRecord``, ``ElasticEvent``, the loss-spike detector's
-``NumericEvent``, the serving replica's ``ServingRecord`` and the
-master speed monitor's ``StragglerRecord``. The hub
+``NumericEvent``, the serving replica's ``ServingRecord``, the
+master speed monitor's ``StragglerRecord`` and the agent monitor's
+``ResourceRecord`` (the master publishes it; the diagnosis manager
+reads it). The hub
 keeps the JAX contract: ``get_hub()`` is a no-op hub whose ``enabled``
 is False until ``configure_hub`` installs one, so producers guard with
 ``if hub.enabled:`` and a disabled hub costs one attribute read. The
@@ -96,6 +98,19 @@ class StragglerRecord:
     max_step: int = 0
     lag_steps: int = 0
     ratio: float = 0.0
+    ts: float = 0.0
+
+
+@telemetry_record
+class ResourceRecord:
+    """A node's host and device memory use as its agent's monitor reports
+    it (``hbm_*``: the JAX field names; on the card, its memory)."""
+
+    node_id: int = -1
+    cpu_percent: float = 0.0
+    mem_mb: float = 0.0
+    hbm_mb: float = 0.0
+    hbm_peak_mb: float = 0.0
     ts: float = 0.0
 
 

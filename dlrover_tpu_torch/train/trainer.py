@@ -3,7 +3,8 @@
 Port of ``dlrover_tpu/train/trainer.py`` (``TrainerArgs``, ``Trainer``)
 for one device a process: ``TrainStepBuilder``'s step (or its fused
 K-step block) over the batches, Flash Checkpoint resume (shared memory,
-then storage) and cadenced saves (``memory_save_interval`` stages to
+a ring peer's replica with ``replicate_checkpoints``, then storage) and
+cadenced saves (``memory_save_interval`` stages to
 shared memory, ``save_interval`` also persists, on the engine's thread
 or, under the elastic agent, from the agent's process), evaluation,
 loss-spike detection, step timing on CUDA events, callbacks and
@@ -178,6 +179,7 @@ class Trainer:
         eval_step_fn: Optional[Callable] = None,
         device="cuda",
         ckpt_extra: Optional[Callable[[], Dict]] = None,
+        replicate_checkpoints: bool = False,
     ):
         """``step_builder``/``init_state_fn``/``eval_step_fn`` hand in the
         lowering instead of the one built here from ``args``;
@@ -186,7 +188,9 @@ class Trainer:
         None.
         ``ckpt_extra()``: a dict each checkpoint carries in its pack
         header (the dataset position), back after a restore in
-        ``checkpointer.engine.restored_extra``."""
+        ``checkpointer.engine.restored_extra``. ``replicate_checkpoints``:
+        ``Checkpointer(replicate=True)``, the staged packs backed up to
+        the ring peers (it needs ``master_client``)."""
         _refuse_unported(args)
         mesh = _mesh(mesh)
         self.mesh = mesh
@@ -198,6 +202,7 @@ class Trainer:
         self.eval_iter_fn = eval_iter_fn
         self._init_state_fn = init_state_fn
         self._ckpt_extra = ckpt_extra
+        self._replicate = replicate_checkpoints
         self.comm = (CommConfig(update_sharding=args.update_sharding,
                                 bucket_mb=args.comm_bucket_mb,
                                 wire_dtype=args.comm_wire_dtype,
@@ -241,7 +246,7 @@ class Trainer:
             self._ckpt = Checkpointer(
                 os.path.join(self.args.output_dir, "checkpoints"),
                 master_client=self.client if self.args.report_to_master
-                else None)
+                else None, replicate=self._replicate)
         return self._ckpt
 
     def state_leaves(self):

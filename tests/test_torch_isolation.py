@@ -9,6 +9,7 @@ them, then imports every module of ``dlrover_tpu_torch`` and
 ``chip_smoke.py``.
 """
 
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -58,6 +59,33 @@ print("imported", len(names))
     assert res.returncode == 0, res.stderr[-4000:]
     n = int(res.stdout.split()[-1])
     assert n >= 20, res.stdout  # every subpackage was walked
+
+
+# the modules copied from JAX-free modules of the JAX package (or ported
+# beside them) for the node-loss path; each must stand on its own
+NODE_LOSS_MODULES = (
+    "common.sockets", "checkpoint.replica", "diagnosis.manager",
+    "elastic.sampler", "elastic.dataloader", "agent.monitor",
+    "agent.collectors", "master.event_callback",
+)
+
+
+def test_the_node_loss_modules_import_without_jax():
+    res = _run("names = %r\n" % (NODE_LOSS_MODULES,) + r"""
+for name in names:
+    importlib.import_module("dlrover_tpu_torch." + name)
+leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+assert not leaked, leaked
+print("imported", len(names))
+""")
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.split()[-1] == str(len(NODE_LOSS_MODULES))
+    for name in NODE_LOSS_MODULES:
+        src = (ROOT / "dlrover_tpu_torch" / (name.replace(".", "/") + ".py")
+               ).read_text()
+        # no import of either, even one a function makes lazily
+        assert not re.search(r"^\s*(from|import)\s+(jax|dlrover_tpu)\b",
+                             src, re.M), name
 
 
 def test_the_hook_does_block_the_jax_package():

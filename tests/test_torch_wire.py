@@ -171,7 +171,7 @@ def test_a_failing_get_raises_remote_error(server):
 @pytest.mark.parametrize("name,item", [
     ("ServingEvictionNotice", "A15"), ("BrainOptimizeRequest", "A23"),
     ("ServingScaleRequest", "A15"), ("ParallelConfigRequest", "A20"),
-    ("PsVersionRequest", "A18"), ("ResourceStats", "A12"),
+    ("PsVersionRequest", "A18"), ("TelemetryEventReport", "A12"),
 ])
 def test_an_unported_handler_answers_with_its_roadmap_item(server, name,
                                                             item):
@@ -181,6 +181,27 @@ def test_an_unported_handler_answers_with_its_roadmap_item(server, name,
     for method in (b"r", b"g"):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             client.call(method, raw)
+
+
+def test_a_jax_resource_stats_report_reaches_the_diagnosis_manager():
+    """``ResourceStats`` was unported until the agent's monitor came
+    (A12's agent half): a JAX-encoded report now lands in the master's
+    diagnosis history."""
+    from dlrover_tpu_torch.master.master import JobMaster
+
+    master = JobMaster(port=0, num_workers=1)
+    master.prepare()
+    try:
+        client = comm.MasterTransportClient(master.addr, retries=1)
+        raw = jmsgs.serialize(jmsgs.ResourceStats(
+            node_id=0, cpu_percent=4.0, used_memory_mb=9.0, hbm_used_mb=2.0,
+            hbm_peak_mb=3.0))
+        client.call(b"r", raw)
+        hist = master.diagnosis_manager.resource_history[0][0]
+        assert (hist["cpu"], hist["mem_mb"], hist["hbm_mb"],
+                hist["hbm_peak_mb"]) == (4.0, 9.0, 2.0, 3.0)
+    finally:
+        master.stop()
 
 
 def test_every_jax_request_is_handled_or_named_unported():
