@@ -155,7 +155,24 @@ result:
    ``torch.cuda.set_sync_debug_mode("error")``; each save, persist and
    restore beside its bound from the pinned copy and disk rates measured
    in the phase. The batches are the elastic worker's
-   (``synthetic_batch``, keyed by the step);
+   (``synthetic_batch``, keyed by the step). Run (a) has the health
+   sentinels on and its step 7 profiled (``profile_interval``): gated,
+   every ``sent_*`` key present and finite each step, no non-finite
+   gradient or loss, no anomaly, the losses those of the sentinels-off
+   run (e) bit for bit, the sampled breakdown naming K1, K2 dq, K2 dkv,
+   K3 and K4 with device time, and (a)'s launches the plan's (the
+   sentinels launch no K kernel); read, the sampled step's wall time
+   against the unsampled ones'. A probe as ``bench.py``'s (the
+   replicated step with the sentinels and without, in turns on their
+   own states over the same batches): ``sentinel_overhead_frac`` from
+   the steps' device ms, the losses equal bit for bit. (f) a planted
+   fault: 4 steps whose step 2 multiplies its loss by NaN; gated,
+   ``sent_nonfinite`` > 0 and ``sent_loss_nonfinite`` 1 at step 2 and
+   neither before, one ``nan_grads`` AnomalyRecord on the hub at step 2
+   with its capture path, the capture file under the capture directory
+   holding the forced sample of step 3 (a breakdown of device kernels),
+   and the later NaN steps, inside ``min_capture_interval_s``, writing
+   no second capture;
 11. elastic: ``python -m dlrover_tpu_torch.agent.launcher --nnodes 1
    --nproc 1 --max-restarts 1 -- python -m
    dlrover_tpu_torch.examples.train_gpt_elastic`` in a subprocess under
@@ -182,7 +199,13 @@ result:
    the agent's persists against the disk yardstick, rendezvous and
    respawn, the worker's start, group, kernel load and memory restore,
    the crash to the first step back, the steady step against the
-   reference's, and any step stalled during a persist;
+   reference's, and any step stalled during a persist. The local
+   master's metrics endpoint (``/json`` and ``/metrics``, its port from
+   the launcher's log) is read every 0.25 s until the launcher exits:
+   gated on the last reading, a goodput in (0, 1), lost seconds at
+   least the crash to the first step back less 1 s and at most the
+   phase's wall time, and ``node_failures_total`` 0 (a worker crash
+   under a living agent is no node failure);
 11a. node_loss: a standalone master (``python -m
    dlrover_tpu_torch.master.main --num-workers 2``) and two nodes'
    launchers (``--nnodes 2 --node-id N --nproc 1``; a run id, socket
@@ -209,7 +232,12 @@ result:
    directory on /dev/shm); nothing left behind. Read: failure to first
    step back, split into detect, diagnosis, relaunch, rendezvous, start,
    replica fetch, restore and first step; the fetch's bytes and rate;
-   the step at dp 2; each node's peak host RSS; the phase's disk bytes;
+   the step at dp 2; each node's peak host RSS; the phase's disk bytes.
+   The standalone master's metrics endpoint (its port from the master's
+   log), read as in ``elastic``: a goodput in (0, 1), lost seconds at
+   least the failure to the first step back less 1 s and at most the
+   phase's wall time, ``node_failures_total`` 1 (node 1's agent reports
+   its node failed when it exits for the relaunch);
 11b. reshard: the same launcher with ``--nproc 4`` runs the worker on
    four ranks of the one card over gloo (``--one-card``), llama-1.4b at
    full width and 2 layers (as ``trainer``), b8 × s1024, ``--zero1``
@@ -315,7 +343,9 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
@@ -2528,6 +2558,19 @@ TRAINER_MEMORY_EVERY, TRAINER_DISK_EVERY, TRAINER_BLOCK_K = 2, 4, 4
 # at TRAINER_LAYERS layers) and the disk yardstick
 TRAINER_LAYERS = 2
 YARDSTICK_BYTES, DISK_YARDSTICK_GIB = 1 << 30, 2
+# run (a)'s profiled step (profile_interval): one of its 10 steps, off
+# the save steps; the sentinel probe's untimed and timed steps a side;
+# the planted fault run's steps and its NaN step
+TRAINER_PROFILE_EVERY = 7
+SENTINEL_PROBE_WARMUP, SENTINEL_PROBE_STEPS = 2, 6
+NAN_RUN_STEPS, NAN_AT = 4, 2
+# the device kernels of the trainer's main path: K1, K2 dq and dkv, K3, K4
+PROFILED_KERNELS = ("flash_fwd_wgmma_kernel", "flash_bwd_dq_wgmma_kernel",
+                    "flash_bwd_dkv_wgmma_kernel", "norm_fwd_kernel",
+                    "norm_bwd_kernel")
+SENT_KEYS = ("sent_nonfinite", "sent_ovf_f16", "sent_und_f16",
+             "sent_ovf_bf16", "sent_und_bf16", "sent_update_ratio",
+             "sent_loss_nonfinite")
 
 
 def _trainer_batches(cfg, seed, n):
@@ -2590,13 +2633,14 @@ def yardsticks(dev, out_dir):
 
 
 class _Watch:
-    """Callback: each step's loss, device ms and end (host clock); at
-    ``on_train_begin`` the state's leaves against ``ref`` (the paths that
-    differ)."""
+    """Callback: each step's loss, device ms, wall s and end (host
+    clock); at ``on_train_begin`` the state's leaves against ``ref`` (the
+    paths that differ)."""
 
     def __init__(self, ref=None):
         self.ref, self.diff = ref, None
         self.losses, self.device_ms, self.end_at = {}, {}, {}
+        self.wall_s = {}
 
     def on_train_begin(self, trainer, control):
         if self.ref is not None:
@@ -2605,12 +2649,143 @@ class _Watch:
     def on_step_end(self, trainer, step, metrics, control):
         self.losses[step] = metrics["loss"]
         self.device_ms[step] = trainer.timer.last_device_ms
+        self.wall_s[step] = trainer.timer.last_s
         self.end_at[step] = time.perf_counter()
 
     def __getattr__(self, hook):  # the other hooks: nothing to do
         if hook.startswith("on_"):
             return lambda *a, **k: None
         raise AttributeError(hook)
+
+
+def _observed(trainer):
+    """Each step's host metrics as ``trainer``'s watchdog sees them (the
+    step's one read: the loss, the sentinels, the rest), by step."""
+    seen = {}
+    real = trainer.watchdog.observe
+
+    def observe(step, metrics, **kw):
+        seen[step] = dict(metrics)
+        return real(step, metrics, **kw)
+
+    trainer.watchdog.observe = observe
+    return seen
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else None
+
+
+def sentinel_probe(cfg, seed, dev, batches, opt):
+    """``bench.py``'s sentinel probe: the replicated step without and with
+    the sentinels, each on its own state from ``seed``, in turns over the
+    same batches; every step timed by CUDA events around the step alone,
+    then its metrics read. Returns the device ms a step of each, the
+    losses of each (to hold bit for bit) and ``t_on / t_off - 1`` over
+    the medians of the timed steps."""
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    runs = {}
+    for on in (False, True):
+        tx = opt()
+        runs[on] = {"state": init_train_state(seed, cfg, tx, device=dev),
+                    "step": TrainStepBuilder(cfg, tx, device=dev,
+                                             health_sentinels=on).build(),
+                    "ms": [], "losses": []}
+    n = SENTINEL_PROBE_WARMUP + SENTINEL_PROBE_STEPS
+    for i in range(n):
+        batch = batches[i % len(batches)]
+        for on in (False, True):
+            r = runs[on]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            r["state"], m = r["step"](r["state"], batch)
+            end.record()
+            end.synchronize()
+            r["ms"].append(start.elapsed_time(end))
+            r["losses"].append(float(m["loss"]))
+    out = {"warmup": SENTINEL_PROBE_WARMUP,
+           "steps": SENTINEL_PROBE_STEPS}
+    for on, key in ((False, "off"), (True, "on")):
+        out[f"{key}_ms"] = runs[on]["ms"]
+        out[f"{key}_losses"] = runs[on]["losses"]
+    t_on = _median(out["on_ms"][SENTINEL_PROBE_WARMUP:])
+    t_off = _median(out["off_ms"][SENTINEL_PROBE_WARMUP:])
+    out["median_on_ms"], out["median_off_ms"] = t_on, t_off
+    out["sentinel_overhead_frac"] = t_on / t_off - 1.0
+    runs.clear()
+    return out
+
+
+def _poisoned_builder(cfg, opt, dev):
+    """A ``TrainStepBuilder`` with the sentinels whose step NAN_AT
+    multiplies its loss by NaN (the gradients of every leaf go NaN, as a
+    corrupt batch's would)."""
+    from dlrover_tpu_torch.train.train_step import TrainStepBuilder
+
+    class Poisoned(TrainStepBuilder):
+        calls = 0
+
+        def step_fn(self, state, batch):
+            self.calls += 1
+            return super().step_fn(state, batch)
+
+        def _loss(self, model, batch, denom=None):
+            loss, m = super()._loss(model, batch, denom)
+            if self.calls == NAN_AT:
+                loss = loss * float("nan")
+            return loss, m
+
+    return Poisoned(cfg, opt, device=dev, health_sentinels=True)
+
+
+def nan_fault_run(cfg, seed, dev, batches, opt, out_dir):
+    """The planted fault: a ``Trainer`` with the health sentinels over
+    NAN_RUN_STEPS steps whose step NAN_AT is poisoned. Returns each
+    step's observed metrics, the AnomalyRecords the hub carried, the
+    capture directory's files and the capture's document."""
+    from dlrover_tpu_torch.observability import telemetry
+    from dlrover_tpu_torch.train.trainer import Trainer, TrainerArgs
+
+    published = []
+    hub = telemetry.configure_hub()
+    sink = hub.subscribe(published.append, types=("AnomalyRecord",))
+    tx = opt()
+    try:
+        t = Trainer(cfg, TrainerArgs(
+            output_dir=out_dir, max_steps=NAN_RUN_STEPS, save_interval=0,
+            log_interval=0, seed=seed, resume=False, health_sentinels=True,
+            detect_loss_spikes=False), batches, tx,
+            step_builder=_poisoned_builder(cfg, tx, dev), device=dev)
+        seen = _observed(t)
+        t.train()
+        cap_dir = t.watchdog.cfg.capture_dir
+        min_interval = t.watchdog.cfg.min_capture_interval_s
+        del t
+    finally:
+        hub.remove_sink(sink)
+        telemetry.reset_hub()
+    files = sorted(os.listdir(cap_dir)) if os.path.isdir(cap_dir) else []
+    doc = {}
+    if files:
+        with open(os.path.join(cap_dir, files[0])) as f:
+            doc = json.load(f)
+    return {"steps": {s: {k: m.get(k) for k in SENT_KEYS + ("loss",)}
+                      for s, m in seen.items()},
+            "anomalies": [{"kind": r.kind, "step": r.step,
+                           "capture": r.capture, "detail": r.detail}
+                          for r in published],
+            "capture_dir": cap_dir, "capture_files": files,
+            "min_capture_interval_s": min_interval,
+            "capture": {"anomaly": doc.get("anomaly"),
+                        "captured_step": doc.get("captured_step"),
+                        "n_ops": len(doc.get("ops", [])),
+                        "ops": doc.get("ops", [])[:12]}}
 
 
 def _guarded_builder(cfg, opt, dev):
@@ -2690,22 +2865,37 @@ def trainer_check(cfg, seed, dev, name="trainer"):
     try:
         rec["yardsticks"] = rates = yardsticks(dev, out)
         # (a) the cadences over the first TRAINER_SAVED steps, then the
-        # last steps with them off
+        # last steps with them off; the health sentinels on, one step
+        # profiled (every kernel of it kept in the breakdown)
         watch_a = _Watch()
         t_a = time.perf_counter()
         a = Trainer(cfg, args(max_steps=TRAINER_SAVED,
                               save_interval=TRAINER_DISK_EVERY,
-                              memory_save_interval=TRAINER_MEMORY_EVERY),
+                              memory_save_interval=TRAINER_MEMORY_EVERY,
+                              health_sentinels=True,
+                              profile_interval=TRAINER_PROFILE_EVERY),
                     batches, opt(), callbacks=[watch_a], device=dev)
+        a.runtime_timer.top_k = 0
+        seen_a = _observed(a)
         _reset_train_launches()
         t0 = time.perf_counter()
         a.train()
         rec["a_cadence_s"] = time.perf_counter() - t0
+        rec["sampled_at"] = a.runtime_timer.sampled_at
+        rec["breakdown"] = [
+            {"op": o.name, "us": o.total_us, "count": o.count}
+            for o in a.runtime_timer.breakdown]
         ref = _snapshot(a.state_leaves())
         a.args.max_steps = TRAINER_STEPS
         a.args.save_interval = a.args.memory_save_interval = 0
         a.train()
         rec["launches"] = _train_launches()
+        rec["sentinels_a"] = {s: {k: m.get(k) for k in SENT_KEYS}
+                              for s, m in sorted(seen_a.items())}
+        rec["anomalies_a"] = [(r.kind, r.step)
+                              for r in a.watchdog.anomalies]
+        rec["step_wall_s_a"] = [watch_a.wall_s[s]
+                                for s in range(1, TRAINER_STEPS + 1)]
         rec["launches_expected"] = {k: v * TRAINER_STEPS
                                     for k, v in per_step.items()}
         losses = [watch_a.losses[s] for s in range(1, TRAINER_STEPS + 1)]
@@ -2795,6 +2985,14 @@ def trainer_check(cfg, seed, dev, name="trainer"):
         rec["step_device_ms_e"] = [watch_e.device_ms.get(s)
                                    for s in range(1, TRAINER_STEPS + 1)]
         del e
+        torch.cuda.empty_cache()
+        # the sentinels' cost, and (f) the planted fault
+        rec["sentinel_probe"] = sentinel_probe(
+            cfg, seed, dev, batches, opt)
+        torch.cuda.empty_cache()
+        rec["nan_fault"] = nan_fault_run(cfg, seed, dev,
+                                         batches[:NAN_RUN_STEPS], opt,
+                                         os.path.join(out, "nan"))
     finally:
         CheckpointEngine.unlink_segment()
         shutil.rmtree(out, ignore_errors=True)
@@ -2802,6 +3000,22 @@ def trainer_check(cfg, seed, dev, name="trainer"):
     tail = losses[TRAINER_SAVED:]
     steady = sorted(rec["step_device_ms_a"][1:])
     rec["steady_step_device_ms"] = steady[len(steady) // 2]
+    sampled = rec["sampled_at"]
+    rec["sampled_step_wall_s"] = rec["step_wall_s_a"][sampled - 1]
+    rec["unsampled_step_wall_s"] = _median(
+        w for s, w in enumerate(rec["step_wall_s_a"], 1)
+        if s not in (1, sampled))
+    probe = rec["sentinel_probe"]
+    rec["sentinel_overhead_frac"] = probe["sentinel_overhead_frac"]
+    profiled = {k: sum(o["us"] for o in rec["breakdown"] if k in o["op"])
+                for k in PROFILED_KERNELS}
+    rec["profiled_kernel_us"] = profiled
+    rec["breakdown_kernels"] = sum(o["count"] for o in rec["breakdown"])
+    nan = rec["nan_fault"]
+    before = [nan["steps"].get(s, {}) for s in range(1, NAN_AT)]
+    at = nan["steps"].get(NAN_AT, {})
+    first = [r for r in nan["anomalies"] if r["step"] == NAN_AT]
+    sent = rec["sentinels_a"]
     rec["checks"] = checks = {
         "finite": all(math.isfinite(x) for x in losses),
         "launches_exact": rec["launches"] == rec["launches_expected"]
@@ -2819,6 +3033,36 @@ def trainer_check(cfg, seed, dev, name="trainer"):
         "block_losses_equal": rec["losses_e"] == losses,
         "block_no_host_sync": rec["e_guarded_block_steps"]
         == TRAINER_BLOCK_K,
+        # the health sentinels (run a; run e and the probe without them)
+        "sentinels_every_step_finite": sorted(sent)
+        == list(range(1, TRAINER_STEPS + 1))
+        and all(v.get(k) is not None and math.isfinite(v[k])
+                for v in sent.values() for k in SENT_KEYS),
+        "sentinels_nonfinite_0": all(
+            v["sent_nonfinite"] == 0 and v["sent_loss_nonfinite"] == 0
+            for v in sent.values()),
+        "no_anomaly": rec["anomalies_a"] == [],
+        "sentinels_change_no_bit": rec["losses_e"] == losses
+        and probe["on_losses"] == probe["off_losses"],
+        "sampled_breakdown_names_k1_to_k4":
+        sampled == TRAINER_PROFILE_EVERY
+        and all(us > 0 for us in profiled.values()),
+        # (f) the planted fault
+        "nan_counted_at_its_step": all(
+            v.get("sent_nonfinite") == 0
+            and v.get("sent_loss_nonfinite") == 0 for v in before)
+        and (at.get("sent_nonfinite") or 0) > 0
+        and at.get("sent_loss_nonfinite") == 1,
+        "nan_grads_published_once_at_its_step": len(first) == 1
+        and first[0]["kind"] == "nan_grads"
+        and nan["anomalies"][0]["step"] == NAN_AT
+        and bool(first[0]["capture"]),
+        "capture_written_with_kernels": nan["capture_files"] == [
+            os.path.basename(first[0]["capture"]) if first else None]
+        and nan["capture"]["captured_step"] == NAN_AT + 1
+        and nan["capture"]["n_ops"] > 0,
+        "capture_budget_holds": len(nan["anomalies"]) > 1
+        and all(r["capture"] == "" for r in nan["anomalies"][1:]),
     }
     rec["ok"] = all(checks.values())
     emit(rec)
@@ -2864,6 +3108,88 @@ def _s(ev, end=False):
     """An event's time on the shared clock (s); a span's end with
     ``end``."""
     return (ev["ts"] + (ev.get("dur", 0.0) if end else 0.0)) / 1e6
+
+
+class _MasterMetrics:
+    """Reads a job master's metrics endpoint while the master runs: its
+    port from the line the master logs at start (``log_path``), then
+    ``/json`` and ``/metrics`` every ``interval_s`` until ``stop``. The
+    last reading is the last taken before the master exited."""
+
+    def __init__(self, log_path, interval_s=0.25):
+        self._log_path = log_path
+        self._interval = interval_s
+        self.port = None
+        self.json = self.text = None
+        self.reads = 0
+        self._halt = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _get(self, path):
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{self.port}{path}", timeout=2) as r:
+            return r.read().decode()
+
+    def _run(self):
+        while not self._halt.wait(self._interval):
+            if self.port is None:
+                try:
+                    with open(self._log_path, errors="replace") as f:
+                        m = re.search(r"metrics endpoint on port (\d+)",
+                                      f.read())
+                except OSError:
+                    m = None
+                if m is None:
+                    continue
+                self.port = int(m.group(1))
+            try:
+                doc, text = json.loads(self._get("/json")), self._get(
+                    "/metrics")
+            except (OSError, ValueError):
+                continue  # not up yet, or gone
+            self.json, self.text = doc, text
+            self.reads += 1
+
+    def stop(self) -> dict:
+        """The last reading: goodput, its lost and wall seconds, the
+        counters, and the Prometheus text's goodput and failure lines."""
+        self._halt.set()
+        self._thread.join(10)
+        doc = self.json or {}
+        lines = (self.text or "").splitlines()
+        return {"port": self.port, "reads": self.reads,
+                "goodput": doc.get("goodput"),
+                "goodput_lost_seconds": doc.get("goodput_lost_seconds"),
+                "goodput_wall_seconds": doc.get("goodput_wall_seconds"),
+                "counters": doc.get("counters"),
+                "prometheus": [x for x in lines if x.startswith((
+                    "dlrover_tpu_goodput", "dlrover_tpu_node_failures"))]}
+
+
+def _goodput_checks(metrics, failure_to_back_s, wall_s, node_failures):
+    """The endpoint's gates: a goodput in (0, 1) in both its JSON and its
+    Prometheus text, lost seconds that cover the recovery (the failure to
+    the first step back, less 1 s for the report's way to the master)
+    and no more than the phase's wall time, the node failures the phase
+    caused."""
+    gp = metrics.get("goodput")
+    lost = metrics.get("goodput_lost_seconds")
+    counters = metrics.get("counters") or {}
+    # the text is read a moment after the JSON: its own values
+    text = {x.split()[0]: float(x.split()[1])
+            for x in metrics.get("prometheus", [])}
+    tgp = text.get("dlrover_tpu_goodput")
+    return {
+        "goodput_in_0_1": gp is not None and 0.0 < gp < 1.0
+        and tgp is not None and 0.0 < tgp < 1.0,
+        "goodput_lost_covers_recovery": lost is not None
+        and failure_to_back_s is not None
+        and failure_to_back_s - 1.0 <= lost <= wall_s,
+        "node_failures_counted": counters.get("node_failures_total")
+        == node_failures
+        == text.get("dlrover_tpu_node_failures_total"),
+    }
 
 
 def _elastic_reference(cfg, seed, dev):
@@ -2970,19 +3296,26 @@ def elastic_check(cfg, seed, ref, name="elastic", device="cuda",
             cfg, seed, torch.device(device))
         rec["reference_s"] = time.perf_counter() - t0
         rec["parent_reserved_bytes"] = torch.cuda.memory_reserved()
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True,
-                              cwd=os.path.dirname(os.path.abspath(__file__)))
-        rec["seconds"] = time.perf_counter() - t0
-        rec["launcher_rc"] = proc.returncode
-        log = proc.stdout
-        # the launcher's whole log, too long for the record (gitignored)
+        # the launcher's whole log, too long for the record (gitignored);
+        # the local master's endpoint read from it while it runs
         log_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                "build", "chip_smoke")
         os.makedirs(log_dir, exist_ok=True)
-        with open(os.path.join(log_dir, "elastic_log.txt"), "w") as f:
-            f.write(log)
+        log_path = os.path.join(log_dir, "elastic_log.txt")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(
+                cmd, env=env, stdout=f, stderr=subprocess.STDOUT,
+                cwd=os.path.dirname(os.path.abspath(__file__)))
+            watch = _MasterMetrics(log_path)
+            try:
+                proc.wait()
+            finally:
+                rec["master_metrics"] = watch.stop()
+        rec["seconds"] = time.perf_counter() - t0
+        rec["launcher_rc"] = proc.returncode
+        with open(log_path, errors="replace") as f:
+            log = f.read()
         lines = log.splitlines()
 
         def first(pattern, start=0):
@@ -3103,6 +3436,11 @@ def elastic_check(cfg, seed, ref, name="elastic", device="cuda",
         "launches_exact": rec.get("launches_per_step_ok") is True,
         "readings": "readings_error" not in rec,
         "nothing_left_behind": rec["left_behind"] == [],
+        # the master's endpoint: a worker crash under a living agent is
+        # no node failure
+        **_goodput_checks(rec.get("master_metrics", {}),
+                          rec.get("crash_to_first_step_back_s"),
+                          rec.get("seconds", 0.0), 0),
     }
     rec["ok"] = all(checks.values())
     emit(rec)
@@ -3328,7 +3666,7 @@ def node_loss_check(cfg, seed, name="node_loss", device="cuda",
            "steps": NODE_LOSS_STEPS, "lose_after_saved_step": NODE_LOSS_AT,
            "heartbeat_s": NODE_LOSS_HEARTBEAT_S, "card": nvidia_smi_line()}
     procs, files, logs = [], [], {}
-    addr = None
+    addr = watch = None
 
     def launch(node, tag):
         cmd = ["timeout", "-k", "10", str(NODE_LOSS_TIMEOUT_S),
@@ -3378,6 +3716,7 @@ def node_loss_check(cfg, seed, name="node_loss", device="cuda",
             stderr=f, text=True,
             env=dict(env, DLROVER_TPU_TRACE_ROLE="master"))
         procs.append(master)
+        watch = _MasterMetrics(logs["master"])
         addr = master.stdout.readline().strip().split("=", 1)[1]
         n0, n1 = launch(0, "n0"), launch(1, "n1")
         wait([n1], deadline)
@@ -3396,6 +3735,7 @@ def node_loss_check(cfg, seed, name="node_loss", device="cuda",
         wait([n0, n1b], deadline)
         rec["rcs"] = [n0.returncode, n1b.returncode]
         wait([master], time.monotonic() + 30)
+        rec["master_metrics"] = watch.stop()
         rec["seconds"] = time.perf_counter() - t0
         rec["disk_write_bytes"] = _write_bytes() - w0
         text = {k: open(v).read() for k, v in logs.items()}
@@ -3432,6 +3772,8 @@ def node_loss_check(cfg, seed, name="node_loss", device="cuda",
         except Exception as exc:  # noqa: BLE001 — a missing mark: fail
             rec["readings_error"] = repr(exc)
     finally:
+        if watch is not None:
+            watch.stop()
         for p in procs:
             if p.poll() is None:
                 p.kill()
@@ -3485,6 +3827,10 @@ def node_loss_check(cfg, seed, name="node_loss", device="cuda",
         < (1 << 30),
         "readings": "readings_error" not in rec,
         "nothing_left_behind": rec["left_behind"] == [],
+        # the master's endpoint: node 1 lost once
+        **_goodput_checks(rec.get("master_metrics", {}),
+                          rec.get("failure_to_first_step_back_s"),
+                          rec.get("seconds", 0.0), 1),
     }
     rec["ok"] = all(checks.values())
     emit(rec)
@@ -5005,11 +5351,6 @@ def hybrid_worker(spec_path, rank):
         shutdown_distributed()
     with open(spec["out"].format(rank=rank), "w") as f:
         json.dump(out, f)
-
-
-def _median(xs):
-    xs = sorted(xs)
-    return xs[len(xs) // 2] if xs else None
 
 
 def hybrid_check(cfg_name, seed, dev, name="hybrid_zero", overrides=None,

@@ -96,7 +96,8 @@ def _detect_local_chips() -> int:
 
 
 def _launch_local_master(num_workers: int, max_workers: int, node_unit: int):
-    """Spin an in-process LocalJobMaster (reference: :237)."""
+    """Spin an in-process LocalJobMaster (reference: :237); returns it and
+    the thread of its supervision loop."""
     from dlrover_tpu_torch.master.master import LocalJobMaster
 
     master = LocalJobMaster(
@@ -106,11 +107,20 @@ def _launch_local_master(num_workers: int, max_workers: int, node_unit: int):
         node_unit=node_unit,
     )
     master.prepare()
-    threading.Thread(
+    thread = threading.Thread(
         target=master.run, name="local-master", daemon=True
-    ).start()
+    )
+    thread.start()
     logger.info("local master started at %s", master.addr)
-    return master
+    return master, thread
+
+
+def _stop_local_master(master, thread, timeout_s: float = 30.0) -> None:
+    """Stop the local master and wait for its loop to end: its stop (the
+    dataset summary it logs, its endpoint and transport closed) finishes
+    before the launcher's process can exit under it."""
+    master.request_stop()
+    thread.join(timeout_s)
 
 
 def run(args: argparse.Namespace) -> int:
@@ -154,7 +164,8 @@ def run(args: argparse.Namespace) -> int:
         if min_nodes > 1:
             logger.error("multi-node runs need --master-addr")
             return 2
-        master = _launch_local_master(min_nodes, max_nodes, args.node_unit)
+        master, master_thread = _launch_local_master(min_nodes, max_nodes,
+                                                     args.node_unit)
         master_addr = master.addr
         # one node: its workers' store is on this host
         os.environ.setdefault("DLROVER_TPU_HOST_ADDR", "localhost")
@@ -180,7 +191,7 @@ def run(args: argparse.Namespace) -> int:
         if saver is not None:
             saver.close(unlink=rc != 2)
         if master is not None:
-            master.request_stop()
+            _stop_local_master(master, master_thread)
         logger.info("agent of node %d exits (rc %d): peak_rss_bytes=%d",
                     node_id, rc, peak_rss_bytes())
 

@@ -139,6 +139,13 @@ class MasterClient:
             node_id=self.node_id, cpu_percent=cpu_percent,
             used_memory_mb=used_memory_mb, **kw))
 
+    def report_telemetry(self, payload: str) -> bool:
+        """Forward one serialized telemetry record (``record.to_json()``)
+        onto the master's hub (``observability/telemetry.py``
+        ``MasterSink``)."""
+        return self._t.report(
+            msgs.TelemetryEventReport(node_id=self.node_id, payload=payload))
+
     # ---- rendezvous ------------------------------------------------------
 
     def join_rendezvous(

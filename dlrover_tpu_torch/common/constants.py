@@ -126,7 +126,9 @@ class GraftEnv:
     RUN_ID = "DLROVER_TPU_RUN_ID"
     RDZV_ROUND = "DLROVER_TPU_RDZV_ROUND"
     RESTART_COUNT = "DLROVER_TPU_RESTART_COUNT"
-    # flight recorder: per-process Chrome-trace JSONL spans land under
-    # this dir when set (see observability/tracing.py)
+    # flight recorder: per-process Chrome-trace JSONL spans / telemetry
+    # record streams land under these dirs when set (see
+    # observability/tracing.py and observability/telemetry.py)
     TRACE_DIR = "DLROVER_TPU_TRACE_DIR"
     TRACE_ROLE = "DLROVER_TPU_TRACE_ROLE"
+    TELEMETRY_DIR = "DLROVER_TPU_TELEMETRY_DIR"

@@ -7,8 +7,8 @@ instantiated. The encoding is byte for byte the JAX package's for the
 messages both packages send; the port registers the messages its
 control plane sends (node lifecycle, rendezvous, the KV store and sync
 barriers, the global step, checkpoint steps, model info, the data-shard
-service, the live-reshard directive and the agent monitor's resource
-stats).
+service, the live-reshard directive, the agent monitor's resource
+stats and the telemetry records a worker forwards).
 
 One field is the port's own: ``JoinRendezvousRequest.coordinator_port``
 (the port of the torch.distributed store the joining agent picked). A
@@ -195,6 +195,16 @@ class ResourceStats:
     tpu_duty_cycle: float = 0.0
     hbm_used_mb: float = 0.0
     hbm_peak_mb: float = 0.0
+
+
+@message
+class TelemetryEventReport:
+    """One telemetry record forwarded to the master's hub. ``payload`` is
+    the record's own ``to_json`` line (``observability/telemetry.py``),
+    so the wire layer stays agnostic of record schemas."""
+
+    node_id: int = -1
+    payload: str = ""
 
 
 @message

@@ -1,10 +1,12 @@
 """Standalone job-master entry point.
 
 Port of ``dlrover_tpu/master/main.py``. Run one per job; it prints the
-address agents connect to (``--master-addr``) as the JAX one does:
+address agents connect to (``--master-addr``) as the JAX one does, and
+logs the port of its metrics endpoint (``/metrics``, ``/json``):
 
     python -m dlrover_tpu_torch.master.main --port 7000 --num-workers 2
     # DLROVER_TPU_MASTER_ADDR=localhost:7000
+    # ... metrics endpoint on port 41235
 
 ``--optimize-mode cluster`` (plans from a Brain service) waits for
 ROADMAP A23.

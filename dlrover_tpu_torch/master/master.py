@@ -3,32 +3,53 @@
 Port of ``dlrover_tpu/master/master.py`` (``JobMaster``,
 ``LocalJobMaster``, ``run``): the node manager, the training
 rendezvous, the KV store, the sync service, the speed monitor, the
-data-shard task manager (started and stopped with the master) and the
-diagnosis manager (subscribed to the master's own telemetry hub, where
-the servicer publishes the agents' resource stats and the speed
-monitor its straggler flags) behind one ``MasterServicer`` on the
-two-RPC transport; the node-event callbacks (``event_callback.py``:
-shard re-queue, rendezvous prune, a chief past its budget failing the
-job); and the loop that ends the job when every worker has exited and
-kicks every node to restart its worker when all of them have idled a
-whole hang window (a cooldown between kicks). What the JAX master also
-composes waits for its ROADMAP item: job metrics and goodput with their
-HTTP endpoint and the telemetry sinks (A12), ElasticPS (A18), the
-auto-scaler and Brain (A23) and the network-check rendezvous (A20).
+data-shard task manager (started and stopped with the master), the job
+metric collector with its goodput tracker and its HTTP endpoint
+(``job_metrics.py``: ``/metrics`` and ``/json`` on the port the master
+logs at ``prepare``), and the master's own telemetry hub: the servicer
+publishes onto it the agents' resource stats and the records workers
+send (``TelemetryEventReport``), the speed monitor its straggler flags;
+the collector (``MetricsSink``), a JSONL flight recorder under
+``DLROVER_TPU_TELEMETRY_DIR``, the diagnosis manager and the
+``HealthAggregator`` (the workers' AnomalyRecords → HealthSummary)
+consume it. All of it behind one ``MasterServicer`` on the two-RPC
+transport; the node-event callbacks (``event_callback.py``: shard
+re-queue, rendezvous prune, a chief past its budget failing the job);
+and the loop that records the job's runtime, ends the job when every
+worker has exited and kicks every node to restart its worker when all
+of them have idled a whole hang window (a cooldown between kicks).
+
+Goodput: the tracker is stalled from the start, at a node down (from
+the step training had reached), at a hang kick (backdated by the hang
+window) and at the servicer's worker restart and failure reports, and
+each stall closes at the first step report that advances past it; a
+worker's SUCCEEDED closes the accounting. What the JAX master also
+composes waits for its ROADMAP item: ElasticPS (A18), the auto-scaler
+and Brain (A23) and the network-check rendezvous (A20).
 """
 
+import os
 import threading
 import time
 from typing import Dict, Optional
 
 from dlrover_tpu_torch.common.comm import MasterTransportServer
-from dlrover_tpu_torch.common.constants import JobExitReason, RendezvousName
+from dlrover_tpu_torch.common.constants import (
+    GraftEnv,
+    JobExitReason,
+    RendezvousName,
+)
 from dlrover_tpu_torch.common.global_context import get_context
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.diagnosis.manager import DiagnosisManager
 from dlrover_tpu_torch.master.event_callback import (
     ClusterContext,
     default_callbacks,
+)
+from dlrover_tpu_torch.master.job_metrics import (
+    GoodputTracker,
+    JobMetricCollector,
+    MetricsHTTPServer,
 )
 from dlrover_tpu_torch.master.kv_store import KVStoreService
 from dlrover_tpu_torch.master.node_manager import JobManager, Scaler
@@ -41,6 +62,7 @@ from dlrover_tpu_torch.master.task_manager import TaskManager
 from dlrover_tpu_torch.master.sync_service import SyncService
 from dlrover_tpu_torch.observability import telemetry
 from dlrover_tpu_torch.observability.tracing import get_tracer
+from dlrover_tpu_torch.observability.watchdog import HealthAggregator
 
 logger = get_logger(__name__)
 
@@ -86,11 +108,24 @@ class JobMaster:
             lambda: len(self.job_manager.running_nodes()) or 1
         )
         self.diagnosis_manager = DiagnosisManager()
+        self.metric_collector = JobMetricCollector()
+        self.goodput_tracker = GoodputTracker()
+        self.metric_collector.goodput_tracker = self.goodput_tracker
+        self.metrics_server = MetricsHTTPServer(self.metric_collector, port=0)
         # a master-local hub (not the process one), so masters composed in
         # one process do not cross wires
         self.telemetry_hub = telemetry.TelemetryHub()
+        self.telemetry_hub.add_sink(
+            telemetry.MetricsSink(self.metric_collector))
+        tdir = os.getenv(GraftEnv.TELEMETRY_DIR)
+        if tdir:
+            self.telemetry_hub.add_sink(telemetry.JsonlSink(os.path.join(
+                tdir, f"telemetry-master-{os.getpid()}.jsonl")))
         self.diagnosis_manager.attach(self.telemetry_hub)
         self.speed_monitor.attach_hub(self.telemetry_hub)
+        # cross-host correlation of the workers' AnomalyRecords
+        self.health_aggregator = HealthAggregator(
+            hub=self.telemetry_hub, world=num_workers)
         self.servicer = MasterServicer(
             job_manager=self.job_manager,
             rdzv_managers=self.rdzv_managers,
@@ -99,6 +134,8 @@ class JobMaster:
             speed_monitor=self.speed_monitor,
             task_manager=self.task_manager,
             diagnosis_manager=self.diagnosis_manager,
+            goodput_tracker=self.goodput_tracker,
+            metric_collector=self.metric_collector,
             telemetry_hub=self.telemetry_hub,
         )
         self.server = MasterTransportServer(self.servicer, port=port)
@@ -123,9 +160,16 @@ class JobMaster:
     def _on_node_down(self, node):
         self.speed_monitor.reset_running_speed()
         self.speed_monitor.drop_node(node.id)
+        self.metric_collector.inc("node_failures_total")
+        # lost time runs from here until a step report ADVANCES past the
+        # step training had reached when the node went down
+        self.goodput_tracker.mark_stalled(
+            at_step=self.speed_monitor.global_step)
         get_tracer().instant(
             "failover.detect", node=node.id, source="heartbeat_timeout"
         )
+        self.telemetry_hub.publish(telemetry.ElasticEvent(
+            kind="node_down", node_id=node.id, detail="heartbeat_timeout"))
 
     @property
     def port(self) -> int:
@@ -137,6 +181,8 @@ class JobMaster:
 
     def prepare(self):
         self.server.start()
+        self.metrics_server.start()
+        logger.info("metrics endpoint on port %d", self.metrics_server.port)
         self.task_manager.start()
         self.job_manager.start()
 
@@ -146,6 +192,10 @@ class JobMaster:
         interval = poll_interval_s or ctx.supervise_interval_s
         try:
             while not self._stop.wait(interval):
+                self.metric_collector.collect_runtime(
+                    self.speed_monitor.global_step,
+                    self.speed_monitor.running_speed,
+                    len(self.job_manager.running_nodes()))
                 if self.job_manager.all_workers_exited():
                     if self.job_manager.all_workers_succeeded():
                         self.exit_reason = JobExitReason.SUCCEEDED
@@ -167,12 +217,17 @@ class JobMaster:
         """A job-wide hang (reference: dist_job_manager.py:802): every
         node idle over the window gets a restart prescription; the
         cooldown leaves the restart and re-rendezvous time to land fresh
-        samples before the next kick. (The JAX master also backdates its
-        goodput stall here: A12.)"""
+        samples before the next kick. Progress stopped at the START of
+        the idle window, so the goodput stall is backdated by it (clamped
+        inside the tracker)."""
         if (time.time() - self._last_hang_kick <= cooldown_s
                 or not self.diagnosis_manager.all_nodes_hanged()):
             return False
         self._last_hang_kick = time.time()
+        self.goodput_tracker.mark_stalled(
+            at_step=self.speed_monitor.global_step,
+            accounted_from=time.monotonic()
+            - self.diagnosis_manager.HANG_WINDOW_S)
         logger.warning("all nodes idle — prescribing restart")
         self.diagnosis_manager.queue_action_for(
             [n.id for n in self.job_manager.running_nodes()],
@@ -189,6 +244,7 @@ class JobMaster:
             logger.info("dataset %s: %d shards completed", name, n)
         self.task_manager.stop()
         self.job_manager.stop()
+        self.metrics_server.stop()
         self.server.stop()
 
 

@@ -6,14 +6,19 @@ queued actions), node status, worker restarts, failures (classified by
 the diagnosis manager; an abort fans out to every running node; a
 collector's ``level="diagnosis"`` report is evidence only), resource
 stats (onto the master's telemetry hub, or to the diagnosis manager
-without one), registration, the rendezvous (join, comm world, nodes
-waiting), the KV store, sync barriers, the global step, checkpoint
-steps, model info, the running-node listing, the data-shard service
+without one), the records a worker's ``MasterSink`` sends
+(``TelemetryEventReport``: decoded onto the hub), registration, the
+rendezvous (join, comm world, nodes waiting), the KV store, sync
+barriers, the global step, checkpoint steps, model info (the job meta of
+the metric collector), the running-node listing, the data-shard service
 (datasets, tasks and their results, the dataset checkpoint, the epoch;
 a restarted or failed node's in-flight shards re-queued) and the
-live-reshard directive (an eviction notice in, the plan out).
-Exceptions never cross the RPC edge. Where the JAX handlers also mark
-the goodput tracker stalled, that tracker waits for ROADMAP A12.
+live-reshard directive (an eviction notice in, the plan out, an
+``eviction_notice`` event on the hub). The goodput tracker is marked as
+the JAX handlers mark it: stalled at a worker restart and at a failure
+report (from the step training had reached), productive at a step
+report that advances past the stall, completed at a SUCCEEDED status.
+Exceptions never cross the RPC edge.
 
 Every other message type of the JAX servicer is answered with an error
 naming the ROADMAP item that ports it (``UNPORTED``); the transport
@@ -24,7 +29,7 @@ import time
 from typing import Dict, Optional
 
 from dlrover_tpu_torch.common import messages as msgs
-from dlrover_tpu_torch.common.constants import RendezvousName
+from dlrover_tpu_torch.common.constants import NodeStatus, RendezvousName
 from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.observability import telemetry
 from dlrover_tpu_torch.observability.tracing import get_tracer
@@ -41,7 +46,6 @@ _ITEMS = {
         "TuningPlanNotice", "TuningPlanRequest", "StrategySearchRequest"),
     "A18 (the sparse tier's ElasticPS)": (
         "PsVersionReport", "PsVersionRequest"),
-    "A12 (the telemetry sinks)": ("TelemetryEventReport",),
     "A23 (the auto-scaler and Brain)": (
         "BrainPersistMetricsRequest", "BrainOptimizeRequest",
         "BrainJobMetricsRequest"),
@@ -62,10 +66,14 @@ class MasterServicer:
         speed_monitor=None,
         task_manager=None,
         diagnosis_manager=None,
+        goodput_tracker=None,
+        metric_collector=None,
         telemetry_hub=None,
     ):
         self.job_manager = job_manager
         self.diagnosis_manager = diagnosis_manager
+        self.goodput_tracker = goodput_tracker
+        self.metric_collector = metric_collector
         self.telemetry_hub = telemetry_hub
         self.task_manager = task_manager
         self.rdzv_managers = rdzv_managers or {}
@@ -73,9 +81,6 @@ class MasterServicer:
         self.sync_service = sync_service
         self.speed_monitor = speed_monitor
         self._ckpt_steps = {}  # node_rank -> step (flash-ckpt rank sync)
-        # the latest model statistics (the JAX master's job meta; its
-        # metric collector waits for ROADMAP A12)
-        self.model_info: Dict[str, object] = {}
 
     @staticmethod
     def unported(type_name: str) -> Optional[str]:
@@ -109,9 +114,21 @@ class MasterServicer:
             self.job_manager.handle_status_report(
                 m.node_id, m.status, m.exit_reason
             )
-        # (the JAX handler also closes its goodput tracker on SUCCEEDED:
-        # A12)
+        if m.status == NodeStatus.SUCCEEDED and self.goodput_tracker:
+            # a worker ran to its final step: training is over, so the
+            # lost-time accounting stops (a peer's death detected after
+            # this could never be closed by a step report)
+            self.goodput_tracker.mark_completed()
         return True
+
+    def _mark_stalled(self) -> None:
+        """Open a goodput stall from the step training had reached: a
+        later step report closes it only once training advances past
+        it."""
+        if self.goodput_tracker:
+            self.goodput_tracker.mark_stalled(
+                at_step=self.speed_monitor.global_step
+                if self.speed_monitor else None)
 
     def _report_worker_restart(self, m: msgs.WorkerRestartReport) -> bool:
         """Voluntary worker kill+respawn: re-queue the node's in-flight
@@ -122,7 +139,8 @@ class MasterServicer:
         )
         if self.task_manager:
             self.task_manager.recover_worker_tasks(m.node_id)
-        # (the JAX handler also marks its goodput tracker stalled: A12)
+        # training is stopped until the restarted world's first step
+        self._mark_stalled()
         return True
 
     def _report_node_failure(self, m: msgs.NodeFailureReport) -> bool:
@@ -137,7 +155,9 @@ class MasterServicer:
             logger.info("diagnosis data from node %d: %s", m.node_id,
                         m.error_data[:200])
             return True
-        # (the JAX handler also marks its goodput tracker stalled: A12)
+        # a worker crash stalls the job until a step report after the
+        # restart advances past here
+        self._mark_stalled()
         if self.diagnosis_manager:
             rec = self.diagnosis_manager.collect_failure(m)
             get_tracer().instant("failover.diagnosed", node=m.node_id,
@@ -175,11 +195,32 @@ class MasterServicer:
             self.diagnosis_manager.collect_resource(m)
         return True
 
+    def _report_telemetry(self, m: msgs.TelemetryEventReport) -> bool:
+        """A worker's record (its ``to_json`` line) onto the master's
+        hub."""
+        if self.telemetry_hub is None or not self.telemetry_hub.enabled:
+            return True  # accepted, nobody listening
+        try:
+            record = telemetry.from_json(m.payload)
+        except (KeyError, ValueError) as e:
+            logger.warning(
+                "undecodable telemetry record from node %d: %s", m.node_id, e
+            )
+            return False
+        self.telemetry_hub.publish(record)
+        return True
+
     def _report_global_step(self, m: msgs.GlobalStepRecord) -> bool:
         if self.speed_monitor:
             self.speed_monitor.collect_global_step(
                 m.global_step, m.timestamp or time.time(), node_id=m.node_id
             )
+        if self.goodput_tracker:
+            # forward progress closes a stall, but only for a step TAKEN
+            # after it opened and ADVANCING past its step (a surviving
+            # rank's in-flight report must not hide the recovery)
+            self.goodput_tracker.mark_productive(
+                step=m.global_step, report_ts=m.timestamp or None)
         return True
 
     def _report_kv(self, m: msgs.KeyValuePair) -> bool:
@@ -224,14 +265,12 @@ class MasterServicer:
     def _report_eviction(self, m: msgs.EvictionNotice) -> bool:
         """A worker announced departing dp ranks: issue the live-reshard
         directive so survivors migrate their in-device state instead of
-        restarting from a checkpoint. (The JAX servicer also publishes an
-        ``eviction_notice`` event to its telemetry hub, which waits for
-        ROADMAP A12 here.)"""
+        restarting from a checkpoint."""
         mgr = self.rdzv_managers.get(RendezvousName.TRAINING)
         if mgr is None:
             return False
         try:
-            mgr.plan_reshard(
+            version = mgr.plan_reshard(
                 m.lost_dp_ranks,
                 m.dp_size,
                 deadline_s=m.deadline_s,
@@ -242,23 +281,29 @@ class MasterServicer:
                 "rejecting eviction notice from node %d: %s", m.node_id, e
             )
             return False
+        if self.telemetry_hub is not None and self.telemetry_hub.enabled:
+            self.telemetry_hub.publish(telemetry.ElasticEvent(
+                kind="eviction_notice", node_id=m.node_id,
+                detail=(f"v{version} lost={m.lost_dp_ranks} "
+                        f"dp={m.dp_size} {m.reason}").strip()))
         return True
 
     def _report_model_info(self, m: msgs.ModelInfoReport) -> bool:
-        # partial update: unset (zero/empty) fields must not clobber
-        # values another reporter already provided
-        self.model_info.update({
-            k: v
-            for k, v in (
-                ("model_name", m.model_name),
-                ("num_params", m.num_params),
-                ("flops_per_token", m.flops_per_token),
-                ("global_batch_size", m.global_batch_size),
-                ("seq_len", m.seq_len),
-                ("strategy_json", m.strategy_json),
-            )
-            if v
-        })
+        if self.metric_collector:
+            # partial update: unset (zero/empty) fields must not clobber
+            # values another reporter already provided
+            self.metric_collector.set_job_meta(**{
+                k: v
+                for k, v in (
+                    ("model_name", m.model_name),
+                    ("num_params", m.num_params),
+                    ("flops_per_token", m.flops_per_token),
+                    ("global_batch_size", m.global_batch_size),
+                    ("seq_len", m.seq_len),
+                    ("strategy_json", m.strategy_json),
+                )
+                if v
+            })
         return True
 
     _REPORT_HANDLERS = {
@@ -268,6 +313,7 @@ class MasterServicer:
         "WorkerRestartReport": _report_worker_restart,
         "NodeFailureReport": _report_node_failure,
         "ResourceStats": _report_resource,
+        "TelemetryEventReport": _report_telemetry,
         "GlobalStepRecord": _report_global_step,
         "KeyValuePair": _report_kv,
         "SyncJoin": _report_sync_join,

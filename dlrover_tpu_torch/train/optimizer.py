@@ -35,7 +35,7 @@ in as ``norm`` (the square sums all-reduced over the dp group), and the
 weight decay sees every flat element as it sees every leaf.
 """
 
-from typing import Callable, Dict, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -186,9 +186,12 @@ class AdamW:
                 torch.where(keep, one, torch.full_like(norm, self.grad_clip)))
 
     @torch.no_grad()
-    def update_(self, params, grads, state, norm=None) -> None:
+    def update_(self, params, grads, state, norm=None,
+                update_norms: Optional[List[torch.Tensor]] = None) -> None:
         """One update in place. ``norm``: the gradients' global norm,
-        given when ``grads`` hold a shard of them (the clip reads it)."""
+        given when ``grads`` hold a shard of them (the clip reads it).
+        ``update_norms``: a list that gets each leaf's update norm (the
+        health sentinels' ``‖update‖``), in ``params``' order."""
         names = list(params)
         lr = self.lr(state["step"])  # the count before the increment
         state["step"] += 1
@@ -208,7 +211,7 @@ class AdamW:
                     size += g[j].numel()
                     j += 1
                 self._fused(names[i:j], params, g[i:j], state, lr, bc1, bc2,
-                            div, mul)
+                            div, mul, update_norms)
                 i = j
             return
         for n, gi in zip(names, g):
@@ -221,11 +224,14 @@ class AdamW:
             if self.weight_decay:
                 u = u + self.weight_decay * p
             u = -lr * u
+            if update_norms is not None:
+                update_norms.append(torch.linalg.vector_norm(u))
             p.add_(u)
             m.copy_(m2)
             v.copy_(v2)
 
-    def _fused(self, names, params, g, state, lr, bc1, bc2, div, mul):
+    def _fused(self, names, params, g, state, lr, bc1, bc2, div, mul,
+               update_norms=None):
         """The same arithmetic, one ``_foreach`` op per term over every
         leaf: one walk over the state instead of a chain of trees."""
         p = [params[n] for n in names]
@@ -249,6 +255,8 @@ class AdamW:
         if self.weight_decay:
             torch._foreach_add_(u, torch._foreach_mul(p, self.weight_decay))
         torch._foreach_mul_(u, -lr)
+        if update_norms is not None:
+            update_norms.extend(torch._foreach_norm(u))
         torch._foreach_add_(p, u)
         torch._foreach_copy_(m, m2)
         torch._foreach_copy_(v, v2)

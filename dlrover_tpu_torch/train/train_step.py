@@ -5,8 +5,8 @@ Port of ``dlrover_tpu/train/train_step.py``: ``init_train_state``,
 ``block_fn`` and ``build_block``) and ``build_eval_step``, over no mesh
 or a dp × fsdp × sp × tp mesh (``parallel/mesh.py``),
 replicated or with ZeRO update sharding (on dp, or on dp × fsdp and dp ×
-tp), on the f32, bf16 or int8 gradient wire, without fp8 or health
-sentinels.
+tp), on the f32, bf16 or int8 gradient wire, with or without the health
+sentinels, without fp8 (ROADMAP A17).
 
 In a ``torch.distributed`` data-parallel group of W > 1 processes (the
 world, or the ``group`` given: the survivors after a live reshard) the
@@ -92,6 +92,23 @@ next step (``_param_columns``), so the parameters' global stream is
 assembled over fsdp × tp only for the first step and after something
 else wrote the parameters (a restore).
 
+With ``health_sentinels`` the step's metrics also carry the sentinel
+scalars of ``observability/sentinels.py`` (the JAX ``_sentinel_metrics``),
+as 0-dim tensors on the device that the trainer reads with the loss in
+one copy: the gradient counts over the mean gradients, the update ratio
+over the AdamW updates (``AdamW.update_``'s ``update_norms``) and the
+parameters before the update, the loss's finiteness. On a sharded mesh a
+rank counts only the leaves whose replicas it leads (coordinate 0 on
+each axis of ``NORM_AXES`` the leaf is not cut over) and its norms'
+square sums divide by their replicas, as ``sharded_global_norm``'s, and
+the counts and both square sums take one all-reduce over that group
+after the update. Under ZeRO the counts are over this rank's columns of
+the exchanged gradient stream (the JAX step counts its post-exchange
+shard), riding the loss's all-reduce over dp; the parameters' and the
+updates' square sums over its columns take one all-reduce over dp after
+the update. With the sentinels off the step runs what it ran without
+them.
+
 The JAX step is a pure function whose jitted call donates the old state;
 the port updates the state's parameters and moments IN PLACE and returns
 the same dict.
@@ -105,6 +122,7 @@ import torch
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.models import decoder
 from dlrover_tpu_torch.models.config import ModelConfig
+from dlrover_tpu_torch.observability import sentinels as snt
 from dlrover_tpu_torch.observability.tracing import get_tracer
 from dlrover_tpu_torch.parallel.collectives import all_gather_dim, all_reduce_
 from dlrover_tpu_torch.parallel import sharding as shd
@@ -162,13 +180,15 @@ class TrainStepBuilder:
     def __init__(self, cfg: ModelConfig, optimizer: AdamW,
                  grad_accum: int = 1, attn_impl: str = "auto",
                  device="cuda", mesh=None,
-                 comm: Optional[shd.CommConfig] = None, group=None):
+                 comm: Optional[shd.CommConfig] = None, group=None,
+                 health_sentinels: bool = False):
         """``mesh``: a ``parallel.mesh.Mesh`` over the whole world (dp ×
         fsdp × sp × tp), or None. ``comm``: the update sharding
         asked for (resolved here: ``update_sharding``,
         ``update_sharding_reason``, ``plan``). ``group``: the
         data-parallel process group every collective of the step runs
-        over (the world by default)."""
+        over (the world by default). ``health_sentinels``: the sentinel
+        scalars join the step's metrics (module docstring)."""
         if grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
         self.cfg = cfg
@@ -181,6 +201,7 @@ class TrainStepBuilder:
         self.rank = process_index(group)
         self.mesh = mesh
         self.sharded = mesh is not None and mesh.sharded
+        self.health_sentinels = health_sentinels
         if mesh is not None:
             check_ported(mesh.shape)
             if self.sharded:  # refuses an uneven split
@@ -203,9 +224,15 @@ class TrainStepBuilder:
                     a for a in REDUCE_ORDER if a in axes)
                 self.replicas[name] = mesh.size_of(
                     [a for a in NORM_AXES if a not in shard.axes])
+            # the ranks that count a leaf's sentinels: one of its replicas
+            self.leads = {n: all(mesh.coord(a) == 0 for a in NORM_AXES
+                                 if a not in shard.axes)
+                          for n, shard in self.layout.items()}
         self.comm = comm
         params = dict(decoder.Decoder(cfg, device="meta",
                                       trainable=True).named_parameters())
+        # the sentinels' fraction denominator: the global parameter count
+        self.n_params = snt.static_size(params.values())
         (self.update_sharding, self.update_sharding_reason,
          self.plan) = shd.resolve_update_sharding(
             cfg, params, self.world, comm, mesh)
@@ -394,7 +421,8 @@ class TrainStepBuilder:
             self.dp_rank)].contiguous()
 
     def _update_columns(self, p_shard: torch.Tensor, shards: torch.Tensor,
-                        opt_state: Dict, norm: torch.Tensor) -> None:
+                        opt_state: Dict, norm: torch.Tensor,
+                        update_norms: Optional[List] = None) -> None:
         """AdamW on this rank's columns, a bucket's row as a leaf: the
         update's temporaries are a row's size, not the whole shard's (the
         arithmetic is elementwise, so the bits are the same)."""
@@ -403,7 +431,8 @@ class TrainStepBuilder:
                  "m": {i: opt_state["m"]["flat"][i] for i in rows},
                  "v": {i: opt_state["v"]["flat"][i] for i in rows}}
         self.optimizer.update_({i: p_shard[i] for i in rows},
-                               {i: shards[i] for i in rows}, state, norm=norm)
+                               {i: shards[i] for i in rows}, state, norm=norm,
+                               update_norms=update_norms)
         opt_state["step"] = state["step"]
 
     def _keep_columns(self, params, p_shard: torch.Tensor) -> None:
@@ -413,16 +442,27 @@ class TrainStepBuilder:
         self._kept = ([(weakref.ref(p), p._version)
                        for p in params.values()], p_shard)
 
-    def _zero_sums(self, stats: torch.Tensor, sq: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _zero_sums(self, stats: torch.Tensor, sq: torch.Tensor,
+                   counts: Optional[torch.Tensor] = None):
         """(loss and accuracy summed over the data ranks, the columns'
         square sum over dp): one all-reduce over the group, or, on a
         sharded mesh, the stats over dp × fsdp and the square sum over dp
-        (every fsdp × tp peer holds the same columns)."""
+        (every fsdp × tp peer holds the same columns). Given the sentinel
+        ``counts``, they ride the square sum's all-reduce and come back
+        third."""
         if not self.sharded:
-            red = all_reduce_(torch.cat([stats, sq.reshape(1)]), self.group)
-            return red[:2], red[2]
-        return self._sum(stats, data_axes()), self._sum(sq, "dp")
+            parts = [stats, sq.reshape(1)]
+            if counts is not None:
+                parts.append(counts)
+            red = all_reduce_(torch.cat(parts), self.group)
+            if counts is None:
+                return red[:2], red[2]
+            return red[:2], red[2], red[3:]
+        stats = self._sum(stats, data_axes())
+        if counts is None:
+            return stats, self._sum(sq, "dp")
+        red = self._sum(torch.cat([sq.reshape(1), counts]), "dp")
+        return stats, red[0], red[1:]
 
     def _zero_step(self, model, params, batch, opt_state) -> Dict:
         """The update-sharded step (module docstring); the parameters
@@ -444,13 +484,23 @@ class TrainStepBuilder:
         if a > 1:
             # divide AFTER the exchange, where the JAX step divides
             shards = shards / a
-        stats, sq = self._zero_sums(
-            torch.stack([sums["loss"], sums["accuracy"]]).float(),
-            shards.square().sum())
+        sent = self.health_sentinels
+        stats = torch.stack([sums["loss"], sums["accuracy"]]).float()
+        if sent:
+            stats, sq, counts = self._zero_sums(
+                stats, shards.square().sum(), snt.grad_counts(shards))
+        else:
+            stats, sq = self._zero_sums(stats, shards.square().sum())
         norm = torch.sqrt(sq)
         p_shard = self._param_columns(params)
-        self._update_columns(p_shard, shards, opt_state, norm)
+        if sent:  # the parameters before the update, a column each once
+            p_sq, norms = p_shard.square().sum(), []
+        self._update_columns(p_shard, shards, opt_state, norm,
+                             norms if sent else None)
         del shards
+        if sent:
+            sqs = all_reduce_(torch.stack(
+                [p_sq, _square_sum(norms)]), self.dp_group)
         full = shd.all_gather_columns(p_shard, plan, self.dp_group)
         if self.sharded:
             shd.unpack_shard(cfg, full, params, plan, self.layout)
@@ -458,8 +508,34 @@ class TrainStepBuilder:
             shd.unpack_flat(cfg, full, params, plan)
         del full
         self._keep_columns(params, p_shard)
-        return {"loss": stats[0] / a, "accuracy": stats[1] / a,
-                "tokens": sums["tokens"], "grad_norm": norm}
+        metrics = {"loss": stats[0] / a, "accuracy": stats[1] / a,
+                   "tokens": sums["tokens"], "grad_norm": norm}
+        if sent:
+            metrics.update(self._sentinel_metrics(
+                counts, sqs[0], sqs[1], metrics["loss"], opt_state))
+        return metrics
+
+    def _sentinel_metrics(self, counts, p_sq, u_sq, loss,
+                          opt_state) -> Dict[str, torch.Tensor]:
+        """The sentinel scalars (``observability/sentinels.py``) from the
+        counts and the parameters' and updates' square sums, each over
+        the whole state (the JAX ``_sentinel_metrics``)."""
+        out = snt.counts_to_metrics(counts, self.n_params)
+        out["sent_update_ratio"] = snt.norm_ratio(torch.sqrt(u_sq),
+                                                  torch.sqrt(p_sq))
+        out["sent_loss_nonfinite"] = snt.loss_nonfinite(loss)
+        skips = snt.sanitizer_count(opt_state)
+        if skips is not None:
+            out["sent_sanitizer_skips"] = skips
+        return out
+
+    def _leaf_square_sum(self, names, norms) -> torch.Tensor:
+        """The square sum of leaves' norms, on a sharded mesh each divided
+        by its replicas (``sharded_global_norm``)."""
+        if not self.sharded:
+            return _square_sum(norms)
+        return torch.stack([n.float() * n.float() / self.replicas[k]
+                            for k, n in zip(names, norms)]).sum()
 
     def step_fn(self, state: TrainState, batch) -> Tuple[TrainState, Dict]:
         """One optimizer step on ``batch`` (tensors with a leading batch
@@ -475,6 +551,10 @@ class TrainStepBuilder:
         if self.mesh is not None:
             batch = sequence_block(batch, self.mesh)
         a = self.grad_accum
+        # the loss the sentinels test: in one process the one
+        # differentiated (the JAX replicated step's), over ranks the
+        # summed metric (the JAX sharded step's)
+        objective = None
         if self.update_sharding:
             metrics = self._zero_step(model, params, batch,
                                       state["opt_state"])
@@ -489,13 +569,16 @@ class TrainStepBuilder:
         elif a == 1:
             loss, metrics = self._loss(model, batch)
             loss.backward()
+            objective = loss.detach()
         else:
             micro = {k: v.reshape((a, v.shape[0] // a) + v.shape[1:])
                      for k, v in batch.items()}
-            sums = {}
+            sums, objective = {}, 0.0
             for i in range(a):
                 loss, m = self._loss(model, {k: v[i] for k, v in micro.items()})
                 loss.backward()  # .grad sums over the micro-batches
+                if self.health_sentinels:
+                    objective = objective + loss.detach()
                 for k, v in m.items():
                     sums[k] = sums.get(k, 0.0) + v
             grads = [p.grad for p in params.values()]
@@ -506,11 +589,32 @@ class TrainStepBuilder:
         metrics = dict(metrics)
         if "grad_norm" not in metrics:
             metrics["grad_norm"] = global_norm(list(grads.values()))
+        sent = self.health_sentinels
+        if sent:  # before the update: the gradients, the old parameters
+            names = list(params)
+            led = ([grads[n] for n in names if self.leads[n]]
+                   if self.sharded else list(grads.values()))
+            counts = (snt.grad_counts(led) if led
+                      else torch.zeros(len(snt.COUNT_KEYS),
+                                       device=self.device))
+            p_sq = self._leaf_square_sum(names, torch._foreach_norm(
+                [params[n].detach().float() for n in names]))
+            norms = []
         self.optimizer.update_(params, grads, state["opt_state"],
                                norm=metrics["grad_norm"]
-                               if self.sharded else None)
+                               if self.sharded else None,
+                               update_norms=norms if sent else None)
         for p in params.values():
             p.grad = None
+        if sent:
+            vec = torch.cat([counts, torch.stack(
+                [p_sq, self._leaf_square_sum(names, norms)])])
+            if self.sharded:
+                self._sum(vec, NORM_AXES)
+            metrics.update(self._sentinel_metrics(
+                vec[:-2], vec[-2], vec[-1],
+                metrics["loss"] if objective is None else objective,
+                state["opt_state"]))
         state["step"] += 1
         return state, metrics
 
@@ -534,6 +638,11 @@ class TrainStepBuilder:
         """The block callable ``block(state, batches) → (state, metrics)``,
         updating the state in place."""
         return self.block_fn
+
+
+def _square_sum(norms: List[torch.Tensor]) -> torch.Tensor:
+    """The sum of the squares of 0-dim norms (a global norm's square)."""
+    return torch.stack([n.float() for n in norms]).square().sum()
 
 
 def _global_count(batch, device, group=None, mesh=None) -> torch.Tensor:

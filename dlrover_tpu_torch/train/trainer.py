@@ -35,10 +35,23 @@ or the dp axis of a dp × fsdp × tp mesh: the moments are this rank's dp
 columns of the flat bucket stream, and each rank's checkpoint pack holds
 its columns (the same on every fsdp × tp peer).
 
+``health_sentinels`` adds the sentinel scalars to the step's metrics
+(``observability/sentinels.py``), read with the loss in the step's one
+device → host copy, and a ``Watchdog`` (``observability/watchdog.py``)
+that classifies each step's metrics into AnomalyRecords; an anomaly
+reserves a capture under ``DLROVER_TPU_TRACE_DIR`` (or
+``output_dir/captures``), the next step runs under the profiler and the
+capture file gets its kernel breakdown. ``profile_interval`` N profiles
+one step every N (``observability/runtime_timer.py``; on the card the
+device kernels of the step, summed by name) and publishes its top ops as
+``KernelSample`` records; with sentinels and no interval the timer
+samples only what the watchdog forces. With a master client the
+watchdog's records reach the master's hub through a ``MasterSink`` for
+the length of ``train()``.
+
 Not ported yet, and refused with the ROADMAP item that ports them: pp
-and ep (A16), health sentinels and the sampled runtime profile (A12),
-the gradient sanitizer (A17). A mesh of another type than the port's
-(a JAX mesh, say) is refused naming A9, the mesh's item.
+and ep (A16), the gradient sanitizer (A17). A mesh of another type than
+the port's (a JAX mesh, say) is refused naming A9, the mesh's item.
 """
 
 import os
@@ -57,7 +70,9 @@ from dlrover_tpu_torch.models.config import ModelConfig
 from dlrover_tpu_torch.observability import telemetry
 from dlrover_tpu_torch.observability.loss_spike import LossSpikeDetector
 from dlrover_tpu_torch.observability.profiler import StepTimer
+from dlrover_tpu_torch.observability.runtime_timer import RuntimeKernelTimer
 from dlrover_tpu_torch.observability.tracing import get_tracer
+from dlrover_tpu_torch.observability.watchdog import Watchdog, WatchdogConfig
 from dlrover_tpu_torch.parallel.sharding import CommConfig
 from dlrover_tpu_torch.parallel.mesh import (
     Mesh,
@@ -106,7 +121,10 @@ class TrainerArgs:
     report_to_master: bool = True
     # run a final evaluation when the loop exits (even without cadence)
     eval_at_end: bool = False
-    profile_interval: int = 0         # ROADMAP A12
+    # run one step every N under the profiler and keep its per-kernel
+    # breakdown (observability/runtime_timer.py, the xpu_timer analog);
+    # 0 = off
+    profile_interval: int = 0
     # keep N batches in flight to the device ahead of the step (pinned
     # host memory, copies on a side stream); 0 = a plain copy a batch
     prefetch: int = 0
@@ -122,15 +140,14 @@ class TrainerArgs:
     comm_bucket_mb: float = 4.0
     comm_wire_dtype: str = "float32"
     comm_wire_dtype_dcn: Optional[str] = None
-    health_sentinels: bool = False              # ROADMAP A12
+    # the health sentinels in the step's metrics (read with the loss, no
+    # extra host read) and the host-side watchdog with its rate-limited
+    # triggered captures
+    health_sentinels: bool = False
     sanitize_grads: Optional[str] = None        # ROADMAP A17
 
 
 def _refuse_unported(args: TrainerArgs) -> None:
-    if args.health_sentinels or args.profile_interval:
-        raise NotImplementedError(
-            "health_sentinels and profile_interval are not ported yet "
-            "(ROADMAP A12)")
     if args.sanitize_grads:
         raise NotImplementedError(
             "sanitize_grads is not ported yet (ROADMAP A17)")
@@ -211,7 +228,7 @@ class Trainer:
         self._builder = step_builder or TrainStepBuilder(
             cfg, optimizer, grad_accum=args.grad_accum,
             attn_impl=args.attn_impl, device=self.device, mesh=mesh,
-            comm=self.comm)
+            comm=self.comm, health_sentinels=args.health_sentinels)
         self._step_fn = None
         self._block_fn = None
         self._eval_fn = eval_step_fn
@@ -225,6 +242,22 @@ class Trainer:
             if args.detect_loss_spikes else None
         )
         self._ckpt = None
+        self.runtime_timer = None
+        if args.profile_interval or args.health_sentinels:
+            # interval 0 with sentinels: a forced-only timer, so the
+            # watchdog's triggered captures can still sample a step
+            self.runtime_timer = RuntimeKernelTimer(
+                interval_steps=args.profile_interval, device=self.device)
+        self.watchdog = None
+        if args.health_sentinels:
+            self.watchdog = Watchdog(WatchdogConfig(
+                node_id=int(os.environ.get(GraftEnv.NODE_ID, "-1") or -1),
+                capture_dir=os.environ.get(GraftEnv.TRACE_DIR)
+                or os.path.join(args.output_dir, "captures")))
+        # a measured step time for this shape (PlanRecord.
+        # planned_step_time_s): the watchdog's step_time_regression
+        # baseline; 0 = none, the check off
+        self.planned_step_time_s = 0.0
         self.control = TrainerControl()
         self.callbacks = CallbackList(callbacks)
         if self.spike_detector is not None:
@@ -302,13 +335,23 @@ class Trainer:
             except Exception:  # noqa: BLE001
                 logger.warning("model-info report failed", exc_info=True)
         control = self.control
+        sink = None
+        if (self.watchdog is not None and self.client is not None
+                and args.report_to_master):
+            # the watchdog's records to the master's HealthAggregator
+            sink = telemetry.MasterSink(self.client)
+            telemetry.configure_hub([sink])
         self.callbacks.fire("on_train_begin", self, control)
-        if args.block_k > 1:
-            if self._block_fn is None:
-                self._block_fn = self._builder.build_block()
-            last_saved, last_evaled = self._train_blockwise()
-        else:
-            last_saved, last_evaled = self._train_stepwise()
+        try:
+            if args.block_k > 1:
+                if self._block_fn is None:
+                    self._block_fn = self._builder.build_block()
+                last_saved, last_evaled = self._train_blockwise()
+            else:
+                last_saved, last_evaled = self._train_stepwise()
+        finally:
+            if sink is not None:
+                telemetry.get_hub().remove_sink(sink)
         if args.eval_at_end and self.state["step"] != last_evaled:
             eval_metrics = self.evaluate()
             if eval_metrics:
@@ -366,6 +409,50 @@ class Trainer:
             tokens_per_s=tokens / step_time_s if step_time_s > 0 else 0.0,
             accum=self.args.grad_accum))
 
+    def _emit_kernel_telemetry(self, step: int):
+        """After a sampled step: its top ops as KernelSamples."""
+        rt = self.runtime_timer
+        if rt is None or rt.sampled_at != step:
+            return
+        hub = telemetry.get_hub()
+        if not hub.enabled:
+            return
+        for op in rt.breakdown[:8]:
+            hub.publish(telemetry.KernelSample(
+                step=step, op=op.name, us=op.total_us, share=op.fraction,
+                block=rt.sampled_block_k))
+
+    def _capture_sample(self, step: int):
+        """The watchdog's reserved capture gets the breakdown of the step
+        just sampled (force-armed by the anomaly)."""
+        rt = self.runtime_timer
+        if (self.watchdog is not None and self.watchdog.capture_pending
+                and rt is not None and rt.sampled_at == step):
+            self.watchdog.write_capture(step, rt.breakdown,
+                                        block=rt.sampled_block_k)
+
+    def _observe(self, step: int, metrics: Dict[str, float],
+                 step_time_s: float):
+        """One step's host metrics to the watchdog."""
+        self.watchdog.observe(step, metrics, step_time_s=step_time_s,
+                              planned_step_time_s=self.planned_step_time_s)
+
+    def _arm_capture(self):
+        """An anomaly reserved a capture: profile the next step."""
+        if (self.watchdog is not None and self.watchdog.capture_pending
+                and self.runtime_timer is not None):
+            self.runtime_timer.force_next()
+
+    @staticmethod
+    def _read(metrics: Dict) -> Dict[str, float]:
+        """The step's metrics on the host, in the step's one device →
+        host read: every metric (the sentinels among them) stacked into
+        one copy."""
+        keys = list(metrics)
+        vals = torch.stack([torch.as_tensor(metrics[k]).float().reshape(())
+                            for k in keys]).tolist()
+        return dict(zip(keys, vals))
+
     def _log(self, step, window, control):
         """Fire ``on_log`` with the window's mean loss and steps/s."""
         dt = time.perf_counter() - window["t_log"]
@@ -420,11 +507,21 @@ class Trainer:
                 logger.info("data exhausted at step %d", step - 1)
                 break
             self.timer.start()
-            self.state, metrics = self._step_fn(self.state, batch)
+            if self.runtime_timer is not None:
+                self.state, metrics = self.runtime_timer.profiled_call(
+                    step, self._step_fn, self.state, batch)
+            else:
+                self.state, metrics = self._step_fn(self.state, batch)
             timing = self.timer.stop()
-            loss = float(metrics["loss"])  # the one device→host read a step
+            host = self._read(metrics)  # the one device→host read a step
+            loss = host["loss"]
             self.timer.record(timing)
             self._emit_step_telemetry(step, loss, self.timer.last_s, batch)
+            self._emit_kernel_telemetry(step)
+            if self.watchdog is not None:
+                self._capture_sample(step)
+                self._observe(step, host, self.timer.last_s)
+                self._arm_capture()
             window["loss"] += loss
             window["n"] += 1
             self.callbacks.fire("on_step_end", self, step, {"loss": loss},
@@ -459,17 +556,19 @@ class Trainer:
         return max(int(k), 1)
 
     def _to_host_async(self, metrics: Dict[str, torch.Tensor]):
-        """Start the copy of a block's stacked metrics to host memory;
-        returns the host tensors and the event that marks them ready."""
+        """Start the copy of a block's stacked metrics to host memory, one
+        copy of every metric (the sentinels among them) stacked; returns
+        the host tensors and the event that marks them ready."""
         if self.device.type != "cuda":
             return metrics, None
-        host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                for k, v in metrics.items()}
-        for k, v in metrics.items():
-            host[k].copy_(v, non_blocking=True)
+        keys = list(metrics)
+        stacked = torch.stack([metrics[k].float() for k in keys])
+        buf = torch.empty(stacked.shape, dtype=stacked.dtype,
+                          pin_memory=True)
+        buf.copy_(stacked, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record()
-        return host, ready
+        return {k: buf[i] for i, k in enumerate(keys)}, ready
 
     def _train_blockwise(self) -> Tuple[int, int]:
         """K steps a dispatch, the previous block's metrics read while the
@@ -493,9 +592,14 @@ class Trainer:
                 ready.synchronize()  # that block only, not the running one
             self.timer.record(timing)
             per_step_s = self.timer.last_s
+            rows = ({key: v.tolist() for key, v in host.items()}
+                    if self.watchdog is not None else None)
             for i, loss in enumerate(host["loss"].tolist()):
                 s = first + i
                 self._emit_step_telemetry(s, loss, per_step_s, n_steps=k)
+                if rows is not None:
+                    self._observe(s, {key: v[i] for key, v in rows.items()},
+                                  per_step_s)
                 window["loss"] += loss
                 window["n"] += 1
                 self.callbacks.fire("on_step_end", self, s, {"loss": loss},
@@ -504,6 +608,7 @@ class Trainer:
                         args.log_interval and s % args.log_interval == 0):
                     control.should_log = False
                     self._log(s, window, control)
+            self._arm_capture()  # an anomaly in this drain: sample next
 
         exhausted = False
         while (step < args.max_steps and not control.should_stop
@@ -520,7 +625,19 @@ class Trainer:
                 break
             k = len(batches)
             self.timer.start()
-            self.state, metrics = self._block_fn(self.state, batches)
+            rt = self.runtime_timer
+            # profile the block when a sampled step falls inside it
+            sample = None if rt is None else next(
+                (s for s in range(step + 1, step + k + 1)
+                 if rt.should_sample(s)), None)
+            if sample is not None:
+                self.state, metrics = rt.profiled_call(
+                    sample, self._block_fn, self.state, batches, n_steps=k)
+                self._emit_kernel_telemetry(sample)
+                # labeled as a K-step capture, never one step's budget
+                self._capture_sample(sample)
+            else:
+                self.state, metrics = self._block_fn(self.state, batches)
             timing = self.timer.stop(k)
             host, ready = self._to_host_async(metrics)
             if pending is not None:

@@ -70,8 +70,11 @@ NODE_LOSS_MODULES = (
 )
 
 
-def test_the_node_loss_modules_import_without_jax():
-    res = _run("names = %r\n" % (NODE_LOSS_MODULES,) + r"""
+def _stand_alone(modules):
+    """Each module imports under the hook, and its source holds no
+    import of JAX or the JAX package, even one a function makes
+    lazily."""
+    res = _run("names = %r\n" % (modules,) + r"""
 for name in names:
     importlib.import_module("dlrover_tpu_torch." + name)
 leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
@@ -79,13 +82,31 @@ assert not leaked, leaked
 print("imported", len(names))
 """)
     assert res.returncode == 0, res.stderr[-4000:]
-    assert res.stdout.split()[-1] == str(len(NODE_LOSS_MODULES))
-    for name in NODE_LOSS_MODULES:
+    assert res.stdout.split()[-1] == str(len(modules))
+    for name in modules:
         src = (ROOT / "dlrover_tpu_torch" / (name.replace(".", "/") + ".py")
                ).read_text()
-        # no import of either, even one a function makes lazily
         assert not re.search(r"^\s*(from|import)\s+(jax|dlrover_tpu)\b",
                              src, re.M), name
+
+
+def test_the_node_loss_modules_import_without_jax():
+    _stand_alone(NODE_LOSS_MODULES)
+
+
+# the observability modules copied or ported from the JAX package's for
+# the health sentinels, the watchdog, the runtime timer and the master's
+# job metrics
+OBSERVABILITY_MODULES = (
+    "observability.sentinels", "observability.numeric",
+    "observability.runtime_timer", "observability.watchdog",
+    "observability.healthcheck", "observability.telemetry",
+    "master.job_metrics",
+)
+
+
+def test_the_observability_modules_import_without_jax():
+    _stand_alone(OBSERVABILITY_MODULES)
 
 
 def test_the_hook_does_block_the_jax_package():

@@ -87,8 +87,9 @@ def test_the_model_info_lands_in_the_masters_job_meta():
         c = TClient(master.addr, node_id=0)
         c.report_model_info(model_name="m", num_params=5)
         c.report_model_info(seq_len=9)  # a partial update keeps the rest
-        assert master.servicer.model_info == {
-            "model_name": "m", "num_params": 5, "seq_len": 9}
+        meta = master.metric_collector.meta
+        assert (meta.model_name, meta.num_params, meta.seq_len) == (
+            "m", 5, 9)
     finally:
         master.stop()
 

@@ -28,15 +28,23 @@ the same step on both ranks, the losses bit for bit. With the pin
 skipped (the fault), the replacement restores the newer step and the
 gate fails.
 
-The three drills run at once; each launch has a time limit.
+The three drills run at once; each launch has a time limit. Each
+node's unix sockets live in a short directory of the drill's own
+(``tempfile.mkdtemp`` in the temporary directory, removed after): under
+pytest's per-test directory they passed the unix-socket path limit
+(107 bytes) once the temporary directory's own path was longer than 31
+to 37 characters (by the variant's name), and every agent then refused
+to start.
 """
 
 import glob
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import uuid
@@ -44,6 +52,8 @@ import uuid
 import pytest
 
 from dlrover_tpu_torch.checkpoint import core
+from dlrover_tpu_torch.checkpoint.saver import lock_name
+from dlrover_tpu_torch.common import multi_process
 from dlrover_tpu_torch.common.multi_process import attach_shared_memory
 from dlrover_tpu_torch.examples.train_gpt_elastic import pack_digest
 
@@ -82,11 +92,18 @@ def _wait(procs, timeout, until=None):
     return False
 
 
+def _sock_root() -> str:
+    """A directory for the nodes' unix sockets, as short as the temporary
+    directory allows (the caller removes it)."""
+    return tempfile.mkdtemp(prefix="nl")
+
+
 def drill(tmp, variant):
     """One node-loss run; its logs and readings."""
     worker, steps, lose_at, extra = VARIANTS[variant]
     os.makedirs(tmp, exist_ok=True)
     run = "nl" + uuid.uuid4().hex[:8]
+    socks = _sock_root()
     env = dict(os.environ, DLROVER_TPU_COORDINATOR_PORT="0",
                DLROVER_TPU_WIRE_TOKEN="tok" + run,
                DLROVER_TPU_REPLICA_HOST="127.0.0.1",
@@ -118,7 +135,7 @@ def drill(tmp, variant):
             cmd, cwd=ROOT, stdout=open(logs[tag], "w"),
             stderr=subprocess.STDOUT,
             env=dict(env, DLROVER_TPU_RUN_ID=f"{run}_n{node}",
-                     DLROVER_TPU_SOCK_DIR=os.path.join(tmp, f"sock{node}")))
+                     DLROVER_TPU_SOCK_DIR=os.path.join(socks, str(node))))
         procs.append(p)
         return p
 
@@ -170,6 +187,7 @@ def drill(tmp, variant):
                 p.kill()
                 p.wait()
         master_err.close()
+        shutil.rmtree(socks, ignore_errors=True)
         out["left_behind"] = glob.glob(f"/dev/shm/*{run}*")
         for path in out["left_behind"]:
             os.unlink(path)
@@ -290,3 +308,37 @@ def test_the_digest_of_a_flipped_copy_is_the_copys(monkeypatch):
         assert flipped == ex.pack_digest(copy) != whole
         assert ex.pack_digest(data, ex.chunk_digests(data), i) == flipped
     assert ex.pack_digest(parts=ex.chunk_digests(data)) == whole
+
+
+def test_the_drills_socket_paths_fit_where_the_default_ones_fit(
+        monkeypatch):
+    """The drill's socket directory (``_sock_root``: a short directory in
+    the temporary directory) takes the agent's sockets under the longest
+    temporary directory whose default socket directory
+    (``<tmp>/dlrover_tpu_sockets``) takes them, 55 characters; the old
+    place, pytest's directory of one variant, passes the unix-socket path
+    limit there, so every agent of the three drills refused to start."""
+    root = _sock_root()
+    try:
+        assert os.path.dirname(root) == tempfile.gettempdir()
+        assert os.path.basename(root).startswith("nl")
+        shape = len(os.path.basename(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    tmp = "/" + "t" * 54
+    monkeypatch.setattr(multi_process.os, "makedirs", lambda *a, **k: None)
+    monkeypatch.setenv("DLROVER_TPU_RUN_ID", "nl" + "f" * 8 + "_n1")
+    places = {
+        "default": (os.path.join(tmp, "dlrover_tpu_sockets"), True),
+        "drill": (os.path.join(tmp, "n" * shape, "1"), True),
+        "pytest": (os.path.join(tmp, "pytest-of-root", "pytest-0",
+                                "newer_no_pin0", "sock1"), False),
+    }
+    for where, (sock_dir, fits) in places.items():
+        monkeypatch.setenv("DLROVER_TPU_SOCK_DIR", sock_dir)
+        for name in ("ckpt", "ckpt_meta", lock_name(0)):  # the saver's
+            if fits:
+                assert len(multi_process._socket_path(name).encode()) <= 107
+            else:
+                with pytest.raises(OSError, match="too long for a unix"):
+                    multi_process._socket_path(name)

@@ -17,8 +17,9 @@ A llama-family config at 2 layers and narrow widths (the one of
   whose step-3 loss is JAX's within the same tolerance;
 - the telemetry records read back through the JAX ``from_json``, and the
   loss-spike detector flags the steps JAX's flags;
-- the ``TrainerArgs`` this slice does not carry raise, naming their
-  ROADMAP item;
+- the ``TrainerArgs`` and meshes the port does not carry yet raise,
+  naming their ROADMAP item (the health options run:
+  ``test_torch_runtime_timer.py``);
 - with a master client, the port's ``Trainer`` reports the model's
   statistics and every global step as the JAX ``Trainer`` does, in the
   stepwise and the block loop.
@@ -47,6 +48,7 @@ from dlrover_tpu_torch.models import convert  # noqa: E402
 from dlrover_tpu_torch.models.config import get_config  # noqa: E402
 from dlrover_tpu_torch.observability import loss_spike  # noqa: E402
 from dlrover_tpu_torch.observability import telemetry  # noqa: E402
+from dlrover_tpu_torch.parallel.mesh import MeshConfig  # noqa: E402
 from dlrover_tpu_torch.train import optimizer as topt  # noqa: E402
 from dlrover_tpu_torch.train import train_step as tts  # noqa: E402
 from dlrover_tpu_torch.train import trainer as ttrainer  # noqa: E402
@@ -303,8 +305,8 @@ def test_loss_spike_detector_flags_what_jax_flags(zscore):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(health_sentinels=True), "A12"),
-    (dict(profile_interval=5), "A12"),
+    (dict(mesh=MeshConfig(pp=2)), "A16"),
+    (dict(mesh=MeshConfig(ep=2)), "A16"),
     (dict(sanitize_grads="skip"), "A17"),
     (dict(mesh=object()), "A9"),
 ])

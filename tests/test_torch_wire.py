@@ -171,7 +171,7 @@ def test_a_failing_get_raises_remote_error(server):
 @pytest.mark.parametrize("name,item", [
     ("ServingEvictionNotice", "A15"), ("BrainOptimizeRequest", "A23"),
     ("ServingScaleRequest", "A15"), ("ParallelConfigRequest", "A20"),
-    ("PsVersionRequest", "A18"), ("TelemetryEventReport", "A12"),
+    ("PsVersionRequest", "A18"), ("PsVersionReport", "A18"),
 ])
 def test_an_unported_handler_answers_with_its_roadmap_item(server, name,
                                                             item):
