@@ -43,7 +43,12 @@ from ``--seed``, through the hand-written CUDA kernels built from
   (``Trainer(mesh=MeshConfig(sp=2, tp=2))``, the ring) and tensor
   parallelism over a head count tp does not divide (gpt2-1.5b's 25
   heads on fsdp 2 × tp 2: each rank's ``wq`` columns moved over tp to
-  its whole heads and back), four ranks on the card.
+  its whole heads and back), four ranks on the card;
+- the master's planning loop: a Brain process, the launcher's local
+  master in cluster mode (``JobAutoScaler`` over a ``BrainClient``), the
+  elastic worker's ``ElasticTrainer`` loop grown from one node to two on
+  the card by the auto-scaler's ``ScalePlan``, and a Brain tuning
+  revision applied at a step boundary (``autoscale_check``).
 
 Phases, one JSON line each; any failure exits nonzero and prints no
 result:
@@ -243,7 +248,7 @@ result:
    full width and 2 layers (as ``trainer``), b8 × s1024, ``--zero1``
    (the zero2 mode: the moments are each rank's columns of the flat
    bucket stream; 64 MB buckets), the data from the master's shard
-   service, no checkpoint. After step 4 of 6 ranks 2 and 3 are evicted:
+   service, no checkpoint. After step 3 of 5 ranks 2 and 3 are evicted:
    the master's reshard directive, the migration of the flat moments
    to the survivors, the departing ranks' exit 0, the survivors' new
    gloo group at ``grad_accum`` 2. Gated: both survivors' ``[reshard]
@@ -262,7 +267,8 @@ result:
    accumulation imply; the two runs' disk writes under 3 GiB. Read: the
    phase's seconds, each reshard phase's, the recovery, the step at dp 4
    and at dp 2, peak memory a rank;
-12. ring, ulysses, ring_glm: four processes on the card in a gloo group
+12. sp (records ring, ulysses, ring_glm): one group of four processes
+   on the card in a gloo group, both configs in turn
    (asked for: NCCL refuses two ranks on one GPU; the ring shifts and
    all-to-alls stage their CUDA tensors through page-locked host
    memory), ``MeshConfig(dp=1, sp=4)``: mistral-7b at full width and 2
@@ -277,7 +283,8 @@ result:
    rank's heads) beyond it, bf16 within 2e-3 (loss) and 5e-2
    (gradients), then 1 bf16 step: finite losses, each rank's launches
    (the offset ones apart) exactly those of its block map, no kernel
-   rebuilt in a worker, each rank's peak memory. The train_kernel phase
+   rebuilt in a worker, each rank's peak memory and the time of the
+   step's all-reduces. The train_kernel phase
    also holds the six flash kernels with ring offsets against their
    plain versions at these blocks' shapes (bf16 and f32, the fault k_off
    off by one key), timed beside themselves without offsets;
@@ -323,6 +330,24 @@ result:
    rank. The train_kernel phase holds K1/K2 at (a)'s shapes (the
    diagonal and the offsets block), K1p/K2p at 13 and 12 heads, K3/K4 at
    [4096, 4096] and [4096, 1600].
+16. autoscale: a Brain process and the launcher's local master in
+   cluster mode over llama-1.4b at full width and 2 layers, remat
+   "full", b8 × s1024 through ``ElasticTrainer`` (micro-batch 4, the
+   replicated step, gloo on the card): 3 steps at dp 1, the Brain's
+   plan (2, clamped to [1, 2]) to this script's scaler, which starts a
+   second node's agent; both restart into dp 2 (the accumulation
+   re-derived) and, after the first dp-2 step, a planted OOM given to a
+   ``BrainTuner`` halves the micro-batch: the master versions the
+   revision, the agents' config tuners carry it and each worker
+   rebuilds its step once at the same step boundary. Gated: the plan's
+   target 2, the second worker's join, the accumulation at every step,
+   one ``brain.tuning_replan`` span a worker at the master's version,
+   every step's loss and grad norm within 1e-4 of one process's at the
+   same global batches, K1–K4 launched every step. Read: plan → first
+   dp-2 step s, revision → first step at the new batch s, what the
+   Brain planned after dp 2, the step wall s at each shape, and the
+   cold-start planner's memory estimate for llama-1.4b b8 × s1024 beside
+   the train phase's measured peak.
 
 The lines before the last are the card's name and power limit and a
 ``{"kernels": [...]}`` summary (the chunk kernel's entry also gives its
@@ -347,8 +372,25 @@ import threading
 import time
 import urllib.request
 
-import numpy as np
-import torch
+# the interpreter's setting as this process was started (startup_probe)
+_STARTED_ENV = {k: os.environ[k] for k in ("PYTHONDONTWRITEBYTECODE",)
+                if k in os.environ}
+if __name__ == "__main__":
+    # One bytecode cache in the checkout's build directory for this run
+    # and every process it starts (workers, agents, launchers). Where the
+    # interpreter runs with PYTHONDONTWRITEBYTECODE and site-packages
+    # holds no bytecode, every process compiles all it imports again: an
+    # `import torch` took 8.4-12.2 s on the card's machine, 7.7-8.0 s from
+    # a written cache (scratch probe, PERF.md section 6). Set before torch
+    # is imported, so this process writes the cache the others read.
+    os.environ.setdefault("PYTHONPYCACHEPREFIX", os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build", "pycache"))
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+    sys.dont_write_bytecode = False
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_BF16_OPS_PER_S = 989e12    # dense bf16 tensor-core peak
@@ -468,8 +510,14 @@ _phase_seconds = {}
 _START = time.monotonic()
 
 
+_emit_lock = threading.Lock()
+
+
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    line = json.dumps(obj) + "\n"
+    with _emit_lock:  # whole lines, also from the build's thread
+        sys.stdout.write(line)
+        sys.stdout.flush()
 
 
 @contextlib.contextmanager
@@ -3912,9 +3960,9 @@ def _node_loss_readings(trace_dir, runs, rec):
 # phase 11b: the live reshard, four ranks on the one card
 # ---------------------------------------------------------------------------
 
-# 6 steps, 2 after the eviction (8 before the mesh4d phase joined the
-# script)
-RESHARD_LAYERS, RESHARD_STEPS, RESHARD_EVICT_AT = 2, 6, 4
+# 5 steps, 2 after the eviction (8 before the mesh4d phase joined the
+# script, 6 before the autoscale phase did)
+RESHARD_LAYERS, RESHARD_STEPS, RESHARD_EVICT_AT = 2, 5, 3
 RESHARD_RANKS, RESHARD_LOST = 4, (2, 3)
 RESHARD_BUCKET_MB = 64.0
 RESHARD_TIMEOUT_S = 480
@@ -4312,19 +4360,21 @@ def _first_layer_grads(model):
             for n, p in model.named_parameters() if n.startswith("layers.0.")}
 
 
-def _rel(got, ref):
-    """max |got − ref| / max |ref| over a dict of tensors (or scalars)."""
+def _rel(got, ref, dev="cpu"):
+    """max |got − ref| / max |ref| over a dict of tensors (or scalars), in
+    f64 on ``dev`` (the card gives the host's result, without its ~1.5 s
+    a first layer's gradients of mistral-7b)."""
     if isinstance(ref, dict):
-        return max(_rel(got[k], ref[k]) for k in ref)
-    ref = torch.as_tensor(ref, dtype=torch.float64)
-    got = torch.as_tensor(got, dtype=torch.float64)
+        return max(_rel(got[k], ref[k], dev) for k in ref)
+    ref = torch.as_tensor(ref).to(dev, torch.float64)
+    got = torch.as_tensor(got).to(dev, torch.float64)
     return float((got - ref).abs().max() / max(float(ref.abs().max()),
                                                1e-30))
 
 
-def _sp_reference(cfg_name, overrides, shape, seed, dev, out_path):
+def _sp_reference(cfg_name, overrides, shape, seed, dev):
     """One process's flash loss and first-layer gradients, bf16 and f32,
-    on the phase's batch and weights, saved for the comparison."""
+    on the phase's batch and weights, for the comparison."""
     from dlrover_tpu_torch.models import decoder
     from dlrover_tpu_torch.models.config import get_config
 
@@ -4339,7 +4389,6 @@ def _sp_reference(cfg_name, overrides, shape, seed, dev, out_path):
                    "grads": _first_layer_grads(model)}
         del model, loss
         torch.cuda.empty_cache()
-    torch.save(ref, out_path)
     return ref
 
 
@@ -4475,13 +4524,13 @@ def _sp_grads(model, cfg, batch, mesh, impl):
 
 
 def sp_worker(spec_path, rank):
-    """One rank of an sp phase (a subprocess of ``sp_check``): a gloo group
-    of SP ranks on card 0 (asked for: NCCL refuses two ranks on one
-    GPU), the mesh ``MeshConfig(dp=1, sp=SP)``; for each ``attn_impl``:
-    the f32 loss and first-layer gradients, again with the planted fault,
-    the bf16 ones, then SP_STEPS bf16 steps of ``TrainStepBuilder`` with
-    the launch counts read around them. Writes its record and the values
-    the parent compares."""
+    """One rank of the sp phase (a subprocess of ``sp_check``): a gloo
+    group of SP ranks on card 0 (asked for: NCCL refuses two ranks on one
+    GPU), the mesh ``MeshConfig(dp=1, sp=SP)``; for each config of the
+    spec and each of its ``attn_impl``s: the f32 loss and first-layer
+    gradients, again with the planted fault, the bf16 ones, then SP_STEPS
+    bf16 steps of ``TrainStepBuilder`` with the launch counts read around
+    them. Writes its record and the values the parent compares."""
     from dlrover_tpu_torch.models import decoder
     from dlrover_tpu_torch.models.config import get_config
     from dlrover_tpu_torch.ops import _build
@@ -4492,6 +4541,7 @@ def sp_worker(spec_path, rank):
         init_distributed,
         shutdown_distributed,
     )
+    from dlrover_tpu_torch.train import train_step as ts
     from dlrover_tpu_torch.train.optimizer import make_optimizer
     from dlrover_tpu_torch.train.train_step import TrainStepBuilder
 
@@ -4515,83 +4565,85 @@ def sp_worker(spec_path, rank):
         return secs
 
     _build.build = counted
-    out = {"rank": rank, "group_s": group_s, "impls": {}}
-    vals = {}
+    out = {"rank": rank, "group_s": group_s, "configs": {}}
+    seed = spec["seed"]
     try:
         mesh = build_mesh(MeshConfig(dp=1, sp=SP))
-        name, seed, over = spec["config"], spec["seed"], spec["overrides"]
-        shape = tuple(spec["shape"])
-        s_l = shape[1] // SP
-        for impl in spec["impls"]:
-            rec = {}
-            cfg32 = get_config(name, **dict(over, dtype="float32"))
-            model = decoder.init(cfg32, seed=seed, device=dev,
-                                 trainable=True)
-            batch = _sp_batch(shape, cfg32, seed, dev)
-            prefix = (batch["prefix_len"].tolist()
-                      if "prefix_len" in batch else None)
-            vals[(impl, "float32")] = _sp_grads(model, cfg32, batch, mesh,
-                                                impl)
-            fault_rank = _fault_rank(cfg32, s_l, impl, prefix)
-            rec["fault_rank"] = fault_rank
-            with _planted(impl, rank, fault_rank, s_l):
-                vals[(impl, "fault")] = _sp_grads(model, cfg32, batch, mesh,
-                                                  impl)
-            del model
-            cfg = get_config(name, **over)
-            opt = make_optimizer(learning_rate=1e-4, warmup_steps=10,
-                                 decay_steps=1000)
-            if cuda:
-                torch.cuda.empty_cache()
-                torch.cuda.reset_peak_memory_stats()
-            model = decoder.init(cfg, seed=seed, device=dev, trainable=True)
-            vals[(impl, "bfloat16")] = _sp_grads(model, cfg, batch, mesh,
-                                                 impl)
-            state = {"params": model,
-                     "opt_state": opt.init(dict(model.named_parameters())),
-                     "step": 0}
-            step = TrainStepBuilder(cfg, opt, attn_impl=impl, device=dev,
-                                    mesh=mesh).build()
-            losses, wall_ms = [], []
-            _reset_train_launches()
-            for _ in range(SP_STEPS):
-                t = time.perf_counter()
-                state, m = step(state, batch)
+        for run in spec["runs"]:
+            name, over = run["config"], run["overrides"]
+            shape = tuple(run["shape"])
+            s_l = shape[1] // SP
+            vals, impls = {}, out["configs"].setdefault(name, {})
+            for impl in run["impls"]:
+                rec = {}
+                cfg32 = get_config(name, **dict(over, dtype="float32"))
+                model = decoder.init(cfg32, seed=seed, device=dev,
+                                     trainable=True)
+                batch = _sp_batch(shape, cfg32, seed, dev)
+                prefix = (batch["prefix_len"].tolist()
+                          if "prefix_len" in batch else None)
+                vals[(impl, "float32")] = _sp_grads(model, cfg32, batch,
+                                                    mesh, impl)
+                fault_rank = _fault_rank(cfg32, s_l, impl, prefix)
+                rec["fault_rank"] = fault_rank
+                with _planted(impl, rank, fault_rank, s_l):
+                    vals[(impl, "fault")] = _sp_grads(model, cfg32, batch,
+                                                      mesh, impl)
+                del model
+                cfg = get_config(name, **over)
+                opt = make_optimizer(learning_rate=1e-4, warmup_steps=10,
+                                     decay_steps=1000)
                 if cuda:
-                    torch.cuda.synchronize()
-                wall_ms.append((time.perf_counter() - t) * 1e3)
-                losses.append(float(m["loss"]))
-            launches = _train_launches()
-            offset_launches = dict(fa.OFFSET_LAUNCHES)
-            peak = torch.cuda.max_memory_allocated() if cuda else None
-            want, want_off, blocks = _sp_expected(cfg, s_l, rank, impl,
-                                                  prefix)
-            # the step's gradient all-reduce alone (its flat f32 buffer,
-            # host-staged over gloo): what it takes of a step
-            flat = torch.zeros(sum(p.numel() for p in model.parameters()),
-                               device=dev)
-            t = time.perf_counter()
-            all_reduce_(flat)
-            if cuda:
-                torch.cuda.synchronize()
-            rec["allreduce_ms"] = (time.perf_counter() - t) * 1e3
-            del flat
-            rec.update(
-                losses=losses, step_wall_ms=wall_ms, blocks=blocks,
-                launches=launches, launches_expected=want,
-                offset_launches=offset_launches,
-                offset_launches_expected=want_off,
-                max_memory_allocated=peak,
-                finite=all(math.isfinite(x) for x in losses))
-            out["impls"][impl] = rec
-            del state, model, step, m
-            if cuda:
-                torch.cuda.empty_cache()
+                    torch.cuda.empty_cache()
+                    torch.cuda.reset_peak_memory_stats()
+                model = decoder.init(cfg, seed=seed, device=dev,
+                                     trainable=True)
+                vals[(impl, "bfloat16")] = _sp_grads(model, cfg, batch, mesh,
+                                                     impl)
+                state = {"params": model,
+                         "opt_state": opt.init(dict(model.named_parameters())),
+                         "step": 0}
+                step = TrainStepBuilder(cfg, opt, attn_impl=impl, device=dev,
+                                        mesh=mesh).build()
+                losses, wall_ms = [], []
+                # the steps' all-reduces (the flat f32 gradients with the
+                # loss, the mask sum; host-staged over gloo), timed inside
+                # the steps: what they take of a step
+                clock = _Clock(cuda)
+                ts.all_reduce_ = clock.wrap(all_reduce_)
+                _reset_train_launches()
+                try:
+                    for _ in range(SP_STEPS):
+                        t = time.perf_counter()
+                        state, m = step(state, batch)
+                        if cuda:
+                            torch.cuda.synchronize()
+                        wall_ms.append((time.perf_counter() - t) * 1e3)
+                        losses.append(float(m["loss"]))
+                finally:
+                    ts.all_reduce_ = all_reduce_
+                launches = _train_launches()
+                offset_launches = dict(fa.OFFSET_LAUNCHES)
+                peak = torch.cuda.max_memory_allocated() if cuda else None
+                want, want_off, blocks = _sp_expected(cfg, s_l, rank, impl,
+                                                      prefix)
+                rec.update(
+                    losses=losses, step_wall_ms=wall_ms, blocks=blocks,
+                    allreduce_ms=clock.seconds * 1e3 / SP_STEPS,
+                    launches=launches, launches_expected=want,
+                    offset_launches=offset_launches,
+                    offset_launches_expected=want_off,
+                    max_memory_allocated=peak,
+                    finite=all(math.isfinite(x) for x in losses))
+                impls[impl] = rec
+                del state, model, step, m
+                if cuda:
+                    torch.cuda.empty_cache()
+            if rank == 0:
+                torch.save(vals, run["values"])
         out["rebuilt"] = len(rebuilt)
     finally:
         shutdown_distributed()
-    if rank == 0:
-        torch.save(vals, spec["values"])
     with open(spec["out"].format(rank=rank), "w") as f:
         json.dump(out, f)
 
@@ -4604,35 +4656,56 @@ def _free_port():
         return sock.getsockname()[1]
 
 
-def sp_check(cfg_name, impls, names, seed, dev, overrides=None,
-             shape=None):
-    """The sp phases of one config: the one-process references here (then
-    freed), SP worker processes on card 0 (``sp_worker``), each gated:
-    f32 loss and first-layer gradients within SP_F32_TOL of one process's,
-    the planted fault beyond it, bf16 within SP_BF16_LOSS_TOL /
-    SP_BF16_GRAD_TOL, finite losses, every rank's launches (the offset
-    ones apart) equal to its block map's, no kernel rebuilt in a worker.
-    ``names``: the phase name of each impl. ``overrides`` (default: the
-    depth cut to SP_LAYERS) and ``shape`` (default SP_SHAPES') size a
-    rehearsal. Returns the records."""
-    overrides = dict(n_layer=SP_LAYERS) if overrides is None else overrides
-    shape = SP_SHAPES[cfg_name] if shape is None else shape
+def sp_check(configs, seed, dev, overrides=None, shapes=None):
+    """The sp phase: for each config of ``configs`` ({config: {attn_impl:
+    its phase name}}) the one-process references here (then freed), then
+    one group of SP worker processes on card 0 (``sp_worker``) that runs
+    every config in turn, each impl gated: f32 loss and first-layer
+    gradients within SP_F32_TOL of one process's, the planted fault beyond
+    it, bf16 within SP_BF16_LOSS_TOL / SP_BF16_GRAD_TOL, finite losses,
+    every rank's launches (the offset ones apart) equal to its block map's,
+    no kernel rebuilt in a worker. ``overrides`` (default: the depth cut
+    to SP_LAYERS) and ``shapes`` (default SP_SHAPES), by config, size a
+    rehearsal. Returns the records by phase name."""
+    import shutil
+    import tempfile
+
     out_dir = os.path.join("build", "chip_smoke")
     os.makedirs(out_dir, exist_ok=True)
-    ref = _sp_reference(cfg_name, overrides, shape, seed, dev,
-                        os.path.join(out_dir, f"sp_ref_{cfg_name}.pt"))
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    spec = {"config": cfg_name, "seed": seed, "impls": list(impls),
-            "device": str(dev), "overrides": overrides, "shape": shape,
+    # the workers' values (GBs of first-layer gradients) pass through
+    # memory, not the disk
+    vals_dir = tempfile.mkdtemp(prefix="chip_smoke_sp_", dir=(
+        "/dev/shm" if os.path.isdir("/dev/shm") else None))
+    try:
+        return _sp_run(configs, seed, dev, overrides, shapes, out_dir,
+                       vals_dir)
+    finally:
+        shutil.rmtree(vals_dir, ignore_errors=True)
+
+
+def _sp_run(configs, seed, dev, overrides, shapes, out_dir, vals_dir):
+    """``sp_check``'s references, workers and gates; the workers' values
+    in ``vals_dir``."""
+    runs, refs = [], {}
+    for cfg_name, names in configs.items():
+        over = ((overrides or {}).get(cfg_name)
+                or dict(n_layer=SP_LAYERS))
+        shape = (shapes or {}).get(cfg_name) or SP_SHAPES[cfg_name]
+        refs[cfg_name] = _sp_reference(cfg_name, over, shape, seed, dev)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        runs.append({"config": cfg_name, "impls": list(names),
+                     "overrides": over, "shape": list(shape),
+                     "values": os.path.join(vals_dir,
+                                            f"sp_values_{cfg_name}.pt")})
+    spec = {"seed": seed, "device": str(dev), "runs": runs,
             "port": _free_port(),
-            "values": os.path.join(out_dir, f"sp_values_{cfg_name}.pt"),
-            "out": os.path.join(out_dir, f"sp_{cfg_name}_{{rank}}.json")}
-    spec_path = os.path.join(out_dir, f"sp_spec_{cfg_name}.json")
+            "out": os.path.join(out_dir, "sp_{rank}.json")}
+    spec_path = os.path.join(out_dir, "sp_spec.json")
     with open(spec_path, "w") as f:
         json.dump(spec, f)
-    log_path = os.path.join(out_dir, f"sp_log_{cfg_name}.txt")
+    log_path = os.path.join(out_dir, "sp_log.txt")
     t0 = time.monotonic()
     with open(log_path, "w") as log:
         procs = [subprocess.Popen(
@@ -4650,71 +4723,79 @@ def sp_check(cfg_name, impls, names, seed, dev, overrides=None,
     if any(rcs):
         with open(log_path) as f:
             tail = f.read()[-6000:]
-        for name in names.values():
-            _failures.append(f"{name}: worker exit codes {rcs}\n{tail}")
-        emit({"phase": "sp_" + cfg_name, "ok": False, "exit_codes": rcs,
+        for names in configs.values():
+            for name in names.values():
+                _failures.append(f"{name}: worker exit codes {rcs}\n{tail}")
+        emit({"phase": "sp", "ok": False, "exit_codes": rcs,
               "log_tail": tail})
         return {}
     ranks = []
     for r in range(SP):
         with open(spec["out"].format(rank=r)) as f:
             ranks.append(json.load(f))
-    vals = torch.load(spec["values"], weights_only=False)
     recs = {}
-    for impl, name in names.items():
-        f32_loss, f32_grads = vals[(impl, "float32")]
-        bad_loss, bad_grads = vals[(impl, "fault")]
-        bf_loss, bf_grads = vals[(impl, "bfloat16")]
-        r32, rbf = ref["float32"], ref["bfloat16"]
-        per_rank = [x["impls"][impl] for x in ranks]
-        err = {"f32_loss": _rel(f32_loss, r32["loss"]),
-               "f32_grads": _rel(f32_grads, r32["grads"]),
-               "fault_loss": _rel(bad_loss, r32["loss"]),
-               "fault_grads": _rel(bad_grads, r32["grads"]),
-               "bf16_loss": _rel(bf_loss, rbf["loss"]),
-               "bf16_grads": _rel(bf_grads, rbf["grads"]),
-               "bf16_step1_loss": _rel(per_rank[0]["losses"][0], rbf["loss"])}
-        gates = {
-            "f32_within": max(err["f32_loss"], err["f32_grads"]) <= SP_F32_TOL,
-            "fault_caught": max(err["fault_loss"], err["fault_grads"])
-            > SP_F32_TOL,
-            "bf16_within": (err["bf16_loss"] <= SP_BF16_LOSS_TOL
-                            and err["bf16_step1_loss"] <= SP_BF16_LOSS_TOL
-                            and err["bf16_grads"] <= SP_BF16_GRAD_TOL),
-            "finite": all(x["finite"] for x in per_rank),
-            "launches_exact": all(
-                x["launches"] == x["launches_expected"]
-                and {k: v for k, v in x["offset_launches"].items()}
-                == x["offset_launches_expected"] for x in per_rank),
-            "offsets_ran": (impl != "ring" or sum(
-                sum(x["offset_launches"].values()) for x in per_rank) > 0),
-            "no_rebuild": all(x["rebuilt"] == 0 for x in ranks),
-        }
-        b, s = shape
-        rec = {"phase": name, "config": cfg_name,
-               "n_layer": overrides.get("n_layer"),
-               "attn_impl": impl, "sp": SP, "batch": b, "seq": s,
-               "backend": "gloo (host-staged), 4 ranks on cuda:0",
-               "steps": SP_STEPS, "errors": err,
-               "tolerances": {"f32": SP_F32_TOL, "bf16_loss":
-                              SP_BF16_LOSS_TOL, "bf16_grads":
-                              SP_BF16_GRAD_TOL},
-               "fault": (f"rank {per_rank[0]['fault_rank']}: "
-                         + ("its offset blocks' k_off + S_l/4"
-                            if impl == "ring" else
-                            "its heads' window/prefix + S_l/4")),
-               "ranks": [{k: x[k] for k in (
-                   "blocks", "losses", "step_wall_ms", "allreduce_ms",
-                   "fault_rank",
-                   "max_memory_allocated", "launches", "offset_launches")}
-                   for x in per_rank],
-               "group_s": [x["group_s"] for x in ranks],
-               "phase_s": seconds, "gates": gates}
-        rec["ok"] = all(gates.values())
-        emit(rec)
-        if not rec["ok"]:
-            _failures.append(f"{name}: {rec['gates']} {rec['errors']}")
-        recs[name] = rec
+    for run in runs:
+        cfg_name = run["config"]
+        vals = torch.load(run["values"], weights_only=False)
+        ref = refs[cfg_name]
+        for impl, name in configs[cfg_name].items():
+            f32_loss, f32_grads = vals[(impl, "float32")]
+            bad_loss, bad_grads = vals[(impl, "fault")]
+            bf_loss, bf_grads = vals[(impl, "bfloat16")]
+            r32, rbf = ref["float32"], ref["bfloat16"]
+            per_rank = [x["configs"][cfg_name][impl] for x in ranks]
+            err = {"f32_loss": _rel(f32_loss, r32["loss"]),
+                   "f32_grads": _rel(f32_grads, r32["grads"], dev),
+                   "fault_loss": _rel(bad_loss, r32["loss"]),
+                   "fault_grads": _rel(bad_grads, r32["grads"], dev),
+                   "bf16_loss": _rel(bf_loss, rbf["loss"]),
+                   "bf16_grads": _rel(bf_grads, rbf["grads"], dev),
+                   "bf16_step1_loss": _rel(per_rank[0]["losses"][0],
+                                           rbf["loss"])}
+            gates = {
+                "f32_within": (max(err["f32_loss"], err["f32_grads"])
+                               <= SP_F32_TOL),
+                "fault_caught": max(err["fault_loss"], err["fault_grads"])
+                > SP_F32_TOL,
+                "bf16_within": (err["bf16_loss"] <= SP_BF16_LOSS_TOL
+                                and err["bf16_step1_loss"] <= SP_BF16_LOSS_TOL
+                                and err["bf16_grads"] <= SP_BF16_GRAD_TOL),
+                "finite": all(x["finite"] for x in per_rank),
+                "launches_exact": all(
+                    x["launches"] == x["launches_expected"]
+                    and {k: v for k, v in x["offset_launches"].items()}
+                    == x["offset_launches_expected"] for x in per_rank),
+                "offsets_ran": (impl != "ring" or sum(
+                    sum(x["offset_launches"].values()) for x in per_rank)
+                    > 0),
+                "no_rebuild": all(x["rebuilt"] == 0 for x in ranks),
+            }
+            b, s = run["shape"]
+            rec = {"phase": name, "config": cfg_name,
+                   "n_layer": run["overrides"].get("n_layer"),
+                   "attn_impl": impl, "sp": SP, "batch": b, "seq": s,
+                   "backend": "gloo (host-staged), 4 ranks on cuda:0",
+                   "steps": SP_STEPS, "errors": err,
+                   "tolerances": {"f32": SP_F32_TOL, "bf16_loss":
+                                  SP_BF16_LOSS_TOL, "bf16_grads":
+                                  SP_BF16_GRAD_TOL},
+                   "fault": (f"rank {per_rank[0]['fault_rank']}: "
+                             + ("its offset blocks' k_off + S_l/4"
+                                if impl == "ring" else
+                                "its heads' window/prefix + S_l/4")),
+                   "ranks": [{k: x[k] for k in (
+                       "blocks", "losses", "step_wall_ms", "allreduce_ms",
+                       "fault_rank",
+                       "max_memory_allocated", "launches",
+                       "offset_launches")}
+                       for x in per_rank],
+                   "group_s": [x["group_s"] for x in ranks],
+                   "phase_s": seconds, "gates": gates}
+            rec["ok"] = all(gates.values())
+            emit(rec)
+            if not rec["ok"]:
+                _failures.append(f"{name}: {rec['gates']} {rec['errors']}")
+            recs[name] = rec
     return recs
 
 
@@ -6044,10 +6125,506 @@ def mesh4d_check(seed, dev, name="mesh4d", overrides=None, shapes=None):
 # ---------------------------------------------------------------------------
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the master's planning loop: the auto-scaler, driven by the
+# Brain, grows the job from one node to two, and a Brain tuning revision
+# is applied on the card at a step boundary
+# ---------------------------------------------------------------------------
+
+# 8 steps: 3 at dp 1, the job held after step 3 (staged) until it grows,
+# then 5 at dp 2, the revision applied after the first of them
+AUTOSCALE_LAYERS, AUTOSCALE_STEPS, AUTOSCALE_GROW_AT = 2, 8, 3
+AUTOSCALE_MICRO = 4          # the job's micro-batch; the revision halves it
+AUTOSCALE_TIMEOUT_S = 420
+AUTOSCALE_INTERVAL_S = 1.0   # the auto-scaler's period in the drill
+AUTOSCALE_POLL_S = 0.5       # the agents' ParalConfigTuner period
+_ELASTIC_STEP = re.compile(r"\[worker\] elastic step=(\d+) rank=(\d+) "
+                           r"world=(\d+) micro=(\d+) accum=(\d+) "
+                           r"tuning=(\d+)")
+_TUNED = re.compile(r"\[worker\] tuning v(\d+) applied before step (\d+): "
+                    r"rank=(\d+) micro=(\d+) accum=(\d+) remat=(\S+) "
+                    r"at=(\S+)")
+_SCALE_PLAN = re.compile(r"\[platform\] scale plan worker_num=(\S+) "
+                         r"launch=(\d+) at=(\S+)")
+
+
+def autoscale_agent(spec_path, node):
+    """A node of the autoscale phase (a process of its own): the port's
+    launcher, its ``ParalConfigTuner`` polling every
+    ``AUTOSCALE_POLL_S``. Node 0 starts the local master in cluster mode
+    on the spec's port, whose auto-scaler's ``ScalePlan`` reaches this
+    platform's scaler: one more agent (node 1, this function again)
+    started a worker the plan adds (the Kubernetes binding is ROADMAP
+    A24). The scaler's lines start with ``[platform]``."""
+    from dlrover_tpu_torch.agent import launcher
+    from dlrover_tpu_torch.master.node_manager import Scaler
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    nnodes = f"1:{spec['max_nodes']}"
+    master_addr = f"localhost:{spec['master_port']}"
+    flags = ["--nnodes", nnodes, "--node-id", str(node), "--nproc", "1",
+             "--max-restarts", "0", "--monitor-interval", "0.2"]
+    if node:
+        return launcher.run(launcher.parse_args(
+            flags + ["--master-addr", master_addr, "--", *spec["worker"]]),
+            config_interval_s=AUTOSCALE_POLL_S)
+
+    class GrowScaler(Scaler):
+        def __init__(self):
+            self.agents = []
+
+        def scale(self, plan):
+            print(f"[platform] scale plan worker_num={plan.worker_num} "
+                  f"launch={len(plan.launch_nodes)} at={time.time():.6f}",
+                  flush=True)
+            while (plan.worker_num is not None
+                   and 1 + len(self.agents) < plan.worker_num):
+                node = 1 + len(self.agents)
+                env = dict(os.environ,
+                           DLROVER_TPU_RUN_ID=f"{spec['run']}_n{node}",
+                           DLROVER_TPU_SOCK_DIR=os.path.join(
+                               spec["out"], f"sock{node}"),
+                           DLROVER_TPU_PARAL_CONFIG=os.path.join(
+                               spec["out"], f"paral_n{node}.json"))
+                self.agents.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--autoscale-agent", spec_path, "--rank", str(node)],
+                    env=env))
+                print(f"[platform] started node {node}'s agent "
+                      f"at={time.time():.6f}", flush=True)
+
+    scaler = GrowScaler()
+    rc = launcher.run(launcher.parse_args(
+        flags + ["--optimize-mode", "cluster", "--brain-addr", spec["brain"],
+                 "--", *spec["worker"]]), scaler=scaler,
+        master_port=spec["master_port"], config_interval_s=AUTOSCALE_POLL_S)
+    rcs = []
+    for p in scaler.agents:
+        try:
+            rcs.append(p.wait(120))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rcs.append(p.wait())
+    print("[platform] done " + json.dumps({"node0_rc": rc,
+                                           "agent_rcs": rcs}), flush=True)
+    return rc
+
+
+def autoscale_reference(cfg, seed, dev, steps, overrides=(), reverse=False):
+    """The undisturbed stream the drill is held to: one process, each
+    step's global batch (``sample_batch`` over the step's samples, as the
+    worker's ranks slice it) in micro-batches of ``AUTOSCALE_MICRO``,
+    the worker's optimizer and config (remat "full", its
+    ``overrides``); ``reverse``: in micro-batches of half that (the
+    revised size), in the reverse order (with two micro-batches a
+    reversal alone sums the same). [(loss, grad_norm)] a step."""
+    from dlrover_tpu_torch.examples import train_gpt_elastic as ex
+    from dlrover_tpu_torch.models.config import get_config
+    from dlrover_tpu_torch.train.optimizer import make_optimizer
+    from dlrover_tpu_torch.train.train_step import (
+        TrainStepBuilder,
+        init_train_state,
+    )
+
+    fields = dict(n_layer=cfg.n_layer, remat="full")
+    for item in overrides:
+        key, _, value = item.partition("=")
+        fields[key] = json.loads(value)
+    cfg = get_config(cfg.name, max_seq=TRAIN_SEQ, **fields)
+    opt = make_optimizer(learning_rate=ex.LR, warmup_steps=ex.WARMUP,
+                         decay_steps=ex.DECAY)
+    state = init_train_state(seed, cfg, opt, device=dev)
+    micro = AUTOSCALE_MICRO // 2 if reverse else AUTOSCALE_MICRO
+    accum = TRAIN_BATCH // micro
+    step = TrainStepBuilder(cfg, opt, grad_accum=accum, device=dev).build()
+    out = []
+    for s in range(1, steps + 1):
+        lo = (s - 1) * TRAIN_BATCH
+        batch = ex.sample_batch(seed, range(lo, lo + TRAIN_BATCH), TRAIN_SEQ,
+                                cfg.vocab_size)
+        if reverse:
+            batch = {k: v.reshape((accum, micro) + v.shape[1:])
+                     [::-1].reshape(v.shape) for k, v in batch.items()}
+        state, m = step(state, batch)
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    del state, step
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _autoscale_wait(lines, pattern, deadline, proc):
+    """The first match of ``pattern`` among ``lines`` (a list another
+    thread appends (time, line) to), or None at the deadline or once
+    ``proc`` has exited without it."""
+    seen = 0
+    while time.monotonic() < deadline:
+        while seen < len(lines):
+            m = pattern.search(lines[seen][1])
+            seen += 1
+            if m:
+                return m
+        if proc.poll() is not None and seen >= len(lines):
+            return None
+        time.sleep(0.05)
+    return None
+
+
+def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
+                    train_peak_bytes=None):
+    """The master's planning loop on the card. A Brain process (``python
+    -m dlrover_tpu_torch.cluster.brain``); node 0: the port's launcher
+    with its local master in cluster mode (``--nnodes 1:2
+    --optimize-mode cluster --brain-addr``: ``JobAutoScaler`` over a
+    ``BrainClient``) and, acting as the platform, a scaler that starts
+    one more agent a worker a ``ScalePlan`` adds (``autoscale_agent``).
+    The worker: the elastic example's ``--micro-batch`` loop
+    (``ElasticTrainer``, the replicated step, every rank on card 0 over
+    gloo), llama-1.4b at full width, ``AUTOSCALE_LAYERS`` layers,
+    remat "full", the global batch ``TRAIN_BATCH`` × ``TRAIN_SEQ`` at
+    every world size; after step ``AUTOSCALE_GROW_AT`` (staged to memory;
+    the checkpoints on /dev/shm) it holds until the world grows. The
+    Brain plans 2 from the job's speed, the auto-scaler clamps it to
+    [1, 2], the scaler starts node 1's agent, node 0's agent persists
+    the staged step and both restart into dp 2 (the accumulation
+    re-derived). After the first dp-2 step this process plays the
+    failure classifier: a ``BrainTuner`` held on the job's plan (remat
+    "full", micro-batch ``AUTOSCALE_MICRO``) is given a planted OOM
+    (``on_failure("oom")``: the drill tests the loop, not an OOM); the
+    revision (the micro-batch halved) is versioned by the master's
+    ``plan_tuning`` (``brain.master_report``), the agents'
+    ``ParalConfigTuner`` write it, and each worker rebuilds its step
+    once at a step boundary (``ElasticTrainer.apply_tuning``). Every
+    step's loss and grad norm are held to ``autoscale_reference`` (one
+    process, the same global batches) within the reshard phase's
+    tolerances; ``order_spread`` reads the reference against itself at
+    the revised micro-batch, its micro-batches reversed. ``device``, ``overrides`` serve a rehearsal
+    on the CPU at a cut size."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.cluster.brain import (
+        BrainTuner,
+        TuningPlan,
+        estimate_hbm_bytes,
+        master_report,
+    )
+    from dlrover_tpu_torch.common.multi_process import (
+        attach_shared_memory,
+        unlink_shared_memory,
+    )
+    from dlrover_tpu_torch.examples.train_gpt_elastic import launches
+    from dlrover_tpu_torch.models.config import get_config
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    log_dir = os.path.join(here, "build", "chip_smoke")
+    os.makedirs(log_dir, exist_ok=True)
+    out = tempfile.mkdtemp(prefix="dlrover_autoscale_")
+    shm_dir = "/dev/shm" if os.path.isdir("/dev/shm") else None
+    ckpt_dir = tempfile.mkdtemp(prefix="dlrover_autoscale_ckpt_",
+                                dir=shm_dir)
+    run = f"chip_smoke_autoscale_{os.getpid()}"
+    trace_dir = os.path.join(out, "trace")
+    os.makedirs(trace_dir)
+    env = dict(os.environ, DLROVER_TPU_COORDINATOR_PORT="0",
+               DLROVER_TPU_TRACE_DIR=trace_dir, TMPDIR=out,
+               DLROVER_TPU_CTX_AUTOSCALE_INTERVAL_S=str(AUTOSCALE_INTERVAL_S),
+               DLROVER_TPU_CTX_RDZV_WAIT_EXTRA_NODES_S="1",
+               DLROVER_TPU_RUN_ID=f"{run}_n0",
+               DLROVER_TPU_SOCK_DIR=os.path.join(out, "sock0"),
+               DLROVER_TPU_PARAL_CONFIG=os.path.join(out, "paral_n0.json"))
+    env.pop("DLROVER_TPU_MASTER_ADDR", None)
+    worker = [sys.executable, "-m",
+              "dlrover_tpu_torch.examples.train_gpt_elastic", "--model",
+              cfg.name, "--override", f"n_layer={cfg.n_layer}",
+              "--override", 'remat="full"', "--steps", str(AUTOSCALE_STEPS),
+              "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+              "--seed", str(seed), "--ckpt-dir", ckpt_dir, "--ckpt-every",
+              str(AUTOSCALE_GROW_AT), "--micro-batch",
+              str(AUTOSCALE_MICRO), "--grow-at", str(AUTOSCALE_GROW_AT),
+              "--one-card", "--device", device]
+    for item in overrides:
+        worker += ["--override", item]
+    spec_path = os.path.join(out, "spec.json")
+    with open(spec_path, "w") as f:
+        json.dump({"worker": worker, "max_nodes": 2, "run": run, "out": out,
+                   "brain": "", "master_port": _free_port()}, f)
+    full = get_config(cfg.name, max_seq=TRAIN_SEQ)
+    rec = {"phase": name, "config": cfg.name, "n_layer": cfg.n_layer,
+           "remat": "full", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": AUTOSCALE_STEPS, "grow_at": AUTOSCALE_GROW_AT,
+           "micro": AUTOSCALE_MICRO, "nodes": "1:2",
+           "autoscale_interval_s": AUTOSCALE_INTERVAL_S,
+           "config_poll_s": AUTOSCALE_POLL_S, "card": nvidia_smi_line(),
+           # the cold-start planner's memory model against the full-depth
+           # train phase's measured peak (remat "none", b8 x s1024)
+           "hbm_estimate": {
+               "config": full.name, "n_layer": full.n_layer, "batch": 8,
+               "seq": TRAIN_SEQ, "remat": "none",
+               "estimate_bytes": estimate_hbm_bytes(full, 8, TRAIN_SEQ,
+                                                    "none"),
+               "estimate_bytes_f32_state": estimate_hbm_bytes(
+                   full, 8, TRAIN_SEQ, "none", state_dtype="float32"),
+               "train_phase_peak_bytes": train_peak_bytes}}
+    lines, procs, files = [], [], []
+
+    def pump(stream, f):
+        for line in stream:
+            lines.append((time.time(), line))
+            f.write(line)
+            f.flush()
+
+    log_path = os.path.join(log_dir, f"{name}_log.txt")
+    brain_log = os.path.join(log_dir, f"{name}_brain.txt")
+    t0 = time.perf_counter()
+    deadline = time.monotonic() + AUTOSCALE_TIMEOUT_S
+    client = None
+    try:
+        f = open(brain_log, "w")
+        files.append(f)
+        brain = subprocess.Popen(
+            ["timeout", "-k", "10", str(AUTOSCALE_TIMEOUT_S + 30),
+             sys.executable, "-m", "dlrover_tpu_torch.cluster.brain",
+             "--port", str(_free_port())], cwd=here,
+            stdout=subprocess.PIPE, stderr=f, text=True, env=env)
+        procs.append(brain)
+        brain_addr = brain.stdout.readline().strip().split("=", 1)[-1]
+        rec["brain_addr"] = brain_addr
+        with open(spec_path) as g:
+            spec = json.load(g)
+        spec["brain"] = brain_addr
+        with open(spec_path, "w") as g:
+            json.dump(spec, g)
+        f = open(log_path, "w")
+        files.append(f)
+        agent = subprocess.Popen(
+            ["timeout", "-k", "10", str(AUTOSCALE_TIMEOUT_S), sys.executable,
+             os.path.abspath(__file__), "--autoscale-agent", spec_path],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True, env=env)
+        procs.append(agent)
+        reader = threading.Thread(target=pump, args=(agent.stdout, f),
+                                  daemon=True)
+        reader.start()
+        master = _autoscale_wait(
+            lines, re.compile(r"local master started at (\S+)"), deadline,
+            agent)
+        grown = _autoscale_wait(
+            lines, re.compile(r"\[worker\] elastic step=\d+ rank=0 world=2 "),
+            deadline, agent)
+        if master is not None and grown is not None:
+            # the failure classifier's verdict, planted
+            client = MasterClient(master.group(1), node_id=0)
+            tuner = BrainTuner(TuningPlan(version=0, remat="full",
+                                          batch_size=AUTOSCALE_MICRO),
+                               report=master_report(client), cooldown_s=0.0)
+            rec["revision_at"] = time.time()
+            rev = tuner.on_failure("oom", "planted by the drill")
+            rec["revision"] = {"version": rev.version, "knob": rev.knob,
+                               "batch_size": rev.batch_size,
+                               "reason": rev.reason}
+            rec["master_tuning_version"] = client.get_tuning().version
+        try:
+            agent.wait(max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            agent.kill()
+            agent.wait()
+        reader.join(30)
+        rec["seconds"] = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(10)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait()
+        for f in files:
+            f.close()
+        leftovers = [f for f in os.listdir("/dev/shm") if run in f] if (
+            shm_dir) else []
+        for f in leftovers:
+            unlink_shared_memory(attach_shared_memory(f))
+        rec["left_behind"] = leftovers
+        try:
+            evs = _trace_events(trace_dir)
+        except OSError:
+            evs = {}
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log = "".join(line for _, line in lines)
+    steps = _rank_steps(log)
+    shape = {}
+    for m in _ELASTIC_STEP.finditer(log):
+        shape.setdefault(int(m.group(1)), {})[int(m.group(2))] = tuple(
+            int(m.group(i)) for i in range(3, 7))
+    tuned = [dict(zip(("version", "step", "rank", "micro", "accum"),
+                      map(int, m.groups()[:5])), remat=m.group(6),
+                  at=float(m.group(7))) for m in _TUNED.finditer(log)]
+    plans = [{"worker_num": None if m.group(1) == "None" else int(m.group(1)),
+              "launch": int(m.group(2)), "at": float(m.group(3))}
+             for m in _SCALE_PLAN.finditer(log)]
+    brain_plans = [int(x) for x in re.findall(
+        r"auto-scale: plan wants (\d+) workers", log)]
+    scaled = [(int(a), int(b)) for a, b in re.findall(
+        r"auto-scale: (\d+) → (\d+) workers", log)]
+    done = re.search(r"\[platform\] done (\{.*\})", log)
+    done = json.loads(done.group(1)) if done else {}
+    spans = [sum(1 for e in p if e["name"] == "brain.tuning_replan")
+             for p in evs.get("worker", [])]
+    dev = torch.device(device)
+    ref = autoscale_reference(cfg, seed, dev, AUTOSCALE_STEPS, overrides)
+    reverse = autoscale_reference(cfg, seed, dev, AUTOSCALE_STEPS, overrides,
+                                  reverse=True)
+    grow, micro = AUTOSCALE_GROW_AT, AUTOSCALE_MICRO
+    accum1 = TRAIN_BATCH // micro
+    accum2 = -(-TRAIN_BATCH // (micro * 2))
+    accum3 = -(-TRAIN_BATCH // (micro // 2 * 2))
+    rank0 = {s: v[0]["at"] for s, v in steps.items() if 0 in v}
+    first2 = min((s for s, v in shape.items() if v.get(0, (0,))[0] == 2),
+                 default=None)
+    new_batch = min((s for s, v in shape.items()
+                     if v.get(0, (0, 0))[1] == micro // 2), default=None)
+
+    def gaps(lo, hi):
+        return sorted(rank0[s] - rank0[s - 1] for s in range(lo, hi + 1)
+                      if s in rank0 and s - 1 in rank0)
+
+    kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "norm_fwd",
+               "norm_bwd")
+    rec.update({
+        "scale_plans": plans, "platform": done,
+        # what the Brain planned: every plan the auto-scaler executed
+        # (the job's count → the clamped target), and the Brain's own
+        # target where the clamp to [1, 2] moved it
+        "scaled": scaled, "brain_plans_clamped": brain_plans,
+        "shape": {s: {r: list(x) for r, x in v.items()}
+                  for s, v in shape.items()},
+        "tuned": tuned, "tuning_replan_spans": spans,
+        "losses": {s: {r: x["loss"] for r, x in v.items()}
+                   for s, v in steps.items()},
+        "reference": ref, "errors": _stream_errors(steps, ref),
+        "order_spread": _stream_errors(
+            {s: {0: {"loss": x, "grad_norm": n}}
+             for s, (x, n) in enumerate(reverse, 1)}, ref),
+        "tolerances": {"loss": RESHARD_RTOL_LOSS,
+                       "grad_norm": RESHARD_RTOL_NORM},
+        "plan_to_first_dp2_s": (rank0[first2] - plans[0]["at"]
+                                if plans and first2 in rank0 else None),
+        "revision_to_new_batch_s": (
+            rank0[new_batch] - rec["revision_at"]
+            if new_batch in rank0 and "revision_at" in rec else None),
+        "step_s_dp1": gaps(2, grow),
+        "step_s_dp2": gaps(grow + 2, (new_batch or grow + 1) - 1),
+        "step_s_dp2_tuned": gaps((new_batch or AUTOSCALE_STEPS) + 1,
+                                 AUTOSCALE_STEPS),
+        "launches": {k: sum(r["launches"].get(k, 0) for v in steps.values()
+                            for r in v.values()) for k in launches()}})
+    want_shape = {
+        s: ({0: (1, micro, accum1, 0)} if s <= grow else
+            {r: ((2, micro, accum2, 0) if new_batch is None or s < new_batch
+                 else (2, micro // 2, accum3, rec.get("revision", {}).get(
+                     "version", -1))) for r in (0, 1)})
+        for s in range(1, AUTOSCALE_STEPS + 1)}
+    rec["checks"] = checks = {
+        "launchers_rc_0": done.get("node0_rc") == 0
+        and done.get("agent_rcs") == [0],
+        "plan_target_2": bool(plans) and plans[0]["worker_num"] == 2
+        and scaled[:1] == [(1, 2)],
+        "second_worker_joined": first2 == grow + 1,
+        "accum_rederived": {s: {r: tuple(x) for r, x in v.items()}
+                            for s, v in shape.items()} == want_shape
+        and new_batch is not None and new_batch > first2,
+        "one_rebuild_per_worker": sorted(spans) == [0, 1, 1]
+        and sorted(t["rank"] for t in tuned) == [0, 1]
+        and len({(t["step"], t["version"]) for t in tuned}) == 1,
+        "tuning_version_is_masters": bool(tuned) and all(
+            t["version"] == rec.get("master_tuning_version")
+            == rec["revision"]["version"] for t in tuned),
+        "losses_match": sorted(steps) == list(
+            range(1, AUTOSCALE_STEPS + 1)) and rec["errors"]["within"],
+        "kernels_ran": all(
+            all(r["launches"].get(k, 0) > 0 for k in kernels)
+            for v in steps.values() for r in v.values()),
+        "nothing_left_behind": rec["left_behind"] == [],
+    }
+    rec["ok"] = all(checks.values())
+    emit(rec)
+    if not rec["ok"]:
+        _failures.append(f"{name}: {[k for k, v in checks.items() if not v]}")
+    return rec
+
+
+# what the phases' processes import that the smoke run itself does not
+# (the example worker, the agent, the master, the Brain, and what
+# non-reentrant ``torch.utils.checkpoint`` imports at its first call)
+PREWARM = (
+    "import torch, torch.distributed; "
+    "from torch.utils.checkpoint import checkpoint; "
+    "x = torch.ones(2, requires_grad=True); "
+    "checkpoint(torch.sin, x, use_reentrant=False).sum().backward(); "
+    "import dlrover_tpu_torch.examples.train_gpt_elastic, "
+    "dlrover_tpu_torch.agent.launcher, dlrover_tpu_torch.checkpoint.saver, "
+    "dlrover_tpu_torch.master.main, dlrover_tpu_torch.cluster.brain")
+
+
+def startup_probe() -> dict:
+    """What a fresh process on this machine pays before its first step:
+    ``import torch`` three times under each bytecode setting (as the
+    interpreter comes: ``plain``; a cache prefix it may not write:
+    ``prefix``; a prefix it writes: ``prefix_write``), the first CUDA use
+    (one process, four at once), the port's entry modules, and
+    ``torch._dynamo`` (what non-reentrant ``torch.utils.checkpoint``
+    imports at its first call). Seconds a child process."""
+    import glob
+
+    base = {k: v for k, v in os.environ.items()
+            if k not in ("PYTHONPYCACHEPREFIX", "PYTHONDONTWRITEBYTECODE")}
+    prefix = os.path.abspath(os.path.join("build", "pycache_probe"))
+    envs = {"plain": dict(base, **_STARTED_ENV),
+            "prefix": dict(base, PYTHONPYCACHEPREFIX=prefix,
+                           **_STARTED_ENV),
+            "prefix_write": dict(base, PYTHONPYCACHEPREFIX=prefix + "_w")}
+
+    def secs(code, env="prefix_write", n=1):
+        t = time.monotonic()
+        ps = [subprocess.Popen([sys.executable, "-c", code], env=envs[env])
+              for _ in range(n)]
+        ok = all(p.wait() == 0 for p in ps)
+        return time.monotonic() - t if ok else None
+
+    cuda = "import torch; torch.zeros(1, device='cuda'); torch.cuda.synchronize()"
+    rec = {"phase": "startup_probe", "started_env": _STARTED_ENV,
+           "site_pyc": len(glob.glob(os.path.join(
+               os.path.dirname(torch.__file__), "__pycache__", "*.pyc")))}
+    for env in envs:
+        rec[f"torch_{env}"] = [secs("import torch", env) for _ in range(3)]
+    rec["cuda_init"] = secs(cuda)
+    rec["cuda_init_x4"] = secs(cuda, n=4)
+    for env in ("plain", "prefix_write"):
+        for key, mod in (("launcher", "dlrover_tpu_torch.agent.launcher, "
+                          "dlrover_tpu_torch.checkpoint.saver"),
+                         ("example",
+                          "dlrover_tpu_torch.examples.train_gpt_elastic"),
+                         ("dynamo", "torch, torch._dynamo")):
+            rec[f"{key}_{env}"] = [secs(f"import {mod}", env)
+                                   for _ in range(2)]
+    rec["master"] = secs("import dlrover_tpu_torch.master.master")
+    return rec
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--zero-fault-worker"]:  # a rank of the fault run
         return zero_fault_worker(argv[1:])
+    if argv[:1] == ["--startup-probe"]:  # not part of the smoke run
+        emit(startup_probe())
+        return 0
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sp-worker", default=None,
@@ -6058,6 +6635,9 @@ def main(argv=None) -> int:
                     help="run one rank of the hybrid_zero phase (internal)")
     ap.add_argument("--mesh4d-worker", default=None,
                     help="run one rank of the mesh4d phase (internal)")
+    ap.add_argument("--autoscale-agent", default=None,
+                    help="run a node of the autoscale phase, --rank its "
+                    "node id (internal)")
     ap.add_argument("--rank", type=int, default=0)
     args = ap.parse_args(argv)
     if args.sp_worker:  # on the device its spec names
@@ -6072,6 +6652,8 @@ def main(argv=None) -> int:
     if args.mesh4d_worker:
         mesh4d_worker(args.mesh4d_worker, args.rank)
         return 0
+    if args.autoscale_agent:
+        return autoscale_agent(args.autoscale_agent, args.rank)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -6089,10 +6671,21 @@ def main(argv=None) -> int:
     emit({"phase": "device", "kind": kind, "count": count,
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
+    # the library check needs none of the kernels: it runs on the card
+    # while nvcc compiles them (the build's seconds hold it); meanwhile a
+    # child process writes the bytecode of what the later phases'
+    # processes import and this one does not
+    warm = subprocess.Popen([sys.executable, "-c", PREWARM],
+                            stdout=subprocess.DEVNULL,
+                            stderr=subprocess.DEVNULL)
     with phase("build"):
-        build_all()
-    with phase("library"):
-        library_check(args.seed, dev)
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            built = ex.submit(build_all)
+            with phase("library"):
+                library_check(args.seed, dev)
+            built.result()
+    emit({"phase": "bytecode", "prewarm_rc": warm.wait(),
+          "cache": sys.pycache_prefix})
     if _failures:
         print("\n".join(_failures), file=sys.stderr)
         return 1
@@ -6170,6 +6763,7 @@ def main(argv=None) -> int:
     # and gpt2-1.5b (packed flash kernels, layernorm with bias), each at
     # full width and depth; their launches, read right after each run
     train_launches = {}
+    train_peak = {}
     for name, cfg_name in (("train", "llama-1.4b"), ("train_gpt2",
                                                      "gpt2-1.5b")):
         state = None
@@ -6178,6 +6772,7 @@ def main(argv=None) -> int:
             state, step, batch, rec, opt = train_run(cfg, args.seed, dev,
                                                      name)
             train_launches[name] = rec["launches"]
+            train_peak[name] = rec["max_memory_allocated"]
         if state is not None:
             with phase(name + "_profile"):
                 train_profile(state, step, batch, cfg, opt,
@@ -6232,13 +6827,10 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     sp_recs = {}
-    with phase("sp_mistral"):
-        sp_recs.update(sp_check("mistral-7b", ("ring", "auto"),
-                                {"ring": "ring", "auto": "ulysses"},
-                                args.seed, dev))
-    with phase("sp_glm"):
-        sp_recs.update(sp_check("glm-10b", ("ring",), {"ring": "ring_glm"},
-                                args.seed, dev))
+    with phase("sp"):  # one group of four workers runs both configs
+        sp_recs.update(sp_check(
+            {"mistral-7b": {"ring": "ring", "auto": "ulysses"},
+             "glm-10b": {"ring": "ring_glm"}}, args.seed, dev))
     # fsdp x tp (fsdp 2, tp 2: four ranks on this card over gloo),
     # llama-1.4b at full width
     gc.collect()
@@ -6264,6 +6856,17 @@ def main(argv=None) -> int:
         rec = mesh4d_check(args.seed, dev)
         train_launches["mesh4d"] = rec["launches"]
         offset_launches.update(rec["offset_launches"])
+    # the master's planning loop: the Brain and the auto-scaler grow a
+    # llama-1.4b job from one node to two on this card, and a Brain
+    # tuning revision is applied at a step boundary
+    gc.collect()
+    torch.cuda.empty_cache()
+    with phase("autoscale"):
+        rec = autoscale_check(get_config("llama-1.4b",
+                                         n_layer=AUTOSCALE_LAYERS),
+                              args.seed, train_peak_bytes=train_peak.get(
+                                  "train"))
+        train_launches["autoscale"] = rec["launches"]
     for name, rec in sp_recs.items():
         for r, x in enumerate(rec["ranks"]):
             train_launches[f"{name}_rank{r}"] = x["launches"]

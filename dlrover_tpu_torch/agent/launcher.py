@@ -21,8 +21,7 @@ Usage:
         --max-restarts 1 -- python -m \
         dlrover_tpu_torch.examples.train_gpt_elastic --steps 10
 
-``--network-check`` and ``--comm-perf-test`` wait for ROADMAP A20, and
-the dataloader config tuner of the JAX launcher with them.
+``--network-check`` and ``--comm-perf-test`` wait for ROADMAP A20.
 """
 
 import argparse
@@ -35,6 +34,7 @@ from dlrover_tpu_torch.agent.agent import (
     ElasticLaunchConfig,
     ElasticTrainingAgent,
 )
+from dlrover_tpu_torch.agent.config_tuner import ParalConfigTuner
 from dlrover_tpu_torch.agent.master_client import MasterClient
 from dlrover_tpu_torch.agent.monitor import ResourceMonitor, peak_rss_bytes
 from dlrover_tpu_torch.common.constants import GraftEnv
@@ -72,6 +72,18 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         help="the all-reduce bandwidth sweep (not ported yet: ROADMAP A20)",
     )
     p.add_argument("--node-unit", type=int, default=1)
+    p.add_argument(
+        "--optimize-mode",
+        default="single-job",
+        choices=["single-job", "cluster"],
+        help="the local master's auto-scaler plans from its own heuristic "
+        "(single-job) or from a shared Brain (cluster)",
+    )
+    p.add_argument(
+        "--brain-addr",
+        default="",
+        help="host:port of the Brain service (optimize-mode=cluster)",
+    )
     p.add_argument("--monitor-interval", type=float, default=2.0)
     p.add_argument("entrypoint", nargs=argparse.REMAINDER)
     args = p.parse_args(argv)
@@ -95,16 +107,21 @@ def _detect_local_chips() -> int:
     return torch.cuda.device_count() or 1
 
 
-def _launch_local_master(num_workers: int, max_workers: int, node_unit: int):
+def _launch_local_master(num_workers: int, max_workers: int, node_unit: int,
+                         optimize_mode: str = "single-job",
+                         brain_addr: str = "", scaler=None, port: int = 0):
     """Spin an in-process LocalJobMaster (reference: :237); returns it and
     the thread of its supervision loop."""
     from dlrover_tpu_torch.master.master import LocalJobMaster
 
     master = LocalJobMaster(
-        port=0,
+        port=port,
         num_workers=num_workers,
         max_workers=max_workers,
         node_unit=node_unit,
+        scaler=scaler,
+        optimize_mode=optimize_mode,
+        brain_addr=brain_addr,
     )
     master.prepare()
     thread = threading.Thread(
@@ -123,7 +140,12 @@ def _stop_local_master(master, thread, timeout_s: float = 30.0) -> None:
     thread.join(timeout_s)
 
 
-def run(args: argparse.Namespace) -> int:
+def run(args: argparse.Namespace, scaler=None, master_port: int = 0,
+        config_interval_s: float = 30.0) -> int:
+    """Run this node's agent. Without ``--master-addr`` it starts a local
+    master on ``master_port`` (0: any free port) whose auto-scaler hands
+    its plans to ``scaler`` (a ``NoopScaler`` when None);
+    ``config_interval_s`` is the ``ParalConfigTuner``'s poll period."""
     if args.network_check or args.comm_perf_test:
         raise NotImplementedError(
             "--network-check and --comm-perf-test (agent/node_check.py) "
@@ -164,21 +186,24 @@ def run(args: argparse.Namespace) -> int:
         if min_nodes > 1:
             logger.error("multi-node runs need --master-addr")
             return 2
-        master, master_thread = _launch_local_master(min_nodes, max_nodes,
-                                                     args.node_unit)
+        master, master_thread = _launch_local_master(
+            min_nodes, max_nodes, args.node_unit, args.optimize_mode,
+            args.brain_addr, scaler, master_port)
         master_addr = master.addr
         # one node: its workers' store is on this host
         os.environ.setdefault("DLROVER_TPU_HOST_ADDR", "localhost")
 
     from dlrover_tpu_torch.checkpoint.saver import AsyncCheckpointSaver
 
-    saver = monitor = None
+    saver = monitor = tuner = None
     rc = 1
     try:
         client = MasterClient(master_addr, node_id=node_id)
         client.register_node(local_chips=config.local_chips)
         monitor = ResourceMonitor(client)
         monitor.start()
+        tuner = ParalConfigTuner(client, interval_s=config_interval_s)
+        tuner.start()
         agent = ElasticTrainingAgent(config, client)
         saver = AsyncCheckpointSaver.start_async_saving_ckpt(
             config.local_chips, master_client=client)
@@ -188,6 +213,8 @@ def run(args: argparse.Namespace) -> int:
     finally:
         if monitor is not None:
             monitor.stop()
+        if tuner is not None:
+            tuner.stop()
         if saver is not None:
             saver.close(unlink=rc != 2)
         if master is not None:

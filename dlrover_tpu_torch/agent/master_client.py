@@ -5,11 +5,14 @@ Port of ``dlrover_tpu/agent/master_client.py`` (``MasterClient``,
 registration, heartbeats (and the actions they bring back), status,
 restart and failure reports, resource stats, the rendezvous, the KV
 store and sync barriers, the global step, checkpoint steps, model info,
-the data-shard service and the live-reshard
-directive (an eviction notice, the plan). The serving, tuning, PS and
-network-check calls wait for their ROADMAP items (A15, A20, A18);
-the master answers them with an error naming the item, which the
-transport raises as ``NotImplementedError``.
+the data-shard service, the live-reshard
+directive (an eviction notice, the plan), the Brain's tuning directives
+(``report_tuning_plan``, ``get_tuning``), the parallel config the
+agent's ``ParalConfigTuner`` polls (``get_parallel_config``) and the
+sparse tier's versions (``bump_ps_version``, ``report_ps_node_version``,
+``get_ps_version``). The serving and network-check calls wait for their
+ROADMAP items (A15, A20); the master answers them with an error naming
+the item, which the transport raises as ``NotImplementedError``.
 """
 
 import os
@@ -352,6 +355,57 @@ class MasterClient:
     def get_min_ckpt_step(self) -> int:
         resp = self._t.get(msgs.CheckpointStepRequest())
         return resp.step if resp else 0
+
+    # ---- Brain tuning and runtime config ----------------------------------
+
+    def report_tuning_plan(
+        self, plan_json: str, signal: str = "", reason: str = ""
+    ) -> bool:
+        """Announce one Brain tuning plan or revision; the master
+        versions it as a tuning directive (``get_tuning`` and the
+        ``ParallelConfig`` poll both serve it)."""
+        return self._t.report(
+            msgs.TuningPlanNotice(
+                node_id=self.node_id,
+                plan_json=plan_json,
+                signal=signal,
+                reason=reason,
+            )
+        )
+
+    def get_tuning(self) -> msgs.TuningPlanDirective:
+        resp = self._t.get(msgs.TuningPlanRequest(node_id=self.node_id))
+        return resp if resp else msgs.TuningPlanDirective()
+
+    def get_parallel_config(self) -> msgs.ParallelConfig:
+        resp = self._t.get(msgs.ParallelConfigRequest(node_id=self.node_id))
+        return resp or msgs.ParallelConfig()
+
+    def bump_ps_version(self) -> bool:
+        """Announce a sparse-tier membership change (reference:
+        elastic_ps.py update cluster version)."""
+        return self._t.report(
+            msgs.PsVersionReport(node_id=self.node_id, version_type="global")
+        )
+
+    def report_ps_node_version(self, version: int) -> bool:
+        return self._t.report(
+            msgs.PsVersionReport(
+                node_id=self.node_id,
+                version_type="node",
+                version=version,
+            )
+        )
+
+    def get_ps_version(
+        self, version_type: str = "global"
+    ) -> msgs.PsVersionResponse:
+        resp = self._t.get(
+            msgs.PsVersionRequest(
+                node_id=self.node_id, version_type=version_type
+            )
+        )
+        return resp or msgs.PsVersionResponse()
 
     def close(self):
         self._t.close()

@@ -16,6 +16,7 @@ class NodeType:
     WORKER = "worker"          # a host driving its local GPUs
     CHIEF = "chief"            # rank-0 coordination anchor
     EVALUATOR = "evaluator"    # side-car eval host, outside the train mesh
+    PS = "ps"                  # sparse-tier server host (elastic_ps.py)
 
 
 class NodeStatus:
@@ -96,6 +97,8 @@ class DefaultValues:
     COORDINATOR_PORT = 7010
     SHARD_TIMEOUT_S = 1800.0         # re-queue a dispatched shard after this
     HANG_KICK_COOLDOWN_S = 600.0     # min gap between job-wide hang kicks
+    AUTOSCALE_INTERVAL_S = 60.0      # the auto-scaler's period
+    SECONDS_TO_WAIT_PENDING_POD = 900
 
 
 class TaskType:

@@ -29,6 +29,7 @@ class Context:
         self.straggler_ratio = DefaultValues.STRAGGLER_RATIO
         self.shard_timeout_s = DefaultValues.SHARD_TIMEOUT_S
         self.hang_kick_cooldown_s = DefaultValues.HANG_KICK_COOLDOWN_S
+        self.autoscale_interval_s = DefaultValues.AUTOSCALE_INTERVAL_S
         self._load_env_overrides()
 
     def _load_env_overrides(self):

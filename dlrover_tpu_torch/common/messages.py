@@ -8,7 +8,9 @@ messages both packages send; the port registers the messages its
 control plane sends (node lifecycle, rendezvous, the KV store and sync
 barriers, the global step, checkpoint steps, model info, the data-shard
 service, the live-reshard directive, the agent monitor's resource
-stats and the telemetry records a worker forwards).
+stats, the telemetry records a worker forwards, the parallel-config and
+tuning directives, the sparse tier's versions and the Brain service's
+three calls).
 
 One field is the port's own: ``JoinRendezvousRequest.coordinator_port``
 (the port of the torch.distributed store the joining agent picked). A
@@ -458,3 +460,123 @@ class DatasetEpochRequest:
 @message
 class DatasetEpochResponse:
     epoch: int = 0
+
+
+# ---------------------------------------------------------------------------
+# Runtime re-config (reference: paral_config_tuner.py) and Brain tuning
+# ---------------------------------------------------------------------------
+
+
+@message
+class ParallelConfig:
+    # dataloader
+    batch_size: int = 0
+    num_workers: int = 0
+    # grad accumulation (elastic trainer keeps global batch fixed)
+    grad_accum_steps: int = 1
+    version: int = 0
+    # the Brain tuning directive riding the same poll
+    # (cluster/brain.py): the latest TuningPlan as its asdict JSON, with
+    # its own version so a dataloader re-config and a tuning revision
+    # don't mask each other ("" / 0 = no tuning directive pending)
+    tuning_json: str = ""
+    tuning_version: int = 0
+
+
+@message
+class ParallelConfigRequest:
+    node_id: int = 0
+
+
+@message
+class TuningPlanNotice:
+    """A Brain tuner announces one cold-start plan or revision so the
+    master can version it."""
+
+    node_id: int = 0
+    plan_json: str = ""          # TuningPlan asdict JSON
+    signal: str = ""             # telemetry signal that drove it
+    reason: str = ""
+
+
+@message
+class TuningPlanRequest:
+    node_id: int = 0
+
+
+@message
+class TuningPlanDirective:
+    """The master's tuning directive (0 = none pending)."""
+
+    version: int = 0
+    plan_json: str = ""
+    reason: str = ""
+
+
+# ---------------------------------------------------------------------------
+# Sparse-tier (PS) cluster versioning (reference: elastic_ps.py)
+# ---------------------------------------------------------------------------
+
+
+@message
+class PsVersionReport:
+    """Bump (global) or set (node) a sparse cluster version."""
+
+    node_id: int = 0
+    version_type: str = "global"   # global | node
+    version: int = 0               # node type: the version to record
+
+
+@message
+class PsVersionRequest:
+    node_id: int = 0
+    version_type: str = "global"
+
+
+@message
+class PsVersionResponse:
+    version: int = 0
+    servers: List[str] = field(default_factory=list)
+    # Brain hot-shard rebalance weights (ElasticPsService.set_weights)
+    weights: Dict[str, float] = field(default_factory=dict)
+
+
+# ---------------------------------------------------------------------------
+# Brain service (reference: dlrover/proto/brain.proto:196-199 —
+# persist_metrics / optimize / get_job_metrics as a standalone
+# cluster-level service shared across jobs)
+# ---------------------------------------------------------------------------
+
+
+@message
+class BrainPersistMetricsRequest:
+    """One JobMetrics observation, as its asdict JSON."""
+
+    metrics_json: str = ""
+
+
+@message
+class BrainOptimizeRequest:
+    """Ask the Brain for a ResourcePlan for one job's stage."""
+
+    job_name: str = ""
+    job_kind: str = ""
+    stage: str = "running"        # create | running
+    stats_json: str = "{}"
+
+
+@message
+class BrainOptimizeResponse:
+    plan_json: str = ""           # ResourcePlan asdict JSON
+    error: str = ""
+
+
+@message
+class BrainJobMetricsRequest:
+    job_name: str = ""
+
+
+@message
+class BrainJobMetricsResponse:
+    rows_json: str = "[]"         # list of JobMetrics asdict JSON
+    error: str = ""

@@ -8,7 +8,7 @@ spawns one worker process a local GPU.
 import copy
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional
 
 from dlrover_tpu_torch.common.constants import (
     NodeExitReason,
@@ -60,6 +60,9 @@ class Node:
         self.relaunchable = True
         self.is_released = False
         self.host_addr: str = ""
+        # the per-node dataloader config the ParallelConfig poll serves
+        # (the servicer folds the job's tuning directive into it)
+        self.paral_config: Dict = {}
 
     # ---- status helpers -------------------------------------------------
 

@@ -3,9 +3,9 @@
 Port of ``dlrover_tpu/elastic/dataloader.py`` (reference:
 ElasticDataLoader, dlrover/trainer/torch/elastic/dataloader.py:26): the
 batch size reloads at runtime from the parallel-config file
-(``DLROVER_TPU_PARAL_CONFIG``; the agent's config tuner writes it in the
-JAX package, ROADMAP A20, but the loader reads the file whoever writes
-it). It yields host batches, numpy arrays assembled by the user's
+(``DLROVER_TPU_PARAL_CONFIG``, which the agent's ``ParalConfigTuner``
+writes, ``agent/config_tuner.py``; the loader reads the file whoever
+writes it). It yields host batches, numpy arrays assembled by the user's
 ``fetch_fn`` over an index source (an ``ElasticDistributedSampler`` or
 the master's ``ShardingClient``); placing them on the device is the
 train loop's (``Trainer``'s prefetch).

@@ -7,8 +7,10 @@ learning-rate schedule — is unchanged).
 
 Port of ``dlrover_tpu/elastic/trainer.py``: a thin coordinator that
 derives (micro_batch, grad_accum) from the live data-parallel size and
-rebuilds the step on a membership change. (The JAX ``apply_tuning``,
-which applies a Brain tuning plan, waits for ROADMAP A23.)
+rebuilds the step on a membership change, and applies a Brain tuning
+revision at a step boundary (``apply_tuning``: a new micro-batch
+re-derives the accumulation, any versioned revision rebuilds the step;
+the optimizer state is untouched).
 """
 
 import math
@@ -103,6 +105,61 @@ class ElasticTrainer:
         """Re-derive accumulation after a re-mesh; rebuilds the step."""
         self._step_fn = None
         self._refresh()
+
+    @property
+    def local_batch_size(self) -> int:
+        """Per-process batch to feed each call (micro × accum)."""
+        return self.micro_batch_size * self.grad_accum
+
+    def apply_tuning(self, plan) -> bool:
+        """Apply a Brain tuning revision at a step boundary.
+
+        ``plan`` is a ``cluster/brain.py`` TuningPlan (or its dict form
+        from the ``ParalConfigTuner`` document). A positive
+        ``batch_size`` re-derives accumulation at the new micro-batch;
+        any versioned revision forces a step rebuild, so builder-side
+        knobs already folded in with ``cluster.brain.apply_revision``
+        (remat, the comm bucket, the wire dtypes) land in the next step.
+        Optimizer state is untouched: a retune is a rebuild, never a
+        restart. A remat policy the port cannot run raises (ROADMAP
+        A21) before anything changes. Returns True when a rebuild ran.
+        """
+        from dlrover_tpu_torch.cluster.brain import check_remat
+
+        def knob(name, default=0):
+            if isinstance(plan, dict):
+                return plan.get(name, default)
+            return getattr(plan, name, default)
+
+        check_remat(knob("remat", "") or "")
+        version = int(knob("version") or 0)
+        batch = int(knob("batch_size") or 0)
+        if batch > 0 and batch != self.micro_batch_size:
+            self.micro_batch_size = batch
+        elif not version:
+            return False
+        span = get_tracer().span("brain.tuning_replan", version=version)
+        replicas = max(1, self._data_replicas_fn())
+        per_step = self.micro_batch_size * replicas
+        self.grad_accum = max(
+            1, math.ceil(self.global_batch_size / per_step)
+        )
+        self._replicas = replicas
+        self._step_fn = self._build_step(self.grad_accum)
+        seconds = span.end(grad_accum=self.grad_accum)
+        hub = telemetry.get_hub()
+        if hub.enabled:
+            hub.publish(
+                telemetry.ElasticEvent(
+                    kind="tuning_replan",
+                    seconds=seconds,
+                    detail=(
+                        f"v{version} micro={self.micro_batch_size} "
+                        f"accum={self.grad_accum}"
+                    ),
+                )
+            )
+        return True
 
     def step(self, state, batch):
         self._refresh()

@@ -56,6 +56,24 @@ restored (``pack_digest``). Each run prints ``[worker] restore {json}``
 (the restore's tier, holder, fetch bytes and seconds) and, at its end,
 its process's peak resident set.
 
+``--micro-batch M`` runs ``ElasticTrainer`` over the replicated step
+(no update sharding unless ``--zero1``) at micro-batch M: the
+accumulation keeps ``--batch`` global at every world size, and each
+rank's rows of a step are its slice of the global batch's samples
+(``sample_batch``, keyed by the sample index), so a step's batch is the
+same at any world size. At every step boundary the ranks read the
+agent's ``ParalConfigTuner`` document (``config_tuner.read_tuning``) and,
+once every rank holds a newer tuning version, fold it into their step
+arguments (``cluster.brain.apply_revision``: a remat policy the port
+cannot run raises, ROADMAP A21) and hand it to
+``ElasticTrainer.apply_tuning`` (one ``brain.tuning_replan`` span, the
+step rebuilt, the optimizer state untouched); each prints ``[worker]
+tuning v… applied``. ``--grow-at N`` (a drill): a run at world 1 holds
+after step N (a memory-staged step, which its agent persists when the
+membership changes) until its agent restarts it into a larger world.
+Each step also prints ``[worker] elastic step=…`` with the world,
+micro-batch, accumulation and tuning version.
+
 ``--hosts-per-slice N`` builds the JAX example's hybrid multi-slice
 mesh: every N processes form one slice, ``num_slices = world // N``,
 ``MeshConfig(dp=num_slices, fsdp=-1, num_slices=num_slices)``: fsdp
@@ -66,6 +84,7 @@ slice mesh: num_slices=… dp=… fsdp=…``.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -76,10 +95,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dlrover_tpu_torch.agent.config_tuner import read_tuning
 from dlrover_tpu_torch.agent.master_client import build_master_client
 from dlrover_tpu_torch.agent.sharding_client import ShardingClient
 from dlrover_tpu_torch.checkpoint import core
 from dlrover_tpu_torch.checkpoint.checkpointer import Checkpointer, StorageType
+from dlrover_tpu_torch.cluster.brain import StepArgs, TuningPlan, apply_revision
 from dlrover_tpu_torch.common.constants import GraftEnv
 from dlrover_tpu_torch.common.device import resolve_device
 from dlrover_tpu_torch.agent.monitor import peak_rss_bytes
@@ -117,6 +138,8 @@ LR, WARMUP, DECAY, PREFETCH = 1e-4, 10, 1000, 2
 # what a node whose card failed writes before it exits (--lose-node-at)
 LOST_NODE_ERROR = ("RuntimeError: CUDA error: uncorrectable ECC error "
                    "encountered")
+# how long a --grow-at run holds for its agent's restart
+GROW_WAIT_S = 600.0
 
 
 def say(line: str) -> None:
@@ -444,6 +467,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="gather the flat state before the eviction and "
                    "hold each survivor's migrated columns against its "
                    "reshard_flat repack, bit for bit")
+    p.add_argument("--micro-batch", type=int, default=0,
+                   help="run ElasticTrainer over the replicated step at this "
+                   "micro-batch (the accumulation keeps --batch global), "
+                   "applying the agent's tuning revisions at step "
+                   "boundaries")
+    p.add_argument("--grow-at", type=int, default=-1,
+                   help="drill: a run at world 1 holds after this step until "
+                   "its agent restarts it into a larger world")
     p.add_argument("--one-card", action="store_true",
                    help="every rank on card 0 over gloo (NCCL refuses two "
                    "ranks on one card)")
@@ -456,9 +487,14 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         p.error("--evict-at with --hosts-per-slice: the live reshard "
                 "refuses a hybrid plan (mesh_axes beyond dp)")
     if (args.data == "sampler" or args.replicate
-            or args.lose_node_at >= 0) and args.zero1:
+            or args.lose_node_at >= 0) and (args.zero1 or args.micro_batch):
         p.error("--data sampler, --replicate and --lose-node-at run the "
-                "Trainer loop, not --zero1's")
+                "Trainer loop, not --zero1's or --micro-batch's")
+    if args.grow_at >= 0 and not args.micro_batch:
+        p.error("--grow-at runs the --micro-batch loop")
+    if args.grow_at >= 0 and not (args.ckpt_every
+                                  and args.grow_at % args.ckpt_every == 0):
+        p.error("--grow-at needs a staged step (a multiple of --ckpt-every)")
     if args.lose_node_at >= 0 and not (
             args.replicate and args.ckpt_every
             and args.lose_node_at % args.ckpt_every == 0):
@@ -496,8 +532,10 @@ def _migration_check(before, state, cfg, old_plan, new_plan, rank):
 
 
 class ZeroRun:
-    """The --zero1 loop: ElasticTrainer over the update-sharded step, the
-    shard feed, the saves, and the live reshard."""
+    """The ElasticTrainer loop (--zero1: over the update-sharded step;
+    --micro-batch: at that micro-batch, replicated unless --zero1): the
+    shard feed, the saves, the Brain's tuning revisions and the live
+    reshard."""
 
     def __init__(self, args, cfg, opt, dev, client, sharding, rank, world,
                  restart, mesh=None):
@@ -505,13 +543,17 @@ class ZeroRun:
         self.mesh = mesh
         self.client, self.sharding = client, sharding
         self.rank, self.restart = rank, restart
-        self.comm = shd.CommConfig(update_sharding=True,
-                                   bucket_mb=args.bucket_mb)
+        # the step-building arguments a tuning revision moves
+        self.step_args = StepArgs(remat=cfg.remat,
+                                  comm_bucket_mb=args.bucket_mb,
+                                  update_sharding=bool(args.zero1))
+        self.comm = self.step_args.comm_config()
+        self.tuning_version = 0
         self.group, self.ranks = None, list(range(world))
         self.builder: Optional[TrainStepBuilder] = None
-        self.trainer = ElasticTrainer(args.batch, max(1, args.batch // world),
-                                      self._build_step,
-                                      data_replicas_fn=lambda: len(self.ranks))
+        self.trainer = ElasticTrainer(
+            args.batch, args.micro_batch or max(1, args.batch // world),
+            self._build_step, data_replicas_fn=lambda: len(self.ranks))
         self.state = init_train_state(args.seed, cfg, opt, device=dev,
                                       comm=self.comm, mesh=mesh)
         self.ckpt = Checkpointer(os.path.join(args.ckpt_dir, "checkpoints"),
@@ -521,10 +563,12 @@ class ZeroRun:
         self.grad_norm: Optional[float] = None  # the last step's
 
     def _build_step(self, accum: int):
-        b = TrainStepBuilder(self.cfg, self.opt, grad_accum=accum,
+        cfg = (self.cfg if self.step_args.remat == self.cfg.remat
+               else dataclasses.replace(self.cfg, remat=self.step_args.remat))
+        b = TrainStepBuilder(cfg, self.opt, grad_accum=accum,
                              device=self.dev, comm=self.comm,
                              group=self.group, mesh=self.mesh)
-        if not b.update_sharding:
+        if self.args.zero1 and not b.update_sharding:
             raise RuntimeError("--zero1: update sharding did not resolve: "
                                f"{b.update_sharding_reason}")
         self.builder = b
@@ -540,12 +584,54 @@ class ZeroRun:
 
     def batch(self, step: int) -> Dict[str, np.ndarray]:
         dp = len(self.ranks)
+        if self.args.micro_batch:
+            # this rank's slice of the step's global samples: the same
+            # global batch at every world size
+            rows = self.args.batch // dp
+            lo = (step - 1) * self.args.batch + self.ranks.index(
+                self.rank) * rows
+            return sample_batch(self.args.seed, range(lo, lo + rows),
+                                self.args.seq, self.cfg.vocab_size)
         return synthetic_batch(self.args.seed, step,
                                self.ranks.index(self.rank),
                                self.args.batch // dp, self.args.seq,
                                self.cfg.vocab_size, self.args.masked)
 
+    def poll_tuning(self, step: int) -> None:
+        """At a step boundary: the agent's tuning directive, applied once
+        every rank of the group holds the same newer version (one small
+        all-reduce a step at world > 1), so all ranks rebuild before the
+        same step."""
+        version, plan = read_tuning()
+        if len(self.ranks) > 1:
+            dev = (torch.device("cpu")
+                   if dist.get_backend(self.group) == "gloo" else self.dev)
+            seen = torch.tensor([version, -version], dtype=torch.int64,
+                                device=dev)
+            dist.all_reduce(seen, op=dist.ReduceOp.MAX, group=self.group)
+            if int(seen[0]) != -int(seen[1]):
+                return  # a rank's agent has not written it yet
+        if version <= self.tuning_version:
+            return
+        tp = TuningPlan(**{k: v for k, v in plan.items()
+                           if k in TuningPlan.__dataclass_fields__})
+        step_args = apply_revision(self.step_args, tp)
+        comm = step_args.comm_config()
+        if self.args.zero1 and comm != self.comm:
+            raise NotImplementedError(
+                f"tuning v{version} changes the ZeRO exchange ({comm}): "
+                "the flat state's layout would need a reshard")
+        self.step_args, self.comm = step_args, comm
+        self.trainer.apply_tuning(plan)
+        self.tuning_version = version
+        say(f"[worker] tuning v{version} applied before step {step}: "
+            f"rank={self.rank} micro={self.trainer.micro_batch_size} "
+            f"accum={self.trainer.grad_accum} remat={self.step_args.remat} "
+            f"at={time.time():.6f}")
+
     def run_step(self, step: int):
+        if self.args.micro_batch:
+            self.poll_tuning(step)
         self.timer.start()
         self.state, metrics = self.trainer.step(self.state, self.batch(step))
         timing = self.timer.stop()
@@ -564,15 +650,31 @@ class ZeroRun:
             f"grad_norm={self.grad_norm!r} "
             f"device_ms={self.timer.last_device_ms} at={time.time():.6f} "
             f"launches={json.dumps(diff, sort_keys=True)}")
+        if args.micro_batch:
+            say(f"[worker] elastic step={step} rank={self.rank} "
+                f"world={len(self.ranks)} "
+                f"micro={self.trainer.micro_batch_size} "
+                f"accum={self.trainer.grad_accum} "
+                f"tuning={self.tuning_version}")
         self.client.report_global_step(step, len(self.ranks))
         if args.ckpt_every and step % args.ckpt_every == 0:
             kind = (StorageType.DISK if step % (2 * args.ckpt_every) == 0
                     else StorageType.MEMORY)
             self.save(step, kind)
+        if args.grow_at == step and len(self.ranks) == 1:
+            self.hold_for_growth(step)
         if args.crash_at >= 0 and step >= args.crash_at and self.restart == 0:
             say(f"[worker] simulating crash at step {step}")
             get_tracer().instant("worker.crash", step=step)
             os._exit(17)
+
+    def hold_for_growth(self, step: int) -> None:
+        """The --grow-at drill: hold after ``step`` (staged) until the
+        agent restarts this worker into a larger world."""
+        say(f"[worker] holding after step {step} until the world grows "
+            f"at={time.time():.6f}")
+        time.sleep(GROW_WAIT_S)
+        raise RuntimeError(f"the world did not grow within {GROW_WAIT_S} s")
 
     def save(self, step: int, kind: str) -> bool:
         extra = ({"dataset": self.sharding.checkpoint()} if self.first
@@ -807,7 +909,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         sharding = ShardingClient(client, "train",
                                   dataset_size=args.steps * args.batch,
                                   shard_size=args.batch)
-    if args.zero1:
+    if args.zero1 or args.micro_batch:
         telemetry.configure_hub().subscribe(
             lambda r: say(f"[event] {r.to_json()}"),
             types=("ElasticEvent", "NumericEvent"))

@@ -8,8 +8,10 @@ logs the port of its metrics endpoint (``/metrics``, ``/json``):
     # DLROVER_TPU_MASTER_ADDR=localhost:7000
     # ... metrics endpoint on port 41235
 
-``--optimize-mode cluster`` (plans from a Brain service) waits for
-ROADMAP A23.
+``--max-workers`` above ``--num-workers`` declares an elastic range: the
+master's auto-scaler plans the worker count in it, from its local
+heuristic or, with ``--optimize-mode cluster --brain-addr host:port``,
+from a shared Brain (``python -m dlrover_tpu_torch.cluster.brain``).
 """
 
 import argparse
@@ -34,24 +36,26 @@ def parse_master_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
         "--optimize-mode",
         default="single-job",
         choices=["single-job", "cluster"],
-        help="cluster = resource plans from a shared Brain (not ported "
-        "yet: ROADMAP A23)",
+        help="cluster = resource plans from a shared Brain",
     )
-    p.add_argument("--brain-addr", default="")
+    p.add_argument(
+        "--brain-addr",
+        default="",
+        help="host:port of the Brain service (optimize-mode=cluster)",
+    )
     return p.parse_args(argv)
 
 
 def run(args: argparse.Namespace) -> str:
-    if args.optimize_mode == "cluster":
-        raise NotImplementedError(
-            "--optimize-mode cluster (resource plans from Brain) is not "
-            "ported yet (ROADMAP A23)")
     master = DistributedJobMaster(
         port=args.port,
         num_workers=args.num_workers,
         max_workers=args.max_workers or args.num_workers,
         node_unit=args.node_unit,
+        optimize_mode=args.optimize_mode,
+        brain_addr=args.brain_addr,
         job_name=args.job_name,
+        job_kind=args.job_kind,
     )
     master.prepare()
     # print the bound address for launchers/operators to scrape

@@ -23,9 +23,18 @@ Goodput: the tracker is stalled from the start, at a node down (from
 the step training had reached), at a hang kick (backdated by the hang
 window) and at the servicer's worker restart and failure reports, and
 each stall closes at the first step report that advances past it; a
-worker's SUCCEEDED closes the accounting. What the JAX master also
-composes waits for its ROADMAP item: ElasticPS (A18), the auto-scaler
-and Brain (A23) and the network-check rendezvous (A20).
+worker's SUCCEEDED closes the accounting.
+
+The planning loop: the sparse tier's ``ElasticPsService`` (its
+``PsClusterCallback`` on the node events, its versions behind the
+servicer) and, when the job declares an elastic range (``max_workers >
+num_workers``), a ``JobAutoScaler`` over ``LocalHeuristicOptimizer`` or,
+with ``optimize_mode="cluster"``, over a ``BrainClient`` to the Brain
+at ``brain_addr`` (``cluster/brain.py``); the auto-scaler starts and
+stops with the master, and ``stop()`` closes the Brain client. Its
+``ScalePlan`` goes to the master's ``scaler`` (a ``NoopScaler`` unless
+the platform gives one). The network-check rendezvous waits for ROADMAP
+A20.
 """
 
 import os
@@ -50,6 +59,11 @@ from dlrover_tpu_torch.master.job_metrics import (
     GoodputTracker,
     JobMetricCollector,
     MetricsHTTPServer,
+)
+from dlrover_tpu_torch.master.auto_scaler import JobAutoScaler
+from dlrover_tpu_torch.master.elastic_ps import (
+    ElasticPsService,
+    PsClusterCallback,
 )
 from dlrover_tpu_torch.master.kv_store import KVStoreService
 from dlrover_tpu_torch.master.node_manager import JobManager, Scaler
@@ -77,10 +91,25 @@ class JobMaster:
         max_workers: Optional[int] = None,
         node_unit: int = 1,
         scaler: Optional[Scaler] = None,
+        enable_auto_scaling: Optional[bool] = None,
+        optimize_mode: str = "single-job",
+        brain_addr: str = "",
         job_name: str = "",
+        job_kind: str = "",
     ):
+        # validate before any server is built: raising after the
+        # transport bound its port would leak it
+        if optimize_mode == "cluster" and not brain_addr:
+            raise ValueError(
+                "optimize_mode='cluster' needs brain_addr "
+                "(host:port of a Brain: python -m "
+                "dlrover_tpu_torch.cluster.brain)"
+            )
         ctx = get_context()
+        self.optimize_mode = optimize_mode
+        self.brain_addr = brain_addr
         self.job_name = job_name
+        self.job_kind = job_kind
         self.speed_monitor = SpeedMonitor()
         self.task_manager = TaskManager(shard_timeout_s=ctx.shard_timeout_s)
         self.task_manager.speed_monitor = self.speed_monitor
@@ -126,6 +155,7 @@ class JobMaster:
         # cross-host correlation of the workers' AnomalyRecords
         self.health_aggregator = HealthAggregator(
             hub=self.telemetry_hub, world=num_workers)
+        self.ps_service = ElasticPsService()
         self.servicer = MasterServicer(
             job_manager=self.job_manager,
             rdzv_managers=self.rdzv_managers,
@@ -137,8 +167,43 @@ class JobMaster:
             goodput_tracker=self.goodput_tracker,
             metric_collector=self.metric_collector,
             telemetry_hub=self.telemetry_hub,
+            ps_service=self.ps_service,
         )
         self.server = MasterTransportServer(self.servicer, port=port)
+        # the auto-scaler runs whenever the job declared an elastic range
+        if enable_auto_scaling is None:
+            enable_auto_scaling = max_w > num_workers
+        # cluster mode: plans from the shared Brain in place of the local
+        # heuristic; the client is built only when an auto-scaler will
+        # consume it, and closed in stop()
+        optimizer = None
+        self._brain_client = None
+        if optimize_mode == "cluster":
+            if not enable_auto_scaling:
+                logger.warning(
+                    "optimize_mode='cluster' has no effect without auto "
+                    "scaling (max_workers == num_workers); brain %s "
+                    "will not be consulted", brain_addr)
+            else:
+                from dlrover_tpu_torch.cluster.brain import BrainClient
+
+                optimizer = BrainClient(brain_addr)
+                optimizer.bind_job(job_name or "job", job_kind)
+                self._brain_client = optimizer
+        self.auto_scaler: Optional[JobAutoScaler] = None
+        if enable_auto_scaling:
+            self.auto_scaler = JobAutoScaler(
+                self.job_manager,
+                self.speed_monitor,
+                self.job_manager._scaler,
+                rdzv_managers=self.rdzv_managers,
+                optimizer=optimizer,
+                min_workers=num_workers,
+                max_workers=max_w,
+                node_unit=node_unit,
+                interval_s=ctx.autoscale_interval_s,
+                ps_service=self.ps_service,
+            )
         self._stop = threading.Event()
         self._last_hang_kick = 0.0
         self.exit_reason = ""
@@ -150,6 +215,9 @@ class JobMaster:
             task_manager=self.task_manager,
             rdzv_managers=self.rdzv_managers,
             on_job_failed=self._fail_job))
+        # PS-typed node lifecycle drives the versioned sparse server set
+        self.job_manager.event_callbacks.append(
+            PsClusterCallback(self.ps_service))
         self.job_manager.node_failed_callbacks.append(self._on_node_down)
 
     def _fail_job(self, reason: str):
@@ -185,6 +253,8 @@ class JobMaster:
         logger.info("metrics endpoint on port %d", self.metrics_server.port)
         self.task_manager.start()
         self.job_manager.start()
+        if self.auto_scaler is not None:
+            self.auto_scaler.start()
 
     def run(self, poll_interval_s: Optional[float] = None) -> str:
         """Supervision loop (reference: dist_master.py:211)."""
@@ -240,6 +310,10 @@ class JobMaster:
 
     def stop(self):
         self._stop.set()
+        if self.auto_scaler is not None:
+            self.auto_scaler.stop()
+        if self._brain_client is not None:
+            self._brain_client.close()
         for name, n in self.task_manager.completed_counts().items():
             logger.info("dataset %s: %d shards completed", name, n)
         self.task_manager.stop()

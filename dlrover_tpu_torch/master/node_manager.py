@@ -7,9 +7,13 @@ transitions go through ``status_flow``; a failed or deleted node is
 relaunched while its budget lasts (a ``ScalePlan`` for the scaler).
 Observers (``event_callbacks``: objects with ``on_node_started``,
 ``on_node_succeeded``, ``on_node_failed``, ``on_node_deleted``) hear of
-each transition; the master wires the rendezvous prune through them.
-The serving, tuning and evaluator directives of the JAX manager wait
-for ROADMAP A15 and A20.
+each transition; the master wires the rendezvous prune and the sparse
+tier's server set through them. The auto-scaler moves the worker count
+(``set_worker_num``: a scale-in releases the highest-indexed nodes, so
+their exits are not failures to relaunch), and the Brain's tuning plans
+are versioned here (``plan_tuning``: one monotonic counter, the latest
+directive kept; the ``ParallelConfig`` poll serves it). The serving
+directives of the JAX manager wait for ROADMAP A15.
 """
 
 import threading
@@ -28,6 +32,7 @@ from dlrover_tpu_torch.common.log import get_logger
 from dlrover_tpu_torch.common.messages import NodeMeta
 from dlrover_tpu_torch.common.node import Node, NodeResource
 from dlrover_tpu_torch.master.status_flow import transition
+from dlrover_tpu_torch.observability.tracing import get_tracer
 
 logger = get_logger(__name__)
 
@@ -104,6 +109,11 @@ class JobManager:
         self.node_succeeded_callbacks: List[Callable[[Node], None]] = []
         self.event_callbacks: List[Any] = []
         self.cluster_context: Any = None
+        # Brain tuning directives (cluster/brain.py): one monotonic
+        # version counter, the latest plan or revision kept; trainers
+        # pick it up through the ParallelConfig poll (tuning_json)
+        self._tuning_version = 0
+        self._tuning: Optional[Dict] = None
         self._init_nodes()
 
     def _init_nodes(self):
@@ -338,6 +348,63 @@ class JobManager:
                     if now - created > self._pending_timeout_s:
                         return True
             return False
+
+    def release_node(self, node_id: int):
+        """Mark a node as removed on purpose (scale-in): its exit must
+        not trigger a relaunch."""
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is not None:
+                node.is_released = True
+
+    def set_worker_num(self, n: int):
+        """Elastic scale target; new node slots get fresh bookkeeping.
+        Scale-in releases the highest-indexed nodes (the scaler's
+        drop-highest-first policy) so their exits read as intentional,
+        not as failures to relaunch."""
+        with self._lock:
+            self._num_workers = n
+            for i, node in self._nodes.items():
+                if i >= n and not node.is_exited():
+                    node.is_released = True
+            for i in range(n):
+                if i not in self._nodes:
+                    node = Node(
+                        node_type=NodeType.WORKER,
+                        node_id=i,
+                        rank_index=i,
+                        max_relaunch_count=self._relaunch_budget,
+                    )
+                    node.create_time = time.time()
+                    self._nodes[i] = node
+
+    # ---- Brain tuning directives -----------------------------------------
+
+    def plan_tuning(self, plan_json: str, reason: str = "") -> int:
+        """Version one Brain tuning plan or revision (a
+        ``cluster/brain.py`` TuningPlan as its asdict JSON): a monotonic
+        counter, the latest directive wins, trainers poll it through the
+        ParallelConfig path. Returns the version (starting at 1)."""
+        with self._lock:
+            self._tuning_version += 1
+            version = self._tuning_version
+            self._tuning = {
+                "version": version,
+                "plan_json": plan_json,
+                "reason": reason,
+            }
+        get_tracer().instant("brain.tuning_plan", version=version)
+        logger.info(
+            "tuning directive v%d (%s)", version, reason or "brain"
+        )
+        return version
+
+    def get_tuning(self) -> Dict:
+        """The latest tuning directive, or ``{"version": 0}``."""
+        with self._lock:
+            if self._tuning is None:
+                return {"version": 0}
+            return dict(self._tuning)
 
     @property
     def worker_num(self) -> int:

@@ -14,15 +14,23 @@ the metric collector), the running-node listing, the data-shard service
 (datasets, tasks and their results, the dataset checkpoint, the epoch;
 a restarted or failed node's in-flight shards re-queued) and the
 live-reshard directive (an eviction notice in, the plan out, an
-``eviction_notice`` event on the hub). The goodput tracker is marked as
+``eviction_notice`` event on the hub), the Brain's tuning directives (a
+``TuningPlanNotice`` versioned by the node manager's ``plan_tuning``, a
+``tuning_plan_notice`` event on the hub; served by ``TuningPlanRequest``
+and folded into each node's ``ParallelConfig``) and the sparse tier's
+versions (``ElasticPsService``). The goodput tracker is marked as
 the JAX handlers mark it: stalled at a worker restart and at a failure
 report (from the step training had reached), productive at a step
 report that advances past the stall, completed at a SUCCEEDED status.
 Exceptions never cross the RPC edge.
 
-Every other message type of the JAX servicer is answered with an error
-naming the ROADMAP item that ports it (``UNPORTED``); the transport
-sends it back and the client raises ``NotImplementedError`` with it.
+The Brain's own messages (``BrainOptimizeRequest`` and the others)
+reach the master as they reach the JAX one: no handler, so a report is
+answered unsuccessful and a get with nothing (the Brain process serves
+them, ``cluster/brain.py``). Every other message type of the JAX
+servicer is answered with an error naming the ROADMAP item that ports it
+(``UNPORTED``); the transport sends it back and the client raises
+``NotImplementedError`` with it.
 """
 
 import time
@@ -40,15 +48,9 @@ _ITEMS = {
     "A15 (the rest of the serving tier)": (
         "ServingEvictionNotice", "ServingReshardRequest",
         "ServingScaleNotice", "ServingScaleRequest"),
-    "A20 (the network check, tuning and the strategy engine)": (
+    "A20 (the network check and the strategy engine)": (
         "NetworkReadyRequest", "NetworkCheckResult",
-        "NetworkCheckStatusRequest", "ParallelConfigRequest",
-        "TuningPlanNotice", "TuningPlanRequest", "StrategySearchRequest"),
-    "A18 (the sparse tier's ElasticPS)": (
-        "PsVersionReport", "PsVersionRequest"),
-    "A23 (the auto-scaler and Brain)": (
-        "BrainPersistMetricsRequest", "BrainOptimizeRequest",
-        "BrainJobMetricsRequest"),
+        "NetworkCheckStatusRequest", "StrategySearchRequest"),
 }
 UNPORTED: Dict[str, str] = {
     name: f"{name}: its master handler is not ported yet (ROADMAP {item})"
@@ -69,8 +71,10 @@ class MasterServicer:
         goodput_tracker=None,
         metric_collector=None,
         telemetry_hub=None,
+        ps_service=None,
     ):
         self.job_manager = job_manager
+        self.ps_service = ps_service
         self.diagnosis_manager = diagnosis_manager
         self.goodput_tracker = goodput_tracker
         self.metric_collector = metric_collector
@@ -306,8 +310,34 @@ class MasterServicer:
             })
         return True
 
+    def _report_tuning_plan(self, m: msgs.TuningPlanNotice) -> bool:
+        """A Brain tuner reports one cold-start plan or revision: version
+        it as a tuning directive (trainers pick it up through the
+        ParallelConfig poll) and put it on the elastic event stream."""
+        if self.job_manager is None:
+            return False
+        version = self.job_manager.plan_tuning(
+            m.plan_json, reason=m.reason or m.signal
+        )
+        if self.telemetry_hub is not None and self.telemetry_hub.enabled:
+            self.telemetry_hub.publish(telemetry.ElasticEvent(
+                kind="tuning_plan_notice", node_id=m.node_id,
+                detail=f"v{version} {m.signal} {m.reason}".strip()))
+        return True
+
+    def _report_ps_version(self, m: msgs.PsVersionReport) -> bool:
+        if not self.ps_service:
+            return False
+        if m.version_type == "global":
+            self.ps_service.bump_global_version()
+        else:
+            self.ps_service.set_node_version(m.node_id, m.version)
+        return True
+
     _REPORT_HANDLERS = {
         "ModelInfoReport": _report_model_info,
+        "PsVersionReport": _report_ps_version,
+        "TuningPlanNotice": _report_tuning_plan,
         "HeartbeatReport": _report_heartbeat,
         "NodeStatusReport": _report_node_status,
         "WorkerRestartReport": _report_worker_restart,
@@ -459,8 +489,51 @@ class MasterServicer:
             ]
         )
 
+    def _get_paral_config(self, m: msgs.ParallelConfigRequest):
+        node = (
+            self.job_manager.get_node(m.node_id) if self.job_manager else None
+        )
+        cfg = node.paral_config if node else {}
+        out = msgs.ParallelConfig(**cfg) if cfg else msgs.ParallelConfig()
+        # the job-level tuning directive rides the per-node config, so one
+        # poll carries both (the tuner gates on the version pair)
+        if self.job_manager is not None:
+            plan = self.job_manager.get_tuning()
+            if plan.get("version"):
+                out.tuning_version = plan["version"]
+                out.tuning_json = plan["plan_json"]
+        return out
+
+    def _get_tuning(self, m: msgs.TuningPlanRequest):
+        if self.job_manager is None:
+            return msgs.TuningPlanDirective()
+        plan = self.job_manager.get_tuning()
+        if not plan.get("version"):
+            return msgs.TuningPlanDirective()
+        return msgs.TuningPlanDirective(
+            version=plan["version"],
+            plan_json=plan["plan_json"],
+            reason=plan["reason"],
+        )
+
+    def _get_ps_version(self, m: msgs.PsVersionRequest):
+        if not self.ps_service:
+            return msgs.PsVersionResponse()
+        if m.version_type == "global":
+            version = self.ps_service.get_global_version()
+        else:
+            version = self.ps_service.get_node_version(m.node_id)
+        return msgs.PsVersionResponse(
+            version=version,
+            servers=list(self.ps_service.get_servers()),
+            weights=self.ps_service.get_weights(),
+        )
+
     _GET_HANDLERS = {
         "RunningNodesRequest": _get_running_nodes,
+        "PsVersionRequest": _get_ps_version,
+        "TuningPlanRequest": _get_tuning,
+        "ParallelConfigRequest": _get_paral_config,
         "HeartbeatReport": _get_heartbeat,
         "NodeRegisterRequest": _get_register,
         "JoinRendezvousRequest": _get_join_rdzv,

@@ -12,10 +12,12 @@ live master runs (recorded HealthSummary lines take precedence), so the
 verdict offline is the verdict the master reached online.
 
 The port replays the record types it has: the steps, the training
-anomalies, the numeric and elastic events and the summaries. The JAX
-report's serving section waits for the rest of the serving tier
-(ROADMAP A15), its sparse-serving, autoscale and tuning sections for the
-records of A18 and A23.
+anomalies, the numeric and elastic events, the summaries and the Brain's
+tuning decisions (``TuningPlan`` lines: the cold-start plan, then each
+versioned revision with its signal and knob; ``cluster/brain.py`` is
+imported so its records replay). The JAX report's serving and scale
+sections wait for the rest of the serving tier (ROADMAP A15), its
+sparse-serving section for the sparse tier's workers (A18).
 """
 
 import argparse
@@ -24,6 +26,7 @@ import sys
 from collections import Counter
 from typing import Dict, List, Optional
 
+import dlrover_tpu_torch.cluster.brain  # noqa: F401 — registers TuningPlan/JobMetrics for replay
 from dlrover_tpu_torch.observability import telemetry
 from dlrover_tpu_torch.observability.watchdog import HealthAggregator
 
@@ -89,6 +92,8 @@ def diagnose(records: List, world: int = 0) -> Dict:
             "replicas": sorted({r.replica for r in recs if r.replica}),
         }
 
+    tuning = _tuning_section(by_type)
+
     steps = by_type.get("StepRecord", [])
     step_info = {}
     if steps:
@@ -112,7 +117,35 @@ def diagnose(records: List, world: int = 0) -> Dict:
              "verdict": s.verdict}
             for s in by_type.get("HealthSummary", [])
         ],
+        "tuning": tuning,
         "healthy": not anomalies,
+    }
+
+
+def _tuning_section(by_type: Dict[str, List]) -> Dict:
+    """Replay ``TuningPlan`` lines into why the job runs at its current
+    knobs: the cold-start plan, then every versioned revision with the
+    signal that triggered it and the knob it moved. A recording with no
+    such lines replays as ``{}``: no tuning decisions, not an error."""
+    recs = by_type.get("TuningPlan", [])
+    if not recs:
+        return {}
+    trail = []
+    knobs_moved: Counter = Counter()
+    for r in recs:  # file order == write order
+        trail.append({
+            "version": r.version,
+            "origin": r.origin,
+            "signal": r.signal,
+            "knob": r.knob,
+            "reason": r.reason,
+        })
+        if r.knob:
+            knobs_moved[r.knob] += 1
+    return {
+        "decisions": trail,
+        "n_revisions": sum(1 for d in trail if d["origin"] == "revision"),
+        "knobs_moved": dict(knobs_moved),
     }
 
 
@@ -124,6 +157,19 @@ def format_report(diag: Dict) -> str:
             "run: {count} steps recorded, last step {last_step} "
             "(loss {last_loss:.4f})".format(**diag["steps"]))
     lines.append(f"world: {diag['world'] or 'unknown'} rank(s)")
+    tuning = diag.get("tuning") or {}
+    if tuning:
+        lines.append("")
+        lines.append(
+            f"brain tuning: {tuning['n_revisions']} revision(s) after "
+            "cold start")
+        if tuning["knobs_moved"]:
+            lines.append("  knobs moved: " + ", ".join(
+                f"{k}×{n}" for k, n in sorted(tuning["knobs_moved"].items())))
+        for d in tuning["decisions"][:20]:
+            what = d["knob"] or d["origin"]
+            why = d["signal"] or d["reason"] or d["origin"]
+            lines.append(f"  v{d['version']} {what}: {why}")
     if diag["healthy"]:
         lines.append("no anomalies recorded — run looks healthy")
         return "\n".join(lines)

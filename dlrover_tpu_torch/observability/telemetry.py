@@ -11,7 +11,10 @@ so a record the port publishes reads back through the JAX package's
 step-time baseline), the watchdog's ``AnomalyRecord`` and the master's
 ``HealthSummary`` (``observability/watchdog.py``), the serving
 replica's ``ServingRecord``, the master speed monitor's
-``StragglerRecord`` and the agent monitor's ``ResourceRecord``.
+``StragglerRecord``, the agent monitor's ``ResourceRecord``, the
+overlap-drift signal the Brain tuner consumes (``OverlapDriftRecord``)
+and, registered when ``cluster/brain.py`` is imported, the Brain's
+``TuningPlan`` and ``JobMetrics``.
 
 The sinks are the JAX ones: ``JsonlSink`` (one line a record, line
 buffered, the flight recorder ``observability/healthcheck.py``
@@ -23,9 +26,9 @@ no-op hub whose ``enabled`` is False until ``configure_hub`` installs
 one (or ``DLROVER_TPU_TELEMETRY_DIR`` names a directory for a JSONL
 file a process), so producers guard with ``if hub.enabled:`` and a
 disabled hub costs one attribute read; a sink that raises is detached,
-never propagated to the producer. The overlap-drift record and its
-helpers read the XLA compile-time overlap report and wait for the
-strategy engine (ROADMAP A20).
+never propagated to the producer. The overlap-drift record's producer
+(the measured against the planned exposed collective time) waits for
+the strategy engine (ROADMAP A20).
 """
 
 import dataclasses
@@ -147,6 +150,19 @@ class ElasticEvent:
     restart: int = -1
     seconds: float = 0.0
     detail: str = ""
+    ts: float = 0.0
+
+
+@telemetry_record
+class OverlapDriftRecord:
+    """Planned exposed-collective µs against measured: the signal the
+    Brain tuner's drift ladder consumes (``cluster/brain.py``)."""
+
+    step: int = -1
+    planned_exposed_us: float = 0.0
+    measured_collective_us: float = 0.0
+    drift_us: float = 0.0
+    drift_frac: float = 0.0
     ts: float = 0.0
 
 
@@ -339,6 +355,18 @@ _GAUGE_MAP: Dict[str, List[Tuple[str, str]]] = {
         ("serving_handoff_bytes", "handoff_bytes"),
         ("serving_handoff_ms_p99", "handoff_ms_p99"),
     ],
+    # cluster/brain.py records (registered on its import)
+    "TuningPlan": [
+        ("tuning_version", "version"),
+        ("tuning_comm_bucket_mb", "comm_bucket_mb"),
+        ("tuning_spec_k", "spec_k"),
+        ("tuning_prefill_chunk", "prefill_chunk"),
+    ],
+    "JobMetrics": [
+        ("brain_steps_per_sec", "steps_per_sec"),
+        ("brain_samples_per_sec", "samples_per_sec"),
+        ("brain_hbm_used_bytes", "hbm_used_bytes"),
+    ],
 }
 _COUNTER_MAP: Dict[str, str] = {
     "ElasticEvent": "elastic_events_total",
@@ -348,6 +376,8 @@ _COUNTER_MAP: Dict[str, str] = {
     "AnomalyRecord": "anomaly_records_total",
     "HealthSummary": "health_summaries_total",
     "ServingRecord": "serving_records_total",
+    "TuningPlan": "tuning_plans_total",
+    "JobMetrics": "brain_job_metrics_total",
 }
 
 
@@ -381,7 +411,9 @@ class MasterSink:
         "CheckpointRecord",
         "ElasticEvent",
         "NumericEvent",
+        "OverlapDriftRecord",
         "PlanRecord",
+        "TuningPlan",
     )
 
     def __init__(self, client, types: Optional[Tuple[str, ...]] = None):

@@ -242,15 +242,18 @@ def test_the_master_kicks_every_node_once_all_hang(master, monkeypatch):
 
 
 def test_the_default_callbacks_prune_a_failed_node(master):
+    from dlrover_tpu_torch.master.elastic_ps import PsClusterCallback
     from dlrover_tpu_torch.master.event_callback import (
         ChiefFailureCallback,
         RendezvousPruneCallback,
         TaskRescheduleCallback,
     )
 
+    # the stock observers, then the sparse tier's server set (as the JAX
+    # master registers them)
     kinds = [type(cb) for cb in master.job_manager.event_callbacks]
     assert kinds == [TaskRescheduleCallback, RendezvousPruneCallback,
-                     ChiefFailureCallback]
+                     ChiefFailureCallback, PsClusterCallback]
     _client(master, 0)
     _client(master, 1)
     rdzv = next(iter(master.rdzv_managers.values()))

@@ -84,10 +84,15 @@ print("imported", len(names))
     assert res.returncode == 0, res.stderr[-4000:]
     assert res.stdout.split()[-1] == str(len(modules))
     for name in modules:
-        src = (ROOT / "dlrover_tpu_torch" / (name.replace(".", "/") + ".py")
-               ).read_text()
         assert not re.search(r"^\s*(from|import)\s+(jax|dlrover_tpu)\b",
-                             src, re.M), name
+                             _source(name), re.M), name
+
+
+def _source(name):
+    """A port module's source (a package's ``__init__.py``)."""
+    path = ROOT / "dlrover_tpu_torch" / name.replace(".", "/")
+    return (path / "__init__.py" if path.is_dir()
+            else path.with_suffix(".py")).read_text()
 
 
 def test_the_node_loss_modules_import_without_jax():
@@ -107,6 +112,32 @@ OBSERVABILITY_MODULES = (
 
 def test_the_observability_modules_import_without_jax():
     _stand_alone(OBSERVABILITY_MODULES)
+
+
+# the master's planning loop: the Brain, the auto-scaler, the resource
+# optimizers, the sparse tier's version service, the agent's config
+# tuner (the JAX cluster package's crd.py imports yaml: none of these may)
+PLANNING_MODULES = (
+    "cluster", "cluster.brain", "master.auto_scaler",
+    "master.resource_optimizer", "master.elastic_ps", "agent.config_tuner",
+    "master.node_manager", "master.servicer", "master.master",
+    "master.main", "agent.master_client", "agent.launcher",
+    "elastic.trainer", "common.messages",
+)
+
+
+def test_the_planning_loop_modules_import_without_jax_or_yaml():
+    _stand_alone(PLANNING_MODULES)
+    res = _run("names = %r\n" % (PLANNING_MODULES,) + r"""
+for name in names:
+    importlib.import_module("dlrover_tpu_torch." + name)
+print("yaml" in sys.modules)
+""")
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.split()[-1] == "False"
+    for name in PLANNING_MODULES:
+        assert not re.search(r"^\s*(from|import)\s+yaml\b", _source(name),
+                             re.M), name
 
 
 def test_the_hook_does_block_the_jax_package():

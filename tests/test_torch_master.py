@@ -3,7 +3,8 @@
 One scripted session of client calls (register, heartbeats, join, the
 sealed comm world, nodes waiting, the KV store, a sync barrier, the
 global step, checkpoint steps and their minimum, model info, the
-running nodes, a status report) runs against the JAX ``LocalJobMaster``
+running nodes, the parallel config, a tuning directive and its version,
+the sparse tier's versions, a status report) runs against the JAX ``LocalJobMaster``
 with its ``MasterClient`` (gRPC), then against the port's pair (the
 standard-library transport), both in-process. Every reply is the same.
 The port's master also ends its supervision loop as the JAX one does
@@ -66,6 +67,14 @@ def _session(master_cls, client_cls):
             seq_len=64)))
         out.append(("running", [(n.id, n.type, n.name, n.status,
                                  n.rank_index) for n in c.get_running_nodes()]))
+        out.append(("config", c.get_parallel_config()))
+        out.append(("tuning_none", c.get_tuning()))
+        out.append(("tune", c.report_tuning_plan(
+            '{"batch_size": 2}', signal="oom", reason="oom")))
+        out.append(("tuning", c.get_tuning(), c.get_parallel_config()))
+        out.append(("ps", c.get_ps_version(), c.bump_ps_version(),
+                    c.report_ps_node_version(4), c.get_ps_version(),
+                    c.get_ps_version("node")))
         out.append(("succeeded", c.report_node_status("succeeded")))
         out.append(("exited", master.job_manager.all_workers_succeeded()))
         return [_plain(x) for x in out]
@@ -120,7 +129,38 @@ def test_the_master_cli_prints_its_address():
 
 
 def test_cluster_mode_waits_for_its_item():
+    """Cluster mode came with the planning loop: ``--optimize-mode
+    cluster --brain-addr`` builds a ``BrainClient`` as the auto-scaler's
+    optimizer, ``max_workers > num_workers`` builds a ``JobAutoScaler``
+    (over the local heuristic without a Brain), an equal range builds
+    none (cluster mode then consults no Brain, as the JAX master), and
+    cluster mode without an address is refused before any port binds."""
+    from dlrover_tpu_torch.cluster.brain import BrainClient
     from dlrover_tpu_torch.master import main
+    from dlrover_tpu_torch.master.auto_scaler import JobAutoScaler
+    from dlrover_tpu_torch.master.resource_optimizer import (
+        LocalHeuristicOptimizer,
+    )
 
-    with pytest.raises(NotImplementedError, match="ROADMAP A23"):
+    args = main.parse_master_args(["--optimize-mode", "cluster",
+                                   "--brain-addr", "localhost:1",
+                                   "--num-workers", "1", "--max-workers",
+                                   "2", "--job-kind", "gpt"])
+    built = []
+    for kw in (dict(num_workers=1, max_workers=2, optimize_mode="cluster",
+                    brain_addr=args.brain_addr, job_kind=args.job_kind),
+               dict(num_workers=1, max_workers=3),
+               dict(num_workers=2, max_workers=2, optimize_mode="cluster",
+                    brain_addr="localhost:1")):
+        master = main.DistributedJobMaster(**kw)
+        try:
+            built.append(master.auto_scaler)
+        finally:
+            master.stop()
+    assert isinstance(built[0], JobAutoScaler)
+    assert isinstance(built[0].optimizer, BrainClient)
+    assert (built[0].min_workers, built[0].max_workers) == (1, 2)
+    assert isinstance(built[1].optimizer, LocalHeuristicOptimizer)
+    assert built[2] is None
+    with pytest.raises(ValueError, match="brain_addr"):
         main.run(main.parse_master_args(["--optimize-mode", "cluster"]))

@@ -42,6 +42,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -75,6 +76,16 @@ VARIANTS = {
 }
 
 
+def _kill(p):
+    """Kill ``p``'s process group (each drill process leads its own: a
+    launcher's workers go with it, as with a lost host) and reap ``p``."""
+    try:
+        os.killpg(p.pid, signal.SIGKILL)
+    except ProcessLookupError:  # the group is gone already
+        pass
+    p.wait()
+
+
 def _wait(procs, timeout, until=None):
     """Wait for ``procs`` (or ``until()``) within ``timeout``; kill what
     is left."""
@@ -87,8 +98,7 @@ def _wait(procs, timeout, until=None):
         time.sleep(0.2)
     for p in procs:
         if p.poll() is None:
-            p.kill()
-            p.wait()
+            _kill(p)
     return False
 
 
@@ -110,11 +120,16 @@ def drill(tmp, variant):
                DLROVER_TPU_CTX_HEARTBEAT_INTERVAL_S="0.5", TMPDIR=tmp,
                **extra)
     env.pop("DLROVER_TPU_MASTER_ADDR", None)
+    # each node's agent writes its own parallel-config document; a path
+    # that an in-process ParalConfigTuner of an earlier test exported
+    # (the tuner sets it in os.environ, as the launcher's does for its
+    # workers) would hand both nodes that test's batch size
+    env.pop("DLROVER_TPU_PARAL_CONFIG", None)
     master_err = open(os.path.join(tmp, "master.log"), "w")
     master = subprocess.Popen(
         [sys.executable, "-m", "dlrover_tpu_torch.master.main",
          "--num-workers", "2"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=master_err, text=True)
+        stderr=master_err, text=True, start_new_session=True)
     procs = [master]
     logs = {}
 
@@ -135,7 +150,8 @@ def drill(tmp, variant):
             cmd, cwd=ROOT, stdout=open(logs[tag], "w"),
             stderr=subprocess.STDOUT,
             env=dict(env, DLROVER_TPU_RUN_ID=f"{run}_n{node}",
-                     DLROVER_TPU_SOCK_DIR=os.path.join(socks, str(node))))
+                     DLROVER_TPU_SOCK_DIR=os.path.join(socks, str(node))),
+            start_new_session=True)
         procs.append(p)
         return p
 
@@ -182,10 +198,8 @@ def drill(tmp, variant):
         if finished:  # a finished job's master exits by itself
             _wait([master], 30)
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        for p in procs:  # a killed launcher's worker is still in its group
+            _kill(p)
         master_err.close()
         shutil.rmtree(socks, ignore_errors=True)
         out["left_behind"] = glob.glob(f"/dev/shm/*{run}*")

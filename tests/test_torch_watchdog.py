@@ -16,7 +16,9 @@ and replay cases:
   rank reporting;
 - every record type the two packages share round-trips through JSON in
   both directions (JAX's ``to_json`` into the port's ``from_json``, the
-  port's into JAX's);
+  port's into JAX's), the Brain's ``TuningPlan`` and ``JobMetrics``
+  (registered by each healthcheck's import of its ``cluster/brain.py``)
+  and ``OverlapDriftRecord`` among them;
 - a flight-recorder file the port's ``JsonlSink`` wrote (torn tail and
   foreign line included) replays through both ``healthcheck.diagnose``
   functions to the same report for the sections the port has, and the
@@ -172,6 +174,15 @@ def _shared_records(mod):
                           world=2, verdict="suspect_model_or_config",
                           ts=10.0),
         mod.ServingRecord(replica="r0", completed=5, hists="{}", ts=11.0),
+        mod.OverlapDriftRecord(step=6, planned_exposed_us=40.0,
+                               measured_collective_us=90.0, drift_us=50.0,
+                               drift_frac=0.55, ts=12.0),
+        mod.record_types()["TuningPlan"](
+            version=3, origin="revision", signal="oom", knob="batch_size",
+            reason="oom at remat=full; batch 4→2", batch_size=2, ts=13.0),
+        mod.record_types()["JobMetrics"](
+            job_name="j", job_kind="gpt", timestamp=5.0, worker_num=2,
+            steps_per_sec=1.5, finished=True, ts=14.0),
     ]
 
 
@@ -226,7 +237,7 @@ def test_a_port_flight_record_replays_to_the_jax_report(tmp_path, capsys):
     for key in mine:
         assert mine[key] == theirs[key], key
     assert set(theirs) - set(mine) == {"serving", "sparse_serving",
-                                       "scale_decisions", "tuning"}
+                                       "scale_decisions"}
     assert not any(theirs[k] for k in set(theirs) - set(mine))
     assert thc.format_report(mine) == jhc.format_report(theirs)
     assert mine["world"] == 3 and not mine["healthy"]
