@@ -370,7 +370,9 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.parse
 import urllib.request
+from http.server import BaseHTTPRequestHandler
 
 # the interpreter's setting as this process was started (startup_probe)
 _STARTED_ENV = {k: os.environ[k] for k in ("PYTHONDONTWRITEBYTECODE",)
@@ -6126,9 +6128,12 @@ def mesh4d_check(seed, dev, name="mesh4d", overrides=None, shapes=None):
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the master's planning loop: the auto-scaler, driven by the
-# Brain, grows the job from one node to two, and a Brain tuning revision
-# is applied on the card at a step boundary
+# phase 16: the master's planning loop under the operator: the operator
+# process runs the job's pods on a kubelet double behind an HTTP API
+# server double; the auto-scaler, driven by the Brain, grows the job from
+# one node to two through a ScalePlan CRD, each node passes the network
+# check on the card, and a Brain tuning revision is applied at a step
+# boundary
 # ---------------------------------------------------------------------------
 
 # 8 steps: 3 at dp 1, the job held after step 3 (staged) until it grows,
@@ -6138,77 +6143,458 @@ AUTOSCALE_MICRO = 4          # the job's micro-batch; the revision halves it
 AUTOSCALE_TIMEOUT_S = 420
 AUTOSCALE_INTERVAL_S = 1.0   # the auto-scaler's period in the drill
 AUTOSCALE_POLL_S = 0.5       # the agents' ParalConfigTuner period
+AUTOSCALE_TEARDOWN_S = 30.0  # the deleted job's pods and the operator gone
+KUBE_TOKEN_ENV = "DLROVER_TPU_KUBE_TOKEN"  # the master pod's API token
 _ELASTIC_STEP = re.compile(r"\[worker\] elastic step=(\d+) rank=(\d+) "
                            r"world=(\d+) micro=(\d+) accum=(\d+) "
                            r"tuning=(\d+)")
 _TUNED = re.compile(r"\[worker\] tuning v(\d+) applied before step (\d+): "
                     r"rank=(\d+) micro=(\d+) accum=(\d+) remat=(\S+) "
                     r"at=(\S+)")
-_SCALE_PLAN = re.compile(r"\[platform\] scale plan worker_num=(\S+) "
-                         r"launch=(\d+) at=(\S+)")
+_SCALE_PLAN = re.compile(r"\[master\] scale plan (\S+) worker_num=(\S+) "
+                         r"launch=(\d+) at=(\S+) posted=(\S+)")
+_NODE_CHECK = re.compile(r"node check ok: matmul=(\S+)s \((\d+)x\d+ bf16, "
+                         r"(\d+) iterations\)")
+_PLURALS = {"pods": "Pod", "services": "Service", "configmaps": "ConfigMap",
+            "secrets": "Secret", "events": "Event",
+            "elasticjobs": "ElasticJob", "scaleplans": "ScalePlan"}
+_KUBE_PATH = re.compile(
+    r"^/(?:api/v1|apis/[^/]+/[^/]+)/namespaces/(?P<ns>[^/]+)/"
+    r"(?P<plural>[^/?]+)(?:/(?P<name>[^/?]+?))?(?P<sub>/status)?$")
 
 
-def autoscale_agent(spec_path, node):
-    """A node of the autoscale phase (a process of its own): the port's
-    launcher, its ``ParalConfigTuner`` polling every
-    ``AUTOSCALE_POLL_S``. Node 0 starts the local master in cluster mode
-    on the spec's port, whose auto-scaler's ``ScalePlan`` reaches this
-    platform's scaler: one more agent (node 1, this function again)
-    started a worker the plan adds (the Kubernetes binding is ROADMAP
-    A24). The scaler's lines start with ``[platform]``."""
-    from dlrover_tpu_torch.agent import launcher
+class _KubeHandler(BaseHTTPRequestHandler):
+    """The Kubernetes REST protocol over the server's ``fake`` store (the
+    port's ``FakeKubeApi``): JSON bodies, ``labelSelector`` queries, the
+    ``/status`` subresource, 401/404/409/410 statuses and chunked
+    ``?watch=1`` streams with resourceVersions. The server's attributes
+    can play an API server's other behaviours: ``expire_below_rv`` (a
+    history window: an older watch resume point gets 410 Gone),
+    ``rv_prefix`` (opaque, non-numeric rvs), ``send_bookmarks``,
+    ``drop_streams`` and ``drop_after_each`` (streams cut at once or
+    after each event); ``seen_watch_kind_rvs`` lists the resume points
+    watches asked for."""
+
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, *a):
+        pass
+
+    def _send(self, code, obj):
+        raw = json.dumps(obj).encode()
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(raw)))
+        self.end_headers()
+        self.wfile.write(raw)
+
+    def _route(self):
+        """(kind, namespace, name, query, selector, status subresource),
+        or None once an error is sent."""
+        if self.headers.get("Authorization") != f"Bearer {self.server.token}":
+            self._send(401, {"kind": "Status", "code": 401})
+            return None
+        parsed = urllib.parse.urlparse(self.path)
+        m = _KUBE_PATH.match(parsed.path)
+        if not m or m.group("plural") not in _PLURALS:
+            self._send(404, {"kind": "Status", "code": 404})
+            return None
+        q = {k: v[0] for k, v in urllib.parse.parse_qs(parsed.query).items()}
+        sel = (dict(pair.split("=", 1)
+                    for pair in q["labelSelector"].split(","))
+               if "labelSelector" in q else None)
+        return (_PLURALS[m.group("plural")], m.group("ns"), m.group("name"),
+                q, sel, bool(m.group("sub")))
+
+    def _body(self, kind):
+        n = int(self.headers.get("Content-Length", 0))
+        manifest = json.loads(self.rfile.read(n))
+        manifest["kind"] = kind
+        return manifest
+
+    def _rv_out(self, rv):
+        return f"{getattr(self.server, 'rv_prefix', '')}{rv}"
+
+    def _rv_in(self, raw):
+        prefix = getattr(self.server, "rv_prefix", "")
+        if prefix and raw.startswith(prefix):
+            raw = raw[len(prefix):]
+        return int(raw) if raw.isdigit() else 0
+
+    def _chunk(self, payload):
+        raw = (json.dumps(payload) + "\n").encode()
+        self.wfile.write(f"{len(raw):x}\r\n".encode() + raw + b"\r\n")
+        self.wfile.flush()
+
+    def do_GET(self):  # noqa: N802
+        route = self._route()
+        if route is None:
+            return
+        kind, ns, name, q, sel, _ = route
+        fake = self.server.fake
+        if name:
+            obj = fake.get(kind, name, ns)
+            if obj is None:
+                self._send(404, {"kind": "Status", "code": 404})
+            else:
+                self._send(200, obj)
+            return
+        if q.get("watch") == "1":
+            self._watch(kind, ns, sel, q.get("resourceVersion", "0"))
+            return
+        items = fake.list(kind, ns, label_selector=sel)
+        for it in items:  # list items come without their kind
+            it.pop("kind", None)
+        self._send(200, {"kind": f"{kind}List", "items": items,
+                         "metadata": {"resourceVersion":
+                                      self._rv_out(fake.latest_rv())}})
+
+    def _watch(self, kind, ns, sel, raw_rv):
+        server = self.server
+        server.seen_watch_kind_rvs.append((kind, raw_rv))
+        since = self._rv_in(raw_rv)
+        if getattr(server, "expire_below_rv", 0) > since > 0:
+            self._send(410, {"kind": "Status", "code": 410})
+            return
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Transfer-Encoding", "chunked")
+        self.end_headers()
+        if getattr(server, "drop_streams", False):
+            self.wfile.write(b"0\r\n\r\n")
+            self.wfile.flush()
+            return
+        stop = _Either(threading.Event(), server.closing)
+        try:
+            for ev in server.fake.watch(kind=kind, namespace=ns,
+                                        label_selector=sel, since_rv=since,
+                                        stop=stop, poll_s=0.05):
+                obj = dict(ev.obj)
+                obj.setdefault("metadata", {})["resourceVersion"] = (
+                    self._rv_out(ev.resource_version))
+                obj.pop("kind", None)
+                self._chunk({"type": ev.type, "object": obj})
+                if getattr(server, "send_bookmarks", False):
+                    self._chunk({"type": "BOOKMARK", "object": {"metadata": {
+                        "resourceVersion": self._rv_out(
+                            ev.resource_version)}}})
+                if getattr(server, "drop_after_each", False):
+                    self.wfile.write(b"0\r\n\r\n")
+                    self.wfile.flush()
+                    return
+        except (BrokenPipeError, ConnectionResetError):
+            pass
+        finally:
+            stop.first.set()
+
+    def do_POST(self):  # noqa: N802
+        route = self._route()
+        if route is None:
+            return
+        try:
+            out = self.server.fake.create(self._body(route[0]))
+        except ValueError:
+            self._send(409, {"kind": "Status", "code": 409})
+            return
+        self._send(201, out)
+
+    def do_PUT(self):  # noqa: N802
+        route = self._route()
+        if route is None:
+            return
+        kind, ns, name, _, _, sub = route
+        manifest = self._body(kind)
+        fake = self.server.fake
+        if sub:  # the status subresource persists .status alone
+            out = fake.update_status(kind, name, manifest.get("status") or {},
+                                     ns)
+        else:
+            try:
+                out = fake.update(manifest)
+            except KeyError:
+                out = None
+        if out is None:
+            self._send(404, {"kind": "Status", "code": 404})
+        else:
+            self._send(200, out)
+
+    def do_DELETE(self):  # noqa: N802
+        route = self._route()
+        if route is None:
+            return
+        kind, ns, name, _, _, _ = route
+        self.server.fake.delete(kind, name, ns)
+        self._send(200, {"kind": "Status", "status": "Success"})
+
+
+class _Either:
+    """A stop flag set when either event is."""
+
+    def __init__(self, first, second):
+        self.first, self.second = first, second
+
+    def is_set(self):
+        return self.first.is_set() or self.second.is_set()
+
+
+class KubeFacade:
+    """An API server double: the port's ``FakeKubeApi`` behind the
+    Kubernetes REST protocol (``_KubeHandler``) on 127.0.0.1, taking the
+    bearer ``token``. ``start()`` returns its URL; ``stop()`` ends it and
+    every watch stream it serves."""
+
+    def __init__(self, token, fake=None):
+        from http.server import ThreadingHTTPServer
+
+        from dlrover_tpu_torch.cluster.kube import FakeKubeApi
+
+        self.fake = fake or FakeKubeApi()
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), _KubeHandler)
+        self.server.daemon_threads = True
+        self.server.fake = self.fake
+        self.server.token = token
+        self.server.closing = threading.Event()
+        self.server.seen_watch_kind_rvs = []
+        self.url = f"http://127.0.0.1:{self.server.server_address[1]}"
+        self._thread = None
+
+    def start(self):
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+        return self.url
+
+    def stop(self):
+        self.server.closing.set()
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class Kubelet:
+    """The kubelet double of the autoscale phase: it watches the ``api``
+    store's Pods, runs each new pod's container command as a process
+    with the pod's environment (``secretKeyRef`` values read from the
+    Secret in the store, a Service's ``<name>.<namespace>.svc`` resolved
+    to 127.0.0.1), sets the pod ``Running`` when the process starts and
+    ``Succeeded`` or ``Failed`` (reason ``Completed``/``Error``) when it
+    exits, and stops a deleted pod's process. One host stands in for
+    many here, so each pod also gets what its own filesystem would give
+    it: its own socket directory, parallel-config document and run id
+    (the operator gives every pod the job's name, and segments named
+    after it would collide), and its own address. Every line a pod
+    prints goes to ``lines`` as (time, line, pod) and to ``log`` with
+    the pod's name; the kubelet's own lines start with ``[kubelet]``.
+    ``pods`` records each pod: its node id, when it was added, started,
+    exited and deleted, and its exit code."""
+
+    def __init__(self, api, workdir, env, lines, log, deadline_s,
+                 namespace="default"):
+        self.api, self.workdir, self.env = api, workdir, env
+        self.lines, self.log, self.ns = lines, log, namespace
+        self.deadline_s = deadline_s
+        self.pods = {}
+        self._procs = {}
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = []
+
+    def say(self, text):
+        line = f"[kubelet] {text} at={time.time():.6f}\n"
+        self._emit(line, "kubelet")
+
+    def _emit(self, line, pod):
+        with self._lock:
+            self.lines.append((time.time(), line, pod))
+            self.log.write(line if pod == "kubelet" else f"[{pod}] {line}")
+            self.log.flush()
+
+    def start(self):
+        t = threading.Thread(target=self._watch, name="kubelet", daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def _watch(self):
+        for ev in self.api.watch(kind="Pod", namespace=self.ns, since_rv=0,
+                                 stop=self._stop, poll_s=0.05):
+            name = ev.name
+            if ev.type == "ADDED" and name not in self.pods:
+                self._run_pod(ev.obj)
+            elif ev.type == "DELETED" and name in self.pods:
+                self.pods[name]["deleted_at"] = time.time()
+                self.say(f"pod {name} deleted")
+                proc = self._procs.get(name)
+                if proc is not None and proc.poll() is None:
+                    proc.terminate()
+
+    def _resolve_env(self, pod):
+        env = dict(self.env)
+        cont = pod["spec"]["containers"][0]
+        for e in cont.get("env") or []:
+            ref = (e.get("valueFrom") or {}).get("secretKeyRef")
+            if ref is None:
+                env[e["name"]] = str(e.get("value", ""))
+                continue
+            secret = self.api.get("Secret", ref["name"], self.ns)
+            if secret is None:
+                raise KeyError(f"secret {ref['name']} not found")
+            if ref["key"] in (secret.get("stringData") or {}):
+                env[e["name"]] = secret["stringData"][ref["key"]]
+            else:
+                import base64
+
+                env[e["name"]] = base64.b64decode(
+                    secret["data"][ref["key"]]).decode()
+        hosts = [f"{s['metadata']['name']}.{self.ns}.svc"
+                 for s in self.api.list("Service", self.ns)]
+        cmd = list(cont["command"])
+        for host in hosts:
+            env = {k: v.replace(host, "127.0.0.1") for k, v in env.items()}
+            cmd = [a.replace(host, "127.0.0.1") for a in cmd]
+        name = pod["metadata"]["name"]
+        own = os.path.join(self.workdir, name)
+        os.makedirs(own, exist_ok=True)
+        env.update(DLROVER_TPU_SOCK_DIR=os.path.join(own, "sock"),
+                   DLROVER_TPU_PARAL_CONFIG=os.path.join(own, "paral.json"),
+                   DLROVER_TPU_RUN_ID=name,
+                   DLROVER_TPU_HOST_ADDR="127.0.0.1")
+        return cmd, env
+
+    def _run_pod(self, pod):
+        name = pod["metadata"]["name"]
+        rec = self.pods[name] = {"added_at": time.time()}
+        self.say(f"pod {name} added")
+        try:
+            cmd, env = self._resolve_env(pod)
+        except KeyError as e:
+            self.api.set_pod_phase(name, "Failed", "CreateContainerConfigError",
+                                   self.ns)
+            self.say(f"pod {name} failed: {e}")
+            rec.update(rc=None, exited_at=time.time())
+            return
+        rec["node_id"] = env.get("DLROVER_TPU_NODE_ID")
+        try:
+            proc = subprocess.Popen(
+                ["timeout", "-k", "10", str(self.deadline_s)] + cmd,
+                env=env, cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        except OSError as e:
+            self.api.set_pod_phase(name, "Failed", "StartError", self.ns)
+            self.say(f"pod {name} failed to start: {e}")
+            rec.update(rc=None, exited_at=time.time())
+            return
+        self._procs[name] = proc
+        rec.update(started_at=time.time(), pid=proc.pid)
+        self.api.set_pod_phase(name, "Running", namespace=self.ns)
+        self.say(f"pod {name} started pid={proc.pid}")
+        t = threading.Thread(target=self._follow, args=(name, proc),
+                             daemon=True)
+        t.start()
+        self._threads.append(t)
+
+    def _follow(self, name, proc):
+        for line in proc.stdout:
+            self._emit(line, name)
+        rc = proc.wait()
+        rec = self.pods[name]
+        rec.update(rc=rc, exited_at=time.time())
+        self.say(f"pod {name} exited rc={rc}")
+        if "deleted_at" not in rec:
+            try:
+                self.api.set_pod_phase(name, "Succeeded" if rc == 0
+                                       else "Failed",
+                                       "Completed" if rc == 0 else "Error",
+                                       self.ns)
+            except KeyError:
+                pass  # deleted meanwhile
+
+    def running(self):
+        """The pods added and not yet exited."""
+        return [n for n, r in list(self.pods.items()) if "exited_at" not in r]
+
+    def stop(self):
+        """Stop watching and kill what still runs."""
+        self._stop.set()
+        for proc in self._procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for t in self._threads:
+            t.join(10)
+
+
+def autoscale_master(argv):
+    """The master pod's command in the autoscale phase (``chip_smoke.py
+    --autoscale-master``): the port's ``DistributedJobMaster`` with the
+    platform attached as the JAX package's tests attach it — a scaler
+    whose ``scale(plan)`` posts ``SliceScaler.to_scale_plan_crd(plan)``
+    through ``RealKubeApi`` (the operator's reconciler acts on it) and a
+    ``PodWatcher`` over ``RealKubeApi`` feeding the job manager's
+    ``process_event``. The API token comes from ``KUBE_TOKEN_ENV``. Its
+    lines start with ``[master]``."""
+    from dlrover_tpu_torch.cluster.crd import ElasticJob
+    from dlrover_tpu_torch.cluster.kube import PodWatcher
+    from dlrover_tpu_torch.cluster.kube_http import RealKubeApi
+    from dlrover_tpu_torch.cluster.scaler import SliceScaler
+    from dlrover_tpu_torch.master.master import DistributedJobMaster
     from dlrover_tpu_torch.master.node_manager import Scaler
 
-    with open(spec_path) as f:
-        spec = json.load(f)
-    nnodes = f"1:{spec['max_nodes']}"
-    master_addr = f"localhost:{spec['master_port']}"
-    flags = ["--nnodes", nnodes, "--node-id", str(node), "--nproc", "1",
-             "--max-restarts", "0", "--monitor-interval", "0.2"]
-    if node:
-        return launcher.run(launcher.parse_args(
-            flags + ["--master-addr", master_addr, "--", *spec["worker"]]),
-            config_interval_s=AUTOSCALE_POLL_S)
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --autoscale-master")
+    ap.add_argument("--kube-url", required=True)
+    ap.add_argument("--namespace", default="default")
+    ap.add_argument("--job-name", required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--num-workers", type=int, default=1)
+    ap.add_argument("--max-workers", type=int, default=1)
+    ap.add_argument("--optimize-mode", default="single-job")
+    ap.add_argument("--brain-addr", default="")
+    args = ap.parse_args(argv)
+    api = RealKubeApi(args.kube_url, token=os.environ[KUBE_TOKEN_ENV])
+    job = ElasticJob.from_manifest(api.get("ElasticJob", args.job_name,
+                                           args.namespace))
+    render = SliceScaler(job)
 
-    class GrowScaler(Scaler):
+    class CrdScaler(Scaler):
         def __init__(self):
-            self.agents = []
+            self.posted = 0
 
         def scale(self, plan):
-            print(f"[platform] scale plan worker_num={plan.worker_num} "
-                  f"launch={len(plan.launch_nodes)} at={time.time():.6f}",
-                  flush=True)
-            while (plan.worker_num is not None
-                   and 1 + len(self.agents) < plan.worker_num):
-                node = 1 + len(self.agents)
-                env = dict(os.environ,
-                           DLROVER_TPU_RUN_ID=f"{spec['run']}_n{node}",
-                           DLROVER_TPU_SOCK_DIR=os.path.join(
-                               spec["out"], f"sock{node}"),
-                           DLROVER_TPU_PARAL_CONFIG=os.path.join(
-                               spec["out"], f"paral_n{node}.json"))
-                self.agents.append(subprocess.Popen(
-                    [sys.executable, os.path.abspath(__file__),
-                     "--autoscale-agent", spec_path, "--rank", str(node)],
-                    env=env))
-                print(f"[platform] started node {node}'s agent "
-                      f"at={time.time():.6f}", flush=True)
+            at = time.time()
+            self.posted += 1
+            crd = render.to_scale_plan_crd(plan)
+            crd.name = f"{job.name}-scaleplan-{self.posted}"
+            api.create(crd.to_manifest())
+            print(f"[master] scale plan {crd.name} "
+                  f"worker_num={plan.worker_num} "
+                  f"launch={len(plan.launch_nodes)} at={at:.6f} "
+                  f"posted={time.time():.6f}", flush=True)
 
-    scaler = GrowScaler()
-    rc = launcher.run(launcher.parse_args(
-        flags + ["--optimize-mode", "cluster", "--brain-addr", spec["brain"],
-                 "--", *spec["worker"]]), scaler=scaler,
-        master_port=spec["master_port"], config_interval_s=AUTOSCALE_POLL_S)
-    rcs = []
-    for p in scaler.agents:
-        try:
-            rcs.append(p.wait(120))
-        except subprocess.TimeoutExpired:
-            p.kill()
-            rcs.append(p.wait())
-    print("[platform] done " + json.dumps({"node0_rc": rc,
-                                           "agent_rcs": rcs}), flush=True)
-    return rc
+    master = DistributedJobMaster(
+        port=args.port, num_workers=args.num_workers,
+        max_workers=args.max_workers, scaler=CrdScaler(),
+        optimize_mode=args.optimize_mode, brain_addr=args.brain_addr,
+        job_name=args.job_name)
+    watcher = PodWatcher(api, job.name, master.job_manager.process_event,
+                         namespace=args.namespace)
+    master.prepare()
+    watcher.start()
+    print(f"[master] DLROVER_TPU_MASTER_ADDR={master.addr}", flush=True)
+    try:
+        reason = master.run()
+    finally:
+        watcher.stop()
+    print(f"[master] exit reason {reason}", flush=True)
+    return 0 if reason == "succeeded" else 1
+
+
+def autoscale_launcher(argv):
+    """A worker pod's command in the autoscale phase (``chip_smoke.py
+    --autoscale-launcher``): the port's launcher on ``argv``, its
+    ``ParalConfigTuner`` polling every ``AUTOSCALE_POLL_S`` (the
+    launcher's command line keeps the JAX launcher's 30 s)."""
+    from dlrover_tpu_torch.agent import launcher
+
+    return launcher.run(launcher.parse_args(argv),
+                        config_interval_s=AUTOSCALE_POLL_S)
 
 
 def autoscale_reference(cfg, seed, dev, steps, overrides=(), reverse=False):
@@ -6255,54 +6641,106 @@ def autoscale_reference(cfg, seed, dev, steps, overrides=(), reverse=False):
     return out
 
 
-def _autoscale_wait(lines, pattern, deadline, proc):
-    """The first match of ``pattern`` among ``lines`` (a list another
-    thread appends (time, line) to), or None at the deadline or once
-    ``proc`` has exited without it."""
+def _autoscale_wait(lines, pattern, deadline, done, pod=None):
+    """The first match of ``pattern`` among ``lines`` (a list other
+    threads append (time, line, pod) to; only ``pod``'s lines when
+    given) as (time, match), or None at the deadline or once ``done()``
+    holds and every line has been read."""
     seen = 0
     while time.monotonic() < deadline:
         while seen < len(lines):
-            m = pattern.search(lines[seen][1])
+            at, line, who = lines[seen]
             seen += 1
+            m = pattern.search(line) if pod in (None, who) else None
             if m:
-                return m
-        if proc.poll() is not None and seen >= len(lines):
+                return at, m
+        if done() and seen >= len(lines):
             return None
         time.sleep(0.05)
     return None
 
 
+def _autoscale_job(name, url, master_port, worker, job_env, network_check):
+    """The phase's ElasticJob: one worker replica growing to two nodes of
+    one GPU each (``max_hosts`` 2, ``optimizeMode: cluster``), each node
+    the port's launcher (``autoscale_launcher``, with ``--network-check``
+    when ``network_check``) running ``worker``, and a user-declared
+    master replica (``autoscale_master``) reading the API token from a
+    Secret the phase writes."""
+    from dlrover_tpu_torch.cluster.crd import (
+        ElasticJob,
+        ElasticJobSpec,
+        GPUSliceSpec,
+        ReplicaSpec,
+    )
+
+    here = os.path.abspath(__file__)
+    node = [sys.executable, here, "--autoscale-launcher", "--nnodes", "1:2",
+            "--nproc", "1", "--max-restarts", "0", "--monitor-interval",
+            "0.2"]
+    if network_check:
+        node.append("--network-check")
+    master = [sys.executable, here, "--autoscale-master", "--kube-url", url,
+              "--job-name", name, "--port", str(master_port),
+              "--num-workers", "1", "--max-workers", "2"]
+    gpu = GPUSliceSpec(gpus_per_host=1)
+    return ElasticJob(name, spec=ElasticJobSpec(
+        optimize_mode="cluster", min_hosts=1, max_hosts=2, replica_specs={
+            "worker": ReplicaSpec(replicas=1, image="chip-smoke",
+                                  command=node + ["--", *worker],
+                                  env=dict(job_env), slice=gpu),
+            "master": ReplicaSpec(replicas=1, image="chip-smoke",
+                                  command=master, cpu="2", memory="4Gi",
+                                  env=dict(job_env), secret_env={
+                                      KUBE_TOKEN_ENV: (f"{name}-api-token",
+                                                       "token")})}))
+
+
 def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
                     train_peak_bytes=None):
-    """The master's planning loop on the card. A Brain process (``python
-    -m dlrover_tpu_torch.cluster.brain``); node 0: the port's launcher
-    with its local master in cluster mode (``--nnodes 1:2
-    --optimize-mode cluster --brain-addr``: ``JobAutoScaler`` over a
-    ``BrainClient``) and, acting as the platform, a scaler that starts
-    one more agent a worker a ``ScalePlan`` adds (``autoscale_agent``).
-    The worker: the elastic example's ``--micro-batch`` loop
-    (``ElasticTrainer``, the replicated step, every rank on card 0 over
-    gloo), llama-1.4b at full width, ``AUTOSCALE_LAYERS`` layers,
-    remat "full", the global batch ``TRAIN_BATCH`` × ``TRAIN_SEQ`` at
-    every world size; after step ``AUTOSCALE_GROW_AT`` (staged to memory;
-    the checkpoints on /dev/shm) it holds until the world grows. The
-    Brain plans 2 from the job's speed, the auto-scaler clamps it to
-    [1, 2], the scaler starts node 1's agent, node 0's agent persists
-    the staged step and both restart into dp 2 (the accumulation
-    re-derived). After the first dp-2 step this process plays the
-    failure classifier: a ``BrainTuner`` held on the job's plan (remat
-    "full", micro-batch ``AUTOSCALE_MICRO``) is given a planted OOM
-    (``on_failure("oom")``: the drill tests the loop, not an OOM); the
-    revision (the micro-batch halved) is versioned by the master's
-    ``plan_tuning`` (``brain.master_report``), the agents'
-    ``ParalConfigTuner`` write it, and each worker rebuilds its step
-    once at a step boundary (``ElasticTrainer.apply_tuning``). Every
+    """The master's planning loop on the card, under the operator. This
+    process holds the API server (``KubeFacade``, the port's
+    ``FakeKubeApi`` over HTTP) and the kubelet (``Kubelet``); a Brain
+    process (``python -m dlrover_tpu_torch.cluster.brain``) and the
+    operator (``python -m dlrover_tpu_torch.cluster.operator``, leader
+    on its lease, the Brain's address to append to a cluster-mode
+    master) run beside them. The phase applies an ElasticJob
+    (``_autoscale_job``) over HTTP: the operator mints the job's wire
+    token Secret and creates the master pod (``autoscale_master``: the
+    port's ``DistributedJobMaster``, its auto-scaler over a
+    ``BrainClient``, its scaler posting ScalePlan CRDs, its pod watcher),
+    the master Service and worker pod 0, which the kubelet starts. Node
+    0's launcher runs the network check on the card, then the worker:
+    the elastic example's ``--micro-batch`` loop (``ElasticTrainer``,
+    the replicated step, every rank on card 0 over gloo), llama-1.4b at
+    full width, ``AUTOSCALE_LAYERS`` layers, remat "full", the global
+    batch ``TRAIN_BATCH`` × ``TRAIN_SEQ`` at every world size; after
+    step ``AUTOSCALE_GROW_AT`` (staged to memory; the checkpoints on
+    /dev/shm) it holds until the world grows. The Brain plans 2, the
+    auto-scaler clamps it to [1, 2], the master posts a ScalePlan, the
+    operator's reconciler creates pod 1 and marks the plan
+    ``Succeeded``, the kubelet starts node 1, which passes its network
+    check and joins; node 0's agent persists the staged step and both
+    restart into dp 2 (the accumulation re-derived). After the first
+    dp-2 step this process plays the failure classifier: a
+    ``BrainTuner`` held on the job's plan (remat "full", micro-batch
+    ``AUTOSCALE_MICRO``) is given a planted OOM (``on_failure("oom")``:
+    the drill tests the loop, not an OOM); the revision (the micro-batch
+    halved) is versioned by the master's ``plan_tuning``
+    (``brain.master_report``), the agents' ``ParalConfigTuner`` write
+    it, and each worker rebuilds its step once at a step boundary
+    (``ElasticTrainer.apply_tuning``). When the job has ended the phase
+    deletes the ElasticJob; the operator tears down its pods, Service,
+    Secret and ScalePlans, and the operator is stopped (SIGTERM). Every
     step's loss and grad norm are held to ``autoscale_reference`` (one
     process, the same global batches) within the reshard phase's
     tolerances; ``order_spread`` reads the reference against itself at
-    the revised micro-batch, its micro-batches reversed. ``device``, ``overrides`` serve a rehearsal
-    on the CPU at a cut size."""
+    the revised micro-batch, its micro-batches reversed. ``device``,
+    ``overrides`` serve a rehearsal on the CPU at a cut size, where the
+    nodes run without ``--network-check`` (the node check needs a GPU)."""
+    import secrets
     import shutil
+    import signal
     import tempfile
 
     from dlrover_tpu_torch.agent.master_client import MasterClient
@@ -6312,13 +6750,14 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
         estimate_hbm_bytes,
         master_report,
     )
+    from dlrover_tpu_torch.cluster.kube import JOB_LABEL
+    from dlrover_tpu_torch.cluster.kube_http import RealKubeApi
     from dlrover_tpu_torch.common.multi_process import (
         attach_shared_memory,
         unlink_shared_memory,
     )
     from dlrover_tpu_torch.examples.train_gpt_elastic import launches
     from dlrover_tpu_torch.models.config import get_config
-    from dlrover_tpu_torch.ops import flash_attention as fa
 
     here = os.path.dirname(os.path.abspath(__file__))
     log_dir = os.path.join(here, "build", "chip_smoke")
@@ -6327,17 +6766,20 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
     shm_dir = "/dev/shm" if os.path.isdir("/dev/shm") else None
     ckpt_dir = tempfile.mkdtemp(prefix="dlrover_autoscale_ckpt_",
                                 dir=shm_dir)
-    run = f"chip_smoke_autoscale_{os.getpid()}"
+    job_name = f"autoscale-{os.getpid()}"
     trace_dir = os.path.join(out, "trace")
     os.makedirs(trace_dir)
-    env = dict(os.environ, DLROVER_TPU_COORDINATOR_PORT="0",
-               DLROVER_TPU_TRACE_DIR=trace_dir, TMPDIR=out,
-               DLROVER_TPU_CTX_AUTOSCALE_INTERVAL_S=str(AUTOSCALE_INTERVAL_S),
-               DLROVER_TPU_CTX_RDZV_WAIT_EXTRA_NODES_S="1",
-               DLROVER_TPU_RUN_ID=f"{run}_n0",
-               DLROVER_TPU_SOCK_DIR=os.path.join(out, "sock0"),
-               DLROVER_TPU_PARAL_CONFIG=os.path.join(out, "paral_n0.json"))
-    env.pop("DLROVER_TPU_MASTER_ADDR", None)
+    network_check = device != "cpu"
+    # what every pod of the job is given: the drill's periods and the
+    # trace directory (the job's env), on the machine's own (the image's)
+    job_env = {"DLROVER_TPU_COORDINATOR_PORT": "0",
+               "DLROVER_TPU_TRACE_DIR": trace_dir,
+               "DLROVER_TPU_CTX_AUTOSCALE_INTERVAL_S":
+                   str(AUTOSCALE_INTERVAL_S),
+               "DLROVER_TPU_CTX_RDZV_WAIT_EXTRA_NODES_S": "1"}
+    host_env = {k: v for k, v in os.environ.items()
+                if not k.startswith("DLROVER_TPU_")}
+    host_env["TMPDIR"] = out
     worker = [sys.executable, "-m",
               "dlrover_tpu_torch.examples.train_gpt_elastic", "--model",
               cfg.name, "--override", f"n_layer={cfg.n_layer}",
@@ -6349,15 +6791,12 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
               "--one-card", "--device", device]
     for item in overrides:
         worker += ["--override", item]
-    spec_path = os.path.join(out, "spec.json")
-    with open(spec_path, "w") as f:
-        json.dump({"worker": worker, "max_nodes": 2, "run": run, "out": out,
-                   "brain": "", "master_port": _free_port()}, f)
     full = get_config(cfg.name, max_seq=TRAIN_SEQ)
     rec = {"phase": name, "config": cfg.name, "n_layer": cfg.n_layer,
            "remat": "full", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "steps": AUTOSCALE_STEPS, "grow_at": AUTOSCALE_GROW_AT,
-           "micro": AUTOSCALE_MICRO, "nodes": "1:2",
+           "micro": AUTOSCALE_MICRO, "nodes": "1:2", "job": job_name,
+           "network_check": network_check,
            "autoscale_interval_s": AUTOSCALE_INTERVAL_S,
            "config_poll_s": AUTOSCALE_POLL_S, "card": nvidia_smi_line(),
            # the cold-start planner's memory model against the full-depth
@@ -6371,54 +6810,104 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
                    full, 8, TRAIN_SEQ, "none", state_dtype="float32"),
                "train_phase_peak_bytes": train_peak_bytes}}
     lines, procs, files = [], [], []
+    token = secrets.token_hex(16)
+    facade = KubeFacade(token)
+    store = facade.fake
+    status_seen, plan_phases = [], {}
+    polling = threading.Event()
 
-    def pump(stream, f):
+    def poll_status():
+        """The job's status and its ScalePlans' phases as the store
+        holds them, every 0.1 s."""
+        while not polling.wait(0.1):
+            ej = store.get("ElasticJob", job_name) or {}
+            workers = (ej.get("status") or {}).get(
+                "replicaStatuses", {}).get("worker", {})
+            if not status_seen or status_seen[-1][1] != workers:
+                status_seen.append((time.time(), workers))
+            for sp in store.list("ScalePlan",
+                                 label_selector={JOB_LABEL: job_name}):
+                plan_phases[sp["metadata"]["name"]] = (
+                    sp.get("status") or {}).get("phase", "")
+
+    def pump(stream, f, who):
         for line in stream:
-            lines.append((time.time(), line))
+            lines.append((time.time(), line, who))
             f.write(line)
             f.flush()
 
     log_path = os.path.join(log_dir, f"{name}_log.txt")
-    brain_log = os.path.join(log_dir, f"{name}_brain.txt")
     t0 = time.perf_counter()
     deadline = time.monotonic() + AUTOSCALE_TIMEOUT_S
+    kubelet = operator = None
     client = None
     try:
-        f = open(brain_log, "w")
+        url = facade.start()
+        api = RealKubeApi(url, token=token)
+        f = open(os.path.join(log_dir, f"{name}_brain.txt"), "w")
         files.append(f)
         brain = subprocess.Popen(
             ["timeout", "-k", "10", str(AUTOSCALE_TIMEOUT_S + 30),
              sys.executable, "-m", "dlrover_tpu_torch.cluster.brain",
              "--port", str(_free_port())], cwd=here,
-            stdout=subprocess.PIPE, stderr=f, text=True, env=env)
+            stdout=subprocess.PIPE, stderr=f, text=True, env=host_env)
         procs.append(brain)
         brain_addr = brain.stdout.readline().strip().split("=", 1)[-1]
         rec["brain_addr"] = brain_addr
-        with open(spec_path) as g:
-            spec = json.load(g)
-        spec["brain"] = brain_addr
-        with open(spec_path, "w") as g:
-            json.dump(spec, g)
         f = open(log_path, "w")
         files.append(f)
-        agent = subprocess.Popen(
-            ["timeout", "-k", "10", str(AUTOSCALE_TIMEOUT_S), sys.executable,
-             os.path.abspath(__file__), "--autoscale-agent", spec_path],
-            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True, env=env)
-        procs.append(agent)
-        reader = threading.Thread(target=pump, args=(agent.stdout, f),
-                                  daemon=True)
-        reader.start()
-        master = _autoscale_wait(
-            lines, re.compile(r"local master started at (\S+)"), deadline,
-            agent)
+        kubelet = Kubelet(store, out, host_env, lines, f,
+                          AUTOSCALE_TIMEOUT_S)
+        kubelet.start()
+        master_port, health_port = _free_port(), _free_port()
+        g = open(os.path.join(log_dir, f"{name}_operator.txt"), "w")
+        files.append(g)
+        t_op = time.time()
+        operator = subprocess.Popen(
+            ["timeout", "-k", "10", str(AUTOSCALE_TIMEOUT_S + 60),
+             sys.executable, "-m", "dlrover_tpu_torch.cluster.operator",
+             "--kube-url", url, "--token", token, "--brain-addr",
+             brain_addr, "--master-port", str(master_port),
+             "--health-port", str(health_port)], cwd=here,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=host_env)
+        procs.append(operator)
+        threading.Thread(target=pump, args=(operator.stdout, g, "operator"),
+                         daemon=True).start()
+        health = None
+        while time.monotonic() < deadline and operator.poll() is None:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{health_port}/healthz",
+                        timeout=2) as r:
+                    health = json.loads(r.read())
+                if health.get("leading"):
+                    break
+            except OSError:
+                pass
+            time.sleep(0.1)
+        rec["operator_health"] = health
+        rec["operator_leading_s"] = time.time() - t_op
+        threading.Thread(target=poll_status, daemon=True).start()
+        store.create({"apiVersion": "v1", "kind": "Secret",
+                      "metadata": {"name": f"{job_name}-api-token",
+                                   "namespace": "default"},
+                      "type": "Opaque", "stringData": {"token": token}})
+        job = _autoscale_job(job_name, url, master_port, worker, job_env,
+                             network_check)
+        rec["apply_at"] = time.time()
+        api.create(job.to_manifest())
+
+        def ended():  # the job's pods have run, or the operator died
+            return operator.poll() is not None or (
+                bool(kubelet.pods) and not kubelet.running())
+
         grown = _autoscale_wait(
             lines, re.compile(r"\[worker\] elastic step=\d+ rank=0 world=2 "),
-            deadline, agent)
-        if master is not None and grown is not None:
+            deadline, ended)
+        if grown is not None:
             # the failure classifier's verdict, planted
-            client = MasterClient(master.group(1), node_id=0)
+            client = MasterClient(f"127.0.0.1:{master_port}", node_id=0)
             tuner = BrainTuner(TuningPlan(version=0, remat="full",
                                           batch_size=AUTOSCALE_MICRO),
                                report=master_report(client), cooldown_s=0.0)
@@ -6428,14 +6917,37 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
                                "batch_size": rev.batch_size,
                                "reason": rev.reason}
             rec["master_tuning_version"] = client.get_tuning().version
+        # the job ends: every pod's process exits
+        while time.monotonic() < deadline and not ended():
+            time.sleep(0.1)
+        rec["job_s"] = time.time() - rec["apply_at"]
+        rec["delete_at"] = time.time()
+        api.delete("ElasticJob", job_name)
+        torn = time.monotonic() + AUTOSCALE_TEARDOWN_S
+        while time.monotonic() < torn and (kubelet.running() or any(
+                store.list(k, label_selector={JOB_LABEL: job_name})
+                for k in ("Pod", "ScalePlan")) or store.get(
+                    "Service", f"{job_name}-master") or store.get(
+                        "Secret", f"{job_name}-wire-token")):
+            time.sleep(0.05)
+        rec["torn_down_at"] = time.time()
+        operator.send_signal(signal.SIGTERM)
         try:
-            agent.wait(max(1.0, deadline - time.monotonic()))
+            rec["operator_rc"] = operator.wait(
+                max(0.1, torn - time.monotonic()))
         except subprocess.TimeoutExpired:
-            agent.kill()
-            agent.wait()
-        reader.join(30)
+            rec["operator_rc"] = None
+        rec["operator_exited_at"] = time.time()
+        store.delete("Secret", f"{job_name}-api-token")
+        rec["left_in_store"] = {
+            k: [o["metadata"]["name"] for o in store.list(k)]
+            for k in ("Pod", "Service", "Secret", "ScalePlan", "ElasticJob")}
         rec["seconds"] = time.perf_counter() - t0
     finally:
+        polling.set()
+        if kubelet is not None:
+            rec["pods_running_at_end"] = kubelet.running()
+            kubelet.stop()
         for p in procs:
             if p.poll() is None:
                 p.terminate()
@@ -6444,10 +6956,11 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
                 except subprocess.TimeoutExpired:
                     p.kill()
                     p.wait()
+        facade.stop()
         for f in files:
             f.close()
-        leftovers = [f for f in os.listdir("/dev/shm") if run in f] if (
-            shm_dir) else []
+        leftovers = [f for f in os.listdir("/dev/shm")
+                     if job_name in f] if shm_dir else []
         for f in leftovers:
             unlink_shared_memory(attach_shared_memory(f))
         rec["left_behind"] = leftovers
@@ -6457,7 +6970,8 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
             evs = {}
         shutil.rmtree(out, ignore_errors=True)
         shutil.rmtree(ckpt_dir, ignore_errors=True)
-    log = "".join(line for _, line in lines)
+    pods = kubelet.pods if kubelet is not None else {}
+    log = "".join(line for _, line, _ in lines)
     steps = _rank_steps(log)
     shape = {}
     for m in _ELASTIC_STEP.finditer(log):
@@ -6466,17 +6980,32 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
     tuned = [dict(zip(("version", "step", "rank", "micro", "accum"),
                       map(int, m.groups()[:5])), remat=m.group(6),
                   at=float(m.group(7))) for m in _TUNED.finditer(log)]
-    plans = [{"worker_num": None if m.group(1) == "None" else int(m.group(1)),
-              "launch": int(m.group(2)), "at": float(m.group(3))}
+    plans = [{"name": m.group(1),
+              "worker_num": None if m.group(2) == "None" else int(m.group(2)),
+              "launch": int(m.group(3)), "at": float(m.group(4)),
+              "posted": float(m.group(5))}
              for m in _SCALE_PLAN.finditer(log)]
     brain_plans = [int(x) for x in re.findall(
         r"auto-scale: plan wants (\d+) workers", log)]
     scaled = [(int(a), int(b)) for a, b in re.findall(
         r"auto-scale: (\d+) → (\d+) workers", log)]
-    done = re.search(r"\[platform\] done (\{.*\})", log)
-    done = json.loads(done.group(1)) if done else {}
+    agents = sorted(int(x) for x in re.findall(
+        r"agent of node (\d+) exits \(rc 0\)", log))
     spans = [sum(1 for e in p if e["name"] == "brain.tuning_replan")
              for p in evs.get("worker", [])]
+    workers = sorted(n for n in pods if "-worker-" in n)
+    checks_by_pod = {}
+    for at, line, who in lines:
+        m = _NODE_CHECK.search(line)
+        if m:
+            secs, size, iters = float(m.group(1)), int(m.group(2)), int(
+                m.group(3))
+            checks_by_pod.setdefault(who, {}).update(
+                matmul_s=secs, size=size, iters=iters,
+                tflops=2 * size ** 3 * iters / secs / 1e12)
+        if "network check status: normal=" in line:
+            checks_by_pod.setdefault(who, {}).update(
+                normal="normal=True faults=[] " in line, at=at)
     dev = torch.device(device)
     ref = autoscale_reference(cfg, seed, dev, AUTOSCALE_STEPS, overrides)
     reverse = autoscale_reference(cfg, seed, dev, AUTOSCALE_STEPS, overrides,
@@ -6495,14 +7024,55 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
         return sorted(rank0[s] - rank0[s - 1] for s in range(lo, hi + 1)
                       if s in rank0 and s - 1 in rank0)
 
+    def since(t, t_from):
+        return None if t is None or t_from is None else t - t_from
+
+    def pod_time(pod, key):
+        return pods.get(pod, {}).get(key)
+
+    master_pod = f"{job_name}-master"
+    pod1 = f"{job_name}-worker-1"
+    plan_at = plans[0]["at"] if plans else None
+    last_step = rank0.get(max(rank0)) if rank0 else None
+    # the job's status in effect while dp 2 trained: the one written last
+    # before its first step, and any written until its last
+    dp2_status = []
+    if first2 in rank0:
+        lo = rank0[first2]
+        dp2_status = [w for t, w in status_seen if t <= lo][-1:] + [
+            w for t, w in status_seen if lo < t <= last_step]
+    exits = [p.get("exited_at") for p in pods.values()]
     kernels = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "norm_fwd",
                "norm_bwd")
     rec.update({
-        "scale_plans": plans, "platform": done,
+        "scale_plans": plans, "scale_plan_phases": plan_phases,
         # what the Brain planned: every plan the auto-scaler executed
         # (the job's count → the clamped target), and the Brain's own
         # target where the clamp to [1, 2] moved it
         "scaled": scaled, "brain_plans_clamped": brain_plans,
+        "pods": pods, "job_status_seen": status_seen,
+        "node_checks": checks_by_pod,
+        "timeline": {
+            "apply_to_master_running_s": since(pod_time(master_pod,
+                                                        "started_at"),
+                                               rec.get("apply_at")),
+            "apply_to_first_step_s": since(rank0.get(1),
+                                           rec.get("apply_at")),
+            "plan_to_posted_s": since(plans[0]["posted"] if plans else None,
+                                      plan_at),
+            "plan_to_pod1_created_s": since(pod_time(pod1, "added_at"),
+                                            plan_at),
+            "plan_to_node1_started_s": since(pod_time(pod1, "started_at"),
+                                             plan_at),
+            "plan_to_node1_checked_s": since(
+                checks_by_pod.get(pod1, {}).get("at"), plan_at),
+            "plan_to_first_dp2_s": since(rank0.get(first2), plan_at),
+            "delete_to_pods_gone_s": since(rec.get("torn_down_at"),
+                                           rec.get("delete_at")),
+            "delete_to_all_exited_s": since(max(
+                [rec.get("operator_exited_at")]
+                + [x for x in exits if x is not None], default=None),
+                rec.get("delete_at"))},
         "shape": {s: {r: list(x) for r, x in v.items()}
                   for s, v in shape.items()},
         "tuned": tuned, "tuning_replan_spans": spans,
@@ -6514,8 +7084,6 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
              for s, (x, n) in enumerate(reverse, 1)}, ref),
         "tolerances": {"loss": RESHARD_RTOL_LOSS,
                        "grad_norm": RESHARD_RTOL_NORM},
-        "plan_to_first_dp2_s": (rank0[first2] - plans[0]["at"]
-                                if plans and first2 in rank0 else None),
         "revision_to_new_batch_s": (
             rank0[new_batch] - rec["revision_at"]
             if new_batch in rank0 and "revision_at" in rec else None),
@@ -6531,11 +7099,23 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
                  else (2, micro // 2, accum3, rec.get("revision", {}).get(
                      "version", -1))) for r in (0, 1)})
         for s in range(1, AUTOSCALE_STEPS + 1)}
+    deleted = rec.get("delete_at")
     rec["checks"] = checks = {
-        "launchers_rc_0": done.get("node0_rc") == 0
-        and done.get("agent_rcs") == [0],
+        "operator_led": bool((rec.get("operator_health") or {}).get(
+            "leading")),
+        "pods_rc_0": set(pods) == {master_pod, f"{job_name}-worker-0", pod1}
+        and all(p.get("rc") == 0 for p in pods.values()),
+        "node_ids_0_1": [pods[w].get("node_id") for w in workers]
+        == ["0", "1"] and agents == [0, 1],
         "plan_target_2": bool(plans) and plans[0]["worker_num"] == 2
         and scaled[:1] == [(1, 2)],
+        "scale_plan_succeeded": bool(plans) and plan_phases.get(
+            plans[0]["name"]) == "Succeeded",
+        "status_two_running": bool(dp2_status) and all(
+            w.get("Running") == 2 for w in dp2_status),
+        "network_checks_ok": network_check and sorted(checks_by_pod) == workers
+        and all(c.get("normal") and c.get("matmul_s", 0) > 0
+                for c in checks_by_pod.values()),
         "second_worker_joined": first2 == grow + 1,
         "accum_rederived": {s: {r: tuple(x) for r, x in v.items()}
                             for s, v in shape.items()} == want_shape
@@ -6551,6 +7131,13 @@ def autoscale_check(cfg, seed, name="autoscale", device="cuda", overrides=(),
         "kernels_ran": all(
             all(r["launches"].get(k, 0) > 0 for k in kernels)
             for v in steps.values() for r in v.values()),
+        "torn_down_in_30s": deleted is not None
+        and rec["timeline"]["delete_to_all_exited_s"] is not None
+        and rec["timeline"]["delete_to_all_exited_s"]
+        <= AUTOSCALE_TEARDOWN_S and rec.get("operator_rc") == 0
+        and not rec.get("pods_running_at_end")
+        and rec.get("left_in_store") is not None
+        and not any(rec["left_in_store"].values()),
         "nothing_left_behind": rec["left_behind"] == [],
     }
     rec["ok"] = all(checks.values())
@@ -6570,7 +7157,9 @@ PREWARM = (
     "checkpoint(torch.sin, x, use_reentrant=False).sum().backward(); "
     "import dlrover_tpu_torch.examples.train_gpt_elastic, "
     "dlrover_tpu_torch.agent.launcher, dlrover_tpu_torch.checkpoint.saver, "
-    "dlrover_tpu_torch.master.main, dlrover_tpu_torch.cluster.brain")
+    "dlrover_tpu_torch.master.main, dlrover_tpu_torch.cluster.brain, "
+    "dlrover_tpu_torch.cluster.operator, dlrover_tpu_torch.cluster.kube_http, "
+    "dlrover_tpu_torch.agent.node_check")
 
 
 def startup_probe() -> dict:
@@ -6622,6 +7211,10 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv[:1] == ["--zero-fault-worker"]:  # a rank of the fault run
         return zero_fault_worker(argv[1:])
+    if argv[:1] == ["--autoscale-master"]:  # the autoscale phase's pods
+        return autoscale_master(argv[1:])
+    if argv[:1] == ["--autoscale-launcher"]:
+        return autoscale_launcher(argv[1:])
     if argv[:1] == ["--startup-probe"]:  # not part of the smoke run
         emit(startup_probe())
         return 0
@@ -6635,9 +7228,6 @@ def main(argv=None) -> int:
                     help="run one rank of the hybrid_zero phase (internal)")
     ap.add_argument("--mesh4d-worker", default=None,
                     help="run one rank of the mesh4d phase (internal)")
-    ap.add_argument("--autoscale-agent", default=None,
-                    help="run a node of the autoscale phase, --rank its "
-                    "node id (internal)")
     ap.add_argument("--rank", type=int, default=0)
     args = ap.parse_args(argv)
     if args.sp_worker:  # on the device its spec names
@@ -6652,8 +7242,6 @@ def main(argv=None) -> int:
     if args.mesh4d_worker:
         mesh4d_worker(args.mesh4d_worker, args.rank)
         return 0
-    if args.autoscale_agent:
-        return autoscale_agent(args.autoscale_agent, args.rank)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
@@ -6856,9 +7444,11 @@ def main(argv=None) -> int:
         rec = mesh4d_check(args.seed, dev)
         train_launches["mesh4d"] = rec["launches"]
         offset_launches.update(rec["offset_launches"])
-    # the master's planning loop: the Brain and the auto-scaler grow a
-    # llama-1.4b job from one node to two on this card, and a Brain
-    # tuning revision is applied at a step boundary
+    # the master's planning loop under the operator: the Brain and the
+    # auto-scaler grow a llama-1.4b job from one node to two on this card
+    # through a ScalePlan the operator acts on, each node passing the
+    # network check first, and a Brain tuning revision is applied at a
+    # step boundary
     gc.collect()
     torch.cuda.empty_cache()
     with phase("autoscale"):

@@ -70,6 +70,9 @@ class ElasticLaunchConfig:
     monitor_interval_s: float = 2.0
     heartbeat_interval_s: float = DefaultValues.HEARTBEAT_INTERVAL_S
     rdzv_timeout_s: float = DefaultValues.RDZV_TIMEOUT_S
+    network_check: bool = False
+    comm_perf_test: bool = False
+    exclude_straggler: bool = False
     node_unit: int = 1
     coordinator_port: int = -1
     entrypoint: List[str] = field(default_factory=list)

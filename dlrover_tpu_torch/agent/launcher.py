@@ -15,19 +15,25 @@ whatever the platform does with the host). The resource monitor
 master, as the JAX launcher's does. The heartbeat interval is the
 context's (``DLROVER_TPU_CTX_HEARTBEAT_INTERVAL_S``). At exit the
 launcher logs its process's peak resident set (``peak_rss_bytes``).
+``--network-check`` runs the node check (``node_check.py``: a bf16
+matmul chain on the node's GPU and an all-reduce over its GPUs) in two
+rounds of the master's network-check rendezvous before training, and
+the node exits 3 (``check_failed``) when the master finds it faulty or,
+with ``--exclude-straggler``, a straggler; a node without a GPU fails
+the check. ``--comm-perf-test`` logs the all-reduce bandwidth over the
+node's GPUs.
 
 Usage:
     python -m dlrover_tpu_torch.agent.launcher --nnodes 1 --nproc 1 \
         --max-restarts 1 -- python -m \
         dlrover_tpu_torch.examples.train_gpt_elastic --steps 10
-
-``--network-check`` and ``--comm-perf-test`` wait for ROADMAP A20.
 """
 
 import argparse
 import os
 import sys
 import threading
+import time
 from typing import List, Optional
 
 from dlrover_tpu_torch.agent.agent import (
@@ -37,7 +43,16 @@ from dlrover_tpu_torch.agent.agent import (
 from dlrover_tpu_torch.agent.config_tuner import ParalConfigTuner
 from dlrover_tpu_torch.agent.master_client import MasterClient
 from dlrover_tpu_torch.agent.monitor import ResourceMonitor, peak_rss_bytes
-from dlrover_tpu_torch.common.constants import GraftEnv
+from dlrover_tpu_torch.agent.node_check import (
+    run_comm_perf_test,
+    run_node_check,
+)
+from dlrover_tpu_torch.agent.rendezvous import MasterRendezvousHandler
+from dlrover_tpu_torch.common.constants import (
+    GraftEnv,
+    NodeStatus,
+    RendezvousName,
+)
 from dlrover_tpu_torch.common.global_context import get_context
 from dlrover_tpu_torch.common.log import get_logger
 
@@ -63,13 +78,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument(
         "--network-check",
         action="store_true",
-        help="the matmul+collective health check (not ported yet: "
-        "ROADMAP A20)",
+        help="run the matmul+collective health check on the node's GPUs "
+        "before training",
     )
     p.add_argument(
         "--comm-perf-test",
         action="store_true",
-        help="the all-reduce bandwidth sweep (not ported yet: ROADMAP A20)",
+        help="sweep allreduce sizes across the node's GPUs and log bus "
+        "bandwidth before training (reference: dlrover-run "
+        "--comm-perf-test)",
+    )
+    p.add_argument(
+        "--exclude-straggler",
+        action="store_true",
+        help="with --network-check: a node the check flags as a "
+        "straggler exits instead of joining (and slowing) the world "
+        "(reference: dlrover-run --exclude-straggler)",
     )
     p.add_argument("--node-unit", type=int, default=1)
     p.add_argument(
@@ -109,17 +133,16 @@ def _detect_local_chips() -> int:
 
 def _launch_local_master(num_workers: int, max_workers: int, node_unit: int,
                          optimize_mode: str = "single-job",
-                         brain_addr: str = "", scaler=None, port: int = 0):
+                         brain_addr: str = ""):
     """Spin an in-process LocalJobMaster (reference: :237); returns it and
     the thread of its supervision loop."""
     from dlrover_tpu_torch.master.master import LocalJobMaster
 
     master = LocalJobMaster(
-        port=port,
+        port=0,
         num_workers=num_workers,
         max_workers=max_workers,
         node_unit=node_unit,
-        scaler=scaler,
         optimize_mode=optimize_mode,
         brain_addr=brain_addr,
     )
@@ -140,16 +163,51 @@ def _stop_local_master(master, thread, timeout_s: float = 30.0) -> None:
     thread.join(timeout_s)
 
 
-def run(args: argparse.Namespace, scaler=None, master_port: int = 0,
-        config_interval_s: float = 30.0) -> int:
+def _run_network_check(client: MasterClient,
+                       config: ElasticLaunchConfig) -> int:
+    """Two paired check rounds; 3 if this node is declared faulty (or a
+    straggler under ``--exclude-straggler``), else 0."""
+    for _ in range(2):
+        handler = MasterRendezvousHandler(
+            client,
+            client.node_rank,
+            config.local_chips,
+            rdzv_name=RendezvousName.NETWORK_CHECK,
+            timeout_s=config.rdzv_timeout_s,
+        )
+        handler.next_rendezvous()
+        ok, elapsed = run_node_check()
+        client.report_network_check_result(elapsed, ok)
+        time.sleep(1.0)
+    status = client.get_network_check_status()
+    logger.info("network check status: normal=%s faults=%s stragglers=%s",
+                status.normal, status.fault_nodes, status.stragglers)
+    if not status.normal:
+        logger.error(
+            "this node failed the network check (faults=%s); exiting",
+            status.fault_nodes,
+        )
+        client.report_node_status(NodeStatus.CHECK_FAILED)
+        return 3
+    if status.stragglers:
+        logger.warning("stragglers detected: %s", status.stragglers)
+        if (
+            config.exclude_straggler
+            and client.node_rank in status.stragglers
+        ):
+            logger.error(
+                "this node is a straggler and --exclude-straggler is "
+                "set; exiting"
+            )
+            client.report_node_status(NodeStatus.CHECK_FAILED)
+            return 3
+    return 0
+
+
+def run(args: argparse.Namespace, config_interval_s: float = 30.0) -> int:
     """Run this node's agent. Without ``--master-addr`` it starts a local
-    master on ``master_port`` (0: any free port) whose auto-scaler hands
-    its plans to ``scaler`` (a ``NoopScaler`` when None);
-    ``config_interval_s`` is the ``ParalConfigTuner``'s poll period."""
-    if args.network_check or args.comm_perf_test:
-        raise NotImplementedError(
-            "--network-check and --comm-perf-test (agent/node_check.py) "
-            "are not ported yet (ROADMAP A20)")
+    master; ``config_interval_s`` is the ``ParalConfigTuner``'s poll
+    period."""
     min_nodes, max_nodes = _parse_nnodes(args.nnodes)
     node_id = (
         args.node_id
@@ -172,6 +230,9 @@ def run(args: argparse.Namespace, scaler=None, master_port: int = 0,
         max_restarts=args.max_restarts,
         monitor_interval_s=args.monitor_interval,
         heartbeat_interval_s=get_context().heartbeat_interval_s,
+        network_check=args.network_check,
+        comm_perf_test=args.comm_perf_test,
+        exclude_straggler=args.exclude_straggler,
         node_unit=args.node_unit,
         entrypoint=args.entrypoint,
     )
@@ -188,7 +249,7 @@ def run(args: argparse.Namespace, scaler=None, master_port: int = 0,
             return 2
         master, master_thread = _launch_local_master(
             min_nodes, max_nodes, args.node_unit, args.optimize_mode,
-            args.brain_addr, scaler, master_port)
+            args.brain_addr)
         master_addr = master.addr
         # one node: its workers' store is on this host
         os.environ.setdefault("DLROVER_TPU_HOST_ADDR", "localhost")
@@ -204,6 +265,16 @@ def run(args: argparse.Namespace, scaler=None, master_port: int = 0,
         monitor.start()
         tuner = ParalConfigTuner(client, interval_s=config_interval_s)
         tuner.start()
+        if config.network_check:
+            check_rc = _run_network_check(client, config)
+            if check_rc:
+                rc = check_rc
+                return rc
+        if config.comm_perf_test:
+            try:
+                run_comm_perf_test()
+            except Exception:  # noqa: BLE001 — diagnostic, never fatal
+                logger.warning("comm perf test failed", exc_info=True)
         agent = ElasticTrainingAgent(config, client)
         saver = AsyncCheckpointSaver.start_async_saving_ckpt(
             config.local_chips, master_client=client)

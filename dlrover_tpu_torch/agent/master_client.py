@@ -10,9 +10,11 @@ directive (an eviction notice, the plan), the Brain's tuning directives
 (``report_tuning_plan``, ``get_tuning``), the parallel config the
 agent's ``ParalConfigTuner`` polls (``get_parallel_config``) and the
 sparse tier's versions (``bump_ps_version``, ``report_ps_node_version``,
-``get_ps_version``). The serving and network-check calls wait for their
-ROADMAP items (A15, A20); the master answers them with an error naming
-the item, which the transport raises as ``NotImplementedError``.
+``get_ps_version``) and the network check
+(``report_network_check_result``, ``get_network_check_status``). The
+serving calls wait for ROADMAP A15; the master answers them with an
+error naming the item, which the transport raises as
+``NotImplementedError``.
 """
 
 import os
@@ -376,6 +378,22 @@ class MasterClient:
     def get_tuning(self) -> msgs.TuningPlanDirective:
         resp = self._t.get(msgs.TuningPlanRequest(node_id=self.node_id))
         return resp if resp else msgs.TuningPlanDirective()
+
+    def report_network_check_result(
+        self, elapsed_time: float, succeeded: bool
+    ) -> bool:
+        return self._t.report(
+            msgs.NetworkCheckResult(
+                node_id=self.node_id,
+                elapsed_time=elapsed_time,
+                succeeded=succeeded,
+            )
+        )
+
+    def get_network_check_status(self) -> msgs.NetworkCheckStatusResponse:
+        return self._t.get(
+            msgs.NetworkCheckStatusRequest(node_id=self.node_id)
+        )
 
     def get_parallel_config(self) -> msgs.ParallelConfig:
         resp = self._t.get(msgs.ParallelConfigRequest(node_id=self.node_id))

@@ -7,10 +7,10 @@ instantiated. The encoding is byte for byte the JAX package's for the
 messages both packages send; the port registers the messages its
 control plane sends (node lifecycle, rendezvous, the KV store and sync
 barriers, the global step, checkpoint steps, model info, the data-shard
-service, the live-reshard directive, the agent monitor's resource
-stats, the telemetry records a worker forwards, the parallel-config and
-tuning directives, the sparse tier's versions and the Brain service's
-three calls).
+service, the live-reshard directive, the network check's results and
+status, the agent monitor's resource stats, the telemetry records a
+worker forwards, the parallel-config and tuning directives, the sparse
+tier's versions and the Brain service's three calls).
 
 One field is the port's own: ``JoinRendezvousRequest.coordinator_port``
 (the port of the torch.distributed store the joining agent picked). A
@@ -289,6 +289,26 @@ class NumNodesWaitingRequest:
 @message
 class NumNodesWaitingResponse:
     waiting_num: int = 0
+
+
+@message
+class NetworkCheckResult:
+    node_id: int = 0
+    elapsed_time: float = 0.0
+    succeeded: bool = True
+
+
+@message
+class NetworkCheckStatusRequest:
+    node_id: int = 0
+
+
+@message
+class NetworkCheckStatusResponse:
+    normal: bool = True
+    # nodes the master decided are faulty / straggling
+    fault_nodes: List[int] = field(default_factory=list)
+    stragglers: List[int] = field(default_factory=list)
 
 
 # ---------------------------------------------------------------------------

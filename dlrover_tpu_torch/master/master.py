@@ -33,8 +33,9 @@ with ``optimize_mode="cluster"``, over a ``BrainClient`` to the Brain
 at ``brain_addr`` (``cluster/brain.py``); the auto-scaler starts and
 stops with the master, and ``stop()`` closes the Brain client. Its
 ``ScalePlan`` goes to the master's ``scaler`` (a ``NoopScaler`` unless
-the platform gives one). The network-check rendezvous waits for ROADMAP
-A20.
+the platform gives one). The network-check rendezvous
+(``NetworkCheckRendezvousManager``) pairs the nodes that run the
+launcher's ``--network-check``, as the JAX master's does.
 """
 
 import os
@@ -69,6 +70,7 @@ from dlrover_tpu_torch.master.kv_store import KVStoreService
 from dlrover_tpu_torch.master.node_manager import JobManager, Scaler
 from dlrover_tpu_torch.master.rdzv_manager import (
     ElasticTrainingRendezvousManager,
+    NetworkCheckRendezvousManager,
 )
 from dlrover_tpu_torch.master.servicer import MasterServicer
 from dlrover_tpu_torch.master.speed_monitor import SpeedMonitor
@@ -122,6 +124,7 @@ class JobMaster:
         )
         self.rdzv_managers: Dict[str, object] = {
             RendezvousName.TRAINING: ElasticTrainingRendezvousManager(),
+            RendezvousName.NETWORK_CHECK: NetworkCheckRendezvousManager(),
         }
         max_w = max_workers or num_workers
         for mgr in self.rdzv_managers.values():
@@ -327,6 +330,7 @@ class LocalJobMaster(JobMaster):
 
 
 class DistributedJobMaster(JobMaster):
-    """Multi-host master (``master/main.py``); platform scalers attach
-    here."""
+    """Multi-host master (``master/main.py``). A platform scaler and pod
+    watcher attach here (``cluster/scaler.py``, ``cluster/kube.py``):
+    like the JAX entry point, ``master/main.py`` attaches neither."""
 

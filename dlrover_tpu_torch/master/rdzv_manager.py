@@ -12,8 +12,10 @@ node's agent may send the port it picked with its join (the
 ``DLROVER_TPU_COORDINATOR_PORT`` environment asks for one, 0 for a
 free port), so jobs on one host, and a restarted world whose old
 listener is still closing, do not collide; a join that sends none gets
-the JAX package's 7010. The network-check manager waits for ROADMAP
-A20. ``plan_reshard``/``get_reshard_plan`` are the JAX manager's
+the JAX package's 7010. ``NetworkCheckRendezvousManager`` is the JAX
+manager's: the nodes paired for the node check's rounds, the faulty
+nodes (failing every round) and the stragglers.
+``plan_reshard``/``get_reshard_plan`` are the JAX manager's
 live-reshard directive, and the round stays sealed for the survivors.
 The JAX manager takes the lost dp ranks for node ranks (a host there is
 one process); a node here runs ``local_world_size`` ranks, so a node
@@ -311,3 +313,113 @@ class RendezvousManager:
 class ElasticTrainingRendezvousManager(RendezvousManager):
     def __init__(self):
         super().__init__(RendezvousName.TRAINING)
+
+
+class NetworkCheckRendezvousManager(RendezvousManager):
+    """Pairs nodes for matmul+collective health checks.
+
+    Round 1 pairs (0,1)(2,3)…; round 2 re-pairs (0,n-1)(1,2)(3,4)… so a node
+    failing in *both* rounds with different partners is the faulty one
+    (reference: rdzv_manager.py:412 _group_nodes, :511 check_fault_node,
+    :554 _detect_stragglers).
+    """
+
+    def __init__(self):
+        super().__init__(RendezvousName.NETWORK_CHECK)
+        self._results: Dict[int, Dict[int, float]] = {}  # round → rank → t
+        self._success: Dict[int, Dict[int, bool]] = {}
+        self._check_round = 0
+        self._last_world_size = 0
+
+    def get_comm_world(self, node_rank):
+        rdzv_round, _, world, coord = super().get_comm_world(node_rank)
+        if world:
+            with self._lock:
+                self._last_world_size = len(world)
+            groups = self._group_nodes(sorted(world.keys()))
+            for gi, group in enumerate(groups):
+                if node_rank in group:
+                    sub = {r: world[r] for r in group}
+                    return rdzv_round, gi, sub, coord
+        return rdzv_round, 0, world, coord
+
+    def _group_nodes(self, ranks: List[int]) -> List[List[int]]:
+        n = len(ranks)
+        if n <= 2:
+            return [ranks]
+        round_idx = self._check_round % 2
+        groups = []
+        if round_idx == 0:
+            for i in range(0, n - 1, 2):
+                groups.append([ranks[i], ranks[i + 1]])
+            if n % 2:
+                groups[-1].append(ranks[-1])
+        else:
+            # rotate pairing so every node gets a different partner:
+            # (first, last), then consecutive pairs of the middle section,
+            # any middle leftover joins the last group.
+            groups.append([ranks[0], ranks[-1]])
+            middle = ranks[1:-1]
+            for i in range(0, len(middle) - 1, 2):
+                groups.append([middle[i], middle[i + 1]])
+            if len(middle) % 2:
+                groups[-1].append(middle[-1])
+        return [g for g in groups if g]
+
+    def report_network_check_result(
+        self, node_rank: int, succeeded: bool, elapsed_time: float
+    ):
+        with self._lock:
+            self._results.setdefault(self._check_round, {})[node_rank] = (
+                elapsed_time
+            )
+            self._success.setdefault(self._check_round, {})[node_rank] = (
+                succeeded
+            )
+            # all members of the sealed world reported → advance the round
+            # so the next rendezvous re-pairs with different partners
+            expected = self._last_world_size
+            if expected and len(
+                self._success[self._check_round]
+            ) >= expected:
+                self._advance_round_locked()
+
+    def _advance_round_locked(self):
+        self._check_round += 1
+        self._world = {}
+        self._world_coordinator = ""
+
+    def next_check_round(self):
+        with self._lock:
+            self._advance_round_locked()
+
+    def check_fault_node(self) -> Tuple[List[int], int]:
+        """Nodes failing every observed round are faulty."""
+        with self._lock:
+            if not self._success:
+                return [], self._check_round
+            fault: Optional[set] = None
+            for results in self._success.values():
+                bad = {r for r, ok in results.items() if not ok}
+                fault = bad if fault is None else (fault & bad)
+            return sorted(fault or []), self._check_round
+
+    def get_stragglers(
+        self, ratio: float = DefaultValues.STRAGGLER_RATIO
+    ) -> Tuple[List[int], int]:
+        with self._lock:
+            latest = self._results.get(self._check_round) or self._results.get(
+                self._check_round - 1, {}
+            )
+            if len(latest) < 2:
+                return [], self._check_round
+            times = sorted(latest.values())
+            median = times[len(times) // 2]
+            if median <= 0:
+                return [], self._check_round
+            return (
+                sorted(
+                    r for r, t in latest.items() if t / median >= ratio
+                ),
+                self._check_round,
+            )

@@ -14,7 +14,9 @@ the metric collector), the running-node listing, the data-shard service
 (datasets, tasks and their results, the dataset checkpoint, the epoch;
 a restarted or failed node's in-flight shards re-queued) and the
 live-reshard directive (an eviction notice in, the plan out, an
-``eviction_notice`` event on the hub), the Brain's tuning directives (a
+``eviction_notice`` event on the hub), the network check (a node's
+result to the network-check rendezvous, its status out: faulty nodes
+and stragglers), the Brain's tuning directives (a
 ``TuningPlanNotice`` versioned by the node manager's ``plan_tuning``, a
 ``tuning_plan_notice`` event on the hub; served by ``TuningPlanRequest``
 and folded into each node's ``ParallelConfig``) and the sparse tier's
@@ -48,9 +50,8 @@ _ITEMS = {
     "A15 (the rest of the serving tier)": (
         "ServingEvictionNotice", "ServingReshardRequest",
         "ServingScaleNotice", "ServingScaleRequest"),
-    "A20 (the network check and the strategy engine)": (
-        "NetworkReadyRequest", "NetworkCheckResult",
-        "NetworkCheckStatusRequest", "StrategySearchRequest"),
+    "A20 (the strategy engine)": (
+        "NetworkReadyRequest", "StrategySearchRequest"),
 }
 UNPORTED: Dict[str, str] = {
     name: f"{name}: its master handler is not ported yet (ROADMAP {item})"
@@ -266,6 +267,14 @@ class MasterServicer:
             self.task_manager.restore_checkpoint(m.dataset_name, m.content)
         return True
 
+    def _report_network_check(self, m: msgs.NetworkCheckResult) -> bool:
+        mgr = self.rdzv_managers.get(RendezvousName.NETWORK_CHECK)
+        if mgr:
+            mgr.report_network_check_result(
+                m.node_id, m.succeeded, m.elapsed_time
+            )
+        return True
+
     def _report_eviction(self, m: msgs.EvictionNotice) -> bool:
         """A worker announced departing dp ranks: issue the live-reshard
         directive so survivors migrate their in-device state instead of
@@ -352,6 +361,7 @@ class MasterServicer:
         "DatasetShardParams": _report_dataset,
         "ShardCheckpoint": _report_shard_ckpt,
         "EvictionNotice": _report_eviction,
+        "NetworkCheckResult": _report_network_check,
     }
 
     # ---- get: request → response ----------------------------------------
@@ -448,6 +458,18 @@ class MasterServicer:
         )
         return msgs.DatasetEpochResponse(epoch=epoch)
 
+    def _get_network_status(self, m: msgs.NetworkCheckStatusRequest):
+        mgr = self.rdzv_managers.get(RendezvousName.NETWORK_CHECK)
+        if mgr is None:
+            return msgs.NetworkCheckStatusResponse()
+        fault, _ = mgr.check_fault_node()
+        stragglers, _ = mgr.get_stragglers()
+        return msgs.NetworkCheckStatusResponse(
+            normal=m.node_id not in fault,
+            fault_nodes=fault,
+            stragglers=stragglers,
+        )
+
     def _get_num_nodes_waiting(self, m: msgs.NumNodesWaitingRequest):
         mgr = self.rdzv_managers.get(m.rdzv_name)
         n = mgr.num_nodes_waiting() if mgr else 0
@@ -539,6 +561,7 @@ class MasterServicer:
         "JoinRendezvousRequest": _get_join_rdzv,
         "CommWorldRequest": _get_comm_world,
         "NumNodesWaitingRequest": _get_num_nodes_waiting,
+        "NetworkCheckStatusRequest": _get_network_status,
         "KeyRequest": _get_kv,
         "SyncRequest": _get_sync,
         "CheckpointStepRequest": _get_ckpt_step,

@@ -140,6 +140,35 @@ print("yaml" in sys.modules)
                              re.M), name
 
 
+# the cluster binding and the network check: the CRDs, the scaler, the
+# API double and reconciler, the HTTP client, the operator, the Ray
+# adapter, the node check (the JAX package's crd.py imports yaml: none of
+# these may, nor chip_smoke.py, which drives them on the card)
+CLUSTER_MODULES = (
+    "cluster", "cluster.crd", "cluster.kube", "cluster.kube_http",
+    "cluster.operator", "cluster.scaler", "cluster.ray", "agent.node_check",
+    "master.rdzv_manager",
+)
+
+
+def test_the_cluster_binding_modules_import_without_jax_or_yaml():
+    _stand_alone(CLUSTER_MODULES)
+    res = _run("names = %r\n" % (CLUSTER_MODULES,) + r"""
+for name in names:
+    importlib.import_module("dlrover_tpu_torch." + name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print("yaml" in sys.modules)
+""")
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.split()[-1] == "False"
+    for name in CLUSTER_MODULES:
+        assert not re.search(r"^\s*(from|import)\s+yaml\b", _source(name),
+                             re.M), name
+    assert not re.search(r"^\s*(from|import)\s+(yaml|jax|dlrover_tpu)\b",
+                         (ROOT / "chip_smoke.py").read_text(), re.M)
+
+
 def test_the_hook_does_block_the_jax_package():
     """The check above is only as good as the hook: importing a module
     of the JAX package under it must fail."""

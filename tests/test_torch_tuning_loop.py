@@ -18,9 +18,12 @@ config tuner document → the worker's step rebuilt at a step boundary.
   losses go on as the undisturbed run's, at the JAX trainer's
   accumulation;
 - the autoscale drill of ``chip_smoke.py`` (``autoscale_check``) at a
-  cut size on the CPU: a Brain process, the launcher's local master in
-  cluster mode, the worker grown from one node to two and retuned; every
-  gate but the kernel launches (none on the CPU) holds.
+  cut size on the CPU: a Brain process, the operator process over the
+  HTTP API server double with the kubelet double, the master pod in
+  cluster mode, the worker grown from one node to two through a
+  ScalePlan and retuned, the job deleted and torn down; every gate but
+  the kernel launches and the network check (the node check needs a
+  GPU: on the CPU the nodes run without it) holds.
 """
 
 import dataclasses
@@ -307,7 +310,7 @@ def test_master_to_document_to_rebuild(tmp_path):
 
 def test_the_autoscale_drill_on_the_cpu(monkeypatch):
     """``chip_smoke.autoscale_check`` at a cut size: every gate but the
-    kernel launches holds on the CPU."""
+    kernel launches and the network check holds on the CPU."""
     import importlib.util
 
     from dlrover_tpu_torch.models.config import get_config
@@ -323,6 +326,7 @@ def test_the_autoscale_drill_on_the_cpu(monkeypatch):
         overrides=["d_model=64", "n_head=2", "n_kv_head=1", "d_ff=128",
                    "vocab_size=256", 'dtype="float32"'])
     failed = sorted(k for k, v in rec["checks"].items() if not v)
-    assert failed == ["kernels_ran"], (failed, rec)
+    assert failed == ["kernels_ran", "network_checks_ok"], (failed, rec)
+    assert not rec["network_check"]
     assert rec["errors"]["loss"] < 1e-5
     assert tuple(rec["scaled"][0]) == (1, 2)

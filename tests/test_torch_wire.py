@@ -173,7 +173,7 @@ def test_a_failing_get_raises_remote_error(server):
 
 @pytest.mark.parametrize("name,item", [
     ("ServingEvictionNotice", "A15"), ("ServingScaleRequest", "A15"),
-    ("NetworkCheckStatusRequest", "A20"),
+    ("NetworkReadyRequest", "A20"),
 ])
 def test_an_unported_handler_answers_with_its_roadmap_item(server, name,
                                                             item):
@@ -213,6 +213,8 @@ ANSWERED = [
     jmsgs.TuningPlanRequest(node_id=0),
     jmsgs.BrainPersistMetricsRequest(metrics_json='{"job_name": "j"}'),
     jmsgs.BrainJobMetricsRequest(job_name="j"),
+    jmsgs.NetworkCheckResult(node_id=0, elapsed_time=1.5, succeeded=True),
+    jmsgs.NetworkCheckStatusRequest(node_id=0),
 ]
 
 
