@@ -9,7 +9,9 @@ from ``--seed``, through the hand-written CUDA kernels built from
   ``Decoder`` paged prefill/decode → ``ops.paged_attention``, with
   llama3-8b at full width and depth; then with speculative decoding
   (``spec_k=4``: ``Decoder.verify_chunk_paged`` → the kernel's verify
-  variant) and prefix sharing;
+  variant) and prefix sharing; then a disaggregated fleet (prefill and
+  decode replicas behind ``ReplicaRouter``, live KV-page migration,
+  the serving autoscaler);
 - training: ``TrainStepBuilder.build()`` → ``loss_fn`` → ``forward`` →
   the layers (``ops.norm`` fused norms, ``ops.flash_attention``) →
   ``fused_linear_ce`` → backward (the flash and norm backward kernels)
@@ -101,6 +103,17 @@ result:
    serve shapes, 4 of each, timed (CUDA events and wall) and traced
    (``torch.profiler``): kernel time by class (the paged-attention
    class also on its own), launches per step, the device's busy share;
+   fleet: the disaggregated fleet in bf16 (``fleet_serve``: a port
+   master in-process, 1 prefill + 2 decode ``ServingReplica``s sharing
+   the model behind a ``ReplicaRouter`` with the handoff coordinator and
+   a ``ServingMigrator``): spec_serve's 16 requests, a decode replica
+   killed holding 4 slots mid-decode and migrated live, the serving
+   autoscaler scaling the prefill pool out onto a warm replica and in
+   again, a decode replica retuned to spec_k=4; by role tokens/s, TTFT,
+   TPOT, handoff ms and rates, the migration's phases, the decisions,
+   launches held to the engines' steps; fleet_f32 (in serve_f32, gated,
+   ``fleet_f32``): runs a-d against the spec-off f32 streams, d a
+   fragment staged one page off that the gate must catch;
 6. train_kernel: the flash kernels (forward, dq, dkv; a head a block,
    and two heads of 64 packed a block; every bf16 kernel on wgmma,
    ``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel``,
@@ -1460,10 +1473,8 @@ def spec_serve(model, cfg, seed, dev, gate):
     accepted above 0.9, and each spec-on stream must equal the spec-off
     stream or leave it only at a near-tie (``_divergences``); in bf16
     the divergences are reported (see MODEL_REL_TOL). Returns the
-    prompt-lookup run's launch counts."""
-    rng = np.random.default_rng(seed + 7)
-    prompts = _repeating_prompts(rng, cfg.vocab_size, 16, 512, 1536)
-    samplings = _samplings(seed, 16)
+    prompt-lookup run's launch counts and the spec-off streams."""
+    prompts, samplings = _spec_prompts(cfg, seed)
     new = 64 if gate else MEASURE_NEW_TOKENS
     off, r_off = _serve_run(model, cfg, dev, prompts, samplings, new)
     runs = {"spec_off": r_off}
@@ -1485,7 +1496,7 @@ def spec_serve(model, cfg, seed, dev, gate):
     emit(rec)
     if not ok:
         _failures.append(f"spec_serve: {rec}")
-    return runs["prompt_lookup"]["launches"]
+    return runs["prompt_lookup"]["launches"], off
 
 
 def prefix_serve(model, cfg, seed, dev, gate):
@@ -1538,6 +1549,520 @@ def prefix_serve(model, cfg, seed, dev, gate):
     emit(rec)
     if not ok:
         _failures.append(f"prefix_serve: {rec}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: the disaggregated fleet (prefill/decode replicas, live KV-page
+# migration, the serving autoscaler, the master's serving directives)
+# ---------------------------------------------------------------------------
+
+# every fleet replica: 8 slots x 2048 tokens, page 16, int8 pools, chunks
+# of 256 (the unified serve runs' geometry, so a stream is comparable)
+FLEET_KW = dict(n_slots=8, max_len=2048, page_size=16, mode="int8",
+                prefill_chunk=256, idle_sleep=0.001)
+FLEET_TIMEOUT_S = 600
+
+
+def _spec_prompts(cfg, seed):
+    """spec_serve's traffic: 16 prompts of 512-1536 tokens repeating a
+    128-token span, half greedy and half sampled."""
+    rng = np.random.default_rng(seed + 7)
+    return (_repeating_prompts(rng, cfg.vocab_size, 16, 512, 1536),
+            _samplings(seed, 16))
+
+
+# a fleet with one decode replica serves 16 requests on 8 lanes: the
+# handoffs past the first 8 reserve their pages in the decode replicas'
+# slack (another slot set of pages) and wait for a lane (the
+# coordinator's ``commit_wait_s``: 120.5 s at 12 attempts) rather than
+# degrading
+FLEET_SLACK_PAGES = 8 * 128
+FLEET_COMMIT_ATTEMPTS = 12
+# the planted fault of fleet_f32 (d) needs one request; 4 are served
+FLEET_FAULT_REQUESTS = 4
+
+
+def _fleet(model, cfg, dev, roles, *, master=None, faults=None,
+           prefix="fleet"):
+    """Start replicas of ``roles`` sharing ``model`` (each with its own
+    pools; a decode replica with ``FLEET_SLACK_PAGES`` more), registered
+    with ``master`` when given, and a router with a migrator threaded
+    through the master. Returns (replicas, router)."""
+    from dlrover_tpu_torch.agent.master_client import MasterClient
+    from dlrover_tpu_torch.serving.migration import ServingMigrator
+    from dlrover_tpu_torch.serving.replica import (
+        ReplicaRouter, ServingReplica,
+    )
+
+    addr = master.addr if master is not None else None
+    reps = [ServingReplica(f"{prefix}-{role[0]}{i}", model, cfg,
+                           node_id=10 + i, role=role,
+                           master_addr=addr, device=dev,
+                           slack_pages=(FLEET_SLACK_PAGES
+                                        if role == "decode" else 0),
+                           **FLEET_KW).start()
+            for i, role in enumerate(roles)]
+    client = MasterClient(addr, node_id=1) if addr else None
+    router = ReplicaRouter(reps, migrator=ServingMigrator(
+        master_client=client), faults=faults)
+    router.coordinator.reserve_attempts = FLEET_COMMIT_ATTEMPTS
+    return reps, router
+
+
+def _close_fleet(reps, router):
+    router.close()
+    for r in reps:
+        r.stop()
+
+
+def _submit_all(router, prompts, samplings, new):
+    return [router.submit(p, new, sampling=s)
+            for p, s in zip(prompts, samplings)]
+
+
+def _results(reqs, timeout=FLEET_TIMEOUT_S):
+    return [r.future.result(timeout=timeout) for r in reqs]
+
+
+def _pct(xs):
+    xs = sorted(xs)
+    if not xs:
+        return {"p50": 0.0, "p99": 0.0, "n": 0}
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "n": len(xs)}
+
+
+def _role_latency(reps, roles):
+    """Latency percentiles a role, from the role's replicas' merged
+    histograms: TTFT is recorded where the first token is drawn (the
+    prefill replicas), TPOT, end to end and the handoff where a request
+    completes (the decode replicas)."""
+    from dlrover_tpu_torch.observability.histogram import merge_histograms
+
+    out = {}
+    for role in sorted(set(roles)):
+        per = [r.server.scheduler.histograms()
+               for r, ro in zip(reps, roles) if ro == role]
+        out[role] = {}
+        for k in ("ttft", "tpot", "e2e", "handoff", "queue_wait"):
+            h = merge_histograms(p[k] for p in per)
+            if h is not None and h.n:
+                out[role][k] = {"p50": h.percentile(50.0),
+                                "p99": h.percentile(99.0), "n": h.n}
+    return out
+
+
+def _fleet_launches(reps, cfg, launches):
+    """The kernels' launches against the engines' own step counts: one
+    launch a layer a step (chunk a prefill chunk, decode a decode step,
+    verify a verify step)."""
+    stats = [r.server.engine.stats() for r in reps]
+    want = {"chunk": sum(s["prefill_chunks"] for s in stats),
+            "decode": sum(s["decode_steps"] for s in stats),
+            "verify": sum(s["verify_steps"] for s in stats)}
+    want = {k: v * cfg.n_layer for k, v in want.items()}
+    return want, {k: launches.get(k, 0) for k in want} == want
+
+
+def _page_bytes(geom):
+    """Stored bytes of one page across every layer, K and V."""
+    g = geom
+    row = g.row_elems * (2 if g.mode == "bf16" else 1) + (
+        0 if g.mode == "bf16" else 4 * g.n_blocks)
+    return 2 * g.n_layers * g.page_size * row
+
+
+def _handoff_record(coord, geom):
+    """Handoff ms a request (export on the loop thread to staged, per
+    fragment) and the card → host and host → card rates."""
+    log = coord.fragment_log
+    pb = _page_bytes(geom)
+    moved = sum(f["pages"] for f in log) * pb
+    export_s = sum(f["export_ms"] for f in log) / 1e3
+    stage_s = sum(f["stage_ms"] for f in log) / 1e3
+    return {"fragments": len(log), "fragment_ms": _pct([f["ms"] for f in
+                                                        log]),
+            "export_ms": _pct([f["export_ms"] for f in log]),
+            "wire_ms": _pct([f["wire_ms"] for f in log]),
+            "stage_ms": _pct([f["stage_ms"] for f in log]),
+            "page_bytes": moved, "wire_bytes": sum(f["bytes"] for f in log),
+            "export_gbps": moved / export_s / 1e9 if export_s else 0.0,
+            "stage_gbps": moved / stage_s / 1e9 if stage_s else 0.0,
+            "retried": coord.retried, "degraded": coord.degraded,
+            "committed": coord.completed}
+
+
+def _kill_mid_decode(victim, min_slots, timeout=FLEET_TIMEOUT_S):
+    """Kill ``victim`` once it holds ``min_slots`` slots mid-decode (a
+    token drawn, the request open), parked at a step boundary to check.
+    Returns the generated lengths of its slots at the kill."""
+    deadline = time.monotonic() + timeout
+
+    def ready(eng):
+        live = [s for s in eng.slots if s is not None and s.phase ==
+                "decode" and s.generated and not s.req.future.done()]
+        return len(live) >= min_slots, [len(s.generated) for s in live]
+
+    while time.monotonic() < deadline:
+        if ready(victim.server.engine)[0]:
+            with victim.server.paused() as eng:
+                ok, lens = ready(eng)
+                if ok:
+                    victim.kill()
+                    return lens
+        time.sleep(0.002)
+    raise RuntimeError(f"{victim.name} never held {min_slots} slots "
+                       "mid-decode")
+
+
+def _stage_one_page_off(eng):
+    """The planted fault of fleet_f32 (d): the first fragment this engine
+    stages lands one page past its place (the real first page stays
+    stale)."""
+    orig = eng.stage_pages
+    done = []
+
+    def stage(tag, page_start, pages):
+        n = next(iter(pages.values())).shape[1]
+        if not done and n and page_start + 1 + n <= len(
+                eng.alloc.reservation(tag)):
+            done.append(tag)
+            return orig(tag, page_start + 1, pages)
+        return orig(tag, page_start, pages)
+
+    eng.stage_pages = stage
+    return done
+
+
+def fleet_serve(model, cfg, seed, dev):
+    """The disaggregated fleet in bf16: a port master in-process, one
+    prefill and two decode replicas sharing ``model``, a ReplicaRouter
+    with the handoff coordinator and a ServingMigrator threaded through
+    the master. (1) spec_serve's 16 requests disaggregated; (2) decode
+    replica 1 killed while it holds 4 slots mid-decode, its slots
+    migrated live to decode replica 2 by ``poll``; (3) the serving
+    autoscaler stepped here (cooldown 0) with a TTFT target below (1)'s
+    p99: it must scale the prefill pool out onto a warm replica, which
+    takes dispatches, and after the clear windows in again over
+    ``remove_replica``; (4) decode replica 2 retuned to spec_k=4 at a
+    step boundary, the verify kernel launching on the decode role.
+    Returns the phase's launches (counts set to 0 at its start)."""
+    from dlrover_tpu_torch.master.master import JobMaster
+    from dlrover_tpu_torch.master.serving_autoscaler import (
+        ServingAutoScaler, ServingScalerConfig,
+    )
+    from dlrover_tpu_torch.ops import paged_attention as pa
+    from dlrover_tpu_torch.serving.replica import ServingReplica
+
+    prompts, samplings = _spec_prompts(cfg, seed)
+    new = MEASURE_NEW_TOKENS
+    rng = np.random.default_rng(seed + 9)
+    master = JobMaster(port=0, num_workers=1)
+    master.prepare()
+    roles = ["prefill", "decode", "decode"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    pa.reset_launches()
+    reps, router = _fleet(model, cfg, dev, roles, master=master)
+    p0, d1, d2 = reps
+    spare = None
+    rec = {"phase": "fleet", "dtype": cfg.dtype, "n_layer": cfg.n_layer,
+           "roles": dict(zip([r.name for r in reps], roles)),
+           "kv_pool_bytes_per_replica": p0.server.engine.resident_kv_bytes()}
+    ok = True
+    try:
+        registered = {n.name: n.role for n in
+                      master.job_manager.serving_nodes()}
+        ok = ok and sorted(registered.values()) == sorted(roles)
+        # (1) the 16 requests, disaggregated
+        t0 = time.monotonic()
+        reqs = _submit_all(router, prompts, samplings, new)
+        outs = _results(reqs)
+        wall = time.monotonic() - t0
+        stats = {r.name: r.server.engine.stats() for r in reps}
+        ttfts = [(r.first_token_t - r.submit_t) * 1e3 for r in reqs]
+        rec["serve"] = {
+            "requests": len(reqs), "new_tokens_per_request": new,
+            "wall_s": wall,
+            "tokens_per_s_by_role": {
+                role: sum(stats[r.name]["tokens_generated"] for r, ro in
+                          zip(reps, roles) if ro == role) / wall
+                for role in ("prefill", "decode")},
+            "tokens_per_s": sum(len(o) - len(p) for o, p in
+                                zip(outs, prompts)) / wall,
+            "latency_ms_by_role": _role_latency(reps, roles),
+            "handoff": _handoff_record(router.coordinator,
+                                       p0.server.engine.geom),
+            "handoff_bytes_per_request": (
+                stats[p0.name]["handoff_bytes"]
+                / max(1, stats[p0.name]["handoffs_out"])),
+        }
+        ttft_p99 = float(np.percentile(ttfts, 99))
+        ok = ok and all(len(o) == len(p) + new and o[:len(p)] == p
+                        for p, o in zip(prompts, outs))
+        ok = ok and stats[p0.name]["handoffs_out"] == len(prompts)
+        # (2) decode replica 1 killed holding 4 slots mid-decode
+        # 8 prompts of one length: the coordinator places them on the
+        # decode replica with the most free pages, alternately, so each
+        # takes 4 and the survivor has lanes for the victim's 4
+        kill_prompts = _repeating_prompts(rng, cfg.vocab_size, 8, 640, 640)
+        kill_sps = _samplings(seed + 2, 8)
+        base = {r.name: r.server.engine.stats()["prefill_tokens"]
+                for r in reps}
+        t_step = time.monotonic()
+        kreqs = _submit_all(router, kill_prompts, kill_sps, 2 * new)
+        at_kill = _kill_mid_decode(d1, 4)
+        t_kill = time.monotonic()
+        router.poll()
+        report = router.reports[-1] if router.reports else None
+        kouts = _results(kreqs)
+        t_back = time.monotonic() - t_kill
+        rec["migration"] = {
+            "slots_at_kill": at_kill,
+            "path": report.path if report else None,
+            "placements": len(report.placements) if report else 0,
+            "re_prefilled": len(report.re_prefilled) if report else 0,
+            "phase_s": report.outcome.phase_seconds if report else {},
+            "recovery_s": report.outcome.recovery_s if report else 0.0,
+            "bytes": report.bytes_moved if report else 0,
+            "tokens_saved": report.tokens_saved if report else 0,
+            "directive_version": report.directive_version if report else 0,
+            "tokens_re_prefilled": sum(
+                r.server.engine.stats()["prefill_tokens"] - base[r.name]
+                for r in (d1, d2)),
+            "kill_to_done_s": t_back,
+            "wall_s": time.monotonic() - t_step,
+        }
+        m = rec["migration"]
+        ok = ok and (m["path"] == "live" and m["placements"] >= 4
+                     and m["re_prefilled"] == 0
+                     and m["tokens_re_prefilled"] == 0
+                     and m["directive_version"] >= 1
+                     and master.job_manager.get_serving_reshard()[
+                         "victim"] == d1.name)
+        ok = ok and all(len(o) == len(p) + 2 * new
+                        for p, o in zip(kill_prompts, kouts))
+        # (3) the autoscaler: a TTFT target below (1)'s p99
+        t_step = time.monotonic()
+        spare = ServingReplica("fleet-p3", model, cfg, node_id=13,
+                               role="prefill", master_addr=master.addr,
+                               device=dev, **FLEET_KW).start()
+        target = 0.5 * ttft_p99
+        scaler = ServingAutoScaler(
+            router, ServingScalerConfig(
+                ttft_target_ms=target, cooldown_s=0.0, min_window_n=0,
+                min_replicas=1, max_replicas=2, shrink_after_clear=2),
+            provision_fn=lambda role: spare, job_manager=master.job_manager)
+        t_breach = time.monotonic()
+        out_rec = scaler.step()
+        scale_prompts = _repeating_prompts(rng, cfg.vocab_size, 4, 256, 768)
+        sreqs = _submit_all(router, scale_prompts, _samplings(seed + 3, 4),
+                            new)
+        _results(sreqs)
+        spare_first = [r.first_token_t for r in sreqs
+                       if r.rid.startswith(spare.name + "/")
+                       and r.first_token_t]
+        trail = [scaler.step() for _ in range(4)]
+        decisions = [d for d in [out_rec] + trail if d is not None]
+        rec["autoscale"] = {
+            "ttft_p99_ms": ttft_p99, "ttft_target_ms": target,
+            "decisions": [{"role": d.role, "direction": d.direction,
+                           "signal": d.signal, "value": d.value,
+                           "n_before": d.n_before, "n_after": d.n_after,
+                           "version": d.version, "replica": d.replica,
+                           "reason": d.reason} for d in decisions],
+            "spare_dispatches": spare.server.scheduler.admitted,
+            "breach_to_first_token_s": (min(spare_first) - t_breach
+                                        if spare_first else None),
+            "master_scale": master.job_manager.get_serving_scale("prefill"),
+            "wall_s": time.monotonic() - t_step,
+        }
+        dirs = [(d.role, d.direction) for d in decisions if d.direction]
+        ok = ok and dirs == [("prefill", "out"), ("prefill", "in")]
+        ok = ok and bool(spare_first) and out_rec.version >= 1
+        ok = ok and len(router.live_replicas("prefill")) == 1
+        # (4) decode replica 2 retuned to spec_k=4 at a step boundary
+        t_step = time.monotonic()
+        with d2.server.paused() as eng:
+            retuned = eng.retune(spec_k=SPEC_K)
+        v0 = d2.server.engine.stats()["verify_steps"]
+        spec_prompts = _repeating_prompts(rng, cfg.vocab_size, 4, 512, 1024)
+        vreqs = _submit_all(router, spec_prompts, _samplings(seed + 4, 4),
+                            new)
+        _results(vreqs)
+        rec["retune"] = {"result": retuned,
+                         "verify_steps": d2.server.engine.stats()[
+                             "verify_steps"] - v0,
+                         "spec_accept_rate": d2.server.engine.stats()[
+                             "spec_accept_rate"],
+                         "wall_s": time.monotonic() - t_step}
+        ok = ok and retuned["applied"] == {"spec_k": SPEC_K}
+        ok = ok and rec["retune"]["verify_steps"] > 0
+    finally:
+        all_reps = reps + ([spare] if spare is not None else [])
+        _close_fleet(all_reps, router)
+        master.stop()
+    torch.cuda.synchronize()
+    launches = dict(pa.LAUNCHES)
+    want, exact = _fleet_launches(all_reps, cfg, launches)
+    stats = {r.name: r.server.engine.stats() for r in all_reps}
+    rec.update({
+        "launches": launches, "launches_from_steps": want,
+        "launches_exact": exact,
+        "engines": {n: {k: s[k] for k in (
+            "role", "prefill_chunks", "decode_steps", "verify_steps",
+            "prefill_tokens", "handoffs_in", "handoffs_out", "migrated_in",
+            "migrated_out", "tokens_generated", "handoff_bytes")}
+            for n, s in stats.items()},
+        "reserved_pages": {r.name: r.server.engine.alloc.reserved_pages
+                           for r in all_reps},
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "memory_over_model": torch.cuda.max_memory_allocated() - mem0,
+    })
+    decode_names = [r.name for r in (d1, d2)]
+    # the killed replica's allocator died with it (its reservations for
+    # handoffs in flight were restarted elsewhere)
+    ok = (ok and exact and all(launches[k] > 0 for k in
+                               ("chunk", "decode", "verify"))
+          and all(stats[n]["prefill_chunks"] == 0 for n in decode_names)
+          and all(v == 0 for n, v in rec["reserved_pages"].items()
+                  if n != d1.name))
+    rec["ok"] = ok
+    emit(rec)
+    if not ok:
+        _failures.append(f"fleet: {rec}")
+    return launches
+
+
+def _fleet_run(model, cfg, dev, prompts, samplings, new, roles, *,
+               faults=None, kill=False, shift=False, name=""):
+    """One gated fleet_f32 run: serve ``prompts`` on a fleet of
+    ``roles``; ``kill`` kills decode replica 1 once it holds a slot
+    mid-decode, ``shift`` plants the staged-one-page-off fault on every
+    decode replica. Returns (outputs, record)."""
+    from dlrover_tpu_torch.ops import paged_attention as pa
+
+    pa.reset_launches()
+    reps, router = _fleet(model, cfg, dev, roles, faults=faults,
+                          prefix=f"f32{name}")
+    shifted = []
+    try:
+        if shift:
+            for r, role in zip(reps, roles):
+                if role == "decode":
+                    shifted.append(_stage_one_page_off(r.server.engine))
+        t0 = time.monotonic()
+        reqs = _submit_all(router, prompts, samplings, new)
+        base = None
+        if kill:
+            victim = reps[roles.index("decode")]
+            _kill_mid_decode(victim, 1)
+            base = {r.name: r.server.engine.stats()["prefill_tokens"]
+                    for r in reps}
+            router.poll()
+        outs = router.wait_all(timeout=FLEET_TIMEOUT_S)
+        wall = time.monotonic() - t0
+        coord = router.coordinator
+        torch.cuda.synchronize()
+        launches = dict(pa.LAUNCHES)
+        stats = {r.name: r.server.engine.stats() for r in reps}
+        rec = {
+            "roles": roles, "wall_s": wall,
+            "handoff": _handoff_record(coord, reps[0].server.engine.geom),
+            "migrations": [{"path": m.path, "placements": len(m.placements),
+                            "re_prefilled": len(m.re_prefilled),
+                            "phase_s": m.outcome.phase_seconds,
+                            "bytes": m.bytes_moved}
+                           for m in router.reports],
+            "completed": {n: r.server.scheduler.completed
+                          for n, r in zip(stats, reps)},
+            "reserved_pages": {r.name: r.server.engine.alloc.reserved_pages
+                               for r in reps},
+            "prefill_tokens": {n: s["prefill_tokens"]
+                               for n, s in stats.items()},
+            "launches": launches,
+            "shifted": [t for s in shifted for t in s],
+        }
+        rec["launches_from_steps"], exact = _fleet_launches(reps, cfg,
+                                                            launches)
+        dec = [n for n, ro in zip(stats, roles) if ro == "decode"]
+        killed = [r.name for r in reps if not r.alive] if kill else []
+        gates = {
+            "completed_once": (sum(rec["completed"].values()) == len(prompts)
+                               and all(r.future.done() for r in reqs)),
+            "no_degrade": rec["handoff"]["degraded"] == 0,
+            "all_live": all(m["path"] == "live" and not m["re_prefilled"]
+                            for m in rec["migrations"]),
+            "no_reserved": all(v == 0 for n, v in
+                               rec["reserved_pages"].items()
+                               if n not in killed),
+            "decode_no_prefill": all(stats[n]["prefill_tokens"] == 0
+                                     and stats[n]["prefill_chunks"] == 0
+                                     for n in dec),
+            "launches_exact": exact,
+            "kernels_ran": launches["chunk"] > 0 and launches["decode"] > 0,
+        }
+        if kill:
+            gates["migrated"] = bool(rec["migrations"]) and all(
+                stats[n]["prefill_tokens"] == base[n] for n in dec)
+        rec["gates"] = gates
+        return outs, rec
+    finally:
+        _close_fleet(reps, router)
+
+
+def fleet_f32(model, cfg, seed, dev, ref_outs):
+    """The gated fleet runs on the f32 model, against ``ref_outs`` (the
+    spec-off streams of spec_serve's gated run, 64 new tokens): (a) one
+    prefill and one decode replica, the 16 requests; (b) one prefill and
+    two decode, one decode replica killed mid-decode, 8 of them; (c) a
+    torn fragment planted at ``serving.handoff`` (retried), 8; (d) a
+    fragment staged one page off, which the gate must catch, 4. In (a)-(c) every stream equals its
+    reference or leaves it only at a near-tie, every migration is live
+    and grew no survivor's prefill tokens, (c) retried, each request
+    completed once, no engine holds a reservation, the decode replicas
+    ran no prefill and the chunk kernel launched only on prefill
+    replicas; in (d) a stream must leave its reference where it is not
+    a near-tie."""
+    from dlrover_tpu_torch.elastic.faults import FaultInjector, FaultSpec
+
+    prompts, samplings = _spec_prompts(cfg, seed)
+    new = 64
+    runs, ok = {}, True
+    inj = FaultInjector()
+    inj.install(FaultSpec("drop_page", point="serving.handoff", times=1))
+    # (a) serves all 16 requests, (b) and (c) the first 8 (the kill
+    # comes at the victim's first decoding slot; the one torn fragment is
+    # the first), (d) the first 4 (its fault the first fragment staged):
+    # each against the reference's streams of those
+    for name, roles, n, kw in (
+            ("a", ["prefill", "decode"], 16, {}),
+            ("b", ["prefill", "decode", "decode"], 8, {"kill": True}),
+            ("c", ["prefill", "decode"], 8, {"faults": inj}),
+            ("d", ["prefill", "decode"], FLEET_FAULT_REQUESTS,
+             {"shift": True})):
+        outs, rec = _fleet_run(model, cfg, dev, prompts[:n],
+                               samplings[:n], new, roles, name=name, **kw)
+        rec["divergences"] = _divergences(model, cfg, dev, ref_outs[:n],
+                                          outs, samplings[:n], "int8")
+        ties = all(d["near_tie"] for d in rec["divergences"])
+        if name == "d":
+            rec["gates"]["fault_caught"] = bool(rec["shifted"]) and any(
+                not d["near_tie"] for d in rec["divergences"])
+        else:
+            rec["gates"]["streams"] = ties
+        if name == "c":
+            rec["gates"]["retried"] = rec["handoff"]["retried"] >= 1
+        if name == "b":
+            rec["gates"]["killed"] = len(rec["migrations"]) >= 1
+        runs[name] = rec
+        ok = ok and all(rec["gates"].values())
+    out = {"phase": "fleet_f32", "dtype": cfg.dtype, "n_layer": cfg.n_layer,
+           "tol_rel": MODEL_REL_TOL, "runs": runs, "ok": ok}
+    emit(out)
+    if not ok:
+        _failures.append(f"fleet_f32: {out}")
 
 
 # ---------------------------------------------------------------------------
@@ -4322,8 +4847,10 @@ def reshard_check(cfg, seed, name="reshard", device="cuda", overrides=()):
 
 SP = 4
 # 1 bf16 step a phase (3 before the mesh4d phase joined the script: its
-# time comes from here, FSDP_TP_STEPS and RESHARD_STEPS)
-SP_LAYERS, SP_STEPS = 2, 1
+# time comes from here, FSDP_TP_STEPS and RESHARD_STEPS); 1 layer (2
+# before the fleet phases joined it: every ring block, offset and fault
+# is a layer's, so one layer carries them all)
+SP_LAYERS, SP_STEPS = 1, 1
 # mistral-7b at b1 x s8192 (blocks of 2048, window 4096), glm-10b at
 # b2 x s2048 (blocks of 512)
 SP_SHAPES = {"mistral-7b": (1, 8192), "glm-10b": (2, 2048)}
@@ -4807,8 +5334,9 @@ def _sp_run(configs, seed, dev, overrides, shapes, out_dir, vals_dir):
 
 FSDP_TP_MESH = {"fsdp": 2, "tp": 2}
 FSDP_TP_RANKS = 4
-# 2 steps (8 before the mesh4d phase joined the script)
-FSDP_TP_LAYERS, FSDP_TP_STEPS, FSDP_TP_FAULT_STEPS = 2, 2, 2
+# 2 steps (8 before the mesh4d phase joined the script); the fault 1
+# (2 before the fleet phases joined it)
+FSDP_TP_LAYERS, FSDP_TP_STEPS, FSDP_TP_FAULT_STEPS = 2, 2, 1
 FSDP_TP_TIMEOUT_S = 480
 # every rank's loss and grad norm against the one-process replicated run
 # on the same global batches, relative: ``RESHARD_RTOL_*``'s bound (the
@@ -5164,11 +5692,12 @@ def fsdp_tp_check(cfg_name, seed, dev, name="fsdp_tp", overrides=None,
 
 HYBRID_RANKS = 4
 # (a) 3 steps (its step time is read between steps 2 and 3), (b) and (c)
-# 2, the f32 and fault runs 1: at 6 and 4 a run the whole script took
-# 1040 and 1060 s on one H100 80GB HBM3 at 700 W, 87-88% of its 1200 s
-# limit, and at 3 a run 1199 s on a slow host
+# 1 (2 before the fleet phases joined the script), the f32 and fault runs
+# 1: at 6 and 4 a run the whole script took 1040 and 1060 s on one H100
+# 80GB HBM3 at 700 W, 87-88% of its 1200 s limit, and at 3 a run 1199 s
+# on a slow host
 HYBRID_LAYERS, HYBRID_STEPS, HYBRID_FAULT_STEPS, HYBRID_F32_STEPS = 2, 3, 1, 1
-HYBRID_WORKER_STEPS = 2
+HYBRID_WORKER_STEPS = 1
 HYBRID_TIMEOUT_S = 480
 # (a) and (b) against the one-process replicated run: the fsdp_tp and
 # reshard phases' bound
@@ -5668,8 +6197,9 @@ def hybrid_check(cfg_name, seed, dev, name="hybrid_zero", overrides=None,
 
 MESH4D_RANKS = 4
 MESH4D_LAYERS = 2
-# a run's bf16 steps (launches, times), f32 gate steps and fault steps
-MESH4D_STEPS, MESH4D_F32_STEPS, MESH4D_FAULT_STEPS = 2, 2, 1
+# a run's bf16 steps (launches, times), f32 gate steps (2 before the
+# fleet phases joined the script) and fault steps
+MESH4D_STEPS, MESH4D_F32_STEPS, MESH4D_FAULT_STEPS = 2, 1, 1
 MESH4D_TIMEOUT_S = 540
 # every rank's f32 loss and grad norm against the one-process replicated
 # f32 run on the same global batches, relative: the fsdp_tp bound
@@ -7312,11 +7842,17 @@ def main(argv=None) -> int:
         serve(model, cfg, args.seed, dev, "bf16", 4, lengths)
     with phase("spec_serve"):
         main_launches["verify"] = spec_serve(model, cfg, args.seed, dev,
-                                             False)["verify"]
+                                             False)[0]["verify"]
     with phase("prefix_serve"):
         prefix_serve(model, cfg, args.seed, dev, False)
     with phase("profile"):
         profile_steps(model, cfg, args.seed, dev)
+    # the disaggregated fleet: its launches add to the main path's
+    fleet_launches = {}
+    with phase("fleet"):
+        fleet_launches = fleet_serve(model, cfg, args.seed, dev)
+    for k, n in fleet_launches.items():
+        main_launches[k] = main_launches.get(k, 0) + n
     del model
     torch.cuda.empty_cache()
     # the gated spec/prefix checks: llama3-8b at full width and depth in
@@ -7324,8 +7860,10 @@ def main(argv=None) -> int:
     with phase("serve_f32"):
         cfg32 = get_config("llama3-8b", dtype="float32")
         model32 = decoder.init(cfg32, seed=args.seed, device=dev)
-        spec_serve(model32, cfg32, args.seed, dev, True)
+        _, ref_outs = spec_serve(model32, cfg32, args.seed, dev, True)
         prefix_serve(model32, cfg32, args.seed, dev, True)
+        with phase("fleet_f32"):
+            fleet_f32(model32, cfg32, args.seed, dev, ref_outs)
     model32 = None
     torch.cuda.empty_cache()
 

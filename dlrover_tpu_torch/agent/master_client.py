@@ -11,10 +11,11 @@ directive (an eviction notice, the plan), the Brain's tuning directives
 agent's ``ParalConfigTuner`` polls (``get_parallel_config``) and the
 sparse tier's versions (``bump_ps_version``, ``report_ps_node_version``,
 ``get_ps_version``) and the network check
-(``report_network_check_result``, ``get_network_check_status``). The
-serving calls wait for ROADMAP A15; the master answers them with an
-error naming the item, which the transport raises as
-``NotImplementedError``.
+(``report_network_check_result``, ``get_network_check_status``) and the
+serving tier's directives (``report_serving_eviction``,
+``get_serving_reshard``, ``report_serving_scale``,
+``get_serving_scale``; a serving replica registers with
+``register_node(node_type="serving", role=...)``).
 """
 
 import os
@@ -225,6 +226,59 @@ class MasterClient:
             )
         )
         return resp if resp else msgs.ReshardPlanResponse()
+
+    def report_serving_eviction(
+        self,
+        replica: str,
+        in_flight: int = 0,
+        deadline_s: float = 10.0,
+        reason: str = "",
+    ) -> bool:
+        """Announce a departing serving replica; the master answers
+        later ``get_serving_reshard`` polls with a page-migration
+        directive."""
+        return self._t.report(
+            msgs.ServingEvictionNotice(
+                node_id=self.node_id,
+                replica=replica,
+                in_flight=int(in_flight),
+                deadline_s=deadline_s,
+                reason=reason,
+            )
+        )
+
+    def get_serving_reshard(self) -> msgs.ServingReshardDirective:
+        resp = self._t.get(msgs.ServingReshardRequest(node_id=self.node_id))
+        return resp if resp else msgs.ServingReshardDirective()
+
+    def report_serving_scale(
+        self,
+        role: str,
+        direction: str,
+        n_before: int,
+        n_after: int,
+        signal: str = "",
+        reason: str = "",
+    ) -> bool:
+        """Announce one autoscaler scale decision; the master versions
+        it as a serving-scale directive (``get_serving_scale``)."""
+        return self._t.report(
+            msgs.ServingScaleNotice(
+                node_id=self.node_id,
+                role=role,
+                direction=direction,
+                n_before=int(n_before),
+                n_after=int(n_after),
+                signal=signal,
+                reason=reason,
+            )
+        )
+
+    def get_serving_scale(self, role: str = "") -> msgs.ServingScaleDirective:
+        resp = self._t.get(
+            msgs.ServingScaleRequest(node_id=self.node_id, role=role)
+        )
+        return resp if resp else msgs.ServingScaleDirective()
 
     # ---- data sharding ---------------------------------------------------
 

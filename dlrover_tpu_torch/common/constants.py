@@ -17,6 +17,7 @@ class NodeType:
     CHIEF = "chief"            # rank-0 coordination anchor
     EVALUATOR = "evaluator"    # side-car eval host, outside the train mesh
     PS = "ps"                  # sparse-tier server host (elastic_ps.py)
+    SERVING = "serving"        # generation-serving replica (serving/replica.py)
 
 
 class NodeStatus:

@@ -9,7 +9,7 @@ control plane sends (node lifecycle, rendezvous, the KV store and sync
 barriers, the global step, checkpoint steps, model info, the data-shard
 service, the live-reshard directive, the network check's results and
 status, the agent monitor's resource stats, the telemetry records a
-worker forwards, the parallel-config and tuning directives, the sparse
+worker forwards, the serving tier's reshard and scale directives, the parallel-config and tuning directives, the sparse
 tier's versions and the Brain service's three calls).
 
 One field is the port's own: ``JoinRendezvousRequest.coordinator_port``
@@ -414,6 +414,69 @@ class ReshardPlanResponse:
     dp_new: int = 0
     lost_ranks: List[int] = field(default_factory=list)
     deadline_s: float = 30.0
+    reason: str = ""
+
+
+@message
+class ServingEvictionNotice:
+    """Serving variant of :class:`EvictionNotice`: a replica (or the
+    router observing its death) announces a serving replica leaving,
+    planned drain or detected eviction, with its in-flight request
+    count, so the master can issue a page-migration directive."""
+
+    node_id: int = 0
+    replica: str = ""
+    in_flight: int = 0
+    deadline_s: float = 10.0     # page-transfer grace window
+    reason: str = ""
+
+
+@message
+class ServingReshardRequest:
+    node_id: int = 0
+
+
+@message
+class ServingReshardDirective:
+    """The master's serving-reshard directive (versioned; 0 = none
+    pending): migrate the victim's held KV pages onto ``survivors``
+    within ``deadline_s``, degrading to re-prefill past the deadline."""
+
+    version: int = 0
+    victim: str = ""
+    survivors: List[str] = field(default_factory=list)
+    deadline_s: float = 10.0
+    reason: str = ""
+
+
+@message
+class ServingScaleNotice:
+    """The serving autoscaler announces one scale decision so the
+    master can version it and track the fleet's target sizes."""
+
+    node_id: int = 0
+    role: str = "unified"        # prefill | decode | unified
+    direction: str = ""          # out | in
+    n_before: int = 0
+    n_after: int = 0
+    signal: str = ""             # breach signal that drove the decision
+    reason: str = ""
+
+
+@message
+class ServingScaleRequest:
+    node_id: int = 0
+    role: str = ""               # "" = any role's latest directive
+
+
+@message
+class ServingScaleDirective:
+    """The master's serving-scale directive (versioned; 0 = none
+    pending): bring the ``role`` pool to ``target`` live replicas."""
+
+    version: int = 0
+    role: str = "unified"
+    target: int = 0
     reason: str = ""
 
 

@@ -63,6 +63,9 @@ class Node:
         # the per-node dataloader config the ParallelConfig poll serves
         # (the servicer folds the job's tuning directive into it)
         self.paral_config: Dict = {}
+        # serving nodes: "prefill" | "decode" | "unified" pool tag
+        # (empty for train-plane nodes)
+        self.role: str = ""
 
     # ---- status helpers -------------------------------------------------
 

@@ -292,8 +292,10 @@ def reshard_train_state(
 @dataclass
 class PhaseBudgets:
     """Per-phase deadline budgets (seconds) for the failover state machine:
-    detect/replan/migrate/rebuild/first_step, and the fallback. Unknown
-    phase names get 60 s."""
+    the training ladder's detect/replan/migrate/rebuild/first_step, the
+    serving page migrator's detect/plan/reserve/transfer/resume
+    (``serving/migration.py``), and the fallback. Unknown phase names
+    get 60 s."""
 
     detect_s: float = 15.0
     replan_s: float = 15.0
@@ -301,6 +303,11 @@ class PhaseBudgets:
     rebuild_s: float = 120.0
     first_step_s: float = 120.0
     fallback_s: float = 300.0
+    # serving-migration phases
+    plan_s: float = 15.0
+    reserve_s: float = 20.0
+    transfer_s: float = 60.0
+    resume_s: float = 60.0
 
     def for_phase(self, name: str) -> float:
         return float(getattr(self, f"{name}_s", 60.0))

@@ -12,8 +12,10 @@ tier's server set through them. The auto-scaler moves the worker count
 (``set_worker_num``: a scale-in releases the highest-indexed nodes, so
 their exits are not failures to relaunch), and the Brain's tuning plans
 are versioned here (``plan_tuning``: one monotonic counter, the latest
-directive kept; the ``ParallelConfig`` poll serves it). The serving
-directives of the JAX manager wait for ROADMAP A15.
+directive kept; the ``ParallelConfig`` poll serves it). Serving
+replicas register as ``NodeType.SERVING`` nodes tagged with their pool
+(``serving_nodes``); their page-migration and scale directives are
+versioned here too (``plan_serving_reshard``, ``plan_serving_scale``).
 """
 
 import threading
@@ -114,6 +116,13 @@ class JobManager:
         # pick it up through the ParallelConfig poll (tuning_json)
         self._tuning_version = 0
         self._tuning: Optional[Dict] = None
+        # serving directives: the page-migration one (the latest kept)
+        # and the scale ones (the latest a role), each on its own
+        # monotonic counter
+        self._serving_reshard_version = 0
+        self._serving_reshard: Optional[Dict] = None
+        self._serving_scale_version = 0
+        self._serving_scale: Dict[str, Dict] = {}
         self._init_nodes()
 
     def _init_nodes(self):
@@ -158,6 +167,8 @@ class JobManager:
                     node.name = f"{meta.node_type}-{node.id}"
                 node.type = meta.node_type
             node.host_addr = meta.host_addr
+            if meta.role:
+                node.role = meta.role
             node.config_resource = NodeResource(
                 chips=meta.local_chips, device_kind=meta.tpu_type
             )
@@ -318,6 +329,22 @@ class JobManager:
                 if n.status == NodeStatus.RUNNING
             ]
 
+    def nodes_of_type(self, node_type: str) -> List[Node]:
+        with self._lock:
+            return [n for n in self._nodes.values() if n.type == node_type]
+
+    def serving_nodes(self, role: Optional[str] = None) -> List[Node]:
+        """Generation-serving replicas (``serving/replica.py``). They
+        register like trainer nodes, heartbeats and failure detection
+        included, but live outside the train rendezvous, so job
+        completion never waits on them. ``role`` filters a
+        disaggregated fleet to one pool ("prefill" / "decode" /
+        "unified") so each can be scaled on its own."""
+        nodes = self.nodes_of_type(NodeType.SERVING)
+        if role is None:
+            return nodes
+        return [n for n in nodes if n.role == role]
+
     def all_workers_exited(self) -> bool:
         with self._lock:
             return all(
@@ -410,3 +437,102 @@ class JobManager:
     def worker_num(self) -> int:
         with self._lock:
             return self._num_workers
+
+    # ---- serving reshard (KV-page migration directives) ------------------
+
+    def plan_serving_reshard(
+        self,
+        victim: str,
+        survivors: Optional[List[str]] = None,
+        deadline_s: float = 10.0,
+        reason: str = "",
+    ) -> int:
+        """Issue a serving-reshard directive: migrate the victim
+        replica's held KV pages onto the survivors within the deadline
+        (degrading to re-prefill past it). ``survivors`` defaults to the
+        other running serving replicas of the victim's pool when it
+        registered with a prefill or decode role (a decode replica's
+        pages must land on decode peers), and to the whole fleet
+        otherwise. Returns the directive version (monotonic, from 1)."""
+        if survivors is None:
+            victim_role = next(
+                (n.role for n in self.serving_nodes() if n.name == victim),
+                "",
+            )
+            pool = self.serving_nodes(
+                victim_role if victim_role in ("prefill", "decode") else None
+            )
+            survivors = [
+                n.name
+                for n in pool
+                if n.name and n.name != victim and not n.is_exited()
+            ]
+        with self._lock:
+            self._serving_reshard_version += 1
+            version = self._serving_reshard_version
+            self._serving_reshard = {
+                "version": version,
+                "victim": victim,
+                "survivors": sorted(survivors),
+                "deadline_s": float(deadline_s),
+                "reason": reason,
+            }
+        get_tracer().instant(
+            "failover.serving_reshard_plan",
+            version=version,
+            victim=victim,
+            survivors=len(survivors),
+        )
+        logger.info(
+            "serving reshard directive v%d: victim=%s survivors=%s (%s)",
+            version, victim, sorted(survivors), reason or "eviction",
+        )
+        return version
+
+    def get_serving_reshard(self) -> Dict:
+        """The pending serving directive, or ``{"version": 0}``."""
+        with self._lock:
+            if self._serving_reshard is None:
+                return {"version": 0}
+            return dict(self._serving_reshard)
+
+    # ---- serving scale (the serving autoscaler's directives) -------------
+
+    def plan_serving_scale(
+        self, role: str, target: int, reason: str = ""
+    ) -> int:
+        """Version one autoscaler decision: bring the ``role`` pool to
+        ``target`` live replicas. The latest directive is kept a role (a
+        prefill scale-out never clobbers a pending decode scale-in), the
+        versions come from one counter, so the fleet's decision order is
+        total. Returns the version (from 1)."""
+        with self._lock:
+            self._serving_scale_version += 1
+            version = self._serving_scale_version
+            self._serving_scale[role] = {
+                "version": version,
+                "role": role,
+                "target": int(target),
+                "reason": reason,
+            }
+        get_tracer().instant(
+            "serving.scale_plan", version=version, role=role,
+            target=int(target),
+        )
+        logger.info(
+            "serving scale directive v%d: role=%s target=%d (%s)",
+            version, role, int(target), reason or "slo",
+        )
+        return version
+
+    def get_serving_scale(self, role: str = "") -> Dict:
+        """The latest scale directive for ``role`` or, with no role, the
+        newest of all roles; ``{"version": 0}`` when there is none."""
+        with self._lock:
+            if role:
+                d = self._serving_scale.get(role)
+                return dict(d) if d else {"version": 0}
+            if not self._serving_scale:
+                return {"version": 0}
+            return dict(max(self._serving_scale.values(),
+                            key=lambda d: d["version"]))

@@ -19,8 +19,11 @@ result to the network-check rendezvous, its status out: faulty nodes
 and stragglers), the Brain's tuning directives (a
 ``TuningPlanNotice`` versioned by the node manager's ``plan_tuning``, a
 ``tuning_plan_notice`` event on the hub; served by ``TuningPlanRequest``
-and folded into each node's ``ParallelConfig``) and the sparse tier's
-versions (``ElasticPsService``). The goodput tracker is marked as
+and folded into each node's ``ParallelConfig``), the sparse tier's
+versions (``ElasticPsService``) and the serving tier's directives (a
+``ServingEvictionNotice`` versioned by ``plan_serving_reshard``, a
+``ServingScaleNotice`` by ``plan_serving_scale``, each an event on the
+hub; served by ``ServingReshardRequest`` and ``ServingScaleRequest``). The goodput tracker is marked as
 the JAX handlers mark it: stalled at a worker restart and at a failure
 report (from the step training had reached), productive at a step
 report that advances past the stall, completed at a SUCCEEDED status.
@@ -47,9 +50,6 @@ from dlrover_tpu_torch.observability.tracing import get_tracer
 logger = get_logger(__name__)
 
 _ITEMS = {
-    "A15 (the rest of the serving tier)": (
-        "ServingEvictionNotice", "ServingReshardRequest",
-        "ServingScaleNotice", "ServingScaleRequest"),
     "A20 (the strategy engine)": (
         "NetworkReadyRequest", "StrategySearchRequest"),
 }
@@ -301,6 +301,35 @@ class MasterServicer:
                         f"dp={m.dp_size} {m.reason}").strip()))
         return True
 
+    def _report_serving_eviction(self, m: msgs.ServingEvictionNotice) -> bool:
+        """A serving replica is leaving (planned drain or detected
+        eviction): issue the page-migration directive, so survivors
+        adopt its in-flight requests' KV pages instead of re-prefilling."""
+        if self.job_manager is None:
+            return False
+        version = self.job_manager.plan_serving_reshard(
+            m.replica, deadline_s=m.deadline_s, reason=m.reason)
+        if self.telemetry_hub is not None and self.telemetry_hub.enabled:
+            self.telemetry_hub.publish(telemetry.ElasticEvent(
+                kind="serving_eviction_notice", node_id=m.node_id,
+                detail=(f"v{version} victim={m.replica} "
+                        f"in_flight={m.in_flight} {m.reason}").strip()))
+        return True
+
+    def _report_serving_scale(self, m: msgs.ServingScaleNotice) -> bool:
+        """The serving autoscaler reports one scale decision: version it
+        as a serving-scale directive and put it on the event stream."""
+        if self.job_manager is None:
+            return False
+        version = self.job_manager.plan_serving_scale(
+            m.role, m.n_after, reason=m.reason or m.signal)
+        if self.telemetry_hub is not None and self.telemetry_hub.enabled:
+            self.telemetry_hub.publish(telemetry.ElasticEvent(
+                kind="serving_scale_notice", node_id=m.node_id,
+                detail=(f"v{version} role={m.role} {m.direction} "
+                        f"{m.n_before}->{m.n_after} {m.signal}").strip()))
+        return True
+
     def _report_model_info(self, m: msgs.ModelInfoReport) -> bool:
         if self.metric_collector:
             # partial update: unset (zero/empty) fields must not clobber
@@ -361,6 +390,8 @@ class MasterServicer:
         "DatasetShardParams": _report_dataset,
         "ShardCheckpoint": _report_shard_ckpt,
         "EvictionNotice": _report_eviction,
+        "ServingEvictionNotice": _report_serving_eviction,
+        "ServingScaleNotice": _report_serving_scale,
         "NetworkCheckResult": _report_network_check,
     }
 
@@ -410,6 +441,27 @@ class MasterServicer:
             world={str(k): v for k, v in world.items()},
             coordinator=coord,
         )
+
+    def _get_serving_reshard(self, m: msgs.ServingReshardRequest):
+        if self.job_manager is None:
+            return msgs.ServingReshardDirective()
+        plan = self.job_manager.get_serving_reshard()
+        if not plan.get("version"):
+            return msgs.ServingReshardDirective()
+        return msgs.ServingReshardDirective(
+            version=plan["version"], victim=plan["victim"],
+            survivors=list(plan["survivors"]),
+            deadline_s=plan["deadline_s"], reason=plan["reason"])
+
+    def _get_serving_scale(self, m: msgs.ServingScaleRequest):
+        if self.job_manager is None:
+            return msgs.ServingScaleDirective()
+        plan = self.job_manager.get_serving_scale(m.role)
+        if not plan.get("version"):
+            return msgs.ServingScaleDirective()
+        return msgs.ServingScaleDirective(
+            version=plan["version"], role=plan["role"],
+            target=plan["target"], reason=plan["reason"])
 
     def _get_reshard_plan(self, m: msgs.ReshardPlanRequest):
         mgr = self.rdzv_managers.get(m.rdzv_name)
@@ -566,6 +618,8 @@ class MasterServicer:
         "SyncRequest": _get_sync,
         "CheckpointStepRequest": _get_ckpt_step,
         "ReshardPlanRequest": _get_reshard_plan,
+        "ServingReshardRequest": _get_serving_reshard,
+        "ServingScaleRequest": _get_serving_scale,
         "TaskRequest": _get_task,
         "ShardCheckpointRequest": _get_shard_ckpt,
         "DatasetEpochRequest": _get_epoch,

@@ -26,16 +26,16 @@ counts. That is what this module provides:
 Pure host-side Python, no jax import — safe from any thread and any
 process tier (engine loop, router, master, offline healthcheck).
 
-The port's copy of ``LatencyHistogram`` from
-``dlrover_tpu/observability/histogram.py``: same geometry and wire
-format, so histograms from both packages merge.
+The port's copy of ``dlrover_tpu/observability/histogram.py``
+(``LatencyHistogram``, ``merge_histograms``, ``histogram_delta``):
+same geometry and wire format, so histograms from both packages merge.
 """
 
 import json
 import math
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
-__all__ = ["LatencyHistogram"]
+__all__ = ["LatencyHistogram", "merge_histograms", "histogram_delta"]
 
 
 class LatencyHistogram:
@@ -211,3 +211,51 @@ class LatencyHistogram:
             f"LatencyHistogram(n={self.n}, p50={s['p50']:.3g}, "
             f"p99={s['p99']:.3g})"
         )
+
+
+def merge_histograms(
+    hists: Iterable[LatencyHistogram],
+) -> Optional[LatencyHistogram]:
+    """Merge an iterable of same-geometry histograms into a fresh one
+    (inputs untouched). Returns None for an empty iterable."""
+    out: Optional[LatencyHistogram] = None
+    for h in hists:
+        if out is None:
+            out = h.copy()
+        else:
+            out.merge(h)
+    return out
+
+
+def histogram_delta(
+    cur: LatencyHistogram, prev: Optional[LatencyHistogram]
+) -> LatencyHistogram:
+    """The WINDOW between two snapshots of one lifetime histogram:
+    ``cur``'s bucket counts minus ``prev``'s. Scheduler histograms only
+    reset on ``reset_latencies``, so a controller that judges this
+    window's p99 (the serving autoscaler's hysteresis-clear check)
+    subtracts its previous snapshot rather than letting minutes of
+    healthy history mask a fresh breach, or a cleared one.
+
+    Counts of the window equal counts of the raw samples recorded
+    between the snapshots. The window's vmin/vmax are not recoverable,
+    so ``cur``'s lifetime extremes clamp its percentiles. ``prev`` of
+    None (the first window) returns a copy of ``cur``. Raises on a
+    geometry mismatch, as ``merge`` does."""
+    if prev is None:
+        return cur.copy()
+    if prev.geometry() != cur.geometry():
+        raise ValueError(
+            f"histogram geometry mismatch: {prev.geometry()} vs "
+            f"{cur.geometry()}"
+        )
+    out = LatencyHistogram(min_value=cur.min_value, sub_bits=cur.sub_bits)
+    for idx, c in cur.counts.items():
+        d = c - prev.counts.get(idx, 0)
+        if d > 0:
+            out.counts[idx] = d
+    out.n = max(0, cur.n - prev.n)
+    out.total = max(0.0, cur.total - prev.total)
+    out.vmin = cur.vmin
+    out.vmax = cur.vmax
+    return out

@@ -10,7 +10,8 @@ so a record the port publishes reads back through the JAX package's
 ``NumericEvent``, ``CollectiveRecord``, ``PlanRecord`` (the watchdog's
 step-time baseline), the watchdog's ``AnomalyRecord`` and the master's
 ``HealthSummary`` (``observability/watchdog.py``), the serving
-replica's ``ServingRecord``, the master speed monitor's
+replica's ``ServingRecord``, the serving autoscaler's
+``ScaleDecisionRecord``, the master speed monitor's
 ``StragglerRecord``, the agent monitor's ``ResourceRecord``, the
 overlap-drift signal the Brain tuner consumes (``OverlapDriftRecord``)
 and, registered when ``cluster/brain.py`` is imported, the Brain's
@@ -289,6 +290,32 @@ class ServingRecord:
     ts: float = 0.0
 
 
+@telemetry_record
+class ScaleDecisionRecord:
+    """One serving-autoscaler decision (``master/serving_autoscaler.py``).
+
+    ``direction`` is "out" (a warm replica joined ``role``'s pool), "in"
+    (the least-loaded member drained and detached) or "" (a latched
+    breach cleared); ``signal`` names the gate that drove it, with
+    ``value`` the reading against ``target``. ``reaction_s`` is breach
+    edge → decision applied; ``version`` the master's serving-scale
+    directive version (0 when the scaler versioned locally);
+    ``replica`` the joiner or the drained victim."""
+
+    role: str = "unified"
+    direction: str = ""
+    signal: str = ""
+    value: float = 0.0
+    target: float = 0.0
+    n_before: int = 0
+    n_after: int = 0
+    version: int = 0
+    reaction_s: float = 0.0
+    replica: str = ""
+    reason: str = ""
+    ts: float = 0.0
+
+
 class JsonlSink:
     """Append one ``to_json`` line per record (line-buffered, so records
     survive the process dying mid-failover)."""
@@ -355,6 +382,10 @@ _GAUGE_MAP: Dict[str, List[Tuple[str, str]]] = {
         ("serving_handoff_bytes", "handoff_bytes"),
         ("serving_handoff_ms_p99", "handoff_ms_p99"),
     ],
+    "ScaleDecisionRecord": [
+        ("autoscale_pool_size", "n_after"),
+        ("autoscale_reaction_s", "reaction_s"),
+    ],
     # cluster/brain.py records (registered on its import)
     "TuningPlan": [
         ("tuning_version", "version"),
@@ -376,6 +407,7 @@ _COUNTER_MAP: Dict[str, str] = {
     "AnomalyRecord": "anomaly_records_total",
     "HealthSummary": "health_summaries_total",
     "ServingRecord": "serving_records_total",
+    "ScaleDecisionRecord": "scale_decisions_total",
     "TuningPlan": "tuning_plans_total",
     "JobMetrics": "brain_job_metrics_total",
 }

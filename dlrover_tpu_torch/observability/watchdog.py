@@ -27,17 +27,21 @@ run into a profiling session.
   model or config — into ``HealthSummary`` records.
 * The offline replay is ``observability/healthcheck.py``.
 
+* ``ServingWatchdog`` (a serving replica): classifies the published
+  ``ServingRecord`` stream and the router's migration reports into SLO
+  anomalies (``SERVING_ANOMALY_KINDS``) with a frozen engine snapshot
+  as the capture; its gate edges feed the serving autoscaler.
+
 The JAX capture also holds the breakdown's collective time against the
 compile-time overlap plan (``plan_diff``), which waits for the strategy
-engine (ROADMAP A20); the serving watchdog waits for the rest of the
-serving tier (ROADMAP A15).
+engine (ROADMAP A20).
 """
 
 import json
 import os
 import threading
 import time
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 from typing import Dict, List, Optional
 
 from dlrover_tpu_torch.common.log import get_logger
@@ -52,6 +56,16 @@ ANOMALY_KINDS = (
     "fp8_saturation",
     "step_time_regression",
     "straggler",
+)
+
+#: serving-tier SLO anomaly kinds (``ServingWatchdog``): the same
+#: AnomalyRecord envelope, correlated by ``replica`` instead of step
+SERVING_ANOMALY_KINDS = (
+    "slo_breach",
+    "ttft_regression",
+    "spec_accept_collapse",
+    "shed_storm",
+    "migration_fallback",
 )
 
 
@@ -228,6 +242,277 @@ class Watchdog:
         self._pending_kind = ""
         self._pending_step = -1
         return path
+
+
+# ---------------------------------------------------------------------------
+# serving-tier SLO watchdog
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ServingWatchdogConfig:
+    """Thresholds + capture policy for one serving replica's watchdog.
+
+    A target of 0 disables that gate, so a watchdog can run with only
+    the gates its deployment defines SLOs for."""
+
+    node_id: int = -1
+    capture_dir: str = ""
+    # p99 end-to-end latency SLO (ms); breach fires ``slo_breach``
+    p99_target_ms: float = 0.0
+    # p99 time-to-first-token target (ms); breach fires ``ttft_regression``
+    ttft_target_ms: float = 0.0
+    # judging percentiles on a handful of requests is noise
+    min_completed: int = 8
+    # speculative accept rate below the floor (with enough drafts to
+    # judge) fires ``spec_accept_collapse``
+    min_accept_rate: float = 0.2
+    min_draft_tokens: int = 64
+    # ≥ this many NEW drops (shed+rejected+timed_out+poisoned) between
+    # two consecutive records fires ``shed_storm``
+    shed_storm_drops: int = 8
+    # this many CONSECUTIVE non-live migration outcomes fires
+    # ``migration_fallback``
+    fallback_storm: int = 2
+    # capture rate limit + lifetime budget (same storm protection as
+    # the training watchdog)
+    min_capture_interval_s: float = 60.0
+    max_captures: int = 5
+
+
+class ServingWatchdog:
+    """Classify a serving replica's ``ServingRecord`` stream into SLO
+    anomalies, with a frozen engine snapshot as the capture artifact.
+
+    Feed it from the server's publish loop: ``observe(record)`` per
+    published ServingRecord, ``observe_migration(report)`` per
+    router-driven failover. Gates are EDGE-TRIGGERED: an anomaly fires
+    on the transition into breach and re-arms only after the gate
+    clears, so a sustained breach is one record, not one per publish
+    tick.
+
+    Unlike the training watchdog's two-phase capture (reserve → next
+    step force-profiled), a serving capture is written IMMEDIATELY:
+    ``snapshot_fn`` (usually ``ServingEngine.observability_snapshot``)
+    is cheap host state — the phase split, scheduler depth + drop
+    counters, and PageAllocator occupancy that tell 'engine got slow'
+    from 'queue backed up' from 'out of pages'.
+    """
+
+    def __init__(
+        self,
+        config: Optional[ServingWatchdogConfig] = None,
+        clock=time.monotonic,
+        snapshot_fn=None,
+    ):
+        self.cfg = config or ServingWatchdogConfig()
+        self._clock = clock
+        self.snapshot_fn = snapshot_fn
+        self.anomalies: List[telemetry.AnomalyRecord] = []
+        self._captures_used = 0
+        self._last_capture_t: Optional[float] = None
+        self._breached: Dict[str, bool] = {}
+        self._last_drops: Optional[int] = None
+        self._fallback_streak = 0
+        self._n_obs = 0
+        # gate-edge subscribers (``subscribe``); the empty-list fast
+        # path keeps ``_edge`` allocation-free when nobody listens
+        self._subscribers: List = []
+
+    # ---- gate-edge subscription ------------------------------------------
+
+    def subscribe(self, fn) -> None:
+        """Deliver every gate EDGE to ``fn(kind, breaching, record)`` —
+        both the transition INTO breach (``breaching=True``) and the
+        clear (``breaching=False``), with the ServingRecord that flipped
+        the gate (None for migration-path gates). This is how the
+        serving autoscaler closes the watchdog → ScalePlan loop without
+        polling capture artifacts; with no subscribers the hook costs
+        one truthiness check per gate evaluation. A subscriber raising
+        is logged and never breaks classification."""
+        self._subscribers.append(fn)
+
+    def _notify(self, kind: str, breaching: bool, rec) -> None:
+        for fn in self._subscribers:
+            try:
+                fn(kind, breaching, rec)
+            except Exception:  # noqa: BLE001 — observers never break gates
+                logger.exception(
+                    "watchdog gate subscriber failed on %s edge", kind
+                )
+
+    # ---- classification --------------------------------------------------
+
+    def observe(self, rec) -> List[telemetry.AnomalyRecord]:
+        """Classify one published ServingRecord; returns the
+        AnomalyRecords fired by this observation."""
+        self._n_obs += 1
+        out: List[telemetry.AnomalyRecord] = []
+        enough = rec.completed >= self.cfg.min_completed
+        if self.cfg.p99_target_ms > 0:
+            self._edge(
+                out, "slo_breach",
+                enough and rec.p99_ms > self.cfg.p99_target_ms,
+                rec, value=rec.p99_ms,
+                detail=(
+                    f"p99={rec.p99_ms:g}ms target="
+                    f"{self.cfg.p99_target_ms:g}ms n={rec.completed}"
+                ),
+            )
+        if self.cfg.ttft_target_ms > 0:
+            self._edge(
+                out, "ttft_regression",
+                enough and rec.ttft_p99_ms > self.cfg.ttft_target_ms,
+                rec, value=rec.ttft_p99_ms,
+                detail=(
+                    f"ttft_p99={rec.ttft_p99_ms:g}ms target="
+                    f"{self.cfg.ttft_target_ms:g}ms"
+                ),
+            )
+        self._edge(
+            out, "spec_accept_collapse",
+            (
+                rec.draft_tokens >= self.cfg.min_draft_tokens
+                and rec.spec_accept_rate < self.cfg.min_accept_rate
+            ),
+            rec, value=rec.spec_accept_rate,
+            detail=(
+                f"accept_rate={rec.spec_accept_rate:g} floor="
+                f"{self.cfg.min_accept_rate:g} "
+                f"drafts={rec.draft_tokens}"
+            ),
+        )
+        drops = rec.shed + rec.rejected + rec.timed_out + rec.poisoned
+        delta = drops - (
+            self._last_drops if self._last_drops is not None else drops
+        )
+        self._last_drops = drops
+        self._edge(
+            out, "shed_storm", delta >= self.cfg.shed_storm_drops,
+            rec, value=float(delta),
+            detail=(
+                f"new_drops={delta} shed={rec.shed} "
+                f"rejected={rec.rejected} timed_out={rec.timed_out} "
+                f"poisoned={rec.poisoned}"
+            ),
+        )
+        return out
+
+    def observe_migration(
+        self, report, replica: str = ""
+    ) -> Optional[telemetry.AnomalyRecord]:
+        """Track migration outcomes (``MigrationReport.path``): a run
+        of non-live outcomes means the live path keeps degrading to
+        re-prefill — a page-pressure or geometry problem worth a
+        capture."""
+        if getattr(report, "path", "live") == "live":
+            self._fallback_streak = 0
+            if self._breached.get("migration_fallback"):
+                self._breached["migration_fallback"] = False
+                if self._subscribers:
+                    self._notify("migration_fallback", False, None)
+            return None
+        self._fallback_streak += 1
+        out: List[telemetry.AnomalyRecord] = []
+        self._edge(
+            out, "migration_fallback",
+            self._fallback_streak >= self.cfg.fallback_storm,
+            None, replica=replica, value=float(self._fallback_streak),
+            detail=(
+                f"consecutive_fallbacks={self._fallback_streak} "
+                f"re_prefilled={len(getattr(report, 're_prefilled', {}))}"
+            ),
+        )
+        return out[0] if out else None
+
+    # ---- internals -------------------------------------------------------
+
+    def _edge(
+        self, out, kind: str, breaching: bool, rec,
+        value: float = 0.0, detail: str = "", replica: str = "",
+    ) -> None:
+        was = self._breached.get(kind, False)
+        self._breached[kind] = breaching
+        if breaching == was:
+            return
+        if self._subscribers:
+            self._notify(kind, breaching, rec)
+        if not breaching:
+            return
+        out.append(self._anomaly(kind, rec, value=value, detail=detail,
+                                 replica=replica))
+
+    def _anomaly(
+        self, kind: str, rec, value: float = 0.0, detail: str = "",
+        replica: str = "",
+    ) -> telemetry.AnomalyRecord:
+        replica = replica or (rec.replica if rec is not None else "")
+        capture = self._reserve_capture(kind, replica)
+        anomaly = telemetry.AnomalyRecord(
+            kind=kind,
+            step=self._n_obs,
+            node_id=self.cfg.node_id,
+            value=float(value),
+            detail=detail,
+            capture=capture,
+            replica=replica,
+        )
+        self.anomalies.append(anomaly)
+        if capture:
+            self._write_capture(capture, anomaly, rec)
+        hub = telemetry.get_hub()
+        if hub.enabled:
+            hub.publish(anomaly)
+        return anomaly
+
+    def _reserve_capture(self, kind: str, replica: str) -> str:
+        if not self.cfg.capture_dir:
+            return ""
+        if self._captures_used >= self.cfg.max_captures:
+            return ""
+        now = self._clock()
+        if (
+            self._last_capture_t is not None
+            and now - self._last_capture_t
+            < self.cfg.min_capture_interval_s
+        ):
+            return ""
+        self._captures_used += 1
+        self._last_capture_t = now
+        tag = (replica or "replica").replace("/", "_")
+        return os.path.join(
+            self.cfg.capture_dir,
+            f"capture_serving{self._n_obs}_{tag}_{kind}.json",
+        )
+
+    def _write_capture(self, path: str, anomaly, rec) -> None:
+        doc = {
+            "anomaly": {
+                "kind": anomaly.kind,
+                "step": anomaly.step,
+                "node_id": anomaly.node_id,
+                "replica": anomaly.replica,
+                "value": anomaly.value,
+                "detail": anomaly.detail,
+            },
+            "record": asdict(rec) if rec is not None else {},
+            "engine": {},
+        }
+        if self.snapshot_fn is not None:
+            try:
+                doc["engine"] = self.snapshot_fn()
+            except Exception as e:  # noqa: BLE001 — capture must not kill
+                doc["engine"] = {"error": str(e)}
+        try:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            with open(path, "w", encoding="utf-8") as f:
+                json.dump(doc, f, indent=2)
+            logger.info(
+                "serving watchdog capture for %s on %s written to %s",
+                anomaly.kind, anomaly.replica, path,
+            )
+        except OSError as e:
+            logger.warning("serving capture write failed: %s", e)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,14 @@ Port of ``dlrover_tpu/ops/pallas_paged.py``:
   last split to finish merges them in split order, so the output is the
   same on every call and, up to f32 rounding, for any split count.
 
+Several serve loops may call the kernels from their own threads in one
+process (a disaggregated fleet). Calls that share a device's workspace
+must run in order, so they must run on one stream: the workspace belongs
+to the stream of its first call, and a call on another stream raises
+(a CUDA-graph capture only records, and is let through). A lock holds
+the workspace's growth, the launch and the ``LAUNCHES`` count together,
+so one thread cannot free a workspace another is about to launch into.
+
 ``verify`` is the speculative-decoding verify step: the C queries are a
 draft chunk whose K/V rows (``extra_k``/``extra_v`` ``[B, C, Hkv, D]``,
 at ``positions`` themselves) are IN FLIGHT — folded as extra keys, never
@@ -43,6 +51,7 @@ Pools are one layer's slices: bf16 (or f32) ``{"k", "v"}`` of
 """
 
 import ctypes
+import threading
 from typing import Dict
 
 import torch
@@ -384,9 +393,11 @@ def paged_attention_reference(
 
 _lib_fn = None
 _sms: Dict[int, int] = {}
-# the split kernel's workspace, per device: f32 partials and the row
-# tiles' counters (zero between calls)
-_workspaces: Dict[str, Dict[str, torch.Tensor]] = {}
+# the split kernel's workspace, per device: f32 partials, the row tiles'
+# counters (zero between calls) and the stream its calls run on
+_workspaces: Dict[str, Dict] = {}
+# serializes workspace growth, launches and LAUNCHES across serve loops
+_launch_lock = threading.Lock()
 
 
 def _kernel():
@@ -412,12 +423,20 @@ def _sm_count(dev) -> int:
     return _sms[idx]
 
 
-def _workspace(dev, n_floats: int, n_tiles: int):
+def _workspace(dev, stream, n_floats: int, n_tiles: int):
     """The split kernel's persistent workspace on ``dev``, grown on
     demand: ``n_floats`` f32 partials and ``n_tiles`` int32 counters, zero
     at allocation (each call leaves them zero). Calls on one device share
-    it, so they must not run concurrently on two streams."""
-    ws = _workspaces.setdefault(str(dev), {})
+    it, so they must run in order: on ``stream``, the stream of its first
+    call (a graph capture, which only records, excepted). Call under
+    ``_launch_lock``."""
+    handle = stream.cuda_stream
+    ws = _workspaces.setdefault(str(dev), {"stream": handle})
+    if ws["stream"] != handle and not torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"paged_attention on {dev}: a call on stream {handle:#x} while "
+            f"the split workspace belongs to stream {ws['stream']:#x}; calls "
+            "that share it must run in order on one stream")
     if "part" not in ws or ws["part"].numel() < n_floats:
         ws["part"] = torch.empty(n_floats, dtype=torch.float32, device=dev)
     if "counters" not in ws or ws["counters"].numel() < n_tiles:
@@ -499,28 +518,30 @@ def _paged_call(q, pools, block_tables, positions, *, scale, window,
         vs_ptr = pools["v_scale"].data_ptr()
     kernel = kernel_for(c, h, hkv, variant)
     cuda = cuda_kernel(kernel, q.dtype, d)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(dev)
     part_ptr, cnt_ptr = None, None
     splits = call_splits(kernel, cuda, b, c, h, hkv, w, ps, _sm_count(dev))
-    if splits > 1:
-        rows = SPLIT_ROWS[kernel]
-        n_tiles = b * hkv * -(-c * (h // hkv) // rows)
-        part, counters = _workspace(
-            dev, n_tiles * splits * rows * (d + 2), n_tiles)
-        part_ptr, cnt_ptr = part.data_ptr(), counters.data_ptr()
-    err = _kernel()(
-        q.data_ptr(), out.data_ptr(), k_ptr, v_ptr, ks_ptr, vs_ptr,
-        tables.data_ptr(), pos.data_ptr(), ek_ptr, ev_ptr,
-        b, c, h, hkv, d, ps, w, w_full, blk, int(window), float(scale),
-        _DTYPE_CODE[q.dtype], int(mode == "int8"), CUDA_KERNEL_IDS[cuda],
-        stream,
-        part_ptr, cnt_ptr, splits,
-    )
-    if err != 0:
-        raise RuntimeError(
-            f"paged_attention kernel launch failed: cudaError {err}"
+    fn = _kernel()
+    with _launch_lock:
+        if splits > 1:
+            rows = SPLIT_ROWS[kernel]
+            n_tiles = b * hkv * -(-c * (h // hkv) // rows)
+            part, counters = _workspace(
+                dev, stream, n_tiles * splits * rows * (d + 2), n_tiles)
+            part_ptr, cnt_ptr = part.data_ptr(), counters.data_ptr()
+        err = fn(
+            q.data_ptr(), out.data_ptr(), k_ptr, v_ptr, ks_ptr, vs_ptr,
+            tables.data_ptr(), pos.data_ptr(), ek_ptr, ev_ptr,
+            b, c, h, hkv, d, ps, w, w_full, blk, int(window), float(scale),
+            _DTYPE_CODE[q.dtype], int(mode == "int8"), CUDA_KERNEL_IDS[cuda],
+            stream.cuda_stream,
+            part_ptr, cnt_ptr, splits,
         )
-    LAUNCHES[kernel] += 1
+        if err != 0:
+            raise RuntimeError(
+                f"paged_attention kernel launch failed: cudaError {err}"
+            )
+        LAUNCHES[kernel] += 1
     return out
 
 

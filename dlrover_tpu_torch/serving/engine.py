@@ -1,8 +1,8 @@
 """Continuous-batching decode engine over the paged KV cache.
 
-Port of ``dlrover_tpu/serving/engine.py``'s ``ServingEngine`` in its
-unified role, paged mode, with speculative decoding and prefix sharing.
-Orca/vLLM-style iteration-level scheduling on a FIXED decode batch of
+Port of ``dlrover_tpu/serving/engine.py``'s ``ServingEngine`` in paged
+mode, in its three roles, with speculative decoding, prefix sharing,
+live KV-page migration and live retuning. Orca/vLLM-style iteration-level scheduling on a FIXED decode batch of
 ``n_slots`` lanes: requests are admitted into free slots and evicted
 at step boundaries, and every decode runs the full batch with a
 per-lane ``valid`` mask. Each step is:
@@ -51,13 +51,40 @@ writes into it. ``admission_lookahead`` lets the scheduler admit a
 later request whose prefix-discounted footprint fits past a cold
 head-of-line request that is blocked on pages.
 
+Disaggregated prefill/decode (``role``, ``serving/disagg.py``):
+
+- ``unified`` (default): the steps above.
+- ``prefill``: chunked prefill only. Every prefill slot advances one
+  chunk a step and the decode batch never runs. Admission reserves the
+  prompt's pages only (the generation pages live on the decode
+  replica), and a finished prompt leaves through ``handoff_sink``,
+  called after each committed chunk (``"chunk"``: its full pages stream
+  out while the next chunk computes), at completion (``"done"``: the
+  slot parks in phase ``"handoff"`` until the coordinator releases it),
+  or when the request finished at its first token (``"local_done"``).
+- ``decode``: batched decode only. Work arrives as handoffs
+  (``import_slot`` over a staged reservation) or as prefix-affinity
+  admissions whose index plan covers all but ``affinity_suffix_max``
+  trailing prompt tokens; a popped request whose plan degraded parks on
+  ``bounced`` for the router to send through the prefill pool.
+
+Live migration (``serving/migration.py``): ``export_pages`` copies a
+slot's pages to the host in logical order, exactly as stored;
+``stage_pages`` and ``import_slot`` scatter such pages into a migration
+reservation and rebuild the lane where the donor stopped. A sampled
+draw is keyed on the request's seed and the absolute position, so an
+imported lane needs nothing but the seed to continue the stream.
+
 The pools are updated in place by each step (the JAX engine donates
-them to its jitted steps instead).
+them to its jitted steps instead); ``stage_pages`` and ``import_slot``
+write into them in place too (``index_copy_`` on the page axis), so a
+caller on another thread holds ``GenerationServer.paused()``.
 """
 
 import time
+from collections import deque
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -152,7 +179,7 @@ class _Slot:
     """Host-side state of one decode lane."""
 
     req: Request
-    phase: str                  # "prefill" | "decode"
+    phase: str                  # "prefill" | "decode" | "handoff"
     prompt: np.ndarray          # int32 [P]
     n_prefilled: int = 0
     generated: List[int] = field(default_factory=list)
@@ -166,8 +193,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     )
 
 
+ROLES = ("unified", "prefill", "decode")
+
+
 class ServingEngine:
-    """Single-replica continuous-batching engine (host loop + 3 steps)."""
+    """One replica's continuous-batching engine (host loop + 3 steps)."""
 
     def __init__(
         self,
@@ -180,33 +210,59 @@ class ServingEngine:
         page_size: int = 16,
         mode: str = "int8",
         prefill_chunk: int = 8,
+        slack_pages: int = 0,
         paged: bool = True,
+        page_bucketing: bool = True,
         spec_k: int = 0,
         draft: Optional[DraftModel] = None,
         prefix_sharing: bool = False,
         admission_lookahead: int = 0,
         role: str = "unified",
+        affinity_suffix_max: Optional[int] = None,
         device="cuda",
     ):
-        if role != "unified":
-            raise _not_ported(f"role={role!r} (disaggregated serving)",
-                              "A15")
+        if role not in ROLES:
+            raise ValueError(
+                f"role must be 'unified', 'prefill' or 'decode', got {role!r}"
+            )
         if not paged:
-            raise _not_ported("the gather (paged=False) engine", "A15")
+            raise _not_ported(
+                "the gather engine (paged=False: kv_cache.gather/write_rows "
+                "and the contiguous prefill/decode_step family)", "A15")
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         self.device = resolve_device(device)
         self.model = model.to(self.device)
+        # the stream every operation on this engine's pools runs on: the
+        # serve loop's steps and a coordinator's staging and imports come
+        # from different threads, and only one stream keeps them in order
+        self.stream = (torch.cuda.current_stream(self.device)
+                       if self.device.type == "cuda" else None)
         self.cfg = cfg
         self.scheduler = scheduler
         self.n_slots = n_slots
         self.prefill_chunk = prefill_chunk
         self.role = role
+        # disaggregation hook (serving/disagg.py): a prefill-role engine
+        # calls sink(slot_idx, slot, event) with "chunk" after every
+        # committed chunk, "done" at prefill completion and "local_done"
+        # when the request finished at its first token
+        self.handoff_sink = None
+        # decode-role bounce lane: popped requests whose prefix-affinity
+        # plan no longer qualifies, for the router to send through the
+        # prefill pool (a decode-role engine never prefills a cold
+        # prompt); lock-free, so the loop never waits on the router
+        self.bounced: deque = deque()
+        if affinity_suffix_max is None:
+            affinity_suffix_max = 2 * prefill_chunk if role == "decode" else 0
+        self.affinity_suffix_max = int(affinity_suffix_max)
+        self.page_bucketing = bool(page_bucketing)
         self.spec_k = int(spec_k)
         self.draft = draft if draft is not None else PromptLookupDraft()
+        self._slack_pages = int(slack_pages)
         self.geom = kvc.make_geometry(
             cfg, n_slots=n_slots, max_len=max_len, page_size=page_size,
-            mode=mode,
+            mode=mode, slack_pages=slack_pages,
         )
         if self.geom.max_len % prefill_chunk:
             raise ValueError(
@@ -238,6 +294,13 @@ class ServingEngine:
         self._verify_tokens = 0   # tokens those verify steps emitted
         self._prefill_tokens = 0  # prompt tokens run through the chunk step
         self._prefill_chunks = 0  # chunk-step invocations
+        self._decode_steps = 0    # batched decode steps run
+        self._migrated_in = 0     # requests adopted as live KV pages
+        self._migrated_out = 0    # requests donated as live KV pages
+        self._handoffs_in = 0     # disagg handoffs committed into a slot
+        self._handoffs_out = 0    # prefilled requests released downstream
+        self._handoff_bytes = 0   # wire bytes shipped/staged (both roles)
+        self._affinity_bounced = 0  # decode-role pops with a degraded plan
         self._prefix_hits = 0     # admissions that mapped shared pages
         self._prefix_misses = 0   # sharing-on admissions with no usable hit
         self._prefill_tokens_saved = 0  # prompt tokens skipped via hits
@@ -275,9 +338,20 @@ class ServingEngine:
             ),
             "verify_steps": self._verify_steps,
             "verify_tokens": self._verify_tokens,
+            # the migration drill's zero-re-prefill check reads
+            # prefill_tokens before and after a failover
             "prefill_tokens": self._prefill_tokens,
             "prefill_chunks": self._prefill_chunks,
+            "decode_steps": self._decode_steps,
+            "migrated_in": self._migrated_in,
+            "migrated_out": self._migrated_out,
+            # disaggregation: the replica's role and its handoffs (the
+            # coordinator adds the bytes from its own thread)
             "role": self.role,
+            "handoffs_in": self._handoffs_in,
+            "handoffs_out": self._handoffs_out,
+            "handoff_bytes": self._handoff_bytes,
+            "affinity_bounced": self._affinity_bounced,
             # prefix sharing: hit rate over sharing-on admissions, prompt
             # tokens whose prefill was skipped, COW duplications, live
             # index size, and the dedup ratio (slot cells per unique
@@ -294,6 +368,98 @@ class ServingEngine:
             "peak_dedup_ratio": self._peak_dedup,
         }
 
+    # ---- live retuning ---------------------------------------------------
+
+    def retune(
+        self,
+        *,
+        spec_k: Optional[int] = None,
+        prefill_chunk: Optional[int] = None,
+        page_bucketing: Optional[bool] = None,
+        n_slots: Optional[int] = None,
+    ) -> dict:
+        """Apply a tuning revision's serving knobs at a step boundary,
+        without a restart (the caller holds ``server.paused()``).
+
+        The streams do not depend on any knob: a draw is keyed on the
+        seed and the absolute position, so spec-on equals spec-off and
+        the chunk width, page bucketing and slot count change no token.
+
+        - ``spec_k`` / ``page_bucketing``: read each step, in effect on
+          the next one.
+        - ``prefill_chunk``: chunk starts must stay aligned, so the new
+          width must divide the slot capacity and every in-flight
+          prefill's resume point; a misaligned slot defers the knob
+          (under ``"deferred"``) to the caller's next boundary.
+        - ``n_slots``: sizes the geometry, allocator, pools and tables,
+          so it applies only to an idle engine; a busy one defers.
+
+        Returns ``{"applied": {knob: new}, "deferred": {knob: why}}``."""
+        applied: dict = {}
+        deferred: dict = {}
+        if spec_k is not None:
+            if spec_k < 0:
+                raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+            if int(spec_k) != self.spec_k:
+                self.spec_k = int(spec_k)
+                applied["spec_k"] = self.spec_k
+        if page_bucketing is not None:
+            if bool(page_bucketing) != self.page_bucketing:
+                self.page_bucketing = bool(page_bucketing)
+                self._tables_dev = None
+                applied["page_bucketing"] = self.page_bucketing
+        if n_slots is not None and int(n_slots) != self.n_slots:
+            n_new = int(n_slots)
+            if n_new < 1:
+                raise ValueError(f"n_slots must be >= 1, got {n_new}")
+            if self.active_slots():
+                deferred["n_slots"] = (
+                    f"{self.active_slots()} slots hold live KV; pools "
+                    "cannot reshape under them"
+                )
+            else:
+                g = self.geom
+                self.geom = kvc.make_geometry(
+                    self.cfg, n_slots=n_new, max_len=g.max_len,
+                    page_size=g.page_size, mode=g.mode,
+                    slack_pages=self._slack_pages,
+                )
+                self.alloc = kvc.PageAllocator(self.geom, n_new)
+                self.pools = kvc.init_pools(self.geom, self.device)
+                self.slots = [None] * n_new
+                self.n_slots = n_new
+                self._tables_dev = None
+                if self.prefix_sharing:
+                    # the shared pages died with the old pools
+                    self.trie = prefix_mod.PrefixIndex(g.page_size)
+                    self.alloc.on_free = self.trie.drop_pages
+                applied["n_slots"] = n_new
+        if (prefill_chunk is not None
+                and int(prefill_chunk) != self.prefill_chunk):
+            pc = int(prefill_chunk)
+            if pc < 1:
+                raise ValueError(f"prefill_chunk must be >= 1, got {pc}")
+            if self.geom.max_len % pc:
+                raise ValueError(
+                    f"slot capacity {self.geom.max_len} must be a "
+                    f"multiple of prefill_chunk={pc} (chunk starts are "
+                    "chunk-aligned)"
+                )
+            misaligned = [
+                i for i, s in enumerate(self.slots)
+                if s is not None and s.phase == "prefill"
+                and s.n_prefilled % pc
+            ]
+            if misaligned:
+                deferred["prefill_chunk"] = (
+                    f"slots {misaligned} mid-prefill at non-multiples "
+                    f"of {pc}"
+                )
+            else:
+                self.prefill_chunk = pc
+                applied["prefill_chunk"] = pc
+        return {"applied": applied, "deferred": deferred}
+
     def dedup_ratio(self) -> float:
         """Slot cells / unique assigned pages — how many logical pages
         each resident physical page serves."""
@@ -305,6 +471,75 @@ class ServingEngine:
 
     def resident_kv_bytes(self) -> int:
         return kvc.resident_bytes(self.geom)
+
+    def observability_snapshot(self) -> dict:
+        """The state the serving watchdog freezes into a capture when an
+        SLO anomaly fires: the wall-time split, the scheduler's depth and
+        drop counters, the allocator's occupancy, the handoffs and the
+        prefix index — enough to tell "engine got slow" from "queue
+        backed up" from "out of pages"."""
+        es = self.stats()
+        return {
+            "phase_split": {
+                "step_time_s": round(es["step_time_s"], 4),
+                "host_time_s": round(es["host_time_s"], 4),
+                "table_ships": es["table_ships"],
+            },
+            "scheduler": {
+                "queue_depth": self.scheduler.queue_depth(),
+                "admitted": self.scheduler.admitted,
+                "completed": self.scheduler.completed,
+                "shed": self.scheduler.shed,
+                "rejected": self.scheduler.rejected,
+                "timed_out": self.scheduler.timed_out,
+                "poisoned": self.scheduler.poisoned,
+            },
+            "allocator": {
+                "free_pages": self.alloc.free_pages,
+                "reserved_pages": self.alloc.reserved_pages,
+                "n_pages": self.geom.n_pages,
+                "pages_per_slot": [
+                    self.alloc.slot_pages(i) for i in range(self.n_slots)
+                ],
+            },
+            "active_slots": es["active_slots"],
+            "tokens_per_s": round(es["tokens_per_s"], 2),
+            "spec_accept_rate": round(es["spec_accept_rate"], 4),
+            # phase "handoff": prefill done, pages still streaming
+            "handoff": {
+                "role": self.role,
+                "handoffs_in": es["handoffs_in"],
+                "handoffs_out": es["handoffs_out"],
+                "handoff_bytes": es["handoff_bytes"],
+                "pending": sum(
+                    1 for s in self.slots
+                    if s is not None and s.phase == "handoff"
+                ),
+                "affinity_bounced": es["affinity_bounced"],
+            },
+            "prefix": {
+                "sharing": self.prefix_sharing,
+                "hit_rate": round(es["prefix_hit_rate"], 4),
+                "trie_pages": es["trie_pages"],
+                "trie": (
+                    self.trie.stats() if self.trie is not None else {}
+                ),
+                "dedup_ratio": round(es["dedup_ratio"], 4),
+                "prefill_tokens_saved": es["prefill_tokens_saved"],
+                "cow_pages": es["cow_pages"],
+            },
+        }
+
+    def _check_stream(self) -> None:
+        """Raise unless this thread runs on the engine's stream."""
+        if self.stream is None:
+            return
+        cur = torch.cuda.current_stream(self.device)
+        if cur != self.stream:
+            raise RuntimeError(
+                f"serving engine of {self.scheduler.replica}: called on "
+                f"stream {cur}, its pools belong to stream {self.stream}"
+            )
 
     # ---- device-side inputs ----------------------------------------------
 
@@ -325,6 +560,8 @@ class ServingEngine:
             (self.alloc.slot_pages(i) for i in range(self.n_slots)),
             default=1,
         )
+        if not self.page_bucketing:  # the full table width
+            return self.geom.max_pages_per_slot
         b = 4
         while b < held:
             b *= 2
@@ -370,10 +607,15 @@ class ServingEngine:
 
     def step(self) -> bool:
         """One engine iteration; returns False when fully idle."""
+        self._check_stream()
         worked = self._finish_and_evict()
         worked = self._admit() or worked
         if self._t0 is None and any(self.slots):
             self._t0 = time.monotonic()
+        if self.role == "prefill":
+            # every prefill slot advances a chunk; finished prompts leave
+            # through handoff_sink and the decode batch never runs
+            return self._prefill_all() or worked
         worked = self._prefill_one() or worked
         if self.spec_k:
             worked = self._spec_batch() or worked
@@ -427,6 +669,15 @@ class ServingEngine:
             match, len(req.prompt), self.geom.page_size, self.prefill_chunk
         )
 
+    def _footprint_tokens(self, req) -> int:
+        """Tokens of page footprint an admission reserves: a
+        prefill-role engine holds the prompt's pages only (the generated
+        tokens' rows are written on the decode replica; the first token
+        is drawn from logits, never written)."""
+        if self.role == "prefill":
+            return len(req.prompt)
+        return req.total_tokens
+
     def _admit(self) -> bool:
         worked = False
         if self.draining:
@@ -445,8 +696,13 @@ class ServingEngine:
                 # hit-aware footprint: shared prefix pages are mapped,
                 # not drawn from the free list (COW pages get no discount)
                 plan = self._prefix_plan(req)
+                if self.role == "decode" and not prefix_mod.affinity_ok(
+                    plan, len(req.prompt), self.affinity_suffix_max
+                ):
+                    return True  # popped to bounce: takes no pages
                 n_shared = len(plan.shared) if plan else 0
-                return self.alloc.can_admit(req.total_tokens, n_shared)
+                return self.alloc.can_admit(self._footprint_tokens(req),
+                                            n_shared)
 
             req = self.scheduler.pop_next(
                 can, lookahead=self.admission_lookahead
@@ -480,9 +736,19 @@ class ServingEngine:
             # prefix hit the matched prefix maps existing pages, and
             # prefill resumes at the plan's chunk-aligned resume point
             plan = self._prefix_plan(req)
+            if self.role == "decode" and not prefix_mod.affinity_ok(
+                plan, len(req.prompt), self.affinity_suffix_max
+            ):
+                # the plan the router saw degraded (the donor pages left
+                # the index): bounce it through the prefill pool rather
+                # than prefill a cold prompt here
+                self._affinity_bounced += 1
+                self.bounced.append(req)
+                worked = True
+                continue
             resume = 0
             if plan is not None:
-                self.alloc.admit_shared(idx, req.total_tokens,
+                self.alloc.admit_shared(idx, self._footprint_tokens(req),
                                         plan.prefix_pages)
                 for logical, _src in plan.cow:
                     pair = self.alloc.cow_page(idx, logical)
@@ -493,7 +759,7 @@ class ServingEngine:
                 self._prefix_hits += 1
                 self._prefill_tokens_saved += resume
             else:
-                self.alloc.admit(idx, req.total_tokens)
+                self.alloc.admit(idx, self._footprint_tokens(req))
                 if self.prefix_sharing:
                     self._prefix_misses += 1
             self._peak_dedup = max(self._peak_dedup, self.dedup_ratio())
@@ -534,6 +800,187 @@ class ServingEngine:
         self.trie.intern(s.prompt, full, self.alloc.block_tables()[i])
         s.interned_pages = full
 
+    # ---- live KV-page migration (serving/migration.py) -------------------
+
+    def _page_index(self, phys) -> torch.Tensor:
+        return torch.as_tensor(list(phys), dtype=torch.int64,
+                               device=self.device)
+
+    def _scatter_pages(self, phys, pages) -> None:
+        """Write host page payloads ``pages`` (pool key → ``[L, n, ...]``)
+        into physical pages ``phys`` of every pool, in place."""
+        self._check_stream()
+        idx = self._page_index(phys)
+        for k, v in self.pools.items():
+            src = torch.as_tensor(pages[k])
+            v.index_copy_(1, idx, src.to(device=self.device, dtype=v.dtype))
+
+    def export_pages(
+        self, i: int, start: int = 0, stop: Optional[int] = None
+    ) -> Dict[str, torch.Tensor]:
+        """Host copies of the pages slot ``i`` holds, in LOGICAL order:
+        the donor half of a migration. Pages ship exactly as stored (int8
+        payloads and f32 scales, or the compute dtype's rows), so the
+        survivor attends to the same cache. ``start``/``stop`` slice the
+        logical range (a streaming handoff ships only what the last chunk
+        committed). Read-only: the slot keeps its pages until
+        ``release_slot``, so a torn transfer can re-export. Only the
+        device → host copy runs here; encoding is the caller's."""
+        self._check_stream()
+        n = self.alloc.slot_pages(i)
+        if stop is None:
+            stop = n
+        if not 0 <= start <= stop <= n:
+            raise ValueError(
+                f"page range [{start}, {stop}) outside the {n} pages "
+                f"slot {i} holds"
+            )
+        idx = self._page_index(self.alloc.block_tables()[i, start:stop])
+        return {k: v.index_select(1, idx).cpu()
+                for k, v in self.pools.items()}
+
+    def stage_pages(
+        self, tag: str, page_start: int, pages: Dict[str, torch.Tensor]
+    ) -> None:
+        """Scatter streamed handoff payloads into the physical pages of
+        migration reservation ``tag`` BEFORE it commits, so the final
+        ``import_slot(..., pages=None)`` only rebuilds host state.
+        Reserved pages are off the free list and in no block table, so
+        no step reads or writes them: another thread may stage while the
+        loop steps (on the engine's stream, in place). A write per
+        logical range is idempotent (a restarted stream re-stages the
+        same payloads into the same cells)."""
+        phys = self.alloc.reservation(tag)
+        if not phys:
+            raise KeyError(f"no migration reservation {tag!r}")
+        if set(pages) != set(self.pools):
+            raise ValueError(
+                f"staged pages carry pools {sorted(pages)}; this engine "
+                f"stores {sorted(self.pools)} (mode={self.geom.mode})"
+            )
+        n = next(iter(pages.values())).shape[1]
+        if n == 0:
+            return
+        if page_start + n > len(phys):
+            raise ValueError(
+                f"fragment pages [{page_start}, {page_start + n}) exceed "
+                f"the {len(phys)}-page reservation {tag!r}"
+            )
+        self._scatter_pages(phys[page_start:page_start + n], pages)
+
+    def note_handoff_bytes(self, n: int) -> None:
+        """Account wire bytes a handoff shipped from this engine (the
+        coordinator encodes on its own thread, out of the engine's
+        sight)."""
+        self._handoff_bytes += int(n)
+
+    def release_slot(self, i: int, *, reason: str = "migrated_out") -> None:
+        """Drop a slot whose request moved out: free its pages without
+        resolving the request's future (its new owner finishes it).
+        ``reason`` is ``"migrated_out"`` (a failover migration),
+        ``"handoff_out"`` (a committed prefill → decode handoff) or
+        ``"handoff_abort"`` (a degraded handoff: the request re-prefills
+        elsewhere, so no success counter moves)."""
+        s = self.slots[i]
+        if s is None:
+            return
+        if s.span is not None:
+            s.span.end(tokens=len(s.generated), reason=reason)
+            s.span = None
+        self.alloc.evict(i)
+        self.slots[i] = None
+        if reason == "handoff_out":
+            self._handoffs_out += 1
+        elif reason == "migrated_out":
+            self._migrated_out += 1
+
+    def import_slot(
+        self,
+        req: Request,
+        pages: Optional[Dict[str, torch.Tensor]],
+        *,
+        phase: str,
+        n_prefilled: int,
+        generated: Sequence[int],
+        reserved_tag: Optional[str] = None,
+        handoff: bool = False,
+    ) -> int:
+        """Adopt a migrated (or handed-off) request mid-stream into a
+        free slot: commit the pages reserved under ``reserved_tag`` (or
+        admit a fresh footprint when None), scatter the donated payloads
+        into them and rebuild the lane where the donor stopped — the
+        same positions and generated prefix. The draws are keyed on the
+        request's seed and the absolute position, so the continuation is
+        the never-migrated stream.
+
+        ``pages=None`` (with a ``reserved_tag``) commits a reservation
+        whose payloads ``stage_pages`` already wrote. Raises
+        ``AdmissionError`` (with a retry-after hint) when no lane is
+        free and ``ValueError`` on a footprint or geometry mismatch;
+        both leave the caller on the re-prefill fallback."""
+        if pages is None and reserved_tag is None:
+            raise ValueError(
+                "import_slot(pages=None) needs a reserved_tag whose pages "
+                "were staged via stage_pages"
+            )
+        try:
+            idx = self.slots.index(None)
+        except ValueError:
+            raise AdmissionError(
+                f"no free slot for migrated request {req.rid}",
+                retry_after_s=self.scheduler.retry_after_hint(),
+            ) from None
+        if pages is not None and set(pages) != set(self.pools):
+            raise ValueError(
+                f"migrated pages carry pools {sorted(pages)}; this engine "
+                f"stores {sorted(self.pools)} (mode={self.geom.mode})"
+            )
+        if reserved_tag is not None:
+            phys = self.alloc.commit_migration(reserved_tag, idx)
+        else:
+            if not self.alloc.can_admit(req.total_tokens):
+                raise AdmissionError(
+                    f"no pages for migrated request {req.rid}",
+                    retry_after_s=self.scheduler.retry_after_hint(),
+                )
+            self.alloc.admit(idx, req.total_tokens)
+            n = self.alloc.slot_pages(idx)
+            phys = [int(p) for p in self.alloc.block_tables()[idx, :n]]
+        if pages is not None:
+            n_held = next(iter(pages.values())).shape[1]
+            if n_held > len(phys):
+                self.alloc.evict(idx)
+                raise ValueError(
+                    f"migrated request {req.rid} holds {n_held} pages but "
+                    f"the reservation covers {len(phys)} — geometry mismatch"
+                )
+            if n_held:
+                self._scatter_pages(phys[:n_held], pages)
+        slot = _Slot(
+            req=req,
+            phase=phase,
+            prompt=np.asarray(req.prompt, np.int32),
+            n_prefilled=int(n_prefilled),
+            generated=[int(t) for t in generated],
+        )
+        tr = get_tracer()
+        if tr.enabled and phase == "decode":
+            slot.span = tr.begin(
+                "serving.decode", rid=req.rid,
+                replica=self.scheduler.replica, slot=idx, resumed=True,
+            )
+        self.slots[idx] = slot
+        # the imported prompt pages enter this replica's index (sharing
+        # does not travel the wire: the donor ships private copies)
+        self._intern_full_pages(idx, slot)
+        if self._t0 is None:
+            self._t0 = time.monotonic()
+        if handoff:
+            self._handoffs_in += 1
+        else:
+            self._migrated_in += 1
+        return idx
+
     # ---- model steps -----------------------------------------------------
 
     def _prefill_one(self) -> bool:
@@ -544,9 +991,21 @@ class ServingEngine:
             return True
         return False
 
+    def _prefill_all(self) -> bool:
+        """Prefill-role stepping: every prefill slot advances one chunk
+        this step (there is no decode batch to interleave with)."""
+        todo = [
+            (i, s) for i, s in enumerate(self.slots)
+            if s is not None and s.phase == "prefill"
+        ]
+        for i, s in todo:
+            self._prefill_slot(i, s)
+        return bool(todo)
+
     def _prefill_slot(self, i: int, s: _Slot) -> None:
         """Advance one slot by one prefill chunk; the last chunk draws
-        the first generated token at the last valid position."""
+        the first generated token at the last valid position. The roles
+        differ only in where a finished prompt goes."""
         p = len(s.prompt)
         clen = min(self.prefill_chunk, p - s.n_prefilled)
         chunk = np.zeros(self.prefill_chunk, np.int32)
@@ -576,10 +1035,37 @@ class ServingEngine:
         self._prefill_chunks += 1
         self._intern_full_pages(i, s)
         if s.n_prefilled < p:
+            if self.role == "prefill" and self.handoff_sink is not None:
+                # streaming handoff: the chunk may have filled whole
+                # pages; they ship while the next chunk computes
+                self.handoff_sink(i, s, "chunk")
             return
         s.generated = [int(tok0[0])]
         self.scheduler.record_first_token(s.req)
         self._tokens += 1
+        if self.role == "prefill":
+            if self._slot_done(s):
+                # finished at its first token: nothing to decode
+                # downstream; complete here, cancel streamed fragments
+                self.scheduler.complete(
+                    s.req, [int(t) for t in s.prompt] + s.generated
+                )
+                self.alloc.evict(i)
+                self.slots[i] = None
+                if self.handoff_sink is not None:
+                    self.handoff_sink(i, s, "local_done")
+                return
+            if self.handoff_sink is None:
+                raise RuntimeError(
+                    f"prefill-role engine finished {s.req.rid} with no "
+                    "handoff sink attached: wire a HandoffCoordinator "
+                    "(serving/disagg.py) or run role='unified'"
+                )
+            # park until the decode replica commits; the coordinator
+            # releases the slot once the handoff lands
+            s.phase = "handoff"
+            self.handoff_sink(i, s, "done")
+            return
         s.phase = "decode"
         if tr.enabled:
             # the long occupancy span: first token → finish
@@ -619,6 +1105,7 @@ class ServingEngine:
         )
         tok = self._draw(logits, range(self.n_slots), pos + 1)
         self._step_time += time.monotonic() - t0
+        self._decode_steps += 1
         for i in live:
             self.slots[i].generated.append(int(tok[i]))
             self._tokens += 1

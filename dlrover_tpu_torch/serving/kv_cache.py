@@ -21,8 +21,12 @@ layer's slice is a contiguous view; the decoder writes into them in
 place. The host side (``PageAllocator``) is plain numpy + a free list,
 with per-page refcounts for prefix sharing (``admit_shared`` maps a
 committed prefix into a new slot, ``cow_page`` gives a slot its own copy
-of a shared page). The migration reservations are not ported yet
-(ROADMAP A15).
+of a shared page). Live page migration between replicas
+(``serving/migration.py``) and the prefill → decode handoff
+(``serving/disagg.py``) hold their landing pages through the
+allocator's named reservations (``reserve_for_migration`` /
+``commit_migration`` / ``abort_migration``), so an in-flight transfer
+never loses its pages to admission.
 """
 
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -69,9 +73,10 @@ def make_geometry(
     max_len: int,
     page_size: int = 16,
     mode: str = "int8",
+    slack_pages: int = 0,
 ) -> PageGeometry:
     """Geometry sized so ``n_slots`` concurrent sequences of ``max_len``
-    tokens always fit, plus the trash page."""
+    tokens always fit, plus ``slack_pages`` headroom and the trash page."""
     if mode not in ("bf16", "int8"):
         raise ValueError(f"mode must be bf16|int8, got {mode}")
     max_pages = -(-max_len // page_size)
@@ -81,7 +86,7 @@ def make_geometry(
         kv_heads=cfg.kv_heads,
         head_dim=cfg.head_dim,
         page_size=page_size,
-        n_pages=1 + n_slots * max_pages,
+        n_pages=1 + n_slots * max_pages + slack_pages,
         max_pages_per_slot=max_pages,
         mode=mode,
         dtype=str(cfg.dtype),
@@ -132,7 +137,11 @@ class PageAllocator:
     when prefix sharing maps one committed page into several slots;
     page 0 (trash) is never handed out; ``evict`` decrements each held
     page's refcount and frees only the pages that reach 0; free +
-    assigned-unique is a partition of pages 1..n_pages-1. Pages are
+    assigned-unique + reserved is a partition of pages 1..n_pages-1.
+    Reservations are the migration footprint hold: pages moved from the
+    free list into a named bucket, invisible to ``can_admit``/``ensure``
+    until ``commit_migration`` assigns them to a slot or
+    ``abort_migration`` returns them. Pages are
     popped in ascending order, the same discipline as the JAX
     allocator, so the same trace gives the same tables in both
     packages. Mutations are not locked — the engine thread owns the
@@ -147,6 +156,7 @@ class PageAllocator:
         self.n_slots = n_slots
         # pop() yields ascending physical pages — deterministic layouts
         self._free = list(range(geom.n_pages - 1, TRASH_PAGE, -1))
+        self._reserved: Dict[str, List[int]] = {}
         self._tables = np.full(
             (n_slots, geom.max_pages_per_slot), -1, np.int32
         )
@@ -191,6 +201,14 @@ class PageAllocator:
         """Distinct physical pages held by any slot — the denominator of
         the dedup ratio (slot cells / unique pages)."""
         return int(np.count_nonzero(self._rc))
+
+    @property
+    def reserved_pages(self) -> int:
+        return sum(len(p) for p in self._reserved.values())
+
+    def reservation(self, tag: str) -> Tuple[int, ...]:
+        """The physical pages held under ``tag`` (empty if none)."""
+        return tuple(self._reserved.get(tag, ()))
 
     def block_tables(self) -> np.ndarray:
         """A host-side snapshot of the [n_slots, max_pages] table, cached
@@ -314,3 +332,42 @@ class PageAllocator:
         if freed and self.on_free is not None:
             self.on_free(freed)
         return n
+
+    # ---- migration reservations ------------------------------------------
+
+    def reserve_for_migration(self, tag: str, n_tokens: int) -> bool:
+        """Hold the full page footprint of an incoming migrated request
+        under ``tag``. False (state unchanged) when the free list cannot
+        cover it: the caller sheds, backs off and retries."""
+        if tag in self._reserved:
+            raise ValueError(f"migration tag {tag!r} already reserved")
+        need = self.pages_needed(n_tokens)
+        if need > self.geom.max_pages_per_slot or need > len(self._free):
+            return False
+        self._reserved[tag] = [self._free.pop() for _ in range(need)]
+        return True
+
+    def commit_migration(self, tag: str, slot: int) -> List[int]:
+        """Assign the reservation's pages to an EMPTY slot's table row in
+        reservation order (logical page i → reserved page i); returns
+        the physical pages, where the importer scatters the payloads."""
+        if tag not in self._reserved:
+            raise KeyError(f"no migration reservation {tag!r}")
+        if self._n_pages[slot]:
+            raise ValueError(f"slot {slot} already holds pages")
+        pages = self._reserved.pop(tag)
+        for i, p in enumerate(pages):
+            self._tables[slot, i] = p
+            self._rc[p] = 1
+        self._n_pages[slot] = len(pages)
+        if pages:
+            self._mutated()
+        return list(pages)
+
+    def abort_migration(self, tag: str) -> int:
+        """Return a reservation's pages to the free list (a torn transfer,
+        the fall back to re-prefill). A missing tag is a no-op, so any
+        phase's unwind may call it."""
+        pages = self._reserved.pop(tag, [])
+        self._free.extend(pages)
+        return len(pages)

@@ -8,9 +8,16 @@ call ``submit`` (non-blocking; the returned ``Request`` carries a
 ``concurrent.futures.Future``) or ``generate`` (blocking convenience);
 the loop sleeps briefly when fully idle instead of spinning.
 
+``kill`` stops the loop abruptly WITHOUT resolving in-flight futures:
+the eviction drill. A replica dying mid-stream leaves its requests
+dangling until ``ReplicaRouter.poll`` migrates their KV pages to a
+survivor, or re-admits them where migration is unavailable
+(``serving/replica.py``, ``serving/migration.py``).
+
 ``paused()`` is the concurrency contract for anything that must touch
-the engine's pools, allocator or slots from another thread: the loop
-parks at a step boundary and the caller gets exclusive access.
+the engine's pools, allocator or slots from another thread (a migrator
+reserving pages or importing a slot): the loop parks at a step
+boundary and the caller gets exclusive access.
 """
 
 import contextlib
@@ -20,7 +27,7 @@ import time
 from dlrover_tpu_torch.observability.tracing import get_tracer
 from dlrover_tpu_torch.serving.engine import ServingEngine
 from dlrover_tpu_torch.serving.scheduler import (
-    Request, SamplingParams, Scheduler,
+    AdmissionError, Request, SamplingParams, Scheduler,
 )
 
 
@@ -29,7 +36,10 @@ class GenerationServer:
 
     ``model`` is a ``models.decoder.Decoder``; ``device`` (default
     ``"cuda"``, raising without a card) and the other engine options
-    pass through ``engine_kw`` to ``ServingEngine``."""
+    pass through ``engine_kw`` to ``ServingEngine``. ``watchdog`` (an
+    ``observability.watchdog.ServingWatchdog``) observes every
+    published record; its capture snapshot defaults to the engine's
+    ``observability_snapshot``."""
 
     def __init__(
         self,
@@ -41,6 +51,7 @@ class GenerationServer:
         max_queue: int = 256,
         publish_every: float = 0.5,
         idle_sleep: float = 0.002,
+        watchdog=None,
         **engine_kw,
     ):
         self.replica = replica
@@ -48,6 +59,9 @@ class GenerationServer:
             max_queue=max_queue, hub=hub, replica=replica
         )
         self.engine = ServingEngine(model, cfg, self.scheduler, **engine_kw)
+        self.watchdog = watchdog
+        if watchdog is not None and watchdog.snapshot_fn is None:
+            watchdog.snapshot_fn = self.engine.observability_snapshot
         self.publish_every = publish_every
         self.idle_sleep = idle_sleep
         self._stop_evt = threading.Event()
@@ -80,11 +94,18 @@ class GenerationServer:
             self._thread.join(timeout)
             self._thread = None
 
+    def kill(self) -> None:
+        """Abrupt stop standing in for a host eviction: the loop halts at
+        the next step boundary and in-flight futures stay UNRESOLVED for
+        the router's failover to pick up."""
+        self.stop()
+
     @contextlib.contextmanager
     def paused(self, timeout: float = 30.0):
         """Exclusive engine access at a step boundary: parks the loop
         thread, yields the engine, then resumes it. A pass-through when
-        the loop is not running."""
+        the loop is not running (a killed replica: the migration donor
+        case)."""
         with self._pause_lock:
             if not self.alive:
                 yield self.engine
@@ -146,6 +167,8 @@ class GenerationServer:
     def _publish(self) -> None:
         stats = self.engine.stats()
         rec = self.scheduler.publish(stats)
+        if self.watchdog is not None:
+            self.watchdog.observe(rec)
         tr = get_tracer()
         if tr.enabled:
             tr.counter(
@@ -171,6 +194,29 @@ class GenerationServer:
             prompt, max_new_tokens, eos_id=eos_id, priority=priority,
             sampling=sampling, deadline_s=deadline_s,
         )
+
+    @property
+    def role(self) -> str:
+        """This replica's pool in a disaggregated fleet: ``"prefill"``,
+        ``"decode"`` or ``"unified"``."""
+        return self.engine.role
+
+    def re_admit(self, req: Request) -> None:
+        """Re-prefill failover intake, the migration ladder's fallback:
+        requeue another replica's in-flight request under its original
+        ticket; generation restarts from the prompt and, the draws being
+        keyed on seed and position, repeats the original stream.
+
+        Refused on a decode-role replica: a raw re-admission would run a
+        full prefill on the decode path, the interference the split
+        removes. Role-aware callers (the router) route the ticket
+        through the prefill pool instead."""
+        if self.engine.role == "decode":
+            raise AdmissionError(
+                f"decode-role replica {self.replica} cannot re-prefill "
+                f"{req.rid}: route it through the prefill pool"
+            )
+        self.scheduler.re_admit(req)
 
     def generate(
         self, prompt, max_new_tokens: int, eos_id=None,

@@ -175,3 +175,41 @@ def test_the_hook_does_block_the_jax_package():
     res = _run("import dlrover_tpu.ops.quant\n")
     assert res.returncode != 0
     assert "blocked import of dlrover_tpu" in res.stderr
+
+
+# the rest of the serving tier: the roles, the live migration and its
+# wire, the handoff, the router, the serving autoscaler (the JAX wire
+# names bfloat16 through jax.numpy, or ml_dtypes: the port may use
+# neither, and the card's machine has no ml_dtypes)
+SERVING_MODULES = (
+    "serving.kv_cache", "serving.engine", "serving.server",
+    "serving.migration", "serving.disagg", "serving.replica",
+    "master.serving_autoscaler", "observability.histogram",
+    "ops.paged_attention",
+)
+
+
+def test_the_serving_tier_imports_without_jax_or_ml_dtypes():
+    _stand_alone(SERVING_MODULES)
+    res = _run("names = %r\n" % (SERVING_MODULES,) + r"""
+for name in names:
+    importlib.import_module("dlrover_tpu_torch." + name)
+import torch
+from dlrover_tpu_torch.serving import migration as mig
+snap = mig.RequestSnapshot(
+    rid="r", prompt=[1], generated=[], n_prefilled=0, phase="prefill",
+    max_new_tokens=1, seed=0, mode="bf16", page_size=2, n_layers=1,
+    kv_heads=1, head_dim=2, kv_block=2,
+    pages={"k": torch.ones(1, 1, 2, 1, 2, dtype=torch.bfloat16),
+           "v": torch.zeros(1, 1, 2, 1, 2, dtype=torch.bfloat16)})
+back = mig.decode_snapshot(mig.encode_snapshot(snap))
+assert back.pages["k"].dtype == torch.bfloat16
+assert torch.equal(back.pages["k"], snap.pages["k"])
+assert b'"dtype": "bfloat16"' in mig.encode_snapshot(snap)
+print("ml_dtypes" in sys.modules)
+""")
+    assert res.returncode == 0, res.stderr[-4000:]
+    assert res.stdout.split()[-1] == "False"
+    for name in SERVING_MODULES:
+        assert not re.search(r"^\s*(from|import)\s+ml_dtypes\b",
+                             _source(name), re.M), name

@@ -127,7 +127,7 @@ def test_allocator_trace_matches_jax():
 
 
 def test_no_hidden_cpu_and_unported_options_raise(setup):
-    _, cfg, _, model, _ = setup
+    _, cfg, _, model, prompts = setup
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             ServingEngine(model, cfg, Scheduler())
@@ -136,10 +136,33 @@ def test_no_hidden_cpu_and_unported_options_raise(setup):
         with pytest.raises(RuntimeError, match="cuda"):
             ServingEngine(model, cfg, Scheduler(), spec_k=2,
                           prefix_sharing=True)
-    for bad in (dict(role="prefill"), dict(role="decode"),
-                dict(paged=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-            ServingEngine(model, cfg, Scheduler(), device="cpu", **bad)
+    # the roles are ported (tests/test_torch_fleet.py holds the fleet
+    # against the JAX package): each serves here, a prefill replica
+    # handing its prompts to a decode replica; the gather engine is not
+    from dlrover_tpu_torch.serving.replica import (
+        ReplicaRouter, ServingReplica,
+    )
+
+    for role in ("prefill", "decode"):
+        assert ServingEngine(model, cfg, Scheduler(), device="cpu",
+                             role=role, **_ENGINE).role == role
+    with pytest.raises(ValueError, match="role"):
+        ServingEngine(model, cfg, Scheduler(), device="cpu", role="both")
+    reps = [ServingReplica(f"r-{role}", model, cfg, role=role, device="cpu",
+                           **_ENGINE).start()
+            for role in ("prefill", "decode")]
+    router = ReplicaRouter(reps)
+    try:
+        router.submit(prompts[0], 3)
+        assert len(router.wait_all(timeout=60)[0]) == len(prompts[0]) + 3
+        assert reps[1].server.engine.stats()["handoffs_in"] == 1
+    finally:
+        router.close()
+        for r in reps:
+            r.stop()
+    with pytest.raises(NotImplementedError, match="gather engine.*ROADMAP "
+                       "A15"):
+        ServingEngine(model, cfg, Scheduler(), device="cpu", paged=False)
 
 
 def test_bad_requests_fail_their_own_futures(setup):

@@ -183,6 +183,11 @@ def _shared_records(mod):
         mod.record_types()["JobMetrics"](
             job_name="j", job_kind="gpt", timestamp=5.0, worker_num=2,
             steps_per_sec=1.5, finished=True, ts=14.0),
+        mod.ScaleDecisionRecord(role="decode", direction="out",
+                                signal="tpot_breach", value=9.0, target=4.0,
+                                n_before=1, n_after=2, version=7,
+                                reaction_s=0.31, replica="spare-0",
+                                reason="tpot 9>4", ts=15.0),
     ]
 
 
@@ -236,8 +241,7 @@ def test_a_port_flight_record_replays_to_the_jax_report(tmp_path, capsys):
     theirs = jhc.diagnose(jhc.load_records(path))
     for key in mine:
         assert mine[key] == theirs[key], key
-    assert set(theirs) - set(mine) == {"serving", "sparse_serving",
-                                       "scale_decisions"}
+    assert set(theirs) - set(mine) == {"sparse_serving"}
     assert not any(theirs[k] for k in set(theirs) - set(mine))
     assert thc.format_report(mine) == jhc.format_report(theirs)
     assert mine["world"] == 3 and not mine["healthy"]

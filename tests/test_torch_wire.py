@@ -172,8 +172,7 @@ def test_a_failing_get_raises_remote_error(server):
 
 
 @pytest.mark.parametrize("name,item", [
-    ("ServingEvictionNotice", "A15"), ("ServingScaleRequest", "A15"),
-    ("NetworkReadyRequest", "A20"),
+    ("NetworkReadyRequest", "A20"), ("StrategySearchRequest", "A20"),
 ])
 def test_an_unported_handler_answers_with_its_roadmap_item(server, name,
                                                             item):
@@ -215,13 +214,21 @@ ANSWERED = [
     jmsgs.BrainJobMetricsRequest(job_name="j"),
     jmsgs.NetworkCheckResult(node_id=0, elapsed_time=1.5, succeeded=True),
     jmsgs.NetworkCheckStatusRequest(node_id=0),
+    # the serving tier's messages (refused before A15 came)
+    jmsgs.ServingEvictionNotice(node_id=0, replica="serving-7",
+                                in_flight=2, deadline_s=5.0, reason="evict"),
+    jmsgs.ServingReshardRequest(node_id=0),
+    jmsgs.ServingScaleNotice(node_id=0, role="decode", direction="out",
+                             n_before=1, n_after=2, signal="tpot_breach"),
+    jmsgs.ServingScaleRequest(node_id=0, role="decode"),
 ]
 
 
 @pytest.mark.parametrize("msg", ANSWERED, ids=lambda m: type(m).__name__)
 def test_a_jax_encoded_message_is_answered_as_the_jax_master_answers(msg):
     """The cases that were refused before the planning loop came (the
-    tuning, parallel-config, PS version and Brain messages): the port's
+    tuning, parallel-config, PS version and Brain messages) and before
+    the serving tier came (its reshard and scale messages): the port's
     master over its transport and the JAX master's servicer, each with a
     node registered, a tuning directive and a sparse server set, answer
     the same bytes, and the state after a report is the same. The Brain
@@ -241,6 +248,9 @@ def test_a_jax_encoded_message_is_answered_as_the_jax_master_answers(msg):
                                                        node_rank=0))
         for m in (jm, master.job_manager):
             m.plan_tuning(_TUNING, reason="oom")
+            m.plan_serving_reshard("serving-7", survivors=["serving-8"],
+                                   deadline_s=3.0, reason="drain")
+            m.plan_serving_scale("decode", 3, reason="tpot")
         for ps in (jps, master.ps_service):
             ps.set_servers(["ps-0", "ps-1"])
             ps.set_weights({"ps-0": 0.5})
@@ -254,6 +264,10 @@ def test_a_jax_encoded_message_is_answered_as_the_jax_master_answers(msg):
         assert master.ps_service.get_node_version(3) == \
             jps.get_node_version(3)
         assert master.job_manager.get_tuning() == jm.get_tuning()
+        assert master.job_manager.get_serving_reshard() == \
+            jm.get_serving_reshard()
+        assert master.job_manager.get_serving_scale() == \
+            jm.get_serving_scale()
     finally:
         master.stop()
 
